@@ -1,0 +1,33 @@
+"""Model registry: name → ModelSpec (transformer family only so far).
+
+Counterpart of ``kubeflow_tpu/models/registry.py``. BERT and ResNet join
+the registry when their modules are ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+from kubeflow_tpu_torch.models import transformer
+
+
+@dataclass(frozen=True)
+class ModelSpec:
+    name: str
+    family: str
+    config: Any
+    init: Callable          # (cfg, *, generator, device) -> params
+
+
+def get_model(name: str, **overrides) -> ModelSpec:
+    if name in transformer.PRESETS:
+        return ModelSpec(name=name, family="transformer",
+                         config=transformer.config(name, **overrides),
+                         init=transformer.init)
+    raise KeyError(
+        f"unknown model {name!r}; available: {sorted(list_models())}")
+
+
+def list_models() -> list[str]:
+    return list(transformer.PRESETS)

@@ -1,0 +1,149 @@
+"""Host-side block allocator for the paged KV cache.
+
+A copy of ``kubeflow_tpu/serving/kv_allocator.py`` (pure host logic, no
+JAX), kept in this package so the port imports nothing of the JAX one.
+The paged decode layout (``models/decode.py:init_paged_state``) stores K/V
+in a device pool of fixed-size blocks; this module decides *which*
+physical blocks back each slot's virtual positions:
+
+- a **free list** of physical block ids (LIFO, so hot blocks are reused
+  while still cache-resident),
+- a **refcount** per block. ``alloc`` hands out blocks at refcount 1;
+  ``share`` bumps a live block; ``free`` drops a reference and returns
+  the block to the free list when the last holder lets go.
+
+Every transition is guarded: sharing a free block or freeing a block
+below refcount zero raises instead of silently corrupting the pool.
+"""
+
+from __future__ import annotations
+
+# One float32 abs-max scale per (layer, position, kv head) rides each
+# int8 payload byte stream — the scale pool is indexed by the SAME block
+# ids, so every refcount transition below covers payload and scales as
+# one unit.
+KV_SCALE_BYTES = 4
+
+
+def kv_bytes_per_token(n_layers: int, n_kv_heads: int, head_dim: int,
+                       fp_bytes: int, kv_dtype: str = "fp",
+                       tp_shards: int = 1) -> int:
+    """HBM bytes one resident K+V position costs in the paged pool,
+    PER CHIP.
+
+    ``fp``: ``2 * L * Hkv * hd * fp_bytes``. ``int8``: the payload drops
+    to one byte per element but each (position, head) carries a
+    :data:`KV_SCALE_BYTES` scale, so the per-head cost is
+    ``hd + KV_SCALE_BYTES`` — the honest number an autoscaler must see
+    (scale overhead is why int8 is ~``fp_bytes * hd / (hd + 4)``x, not
+    exactly ``fp_bytes``x, denser).
+
+    ``tp_shards``: a tensor-parallel replica shards the pool over the
+    KV-head axis, so each of its chips holds ``Hkv / tp`` heads per
+    position. The pool-fill gauges priced off this number must reflect
+    real per-chip HBM — a tp=4 replica whose gauges reported the
+    host-global (summed) bytes would look 4x fuller than any of its
+    chips actually is, and the autoscaler and gateway spill would
+    misread the pool."""
+    if tp_shards < 1:
+        raise ValueError(f"tp_shards must be >= 1, got {tp_shards}")
+    if n_kv_heads % tp_shards:
+        raise ValueError(
+            f"{n_kv_heads} kv heads not divisible by tp_shards "
+            f"{tp_shards}")
+    if kv_dtype == "int8":
+        per_head = head_dim + KV_SCALE_BYTES
+    elif kv_dtype in ("", "fp"):
+        per_head = head_dim * fp_bytes
+    else:
+        raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
+    return 2 * n_layers * (n_kv_heads // tp_shards) * per_head
+
+
+class BlockAllocator:
+    """Free list + refcounts over ``num_blocks`` physical KV blocks.
+
+    ``bytes_per_token`` (set by the owner from
+    :func:`kv_bytes_per_token`) prices the pool in real device bytes so
+    stats consumers see bytes resident, not just block counts whose
+    meaning shifts with ``kv_dtype``."""
+
+    def __init__(self, num_blocks: int, block_size: int,
+                 bytes_per_token: int = 0):
+        if num_blocks <= 0:
+            raise ValueError("BlockAllocator needs at least one block")
+        if block_size <= 0:
+            raise ValueError("block_size must be positive")
+        if bytes_per_token < 0:
+            raise ValueError("bytes_per_token must be >= 0")
+        self.num_blocks = num_blocks
+        self.block_size = block_size
+        self.bytes_per_token = bytes_per_token
+        # LIFO free list: ascending ids pop first (determinism helps the
+        # byte-identity tests pin block placement).
+        self._free = list(range(num_blocks - 1, -1, -1))
+        self._refs = [0] * num_blocks
+
+    # -- introspection -------------------------------------------------
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def blocks_in_use(self) -> int:
+        return self.num_blocks - len(self._free)
+
+    @property
+    def bytes_in_use(self) -> int:
+        """HBM bytes currently claimed (0 when unpriced)."""
+        return self.blocks_in_use * self.block_size * self.bytes_per_token
+
+    @property
+    def bytes_total(self) -> int:
+        """HBM bytes of the whole pool (0 when unpriced)."""
+        return self.num_blocks * self.block_size * self.bytes_per_token
+
+    def ref_count(self, block: int) -> int:
+        return self._refs[block]
+
+    def blocks_for(self, tokens: int) -> int:
+        """Worst-case block count for ``tokens`` KV positions (>= 1, so a
+        zero-token degenerate request still reserves a write target)."""
+        return max(1, -(-int(tokens) // self.block_size))
+
+    def can_alloc(self, n: int) -> bool:
+        return n <= len(self._free)
+
+    # -- transitions ---------------------------------------------------
+
+    def alloc(self, n: int) -> list[int]:
+        """Claim ``n`` blocks at refcount 1. Raises ``MemoryError`` when
+        the pool cannot serve the request — callers gate on
+        :meth:`can_alloc` under their lock, so hitting this means a
+        bookkeeping bug, not backpressure."""
+        if n > len(self._free):
+            raise MemoryError(
+                f"requested {n} KV blocks but only {len(self._free)} of "
+                f"{self.num_blocks} are free"
+            )
+        out = [self._free.pop() for _ in range(n)]
+        for b in out:
+            self._refs[b] = 1
+        return out
+
+    def share(self, block: int) -> None:
+        """Add a reference to a LIVE block (zero-copy prefix sharing)."""
+        if self._refs[block] <= 0:
+            raise ValueError(f"sharing free block {block}")
+        self._refs[block] += 1
+
+    def free(self, block: int) -> None:
+        """Drop one reference; the last drop returns the block to the
+        free list. Freeing an already-free block raises — a double free
+        would let two slots scribble over each other's KV."""
+        if self._refs[block] <= 0:
+            raise ValueError(f"double free of block {block}")
+        self._refs[block] -= 1
+        if self._refs[block] == 0:
+            self._free.append(block)
