@@ -4,11 +4,14 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with an NVIDIA Hopper card.
-It builds the port's kernels from the checkout's sources, holds each
-against its plain PyTorch version at the serving shapes, serves
-``llama-1b`` at full width through the port's REST ``ModelServer`` with
-the paged KV cache read by the paged decode kernel, and checks the
-output. Phases, each printed as one JSON line:
+It builds the port's kernels from the checkout's sources (one ``nvcc``
+per CUDA source, all at once, beside Triton's first compile), holds each
+against its plain PyTorch version at the shapes its main path gives it,
+serves ``llama-1b`` at full width through the port's REST ``ModelServer``
+with the paged KV cache read by the paged decode kernel, trains
+``flagship-1b`` at full width through the port's training loop with
+attention in the flash kernels, and checks the output. Phases, each
+printed as one JSON line:
 
 (a) the card and the kernels' build times;
 (b) the paged decode kernel against ``_paged_decode_plain`` (bf16, f32
@@ -22,6 +25,32 @@ output. Phases, each printed as one JSON line:
     exactly ``n_layers`` times per decode forward;
 (e) the same requests at float32 with the fused read on and off: the
     greedy tokens must be identical;
+(g) the flash attention kernels (forward; backward from one output
+    cotangent) against ``_flash_fwd_plain`` / ``_flash_bwd_plain`` on the
+    same inputs: the training shape (B=4, T=S=2048, Hq=32, Hkv=4, D=128,
+    causal) in bf16 and f32, non-causal with a kv mask that masks a whole
+    batch row, a ragged T=S=1000, D=64, G=1, and the ``"pallas"`` name
+    beside ``"splash"``. Tolerances (both sides compute in f32 and differ
+    in the order of the sums; in bf16 each rounds its outputs to bf16
+    once): f32 out and lse 1e-4, f32 gradients 1e-4 of the largest
+    reference gradient and a difference whose norm is within 1e-5 of the
+    reference's; bf16 out 1e-2, lse 1e-4, gradients 2e-2 of the largest
+    reference gradient and a difference whose norm is within 2^-8 (half
+    a bf16 ulp at the bottom of a binade) of the reference's, so an error
+    of a few percent on typical gradients fails even where the largest
+    one hides it. Times at the training shape beside the
+    plain versions, the bound and ``F.scaled_dot_product_attention``
+    (forward, and backward alone), a yardstick the port never calls;
+(h) the training main path: ``train.loop.run`` at ``flagship-1b``, batch
+    4 x seq 2048, adafactor with a 2-step warmup, bf16, 8 steps; losses
+    and gradient norms finite, the first loss near ln(vocab), and each
+    flash kernel launched exactly n_layers times a step; tokens/s and
+    MFU (``bench.py``'s formula against 989 TFLOP/s) over the whole
+    window of steps 2-8, and the median step time beside them;
+(i) float32 parity: ``flagship-1b`` at full width in f32, batch 1 x seq
+    1024, 3 train steps with ``attn_impl="splash"`` (the kernels) and
+    ``"xla"`` (plain): losses and gradient norms within 1e-5 relative,
+    parameters within 1e-5 of each leaf's largest magnitude;
 (f) the kernel table: each kernel's launches on the main path, its
     error, its time, its plain version's time and its bound.
 
@@ -48,6 +77,15 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 PAGED_TOL = 2e-3
+# Flash kernels against their plain versions: {dtype: (out, lse, grads as
+# a fraction of the largest reference gradient, the norm of the gradients'
+# difference as a fraction of the reference's norm)}; see the docstring.
+FLASH_TOL = {torch.float32: (1e-4, 1e-4, 1e-4, 1e-5),
+             torch.bfloat16: (1e-2, 1e-4, 2e-2, 2.0 ** -8)}
+# The training shape of flagship-1b at batch 4 x seq 2048.
+FLASH_MAIN = dict(b=4, t=2048, s=2048, hq=32, hkv=4, hd=128, causal=True)
+PLAIN_BLOCK_K = 1024  # flagship-1b's attn_block_k, for the plain path
+TRAIN_MODEL, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "flagship-1b", 4, 2048, 8
 
 MODEL = "llama-1b"
 SLOTS, MAX_SEQ, MAX_NEW, BLOCK = 8, 256, 32, 16
@@ -355,6 +393,327 @@ def phase_f32_parity() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# (g) flash attention kernels
+# ---------------------------------------------------------------------------
+
+
+def flash_inputs(dev, dtype, b, t, s, hq, hkv, hd, causal, seed=3):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    return (rand(b, t, hq, hd), rand(b, s, hkv, hd), rand(b, s, hkv, hd),
+            rand(b, t, hq, hd))
+
+
+def flash_plain(q, k, v, kv_mask, g, causal, scale):
+    """The plain versions on the kernels' layout: (out, lse [B, Hq, T],
+    dq, dk, dv)."""
+    from kubeflow_tpu_torch.ops import attention as A
+
+    b, t, hq, _ = q.shape
+    s_len, hkv = k.shape[1], k.shape[2]
+    kvm = A._fold_mask(kv_mask, b, s_len, hkv, q.device)
+    qf, kf, vf = A._fold_q(q, hkv), A._fold_kv(k), A._fold_kv(v)
+    block = PLAIN_BLOCK_K
+    out, lse = A._flash_fwd_plain(qf, kf, vf, kvm, causal=causal,
+                                  scale=scale, block_k=block)
+    dq, dk, dv = A._flash_bwd_plain(qf, kf, vf, kvm, out, lse,
+                                    A._fold_q(g, hkv), causal=causal,
+                                    scale=scale, block_k=block)
+    return (A._unfold_q(out, b), lse.reshape(b, hq, t), A._unfold_q(dq, b),
+            A._unfold_kv(dk, b), A._unfold_kv(dv, b))
+
+
+def flash_check(case: str, impl: str, dev, dtype, kv_mask=None, **shape):
+    """Kernels (through ``flash_attention`` and autograd, and the lse of
+    the forward launcher) against the plain versions on the same inputs;
+    returns the largest errors and raises past the tolerances."""
+    from kubeflow_tpu_torch import kernels
+    from kubeflow_tpu_torch.ops.attention import flash_attention
+
+    q, k, v, g = flash_inputs(dev, dtype, **shape)
+    causal, scale = shape["causal"], shape["hd"] ** -0.5
+    ref = flash_plain(q, k, v, kv_mask, g, causal, scale)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = flash_attention(*leaves, causal=causal, kv_mask=kv_mask,
+                          implementation=impl)
+    out.backward(g)
+    _, lse = kernels.flash_fwd(q, k, v, None if kv_mask is None
+                               else kv_mask.float().contiguous(), causal,
+                               scale)
+    torch.cuda.synchronize()
+    got = [out.detach(), lse] + [x.grad for x in leaves]
+    tol_out, tol_lse, tol_grad, tol_norm = FLASH_TOL[dtype]
+    errs, rel_norms = {}, {}
+    for name, a, r in zip(("out", "lse", "dq", "dk", "dv"), got, ref):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"flash {case} ({impl}): non-finite {name}")
+        diff = a.float() - r.float()
+        err = diff.abs().max().item()
+        limit = {"out": tol_out, "lse": tol_lse}.get(
+            name, tol_grad * r.float().abs().max().item())
+        if err > limit:
+            raise AssertionError(f"flash {case} ({impl}): {name} max abs "
+                                 f"error {err} > {limit}")
+        errs[name] = err
+        if name.startswith("d"):
+            rel = (diff.norm() / r.float().norm()).item()
+            if not rel <= tol_norm:
+                raise AssertionError(f"flash {case} ({impl}): {name} "
+                                     f"relative norm error {rel} > "
+                                     f"{tol_norm}")
+            rel_norms[name] = rel
+    if kv_mask is not None and not kv_mask[0].any():
+        if got[0][0].any() or got[2][0].any():
+            raise AssertionError(f"flash {case}: the fully masked row is "
+                                 "not 0")
+    return {"dtype": str(dtype), **shape, "implementation": impl,
+            "max_abs_err": errs, "grad_rel_norm_err": rel_norms}
+
+
+def causal_pairs(t: int, s_len: int, causal: bool) -> int:
+    """(query, key) pairs the attention attends: top-left causal."""
+    if not causal:
+        return t * s_len
+    return sum(min(i + 1, s_len) for i in range(t))
+
+
+def phase_flash(dev, flush) -> dict:
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch import kernels
+    from kubeflow_tpu_torch.ops import attention as A
+
+    m = FLASH_MAIN
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        cases.append(flash_check("main", "splash", dev, dtype, **m))
+    cases.append(flash_check("main", "pallas", dev, torch.bfloat16, **m))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    mask = torch.rand(2, 1024, generator=gen, device=dev) > 0.2
+    mask[0] = False
+    cases.append(flash_check("masked", "pallas", dev, torch.bfloat16, mask,
+                             **{**m, "b": 2, "t": 1024, "s": 1024,
+                                "causal": False}))
+    cases.append(flash_check("masked", "splash", dev, torch.float32, mask,
+                             **{**m, "b": 2, "t": 1024, "s": 1024,
+                                "causal": False}))
+    cases.append(flash_check("ragged", "splash", dev, torch.bfloat16,
+                             **{**m, "t": 1000, "s": 1000}))
+    cases.append(flash_check("hd64", "pallas", dev, torch.bfloat16,
+                             **{**m, "hd": 64}))
+    cases.append(flash_check("G1", "splash", dev, torch.bfloat16,
+                             **{**m, "hq": 8, "hkv": 8}))
+    max_err = {impl: {part: max(max(c["max_abs_err"][n] for n in names)
+                                for c in cases
+                                if c["implementation"] == impl)
+                      for part, names in (("fwd", ("out", "lse")),
+                                          ("bwd", ("dq", "dk", "dv")))}
+               for impl in ("splash", "pallas")}
+
+    # Times at the training shape, bf16, L2 flushed before each call.
+    q, k, v, g = flash_inputs(dev, torch.bfloat16, **m)
+    scale = m["hd"] ** -0.5
+    out, lse = kernels.flash_fwd(q, k, v, None, True, scale)
+    hkv = m["hkv"]
+    qf, kf, vf, gf = (A._fold_q(q, hkv), A._fold_kv(k), A._fold_kv(v),
+                      A._fold_q(g, hkv))
+    kvm = A._fold_mask(None, m["b"], m["s"], hkv, dev)
+    out_f, lse_f = A._flash_fwd_plain(qf, kf, vf, kvm, causal=True,
+                                      scale=scale, block_k=PLAIN_BLOCK_K)
+    # The yardstick: one PyTorch call of the same function, [B, H, T, D].
+    qt, kt, vt, gt = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
+    leaves = [x.clone().requires_grad_(True) for x in (qt, kt, vt)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                              enable_gqa=True)
+    timing = {
+        "fwd": {
+            "ms": time_ms(lambda: kernels.flash_fwd(q, k, v, None, True,
+                                                    scale), flush, 10),
+            "plain_ms": time_ms(lambda: A._flash_fwd_plain(
+                qf, kf, vf, kvm, causal=True, scale=scale, block_k=PLAIN_BLOCK_K),
+                flush, 3),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), flush, 10),
+        },
+        "bwd": {
+            "ms": time_ms(lambda: kernels.flash_bwd(
+                q, k, v, None, out, lse, g, True, scale), flush, 5),
+            "plain_ms": time_ms(lambda: A._flash_bwd_plain(
+                qf, kf, vf, kvm, out_f, lse_f, gf, causal=True, scale=scale,
+                block_k=PLAIN_BLOCK_K), flush, 3),
+            "library_ms": time_ms(lambda: torch.autograd.grad(
+                sdpa_out, leaves, gt, retain_graph=True), flush, 10),
+        },
+    }
+    b, t, s_len, hq, hd = m["b"], m["t"], m["s"], m["hq"], m["hd"]
+    pairs = b * hq * causal_pairs(t, s_len, True)
+    qo_bytes = b * t * hq * hd * 2
+    kv_bytes = b * s_len * hkv * hd * 2
+    lse_bytes = b * hq * t * 4
+    bounds = {
+        # q, k, v read; out, lse written. QK^T and PV: 4*D per pair.
+        "fwd": bound(2 * qo_bytes + 2 * kv_bytes + lse_bytes,
+                     4 * hd * pairs, "bf16"),
+        # q, k, v, out, dout, lse read; dq, dk, dv written. QK^T
+        # recompute, dP, dV, dK, dQ: 10*D per pair.
+        "bwd": bound(4 * qo_bytes + 4 * kv_bytes + lse_bytes,
+                     10 * hd * pairs, "bf16"),
+    }
+    for part, (bound_ms, bound_by) in bounds.items():
+        timing[part].update(bound_ms=bound_ms, bound_by=bound_by)
+    out_row = {"cases": cases, "max_abs_err": max_err, "timing": timing,
+               "shape": {**m, "dtype": "bf16"}}
+    emit("g_flash_attention", **out_row)
+    del leaves, sdpa_out
+    return out_row
+
+
+# ---------------------------------------------------------------------------
+# (h) the training main path, (i) f32 kernel-vs-plain training parity
+# ---------------------------------------------------------------------------
+
+
+def phase_train(smi: str) -> dict:
+    import math
+
+    from kubeflow_tpu_torch import kernels
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.train import loop
+    from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
+
+    cfg = loop.RunConfig(
+        model=TRAIN_MODEL, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        steps=TRAIN_STEPS, log_every=1, prefetch=2, device="cuda",
+        optimizer=OptimizerConfig(name="adafactor", warmup_steps=2))
+    lines, stamps = [], []
+
+    def log(line):
+        lines.append(line)
+        stamps.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    result = loop.run(cfg, log=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+
+    model = get_model(TRAIN_MODEL)
+    mcfg = model.config
+    steps = [dict(kv.split("=") for kv in line.split()[:3])
+             for line in lines if line.startswith("step=")]
+    losses = [float(s["loss"]) for s in steps]
+    norms = [float(s["grad_norm"]) for s in steps]
+    if len(losses) != TRAIN_STEPS:
+        raise AssertionError(f"{len(losses)} step lines, wanted "
+                             f"{TRAIN_STEPS}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"non-finite loss or grad norm: {losses} "
+                             f"{norms}")
+    if abs(losses[0] - math.log(mcfg.vocab_size)) > 1.0:
+        raise AssertionError(f"first loss {losses[0]} is not near "
+                             f"ln({mcfg.vocab_size})")
+    want = mcfg.n_layers * TRAIN_STEPS
+    for key in ("flash_attention_fwd", "flash_attention_bwd"):
+        if launches[key] != want:
+            raise AssertionError(f"{key} launched {launches[key]} times, "
+                                 f"expected {mcfg.n_layers} layers x "
+                                 f"{TRAIN_STEPS} steps")
+    # Each log line follows a sync (the loss read), so the stamps of the
+    # step lines bound whole steps. The rate is taken over all the work
+    # from the end of step 1 (which includes warm-up) to the end of the
+    # last step, so a stall in any step moves it; the median gap is a
+    # per-step statistic beside it.
+    step_stamps = stamps[:TRAIN_STEPS]
+    timed_steps = TRAIN_STEPS - 1
+    window_s = step_stamps[-1] - step_stamps[0]
+    gaps = sorted(b - a for a, b in zip(step_stamps, step_stamps[1:]))
+    step_p50_s = gaps[len(gaps) // 2]
+    d, f, hd = mcfg.d_model, mcfg.d_ff, mcfg.head_dim
+    n_params = (2 * mcfg.vocab_size * d + d + mcfg.n_layers * (
+        d * (mcfg.n_heads + 2 * mcfg.n_kv_heads) * hd
+        + mcfg.n_heads * hd * d + 3 * d * f + 2 * d))
+    # bench.py: 6N + 12 * layers * avg attended length * attention width.
+    flops_per_token = (6.0 * n_params + 12.0 * mcfg.n_layers
+                       * (TRAIN_SEQ + 1) / 2 * mcfg.n_heads * hd)
+    tokens_per_s = timed_steps * TRAIN_BATCH * TRAIN_SEQ / window_s
+    out = {
+        "gpu": smi, "model": TRAIN_MODEL, "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "optimizer": "adafactor",
+        "dtype": str(mcfg.dtype), "params": n_params, "losses": losses,
+        "grad_norms": norms, "launches": launches,
+        "timed_steps": timed_steps, "window_s": window_s,
+        "step_ms_mean": 1e3 * window_s / timed_steps,
+        "step_ms_p50": 1e3 * step_p50_s, "tokens_per_s": tokens_per_s,
+        "mfu": flops_per_token * tokens_per_s / PEAK_OPS_PER_S["bf16"],
+        "wall_s": wall,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "loop_result": result,
+    }
+    emit("h_train_main_path", **out)
+    return out
+
+
+def phase_train_f32_parity() -> dict:
+    from kubeflow_tpu_torch import kernels
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.train.data import place_batch, synthetic_stream
+    from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
+    from kubeflow_tpu_torch.train.trainer import build_train_step, init_state
+    from kubeflow_tpu_torch.weights import flatten
+
+    dev = torch.device("cuda")
+    opt_cfg = OptimizerConfig(name="adafactor", warmup_steps=1)
+    runs = {}
+    for impl in ("splash", "xla"):
+        model = get_model(TRAIN_MODEL, dtype=torch.float32, attn_impl=impl)
+        state = init_state(torch.Generator(device=dev).manual_seed(0),
+                           model, opt_cfg, device=dev)
+        step_fn = build_train_step(model, opt_cfg)
+        stream = synthetic_stream(model, 1, 1024, seed=5)
+        kernels.reset_launches()
+        metrics = []
+        for _ in range(3):
+            state, met = step_fn(state, place_batch(next(stream), dev))
+            metrics.append({k: float(met[k]) for k in ("loss",
+                                                       "grad_norm")})
+        runs[impl] = {"metrics": metrics,
+                      "launches": dict(kernels.LAUNCHES),
+                      "params": flatten(state.params)}
+        del state, step_fn
+        torch.cuda.empty_cache()
+    if runs["splash"]["launches"]["flash_attention_fwd"] != 9 or \
+            runs["xla"]["launches"]["flash_attention_fwd"] != 0:
+        raise AssertionError("kernel counts do not show which run used the "
+                             f"kernels: {runs['splash']['launches']} / "
+                             f"{runs['xla']['launches']}")
+    rel = max(abs(a[k] - b[k]) / abs(b[k])
+              for a, b in zip(runs["splash"]["metrics"],
+                              runs["xla"]["metrics"])
+              for k in ("loss", "grad_norm"))
+    param_err = max(
+        ((p - runs["xla"]["params"][n]).abs().max()
+         / runs["xla"]["params"][n].abs().max()).item()
+        for n, p in runs["splash"]["params"].items())
+    out = {"model": TRAIN_MODEL, "dtype": "float32", "batch": 1,
+           "seq": 1024, "steps": 3,
+           "kernel": runs["splash"]["metrics"],
+           "plain": runs["xla"]["metrics"],
+           "max_rel_err_loss_grad_norm": rel,
+           "max_param_err_rel_to_leaf_max": param_err,
+           "launches": {k: runs[k]["launches"] for k in runs}}
+    emit("i_train_f32_kernel_vs_plain", **out)
+    if rel > 1e-5 or param_err > 1e-5:
+        raise AssertionError(f"f32 training: kernel and plain runs differ "
+                             f"(metrics {rel}, params {param_err})")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -368,8 +727,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
-    # (a) the card, and both kernels built side by side: nvcc in a thread
-    # while Triton compiles at its first launch.
+    # (a) the card, and the kernels built side by side: one nvcc per CUDA
+    # source, in a thread, while Triton compiles at its first launch.
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -380,7 +739,8 @@ def main() -> int:
 
     def build_cuda():
         try:
-            kernels.library()
+            for name in ("paged_decode", "flash_attention"):
+                kernels.library(name)
             built["cuda_s"] = time.perf_counter() - t0
         except Exception as e:  # re-raised below, in the main thread
             built["error"] = e
@@ -403,12 +763,16 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     paged = phase_paged(dev, flush)
     rms = phase_rms(dev, flush)
+    flash = phase_flash(dev, flush)
     del flush
+    torch.cuda.empty_cache()
     main_path = phase_main_path()
     phase_f32_parity()
+    train = phase_train(smi)
+    phase_train_f32_parity()
 
     p, r = paged["bf16"], rms[f"{SLOTS}x2048"]
-    print(json.dumps({"kernels": [
+    table = [
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "kubeflow_tpu_torch/csrc/paged_decode.cu",
          "replaces": "kubeflow_tpu/ops/attention.py:392",
@@ -423,7 +787,25 @@ def main() -> int:
          "max_abs_err": max(v["max_abs_err"] for v in rms.values()),
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"]},
-    ]}), flush=True)
+    ]
+    # One set of kernels serves both TPU kernels' names; the training main
+    # path asks for "splash", so the "pallas" rows launch 0 times there.
+    for impl, line in (("splash", 239), ("pallas", 172)):
+        for part in ("fwd", "bwd"):
+            key = f"flash_attention_{part}"
+            m = flash["timing"][part]
+            table.append({
+                "name": key if impl == "splash" else f"{key}[pallas]",
+                "route": "cuda",
+                "source": "kubeflow_tpu_torch/csrc/flash_attention.cu",
+                "replaces": f"kubeflow_tpu/ops/attention.py:{line}",
+                "launches": (train["launches"][key] if impl == "splash"
+                             else 0),
+                "max_abs_err": flash["max_abs_err"][impl][part],
+                "ms": m["ms"], "plain_ms": m["plain_ms"],
+                "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                "library_ms": m["library_ms"]})
+    print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

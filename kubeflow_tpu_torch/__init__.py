@@ -8,9 +8,9 @@ reference; the ``tests/test_torch_*.py`` files hold each ported function
 against it on the same inputs.
 
 Kernels that the JAX package wrote in Pallas for the TPU are written by
-hand here: ``csrc/paged_decode.cu`` (CUDA C++, built with ``nvcc`` at
-first use into ``build/kubeflow_tpu_torch/``) and
-``ops/rms_norm_triton.py`` (Triton). A wrapper takes its kernel's plain
+hand here: ``csrc/paged_decode.cu`` and ``csrc/flash_attention.cu`` (CUDA
+C++, built with ``nvcc`` at first use into ``build/kubeflow_tpu_torch/``)
+and ``ops/rms_norm_triton.py`` (Triton). A wrapper takes its kernel's plain
 PyTorch version only for tensors that lie on the CPU; for a CUDA tensor it
 launches the kernel or raises.
 

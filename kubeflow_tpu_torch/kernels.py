@@ -1,14 +1,15 @@
 """Build, load and launch the port's CUDA kernels; launch counters.
 
-``csrc/paged_decode.cu`` has a plain C interface. At first use it is
-compiled with ``nvcc`` for ``sm_90a`` into a shared library under
+Every ``csrc/*.cu`` has a plain C interface. At first use each source is
+compiled with ``nvcc`` for ``sm_90a`` into its own shared library under
 ``build/kubeflow_tpu_torch/`` at the root of the checkout (git-ignored),
 named by a digest of the source so an edited kernel is rebuilt, and loaded
-with ``ctypes``. Nothing is compiled when the module is imported.
+with ``ctypes``. The sources are compiled side by side, one ``nvcc`` each,
+all started together. Nothing is compiled when the module is imported.
 
-``LAUNCHES`` counts each wrapper's kernel launches (one per launch, and
-nowhere else), so a run can show that its main path went through the
-kernels.
+``LAUNCHES`` counts each wrapper's kernel launches (one per call that
+launches its kernel or kernels, and nowhere else), so a run can show that
+its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -29,14 +30,27 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"paged_decode_attention": 0, "rms_norm": 0}
+LAUNCHES = {"paged_decode_attention": 0, "rms_norm": 0,
+            "flash_attention_fwd": 0, "flash_attention_bwd": 0}
 
 # Type codes of the C interface.
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# argtypes of each exported function, by the source that defines it.
+_EXPORTS = {
+    "paged_decode": {
+        "kft_paged_decode": [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P],
+    },
+    "flash_attention": {
+        "kft_flash_fwd": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+        "kft_flash_bwd": [_P] * 11 + [_I] * 7 + [_F, _I, _P],
+    },
+}
+
 _lock = threading.Lock()
-_lib = None
+_libs: dict[str, ctypes.CDLL] = {}
 # What the last build printed: nvcc's -Xptxas -v report of registers,
 # shared memory and spills, which chip_smoke.py shows.
 build_log = ""
@@ -58,39 +72,56 @@ def _nvcc() -> str:
                        "the CUDA kernels are built from csrc/ at first use")
 
 
-def build() -> Path:
-    """Compile ``csrc/paged_decode.cu`` unless this source's library is
-    already built; returns the library's path."""
-    global build_log
-    src = CSRC / "paged_decode.cu"
+def _lib_path(src: Path) -> Path:
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libkft_paged_decode_{digest}.so"
-    if lib.exists():
-        return lib
+    return BUILD_DIR / f"libkft_{src.stem}_{digest}.so"
+
+
+def build() -> dict[str, Path]:
+    """Compile every ``csrc/*.cu`` whose library is not built yet, one
+    ``nvcc`` per source, all running at once; returns {source stem:
+    library path}."""
+    global build_log
+    libs = {src.stem: _lib_path(src) for src in sorted(CSRC.glob("*.cu"))}
+    todo = [(CSRC / f"{stem}.cu", lib) for stem, lib in libs.items()
+            if not lib.exists()]
+    if not todo:
+        return libs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True, check=False)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    tmp.replace(lib)
-    return lib
+    nvcc = _nvcc()
+    procs = []
+    for src, lib in todo:
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        procs.append((src, lib, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, lib, tmp, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode})")
+        else:
+            tmp.replace(lib)
+    build_log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {', '.join(failed)}:\n"
+                           f"{build_log}")
+    return libs
 
 
-def library():
-    """The loaded kernel library (built on first call)."""
-    global _lib
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (every source is built on
+    the first call)."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.kft_paged_decode
-            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
-                           + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build()[name]))
+            for fn_name, argtypes in _EXPORTS[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _libs[name] = lib
+        return _libs[name]
 
 
 def _check(t: torch.Tensor, name: str, device, dtypes, ndim: int) -> None:
@@ -153,7 +184,7 @@ def paged_decode(qg, k_pool, v_pool, table, pos, sm_scale: float):
     out = torch.empty((b, hkv, g, hd), dtype=torch.float32, device=dev)
     if b == 0 or mb == 0:
         return out.zero_()
-    fn = library().kft_paged_decode
+    fn = library("paged_decode").kft_paged_decode
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(qg.data_ptr(), kq.data_ptr(), vq.data_ptr(), scales[0],
@@ -165,3 +196,96 @@ def paged_decode(qg, k_pool, v_pool, table, pos, sm_scale: float):
                            f"{err}")
     LAUNCHES["paged_decode_attention"] += 1
     return out
+
+
+_FLASH_HINT = ("; implementation='xla' runs the plain blockwise path for "
+               "any shape")
+
+
+def _flash_checks(q, k, v, kv_mask):
+    """Shared checks of the flash launchers; returns (B, T, S, Hq, Hkv,
+    D, type code)."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"the flash attention kernels need CUDA tensors, "
+                         f"got {dev}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(t, name, dev, _Q_CODES, 4)
+    if not q.dtype == k.dtype == v.dtype:
+        raise ValueError(f"q, k and v must share one dtype, got {q.dtype}, "
+                         f"{k.dtype}, {v.dtype}")
+    b, t, hq, hd = q.shape
+    s_len, hkv = k.shape[1], k.shape[2]
+    if k.shape != (b, s_len, hkv, hd) or v.shape != k.shape:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match [{b}, S, Hkv, {hd}]")
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"query heads {hq} not a multiple of kv heads "
+                         f"{hkv}")
+    if hd not in (64, 128):
+        raise ValueError(f"the flash kernel takes head_dim 64 or 128, got "
+                         f"{hd}{_FLASH_HINT}")
+    if min(b, t, s_len) == 0 or max(b, hq) > 65535:
+        raise ValueError(f"the flash kernel takes 1 <= B, Hq <= 65535 and "
+                         f"T, S >= 1, got B={b}, Hq={hq}, T={t}, "
+                         f"S={s_len}{_FLASH_HINT}")
+    if kv_mask is not None:
+        _check(kv_mask, "kv_mask", dev, {torch.float32}, 2)
+        if kv_mask.shape != (b, s_len):
+            raise ValueError(f"kv_mask {tuple(kv_mask.shape)} != "
+                             f"{(b, s_len)}")
+    return b, t, s_len, hq, hkv, hd, _Q_CODES[q.dtype]
+
+
+def flash_fwd(q, k, v, kv_mask, causal: bool, scale: float):
+    """Launch the flash forward kernel. q [B, T, Hq, D], k/v [B, S, Hkv,
+    D] in one of bf16/f32, D 64 or 128, contiguous; kv_mask None or f32
+    [B, S]. Returns (out [B, T, Hq, D] in q's dtype, lse f32 [B, Hq, T]).
+    Raises for any input the kernel does not take."""
+    b, t, s_len, hq, hkv, hd, code = _flash_checks(q, k, v, kv_mask)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
+    fn = library("flash_attention").kft_flash_fwd
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 None if kv_mask is None else kv_mask.data_ptr(),
+                 out.data_ptr(), lse.data_ptr(), b, t, s_len, hq, hkv, hd,
+                 int(causal), float(scale), code, stream)
+    if err != 0:
+        raise RuntimeError(f"flash forward kernel launch failed: CUDA error "
+                           f"{err}")
+    LAUNCHES["flash_attention_fwd"] += 1
+    return out, lse
+
+
+def flash_bwd(q, k, v, kv_mask, out, lse, dout, causal: bool, scale: float):
+    """Launch the flash backward kernels (delta, dk/dv, dq) on the forward's
+    residuals and the output cotangent ``dout`` (q's shape and dtype).
+    Returns (dq, dk, dv) in the inputs' dtype. Raises for any input the
+    kernels do not take."""
+    b, t, s_len, hq, hkv, hd, code = _flash_checks(q, k, v, kv_mask)
+    for name, x in (("out", out), ("dout", dout)):
+        _check(x, name, q.device, {q.dtype}, 4)
+        if x.shape != q.shape:
+            raise ValueError(f"{name} {tuple(x.shape)} != q "
+                             f"{tuple(q.shape)}")
+    _check(lse, "lse", q.device, {torch.float32}, 3)
+    if lse.shape != (b, hq, t):
+        raise ValueError(f"lse {tuple(lse.shape)} != {(b, hq, t)}")
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    delta = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
+    fn = library("flash_attention").kft_flash_bwd
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 None if kv_mask is None else kv_mask.data_ptr(),
+                 out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, t, s_len, hq, hkv, hd, int(causal),
+                 float(scale), code, stream)
+    if err != 0:
+        raise RuntimeError(f"flash backward kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv

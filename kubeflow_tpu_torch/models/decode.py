@@ -26,10 +26,14 @@ yet ported.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from kubeflow_tpu_torch.device import resolve_device
-from kubeflow_tpu_torch.models.transformer import TransformerConfig
+from kubeflow_tpu_torch.models.transformer import (
+    TransformerConfig,
+    _head_kernel,
+    _layer,
+    _mlp,
+)
 from kubeflow_tpu_torch.ops.attention import _kv_payload as _kv_arr
 from kubeflow_tpu_torch.ops.attention import paged_decode_attention
 from kubeflow_tpu_torch.ops.norms import rms_norm
@@ -38,33 +42,11 @@ from kubeflow_tpu_torch.ops.rotary import rotary_frequencies
 _NEG_INF = -1e30
 
 
-def _layer(params, i: int) -> dict:
-    """Views of layer ``i``'s slice of the stacked ``[L, ...]`` weights."""
-    lp = params["layers"]
-    return {
-        "attn": {k: w[i] for k, w in lp["attn"].items()},
-        "mlp": {k: w[i] for k, w in lp["mlp"].items()},
-        "ln_attn": lp["ln_attn"][i],
-        "ln_mlp": lp["ln_mlp"][i],
-    }
-
-
 def _pool_layer(pool, i: int):
     """Layer ``i``'s view of a stacked pool (fp tensor or int8 dict)."""
     if isinstance(pool, dict):
         return {"q": pool["q"][i], "scale": pool["scale"][i]}
     return pool[i]
-
-
-def _head(params, cfg: TransformerConfig):
-    return (params["embed"]["kernel"].T if cfg.tie_embeddings
-            else params["lm_head"]["kernel"])
-
-
-def _mlp(h, layer):
-    gate = h @ layer["mlp"]["gate"]
-    up = h @ layer["mlp"]["up"]
-    return (F.silu(gate) * up) @ layer["mlp"]["down"]
 
 
 def init_cache(cfg: TransformerConfig, batch: int, total_len: int, device):
@@ -142,9 +124,9 @@ def forward_cached(params, tokens, cfg: TransformerConfig, cache, pos,
         x = x + _cached_attention(h, layer["attn"], cfg, rope_bt,
                                   cache["k"][i], cache["v"][i], pos, valid)
         h = rms_norm(x, layer["ln_mlp"], eps=cfg.norm_eps)
-        x = x + _mlp(h, layer)
+        x = x + _mlp(h, layer["mlp"], cfg)
     x = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
-    return (x @ _head(params, cfg)).float()
+    return (x @ _head_kernel(params, cfg)).float()
 
 
 def _top_k_mask(logits, top_k: int):
@@ -314,9 +296,9 @@ def _single_token_forward(params, cfg: TransformerConfig, k_pool, v_pool,
             h, layer["attn"], cfg, rope_bt, _pool_layer(k_pool, i),
             _pool_layer(v_pool, i), pos_b, valid, table, fused, widx)
         h = rms_norm(x, layer["ln_mlp"], eps=cfg.norm_eps)
-        x = x + _mlp(h, layer)
+        x = x + _mlp(h, layer["mlp"], cfg)
     x = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
-    return (x @ _head(params, cfg)).float()[:, 0]
+    return (x @ _head_kernel(params, cfg)).float()[:, 0]
 
 
 def _decode_step_body(state, params, cfg: TransformerConfig, top_k: int,

@@ -17,14 +17,17 @@ class ModelSpec:
     name: str
     family: str
     config: Any
-    init: Callable          # (cfg, *, generator, device) -> params
+    init: Callable          # (cfg, *, generator, device, param_dtype) -> params
+    apply: Callable         # (params, tokens, cfg, *, mesh=None) -> logits
+    loss_fn: Callable       # (params, batch, cfg, *, mesh=None) -> (loss, metrics)
 
 
 def get_model(name: str, **overrides) -> ModelSpec:
     if name in transformer.PRESETS:
         return ModelSpec(name=name, family="transformer",
                          config=transformer.config(name, **overrides),
-                         init=transformer.init)
+                         init=transformer.init, apply=transformer.apply,
+                         loss_fn=transformer.loss_fn)
     raise KeyError(
         f"unknown model {name!r}; available: {sorted(list_models())}")
 

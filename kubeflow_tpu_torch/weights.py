@@ -46,17 +46,29 @@ def _unflatten(flat: dict[str, object]) -> dict:
 
 
 def params_from_numpy(tree, cfg: TransformerConfig,
-                      device: str | torch.device = "cuda") -> dict:
+                      device: str | torch.device = "cuda",
+                      dtype: torch.dtype | None = None) -> dict:
     """Numpy parameter tree → the port's parameter dict on ``device``.
 
-    Matmul and embedding weights land in ``cfg.dtype`` (the JAX model
-    casts them to it at every use, so storing the cast once computes the
-    same thing); the norm weights stay float32, as ``rms_norm`` reads
-    them."""
+    By default matmul and embedding weights land in ``cfg.dtype`` (the JAX
+    model casts them to it at every use, so storing the cast once computes
+    the same thing for serving); the norm weights stay float32, as
+    ``rms_norm`` reads them. ``dtype=torch.float32`` keeps every leaf in
+    float32: training's master weights, as the JAX trainer holds them."""
     dev = resolve_device(device)
     flat = {}
     for path, leaf in flatten(tree).items():
         arr = np.array(leaf, dtype=np.float32)  # a writable copy
-        dtype = torch.float32 if path in NORM_LEAVES else cfg.dtype
-        flat[path] = torch.from_numpy(arr).to(device=dev, dtype=dtype)
+        leaf_dtype = (torch.float32 if path in NORM_LEAVES
+                      else dtype or cfg.dtype)
+        flat[path] = torch.from_numpy(arr).to(device=dev, dtype=leaf_dtype)
     return _unflatten(flat)
+
+
+def params_to_numpy(params) -> dict:
+    """The port's parameter dict → a nested dict of float32 numpy arrays
+    (the inverse of :func:`params_from_numpy`), so tests compare trees."""
+    # np.array copies: a float32 CPU tensor's .numpy() shares its memory,
+    # and the trainer updates parameters in place.
+    return _unflatten({path: np.array(leaf.detach().float().cpu())
+                       for path, leaf in flatten(params).items()})

@@ -8,9 +8,9 @@ eight slots admitted with 128-token prompts through
 ``paged_admit_rows_and_step``, then ``--steps`` ``decode_step`` calls with
 the fused read (the paged decode kernel), under ``torch.profiler``. It
 prints one JSON line: the host time of a step (timed once without the
-profiler and once under it), the device time the step's kernels take (their durations summed: one stream, so they do not
-overlap), the device's idle share, and the kernels that take the most
-device time. The Chrome trace goes to
+profiler and once under it), the device time the step's kernels take
+(their durations summed: one stream, so they do not overlap), the
+device's idle share, and the kernels that take the most device time. The Chrome trace goes to
 ``chiprun_out/profile_torch_decode.json``. Needs a CUDA device.
 """
 

@@ -6,7 +6,11 @@ the JAX package by the CPU tests (``tests/test_torch_ops.py``).
 
 Tolerances: the kernels compute in float32 like their plain versions and
 differ only in the order of the sums, so the paged decode output agrees
-to 2e-3 and the bf16 RMSNorm output to one bf16 ulp.
+to 2e-3 and the bf16 RMSNorm output to one bf16 ulp. The flash kernels
+agree with the plain blockwise path on the same inputs to 1e-4 (f32 out)
+and 1e-4 of the largest reference gradient (f32); in bf16, where each
+side rounds its output to bf16 once, to 1e-2 (out) and 2e-2 of the
+largest reference gradient.
 """
 
 import pytest
@@ -16,7 +20,8 @@ torch = pytest.importorskip("torch")
 from kubeflow_tpu_torch import kernels  # noqa: E402
 from kubeflow_tpu_torch.models.decode import _quantize_kv  # noqa: E402
 from kubeflow_tpu_torch.ops.attention import _paged_decode_plain  # noqa: E402,E501
-from kubeflow_tpu_torch.ops.norms import _rms_norm_plain  # noqa: E402
+from kubeflow_tpu_torch.ops import attention as tattn  # noqa: E402
+from kubeflow_tpu_torch.ops.norms import _rms_norm_plain, rms_norm  # noqa: E402,E501
 
 
 @pytest.fixture()
@@ -86,3 +91,90 @@ def test_rms_norm_kernel_matches_plain(cuda, rows):
     ref = _rms_norm_plain(x, w, 1e-5)
     diff = (out.view(torch.int16).int() - ref.view(torch.int16).int()).abs()
     assert diff.max().item() <= 1
+
+
+def _flash_run(q, k, v, g, mask, implementation, causal):
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    out = tattn.flash_attention(*leaves, causal=causal, kv_mask=mask,
+                                implementation=implementation)
+    out.backward(g)
+    return [out.detach()] + [x.grad for x in leaves]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,t,s_len,hq,hkv,hd,causal,masked", [
+    (2, 128, 128, 8, 2, 128, True, False),   # G=4, tile-aligned
+    (1, 100, 100, 4, 4, 64, True, False),    # G=1, ragged, hd 64
+    (2, 70, 130, 4, 2, 64, False, True),     # S != T, full row masked
+    (1, 130, 70, 8, 1, 128, True, True),     # T > S, causal and mask
+])
+def test_flash_kernels_match_plain(cuda, dtype, b, t, s_len, hq, hkv, hd,
+                                   causal, masked):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda).to(dtype)
+
+    q, k, v = rand(b, t, hq, hd), rand(b, s_len, hkv, hd), \
+        rand(b, s_len, hkv, hd)
+    g = rand(b, t, hq, hd)
+    mask = None
+    if masked:
+        mask = torch.rand(b, s_len, generator=gen, device=cuda) > 0.3
+        mask[0] = False  # every key of batch row 0 masked
+    ref = _flash_run(q, k, v, g, mask, "xla", causal)
+    kernels.reset_launches()
+    for impl in ("splash", "pallas", None):
+        got = _flash_run(q, k, v, g, mask, impl, causal)
+        torch.cuda.synchronize()
+        f32 = dtype == torch.float32
+        assert (got[0].float() - ref[0].float()).abs().max().item() <= (
+            1e-4 if f32 else 1e-2)
+        for a, r in zip(got[1:], ref[1:]):
+            scale = r.float().abs().max().item() or 1.0
+            assert (a.float() - r.float()).abs().max().item() <= (
+                (1e-4 if f32 else 2e-2) * scale)
+        if masked:
+            assert not got[0][0].any() and not got[1][0].any()
+    assert kernels.LAUNCHES["flash_attention_fwd"] == 3
+    assert kernels.LAUNCHES["flash_attention_bwd"] == 3
+
+
+@pytest.mark.cuda
+def test_flash_kernels_reject_what_they_do_not_take(cuda):
+    q = torch.zeros(1, 8, 2, 96, device=cuda)
+    kv = torch.zeros(1, 8, 1, 96, device=cuda)
+    with pytest.raises(ValueError, match="head_dim.*implementation='xla'"):
+        kernels.flash_fwd(q, kv, kv, None, True, 0.1)
+    with pytest.raises(ValueError, match="head_dim"):
+        tattn.flash_attention(q, kv, kv, implementation="splash")
+    q, kv = q[..., :64].contiguous(), kv[..., :64].contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.flash_fwd(q[:, ::2], kv[:, ::2], kv[:, ::2], None, True, 0.1)
+    with pytest.raises(ValueError, match="is on cpu"):
+        kernels.flash_fwd(q, kv.cpu(), kv, None, True, 0.1)
+    with pytest.raises(ValueError, match="dtype"):
+        kernels.flash_fwd(q.half(), kv.half(), kv.half(), None, True, 0.1)
+    # The plain path takes what the kernel does not.
+    out = tattn.flash_attention(q[..., :48], kv[..., :48], kv[..., :48],
+                                implementation="xla")
+    assert out.shape == (1, 8, 2, 48)
+
+
+@pytest.mark.cuda
+def test_rms_norm_kernel_path_propagates_gradients(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(64, 2048, generator=g, device=cuda)
+    w = torch.randn(2048, generator=g, device=cuda)
+    dy = torch.randn(64, 2048, generator=g, device=cuda)
+    grads = []
+    for impl in ("kernel", None):
+        xl, wl = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        y = rms_norm(xl, wl, eps=1e-5, implementation=impl)
+        assert y.grad_fn is not None
+        y.backward(dy)
+        grads.append((xl.grad, wl.grad))
+    for a, r in zip(*grads):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)

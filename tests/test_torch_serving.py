@@ -215,11 +215,34 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         "import kubeflow_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(n for n in sys.modules if n == 'jax'\n"
-        "             or n.startswith(('jax.', 'kubeflow_tpu.'))\n"
-        "             or n == 'kubeflow_tpu')\n"
+        "bad = sorted(n for n in sys.modules if n in ('jax', 'optax',\n"
+        "             'kubeflow_tpu') or n.startswith(('jax.', 'optax.',\n"
+        "             'kubeflow_tpu.')))\n"
         "print(len(list(pkgutil.walk_packages(pkg.__path__))), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py",
+                                    "profile_torch_decode.py",
+                                    "profile_torch_train.py"])
+def test_card_scripts_import_neither_jax_nor_the_jax_package(script):
+    """The scripts that run on the card, read with ``ast``: no import of
+    ``jax``, ``optax`` or ``kubeflow_tpu`` anywhere in them (the card's
+    machine has no JAX)."""
+    import ast
+
+    root = Path(__file__).resolve().parent.parent
+    tree = ast.parse((root / script).read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    assert names, "no imports found"
+    bad = [n for n in names
+           if n.split(".")[0] in ("jax", "optax", "kubeflow_tpu")]
+    assert not bad, bad
