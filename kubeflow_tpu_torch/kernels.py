@@ -240,7 +240,8 @@ def _flash_checks(q, k, v, kv_mask):
 def flash_fwd(q, k, v, kv_mask, causal: bool, scale: float):
     """Launch the flash forward kernel. q [B, T, Hq, D], k/v [B, S, Hkv,
     D] in one of bf16/f32, D 64 or 128, contiguous; kv_mask None or f32
-    [B, S]. Returns (out [B, T, Hq, D] in q's dtype, lse f32 [B, Hq, T]).
+    [B, S]. bf16 runs on the tensor cores (wgmma, TMA), f32 on the CUDA
+    cores. Returns (out [B, T, Hq, D] in q's dtype, lse f32 [B, Hq, T]).
     Raises for any input the kernel does not take."""
     b, t, s_len, hq, hkv, hd, code = _flash_checks(q, k, v, kv_mask)
     out = torch.empty_like(q)
@@ -260,8 +261,9 @@ def flash_fwd(q, k, v, kv_mask, causal: bool, scale: float):
 
 
 def flash_bwd(q, k, v, kv_mask, out, lse, dout, causal: bool, scale: float):
-    """Launch the flash backward kernels (delta, dk/dv, dq) on the forward's
-    residuals and the output cotangent ``dout`` (q's shape and dtype).
+    """Launch the flash backward kernels (delta, dk/dv, dq; bf16 on the
+    tensor cores, f32 on the CUDA cores) on the forward's residuals and
+    the output cotangent ``dout`` (q's shape and dtype).
     Returns (dq, dk, dv) in the inputs' dtype. Raises for any input the
     kernels do not take."""
     b, t, s_len, hq, hkv, hd, code = _flash_checks(q, k, v, kv_mask)

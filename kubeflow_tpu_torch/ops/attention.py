@@ -30,7 +30,7 @@ from kubeflow_tpu_torch import kernels
 _NEG_INF = -1e30
 # Default block widths, as in the JAX package: the plain blockwise path
 # takes DEFAULT_BLOCK_K when the caller leaves block_k=None. The CUDA
-# kernels tile by 64 and ignore both.
+# kernels choose their own tiles and ignore both.
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 2048
 _IMPLEMENTATIONS = (None, "splash", "pallas", "xla", "plain")

@@ -11,7 +11,8 @@ seed: two warm steps, ``--steps`` steps timed without the profiler, then
 step time, the device time the step's kernels take (their durations
 summed: one stream, so they do not overlap), the device's idle share, the
 device time by group (the flash attention kernels, matrix products, the
-rest) and the kernels that take the most device time; ``--trace`` also
+rest), each flash kernel's time and the kernels that take the most
+device time; ``--trace`` also
 writes the profiled steps' Chrome trace to that path. Needs a CUDA
 device.
 """
@@ -91,7 +92,8 @@ def main(argv=None) -> int:
         n_us[0] += 1
         n_us[1] += e.device_time_total
         by_group[_group(e.name)] += e.device_time_total
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    top = ranked[:12]
     if args.trace:
         prof.export_chrome_trace(args.trace)
     smi = subprocess.run(
@@ -109,6 +111,10 @@ def main(argv=None) -> int:
         "kernel_launches_per_step": len(kernels) / args.steps,
         "device_ms_per_step_by_group": {
             k: us / 1e3 / args.steps for k, us in by_group.items()},
+        "flash_kernels": [
+            {"name": name[:80], "per_step": n / args.steps,
+             "ms_per_step": us / 1e3 / args.steps}
+            for name, (n, us) in ranked if _group(name) == "flash"],
         "top_kernels": [
             {"name": name[:80], "per_step": n / args.steps,
              "ms_per_step": us / 1e3 / args.steps,
