@@ -14,12 +14,16 @@ attention in the flash kernels, and checks the output. Phases, each
 printed as one JSON line:
 
 (a) the card and the kernels' build times;
-(b) the paged decode kernel against ``_paged_decode_plain`` (bf16, f32
-    and int8 pools; sentinel table entries, a parked row, a row with
-    pos < 0), tolerance 2e-3: both compute in float32 and differ only
-    in the order of the sums;
+(b) the paged decode kernel against ``_paged_decode_plain`` at the main
+    path's shape (bf16, f32 and int8 pools; sentinel table entries, a
+    parked row, a row with pos < 0) and at two kernel-only bf16 shapes
+    (one row of 4096 positions; 32 rows of 2048), tolerance 2e-3: both
+    compute in float32 and differ only in the order of the sums. ``ms``
+    is the kernel's device time (``torch.profiler`` durations, L2
+    flushed before each launch), ``call_ms`` the time of the Python call
+    around it, beside the bound and its share;
 (c) the RMSNorm Triton kernel against ``_rms_norm_plain``, bf16, within
-    one bf16 ulp;
+    one bf16 ulp; ``ms`` device time, ``call_ms`` the call's;
 (d) the main path: HTTP requests of mixed lengths, one streamed; every
     request gets its token count and the paged decode kernel launches
     exactly ``n_layers`` times per decode forward;
@@ -57,8 +61,11 @@ printed as one JSON line:
     ``"xla"`` (plain): losses and gradient norms within 1e-5 relative,
     parameters within 1e-5 of each leaf's largest magnitude;
 (f) the kernel table: each kernel's launches on the main path, its
-    error, its time, its plain version's time and its bound; the flash
-    rows also carry the f32 CUDA-core route's time (``f32_ms``).
+    error, its time, its plain version's time and its bound; the paged
+    and RMSNorm rows give device time as ``ms`` and the call's as
+    ``call_ms`` (the paged row also its device time at the long and busy
+    shapes), the flash rows the call's (hundreds of microseconds, where
+    host time is noise) and the f32 CUDA-core route's (``f32_ms``).
 
 TF32 is off throughout, so float32 products are full float32. Any
 failure exits non-zero; the last line, printed only on success, is
@@ -107,9 +114,11 @@ def emit(phase: str, **fields) -> None:
 
 
 def time_ms(fn, flush: torch.Tensor, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, each after a write
-    of ``flush`` (larger than L2) so every call finds its inputs in HBM,
-    as a decode step finds the next layer's pool."""
+    """Mean time of one call of ``fn`` over ``iters`` calls, between CUDA
+    events around the call, each after a write of ``flush`` (larger than
+    L2) so every call finds its inputs in HBM, as a decode step finds the
+    next layer's pool. For a kernel of microseconds this includes the
+    host work of the call while the card waits; ``device_ms`` does not."""
     for _ in range(3):
         fn()
     pairs = []
@@ -125,6 +134,38 @@ def time_ms(fn, flush: torch.Tensor, iters: int) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
+def device_ms(fn, flush: torch.Tensor, iters: int,
+              kernel: str | None = None) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls, each after a write
+    of ``flush``, from the kernel durations ``torch.profiler`` records:
+    the card's time alone, without the host time of the Python call
+    (which ``time_ms`` includes). ``kernel`` names the one kernel a call
+    must launch; None sums every kernel but the flush's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if kernel is None:
+        us = [e.device_time_total for e in events
+              if "FillFunctor" not in e.name and "Memset" not in e.name]
+    else:
+        us = [e.device_time_total for e in events if kernel in e.name]
+        if len(us) != iters:
+            raise AssertionError(f"profiler saw {len(us)} launches of "
+                                 f"{kernel} in {iters} calls")
+    if not us:
+        raise AssertionError("profiler saw no kernel")
+    return sum(us) / iters / 1e3
+
+
 def bound(bytes_moved: float, ops: float, kind: str) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[kind]
@@ -137,11 +178,20 @@ def bound(bytes_moved: float, ops: float, kind: str) -> tuple[float, str]:
 # ---------------------------------------------------------------------------
 
 
-def paged_inputs(kv: str, dev, quantize):
-    """llama-1b decode shapes: B=8 slots, Hkv=8, G=2, hd=128, Bs=16 and
-    MB=(256+32)/16=18 table columns over a pool of B*MB blocks."""
-    b, hkv, g, hd, bs = SLOTS, 8, 2, 128, BLOCK
-    mb = (MAX_SEQ + MAX_NEW) // bs
+# Kernel-only shapes of the paged kernel beside the main path's (bf16,
+# llama-1b's Hkv=8, G=2, hd=128, Bs=16): one row of 4096 positions, and
+# 32 rows of 2048.
+PAGED_LONG = dict(b=1, mb=256, pos=[4095])
+PAGED_BUSY = dict(b=32, mb=128, pos=[2047] * 32)
+
+
+def paged_inputs(kv: str, dev, quantize, b=SLOTS,
+                 mb=(MAX_SEQ + MAX_NEW) // BLOCK, pos=None):
+    """llama-1b decode shapes: Hkv=8, G=2, hd=128, Bs=16, a pool of B*MB
+    blocks behind a permuted table. By default the main path's B=8 slots
+    and MB=(256+32)/16=18 columns, with a sentinel inside a live span, a
+    parked row and a row with pos < 0."""
+    hkv, g, hd, bs = 8, 2, 128, BLOCK
     n = b * mb
     gen = torch.Generator(device=dev).manual_seed(1)
     dt = torch.float32 if kv == "f32" else torch.bfloat16
@@ -154,12 +204,15 @@ def paged_inputs(kv: str, dev, quantize):
     kp, vp = pool(), pool()
     table = torch.randperm(n, generator=gen, device=dev).to(
         torch.int32).reshape(b, mb)
-    pos = torch.tensor([7, 40, 100, 150, 200, 287, mb * bs, -1],
-                       dtype=torch.int32, device=dev)
+    smoke = pos is None
+    if smoke:
+        pos = [7, 40, 100, 150, 200, 287, mb * bs, -1]
+    pos = torch.tensor(pos, dtype=torch.int32, device=dev)
     for row in range(b):  # unallocated tails are sentinel (== N)
         p = int(pos[row])
         table[row, (p // bs + 1) if p >= 0 else 0:] = n
-    table[3, 0] = n  # a sentinel inside the live span clamps to N-1
+    if smoke:
+        table[3, 0] = n  # a sentinel inside the live span clamps to N-1
     return q, kp, vp, table, pos
 
 
@@ -180,33 +233,48 @@ def phase_paged(dev, flush) -> dict:
     from kubeflow_tpu_torch.models.decode import _quantize_kv
     from kubeflow_tpu_torch.ops.attention import _paged_decode_plain
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     results = {}
-    for kv in ("bf16", "f32", "int8"):
-        q, kp, vp, table, pos = paged_inputs(kv, dev, _quantize_kv)
+    cases = [(kv, kv, {}) for kv in ("bf16", "f32", "int8")]
+    cases += [("long_bf16", "bf16", PAGED_LONG), ("busy_bf16", "bf16",
+                                                   PAGED_BUSY)]
+    for name, kv, shape in cases:
+        q, kp, vp, table, pos = paged_inputs(kv, dev, _quantize_kv, **shape)
         scale = q.shape[-1] ** -0.5
         ref = _paged_decode_plain(q, kp, vp, table, pos, scale)
         out = kernels.paged_decode(q, kp, vp, table, pos, scale)
         torch.cuda.synchronize()
         if not torch.isfinite(out).all():
-            raise AssertionError(f"paged decode ({kv}): non-finite output")
+            raise AssertionError(f"paged decode ({name}): non-finite output")
         err = (out - ref).abs().max().item()
         if err > PAGED_TOL:
-            raise AssertionError(f"paged decode ({kv}): max abs error {err}"
-                                 f" > {PAGED_TOL}")
-        if out[-1].any():
-            raise AssertionError(f"paged decode ({kv}): pos < 0 row not 0")
+            raise AssertionError(f"paged decode ({name}): max abs error "
+                                 f"{err} > {PAGED_TOL}")
+        if (pos < 0).any() and out[pos < 0].any():
+            raise AssertionError(f"paged decode ({name}): pos < 0 row not 0")
+        del ref
+
+        def call():
+            return kernels.paged_decode(q, kp, vp, table, pos, scale)
+
         bound_ms, bound_by = paged_bound(q, kp, table, pos, kv)
-        results[kv] = {
-            "max_abs_err": err, "tolerance": PAGED_TOL,
-            "ms": time_ms(lambda: kernels.paged_decode(
-                q, kp, vp, table, pos, scale), flush, 50),
-            "plain_ms": time_ms(lambda: _paged_decode_plain(
-                q, kp, vp, table, pos, scale), flush, 10),
+        ms = device_ms(call, flush, 50, "paged_decode_kernel")
+        row = {
+            "max_abs_err": err, "tolerance": PAGED_TOL, "ms": ms,
+            "call_ms": time_ms(call, flush, 50),
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "share_of_bound": bound_ms / ms,
+            "splits_cols": kernels.paged_splits(q.shape[0], q.shape[1],
+                                                table.shape[1], sms),
             "shape": {"B": q.shape[0], "Hkv": q.shape[1], "G": q.shape[2],
                       "hd": q.shape[3], "Bs": BLOCK, "MB": table.shape[1],
-                      "pos": pos.tolist()},
+                      "pos": pos.tolist() if not shape else shape["pos"][0]},
         }
+        if not shape:  # the plain version only at the main path's shape
+            row["plain_ms"] = time_ms(lambda: _paged_decode_plain(
+                q, kp, vp, table, pos, scale), flush, 10)
+        results[name] = row
+        del q, kp, vp, out
     emit("b_paged_decode", results=results)
     return results
 
@@ -242,13 +310,19 @@ def phase_rms(dev, flush) -> dict:
             warnings.simplefilter("ignore")
             library_ms = time_ms(lambda: F.rms_norm(x, (d,), w, eps),
                                  flush, 50)
+            library_device_ms = device_ms(
+                lambda: F.rms_norm(x, (d,), w, eps), flush, 50)
         results[f"{rows}x{d}"] = {
             "max_abs_err": (out.float() - ref.float()).abs().max().item(),
             "max_ulp": ulp,
-            "ms": time_ms(lambda: rms_norm_triton(x, w, eps), flush, 50),
+            "ms": device_ms(lambda: rms_norm_triton(x, w, eps), flush, 50,
+                            "rms_kernel"),
+            "call_ms": time_ms(lambda: rms_norm_triton(x, w, eps), flush,
+                               50),
             "plain_ms": time_ms(lambda: _rms_norm_plain(x, w, eps), flush,
                                 50),
             "library_ms": library_ms,
+            "library_device_ms": library_device_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
     emit("c_rms_norm", results=results)
@@ -846,15 +920,19 @@ def main() -> int:
          "replaces": "kubeflow_tpu/ops/attention.py:392",
          "launches": main_path["launches"]["paged_decode_attention"],
          "max_abs_err": max(v["max_abs_err"] for v in paged.values()),
-         "ms": p["ms"], "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
-         "bound_by": p["bound_by"], "library_ms": None},
+         "long_ms": paged["long_bf16"]["ms"],
+         "busy_ms": paged["busy_bf16"]["ms"],
+         "ms": p["ms"], "call_ms": p["call_ms"], "plain_ms": p["plain_ms"],
+         "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+         "library_ms": None},
         {"name": "rms_norm", "route": "triton",
          "source": "kubeflow_tpu_torch/ops/rms_norm_triton.py",
          "replaces": "kubeflow_tpu/ops/norms.py:67",
          "launches": main_path["launches"]["rms_norm"],
          "max_abs_err": max(v["max_abs_err"] for v in rms.values()),
-         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r["library_ms"]},
+         "ms": r["ms"], "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": r["library_ms"]},
     ]
     # One set of kernels serves both TPU kernels' names; the training main
     # path asks for "splash", so the "pallas" rows launch 0 times there.

@@ -41,7 +41,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of each exported function, by the source that defines it.
 _EXPORTS = {
     "paged_decode": {
-        "kft_paged_decode": [_P] * 8 + [_I] * 7 + [_F, _I, _I, _P],
+        "kft_paged_decode": [_P] * 10 + [_I] * 9 + [_F, _I, _I, _P],
     },
     "flash_attention": {
         "kft_flash_fwd": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
@@ -136,11 +136,44 @@ def _check(t: torch.Tensor, name: str, device, dtypes, ndim: int) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+# The paged kernel's limits (csrc/paged_decode.cu): table columns one
+# split may cover, and splits of one (row, kv head).
+PAGED_MAX_COLS, PAGED_MAX_SPLITS = 512, 256
+# Per device: the int32 arrival counters of the split-KV combine, one per
+# (row, kv head), zeroed once; every launch leaves them 0.
+_counters: dict[int, torch.Tensor] = {}
+_sm_count: dict[int, int] = {}
+
+
+def paged_splits(batch: int, hkv: int, mb: int, sms: int) -> tuple[int, int]:
+    """(splits, columns per split) of the paged kernel's grid (splits, Hkv,
+    B): about two CTAs per SM, at least two table columns per split where
+    MB allows, at most ``PAGED_MAX_COLS`` columns per split, and splits x
+    columns covering MB with no split wholly past it."""
+    want = -(-2 * sms // max(1, batch * hkv))
+    splits = max(1, min(want, mb // 2, PAGED_MAX_SPLITS),
+                 -(-mb // PAGED_MAX_COLS))
+    cps = -(-mb // splits)
+    return -(-mb // cps), cps
+
+
+def _paged_counters(dev: torch.device, pairs: int) -> torch.Tensor:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    buf = _counters.get(idx)
+    if buf is None or buf.numel() < pairs:
+        buf = torch.zeros(max(pairs, 1024), dtype=torch.int32, device=dev)
+        _counters[idx] = buf
+    return buf
+
+
 def paged_decode(qg, k_pool, v_pool, table, pos, sm_scale: float):
     """Launch the paged decode kernel. qg [B, Hkv, G, hd] bf16/f32; pools
     [N, Bs, Hkv, hd] bf16/f32 tensors or ``{"q": int8, "scale": f32
-    [N, Bs, Hkv]}`` dicts; table [B, MB] int32; pos [B] int32. Returns
-    f32 [B, Hkv, G, hd]. Raises for any input the kernel does not take."""
+    [N, Bs, Hkv]}`` dicts; table [B, MB] int32; pos [B] int32. hd 64 or
+    128, Bs a multiple of 8 up to 64, 1 <= G <= 8. Returns f32 [B, Hkv, G,
+    hd]. Raises for any input the kernel does not take. The split count
+    comes from the shapes alone (``paged_splits``): ``pos`` stays on the
+    card."""
     dev = qg.device
     if dev.type != "cuda":
         raise ValueError(f"the paged decode kernel needs CUDA tensors, "
@@ -177,20 +210,40 @@ def paged_decode(qg, k_pool, v_pool, table, pos, sm_scale: float):
                          f"{tuple(pos.shape)} do not match batch {b}")
     if hd not in (64, 128):
         raise ValueError(f"head_dim {hd} unsupported (64 or 128)")
-    if bs not in (8, 16):
-        raise ValueError(f"block size {bs} unsupported (8 or 16)")
+    if bs % 8 or not 8 <= bs <= 64:
+        raise ValueError(f"block size {bs} unsupported (a multiple of 8 up "
+                         f"to 64)")
     if not 1 <= g <= 8:
         raise ValueError(f"query group {g} unsupported (1..8)")
+    if b > 65535 or hkv > 65535 or n == 0:
+        raise ValueError(f"batch {b} / kv heads {hkv} / pool blocks {n} "
+                         f"unsupported (1..65535 rows and heads, N >= 1)")
+    if mb > PAGED_MAX_COLS * PAGED_MAX_SPLITS:
+        raise ValueError(f"table of {mb} columns unsupported (at most "
+                         f"{PAGED_MAX_COLS * PAGED_MAX_SPLITS})")
     out = torch.empty((b, hkv, g, hd), dtype=torch.float32, device=dev)
     if b == 0 or mb == 0:
         return out.zero_()
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _sm_count:
+        _sm_count[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    splits, cps = paged_splits(b, hkv, mb, _sm_count[idx])
+    ws = counters = None
+    if splits > 1:  # partials (acc, m, l) and the arrival counters
+        ws = torch.empty(b * hkv * splits * g * (hd + 2),
+                         dtype=torch.float32, device=dev)
+        counters = _paged_counters(dev, b * hkv)
     fn = library("paged_decode").kft_paged_decode
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(qg.data_ptr(), kq.data_ptr(), vq.data_ptr(), scales[0],
                  scales[1], table.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                 b, hkv, g, hd, n, bs, mb, float(sm_scale),
-                 _Q_CODES[qg.dtype], _KV_CODES[kq.dtype], stream)
+                 None if ws is None else ws.data_ptr(),
+                 None if counters is None else counters.data_ptr(),
+                 b, hkv, g, hd, n, bs, mb, splits, cps,
+                 float(sm_scale), _Q_CODES[qg.dtype], _KV_CODES[kq.dtype],
+                 stream)
     if err != 0:
         raise RuntimeError(f"paged decode kernel launch failed: CUDA error "
                            f"{err}")

@@ -272,23 +272,19 @@ def _read_block(pool, blk):
     return pool[blk].float()
 
 
-def _paged_decode_plain(qg, k_pool, v_pool, table, pos, sm_scale):
-    """Plain version of the kernel (``_paged_decode_xla``'s walk as a
-    Python loop over table columns). qg: [B, Hkv, G, hd]; pools:
-    [N, Bs, Hkv, hd] (or quantized dicts); table: [B, MB]; pos: [B].
-    Returns [B, Hkv, G, hd] f32."""
+def _paged_walk(q32, k_pool, v_pool, table, pos, sm_scale, cols):
+    """The online softmax over table columns ``cols`` from an empty state
+    (``_paged_decode_xla``'s walk as a Python loop). q32: [B, Hkv, G, hd]
+    f32; pos: [B] int64. Returns (m, l, acc) f32."""
     payload = _kv_payload(k_pool)
     n, bs = payload.shape[0], payload.shape[1]
-    b, hkv, g, hd = qg.shape
-    mb = table.shape[1]
-    dev = qg.device
-    q32 = qg.float()
-    pos = pos.long()
+    b, hkv, g, hd = q32.shape
+    dev = q32.device
     m = torch.full((b, hkv, g, 1), _NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, hkv, g, 1), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, hkv, g, hd), dtype=torch.float32, device=dev)
     offs = torch.arange(bs, device=dev)
-    for j in range(mb):
+    for j in cols:
         # Sentinel entries (>= N) clamp to the last block; the span mask
         # hides whatever they surface.
         blk = table[:, j].long().clamp(0, n - 1)
@@ -304,9 +300,50 @@ def _paged_decode_plain(qg, k_pool, v_pool, table, pos, sm_scale):
         l = l * corr + p.sum(dim=-1, keepdim=True)
         acc = acc * corr + torch.einsum("bkgs,bskd->bkgd", p, v_b)
         m = m_new
+    return m, l, acc
+
+
+def _finish(m, l, acc):
+    """acc / l, and 0 for a row that saw no key."""
     ok = m > _NEG_INF / 2
     return torch.where(ok, acc / torch.where(l == 0.0, torch.ones_like(l), l),
                        torch.zeros_like(acc))
+
+
+def _paged_decode_plain(qg, k_pool, v_pool, table, pos, sm_scale):
+    """Plain version of the kernel: one walk over every table column.
+    qg: [B, Hkv, G, hd]; pools: [N, Bs, Hkv, hd] (or quantized dicts);
+    table: [B, MB]; pos: [B]. Returns [B, Hkv, G, hd] f32."""
+    return _finish(*_paged_walk(qg.float(), k_pool, v_pool, table,
+                                pos.long(), sm_scale, range(table.shape[1])))
+
+
+def _paged_decode_split_plain(qg, k_pool, v_pool, table, pos, sm_scale,
+                              cols_per_split):
+    """Plain version of the kernel's split-and-combine arithmetic (tests
+    only). Split s walks table columns [s*cps, (s+1)*cps) from an empty
+    state into a partial (m, l, acc); a split that starts past pos[b]
+    stays empty (m = -1e30, l = 0, acc = 0). The partials combine in split
+    order, each rescaled by exp(m_s - M); a row that saw nothing writes 0.
+    Shapes as :func:`_paged_decode_plain`."""
+    bs = _kv_payload(k_pool).shape[1]
+    mb = table.shape[1]
+    q32, pos = qg.float(), pos.long()
+    parts = []
+    for start in range(0, mb, cols_per_split):
+        m, l, acc = _paged_walk(q32, k_pool, v_pool, table, pos, sm_scale,
+                                range(start, min(start + cols_per_split, mb)))
+        live = (start * bs <= pos)[:, None, None, None]
+        parts.append((torch.where(live, m, _NEG_INF),
+                      torch.where(live, l, 0.0), torch.where(live, acc, 0.0)))
+    big_m = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    l_tot = torch.zeros_like(parts[0][1])
+    acc_tot = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        w = torch.exp(m - big_m)
+        l_tot = l_tot + l * w
+        acc_tot = acc_tot + acc * w
+    return _finish(big_m, l_tot, acc_tot)
 
 
 def paged_decode_attention(q, k_pool, v_pool, table, pos, *,

@@ -26,7 +26,8 @@ torch = pytest.importorskip("torch")
 from chip_smoke import sdpa_run  # noqa: E402
 from kubeflow_tpu_torch import kernels  # noqa: E402
 from kubeflow_tpu_torch.models.decode import _quantize_kv  # noqa: E402
-from kubeflow_tpu_torch.ops.attention import _paged_decode_plain  # noqa: E402,E501
+from kubeflow_tpu_torch.ops.attention import (  # noqa: E402
+    _paged_decode_plain, _paged_decode_split_plain)
 from kubeflow_tpu_torch.ops import attention as tattn  # noqa: E402
 from kubeflow_tpu_torch.ops.norms import _rms_norm_plain, rms_norm  # noqa: E402,E501
 
@@ -39,36 +40,88 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("kv", ["bf16", "f32", "int8"])
-@pytest.mark.parametrize("hd,bs,group", [(128, 16, 2), (64, 8, 4),
-                                         (128, 8, 1)])
-def test_paged_decode_kernel_matches_plain(cuda, kv, hd, bs, group):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    b, hkv, mb = 6, 4, 5
+def _paged_case(dev, kv, b, hkv, group, hd, bs, mb, pos, seed=0):
+    """Random pools of B*MB blocks behind a permuted table, sentinel (== N)
+    tails past each row's pos; returns (q, k pool, v pool, table, pos)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
     n = b * mb
     dt = torch.float32 if kv == "f32" else torch.bfloat16
-    q = torch.randn(b, hkv, group, hd, generator=g, device=cuda).to(dt)
+    q = torch.randn(b, hkv, group, hd, generator=g, device=dev).to(dt)
 
     def pool():
-        p = torch.randn(n, bs, hkv, hd, generator=g, device=cuda)
+        p = torch.randn(n, bs, hkv, hd, generator=g, device=dev)
         return _quantize_kv(p) if kv == "int8" else p.to(dt)
 
     kp, vp = pool(), pool()
-    table = torch.randperm(n, generator=g, device=cuda).to(
+    table = torch.randperm(n, generator=g, device=dev).to(
         torch.int32).reshape(b, mb)
-    table[1, 3:] = n          # sentinel tail
-    table[2, 0] = n           # sentinel inside the live span: clamps
-    table[5] = n              # pos < 0 below: attends nothing
-    pos = torch.tensor([3 * bs + 2, 2 * bs, 4 * bs - 1, mb * bs, 0, -1],
-                       dtype=torch.int32, device=cuda)
+    for row, p in enumerate(pos):
+        table[row, (p // bs + 1) if p >= 0 else 0:] = n
+    return q, kp, vp, table, torch.tensor(pos, dtype=torch.int32, device=dev)
+
+
+def _paged_check(dev, q, kp, vp, table, pos):
+    """The kernel against _paged_decode_plain and against the split
+    arithmetic at the kernel's own split (_paged_decode_split_plain),
+    within 2e-3; one launch. Returns the kernel's output."""
+    hd = q.shape[-1]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    _, cps = kernels.paged_splits(q.shape[0], q.shape[1], table.shape[1], sms)
     ref = _paged_decode_plain(q, kp, vp, table, pos, hd ** -0.5)
+    split_ref = _paged_decode_split_plain(q, kp, vp, table, pos, hd ** -0.5,
+                                          cps)
     kernels.reset_launches()
     out = kernels.paged_decode(q, kp, vp, table, pos, hd ** -0.5)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["paged_decode_attention"] == 1
+    assert torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= 2e-3
+    assert (out - split_ref).abs().max().item() <= 2e-3
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("hd,bs,group", [(128, 16, 2), (64, 8, 4),
+                                         (128, 8, 1), (128, 32, 8),
+                                         (64, 64, 2), (128, 64, 8),
+                                         (64, 24, 3)])
+def test_paged_decode_kernel_matches_plain(cuda, kv, hd, bs, group):
+    b, hkv, mb = 6, 4, 5
+    q, kp, vp, table, pos = _paged_case(
+        cuda, kv, b, hkv, group, hd, bs, mb,
+        [3 * bs + 2, 2 * bs, 4 * bs - 1, mb * bs, 0, -1])
+    table[2, 0] = table.shape[0] * mb  # sentinel inside the live span
+    out = _paged_check(cuda, q, kp, vp, table, pos)
     assert not out[5].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_paged_decode_kernel_long_row(cuda, kv):
+    """One row of 4096 positions (MB 256): the splits carry the row."""
+    q, kp, vp, table, pos = _paged_case(cuda, kv, 1, 8, 2, 128, 16, 256,
+                                        [4095])
+    _paged_check(cuda, q, kp, vp, table, pos)
+
+
+@pytest.mark.cuda
+def test_paged_decode_kernel_more_splits_than_live_columns(cuda):
+    """64 table columns give 32 splits; the rows hold 0-3 live columns,
+    so most CTAs start past pos and return at once."""
+    q, kp, vp, table, pos = _paged_case(cuda, "bf16", 3, 1, 4, 128, 16, 64,
+                                        [20, 47, 5])
+    _paged_check(cuda, q, kp, vp, table, pos)
+
+
+@pytest.mark.cuda
+def test_paged_decode_kernel_is_bit_identical_across_runs(cuda):
+    q, kp, vp, table, pos = _paged_case(cuda, "bf16", 2, 8, 2, 128, 16, 256,
+                                        [4095, 1000])
+    first = kernels.paged_decode(q, kp, vp, table, pos, 128 ** -0.5)
+    second = kernels.paged_decode(q, kp, vp, table, pos, 128 ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
@@ -84,6 +137,12 @@ def test_paged_decode_kernel_rejects_what_it_does_not_take(cuda):
         kernels.paged_decode(q, pool, pool, table.long(), pos, 1.0)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.paged_decode(q, pool[:, :8], pool[:, :8], table, pos, 1.0)
+    odd = pool[:, :12].contiguous()
+    with pytest.raises(ValueError, match="block size 12"):
+        kernels.paged_decode(q, odd, odd, table, pos, 1.0)
+    wide = torch.zeros(1, 1, 9, 64, device=cuda)
+    with pytest.raises(ValueError, match="query group 9"):
+        kernels.paged_decode(wide, pool, pool, table, pos, 1.0)
 
 
 @pytest.mark.cuda

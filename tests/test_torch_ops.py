@@ -74,6 +74,96 @@ def test_paged_decode_plain_matches_jax(quant, implementation):
     assert not out[4].any()
 
 
+_SPLIT_MB = 7
+
+
+def _split_pools(kv: str):
+    """Numpy inputs of one paged decode call for the split arithmetic, as
+    (q, k pool, v pool, table, pos, Hkv) with pools in f32 (``kv`` "bf16":
+    values exact in bf16) or quantized dicts: a sentinel inside a live
+    span, sentinel tails, a row whose later splits lie wholly past pos, a
+    parked row (pos == MB*Bs) and a row with pos < 0."""
+    rng = np.random.RandomState(11)
+    n, bs, hkv, g, hd, b, mb = 40, 8, 2, 2, 16, 5, _SPLIT_MB
+    q = rng.randn(b, hkv * g, hd).astype(np.float32)
+    kp = rng.randn(n, bs, hkv, hd).astype(np.float32)
+    vp = rng.randn(n, bs, hkv, hd).astype(np.float32)
+    table = rng.permutation(n)[:b * mb].reshape(b, mb).astype(np.int32)
+    pos = np.array([50, 9, mb * bs - 1, mb * bs, -1], np.int32)
+    table[0, 2] = n      # sentinel inside the live span: clamps to N-1
+    table[1, 2:] = n     # sentinel tail past pos
+    table[4] = n         # pos < 0: attends nothing
+    if kv == "bf16":
+        q, kp, vp = (np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32)
+                     for x in (q, kp, vp))
+    if kv == "int8":
+        kp, vp = ({k: np.array(v) for k, v in
+                   jdecode._quantize_kv(jnp.asarray(x)).items()}
+                  for x in (kp, vp))
+    return q, kp, vp, table, pos, hkv
+
+
+_jax_paged_refs: dict = {}
+
+
+def _jax_paged_ref(kv: str, implementation: str):
+    """JAX's paged_decode_attention on ``_split_pools(kv)``, once per
+    (kv, implementation): it does not depend on the split."""
+    key = (kv, implementation)
+    if key not in _jax_paged_refs:
+        q, kp, vp, table, pos, hkv = _split_pools(kv)
+        dt = jnp.bfloat16 if kv == "bf16" else jnp.float32
+        kw = {"interpret": True} if implementation == "pallas" else {}
+        _jax_paged_refs[key] = np.asarray(jattn.paged_decode_attention(
+            jnp.asarray(q), _to(kp, lambda x: jnp.asarray(x, dt)),
+            _to(vp, lambda x: jnp.asarray(x, dt)), jnp.asarray(table),
+            jnp.asarray(pos), n_kv_heads=hkv,
+            implementation=implementation, **kw))
+    return _jax_paged_refs[key]
+
+
+@pytest.mark.parametrize("implementation", ["xla", "pallas"])
+@pytest.mark.parametrize("kv", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("cols_per_split", [1, 2, 5, _SPLIT_MB])
+def test_paged_decode_split_plain_matches_jax(cols_per_split, kv,
+                                              implementation):
+    """The kernel's split-and-combine arithmetic, in plain PyTorch, against
+    JAX's walk (XLA, and the Pallas kernel in interpret mode), f32 math on
+    the same values, within 1e-5."""
+    q, kp, vp, table, pos, hkv = _split_pools(kv)
+    ref = _jax_paged_ref(kv, implementation)
+    b, hq, hd = q.shape
+    qg = torch.from_numpy(q).reshape(b, hkv, hq // hkv, hd)
+    kt, vt = _to(kp, torch.from_numpy), _to(vp, torch.from_numpy)
+    if kv == "bf16":
+        qg, kt, vt = qg.bfloat16(), kt.bfloat16(), vt.bfloat16()
+    out = tattn._paged_decode_split_plain(
+        qg, kt, vt, torch.from_numpy(table), torch.from_numpy(pos),
+        hd ** -0.5, cols_per_split)
+    assert out.dtype == torch.float32
+    np.testing.assert_allclose(out.reshape(b, hq, hd).numpy(), ref,
+                               rtol=1e-5, atol=1e-5)
+    assert not out[4].any()  # pos < 0 writes exact zeros
+
+
+@pytest.mark.parametrize("batch,hkv,mb,sms", [
+    (8, 8, 18, 132), (1, 8, 256, 132), (32, 8, 128, 132), (1, 1, 1, 132),
+    (1, 1, 3, 132), (6, 4, 5, 132), (64, 8, 2048, 132), (1, 8, 4096, 132),
+    (1, 1, 100_000, 132), (512, 8, 64, 132), (2, 2, 17, 8)])
+def test_paged_splits_cover_the_table(batch, hkv, mb, sms):
+    """The wrapper's split choice: at least one split, at least two
+    columns a split where MB allows, no more columns a split than the
+    kernel takes, every column covered and no split wholly past MB."""
+    splits, cps = kernels.paged_splits(batch, hkv, mb, sms)
+    assert 1 <= splits <= kernels.PAGED_MAX_SPLITS
+    assert cps <= kernels.PAGED_MAX_COLS
+    assert cps >= min(2, mb)
+    assert splits * cps >= mb > (splits - 1) * cps
+    pairs = batch * hkv
+    if pairs < sms and mb // 2 >= -(-sms // pairs):
+        assert pairs * splits >= sms  # a CTA for every SM at least
+
+
 def test_paged_decode_cpu_runs_plain_and_counts_no_launch():
     q, kp, vp, table, pos, hkv = _pools(False)
     kernels.reset_launches()
