@@ -6,9 +6,10 @@
 Run from the root of a checkout on a machine with an NVIDIA Hopper card.
 It builds the port's kernels from the checkout's sources (one ``nvcc``
 per CUDA source, all at once, beside Triton's first compile), holds each
-against its plain PyTorch version at the shapes its main path gives it,
+against its plain PyTorch version at the shapes its main paths give it,
 serves ``llama-1b`` at full width through the port's REST ``ModelServer``
-with the paged KV cache read by the paged decode kernel, trains
+(the paged KV cache read by the paged decode kernel; the default dense
+server, whose plain predicts run the flash forward kernel), trains
 ``flagship-1b`` at full width through the port's training loop with
 attention in the flash kernels, and checks the output. Phases, each
 printed as one JSON line:
@@ -60,12 +61,38 @@ printed as one JSON line:
     1024, 3 train steps with ``attn_impl="splash"`` (the kernels) and
     ``"xla"`` (plain): losses and gradient norms within 1e-5 relative,
     parameters within 1e-5 of each leaf's largest magnitude;
-(f) the kernel table: each kernel's launches on the main path, its
+(j) the flash forward kernel at the plain predict's shape (llama-1b over
+    the server batch: B=8, T=S=256, Hq=16, Hkv=8, D=128, causal, no kv
+    mask) against ``_flash_fwd_plain``, under (g)'s limits: bf16 out
+    within max(1e-2, 2 x SDPA's error), lse 1e-4; f32 1e-4. Device time
+    (``device_ms``), the call's time, the plain version's, SDPA's and the
+    bound;
+(k) the default server: ``ModelServer`` with the JAX package's defaults
+    (dense KV layout, continuous decode) at llama-1b, bf16: (d)'s six
+    requests over HTTP, one streamed, each with its token count (no
+    paged or flash kernel launches: the dense decode reads the cache
+    with einsums, as JAX does); a plain predict of 8 instances returns
+    ``next_token`` and ``logits`` and launches the flash forward exactly
+    ``n_layers`` times (one batch), timed over HTTP and through the
+    engine alone (call and device time); a ``decode_mode="lockstep"``
+    server answers the six requests; a request sharing a primed prefix
+    (``prefix_cache_slots=2``) records a prefix hit. Decode tokens/s and
+    streamed TTFT beside (d)'s paged numbers;
+(l) float32 parity of the layouts: (e)'s requests, one at a time,
+    greedy, through the dense continuous decoder, a lockstep server and
+    a prefix-cached dense server (cold, then warm) must give the tokens
+    of (e)'s paged runs; the plain predict of the six prompts (one
+    batch, n_layers flash launches on the CUDA-core route) must give
+    each request's first token as ``next_token``, and logits within 1e-4
+    of the dense decoder's prefill logits;
+(f) the kernel table: each kernel's launches on the main paths, its
     error, its time, its plain version's time and its bound; the paged
     and RMSNorm rows give device time as ``ms`` and the call's as
     ``call_ms`` (the paged row also its device time at the long and busy
-    shapes), the flash rows the call's (hundreds of microseconds, where
-    host time is noise) and the f32 CUDA-core route's (``f32_ms``).
+    shapes), the flash rows the call's at the training shape (hundreds
+    of microseconds, where host time is noise) and the f32 CUDA-core
+    route's (``f32_ms``); the flash forward row adds the predict path's
+    launches and its device and call times at the predict shape.
 
 TF32 is off throughout, so float32 products are full float32. Any
 failure exits non-zero; the last line, printed only on success, is
@@ -103,6 +130,11 @@ TRAIN_MODEL, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "flagship-1b", 4, 2048, 8
 
 MODEL = "llama-1b"
 SLOTS, MAX_SEQ, MAX_NEW, BLOCK = 8, 256, 32, 16
+# The plain predict's attention: llama-1b's heads over the server batch,
+# padded to MAX_SEQ.
+FLASH_PREDICT = dict(b=SLOTS, t=MAX_SEQ, s=MAX_SEQ, hq=16, hkv=8, hd=128,
+                     causal=True)
+PREDICT_LOGIT_TOL = 1e-4
 # (prompt length, max_new_tokens) of the main path's requests; the third
 # one is streamed.
 REQUESTS = [(5, 32), (40, 16), (128, 32), (200, 24), (256, 32), (17, 8)]
@@ -371,45 +403,59 @@ def post(port: int, body: dict, stream: bool = False):
         conn.close()
 
 
+def predict(port: int, instances: list[dict]) -> list[dict]:
+    """One predict of several instances; returns the predictions."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", f"/v1/models/{MODEL}:predict",
+                     body=json.dumps({"instances": instances}))
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise AssertionError(f"HTTP {resp.status}: {resp.read()!r}")
+        return json.loads(resp.read())["predictions"]
+    finally:
+        conn.close()
+
+
 def engine_cfg(**kw):
+    """The smoke's server: llama-1b over SLOTS slots, the paged layout
+    unless ``kw`` says otherwise."""
     from kubeflow_tpu_torch.serving.engine import EngineConfig
 
-    return EngineConfig(model=MODEL, batch_size=SLOTS, max_seq_len=MAX_SEQ,
-                        max_new_tokens=MAX_NEW, kv_layout="paged",
-                        kv_block_size=BLOCK, device="cuda", **kw)
+    return EngineConfig(**{**dict(
+        model=MODEL, batch_size=SLOTS, max_seq_len=MAX_SEQ,
+        max_new_tokens=MAX_NEW, kv_layout="paged", kv_block_size=BLOCK,
+        device="cuda"), **kw})
 
 
-def phase_main_path() -> dict:
+def drive(server) -> dict:
+    """(d)'s requests over HTTP all at once after a warm request, the
+    STREAMED one streamed where the server streams (a lockstep server
+    does not). Launch counts are zeroed just before and read just after.
+    Checks each request's token count."""
     from kubeflow_tpu_torch import kernels
-    from kubeflow_tpu_torch.serving.server import ModelServer
 
-    server = ModelServer(engine_cfg(kv_fused=True), port=0)
-    server.start()
-    try:
-        cfg = server.engine.model.config
-        bodies = request_bodies(cfg.vocab_size)
-        post(server.port, {"tokens": [1, 2, 3], "max_new_tokens": 2})  # warm
-        dec = server.decoder
-        steps0, emitted0 = dec.steps, dec.tokens_emitted
-        results: list = [None] * len(bodies)
+    cfg = server.engine.model.config
+    bodies = request_bodies(cfg.vocab_size)
+    post(server.port, {"tokens": [1, 2, 3], "max_new_tokens": 2})  # warm
+    dec = server.decoder
+    streamed = STREAMED if dec is not None else None
+    steps0 = dec.steps if dec is not None else 0
+    results: list = [None] * len(bodies)
 
-        def run(i):
-            results[i] = post(server.port, bodies[i], stream=i == STREAMED)
+    def run(i):
+        results[i] = post(server.port, bodies[i], stream=i == streamed)
 
-        threads = [threading.Thread(target=run, args=(i,))
-                   for i in range(len(bodies))]
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        wall = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
-        forwards = dec.steps - steps0
-        tokens = dec.tokens_emitted - emitted0
-    finally:
-        server.stop()
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(bodies))]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
     for (n, want), res in zip(REQUESTS, results):
         if res is None:
             raise AssertionError(f"request ({n} prompt tokens) did not finish")
@@ -418,21 +464,39 @@ def phase_main_path() -> dict:
                                  f"{len(res[0])} tokens, wanted {want}")
         if not all(0 <= t < cfg.vocab_size for t in res[0]):
             raise AssertionError("token id outside the vocabulary")
+    tokens = sum(len(res[0]) for res in results)
+    out = {
+        "model": MODEL, "dtype": str(cfg.dtype), "slots": SLOTS,
+        "max_seq_len": MAX_SEQ, "max_new_tokens": MAX_NEW,
+        "kv_layout": server.engine.cfg.kv_layout,
+        "decode_mode": server.engine.cfg.decode_mode,
+        "requests": [{"prompt": n, "max_new_tokens": w} for n, w in REQUESTS],
+        "decode_forwards": dec.steps - steps0 if dec is not None else None,
+        "tokens": tokens, "wall_s": wall,
+        "decode_tokens_per_s": tokens / wall, "launches": launches,
+    }
+    if streamed is not None:
+        out["ttft_streamed_ms"] = 1e3 * results[streamed][1]
+    return out
+
+
+def phase_main_path() -> dict:
+    from kubeflow_tpu_torch.serving.server import ModelServer
+
+    server = ModelServer(engine_cfg(kv_fused=True), port=0)
+    server.start()
+    try:
+        cfg = server.engine.model.config
+        out = drive(server)
+    finally:
+        server.stop()
+    forwards, launches = out["decode_forwards"], out["launches"]
     want_launches = cfg.n_layers * forwards
     if forwards <= 0 or launches["paged_decode_attention"] != want_launches:
         raise AssertionError(
             f"paged decode kernel launched "
             f"{launches['paged_decode_attention']} times, expected "
             f"{cfg.n_layers} layers x {forwards} decode forwards")
-    out = {
-        "model": MODEL, "dtype": str(cfg.dtype), "slots": SLOTS,
-        "max_seq_len": MAX_SEQ, "max_new_tokens": MAX_NEW,
-        "requests": [{"prompt": n, "max_new_tokens": w} for n, w in REQUESTS],
-        "decode_forwards": forwards, "tokens": tokens, "wall_s": wall,
-        "decode_tokens_per_s": tokens / wall,
-        "ttft_streamed_ms": 1e3 * results[STREAMED][1],
-        "launches": launches,
-    }
     emit("d_main_path", **out)
     return out
 
@@ -461,16 +525,18 @@ def phase_f32_parity() -> dict:
             torch.cuda.empty_cache()
         if (launched > 0) != fused:
             raise AssertionError(f"fused={fused}: {launched} kernel launches")
-    same = sum(a == b for x, y in zip(streams[True], streams[False])
-               for a, b in zip(x, y))
-    total = sum(len(x) for x in streams[True])
-    out = {"identical": streams[True] == streams[False],
-           "tokens_equal": same, "tokens": total}
+    out = compare_streams(streams[True], streams[False])
     emit("e_f32_fused_vs_gather", **out)
     if not out["identical"]:
         raise AssertionError("f32 greedy tokens differ between the fused "
                              "and the gathered read")
-    return out
+    return {**out, "streams": streams[True]}
+
+
+def compare_streams(a: list, b: list) -> dict:
+    same = sum(x == y for ra, rb in zip(a, b) for x, y in zip(ra, rb))
+    return {"identical": a == b, "tokens_equal": same,
+            "tokens": sum(len(r) for r in a)}
 
 
 # ---------------------------------------------------------------------------
@@ -713,6 +779,249 @@ def phase_flash(dev, flush) -> dict:
     return out_row
 
 
+def flash_fwd_ref(q, k, v, causal, scale):
+    """The plain forward in f32 on the kernels' layout: (out, lse [B, Hq,
+    T])."""
+    from kubeflow_tpu_torch.ops import attention as A
+
+    b, t, hq, _ = q.shape
+    s_len, hkv = k.shape[1], k.shape[2]
+    kvm = A._fold_mask(None, b, s_len, hkv, q.device)
+    out, lse = A._flash_fwd_plain(
+        A._fold_q(q.float(), hkv), A._fold_kv(k.float()),
+        A._fold_kv(v.float()), kvm, causal=causal, scale=scale,
+        block_k=PLAIN_BLOCK_K)
+    return A._unfold_q(out, b), lse.reshape(b, hq, t)
+
+
+def phase_flash_predict(dev, flush) -> dict:
+    """(j): the flash forward at the plain predict's shape, bf16 (the
+    tensor-core route) and f32 (the CUDA-core route)."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch import kernels
+
+    m = FLASH_PREDICT
+    scale = m["hd"] ** -0.5
+    pairs = m["b"] * m["hq"] * causal_pairs(m["t"], m["s"], True)
+    results = {}
+    for dtype, kind, kernel in ((torch.bfloat16, "bf16",
+                                 "flash_fwd_tc_kernel"),
+                                (torch.float32, "f32", "flash_fwd_kernel")):
+        q, k, v, _ = flash_inputs(dev, dtype, **m)
+        ref_out, ref_lse = flash_fwd_ref(q, k, v, True, scale)
+        out, lse = kernels.flash_fwd(q, k, v, None, True, scale)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
+        def call():
+            return kernels.flash_fwd(q, k, v, None, True, scale)
+
+        sdpa_err = (sdpa().transpose(1, 2).float()
+                    - ref_out).abs().max().item()
+        torch.cuda.synchronize()
+        tol_out, tol_lse = FLASH_TOL[dtype][:2]
+        if dtype == torch.bfloat16:
+            tol_out = max(tol_out, 2 * sdpa_err)
+        errs = {}
+        for name, a, r, tol in (("out", out, ref_out, tol_out),
+                                ("lse", lse, ref_lse, tol_lse)):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"flash predict shape ({kind}): "
+                                     f"non-finite {name}")
+            errs[name] = (a.float() - r).abs().max().item()
+            if errs[name] > tol:
+                raise AssertionError(f"flash predict shape ({kind}): {name} "
+                                     f"max abs error {errs[name]} > {tol}")
+        # q, k, v read once; out and lse written once. QK^T and PV: 4*D a
+        # pair.
+        bound_ms, bound_by = bound(
+            q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+            + 4 * lse.numel(), 4 * m["hd"] * pairs, kind)
+        results[kind] = {
+            "max_abs_err": errs, "tolerance": {"out": tol_out, "lse": tol_lse},
+            "sdpa_max_abs_err": sdpa_err,
+            "device_ms": device_ms(call, flush, 50, kernel),
+            "call_ms": time_ms(call, flush, 50),
+            "plain_ms": time_ms(lambda: flash_fwd_ref(q, k, v, True, scale),
+                                flush, 5),
+            "library_ms": time_ms(sdpa, flush, 50),
+            "library_device_ms": device_ms(sdpa, flush, 50),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        del q, k, v, out, lse, qt, kt, vt
+    emit("j_flash_predict_shape", shape=m, results=results)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# (k) the default server, (l) f32 parity of the layouts
+# ---------------------------------------------------------------------------
+
+
+def serve(cfg, fn):
+    """``fn(server)`` on a started ModelServer built from ``cfg``; the
+    server is stopped and its memory returned after."""
+    from kubeflow_tpu_torch.serving.server import ModelServer
+
+    server = ModelServer(cfg, port=0)
+    server.start()
+    try:
+        return fn(server)
+    finally:
+        server.stop()
+        del server
+        torch.cuda.empty_cache()
+
+
+def phase_default_server(paged: dict) -> dict:
+    from kubeflow_tpu_torch import kernels
+    from kubeflow_tpu_torch.serving.engine import EngineConfig
+
+    def jax_defaults(**kw):
+        return EngineConfig(model=MODEL, batch_size=SLOTS,
+                            max_seq_len=MAX_SEQ, max_new_tokens=MAX_NEW,
+                            device="cuda", **kw)
+
+    def continuous(server):
+        run = drive(server)
+        cfg = server.engine.model.config
+        bodies = request_bodies(cfg.vocab_size)
+        # Eight plain instances, one server batch.
+        plain = [{"tokens": b["tokens"]} for b in bodies] + [
+            {"tokens": bodies[4]["tokens"][:n]} for n in (64, 255)]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        preds = predict(server.port, plain)
+        run["plain_predict_ms"] = 1e3 * (time.perf_counter() - t0)
+        run["plain_launches"] = dict(kernels.LAUNCHES)
+        # The same batch through the engine alone (no HTTP, no JSON of
+        # 8 x vocab logits), and the card's share of it.
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        batch = lambda: server.engine.predict_batch(plain)  # noqa: E731
+        run["predict_batch_ms"] = time_ms(batch, flush, 5)
+        run["predict_batch_device_ms"] = device_ms(batch, flush, 5)
+        run["n_layers"], run["vocab"] = cfg.n_layers, cfg.vocab_size
+        run["plain_predictions"] = preds
+        return run
+
+    dense = serve(jax_defaults(), continuous)
+    preds = dense.pop("plain_predictions")
+    if dense["launches"]["paged_decode_attention"] or \
+            dense["launches"]["flash_attention_fwd"]:
+        raise AssertionError(f"dense decode launched {dense['launches']}")
+    for pred in preds:
+        logits = np.asarray(pred["logits"], np.float32)
+        if logits.shape != (dense["vocab"],) or not np.isfinite(logits).all():
+            raise AssertionError(f"plain predict logits {logits.shape}")
+        if pred["next_token"] != int(np.argmax(logits)):
+            raise AssertionError("plain predict next_token is not the "
+                                 "argmax of its logits")
+    launched = dense["plain_launches"]["flash_attention_fwd"]
+    if len(preds) != SLOTS or launched != dense["n_layers"]:
+        raise AssertionError(
+            f"plain predict of {len(preds)} instances launched the flash "
+            f"forward {launched} times, expected {dense['n_layers']} layers "
+            "x 1 batch")
+    lockstep = serve(jax_defaults(decode_mode="lockstep"), drive)
+
+    def prefix(server):
+        bodies = request_bodies(server.engine.model.config.vocab_size)
+        system = bodies[4]["tokens"][:192]
+        if not server.decoder.prime_prefix(system):
+            raise AssertionError("prime_prefix refused the system prompt")
+        toks, _ = post(server.port, {"tokens": system + bodies[1]["tokens"],
+                                     "max_new_tokens": 16})
+        if len(toks) != 16:
+            raise AssertionError(f"prefix request got {len(toks)} tokens")
+        return server.decoder.metrics()
+
+    pm = serve(jax_defaults(prefix_cache_slots=2), prefix)
+    if pm["prefix_hits"] < 1 or pm["prefix_tokens_reused"] <= 0:
+        raise AssertionError(f"no prefix hit: {pm}")
+    out = {
+        "dense": dense, "lockstep": lockstep,
+        "prefix": {k: pm[k] for k in ("prefix_hits", "prefix_misses",
+                                      "prefix_tokens_reused",
+                                      "prefix_suffix_tokens",
+                                      "prefix_inserts")},
+        "paged_decode_tokens_per_s": paged["decode_tokens_per_s"],
+        "paged_ttft_streamed_ms": paged["ttft_streamed_ms"],
+    }
+    emit("k_default_server", **out)
+    return out
+
+
+def phase_f32_layouts(paged_streams: list) -> dict:
+    """(l): float32 greedy tokens through the dense decoder, lockstep and
+    the prefix cache (cold, warm) against (e)'s paged streams, requests
+    one at a time; and the plain predict against the dense decoder's
+    prefill logits."""
+    from kubeflow_tpu_torch import kernels
+
+    def f32(**kw):
+        return engine_cfg(kv_layout="dense", dtype="float32", **kw)
+
+    def one_at_a_time(server, **extra):
+        bodies = request_bodies(server.engine.model.config.vocab_size)
+        return [server.handle_predict(MODEL, {"instances": [
+            {**b, **extra}]})["predictions"][0] for b in bodies]
+
+    def dense_run(server):
+        bodies = request_bodies(server.engine.model.config.vocab_size)
+        gen = one_at_a_time(server, return_logits=True)
+        kernels.reset_launches()
+        plain = server.handle_predict(MODEL, {"instances": [
+            {"tokens": b["tokens"]} for b in bodies]})["predictions"]
+        return gen, plain, kernels.LAUNCHES["flash_attention_fwd"], \
+            server.engine.model.config.n_layers
+
+    gen, plain, launched, n_layers = serve(f32(), dense_run)
+    lockstep = serve(f32(decode_mode="lockstep"),
+                     lambda server: one_at_a_time(server))
+
+    def prefix_run(server):
+        cold = one_at_a_time(server)
+        warm = one_at_a_time(server)
+        return cold, warm, server.decoder.metrics()
+
+    cold, warm, pm = serve(f32(prefix_cache_slots=len(REQUESTS)), prefix_run)
+    toks = {name: [p["tokens"] for p in preds] for name, preds in (
+        ("dense", gen), ("lockstep", lockstep), ("prefix_cold", cold),
+        ("prefix_warm", warm))}
+    out = {name: compare_streams(t, paged_streams)
+           for name, t in toks.items()}
+    out["prefix_warm_vs_cold"] = compare_streams(toks["prefix_warm"],
+                                                 toks["prefix_cold"])
+    out["prefix_hits"] = pm["prefix_hits"]
+    out["prefix_tokens_reused"] = pm["prefix_tokens_reused"]
+    logit_err = max(
+        float(np.abs(np.asarray(p["logits"]) - np.asarray(g["logits"])).max())
+        for p, g in zip(plain, gen))
+    first = [p["next_token"] == g["tokens"][0] for p, g in zip(plain, gen)]
+    out.update(plain_launches=launched, plain_next_token_equal=sum(first),
+               plain_logits_max_abs_err=logit_err,
+               plain_logits_tolerance=PREDICT_LOGIT_TOL)
+    emit("l_f32_layouts", **out)
+    bad = [name for name in toks if not out[name]["identical"]]
+    if bad or not out["prefix_warm_vs_cold"]["identical"]:
+        raise AssertionError(f"f32 greedy tokens differ from the paged "
+                             f"runs: {bad}")
+    if pm["prefix_hits"] < 1:
+        raise AssertionError("the warm pass hit no prefix")
+    if not all(first) or logit_err > PREDICT_LOGIT_TOL:
+        raise AssertionError(f"plain predict disagrees with the decoder's "
+                             f"prefill: next_token {first}, logits "
+                             f"{logit_err}")
+    if launched != n_layers:
+        raise AssertionError(f"f32 plain predict launched the flash forward "
+                             f"{launched} times, expected {n_layers}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # (h) the training main path, (i) f32 kernel-vs-plain training parity
 # ---------------------------------------------------------------------------
@@ -906,10 +1215,13 @@ def main() -> int:
     paged = phase_paged(dev, flush)
     rms = phase_rms(dev, flush)
     flash = phase_flash(dev, flush)
+    flash_predict = phase_flash_predict(dev, flush)
     del flush
     torch.cuda.empty_cache()
     main_path = phase_main_path()
-    phase_f32_parity()
+    default = phase_default_server(main_path)
+    paged_f32 = phase_f32_parity()
+    phase_f32_layouts(paged_f32["streams"])
     train = phase_train(smi)
     phase_train_f32_parity()
 
@@ -934,13 +1246,18 @@ def main() -> int:
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "library_ms": r["library_ms"]},
     ]
-    # One set of kernels serves both TPU kernels' names; the training main
-    # path asks for "splash", so the "pallas" rows launch 0 times there.
+    # One set of kernels serves both TPU kernels' names; the main paths
+    # ask for "splash" (training) and None (llama-1b's plain predict), so
+    # the "pallas" rows launch 0 times there. The forward row counts both
+    # paths: training's steps and the default server's plain predict.
+    predict_launches = default["dense"]["plain_launches"][
+        "flash_attention_fwd"]
+    fp = flash_predict
     for impl, line in (("splash", 239), ("pallas", 172)):
         for part in ("fwd", "bwd"):
             key = f"flash_attention_{part}"
             m = flash["timing"][part]
-            table.append({
+            row = {
                 "name": key if impl == "splash" else f"{key}[pallas]",
                 "route": "cuda",
                 "source": "kubeflow_tpu_torch/csrc/flash_attention.cu",
@@ -950,7 +1267,18 @@ def main() -> int:
                 "max_abs_err": flash["max_abs_err"][impl][part],
                 "ms": m["ms"], "plain_ms": m["plain_ms"],
                 "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-                "library_ms": m["library_ms"], "f32_ms": m["f32_ms"]})
+                "library_ms": m["library_ms"], "f32_ms": m["f32_ms"]}
+            if impl == "splash" and part == "fwd":
+                row["launches_by_path"] = {"train": row["launches"],
+                                           "predict": predict_launches}
+                row["launches"] += predict_launches
+                row["predict_shape"] = {
+                    kind: {k: fp[kind][k] for k in (
+                        "device_ms", "call_ms", "plain_ms", "library_ms",
+                        "bound_ms", "bound_by")}
+                    | {"max_abs_err": fp[kind]["max_abs_err"]["out"]}
+                    for kind in fp}
+            table.append(row)
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

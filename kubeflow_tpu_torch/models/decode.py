@@ -1,26 +1,38 @@
-"""Autoregressive decoding over a paged KV cache for the transformer family.
+"""Autoregressive decoding with a KV cache for the transformer family.
 
-Counterpart of ``kubeflow_tpu/models/decode.py`` for the paged layout
-that ``serving/continuous.py`` drives: prefill a round's admissions into a
-scratch dense cache and scatter them into the block pool
-(:func:`paged_admit_rows_and_step`), then one token (:func:`decode_step`)
-or ``steps`` tokens (:func:`decode_chunk`) for every slot. ``kv_fused``
-reads the cache through the paged decode kernel instead of gathering the
-dense ``[slots, total]`` view.
+Counterpart of ``kubeflow_tpu/models/decode.py``:
+
+- the lockstep :func:`generate` (prefill, then a loop of single-token
+  forwards against the cache);
+- the continuous-batching primitives ``serving/continuous.py`` drives, on
+  both KV layouts. Dense: one ``[total]`` cache row per slot
+  (:func:`init_decode_state`, :func:`prefill`, :func:`insert_row`,
+  :func:`admit_rows_and_step`). Paged: a block pool behind per-slot block
+  tables (:func:`init_paged_state`, :func:`paged_admit_rows_and_step`);
+  ``kv_fused`` reads it through the paged decode kernel instead of
+  gathering the dense ``[slots, total]`` view. Either layout then takes
+  one token (:func:`decode_step`) or ``steps`` tokens
+  (:func:`decode_chunk`) for every slot;
+- the dense prefix pool (:func:`init_prefix_pool`,
+  :func:`store_prefix_row`, :func:`store_prefix_cache`,
+  :func:`admit_prefix_and_step`).
 
 PyTorch runs eagerly, so the JAX ``lax.scan`` over layers is a loop over
-``L`` reading views of the stacked ``[L, ...]`` weights and pools, and the
-decode state is updated IN PLACE where JAX donates it
-(``donate_argnames=("state",)``).
+``L`` reading views of the stacked ``[L, ...]`` weights and caches, and
+the decode state and the prefix pool are updated IN PLACE where JAX
+donates the state or returns a new pool.
 
-JAX drops out-of-bounds scatters and clamps out-of-bounds gathers; torch
-does neither (it raises on the CPU and corrupts memory on CUDA), so every
-such write is filtered and every such read clamped here, explicitly:
-parked rows (``pos == total``), sentinel table entries (``== N``) and the
-rotary lookup of a parked row.
+JAX drops out-of-bounds scatters, clamps out-of-bounds gathers and clamps
+the start of ``dynamic_update_slice``; torch does none of these (it raises
+on the CPU and corrupts memory on CUDA), so here every such write is
+filtered and every such read clamped explicitly: parked rows (``pos ==
+total``) write back what they hold, sentinel table entries (``== N``) are
+filtered, the rotary lookup of a parked row clamps, and a row or pool
+index out of range, or a cache write past the row's end, raises.
 
-The dense layout, the prefix pool, speculation and chunked prefill are not
-yet ported.
+Not yet ported: the paged prefix path (``paged_admit_prefix_and_step``,
+``copy_block``), speculation (``verify_step``, ``verify_chunk``) and
+chunked prefill (``paged_prefill_chunk``).
 """
 
 from __future__ import annotations
@@ -95,8 +107,6 @@ def _cached_attention(x, layer, cfg, rope_bt, k_cache, v_cache, pos, valid):
     function returns new ones). Returns out [B, S, D]."""
     s = x.shape[1]
     total = k_cache.shape[1]
-    if pos + s > total:
-        raise ValueError(f"cache write {pos}..{pos + s} past {total} slots")
     q, k, v = _qkv(x, layer, cfg, rope_bt)
     k_cache[:, pos:pos + s] = k
     v_cache[:, pos:pos + s] = v
@@ -112,7 +122,13 @@ def forward_cached(params, tokens, cfg: TransformerConfig, cache, pos,
                    positions, valid):
     """tokens [B, S] at cache slots pos..pos+S with true sequence positions
     ``positions`` [B, S] → logits [B, S, V] f32; ``cache`` is written in
-    place."""
+    place. A block that would end past the cache raises (JAX's
+    ``dynamic_update_slice`` would clamp its start and overwrite earlier
+    slots)."""
+    total = cache["k"].shape[2]
+    if not 0 <= pos <= total - tokens.shape[1]:
+        raise ValueError(f"cache write {pos}..{pos + tokens.shape[1]} "
+                         f"outside {total} slots")
     cos_t, sin_t = rotary_frequencies(cfg.head_dim, cache["k"].shape[2],
                                       theta=cfg.rope_theta,
                                       device=tokens.device)
@@ -223,16 +239,35 @@ def _pool_write(pool, table, cols, vals, index=None):
     return pool
 
 
+def _dense_write_index(pos_b, total: int):
+    """Where the dense decode write lands: (rows, positions clamped into
+    the row, keep [B, 1, 1]). A parked row (``pos == total``) keeps
+    nothing — JAX drops that scatter; torch would fault."""
+    rows = torch.arange(pos_b.shape[0], device=pos_b.device)
+    keep = (pos_b < total)[:, None, None]
+    return rows, torch.clamp(pos_b.long(), 0, total - 1), keep
+
+
 def _ragged_attention(x, layer, cfg, rope_bt, k_cache, v_cache, pos_b, valid,
                       table, fused=False, write_index=None):
-    """Single-token attention where row ``b`` writes virtual position
-    ``pos_b[b]`` of its paged row. x: [B, 1, D]; pos_b: [B]; valid:
-    [B, total]; caches: one layer's block pools, written in place. With
-    ``fused`` the read is the paged decode kernel (no gathered view);
-    otherwise the row is gathered at block granularity."""
+    """Single-token attention where row ``b`` writes position ``pos_b[b]``
+    of its row. x: [B, 1, D]; pos_b: [B]; valid: [B, total]; caches: one
+    layer's dense ``[slots, total, H, hd]`` rows (``table`` None) or block
+    pools, written in place. A dense row writes through
+    ``write_index`` (:func:`_dense_write_index`): a parked row writes back
+    what it holds. On a paged pool ``fused`` reads through the paged
+    decode kernel (no gathered view); otherwise the row is gathered at
+    block granularity."""
     b, s, _d = x.shape
     hd = cfg.head_dim
     q, k, v = _qkv(x, layer, cfg, rope_bt)
+    if table is None:
+        rows, cols, keep = write_index
+        for cache, new in ((k_cache, k[:, 0]), (v_cache, v[:, 0])):
+            cache[rows, cols] = torch.where(keep, new, cache[rows, cols])
+        out = _gqa_attention(q, k_cache, v_cache,
+                             valid[:, None, None, None, :], cfg)
+        return out @ layer["wo"]
     _pool_write(k_cache, table, pos_b[:, None], k, write_index)
     _pool_write(v_cache, table, pos_b[:, None], v, write_index)
     if fused:
@@ -262,24 +297,34 @@ def retire_row(state, slot: int):
 
 
 def _state_kv(state):
-    """``(k, v, table, total)`` of a paged decode state: the stacked block
+    """``(k, v, table, total)`` of a decode state on either layout: dense
+    ``[L, slots, total, H, hd]`` caches (table None), or the paged block
     pools ``[L, N, Bs, H, hd]``, the ``[slots, max_blocks]`` table and the
-    virtual row width. (JAX's ``_with_kv`` has no counterpart: the pools
+    virtual row width. (JAX's ``_with_kv`` has no counterpart: the caches
     are written in place.)"""
-    if "pool" not in state:
-        raise ValueError("the dense KV layout is not yet ported")
-    k = state["pool"]["k"]
-    table = state["block_table"]
-    return k, state["pool"]["v"], table, table.shape[1] * _kv_arr(k).shape[2]
+    if "pool" in state:
+        k = state["pool"]["k"]
+        table = state["block_table"]
+        return (k, state["pool"]["v"], table,
+                table.shape[1] * _kv_arr(k).shape[2])
+    k = state["cache"]["k"]
+    return k, state["cache"]["v"], None, k.shape[2]
 
 
 def _single_token_forward(params, cfg: TransformerConfig, k_pool, v_pool,
                           tok, pos_b, table, fused=False):
-    """One [B, 1] forward at per-row virtual positions ``pos_b`` against
-    the stacked pools (written in place). Returns logits [B, V] f32."""
-    n, bs = _kv_arr(k_pool).shape[1], _kv_arr(k_pool).shape[2]
-    total = table.shape[1] * bs
+    """One [B, 1] forward at per-row positions ``pos_b`` against the
+    stacked dense caches (``table`` None) or block pools, written in
+    place. Returns logits [B, V] f32."""
     dev = tok.device
+    # Every layer writes the same (row, position) set: index it once.
+    if table is None:
+        total = k_pool.shape[2]
+        widx = _dense_write_index(pos_b, total)
+    else:
+        n, bs = _kv_arr(k_pool).shape[1], _kv_arr(k_pool).shape[2]
+        total = table.shape[1] * bs
+        widx = _write_index(table, pos_b[:, None], n, bs)
     cos_t, sin_t = rotary_frequencies(cfg.head_dim, total,
                                       theta=cfg.rope_theta, device=dev)
     # A parked row sits at pos == total; JAX clamps its table lookup.
@@ -287,8 +332,6 @@ def _single_token_forward(params, cfg: TransformerConfig, k_pool, v_pool,
     rope_bt = (cos_t[rpos], sin_t[rpos])
     x = params["embed"]["kernel"][tok.long()][:, None]
     valid = torch.arange(total, device=dev)[None, :] <= pos_b[:, None]
-    # Every layer writes the same (row, position) set: filter once.
-    widx = _write_index(table, pos_b[:, None], n, bs)
     for i in range(cfg.n_layers):
         layer = _layer(params, i)
         h = rms_norm(x, layer["ln_attn"], eps=cfg.norm_eps)
@@ -355,6 +398,294 @@ def decode_chunk(state, params, cfg: TransformerConfig, steps: int,
     return state, torch.stack(toks), torch.stack(emits)
 
 
+def _new_generator(dev, seed: int) -> torch.Generator:
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(seed)
+    return generator
+
+
+def _slot_scalars(cfg: TransformerConfig, slots: int, dev) -> dict:
+    """The per-slot scalars of a decode state, on either layout."""
+    return {
+        "length": torch.zeros((slots,), dtype=torch.int32, device=dev),
+        "remaining": torch.zeros((slots,), dtype=torch.int32, device=dev),
+        "active": torch.zeros((slots,), dtype=torch.bool, device=dev),
+        "temperature": torch.zeros((slots,), dtype=torch.float32,
+                                   device=dev),
+        "last_logits": torch.zeros((slots, cfg.vocab_size),
+                                   dtype=torch.float32, device=dev),
+    }
+
+
+def _set_rows(state, slots, length, remaining, temperature, last) -> None:
+    """Admit rows ``slots`` (an index tensor, or one int): write position
+    ``length``, budget ``remaining`` (active while > 0), temperature and
+    last logits. Values are tensors or Python numbers."""
+    dev = state["length"].device
+    remaining = torch.as_tensor(remaining, dtype=torch.int32, device=dev)
+    state["length"][slots] = torch.as_tensor(length, dtype=torch.int32,
+                                             device=dev)
+    state["remaining"][slots] = remaining
+    state["active"][slots] = remaining > 0
+    state["temperature"][slots] = torch.as_tensor(
+        temperature, dtype=torch.float32, device=dev)
+    state["last_logits"][slots] = last
+
+
+def _row_index(i, n: int, what: str) -> int:
+    """One row index, checked: JAX clamps a ``dynamic_update_slice``
+    start and drops a scatter out of range; the port raises."""
+    i = int(i)
+    if not 0 <= i < n:
+        raise IndexError(f"{what} {i} outside [0, {n})")
+    return i
+
+
+def _check_rows(idx, n: int, what: str) -> None:
+    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= n):
+        raise IndexError(f"{what} {idx.tolist()} outside [0, {n})")
+
+
+def _prefill_rows(params, cfg: TransformerConfig, cache, prompt_tokens,
+                  prompt_lengths):
+    """Prefill right-padded prompts ``[B, T0]`` into ``cache`` (written in
+    place) from slot 0. Lengths clamp to >= 1, as in JAX, so a zero-length
+    row reads its first logits rather than wrapping to the last. Returns
+    (last-position logits [B, V] f32, clamped lengths)."""
+    total = cache["k"].shape[2]
+    b, t0 = prompt_tokens.shape
+    dev = prompt_tokens.device
+    lengths = torch.clamp(prompt_lengths, min=1)
+    valid = torch.arange(total, device=dev)[None, :] < lengths[:, None]
+    positions = torch.arange(t0, device=dev)[None].expand(b, t0)
+    logits = forward_cached(params, prompt_tokens.long(), cfg, cache, 0,
+                            positions, valid)
+    return logits[torch.arange(b, device=dev), lengths.long() - 1], lengths
+
+
+@torch.inference_mode()
+def generate(params, prompt_tokens, prompt_lengths, cfg: TransformerConfig,
+             *, max_new_tokens: int, generator: torch.Generator, temperature,
+             top_k: int = 0, row_valid=None):
+    """prompt_tokens [B, T0] right-padded, prompt_lengths [B] →
+    (generated [B, max_new_tokens] int32, prefill_logits [B, V] f32).
+
+    The lockstep path: one prefill, then ``max_new_tokens`` single-token
+    forwards against a ``[T0 + max_new_tokens]`` cache (JAX scans them in
+    one compiled call). Row ``b``'s token at step ``t`` sits at cache slot
+    ``T0 + t`` with true position ``length[b] + t``. ``temperature`` [B]:
+    <= 0 decodes greedily. ``generator`` takes the place of JAX's key.
+    ``row_valid`` marks real rows of a padded batch; JAX reads it only for
+    MoE routing, and MoE presets are not yet ported."""
+    del row_valid
+    b, t0 = prompt_tokens.shape
+    dev = prompt_tokens.device
+    total = t0 + max_new_tokens
+    cache = init_cache(cfg, b, total, dev)
+    last, lengths = _prefill_rows(params, cfg, cache, prompt_tokens,
+                                  prompt_lengths)
+    valid = torch.arange(total, device=dev)[None, :] < lengths[:, None]
+    logits, toks = last, []
+    for i in range(max_new_tokens):
+        tok = sample_token(logits, generator, temperature, top_k)
+        valid[:, t0 + i] = True
+        logits = forward_cached(params, tok[:, None].long(), cfg, cache,
+                                t0 + i, (lengths + i)[:, None], valid)[:, 0]
+        toks.append(tok)
+    if not toks:
+        return torch.zeros((b, 0), dtype=torch.int32, device=dev), last
+    return torch.stack(toks, dim=1), last
+
+
+# ---------------------------------------------------------------------------
+# Dense KV layout
+# ---------------------------------------------------------------------------
+
+
+@torch.inference_mode()
+def prefill(params, prompt_tokens, prompt_lengths, cfg: TransformerConfig, *,
+            total_len: int):
+    """One prompt pass: tokens [B, T0] right-padded → (cache with
+    ``total_len`` slots, last-position logits [B, V]). Slots past the true
+    length hold pad junk that decode overwrites before the mask admits
+    it."""
+    cache = init_cache(cfg, prompt_tokens.shape[0], total_len,
+                       prompt_tokens.device)
+    last, _ = _prefill_rows(params, cfg, cache, prompt_tokens,
+                            prompt_lengths)
+    return cache, last
+
+
+def init_decode_state(cfg: TransformerConfig, slots: int, total_len: int,
+                      seed: int = 0, *, device="cuda"):
+    """Dense server decode state: ``slots`` in-flight rows over one
+    ``[L, slots, total_len, Hkv, hd]`` cache. ``length`` is each row's
+    next write slot (== tokens held so far); inactive rows are parked
+    with ``active`` False. ``generator`` takes the place of JAX's key."""
+    dev = resolve_device(device)
+    return {"cache": init_cache(cfg, slots, total_len, dev),
+            **_slot_scalars(cfg, slots, dev),
+            "generator": _new_generator(dev, seed)}
+
+
+@torch.inference_mode()
+def insert_row(state, slot, row_cache, last_logits, length, remaining,
+               temperature):
+    """Copy a prefilled request (batch-1 :func:`prefill` outputs) into row
+    ``slot`` of the dense state, in place. A slot out of range raises
+    (JAX's ``dynamic_update_slice`` would clamp it onto the last row)."""
+    slot = _row_index(slot, state["cache"]["k"].shape[1], "slot")
+    t = row_cache["k"].shape[2]
+    for side in ("k", "v"):
+        state["cache"][side][:, slot, :t] = row_cache[side][:, 0]
+    _set_rows(state, slot, length, remaining, temperature, last_logits[0])
+    return state
+
+
+def _admit_rows_body(state, params, cfg: TransformerConfig, slots,
+                     prompt_tokens, prompt_lengths, remaining, temperature):
+    """Prefill a round's admissions into a scratch cache of the state's
+    row width and copy each row into ``slots``, in place. ``slots`` may
+    repeat only as bucket padding that duplicates a real admission
+    verbatim, so duplicate indices carry identical rows and the scatter
+    is deterministic. Returns (state, last [K, V])."""
+    kc = state["cache"]["k"]
+    _check_rows(slots, kc.shape[1], "slots")
+    cache = init_cache(cfg, prompt_tokens.shape[0], kc.shape[2],
+                       prompt_tokens.device)
+    last, lengths = _prefill_rows(params, cfg, cache, prompt_tokens,
+                                  prompt_lengths)
+    slots = slots.long()
+    for side in ("k", "v"):
+        state["cache"][side][:, slots] = cache[side]
+    _set_rows(state, slots, lengths, remaining, temperature, last)
+    return state, last
+
+
+@torch.inference_mode()
+def admit_rows_and_step(state, params, cfg: TransformerConfig, slots,
+                        prompt_tokens, prompt_lengths, remaining, temperature,
+                        top_k: int = 0, eos_id: int | None = None):
+    """Fused dense admission: prefill ``[K, T0]`` prompts, copy them into
+    rows ``slots``, AND run one decode step for every active row, so the
+    new requests' first token comes back with the admission. Returns
+    (state, prefill last-logits [K, V], sampled token [slots], emitted
+    mask [slots])."""
+    state, last = _admit_rows_body(state, params, cfg, slots, prompt_tokens,
+                                   prompt_lengths, remaining, temperature)
+    state, tok, emit = _decode_step_body(state, params, cfg, top_k, eos_id)
+    return state, last, tok, emit
+
+
+# ---------------------------------------------------------------------------
+# Dense prefix pool (serving/prefix_cache.py holds the host-side trie)
+# ---------------------------------------------------------------------------
+#
+# The K/V of a shared prompt prefix depends only on the prefix tokens, so
+# it is computed once, parked in a pool row, and copied into a new
+# request's row at admission; the request then prefills only its suffix.
+# JAX keeps the pool functional (a store never touches the array an
+# admission captured); here it is written in place, so the host pins
+# (``PrefixCache`` refcounts) carry the whole guarantee: a store goes only
+# to an unpinned row, and an admission copies its pinned row into the
+# scratch cache before anything else runs.
+
+
+def init_prefix_pool(cfg: TransformerConfig, pool_slots: int,
+                     max_prefix_len: int, *, device="cuda"):
+    """Device prefix pool: ``pool_slots`` rows of per-layer K/V for up to
+    ``max_prefix_len`` positions, laid out like the decode cache."""
+    return init_cache(cfg, pool_slots, max_prefix_len,
+                      resolve_device(device))
+
+
+def _store_prefix(pool, pool_slot, rows) -> None:
+    """Write ``rows[side]`` ([L, >= P, H, hd]) into pool row ``pool_slot``."""
+    pool_slot = _row_index(pool_slot, pool["k"].shape[1], "pool_slot")
+    plen = pool["k"].shape[2]
+    for side in ("k", "v"):
+        if rows[side].shape[1] < plen:
+            raise ValueError(f"rows of {rows[side].shape[1]} positions "
+                             f"cannot fill a pool row of {plen}")
+        pool[side][:, pool_slot] = rows[side][:, :plen]
+
+
+@torch.inference_mode()
+def store_prefix_row(pool, pool_slot, state, row):
+    """Publish dense decode-state row ``row``'s first ``max_prefix_len``
+    cache positions into pool row ``pool_slot``, in place (the
+    publish-on-finish path: a finished request's prompt region is its
+    prefix)."""
+    row = _row_index(row, state["cache"]["k"].shape[1], "row")
+    _store_prefix(pool, pool_slot,
+                  {side: state["cache"][side][:, row] for side in "kv"})
+    return pool
+
+
+@torch.inference_mode()
+def store_prefix_cache(pool, pool_slot, cache):
+    """Publish a batch-1 :func:`prefill` cache into pool row
+    ``pool_slot``, in place (the prime path: a shared system prompt
+    pooled without touching the decode state or its generator)."""
+    _store_prefix(pool, pool_slot,
+                  {side: cache[side][:, 0] for side in "kv"})
+    return pool
+
+
+def _admit_prefix_body(state, params, cfg: TransformerConfig, slot, pool,
+                       pool_slot, prefix_len, suffix_tokens, prompt_len,
+                       remaining, temperature):
+    """Copy pool row ``pool_slot`` into a scratch row, prefill the suffix
+    ``[1, S]`` from ``prefix_len`` on, and copy the row into ``slot``.
+    Positions past ``prefix_len`` hold the donor's unrelated continuation
+    until the suffix overwrites them; ``valid`` masks everything past
+    ``prompt_len``. A suffix that would end past the row raises."""
+    kc = state["cache"]["k"]
+    slot = _row_index(slot, kc.shape[1], "slot")
+    pool_slot = _row_index(pool_slot, pool["k"].shape[1], "pool_slot")
+    prefix_len, prompt_len = int(prefix_len), int(prompt_len)
+    total = kc.shape[2]
+    s = suffix_tokens.shape[1]
+    dev = suffix_tokens.device
+    cache = init_cache(cfg, 1, total, dev)
+    plen = pool["k"].shape[2]
+    for side in ("k", "v"):
+        cache[side][:, 0, :plen] = pool[side][:, pool_slot]
+    suffix_len = max(prompt_len - prefix_len, 1)
+    positions = prefix_len + torch.arange(s, device=dev)[None, :]
+    valid = torch.arange(total, device=dev)[None, :] < prompt_len
+    logits = forward_cached(params, suffix_tokens.long(), cfg, cache,
+                            prefix_len, positions, valid)
+    last = logits[:, suffix_len - 1]
+    for side in ("k", "v"):
+        state["cache"][side][:, slot] = cache[side][:, 0]
+    _set_rows(state, slot, prompt_len, remaining, temperature, last[0])
+    return state, last
+
+
+@torch.inference_mode()
+def admit_prefix_and_step(state, params, cfg: TransformerConfig, slot, pool,
+                          pool_slot, prefix_len, suffix_tokens, prompt_len,
+                          remaining, temperature, top_k: int = 0,
+                          eos_id: int | None = None):
+    """Prefix-hit admission: row ``slot`` takes pool row ``pool_slot``'s
+    first ``prefix_len`` K/V positions, prefills ONLY the suffix
+    (``suffix_tokens`` [1, S], padded to a length bucket), and one decode
+    step runs for every active row — the prefix twin of
+    :func:`admit_rows_and_step`. Returns (state, prefill last-logits
+    [1, V], sampled token [slots], emitted mask [slots])."""
+    state, last = _admit_prefix_body(state, params, cfg, slot, pool,
+                                     pool_slot, prefix_len, suffix_tokens,
+                                     prompt_len, remaining, temperature)
+    state, tok, emit = _decode_step_body(state, params, cfg, top_k, eos_id)
+    return state, last, tok, emit
+
+
+# ---------------------------------------------------------------------------
+# Paged KV layout: state and admission
+# ---------------------------------------------------------------------------
+
+
 def init_paged_state(cfg: TransformerConfig, slots: int, num_blocks: int,
                      block_size: int, max_blocks_per_seq: int, seed: int = 0,
                      kv_dtype: str = "fp", *, device="cuda"):
@@ -377,20 +708,12 @@ def init_paged_state(cfg: TransformerConfig, slots: int, num_blocks: int,
                 "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
     else:
         raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
-    generator = torch.Generator(device=dev)
-    generator.manual_seed(seed)
     return {
         "pool": pool,
         "block_table": torch.full((slots, max_blocks_per_seq), num_blocks,
                                   dtype=torch.int32, device=dev),
-        "length": torch.zeros((slots,), dtype=torch.int32, device=dev),
-        "remaining": torch.zeros((slots,), dtype=torch.int32, device=dev),
-        "active": torch.zeros((slots,), dtype=torch.bool, device=dev),
-        "temperature": torch.zeros((slots,), dtype=torch.float32,
-                                   device=dev),
-        "last_logits": torch.zeros((slots, cfg.vocab_size),
-                                   dtype=torch.float32, device=dev),
-        "generator": generator,
+        **_slot_scalars(cfg, slots, dev),
+        "generator": _new_generator(dev, seed),
     }
 
 
@@ -408,16 +731,10 @@ def _paged_admit_rows_body(state, params, cfg: TransformerConfig, slots,
     n, bs = _kv_arr(pool_k).shape[1], _kv_arr(pool_k).shape[2]
     mb = state["block_table"].shape[1]
     total = mb * bs
-    b, t0 = prompt_tokens.shape
-    dev = prompt_tokens.device
-    cache = init_cache(cfg, b, total, dev)
-    prompt_lengths = torch.clamp(prompt_lengths, min=1)
-    valid = (torch.arange(total, device=dev)[None, :]
-             < prompt_lengths[:, None])
-    positions = torch.arange(t0, device=dev)[None].expand(b, t0)
-    logits = forward_cached(params, prompt_tokens.long(), cfg, cache, 0,
-                            positions, valid)
-    last = logits[torch.arange(b, device=dev), prompt_lengths.long() - 1]
+    b = prompt_tokens.shape[0]
+    cache = init_cache(cfg, b, total, prompt_tokens.device)
+    last, lengths = _prefill_rows(params, cfg, cache, prompt_tokens,
+                                  prompt_lengths)
     slots = slots.long()
     rows_tbl = state["block_table"][slots].long()  # [b, mb]
     rows, cols = (rows_tbl < n).nonzero(as_tuple=True)
@@ -431,11 +748,7 @@ def _paged_admit_rows_body(state, params, cfg: TransformerConfig, slots,
             pool["scale"][:, blk] = qd["scale"]
         else:
             pool[:, blk] = upd
-    state["length"][slots] = prompt_lengths.to(torch.int32)
-    state["remaining"][slots] = remaining.to(torch.int32)
-    state["active"][slots] = remaining > 0
-    state["temperature"][slots] = temperature.float()
-    state["last_logits"][slots] = last
+    _set_rows(state, slots, lengths, remaining, temperature, last)
     return state, last
 
 

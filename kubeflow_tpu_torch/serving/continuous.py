@@ -1,20 +1,29 @@
 """Continuous-batching decode service with per-token streaming.
 
-Counterpart of ``kubeflow_tpu/serving/continuous.py`` for the paged KV
-layout: a persistent decode state holds up to ``slots`` in-flight
-sequences over a shared block pool, a round's admissions are prefilled
-together in one power-of-two-bucketed batch fused with one decode step
-(``paged_admit_rows_and_step``), and every later round runs one decode
-step (``decode_step``) or ``chunk_size`` of them (``decode_chunk``) for all
-slots. Admission is memory-aware: a request enters only when its
-worst-case block count fits the pool, and a finished row frees its slot
-and blocks at once. Tokens surface through per-request queues as each
-step's sample lands.
+Counterpart of ``kubeflow_tpu/serving/continuous.py``: a persistent decode
+state holds up to ``slots`` in-flight sequences, a round's admissions are
+prefilled together in one power-of-two-bucketed batch fused with one
+decode step, and every later round runs one decode step (``decode_step``)
+or ``chunk_size`` of them (``decode_chunk``) for all slots. Tokens surface
+through per-request queues as each step's sample lands.
 
-Options of features not yet ported (prefix cache, speculation, QoS, host
-KV tier, chunked prefill, tensor/context/pipeline parallelism, fleet
-roles, the KV directory and cold store, the dense layout) raise
-``ValueError`` at construction; none falls through to another behaviour.
+Two KV layouts, as in JAX. ``"dense"`` (the default) reserves one
+full-length cache row per slot (``admit_rows_and_step``). ``"paged"``
+backs each request with blocks of a shared pool
+(``paged_admit_rows_and_step``); admission is memory-aware there: a
+request enters only when its worst-case block count fits the pool, and a
+finished row frees its blocks at once.
+
+The dense prefix cache (``prefix_cache_slots``): a host trie
+(``serving/prefix_cache.py``) over a device pool of prefix rows. A
+matching admission copies the cached K/V and prefills only its suffix
+(``admit_prefix_and_step``); a finished prompt publishes its prefix back
+(``store_prefix_row``), and ``prime_prefix`` pools one up front.
+
+Options of features not yet ported (the paged prefix path, speculation,
+QoS, host KV tier, chunked prefill, tensor/context/pipeline parallelism,
+fleet roles, the KV directory and cold store) raise ``ValueError`` at
+construction; none falls through to another behaviour.
 """
 
 from __future__ import annotations
@@ -29,16 +38,24 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch.models.decode import (
+    admit_prefix_and_step,
+    admit_rows_and_step,
     decode_chunk,
     decode_step,
+    init_decode_state,
     init_paged_state,
+    init_prefix_pool,
     paged_admit_rows_and_step,
+    prefill,
+    store_prefix_cache,
+    store_prefix_row,
 )
 from kubeflow_tpu_torch.serving.engine import pow2_bucket
 from kubeflow_tpu_torch.serving.kv_allocator import (
     BlockAllocator,
     kv_bytes_per_token,
 )
+from kubeflow_tpu_torch.serving.prefix_cache import PrefixCache
 
 _DONE = object()
 
@@ -69,6 +86,9 @@ class _Request:
     # Rounds this request sat at the head of admission blocked on memory
     # (the head-of-line bypass aging counter).
     defer_rounds: int = 0
+    # The prefix-cache entry this request's admission read, pinned until
+    # the request finishes.
+    pinned_prefix: object = None
 
     @property
     def want_left(self) -> int:
@@ -140,14 +160,14 @@ class ContinuousDecoder:
     """Owns the device decode state and the scheduler thread.
 
     ``prefill_len`` fixes the prompt shape (prompts are right-padded to
-    it); ``slots`` is the decode concurrency; the virtual row is
-    ``prefill_len + max_new_tokens`` positions. The device is the
-    parameters' device."""
+    it); ``slots`` is the decode concurrency; a row is ``prefill_len +
+    max_new_tokens`` positions. The device is the parameters' device."""
 
     def __init__(self, params, cfg, *, slots: int, prefill_len: int,
                  max_new_tokens: int, top_k: int = 0,
                  eos_id: int | None = None, seed: int = 0,
                  chunk_size: int = 1, prefix_cache_slots: int = 0,
+                 prefix_cache_min_len: int = 16,
                  prefill_len_buckets: int = 0, speculative_k: int = 0,
                  kv_layout: str = "dense", kv_block_size: int = 16,
                  kv_pool_blocks: int = 0, kv_low_watermark: int = 0,
@@ -160,9 +180,11 @@ class ContinuousDecoder:
                  kv_directory=None, cold_store=None):
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
+        if prefix_cache_slots > 0 and kv_layout == "paged":
+            raise ValueError("the paged prefix path (prefix_cache_slots "
+                             "with kv_layout='paged') is not yet ported to "
+                             "the PyTorch package")
         _reject_unported(
-            kv_layout_dense=kv_layout == "dense",
-            prefix_cache_slots=prefix_cache_slots > 0,
             speculative_k=speculative_k > 0,
             qos=qos is not None,
             host_kv_bytes=host_kv_bytes > 0,
@@ -176,6 +198,10 @@ class ContinuousDecoder:
         )
         if kv_dtype not in ("fp", "int8"):
             raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
+        if kv_dtype == "int8" and kv_layout != "paged":
+            raise ValueError("kv_dtype='int8' requires kv_layout='paged'")
+        if kv_fused and kv_layout != "paged":
+            raise ValueError("kv_fused requires kv_layout='paged'")
         self.max_prompt_len = int(max_prompt_len) or prefill_len
         if self.max_prompt_len != prefill_len:
             raise ValueError(
@@ -199,32 +225,50 @@ class ContinuousDecoder:
         # round, the finest admission/streaming granularity.
         self.chunk_size = max(1, int(chunk_size))
         self.total_len = self.max_prompt_len + max_new_tokens
-        self.kv_block_size = max(1, int(kv_block_size))
-        if self.total_len % self.kv_block_size:
-            raise ValueError(
-                f"kv_block_size {self.kv_block_size} must divide "
-                f"max_prompt_len + max_new_tokens = {self.total_len}")
-        mb = self.total_len // self.kv_block_size
-        # 0 = worst-case parity with a dense reservation: the pool can back
-        # every slot at full length.
-        num_blocks = int(kv_pool_blocks) or slots * mb
-        if num_blocks < mb:
-            raise ValueError(
-                f"kv_pool_blocks {num_blocks} cannot back even one "
-                f"worst-case sequence ({mb} blocks)")
-        self._alloc = BlockAllocator(
-            num_blocks, self.kv_block_size,
-            bytes_per_token=kv_bytes_per_token(
-                cfg.n_layers, cfg.n_kv_heads, cfg.head_dim,
-                torch.empty((), dtype=cfg.dtype).element_size(), kv_dtype))
-        self._max_blocks_per_seq = mb
-        # Host mirror of the device block table; sentinel ``num_blocks``
-        # marks unallocated entries (writes through them are dropped).
-        self._table = np.full((slots, mb), num_blocks, np.int32)
         self._slot_blocks: list[list[int]] = [[] for _ in range(slots)]
-        self._state = init_paged_state(cfg, slots, num_blocks,
-                                       self.kv_block_size, mb, seed,
-                                       kv_dtype=kv_dtype, device=self.device)
+        self.kv_block_size = max(1, int(kv_block_size))
+        if kv_layout == "paged":
+            if self.total_len % self.kv_block_size:
+                raise ValueError(
+                    f"kv_block_size {self.kv_block_size} must divide "
+                    f"max_prompt_len + max_new_tokens = {self.total_len}")
+            mb = self.total_len // self.kv_block_size
+            # 0 = worst-case parity with the dense reservation: the pool
+            # can back every slot at full length.
+            num_blocks = int(kv_pool_blocks) or slots * mb
+            if num_blocks < mb:
+                raise ValueError(
+                    f"kv_pool_blocks {num_blocks} cannot back even one "
+                    f"worst-case sequence ({mb} blocks)")
+            self._alloc = BlockAllocator(
+                num_blocks, self.kv_block_size,
+                bytes_per_token=kv_bytes_per_token(
+                    cfg.n_layers, cfg.n_kv_heads, cfg.head_dim,
+                    torch.empty((), dtype=cfg.dtype).element_size(),
+                    kv_dtype))
+            # Host mirror of the device block table; sentinel
+            # ``num_blocks`` marks unallocated entries (writes through
+            # them are dropped).
+            self._table = np.full((slots, mb), num_blocks, np.int32)
+            self._state = init_paged_state(cfg, slots, num_blocks,
+                                           self.kv_block_size, mb, seed,
+                                           kv_dtype=kv_dtype,
+                                           device=self.device)
+        else:
+            self._alloc = None
+            self._state = init_decode_state(cfg, slots, self.total_len, seed,
+                                            device=self.device)
+        # Dense prefix cache: host trie + a device pool of prefix rows.
+        self.prefix_cache = (
+            PrefixCache(prefix_cache_slots, min_len=prefix_cache_min_len)
+            if prefix_cache_slots > 0 else None)
+        self._prefix_pool = (
+            init_prefix_pool(cfg, prefix_cache_slots, prefill_len,
+                             device=self.device)
+            if self.prefix_cache is not None else None)
+        # Guards the trie and pool writes: prime_prefix() runs on caller
+        # threads while the scheduler thread matches and publishes.
+        self._prefix_lock = threading.Lock()
         self.kv_low_watermark = max(0, int(kv_low_watermark))
         # Head-of-line bypass: how many memory-blocked candidates a round
         # may skip looking for a smaller request that fits, and how many
@@ -254,6 +298,11 @@ class ContinuousDecoder:
         self.hol_bypasses = 0
         self.kv_blocks_peak = 0
         self.peak_in_flight = 0
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        self.prefix_tokens_reused = 0
+        self.prefix_suffix_tokens = 0
+        self.prefix_inserts = 0
         # Counter mutations and metrics() reads go through this leaf lock.
         self._mlock = threading.Lock()
         self._ramp_streak = 0  # consecutive admission-only rounds
@@ -261,6 +310,13 @@ class ContinuousDecoder:
         self._thread.start()
 
     # ------------------------------------------------------------------
+
+    def _check_tokens(self, tokens: list[int]) -> None:
+        # Out-of-range ids would fault the device's embedding gather
+        # (JAX clamps them); reject them at the door.
+        if any(t < 0 or t >= self.cfg.vocab_size for t in tokens):
+            raise ValueError(
+                f"token ids must lie in [0, {self.cfg.vocab_size})")
 
     def submit(self, tokens: list[int], max_new_tokens: int,
                temperature: float = 0.0) -> StreamHandle:
@@ -270,11 +326,7 @@ class ContinuousDecoder:
             raise PromptTooLong(
                 f"prompt is {len(tokens)} tokens but this replica serves "
                 f"at most {self.max_prompt_len} (max_prompt_len)")
-        # Out-of-range ids would fault the device's embedding gather
-        # (JAX clamps them); reject them at the door.
-        if any(t < 0 or t >= self.cfg.vocab_size for t in tokens):
-            raise ValueError(
-                f"token ids must lie in [0, {self.cfg.vocab_size})")
+        self._check_tokens(tokens)
         req = _Request(tokens=list(tokens),
                        want=min(max_new_tokens, self.max_new_tokens),
                        temperature=float(temperature))
@@ -321,7 +373,10 @@ class ContinuousDecoder:
         self._table[slot, : len(blocks)] = blocks
 
     def _free_slot_blocks(self, slot: int) -> None:
-        """Return a retiring slot's blocks to the allocator. Idempotent."""
+        """Return a retiring slot's blocks to the allocator (paged).
+        Idempotent."""
+        if self._alloc is None:
+            return
         with self._alloc_lock:
             blocks, self._slot_blocks[slot] = self._slot_blocks[slot], []
             for b in blocks:
@@ -331,7 +386,8 @@ class ContinuousDecoder:
 
     def _admit_batch(self, pending: list[tuple[_Request, int]]) -> None:
         """Admit a round's pending requests in ONE call that fuses
-        prefill, state insert and one decode step. The batch is padded to
+        prefill, state insert and one decode step (``admit_rows_and_step``
+        or its paged twin). The batch is padded to
         a power-of-two bucket by repeating the last real admission
         verbatim (duplicate scatter indices then carry identical
         payloads), and with ``prefill_len_buckets`` the sequence dim to
@@ -352,20 +408,23 @@ class ContinuousDecoder:
             temps[i] = req.temperature
             wants[i] = req.want_left
         dev = self.device
+        args = (self.params, self.cfg,
+                *(torch.from_numpy(x).to(dev)
+                  for x in (slots, toks, lengths, wants, temps)),
+                self.top_k, self.eos_id)
         with self._state_lock:
-            # Table rows go live only now, under this call, which also
-            # sets the rows' device length/active.
-            for req, slot in pending:
-                self._set_table_row(slot, self._slot_blocks[slot])
-            self._state["block_table"].copy_(torch.from_numpy(self._table))
-            self._state, last, tok, emit = paged_admit_rows_and_step(
-                self._state, self.params, self.cfg,
-                torch.from_numpy(slots).to(dev),
-                torch.from_numpy(toks).to(dev),
-                torch.from_numpy(lengths).to(dev),
-                torch.from_numpy(wants).to(dev),
-                torch.from_numpy(temps).to(dev), self.top_k, self.eos_id,
-                self.kv_fused)
+            if self._alloc is None:
+                self._state, last, tok, emit = admit_rows_and_step(
+                    self._state, *args)
+            else:
+                # Table rows go live only now, under this call, which
+                # also sets the rows' device length/active.
+                for req, slot in pending:
+                    self._set_table_row(slot, self._slot_blocks[slot])
+                self._state["block_table"].copy_(
+                    torch.from_numpy(self._table))
+                self._state, last, tok, emit = paged_admit_rows_and_step(
+                    self._state, *args, self.kv_fused)
             tok_np, emit_np = tok.cpu().numpy(), emit.cpu().numpy()
         with self._mlock:
             self.prefill_dispatches += 1
@@ -385,12 +444,150 @@ class ContinuousDecoder:
         floor = max(1, self.prefill_len >> self.prefill_len_buckets)
         return pow2_bucket(max(n, floor), cap=self.prefill_len)
 
+    def _suffix_bucket(self, n: int) -> int:
+        """Prefill length of an ``n``-token suffix after a prefix hit.
+        Suffixes are bucketed even when full-prompt bucketing is off
+        (padding a 3-token suffix to ``prefill_len`` would erase the
+        reuse), with a floor bounding the number of shapes."""
+        if self.prefill_len_buckets > 0:
+            floor = max(1, self.prefill_len >> self.prefill_len_buckets)
+        else:
+            floor = min(8, self.prefill_len)
+        return pow2_bucket(max(n, floor), cap=self.prefill_len)
+
+    # -- dense prefix cache ---------------------------------------------
+
+    def _plan_prefix(self, req: _Request):
+        """Probe the trie for ``req`` and fit the (prefix, suffix-bucket)
+        split into the row: the suffix must end within ``total_len`` (the
+        admission raises on a write past the row, where JAX's
+        ``dynamic_update_slice`` would clamp it), so when the bucket runs
+        past the prompt's tail the reused prefix shortens to ``prompt_len
+        - bucket``. Returns (entry, prefix_len, bucket) with the entry
+        pinned, or None (miss; any pin released)."""
+        with self._prefix_lock:
+            m = self.prefix_cache.match(req.tokens)
+        if m is None:
+            return None
+        entry, plen = m
+        n = len(req.tokens)
+        s = self._suffix_bucket(n - plen)
+        if plen + s > self.total_len:
+            plen = n - s
+        if s >= n or plen < self.prefix_cache.min_len:
+            # Too little left to reuse once bucketed: full prefill wins.
+            with self._prefix_lock:
+                self.prefix_cache.release(entry)
+            return None
+        return entry, plen, s
+
+    def _admit_prefix(self, req: _Request, slot: int, entry,
+                      prefix_len: int, s: int) -> None:
+        """Prefix-hit admission: ONE call copies the pooled K/V into the
+        request's row, prefills only the suffix (padded to ``s``) and
+        takes the fused decode step. ``entry`` arrives pinned and stays
+        pinned until the request finishes, so no store can write the pool
+        row it reads."""
+        suffix = req.tokens[prefix_len:]
+        toks = np.zeros((1, s), np.int32)
+        toks[0, : len(suffix)] = suffix
+        with self._state_lock:
+            self._state, last, tok, emit = admit_prefix_and_step(
+                self._state, self.params, self.cfg, slot, self._prefix_pool,
+                entry.slot, prefix_len, torch.from_numpy(toks).to(self.device),
+                len(req.tokens), req.want_left, req.temperature, self.top_k,
+                self.eos_id)
+            tok_np, emit_np = tok.cpu().numpy(), emit.cpu().numpy()
+        req.pinned_prefix = entry
+        with self._mlock:
+            self.prefill_dispatches += 1
+            self.admitted += 1
+            self.prefix_hits += 1
+            self.prefix_tokens_reused += prefix_len
+            self.prefix_suffix_tokens += len(suffix)
+            self.prefill_tokens += len(suffix)
+            self.steps += 1
+        req.prefill_src = (last, 0)
+        self._post_admit(req, slot)
+        self._dispatch(tok_np, emit_np)
+
+    def _publish_prefix(self, req: _Request, slot: int) -> None:
+        """Publish a finishing request's prompt K/V (still intact in its
+        row's positions 0..len-1) into the prefix pool, so later prompts
+        sharing the prefix skip its prefill. Runs on the scheduler thread
+        BEFORE the slot is freed; the trie's reserve() hands out only an
+        unpinned pool row, so no admission reads the row written here."""
+        cache = self.prefix_cache
+        if cache is None or req.error is not None:
+            return
+        key = tuple(req.tokens)
+        if len(key) < cache.min_len:
+            return
+        with self._prefix_lock:
+            if cache.has(key):
+                cache.touch(key)
+                return
+            entry = cache.reserve(key)
+            if entry is None:  # every pool row pinned by peers in flight
+                return
+            store_prefix_row(self._prefix_pool, entry.slot, self._state, slot)
+        with self._mlock:
+            self.prefix_inserts += 1
+
+    def _release_pin(self, req: _Request) -> None:
+        if req.pinned_prefix is not None and self.prefix_cache is not None:
+            with self._prefix_lock:
+                self.prefix_cache.release(req.pinned_prefix)
+            req.pinned_prefix = None
+
+    def prime_prefix(self, tokens: list[int]) -> bool:
+        """Precompute and pool a prefix (e.g. the shared system prompt at
+        server start) WITHOUT touching the decode state or its generator,
+        so a primed decoder samples exactly as an unprimed one. Returns
+        True when the prefix is pooled (already or now)."""
+        if self.prefix_cache is None:
+            return False
+        toks = list(tokens)[: self.prefill_len]
+        if len(toks) < self.prefix_cache.min_len:
+            return False
+        self._check_tokens(toks)
+        key = tuple(toks)
+        with self._prefix_lock:
+            if self.prefix_cache.has(key):
+                self.prefix_cache.touch(key)
+                return True
+            entry = self.prefix_cache.reserve(key)
+            if entry is None:
+                return False
+            try:
+                arr = np.zeros((1, self._seq_bucket(len(toks))), np.int32)
+                arr[0, : len(toks)] = toks
+                cache, _last = prefill(
+                    self.params, torch.from_numpy(arr).to(self.device),
+                    torch.tensor([len(toks)], device=self.device), self.cfg,
+                    total_len=self.prefill_len)
+                store_prefix_cache(self._prefix_pool, entry.slot, cache)
+            except Exception:
+                self.prefix_cache.remove(entry)
+                raise
+        with self._mlock:
+            self.prefix_inserts += 1
+            self.prefill_tokens += len(toks)  # priming IS a prefill
+        return True
+
+    def _retire(self, req: _Request, slot: int) -> None:
+        """A request's row is done: publish its prefix while the row is
+        intact, release its pin and its blocks, free the slot."""
+        self._publish_prefix(req, slot)
+        self._release_pin(req)
+        self._free_slot_blocks(slot)
+        self._slot_req[slot] = None
+
     def _post_admit(self, req: _Request, slot: int) -> None:
         if req.want_left == 0:
             # Pure prefill (last-position logits only): the row went in
             # inactive; hand the result back now.
-            self._free_slot_blocks(slot)
-            self._slot_req[slot] = None
+            self._retire(req, slot)
             self._finish(req)
         else:
             self._slot_req[slot] = req
@@ -418,8 +615,7 @@ class ContinuousDecoder:
             emitted_n += 1
             hit_eos = self.eos_id is not None and tok == self.eos_id
             if hit_eos or len(req.out) >= req.want:
-                self._free_slot_blocks(slot)
-                self._slot_req[slot] = None
+                self._retire(req, slot)
                 self._active_count -= 1
                 self._finish(req, reason="eos" if hit_eos else "length")
         with self._mlock:
@@ -454,7 +650,8 @@ class ContinuousDecoder:
             self._finish(req, error=err)
 
     def _pop_admissions(self) -> tuple[list[tuple[_Request, int]], bool]:
-        """Memory-aware admission (caller holds the cv): a request enters
+        """Pop this round's admissions (caller holds the cv). Paged
+        admission is memory-aware: a request enters
         only when its WORST-CASE block count fits the pool, so a stream
         can never run out of blocks mid-decode; its blocks are reserved
         here. A memory-blocked head may be bypassed by up to
@@ -465,6 +662,11 @@ class ContinuousDecoder:
         deferred = False
         free_slots = [s for s in range(self.slots)
                       if self._slot_req[s] is None]
+        if self._alloc is None:
+            # Dense: every slot owns a full row, so a free slot is enough.
+            while free_slots and self._pending:
+                pending.append((self._pending.popleft(), free_slots.pop(0)))
+            return pending, deferred
         idx = 0
         bypassed = 0
         while free_slots and idx < len(self._pending):
@@ -539,7 +741,24 @@ class ContinuousDecoder:
                     # admission round normally ends here; under sustained
                     # arrivals at most one consecutive admission-only
                     # round runs before a chunk runs in the same round.
-                    self._admit_batch(pending)
+                    # With the prefix cache on, each request probes the
+                    # trie first: hits take suffix-only admissions (one
+                    # call each), misses batch as before.
+                    misses = pending
+                    if self.prefix_cache is not None:
+                        hits, misses = [], []
+                        for req, slot in pending:
+                            plan = self._plan_prefix(req)
+                            if plan is None:
+                                with self._mlock:
+                                    self.prefix_misses += 1
+                                misses.append((req, slot))
+                            else:
+                                hits.append((req, slot, plan))
+                        for req, slot, plan in hits:
+                            self._admit_prefix(req, slot, *plan)
+                    if misses:
+                        self._admit_batch(misses)
                     ramp = (any(req.want_left for req, _ in pending)
                             and (self.chunk_size == 1
                                  or self._ramp_streak < 1))
@@ -602,17 +821,30 @@ class ContinuousDecoder:
                 "queued": queued,
                 "kv_defer_admissions": self.kv_defer_admissions,
                 "hol_bypasses": self.hol_bypasses,
+                "prefix_hits": self.prefix_hits,
+                "prefix_misses": self.prefix_misses,
+                "prefix_tokens_reused": self.prefix_tokens_reused,
+                "prefix_suffix_tokens": self.prefix_suffix_tokens,
+                "prefix_inserts": self.prefix_inserts,
             }
+        cache = self.prefix_cache
+        with self._prefix_lock:
+            snap["prefix_evictions"] = cache.evictions if cache else 0
+            snap["prefix_entries"] = len(cache) if cache else 0
+        # The dense layout has no block pool: its block and byte gauges
+        # read 0, as in JAX.
+        alloc = self._alloc
         with self._alloc_lock:
             snap.update({
-                "kv_blocks_total": self._alloc.num_blocks,
-                "kv_blocks_in_use": self._alloc.blocks_in_use,
+                "kv_layout": self.kv_layout,
+                "kv_blocks_total": alloc.num_blocks if alloc else 0,
+                "kv_blocks_in_use": alloc.blocks_in_use if alloc else 0,
                 "kv_blocks_peak": self.kv_blocks_peak,
-                "kv_block_size": self.kv_block_size,
-                "kv_dtype": self.kv_dtype,
+                "kv_block_size": self.kv_block_size if alloc else 0,
+                "kv_dtype": self.kv_dtype if alloc else "fp",
                 "kv_fused": self.kv_fused,
-                "kv_bytes_per_token": self._alloc.bytes_per_token,
-                "kv_bytes_in_use": self._alloc.bytes_in_use,
-                "kv_bytes_total": self._alloc.bytes_total,
+                "kv_bytes_per_token": alloc.bytes_per_token if alloc else 0,
+                "kv_bytes_in_use": alloc.bytes_in_use if alloc else 0,
+                "kv_bytes_total": alloc.bytes_total if alloc else 0,
             })
         return snap

@@ -1,20 +1,27 @@
-"""Inference engine: registry model + weights on a device.
+"""Inference engine: registry model + weights on a device → predict.
 
-Counterpart of ``kubeflow_tpu/serving/engine.py`` for the LM serving path
-of this slice: ``pow2_bucket``, the :class:`EngineConfig` fields the port
-honours (same names and defaults as the JAX config, plus ``device``) and
-the LM boot of :class:`InferenceEngine`. Generation runs in
-``serving/continuous.py``; the plain (non-generating) predict, checkpoint
-restore and peer weight pulls are not yet ported.
+Counterpart of ``kubeflow_tpu/serving/engine.py`` for language models:
+``pow2_bucket``, the :class:`EngineConfig` fields the port honours (same
+names and defaults as the JAX config, plus ``device``) and
+:class:`InferenceEngine`. Its ``predict_batch`` pads a batch to the
+server's fixed shape and runs either the plain forward
+(``transformer.apply``, whose attention is the flash kernel on the card)
+or, for instances that ask for tokens, the lockstep ``generate``. The
+continuous decoder (``serving/continuous.py``) serves generation in the
+default decode mode. BERT and ResNet predicts, checkpoint restore and
+peer weight pulls are not yet ported.
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from kubeflow_tpu_torch.device import resolve_device
+from kubeflow_tpu_torch.models.decode import generate
 from kubeflow_tpu_torch.models.registry import ModelSpec, get_model
 from kubeflow_tpu_torch.weights import params_from_numpy
 
@@ -44,12 +51,18 @@ class EngineConfig:
     max_new_tokens: int = 16
     top_k: int = 0
     eos_id: int | None = None
-    # Only "continuous" is ported ("lockstep" raises).
+    # "continuous": the continuous decoder, per-request lengths decoupled
+    # and streamable. "lockstep": generation rides the dynamic batcher,
+    # one prefill + decode loop per batch.
     decode_mode: str = "continuous"
     decode_chunk: int = 1
+    # Dense prefix cache (continuous mode, dense layout): pool rows for
+    # shared prompt prefixes (0 disables), and the shortest prefix worth
+    # caching. The paged prefix path is not yet ported.
+    prefix_cache_slots: int = 0
+    prefix_cache_min_len: int = 16
     prefill_len_buckets: int = 0
-    # Only "paged" is ported; the JAX default "dense" raises at decoder
-    # construction.
+    # "dense" (one full-length row per slot) or "paged" (a block pool).
     kv_layout: str = "dense"
     kv_block_size: int = 16
     kv_pool_blocks: int = 0
@@ -63,8 +76,25 @@ class EngineConfig:
     device: str = "cuda"
 
 
+def _predict_impl(model: ModelSpec, params, inputs: dict) -> dict:
+    """The plain predict: logits at each row's last real position
+    (causality makes them exact whatever padding follows), in f32, and
+    their argmax."""
+    if model.family != "transformer":
+        raise ValueError(f"the {model.family} predict is not yet ported to "
+                         "the PyTorch package")
+    # Inference mode: nothing records a backward, so the forward runs
+    # whatever the preset's remat (llama-1b's is True).
+    with torch.inference_mode():
+        logits = model.apply(params, inputs["tokens"], model.config)
+        rows = torch.arange(logits.shape[0], device=logits.device)
+        last = logits[rows, inputs["last_index"]].float()
+        return {"logits": last, "next_token": torch.argmax(last, dim=-1)}
+
+
 class InferenceEngine:
-    """The model spec and its weights on ``cfg.device``.
+    """The model spec and its weights on ``cfg.device``, and a
+    thread-safe predict over the server's fixed batch shape.
 
     Weights come from ``init`` with a generator seeded 0 on the device,
     or — given ``params`` — from a numpy parameter tree with the JAX
@@ -77,9 +107,8 @@ class InferenceEngine:
         if cfg.weight_peers:
             raise ValueError("weight_peers is not yet ported to the PyTorch "
                              "package")
-        if cfg.decode_mode != "continuous":
-            raise ValueError(f"decode_mode {cfg.decode_mode!r} is not yet "
-                             "ported (only 'continuous')")
+        if cfg.decode_mode not in ("continuous", "lockstep"):
+            raise ValueError(f"unknown decode_mode {cfg.decode_mode!r}")
         if cfg.dtype and cfg.dtype not in _DTYPES:
             raise ValueError(f"unknown dtype {cfg.dtype!r}")
         self.cfg = cfg
@@ -94,9 +123,20 @@ class InferenceEngine:
         else:
             self.params = params_from_numpy(params, self.model.config,
                                             self.device)
-        # PyTorch runs eagerly: nothing is left to compile once the
-        # weights sit on the device.
-        self.ready = True
+        self._lock = threading.Lock()
+        # Lockstep generation seeds a fresh generator per batch.
+        self._seed = 0
+        self._warm = False
+
+    def warmup(self) -> None:
+        """One predict through the serving shape (PyTorch compiles
+        nothing; the first call builds the kernels on the card)."""
+        self.predict_batch(self._example_instances(1))
+        self._warm = True
+
+    @property
+    def ready(self) -> bool:
+        return self._warm
 
     def validate_instance(self, inst: dict) -> None:
         """Reject malformed instances before they reach the decoder."""
@@ -121,6 +161,79 @@ class InferenceEngine:
         temp = inst.get("temperature", 0.0)
         if not isinstance(temp, (int, float)) or temp < 0:
             raise ValueError("'temperature' must be a non-negative number")
+
+    def _example_instances(self, n: int) -> list[dict]:
+        return [{"tokens": [0] * 8}] * n
+
+    def _pad_tokens(self, instances: list[dict]):
+        """Instances' tokens right-padded to the server's fixed ``[batch,
+        max_seq_len]`` shape (longer prompts cut at ``max_seq_len``), on
+        the device, and each row's length (1 for pad rows)."""
+        b, t = self.cfg.batch_size, self.cfg.max_seq_len
+        tokens = np.zeros((b, t), np.int32)
+        lengths = np.ones((b,), np.int32)
+        for i, inst in enumerate(instances):
+            seq = np.asarray(inst["tokens"], np.int32)[:t]
+            tokens[i, : len(seq)] = seq
+            lengths[i] = len(seq)
+        return (torch.from_numpy(tokens).to(self.device),
+                torch.from_numpy(lengths).to(self.device))
+
+    def _generate_batch(self, instances: list[dict]) -> list[dict]:
+        """Lockstep generation: prefill + a decode loop over the KV cache
+        for the whole padded batch; per-row temperature, each row's
+        requested length sliced out."""
+        n = len(instances)
+        b = self.cfg.batch_size
+        tokens, lengths = self._pad_tokens(instances)
+        temperature = np.zeros((b,), np.float32)
+        for i, inst in enumerate(instances):
+            temperature[i] = float(inst.get("temperature", 0.0))
+        row_valid = np.zeros((b,), bool)
+        row_valid[:n] = True
+        dev = self.device
+        with self._lock:
+            self._seed += 1
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(self._seed)
+            toks, last = generate(
+                self.params, tokens, lengths, self.model.config,
+                max_new_tokens=self.cfg.max_new_tokens, generator=gen,
+                temperature=torch.from_numpy(temperature).to(dev),
+                top_k=self.cfg.top_k,
+                row_valid=torch.from_numpy(row_valid).to(dev))
+            toks, last = toks[:n].cpu().numpy(), last[:n].cpu().numpy()
+        out = []
+        for i, inst in enumerate(instances):
+            want = min(int(inst.get("max_new_tokens", 0)),
+                       self.cfg.max_new_tokens)
+            pred = {
+                "next_token": int(toks[i, 0]) if want else
+                int(np.argmax(last[i])),
+                "tokens": toks[i, :want].tolist(),
+            }
+            # Full-vocab logits are large as JSON: only for plain
+            # predicts or on request.
+            if not want or inst.get("return_logits"):
+                pred["logits"] = last[i].tolist()
+            out.append(pred)
+        return out
+
+    def predict_batch(self, instances: list[dict]) -> list[dict]:
+        """Pad instances to the server batch, run, slice real results."""
+        if len(instances) > self.cfg.batch_size:
+            raise ValueError(
+                f"batch {len(instances)} exceeds limit {self.cfg.batch_size}")
+        if (self.model.family == "transformer"
+                and any(inst.get("max_new_tokens") for inst in instances)):
+            return self._generate_batch(instances)
+        n = len(instances)
+        tokens, lengths = self._pad_tokens(instances)
+        with self._lock:
+            out = _predict_impl(self.model, self.params, {
+                "tokens": tokens, "last_index": lengths.long() - 1})
+            out = {k: v[:n].cpu().numpy() for k, v in out.items()}
+        return [{k: v[i].tolist() for k, v in out.items()} for i in range(n)]
 
     def metadata(self) -> dict:
         cfg = self.model.config

@@ -3,16 +3,18 @@
 The REST surface of the JAX server, with the same request and response
 bodies:
 
-- ``POST /v1/models/<name>:predict``  generation instances
-  ``{"tokens": [...], "max_new_tokens": n}`` → ``{"predictions": [...]}``;
-  with ``"stream": true`` chunked JSON lines, one per token, then a
-  terminal ``{"done": true, ...}`` record
+- ``POST /v1/models/<name>:predict``  ``{"instances": [...]}`` →
+  ``{"predictions": [...]}``. An instance with ``"max_new_tokens": n``
+  generates: through the continuous decoder in ``decode_mode
+  "continuous"``, with ``"stream": true`` as chunked JSON lines, one per
+  token, then a terminal ``{"done": true, ...}`` record. A plain instance
+  (the forward of ``transformer.apply``), and every instance in
+  ``decode_mode "lockstep"``, coalesces in the dynamic batcher into one
+  ``InferenceEngine.predict_batch`` call.
 - ``GET  /v1/models/<name>``          model metadata + availability
 - ``GET  /healthz`` ``GET /readyz``   liveness/readiness
 
-A predict without ``max_new_tokens`` (the plain forward of
-``transformer.apply``), gRPC, metrics and the fleet endpoints are not yet
-ported.
+gRPC, metrics and the fleet endpoints are not yet ported.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from kubeflow_tpu_torch.serving.batcher import DynamicBatcher
 from kubeflow_tpu_torch.serving.continuous import (
     ContinuousDecoder,
     PromptTooLong,
@@ -32,19 +35,22 @@ from kubeflow_tpu_torch.serving.engine import EngineConfig, InferenceEngine
 
 class ModelServer:
     """REST on ``port`` (:8500 by convention; 0 binds an ephemeral port)
-    over one engine and one continuous decoder. ``params`` (a numpy tree
-    in the JAX layout) replaces the seeded random init."""
+    over one engine, its dynamic batcher (``batch_timeout_ms``) and, in
+    ``decode_mode "continuous"``, one continuous decoder. ``params`` (a
+    numpy tree in the JAX layout) replaces the seeded random init."""
 
     def __init__(self, engine_cfg: EngineConfig, *, port: int = 8500,
-                 params=None):
+                 params=None, batch_timeout_ms: float = 5.0):
         self.engine = InferenceEngine(engine_cfg, params=params)
         self.port = port
         self._httpd: ThreadingHTTPServer | None = None
-        # Built at once (the JAX server builds it at the first request):
-        # the port serves only language models, and an option that is not
-        # yet ported fails here rather than at the first request.
+        # The decoder is built at once (the JAX server builds it at the
+        # first request): the port serves only language models, and an
+        # option that is not yet ported fails here rather than at the
+        # first request. None unless generation rides it.
         cfg = engine_cfg
-        self.decoder = None if cfg.max_new_tokens <= 0 else ContinuousDecoder(
+        continuous = cfg.max_new_tokens > 0 and cfg.decode_mode == "continuous"
+        self.decoder = None if not continuous else ContinuousDecoder(
             self.engine.params, self.engine.model.config,
             slots=cfg.batch_size,
             prefill_len=cfg.max_seq_len,
@@ -52,6 +58,8 @@ class ModelServer:
             top_k=cfg.top_k,
             eos_id=cfg.eos_id,
             chunk_size=cfg.decode_chunk,
+            prefix_cache_slots=cfg.prefix_cache_slots,
+            prefix_cache_min_len=cfg.prefix_cache_min_len,
             prefill_len_buckets=cfg.prefill_len_buckets,
             kv_layout=cfg.kv_layout,
             kv_block_size=cfg.kv_block_size,
@@ -60,17 +68,10 @@ class ModelServer:
             kv_fused=cfg.kv_fused,
             stream_timeout_s=cfg.stream_timeout_s,
         )
+        self.batcher = DynamicBatcher(self.engine.predict_batch,
+                                      cfg.batch_size, batch_timeout_ms)
 
     # ------------------------------------------------------------------
-
-    def _generation_decoder(self, inst: dict) -> ContinuousDecoder:
-        decoder = self.decoder
-        if not inst.get("max_new_tokens") or decoder is None:
-            raise ValueError(
-                "a predict without 'max_new_tokens' > 0 (the plain forward "
-                "of transformer.apply) is not yet ported to the PyTorch "
-                "package")
-        return decoder
 
     def handle_predict(self, name: str, body: dict) -> dict:
         if name != self.engine.cfg.model:
@@ -80,14 +81,27 @@ class ModelServer:
             raise ValueError("body must contain non-empty 'instances'")
         for inst in instances:
             self.engine.validate_instance(inst)
-        decoders = [self._generation_decoder(inst) for inst in instances]
-        handles = [d.submit(inst["tokens"], inst["max_new_tokens"],
-                            float(inst.get("temperature", 0.0)))
-                   for d, inst in zip(decoders, instances)]
-        return {"predictions": [
-            self._gen_prediction(inst, h.result(
-                with_logits=bool(inst.get("return_logits")) or None))
-            for inst, h in zip(instances, handles)]}
+        # Generation goes to the continuous decoder (a short request
+        # returns as soon as ITS tokens are done); plain predicts, and
+        # lockstep generation, coalesce in the dynamic batcher. Every
+        # instance is queued before any is collected.
+        handles = []
+        for inst in instances:
+            if inst.get("max_new_tokens") and self.decoder is not None:
+                handles.append(("gen", inst, self.decoder.submit(
+                    inst["tokens"], inst["max_new_tokens"],
+                    float(inst.get("temperature", 0.0)))))
+            else:
+                handles.append(("batch", inst,
+                                self.batcher.submit_async(inst)))
+        preds = []
+        for kind, inst, h in handles:
+            if kind == "gen":
+                preds.append(self._gen_prediction(inst, h.result(
+                    with_logits=bool(inst.get("return_logits")) or None)))
+            else:
+                preds.append(self.batcher.collect(h))
+        return {"predictions": preds}
 
     @staticmethod
     def _gen_prediction(inst: dict, res: dict) -> dict:
@@ -115,7 +129,9 @@ class ModelServer:
         self.engine.validate_instance(inst)
         if not inst.get("max_new_tokens"):
             raise ValueError("streaming needs 'max_new_tokens' > 0")
-        handle = self._generation_decoder(inst).submit(
+        if self.decoder is None:
+            raise ValueError("streaming needs decode_mode 'continuous'")
+        handle = self.decoder.submit(
             inst["tokens"], inst["max_new_tokens"],
             float(inst.get("temperature", 0.0)))
 
@@ -229,21 +245,26 @@ class ModelServer:
         return Handler
 
     def start(self) -> None:
-        """Bind and serve on a background thread (tests, smoke runs)."""
+        """Bind and serve on a background thread (tests, smoke runs), then
+        warm the engine: ``/readyz`` answers 503 until it is warm."""
         self._httpd = ThreadingHTTPServer(("0.0.0.0", self.port),
                                           self._make_handler())
         self.port = self._httpd.server_address[1]
         threading.Thread(target=self._httpd.serve_forever,
                          daemon=True).start()
+        self.engine.warmup()
 
     def serve_forever(self) -> None:
         self._httpd = ThreadingHTTPServer(("0.0.0.0", self.port),
                                           self._make_handler())
+        # Warm on a side thread: the accept loop answers probes meanwhile.
+        threading.Thread(target=self.engine.warmup, daemon=True).start()
         self._httpd.serve_forever()
 
     def stop(self) -> None:
         if self._httpd:
             self._httpd.shutdown()
             self._httpd.server_close()
+        self.batcher.stop()
         if self.decoder is not None:
             self.decoder.stop()

@@ -327,3 +327,82 @@ def test_flash_bf16_dkdv_are_bit_identical_across_runs(cuda):
     torch.cuda.synchronize()
     assert torch.equal(first[1], second[1])
     assert torch.equal(first[2], second[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_fwd_at_the_predict_shape(cuda, dtype):
+    """llama-1b's plain predict: B 8, T = S = 256 (two 128-row query
+    tiles), Hq 16, Hkv 8 (G 2), D 128, causal, no kv mask. The forward
+    kernel and its lse against the plain forward in f32 on the same
+    values; bf16's out limit stands on SDPA's own error, as above."""
+    b, t, hq, hkv, hd = 8, 256, 16, 8, 128
+    gen = torch.Generator(device=cuda).manual_seed(3)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda).to(dtype)
+
+    q, k, v = rand(b, t, hq, hd), rand(b, t, hkv, hd), rand(b, t, hkv, hd)
+    scale = hd ** -0.5
+    kvm = tattn._fold_mask(None, b, t, hkv, cuda)
+    ref_out, ref_lse = tattn._flash_fwd_plain(
+        tattn._fold_q(q.float(), hkv), tattn._fold_kv(k.float()),
+        tattn._fold_kv(v.float()), kvm, causal=True, scale=scale,
+        block_k=t)
+    ref_out, ref_lse = tattn._unfold_q(ref_out, b), ref_lse.reshape(b, hq, t)
+    kernels.reset_launches()
+    out, lse = kernels.flash_fwd(q, k, v, None, True, scale)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention_fwd"] == 1
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    out_tol = 1e-4
+    if dtype == torch.bfloat16:
+        sdpa = sdpa_run(q, k, v, rand(b, t, hq, hd), None, True)
+        out_tol = max(1e-2, 2 * (sdpa[0] - ref_out).abs().max().item())
+    assert (out.float() - ref_out).abs().max().item() <= out_tol
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
+def _on(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _on(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@pytest.mark.cuda
+def test_dense_decode_on_the_card_matches_the_cpu(cuda):
+    """The dense layout's admission (a padded bucket that repeats a
+    slot), a retired row's write-back and four decode steps, in f32 on
+    the card and on the CPU: the same tokens, logits within 1e-4."""
+    from kubeflow_tpu_torch.models import decode as tdecode
+    from kubeflow_tpu_torch.models import transformer
+
+    cfg = transformer.config("lm-test-tiny", dtype=torch.float32)
+    params = transformer.init(cfg, generator=torch.Generator().manual_seed(0),
+                              device="cpu")
+    admit = dict(slots=torch.tensor([0, 1, 2, 2], dtype=torch.int32),
+                 toks=torch.tensor([[5, 9, 2, 7, 1], [3, 3, 0, 0, 0],
+                                    [8, 1, 4, 4, 2], [8, 1, 4, 4, 2]],
+                                   dtype=torch.int32),
+                 lengths=torch.tensor([5, 2, 5, 5], dtype=torch.int32),
+                 remaining=torch.tensor([6, 6, 6, 6], dtype=torch.int32),
+                 temps=torch.zeros(4))
+    runs = []
+    for dev in (torch.device("cpu"), cuda):
+        a = _on(admit, dev)
+        state = tdecode.init_decode_state(cfg, 4, 16, device=dev)
+        state, last, tok, _ = tdecode.admit_rows_and_step(
+            state, _on(params, dev), cfg, a["slots"], a["toks"],
+            a["lengths"], a["remaining"], a["temps"])
+        tdecode.retire_row(state, 1)
+        toks = [tok]
+        for _ in range(4):
+            state, tok, _ = tdecode.decode_step(state, _on(params, dev), cfg)
+            toks.append(tok)
+        runs.append((torch.stack(toks).cpu(), last.cpu(),
+                     state["last_logits"].cpu(), state["cache"]["k"].cpu()))
+    (cpu_toks, *cpu_f), (card_toks, *card_f) = runs
+    assert torch.equal(cpu_toks, card_toks)
+    for c, g in zip(cpu_f, card_f):
+        torch.testing.assert_close(g, c, rtol=1e-4, atol=1e-4)

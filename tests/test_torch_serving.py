@@ -108,7 +108,8 @@ def test_decoder_rejects_too_long_and_bad_tokens(weights):
 
 
 @pytest.mark.parametrize("option", [
-    dict(kv_layout="dense"), dict(prefix_cache_slots=2),
+    dict(kv_layout="dense", prefill_chunk_tokens=8),
+    dict(prefix_cache_slots=2),
     dict(speculative_k=2), dict(qos=object()), dict(host_kv_bytes=1 << 20),
     dict(prefill_chunk_tokens=8), dict(tp_shards=2), dict(cp_shards=2),
     dict(pp_stages=2), dict(role="prefill"), dict(kv_directory=object()),
@@ -131,11 +132,28 @@ def _engine_cfg(**kw):
 
 @pytest.mark.parametrize("option", [
     dict(checkpoint_dir="/nonexistent"), dict(weight_peers="h:1"),
-    dict(decode_mode="lockstep"), dict(kv_layout="dense")],
+    dict(prefix_cache_slots=2)],
     ids=lambda o: next(iter(o)))
 def test_server_unported_options_raise(option):
     with pytest.raises(ValueError, match="not yet ported"):
         ModelServer(_engine_cfg(**option), port=0)
+
+
+@pytest.mark.parametrize("option", [
+    dict(decode_mode="lockstep"), dict(kv_layout="dense", kv_fused=False)],
+    ids=lambda o: next(iter(o)))
+def test_server_builds_lockstep_and_dense(option):
+    """The JAX server's other decode mode and its default layout: a
+    lockstep server has no decoder (generation rides the batcher), a
+    dense one decodes into dense rows."""
+    server = ModelServer(_engine_cfg(**option), port=0)
+    try:
+        if option.get("decode_mode") == "lockstep":
+            assert server.decoder is None
+        else:
+            assert server.decoder.metrics()["kv_layout"] == "dense"
+    finally:
+        server.stop()
 
 
 def _request(port, method, path, body=None):
@@ -176,10 +194,14 @@ def test_http_predict_stream_and_probes_match_jax(weights, jax_streams):
         assert _request(port, "GET", "/readyz")[0] == 200
         status, text = _request(port, "GET", "/v1/models/lm-test-tiny")
         assert status == 200 and json.loads(text)["state"] == "AVAILABLE"
-        # A plain predict (no max_new_tokens) is not yet ported: 400.
+        # A plain predict (no max_new_tokens): last-position logits and
+        # their argmax, the greedy stream's first token.
         status, text = _request(port, "POST", path, {
-            "instances": [{"tokens": [1, 2, 3]}]})
-        assert status == 400 and "not yet ported" in text
+            "instances": [{"tokens": PROMPTS[0]}]})
+        assert status == 200
+        pred = json.loads(text)["predictions"][0]
+        assert pred["next_token"] == int(np.argmax(pred["logits"]))
+        assert pred["next_token"] == want[0]["tokens"][0]
         assert _request(port, "POST", "/v1/models/other:predict", {
             "instances": [{"tokens": [1], "max_new_tokens": 1}]})[0] == 404
         assert _request(port, "POST", path, {"instances": [
@@ -189,7 +211,7 @@ def test_http_predict_stream_and_probes_match_jax(weights, jax_streams):
 
 
 @pytest.mark.parametrize("flag", ["--grpc-port=9000", "--speculative-k",
-                                  "--prefix-cache-slots"])
+                                  "--prefill-chunk-tokens"])
 def test_cli_rejects_unported_flags(flag):
     from kubeflow_tpu_torch.serving.__main__ import main
 
@@ -202,7 +224,8 @@ def test_cli_rejects_unported_flags(flag):
 def test_cli_rejects_dense_layout_and_bad_block_size():
     from kubeflow_tpu_torch.serving.__main__ import main
 
-    for extra in ([], ["--kv-layout", "paged", "--kv-block-size", "7"]):
+    for extra in (["--kv-layout", "paged", "--prefix-cache-slots", "2"],
+                  ["--kv-layout", "paged", "--kv-block-size", "7"]):
         with pytest.raises(SystemExit) as e:
             main(["--model-name", "lm-test-tiny", *extra])
         assert e.value.code == 2
