@@ -8,8 +8,10 @@ It builds the port's kernels from the checkout's sources (one ``nvcc``
 per CUDA source, all at once, beside Triton's first compile), holds each
 against its plain PyTorch version at the shapes its main paths give it,
 serves ``llama-1b`` at full width through the port's REST ``ModelServer``
-(the paged KV cache read by the paged decode kernel; the default dense
-server, whose plain predicts run the flash forward kernel), trains
+and its CLI (the paged KV cache read by the paged decode kernel, with
+the paged prefix path and chunked prefill; the default dense server,
+whose plain predicts run the flash forward kernel, and its metrics,
+request ids and gRPC), trains
 ``flagship-1b`` at full width through the port's training loop with
 attention in the flash kernels, and checks the output. Phases, each
 printed as one JSON line:
@@ -17,8 +19,10 @@ printed as one JSON line:
 (a) the card and the kernels' build times;
 (b) the paged decode kernel against ``_paged_decode_plain`` at the main
     path's shape (bf16, f32 and int8 pools; sentinel table entries, a
-    parked row, a row with pos < 0) and at two kernel-only bf16 shapes
-    (one row of 4096 positions; 32 rows of 2048), tolerance 2e-3: both
+    parked row, a row with pos < 0), at the chunked path's shape (bf16,
+    8 rows of 114 columns, one parked, one with pos < 0) and at two
+    kernel-only bf16 shapes (one row of 4096 positions; 32 rows of
+    2048), tolerance 2e-3: both
     compute in float32 and differ only in the order of the sums. ``ms``
     is the kernel's device time (``torch.profiler`` durations, L2
     flushed before each launch), ``call_ms`` the time of the Python call
@@ -85,14 +89,53 @@ printed as one JSON line:
     batch, n_layers flash launches on the CUDA-core route) must give
     each request's first token as ``next_token``, and logits within 1e-4
     of the dense decoder's prefill logits;
+(m) the default server's surfaces: after (k)'s requests its
+    ``/monitoring/prometheus/metrics`` must count exactly the tokens
+    they got (``serving_tokens_emitted_total``) and the requests sent
+    (``serving_requests_admitted_total``), every response must echo its
+    ``X-Request-ID``, and ``/debug/requests?id=`` must return each
+    closed timeline. Then ``grpc_available`` (``import grpc`` here) and
+    the CLI as a user starts it (logs under ``chiprun_out/``): with
+    grpcio, the default flags serve gRPC :9000 and a ``Predict`` body
+    equals the REST body; without it, the default flags exit 2 naming
+    ``--grpc-port -1``. Beside it the CLI with ``--kv-layout paged
+    --kv-fused-attention --prefix-cache-slots 4 --prefill-chunk-tokens
+    128 --max-prompt-len 1792 --grpc-port -1`` answers a 1500-token
+    prompt and a prefix hit, and ``--speculative-k`` exits 2;
+(n) the paged prefix path, llama-1b, bf16, ``kv_fused``, 8 slots,
+    ``max_seq_len`` 256, ``max_new_tokens`` 32, Bs 16,
+    ``prefix_cache_slots`` 4: a primed 160-token system prompt (10
+    whole blocks) shared by four streamed requests (suffixes of 8-64),
+    then two requests sharing 168 tokens (one copy-on-write); shared
+    blocks, copies and hits counted, the paged decode kernel launched
+    exactly n_layers times per decode forward; streamed TTFT warm beside
+    the same requests cold (no prefix cache), each from the second of
+    two passes on fresh servers;
+(o) chunked prefill, llama-1b, bf16, ``kv_fused``, ``max_seq_len`` 256,
+    ``prefill_chunk_tokens`` 128, ``max_prompt_len`` 1792 (+32 = 114
+    blocks): a 1500-token prompt admitted as a chain of 12 chunks while
+    two short requests stream; the short streams' largest inter-token
+    gap during the chain, one chunk's mean time, the long request's
+    TTFT, the paged kernel's launches against the decode forwards; the
+    span read of one chunk ([1, 128, 16, 128] over 114 blocks) per
+    layer: the grouped walk, the one-block walk and the gathered read
+    beside the bound; a 1793-token prompt answers 413;
+(p) float32 parity, greedy, one request at a time: (n)'s requests
+    through decoders sharing one set of weights, prefix warm (primed) =
+    cold = fused = gathered, and (o)'s long prompt chunked (fused: the
+    paged kernel at 8 rows of 114 columns) = monolithic (a decoder with
+    ``max_seq_len`` 1792, no chunking, the gathered plain read), and the
+    fused monolithic decoder = the gathered one;
 (f) the kernel table: each kernel's launches on the main paths, its
     error, its time, its plain version's time and its bound; the paged
     and RMSNorm rows give device time as ``ms`` and the call's as
-    ``call_ms`` (the paged row also its device time at the long and busy
-    shapes), the flash rows the call's at the training shape (hundreds
-    of microseconds, where host time is noise) and the f32 CUDA-core
-    route's (``f32_ms``); the flash forward row adds the predict path's
-    launches and its device and call times at the predict shape.
+    ``call_ms`` (the paged row also its device time at the long, busy
+    and chunked shapes), the flash rows the call's at the training
+    shape (hundreds of microseconds, where host time is noise) and the
+    f32 CUDA-core route's (``f32_ms``); the flash forward row adds the predict path's
+    launches and its device and call times at the predict shape; the
+    paged row counts its launches on (d), (n) and (o)
+    (``launches_by_path``).
 
 TF32 is off throughout, so float32 products are full float32. Any
 failure exits non-zero; the last line, printed only on success, is
@@ -166,36 +209,62 @@ def time_ms(fn, flush: torch.Tensor, iters: int) -> float:
     return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
-def device_ms(fn, flush: torch.Tensor, iters: int,
-              kernel: str | None = None) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls, each after a write
-    of ``flush``, from the kernel durations ``torch.profiler`` records:
-    the card's time alone, without the host time of the Python call
-    (which ``time_ms`` includes). ``kernel`` names the one kernel a call
-    must launch; None sums every kernel but the flush's."""
-    from torch.profiler import ProfilerActivity, profile
+# The flush's own kernel: zero_() of a uint8 tensor.
+FLUSH_KERNEL = "FillFunctor<unsigned char>"
+
+
+def profiled_launches(fn, flush: torch.Tensor, iters: int) -> list:
+    """The CUDA kernel records ``torch.profiler`` takes over ``iters``
+    calls of ``fn``, each after a write of ``flush``. The profiler drops
+    records at the start of a session (on the H100 it has lost the first
+    flush write, and once every launch of a kernel), so the calls run
+    twice under one profiler: a warm-up step whose records are discarded,
+    then the recorded step. A record counts only when it holds every
+    flush write and a whole number of launches of ``fn`` a call; up to
+    five sessions are tried, then it raises."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    if kernel is None:
-        us = [e.device_time_total for e in events
-              if "FillFunctor" not in e.name and "Memset" not in e.name]
-    else:
-        us = [e.device_time_total for e in events if kernel in e.name]
-        if len(us) != iters:
-            raise AssertionError(f"profiler saw {len(us)} launches of "
+    seen = []
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        flushes = sum(FLUSH_KERNEL in e.name for e in events)
+        own = [e for e in events if FLUSH_KERNEL not in e.name]
+        if flushes == iters and own and len(own) % iters == 0:
+            return own
+        seen.append((flushes, len(own)))
+    raise AssertionError(f"the profiler kept an incomplete record in each "
+                         f"session: (flush writes, other launches) {seen} "
+                         f"for {iters} calls")
+
+
+def device_ms(fn, flush: torch.Tensor, iters: int,
+              kernel: str | None = None) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls, each after a write
+    of ``flush``, from the kernel durations ``torch.profiler`` records
+    (a complete session of :func:`profiled_launches`): the card's time
+    alone, without the host time of the Python call (which ``time_ms``
+    includes). ``kernel`` names the one kernel a call must launch; None
+    sums every kernel but the flush's."""
+    events = profiled_launches(fn, flush, iters)
+    if kernel is not None:
+        events = [e for e in events if kernel in e.name]
+        if len(events) != iters:
+            raise AssertionError(f"profiler saw {len(events)} launches of "
                                  f"{kernel} in {iters} calls")
-    if not us:
-        raise AssertionError("profiler saw no kernel")
-    return sum(us) / iters / 1e3
+    return sum(e.device_time_total for e in events) / iters / 1e3
 
 
 def bound(bytes_moved: float, ops: float, kind: str) -> tuple[float, str]:
@@ -212,9 +281,13 @@ def bound(bytes_moved: float, ops: float, kind: str) -> tuple[float, str]:
 
 # Kernel-only shapes of the paged kernel beside the main path's (bf16,
 # llama-1b's Hkv=8, G=2, hd=128, Bs=16): one row of 4096 positions, and
-# 32 rows of 2048.
+# 32 rows of 2048. The chunked path's shape: 8 slots of 114 columns
+# (max_prompt_len 1792 + 32), rows spread over the span, one parked at
+# the table horizon and one with pos < 0.
 PAGED_LONG = dict(b=1, mb=256, pos=[4095])
 PAGED_BUSY = dict(b=32, mb=128, pos=[2047] * 32)
+PAGED_CHUNKED = dict(b=SLOTS, mb=114,
+                     pos=[1531, 1823, 1024, 700, 300, 40, 114 * BLOCK, -1])
 
 
 def paged_inputs(kv: str, dev, quantize, b=SLOTS,
@@ -269,7 +342,8 @@ def phase_paged(dev, flush) -> dict:
     results = {}
     cases = [(kv, kv, {}) for kv in ("bf16", "f32", "int8")]
     cases += [("long_bf16", "bf16", PAGED_LONG), ("busy_bf16", "bf16",
-                                                   PAGED_BUSY)]
+                                                   PAGED_BUSY),
+              ("chunked_bf16", "bf16", PAGED_CHUNKED)]
     for name, kv, shape in cases:
         q, kp, vp, table, pos = paged_inputs(kv, dev, _quantize_kv, **shape)
         scale = q.shape[-1] ** -0.5
@@ -300,7 +374,8 @@ def phase_paged(dev, flush) -> dict:
                                                 table.shape[1], sms),
             "shape": {"B": q.shape[0], "Hkv": q.shape[1], "G": q.shape[2],
                       "hd": q.shape[3], "Bs": BLOCK, "MB": table.shape[1],
-                      "pos": pos.tolist() if not shape else shape["pos"][0]},
+                      "pos": (pos.tolist() if not shape or shape["b"] < 16
+                              else shape["pos"][0])},
         }
         if not shape:  # the plain version only at the main path's shape
             row["plain_ms"] = time_ms(lambda: _paged_decode_plain(
@@ -372,18 +447,25 @@ def request_bodies(vocab: int) -> list[dict]:
              "max_new_tokens": want} for n, want in REQUESTS]
 
 
-def post(port: int, body: dict, stream: bool = False):
-    """One predict; returns (tokens, seconds to the first token line or
-    to the response)."""
+def post(port: int, body: dict, stream: bool = False, rid: str = "",
+         stamps: list | None = None):
+    """One predict with ``X-Request-ID: rid`` (when given; the response
+    must echo it); returns (tokens, seconds to the first token line or to
+    the response). ``stamps`` collects each streamed token line's
+    arrival time."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
     t0 = time.perf_counter()
     try:
         conn.request("POST", f"/v1/models/{MODEL}:predict",
                      body=json.dumps({**({"stream": True} if stream else {}),
-                                      "instances": [body]}))
+                                      "instances": [body]}),
+                     headers={"X-Request-ID": rid} if rid else {})
         resp = conn.getresponse()
         if resp.status != 200:
             raise AssertionError(f"HTTP {resp.status}: {resp.read()!r}")
+        if rid and resp.getheader("X-Request-ID") != rid:
+            raise AssertionError(f"X-Request-ID {rid!r} echoed as "
+                                 f"{resp.getheader('X-Request-ID')!r}")
         if not stream:
             pred = json.loads(resp.read())["predictions"][0]
             return pred["tokens"], time.perf_counter() - t0
@@ -391,6 +473,8 @@ def post(port: int, body: dict, stream: bool = False):
         for line in resp:
             if line.strip():
                 recs.append(json.loads(line))
+                if stamps is not None and "token" in recs[-1]:
+                    stamps.append(time.perf_counter())
                 if first is None:
                     first = time.perf_counter() - t0
         if "error" in recs[-1]:
@@ -399,6 +483,19 @@ def post(port: int, body: dict, stream: bool = False):
         if toks != recs[-1]["tokens"]:
             raise AssertionError("streamed tokens disagree with the summary")
         return toks, first
+    finally:
+        conn.close()
+
+
+def get(port: int, path: str) -> str:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        body = resp.read().decode()
+        if resp.status != 200:
+            raise AssertionError(f"GET {path}: HTTP {resp.status}: {body}")
+        return body
     finally:
         conn.close()
 
@@ -437,14 +534,18 @@ def drive(server) -> dict:
 
     cfg = server.engine.model.config
     bodies = request_bodies(cfg.vocab_size)
-    post(server.port, {"tokens": [1, 2, 3], "max_new_tokens": 2})  # warm
+    tag = f"{server.engine.cfg.kv_layout}-{server.engine.cfg.decode_mode}"
+    rids = [f"{tag}-warm"] + [f"{tag}-{i}" for i in range(len(bodies))]
+    warm = post(server.port, {"tokens": [1, 2, 3], "max_new_tokens": 2},
+                rid=rids[0])
     dec = server.decoder
     streamed = STREAMED if dec is not None else None
     steps0 = dec.steps if dec is not None else 0
     results: list = [None] * len(bodies)
 
     def run(i):
-        results[i] = post(server.port, bodies[i], stream=i == streamed)
+        results[i] = post(server.port, bodies[i], stream=i == streamed,
+                          rid=rids[i + 1])
 
     threads = [threading.Thread(target=run, args=(i,))
                for i in range(len(bodies))]
@@ -474,6 +575,8 @@ def drive(server) -> dict:
         "decode_forwards": dec.steps - steps0 if dec is not None else None,
         "tokens": tokens, "wall_s": wall,
         "decode_tokens_per_s": tokens / wall, "launches": launches,
+        "request_ids": rids, "requests_sent": len(rids),
+        "tokens_returned": len(warm[0]) + tokens,
     }
     if streamed is not None:
         out["ttft_streamed_ms"] = 1e3 * results[streamed][1]
@@ -888,6 +991,7 @@ def phase_default_server(paged: dict) -> dict:
 
     def continuous(server):
         run = drive(server)
+        run["surfaces"] = check_surfaces(server, run)
         cfg = server.engine.model.config
         bodies = request_bodies(cfg.vocab_size)
         # Eight plain instances, one server batch.
@@ -910,6 +1014,7 @@ def phase_default_server(paged: dict) -> dict:
 
     dense = serve(jax_defaults(), continuous)
     preds = dense.pop("plain_predictions")
+    surfaces = dense.pop("surfaces")
     if dense["launches"]["paged_decode_attention"] or \
             dense["launches"]["flash_attention_fwd"]:
         raise AssertionError(f"dense decode launched {dense['launches']}")
@@ -952,6 +1057,7 @@ def phase_default_server(paged: dict) -> dict:
         "paged_ttft_streamed_ms": paged["ttft_streamed_ms"],
     }
     emit("k_default_server", **out)
+    out["surfaces"] = surfaces
     return out
 
 
@@ -1019,6 +1125,566 @@ def phase_f32_layouts(paged_streams: list) -> dict:
     if launched != n_layers:
         raise AssertionError(f"f32 plain predict launched the flash forward "
                              f"{launched} times, expected {n_layers}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# (m) the default server's surfaces, (n) the paged prefix path, (o) chunked
+# prefill, (p) their float32 parity
+# ---------------------------------------------------------------------------
+
+# (n): a 160-token system prompt (10 whole blocks) shared by four requests
+# with suffixes of 8-64 tokens, then two requests that share 168 tokens
+# (not block-aligned: one copy-on-write).
+SYSTEM_LEN, PREFIX_SUFFIXES, SHARED_LEN = 160, (8, 24, 40, 64), 168
+PREFIX_NEW = 32
+# (o): chunked prefill at max_prompt_len 1792 (+32 = 1824 = 114 blocks).
+CHUNK_TOKENS, MAX_PROMPT, LONG_PROMPT = 128, 1792, 1500
+CHUNK_SHORT = [(40, 32), (64, 32)]  # the streams live during the chain
+
+
+def parse_exposition(text: str) -> dict:
+    """{sample (name and labels): value} of a Prometheus exposition."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            name, _, value = line.rpartition(" ")
+            out[name] = float(value)
+    return out
+
+
+def check_surfaces(server, run: dict) -> dict:
+    """(m), on (k)'s server after its requests: the exposition's token
+    and admission counters against what the requests got, and each
+    request's closed timeline at /debug/requests?id=."""
+    text = get(server.port, "/monitoring/prometheus/metrics")
+    samples = parse_exposition(text)
+    emitted = samples["serving_tokens_emitted_total"]
+    admitted = samples["serving_requests_admitted_total"]
+    if emitted != run["tokens_returned"]:
+        raise AssertionError(f"serving_tokens_emitted_total {emitted}, the "
+                             f"requests got {run['tokens_returned']}")
+    if admitted != run["requests_sent"]:
+        raise AssertionError(f"serving_requests_admitted_total {admitted}, "
+                             f"{run['requests_sent']} requests sent")
+    timelines = {}
+    for rid in run["request_ids"]:
+        recs = json.loads(get(server.port,
+                              f"/debug/requests?id={rid}"))["requests"]
+        if len(recs) != 1 or recs[0]["status"] not in ("length", "eos"):
+            raise AssertionError(f"timeline of {rid}: {recs}")
+        timelines[rid] = {"status": recs[0]["status"],
+                          "duration_ms": recs[0]["duration_ms"],
+                          "events": len(recs[0]["events"])}
+    return {"tokens_emitted_total": emitted,
+            "requests_admitted_total": admitted,
+            "requests_sent": run["requests_sent"],
+            "tokens_returned": run["tokens_returned"],
+            "request_ids_echoed": len(run["request_ids"]),
+            "timelines": timelines,
+            "families": text.count("# TYPE ")}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def start_cli(*flags: str):
+    """``python -m kubeflow_tpu_torch.serving --model-name llama-1b`` with
+    ``flags``, as a user starts it; output to files under chiprun_out/
+    (created on demand)."""
+    import os
+
+    os.makedirs("chiprun_out", exist_ok=True)
+    name = "_".join(f.strip("-") for f in flags[:2]) or "default"
+    log = open(f"chiprun_out/cli_{name}.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kubeflow_tpu_torch.serving", "--model-name",
+         MODEL, *flags], stdout=log, stderr=subprocess.STDOUT, text=True)
+    proc.started = time.perf_counter()
+    return proc, log
+
+
+def wait_ready(proc, port: int, timeout: float = 300.0) -> float:
+    """Seconds from the CLI's start until /readyz answers ready."""
+    while time.perf_counter() - proc.started < timeout:
+        if proc.poll() is not None:
+            raise AssertionError(f"the CLI exited {proc.returncode} before "
+                                 "it served")
+        try:
+            if json.loads(get(port, "/readyz"))["ready"]:
+                return time.perf_counter() - proc.started
+        except (OSError, AssertionError, ValueError):
+            pass
+        time.sleep(0.5)
+    raise AssertionError(f"the CLI was not ready in {timeout} s")
+
+
+def stop_procs(procs) -> None:
+    for proc, log in procs:
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        log.close()
+
+
+def phase_surfaces(default: dict) -> dict:
+    """(m): (k)'s scrape, then the CLI on the card. With grpcio, the CLI
+    with default flags serves gRPC :9000 and a Predict body equals the
+    REST body; without it, the CLI with default flags exits 2 naming
+    ``--grpc-port -1``. Beside it, the CLI with the paged prefix path and
+    chunked prefill (``--grpc-port -1``) answers a long prompt and a
+    prefix hit, and a flag still unported exits 2."""
+    import importlib.util
+
+    from kubeflow_tpu_torch.models.registry import get_model
+
+    vocab = get_model(MODEL).config.vocab_size
+    grpc_available = importlib.util.find_spec("grpc") is not None
+    out = {"metrics": default["surfaces"], "grpc_available": grpc_available}
+    rest_default, rest_paged = free_port(), free_port()
+    paged_flags = ("--kv-layout", "paged", "--kv-fused-attention",
+                   "--prefix-cache-slots", "4", "--prefill-chunk-tokens",
+                   str(CHUNK_TOKENS), "--max-prompt-len", str(MAX_PROMPT),
+                   "--grpc-port", "-1", "--rest-port", str(rest_paged))
+    procs = []
+    try:
+        procs.append(start_cli("--rest-port", str(rest_default)))
+        procs.append(start_cli(*paged_flags))
+        unported = subprocess.run(
+            [sys.executable, "-m", "kubeflow_tpu_torch.serving",
+             "--model-name", MODEL, "--speculative-k", "2"],
+            capture_output=True, text=True, timeout=120)
+        if unported.returncode != 2 or \
+                "not yet ported" not in unported.stderr:
+            raise AssertionError(f"--speculative-k: exit "
+                                 f"{unported.returncode}: {unported.stderr}")
+        out["unported_flag_exit"] = unported.returncode
+        default_proc = procs[0][0]
+        if grpc_available:
+            import grpc
+
+            from kubeflow_tpu_torch.serving.grpc_server import client_stubs
+
+            out["default_cli_ready_s"] = wait_ready(default_proc,
+                                                    rest_default)
+            inst = {"tokens": request_bodies(vocab)[1]["tokens"],
+                    "max_new_tokens": 8}
+            conn = http.client.HTTPConnection("127.0.0.1", rest_default,
+                                              timeout=120)
+            conn.request("POST", f"/v1/models/{MODEL}:predict",
+                         body=json.dumps({"instances": [inst]}))
+            rest_body = json.loads(conn.getresponse().read())
+            conn.close()
+            with grpc.insecure_channel("127.0.0.1:9000") as channel:
+                predict, _ = client_stubs(channel)
+                grpc_body, md = predict(
+                    MODEL, [inst], timeout=120, with_call=True,
+                    metadata=(("x-request-id", "smoke-grpc"),))
+            if grpc_body != rest_body:
+                raise AssertionError(f"gRPC body {grpc_body} != REST body "
+                                     f"{rest_body}")
+            if md.get("x-request-id") != "smoke-grpc":
+                raise AssertionError(f"gRPC request id echoed as {md}")
+            # :9000 answered from this CLI, not from another process on
+            # the port: its own timelines hold the call.
+            recs = json.loads(get(rest_default, "/debug/requests?id="
+                                  "smoke-grpc"))["requests"]
+            if len(recs) != 1 or recs[0]["status"] not in ("length", "eos"):
+                raise AssertionError(f"the CLI's timeline of the gRPC call: "
+                                     f"{recs}")
+            out["grpc_predict_equals_rest"] = True
+            out["grpc_timeline_in_cli"] = True
+            out["grpc_tokens"] = grpc_body["predictions"][0]["tokens"]
+        else:
+            code = default_proc.wait(timeout=120)
+            procs[0][1].flush()
+            text = open(procs[0][1].name).read()
+            if code != 2 or "--grpc-port -1" not in text:
+                raise AssertionError(f"the default CLI without grpcio exited "
+                                     f"{code}: {text[-2000:]}")
+            out["default_cli_exit"] = code
+        out["paged_cli_ready_s"] = wait_ready(procs[1][0], rest_paged)
+        rng = np.random.RandomState(7)
+        system = rng.randint(0, vocab, size=SYSTEM_LEN).tolist()
+        asks = [rng.randint(0, vocab, size=LONG_PROMPT).tolist(),
+                system + rng.randint(0, vocab, size=12).tolist(),
+                system + rng.randint(0, vocab, size=20).tolist()]
+        got = [len(post(rest_paged, {"tokens": t, "max_new_tokens": 16})[0])
+               for t in asks]
+        samples = parse_exposition(get(rest_paged,
+                                       "/monitoring/prometheus/metrics"))
+        out["paged_cli"] = {
+            "tokens": got,
+            "prefix_hits": samples["serving_prefix_hits_total"],
+            "prefill_chunks": samples["serving_prefill_chunks_total"],
+            "kv_shared_blocks": samples["serving_kv_shared_blocks_total"]}
+        if (got != [16, 16, 16] or samples["serving_prefix_hits_total"] < 1
+                or samples["serving_prefill_chunks_total"] < 1):
+            raise AssertionError(f"the paged CLI: {out['paged_cli']}")
+    finally:
+        stop_procs(procs)
+    emit("m_default_server_surfaces", **out)
+    return out
+
+
+def prefix_requests(vocab: int) -> tuple[list[int], list[dict]]:
+    """(n)'s system prompt and requests: four over the system prompt
+    (suffixes of 8-64), then two sharing 168 tokens."""
+    rng = np.random.RandomState(3)
+    system = rng.randint(0, vocab, size=SYSTEM_LEN).tolist()
+    reqs = [system + rng.randint(0, vocab, size=n).tolist()
+            for n in PREFIX_SUFFIXES]
+    shared = system + rng.randint(0, vocab, size=SHARED_LEN -
+                                  SYSTEM_LEN).tolist()
+    reqs += [shared + rng.randint(0, vocab, size=n).tolist()
+             for n in (16, 24)]
+    return system, [{"tokens": t, "max_new_tokens": PREFIX_NEW}
+                    for t in reqs]
+
+
+def drive_prefix(server, reqs: list[dict], tag: str) -> list:
+    """The four system requests at once, streamed, then the two that
+    share 168 tokens one after the other. Returns [(tokens, ttft_s)]."""
+    results: list = [None] * len(reqs)
+
+    def run(i):
+        results[i] = post(server.port, reqs[i], stream=True,
+                          rid=f"{tag}-{i}")
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(PREFIX_SUFFIXES))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    for i in range(len(PREFIX_SUFFIXES), len(reqs)):
+        run(i)
+    if any(r is None or len(r[0]) != PREFIX_NEW for r in results):
+        raise AssertionError(f"prefix requests ({tag}): {results}")
+    return results
+
+
+def phase_prefix_path() -> dict:
+    """(n): llama-1b, bf16, paged, kv_fused, prefix_cache_slots 4. The
+    system prompt is primed; (n)'s requests run warm, then on a server
+    without the prefix cache, cold; the second of two such passes is
+    kept."""
+    from kubeflow_tpu_torch import kernels
+
+    def warm(server):
+        cfg = server.engine.model.config
+        system, reqs = prefix_requests(cfg.vocab_size)
+        if not server.decoder.prime_prefix(system):
+            raise AssertionError("prime_prefix refused the system prompt")
+        dec = server.decoder
+        steps0 = dec.steps
+        kernels.reset_launches()
+        results = drive_prefix(server, reqs, "prefix-warm")
+        launches = kernels.LAUNCHES["paged_decode_attention"]
+        forwards = dec.steps - steps0
+        return results, launches, forwards, cfg.n_layers, dec.metrics()
+
+    def cold(server):
+        _, reqs = prefix_requests(server.engine.model.config.vocab_size)
+        return drive_prefix(server, reqs, "prefix-cold")
+
+    # Each side is measured on a fresh server after an unmeasured pass of
+    # the same requests, so neither pays the first use of a kernel or of
+    # a GEMM shape in this process (the span forward's are new here).
+    for _ in range(2):
+        results, launches, forwards, n_layers, m = serve(
+            engine_cfg(kv_fused=True, prefix_cache_slots=4), warm)
+        cold_results = serve(engine_cfg(kv_fused=True), cold)
+    if forwards <= 0 or launches != n_layers * forwards:
+        raise AssertionError(f"paged decode kernel launched {launches} "
+                             f"times, expected {n_layers} layers x "
+                             f"{forwards} decode forwards")
+    if m["kv_shared_blocks"] <= 0 or m["kv_cow_copies"] < 1 or \
+            m["prefix_hits"] < len(results):
+        raise AssertionError(f"prefix path counters: {m}")
+    out = {
+        "model": MODEL, "dtype": "bfloat16", "slots": SLOTS,
+        "max_seq_len": MAX_SEQ, "max_new_tokens": MAX_NEW,
+        "block": BLOCK, "system_prompt": SYSTEM_LEN,
+        "requests": [len(r["tokens"]) for r in
+                     prefix_requests(32000)[1]],
+        "launches": launches, "decode_forwards": forwards,
+        **{k: m[k] for k in ("prefix_hits", "prefix_misses",
+                             "prefix_tokens_reused", "prefix_suffix_tokens",
+                             "kv_shared_blocks", "kv_cow_copies",
+                             "prefix_inserts", "prefix_evictions")},
+        "ttft_warm_ms": [1e3 * r[1] for r in results],
+        "ttft_cold_ms": [1e3 * r[1] for r in cold_results],
+    }
+    out["ttft_warm_mean_ms"] = float(np.mean(out["ttft_warm_ms"]))
+    out["ttft_cold_mean_ms"] = float(np.mean(out["ttft_cold_ms"]))
+    emit("n_prefix_path", **out)
+    return out
+
+
+def span_timing(dev) -> dict:
+    """The span read of one chunk at llama-1b's chunk shape (q [1, 128,
+    16, 128] at positions 1280-1407 of a 114-block row, bf16 pool): the
+    grouped walk (the fused path; also at 1024 positions a step), the
+    one-block walk and the gathered read, per layer, CUDA-event time with
+    L2 flushed, and the device time of the walk and the gathered read;
+    and the bound."""
+    from kubeflow_tpu_torch.models.decode import _gqa_attention, _pool_gather
+    from kubeflow_tpu_torch.models.transformer import config
+    from kubeflow_tpu_torch.ops import attention as A
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    cfg = config(MODEL)
+    mb = (MAX_PROMPT + MAX_NEW) // BLOCK
+    hkv, hq, hd, s_w = cfg.n_kv_heads, cfg.n_heads, cfg.head_dim, CHUNK_TOKENS
+    gen = torch.Generator(device=dev).manual_seed(9)
+    n = SLOTS * mb
+    kp = torch.randn(n, BLOCK, hkv, hd, generator=gen,
+                     device=dev).bfloat16()
+    vp = torch.randn(n, BLOCK, hkv, hd, generator=gen,
+                     device=dev).bfloat16()
+    table = torch.randperm(n, generator=gen, device=dev)[:mb].to(
+        torch.int32)[None]
+    q = torch.randn(1, s_w, hq, hd, generator=gen, device=dev).bfloat16()
+    pos = torch.tensor([1280], dtype=torch.int32, device=dev)
+    cols = pos.long()[:, None] + torch.arange(s_w, device=dev)[None]
+    mask = (torch.arange(mb * BLOCK, device=dev)[None, None, :]
+            <= cols[:, :, None])[:, None, None]
+
+    def walk():
+        return A.paged_span_attention(q, kp, vp, table, pos,
+                                      n_kv_heads=hkv)
+
+    qg = q.reshape(1, s_w, hkv, hq // hkv, hd)
+
+    def one_block():
+        return A._paged_span_plain(qg, kp, vp, table, pos, hd ** -0.5)
+
+    def walk_1024():
+        return A._span_walk(qg, kp, vp, table, pos, hd ** -0.5,
+                            1024 // BLOCK)
+
+    def gathered():
+        return _gqa_attention(q, _pool_gather(kp, table),
+                              _pool_gather(vp, table), mask, cfg)
+
+    err = (walk().float() - one_block().reshape(1, s_w, hq, hd)).abs().max()
+    walk_launches = len(profiled_launches(walk, flush, 5)) // 5
+    live = 1280 + s_w
+    pairs = hq * sum(1280 + i + 1 for i in range(s_w))
+    bound_ms, bound_by = bound(
+        2 * live * hkv * hd * 2 + q.numel() * (2 + 4) + 4 * mb,
+        4 * hd * pairs, "bf16")
+    return {"shape": {"q": [1, s_w, hq, hd], "blocks": mb, "pos": 1280},
+            "group_positions": A.SPAN_GROUP_POSITIONS,
+            "steps_per_layer": -(-mb * BLOCK // A.SPAN_GROUP_POSITIONS),
+            "walk_launches_per_layer": walk_launches,
+            "walk_ms": time_ms(walk, flush, 20),
+            "walk_device_ms": device_ms(walk, flush, 10),
+            "walk_1024_positions_ms": time_ms(walk_1024, flush, 10),
+            "one_block_walk_ms": time_ms(one_block, flush, 5),
+            "gathered_ms": time_ms(gathered, flush, 20),
+            "gathered_device_ms": device_ms(gathered, flush, 10),
+            "walk_vs_one_block_max_abs_err": err.item(),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_chunked() -> dict:
+    """(o): llama-1b, bf16, paged, kv_fused, prefill_chunk_tokens 128,
+    max_prompt_len 1792: a 1500-token prompt admitted as a chain of 12
+    chunks while two short requests stream; a 1793-token prompt answers
+    413."""
+    from kubeflow_tpu_torch import kernels
+
+    def run(server):
+        cfg = server.engine.model.config
+        dec = server.decoder
+        rng = np.random.RandomState(5)
+        shorts = [{"tokens": rng.randint(0, cfg.vocab_size, size=n).tolist(),
+                   "max_new_tokens": w} for n, w in CHUNK_SHORT]
+        long = {"tokens": rng.randint(0, cfg.vocab_size,
+                                      size=LONG_PROMPT).tolist(),
+                "max_new_tokens": MAX_NEW}
+        # Warm-up: a 300-token prompt takes the chunk path's shapes once,
+        # so no measured chunk pays a first use in this process.
+        post(server.port, {"tokens": rng.randint(
+            0, cfg.vocab_size, size=300).tolist(), "max_new_tokens": 2})
+        hist = dec._h_prefill_chunk.labels()
+        steps0, chunks0 = dec.steps, dec.prefill_chunks
+        hist0 = (hist.count, hist.sum)
+        kernels.reset_launches()
+        stamps = [[] for _ in shorts]
+        results: list = [None] * (len(shorts) + 1)
+
+        def go(i):
+            if i < len(shorts):
+                results[i] = post(server.port, shorts[i], stream=True,
+                                  stamps=stamps[i], rid=f"chunk-short-{i}")
+            else:
+                results[i] = post(server.port, long, stream=True,
+                                  rid="chunk-long")
+
+        threads = [threading.Thread(target=go, args=(i,))
+                   for i in range(len(shorts))]
+        for t in threads:
+            t.start()
+        deadline = time.perf_counter() + 300
+        while not all(len(st) >= 2 for st in stamps):
+            if time.perf_counter() > deadline:
+                raise AssertionError("the short streams did not start")
+            time.sleep(0.001)
+        t_long = time.perf_counter()
+        go(len(shorts))
+        t_first = t_long + results[-1][1]
+        for t in threads:
+            t.join(timeout=600)
+        launches = kernels.LAUNCHES["paged_decode_attention"]
+        forwards = dec.steps - steps0
+        chunks = dec.prefill_chunks - chunks0
+        gaps = [b - a for st in stamps for a, b in zip(st, st[1:])
+                if a >= t_long and b <= t_first]
+        status = None
+        conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                          timeout=60)
+        try:
+            conn.request("POST", f"/v1/models/{MODEL}:predict",
+                         body=json.dumps({"instances": [{
+                             "tokens": [1] * (MAX_PROMPT + 1),
+                             "max_new_tokens": 1}]}))
+            resp = conn.getresponse()
+            resp.read()
+            status = resp.status
+        finally:
+            conn.close()
+        return {"results": results, "launches": launches,
+                "forwards": forwards, "chunks": chunks, "gaps": gaps,
+                "chunk_ms_mean": 1e3 * (hist.sum - hist0[1])
+                / max(hist.count - hist0[0], 1),
+                "n_layers": cfg.n_layers, "status_1793": status,
+                "metrics": dec.metrics()}
+
+    r = serve(engine_cfg(kv_fused=True, prefill_chunk_tokens=CHUNK_TOKENS,
+                         max_prompt_len=MAX_PROMPT), run)
+    want_chunks = -(-LONG_PROMPT // CHUNK_TOKENS) - 1
+    if r["forwards"] <= 0 or r["launches"] != r["n_layers"] * r["forwards"]:
+        raise AssertionError(f"paged decode kernel launched {r['launches']} "
+                             f"times, expected {r['n_layers']} layers x "
+                             f"{r['forwards']} decode forwards")
+    if r["chunks"] != want_chunks:
+        raise AssertionError(f"{r['chunks']} interior chunks, expected "
+                             f"{want_chunks}")
+    lens = [len(x[0]) for x in r["results"]]
+    if lens != [w for _, w in CHUNK_SHORT] + [MAX_NEW]:
+        raise AssertionError(f"chunked phase token counts {lens}")
+    if r["status_1793"] != 413:
+        raise AssertionError(f"a {MAX_PROMPT + 1}-token prompt answered "
+                             f"{r['status_1793']}, not 413")
+    if not r["gaps"]:
+        raise AssertionError("no short-stream token arrived during the "
+                             "chain")
+    span = span_timing(torch.device("cuda"))
+    out = {
+        "model": MODEL, "dtype": "bfloat16", "max_seq_len": MAX_SEQ,
+        "prefill_chunk_tokens": CHUNK_TOKENS, "max_prompt_len": MAX_PROMPT,
+        "long_prompt": LONG_PROMPT, "chunks": want_chunks + 1,
+        "interior_chunks": r["chunks"], "launches": r["launches"],
+        "decode_forwards": r["forwards"],
+        "short_streams": CHUNK_SHORT,
+        "max_inter_token_gap_during_chain_ms": 1e3 * max(r["gaps"]),
+        "median_inter_token_gap_during_chain_ms":
+            1e3 * float(np.median(r["gaps"])),
+        "chunk_ms_mean": r["chunk_ms_mean"],
+        "long_ttft_ms": 1e3 * r["results"][-1][1],
+        "status_1793": r["status_1793"], "span": span,
+    }
+    emit("o_chunked_prefill", **out)
+    return out
+
+
+def phase_f32_prefix_chunk_parity(dev=torch.device("cuda")) -> dict:
+    """(p): float32, greedy, requests one at a time through decoders
+    sharing one set of weights: (n)'s requests prefix warm (primed) =
+    cold = fused = gathered; (o)'s long prompt chunked = monolithic (a
+    decoder with max_seq_len 1792, no chunking and the gathered read),
+    and the fused monolithic decoder = the gathered one."""
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.serving.continuous import ContinuousDecoder
+
+    model = get_model(MODEL, dtype=torch.float32)
+    params = model.init(model.config,
+                        generator=torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    cfg = model.config
+    system, reqs = prefix_requests(cfg.vocab_size)
+    base = dict(slots=SLOTS, prefill_len=MAX_SEQ, max_new_tokens=MAX_NEW,
+                kv_layout="paged", kv_block_size=BLOCK)
+
+    def streams(prompts, prime=None, **kw):
+        dec = ContinuousDecoder(params, cfg, **{**base, **kw})
+        try:
+            if prime is not None and not dec.prime_prefix(prime):
+                raise AssertionError("prime_prefix refused")
+            toks = [dec.generate(p["tokens"], p["max_new_tokens"],
+                                 timeout=600)["tokens"] for p in prompts]
+            return toks, dec.metrics()
+        finally:
+            dec.stop()
+            torch.cuda.empty_cache()
+
+    runs = {}
+    for name, fused, slots_ in (("warm_fused", True, 4),
+                                ("cold_fused", True, 0),
+                                ("warm_gathered", False, 4),
+                                ("cold_gathered", False, 0)):
+        runs[name] = streams(reqs, system if slots_ else None,
+                             kv_fused=fused, prefix_cache_slots=slots_)
+    rng = np.random.RandomState(5)
+    for n, _ in CHUNK_SHORT:
+        rng.randint(0, cfg.vocab_size, size=n)
+    long = [{"tokens": rng.randint(0, cfg.vocab_size,
+                                   size=LONG_PROMPT).tolist(),
+             "max_new_tokens": MAX_NEW}]
+    runs["chunked"] = streams(long, kv_fused=True,
+                              prefill_chunk_tokens=CHUNK_TOKENS,
+                              max_prompt_len=MAX_PROMPT)
+    # The monolithic reference reads the cache gathered (plain), so the
+    # chunked run's decode steps hold the paged kernel at (8, 8, 114)
+    # against the plain read; the fused monolithic run sits beside it.
+    runs["monolithic"] = streams(long, kv_fused=False,
+                                 prefill_len=MAX_PROMPT)
+    runs["monolithic_fused"] = streams(long, kv_fused=True,
+                                       prefill_len=MAX_PROMPT)
+    ref = runs["cold_gathered"][0]
+    out = {name: compare_streams(runs[name][0], ref)
+           for name in ("warm_fused", "cold_fused", "warm_gathered")}
+    out["chunked_vs_monolithic"] = compare_streams(
+        runs["chunked"][0], runs["monolithic"][0])
+    out["monolithic_fused_vs_gathered"] = compare_streams(
+        runs["monolithic_fused"][0], runs["monolithic"][0])
+    out["warm_prefix_hits"] = runs["warm_fused"][1]["prefix_hits"]
+    out["warm_cow_copies"] = runs["warm_fused"][1]["kv_cow_copies"]
+    out["chunked_interior_chunks"] = runs["chunked"][1]["prefill_chunks"]
+    emit("p_f32_prefix_chunk_parity", **out)
+    bad = [k for k, v in out.items() if isinstance(v, dict)
+           and not v["identical"]]
+    if bad:
+        raise AssertionError(f"f32 greedy tokens differ: {bad}")
+    if out["warm_prefix_hits"] < len(reqs) or out["warm_cow_copies"] < 1:
+        raise AssertionError(f"the warm f32 run hit {out['warm_prefix_hits']}"
+                             f" prefixes, {out['warm_cow_copies']} copies")
+    if out["chunked_interior_chunks"] < 1:
+        raise AssertionError("the chunked f32 run chunked nothing")
+    del params
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1220,20 +1886,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     main_path = phase_main_path()
     default = phase_default_server(main_path)
+    phase_surfaces(default)
+    prefix = phase_prefix_path()
+    chunked = phase_chunked()
     paged_f32 = phase_f32_parity()
     phase_f32_layouts(paged_f32["streams"])
+    phase_f32_prefix_chunk_parity()
     train = phase_train(smi)
     phase_train_f32_parity()
 
     p, r = paged["bf16"], rms[f"{SLOTS}x2048"]
+    paged_paths = {
+        "paged_smoke": main_path["launches"]["paged_decode_attention"],
+        "prefix_path": prefix["launches"], "chunked": chunked["launches"]}
     table = [
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "kubeflow_tpu_torch/csrc/paged_decode.cu",
          "replaces": "kubeflow_tpu/ops/attention.py:392",
-         "launches": main_path["launches"]["paged_decode_attention"],
+         "launches": sum(paged_paths.values()),
+         "launches_by_path": paged_paths,
          "max_abs_err": max(v["max_abs_err"] for v in paged.values()),
          "long_ms": paged["long_bf16"]["ms"],
          "busy_ms": paged["busy_bf16"]["ms"],
+         "chunked_ms": paged["chunked_bf16"]["ms"],
+         "chunked_bound_ms": paged["chunked_bf16"]["bound_ms"],
          "ms": p["ms"], "call_ms": p["call_ms"], "plain_ms": p["plain_ms"],
          "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
          "library_ms": None},

@@ -15,7 +15,14 @@ Counterpart of ``kubeflow_tpu/models/decode.py``:
   (:func:`decode_chunk`) for every slot;
 - the dense prefix pool (:func:`init_prefix_pool`,
   :func:`store_prefix_row`, :func:`store_prefix_cache`,
-  :func:`admit_prefix_and_step`).
+  :func:`admit_prefix_and_step`);
+- the paged prefix path and chunked prefill, both riding the span
+  forward :func:`_block_forward` (K/V written at per-row start
+  positions through the block table): :func:`paged_admit_prefix_and_step`
+  (suffix-only prefill over refcount-shared blocks),
+  :func:`paged_prefill_chunk` (an interior chunk of a long admission),
+  :func:`store_blocks` (the paged prime) and :func:`copy_block` (the
+  copy-on-write of a partly shared tail block).
 
 PyTorch runs eagerly, so the JAX ``lax.scan`` over layers is a loop over
 ``L`` reading views of the stacked ``[L, ...]`` weights and caches, and
@@ -28,11 +35,13 @@ on the CPU and corrupts memory on CUDA), so here every such write is
 filtered and every such read clamped explicitly: parked rows (``pos ==
 total``) write back what they hold, sentinel table entries (``== N``) are
 filtered, the rotary lookup of a parked row clamps, and a row or pool
-index out of range, or a cache write past the row's end, raises.
+index out of range, or a cache write past the row's end, raises. A span
+that runs past its row (JAX's "cache-tail spill") loses the columns past
+``MB*Bs`` the same way: :func:`_write_index` filters them.
 
-Not yet ported: the paged prefix path (``paged_admit_prefix_and_step``,
-``copy_block``), speculation (``verify_step``, ``verify_chunk``) and
-chunked prefill (``paged_prefill_chunk``).
+Not yet ported: speculation (``verify_step``, ``verify_chunk``), the KV
+handoff (``export_blocks``, ``import_blocks``) and the dense span write
+(the paged layout carries every span path ported here).
 """
 
 from __future__ import annotations
@@ -47,7 +56,10 @@ from kubeflow_tpu_torch.models.transformer import (
     _mlp,
 )
 from kubeflow_tpu_torch.ops.attention import _kv_payload as _kv_arr
-from kubeflow_tpu_torch.ops.attention import paged_decode_attention
+from kubeflow_tpu_torch.ops.attention import (
+    paged_decode_attention,
+    paged_span_attention,
+)
 from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rotary import rotary_frequencies
 
@@ -396,6 +408,75 @@ def decode_chunk(state, params, cfg: TransformerConfig, steps: int,
         toks.append(tok)
         emits.append(emit)
     return state, torch.stack(toks), torch.stack(emits)
+
+
+def _span_attention(x, layer, cfg, rope_bt, k_pool, v_pool, cols, table,
+                    fused, write_index):
+    """Block attention where row ``b``'s ``S`` tokens occupy virtual
+    positions ``cols[b]`` = ``pos_b[b] + 0..S-1`` of the paged pool — the
+    S-wide sibling of :func:`_ragged_attention`. Token ``s`` attends every
+    position ``<= pos_b + s`` (its own K/V was just written). The write
+    goes through ``write_index`` (:func:`_write_index` of ``cols``), which
+    drops parked rows, sentinel entries and the cache-tail spill past
+    ``MB*Bs``. ``fused`` reads through :func:`paged_span_attention`
+    instead of gathering the dense view. Pools written in place."""
+    b, s, _d = x.shape
+    hd = cfg.head_dim
+    q, k, v = _qkv(x, layer, cfg, rope_bt)
+    _pool_write(k_pool, table, cols, k, write_index)
+    _pool_write(v_pool, table, cols, v, write_index)
+    if fused:
+        out = paged_span_attention(
+            q, k_pool, v_pool, table, cols[:, 0],
+            n_kv_heads=cfg.n_kv_heads,
+        ).reshape(b, s, cfg.n_heads * hd).to(cfg.dtype)
+        return out @ layer["wo"]
+    k_read = _pool_gather(k_pool, table)
+    v_read = _pool_gather(v_pool, table)
+    total = k_read.shape[1]
+    mask = (torch.arange(total, device=x.device)[None, None, :]
+            <= cols[:, :, None])
+    out = _gqa_attention(q, k_read, v_read, mask[:, None, None], cfg)
+    return out.to(cfg.dtype) @ layer["wo"]
+
+
+def _block_forward(params, cfg: TransformerConfig, k_pool, v_pool, tokens,
+                   pos_b, table, fused=False, ring=None):
+    """[B, S] forward writing K/V at per-row start positions ``pos_b`` [B]
+    through the block table into the stacked pools, in place → logits
+    [B, S, V] f32. The suffix-only prefill of a prefix hit and every
+    chunk of a chunked admission ride this; ``fused`` walks the span read
+    instead of gathering it. Columns past the row (``pos_b + s >=
+    MB*Bs``) are dropped and their rotary lookup clamps, as JAX's scatter
+    and gather do. ``ring`` (context parallelism) is not yet ported."""
+    if ring is not None:
+        raise ValueError("the context-parallel span read (ring) is not yet "
+                         "ported")
+    if table is None:
+        raise ValueError("the dense span forward is not yet ported: the "
+                         "span paths run on the paged layout")
+    dev = tokens.device
+    n, bs = _kv_arr(k_pool).shape[1], _kv_arr(k_pool).shape[2]
+    total = table.shape[1] * bs
+    s = tokens.shape[1]
+    cols = pos_b.long()[:, None] + torch.arange(s, device=dev)[None, :]
+    # Every layer writes the same (row, token) set: index it once.
+    widx = _write_index(table, cols, n, bs)
+    cos_t, sin_t = rotary_frequencies(cfg.head_dim, total,
+                                      theta=cfg.rope_theta, device=dev)
+    rpos = torch.clamp(cols, 0, total - 1)
+    rope_bt = (cos_t[rpos], sin_t[rpos])
+    x = params["embed"]["kernel"][tokens.long()]
+    for i in range(cfg.n_layers):
+        layer = _layer(params, i)
+        h = rms_norm(x, layer["ln_attn"], eps=cfg.norm_eps)
+        x = x + _span_attention(
+            h, layer["attn"], cfg, rope_bt, _pool_layer(k_pool, i),
+            _pool_layer(v_pool, i), cols, table, fused, widx)
+        h = rms_norm(x, layer["ln_mlp"], eps=cfg.norm_eps)
+        x = x + _mlp(h, layer["mlp"], cfg)
+    x = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
+    return (x @ _head_kernel(params, cfg)).float()
 
 
 def _new_generator(dev, seed: int) -> torch.Generator:
@@ -769,3 +850,118 @@ def paged_admit_rows_and_step(state, params, cfg: TransformerConfig, slots,
     state, tok, emit = _decode_step_body(state, params, cfg, top_k, eos_id,
                                          kv_fused)
     return state, last, tok, emit
+
+
+def _paged_admit_prefix_body(state, params, cfg: TransformerConfig, slot,
+                             prefix_len, suffix_tokens, prompt_len,
+                             remaining, temperature, fused=False):
+    """Suffix-only prefill through the slot's block table: the leading
+    ``prefix_len`` positions are already backed by shared (and possibly
+    one copied) blocks, which the forward reads in place, and only the
+    suffix K/V is written, into the slot's owned blocks. In place;
+    returns (state, last [1, V])."""
+    slot = _row_index(slot, state["block_table"].shape[0], "slot")
+    prefix_len, prompt_len = int(prefix_len), int(prompt_len)
+    dev = suffix_tokens.device
+    table_row = state["block_table"][slot][None]
+    suffix_len = max(prompt_len - prefix_len, 1)
+    logits = _block_forward(
+        params, cfg, state["pool"]["k"], state["pool"]["v"], suffix_tokens,
+        torch.tensor([prefix_len], dtype=torch.int32, device=dev),
+        table_row, fused)
+    last = logits[:, suffix_len - 1]
+    _set_rows(state, slot, prompt_len, remaining, temperature, last[0])
+    return state, last
+
+
+@torch.inference_mode()
+def paged_admit_prefix_and_step(state, params, cfg: TransformerConfig, slot,
+                                prefix_len, suffix_tokens, prompt_len,
+                                remaining, temperature, top_k: int = 0,
+                                eos_id: int | None = None,
+                                kv_fused: bool = False):
+    """Paged twin of :func:`admit_prefix_and_step`: the host mapped the
+    donor's full blocks into ``slot``'s table (refcount-shared) and
+    copied at most the one partly filled tail block (:func:`copy_block`),
+    so this call prefills only the suffix ``[1, S]`` at ``prefix_len``
+    and takes one decode step for every active row. The final chunk of
+    a chunked admission rides it with ``prefix_len`` = the tokens already
+    chunked in. Returns (state, prefill last-logits [1, V], sampled token
+    [slots], emitted mask [slots])."""
+    state, last = _paged_admit_prefix_body(state, params, cfg, slot,
+                                           prefix_len, suffix_tokens,
+                                           prompt_len, remaining,
+                                           temperature, kv_fused)
+    state, tok, emit = _decode_step_body(state, params, cfg, top_k, eos_id,
+                                         kv_fused)
+    return state, last, tok, emit
+
+
+@torch.inference_mode()
+def paged_prefill_chunk(state, params, cfg: TransformerConfig, slot, pos,
+                        chunk_tokens, chunk_len, kv_fused: bool = False):
+    """One bounded chunk of a long admission: forward ``chunk_tokens``
+    ([1, S], right-padded past ``chunk_len`` real tokens) at virtual
+    positions ``pos..pos+S-1`` of ``slot``'s row, writing K/V through its
+    block table. Each chunk attends every position written before it,
+    so a chain of chunks computes the K/V of one monolithic prefill. The
+    row is left PARKED (``length`` at the table horizon, ``active``
+    False), so decode steps between chunks drop their write for it and
+    never read the half-built row. The final chunk goes through
+    :func:`paged_admit_prefix_and_step`. Consumes no randomness, so
+    chunked sampling matches monolithic. Pad positions write junk that
+    the next chunk (or decode) overwrites before any mask admits it. In
+    place; returns the state."""
+    del chunk_len  # the pads' junk is masked; JAX reads it for MoE only
+    slot = _row_index(slot, state["block_table"].shape[0], "slot")
+    dev = chunk_tokens.device
+    table_row = state["block_table"][slot][None]
+    _block_forward(params, cfg, state["pool"]["k"], state["pool"]["v"],
+                   chunk_tokens,
+                   torch.tensor([int(pos)], dtype=torch.int32, device=dev),
+                   table_row, kv_fused)
+    state["length"][slot] = _state_kv(state)[3]
+    state["active"][slot] = False
+    return state
+
+
+@torch.inference_mode()
+def store_blocks(pool, block_ids, cache):
+    """Scatter a batch-1 :func:`prefill` cache into pool blocks
+    ``block_ids`` ([nblk]; sentinel entries are dropped) — the paged
+    prime (a shared system prompt pooled without touching the decode
+    state or its generator). Quantized pools quantize here, so primed
+    blocks carry their scales. In place; returns the pool."""
+    arr = _kv_arr(pool["k"])
+    n_layers, n, bs = arr.shape[0], arr.shape[1], arr.shape[2]
+    ids = torch.as_tensor(block_ids, device=arr.device).long()
+    nblk = ids.shape[0]
+    keep = ids < n
+    for side in ("k", "v"):
+        vals = cache[side][:, 0, : nblk * bs].reshape(
+            n_layers, nblk, bs, *arr.shape[3:])[:, keep]
+        dst = pool[side]
+        if isinstance(dst, dict):
+            qd = _quantize_kv(vals)
+            dst["q"][:, ids[keep]] = qd["q"]
+            dst["scale"][:, ids[keep]] = qd["scale"]
+        else:
+            dst[:, ids[keep]] = vals.to(dst.dtype)
+    return pool
+
+
+@torch.inference_mode()
+def copy_block(pool, dst, src):
+    """Copy block ``src``'s K/V over block ``dst`` on every layer — the
+    copy-on-write of a partly filled shared tail block, the one device
+    copy a prefix hit pays. Quantized pools copy payload and scales
+    verbatim (no second quantization). In place, so it lands before the
+    suffix prefill that reads the copy. Returns the pool."""
+    n = _kv_arr(pool["k"]).shape[1]
+    dst = _row_index(dst, n, "dst block")
+    src = _row_index(src, n, "src block")
+    for side in ("k", "v"):
+        kv = pool[side]
+        for arr in (kv.values() if isinstance(kv, dict) else (kv,)):
+            arr[:, dst] = arr[:, src]
+    return pool

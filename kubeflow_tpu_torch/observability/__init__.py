@@ -1,1 +1,1 @@
-"""Observability of the port: the instruments the loop reads."""
+"""Observability of the port: metric instruments and request timelines."""

@@ -17,8 +17,18 @@ Two parts are ported:
   view is never built. :func:`paged_decode_attention` launches the CUDA
   kernel (``csrc/paged_decode.cu``) for CUDA tensors and runs
   :func:`_paged_decode_plain` for CPU tensors.
+- **Paged span attention** (``paged_span_attention``): the S-wide sibling
+  of the decode read, for a chunk or a suffix prefill over the paged
+  pool. The JAX package runs it as an XLA block walk on every backend
+  (no TPU kernel), so it is plain PyTorch here on every device: an
+  online softmax over groups of table columns (:data:`SPAN_GROUP_POSITIONS`
+  positions a group), so only a row no longer than one group is ever
+  gathered whole.
+  :func:`_paged_span_plain` is the one-block-a-step walk of JAX's
+  ``_paged_span_xla``, the reference the grouped walk is held against.
 
-Neither has another path: a CUDA tensor reaches its kernel or raises.
+The two kernels have no other path: a CUDA tensor reaches its kernel or
+raises.
 """
 
 from __future__ import annotations
@@ -33,6 +43,14 @@ _NEG_INF = -1e30
 # kernels choose their own tiles and ignore both.
 DEFAULT_BLOCK_Q = 128
 DEFAULT_BLOCK_K = 2048
+# Positions the span walk gathers a step. A step is 17 launches whatever
+# its width, so a layer costs 17 x ceil(MB * Bs / 256) and about 30 more
+# to set up and finish: a 1824-position row (llama-1b chunked, Bs 16)
+# walks in 8 steps, a 288-position row (the prefix path) in 2. The group
+# stays below the rows llama-1b serves with, so no step gathers a whole
+# row; on the card the walk is launch-bound (a CUDA span kernel is the
+# remedy, not a wider group).
+SPAN_GROUP_POSITIONS = 256
 _IMPLEMENTATIONS = (None, "splash", "pallas", "xla", "plain")
 
 
@@ -376,3 +394,102 @@ def paged_decode_attention(q, k_pool, v_pool, table, pos, *,
         out = kernels.paged_decode(qg.contiguous(), k_pool, v_pool, table,
                                    pos, sm_scale)
     return out.reshape(b, hq, hd)
+
+
+def _read_blocks(pool, blk):
+    """Gather physical blocks ``blk`` [B, C] into ``[B, Hkv, C*Bs, hd]``
+    f32, heads first and contiguous (the cast and the transpose are one
+    copy), dequantizing int8 payloads against their per-position
+    scales."""
+    b, c = blk.shape
+    if isinstance(pool, dict):
+        arr = pool["q"][blk] * pool["scale"][blk][..., None]
+    else:
+        arr = pool[blk]
+    arr = arr.permute(0, 3, 1, 2, 4).to(
+        torch.float32, memory_format=torch.contiguous_format)
+    return arr.reshape(b, arr.shape[1], -1, arr.shape[-1])
+
+
+def _span_walk(qg, k_pool, v_pool, table, pos, sm_scale, cols_per_step):
+    """Online softmax of an S-wide query span over the block table,
+    ``cols_per_step`` table columns a step. qg: [B, S, Hkv, G, hd]; pos:
+    [B] — span token ``s`` of row ``b`` attends virtual positions ``<=
+    pos[b] + s``. Sentinel entries clamp to the last block and are masked
+    with everything past the limit. Returns [B, S, Hkv, G, hd] f32, 0 for
+    a token that sees no key. A step is 17 launches on an fp pool (21 on
+    int8) whatever its width: two gathers with their casts, two batched
+    matmuls, the mask and the softmax update."""
+    n, bs = _kv_payload(k_pool).shape[0], _kv_payload(k_pool).shape[1]
+    b, s_w, hkv, g, hd = qg.shape
+    mb = table.shape[1]
+    dev = qg.device
+    # Query rows ordered (group, token): [B*Hkv, G*S, hd], pre-scaled.
+    q = (qg.float() * sm_scale).permute(0, 2, 3, 1, 4).reshape(
+        b * hkv, g * s_w, hd)
+    limit = pos.long()[:, None] + torch.arange(s_w, device=dev)[None, :]
+    limit = limit.repeat(1, g)[:, None, :, None]  # [B, 1, G*S, 1]
+    positions = torch.arange(mb * bs, device=dev)
+    table = table.long().clamp(0, n - 1)
+    m = torch.full((b, hkv, g * s_w, 1), _NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b * hkv, g * s_w, hd), dtype=torch.float32,
+                      device=dev)
+    for start in range(0, mb, cols_per_step):
+        stop = min(start + cols_per_step, mb)
+        blk = table[:, start:stop]
+        k_b = _read_blocks(k_pool, blk).flatten(0, 1)  # [B*Hkv, Z, hd]
+        v_b = _read_blocks(v_pool, blk).flatten(0, 1)
+        s = torch.bmm(q, k_b.transpose(1, 2)).view(b, hkv, g * s_w, -1)
+        span = positions[start * bs: stop * bs]
+        s.masked_fill_(span > limit, _NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = s.sub_(m_new).exp_()
+        corr = (m - m_new).exp_()
+        l = torch.addcmul(p.sum(dim=-1, keepdim=True), l, corr)
+        acc = torch.baddbmm(acc.view(b, hkv, -1, hd).mul_(corr).flatten(0, 1),
+                            p.flatten(0, 1), v_b)
+        m = m_new
+    out = _finish(m, l, acc.view(b, hkv, g * s_w, hd))
+    out = out.reshape(b, hkv, g, s_w, hd)
+    return out.permute(0, 3, 1, 2, 4)
+
+
+def _paged_span_plain(qg, k_pool, v_pool, table, pos, sm_scale):
+    """JAX's ``_paged_span_xla``: the span walk one block a step. Shapes
+    as :func:`_span_walk`."""
+    return _span_walk(qg, k_pool, v_pool, table, pos, sm_scale, 1)
+
+
+def paged_span_attention(q, k_pool, v_pool, table, pos, *,
+                         n_kv_heads: int, scale: float | None = None,
+                         mesh=None, axis: str = "tensor"):
+    """Fused S-wide attention over a paged KV pool, the span sibling of
+    :func:`paged_decode_attention` (a suffix prefill reads one [1, S]
+    span, a chunk of a chunked admission another).
+
+    q: [B, S, Hq, hd] (already rotary-embedded, the span's K/V already
+    written into the pool); pools and table as in
+    :func:`paged_decode_attention`; pos: [B] — span token ``s`` of row
+    ``b`` attends virtual positions ``<= pos[b] + s``. Returns
+    [B, S, Hq, hd] f32.
+
+    Plain PyTorch on every device, as JAX's XLA walk is on every backend:
+    it walks :data:`SPAN_GROUP_POSITIONS` positions of the table a step
+    (one gather of those blocks per side), so a layer costs
+    ``ceil(MB * Bs / SPAN_GROUP_POSITIONS)`` steps. ``mesh`` (tensor
+    parallelism) is not yet ported."""
+    if mesh is not None:
+        raise ValueError("paged_span_attention over a mesh (tensor "
+                         "parallelism) is not yet ported")
+    b, s_w, hq, hd = q.shape
+    if hq % n_kv_heads:
+        raise ValueError(
+            f"query heads {hq} not a multiple of kv heads {n_kv_heads}")
+    sm_scale = (hd ** -0.5) if scale is None else scale
+    qg = q.reshape(b, s_w, n_kv_heads, hq // n_kv_heads, hd)
+    bs = _kv_payload(k_pool).shape[1]
+    cols = max(1, SPAN_GROUP_POSITIONS // bs)
+    out = _span_walk(qg, k_pool, v_pool, table, pos, sm_scale, cols)
+    return out.reshape(b, s_w, hq, hd)

@@ -2,14 +2,18 @@
 
 Counterpart of ``kubeflow_tpu/serving/__main__.py``: the JAX CLI's flag
 names and defaults for the options this package has ported, plus
-``--device``. With no further flags it serves as the JAX CLI does: the
-continuous decoder on the dense KV layout, plain predicts through the
-dynamic batcher. ``--decode-mode lockstep``, ``--prefix-cache-slots``
-(dense layout), ``--kv-layout paged [--kv-fused-attention] [--kv-dtype
-int8]`` choose the other ported paths. Every other flag of the JAX CLI
-(gRPC, speculation, chunked prefill, parallelism, fleet roles and tiers,
-QoS, checkpoints) is rejected by name, never ignored, and so is the
-paged prefix path (``--prefix-cache-slots`` with ``--kv-layout paged``).
+``--device``. With no further flags it serves as the JAX CLI does: REST on
+:8500 and gRPC on :9000 (``--grpc-port -1`` disables it), the metrics at
+``/monitoring/prometheus/metrics`` (``--enable-prometheus`` is accepted
+and changes nothing, as in JAX), the continuous decoder on the dense KV
+layout, plain predicts through the dynamic batcher.
+``--decode-mode lockstep``, ``--prefix-cache-slots N`` (either layout),
+``--kv-layout paged [--kv-fused-attention] [--kv-dtype int8]`` and
+``--prefill-chunk-tokens N --max-prompt-len M`` (paged) choose the other
+ported paths. Every other flag of the JAX CLI (speculation, parallelism,
+fleet roles and KV tiers, QoS, checkpoints, the compile cache and peer
+weights) is rejected by name, never ignored. Without grpcio the default
+``--grpc-port`` exits 2: the server never starts without :9000 unasked.
 """
 
 from __future__ import annotations
@@ -22,14 +26,20 @@ from kubeflow_tpu_torch.serving.server import ModelServer
 
 # Flags of the JAX CLI whose features are not yet ported.
 UNPORTED_FLAGS = (
-    "--model-path", "--grpc-port", "--speculative-k",
-    "--draft-mode", "--serving-role", "--tp-shards",
-    "--prefill-chunk-tokens", "--max-prompt-len", "--cp-shards",
-    "--pp-stages", "--host-kv-bytes", "--kv-directory-size",
-    "--cold-store-ref", "--kv-import-crossover-tokens", "--qos-tenants",
-    "--qos-aging-s", "--compile-cache-dir", "--weight-peers",
-    "--weight-pull-timeout-s", "--enable-prometheus",
+    "--model-path", "--speculative-k", "--draft-mode", "--serving-role",
+    "--tp-shards", "--cp-shards", "--pp-stages", "--host-kv-bytes",
+    "--kv-directory-size", "--cold-store-ref",
+    "--kv-import-crossover-tokens", "--qos-tenants", "--qos-aging-s",
+    "--compile-cache-dir", "--weight-peers", "--weight-pull-timeout-s",
 )
+
+
+def _grpc_importable() -> bool:
+    try:
+        import grpc  # noqa: F401
+    except ImportError:
+        return False
+    return True
 
 
 def main(argv=None) -> int:
@@ -37,6 +47,9 @@ def main(argv=None) -> int:
     p.add_argument("--model-name", required=True,
                    help="registry model name (kubeflow_tpu_torch.models)")
     p.add_argument("--rest-port", type=int, default=8500)
+    p.add_argument("--grpc-port", type=int, default=9000,
+                   help="gRPC predict port (tf-serving :9000 contract); "
+                        "-1 disables")
     p.add_argument("--batch-size", type=int, default=8,
                    help="decode slots (concurrent sequences) and the plain "
                         "predict batch")
@@ -57,8 +70,9 @@ def main(argv=None) -> int:
     p.add_argument("--decode-chunk", type=int, default=1,
                    help="decode steps per scheduler round")
     p.add_argument("--prefix-cache-slots", type=int, default=0,
-                   help="prefix-KV pool rows for reuse of shared prompt "
-                        "prefixes (0 disables; dense layout)")
+                   help="prefix-cache entries for reuse of shared prompt "
+                        "prefixes (0 disables): pool rows on the dense "
+                        "layout, refcount-shared blocks on the paged one")
     p.add_argument("--prefix-cache-min-len", type=int, default=16,
                    help="shortest prefix worth caching/matching")
     p.add_argument("--prefill-len-buckets", type=int, default=0,
@@ -79,12 +93,22 @@ def main(argv=None) -> int:
     p.add_argument("--kv-fused-attention", action="store_true",
                    help="read the paged cache through the paged decode "
                         "kernel instead of a gathered dense view")
+    p.add_argument("--prefill-chunk-tokens", type=int, default=0,
+                   help="admit prompts whose suffix exceeds this many "
+                        "tokens as a chain of chunks interleaved with "
+                        "decode (0 disables; paged layout)")
+    p.add_argument("--max-prompt-len", type=int, default=0,
+                   help="longest prompt served (0 = max-seq-len; beyond "
+                        "it needs --prefill-chunk-tokens)")
     p.add_argument("--stream-timeout-s", type=float, default=60.0)
     p.add_argument("--dtype", default="",
                    choices=["", "bfloat16", "float32"],
                    help="compute dtype override; empty keeps the preset's")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (raises without a CUDA device) or 'cpu'")
+    # Metrics are always served at /monitoring/prometheus/metrics; the
+    # flag keeps the serving manifest's args valid, as in JAX.
+    p.add_argument("--enable-prometheus", action="store_true")
     for arg in sys.argv[1:] if argv is None else argv:
         flag = arg.split("=", 1)[0]
         if flag in UNPORTED_FLAGS:
@@ -101,19 +125,31 @@ def main(argv=None) -> int:
         p.error("--kv-dtype=int8 requires --kv-layout=paged")
     if args.kv_fused_attention and args.kv_layout != "paged":
         p.error("--kv-fused-attention requires --kv-layout=paged")
+    if args.prefill_chunk_tokens < 0:
+        p.error("--prefill-chunk-tokens must be >= 0")
+    if args.max_prompt_len < 0:
+        p.error("--max-prompt-len must be >= 0")
+    if args.prefill_chunk_tokens and args.kv_layout != "paged":
+        # Chunks write through the block table; dense rows have none.
+        p.error("--prefill-chunk-tokens requires --kv-layout=paged")
+    if (args.max_prompt_len > args.max_seq_len
+            and not args.prefill_chunk_tokens):
+        p.error("--max-prompt-len beyond max-seq-len requires "
+                "--prefill-chunk-tokens")
     if args.kv_layout == "paged":
         if not continuous:
             p.error("--kv-layout=paged requires --decode-mode=continuous")
-        if args.prefix_cache_slots > 0:
-            p.error("--prefix-cache-slots with --kv-layout=paged (the "
-                    "paged prefix path) is not yet ported to the PyTorch "
-                    "package")
         if args.kv_block_size <= 0:
             p.error("--kv-block-size must be positive")
-        total = args.max_seq_len + args.max_new_tokens
+        total = ((args.max_prompt_len or args.max_seq_len)
+                 + args.max_new_tokens)
         if total % args.kv_block_size:
             p.error(f"--kv-block-size {args.kv_block_size} must divide "
-                    f"max-seq-len + max-new-tokens = {total}")
+                    f"max-prompt-len + max-new-tokens = {total}")
+    if args.grpc_port >= 0 and not _grpc_importable():
+        p.error("gRPC (:9000 by default) needs the grpcio package, which "
+                "cannot be imported here; pass --grpc-port -1 to serve "
+                "REST only")
 
     server = ModelServer(
         EngineConfig(
@@ -134,14 +170,17 @@ def main(argv=None) -> int:
             kv_dtype=args.kv_dtype,
             kv_fused=args.kv_fused_attention,
             stream_timeout_s=args.stream_timeout_s,
+            prefill_chunk_tokens=args.prefill_chunk_tokens,
+            max_prompt_len=args.max_prompt_len,
             dtype=args.dtype,
             device=args.device,
         ),
         port=args.rest_port,
+        grpc_port=None if args.grpc_port < 0 else args.grpc_port,
         batch_timeout_ms=args.batch_timeout_ms,
     )
     print(f"serving {args.model_name} on REST :{args.rest_port} "
-          f"({server.engine.device})")
+          f"gRPC :{args.grpc_port} ({server.engine.device})", flush=True)
     server.serve_forever()
     return 0
 

@@ -14,20 +14,41 @@ backs each request with blocks of a shared pool
 request enters only when its worst-case block count fits the pool, and a
 finished row frees its blocks at once.
 
-The dense prefix cache (``prefix_cache_slots``): a host trie
-(``serving/prefix_cache.py``) over a device pool of prefix rows. A
-matching admission copies the cached K/V and prefills only its suffix
-(``admit_prefix_and_step``); a finished prompt publishes its prefix back
-(``store_prefix_row``), and ``prime_prefix`` pools one up front.
+The prefix cache (``prefix_cache_slots``): a host trie
+(``serving/prefix_cache.py``) maps a new prompt to the deepest cached
+prefix, which the admission reuses, prefilling only its suffix. On the
+dense layout the trie fronts a device pool of prefix rows
+(``admit_prefix_and_step``, ``store_prefix_row``). On the paged layout a
+hit SHARES the donor's full blocks by refcount and copies at most one
+partly filled tail block (``copy_block``), then prefills the suffix
+through the block table (``paged_admit_prefix_and_step``); publishing a
+finished prompt is bookkeeping only, and cache-held blocks are reclaimed
+(LRU) under admission pressure. ``prime_prefix`` pools a prefix up front
+on either layout.
 
-Options of features not yet ported (the paged prefix path, speculation,
-QoS, host KV tier, chunked prefill, tensor/context/pipeline parallelism,
-fleet roles, the KV directory and cold store) raise ``ValueError`` at
-construction; none falls through to another behaviour.
+Chunked prefill (``prefill_chunk_tokens``, paged only): a prompt whose
+suffix is longer than one chunk is admitted as a chain of bounded chunk
+calls (``paged_prefill_chunk``), one per scheduler round between decode
+rounds, the last through ``paged_admit_prefix_and_step``. So one long
+admission stalls live streams by at most a chunk, and ``max_prompt_len``
+may exceed ``prefill_len``.
+
+Instruments: a metric ``registry`` (TTFT, inter-token gap, queue wait,
+dispatch time by kind, batch occupancy, chunk counters) and a
+``trace`` store of per-request timelines, served by the model server's
+``/monitoring/prometheus/metrics`` and ``/debug/requests``.
+
+Options of features not yet ported (speculation, QoS, the host KV tier,
+tensor/context/pipeline parallelism, fleet roles, the KV directory and
+cold store, live weight pushes) raise ``ValueError`` at construction;
+none falls through to another behaviour. Their counters in
+:meth:`ContinuousDecoder.metrics` read what JAX's read with the feature
+off.
 """
 
 from __future__ import annotations
 
+import hashlib
 import queue
 import threading
 import time
@@ -40,16 +61,22 @@ import torch
 from kubeflow_tpu_torch.models.decode import (
     admit_prefix_and_step,
     admit_rows_and_step,
+    copy_block,
     decode_chunk,
     decode_step,
     init_decode_state,
     init_paged_state,
     init_prefix_pool,
+    paged_admit_prefix_and_step,
     paged_admit_rows_and_step,
+    paged_prefill_chunk,
     prefill,
+    store_blocks,
     store_prefix_cache,
     store_prefix_row,
 )
+from kubeflow_tpu_torch.observability.metrics import MetricRegistry
+from kubeflow_tpu_torch.observability.tracing import TraceStore
 from kubeflow_tpu_torch.serving.engine import pow2_bucket
 from kubeflow_tpu_torch.serving.kv_allocator import (
     BlockAllocator,
@@ -59,12 +86,53 @@ from kubeflow_tpu_torch.serving.prefix_cache import PrefixCache
 
 _DONE = object()
 
+# Every request's tenant while QoS is not ported (JAX's
+# ``serving/qos.py`` default); its bounded exposition label is below.
+DEFAULT_TENANT = "default"
+TENANT_LABEL_BUCKETS = 16
+
+# Counters and gauges of features not yet ported, as JAX's metrics()
+# reports them with the feature off.
+_UNPORTED_METRICS = {
+    "spec_drafted_tokens": 0, "spec_accepted_tokens": 0,
+    "spec_verify_dispatches": 0, "spec_draft_dispatches": 0,
+    "spec_acceptance_rate": 0.0, "spec_draft_k": 0.0,
+    "kv_handoff_exports": 0, "kv_handoff_imports": 0,
+    "kv_handoff_tokens": 0, "kv_suspends": 0, "kv_resumes": 0,
+    "kv_host_hits": 0, "kv_peer_hits": 0, "kv_peer_misses": 0,
+    "kv_peer_import_bytes": 0, "kv_peer_fetch_failures": 0,
+    "kv_cold_hits": 0, "kv_cold_demotions": 0, "kv_cold_import_bytes": 0,
+    "kv_import_stale_refused": 0, "kv_import_skipped_crossover": 0,
+    "kv_directory_publishes": 0, "qos_deadline_shed": 0,
+    "qos_enabled": False, "role": "", "tp_shards": 1, "cp_shards": 1,
+    "pp_stages": 1, "weight_pushes": 0, "weights_stale_refused": 0,
+    "weight_swap_seconds_last": 0.0, "compile_cache_hits": 0,
+    "compile_cache_misses": 0, "warm_seconds": 0.0, "warming": False,
+    "weights_version": 0, "kv_host_tier_bytes": 0,
+    "kv_host_tier_bytes_total": 0, "kv_host_tier_pinned_bytes": 0,
+    "kv_host_tier_entries": 0, "kv_host_demotions": 0,
+    "kv_host_evictions": 0, "kv_host_promotions": 0,
+    "kv_host_tier_high_water_bytes": 0,
+}
+
+
+def tenant_bucket(tenant: str, buckets: int = TENANT_LABEL_BUCKETS) -> str:
+    """Stable bounded label value for a tenant id (``t00``..``tNN``), as
+    JAX's ``serving/qos.py`` computes it (BLAKE2, not ``hash()``)."""
+    h = hashlib.blake2b((tenant or DEFAULT_TENANT).encode("utf-8"),
+                        digest_size=4).digest()
+    return f"t{int.from_bytes(h, 'big') % buckets:02d}"
+
+
+_DEFAULT_TENANT_LABEL = tenant_bucket(DEFAULT_TENANT)
+
 
 class PromptTooLong(ValueError):
     """Terminal admission error: the request cannot be served by this
-    replica at all (more KV blocks than the pool holds, or tokens plus
-    budget beyond the virtual row), so deferring would wait forever. The
-    model server maps this to HTTP 413."""
+    replica at all (a prompt past ``max_prompt_len``, more KV blocks than
+    the pool holds, or tokens plus budget beyond the virtual row), so
+    deferring would wait forever. The model server maps this to HTTP
+    413."""
 
 
 @dataclass
@@ -89,6 +157,22 @@ class _Request:
     # The prefix-cache entry this request's admission read, pinned until
     # the request finishes.
     pinned_prefix: object = None
+    # Paged layout: (entry, prefix_len, suffix_bucket) planned at pop
+    # time, before the block reservation, so the entry is pinned before
+    # reclaim runs and the reservation covers only the unshared blocks.
+    admit_plan: tuple | None = None
+    # The lifecycle timeline in the decoder's TraceStore, keyed by the
+    # propagated X-Request-ID (or a minted one); last_emit_t feeds the
+    # inter-token histogram.
+    timeline: object = None
+    last_emit_t: float | None = None
+    # Chunked prefill: prompt tokens already written into the request's
+    # blocks (-1 = not a chunked admission, or its chain finished). While
+    # >= 0 the slot's row is PARKED (length = total, active False).
+    chunk_pos: int = -1
+    # True once the first chunk copied the plan's shared tail block and
+    # mapped the table row.
+    chunk_started: bool = False
 
     @property
     def want_left(self) -> int:
@@ -160,8 +244,10 @@ class ContinuousDecoder:
     """Owns the device decode state and the scheduler thread.
 
     ``prefill_len`` fixes the prompt shape (prompts are right-padded to
-    it); ``slots`` is the decode concurrency; a row is ``prefill_len +
-    max_new_tokens`` positions. The device is the parameters' device."""
+    it); ``slots`` is the decode concurrency; a row is ``max_prompt_len +
+    max_new_tokens`` positions (``max_prompt_len`` defaults to
+    ``prefill_len`` and exceeds it only with chunked prefill). The device
+    is the parameters' device."""
 
     def __init__(self, params, cfg, *, slots: int, prefill_len: int,
                  max_new_tokens: int, top_k: int = 0,
@@ -180,15 +266,10 @@ class ContinuousDecoder:
                  kv_directory=None, cold_store=None):
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
-        if prefix_cache_slots > 0 and kv_layout == "paged":
-            raise ValueError("the paged prefix path (prefix_cache_slots "
-                             "with kv_layout='paged') is not yet ported to "
-                             "the PyTorch package")
         _reject_unported(
             speculative_k=speculative_k > 0,
             qos=qos is not None,
             host_kv_bytes=host_kv_bytes > 0,
-            prefill_chunk_tokens=prefill_chunk_tokens > 0,
             tp_shards=tp_shards > 1,
             cp_shards=cp_shards > 1,
             pp_stages=pp_stages > 1,
@@ -202,12 +283,32 @@ class ContinuousDecoder:
             raise ValueError("kv_dtype='int8' requires kv_layout='paged'")
         if kv_fused and kv_layout != "paged":
             raise ValueError("kv_fused requires kv_layout='paged'")
+        # Chunked prefill: a suffix longer than one chunk is admitted as
+        # a chain of chunk calls interleaved with decode rounds; the
+        # chunk width bounds the gap one long admission puts into a live
+        # stream, and max_prompt_len lifts the prompt ceiling past the
+        # prefill width.
+        self.prefill_chunk_tokens = max(0, int(prefill_chunk_tokens))
+        if self.prefill_chunk_tokens:
+            if kv_layout != "paged":
+                raise ValueError(
+                    "prefill_chunk_tokens requires kv_layout='paged' "
+                    "(chunks scatter into the block pool)")
+            if self.prefill_chunk_tokens > prefill_len:
+                raise ValueError(
+                    f"prefill_chunk_tokens {self.prefill_chunk_tokens} "
+                    f"must be <= prefill_len {prefill_len} (chunks ride "
+                    "the suffix buckets)")
         self.max_prompt_len = int(max_prompt_len) or prefill_len
-        if self.max_prompt_len != prefill_len:
+        if self.max_prompt_len < prefill_len:
             raise ValueError(
-                f"max_prompt_len {self.max_prompt_len} must equal "
-                f"prefill_len {prefill_len} (longer prompts need chunked "
-                "prefill, which is not yet ported)")
+                f"max_prompt_len {self.max_prompt_len} must be >= "
+                f"prefill_len {prefill_len}")
+        if self.max_prompt_len > prefill_len and not self.prefill_chunk_tokens:
+            raise ValueError(
+                f"max_prompt_len {self.max_prompt_len} > prefill_len "
+                f"{prefill_len} requires prefill_chunk_tokens > 0 "
+                "(a monolithic prefill is bounded by the prefill width)")
         self.params = params
         self.cfg = cfg
         self.device = params["embed"]["kernel"].device
@@ -258,16 +359,23 @@ class ContinuousDecoder:
             self._alloc = None
             self._state = init_decode_state(cfg, slots, self.total_len, seed,
                                             device=self.device)
-        # Dense prefix cache: host trie + a device pool of prefix rows.
         self.prefix_cache = (
             PrefixCache(prefix_cache_slots, min_len=prefix_cache_min_len)
             if prefix_cache_slots > 0 else None)
+        # Dense layout only: a device pool of prefix rows. A paged hit
+        # shares the donor's pool blocks instead.
         self._prefix_pool = (
             init_prefix_pool(cfg, prefix_cache_slots, prefill_len,
                              device=self.device)
-            if self.prefix_cache is not None else None)
-        # Guards the trie and pool writes: prime_prefix() runs on caller
-        # threads while the scheduler thread matches and publishes.
+            if self.prefix_cache is not None and self._alloc is None
+            else None)
+        if self.prefix_cache is not None and self._alloc is not None:
+            # Trie evictions return the entry's refcounted blocks; remove()
+            # fires this under the prefix lock.
+            self.prefix_cache.on_evict = self._drop_entry_blocks
+        # Guards the trie, the dense prefix pool's rows, the allocator and
+        # the slots' block lists: prime_prefix() runs on caller threads
+        # while the scheduler thread matches, reserves and publishes.
         self._prefix_lock = threading.Lock()
         self.kv_low_watermark = max(0, int(kv_low_watermark))
         # Head-of-line bypass: how many memory-blocked candidates a round
@@ -277,11 +385,12 @@ class ContinuousDecoder:
         self.hol_shield_rounds = max(1, int(hol_shield_rounds))
         # Serializes device access to self._state.
         self._state_lock = threading.Lock()
-        # Guards the allocator and the slots' block lists.
-        self._alloc_lock = threading.Lock()
         self._slot_req: list[_Request | None] = [None] * slots
         self._active_count = 0
         self._pending: deque[_Request] = deque()
+        # In-flight chunked admissions, (req, slot) in arrival order; the
+        # scheduler advances the oldest by one chunk a round.
+        self._chunk_jobs: list[tuple[_Request, int]] = []
         self._cv = threading.Condition()
         self._stopped = False
         self.tokens_emitted = 0
@@ -290,11 +399,14 @@ class ContinuousDecoder:
         self.prefill_dispatches = 0
         self.admitted = 0
         self.prefill_tokens = 0
+        self.prefill_chunks = 0      # interior chunk calls (long prompts)
         self.prompt_rejected_too_long = 0
         self.ramp_rounds = 0
         self.ttft_sum = 0.0
         self.ttft_count = 0
         self.kv_defer_admissions = 0
+        self.kv_cow_copies = 0       # tail-block copy-on-writes
+        self.kv_shared_blocks = 0    # blocks mapped by refcount on hits
         self.hol_bypasses = 0
         self.kv_blocks_peak = 0
         self.peak_in_flight = 0
@@ -303,8 +415,72 @@ class ContinuousDecoder:
         self.prefix_tokens_reused = 0
         self.prefix_suffix_tokens = 0
         self.prefix_inserts = 0
+        # Decode service per tenant (tokens emitted).
+        self._tenant_served: dict[str, float] = {}
         # Counter mutations and metrics() reads go through this leaf lock.
         self._mlock = threading.Lock()
+        # Latency distributions and gauges, the JAX decoder's families
+        # (rendered by the model server's /monitoring route).
+        self.registry = MetricRegistry()
+        self._h_ttft = self.registry.histogram(
+            "serving_ttft_seconds", "Submit to first emitted token")
+        self._h_itl = self.registry.histogram(
+            "serving_inter_token_seconds",
+            "Host-side gap between a stream's token arrivals")
+        self._h_queue_wait = self.registry.histogram(
+            "serving_queue_wait_seconds",
+            "Submit to slot admission (includes memory deferrals)")
+        self._h_tenant_wait = self.registry.histogram(
+            "serving_tenant_queue_wait_seconds",
+            "Submit to slot admission, by hash-bucketed tenant",
+            labels=("tenant",))
+        self._h_dispatch = self.registry.histogram(
+            "serving_dispatch_seconds",
+            "Device round-trip duration", labels=("kind",))
+        occ_bounds, b = [], 1
+        while b < slots:
+            occ_bounds.append(b)
+            b *= 2
+        occ_bounds.append(slots)
+        self._h_occupancy = self.registry.histogram(
+            "serving_batch_occupancy",
+            "Active slots per decode dispatch", buckets=occ_bounds)
+        self.registry.gauge(
+            "serving_role",
+            "Replica role in a disaggregated fleet (1 = this role)",
+            labels=("role",)).labels("colocated").set(1)
+        self.registry.gauge(
+            "serving_tp_shards",
+            "Tensor-parallel mesh width of this replica (1 = "
+            "single-chip)").set(1)
+        self.registry.gauge(
+            "serving_cp_shards",
+            "Context-parallel (sequence-axis) width of this replica's "
+            "chunked-prefill ring (1 = no ring)").set(1)
+        self.registry.gauge(
+            "serving_pp_stages",
+            "Pipeline-parallel stages sharding this replica's layer "
+            "stack and KV pool (1 = unsplit)").set(1)
+        self._c_prefill_chunks = self.registry.counter(
+            "serving_prefill_chunks_total",
+            "Chunked-prefill dispatches (interior chunks of long "
+            "admissions; the final chunk counts as a prefill)")
+        self._h_prefill_chunk = self.registry.histogram(
+            "serving_prefill_chunk_seconds",
+            "Chunked-prefill dispatch duration (one interior chunk)")
+        # Live weight pushes are not ported: epoch 0, no pushes.
+        self.registry.gauge(
+            "serving_weights_version",
+            "Weights epoch installed by live pushes (0 = boot weights)")
+        self.registry.counter(
+            "serving_weight_pushes_total",
+            "Live weight swaps installed by update_weights")
+        self.registry.histogram(
+            "serving_weight_push_seconds",
+            "update_weights duration: device placement, atomic swap, "
+            "stale-KV flush")
+        # Per-stream lifecycle timelines, served at /debug/requests.
+        self.trace = TraceStore()
         self._ramp_streak = 0  # consecutive admission-only rounds
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
@@ -319,29 +495,43 @@ class ContinuousDecoder:
                 f"token ids must lie in [0, {self.cfg.vocab_size})")
 
     def submit(self, tokens: list[int], max_new_tokens: int,
-               temperature: float = 0.0) -> StreamHandle:
+               temperature: float = 0.0, *,
+               request_id: str | None = None) -> StreamHandle:
+        """Queue one generation. ``request_id`` (the propagated
+        X-Request-ID; minted when absent) keys the stream's timeline."""
         if len(tokens) > self.max_prompt_len:
+            # Terminal, not truncation: max_prompt_len is this replica's
+            # ceiling (chunking already lifted it past prefill_len).
             with self._mlock:
                 self.prompt_rejected_too_long += 1
             raise PromptTooLong(
-                f"prompt is {len(tokens)} tokens but this replica serves "
-                f"at most {self.max_prompt_len} (max_prompt_len)")
+                f"prompt is {len(tokens)} tokens but this replica "
+                f"serves at most {self.max_prompt_len} "
+                f"(max_prompt_len; prefill_chunk_tokens="
+                f"{self.prefill_chunk_tokens})")
         self._check_tokens(tokens)
         req = _Request(tokens=list(tokens),
                        want=min(max_new_tokens, self.max_new_tokens),
                        temperature=float(temperature))
+        # Timeline: submit marks t=0, queued the entry to the deque.
+        req.timeline = self.trace.start(request_id)
+        req.timeline.event("submit", prompt_tokens=len(req.tokens),
+                           want=req.want, tenant=DEFAULT_TENANT,
+                           priority=0)
         with self._cv:
             if self._stopped:
+                req.timeline.close(error=RuntimeError("decoder is stopped"))
                 raise RuntimeError("decoder is stopped")
             self._pending.append(req)
+            req.timeline.event("queued", depth=len(self._pending))
             self._cv.notify()
         return StreamHandle(req, self.stream_timeout_s)
 
     def generate(self, tokens: list[int], max_new_tokens: int,
                  temperature: float = 0.0,
-                 timeout: float | None = None) -> dict:
-        return self.submit(tokens, max_new_tokens,
-                           temperature).result(timeout)
+                 timeout: float | None = None, **submit_kw) -> dict:
+        return self.submit(tokens, max_new_tokens, temperature,
+                           **submit_kw).result(timeout)
 
     def stop(self) -> None:
         with self._cv:
@@ -363,26 +553,60 @@ class ContinuousDecoder:
             return
         req.error = error
         req.finish_reason = reason if error is None else "error"
+        if req.timeline is not None:
+            # Every finish path funnels here, so no finished request
+            # leaves an open timeline.
+            req.timeline.close(req.finish_reason, error=error)
         req.stream.put(_DONE)
         req.done.set()
 
+    # -- paged-KV bookkeeping (no-ops in the dense layout) -------------
+
+    def _drop_entry_blocks(self, entry) -> None:
+        """Prefix-trie eviction hook: release the entry's refcounted
+        blocks. Called by PrefixCache.remove() with the prefix lock held.
+        (JAX demotes them to the host tier first; that tier is not
+        ported.)"""
+        for b in (entry.blocks or ()):
+            self._alloc.free(b)
+
     def _set_table_row(self, slot: int, blocks: list[int]) -> None:
         """Point ``slot``'s host block-table row at ``blocks`` (sentinel
-        beyond them); uploaded to the device at the next admission."""
+        beyond them); uploaded to the device at its admission's call."""
         self._table[slot, :] = self._alloc.num_blocks
         self._table[slot, : len(blocks)] = blocks
 
+    def _upload_table(self) -> None:
+        """Copy the host table to the device (caller holds the state
+        lock)."""
+        self._state["block_table"].copy_(torch.from_numpy(self._table))
+
     def _free_slot_blocks(self, slot: int) -> None:
-        """Return a retiring slot's blocks to the allocator (paged).
-        Idempotent."""
+        """Return a retiring slot's block references to the allocator
+        (paged). Idempotent."""
         if self._alloc is None:
             return
-        with self._alloc_lock:
+        with self._prefix_lock:
             blocks, self._slot_blocks[slot] = self._slot_blocks[slot], []
             for b in blocks:
                 self._alloc.free(b)
             if blocks:
                 self._table[slot, :] = self._alloc.num_blocks
+
+    def _reclaim_blocks(self, need: int, timeline=None) -> None:
+        """Evict unpinned prefix-cache entries (LRU first) until ``need``
+        blocks are free: cache-held blocks are reclaimable memory, not
+        reservations. Caller holds the prefix lock. Evictions forced by
+        an admission land on its timeline."""
+        if self.prefix_cache is None:
+            return
+        evicted = 0
+        while self._alloc.free_blocks < need:
+            if not self.prefix_cache.evict_lru():
+                break
+            evicted += 1
+        if evicted and timeline is not None:
+            timeline.event("kv_evict", entries=evicted)
 
     def _admit_batch(self, pending: list[tuple[_Request, int]]) -> None:
         """Admit a round's pending requests in ONE call that fuses
@@ -412,6 +636,7 @@ class ContinuousDecoder:
                 *(torch.from_numpy(x).to(dev)
                   for x in (slots, toks, lengths, wants, temps)),
                 self.top_k, self.eos_id)
+        t_disp = time.perf_counter()
         with self._state_lock:
             if self._alloc is None:
                 self._state, last, tok, emit = admit_rows_and_step(
@@ -421,17 +646,19 @@ class ContinuousDecoder:
                 # also sets the rows' device length/active.
                 for req, slot in pending:
                     self._set_table_row(slot, self._slot_blocks[slot])
-                self._state["block_table"].copy_(
-                    torch.from_numpy(self._table))
+                self._upload_table()
                 self._state, last, tok, emit = paged_admit_rows_and_step(
                     self._state, *args, self.kv_fused)
             tok_np, emit_np = tok.cpu().numpy(), emit.cpu().numpy()
+        self._h_dispatch.labels("admit").observe(
+            time.perf_counter() - t_disp)
         with self._mlock:
             self.prefill_dispatches += 1
             self.admitted += k
             self.prefill_tokens += sum(len(req.tokens) for req, _ in pending)
         for i, (req, slot) in enumerate(pending):
             req.prefill_src = (last, i)
+            req.timeline.event("prefill", tokens=len(req.tokens), bucket=t)
             self._post_admit(req, slot)
         with self._mlock:
             self.steps += 1
@@ -445,22 +672,22 @@ class ContinuousDecoder:
         return pow2_bucket(max(n, floor), cap=self.prefill_len)
 
     def _suffix_bucket(self, n: int) -> int:
-        """Prefill length of an ``n``-token suffix after a prefix hit.
-        Suffixes are bucketed even when full-prompt bucketing is off
-        (padding a 3-token suffix to ``prefill_len`` would erase the
-        reuse), with a floor bounding the number of shapes."""
+        """Prefill length of an ``n``-token suffix after a prefix hit, or
+        of a chunk. Suffixes are bucketed even when full-prompt bucketing
+        is off (padding a 3-token suffix to ``prefill_len`` would erase
+        the reuse), with a floor bounding the number of shapes."""
         if self.prefill_len_buckets > 0:
             floor = max(1, self.prefill_len >> self.prefill_len_buckets)
         else:
             floor = min(8, self.prefill_len)
         return pow2_bucket(max(n, floor), cap=self.prefill_len)
 
-    # -- dense prefix cache ---------------------------------------------
+    # -- prefix cache ----------------------------------------------------
 
     def _plan_prefix(self, req: _Request):
         """Probe the trie for ``req`` and fit the (prefix, suffix-bucket)
         split into the row: the suffix must end within ``total_len`` (the
-        admission raises on a write past the row, where JAX's
+        dense admission raises on a write past the row, where JAX's
         ``dynamic_update_slice`` would clamp it), so when the bucket runs
         past the prompt's tail the reused prefix shortens to ``prompt_len
         - bucket``. Returns (entry, prefix_len, bucket) with the entry
@@ -483,21 +710,53 @@ class ContinuousDecoder:
 
     def _admit_prefix(self, req: _Request, slot: int, entry,
                       prefix_len: int, s: int) -> None:
-        """Prefix-hit admission: ONE call copies the pooled K/V into the
-        request's row, prefills only the suffix (padded to ``s``) and
-        takes the fused decode step. ``entry`` arrives pinned and stays
-        pinned until the request finishes, so no store can write the pool
-        row it reads."""
+        """Prefix-hit admission: ONE call prefills only the suffix
+        (padded to ``s``) and takes the fused decode step. Dense: the call
+        first copies the pooled row into the request's row. Paged: the
+        pop-time reservation already mapped the donor's full blocks into
+        the slot by refcount (zero copies); only a partly filled tail
+        block is copied here, before the suffix prefill reads it. ``entry``
+        arrives pinned and stays pinned until the request finishes, so no
+        store or eviction touches what it reads."""
         suffix = req.tokens[prefix_len:]
         toks = np.zeros((1, s), np.int32)
         toks[0, : len(suffix)] = suffix
-        with self._state_lock:
-            self._state, last, tok, emit = admit_prefix_and_step(
-                self._state, self.params, self.cfg, slot, self._prefix_pool,
-                entry.slot, prefix_len, torch.from_numpy(toks).to(self.device),
-                len(req.tokens), req.want_left, req.temperature, self.top_k,
-                self.eos_id)
-            tok_np, emit_np = tok.cpu().numpy(), emit.cpu().numpy()
+        toks_t = torch.from_numpy(toks).to(self.device)
+        t_disp = time.perf_counter()
+        if self._alloc is not None:
+            bs = self.kv_block_size
+            n_full = prefix_len // bs
+            with self._state_lock:
+                if prefix_len % bs:
+                    # The slot's first owned block (table index n_full)
+                    # takes the donor's partly shared tail.
+                    copy_block(self._state["pool"],
+                               self._slot_blocks[slot][n_full],
+                               entry.blocks[n_full])
+                # The row is mapped only under its own call: live before
+                # it, an earlier decode step would write through it at
+                # the slot's stale length into shared blocks.
+                self._set_table_row(slot, self._slot_blocks[slot])
+                self._upload_table()
+                self._state, last, tok, emit = paged_admit_prefix_and_step(
+                    self._state, self.params, self.cfg, slot, prefix_len,
+                    toks_t, len(req.tokens), req.want_left, req.temperature,
+                    self.top_k, self.eos_id, self.kv_fused)
+                tok_np, emit_np = tok.cpu().numpy(), emit.cpu().numpy()
+            with self._mlock:
+                self.kv_shared_blocks += n_full
+                if prefix_len % bs:
+                    self.kv_cow_copies += 1
+        else:
+            with self._state_lock:
+                self._state, last, tok, emit = admit_prefix_and_step(
+                    self._state, self.params, self.cfg, slot,
+                    self._prefix_pool, entry.slot, prefix_len, toks_t,
+                    len(req.tokens), req.want_left, req.temperature,
+                    self.top_k, self.eos_id)
+                tok_np, emit_np = tok.cpu().numpy(), emit.cpu().numpy()
+        self._h_dispatch.labels("admit").observe(
+            time.perf_counter() - t_disp)
         req.pinned_prefix = entry
         with self._mlock:
             self.prefill_dispatches += 1
@@ -506,17 +765,134 @@ class ContinuousDecoder:
             self.prefix_tokens_reused += prefix_len
             self.prefix_suffix_tokens += len(suffix)
             self.prefill_tokens += len(suffix)
-            self.steps += 1
         req.prefill_src = (last, 0)
+        req.timeline.event("prefill", tokens=len(suffix),
+                           prefix_reused=prefix_len, bucket=s)
         self._post_admit(req, slot)
+        with self._mlock:
+            self.steps += 1
+        self._dispatch(tok_np, emit_np)
+
+    # -- chunked prefill --------------------------------------------------
+
+    def _begin_chunked(self, req: _Request, slot: int) -> None:
+        """Register a long admission as a chunk job. The slot and its
+        blocks were taken at pop time (and a prefix plan pinned its
+        entry); no device work runs here. The slot counts as occupied but
+        not active: its row is parked until the final chunk."""
+        plan = req.admit_plan
+        plen = plan[1] if plan is not None else 0
+        if plan is not None:
+            req.pinned_prefix = plan[0]
+            with self._mlock:
+                self.prefix_hits += 1
+                self.prefix_tokens_reused += plen
+                self.prefix_suffix_tokens += len(req.tokens) - plen
+                self.kv_shared_blocks += plen // self.kv_block_size
+        elif self.prefix_cache is not None:
+            with self._mlock:
+                self.prefix_misses += 1
+        req.chunk_pos = plen
+        req.chunk_started = False
+        self._slot_req[slot] = req
+        self._chunk_jobs.append((req, slot))
+        req.timeline.event("chunked_admission",
+                           prompt_tokens=len(req.tokens),
+                           prefix_reused=plen,
+                           chunk_tokens=self.prefill_chunk_tokens)
+
+    def _advance_chunked(self) -> None:
+        """Run AT MOST ONE chunk call: the oldest job's next chunk. One
+        chunk a round bounds a live stream's inter-token gap at one chunk
+        of prefill.
+
+        An interior chunk writes ``prefill_chunk_tokens`` prompt tokens
+        into the row's blocks and re-parks the row (no sampling, no
+        randomness consumed). The FINAL chunk is a prefix-style admission
+        with ``prefix_len = chunk_pos``: it activates the row, samples the
+        first token and takes the round's decode step. (JAX also restarts
+        a chain when a live weight push lands mid-chain; weight pushes
+        are not ported, so no chain restarts here.)"""
+        if not self._chunk_jobs:
+            return
+        req, slot = self._chunk_jobs[0]
+        n = len(req.tokens)
+        pos = req.chunk_pos
+        remaining = n - pos
+        final = remaining <= self.prefill_chunk_tokens
+        take = remaining if final else self.prefill_chunk_tokens
+        s = self._suffix_bucket(take)
+        toks = np.zeros((1, s), np.int32)
+        toks[0, :take] = req.tokens[pos: pos + take]
+        toks_t = torch.from_numpy(toks).to(self.device)
+        first = not req.chunk_started
+        plan = req.admit_plan
+        bs = self.kv_block_size
+        cow = first and plan is not None and plan[1] % bs
+        t_disp = time.perf_counter()
+        with self._state_lock:
+            if first:
+                # The plan's partly shared tail is copied and the row is
+                # mapped under the chain's first call, as in _admit_prefix.
+                req.chunk_started = True
+                if cow:
+                    n_full = plan[1] // bs
+                    copy_block(self._state["pool"],
+                               self._slot_blocks[slot][n_full],
+                               plan[0].blocks[n_full])
+                self._set_table_row(slot, self._slot_blocks[slot])
+                self._upload_table()
+            if final:
+                self._state, last, tok, emit = paged_admit_prefix_and_step(
+                    self._state, self.params, self.cfg, slot, pos, toks_t,
+                    n, req.want_left, req.temperature, self.top_k,
+                    self.eos_id, self.kv_fused)
+                tok_np, emit_np = tok.cpu().numpy(), emit.cpu().numpy()
+            else:
+                self._state = paged_prefill_chunk(
+                    self._state, self.params, self.cfg, slot, pos, toks_t,
+                    take, self.kv_fused)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+        if cow:
+            with self._mlock:
+                self.kv_cow_copies += 1
+        dt = time.perf_counter() - t_disp
+        if not final:
+            req.chunk_pos = pos + take
+            with self._mlock:
+                self.prefill_chunks += 1
+                self.prefill_tokens += take
+            self._c_prefill_chunks.inc()
+            self._h_prefill_chunk.observe(dt)
+            self._h_dispatch.labels("prefill_chunk").observe(dt)
+            req.timeline.event("prefill_chunk", pos=pos, tokens=take,
+                               bucket=s)
+            return
+        # Final chunk: the chain is done; the row is an admitted stream.
+        self._chunk_jobs.pop(0)
+        with self._mlock:
+            self.prefill_dispatches += 1
+            self.admitted += 1
+            self.prefill_tokens += take
+        self._h_dispatch.labels("admit").observe(dt)
+        req.prefill_src = (last, 0)
+        req.timeline.event("prefill", tokens=take, prefix_reused=pos,
+                           bucket=s, chunked=True)
+        req.chunk_pos = -1
+        self._post_admit(req, slot)
+        with self._mlock:
+            self.steps += 1
         self._dispatch(tok_np, emit_np)
 
     def _publish_prefix(self, req: _Request, slot: int) -> None:
         """Publish a finishing request's prompt K/V (still intact in its
-        row's positions 0..len-1) into the prefix pool, so later prompts
-        sharing the prefix skip its prefill. Runs on the scheduler thread
-        BEFORE the slot is freed; the trie's reserve() hands out only an
-        unpinned pool row, so no admission reads the row written here."""
+        row's positions 0..len-1) so later prompts sharing the prefix skip
+        its prefill. Runs on the scheduler thread BEFORE the slot is
+        freed. Dense: the row is copied into a pool row the trie hands out
+        unpinned, so no admission reads the row written here. Paged:
+        bookkeeping only — the entry takes a reference on the blocks
+        covering the key, which outlive the slot's own release."""
         cache = self.prefix_cache
         if cache is None or req.error is not None:
             return
@@ -530,7 +906,16 @@ class ContinuousDecoder:
             entry = cache.reserve(key)
             if entry is None:  # every pool row pinned by peers in flight
                 return
-            store_prefix_row(self._prefix_pool, entry.slot, self._state, slot)
+            if self._alloc is not None:
+                n_pub = min(self._alloc.blocks_for(len(key)),
+                            len(self._slot_blocks[slot]))
+                blocks = tuple(self._slot_blocks[slot][:n_pub])
+                for b in blocks:
+                    self._alloc.share(b)
+                entry.blocks = blocks
+            else:
+                store_prefix_row(self._prefix_pool, entry.slot, self._state,
+                                 slot)
         with self._mlock:
             self.prefix_inserts += 1
 
@@ -543,8 +928,10 @@ class ContinuousDecoder:
     def prime_prefix(self, tokens: list[int]) -> bool:
         """Precompute and pool a prefix (e.g. the shared system prompt at
         server start) WITHOUT touching the decode state or its generator,
-        so a primed decoder samples exactly as an unprimed one. Returns
-        True when the prefix is pooled (already or now)."""
+        so a primed decoder samples exactly as an unprimed one. Paged:
+        the prefix is prefilled into freshly allocated blocks owned by the
+        trie entry (released on eviction). Returns True when the prefix
+        is pooled (already or now)."""
         if self.prefix_cache is None:
             return False
         toks = list(tokens)[: self.prefill_len]
@@ -552,6 +939,7 @@ class ContinuousDecoder:
             return False
         self._check_tokens(toks)
         key = tuple(toks)
+        dev = self.device
         with self._prefix_lock:
             if self.prefix_cache.has(key):
                 self.prefix_cache.touch(key)
@@ -559,17 +947,44 @@ class ContinuousDecoder:
             entry = self.prefix_cache.reserve(key)
             if entry is None:
                 return False
-            try:
-                arr = np.zeros((1, self._seq_bucket(len(toks))), np.int32)
-                arr[0, : len(toks)] = toks
-                cache, _last = prefill(
-                    self.params, torch.from_numpy(arr).to(self.device),
-                    torch.tensor([len(toks)], device=self.device), self.cfg,
-                    total_len=self.prefill_len)
-                store_prefix_cache(self._prefix_pool, entry.slot, cache)
-            except Exception:
-                self.prefix_cache.remove(entry)
-                raise
+            if self._alloc is not None:
+                nblk = self._alloc.blocks_for(len(toks))
+                self._reclaim_blocks(nblk)
+                if not self._alloc.can_alloc(nblk):
+                    self.prefix_cache.remove(entry)
+                    return False
+                blocks = self._alloc.alloc(nblk)
+                self.kv_blocks_peak = max(self.kv_blocks_peak,
+                                          self._alloc.blocks_in_use)
+                try:
+                    w = nblk * self.kv_block_size
+                    arr = np.zeros((1, w), np.int32)
+                    arr[0, : len(toks)] = toks
+                    cache, _last = prefill(
+                        self.params, torch.from_numpy(arr).to(dev),
+                        torch.tensor([len(toks)], device=dev), self.cfg,
+                        total_len=w)
+                    with self._state_lock:
+                        store_blocks(self._state["pool"], blocks, cache)
+                except Exception:
+                    for b in blocks:
+                        self._alloc.free(b)
+                    self.prefix_cache.remove(entry)
+                    raise
+                entry.blocks = tuple(blocks)
+            else:
+                try:
+                    arr = np.zeros((1, self._seq_bucket(len(toks))),
+                                   np.int32)
+                    arr[0, : len(toks)] = toks
+                    cache, _last = prefill(
+                        self.params, torch.from_numpy(arr).to(dev),
+                        torch.tensor([len(toks)], device=dev), self.cfg,
+                        total_len=self.prefill_len)
+                    store_prefix_cache(self._prefix_pool, entry.slot, cache)
+                except Exception:
+                    self.prefix_cache.remove(entry)
+                    raise
         with self._mlock:
             self.prefix_inserts += 1
             self.prefill_tokens += len(toks)  # priming IS a prefill
@@ -582,6 +997,15 @@ class ContinuousDecoder:
         self._release_pin(req)
         self._free_slot_blocks(slot)
         self._slot_req[slot] = None
+
+    def _mark_admitted(self, req: _Request, slot: int) -> None:
+        """The pop→slot transition: queue-wait histograms and the
+        timeline's admitted event (memory deferrals stretch the wait)."""
+        wait = time.perf_counter() - req.submit_t
+        self._h_queue_wait.observe(wait)
+        self._h_tenant_wait.labels(_DEFAULT_TENANT_LABEL).observe(wait)
+        req.timeline.event("admitted", slot=slot,
+                           wait_ms=round(1e3 * wait, 3))
 
     def _post_admit(self, req: _Request, slot: int) -> None:
         if req.want_left == 0:
@@ -611,6 +1035,13 @@ class ContinuousDecoder:
                 req.ttft_s = now - req.submit_t
                 ttft_sum += req.ttft_s
                 ttft_n += 1
+                self._h_ttft.observe(req.ttft_s)
+                req.timeline.event("first_token")
+            else:
+                if req.last_emit_t is not None:
+                    self._h_itl.observe(now - req.last_emit_t)
+                req.timeline.event("dispatch", tokens=1)
+            req.last_emit_t = now
             req.stream.put(tok)
             emitted_n += 1
             hit_eos = self.eos_id is not None and tok == self.eos_id
@@ -622,6 +1053,9 @@ class ContinuousDecoder:
             self.tokens_emitted += emitted_n
             self.ttft_sum += ttft_sum
             self.ttft_count += ttft_n
+            if emitted_n:
+                self._tenant_served[DEFAULT_TENANT] = (
+                    self._tenant_served.get(DEFAULT_TENANT, 0.0) + emitted_n)
 
     def _loop(self) -> None:
         """Scheduler-thread entry: on ANY exit, fail every stream still
@@ -639,11 +1073,15 @@ class ContinuousDecoder:
             self._stopped = True
             queued = list(self._pending)
             self._pending.clear()
+        self._chunk_jobs.clear()
         for slot in range(self.slots):
             req = self._slot_req[slot]
             if req is not None:
                 self._slot_req[slot] = None
-                self._active_count -= 1
+                # A mid-chain chunked admission holds a slot without
+                # counting as active (its row is parked).
+                if req.chunk_pos < 0:
+                    self._active_count -= 1
                 self._finish(req, error=err)
             self._free_slot_blocks(slot)
         for req in queued:
@@ -651,13 +1089,15 @@ class ContinuousDecoder:
 
     def _pop_admissions(self) -> tuple[list[tuple[_Request, int]], bool]:
         """Pop this round's admissions (caller holds the cv). Paged
-        admission is memory-aware: a request enters
-        only when its WORST-CASE block count fits the pool, so a stream
-        can never run out of blocks mid-decode; its blocks are reserved
-        here. A memory-blocked head may be bypassed by up to
-        ``hol_bypass_limit`` later candidates that fit, until it has aged
-        ``hol_shield_rounds`` blocked rounds. Returns (admissions,
-        deferred)."""
+        admission is memory-aware: a request enters only when its
+        WORST-CASE block count fits the pool, so a stream can never run
+        out of blocks mid-decode; its blocks are reserved here. The
+        prefix plan runs first: a hit pins its entry (so reclaim cannot
+        evict it) and shrinks the reservation to the unshared blocks,
+        whose shared part is taken by refcount. A memory-blocked head may
+        be bypassed by up to ``hol_bypass_limit`` later candidates that
+        fit, until it has aged ``hol_shield_rounds`` blocked rounds.
+        Returns (admissions, deferred)."""
         pending: list[tuple[_Request, int]] = []
         deferred = False
         free_slots = [s for s in range(self.slots)
@@ -665,7 +1105,9 @@ class ContinuousDecoder:
         if self._alloc is None:
             # Dense: every slot owns a full row, so a free slot is enough.
             while free_slots and self._pending:
-                pending.append((self._pending.popleft(), free_slots.pop(0)))
+                req, slot = self._pending.popleft(), free_slots.pop(0)
+                self._mark_admitted(req, slot)
+                pending.append((req, slot))
             return pending, deferred
         idx = 0
         bypassed = 0
@@ -684,30 +1126,47 @@ class ContinuousDecoder:
                     f"holds {self._alloc.num_blocks} blocks / "
                     f"{self.total_len} tokens"))
                 continue
-            with self._alloc_lock:
-                headroom = self._alloc.free_blocks - worst
+            plan = (self._plan_prefix(req)
+                    if self.prefix_cache is not None else None)
+            n_shared = (plan[1] // self.kv_block_size
+                        if plan is not None else 0)
+            need = worst - n_shared
+            with self._prefix_lock:
+                self._reclaim_blocks(need, req.timeline)
+                headroom = self._alloc.free_blocks - need
                 busy = self._active_count > 0 or pending
                 fits = headroom >= (self.kv_low_watermark if busy else 0)
                 if fits:
-                    own = self._alloc.alloc(worst)
+                    own = self._alloc.alloc(need)
+                    shared = (list(plan[0].blocks[:n_shared])
+                              if plan is not None else [])
+                    for b in shared:
+                        self._alloc.share(b)
                     self.kv_blocks_peak = max(self.kv_blocks_peak,
                                               self._alloc.blocks_in_use)
+                elif plan is not None:
+                    self.prefix_cache.release(plan[0])
             if fits:
+                req.admit_plan = plan
                 req.defer_rounds = 0
                 slot = free_slots.pop(0)
                 # The TABLE row stays sentinel until this request's own
                 # admission call uploads it: pointing it at the blocks now
                 # would let an earlier fused decode step in the same round
-                # write through it at the slot's stale length.
-                self._slot_blocks[slot] = own
+                # write through it at the slot's stale length, into
+                # refcount-shared prefix blocks among others.
+                self._slot_blocks[slot] = shared + own
                 del self._pending[idx]
                 if bypassed:
                     with self._mlock:
                         self.hol_bypasses += 1
+                self._mark_admitted(req, slot)
                 pending.append((req, slot))
                 continue
             deferred = True
             req.defer_rounds += 1
+            req.timeline.event("deferred", need=need,
+                               free=self._alloc.free_blocks)
             if req.defer_rounds >= self.hol_shield_rounds:
                 break
             bypassed += 1
@@ -721,7 +1180,8 @@ class ContinuousDecoder:
             idled = False
             with self._cv:
                 while (not self._stopped and not self._pending
-                       and self._active_count == 0):
+                       and self._active_count == 0
+                       and not self._chunk_jobs):
                     idled = True
                     self._cv.wait(timeout=0.5)
                 if self._stopped:
@@ -741,14 +1201,32 @@ class ContinuousDecoder:
                     # admission round normally ends here; under sustained
                     # arrivals at most one consecutive admission-only
                     # round runs before a chunk runs in the same round.
-                    # With the prefix cache on, each request probes the
-                    # trie first: hits take suffix-only admissions (one
-                    # call each), misses batch as before.
+                    if self.prefill_chunk_tokens:
+                        # A suffix wider than one chunk leaves the
+                        # one-call paths: it registers as a chunk job fed
+                        # one chunk a round below.
+                        short = []
+                        for req, slot in pending:
+                            plan = req.admit_plan
+                            plen = plan[1] if plan is not None else 0
+                            if (len(req.tokens) - plen
+                                    > self.prefill_chunk_tokens):
+                                self._begin_chunked(req, slot)
+                            else:
+                                short.append((req, slot))
+                        pending = short
+                    # With the prefix cache on, hits take suffix-only
+                    # admissions (one call each), misses batch as before.
+                    # Paged admissions were planned at pop time (the plan
+                    # sized the reservation); dense ones probe the trie
+                    # here.
                     misses = pending
                     if self.prefix_cache is not None:
                         hits, misses = [], []
                         for req, slot in pending:
-                            plan = self._plan_prefix(req)
+                            plan = (req.admit_plan
+                                    if self._alloc is not None
+                                    else self._plan_prefix(req))
                             if plan is None:
                                 with self._mlock:
                                     self.prefix_misses += 1
@@ -766,7 +1244,11 @@ class ContinuousDecoder:
                         self.ramp_rounds += 1
                         if self.chunk_size > 1:
                             self._ramp_streak += 1
+                        # A ramp round still owes the oldest chunked
+                        # admission its chunk.
+                        self._advance_chunked()
                         continue
+                self._advance_chunked()
                 if self._active_count == 0:
                     continue
                 self._decode_round()
@@ -781,6 +1263,8 @@ class ContinuousDecoder:
 
     def _decode_round(self) -> None:
         steps = self.chunk_size
+        self._h_occupancy.observe(self._active_count)
+        t_disp = time.perf_counter()
         with self._state_lock:
             if steps > 1:
                 self._state, toks, emitted = decode_chunk(
@@ -792,6 +1276,8 @@ class ContinuousDecoder:
                     self.eos_id, self.kv_fused)
                 toks, emitted = tok[None], emit[None]
             toks, emitted = toks.cpu().numpy(), emitted.cpu().numpy()
+        self._h_dispatch.labels("decode").observe(
+            time.perf_counter() - t_disp)
         with self._mlock:
             self.steps += steps
             self.dispatches += 1
@@ -802,6 +1288,10 @@ class ContinuousDecoder:
     # ------------------------------------------------------------------
 
     def metrics(self) -> dict:
+        """Every key of the JAX decoder's metrics() (those of features not
+        yet ported read as JAX's do with the feature off), plus
+        ``kv_layout``."""
+        cache = self.prefix_cache
         with self._cv:
             queued = len(self._pending)
         with self._mlock:
@@ -810,31 +1300,37 @@ class ContinuousDecoder:
                 "decode_dispatches": self.dispatches,
                 "prefill_dispatches": self.prefill_dispatches,
                 "prefill_tokens": self.prefill_tokens,
+                "prefill_chunks": self.prefill_chunks,
                 "prompt_rejected_too_long": self.prompt_rejected_too_long,
+                "max_prompt_len": self.max_prompt_len,
+                "prefill_chunk_tokens": self.prefill_chunk_tokens,
                 "requests_admitted": self.admitted,
                 "ramp_rounds": self.ramp_rounds,
                 "tokens_emitted": self.tokens_emitted,
                 "ttft_avg_s": (self.ttft_sum / self.ttft_count
                                if self.ttft_count else 0.0),
+                "trace_open": self.trace.open_count,
                 "in_flight": self._active_count,
                 "peak_in_flight": self.peak_in_flight,
                 "queued": queued,
-                "kv_defer_admissions": self.kv_defer_admissions,
-                "hol_bypasses": self.hol_bypasses,
                 "prefix_hits": self.prefix_hits,
                 "prefix_misses": self.prefix_misses,
                 "prefix_tokens_reused": self.prefix_tokens_reused,
                 "prefix_suffix_tokens": self.prefix_suffix_tokens,
                 "prefix_inserts": self.prefix_inserts,
+                "kv_cow_copies": self.kv_cow_copies,
+                "kv_shared_blocks": self.kv_shared_blocks,
+                "kv_defer_admissions": self.kv_defer_admissions,
+                "hol_bypasses": self.hol_bypasses,
+                "tenant_served": dict(self._tenant_served),
+                **_UNPORTED_METRICS,
             }
-        cache = self.prefix_cache
-        with self._prefix_lock:
-            snap["prefix_evictions"] = cache.evictions if cache else 0
-            snap["prefix_entries"] = len(cache) if cache else 0
         # The dense layout has no block pool: its block and byte gauges
         # read 0, as in JAX.
         alloc = self._alloc
-        with self._alloc_lock:
+        with self._prefix_lock:
+            snap["prefix_evictions"] = cache.evictions if cache else 0
+            snap["prefix_entries"] = len(cache) if cache else 0
             snap.update({
                 "kv_layout": self.kv_layout,
                 "kv_blocks_total": alloc.num_blocks if alloc else 0,
@@ -847,4 +1343,9 @@ class ContinuousDecoder:
                 "kv_bytes_in_use": alloc.bytes_in_use if alloc else 0,
                 "kv_bytes_total": alloc.bytes_total if alloc else 0,
             })
+        for key, hist in (("ttft", self._h_ttft),
+                          ("inter_token", self._h_itl),
+                          ("queue_wait", self._h_queue_wait)):
+            for q, tag in ((0.5, "p50"), (0.9, "p90"), (0.99, "p99")):
+                snap[f"{key}_{tag}_s"] = hist.quantile(q)
         return snap

@@ -15,6 +15,7 @@ peer weight pulls are not yet ported.
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -56,9 +57,10 @@ class EngineConfig:
     # one prefill + decode loop per batch.
     decode_mode: str = "continuous"
     decode_chunk: int = 1
-    # Dense prefix cache (continuous mode, dense layout): pool rows for
-    # shared prompt prefixes (0 disables), and the shortest prefix worth
-    # caching. The paged prefix path is not yet ported.
+    # Prefix cache (continuous mode): trie entries for shared prompt
+    # prefixes (0 disables; a pool row each on the dense layout,
+    # refcount-shared blocks on the paged one), and the shortest prefix
+    # worth caching.
     prefix_cache_slots: int = 0
     prefix_cache_min_len: int = 16
     prefill_len_buckets: int = 0
@@ -69,6 +71,11 @@ class EngineConfig:
     kv_dtype: str = "fp"
     kv_fused: bool = False
     stream_timeout_s: float = 60.0
+    # Chunked prefill (paged): suffixes longer than this many tokens are
+    # admitted as a chain of chunks (0 disables); max_prompt_len lifts the
+    # prompt ceiling past max_seq_len (0 = max_seq_len).
+    prefill_chunk_tokens: int = 0
+    max_prompt_len: int = 0
     # Compute dtype override ("bfloat16"/"float32"); empty keeps the
     # preset's dtype.
     dtype: str = ""
@@ -115,6 +122,13 @@ class InferenceEngine:
         self.device = resolve_device(cfg.device)
         overrides = {"dtype": _DTYPES[cfg.dtype]} if cfg.dtype else {}
         self.model: ModelSpec = get_model(cfg.model, **overrides)
+        # Where the boot weights came from and the birth phases' seconds,
+        # for the server's serving_weight_pulls_total and
+        # serving_cold_start_seconds. Checkpoints and peer pulls are not
+        # ported, so the source is always "init".
+        self.weight_pull_source = "init"
+        self.cold_start: dict[str, float] = {}
+        t0 = time.perf_counter()
         if params is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(0)
@@ -123,6 +137,7 @@ class InferenceEngine:
         else:
             self.params = params_from_numpy(params, self.model.config,
                                             self.device)
+        self.cold_start["weights"] = time.perf_counter() - t0
         self._lock = threading.Lock()
         # Lockstep generation seeds a fresh generator per batch.
         self._seed = 0

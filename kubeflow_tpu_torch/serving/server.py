@@ -1,4 +1,4 @@
-"""REST model server; counterpart of ``kubeflow_tpu/serving/server.py``.
+"""Model server; counterpart of ``kubeflow_tpu/serving/server.py``.
 
 The REST surface of the JAX server, with the same request and response
 bodies:
@@ -13,18 +13,40 @@ bodies:
   ``InferenceEngine.predict_batch`` call.
 - ``GET  /v1/models/<name>``          model metadata + availability
 - ``GET  /healthz`` ``GET /readyz``   liveness/readiness
+- ``GET  /monitoring/prometheus/metrics`` the server's request counters
+  and latency histogram, the decoder's registry (TTFT, inter-token gap,
+  queue wait, dispatch time, occupancy, chunk counters) and its counter
+  snapshot, under the JAX server's family names
+- ``GET  /debug/requests`` the decoder's request timelines (``?id=<rid>``
+  filters, ``?format=chrome`` exports a trace-event file)
 
-gRPC, metrics and the fleet endpoints are not yet ported.
+Every response carries ``X-Request-ID`` (the caller's, or a fresh one),
+and a generation's id keys its timeline. gRPC on ``grpc_port`` (:9000 by
+convention; ``serving/grpc_server.py``) shares the engine, the batcher
+and the decoder.
+
+The fleet endpoints (``:prefill``, ``:import``, ``:kv``, ``:weights``,
+``:pull``) and the QoS headers are not yet ported.
 """
 
 from __future__ import annotations
 
 import json
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
+from kubeflow_tpu_torch.observability.metrics import (
+    MetricRegistry,
+    render_prometheus,
+)
+from kubeflow_tpu_torch.observability.tracing import (
+    REQUEST_ID_HEADER,
+    gen_request_id,
+    render_debug,
+)
 from kubeflow_tpu_torch.serving.batcher import DynamicBatcher
 from kubeflow_tpu_torch.serving.continuous import (
     ContinuousDecoder,
@@ -33,17 +55,134 @@ from kubeflow_tpu_torch.serving.continuous import (
 from kubeflow_tpu_torch.serving.engine import EngineConfig, InferenceEngine
 
 
+class _Metrics:
+    """Server-level request metrics on their own registry: request and
+    error counters, a latency histogram, and the boot surface (weight
+    source, birth phase seconds) — the JAX server's families."""
+
+    def __init__(self) -> None:
+        self.registry = MetricRegistry()
+        self._requests = self.registry.counter(
+            "serving_requests_total", "HTTP requests handled")
+        self._errors = self.registry.counter(
+            "serving_errors_total", "HTTP requests that failed")
+        self._latency = self.registry.histogram(
+            "serving_latency_seconds", "End-to-end request latency")
+        self._weight_pulls = self.registry.counter(
+            "serving_weight_pulls_total",
+            "Boot weight installs by source (peer = pulled from a "
+            "serving donor over :pull; checkpoint = restored from the "
+            "store; init = fresh random init)", labels=("source",))
+        self._cold_start = self.registry.gauge(
+            "serving_cold_start_seconds",
+            "Birth phase durations: weights (install), compile "
+            "(dispatch-set warm), first_token (boot to serving-ready)",
+            labels=("phase",))
+
+    def observe(self, seconds: float, error: bool) -> None:
+        self._requests.inc()
+        if error:
+            self._errors.inc()
+        self._latency.observe(seconds)
+
+    def record_weight_pull(self, source: str) -> None:
+        self._weight_pulls.labels(source or "init").inc()
+
+    def record_cold_start(self, phases: dict) -> None:
+        for phase, seconds in phases.items():
+            self._cold_start.labels(phase).set(float(seconds))
+
+    def render(self) -> str:
+        return self.registry.render()
+
+
+def _decoder_exposition(d: dict) -> str:
+    """The decoder's counter snapshot under the JAX route's names
+    (counters by ``_total`` suffix, gauges otherwise)."""
+    return render_prometheus({
+        "serving_decode_steps_total": d["decode_steps"],
+        "serving_decode_dispatches_total": d["decode_dispatches"],
+        "serving_prefill_dispatches_total": d["prefill_dispatches"],
+        "serving_prefill_tokens_total": d["prefill_tokens"],
+        "serving_requests_admitted_total": d["requests_admitted"],
+        "serving_tokens_emitted_total": d["tokens_emitted"],
+        "serving_ttft_avg_seconds": d["ttft_avg_s"],
+        "serving_prefix_hits_total": d["prefix_hits"],
+        "serving_prefix_misses_total": d["prefix_misses"],
+        "serving_prefix_evictions_total": d["prefix_evictions"],
+        "serving_prefix_tokens_reused_total": d["prefix_tokens_reused"],
+        "serving_prefix_suffix_tokens_total": d["prefix_suffix_tokens"],
+        "serving_prefix_entries": d["prefix_entries"],
+        "serving_spec_drafted_tokens_total": d["spec_drafted_tokens"],
+        "serving_spec_accepted_tokens_total": d["spec_accepted_tokens"],
+        "serving_spec_verify_dispatches_total": d["spec_verify_dispatches"],
+        "serving_spec_draft_dispatches_total": d["spec_draft_dispatches"],
+        "serving_spec_acceptance_rate": d["spec_acceptance_rate"],
+        "serving_kv_blocks_total": d["kv_blocks_total"],
+        "serving_kv_blocks_in_use": d["kv_blocks_in_use"],
+        "serving_kv_bytes_per_token": d["kv_bytes_per_token"],
+        "serving_kv_bytes_in_use": d["kv_bytes_in_use"],
+        "serving_kv_bytes_total": d["kv_bytes_total"],
+        "serving_kv_dtype_int8": int(d["kv_dtype"] == "int8"),
+        "serving_kv_cow_copies_total": d["kv_cow_copies"],
+        "serving_kv_shared_blocks_total": d["kv_shared_blocks"],
+        "serving_kv_defer_admissions_total": d["kv_defer_admissions"],
+        "serving_kv_handoff_exports_total": d["kv_handoff_exports"],
+        "serving_kv_handoff_imports_total": d["kv_handoff_imports"],
+        "serving_kv_handoff_tokens_total": d["kv_handoff_tokens"],
+        "serving_kv_host_tier_bytes": d["kv_host_tier_bytes"],
+        "serving_kv_host_tier_bytes_total": d["kv_host_tier_bytes_total"],
+        "serving_kv_host_tier_pinned_bytes": d["kv_host_tier_pinned_bytes"],
+        "serving_kv_host_tier_entries": d["kv_host_tier_entries"],
+        "serving_kv_host_demotions_total": d["kv_host_demotions"],
+        "serving_kv_host_promotions_total": d["kv_host_promotions"],
+        "serving_kv_host_evictions_total": d["kv_host_evictions"],
+        "serving_kv_host_tier_high_water_bytes":
+            d["kv_host_tier_high_water_bytes"],
+        "serving_kv_peer_hits_total": d["kv_peer_hits"],
+        "serving_kv_peer_misses_total": d["kv_peer_misses"],
+        "serving_kv_peer_import_bytes_total": d["kv_peer_import_bytes"],
+        "serving_kv_peer_fetch_failures_total": d["kv_peer_fetch_failures"],
+        "serving_kv_cold_hits_total": d["kv_cold_hits"],
+        "serving_kv_cold_demotions_total": d["kv_cold_demotions"],
+        "serving_kv_cold_import_bytes_total": d["kv_cold_import_bytes"],
+        "serving_kv_import_stale_refused_total":
+            d["kv_import_stale_refused"],
+        "serving_kv_import_skipped_crossover_total":
+            d["kv_import_skipped_crossover"],
+        "serving_kv_directory_publishes_total": d["kv_directory_publishes"],
+        "serving_suspends_total": d["kv_suspends"],
+        "serving_resumes_total": d["kv_resumes"],
+        "serving_deadline_shed_total": d["qos_deadline_shed"],
+        "serving_hol_bypasses_total": d["hol_bypasses"],
+        "serving_qos_enabled": int(d["qos_enabled"]),
+        "serving_weights_stale_refused_total": d["weights_stale_refused"],
+        "serving_compile_cache_hits_total": d["compile_cache_hits"],
+        "serving_compile_cache_misses_total": d["compile_cache_misses"],
+        "serving_warming": int(d["warming"]),
+        "serving_in_flight": d["in_flight"],
+        "serving_queued": d["queued"],
+    })
+
+
 class ModelServer:
     """REST on ``port`` (:8500 by convention; 0 binds an ephemeral port)
-    over one engine, its dynamic batcher (``batch_timeout_ms``) and, in
-    ``decode_mode "continuous"``, one continuous decoder. ``params`` (a
-    numpy tree in the JAX layout) replaces the seeded random init."""
+    and gRPC on ``grpc_port`` (:9000 by convention; None disables it, 0
+    binds an ephemeral port) over one engine, its dynamic batcher
+    (``batch_timeout_ms``) and, in ``decode_mode "continuous"``, one
+    continuous decoder. ``params`` (a numpy tree in the JAX layout)
+    replaces the seeded random init."""
 
     def __init__(self, engine_cfg: EngineConfig, *, port: int = 8500,
-                 params=None, batch_timeout_ms: float = 5.0):
+                 grpc_port: int | None = None, params=None,
+                 batch_timeout_ms: float = 5.0):
+        self._t_boot = time.perf_counter()
         self.engine = InferenceEngine(engine_cfg, params=params)
+        self.metrics = _Metrics()
         self.port = port
+        self.grpc_port = grpc_port
         self._httpd: ThreadingHTTPServer | None = None
+        self._grpc = None
         # The decoder is built at once (the JAX server builds it at the
         # first request): the port serves only language models, and an
         # option that is not yet ported fails here rather than at the
@@ -67,13 +206,16 @@ class ModelServer:
             kv_dtype=cfg.kv_dtype,
             kv_fused=cfg.kv_fused,
             stream_timeout_s=cfg.stream_timeout_s,
+            prefill_chunk_tokens=cfg.prefill_chunk_tokens,
+            max_prompt_len=cfg.max_prompt_len,
         )
         self.batcher = DynamicBatcher(self.engine.predict_batch,
                                       cfg.batch_size, batch_timeout_ms)
 
     # ------------------------------------------------------------------
 
-    def handle_predict(self, name: str, body: dict) -> dict:
+    def handle_predict(self, name: str, body: dict,
+                       request_id: str | None = None) -> dict:
         if name != self.engine.cfg.model:
             raise KeyError(f"model {name!r} not served")
         instances = body.get("instances")
@@ -86,11 +228,15 @@ class ModelServer:
         # lockstep generation, coalesce in the dynamic batcher. Every
         # instance is queued before any is collected.
         handles = []
-        for inst in instances:
+        for i, inst in enumerate(instances):
             if inst.get("max_new_tokens") and self.decoder is not None:
+                # One request id; later instances of a body suffix their
+                # index so each stream's timeline stays unique.
+                rid = (request_id if request_id and i == 0
+                       else f"{request_id}-{i}" if request_id else None)
                 handles.append(("gen", inst, self.decoder.submit(
                     inst["tokens"], inst["max_new_tokens"],
-                    float(inst.get("temperature", 0.0)))))
+                    float(inst.get("temperature", 0.0)), request_id=rid)))
             else:
                 handles.append(("batch", inst,
                                 self.batcher.submit_async(inst)))
@@ -117,7 +263,8 @@ class ModelServer:
             pred["logits"] = res["prefill_logits"].tolist()
         return pred
 
-    def handle_predict_stream(self, name: str, body: dict):
+    def handle_predict_stream(self, name: str, body: dict,
+                              request_id: str | None = None):
         """Streaming generation: yields JSON-line dicts, one per token, then
         a terminal ``{"done": true, ...}`` record. Exactly one instance."""
         if name != self.engine.cfg.model:
@@ -133,7 +280,7 @@ class ModelServer:
             raise ValueError("streaming needs decode_mode 'continuous'")
         handle = self.decoder.submit(
             inst["tokens"], inst["max_new_tokens"],
-            float(inst.get("temperature", 0.0)))
+            float(inst.get("temperature", 0.0)), request_id=request_id)
 
         # Validation above runs before the HTTP 200 goes out; only the
         # token iteration is deferred.
@@ -159,6 +306,16 @@ class ModelServer:
         meta["state"] = "AVAILABLE" if self.engine.ready else "LOADING"
         return meta
 
+    def render_metrics(self) -> str:
+        """The ``/monitoring/prometheus/metrics`` exposition: the server's
+        families, then the decoder's registry and counter snapshot."""
+        text = self.metrics.render()
+        if self.decoder is not None:
+            d = self.decoder.metrics()
+            text += self.decoder.registry.render()
+            text += _decoder_exposition(d)
+        return text
+
     # ------------------------------------------------------------------
 
     def _make_handler(server: "ModelServer"):
@@ -169,10 +326,13 @@ class ModelServer:
             def log_message(self, *args):  # quiet
                 pass
 
-            def _send(self, code: int, payload: dict) -> None:
-                body = json.dumps(payload).encode()
+            def _send(self, code: int, payload: dict | str,
+                      content_type: str = "application/json") -> None:
+                body = (payload if isinstance(payload, str)
+                        else json.dumps(payload)).encode()
                 self.send_response(code)
-                self.send_header("Content-Type", "application/json")
+                self.send_header(REQUEST_ID_HEADER, self._request_id)
+                self.send_header("Content-Type", content_type)
                 self.send_header("Content-Length", str(len(body)))
                 self.end_headers()
                 self.wfile.write(body)
@@ -188,6 +348,7 @@ class ModelServer:
                 the connection: a decoder failure mid-stream becomes an
                 error record and a clean terminal chunk."""
                 self.send_response(200)
+                self.send_header(REQUEST_ID_HEADER, self._request_id)
                 self.send_header("Content-Type", "application/jsonlines")
                 self.send_header("Transfer-Encoding", "chunked")
                 self.end_headers()
@@ -200,12 +361,30 @@ class ModelServer:
                     self.wfile.write(b"0\r\n\r\n")
                     self.wfile.flush()
 
+            def _take_request_id(self) -> None:
+                # Honor the caller's id, mint one otherwise; echoed on the
+                # response and keyed into the decoder's timeline.
+                self._request_id = (self.headers.get(REQUEST_ID_HEADER)
+                                    or gen_request_id())
+
             def do_GET(self):
+                self._take_request_id()
+                route, _, query = self.path.partition("?")
                 if self.path in ("/healthz", "/livez"):
                     self._send(200, {"status": "ok"})
                 elif self.path == "/readyz":
                     ready = server.engine.ready
                     self._send(200 if ready else 503, {"ready": ready})
+                elif self.path == "/monitoring/prometheus/metrics":
+                    self._send(200, server.render_metrics(),
+                               content_type="text/plain")
+                elif route == "/debug/requests":
+                    if server.decoder is None:
+                        self._send(200, {"open": [], "finished": []})
+                    else:
+                        body, ctype = render_debug(server.decoder.trace,
+                                                   query)
+                        self._send(200, body.decode(), content_type=ctype)
                 elif self.path.startswith("/v1/models/"):
                     try:
                         self._send(200, server.handle_metadata(
@@ -216,55 +395,94 @@ class ModelServer:
                     self._send(404, {"error": f"no route {self.path}"})
 
             def do_POST(self):
+                t0 = time.perf_counter()
+                error = False
+                self._take_request_id()
                 try:
                     length = int(self.headers.get("Content-Length", 0))
                     body = json.loads(self.rfile.read(length) or b"{}")
                     if not (self.path.startswith("/v1/models/")
                             and self.path.endswith(":predict")):
+                        error = True
                         self._send(404, {"error": f"no route {self.path}"})
                         return
                     name = self.path[len("/v1/models/"):-len(":predict")]
                     if body.get("stream"):
-                        self._send_stream(
-                            server.handle_predict_stream(name, body))
+                        self._send_stream(server.handle_predict_stream(
+                            name, body, request_id=self._request_id))
                     else:
-                        self._send(200, server.handle_predict(name, body))
+                        self._send(200, server.handle_predict(
+                            name, body, request_id=self._request_id))
                 except KeyError as e:
+                    error = True
                     self._send(404, {"error": str(e)})
                 except TimeoutError as e:
+                    error = True
                     self._send(503, {"error": str(e)
                                      or "generation timed out"})
                 except PromptTooLong as e:
                     # Before ValueError: PromptTooLong subclasses it.
+                    error = True
                     self._send(413, {"error": str(e)})
                 except ValueError as e:
+                    error = True
                     self._send(400, {"error": str(e)})
                 except Exception as e:
+                    error = True
                     self._send(500, {"error": str(e)})
+                finally:
+                    server.metrics.observe(time.perf_counter() - t0, error)
 
         return Handler
 
+    def _start_grpc(self) -> None:
+        if self.grpc_port is None:
+            return
+        from kubeflow_tpu_torch.serving.grpc_server import (
+            GrpcPredictionService,
+        )
+
+        self._grpc = GrpcPredictionService(self, port=self.grpc_port)
+        self.grpc_port = self._grpc.bound_port  # resolve port 0
+        self._grpc.start()
+
+    def warm(self) -> None:
+        """Warm the engine (the first call builds the kernels on the
+        card; ``/readyz`` answers 503 until then) and publish the birth
+        phases and the weights' source."""
+        t0 = time.perf_counter()
+        self.engine.warmup()
+        self.engine.cold_start["compile"] = time.perf_counter() - t0
+        self.engine.cold_start["first_token"] = (time.perf_counter()
+                                                 - self._t_boot)
+        self.metrics.record_cold_start(self.engine.cold_start)
+        self.metrics.record_weight_pull(self.engine.weight_pull_source)
+
     def start(self) -> None:
-        """Bind and serve on a background thread (tests, smoke runs), then
-        warm the engine: ``/readyz`` answers 503 until it is warm."""
+        """Bind gRPC and REST, serve on background threads (tests, smoke
+        runs), then warm."""
+        self._start_grpc()
         self._httpd = ThreadingHTTPServer(("0.0.0.0", self.port),
                                           self._make_handler())
         self.port = self._httpd.server_address[1]
         threading.Thread(target=self._httpd.serve_forever,
                          daemon=True).start()
-        self.engine.warmup()
+        self.warm()
 
     def serve_forever(self) -> None:
+        self._start_grpc()
         self._httpd = ThreadingHTTPServer(("0.0.0.0", self.port),
                                           self._make_handler())
         # Warm on a side thread: the accept loop answers probes meanwhile.
-        threading.Thread(target=self.engine.warmup, daemon=True).start()
+        threading.Thread(target=self.warm, daemon=True).start()
         self._httpd.serve_forever()
 
     def stop(self) -> None:
         if self._httpd:
             self._httpd.shutdown()
             self._httpd.server_close()
+        if self._grpc is not None:
+            self._grpc.stop()
         self.batcher.stop()
         if self.decoder is not None:
             self.decoder.stop()

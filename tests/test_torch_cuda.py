@@ -22,6 +22,9 @@ SDPA's) of the reference's norm.
 import pytest
 
 torch = pytest.importorskip("torch")
+# Six test workers share the host's cores: cap torch's intra-op
+# threads so the timing tests of other files keep their cadence.
+torch.set_num_threads(2)
 
 from chip_smoke import sdpa_run  # noqa: E402
 from kubeflow_tpu_torch import kernels  # noqa: E402
@@ -406,3 +409,76 @@ def test_dense_decode_on_the_card_matches_the_cpu(cuda):
     assert torch.equal(cpu_toks, card_toks)
     for c, g in zip(cpu_f, card_f):
         torch.testing.assert_close(g, c, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "f32", "int8"])
+def test_paged_span_attention_on_the_card_matches_plain(cuda, kv):
+    """The grouped span walk (SPAN_GROUP_POSITIONS a step) on the card
+    against the one-block walk ``_paged_span_plain`` on the same inputs,
+    at llama-1b's chunk shape cut to 40 blocks: a [1, 128] span at 500
+    and a second row with sentinels and a parked tail. Both are plain
+    PyTorch in f32 over the same values (the int8 payloads dequantized
+    alike), so they differ only in the order of their sums: 1e-5."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    b, s_w, hkv, group, hd, bs, mb = 2, 128, 8, 2, 128, 16, 40
+    n = b * mb
+    dt = torch.float32 if kv == "f32" else torch.bfloat16
+    q = torch.randn(b, s_w, hkv * group, hd, generator=g, device=cuda).to(dt)
+
+    def pool():
+        p = torch.randn(n, bs, hkv, hd, generator=g, device=cuda)
+        return _quantize_kv(p) if kv == "int8" else p.to(dt)
+
+    kp, vp = pool(), pool()
+    table = torch.randperm(n, generator=g, device=cuda).to(
+        torch.int32).reshape(b, mb)
+    table[1, 20:] = n
+    table[1, 3] = n
+    pos = torch.tensor([500, 300], dtype=torch.int32, device=cuda)
+    out = tattn.paged_span_attention(q, kp, vp, table, pos, n_kv_heads=hkv)
+    ref = tattn._paged_span_plain(q.reshape(b, s_w, hkv, group, hd), kp, vp,
+                                  table, pos, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref.reshape(out.shape), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_block_forward_fused_on_the_card_matches_gathered(cuda):
+    """``_block_forward`` (the suffix prefill and chunk forward) in f32
+    on the card: the fused span walk against the gathered read, with a
+    span that spills past the row; logits within 1e-4, pools equal to
+    1e-5, and the card's logits within 1e-4 of the CPU's."""
+    from kubeflow_tpu_torch.models import decode as tdecode
+    from kubeflow_tpu_torch.models import transformer
+
+    cfg = transformer.config("lm-test-tiny", dtype=torch.float32)
+    params = transformer.init(cfg, generator=torch.Generator().manual_seed(0),
+                              device="cpu")
+    table = torch.tensor([[3, 0, 7, 5], [1, 9, 12, 12], [2, 4, 6, 8]],
+                         dtype=torch.int32)
+    toks = torch.tensor([[5, 9, 2, 7, 1, 3], [3, 3, 8, 1, 2, 2],
+                         [8, 1, 4, 4, 2, 6]], dtype=torch.int32)
+    pos = torch.tensor([29, 14, 0], dtype=torch.int32)
+    shape = (cfg.n_layers, 12, 8, cfg.n_kv_heads, cfg.head_dim)
+    gen = torch.Generator().manual_seed(1)
+    pools = {side: torch.randn(shape, generator=gen) for side in "kv"}
+    runs = {}
+    for name, dev, fused in (("cpu", torch.device("cpu"), False),
+                             ("gathered", cuda, False),
+                             ("fused", cuda, True)):
+        state = tdecode.init_paged_state(cfg, 3, 12, 8, 4, device=dev)
+        for side in ("k", "v"):
+            state["pool"][side].copy_(pools[side])
+        logits = tdecode._block_forward(
+            _on(params, dev), cfg, state["pool"]["k"], state["pool"]["v"],
+            toks.to(dev), pos.to(dev), table.to(dev), fused)
+        runs[name] = (logits.cpu(), state["pool"]["k"].cpu())
+    torch.testing.assert_close(runs["fused"][0], runs["gathered"][0],
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(runs["fused"][1], runs["gathered"][1],
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(runs["gathered"][0], runs["cpu"][0],
+                               rtol=1e-4, atol=1e-4)

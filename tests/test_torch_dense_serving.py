@@ -19,6 +19,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# Six test workers share the host's cores: cap torch's intra-op
+# threads so the timing tests of other files keep their cadence.
+torch.set_num_threads(2)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

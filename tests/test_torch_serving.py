@@ -18,6 +18,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# Six test workers share the host's cores: cap torch's intra-op
+# threads so the timing tests of other files keep their cadence.
+torch.set_num_threads(2)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -107,20 +110,42 @@ def test_decoder_rejects_too_long_and_bad_tokens(weights):
         decoder.stop()
 
 
-@pytest.mark.parametrize("option", [
-    dict(kv_layout="dense", prefill_chunk_tokens=8),
-    dict(prefix_cache_slots=2),
-    dict(speculative_k=2), dict(qos=object()), dict(host_kv_bytes=1 << 20),
-    dict(prefill_chunk_tokens=8), dict(tp_shards=2), dict(cp_shards=2),
-    dict(pp_stages=2), dict(role="prefill"), dict(kv_directory=object()),
-    dict(cold_store=object()),
-], ids=lambda o: next(iter(o)))
-def test_decoder_unported_options_raise(weights, option):
+_OPTIONS = [
+    (dict(kv_layout="dense", prefill_chunk_tokens=8),
+     "requires kv_layout='paged'"),
+    (dict(prefix_cache_slots=2), None),
+    (dict(speculative_k=2), "not yet ported"),
+    (dict(qos=object()), "not yet ported"),
+    (dict(host_kv_bytes=1 << 20), "not yet ported"),
+    (dict(prefill_chunk_tokens=8), None),
+    (dict(tp_shards=2), "not yet ported"),
+    (dict(cp_shards=2), "not yet ported"),
+    (dict(pp_stages=2), "not yet ported"),
+    (dict(role="prefill"), "not yet ported"),
+    (dict(kv_directory=object()), "not yet ported"),
+    (dict(cold_store=object()), "not yet ported"),
+]
+
+
+@pytest.mark.parametrize("option,match", _OPTIONS,
+                         ids=[next(iter(o)) for o, _ in _OPTIONS])
+def test_decoder_unported_options_raise(weights, option, match):
+    """Options of features not yet ported raise; the dense layout refuses
+    chunking as JAX does. The paged prefix cache and chunked prefill are
+    ported: those options build a decoder that serves."""
     _, _, tree = weights
     tcfg = ttransformer.config("lm-test-tiny", dtype=torch.float32)
     kw = {**DECODER_KW, **option}
-    with pytest.raises(ValueError, match="not yet ported"):
-        ContinuousDecoder(params_from_numpy(tree, tcfg, "cpu"), tcfg, **kw)
+    params = params_from_numpy(tree, tcfg, "cpu")
+    if match is not None:
+        with pytest.raises(ValueError, match=match):
+            ContinuousDecoder(params, tcfg, **kw)
+        return
+    decoder = ContinuousDecoder(params, tcfg, **kw)
+    try:
+        assert len(decoder.generate(PROMPTS[3], 4, timeout=60)["tokens"]) == 4
+    finally:
+        decoder.stop()
 
 
 def _engine_cfg(**kw):
@@ -135,6 +160,16 @@ def _engine_cfg(**kw):
     dict(prefix_cache_slots=2)],
     ids=lambda o: next(iter(o)))
 def test_server_unported_options_raise(option):
+    """Checkpoints and peer weights raise; the paged prefix cache is
+    ported, and a paged server with it builds its trie."""
+    if "prefix_cache_slots" in option:
+        server = ModelServer(_engine_cfg(**option), port=0)
+        try:
+            assert server.decoder.prefix_cache is not None
+            assert server.decoder.metrics()["kv_layout"] == "paged"
+        finally:
+            server.stop()
+        return
     with pytest.raises(ValueError, match="not yet ported"):
         ModelServer(_engine_cfg(**option), port=0)
 
@@ -210,8 +245,8 @@ def test_http_predict_stream_and_probes_match_jax(weights, jax_streams):
         server.stop()
 
 
-@pytest.mark.parametrize("flag", ["--grpc-port=9000", "--speculative-k",
-                                  "--prefill-chunk-tokens"])
+@pytest.mark.parametrize("flag", ["--qos-tenants", "--speculative-k",
+                                  "--host-kv-bytes"])
 def test_cli_rejects_unported_flags(flag):
     from kubeflow_tpu_torch.serving.__main__ import main
 
@@ -224,7 +259,8 @@ def test_cli_rejects_unported_flags(flag):
 def test_cli_rejects_dense_layout_and_bad_block_size():
     from kubeflow_tpu_torch.serving.__main__ import main
 
-    for extra in (["--kv-layout", "paged", "--prefix-cache-slots", "2"],
+    for extra in (["--prefill-chunk-tokens", "8"],
+                  ["--max-prompt-len", "256"],
                   ["--kv-layout", "paged", "--kv-block-size", "7"]):
         with pytest.raises(SystemExit) as e:
             main(["--model-name", "lm-test-tiny", *extra])
