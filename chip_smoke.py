@@ -9,9 +9,9 @@ per CUDA source, all at once, beside Triton's first compile), holds each
 against its plain PyTorch version at the shapes its main paths give it,
 serves ``llama-1b`` at full width through the port's REST ``ModelServer``
 and its CLI (the paged KV cache read by the paged decode kernel, with
-the paged prefix path and chunked prefill; the default dense server,
-whose plain predicts run the flash forward kernel, and its metrics,
-request ids and gRPC), trains
+the paged prefix path, chunked prefill and speculative decoding; the
+default dense server, whose plain predicts run the flash forward kernel,
+and its metrics, request ids and gRPC), trains
 ``flagship-1b`` at full width through the port's training loop with
 attention in the flash kernels, and checks the output. Phases, each
 printed as one JSON line:
@@ -101,7 +101,9 @@ printed as one JSON line:
     ``--grpc-port -1``. Beside it the CLI with ``--kv-layout paged
     --kv-fused-attention --prefix-cache-slots 4 --prefill-chunk-tokens
     128 --max-prompt-len 1792 --grpc-port -1`` answers a 1500-token
-    prompt and a prefix hit, and ``--speculative-k`` exits 2;
+    prompt and a prefix hit, ``--speculative-k 4 --kv-layout paged
+    --grpc-port -1`` answers a request, and ``--speculative-k 2
+    --decode-mode lockstep`` and the unported ``--qos-tenants`` exit 2;
 (n) the paged prefix path, llama-1b, bf16, ``kv_fused``, 8 slots,
     ``max_seq_len`` 256, ``max_new_tokens`` 32, Bs 16,
     ``prefix_cache_slots`` 4: a primed 160-token system prompt (10
@@ -126,6 +128,24 @@ printed as one JSON line:
     paged kernel at 8 rows of 114 columns) = monolithic (a decoder with
     ``max_seq_len`` 1792, no chunking, the gathered plain read), and the
     fused monolithic decoder = the gathered one;
+(q) speculation, llama-1b, bf16, 8 slots, ``max_seq_len`` 256,
+    ``max_new_tokens`` 64, paged, Bs 16, ``kv_fused``: (d)'s six requests
+    and four prompts of a short pattern repeated to 64-128 tokens, all at
+    once over HTTP, on a server with ``speculative_k`` 0 and one with 4
+    (n-gram drafts), alternating (off, on, on, off, off, on) after a
+    warm-up each; decode tokens/s as median and spread of each side, the
+    ``serving_spec_*`` counters from the exposition and ``spec_draft_k``,
+    the tokens a verify round emits, the ``serving_dispatch_seconds``
+    means by kind, and the paged kernel's launches = n_layers x the
+    forwards that read through it (every decode forward and each
+    verify's commit pass; the scoring pass walks the span) in every run.
+    Then one run on the dense default server with the draft model
+    ``model:llama-1b`` (acceptance, draft dispatches), beside one without
+    speculation, each after a warm-up. Then the gates,
+    float32, greedy, the ten requests one at a time: speculation on
+    equals off token for token on paged fused, paged gathered, dense,
+    dense with ``model:llama-1b`` and paged fused with ``chunk_size`` 2
+    (``verify_chunk``);
 (f) the kernel table: each kernel's launches on the main paths, its
     error, its time, its plain version's time and its bound; the paged
     and RMSNorm rows give device time as ``ms`` and the call's as
@@ -134,8 +154,8 @@ printed as one JSON line:
     shape (hundreds of microseconds, where host time is noise) and the
     f32 CUDA-core route's (``f32_ms``); the flash forward row adds the predict path's
     launches and its device and call times at the predict shape; the
-    paged row counts its launches on (d), (n) and (o)
-    (``launches_by_path``).
+    paged row counts its launches on (d), (n), (o) and (q)'s runs with
+    speculation on (``launches_by_path``).
 
 TF32 is off throughout, so float32 products are full float32. Any
 failure exits non-zero; the last line, printed only on success, is
@@ -213,7 +233,8 @@ def time_ms(fn, flush: torch.Tensor, iters: int) -> float:
 FLUSH_KERNEL = "FillFunctor<unsigned char>"
 
 
-def profiled_launches(fn, flush: torch.Tensor, iters: int) -> list:
+def profiled_launches(fn, flush: torch.Tensor, iters: int,
+                      trace: str | None = None) -> list:
     """The CUDA kernel records ``torch.profiler`` takes over ``iters``
     calls of ``fn``, each after a write of ``flush``. The profiler drops
     records at the start of a session (on the H100 it has lost the first
@@ -221,7 +242,8 @@ def profiled_launches(fn, flush: torch.Tensor, iters: int) -> list:
     twice under one profiler: a warm-up step whose records are discarded,
     then the recorded step. A record counts only when it holds every
     flush write and a whole number of launches of ``fn`` a call; up to
-    five sessions are tried, then it raises."""
+    five sessions are tried, then it raises. ``trace`` names a file for
+    the kept session's Chrome trace."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(3):
@@ -243,6 +265,8 @@ def profiled_launches(fn, flush: torch.Tensor, iters: int) -> list:
         flushes = sum(FLUSH_KERNEL in e.name for e in events)
         own = [e for e in events if FLUSH_KERNEL not in e.name]
         if flushes == iters and own and len(own) % iters == 0:
+            if trace:
+                prof.export_chrome_trace(trace)
             return own
         seen.append((flushes, len(own)))
     raise AssertionError(f"the profiler kept an incomplete record in each "
@@ -1242,7 +1266,9 @@ def phase_surfaces(default: dict) -> dict:
     REST body; without it, the CLI with default flags exits 2 naming
     ``--grpc-port -1``. Beside it, the CLI with the paged prefix path and
     chunked prefill (``--grpc-port -1``) answers a long prompt and a
-    prefix hit, and a flag still unported exits 2."""
+    prefix hit, the CLI with ``--speculative-k 4`` on the paged layout
+    answers a request, ``--speculative-k 2 --decode-mode lockstep`` exits
+    2, and a flag still unported (``--qos-tenants``) exits 2."""
     import importlib.util
 
     from kubeflow_tpu_torch.models.registry import get_model
@@ -1250,7 +1276,8 @@ def phase_surfaces(default: dict) -> dict:
     vocab = get_model(MODEL).config.vocab_size
     grpc_available = importlib.util.find_spec("grpc") is not None
     out = {"metrics": default["surfaces"], "grpc_available": grpc_available}
-    rest_default, rest_paged = free_port(), free_port()
+    rest_default, rest_paged, rest_spec = free_port(), free_port(), \
+        free_port()
     paged_flags = ("--kv-layout", "paged", "--kv-fused-attention",
                    "--prefix-cache-slots", "4", "--prefill-chunk-tokens",
                    str(CHUNK_TOKENS), "--max-prompt-len", str(MAX_PROMPT),
@@ -1259,15 +1286,21 @@ def phase_surfaces(default: dict) -> dict:
     try:
         procs.append(start_cli("--rest-port", str(rest_default)))
         procs.append(start_cli(*paged_flags))
-        unported = subprocess.run(
-            [sys.executable, "-m", "kubeflow_tpu_torch.serving",
-             "--model-name", MODEL, "--speculative-k", "2"],
-            capture_output=True, text=True, timeout=120)
-        if unported.returncode != 2 or \
-                "not yet ported" not in unported.stderr:
-            raise AssertionError(f"--speculative-k: exit "
-                                 f"{unported.returncode}: {unported.stderr}")
-        out["unported_flag_exit"] = unported.returncode
+        procs.append(start_cli("--speculative-k", "4", "--kv-layout",
+                               "paged", "--grpc-port", "-1", "--rest-port",
+                               str(rest_spec)))
+        for flags, says in ((("--qos-tenants", "2"), "not yet ported"),
+                            (("--speculative-k", "2", "--decode-mode",
+                              "lockstep"), "requires --decode-mode")):
+            refused = subprocess.run(
+                [sys.executable, "-m", "kubeflow_tpu_torch.serving",
+                 "--model-name", MODEL, *flags],
+                capture_output=True, text=True, timeout=120)
+            if refused.returncode != 2 or says not in refused.stderr:
+                raise AssertionError(f"{' '.join(flags)}: exit "
+                                     f"{refused.returncode}: "
+                                     f"{refused.stderr}")
+            out[f"exit_{flags[0].strip('-')}"] = refused.returncode
         default_proc = procs[0][0]
         if grpc_available:
             import grpc
@@ -1330,6 +1363,17 @@ def phase_surfaces(default: dict) -> dict:
         if (got != [16, 16, 16] or samples["serving_prefix_hits_total"] < 1
                 or samples["serving_prefill_chunks_total"] < 1):
             raise AssertionError(f"the paged CLI: {out['paged_cli']}")
+        out["spec_cli_ready_s"] = wait_ready(procs[2][0], rest_spec)
+        pat = rng.randint(0, vocab, size=5).tolist()
+        got = len(post(rest_spec, {"tokens": pat * 12,
+                                   "max_new_tokens": 16})[0])
+        samples = parse_exposition(get(rest_spec,
+                                       "/monitoring/prometheus/metrics"))
+        out["spec_cli"] = {
+            "tokens": got, "verify_dispatches":
+                samples["serving_spec_verify_dispatches_total"]}
+        if got != 16:
+            raise AssertionError(f"the speculative CLI: {out['spec_cli']}")
     finally:
         stop_procs(procs)
     emit("m_default_server_surfaces", **out)
@@ -1689,6 +1733,276 @@ def phase_f32_prefix_chunk_parity(dev=torch.device("cuda")) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# (q) speculation
+# ---------------------------------------------------------------------------
+
+# (q): speculative_k 4 over (d)'s six requests and four prompts of a short
+# pattern repeated to 64-128 tokens (the n-gram proposer drafts from the
+# first round); max_new_tokens 64, three runs a side, alternating.
+SPEC_K, SPEC_NEW, SPEC_RUNS = 4, 64, 3
+SPEC_PATTERNS = [(3, 64), (5, 96), (7, 112), (4, 128)]
+
+
+def spec_requests(vocab: int) -> list[dict]:
+    rng = np.random.RandomState(11)
+    pats = []
+    for n, length in SPEC_PATTERNS:
+        pat = rng.randint(0, vocab, size=n).tolist()
+        pats.append({"tokens": (pat * length)[:length],
+                     "max_new_tokens": SPEC_NEW})
+    return request_bodies(vocab) + pats
+
+
+def count_verify_tokens(dec) -> dict:
+    """Wrap ``dec._dispatch_block`` to count the tokens verify steps route
+    to live requests, and the rows they reach."""
+    counted = {"tokens": 0, "rows": 0}
+    route = dec._dispatch_block
+
+    def counting(toks, emitted):
+        live = [s for s in range(dec.slots) if dec._slot_req[s] is not None]
+        counted["tokens"] += int(emitted[live].sum())
+        counted["rows"] += int(emitted[live, 0].sum())
+        route(toks, emitted)
+
+    dec._dispatch_block = counting
+    return counted
+
+
+def spec_run(server, reqs: list[dict], counted: dict) -> dict:
+    """All of ``reqs`` at once over HTTP: tokens/s, the decoder's counter
+    deltas, the paged kernel's launches against the forwards that read
+    through it (a verify's scoring pass walks the span; its commit pass
+    and every decode forward read through the kernel)."""
+    from kubeflow_tpu_torch import kernels
+
+    dec = server.decoder
+    m0, tok0, rows0 = dec.metrics(), counted["tokens"], counted["rows"]
+    results: list = [None] * len(reqs)
+
+    def go(i):
+        results[i] = post(server.port, reqs[i])
+
+    threads = [threading.Thread(target=go, args=(i,))
+               for i in range(len(reqs))]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    launches = kernels.LAUNCHES["paged_decode_attention"]
+    m1 = dec.metrics()
+    for body, res in zip(reqs, results):
+        if res is None or len(res[0]) != body["max_new_tokens"]:
+            raise AssertionError(f"speculation request: {res}")
+    delta = {k: m1[k] - m0[k] for k in (
+        "decode_steps", "spec_verify_dispatches", "spec_drafted_tokens",
+        "spec_accepted_tokens", "tokens_emitted")}
+    forwards = (delta["decode_steps"]
+                - dec.chunk_size * delta["spec_verify_dispatches"])
+    tokens = sum(len(r[0]) for r in results)
+    return {"tokens": tokens, "wall_s": wall,
+            "decode_tokens_per_s": tokens / wall, "launches": launches,
+            "kernel_forwards": forwards,
+            "verify_tokens": counted["tokens"] - tok0,
+            "verify_rows": counted["rows"] - rows0, **delta}
+
+
+def dispatch_means(port: int) -> dict:
+    samples = parse_exposition(get(port, "/monitoring/prometheus/metrics"))
+    out = {}
+    for kind in ("decode", "verify", "admit"):
+        n = samples.get(f'serving_dispatch_seconds_count{{kind="{kind}"}}', 0)
+        s_ = samples.get(f'serving_dispatch_seconds_sum{{kind="{kind}"}}', 0)
+        out[kind] = {"count": n, "mean_ms": 1e3 * s_ / n if n else None}
+    spec = {k: samples[f"serving_{k}_total"] for k in (
+        "spec_drafted_tokens", "spec_accepted_tokens",
+        "spec_verify_dispatches", "spec_draft_dispatches")}
+    spec["spec_acceptance_rate"] = samples["serving_spec_acceptance_rate"]
+    return {"dispatch": out, "exposition": spec}
+
+
+def spec_f32_gates(dev=torch.device("cuda")) -> dict:
+    """f32, greedy, (q)'s requests one at a time through decoders sharing
+    one set of weights: speculation on (K 4) equals off, token for token,
+    on paged fused, paged gathered, dense, dense with model:llama-1b and
+    paged fused with chunk_size 2 (verify_chunk)."""
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.serving.continuous import ContinuousDecoder
+
+    model = get_model(MODEL, dtype=torch.float32)
+    params = model.init(model.config,
+                        generator=torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    cfg = model.config
+    reqs = spec_requests(cfg.vocab_size)
+    base = dict(slots=SLOTS, prefill_len=MAX_SEQ, max_new_tokens=SPEC_NEW,
+                kv_block_size=BLOCK)
+
+    def streams(**kw):
+        dec = ContinuousDecoder(params, cfg, **{**base, **kw})
+        try:
+            toks = [dec.generate(r["tokens"], r["max_new_tokens"],
+                                 timeout=600)["tokens"] for r in reqs]
+            return toks, dec.metrics()
+        finally:
+            dec.stop()
+            del dec
+            torch.cuda.empty_cache()
+
+    paged = dict(kv_layout="paged")
+    off = {"paged_fused": streams(**paged, kv_fused=True),
+           "paged_gathered": streams(**paged),
+           "dense": streams()}
+    cases = {
+        "paged_fused": ("paged_fused", dict(**paged, kv_fused=True)),
+        "paged_gathered": ("paged_gathered", dict(**paged)),
+        "dense": ("dense", {}),
+        "dense_model_draft": ("dense", dict(draft_mode=f"model:{MODEL}")),
+        "paged_fused_chunk2": ("paged_fused", dict(**paged, kv_fused=True,
+                                                   chunk_size=2)),
+    }
+    out = {}
+    for name, (ref, kw) in cases.items():
+        toks, m = streams(speculative_k=SPEC_K, **kw)
+        cmp = compare_streams(toks, off[ref][0])
+        if not cmp["identical"]:
+            first = next(((i, j) for i, (a, b) in enumerate(
+                zip(toks, off[ref][0])) for j, (x, y) in enumerate(zip(a, b))
+                if x != y), None)
+            cmp["first_difference"] = first
+        out[name] = {**cmp, **{k: m[k] for k in (
+            "spec_verify_dispatches", "spec_drafted_tokens",
+            "spec_accepted_tokens", "spec_draft_dispatches")}}
+    out["off_layouts_agree"] = (
+        off["paged_fused"][0] == off["paged_gathered"][0] == off["dense"][0])
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_speculation() -> dict:
+    """(q): llama-1b, bf16, 8 slots, max_seq_len 256, max_new_tokens 64,
+    paged, Bs 16, kv_fused: (q)'s ten requests at once on a server with
+    speculative_k 0 and one with 4 (n-gram drafts), alternating, three
+    measured runs each after a warm-up; then one run on the dense default
+    server with the draft model ``model:llama-1b`` and one without
+    speculation; then the f32 gates."""
+    from kubeflow_tpu_torch.serving.server import ModelServer
+
+    cfgs = {k: engine_cfg(kv_fused=True, max_new_tokens=SPEC_NEW,
+                          speculative_k=k) for k in (0, SPEC_K)}
+    servers = {k: ModelServer(c, port=0) for k, c in cfgs.items()}
+    runs: dict = {0: [], SPEC_K: []}
+    try:
+        for srv in servers.values():
+            srv.start()
+        cfg = servers[0].engine.model.config
+        reqs = spec_requests(cfg.vocab_size)
+        counted = {k: count_verify_tokens(srv.decoder)
+                   for k, srv in servers.items()}
+        for k, srv in servers.items():  # warm-up, unmeasured
+            spec_run(srv, reqs, counted[k])
+        for k in (0, SPEC_K, SPEC_K, 0, 0, SPEC_K):
+            runs[k].append(spec_run(servers[k], reqs, counted[k]))
+        read = {k: dispatch_means(srv.port) for k, srv in servers.items()}
+        draft_k = servers[SPEC_K].decoder.metrics()["spec_draft_k"]
+        n_layers = cfg.n_layers
+    finally:
+        for srv in servers.values():
+            srv.stop()
+        del servers
+        torch.cuda.empty_cache()
+    for k, rs in runs.items():
+        for r in rs:
+            if r["kernel_forwards"] <= 0 or \
+                    r["launches"] != n_layers * r["kernel_forwards"]:
+                raise AssertionError(
+                    f"speculative_k={k}: paged decode kernel launched "
+                    f"{r['launches']} times, expected {n_layers} layers x "
+                    f"{r['kernel_forwards']} kernel-reading forwards")
+    on = runs[SPEC_K]
+    if not sum(r["spec_verify_dispatches"] for r in on):
+        raise AssertionError("no verify round ran with speculation on")
+
+    def spread(k):
+        tps = sorted(r["decode_tokens_per_s"] for r in runs[k])
+        return {"median": tps[len(tps) // 2], "min": tps[0], "max": tps[-1],
+                "runs": tps}
+
+    verify_disp = sum(r["spec_verify_dispatches"] for r in on)
+
+    def model_draft(server):
+        dec = server.decoder
+        counted_m = count_verify_tokens(dec)
+        spec_run(server, reqs, counted_m)  # warm-up
+        r = spec_run(server, reqs, counted_m)
+        m = dec.metrics()
+        return {**{k: r[k] for k in ("decode_tokens_per_s", "wall_s",
+                                     "spec_verify_dispatches",
+                                     "spec_drafted_tokens",
+                                     "spec_accepted_tokens")},
+                "tokens_per_verify_dispatch":
+                    r["verify_tokens"] / max(r["spec_verify_dispatches"], 1),
+                "tokens_per_row_per_verify":
+                    r["verify_tokens"] / max(r["verify_rows"], 1),
+                "spec_acceptance_rate": m["spec_acceptance_rate"],
+                "spec_draft_dispatches": m["spec_draft_dispatches"],
+                "spec_draft_k": m["spec_draft_k"]}
+
+    from kubeflow_tpu_torch.serving.engine import EngineConfig
+
+    def dense(**kw):
+        return EngineConfig(model=MODEL, batch_size=SLOTS,
+                            max_seq_len=MAX_SEQ, max_new_tokens=SPEC_NEW,
+                            device="cuda", **kw)
+
+    md = serve(dense(speculative_k=SPEC_K, draft_mode=f"model:{MODEL}"),
+               model_draft)
+    md["dense_off_tokens_per_s"] = serve(dense(), model_draft)[
+        "decode_tokens_per_s"]
+    if md["spec_draft_dispatches"] <= 0:
+        raise AssertionError(f"the draft model proposed nothing: {md}")
+    gates = spec_f32_gates()
+    out = {
+        "model": MODEL, "dtype": "bfloat16", "slots": SLOTS,
+        "max_seq_len": MAX_SEQ, "max_new_tokens": SPEC_NEW,
+        "block": BLOCK, "speculative_k": SPEC_K, "draft_mode": "ngram",
+        "requests": [len(r["tokens"]) for r in spec_requests(32000)],
+        "decode_tokens_per_s": {"off": spread(0), "on": spread(SPEC_K)},
+        "order": "off, on, on, off, off, on",
+        "exposition": read[SPEC_K]["exposition"],
+        "spec_draft_k": draft_k,
+        "tokens_per_verify_dispatch":
+            sum(r["verify_tokens"] for r in on) / verify_disp,
+        "tokens_per_row_per_verify":
+            sum(r["verify_tokens"] for r in on)
+            / max(sum(r["verify_rows"] for r in on), 1),
+        "dispatch_ms": {"on": read[SPEC_K]["dispatch"],
+                        "off": read[0]["dispatch"]},
+        "launches": {k: [r["launches"] for r in rs]
+                     for k, rs in (("off", runs[0]), ("on", on))},
+        "kernel_forwards": {k: [r["kernel_forwards"] for r in rs]
+                            for k, rs in (("off", runs[0]), ("on", on))},
+        "runs": {"off": runs[0], "on": on},
+        "model_draft_dense": md,
+        "f32_gates": gates,
+    }
+    emit("q_speculation", **out)
+    bad = [k for k, v in gates.items()
+           if isinstance(v, dict) and not v["identical"]]
+    if bad:
+        raise AssertionError(f"f32 greedy tokens differ with speculation on: "
+                             f"{bad}")
+    if not gates["paged_fused"]["spec_verify_dispatches"]:
+        raise AssertionError("the f32 gate ran no verify round")
+    out["paged_launches"] = sum(r["launches"] for r in on)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # (h) the training main path, (i) f32 kernel-vs-plain training parity
 # ---------------------------------------------------------------------------
 
@@ -1892,13 +2206,15 @@ def main() -> int:
     paged_f32 = phase_f32_parity()
     phase_f32_layouts(paged_f32["streams"])
     phase_f32_prefix_chunk_parity()
+    spec = phase_speculation()
     train = phase_train(smi)
     phase_train_f32_parity()
 
     p, r = paged["bf16"], rms[f"{SLOTS}x2048"]
     paged_paths = {
         "paged_smoke": main_path["launches"]["paged_decode_attention"],
-        "prefix_path": prefix["launches"], "chunked": chunked["launches"]}
+        "prefix_path": prefix["launches"], "chunked": chunked["launches"],
+        "speculation": spec["paged_launches"]}
     table = [
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "kubeflow_tpu_torch/csrc/paged_decode.cu",

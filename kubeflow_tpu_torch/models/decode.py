@@ -18,11 +18,17 @@ Counterpart of ``kubeflow_tpu/models/decode.py``:
   :func:`admit_prefix_and_step`);
 - the paged prefix path and chunked prefill, both riding the span
   forward :func:`_block_forward` (K/V written at per-row start
-  positions through the block table): :func:`paged_admit_prefix_and_step`
-  (suffix-only prefill over refcount-shared blocks),
-  :func:`paged_prefill_chunk` (an interior chunk of a long admission),
-  :func:`store_blocks` (the paged prime) and :func:`copy_block` (the
-  copy-on-write of a partly shared tail block).
+  positions, into the dense rows or through the block table):
+  :func:`paged_admit_prefix_and_step` (suffix-only prefill over
+  refcount-shared blocks), :func:`paged_prefill_chunk` (an interior
+  chunk of a long admission), :func:`store_blocks` (the paged prime)
+  and :func:`copy_block` (the copy-on-write of a partly shared tail
+  block);
+- speculative decoding on either layout: :func:`verify_step` and
+  :func:`verify_chunk` (a [slots, K] scoring pass through the span
+  forward, then the single-token commit pass), and the draft model's
+  :func:`extend_and_propose` (``serving/speculative.py`` holds the
+  proposers).
 
 PyTorch runs eagerly, so the JAX ``lax.scan`` over layers is a loop over
 ``L`` reading views of the stacked ``[L, ...]`` weights and caches, and
@@ -37,11 +43,15 @@ total``) write back what they hold, sentinel table entries (``== N``) are
 filtered, the rotary lookup of a parked row clamps, and a row or pool
 index out of range, or a cache write past the row's end, raises. A span
 that runs past its row (JAX's "cache-tail spill") loses the columns past
-``MB*Bs`` the same way: :func:`_write_index` filters them.
+the row the same way: :func:`_write_index` filters them on the paged
+layout, :func:`_dense_write_index` lands them on what the row already
+holds on the dense one.
 
-Not yet ported: speculation (``verify_step``, ``verify_chunk``), the KV
-handoff (``export_blocks``, ``import_blocks``) and the dense span write
-(the paged layout carries every span path ported here).
+Speculation draws its accept and resample randomness from the state's
+``generator`` where JAX splits its threefry key: greedy rows are exact,
+sampled rows keep the target distribution, not JAX's numbers.
+
+Not yet ported: the KV handoff (``export_blocks``, ``import_blocks``).
 """
 
 from __future__ import annotations
@@ -251,13 +261,29 @@ def _pool_write(pool, table, cols, vals, index=None):
     return pool
 
 
-def _dense_write_index(pos_b, total: int):
-    """Where the dense decode write lands: (rows, positions clamped into
-    the row, keep [B, 1, 1]). A parked row (``pos == total``) keeps
-    nothing — JAX drops that scatter; torch would fault."""
-    rows = torch.arange(pos_b.shape[0], device=pos_b.device)
-    keep = (pos_b < total)[:, None, None]
-    return rows, torch.clamp(pos_b.long(), 0, total - 1), keep
+def _dense_write_index(pos_b, s: int, total: int):
+    """Where a dense write of ``s`` tokens a row at ``pos_b`` lands, at a
+    fixed shape: (rows [B, 1], positions [B, S] clamped into the row, the
+    token each position takes [B, S], keep [B, 1, 1, 1]). A column past
+    the row (the span's cache-tail spill) lands on the row's last
+    position with that position's own token, and a parked row (``pos ==
+    total``) keeps nothing, so duplicate indices always carry the same
+    value — JAX drops those scatters; torch would fault."""
+    dev = pos_b.device
+    pos = pos_b.long()[:, None]
+    cols = torch.clamp(pos + torch.arange(s, device=dev)[None, :], 0,
+                       total - 1)
+    rows = torch.arange(pos_b.shape[0], device=dev)[:, None]
+    return (rows, cols, torch.clamp(cols - pos, 0, s - 1),
+            (pos < total)[:, :, None, None])
+
+
+def _dense_write(cache, new, index) -> None:
+    """Write ``new`` [B, S, H, hd] into one layer's dense rows through
+    ``index`` (:func:`_dense_write_index`), in place: a dropped position
+    gets back what it holds."""
+    rows, cols, src, keep = index
+    cache[rows, cols] = torch.where(keep, new[rows, src], cache[rows, cols])
 
 
 def _ragged_attention(x, layer, cfg, rope_bt, k_cache, v_cache, pos_b, valid,
@@ -274,9 +300,8 @@ def _ragged_attention(x, layer, cfg, rope_bt, k_cache, v_cache, pos_b, valid,
     hd = cfg.head_dim
     q, k, v = _qkv(x, layer, cfg, rope_bt)
     if table is None:
-        rows, cols, keep = write_index
-        for cache, new in ((k_cache, k[:, 0]), (v_cache, v[:, 0])):
-            cache[rows, cols] = torch.where(keep, new, cache[rows, cols])
+        _dense_write(k_cache, k, write_index)
+        _dense_write(v_cache, v, write_index)
         out = _gqa_attention(q, k_cache, v_cache,
                              valid[:, None, None, None, :], cfg)
         return out @ layer["wo"]
@@ -332,7 +357,7 @@ def _single_token_forward(params, cfg: TransformerConfig, k_pool, v_pool,
     # Every layer writes the same (row, position) set: index it once.
     if table is None:
         total = k_pool.shape[2]
-        widx = _dense_write_index(pos_b, total)
+        widx = _dense_write_index(pos_b, 1, total)
     else:
         n, bs = _kv_arr(k_pool).shape[1], _kv_arr(k_pool).shape[2]
         total = table.shape[1] * bs
@@ -412,17 +437,27 @@ def decode_chunk(state, params, cfg: TransformerConfig, steps: int,
 
 def _span_attention(x, layer, cfg, rope_bt, k_pool, v_pool, cols, table,
                     fused, write_index):
-    """Block attention where row ``b``'s ``S`` tokens occupy virtual
-    positions ``cols[b]`` = ``pos_b[b] + 0..S-1`` of the paged pool — the
-    S-wide sibling of :func:`_ragged_attention`. Token ``s`` attends every
-    position ``<= pos_b + s`` (its own K/V was just written). The write
-    goes through ``write_index`` (:func:`_write_index` of ``cols``), which
-    drops parked rows, sentinel entries and the cache-tail spill past
-    ``MB*Bs``. ``fused`` reads through :func:`paged_span_attention`
-    instead of gathering the dense view. Pools written in place."""
+    """Block attention where row ``b``'s ``S`` tokens occupy positions
+    ``cols[b]`` = ``pos_b[b] + 0..S-1`` of its dense row (``table`` None)
+    or of the paged pool — the S-wide sibling of
+    :func:`_ragged_attention`. Token ``s`` attends every position ``<=
+    pos_b + s`` (its own K/V was just written). The write goes through
+    ``write_index`` (:func:`_dense_write_index`, or :func:`_write_index`
+    of ``cols``), which drops parked rows, sentinel entries and the
+    cache-tail spill past the row. ``fused`` reads the paged pool
+    through :func:`paged_span_attention` instead of gathering the dense
+    view. Caches written in place."""
     b, s, _d = x.shape
     hd = cfg.head_dim
     q, k, v = _qkv(x, layer, cfg, rope_bt)
+    if table is None:
+        _dense_write(k_pool, k, write_index)
+        _dense_write(v_pool, v, write_index)
+        total = k_pool.shape[1]
+        mask = (torch.arange(total, device=x.device)[None, None, :]
+                <= cols[:, :, None])
+        out = _gqa_attention(q, k_pool, v_pool, mask[:, None, None], cfg)
+        return out @ layer["wo"]
     _pool_write(k_pool, table, cols, k, write_index)
     _pool_write(v_pool, table, cols, v, write_index)
     if fused:
@@ -443,25 +478,28 @@ def _span_attention(x, layer, cfg, rope_bt, k_pool, v_pool, cols, table,
 def _block_forward(params, cfg: TransformerConfig, k_pool, v_pool, tokens,
                    pos_b, table, fused=False, ring=None):
     """[B, S] forward writing K/V at per-row start positions ``pos_b`` [B]
-    through the block table into the stacked pools, in place → logits
-    [B, S, V] f32. The suffix-only prefill of a prefix hit and every
-    chunk of a chunked admission ride this; ``fused`` walks the span read
-    instead of gathering it. Columns past the row (``pos_b + s >=
-    MB*Bs``) are dropped and their rotary lookup clamps, as JAX's scatter
-    and gather do. ``ring`` (context parallelism) is not yet ported."""
+    into the stacked dense caches (``table`` None) or, through the block
+    table, the pools, in place → logits [B, S, V] f32. The verify scoring
+    pass, the draft model's catch-up feed (dense), the suffix-only
+    prefill of a prefix hit and every chunk of a chunked admission ride
+    this; ``fused`` walks the paged span read instead of gathering it.
+    Columns past the row (``pos_b + s >= total``) are dropped and their
+    rotary lookup clamps, as JAX's scatter and gather do. ``ring``
+    (context parallelism) is not yet ported."""
     if ring is not None:
         raise ValueError("the context-parallel span read (ring) is not yet "
                          "ported")
-    if table is None:
-        raise ValueError("the dense span forward is not yet ported: the "
-                         "span paths run on the paged layout")
     dev = tokens.device
-    n, bs = _kv_arr(k_pool).shape[1], _kv_arr(k_pool).shape[2]
-    total = table.shape[1] * bs
     s = tokens.shape[1]
     cols = pos_b.long()[:, None] + torch.arange(s, device=dev)[None, :]
     # Every layer writes the same (row, token) set: index it once.
-    widx = _write_index(table, cols, n, bs)
+    if table is None:
+        total = k_pool.shape[2]
+        widx = _dense_write_index(pos_b, s, total)
+    else:
+        n, bs = _kv_arr(k_pool).shape[1], _kv_arr(k_pool).shape[2]
+        total = table.shape[1] * bs
+        widx = _write_index(table, cols, n, bs)
     cos_t, sin_t = rotary_frequencies(cfg.head_dim, total,
                                       theta=cfg.rope_theta, device=dev)
     rpos = torch.clamp(cols, 0, total - 1)
@@ -477,6 +515,175 @@ def _block_forward(params, cfg: TransformerConfig, k_pool, v_pool, tokens,
         x = x + _mlp(h, layer["mlp"], cfg)
     x = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
     return (x @ _head_kernel(params, cfg)).float()
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding (serving/speculative.py holds the host-side proposers)
+# ---------------------------------------------------------------------------
+#
+# A verify step is two forwards: the [slots, K] scoring pass writes the
+# draft K/V and scores every draft position, then a single-token commit
+# pass writes the first non-draft token's K/V at ``p_b + n_eff`` and
+# refreshes ``last_logits``, so the decode-state invariant (``length``
+# positions live, ``last_logits`` predicting position ``length``) holds
+# on exit and verify composes with decode_step / decode_chunk /
+# retire_row. A rejected tail needs no rollback: validity derives from
+# ``length``, so not advancing past the accepted region IS the rollback
+# (the rejected draft K/V stays behind, unread, until overwritten).
+
+
+def _target_probs(logits, temperature, top_k: int):
+    """The distribution :func:`sample_token` samples from (top-k mask and
+    temperature floor), for speculative accept and resample. logits
+    [..., V]; temperature broadcastable to logits[..., 0]."""
+    logits = _top_k_mask(logits, top_k)
+    temp = torch.clamp(temperature, min=1e-6)[..., None]
+    return torch.softmax(logits / temp, dim=-1)
+
+
+def _verify_step_body(state, params, cfg: TransformerConfig, draft,
+                      draft_len, top_k: int, eos_id: int | None,
+                      fused: bool = False):
+    """One speculative verify, in place: score ``draft`` [slots, K]
+    against the decode state, accept each row's longest matching prefix
+    (greedy: equal to the argmax; sampled: with probability p(draft)),
+    commit the first non-draft token. Returns (state, tokens [slots,
+    K+1] int32, emitted [slots, K+1]), ``emitted`` a per-row prefix
+    mask."""
+    k0, v0, table, total = _state_kv(state)
+    slots, k_w = draft.shape
+    dev = draft.device
+    gen = state["generator"]
+    emit0 = state["active"].clone()
+    p_b = state["length"].clone()
+    temp = state["temperature"]
+    draft = draft.long()
+    in_draft = torch.arange(k_w, device=dev)[None, :] < draft_len[:, None]
+    block_logits = _block_forward(params, cfg, k0, v0, draft, p_b, table,
+                                  fused)
+    # prev_logits[:, i] predicts draft position i.
+    prev_logits = torch.cat(
+        [state["last_logits"][:, None], block_logits[:, : k_w - 1]], dim=1)
+    greedy_ok = draft == torch.argmax(prev_logits, dim=-1)
+    probs = _target_probs(prev_logits, temp[:, None], top_k)
+    p_draft = torch.gather(probs, -1, draft[..., None])[..., 0]
+    # A deterministic proposer's q is a point mass: accept w.p. p(d).
+    sampled_ok = torch.rand((slots, k_w), generator=gen, device=dev) < p_draft
+    ok = torch.where((temp <= 0.0)[:, None], greedy_ok, sampled_ok) & in_draft
+    n = torch.cumprod(ok.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)
+    # Accepted drafts + 1 commit, capped by the row's budget and its
+    # cache (the cap only drops accepted drafts).
+    n_eff = torch.minimum(n, torch.clamp(state["remaining"] - 1, min=0))
+    n_eff = torch.minimum(n_eff, torch.clamp(total - 1 - p_b, min=0))
+    rows = torch.arange(slots, device=dev)
+    all_logits = torch.cat([prev_logits, block_logits[:, k_w - 1:]], dim=1)
+    commit_logits = all_logits[rows, n_eff.long()]
+    d_at = draft[rows, torch.clamp(n_eff, max=k_w - 1).long()]
+    rejected = (n_eff == n) & (n_eff < draft_len)
+    # Top-k BEFORE the rejection mask, so the resample stays inside the
+    # target's top-k support.
+    vocab = torch.arange(commit_logits.shape[-1], device=dev)
+    res_logits = torch.where(
+        rejected[:, None] & (vocab[None, :] == d_at[:, None]),
+        torch.full_like(commit_logits, _NEG_INF),
+        _top_k_mask(commit_logits, top_k))
+    commit = sample_token(res_logits, gen, temp, top_k=0)
+    commit = torch.where(n_eff < n, d_at.to(torch.int32), commit)
+
+    idx = torch.arange(k_w + 1, device=dev)[None, :]
+    draft_pad = torch.cat(
+        [draft, torch.zeros((slots, 1), dtype=torch.long, device=dev)], dim=1)
+    out = torch.where(idx < n_eff[:, None], draft_pad,
+                      commit[:, None].long()).to(torch.int32)
+    emitted = emit0[:, None] & (idx <= n_eff[:, None])
+    hit_eos = torch.zeros((slots,), dtype=torch.bool, device=dev)
+    if eos_id is not None:
+        is_eos = ((out == eos_id) & emitted).to(torch.int32)
+        # Keep the first EOS, drop its tail.
+        emitted = emitted & (torch.cumsum(is_eos, dim=1) - is_eos == 0)
+        hit_eos = ((out == eos_id) & emitted).any(dim=1)
+    m = emitted.sum(dim=1).to(torch.int32)
+
+    # The commit pass. Rows parked by EOS above still run it; their write
+    # lands inside the row, whose length is parked at total, unread.
+    logits2 = _single_token_forward(params, cfg, k0, v0, commit,
+                                    p_b + n_eff, table, fused)
+    length = p_b + m
+    remaining = state["remaining"] - m
+    active = emit0 & (remaining > 0) & (length < total) & ~hit_eos
+    state["length"].copy_(torch.where(hit_eos, torch.full_like(length, total),
+                                      length))
+    state["remaining"].copy_(remaining)
+    state["active"].copy_(active)
+    state["last_logits"].copy_(torch.where(emit0[:, None], logits2,
+                                           state["last_logits"]))
+    return state, out, emitted
+
+
+@torch.inference_mode()
+def verify_step(state, params, cfg: TransformerConfig, draft, draft_len,
+                top_k: int = 0, eos_id: int | None = None,
+                kv_fused: bool = False):
+    """Score ``draft`` [slots, K] tokens (``draft_len`` [slots] real)
+    against the decode state and emit each row's longest accepted prefix
+    plus one committed target token (1..K+1 tokens a row). Greedy rows
+    equal plain :func:`decode_step` chains; sampled rows
+    rejection-resample, so their distribution is the target's. EOS parks
+    rows as :func:`decode_step` does. Either layout; ``kv_fused`` (paged)
+    walks the scoring read and reads the commit pass through the paged
+    decode kernel. In place; returns (state, tokens [slots, K+1],
+    emitted [slots, K+1])."""
+    return _verify_step_body(state, params, cfg, draft, draft_len, top_k,
+                             eos_id, kv_fused)
+
+
+@torch.inference_mode()
+def verify_chunk(state, params, cfg: TransformerConfig, drafts, draft_lens,
+                 top_k: int = 0, eos_id: int | None = None,
+                 kv_fused: bool = False):
+    """``steps`` verify steps in a loop (JAX fuses them with
+    ``lax.scan``): ``drafts`` [steps, slots, K], ``draft_lens`` [steps,
+    slots]. A later step's drafts are chain continuations that simply
+    fail verification after an early rejection. Returns (state, tokens
+    [steps, slots, K+1], emitted likewise)."""
+    outs, emits = [], []
+    for draft, dlen in zip(drafts, draft_lens):
+        state, out, emitted = _verify_step_body(state, params, cfg, draft,
+                                                dlen, top_k, eos_id,
+                                                kv_fused)
+        outs.append(out)
+        emits.append(emitted)
+    return state, torch.stack(outs), torch.stack(emits)
+
+
+@torch.inference_mode()
+def extend_and_propose(state, params, cfg: TransformerConfig, feed,
+                       feed_pos, feed_len, steps: int):
+    """Draft-model helper on a dense decode state: force-feed each row's
+    newly committed target tokens (``feed`` [slots, S], ``feed_len``
+    real, from position ``feed_pos``) through the dense span forward,
+    then decode ``steps`` greedy proposals a row. The next call's feed,
+    at host-tracked confirmed positions, overwrites whatever the target
+    rejected, so no rollback is needed. Rows with ``feed_pos`` at the
+    cache end are parked (their writes drop). In place; returns (state,
+    proposals [slots, steps] int32)."""
+    block_logits = _block_forward(params, cfg, state["cache"]["k"],
+                                  state["cache"]["v"], feed, feed_pos, None)
+    rows = torch.arange(feed.shape[0], device=feed.device)
+    last = block_logits[rows, torch.clamp(feed_len - 1, min=0).long()]
+    live = feed_len > 0
+    state["length"].copy_(feed_pos + feed_len)
+    # A proposal budget only: the host resets remaining/active each round.
+    state["remaining"].copy_(torch.where(live, steps + 1, 0))
+    state["active"].copy_(live)
+    state["temperature"].zero_()
+    state["last_logits"].copy_(torch.where(live[:, None], last,
+                                           state["last_logits"]))
+    toks = []
+    for _ in range(steps):
+        state, tok, _emit = _decode_step_body(state, params, cfg, 0, None)
+        toks.append(tok)
+    return state, torch.stack(toks, dim=1)
 
 
 def _new_generator(dev, seed: int) -> torch.Generator:

@@ -9,8 +9,9 @@ and changes nothing, as in JAX), the continuous decoder on the dense KV
 layout, plain predicts through the dynamic batcher.
 ``--decode-mode lockstep``, ``--prefix-cache-slots N`` (either layout),
 ``--kv-layout paged [--kv-fused-attention] [--kv-dtype int8]`` and
-``--prefill-chunk-tokens N --max-prompt-len M`` (paged) choose the other
-ported paths. Every other flag of the JAX CLI (speculation, parallelism,
+``--prefill-chunk-tokens N --max-prompt-len M`` (paged) and
+``--speculative-k K [--draft-mode ngram|model:<name>]`` choose the other
+ported paths. Every other flag of the JAX CLI (parallelism,
 fleet roles and KV tiers, QoS, checkpoints, the compile cache and peer
 weights) is rejected by name, never ignored. Without grpcio the default
 ``--grpc-port`` exits 2: the server never starts without :9000 unasked.
@@ -26,7 +27,7 @@ from kubeflow_tpu_torch.serving.server import ModelServer
 
 # Flags of the JAX CLI whose features are not yet ported.
 UNPORTED_FLAGS = (
-    "--model-path", "--speculative-k", "--draft-mode", "--serving-role",
+    "--model-path", "--serving-role",
     "--tp-shards", "--cp-shards", "--pp-stages", "--host-kv-bytes",
     "--kv-directory-size", "--cold-store-ref",
     "--kv-import-crossover-tokens", "--qos-tenants", "--qos-aging-s",
@@ -78,6 +79,14 @@ def main(argv=None) -> int:
     p.add_argument("--prefill-len-buckets", type=int, default=0,
                    help="power-of-two prefill length buckets below "
                         "max-seq-len (0 = pad every prompt to max-seq-len)")
+    p.add_argument("--speculative-k", type=int, default=0,
+                   help="draft tokens verified per decode round (0 "
+                        "disables speculative decoding); greedy outputs "
+                        "are unchanged")
+    p.add_argument("--draft-mode", default="ngram",
+                   help="speculative draft proposer: 'ngram' (host-side "
+                        "prompt/output lookup) or 'model:<registry-name>' "
+                        "(a draft model)")
     p.add_argument("--kv-layout", default="dense",
                    choices=["dense", "paged"],
                    help="'dense' reserves a full-length row per decode "
@@ -121,6 +130,12 @@ def main(argv=None) -> int:
         p.error("--eos-id requires --decode-mode=continuous")
     if args.prefix_cache_slots > 0 and not continuous:
         p.error("--prefix-cache-slots requires --decode-mode=continuous")
+    if args.speculative_k > 0 and not continuous:
+        # Verification rides the continuous decode state.
+        p.error("--speculative-k requires --decode-mode=continuous")
+    if not (args.draft_mode == "ngram"
+            or args.draft_mode.startswith("model:")):
+        p.error("--draft-mode must be 'ngram' or 'model:<name>'")
     if args.kv_dtype != "fp" and args.kv_layout != "paged":
         p.error("--kv-dtype=int8 requires --kv-layout=paged")
     if args.kv_fused_attention and args.kv_layout != "paged":
@@ -164,6 +179,8 @@ def main(argv=None) -> int:
             prefix_cache_slots=args.prefix_cache_slots,
             prefix_cache_min_len=args.prefix_cache_min_len,
             prefill_len_buckets=args.prefill_len_buckets,
+            speculative_k=args.speculative_k,
+            draft_mode=args.draft_mode,
             kv_layout=args.kv_layout,
             kv_block_size=args.kv_block_size,
             kv_pool_blocks=args.kv_pool_blocks,

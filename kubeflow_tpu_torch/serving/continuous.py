@@ -33,12 +33,22 @@ rounds, the last through ``paged_admit_prefix_and_step``. So one long
 admission stalls live streams by at most a chunk, and ``max_prompt_len``
 may exceed ``prefill_len``.
 
+Speculative decoding (``speculative_k``, off by default): a proposer
+(``serving/speculative.py``: host n-gram lookup or a small draft model)
+drafts up to K tokens a row, and a verify round scores them all in one
+``verify_step`` (``verify_chunk`` with ``chunk_size`` > 1), keeping each
+row's longest accepted prefix plus one committed token. Greedy streams
+equal speculation off; sampled rows rejection-resample, so their
+distribution is unchanged. Per-slot draft length tunes itself (it shrinks
+while a row's drafts keep missing, recovers on clean sweeps), and the
+draft and accept counters land in :meth:`ContinuousDecoder.metrics`.
+
 Instruments: a metric ``registry`` (TTFT, inter-token gap, queue wait,
 dispatch time by kind, batch occupancy, chunk counters) and a
 ``trace`` store of per-request timelines, served by the model server's
 ``/monitoring/prometheus/metrics`` and ``/debug/requests``.
 
-Options of features not yet ported (speculation, QoS, the host KV tier,
+Options of features not yet ported (QoS, the host KV tier,
 tensor/context/pipeline parallelism, fleet roles, the KV directory and
 cold store, live weight pushes) raise ``ValueError`` at construction;
 none falls through to another behaviour. Their counters in
@@ -74,6 +84,7 @@ from kubeflow_tpu_torch.models.decode import (
     store_blocks,
     store_prefix_cache,
     store_prefix_row,
+    verify_chunk,
 )
 from kubeflow_tpu_torch.observability.metrics import MetricRegistry
 from kubeflow_tpu_torch.observability.tracing import TraceStore
@@ -83,6 +94,7 @@ from kubeflow_tpu_torch.serving.kv_allocator import (
     kv_bytes_per_token,
 )
 from kubeflow_tpu_torch.serving.prefix_cache import PrefixCache
+from kubeflow_tpu_torch.serving.speculative import make_proposer
 
 _DONE = object()
 
@@ -94,9 +106,6 @@ TENANT_LABEL_BUCKETS = 16
 # Counters and gauges of features not yet ported, as JAX's metrics()
 # reports them with the feature off.
 _UNPORTED_METRICS = {
-    "spec_drafted_tokens": 0, "spec_accepted_tokens": 0,
-    "spec_verify_dispatches": 0, "spec_draft_dispatches": 0,
-    "spec_acceptance_rate": 0.0, "spec_draft_k": 0.0,
     "kv_handoff_exports": 0, "kv_handoff_imports": 0,
     "kv_handoff_tokens": 0, "kv_suspends": 0, "kv_resumes": 0,
     "kv_host_hits": 0, "kv_peer_hits": 0, "kv_peer_misses": 0,
@@ -255,7 +264,8 @@ class ContinuousDecoder:
                  chunk_size: int = 1, prefix_cache_slots: int = 0,
                  prefix_cache_min_len: int = 16,
                  prefill_len_buckets: int = 0, speculative_k: int = 0,
-                 kv_layout: str = "dense", kv_block_size: int = 16,
+                 draft_mode: str = "ngram", kv_layout: str = "dense",
+                 kv_block_size: int = 16,
                  kv_pool_blocks: int = 0, kv_low_watermark: int = 0,
                  kv_dtype: str = "fp", kv_fused: bool = False,
                  stream_timeout_s: float = 60.0, role: str = "",
@@ -267,7 +277,6 @@ class ContinuousDecoder:
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         _reject_unported(
-            speculative_k=speculative_k > 0,
             qos=qos is not None,
             host_kv_bytes=host_kv_bytes > 0,
             tp_shards=tp_shards > 1,
@@ -326,6 +335,20 @@ class ContinuousDecoder:
         # round, the finest admission/streaming granularity.
         self.chunk_size = max(1, int(chunk_size))
         self.total_len = self.max_prompt_len + max_new_tokens
+        # Speculative decoding: K > 0 turns decode rounds into verify
+        # rounds whenever the proposer has drafts; chunk_size > 1 runs
+        # that many verify steps a round (verify_chunk).
+        self.speculative_k = max(0, int(speculative_k))
+        self._spec = (
+            make_proposer(
+                draft_mode, target_vocab=cfg.vocab_size, slots=slots,
+                total_len=self.total_len,
+                propose_steps=(self.chunk_size * self.speculative_k
+                               + self.chunk_size - 1),
+                seed=seed, device=self.device)
+            if self.speculative_k > 0 else None)
+        # Per-slot draft length, tuned in [1, speculative_k].
+        self._slot_k = [self.speculative_k] * slots
         self._slot_blocks: list[list[int]] = [[] for _ in range(slots)]
         self.kv_block_size = max(1, int(kv_block_size))
         if kv_layout == "paged":
@@ -415,6 +438,9 @@ class ContinuousDecoder:
         self.prefix_tokens_reused = 0
         self.prefix_suffix_tokens = 0
         self.prefix_inserts = 0
+        self.spec_drafted_tokens = 0     # draft tokens submitted to verify
+        self.spec_accepted_tokens = 0    # draft tokens the target kept
+        self.spec_verify_dispatches = 0  # verify rounds
         # Decode service per tenant (tokens emitted).
         self._tenant_served: dict[str, float] = {}
         # Counter mutations and metrics() reads go through this leaf lock.
@@ -1018,6 +1044,9 @@ class ContinuousDecoder:
             self._active_count += 1
             self.peak_in_flight = max(self.peak_in_flight,
                                       self._active_count)
+            if self._spec is not None:
+                self._spec.reset(slot)
+                self._slot_k[slot] = self.speculative_k
 
     def _dispatch(self, toks: np.ndarray, emitted: np.ndarray) -> None:
         """Route one step's sampled tokens ([slots]) to their requests.
@@ -1251,6 +1280,8 @@ class ContinuousDecoder:
                 self._advance_chunked()
                 if self._active_count == 0:
                     continue
+                if self._spec is not None and self._spec_round():
+                    continue
                 self._decode_round()
             except Exception as e:
                 # A failed call may have left self._state half-written;
@@ -1284,6 +1315,140 @@ class ContinuousDecoder:
         self._ramp_streak = 0
         for k in range(steps):
             self._dispatch(toks[k], emitted[k])
+
+    def _dispatch_block(self, toks: np.ndarray, emitted: np.ndarray) -> None:
+        """Route one verify step's tokens ([slots, K+1], ``emitted`` a
+        per-row prefix mask) to their requests: the multi-token sibling
+        of :meth:`_dispatch`. The device already capped each row at its
+        budget and cut it at EOS, so the mask is trusted as it is."""
+        now = time.perf_counter()
+        emitted_n, ttft_sum, ttft_n = 0, 0.0, 0
+        for slot in range(self.slots):
+            req = self._slot_req[slot]
+            if req is None or not emitted[slot, 0]:
+                continue
+            last_tok = None
+            row_emitted = 0
+            first_here = req.ttft_s is None
+            for j in range(toks.shape[1]):
+                if not emitted[slot, j]:
+                    break
+                last_tok = int(toks[slot, j])
+                req.out.append(last_tok)
+                if req.ttft_s is None:
+                    req.ttft_s = now - req.submit_t
+                    ttft_sum += req.ttft_s
+                    ttft_n += 1
+                    self._h_ttft.observe(req.ttft_s)
+                    req.timeline.event("first_token")
+                req.stream.put(last_tok)
+                row_emitted += 1
+            emitted_n += row_emitted
+            if req.last_emit_t is not None:
+                self._h_itl.observe(now - req.last_emit_t)
+            req.last_emit_t = now
+            if not first_here:
+                req.timeline.event("dispatch", tokens=row_emitted)
+            hit_eos = self.eos_id is not None and last_tok == self.eos_id
+            if hit_eos or len(req.out) >= req.want:
+                self._retire(req, slot)
+                self._active_count -= 1
+                self._finish(req, reason="eos" if hit_eos else "length")
+        with self._mlock:
+            self.tokens_emitted += emitted_n
+            self.ttft_sum += ttft_sum
+            self.ttft_count += ttft_n
+            if emitted_n:
+                self._tenant_served[DEFAULT_TENANT] = (
+                    self._tenant_served.get(DEFAULT_TENANT, 0.0) + emitted_n)
+
+    def _tune_slot(self, slot: int, accepted: int, drafted: int) -> None:
+        """Shrink a slot's draft length while verification throws most of
+        its drafts away (under half kept), grow it back one step per clean
+        sweep."""
+        if drafted <= 0:
+            return
+        if accepted * 2 < drafted:
+            self._slot_k[slot] = max(1, self._slot_k[slot] - 1)
+        elif accepted == drafted:
+            self._slot_k[slot] = min(self.speculative_k,
+                                     self._slot_k[slot] + 1)
+
+    def _spec_round(self) -> bool:
+        """One speculative round: proposals for every occupied slot,
+        verified in ONE call (``chunk_size`` verify steps), the accepted
+        tokens routed. Returns False, and the plain decode round runs,
+        when no row has a draft (a verify without drafts pays two
+        forwards for one token)."""
+        steps, k_w = self.chunk_size, self.speculative_k
+        asks = []
+        for slot in range(self.slots):
+            req = self._slot_req[slot]
+            if req is not None:
+                # steps - 1 extra chain tokens: each verify step's commit
+                # takes one, so the next step's slice starts after it.
+                asks.append((slot, req.tokens + req.out,
+                             steps * self._slot_k[slot] + steps - 1))
+        props = self._spec.propose(asks)
+        drafts = np.zeros((steps, self.slots, k_w), np.int32)
+        dlens = np.zeros((steps, self.slots), np.int32)
+        for slot, _ctx, _n in asks:
+            prop = props.get(slot) or []
+            req = self._slot_req[slot]
+            budget = req.want - len(req.out)  # tokens the row may still emit
+            off = 0
+            for s in range(steps):
+                if budget <= 0:
+                    break
+                # A step emits dlen accepted drafts + 1 commit: no more
+                # drafts than the budget could emit.
+                k_use = min(self._slot_k[slot], budget - 1)
+                seg = prop[off: off + k_use]
+                # Skip the token the commit emits between slices: under
+                # full acceptance it IS the next chain token.
+                off += len(seg) + 1
+                budget -= len(seg) + 1
+                if not seg:
+                    break
+                drafts[s, slot, : len(seg)] = seg
+                dlens[s, slot] = len(seg)
+        if not dlens.any():
+            return False
+        self._h_occupancy.observe(self._active_count)
+        dev = self.device
+        t_disp = time.perf_counter()
+        with self._state_lock:
+            self._state, outs, emits = verify_chunk(
+                self._state, self.params, self.cfg,
+                torch.from_numpy(drafts).to(dev),
+                torch.from_numpy(dlens).to(dev), self.top_k, self.eos_id,
+                self.kv_fused)
+            outs, emits = outs.cpu().numpy(), emits.cpu().numpy()
+        self._h_dispatch.labels("verify").observe(
+            time.perf_counter() - t_disp)
+        with self._mlock:
+            self.dispatches += 1
+            self.spec_verify_dispatches += 1
+            self.steps += 2 * steps  # scoring + commit forward per verify
+        self._ramp_streak = 0
+        for s in range(steps):
+            # Accounting before routing: routing may free the slot.
+            drafted, accepted = 0, 0
+            for slot in range(self.slots):
+                d = int(dlens[s, slot])
+                if d == 0 or self._slot_req[slot] is None:
+                    continue
+                m = int(emits[s, slot].sum())
+                acc = min(max(m - 1, 0), d)
+                drafted += d
+                accepted += acc
+                if m:
+                    self._tune_slot(slot, acc, d)
+            with self._mlock:
+                self.spec_drafted_tokens += drafted
+                self.spec_accepted_tokens += accepted
+            self._dispatch_block(outs[s], emits[s])
+        return True
 
     # ------------------------------------------------------------------
 
@@ -1323,6 +1488,16 @@ class ContinuousDecoder:
                 "kv_defer_admissions": self.kv_defer_admissions,
                 "hol_bypasses": self.hol_bypasses,
                 "tenant_served": dict(self._tenant_served),
+                "spec_drafted_tokens": self.spec_drafted_tokens,
+                "spec_accepted_tokens": self.spec_accepted_tokens,
+                "spec_verify_dispatches": self.spec_verify_dispatches,
+                "spec_draft_dispatches": (self._spec.dispatches
+                                          if self._spec is not None else 0),
+                "spec_acceptance_rate": (
+                    self.spec_accepted_tokens / self.spec_drafted_tokens
+                    if self.spec_drafted_tokens else 0.0),
+                "spec_draft_k": (sum(self._slot_k) / len(self._slot_k)
+                                 if self._slot_k else 0.0),
                 **_UNPORTED_METRICS,
             }
         # The dense layout has no block pool: its block and byte gauges

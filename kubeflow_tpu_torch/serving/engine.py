@@ -64,6 +64,12 @@ class EngineConfig:
     prefix_cache_slots: int = 0
     prefix_cache_min_len: int = 16
     prefill_len_buckets: int = 0
+    # Speculative decoding (continuous mode): draft tokens verified per
+    # round (0 disables), and where they come from: "ngram" (host-side
+    # prompt/output lookup) or "model:<registry-name>" (a draft model
+    # sharing the slot layout). Greedy outputs are unchanged.
+    speculative_k: int = 0
+    draft_mode: str = "ngram"
     # "dense" (one full-length row per slot) or "paged" (a block pool).
     kv_layout: str = "dense"
     kv_block_size: int = 16

@@ -200,6 +200,8 @@ class ModelServer:
             prefix_cache_slots=cfg.prefix_cache_slots,
             prefix_cache_min_len=cfg.prefix_cache_min_len,
             prefill_len_buckets=cfg.prefill_len_buckets,
+            speculative_k=cfg.speculative_k,
+            draft_mode=cfg.draft_mode,
             kv_layout=cfg.kv_layout,
             kv_block_size=cfg.kv_block_size,
             kv_pool_blocks=cfg.kv_pool_blocks,

@@ -7,14 +7,16 @@ main path.
 ``flagship-1b`` at full width in bf16 (float32 master weights, adafactor
 with a 2-step warmup) at batch 4 x seq 2048, random weights from a fixed
 seed: two warm steps, ``--steps`` steps timed without the profiler, then
-``--steps`` steps under ``torch.profiler``. It prints one JSON line: the
-step time, the device time the step's kernels take (their durations
-summed: one stream, so they do not overlap), the device's idle share, the
-device time by group (the flash attention kernels, matrix products, the
-rest), each flash kernel's time and the kernels that take the most
-device time; ``--trace`` also
-writes the profiled steps' Chrome trace to that path. Needs a CUDA
-device.
+``--steps`` steps under ``torch.profiler``, kept only from a complete
+session (``chip_smoke.profiled_launches``: a discarded warm-up step, then
+a session that recorded every marker write and a whole number of
+launches per step). It prints one JSON line: the step time, the device
+time the step's kernels take (their durations summed: one stream, so
+they do not overlap), the device's idle share, the device time by group
+(the flash attention kernels, matrix products, the rest), each flash
+kernel's time and the kernels that take the most device time;
+``--trace`` also writes the kept session's Chrome trace to that path.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -49,8 +51,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_torch_train: no CUDA device", file=sys.stderr)
         return 2
-    from torch.profiler import ProfilerActivity, profile
-
+    from chip_smoke import profiled_launches
     from kubeflow_tpu_torch.models.registry import get_model
     from kubeflow_tpu_torch.train.data import place_batch, synthetic_stream
     from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
@@ -76,14 +77,10 @@ def main(argv=None) -> int:
     run(args.steps)
     step_ms = 1e3 * (time.perf_counter() - t0) / args.steps
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run(args.steps)
-        profiled_step_ms = 1e3 * (time.perf_counter() - t0) / args.steps
-
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    # A 16-byte write marks each step in the profiler's record.
+    marker = torch.empty(16, dtype=torch.uint8, device=dev)
+    kernels = profiled_launches(lambda: run(1), marker, args.steps,
+                                args.trace)
     device_us = sum(e.device_time_total for e in kernels)
     by_name: dict[str, list] = {}
     by_group = {"flash": 0.0, "gemm": 0.0, "other": 0.0}
@@ -94,8 +91,6 @@ def main(argv=None) -> int:
         by_group[_group(e.name)] += e.device_time_total
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])
     top = ranked[:12]
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -105,7 +100,6 @@ def main(argv=None) -> int:
         "gpu": smi, "model": MODEL, "dtype": "bf16",
         "batch": BATCH, "seq": SEQ, "optimizer": "adafactor",
         "steps": args.steps, "step_ms": step_ms,
-        "profiled_step_ms": profiled_step_ms,
         "device_ms_per_step": device_ms,
         "device_idle_share": 1 - device_ms / step_ms,
         "kernel_launches_per_step": len(kernels) / args.steps,

@@ -482,3 +482,112 @@ def test_block_forward_fused_on_the_card_matches_gathered(cuda):
                                rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(runs["gathered"][0], runs["cpu"][0],
                                rtol=1e-4, atol=1e-4)
+
+
+def _spec_cfg():
+    """lm-test-tiny widened to head_dim 64, which the paged kernel takes."""
+    from kubeflow_tpu_torch.models import transformer
+
+    return transformer.config("lm-test-tiny", dtype=torch.float32,
+                              d_model=256, n_heads=4, n_kv_heads=2)
+
+
+@pytest.mark.cuda
+def test_verify_step_fused_on_the_card_matches_gathered(cuda):
+    """Two ``verify_step`` rounds in f32 on the card from one admitted
+    paged state, with ``kv_fused`` (the span walk scores, the paged
+    kernel reads the commit pass) and without (both gathered): the same
+    tokens and emitted masks, last logits within 2e-3, pools within
+    1e-4. The drafts are each row's greedy chain with one miss, so rows
+    accept, reject, hit the budget cap and the cache end."""
+    from kubeflow_tpu_torch.models import decode as tdecode
+    from kubeflow_tpu_torch.models import transformer
+
+    cfg = _spec_cfg()
+    params = transformer.init(cfg, generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda)
+    slots, nb, bs, mb, k_w = 4, 16, 16, 3, 4
+    table = torch.arange(slots * mb, dtype=torch.int32,
+                         device=cuda).reshape(slots, mb)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    lens = torch.tensor([5, 17, 44, 9], dtype=torch.int32, device=cuda)
+    toks = torch.randint(1, cfg.vocab_size, (slots, 44), generator=gen,
+                         device=cuda, dtype=torch.int32)
+    base = tdecode.init_paged_state(cfg, slots, nb, bs, mb, device=cuda)
+    base["block_table"].copy_(table)
+    tdecode.paged_admit_rows_and_step(
+        base, params, cfg, torch.arange(slots, device=cuda), toks, lens,
+        torch.tensor([20, 3, 20, 20], dtype=torch.int32, device=cuda),
+        torch.zeros(slots, device=cuda))
+
+    def clone(state):
+        return {k: (clone(v) if isinstance(v, dict) else
+                    v.clone() if torch.is_tensor(v) else v)
+                for k, v in state.items()}
+
+    ref = clone(base)
+    _, chain, _ = tdecode.decode_chunk(ref, params, cfg, 2 * (k_w + 1))
+    chain = chain.T.to(torch.int32)
+    runs = {}
+    for fused in (False, True):
+        state = clone(base)
+        got = []
+        for r in range(2):
+            draft = chain[:, r * (k_w + 1): r * (k_w + 1) + k_w].clone()
+            draft[0, 2] = (draft[0, 2] + 1) % cfg.vocab_size
+            _, out, emitted = tdecode.verify_step(
+                state, params, cfg, draft,
+                torch.full((slots,), k_w, dtype=torch.int32, device=cuda),
+                kv_fused=fused)
+            got.append((out.cpu(), emitted.cpu()))
+        torch.cuda.synchronize()
+        runs[fused] = (got, state["last_logits"].cpu(),
+                       state["pool"]["k"].cpu(), state["length"].cpu())
+    (g_tok, g_last, g_pool, g_len), (f_tok, f_last, f_pool, f_len) = (
+        runs[False], runs[True])
+    for (ga, ge), (fa, fe) in zip(g_tok, f_tok):
+        assert torch.equal(ga, fa) and torch.equal(ge, fe)
+    assert torch.equal(g_len, f_len)
+    assert torch.isfinite(f_last).all()
+    torch.testing.assert_close(f_last, g_last, rtol=0, atol=2e-3)
+    torch.testing.assert_close(f_pool, g_pool, rtol=1e-4, atol=1e-4)
+    assert g_tok[0][1][0].sum() == 3  # two accepted, then the correction
+
+
+@pytest.mark.cuda
+def test_dense_span_forward_on_the_card_drops_the_spill(cuda):
+    """The dense ``_block_forward`` in f32 on the card over caches that
+    are a view of a buffer one row wider: the last row spans past its
+    end, the middle row is parked. The guard row behind the caches, the
+    parked row and every position before a span stay byte for byte;
+    logits within 1e-4 and caches within 1e-5 of the CPU's."""
+    from kubeflow_tpu_torch.models import decode as tdecode
+    from kubeflow_tpu_torch.models import transformer
+
+    cfg = _spec_cfg()
+    params = transformer.init(cfg, generator=torch.Generator().manual_seed(0),
+                              device="cpu")
+    total = 32
+    shape = (cfg.n_layers, 4, total, cfg.n_kv_heads, cfg.head_dim)
+    gen = torch.Generator().manual_seed(2)
+    bufs = {s: torch.randn(shape, generator=gen) for s in "kv"}
+    toks = torch.tensor([[5, 9, 2, 7, 1, 3], [3, 3, 8, 1, 2, 2],
+                         [8, 1, 4, 4, 2, 6]], dtype=torch.int32)
+    pos = torch.tensor([0, total, 29], dtype=torch.int32)
+    runs = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("card", cuda)):
+        buf = {s: b.to(dev) for s, b in bufs.items()}
+        logits = tdecode._block_forward(
+            _on(params, dev), cfg, buf["k"][:, :3], buf["v"][:, :3],
+            toks.to(dev), pos.to(dev), None)
+        runs[name] = (logits.cpu(), {s: b.cpu() for s, b in buf.items()})
+    for s in "kv":
+        after, before = runs["card"][1][s], bufs[s]
+        assert torch.equal(after[:, 3], before[:, 3])        # the guard row
+        assert torch.equal(after[:, 1], before[:, 1])        # parked
+        assert torch.equal(after[:, 0, 6:], before[:, 0, 6:])
+        assert torch.equal(after[:, 2, :29], before[:, 2, :29])
+        torch.testing.assert_close(after, runs["cpu"][1][s], rtol=1e-5,
+                                   atol=1e-5)
+    torch.testing.assert_close(runs["card"][0][[0, 2]],
+                               runs["cpu"][0][[0, 2]], rtol=1e-4, atol=1e-4)

@@ -205,9 +205,6 @@ def test_block_forward_rejects_unported_reads(models):
         tdecode._block_forward(tparams, tcfg, ts["pool"]["k"],
                                ts["pool"]["v"], toks, pos,
                                ts["block_table"][:1], ring=object())
-    with pytest.raises(ValueError, match="not yet ported"):
-        tdecode._block_forward(tparams, tcfg, ts["pool"]["k"],
-                               ts["pool"]["v"], toks, pos, None)
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["gathered", "fused"])

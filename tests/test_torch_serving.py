@@ -114,7 +114,7 @@ _OPTIONS = [
     (dict(kv_layout="dense", prefill_chunk_tokens=8),
      "requires kv_layout='paged'"),
     (dict(prefix_cache_slots=2), None),
-    (dict(speculative_k=2), "not yet ported"),
+    (dict(speculative_k=2), None),
     (dict(qos=object()), "not yet ported"),
     (dict(host_kv_bytes=1 << 20), "not yet ported"),
     (dict(prefill_chunk_tokens=8), None),
@@ -131,8 +131,8 @@ _OPTIONS = [
                          ids=[next(iter(o)) for o, _ in _OPTIONS])
 def test_decoder_unported_options_raise(weights, option, match):
     """Options of features not yet ported raise; the dense layout refuses
-    chunking as JAX does. The paged prefix cache and chunked prefill are
-    ported: those options build a decoder that serves."""
+    chunking as JAX does. The paged prefix cache, chunked prefill and
+    speculation are ported: those options build a decoder that serves."""
     _, _, tree = weights
     tcfg = ttransformer.config("lm-test-tiny", dtype=torch.float32)
     kw = {**DECODER_KW, **option}
@@ -245,7 +245,7 @@ def test_http_predict_stream_and_probes_match_jax(weights, jax_streams):
         server.stop()
 
 
-@pytest.mark.parametrize("flag", ["--qos-tenants", "--speculative-k",
+@pytest.mark.parametrize("flag", ["--qos-tenants", "--tp-shards",
                                   "--host-kv-bytes"])
 def test_cli_rejects_unported_flags(flag):
     from kubeflow_tpu_torch.serving.__main__ import main
@@ -253,6 +253,20 @@ def test_cli_rejects_unported_flags(flag):
     with pytest.raises(SystemExit) as e:
         main(["--model-name", "lm-test-tiny", "--kv-layout", "paged", flag,
               "2"])
+    assert e.value.code == 2
+
+
+@pytest.mark.parametrize("extra", [
+    ["--speculative-k", "2", "--decode-mode", "lockstep"],
+    ["--speculative-k", "2", "--draft-mode", "bogus"]],
+    ids=["lockstep", "draft-mode"])
+def test_cli_rejects_speculation_it_cannot_serve(extra):
+    """As the JAX CLI: verification rides the continuous decoder, and the
+    draft mode is ``ngram`` or ``model:<name>``."""
+    from kubeflow_tpu_torch.serving.__main__ import main
+
+    with pytest.raises(SystemExit) as e:
+        main(["--model-name", "lm-test-tiny", "--grpc-port", "-1", *extra])
     assert e.value.code == 2
 
 
