@@ -12,9 +12,9 @@ and its CLI (the paged KV cache read by the paged decode kernel, with
 the paged prefix path, chunked prefill and speculative decoding; the
 default dense server, whose plain predicts run the flash forward kernel,
 and its metrics, request ids and gRPC), trains
-``flagship-1b`` at full width through the port's training loop with
-attention in the flash kernels, and checks the output. Phases, each
-printed as one JSON line:
+``flagship-1b`` and ``flagship-deep`` at full width (and depth) through
+the port's training loop with attention in the flash kernels, and checks
+the output. Phases, each printed as one JSON line:
 
 (a) the card and the kernels' build times;
 (b) the paged decode kernel against ``_paged_decode_plain`` at the main
@@ -146,13 +146,37 @@ printed as one JSON line:
     equals off token for token on paged fused, paged gathered, dense,
     dense with ``model:llama-1b`` and paged fused with ``chunk_size`` 2
     (``verify_chunk``);
+(r) flagship-deep: the flash kernels at its training shape (B=4, T=S=2048,
+    Hq=24 over Hkv=4: group 6, D=128, causal) against the plain versions
+    under (g)'s limits in bf16 and f32, with the bf16 device time of the
+    forward and the backward, the call time, the plain versions', SDPA's
+    (call and device) and the bound; then ``flagship-deep`` at full width
+    and depth (16 layers, d 3072, 1.53B parameters) through
+    ``train.loop.run``, batch 4 x seq 2048, bf16 on f32 masters,
+    adafactor with ``grad_dtype="bfloat16"``, synthetic tokens, 8 steps
+    under remat ``"llm"``, ``"llm_res"`` and off: tokens/s, the median
+    step, MFU and the peak of allocated memory, and each flash kernel
+    launched exactly 16 x 8 times backward and 16 x 8 x 2 forward where
+    the backward recomputes it ("llm"), 16 x 8 otherwise; then the f32
+    gates at reduced depth: every remat policy and ``scan_group_size`` 2
+    against remat off (3 steps, 2 layers, batch 1 x seq 512: losses,
+    gradient norms and parameters within 1e-5, and bit for bit or not
+    printed), ``loss_chunks`` 8 against the unchunked loss (1e-5), a run
+    of 4 steps resumed from its checkpoint to 8 against a straight run of
+    8, on synthetic tokens and on a token file the script writes (1 layer;
+    bit for bit, every leaf of the final checkpoints), and a
+    ``profile_dir`` run whose Chrome trace must name the flash kernels;
+    the work files go under ``build/chip_smoke/`` and are removed;
 (f) the kernel table: each kernel's launches on the main paths, its
     error, its time, its plain version's time and its bound; the paged
     and RMSNorm rows give device time as ``ms`` and the call's as
     ``call_ms`` (the paged row also its device time at the long, busy
     and chunked shapes), the flash rows the call's at the training
     shape (hundreds of microseconds, where host time is noise) and the
-    f32 CUDA-core route's (``f32_ms``); the flash forward row adds the predict path's
+    f32 CUDA-core route's (``f32_ms``); the flash rows count flagship-1b's
+    and each flagship-deep run's launches (``launches_by_path``) and add
+    the times at flagship-deep's shape (``deep_shape``: ``ms`` device
+    time); the flash forward row adds the predict path's
     launches and its device and call times at the predict shape; the
     paged row counts its launches on (d), (n), (o) and (q)'s runs with
     speculation on (``launches_by_path``).
@@ -190,6 +214,15 @@ FLASH_TOL = {torch.float32: (1e-4, 1e-4, 1e-4, 1e-5),
 FLASH_MAIN = dict(b=4, t=2048, s=2048, hq=32, hkv=4, hd=128, causal=True)
 PLAIN_BLOCK_K = 1024  # flagship-1b's attn_block_k, for the plain path
 TRAIN_MODEL, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "flagship-1b", 4, 2048, 8
+# (r): flagship-deep at full width and depth under remat "llm", "llm_res"
+# and off (None); its flash shape, Hq 24 over Hkv 4 (group 6); the depth
+# of the f32 gates and of the resume check.
+DEEP_MODEL, DEEP_BATCH, DEEP_SEQ, DEEP_STEPS = "flagship-deep", 4, 2048, 8
+DEEP_POLICIES = ("llm", "llm_res", None)
+FLASH_DEEP = dict(b=4, t=2048, s=2048, hq=24, hkv=4, hd=128, causal=True)
+DEEP_GATE_LAYERS, DEEP_RESUME_LAYERS = 2, 1
+REMAT_POLICIES = ("dots", "dots_batched", "llm", "llm_qkv", "llm_attn",
+                  "llm_res", "none")
 
 MODEL = "llama-1b"
 SLOTS, MAX_SEQ, MAX_NEW, BLOCK = 8, 256, 32, 16
@@ -2007,11 +2040,93 @@ def phase_speculation() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_train(smi: str) -> dict:
+def n_params(mcfg) -> int:
+    d, f, hd = mcfg.d_model, mcfg.d_ff, mcfg.head_dim
+    return (2 * mcfg.vocab_size * d + d + mcfg.n_layers * (
+        d * (mcfg.n_heads + 2 * mcfg.n_kv_heads) * hd
+        + mcfg.n_heads * hd * d + 3 * d * f + 2 * d))
+
+
+def drive_train(cfg) -> dict:
+    """``train.loop.run(cfg)`` (``log_every`` 1) with the launch counts
+    reset just before it and read just after; losses and gradient norms
+    finite, the first loss near ln(vocab). tokens/s and MFU (bench.py's
+    formula, 6N + 12 * layers * avg attended length * attention width
+    FLOPs a token, against 989 TFLOP/s) over the whole window from the end
+    of step 1 (which includes warm-up) to the end of the last step, so a
+    stall in any step moves them; the median step beside them; the peak
+    of allocated memory over the run, with what was allocated before it
+    (what earlier phases still hold) and the run's own rise above that."""
     import math
 
     from kubeflow_tpu_torch import kernels
     from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.train import loop
+
+    lines, stamps = [], []
+
+    def log(line):
+        lines.append(line)
+        stamps.append(time.perf_counter())
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    result = loop.run(cfg, log=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    mcfg = get_model(cfg.model, **cfg.model_overrides).config
+    step_lines = [(line, at) for line, at in zip(lines, stamps)
+                  if line.startswith("step=")]
+    steps = [dict(kv.split("=") for kv in line.split()[:3])
+             for line, _ in step_lines]
+    losses = [float(x["loss"]) for x in steps]
+    norms = [float(x["grad_norm"]) for x in steps]
+    if len(losses) != cfg.steps:
+        raise AssertionError(f"{len(losses)} step lines, wanted "
+                             f"{cfg.steps}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"non-finite loss or grad norm: {losses} "
+                             f"{norms}")
+    if abs(losses[0] - math.log(mcfg.vocab_size)) > 1.0:
+        raise AssertionError(f"first loss {losses[0]} is not near "
+                             f"ln({mcfg.vocab_size})")
+    # Each log line follows a sync (the loss read), so the stamps of the
+    # step lines bound whole steps.
+    step_stamps = [at for _, at in step_lines]
+    timed_steps = cfg.steps - 1
+    window_s = step_stamps[-1] - step_stamps[0]
+    gaps = sorted(b - a for a, b in zip(step_stamps, step_stamps[1:]))
+    params = n_params(mcfg)
+    flops_per_token = (6.0 * params + 12.0 * mcfg.n_layers
+                       * (cfg.seq_len + 1) / 2 * mcfg.n_heads
+                       * mcfg.head_dim)
+    tokens_per_s = timed_steps * cfg.batch_size * cfg.seq_len / window_s
+    return {
+        "model": cfg.model, "batch": cfg.batch_size, "seq": cfg.seq_len,
+        "steps": cfg.steps, "optimizer": cfg.optimizer.name,
+        "grad_dtype": cfg.optimizer.grad_dtype, "dtype": str(mcfg.dtype),
+        "remat": mcfg.remat, "remat_policy": mcfg.remat_policy,
+        "layers": mcfg.n_layers, "params": params, "losses": losses,
+        "grad_norms": norms, "launches": launches,
+        "timed_steps": timed_steps, "window_s": window_s,
+        "step_ms_mean": 1e3 * window_s / timed_steps,
+        "step_ms_p50": 1e3 * gaps[len(gaps) // 2],
+        "tokens_per_s": tokens_per_s,
+        "mfu": flops_per_token * tokens_per_s / PEAK_OPS_PER_S["bf16"],
+        "wall_s": wall,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "allocated_before_gb": before / 1e9,
+        "peak_memory_rise_gb": (torch.cuda.max_memory_allocated()
+                                - before) / 1e9,
+        "loop_result": result,
+    }
+
+
+def phase_train(smi: str) -> dict:
     from kubeflow_tpu_torch.train import loop
     from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
 
@@ -2019,77 +2134,22 @@ def phase_train(smi: str) -> dict:
         model=TRAIN_MODEL, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
         steps=TRAIN_STEPS, log_every=1, prefetch=2, device="cuda",
         optimizer=OptimizerConfig(name="adafactor", warmup_steps=2))
-    lines, stamps = [], []
-
-    def log(line):
-        lines.append(line)
-        stamps.append(time.perf_counter())
-
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    result = loop.run(cfg, log=log)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-
-    model = get_model(TRAIN_MODEL)
-    mcfg = model.config
-    steps = [dict(kv.split("=") for kv in line.split()[:3])
-             for line in lines if line.startswith("step=")]
-    losses = [float(s["loss"]) for s in steps]
-    norms = [float(s["grad_norm"]) for s in steps]
-    if len(losses) != TRAIN_STEPS:
-        raise AssertionError(f"{len(losses)} step lines, wanted "
-                             f"{TRAIN_STEPS}")
-    if not all(math.isfinite(x) for x in losses + norms):
-        raise AssertionError(f"non-finite loss or grad norm: {losses} "
-                             f"{norms}")
-    if abs(losses[0] - math.log(mcfg.vocab_size)) > 1.0:
-        raise AssertionError(f"first loss {losses[0]} is not near "
-                             f"ln({mcfg.vocab_size})")
-    want = mcfg.n_layers * TRAIN_STEPS
+    out = drive_train(cfg)
+    want = out["layers"] * TRAIN_STEPS
     for key in ("flash_attention_fwd", "flash_attention_bwd"):
-        if launches[key] != want:
-            raise AssertionError(f"{key} launched {launches[key]} times, "
-                                 f"expected {mcfg.n_layers} layers x "
-                                 f"{TRAIN_STEPS} steps")
-    # Each log line follows a sync (the loss read), so the stamps of the
-    # step lines bound whole steps. The rate is taken over all the work
-    # from the end of step 1 (which includes warm-up) to the end of the
-    # last step, so a stall in any step moves it; the median gap is a
-    # per-step statistic beside it.
-    step_stamps = stamps[:TRAIN_STEPS]
-    timed_steps = TRAIN_STEPS - 1
-    window_s = step_stamps[-1] - step_stamps[0]
-    gaps = sorted(b - a for a, b in zip(step_stamps, step_stamps[1:]))
-    step_p50_s = gaps[len(gaps) // 2]
-    d, f, hd = mcfg.d_model, mcfg.d_ff, mcfg.head_dim
-    n_params = (2 * mcfg.vocab_size * d + d + mcfg.n_layers * (
-        d * (mcfg.n_heads + 2 * mcfg.n_kv_heads) * hd
-        + mcfg.n_heads * hd * d + 3 * d * f + 2 * d))
-    # bench.py: 6N + 12 * layers * avg attended length * attention width.
-    flops_per_token = (6.0 * n_params + 12.0 * mcfg.n_layers
-                       * (TRAIN_SEQ + 1) / 2 * mcfg.n_heads * hd)
-    tokens_per_s = timed_steps * TRAIN_BATCH * TRAIN_SEQ / window_s
-    out = {
-        "gpu": smi, "model": TRAIN_MODEL, "batch": TRAIN_BATCH,
-        "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "optimizer": "adafactor",
-        "dtype": str(mcfg.dtype), "params": n_params, "losses": losses,
-        "grad_norms": norms, "launches": launches,
-        "timed_steps": timed_steps, "window_s": window_s,
-        "step_ms_mean": 1e3 * window_s / timed_steps,
-        "step_ms_p50": 1e3 * step_p50_s, "tokens_per_s": tokens_per_s,
-        "mfu": flops_per_token * tokens_per_s / PEAK_OPS_PER_S["bf16"],
-        "wall_s": wall,
-        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "loop_result": result,
-    }
+        if out["launches"][key] != want:
+            raise AssertionError(f"{key} launched {out['launches'][key]} "
+                                 f"times, expected {out['layers']} layers "
+                                 f"x {TRAIN_STEPS} steps")
+    out = {"gpu": smi, **out}
     emit("h_train_main_path", **out)
     return out
 
 
-def phase_train_f32_parity() -> dict:
+def _train_steps(dev, model_name: str, steps: int, seq: int, **overrides):
+    """(metrics, params, launches) of ``steps`` train steps of
+    ``model_name`` in f32 with ``overrides``, adafactor with a 1-step
+    warmup, from seed-0 weights on seed-5 synthetic tokens, batch 1."""
     from kubeflow_tpu_torch import kernels
     from kubeflow_tpu_torch.models.registry import get_model
     from kubeflow_tpu_torch.train.data import place_batch, synthetic_stream
@@ -2097,50 +2157,336 @@ def phase_train_f32_parity() -> dict:
     from kubeflow_tpu_torch.train.trainer import build_train_step, init_state
     from kubeflow_tpu_torch.weights import flatten
 
-    dev = torch.device("cuda")
+    model = get_model(model_name, dtype=torch.float32, **overrides)
     opt_cfg = OptimizerConfig(name="adafactor", warmup_steps=1)
-    runs = {}
-    for impl in ("splash", "xla"):
-        model = get_model(TRAIN_MODEL, dtype=torch.float32, attn_impl=impl)
-        state = init_state(torch.Generator(device=dev).manual_seed(0),
-                           model, opt_cfg, device=dev)
-        step_fn = build_train_step(model, opt_cfg)
-        stream = synthetic_stream(model, 1, 1024, seed=5)
-        kernels.reset_launches()
-        metrics = []
-        for _ in range(3):
-            state, met = step_fn(state, place_batch(next(stream), dev))
-            metrics.append({k: float(met[k]) for k in ("loss",
-                                                       "grad_norm")})
-        runs[impl] = {"metrics": metrics,
-                      "launches": dict(kernels.LAUNCHES),
-                      "params": flatten(state.params)}
-        del state, step_fn
-        torch.cuda.empty_cache()
-    if runs["splash"]["launches"]["flash_attention_fwd"] != 9 or \
-            runs["xla"]["launches"]["flash_attention_fwd"] != 0:
+    state = init_state(torch.Generator(device=dev).manual_seed(0), model,
+                       opt_cfg, device=dev)
+    step_fn = build_train_step(model, opt_cfg)
+    stream = synthetic_stream(model, 1, seq, seed=5)
+    kernels.reset_launches()
+    metrics = []
+    for _ in range(steps):
+        state, met = step_fn(state, place_batch(next(stream), dev))
+        metrics.append({k: float(met[k]) for k in ("loss", "grad_norm")})
+    return metrics, flatten(state.params), dict(kernels.LAUNCHES)
+
+
+def _compare(got, ref) -> dict:
+    """Two runs' (metrics, params): the largest relative error of the
+    losses and gradient norms, the largest parameter error relative to
+    its leaf's largest magnitude, and whether they are bit for bit
+    equal."""
+    (m_a, p_a), (m_b, p_b) = got, ref
+    return {
+        "max_rel_err_loss_grad_norm": max(
+            abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(m_a, m_b)
+            for k in ("loss", "grad_norm")),
+        "max_param_err_rel_to_leaf_max": max(
+            ((p - p_b[n]).abs().max() / p_b[n].abs().max()).item()
+            for n, p in p_a.items()),
+        "bitwise": m_a == m_b and all(torch.equal(p, p_b[n])
+                                      for n, p in p_a.items())}
+
+
+def _check_close(name: str, errs: dict, tol: float) -> None:
+    if errs["max_rel_err_loss_grad_norm"] > tol or \
+            errs["max_param_err_rel_to_leaf_max"] > tol:
+        raise AssertionError(f"{name}: {errs} past {tol}")
+
+
+def phase_train_f32_parity() -> dict:
+    dev = torch.device("cuda")
+    runs = {impl: _train_steps(dev, TRAIN_MODEL, 3, 1024, attn_impl=impl)
+            for impl in ("splash", "xla")}
+    launches = {impl: run[2] for impl, run in runs.items()}
+    if launches["splash"]["flash_attention_fwd"] != 9 or \
+            launches["xla"]["flash_attention_fwd"] != 0:
         raise AssertionError("kernel counts do not show which run used the "
-                             f"kernels: {runs['splash']['launches']} / "
-                             f"{runs['xla']['launches']}")
-    rel = max(abs(a[k] - b[k]) / abs(b[k])
-              for a, b in zip(runs["splash"]["metrics"],
-                              runs["xla"]["metrics"])
-              for k in ("loss", "grad_norm"))
-    param_err = max(
-        ((p - runs["xla"]["params"][n]).abs().max()
-         / runs["xla"]["params"][n].abs().max()).item()
-        for n, p in runs["splash"]["params"].items())
+                             f"kernels: {launches}")
+    errs = _compare(runs["splash"][:2], runs["xla"][:2])
     out = {"model": TRAIN_MODEL, "dtype": "float32", "batch": 1,
-           "seq": 1024, "steps": 3,
-           "kernel": runs["splash"]["metrics"],
-           "plain": runs["xla"]["metrics"],
-           "max_rel_err_loss_grad_norm": rel,
-           "max_param_err_rel_to_leaf_max": param_err,
-           "launches": {k: runs[k]["launches"] for k in runs}}
+           "seq": 1024, "steps": 3, "kernel": runs["splash"][0],
+           "plain": runs["xla"][0], **errs, "launches": launches}
     emit("i_train_f32_kernel_vs_plain", **out)
-    if rel > 1e-5 or param_err > 1e-5:
-        raise AssertionError(f"f32 training: kernel and plain runs differ "
-                             f"(metrics {rel}, params {param_err})")
+    _check_close("f32 training: kernel and plain runs", errs, 1e-5)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# (r) flagship-deep: the flash kernels at its heads, its training under
+# remat, and the f32 gates of remat, the chunked loss, resume and the
+# profiler hook
+# ---------------------------------------------------------------------------
+
+
+def phase_deep_flash(dev, flush) -> dict:
+    """The flash kernels at flagship-deep's training shape (B 4, T = S =
+    2048, Hq 24 over Hkv 4: group 6, D 128, causal) against the plain
+    versions under (g)'s limits, bf16 (the tensor cores) and f32 (the CUDA
+    cores); in bf16 the device time of the forward and of the backward's
+    three kernels, the call time, the plain versions' and SDPA's (forward,
+    and backward alone), and the bound, as (g) counts it."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch import kernels
+    from kubeflow_tpu_torch.ops import attention as A
+
+    m = FLASH_DEEP
+    cases = [flash_check("deep", "splash", dev, dtype, **m)
+             for dtype in (torch.bfloat16, torch.float32)]
+    q, k, v, g = flash_inputs(dev, torch.bfloat16, **m)
+    scale, hkv = m["hd"] ** -0.5, m["hkv"]
+    out, lse = kernels.flash_fwd(q, k, v, None, True, scale)
+    qf, kf, vf, gf = (A._fold_q(q, hkv), A._fold_kv(k), A._fold_kv(v),
+                      A._fold_q(g, hkv))
+    kvm = A._fold_mask(None, m["b"], m["s"], hkv, dev)
+    out_f, lse_f = A._flash_fwd_plain(qf, kf, vf, kvm, causal=True,
+                                      scale=scale, block_k=PLAIN_BLOCK_K)
+    qt, kt, vt, gt = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
+    leaves = [x.clone().requires_grad_(True) for x in (qt, kt, vt)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                              enable_gqa=True)
+
+    def fwd():
+        return kernels.flash_fwd(q, k, v, None, True, scale)
+
+    def bwd():
+        return kernels.flash_bwd(q, k, v, None, out, lse, g, True, scale)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, leaves, gt, retain_graph=True)
+
+    timing = {
+        "fwd": {"ms": device_ms(fwd, flush, 10, "flash_fwd_tc_kernel"),
+                "call_ms": time_ms(fwd, flush, 10),
+                "plain_ms": time_ms(lambda: A._flash_fwd_plain(
+                    qf, kf, vf, kvm, causal=True, scale=scale,
+                    block_k=PLAIN_BLOCK_K), flush, 3),
+                "library_ms": time_ms(sdpa_fwd, flush, 10),
+                "library_device_ms": device_ms(sdpa_fwd, flush, 10)},
+        "bwd": {"ms": device_ms(bwd, flush, 5),
+                "call_ms": time_ms(bwd, flush, 5),
+                "plain_ms": time_ms(lambda: A._flash_bwd_plain(
+                    qf, kf, vf, kvm, out_f, lse_f, gf, causal=True,
+                    scale=scale, block_k=PLAIN_BLOCK_K), flush, 3),
+                "library_ms": time_ms(sdpa_bwd, flush, 10),
+                "library_device_ms": device_ms(sdpa_bwd, flush, 10)},
+    }
+    pairs = m["b"] * m["hq"] * causal_pairs(m["t"], m["s"], True)
+    qo_bytes = m["b"] * m["t"] * m["hq"] * m["hd"] * 2
+    kv_bytes = m["b"] * m["s"] * hkv * m["hd"] * 2
+    lse_bytes = m["b"] * m["hq"] * m["t"] * 4
+    for part, (bytes_moved, ops) in {
+            "fwd": (2 * qo_bytes + 2 * kv_bytes + lse_bytes,
+                    4 * m["hd"] * pairs),
+            "bwd": (4 * qo_bytes + 4 * kv_bytes + lse_bytes,
+                    10 * m["hd"] * pairs)}.items():
+        bound_ms, bound_by = bound(bytes_moved, ops, "bf16")
+        timing[part].update(bound_ms=bound_ms, bound_by=bound_by)
+    max_err = {part: max(max(c["max_abs_err"][n] for n in names)
+                         for c in cases)
+               for part, names in (("fwd", ("out", "lse")),
+                                   ("bwd", ("dq", "dk", "dv")))}
+    res = {"shape": {**m, "dtype": "bf16"}, "cases": cases,
+           "max_abs_err": max_err, "timing": timing}
+    emit("r_flash_deep_shape", **res)
+    del leaves, sdpa_out
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_deep_train(smi: str) -> dict:
+    """flagship-deep at full width and depth through ``train.loop.run``,
+    batch 4 x seq 2048, bf16 compute on f32 masters, adafactor,
+    ``grad_dtype="bfloat16"`` (bench.py:456-458's recipe), synthetic
+    tokens, under remat "llm", "llm_res" and off. Each flash kernel must
+    launch the expected number of times: the backward once a layer a
+    step, the forward once more where the backward recomputes it."""
+    from kubeflow_tpu_torch.train import loop
+    from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
+
+    runs = {}
+    for policy in DEEP_POLICIES:
+        overrides = ({"remat": True, "remat_policy": policy} if policy
+                     else {"remat": False})
+        cfg = loop.RunConfig(
+            model=DEEP_MODEL, model_overrides=overrides,
+            batch_size=DEEP_BATCH, seq_len=DEEP_SEQ, steps=DEEP_STEPS,
+            log_every=1, prefetch=2, device="cuda",
+            optimizer=OptimizerConfig(name="adafactor", warmup_steps=2,
+                                      grad_dtype="bfloat16"))
+        out = drive_train(cfg)
+        rerun = policy not in (None, "llm_res")
+        want = {"flash_attention_fwd":
+                out["layers"] * DEEP_STEPS * (2 if rerun else 1),
+                "flash_attention_bwd": out["layers"] * DEEP_STEPS}
+        for key, n in want.items():
+            if out["launches"][key] != n:
+                raise AssertionError(f"flagship-deep ({policy}): {key} "
+                                     f"launched {out['launches'][key]} "
+                                     f"times, expected {n}")
+        out["expected_launches"] = want
+        runs[policy or "off"] = out
+        emit("r_deep_train", gpu=smi, policy=policy or "off", **out)
+    return runs
+
+
+def _leaf_diff(flat_a: dict, flat_b: dict) -> tuple[bool, float]:
+    """(bit for bit equal, largest difference relative to its leaf's
+    largest magnitude) of two checkpoints' leaves."""
+    if set(flat_a) != set(flat_b):
+        raise AssertionError("the checkpoints hold different leaves")
+    rel = max(float(np.abs(flat_a[k].astype(np.float64) - flat_b[k]).max()
+                    / max(float(np.abs(flat_b[k]).max()), 1e-30))
+              for k in flat_a)
+    return all(np.array_equal(flat_a[k], flat_b[k]) for k in flat_a), rel
+
+
+def _resume_check(dev, workdir: str, data_path: str | None) -> dict:
+    """A run of 4 steps, its checkpoint, then a resumed run to 8 against a
+    straight run of 8, at f32 and reduced depth: the logged loss of every
+    step and the final checkpoints (parameters, optimizer slots, counts),
+    leaf by leaf. A second straight run says whether a run repeats bit for
+    bit on this card; where it does, resume must too, and where it does
+    not, resume must differ from the straight run by no more than 1e-5 of
+    each leaf's largest magnitude."""
+    import os
+
+    from kubeflow_tpu_torch.train import checkpoint as ckpt
+    from kubeflow_tpu_torch.train import loop
+    from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
+
+    opt_cfg = OptimizerConfig(name="adafactor", warmup_steps=1)
+    logs = {}
+
+    def run(tag, steps, ckpt_dir):
+        cfg = loop.RunConfig(
+            model=DEEP_MODEL, model_overrides={
+                "n_layers": DEEP_RESUME_LAYERS, "dtype": "float32"},
+            batch_size=1, seq_len=512, steps=steps, log_every=1,
+            prefetch=2, device=str(dev), optimizer=opt_cfg,
+            data_path=data_path, checkpoint_dir=ckpt_dir)
+        loop.run(cfg, log=lambda line: logs.setdefault(tag, []).append(
+            line))
+
+    def step_losses(tag):
+        return [ln.split()[1] for ln in logs[tag] if ln.startswith("step=")]
+
+    dirs = {tag: os.path.join(workdir, tag)
+            for tag in ("straight", "again", "resumed")}
+    run("straight", 8, dirs["straight"])
+    run("again", 8, dirs["again"])
+    run("first", 4, dirs["resumed"])
+    run("second", 8, dirs["resumed"])
+    if logs["second"][0] != "resumed from checkpoint step 4":
+        raise AssertionError(f"no resume: {logs['second'][0]}")
+    final = {tag: ckpt._load(d, 8) for tag, d in dirs.items()}
+    repeat_bitwise, repeat_rel = _leaf_diff(final["again"], final["straight"])
+    bitwise, rel = _leaf_diff(final["resumed"], final["straight"])
+    out = {"data": "token_file" if data_path else "synthetic",
+           "losses": step_losses("straight"),
+           "resumed_losses": step_losses("first") + step_losses("second"),
+           "bitwise": bitwise, "max_rel_diff": rel,
+           "repeat_bitwise": repeat_bitwise, "repeat_max_rel_diff": repeat_rel,
+           "leaves": len(final["straight"])}
+    if repeat_bitwise and not bitwise or rel > 1e-5:
+        raise AssertionError(f"resume differs from the straight run: {out}")
+    return out
+
+
+def phase_deep_gates(dev=torch.device("cuda")) -> dict:
+    """f32 at reduced depth on the card: every remat policy and
+    ``scan_group_size`` 2 against remat off (3 steps: losses, gradient
+    norms and parameters within 1e-5, as (i)); ``loss_chunks`` 8 against
+    the unchunked loss (1e-5: the same f32 sums in chunk order); resume
+    against a straight run, on synthetic tokens and on a token file the
+    script writes (bit for bit where a straight run repeats bit for bit:
+    the same f32 operations on the same values; see ``_resume_check``);
+    a ``profile_dir`` run whose trace names the flash kernels."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.train import loop
+    from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
+    from kubeflow_tpu_torch.train.tokenstore import write_token_file
+
+    out = {"layers": DEEP_GATE_LAYERS, "batch": 1, "seq": 512,
+           "dtype": "float32", "steps": 3}
+
+    def steps(**overrides):
+        return _train_steps(dev, DEEP_MODEL, 3, 512,
+                            n_layers=DEEP_GATE_LAYERS, **overrides)
+
+    ref_m, ref_p, ref_l = steps(remat=False)
+    remat = {}
+    for policy in REMAT_POLICIES + ("group2",):
+        kw = ({"remat_policy": "llm", "scan_layers": True,
+               "scan_group_size": 2} if policy == "group2"
+              else {"remat_policy": policy})
+        m, p, launches = steps(remat=True, **kw)
+        remat[policy] = {**_compare((m, p), (ref_m, ref_p)),
+                         "flash_fwd_launches": launches[
+                             "flash_attention_fwd"]}
+        del p
+    out["remat_vs_off"] = remat
+    out["off_flash_fwd_launches"] = ref_l["flash_attention_fwd"]
+    m, p, _ = steps(remat=False, loss_chunks=8)
+    out["loss_chunks_8_vs_unchunked"] = _compare((m, p), (ref_m, ref_p))
+    del p, ref_p
+    for name, errs in [*(("remat " + k, v) for k, v in remat.items()),
+                       ("loss_chunks 8", out["loss_chunks_8_vs_unchunked"])]:
+        _check_close(name, errs, 1e-5)
+    torch.cuda.empty_cache()
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke")
+    os.makedirs(root, exist_ok=True)
+    work = tempfile.mkdtemp(dir=root)
+    try:
+        tokens = os.path.join(work, "corpus.ktpu")
+        write_token_file(tokens, np.random.default_rng(0).integers(
+            0, get_model(DEEP_MODEL).config.vocab_size, 200_000))
+        out["resume"] = [
+            _resume_check(dev, os.path.join(work, "synthetic"), None),
+            _resume_check(dev, os.path.join(work, "token_file"), tokens)]
+        prof_dir = os.path.join(work, "profile")
+        lines = []
+        loop.run(loop.RunConfig(
+            model=DEEP_MODEL, model_overrides={"n_layers": DEEP_GATE_LAYERS},
+            batch_size=1, seq_len=512, steps=4, log_every=1,
+            device=str(dev),
+            optimizer=OptimizerConfig(name="adafactor", warmup_steps=1),
+            profile_dir=prof_dir, profile_start_step=1, profile_steps=2),
+            log=lines.append)
+        traces = glob.glob(os.path.join(prof_dir, "*.pt.trace.json"))
+        if f"profiler trace written to {prof_dir}" not in lines or \
+                len(traces) != 1:
+            raise AssertionError(f"no profiler trace: {traces} {lines}")
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+        kernels, flash = {}, {}
+        for e in events:
+            if e.get("cat") == "kernel":
+                name = e.get("name", "")[:80]
+                kernels[name] = kernels.get(name, 0) + 1
+                if "flash_" in name:
+                    flash[name] = flash.get(name, 0) + 1
+        if not any("flash_fwd" in n for n in flash) or \
+                not any("flash_bwd" in n for n in flash):
+            raise AssertionError(f"the trace names no flash kernel: "
+                                 f"{sorted(kernels)[:20]}")
+        out["profile"] = {"trace_bytes": os.path.getsize(traces[0]),
+                          "flash_kernels": flash}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit("r_deep_f32_gates", **out)
     return out
 
 
@@ -2196,6 +2542,7 @@ def main() -> int:
     rms = phase_rms(dev, flush)
     flash = phase_flash(dev, flush)
     flash_predict = phase_flash_predict(dev, flush)
+    deep_flash = phase_deep_flash(dev, flush)
     del flush
     torch.cuda.empty_cache()
     main_path = phase_main_path()
@@ -2209,6 +2556,8 @@ def main() -> int:
     spec = phase_speculation()
     train = phase_train(smi)
     phase_train_f32_parity()
+    deep = phase_deep_train(smi)
+    phase_deep_gates()
 
     p, r = paged["bf16"], rms[f"{SLOTS}x2048"]
     paged_paths = {
@@ -2240,8 +2589,10 @@ def main() -> int:
     ]
     # One set of kernels serves both TPU kernels' names; the main paths
     # ask for "splash" (training) and None (llama-1b's plain predict), so
-    # the "pallas" rows launch 0 times there. The forward row counts both
-    # paths: training's steps and the default server's plain predict.
+    # the "pallas" rows launch 0 times there. The rows count every path:
+    # flagship-1b's steps, flagship-deep's under each remat (the forward
+    # again in the backward where it recomputes) and, forward only, the
+    # default server's plain predict.
     predict_launches = default["dense"]["plain_launches"][
         "flash_attention_fwd"]
     fp = flash_predict
@@ -2260,10 +2611,21 @@ def main() -> int:
                 "ms": m["ms"], "plain_ms": m["plain_ms"],
                 "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
                 "library_ms": m["library_ms"], "f32_ms": m["f32_ms"]}
+            if impl == "splash":
+                by_path = {"train": row["launches"]}
+                for policy, run in deep.items():
+                    by_path[f"deep_{policy}"] = run["launches"][key]
+                if part == "fwd":
+                    by_path["predict"] = predict_launches
+                row["launches_by_path"] = by_path
+                row["launches"] = sum(by_path.values())
+                dt = deep_flash["timing"][part]
+                row["deep_shape"] = {
+                    **{k: dt[k] for k in (
+                        "ms", "call_ms", "plain_ms", "library_ms",
+                        "library_device_ms", "bound_ms", "bound_by")},
+                    "max_abs_err": deep_flash["max_abs_err"][part]}
             if impl == "splash" and part == "fwd":
-                row["launches_by_path"] = {"train": row["launches"],
-                                           "predict": predict_launches}
-                row["launches"] += predict_launches
                 row["predict_shape"] = {
                     kind: {k: fp[kind][k] for k in (
                         "device_ms", "call_ms", "plain_ms", "library_ms",

@@ -5,7 +5,7 @@
   versions) and paged single-token decode attention (CUDA kernel
   ``csrc/paged_decode.cu`` + plain version).
 - :mod:`~kubeflow_tpu_torch.ops.losses` — softmax cross entropy with
-  z-loss.
+  z-loss, whole or over row chunks (``chunked_lm_head_loss``).
 - :mod:`~kubeflow_tpu_torch.ops.norms` — RMSNorm (Triton kernel opt-in,
   with its backward) and LayerNorm.
 - :mod:`~kubeflow_tpu_torch.ops.rotary` — rotary position embeddings.

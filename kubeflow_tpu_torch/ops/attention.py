@@ -186,6 +186,31 @@ def _fold_mask(kv_mask, b, s_len, hkv, device):
     return kvm.repeat_interleave(hkv, dim=0).reshape(b * hkv, s_len, 1)
 
 
+@torch.library.custom_op(
+    "kubeflow_tpu_torch::flash_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? kv_mask, bool causal, "
+           "float scale, int block_k, bool use_kernel) -> (Tensor, Tensor)")
+def _flash_fwd(q, k, v, kv_mask, causal, scale, block_k, use_kernel):
+    """The flash forward on the [B, T, Hq, D] layout: (out, lse [B, Hq, T]
+    f32). The CUDA kernel with ``use_kernel``, else the plain version."""
+    if use_kernel:
+        return kernels.flash_fwd(q, k, v, kv_mask, causal, scale)
+    b, hkv = q.shape[0], k.shape[2]
+    kvm = _fold_mask(kv_mask, b, k.shape[1], hkv, q.device)
+    out_f, lse_f = _flash_fwd_plain(
+        _fold_q(q, hkv), _fold_kv(k), _fold_kv(v), kvm, causal=causal,
+        scale=scale, block_k=block_k)
+    return (_unfold_q(out_f, b).contiguous(),
+            lse_f.reshape(b, q.shape[2], q.shape[1]))
+
+
+# The forward as a dispatched op, so a selective checkpoint region can keep
+# its outputs: out and lse are the residuals JAX names "attn_res", and a
+# region that keeps them (remat policy "llm_res") never runs the forward
+# again in the backward.
+FLASH_FWD_OP = torch.ops.kubeflow_tpu_torch.flash_fwd.default
+
+
 class _FlashAttention(torch.autograd.Function):
     """Flash attention with its own backward, on the [B, T, Hq, D] layout.
 
@@ -195,16 +220,8 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, causal, scale, block_k, use_kernel):
-        b, hkv = q.shape[0], k.shape[2]
-        if use_kernel:
-            out, lse = kernels.flash_fwd(q, k, v, kv_mask, causal, scale)
-        else:
-            kvm = _fold_mask(kv_mask, b, k.shape[1], hkv, q.device)
-            out_f, lse_f = _flash_fwd_plain(
-                _fold_q(q, hkv), _fold_kv(k), _fold_kv(v), kvm,
-                causal=causal, scale=scale, block_k=block_k)
-            out = _unfold_q(out_f, b).contiguous()
-            lse = lse_f.reshape(b, q.shape[2], q.shape[1])
+        out, lse = FLASH_FWD_OP(q, k, v, kv_mask, causal, scale, block_k,
+                                use_kernel)
         ctx.save_for_backward(q, k, v, kv_mask, out, lse)
         ctx.causal, ctx.scale = causal, scale
         ctx.block_k, ctx.use_kernel = block_k, use_kernel

@@ -4,14 +4,14 @@ Cross entropy is computed in float32 from (bf16) logits with the
 max-subtracted logsumexp, plus the z-loss regularizer that keeps logits
 from drifting when training in low precision. Masked positions (label < 0)
 contribute zero and are excluded from the normalizer.
-
-``chunked_lm_head_loss`` (the ``loss_chunks > 0`` path) is not yet ported;
-``models/transformer.py`` raises before reaching it.
+``chunked_lm_head_loss`` (the ``loss_chunks > 0`` path) applies the LM
+head and the same loss a chunk of rows at a time.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 def _nll_and_lse(logits, labels):
@@ -41,6 +41,53 @@ def softmax_cross_entropy(logits, labels, *, z_loss: float = 0.0,
     metrics = {"loss": loss, "tokens": tokens}
     if z_loss:
         zl = z_loss * (torch.square(lse) * maskf).sum() / tokens
+        metrics["z_loss"] = zl
+        loss = loss + zl
+    return loss, metrics
+
+
+def _chunk_sums(x, head, labels):
+    """(sum of nll, sum of lse^2, tokens) over one chunk's unmasked rows."""
+    nll, lse = _nll_and_lse(x @ head, labels)
+    maskf = (labels >= 0).float()
+    return ((nll * maskf).sum(), (torch.square(lse) * maskf).sum(),
+            maskf.sum())
+
+
+def chunked_lm_head_loss(x, head, labels, *, z_loss: float = 0.0,
+                         n_chunks: int = 4):
+    """LM head matmul + cross entropy without ever materializing the full
+    ``[N, V]`` logits. Rows go in ``n_chunks`` chunks, each under a
+    checkpoint region while autograd records: the forward keeps only
+    per-chunk sums, the backward recomputes a chunk's logits when it
+    needs them. Numerics match :func:`softmax_cross_entropy` (the same
+    logsumexp in f32, z-loss and masking), summed chunk by chunk as JAX's
+    scan does.
+
+    x: [N, D] final hidden states; head: [D, V]; labels: [N] int
+    (negative = ignore). Returns (loss, metrics) like the unchunked path.
+    """
+    n = x.shape[0]
+    if n % n_chunks:
+        raise ValueError(f"rows {n} not divisible by n_chunks {n_chunks}")
+    rows = n // n_chunks
+    nll_sum = zsq_sum = tok_sum = torch.zeros((), dtype=torch.float32,
+                                              device=x.device)
+    for i in range(n_chunks):
+        args = (x[i * rows:(i + 1) * rows], head,
+                labels[i * rows:(i + 1) * rows])
+        if torch.is_grad_enabled():
+            sums = checkpoint(_chunk_sums, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            sums = _chunk_sums(*args)
+        nll_sum, zsq_sum, tok_sum = (nll_sum + sums[0], zsq_sum + sums[1],
+                                     tok_sum + sums[2])
+    tokens = torch.clamp_min(tok_sum, 1.0)
+    loss = nll_sum / tokens
+    metrics = {"loss": loss, "tokens": tokens}
+    if z_loss:
+        zl = z_loss * zsq_sum / tokens
         metrics["z_loss"] = zl
         loss = loss + zl
     return loss, metrics

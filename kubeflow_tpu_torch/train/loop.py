@@ -8,11 +8,19 @@ step-time histogram, throughput and input-stall accounting, prints its
 ``kubeflow-tpu-metrics:`` log line and returns (and prints) the same result
 keys as the JAX loop.
 
+As the JAX loop does, it saves checkpoints (``checkpoint_dir``, every
+``checkpoint_every`` steps, asynchronously with ``checkpoint_async``, and
+once more at the end) and resumes from the latest one with the data stream
+re-anchored at that step; on SIGTERM it stops after the step in flight and
+saves that step synchronously. ``data_path`` reads a token file
+(``train/tokenstore.py``) instead of synthetic tokens; ``profile_dir``
+writes a ``torch.profiler`` Chrome trace of ``profile_steps`` steps from
+``profile_start_step`` (counted from the first step this run takes).
+
 Not yet ported, and refused at the start of :func:`run` before any step:
-checkpoints (``checkpoint_dir``), a token store (``data_path``), elastic
-resharding (``elastic_poll_steps``), profiling (``profile_dir``), a mesh
-of more than one device, and the job-status publish that the job's
-environment (``KUBEFLOW_TPU_JOB_NAME``) asks for.
+elastic resharding (``elastic_poll_steps``), a mesh of more than one
+device, and the job-status publish that the job's environment
+(``KUBEFLOW_TPU_JOB_NAME``) asks for.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from __future__ import annotations
 import json
 import os
 import signal
+import socket
 import sys
 import time
 from dataclasses import dataclass, field
@@ -29,6 +38,7 @@ import torch
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.registry import get_model
 from kubeflow_tpu_torch.observability.metrics import Histogram
+from kubeflow_tpu_torch.train.checkpoint import Checkpointer
 from kubeflow_tpu_torch.train.data import (
     place_batch,
     stack_microbatches,
@@ -36,6 +46,7 @@ from kubeflow_tpu_torch.train.data import (
 )
 from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
 from kubeflow_tpu_torch.train.prefetch import Prefetcher
+from kubeflow_tpu_torch.train.tokenstore import TokenStore
 from kubeflow_tpu_torch.train.trainer import build_train_step, init_state
 
 # The job-status environment of kubeflow_tpu/apis/jobs.py (copied name).
@@ -60,12 +71,20 @@ class RunConfig:
     # Gradient accumulation over this many microbatches of batch_size.
     accum_steps: int = 1
     elastic_poll_steps: int = 0
+    # KTPU token-corpus file (train.tokenstore); empty = synthetic data.
     data_path: str | None = None
     checkpoint_dir: str | None = None
-    # Catch SIGTERM and stop after the step in flight.
+    checkpoint_every: int = 500
+    # Commit periodic saves on a writer thread; the preemption and final
+    # saves always wait.
+    checkpoint_async: bool = True
+    # Catch SIGTERM and save a final checkpoint at the step in flight.
     graceful_shutdown: bool = True
     seed: int = 0
+    # torch.profiler trace of profile_steps steps from profile_start_step.
     profile_dir: str | None = None
+    profile_start_step: int = 3
+    profile_steps: int = 5
     device: str = "cuda"
 
 
@@ -73,14 +92,8 @@ def _refuse_unported(cfg: RunConfig, environ) -> None:
     def no(what):
         raise ValueError(f"{what} is not yet ported to the PyTorch package")
 
-    if cfg.checkpoint_dir:
-        no("checkpointing (checkpoint_dir)")
-    if cfg.data_path:
-        no("the token store (data_path)")
     if cfg.elastic_poll_steps:
         no("elastic resharding (elastic_poll_steps)")
-    if cfg.profile_dir:
-        no("profiling (profile_dir)")
     if any(n not in (1, -1) for n in cfg.mesh.values()):
         no(f"a multi-device mesh ({cfg.mesh})")
     if environ.get(ENV_JOB_NAME):
@@ -96,7 +109,19 @@ def run(cfg: RunConfig, *, log=print, environ=None) -> dict:
     model = get_model(cfg.model, **cfg.model_overrides)
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     state = init_state(generator, model, cfg.optimizer, device=device)
+    start_step = 0
+    ckpt = None
+    if cfg.checkpoint_dir:
+        ckpt = Checkpointer(cfg.checkpoint_dir, cfg.optimizer,
+                            async_saves=cfg.checkpoint_async)
+        restored = ckpt.restore_latest(state)
+        if restored is not None:
+            state, start_step = restored
+            log(f"resumed from checkpoint step {start_step}")
 
+    # Kubernetes evictions deliver SIGTERM with a grace period: finish the
+    # step in flight and save it. (Only the main thread may register; the
+    # previous handler comes back when the run ends.)
     stop_requested = []
     prev_handler = None
     if cfg.graceful_shutdown:
@@ -107,15 +132,23 @@ def run(cfg: RunConfig, *, log=print, environ=None) -> dict:
         except ValueError:
             prev_handler = None  # not the main thread
     try:
-        return _train(cfg, model, device, state, stop_requested, log)
+        return _train(cfg, model, device, state, start_step, ckpt,
+                      stop_requested, log)
     finally:
         if prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)
 
 
-def _make_batches(cfg, model, device):
-    stream = synthetic_stream(model, cfg.batch_size, cfg.seq_len,
-                              seed=cfg.seed)
+def _make_batches(cfg, model, device, stream_step, store):
+    """(batches, prefetcher) from the stream position ``stream_step``
+    (microbatches): both streams are stateless in (seed, step), so a
+    resumed run sees what an uninterrupted one would have."""
+    if store is not None:
+        stream = store.stream(cfg.batch_size, cfg.seq_len, seed=cfg.seed,
+                              start_step=stream_step)
+    else:
+        stream = synthetic_stream(model, cfg.batch_size, cfg.seq_len,
+                                  seed=cfg.seed, start_step=stream_step)
     if cfg.accum_steps > 1:
         stream = stack_microbatches(stream, cfg.accum_steps)
 
@@ -128,10 +161,38 @@ def _make_batches(cfg, model, device):
     return (place(b) for b in stream), None
 
 
-def _train(cfg, model, device, state, stop_requested, log):
+def _start_trace(device):
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_trace(prof, cfg, device, log) -> None:
+    """Stop ``prof`` once the device has finished the traced steps and
+    write its Chrome trace into ``cfg.profile_dir`` (a name TensorBoard's
+    PyTorch profiler plugin lists)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(cfg.profile_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(
+        cfg.profile_dir, f"{socket.gethostname()}_{os.getpid()}."
+                         f"{time.time_ns()}.pt.trace.json"))
+    log(f"profiler trace written to {cfg.profile_dir}")
+
+
+def _train(cfg, model, device, state, start_step, ckpt, stop_requested,
+           log):
     step_fn = build_train_step(model, cfg.optimizer,
                                accum_steps=cfg.accum_steps)
-    batches, prefetcher = _make_batches(cfg, model, device)
+    # The stream position counts MICROBATCHES: an accumulating run resumed
+    # at optimizer step N replays from microbatch N x accum_steps.
+    store = TokenStore(cfg.data_path) if cfg.data_path else None
+    batches, prefetcher = _make_batches(
+        cfg, model, device, start_step * cfg.accum_steps, store)
 
     metrics = {}
     t_start = time.perf_counter()
@@ -145,13 +206,22 @@ def _train(cfg, model, device, state, stop_requested, log):
     # The EMA hides stragglers; the histogram's p50/p99 expose them.
     step_hist = Histogram()
     steps_done = 0
+    prof = None
     preempted_at = None
     try:
-        for step in range(cfg.steps):
+        for step in range(start_step, cfg.steps):
             t_step = time.perf_counter()
+            if cfg.profile_dir:
+                if step - start_step == cfg.profile_start_step:
+                    prof = _start_trace(device)
+                elif (prof is not None and step - start_step
+                      == cfg.profile_start_step + cfg.profile_steps):
+                    _stop_trace(prof, cfg, device, log)
+                    prof = None
             # Host wait: time this step spent blocked on input.
+            t_fetch = time.perf_counter()
             batch = next(batches)
-            host_wait = time.perf_counter() - t_step
+            host_wait = time.perf_counter() - t_fetch
             host_wait_total += host_wait
             host_wait_since += host_wait
             state, metrics = step_fn(state, batch)
@@ -175,13 +245,30 @@ def _train(cfg, model, device, state, stop_requested, log):
                     f"samples/sec={throughput:.1f} "
                     f"input_stall={stall_pct:.1f}%{depth}")
             if stop_requested:
+                # Eviction: save the step just done SYNCHRONOUSLY (the
+                # grace window is for this), so resume continues from here.
                 preempted_at = step + 1
+                if ckpt is not None:
+                    ckpt.save(preempted_at, state, force=True)
+                    ckpt.wait()
+                    log(f"preempted: checkpoint saved at step "
+                        f"{preempted_at}")
                 break
+            if ckpt is not None and (step + 1) % cfg.checkpoint_every == 0:
+                ckpt.save(step + 1, state)  # async: training continues
     finally:
         # The producer thread must never outlive the loop.
         if prefetcher is not None:
             prefetcher.close()
+        if store is not None:
+            store.close()
     total_time = time.perf_counter() - t_start
+    if prof is not None:  # short runs: close the trace instead of dropping it
+        _stop_trace(prof, cfg, device, log)
+    if ckpt is not None:
+        if preempted_at is None and ckpt.latest_step() != cfg.steps:
+            ckpt.save(cfg.steps, state, force=True)
+        ckpt.close()  # waits for pending commits
 
     result = {
         "step": preempted_at if preempted_at is not None else cfg.steps,
@@ -220,6 +307,8 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     overrides = json.loads(argv[0]) if argv else {}
     opt_cfg = OptimizerConfig(**overrides.pop("optimizer", {}))
+    # Path fields honor environment references ($KUBEFLOW_ARTIFACT_DIR
+    # and the like), as the JAX loop's do.
     for key in ("checkpoint_dir", "data_path", "profile_dir"):
         if overrides.get(key):
             overrides[key] = os.path.expandvars(overrides[key])

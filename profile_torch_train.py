@@ -2,15 +2,20 @@
 """Where a training step's time goes on the GPU, for the port's training
 main path.
 
-    python3 profile_torch_train.py [--steps 4] [--trace trace.json]
+    python3 profile_torch_train.py [--model flagship-deep]
+        [--remat-policy llm|llm_res|off|...] [--steps 4] [--trace trace.json]
 
-``flagship-1b`` at full width in bf16 (float32 master weights, adafactor
-with a 2-step warmup) at batch 4 x seq 2048, random weights from a fixed
-seed: two warm steps, ``--steps`` steps timed without the profiler, then
+``--model`` (``flagship-1b`` by default, or ``flagship-deep``) at full
+width and depth in bf16 (float32 master weights, adafactor with a 2-step
+warmup; flagship-deep with ``grad_dtype="bfloat16"``, bench.py's recipe)
+at batch 4 x seq 2048, random weights from a fixed seed, under the
+preset's remat or ``--remat-policy`` (``off``: no remat): two warm steps,
+``--steps`` steps timed without the profiler, then
 ``--steps`` steps under ``torch.profiler``, kept only from a complete
 session (``chip_smoke.profiled_launches``: a discarded warm-up step, then
 a session that recorded every marker write and a whole number of
-launches per step). It prints one JSON line: the step time, the device
+launches per step). It prints one JSON line: the step time, the peak of
+allocated memory, the device
 time the step's kernels take (their durations summed: one stream, so
 they do not overlap), the device's idle share, the device time by group
 (the flash attention kernels, matrix products, the rest), each flash
@@ -28,8 +33,10 @@ import sys
 import time
 import torch
 
-# flagship-1b's training shape, as chip_smoke.py trains it.
-MODEL, BATCH, SEQ = "flagship-1b", 4, 2048
+# The training shape chip_smoke.py trains both models at, and each
+# model's optimizer recipe.
+BATCH, SEQ = 4, 2048
+RECIPES = {"flagship-1b": {}, "flagship-deep": {"grad_dtype": "bfloat16"}}
 
 
 def _group(name: str) -> str:
@@ -45,6 +52,10 @@ def _group(name: str) -> str:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
+    p.add_argument("--model", choices=sorted(RECIPES),
+                   default="flagship-1b")
+    p.add_argument("--remat-policy",
+                   help="a remat policy of the model config, or 'off'")
     p.add_argument("--steps", type=int, default=4)
     p.add_argument("--trace", help="write the Chrome trace to this path")
     args = p.parse_args(argv)
@@ -58,8 +69,14 @@ def main(argv=None) -> int:
     from kubeflow_tpu_torch.train.trainer import build_train_step, init_state
 
     dev = torch.device("cuda")
-    model = get_model(MODEL)
-    opt_cfg = OptimizerConfig(name="adafactor", warmup_steps=2)
+    overrides = {}
+    if args.remat_policy == "off":
+        overrides["remat"] = False
+    elif args.remat_policy:
+        overrides.update(remat=True, remat_policy=args.remat_policy)
+    model = get_model(args.model, **overrides)
+    opt_cfg = OptimizerConfig(name="adafactor", warmup_steps=2,
+                              **RECIPES[args.model])
     state = init_state(torch.Generator(device=dev).manual_seed(0), model,
                        opt_cfg, device=dev)
     step_fn = build_train_step(model, opt_cfg)
@@ -72,6 +89,7 @@ def main(argv=None) -> int:
             state, metrics = step_fn(state, batches[i % len(batches)])
         return float(metrics["loss"])  # waits for the device
 
+    torch.cuda.reset_peak_memory_stats()
     run(2)  # warm
     t0 = time.perf_counter()
     run(args.steps)
@@ -97,9 +115,13 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     device_ms = device_us / 1e3 / args.steps
     print(json.dumps({
-        "gpu": smi, "model": MODEL, "dtype": "bf16",
+        "gpu": smi, "model": args.model, "dtype": "bf16",
+        "remat": (model.config.remat_policy if model.config.remat
+                  else "off"),
+        "grad_dtype": opt_cfg.grad_dtype,
         "batch": BATCH, "seq": SEQ, "optimizer": "adafactor",
         "steps": args.steps, "step_ms": step_ms,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "device_ms_per_step": device_ms,
         "device_idle_share": 1 - device_ms / step_ms,
         "kernel_launches_per_step": len(kernels) / args.steps,

@@ -178,6 +178,7 @@ def _flash_run(q, k, v, g, mask, implementation, causal):
     (1, 100, 100, 4, 4, 64, True, False),    # G=1, ragged, hd 64
     (2, 70, 130, 4, 2, 64, False, True),     # S != T, full row masked
     (1, 130, 70, 8, 1, 128, True, True),     # T > S, causal and mask
+    (2, 256, 256, 24, 4, 128, True, False),  # G=6, flagship-deep's heads
 ])
 def test_flash_kernels_match_plain(cuda, dtype, b, t, s_len, hq, hkv, hd,
                                    causal, masked):
@@ -277,6 +278,7 @@ def _errors(got, ref):
     (64, 192, 8, 1, 64, True, True),        # S > T, causal, masked
     (129, 2048, 4, 4, 128, True, False),    # S >> T, causal
     (2048, 127, 8, 2, 64, True, False),     # T >> S, causal
+    (2048, 2048, 24, 4, 128, True, False),  # G=6, flagship-deep's shape
 ])
 def test_flash_bf16_tensor_core_kernels_match_plain(cuda, t, s_len, hq, hkv,
                                                     hd, causal, masked):
@@ -591,3 +593,49 @@ def test_dense_span_forward_on_the_card_drops_the_spill(cuda):
                                    atol=1e-5)
     torch.testing.assert_close(runs["card"][0][[0, 2]],
                                runs["cpu"][0][[0, 2]], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overrides", [
+    {"remat_policy": p} for p in ("dots", "dots_batched", "llm", "llm_qkv",
+                                  "llm_attn", "llm_res", "none")] + [
+    {"remat_policy": "llm", "scan_layers": True, "scan_group_size": 2}],
+    ids=["dots", "dots_batched", "llm", "llm_qkv", "llm_attn", "llm_res",
+         "none", "group2"])
+def test_remat_on_equals_off_through_the_flash_kernel(cuda, overrides):
+    """flagship-deep's heads (24 over 4, hd 128) at two layers and d 3072,
+    f32: each remat policy gives the loss and gradients of remat off, with
+    the flash kernels on every layer (and the forward again in the
+    backward where the policy recomputes it). Both runs do the same f32
+    operations on the same values, so they agree to 1e-6 relative."""
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch import weights
+    from kubeflow_tpu_torch.train.data import place_batch, synthetic_batch
+
+    def grads(remat):
+        m = get_model("flagship-deep", dtype=torch.float32, n_layers=2,
+                      remat=remat, **overrides)
+        params = m.init(m.config, generator=torch.Generator(
+            device=cuda).manual_seed(0), device=cuda,
+            param_dtype=torch.float32)
+        leaves = {k: p.requires_grad_(True)
+                  for k, p in weights.flatten(params).items()}
+        batch = place_batch(synthetic_batch(m, 1, 256, seed=1), cuda)
+        kernels.reset_launches()
+        loss, _ = m.loss_fn(params, batch, m.config)
+        loss.backward()
+        torch.cuda.synchronize()
+        return (loss.item(), {k: p.grad for k, p in leaves.items()},
+                dict(kernels.LAUNCHES))
+
+    loss_on, on, launches_on = grads(True)
+    loss_off, off, launches_off = grads(False)
+    assert launches_off["flash_attention_fwd"] == 2
+    assert launches_on["flash_attention_bwd"] == 2
+    reruns = overrides["remat_policy"] not in ("llm_res", "llm_attn") or \
+        overrides.get("scan_group_size", 1) > 1
+    assert launches_on["flash_attention_fwd"] == (4 if reruns else 2)
+    assert abs(loss_on - loss_off) <= 1e-6 * abs(loss_off)
+    for k, g in off.items():
+        assert (on[k] - g).abs().max().item() <= \
+            1e-6 * g.abs().max().item(), k

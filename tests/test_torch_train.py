@@ -4,7 +4,9 @@
 schedule), three train steps (also with gradient accumulation), the data
 stream and the loop's result keys are held against their JAX counterparts
 on the same numpy inputs and the same weights (the JAX tree converted with
-``weights.params_from_numpy``). Unported options must raise.
+``weights.params_from_numpy``). Unported options must raise (remat and the
+chunked loss: tests/test_torch_remat.py; checkpoints, the token store and
+the profiler: tests/test_torch_checkpoint.py).
 
 Tolerances: float32 on both sides with sums in another order. Losses and
 metrics agree to 1e-5 relative; gradients to 1e-4 of their largest
@@ -277,11 +279,13 @@ def test_loop_main_needs_cuda_unless_asked_for_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("checkpoint_dir", "/tmp/ckpt"), ("data_path", "corpus.ktpu"),
-    ("elastic_poll_steps", 5), ("profile_dir", "/tmp/prof"),
-    ("mesh", {"data": 2}),
+    ("elastic_poll_steps", 5), ("elastic_poll_steps", 1),
+    ("mesh", {"data": 2}), ("mesh", {"fsdp": 2}), ("mesh", {"tensor": 2}),
 ])
 def test_loop_refuses_unported_options_before_any_step(field, value):
+    """Elastic resharding and a mesh of more than one device are still to
+    come (checkpoints, the token store and the profiler now run:
+    tests/test_torch_checkpoint.py)."""
     cfg = tloop.RunConfig(device="cpu", steps=1, **{field: value})
     with pytest.raises(ValueError, match="not yet ported"):
         tloop.run(cfg, log=lambda *a: None)
@@ -293,29 +297,42 @@ def test_loop_refuses_the_job_status_environment():
                   environ={"KUBEFLOW_TPU_JOB_NAME": "job"})
 
 
-@pytest.mark.parametrize("overrides", [
-    {"remat": True}, {"scan_group_size": 2}, {"context_parallel": True},
-    {"pipeline_stages": 2}, {"loss_chunks": 4},
+@pytest.mark.parametrize("overrides,mesh", [
+    ({"context_parallel": True}, None), ({"pipeline_stages": 2}, None),
+    ({"pipeline_stages": 4, "remat": True}, None), ({}, object()),
+    ({"remat": True, "loss_chunks": 4}, object()),
 ])
-def test_model_refuses_unported_training_options(overrides):
+def test_model_refuses_unported_training_options(overrides, mesh):
+    """Ring attention, pipeline stages and a mesh are still to come (remat,
+    scan_group_size and loss_chunks now run: tests/test_torch_remat.py)."""
     tm = tregistry.get_model("lm-test-tiny", **overrides)
     params = tm.init(tm.config, generator=torch.Generator().manual_seed(0),
                      device="cpu", param_dtype=torch.float32)
     batch = {"tokens": torch.zeros(1, 5, dtype=torch.int32)}
     with pytest.raises(ValueError, match="not yet ported"):
-        tm.loss_fn(params, batch, tm.config)
+        tm.loss_fn(params, batch, tm.config, mesh=mesh)
 
 
 def test_remat_only_raises_under_autograd_and_mesh_raises():
+    """remat decides what the backward keeps, so it opens regions only
+    while autograd records: an inference forward and a recorded one give
+    the same logits, and the recorded one differentiates. A mesh is still
+    refused."""
     tm = tregistry.get_model("llama-1b", d_model=64, n_heads=4,
                              n_kv_heads=2, d_ff=64, n_layers=1,
-                             vocab_size=32)
-    assert tm.config.remat
+                             vocab_size=32, dtype=torch.float32)
+    assert tm.config.remat and tm.config.remat_policy == "dots"
     params = tm.init(tm.config, generator=torch.Generator().manual_seed(0),
-                     device="cpu")
+                     device="cpu", param_dtype=torch.float32)
     tokens = torch.zeros(1, 4, dtype=torch.int32)
     with torch.no_grad():
-        assert tm.apply(params, tokens, tm.config).shape == (1, 4, 32)
+        ref = tm.apply(params, tokens, tm.config)
+    assert ref.shape == (1, 4, 32)
+    wq = params["layers"]["attn"]["wq"].requires_grad_(True)
+    out = tm.apply(params, tokens, tm.config)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    out.square().sum().backward()
+    assert wq.grad is not None and wq.grad.abs().max() > 0
     with pytest.raises(ValueError, match="not yet ported"):
         ttransformer.hidden_states(params, tokens, tm.config, mesh=object())
     with pytest.raises(ValueError, match="not yet ported"):
