@@ -11,7 +11,8 @@ serves ``llama-1b`` at full width through the port's REST ``ModelServer``
 and its CLI (the paged KV cache read by the paged decode kernel, with
 the paged prefix path, chunked prefill and speculative decoding; the
 default dense server, whose plain predicts run the flash forward kernel,
-and its metrics, request ids and gRPC), trains
+and its metrics, request ids and gRPC; the host KV tier, QoS with
+suspension, the prefill/decode handoff and live weight pushes), trains
 ``flagship-1b`` and ``flagship-deep`` at full width (and depth) through
 the port's training loop with attention in the flash kernels, and checks
 the output. Phases, each printed as one JSON line:
@@ -102,8 +103,11 @@ the output. Phases, each printed as one JSON line:
     --kv-fused-attention --prefix-cache-slots 4 --prefill-chunk-tokens
     128 --max-prompt-len 1792 --grpc-port -1`` answers a 1500-token
     prompt and a prefix hit, ``--speculative-k 4 --kv-layout paged
-    --grpc-port -1`` answers a request, and ``--speculative-k 2
-    --decode-mode lockstep`` and the unported ``--qos-tenants`` exit 2;
+    --grpc-port -1`` answers a request, ``--host-kv-bytes 67108864
+    --qos-tenants gold=8:0:0:10,free=1 --serving-role decode`` (paged,
+    fused, prefix cache) answers a tenant's request and its exposition
+    shows QoS, the tier's budget and the role, and ``--speculative-k 2
+    --decode-mode lockstep`` and the unported ``--tp-shards 2`` exit 2;
 (n) the paged prefix path, llama-1b, bf16, ``kv_fused``, 8 slots,
     ``max_seq_len`` 256, ``max_new_tokens`` 32, Bs 16,
     ``prefix_cache_slots`` 4: a primed 160-token system prompt (10
@@ -146,6 +150,33 @@ the output. Phases, each printed as one JSON line:
     equals off token for token on paged fused, paged gathered, dense,
     dense with ``model:llama-1b`` and paged fused with ``chunk_size`` 2
     (``verify_chunk``);
+(s) the single-replica serving features, llama-1b at full width and
+    depth, bf16, 8 slots, paged, ``kv_fused``, through ``ModelServer``
+    over HTTP. The host tier on an fp pool and an int8 one (24 blocks, a
+    64 MiB tier): a primed 160-token prefix hit in HBM, eight requests
+    that fill the pool so the cached prefixes demote, a hit on the
+    demoted prefix (promoted back), a cold admission: the streamed TTFT
+    of each, ``kv_host_demotions``/``promotions``/``tier_bytes``, and the
+    demote and promote ms per block (export to pageable host memory,
+    import from it, 10 blocks). Suspension: tenants gold (priority 10)
+    and free (0), a pool of 18 blocks; a free 64-token stream decoding
+    when a gold 200-token request arrives is suspended to the tier and
+    resumes after it (``kv_suspends``, ``kv_resumes``, park-to-resume ms
+    from its timeline). The handoff: a ``role="prefill"`` server pushes a
+    200-token prompt's KV to a ``role="decode"`` one over ``:prefill``
+    with ``handoff_to``, whose predict hits it; the envelope's bytes and
+    the export, pack, unpack and import ms. A live push: a full
+    llama-1b tree (bf16, seed 1) POSTed at ``:weights`` in 8 MiB chunks
+    while four streams keep decoding; the push's ms, the swap's stall
+    beside a decode dispatch's mean, the flushed entries. Then the
+    port's trainer writes a llama-1b checkpoint (one step, default
+    optimizer) and the CLI boots from it with ``--model-path``. The
+    paged kernel launches n_layers times per decode forward in every
+    run. The f32 gates (greedy, fused and gathered read each): a
+    host-tier hit = an HBM hit of the primed prefix (fp, int8) and = a
+    cold admission (fp); a suspended and resumed stream = the stream
+    never suspended; decode after a handoff = colocated; admissions
+    after a push = a decoder cold-started on the pushed weights;
 (r) flagship-deep: the flash kernels at its training shape (B=4, T=S=2048,
     Hq=24 over Hkv=4: group 6, D=128, causal) against the plain versions
     under (g)'s limits in bf16 and f32, with the bf16 device time of the
@@ -178,8 +209,8 @@ the output. Phases, each printed as one JSON line:
     the times at flagship-deep's shape (``deep_shape``: ``ms`` device
     time); the flash forward row adds the predict path's
     launches and its device and call times at the predict shape; the
-    paged row counts its launches on (d), (n), (o) and (q)'s runs with
-    speculation on (``launches_by_path``).
+    paged row counts its launches on (d), (n), (o), (q)'s runs with
+    speculation on and (s) (``launches_by_path``).
 
 TF32 is off throughout, so float32 products are full float32. Any
 failure exits non-zero; the last line, printed only on success, is
@@ -505,18 +536,19 @@ def request_bodies(vocab: int) -> list[dict]:
 
 
 def post(port: int, body: dict, stream: bool = False, rid: str = "",
-         stamps: list | None = None):
+         stamps: list | None = None, headers: dict | None = None):
     """One predict with ``X-Request-ID: rid`` (when given; the response
-    must echo it); returns (tokens, seconds to the first token line or to
-    the response). ``stamps`` collects each streamed token line's
-    arrival time."""
+    must echo it) and ``headers``; returns (tokens, seconds to the first
+    token line or to the response). ``stamps`` collects each streamed
+    token line's arrival time."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
     t0 = time.perf_counter()
     try:
         conn.request("POST", f"/v1/models/{MODEL}:predict",
                      body=json.dumps({**({"stream": True} if stream else {}),
                                       "instances": [body]}),
-                     headers={"X-Request-ID": rid} if rid else {})
+                     headers={**({"X-Request-ID": rid} if rid else {}),
+                              **(headers or {})})
         resp = conn.getresponse()
         if resp.status != 200:
             raise AssertionError(f"HTTP {resp.status}: {resp.read()!r}")
@@ -1198,6 +1230,16 @@ PREFIX_NEW = 32
 # (o): chunked prefill at max_prompt_len 1792 (+32 = 1824 = 114 blocks).
 CHUNK_TOKENS, MAX_PROMPT, LONG_PROMPT = 128, 1792, 1500
 CHUNK_SHORT = [(40, 32), (64, 32)]  # the streams live during the chain
+# (s): a 160-token primed prefix (10 whole blocks); a pool of 24 blocks
+# that the eight pressure requests (12 + 32 tokens: 3 blocks each) fill,
+# so the cached prefixes demote to a 64 MiB host tier; the suspension's
+# pool of 18 blocks (one worst-case row) holds a 64-token low-priority
+# stream (6 blocks) or a 200-token high-priority one (15), not both.
+TIER_SYSTEM, TIER_POOL, TIER_BYTES = 160, 24, 64 << 20
+TIER_PRESSURE = 8
+QOS_TENANTS = "gold=8:0:0:10,free=1"
+SUSPEND_POOL, VICTIM_LEN, GOLD_LEN = 18, 64, 200
+HANDOFF_LEN = 200
 
 
 def parse_exposition(text: str) -> dict:
@@ -1257,7 +1299,8 @@ def start_cli(*flags: str):
     import os
 
     os.makedirs("chiprun_out", exist_ok=True)
-    name = "_".join(f.strip("-") for f in flags[:2]) or "default"
+    name = "_".join(f.strip("-").replace("/", "_")
+                    for f in flags[:2]) or "default"
     log = open(f"chiprun_out/cli_{name}.log", "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "kubeflow_tpu_torch.serving", "--model-name",
@@ -1300,8 +1343,11 @@ def phase_surfaces(default: dict) -> dict:
     ``--grpc-port -1``. Beside it, the CLI with the paged prefix path and
     chunked prefill (``--grpc-port -1``) answers a long prompt and a
     prefix hit, the CLI with ``--speculative-k 4`` on the paged layout
-    answers a request, ``--speculative-k 2 --decode-mode lockstep`` exits
-    2, and a flag still unported (``--qos-tenants``) exits 2."""
+    answers a request, the CLI with the host KV tier, QoS and a decode
+    role (``--host-kv-bytes``, ``--qos-tenants``, ``--serving-role
+    decode``) answers a tenant's request, ``--speculative-k 2
+    --decode-mode lockstep`` exits 2, and a flag still unported
+    (``--tp-shards 2``) exits 2."""
     import importlib.util
 
     from kubeflow_tpu_torch.models.registry import get_model
@@ -1309,8 +1355,8 @@ def phase_surfaces(default: dict) -> dict:
     vocab = get_model(MODEL).config.vocab_size
     grpc_available = importlib.util.find_spec("grpc") is not None
     out = {"metrics": default["surfaces"], "grpc_available": grpc_available}
-    rest_default, rest_paged, rest_spec = free_port(), free_port(), \
-        free_port()
+    rest_default, rest_paged, rest_spec, rest_qos = (
+        free_port(), free_port(), free_port(), free_port())
     paged_flags = ("--kv-layout", "paged", "--kv-fused-attention",
                    "--prefix-cache-slots", "4", "--prefill-chunk-tokens",
                    str(CHUNK_TOKENS), "--max-prompt-len", str(MAX_PROMPT),
@@ -1322,7 +1368,12 @@ def phase_surfaces(default: dict) -> dict:
         procs.append(start_cli("--speculative-k", "4", "--kv-layout",
                                "paged", "--grpc-port", "-1", "--rest-port",
                                str(rest_spec)))
-        for flags, says in ((("--qos-tenants", "2"), "not yet ported"),
+        procs.append(start_cli(
+            "--host-kv-bytes", str(TIER_BYTES), "--qos-tenants",
+            QOS_TENANTS, "--serving-role", "decode", "--kv-layout", "paged",
+            "--kv-fused-attention", "--prefix-cache-slots", "4",
+            "--grpc-port", "-1", "--rest-port", str(rest_qos)))
+        for flags, says in ((("--tp-shards", "2"), "not yet ported"),
                             (("--speculative-k", "2", "--decode-mode",
                               "lockstep"), "requires --decode-mode")):
             refused = subprocess.run(
@@ -1407,6 +1458,24 @@ def phase_surfaces(default: dict) -> dict:
                 samples["serving_spec_verify_dispatches_total"]}
         if got != 16:
             raise AssertionError(f"the speculative CLI: {out['spec_cli']}")
+        out["features_cli_ready_s"] = wait_ready(procs[3][0], rest_qos)
+        got = len(post(rest_qos, {"tokens": pat * 12, "max_new_tokens": 16},
+                       headers={"X-Tenant": "gold", "X-Priority": "5"})[0])
+        text = get(rest_qos, "/monitoring/prometheus/metrics")
+        samples = parse_exposition(text)
+        # The tier's families exist only with a tier (its byte gauges read
+        # 0 while it is empty, as JAX's do).
+        tier = "# TYPE serving_kv_host_eviction_age_seconds histogram" in text
+        out["features_cli"] = {
+            "tokens": got, "qos_enabled": samples["serving_qos_enabled"],
+            "host_tier": tier,
+            "role_decode": samples['serving_role{role="decode"}'],
+            "tenant_buckets": sorted(
+                k for k in samples if k.startswith(
+                    "serving_tenant_queue_wait_seconds_count{"))}
+        if (got != 16 or samples["serving_qos_enabled"] != 1 or not tier
+                or samples['serving_role{role="decode"}'] != 1):
+            raise AssertionError(f"the features CLI: {out['features_cli']}")
     finally:
         stop_procs(procs)
     emit("m_default_server_surfaces", **out)
@@ -2493,6 +2562,579 @@ def phase_deep_gates(dev=torch.device("cuda")) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# (s) the single-replica serving features
+# ---------------------------------------------------------------------------
+
+
+def require_launches(launches: int, forwards: int, n_layers: int,
+                     what: str) -> None:
+    if forwards <= 0 or launches != n_layers * forwards:
+        raise AssertionError(f"{what}: paged decode kernel launched "
+                             f"{launches} times, expected {n_layers} layers "
+                             f"x {forwards} decode forwards")
+
+
+def timeline(port: int, rid: str) -> dict:
+    recs = json.loads(get(port, f"/debug/requests?id={rid}"))["requests"]
+    if len(recs) != 1:
+        raise AssertionError(f"timeline of {rid}: {recs}")
+    return recs[0]
+
+
+def tier_copy_ms(dec, nblk: int, reps: int = 5) -> dict:
+    """What demoting and promoting ``nblk`` blocks of ``dec``'s pool
+    costs: the export (``_export_ids``: the gather, then the copy to
+    pageable host memory, which returns when done) and the import of that
+    payload into free blocks (``import_blocks`` from the host, then a
+    synchronize); medians of ``reps`` runs, on blocks taken from the free
+    list (cached entries evicted for them) and returned after."""
+    from kubeflow_tpu_torch.models.decode import import_blocks
+    from kubeflow_tpu_torch.serving.kv_tier import payload_nbytes
+
+    with dec._prefix_lock:
+        dec._reclaim_blocks(nblk)  # cached entries give their blocks back
+        blocks = dec._alloc.alloc(nblk)
+    try:
+        exp, imp = [], []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            payload = dec._export_ids(blocks)
+            exp.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            with dec._state_lock:
+                import_blocks(dec._state["pool"], blocks, payload)
+            torch.cuda.synchronize()
+            imp.append(time.perf_counter() - t0)
+    finally:
+        with dec._prefix_lock:
+            for b in blocks:
+                dec._alloc.free(b)
+    nbytes = payload_nbytes(payload)
+    d, p = float(np.median(exp)), float(np.median(imp))
+    return {"blocks": nblk, "bytes": nbytes, "demote_ms": 1e3 * d,
+            "promote_ms": 1e3 * p, "demote_ms_per_block": 1e3 * d / nblk,
+            "promote_ms_per_block": 1e3 * p / nblk,
+            "demote_gb_per_s": nbytes / d / 1e9,
+            "promote_gb_per_s": nbytes / p / 1e9}
+
+
+def tier_run(kv_dtype: str) -> dict:
+    """(s1) on one kv dtype: a primed prefix hit in HBM; eight requests
+    that fill the pool, so the cached prefixes demote; a request over
+    the demoted prefix (promoted, then a prefix hit); a cold admission.
+    Streamed TTFT of each; launches counted over the whole run."""
+    from kubeflow_tpu_torch import kernels
+
+    def fn(server):
+        dec, port = server.decoder, server.port
+        cfg = server.engine.model.config
+        rng = np.random.RandomState(11)
+
+        def toks(n):
+            return rng.randint(0, cfg.vocab_size, size=n).tolist()
+
+        system = toks(TIER_SYSTEM)
+        if not dec.prime_prefix(system):
+            raise AssertionError("prime_prefix refused the system prompt")
+        steps0 = dec.steps
+        kernels.reset_launches()
+        hbm = post(port, {"tokens": system + toks(8), "max_new_tokens": 8},
+                   stream=True)
+        pressure = [toks(12) for _ in range(TIER_PRESSURE)]
+        got: list = [None] * TIER_PRESSURE
+
+        def one(i):
+            got[i] = post(port, {"tokens": pressure[i],
+                                 "max_new_tokens": MAX_NEW})
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(TIER_PRESSURE)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(g is None or len(g[0]) != MAX_NEW for g in got):
+            raise AssertionError(f"pressure requests: {got}")
+        mid = dec.metrics()
+        host = post(port, {"tokens": system + toks(8), "max_new_tokens": 8},
+                    stream=True)
+        after = dec.metrics()
+        cold = post(port, {"tokens": toks(TIER_SYSTEM + 8),
+                           "max_new_tokens": 8}, stream=True)
+        launches = kernels.LAUNCHES["paged_decode_attention"]
+        forwards = dec.steps - steps0
+        m = dec.metrics()
+        copy = tier_copy_ms(dec, TIER_SYSTEM // BLOCK)
+        return {"launches": launches, "decode_forwards": forwards,
+                "n_layers": cfg.n_layers, "mid": mid, "after": after,
+                "m": m, "copy": copy,
+                "ttft_ms": {"hbm_hit": 1e3 * hbm[1],
+                            "host_tier_hit": 1e3 * host[1],
+                            "cold": 1e3 * cold[1]},
+                "tokens": [len(hbm[0]), len(host[0]), len(cold[0])]}
+
+    r = serve(engine_cfg(kv_fused=True, kv_dtype=kv_dtype,
+                         prefix_cache_slots=4, kv_pool_blocks=TIER_POOL,
+                         host_kv_bytes=TIER_BYTES), fn)
+    require_launches(r["launches"], r["decode_forwards"], r["n_layers"],
+                     f"host tier ({kv_dtype})")
+    mid, after, m = r["mid"], r["after"], r["m"]
+    if (mid["kv_host_demotions"] < 2 or after["kv_host_hits"] < 1
+            or after["kv_host_promotions"] < 1 or r["tokens"] != [8] * 3
+            or after["prefix_hits"] != mid["prefix_hits"] + 1):
+        raise AssertionError(f"host tier ({kv_dtype}): {r}")
+    keys = ("kv_host_demotions", "kv_host_promotions", "kv_host_hits",
+            "kv_host_evictions", "kv_host_tier_bytes",
+            "kv_host_tier_high_water_bytes", "kv_host_tier_entries",
+            "prefix_hits", "prefix_evictions", "kv_blocks_total")
+    return {"kv_dtype": kv_dtype, **{k: m[k] for k in keys},
+            "ttft_ms": r["ttft_ms"], **r["copy"],
+            "launches": r["launches"], "decode_forwards": r["decode_forwards"]}
+
+
+def suspend_run() -> dict:
+    """(s2): a low-priority stream (tenant free) decoding when a
+    high-priority request (tenant gold) arrives that the pool cannot hold
+    beside it: the stream is suspended to the host tier and resumes after
+    the gold finishes. Park-to-resume from the stream's timeline."""
+    from kubeflow_tpu_torch import kernels
+
+    def fn(server):
+        dec, port = server.decoder, server.port
+        cfg = server.engine.model.config
+        rng = np.random.RandomState(12)
+        victim = rng.randint(0, cfg.vocab_size, size=VICTIM_LEN).tolist()
+        gold = rng.randint(0, cfg.vocab_size, size=GOLD_LEN).tolist()
+        steps0 = dec.steps
+        kernels.reset_launches()
+        stamps: list = []
+        res: dict = {}
+
+        def run_victim():
+            res["victim"] = post(port, {"tokens": victim,
+                                        "max_new_tokens": MAX_NEW},
+                                 stream=True, rid="s-victim", stamps=stamps,
+                                 headers={"X-Tenant": "free"})
+
+        th = threading.Thread(target=run_victim)
+        th.start()
+        deadline = time.perf_counter() + 120
+        while not stamps and time.perf_counter() < deadline:
+            time.sleep(0.002)
+        gold_res = post(port, {"tokens": gold, "max_new_tokens": MAX_NEW},
+                        rid="s-gold", headers={"X-Tenant": "gold"})
+        th.join(timeout=600)
+        launches = kernels.LAUNCHES["paged_decode_attention"]
+        forwards = dec.steps - steps0
+        events = {e["name"]: e["t_ms"]
+                  for e in timeline(port, "s-victim")["events"]}
+        return {"launches": launches, "decode_forwards": forwards,
+                "n_layers": cfg.n_layers, "m": dec.metrics(),
+                "victim": res.get("victim"), "gold": gold_res,
+                "events": events}
+
+    r = serve(engine_cfg(kv_fused=True, prefix_cache_slots=4,
+                         kv_pool_blocks=SUSPEND_POOL,
+                         host_kv_bytes=TIER_BYTES,
+                         qos_tenants=QOS_TENANTS), fn)
+    require_launches(r["launches"], r["decode_forwards"], r["n_layers"],
+                     "suspension")
+    m, ev = r["m"], r["events"]
+    if (m["kv_suspends"] < 1 or m["kv_resumes"] < 1
+            or "suspend" not in ev or "resume" not in ev
+            or r["victim"] is None or len(r["victim"][0]) != MAX_NEW
+            or len(r["gold"][0]) != MAX_NEW
+            or m["kv_host_tier_pinned_bytes"] != 0):
+        raise AssertionError(f"suspension: {r}")
+    return {"kv_suspends": m["kv_suspends"], "kv_resumes": m["kv_resumes"],
+            "kv_host_hits": m["kv_host_hits"],
+            "kv_defer_admissions": m["kv_defer_admissions"],
+            "tenant_served": m["tenant_served"],
+            "park_to_resume_ms": ev["resume"] - ev["suspend"],
+            "gold_ms": 1e3 * r["gold"][1],
+            "launches": r["launches"], "decode_forwards": r["decode_forwards"]}
+
+
+def post_json(port: int, verb: str, body: dict) -> dict:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", f"/v1/models/{MODEL}:{verb}",
+                     body=json.dumps(body))
+        resp = conn.getresponse()
+        out = resp.read()
+        if resp.status != 200:
+            raise AssertionError(f":{verb}: HTTP {resp.status}: {out[:300]!r}")
+        return json.loads(out)
+    finally:
+        conn.close()
+
+
+def handoff_run() -> dict:
+    """(s3): a role="prefill" server and a role="decode" server in this
+    process. Over HTTP, :prefill with handoff_to pushes a 200-token
+    prompt's KV to the decode server, whose predict then hits it; then
+    the pieces of a second handoff timed apart: the prefill with its
+    export, the export alone (``export_prompt`` of a prompt now cached),
+    the pack and JSON encode, the JSON decode and unpack, the import
+    (``import_prompt``)."""
+    from kubeflow_tpu_torch import kernels
+    from kubeflow_tpu_torch.serving import handoff
+    from kubeflow_tpu_torch.serving.server import ModelServer
+
+    servers = [ModelServer(engine_cfg(kv_fused=True, prefix_cache_slots=4,
+                                      serving_role=role), port=0)
+               for role in ("prefill", "decode")]
+    try:
+        for s in servers:
+            s.start()
+        pre, dec = servers
+        vocab = pre.engine.model.config.vocab_size
+        n_layers = pre.engine.model.config.n_layers
+        rng = np.random.RandomState(13)
+        prompts = [rng.randint(0, vocab, size=HANDOFF_LEN).tolist()
+                   for _ in range(2)]
+        steps0 = pre.decoder.steps + dec.decoder.steps
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = post_json(pre.port, "prefill", {
+            "instances": [{"tokens": prompts[0]}],
+            "handoff_to": f"127.0.0.1:{dec.port}"})
+        http_ms = 1e3 * (time.perf_counter() - t0)
+        if not out["handoff"]:
+            raise AssertionError(f":prefill did not hand off: {out}")
+        first = post(dec.port, {"tokens": prompts[0],
+                                "max_new_tokens": MAX_NEW}, stream=True)
+        t_pre = time.perf_counter()
+        pre.decoder.export_prompt(prompts[1])  # its prefill, then export
+        t0 = time.perf_counter()
+        h = pre.decoder.export_prompt(prompts[1])  # export alone
+        t1 = time.perf_counter()
+        body = json.dumps(handoff.pack(h))
+        t2 = time.perf_counter()
+        h2 = handoff.unpack(json.loads(body))
+        t3 = time.perf_counter()
+        if not dec.decoder.import_prompt(h2):
+            raise AssertionError("import_prompt refused the handoff")
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        second = post(dec.port, {"tokens": prompts[1],
+                                 "max_new_tokens": MAX_NEW}, stream=True)
+        launches = kernels.LAUNCHES["paged_decode_attention"]
+        forwards = pre.decoder.steps + dec.decoder.steps - steps0
+        m, mp = dec.decoder.metrics(), pre.decoder.metrics()
+    finally:
+        for s in servers:
+            s.stop()
+        del servers
+        torch.cuda.empty_cache()
+    require_launches(launches, forwards, n_layers, "handoff")
+    if (m["kv_handoff_imports"] != 2 or m["prefix_hits"] != 2
+            or mp["kv_handoff_exports"] != 3
+            or [len(first[0]), len(second[0])] != [MAX_NEW] * 2):
+        raise AssertionError(f"handoff: decode {m}, prefill {mp}")
+    return {"prompt": HANDOFF_LEN, "prefix_len": h["prefix_len"],
+            "envelope_bytes": len(body),
+            "payload_bytes": sum(int(t.nbytes) for t in (
+                h["payload"]["k"], h["payload"]["v"])),
+            "http_prefill_push_ms": http_ms,
+            "prefill_and_export_ms": 1e3 * (t0 - t_pre),
+            "export_ms": 1e3 * (t1 - t0), "pack_ms": 1e3 * (t2 - t1),
+            "unpack_ms": 1e3 * (t3 - t2), "import_ms": 1e3 * (t4 - t3),
+            "ttft_after_handoff_ms": [1e3 * first[1], 1e3 * second[1]],
+            "kv_handoff_exports": mp["kv_handoff_exports"],
+            "kv_handoff_imports": m["kv_handoff_imports"],
+            "kv_handoff_tokens": m["kv_handoff_tokens"],
+            "launches": launches, "decode_forwards": forwards}
+
+
+def push_run() -> dict:
+    """(s4): a full llama-1b tree (bf16, seed 1) pushed over HTTP at
+    :weights in 8 MiB chunks while streams decode (a loader keeps four
+    requests in flight until the push returns); the push's ms, the swap's
+    stall beside one decode dispatch's mean, the K/V entries flushed."""
+    from kubeflow_tpu_torch import kernels
+    from kubeflow_tpu_torch.serving import weights
+    from kubeflow_tpu_torch.weights import flatten
+
+    def fn(server):
+        dec, port = server.decoder, server.port
+        model = server.engine.model
+        cfg = model.config
+        rng = np.random.RandomState(14)
+        # One published prefix, for the flush to find.
+        post(port, {"tokens": rng.randint(0, cfg.vocab_size,
+                                          size=TIER_SYSTEM).tolist(),
+                    "max_new_tokens": 8})
+        steps0 = dec.steps
+        kernels.reset_launches()
+        done = threading.Event()
+        served, errors = [], []
+
+        def loader(seed):
+            r = np.random.RandomState(seed)
+            try:
+                while not done.is_set():
+                    toks, _ = post(port, {"tokens": r.randint(
+                        0, cfg.vocab_size, size=40).tolist(),
+                        "max_new_tokens": MAX_NEW})
+                    served.append(len(toks))
+            except Exception as e:  # checked below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=loader, args=(100 + i,))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        dev = server.engine.device
+        new = model.init(cfg, generator=torch.Generator(
+            device=dev).manual_seed(1), device=dev)
+        deadline = time.perf_counter() + 120
+        while (dec.metrics()["in_flight"] < 1
+               and time.perf_counter() < deadline):
+            time.sleep(0.002)
+        in_flight = dec.metrics()["in_flight"]
+        t0 = time.perf_counter()
+        out = weights.push_weights(f"127.0.0.1:{port}", MODEL, new, 1)
+        push_ms = 1e3 * (time.perf_counter() - t0)
+        done.set()
+        for t in threads:
+            t.join(timeout=600)
+        launches = kernels.LAUNCHES["paged_decode_attention"]
+        forwards = dec.steps - steps0
+        after = post(port, {"tokens": [1, 2, 3], "max_new_tokens": 8})
+        samples = parse_exposition(get(port,
+                                       "/monitoring/prometheus/metrics"))
+        flush = [e for e in timeline(port, "weights-v1")["events"]
+                 if e["name"] in ("push", "swap", "flush")]
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in flatten(new).values())
+        del new
+        return {"out": out, "push_ms": push_ms, "launches": launches,
+                "decode_forwards": forwards, "n_layers": cfg.n_layers,
+                "m": dec.metrics(), "served": served, "after": after,
+                "samples": samples, "events": flush, "bytes": nbytes,
+                "in_flight_at_push": in_flight, "errors": errors}
+
+    r = serve(engine_cfg(kv_fused=True, prefix_cache_slots=4), fn)
+    require_launches(r["launches"], r["decode_forwards"], r["n_layers"],
+                     "weight push")
+    m, smp = r["m"], r["samples"]
+    if (r["out"] != {"installed": True, "weights_version": 1}
+            or m["weights_version"] != 1 or m["weight_pushes"] != 1
+            or r["errors"] or r["in_flight_at_push"] < 1
+            or any(n != MAX_NEW for n in r["served"])
+            or len(r["after"][0]) != 8):
+        raise AssertionError(f"weight push: {r}")
+    dec_sum = smp['serving_dispatch_seconds_sum{kind="decode"}']
+    dec_n = smp['serving_dispatch_seconds_count{kind="decode"}']
+    ev = {e["name"]: e for e in r["events"]}
+    return {"bytes": r["bytes"], "push_ms": r["push_ms"],
+            "place_ms": ev["push"]["place_ms"],
+            "swap_ms": 1e3 * m["weight_swap_seconds_last"],
+            "decode_dispatch_mean_ms": 1e3 * dec_sum / dec_n,
+            "push_seconds_histogram_sum": smp[
+                "serving_weight_push_seconds_sum"],
+            "flushed": {k: ev.get("flush", {}).get(k, 0)
+                        for k in ("trie_entries", "tier_entries")},
+            "streams_during_push": len(r["served"]),
+            "in_flight_at_push": r["in_flight_at_push"],
+            "launches": r["launches"], "decode_forwards": r["decode_forwards"]}
+
+
+def checkpoint_boot(workdir: str) -> dict:
+    """(s4, the boot): the port's trainer writes a llama-1b checkpoint (one
+    step of ``train.loop.run``, batch 1 x seq 256, the default optimizer,
+    whose state the engine restores, as JAX's does), then the CLI boots
+    from it with ``--model-path`` and answers a request; its exposition
+    counts a weight install from the checkpoint."""
+    import os
+    import shutil
+
+    from kubeflow_tpu_torch.train.loop import RunConfig, run
+
+    ckpt = os.path.join(workdir, "llama_ckpt")
+    t0 = time.perf_counter()
+    run(RunConfig(model=MODEL, batch_size=1, seq_len=MAX_SEQ, steps=1,
+                  checkpoint_dir=ckpt), log=lambda *a, **k: None)
+    torch.cuda.empty_cache()
+    train_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(ckpt) for f in fs)
+    port = free_port()
+    procs = [start_cli("--model-path", ckpt, "--kv-layout", "paged",
+                       "--kv-fused-attention", "--grpc-port", "-1",
+                       "--rest-port", str(port))]
+    try:
+        ready_s = wait_ready(procs[0][0], port, timeout=600)
+        toks, _ = post(port, {"tokens": [1, 2, 3], "max_new_tokens": 8})
+        samples = parse_exposition(get(port,
+                                       "/monitoring/prometheus/metrics"))
+    finally:
+        stop_procs(procs)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    installs = samples.get('serving_weight_pulls_total{source="checkpoint"}')
+    if len(toks) != 8 or installs != 1:
+        raise AssertionError(f"checkpoint boot: {toks}, installs {installs}")
+    return {"checkpoint_bytes": size, "train_and_save_s": train_s,
+            "cli_ready_s": ready_s, "weights_s": samples.get(
+                'serving_cold_start_seconds{phase="weights"}'),
+            "tokens": len(toks)}
+
+
+def f32_gates(dev=torch.device("cuda")) -> dict:
+    """(s5): float32, greedy, llama-1b at full width, decoders sharing one
+    set of weights, each gate with the fused read (the paged kernel) and
+    the gathered read (plain PyTorch): a host-tier hit = an HBM hit of the
+    same primed prefix (fp and int8) and = a cold admission (fp); a
+    suspended and resumed stream = the stream never suspended; decode
+    after a handoff = colocated; admissions after a push = a decoder
+    cold-started on the pushed weights."""
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.serving.continuous import ContinuousDecoder
+    from kubeflow_tpu_torch.serving.qos import QosPolicy
+
+    model = get_model(MODEL, dtype=torch.float32)
+    cfg = model.config
+
+    def init(seed):
+        return model.init(cfg, generator=torch.Generator(
+            device=dev).manual_seed(seed), device=dev)
+
+    w0, w1 = init(0), init(1)
+    rng = np.random.RandomState(15)
+    system = rng.randint(0, cfg.vocab_size, size=TIER_SYSTEM).tolist()
+    ask = system + rng.randint(0, cfg.vocab_size, size=8).tolist()
+    victim = rng.randint(0, cfg.vocab_size, size=VICTIM_LEN).tolist()
+    gold = rng.randint(0, cfg.vocab_size, size=GOLD_LEN).tolist()
+    base = dict(slots=SLOTS, prefill_len=MAX_SEQ, max_new_tokens=MAX_NEW,
+                kv_layout="paged", kv_block_size=BLOCK,
+                prefix_cache_slots=4)
+
+    def decoder(params=w0, **kw):
+        return ContinuousDecoder(params, cfg, **{**base, **kw})
+
+    def run(fn, params=w0, **kw):
+        d = decoder(params, **kw)
+        try:
+            return fn(d)
+        finally:
+            d.stop()
+            torch.cuda.empty_cache()
+
+    def gen(d, toks, n=16):
+        return d.generate(toks, n, timeout=600)["tokens"]
+
+    def tier_hit(d):
+        gen(d, ask)  # publishes ask's prefix
+        with d._prefix_lock:
+            while d.prefix_cache.evict_lru():
+                pass
+        out = gen(d, ask)
+        if d.metrics()["kv_host_hits"] < 1:
+            raise AssertionError("the host-tier gate promoted nothing")
+        return out
+
+    def hbm_hit(d):
+        if not d.prime_prefix(ask[:-1]):
+            raise AssertionError("prime_prefix refused")
+        return gen(d, ask)
+
+    def suspended(d):
+        h = d.submit(victim, MAX_NEW, tenant="free")
+        while not h._req.out:
+            time.sleep(0.002)
+        d.generate(gold, MAX_NEW, tenant="gold", timeout=600)
+        out = h.result(timeout=600)["tokens"]
+        if d.metrics()["kv_suspends"] < 1:
+            raise AssertionError("the suspension gate suspended nothing")
+        return out
+
+    def handoff(fused):
+        h = run(lambda a: a.export_prompt(ask), kv_fused=fused,
+                role="prefill")
+
+        def imported(d):
+            if not d.import_prompt(h):
+                raise AssertionError("import_prompt refused the handoff")
+            return gen(d, ask)
+
+        return run(imported, kv_fused=fused, role="decode")
+
+    def pushed(d):
+        gen(d, ask)
+        d.update_weights(w1)
+        return gen(d, ask)
+
+    qos = dict(qos=QosPolicy(QOS_TENANTS), host_kv_bytes=TIER_BYTES,
+               kv_pool_blocks=SUSPEND_POOL)
+    out = {}
+    for fused in (True, False):
+        side = "fused" if fused else "gathered"
+        for kv in ("fp", "int8"):
+            hit = run(tier_hit, kv_fused=fused, kv_dtype=kv,
+                      host_kv_bytes=TIER_BYTES)
+            ref = run(hbm_hit, kv_fused=fused, kv_dtype=kv)
+            out[f"tier_{kv}_{side}"] = compare_streams([hit], [ref])
+            if kv == "fp":
+                cold = run(lambda d: gen(d, ask), kv_fused=fused,
+                           prefix_cache_slots=0)
+                out[f"tier_fp_vs_cold_{side}"] = compare_streams([hit],
+                                                                 [cold])
+        out[f"suspend_{side}"] = compare_streams(
+            [run(suspended, kv_fused=fused, **qos)],
+            [run(lambda d: gen(d, victim, MAX_NEW), kv_fused=fused)])
+        out[f"handoff_{side}"] = compare_streams(
+            [handoff(fused)], [run(lambda d: gen(d, ask), kv_fused=fused)])
+        out[f"push_{side}"] = compare_streams(
+            [run(pushed, kv_fused=fused)],
+            [run(lambda d: gen(d, ask), params=w1, kv_fused=fused)])
+    del w0, w1
+    torch.cuda.empty_cache()
+    bad = [k for k, v in out.items() if not v["identical"]]
+    if bad:
+        raise AssertionError(f"f32 greedy tokens differ: {bad}: {out}")
+    return out
+
+
+def phase_serving_features(smi: str) -> dict:
+    """(s): llama-1b at full width and depth, bf16, 8 slots, paged,
+    ``kv_fused``, through ``ModelServer`` over HTTP: the host tier on fp
+    and int8 pools, suspension and resume, the prefill/decode handoff, a
+    live weight push and a boot from a checkpoint; then the f32 gates.
+    The paged kernel launches n_layers times per decode forward in every
+    bf16 run."""
+    import os
+    import shutil
+
+    workdir = os.path.join("build", "chip_smoke")
+    os.makedirs(workdir, exist_ok=True)
+    out = {"gpu": smi}
+    runs = (("host_tier", lambda: {kv: tier_run(kv)
+                                   for kv in ("fp", "int8")}),
+            ("suspension", suspend_run), ("handoff", handoff_run),
+            ("weight_push", push_run),
+            ("checkpoint_boot", lambda: checkpoint_boot(workdir)),
+            ("f32_gates", f32_gates))
+    try:
+        for name, fn in runs:
+            out[name] = fn()
+            emit(f"s_{name}", **out[name])  # each as it lands
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    out["launches"] = (sum(r["launches"] for r in out["host_tier"].values())
+                       + sum(out[k]["launches"] for k in (
+                           "suspension", "handoff", "weight_push")))
+    out["decode_forwards"] = (
+        sum(r["decode_forwards"] for r in out["host_tier"].values())
+        + sum(out[k]["decode_forwards"] for k in (
+            "suspension", "handoff", "weight_push")))
+    emit("s_serving_features", gpu=smi, launches=out["launches"],
+         decode_forwards=out["decode_forwards"])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2554,6 +3196,7 @@ def main() -> int:
     phase_f32_layouts(paged_f32["streams"])
     phase_f32_prefix_chunk_parity()
     spec = phase_speculation()
+    features = phase_serving_features(smi)
     train = phase_train(smi)
     phase_train_f32_parity()
     deep = phase_deep_train(smi)
@@ -2563,7 +3206,8 @@ def main() -> int:
     paged_paths = {
         "paged_smoke": main_path["launches"]["paged_decode_attention"],
         "prefix_path": prefix["launches"], "chunked": chunked["launches"],
-        "speculation": spec["paged_launches"]}
+        "speculation": spec["paged_launches"],
+        "serving_features": features["launches"]}
     table = [
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "kubeflow_tpu_torch/csrc/paged_decode.cu",

@@ -24,6 +24,11 @@ Counterpart of ``kubeflow_tpu/models/decode.py``:
   chunk of a long admission), :func:`store_blocks` (the paged prime)
   and :func:`copy_block` (the copy-on-write of a partly shared tail
   block);
+- the KV handoff: :func:`export_blocks` gathers pool blocks into a
+  standalone payload (fp arrays, or int8 codes with their scales) and
+  :func:`import_blocks` scatters one into other blocks as it came, with
+  no second quantization — the halves of the prefill/decode handoff, of
+  the host tier's demotion and promotion and of a stream's suspension;
 - speculative decoding on either layout: :func:`verify_step` and
   :func:`verify_chunk` (a [slots, K] scoring pass through the span
   forward, then the single-token commit pass), and the draft model's
@@ -50,8 +55,6 @@ holds on the dense one.
 Speculation draws its accept and resample randomness from the state's
 ``generator`` where JAX splits its threefry key: greedy rows are exact,
 sampled rows keep the target distribution, not JAX's numbers.
-
-Not yet ported: the KV handoff (``export_blocks``, ``import_blocks``).
 """
 
 from __future__ import annotations
@@ -1171,4 +1174,66 @@ def copy_block(pool, dst, src):
         kv = pool[side]
         for arr in (kv.values() if isinstance(kv, dict) else (kv,)):
             arr[:, dst] = arr[:, src]
+    return pool
+
+
+def _block_ids(block_ids, n: int, device):
+    """``block_ids`` as a long tensor on ``device``, every id checked
+    against ``[0, n)``: JAX drops (scatter) or clamps (gather) an id out
+    of range; torch would fault, so the port raises."""
+    ids = torch.as_tensor(block_ids, device=device).long().reshape(-1)
+    _check_rows(ids, n, "block ids")
+    return ids
+
+
+@torch.inference_mode()
+def export_blocks(pool, block_ids):
+    """Gather pool blocks ``block_ids`` ([nblk]) into a standalone payload
+    on the pool's device: ``{"k": [L, nblk, Bs, H, hd], "v": ...}`` for
+    an fp pool, ``{"q", "scale"}`` a side for an int8 one (the codes AND
+    their per-(position, head) scales), so an importer lands the pool's
+    content exactly. A pure gather: the pool is untouched."""
+    arr = _kv_arr(pool["k"])
+    ids = _block_ids(block_ids, arr.shape[1], arr.device)
+
+    def _take(kv):
+        if isinstance(kv, dict):
+            return {"q": kv["q"][:, ids], "scale": kv["scale"][:, ids]}
+        return kv[:, ids]
+
+    return {"k": _take(pool["k"]), "v": _take(pool["v"])}
+
+
+@torch.inference_mode()
+def import_blocks(pool, block_ids, payload):
+    """Scatter an :func:`export_blocks` payload (on any device) into pool
+    blocks ``block_ids`` IN PLACE, as it came: int8 codes and scales are
+    copied, never quantized again. The payload must match the pool's
+    layout, block shape and dtype (an fp payload into an fp pool of the
+    same dtype, an int8 one into an int8 pool); ids out of range raise.
+    Returns the pool."""
+    arr = _kv_arr(pool["k"])
+    ids = _block_ids(block_ids, arr.shape[1], arr.device)
+
+    def _put(dst, vals, what):
+        if tuple(vals.shape) != (dst.shape[0], ids.shape[0],
+                                 *dst.shape[2:]):
+            raise ValueError(f"payload {what} shape {tuple(vals.shape)} "
+                             f"does not fit {ids.shape[0]} blocks of a "
+                             f"pool {tuple(dst.shape)}")
+        if vals.dtype != dst.dtype:
+            raise ValueError(f"payload {what} dtype {vals.dtype} != pool "
+                             f"dtype {dst.dtype}")
+        dst[:, ids] = vals.to(dst.device)
+
+    for side in ("k", "v"):
+        dst, vals = pool[side], payload[side]
+        if isinstance(dst, dict) != isinstance(vals, dict):
+            raise ValueError("payload and pool disagree on the KV layout "
+                             "(fp against int8)")
+        if isinstance(dst, dict):
+            _put(dst["q"], vals["q"], f"{side}.q")
+            _put(dst["scale"], vals["scale"], f"{side}.scale")
+        else:
+            _put(dst, vals, side)
     return pool

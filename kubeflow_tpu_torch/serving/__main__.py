@@ -9,11 +9,15 @@ and changes nothing, as in JAX), the continuous decoder on the dense KV
 layout, plain predicts through the dynamic batcher.
 ``--decode-mode lockstep``, ``--prefix-cache-slots N`` (either layout),
 ``--kv-layout paged [--kv-fused-attention] [--kv-dtype int8]`` and
-``--prefill-chunk-tokens N --max-prompt-len M`` (paged) and
-``--speculative-k K [--draft-mode ngram|model:<name>]`` choose the other
-ported paths. Every other flag of the JAX CLI (parallelism,
-fleet roles and KV tiers, QoS, checkpoints, the compile cache and peer
-weights) is rejected by name, never ignored. Without grpcio the default
+``--prefill-chunk-tokens N --max-prompt-len M`` (paged),
+``--speculative-k K [--draft-mode ngram|model:<name>]``, the host KV tier
+(``--host-kv-bytes``, paged), QoS (``--qos-tenants``, ``--qos-aging-s``),
+a disaggregated role (``--serving-role prefill|decode``, paged) and the
+boot weights' source (``--model-path`` for a checkpoint directory,
+``--weight-peers`` with ``--weight-pull-timeout-s``) choose the other
+ported paths. Every other flag of the JAX CLI (parallelism, the fleet KV
+directory and cold store, the import crossover, the compile cache) is
+rejected by name, never ignored. Without grpcio the default
 ``--grpc-port`` exits 2: the server never starts without :9000 unasked.
 """
 
@@ -23,15 +27,14 @@ import argparse
 import sys
 
 from kubeflow_tpu_torch.serving.engine import EngineConfig
+from kubeflow_tpu_torch.serving.qos import parse_tenants
 from kubeflow_tpu_torch.serving.server import ModelServer
 
 # Flags of the JAX CLI whose features are not yet ported.
 UNPORTED_FLAGS = (
-    "--model-path", "--serving-role",
-    "--tp-shards", "--cp-shards", "--pp-stages", "--host-kv-bytes",
+    "--tp-shards", "--cp-shards", "--pp-stages",
     "--kv-directory-size", "--cold-store-ref",
-    "--kv-import-crossover-tokens", "--qos-tenants", "--qos-aging-s",
-    "--compile-cache-dir", "--weight-peers", "--weight-pull-timeout-s",
+    "--kv-import-crossover-tokens", "--compile-cache-dir",
 )
 
 
@@ -47,6 +50,10 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m kubeflow_tpu_torch.serving")
     p.add_argument("--model-name", required=True,
                    help="registry model name (kubeflow_tpu_torch.models)")
+    p.add_argument("--model-path", default="",
+                   help="checkpoint directory of a training run: the "
+                        "newest step gives the boot weights (empty boots "
+                        "from the seeded init)")
     p.add_argument("--rest-port", type=int, default=8500)
     p.add_argument("--grpc-port", type=int, default=9000,
                    help="gRPC predict port (tf-serving :9000 contract); "
@@ -109,6 +116,30 @@ def main(argv=None) -> int:
     p.add_argument("--max-prompt-len", type=int, default=0,
                    help="longest prompt served (0 = max-seq-len; beyond "
                         "it needs --prefill-chunk-tokens)")
+    p.add_argument("--serving-role", default="",
+                   choices=["", "prefill", "decode"],
+                   help="disaggregated role: 'prefill' exports prompt KV "
+                        "over :prefill, 'decode' takes it over :import; "
+                        "empty = colocated. Requires --kv-layout=paged")
+    p.add_argument("--host-kv-bytes", type=int, default=0,
+                   help="host-RAM KV tier budget in bytes (paged layout; "
+                        "0 disables): prefix evictions demote blocks "
+                        "there, misses promote them back, and QoS "
+                        "suspensions park live streams' KV there")
+    p.add_argument("--qos-tenants", default="",
+                   help="QoS tenants: 'name=weight[:rate[:burst"
+                        "[:priority]]]' comma-separated (empty disables); "
+                        "requests carry X-Tenant/X-Priority/X-Deadline-Ms, "
+                        "an over-rate tenant gets 429 + Retry-After")
+    p.add_argument("--qos-aging-s", type=float, default=30.0,
+                   help="seconds of queue wait worth one priority point "
+                        "(<= 0 disables aging)")
+    p.add_argument("--weight-peers", default="",
+                   help="comma-separated host:port donors to pull the "
+                        "boot weights from over :pull (tried in order, "
+                        "then --model-path, then the init)")
+    p.add_argument("--weight-pull-timeout-s", type=float, default=30.0,
+                   help="per-donor budget for the boot-time weight pull")
     p.add_argument("--stream-timeout-s", type=float, default=60.0)
     p.add_argument("--dtype", default="",
                    choices=["", "bfloat16", "float32"],
@@ -140,6 +171,9 @@ def main(argv=None) -> int:
         p.error("--kv-dtype=int8 requires --kv-layout=paged")
     if args.kv_fused_attention and args.kv_layout != "paged":
         p.error("--kv-fused-attention requires --kv-layout=paged")
+    if args.serving_role and args.kv_layout != "paged":
+        # The handoff rides the block pool; dense rows have no blocks.
+        p.error("--serving-role requires --kv-layout=paged")
     if args.prefill_chunk_tokens < 0:
         p.error("--prefill-chunk-tokens must be >= 0")
     if args.max_prompt_len < 0:
@@ -151,6 +185,19 @@ def main(argv=None) -> int:
             and not args.prefill_chunk_tokens):
         p.error("--max-prompt-len beyond max-seq-len requires "
                 "--prefill-chunk-tokens")
+    if args.host_kv_bytes < 0:
+        p.error("--host-kv-bytes must be >= 0")
+    if args.host_kv_bytes and args.kv_layout != "paged":
+        # The tier stores exported block payloads.
+        p.error("--host-kv-bytes requires --kv-layout=paged")
+    if args.qos_tenants:
+        if not continuous:
+            # QoS ordering lives in the continuous decoder's queue.
+            p.error("--qos-tenants requires --decode-mode=continuous")
+        try:
+            parse_tenants(args.qos_tenants)
+        except ValueError as e:
+            p.error(f"--qos-tenants: {e}")
     if args.kv_layout == "paged":
         if not continuous:
             p.error("--kv-layout=paged requires --decode-mode=continuous")
@@ -169,6 +216,7 @@ def main(argv=None) -> int:
     server = ModelServer(
         EngineConfig(
             model=args.model_name,
+            checkpoint_dir=args.model_path or None,
             batch_size=args.batch_size,
             max_seq_len=args.max_seq_len,
             max_new_tokens=args.max_new_tokens,
@@ -189,6 +237,12 @@ def main(argv=None) -> int:
             stream_timeout_s=args.stream_timeout_s,
             prefill_chunk_tokens=args.prefill_chunk_tokens,
             max_prompt_len=args.max_prompt_len,
+            serving_role=args.serving_role,
+            host_kv_bytes=args.host_kv_bytes,
+            qos_tenants=args.qos_tenants,
+            qos_aging_s=args.qos_aging_s,
+            weight_peers=args.weight_peers,
+            weight_pull_timeout_s=args.weight_pull_timeout_s,
             dtype=args.dtype,
             device=args.device,
         ),

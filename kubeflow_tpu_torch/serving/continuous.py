@@ -43,22 +43,38 @@ distribution is unchanged. Per-slot draft length tunes itself (it shrinks
 while a row's drafts keep missing, recovers on clean sweeps), and the
 draft and accept counters land in :meth:`ContinuousDecoder.metrics`.
 
-Instruments: a metric ``registry`` (TTFT, inter-token gap, queue wait,
-dispatch time by kind, batch occupancy, chunk counters) and a
-``trace`` store of per-request timelines, served by the model server's
-``/monitoring/prometheus/metrics`` and ``/debug/requests``.
+The single-replica serving features, on the paged layout:
 
-Options of features not yet ported (QoS, the host KV tier,
-tensor/context/pipeline parallelism, fleet roles, the KV directory and
-cold store, live weight pushes) raise ``ValueError`` at construction;
-none falls through to another behaviour. Their counters in
-:meth:`ContinuousDecoder.metrics` read what JAX's read with the feature
-off.
+- a host-RAM KV tier (``host_kv_bytes``, ``serving/kv_tier.py``): trie
+  evictions DEMOTE their blocks to host memory (``export_blocks``)
+  instead of freeing them, and a later trie miss promotes them back
+  (``import_blocks``) and rides the ordinary prefix-hit admission;
+- QoS (``qos``, ``serving/qos.py``): per-tenant token buckets at submit,
+  weighted-fair + aged-priority ordering of the queue, deadline
+  shedding, and, under memory pressure, SUSPENSION of the
+  lowest-priority live stream (its KV parked, pinned, in the host tier;
+  it resumes through a prefix hit on that payload);
+- the prefill/decode handoff (``role``, :meth:`export_prompt`,
+  :meth:`import_prompt`; ``serving/handoff.py`` is the envelope);
+- live weight pushes (:meth:`update_weights`): the new tree is placed on
+  the device with no lock held and swapped in by reference between
+  dispatches; K/V cached under older weights is flushed or refused.
+
+Instruments: a metric ``registry`` (TTFT, inter-token gap, queue wait,
+dispatch time by kind, batch occupancy, chunk counters, weights epoch
+and pushes) and a ``trace`` store of per-request timelines, served by
+the model server's ``/monitoring/prometheus/metrics`` and
+``/debug/requests``.
+
+Options of features not yet ported (tensor/context/pipeline
+parallelism, the KV directory and cold store) raise ``ValueError`` at
+construction; none falls through to another behaviour. Their counters
+in :meth:`ContinuousDecoder.metrics` read what JAX's read with the
+feature off.
 """
 
 from __future__ import annotations
 
-import hashlib
 import queue
 import threading
 import time
@@ -74,6 +90,8 @@ from kubeflow_tpu_torch.models.decode import (
     copy_block,
     decode_chunk,
     decode_step,
+    export_blocks,
+    import_blocks,
     init_decode_state,
     init_paged_state,
     init_prefix_pool,
@@ -81,6 +99,7 @@ from kubeflow_tpu_torch.models.decode import (
     paged_admit_rows_and_step,
     paged_prefill_chunk,
     prefill,
+    retire_row,
     store_blocks,
     store_prefix_cache,
     store_prefix_row,
@@ -89,51 +108,37 @@ from kubeflow_tpu_torch.models.decode import (
 from kubeflow_tpu_torch.observability.metrics import MetricRegistry
 from kubeflow_tpu_torch.observability.tracing import TraceStore
 from kubeflow_tpu_torch.serving.engine import pow2_bucket
+from kubeflow_tpu_torch.serving.handoff import tree_to_torch
 from kubeflow_tpu_torch.serving.kv_allocator import (
     BlockAllocator,
     kv_bytes_per_token,
 )
+from kubeflow_tpu_torch.serving.kv_tier import HostKvTier
 from kubeflow_tpu_torch.serving.prefix_cache import PrefixCache
+from kubeflow_tpu_torch.serving.qos import (
+    DEFAULT_TENANT,
+    DeadlineExceeded,
+    QosPolicy,
+    order_key,
+    tenant_bucket,
+)
 from kubeflow_tpu_torch.serving.speculative import make_proposer
+from kubeflow_tpu_torch.weights import _unflatten, flatten
 
 _DONE = object()
 
-# Every request's tenant while QoS is not ported (JAX's
-# ``serving/qos.py`` default); its bounded exposition label is below.
-DEFAULT_TENANT = "default"
-TENANT_LABEL_BUCKETS = 16
-
-# Counters and gauges of features not yet ported, as JAX's metrics()
-# reports them with the feature off.
+# Counters and gauges of features not yet ported (the fleet KV economy,
+# model parallelism, the compile cache), as JAX's metrics() reports them
+# with the feature off.
 _UNPORTED_METRICS = {
-    "kv_handoff_exports": 0, "kv_handoff_imports": 0,
-    "kv_handoff_tokens": 0, "kv_suspends": 0, "kv_resumes": 0,
-    "kv_host_hits": 0, "kv_peer_hits": 0, "kv_peer_misses": 0,
+    "kv_peer_hits": 0, "kv_peer_misses": 0,
     "kv_peer_import_bytes": 0, "kv_peer_fetch_failures": 0,
     "kv_cold_hits": 0, "kv_cold_demotions": 0, "kv_cold_import_bytes": 0,
     "kv_import_stale_refused": 0, "kv_import_skipped_crossover": 0,
-    "kv_directory_publishes": 0, "qos_deadline_shed": 0,
-    "qos_enabled": False, "role": "", "tp_shards": 1, "cp_shards": 1,
-    "pp_stages": 1, "weight_pushes": 0, "weights_stale_refused": 0,
-    "weight_swap_seconds_last": 0.0, "compile_cache_hits": 0,
+    "kv_directory_publishes": 0, "tp_shards": 1, "cp_shards": 1,
+    "pp_stages": 1, "compile_cache_hits": 0,
     "compile_cache_misses": 0, "warm_seconds": 0.0, "warming": False,
-    "weights_version": 0, "kv_host_tier_bytes": 0,
-    "kv_host_tier_bytes_total": 0, "kv_host_tier_pinned_bytes": 0,
-    "kv_host_tier_entries": 0, "kv_host_demotions": 0,
-    "kv_host_evictions": 0, "kv_host_promotions": 0,
-    "kv_host_tier_high_water_bytes": 0,
 }
-
-
-def tenant_bucket(tenant: str, buckets: int = TENANT_LABEL_BUCKETS) -> str:
-    """Stable bounded label value for a tenant id (``t00``..``tNN``), as
-    JAX's ``serving/qos.py`` computes it (BLAKE2, not ``hash()``)."""
-    h = hashlib.blake2b((tenant or DEFAULT_TENANT).encode("utf-8"),
-                        digest_size=4).digest()
-    return f"t{int.from_bytes(h, 'big') % buckets:02d}"
-
-
-_DEFAULT_TENANT_LABEL = tenant_bucket(DEFAULT_TENANT)
 
 
 class PromptTooLong(ValueError):
@@ -179,9 +184,25 @@ class _Request:
     # blocks (-1 = not a chunked admission, or its chain finished). While
     # >= 0 the slot's row is PARKED (length = total, active False).
     chunk_pos: int = -1
-    # True once the first chunk copied the plan's shared tail block and
-    # mapped the table row.
+    # True once the first chunk stamped the weights epoch, copied the
+    # plan's shared tail block and mapped the table row.
     chunk_started: bool = False
+    # QoS: owning tenant, base priority (the tenant's default unless the
+    # request carried its own), and an absolute shed deadline (None =
+    # never shed). ``host_key`` is set while the stream is SUSPENDED:
+    # the pinned host-tier entry its resume re-imports. ``folded``:
+    # emitted tokens an earlier suspension already folded into
+    # ``tokens`` (a later one appends only out[folded:]).
+    tenant: str = DEFAULT_TENANT
+    priority: int = 0
+    deadline_t: float | None = None
+    host_key: tuple | None = None
+    folded: int = 0
+    # Weights epoch this request's prefill ran under (stamped under the
+    # state lock with the dispatch that reads the params). A finishing
+    # stream publishes its prompt K/V only while this is still the live
+    # epoch.
+    weights_version: int = 0
 
     @property
     def want_left(self) -> int:
@@ -269,23 +290,32 @@ class ContinuousDecoder:
                  kv_pool_blocks: int = 0, kv_low_watermark: int = 0,
                  kv_dtype: str = "fp", kv_fused: bool = False,
                  stream_timeout_s: float = 60.0, role: str = "",
-                 tp_shards: int = 1, qos=None, host_kv_bytes: int = 0,
+                 tp_shards: int = 1, qos: QosPolicy | None = None,
+                 host_kv_bytes: int = 0,
                  hol_bypass_limit: int = 4, hol_shield_rounds: int = 8,
                  prefill_chunk_tokens: int = 0, max_prompt_len: int = 0,
                  cp_shards: int = 1, pp_stages: int = 1,
-                 kv_directory=None, cold_store=None):
+                 kv_directory=None, cold_store=None,
+                 boot_weights_version: int = 0):
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         _reject_unported(
-            qos=qos is not None,
-            host_kv_bytes=host_kv_bytes > 0,
             tp_shards=tp_shards > 1,
             cp_shards=cp_shards > 1,
             pp_stages=pp_stages > 1,
-            role=bool(role),
             kv_directory=kv_directory is not None,
             cold_store=cold_store is not None,
         )
+        # Disaggregated role: "" (colocated), "prefill" (peers take its
+        # finished prompt KV through export_prompt) or "decode" (resumes
+        # imported prompts). The handoff rides the block pool.
+        if role not in ("", "prefill", "decode"):
+            raise ValueError(f"unknown role {role!r}")
+        if role and kv_layout != "paged":
+            raise ValueError("a fleet role requires kv_layout='paged'")
+        if host_kv_bytes and kv_layout != "paged":
+            raise ValueError("host_kv_bytes requires kv_layout='paged'")
+        self.role = role
         if kv_dtype not in ("fp", "int8"):
             raise ValueError(f"unknown kv_dtype {kv_dtype!r}")
         if kv_dtype == "int8" and kv_layout != "paged":
@@ -320,6 +350,8 @@ class ContinuousDecoder:
                 "(a monolithic prefill is bounded by the prefill width)")
         self.params = params
         self.cfg = cfg
+        # The one value the decoder derives from the parameters; a weight
+        # push keeps it (update_weights places the new tree here too).
         self.device = params["embed"]["kernel"].device
         self.slots = slots
         self.prefill_len = prefill_len
@@ -401,6 +433,18 @@ class ContinuousDecoder:
         # while the scheduler thread matches, reserves and publishes.
         self._prefix_lock = threading.Lock()
         self.kv_low_watermark = max(0, int(kv_low_watermark))
+        # Multi-tenant QoS: token buckets at submit, fair-share/priority
+        # ordering of the queue, deadline shedding, and suspension of
+        # low-priority live streams under memory pressure (which needs
+        # the host tier below to park their KV).
+        self.qos = qos
+        # Host-RAM KV tier: trie evictions demote their blocks here,
+        # trie misses probe it before a cold prefill, and suspended
+        # streams pin their KV here until resume. 0 disables.
+        self._host_tier = (HostKvTier(int(host_kv_bytes))
+                           if host_kv_bytes else None)
+        self._host_bytes_per_token = (self._alloc.bytes_per_token
+                                      if self._alloc is not None else 0)
         # Head-of-line bypass: how many memory-blocked candidates a round
         # may skip looking for a smaller request that fits, and how many
         # blocked rounds shield a head from further bypass.
@@ -441,7 +485,15 @@ class ContinuousDecoder:
         self.spec_drafted_tokens = 0     # draft tokens submitted to verify
         self.spec_accepted_tokens = 0    # draft tokens the target kept
         self.spec_verify_dispatches = 0  # verify rounds
-        # Decode service per tenant (tokens emitted).
+        self.kv_handoff_exports = 0   # prompts exported to a decode peer
+        self.kv_handoff_imports = 0   # prompts imported from a prefill peer
+        self.kv_handoff_tokens = 0    # prefix tokens that rode a handoff
+        self.kv_suspends = 0          # live streams parked to the host tier
+        self.kv_resumes = 0           # parked streams re-admitted
+        self.kv_host_hits = 0         # trie misses served by the host tier
+        self.qos_deadline_shed = 0    # requests shed past their deadline
+        # Decode service per tenant (tokens emitted): the fair-share
+        # ordering's input.
         self._tenant_served: dict[str, float] = {}
         # Counter mutations and metrics() reads go through this leaf lock.
         self._mlock = threading.Lock()
@@ -474,7 +526,7 @@ class ContinuousDecoder:
         self.registry.gauge(
             "serving_role",
             "Replica role in a disaggregated fleet (1 = this role)",
-            labels=("role",)).labels("colocated").set(1)
+            labels=("role",)).labels(self.role or "colocated").set(1)
         self.registry.gauge(
             "serving_tp_shards",
             "Tensor-parallel mesh width of this replica (1 = "
@@ -494,20 +546,35 @@ class ContinuousDecoder:
         self._h_prefill_chunk = self.registry.histogram(
             "serving_prefill_chunk_seconds",
             "Chunked-prefill dispatch duration (one interior chunk)")
-        # Live weight pushes are not ported: epoch 0, no pushes.
-        self.registry.gauge(
+        # Live weight pushes: a monotonic weights epoch (a replica born
+        # from a peer stamps its donor's, boot_weights_version), the push
+        # counter and the push's end-to-end seconds.
+        self.weights_version = max(0, int(boot_weights_version))
+        self.weight_pushes = 0
+        self.weight_stale_refused = 0  # stale trie hits refused
+        self.last_swap_seconds = 0.0   # the last push's in-lock stall
+        self._g_weights_version = self.registry.gauge(
             "serving_weights_version",
             "Weights epoch installed by live pushes (0 = boot weights)")
-        self.registry.counter(
+        if self.weights_version:
+            self._g_weights_version.set(self.weights_version)
+        self._c_weight_pushes = self.registry.counter(
             "serving_weight_pushes_total",
             "Live weight swaps installed by update_weights")
-        self.registry.histogram(
+        self._h_weight_push = self.registry.histogram(
             "serving_weight_push_seconds",
             "update_weights duration: device placement, atomic swap, "
             "stale-KV flush")
         # Per-stream lifecycle timelines, served at /debug/requests.
         self.trace = TraceStore()
         self._ramp_streak = 0  # consecutive admission-only rounds
+        if self._host_tier is not None:
+            self._h_host_evict_age = self.registry.histogram(
+                "serving_kv_host_eviction_age_seconds",
+                "Idle time a demoted payload sat in the host tier "
+                "before LRU pressure evicted it")
+            self._host_tier.eviction_age_observe = \
+                self._h_host_evict_age.observe
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -520,11 +587,30 @@ class ContinuousDecoder:
             raise ValueError(
                 f"token ids must lie in [0, {self.cfg.vocab_size})")
 
+    def weights_snapshot(self):
+        """A consistent (params, weights_version) pair for a peer's pull:
+        reference reads under the state lock, the lock the swap takes, so
+        a puller never pairs one epoch's version with another's tree."""
+        with self._state_lock:
+            return self.params, self.weights_version
+
     def submit(self, tokens: list[int], max_new_tokens: int,
                temperature: float = 0.0, *,
-               request_id: str | None = None) -> StreamHandle:
+               request_id: str | None = None, tenant: str = "",
+               priority: int | None = None,
+               deadline_ms: float = 0.0) -> StreamHandle:
         """Queue one generation. ``request_id`` (the propagated
-        X-Request-ID; minted when absent) keys the stream's timeline."""
+        X-Request-ID; minted when absent) keys the stream's timeline.
+        ``tenant``/``priority``/``deadline_ms`` are the QoS surface (the
+        X-Tenant/X-Priority/X-Deadline-Ms headers): with a QoS policy the
+        tenant's token bucket gates this call (raises ``QosRejected``,
+        HTTP 429 with Retry-After), the queue is ordered by weighted fair
+        share and aged priority, and a request still queued past its
+        deadline is shed."""
+        if self.qos is not None:
+            # Before the request enters the queue: overload degrades to
+            # fast 429s instead of queue collapse.
+            self.qos.admit(tenant, time.perf_counter())
         if len(tokens) > self.max_prompt_len:
             # Terminal, not truncation: max_prompt_len is this replica's
             # ceiling (chunking already lifted it past prefill_len).
@@ -539,11 +625,16 @@ class ContinuousDecoder:
         req = _Request(tokens=list(tokens),
                        want=min(max_new_tokens, self.max_new_tokens),
                        temperature=float(temperature))
+        req.tenant = tenant or DEFAULT_TENANT
+        req.priority = (self.qos.base_priority(tenant, priority)
+                        if self.qos is not None else int(priority or 0))
+        if deadline_ms and deadline_ms > 0:
+            req.deadline_t = req.submit_t + float(deadline_ms) / 1e3
         # Timeline: submit marks t=0, queued the entry to the deque.
         req.timeline = self.trace.start(request_id)
         req.timeline.event("submit", prompt_tokens=len(req.tokens),
-                           want=req.want, tenant=DEFAULT_TENANT,
-                           priority=0)
+                           want=req.want, tenant=req.tenant,
+                           priority=req.priority)
         with self._cv:
             if self._stopped:
                 req.timeline.close(error=RuntimeError("decoder is stopped"))
@@ -577,6 +668,13 @@ class ContinuousDecoder:
         # Idempotent: the crash path races stop() and the error handler.
         if req.done.is_set():
             return
+        # A suspended request dying (shed, stopped, the loop's death)
+        # drains its pinned host-tier payload: pinned bytes are exempt
+        # from LRU pressure, so nothing else would reclaim them.
+        if req.host_key is not None and self._host_tier is not None:
+            with self._prefix_lock:
+                self._host_tier.discard(req.host_key)
+            req.host_key = None
         req.error = error
         req.finish_reason = reason if error is None else "error"
         if req.timeline is not None:
@@ -589,12 +687,41 @@ class ContinuousDecoder:
     # -- paged-KV bookkeeping (no-ops in the dense layout) -------------
 
     def _drop_entry_blocks(self, entry) -> None:
-        """Prefix-trie eviction hook: release the entry's refcounted
-        blocks. Called by PrefixCache.remove() with the prefix lock held.
-        (JAX demotes them to the host tier first; that tier is not
-        ported.)"""
+        """Prefix-trie eviction hook: DEMOTE the entry's blocks to the
+        host tier (when there is one), then release the refcounted
+        blocks. Called by PrefixCache.remove() with the prefix lock
+        held."""
+        if self._host_tier is not None and entry.blocks:
+            self._demote_entry(entry)
         for b in (entry.blocks or ()):
             self._alloc.free(b)
+
+    def _demote_entry(self, entry) -> None:
+        """Export an evicted entry's blocks into the host tier, so a later
+        miss gets a second chance instead of a cold prefill. Runs under
+        the prefix lock (the eviction path); the export's device-to-host
+        copy (``Tensor.cpu()``, synchronous) has finished before the
+        blocks return to the free list, so no later write to a reused
+        block reaches the payload."""
+        if entry.version != self.weights_version:
+            return  # stale epoch: destroying beats a poisoned second chance
+        plen = min(len(entry.key), len(entry.blocks) * self.kv_block_size)
+        key = tuple(entry.key[:plen])
+        if plen < 1 or self._host_tier.has(key):
+            return
+        est = (self._alloc.blocks_for(plen) * self.kv_block_size
+               * self._host_bytes_per_token)
+        if not self._host_tier.can_fit(est):
+            return  # pinned suspensions own the budget; skip the copy
+        ids = list(entry.blocks[: self._alloc.blocks_for(plen)])
+        try:
+            payload = self._export_ids(ids)
+        except Exception:
+            # A dead device state must not wedge the eviction path (the
+            # crash drain evicts the whole trie): losing the second
+            # chance is fine, losing the free() below is a leak.
+            return
+        self._host_tier.put(key, payload, plen, version=entry.version)
 
     def _set_table_row(self, slot: int, blocks: list[int]) -> None:
         """Point ``slot``'s host block-table row at ``blocks`` (sentinel
@@ -658,12 +785,15 @@ class ContinuousDecoder:
             temps[i] = req.temperature
             wants[i] = req.want_left
         dev = self.device
-        args = (self.params, self.cfg,
-                *(torch.from_numpy(x).to(dev)
-                  for x in (slots, toks, lengths, wants, temps)),
-                self.top_k, self.eos_id)
+        inputs = tuple(torch.from_numpy(x).to(dev)
+                       for x in (slots, toks, lengths, wants, temps))
         t_disp = time.perf_counter()
         with self._state_lock:
+            # The params and the epoch stamped on the admissions are read
+            # in the lock scope a weight swap takes, so they agree.
+            for req, _slot in pending:
+                req.weights_version = self.weights_version
+            args = (self.params, self.cfg, *inputs, self.top_k, self.eos_id)
             if self._alloc is None:
                 self._state, last, tok, emit = admit_rows_and_step(
                     self._state, *args)
@@ -717,9 +847,30 @@ class ContinuousDecoder:
         ``dynamic_update_slice`` would clamp it), so when the bucket runs
         past the prompt's tail the reused prefix shortens to ``prompt_len
         - bucket``. Returns (entry, prefix_len, bucket) with the entry
-        pinned, or None (miss; any pin released)."""
+        pinned, or None (miss; any pin released).
+
+        An entry cached under older weights is refused (and removed once
+        unpinned) for a fresh request; a resumed (suspended) stream may
+        read the epoch it was parked under, its payload being its state.
+        A miss probes the host tier (second chance): a promoted payload
+        lands in the trie and the match runs again."""
+        allow_stale = bool(req.out or req.folded)
         with self._prefix_lock:
             m = self.prefix_cache.match(req.tokens)
+            if (m is not None and not allow_stale
+                    and m[0].version != self.weights_version):
+                entry = m[0]
+                self.prefix_cache.release(entry)
+                if entry.refs == 0:
+                    self.prefix_cache.remove(entry)
+                with self._mlock:
+                    self.weight_stale_refused += 1
+                m = None
+        if m is None and self._host_tier is not None:
+            if self._promote_host_prefix(req.tokens, req.timeline,
+                                         allow_stale=allow_stale):
+                with self._prefix_lock:
+                    m = self.prefix_cache.match(req.tokens)
         if m is None:
             return None
         entry, plen = m
@@ -753,6 +904,7 @@ class ContinuousDecoder:
             bs = self.kv_block_size
             n_full = prefix_len // bs
             with self._state_lock:
+                req.weights_version = self.weights_version
                 if prefix_len % bs:
                     # The slot's first owned block (table index n_full)
                     # takes the donor's partly shared tail.
@@ -775,6 +927,7 @@ class ContinuousDecoder:
                     self.kv_cow_copies += 1
         else:
             with self._state_lock:
+                req.weights_version = self.weights_version
                 self._state, last, tok, emit = admit_prefix_and_step(
                     self._state, self.params, self.cfg, slot,
                     self._prefix_pool, entry.slot, prefix_len, toks_t,
@@ -836,9 +989,9 @@ class ContinuousDecoder:
         into the row's blocks and re-parks the row (no sampling, no
         randomness consumed). The FINAL chunk is a prefix-style admission
         with ``prefix_len = chunk_pos``: it activates the row, samples the
-        first token and takes the round's decode step. (JAX also restarts
-        a chain when a live weight push lands mid-chain; weight pushes
-        are not ported, so no chain restarts here.)"""
+        first token and takes the round's decode step. A weight push that
+        lands mid-chain restarts the chain (:meth:`_restart_chunked`): one
+        row never mixes two epochs' K/V."""
         if not self._chunk_jobs:
             return
         req, slot = self._chunk_jobs[0]
@@ -855,12 +1008,15 @@ class ContinuousDecoder:
         plan = req.admit_plan
         bs = self.kv_block_size
         cow = first and plan is not None and plan[1] % bs
+        restart = False
         t_disp = time.perf_counter()
         with self._state_lock:
             if first:
-                # The plan's partly shared tail is copied and the row is
-                # mapped under the chain's first call, as in _admit_prefix.
+                # The epoch is stamped, the plan's partly shared tail is
+                # copied and the row is mapped under the chain's first
+                # call, as in _admit_prefix.
                 req.chunk_started = True
+                req.weights_version = self.weights_version
                 if cow:
                     n_full = plan[1] // bs
                     copy_block(self._state["pool"],
@@ -868,7 +1024,13 @@ class ContinuousDecoder:
                                plan[0].blocks[n_full])
                 self._set_table_row(slot, self._slot_blocks[slot])
                 self._upload_table()
-            if final:
+            elif req.weights_version != self.weights_version:
+                # A push landed mid-chain: the blocks written so far are
+                # the old epoch's. Restart below, outside the lock.
+                restart = True
+            if restart:
+                pass  # nothing runs under the superseded epoch
+            elif final:
                 self._state, last, tok, emit = paged_admit_prefix_and_step(
                     self._state, self.params, self.cfg, slot, pos, toks_t,
                     n, req.want_left, req.temperature, self.top_k,
@@ -880,6 +1042,9 @@ class ContinuousDecoder:
                     take, self.kv_fused)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
+        if restart:
+            self._restart_chunked(req, slot)
+            return
         if cow:
             with self._mlock:
                 self.kv_cow_copies += 1
@@ -911,6 +1076,27 @@ class ContinuousDecoder:
             self.steps += 1
         self._dispatch(tok_np, emit_np)
 
+    def _restart_chunked(self, req: _Request, slot: int) -> None:
+        """Abort a mid-chain chunked admission and queue it again at the
+        head: the whole chain reruns under the new weights epoch (the
+        repop plans its prefix against the trie as it now is), so a
+        chunked stream, like every other, sees exactly one epoch's K/V
+        for its prompt. Only a weight push reaches this."""
+        self._chunk_jobs.pop(0)
+        self._slot_req[slot] = None
+        self._release_pin(req)
+        self._free_slot_blocks(slot)
+        req.admit_plan = None
+        req.chunk_pos = -1
+        req.chunk_started = False
+        req.timeline.event("chunk_restart", reason="weight_swap")
+        with self._cv:
+            if self._stopped:
+                self._finish(req, error=RuntimeError("decoder stopped"))
+                return
+            self._pending.appendleft(req)
+            self._cv.notify()
+
     def _publish_prefix(self, req: _Request, slot: int) -> None:
         """Publish a finishing request's prompt K/V (still intact in its
         row's positions 0..len-1) so later prompts sharing the prefix skip
@@ -922,6 +1108,15 @@ class ContinuousDecoder:
         cache = self.prefix_cache
         if cache is None or req.error is not None:
             return
+        if req.weights_version != self.weights_version:
+            # The stream straddled a weight push: its prompt K/V belongs
+            # to weights the decoder no longer serves.
+            return
+        ent = req.pinned_prefix
+        if ent is not None and ent.version != req.weights_version:
+            # A push landed between the plan and the admission: the row's
+            # leading K/V is the old epoch's, its suffix the new one's.
+            return
         key = tuple(req.tokens)
         if len(key) < cache.min_len:
             return
@@ -932,6 +1127,7 @@ class ContinuousDecoder:
             entry = cache.reserve(key)
             if entry is None:  # every pool row pinned by peers in flight
                 return
+            entry.version = req.weights_version
             if self._alloc is not None:
                 n_pub = min(self._alloc.blocks_for(len(key)),
                             len(self._slot_blocks[slot]))
@@ -966,6 +1162,10 @@ class ContinuousDecoder:
         self._check_tokens(toks)
         key = tuple(toks)
         dev = self.device
+        # One consistent (params, epoch) pair: the entry's epoch must be
+        # that of the weights that computed its bytes.
+        with self._state_lock:
+            params, wver = self.params, self.weights_version
         with self._prefix_lock:
             if self.prefix_cache.has(key):
                 self.prefix_cache.touch(key)
@@ -987,7 +1187,7 @@ class ContinuousDecoder:
                     arr = np.zeros((1, w), np.int32)
                     arr[0, : len(toks)] = toks
                     cache, _last = prefill(
-                        self.params, torch.from_numpy(arr).to(dev),
+                        params, torch.from_numpy(arr).to(dev),
                         torch.tensor([len(toks)], device=dev), self.cfg,
                         total_len=w)
                     with self._state_lock:
@@ -1004,17 +1204,541 @@ class ContinuousDecoder:
                                    np.int32)
                     arr[0, : len(toks)] = toks
                     cache, _last = prefill(
-                        self.params, torch.from_numpy(arr).to(dev),
+                        params, torch.from_numpy(arr).to(dev),
                         torch.tensor([len(toks)], device=dev), self.cfg,
                         total_len=self.prefill_len)
                     store_prefix_cache(self._prefix_pool, entry.slot, cache)
                 except Exception:
                     self.prefix_cache.remove(entry)
                     raise
+            entry.version = wver
         with self._mlock:
             self.prefix_inserts += 1
             self.prefill_tokens += len(toks)  # priming IS a prefill
         return True
+
+    # -- prefill/decode handoff, host-tier promotion ---------------------
+
+    @staticmethod
+    def _payload_nblk(payload: dict) -> int:
+        """Block count a payload carries (fp tensors and int8
+        {"q","scale"} dicts share the [L, nblk, ...] leading layout)."""
+        k = payload["k"]
+        arr = k["q"] if isinstance(k, dict) else k
+        return int(arr.shape[1])
+
+    @staticmethod
+    def _slice_payload(payload: dict, nblk: int) -> dict:
+        """The leading ``nblk`` blocks of a payload (causality: they back
+        any shorter depth), fp and int8 alike."""
+
+        def _s(node):
+            if isinstance(node, dict):
+                return {k: _s(v) for k, v in node.items()}
+            return node[:, :nblk]
+
+        return {side: _s(payload[side]) for side in ("k", "v")}
+
+    def _export_ids(self, ids: list[int]) -> dict:
+        """Pool blocks ``ids`` as a host payload (torch CPU tensors). The
+        gather runs under the state lock; the device-to-host copy after
+        it, outside (the gathered tensors are this call's alone), so an
+        export never holds the scheduler's dispatches for the copy.
+        ``Tensor.cpu()`` returns once the copy is done, so the caller may
+        free the blocks at once."""
+        with self._state_lock:
+            out = export_blocks(self._state["pool"], ids)
+
+        def _host(node):
+            if isinstance(node, dict):
+                return {k: _host(v) for k, v in node.items()}
+            return node.cpu()
+
+        return {side: _host(out[side]) for side in ("k", "v")}
+
+    def _export_cold(self, prefix_toks: list[int]) -> dict:
+        """Cache-less export source: prefill the prefix into scratch
+        blocks, export them, free them; nothing outlives the call."""
+        nblk = self._alloc.blocks_for(len(prefix_toks))
+        with self._prefix_lock:
+            self._reclaim_blocks(nblk)
+            if not self._alloc.can_alloc(nblk):
+                raise ValueError(
+                    f"prompt export needs {nblk} free KV blocks; "
+                    f"{self._alloc.free_blocks} available")
+            blocks = self._alloc.alloc(nblk)
+            self.kv_blocks_peak = max(self.kv_blocks_peak,
+                                      self._alloc.blocks_in_use)
+        try:
+            w = nblk * self.kv_block_size
+            arr = np.zeros((1, w), np.int32)
+            arr[0, : len(prefix_toks)] = prefix_toks
+            with self._state_lock:
+                params = self.params  # consistent with any live swap
+            dev = self.device
+            cache, _last = prefill(
+                params, torch.from_numpy(arr).to(dev),
+                torch.tensor([len(prefix_toks)], device=dev), self.cfg,
+                total_len=w)
+            with self._state_lock:
+                store_blocks(self._state["pool"], blocks, cache)
+            return self._export_ids(blocks)
+        finally:
+            with self._prefix_lock:
+                for b in blocks:
+                    self._alloc.free(b)
+
+    def export_prompt(self, tokens: list[int],
+                      timeout: float | None = None) -> dict:
+        """Prefill-role handoff: compute the prompt's KV here and export
+        the blocks backing its leading positions as a payload a decode
+        replica can :meth:`import_prompt`.
+
+        The exported prefix is the prompt minus its last token: the
+        importer prefills that one token through the imported blocks (the
+        suffix path of a colocated prefix hit), so its admission recovers
+        the true last-position logits and greedy output equals a
+        colocated replica's. Int8 pools export codes AND scales as they
+        are, so a quantized handoff is exact.
+
+        With the prefix cache on, the prefix rides the ordinary pure
+        prefill admission (``want=0`` through the scheduler; suffix reuse
+        against this replica's trie, publish on finish), and the
+        published entry's blocks are the export source. Without it, the
+        prefix is prefilled into scratch blocks freed after the export."""
+        if self._alloc is None:
+            raise ValueError("prompt handoff requires kv_layout='paged'")
+        toks = [int(t) for t in tokens][: self.prefill_len]
+        if len(toks) < 2:
+            raise ValueError("prompt handoff needs a >=2-token prompt")
+        self._check_tokens(toks)
+        plen = len(toks) - 1
+        key = tuple(toks[:plen])
+        cache = self.prefix_cache
+        entry = None
+        if cache is not None and plen >= cache.min_len:
+            with self._prefix_lock:
+                known = cache.has(key)
+            if not known:
+                self.submit(list(key), 0).result(timeout)
+            with self._prefix_lock:
+                m = cache.match(toks)  # pins the entry against eviction
+                if m is not None:
+                    entry, depth = m
+                    # Capped at the positions the entry's blocks back.
+                    depth = min(depth, len(entry.blocks or ())
+                                * self.kv_block_size)
+                    if depth >= cache.min_len:
+                        plen = depth
+                    else:
+                        cache.release(entry)
+                        entry = None
+        try:
+            if entry is not None:
+                ids = list(entry.blocks[: self._alloc.blocks_for(plen)])
+                payload = self._export_ids(ids)
+            else:
+                payload = self._export_cold(toks[:plen])
+        finally:
+            if entry is not None:
+                with self._prefix_lock:
+                    cache.release(entry)
+        with self._mlock:
+            self.kv_handoff_exports += 1
+            self.kv_handoff_tokens += plen
+        return {"tokens": toks, "prefix_len": plen,
+                "block_size": self.kv_block_size,
+                "kv_dtype": self.kv_dtype, "tp_shards": 1,
+                "cp_shards": 1, "pp_stages": 1, "payload": payload}
+
+    def import_prompt(self, handoff: dict) -> bool:
+        """Decode-role handoff receive: allocate local blocks, scatter the
+        exported payload in as it came (int8 codes and scales included)
+        and register the prefix in this replica's trie; the ``submit()``
+        of the full prompt then rides the ordinary prefix-hit admission.
+        The payload may be host tensors (``handoff.unpack``) or numpy
+        arrays (a JAX replica's export).
+
+        Returns False when the import cannot be registered (no prefix
+        cache, a prefix under ``min_len``, every entry pinned, no free
+        blocks): the caller submits the prompt plainly and this replica
+        prefills it itself. Raises ``ValueError`` on a payload whose block
+        size, kv dtype or block count does not match this pool."""
+        if self._alloc is None:
+            raise ValueError("prompt handoff requires kv_layout='paged'")
+        if int(handoff["block_size"]) != self.kv_block_size:
+            raise ValueError(
+                f"handoff block_size {handoff['block_size']} != "
+                f"pool block_size {self.kv_block_size}")
+        if str(handoff.get("kv_dtype", "fp")) != self.kv_dtype:
+            raise ValueError(
+                f"handoff kv_dtype {handoff.get('kv_dtype')!r} != "
+                f"pool kv_dtype {self.kv_dtype!r}")
+        toks = [int(t) for t in handoff["tokens"]]
+        plen = int(handoff["prefix_len"])
+        if not 0 < plen <= min(len(toks), self.prefill_len):
+            raise ValueError(f"bad handoff prefix_len {plen}")
+        self._check_tokens(toks[:plen])
+        payload = {s: tree_to_torch(handoff["payload"][s])
+                   for s in ("k", "v")}
+        cache = self.prefix_cache
+        if cache is None or plen < cache.min_len:
+            return False
+        nblk = self._alloc.blocks_for(plen)
+        if self._payload_nblk(payload) != nblk:
+            raise ValueError(
+                f"handoff payload carries {self._payload_nblk(payload)} "
+                f"blocks; prefix_len {plen} needs {nblk}")
+        imported = self._install_prefix_payload(tuple(toks[:plen]),
+                                                payload)
+        if imported:
+            with self._mlock:
+                self.kv_handoff_imports += 1
+                self.kv_handoff_tokens += plen
+        return imported
+
+    def _install_prefix_payload(self, key: tuple, payload: dict, *,
+                                version: int | None = None) -> bool:
+        """Allocate local blocks, scatter ``payload`` in as it came, and
+        register ``key`` in the trie: the import shared by the handoff
+        (:meth:`import_prompt`) and host-tier promotion
+        (:meth:`_promote_host_prefix`). Returns False when it cannot land
+        (no free blocks, every entry pinned). ``version`` stamps the
+        entry's weights epoch (None = the live one)."""
+        cache = self.prefix_cache
+        nblk = self._alloc.blocks_for(len(key))
+        if self._payload_nblk(payload) != nblk:
+            raise ValueError(
+                f"payload carries {self._payload_nblk(payload)} blocks; "
+                f"prefix_len {len(key)} needs {nblk}")
+        with self._prefix_lock:
+            if cache.has(key):
+                cache.touch(key)
+                return True
+            self._reclaim_blocks(nblk)
+            if not self._alloc.can_alloc(nblk):
+                return False
+            blocks = self._alloc.alloc(nblk)
+            self.kv_blocks_peak = max(self.kv_blocks_peak,
+                                      self._alloc.blocks_in_use)
+        # The scatter runs outside the prefix lock: it waits out any
+        # dispatch in flight (state lock), and the prefix lock held
+        # across that wait would stall the scheduler's pop path. The
+        # blocks are this call's alone until registered.
+        try:
+            with self._state_lock:
+                import_blocks(self._state["pool"], blocks, payload)
+        except Exception:
+            with self._prefix_lock:
+                for b in blocks:
+                    self._alloc.free(b)
+            raise
+        with self._prefix_lock:
+            entry = cache.reserve(key)
+            if entry is None:
+                # Another import won the race (its blocks hold the same
+                # content: the key IS the data), or every entry is
+                # pinned. Either way these blocks are surplus.
+                for b in blocks:
+                    self._alloc.free(b)
+                return cache.has(key)
+            entry.blocks = tuple(blocks)
+            entry.version = (self.weights_version if version is None
+                             else int(version))
+            with self._mlock:
+                self.prefix_inserts += 1
+            return True
+
+    def _promote_host_prefix(self, tokens: list[int], timeline=None, *,
+                             allow_stale: bool = False) -> bool:
+        """Second chance: a trie miss probes the host tier for the
+        longest demoted prefix of ``tokens`` and imports it
+        (:meth:`_install_prefix_payload`); the admission then rides the
+        ordinary prefix-hit path. The payload stays in the tier (unpinned
+        LRU). ``allow_stale`` (resumed streams only) accepts a payload of
+        an older weights epoch."""
+        with self._prefix_lock:
+            m = self._host_tier.match(
+                tokens, None if allow_stale else self.weights_version)
+        if m is None:
+            return False
+        entry, depth = m
+        if (self.prefix_cache is None
+                or depth < self.prefix_cache.min_len):
+            return False
+        payload = self._slice_payload(entry.payload,
+                                      self._alloc.blocks_for(depth))
+        if not self._install_prefix_payload(tuple(entry.key[:depth]),
+                                            payload,
+                                            version=entry.version):
+            return False
+        with self._prefix_lock:
+            self._host_tier.note_promotion()
+        with self._mlock:
+            self.kv_host_hits += 1
+        if timeline is not None:
+            timeline.event("promote", prefix_len=depth)
+        return True
+
+    # -- live weight pushes ----------------------------------------------
+
+    def update_weights(self, params, *, version: int | None = None,
+                       draft_params=None) -> int:
+        """Swap in a new parameter tree between dispatches without
+        dropping a live stream.
+
+        Double-buffered: the new tree (the port's nested dict of tensors,
+        or a numpy tree in the JAX layout; each leaf cast to the serving
+        leaf's dtype) is placed on the device with no lock held, on a
+        side CUDA stream that the swap waits for, while decode keeps
+        dispatching on the old tensors. The install is a change of
+        reference under the state lock, the dispatch boundary, never a
+        copy into tensors a step reads, so no step sees a torn tree. Live
+        streams keep their slots and KV across the boundary; prompt K/V
+        cached under the old weights is flushed or refused, so admissions
+        after the swap equal a decoder cold-started on the new weights.
+
+        ``version`` stamps the push (monotonic: a stale or duplicate
+        version is a no-op returning the installed epoch); None
+        increments. ``draft_params`` swaps a draft-model proposer's
+        weights in the SAME lock epoch. Returns the installed epoch."""
+        t0 = time.perf_counter()
+        with self._state_lock:
+            cur_params, cur_version = self.params, self.weights_version
+        if version is not None and int(version) <= cur_version:
+            return cur_version
+        spec = self._spec
+        if draft_params is not None and (spec is None
+                                         or not hasattr(spec, "params")):
+            raise ValueError(
+                "draft_params given but no draft-model proposer is "
+                "configured (draft_mode='model:<name>')")
+        new_params = self._place(params, cur_params)
+        draft_new = (self._place(draft_params, spec.params)
+                     if draft_params is not None else None)
+        t_swap = time.perf_counter()
+        with self._state_lock:
+            # A concurrent higher-versioned push may have won meanwhile.
+            if version is not None and int(version) <= \
+                    self.weights_version:
+                return self.weights_version
+            self.params = new_params
+            if draft_new is not None:
+                spec.install_weights(draft_new)
+            self.weights_version = (int(version) if version is not None
+                                    else self.weights_version + 1)
+            new_version = self.weights_version
+        swap_s = time.perf_counter() - t_swap
+        trie_flushed, tier_flushed = self._flush_stale_kv(new_version)
+        total_s = time.perf_counter() - t0
+        self._g_weights_version.set(new_version)
+        self._c_weight_pushes.inc()
+        self._h_weight_push.observe(total_s)
+        with self._mlock:
+            self.weight_pushes += 1
+            # The stall decode pays: the wait for the dispatch in flight
+            # plus the reference swap.
+            self.last_swap_seconds = swap_s
+        tl = self.trace.start(f"weights-v{new_version}")
+        tl.event("push", version=new_version,
+                 place_ms=round(1e3 * (t_swap - t0), 3),
+                 draft=draft_new is not None)
+        tl.event("swap", swap_ms=round(1e3 * swap_s, 3))
+        if trie_flushed or tier_flushed:
+            tl.event("flush", trie_entries=trie_flushed,
+                     tier_entries=tier_flushed)
+        tl.close()
+        return new_version
+
+    @staticmethod
+    def _place(tree, reference) -> dict:
+        """``tree`` rebuilt on ``reference``'s structure, device and leaf
+        dtypes, always as new tensors (never aliasing the caller's):
+        shapes and paths must match exactly (``ValueError`` otherwise).
+        On a CUDA device the copies run on a side stream; the current
+        stream is made to wait for it, and each new tensor is recorded as
+        used there, before the tree is handed back."""
+        ref = flatten(reference)
+        new = flatten(tree) if isinstance(tree, dict) else None
+        if new is None or set(new) != set(ref):
+            missing = sorted(set(ref) - set(new or {}))
+            extra = sorted(set(new or {}) - set(ref))
+            raise ValueError(
+                f"pushed tree does not match the serving tree: "
+                f"missing={missing[:3]} extra={extra[:3]}")
+        for path, o in ref.items():
+            if tuple(np.shape(new[path])) != tuple(o.shape):
+                raise ValueError(
+                    f"pushed leaf {path} shape {tuple(np.shape(new[path]))}"
+                    f" != serving shape {tuple(o.shape)}")
+        dev = next(iter(ref.values())).device
+        src = {p: tree_to_torch(new[p]) for p in ref}
+        if dev.type != "cuda":
+            return _unflatten({p: src[p].to(dev, ref[p].dtype, copy=True)
+                               for p in ref})
+        current = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(current)  # device sources come from this stream
+        with torch.cuda.stream(side):
+            placed = {p: src[p].to(dev, ref[p].dtype, non_blocking=True,
+                                   copy=True) for p in ref}
+        current.wait_stream(side)
+        side.synchronize()
+        for t in placed.values():
+            t.record_stream(current)
+        return _unflatten(placed)
+
+    def _flush_stale_kv(self, version: int) -> tuple[int, int]:
+        """Drop K/V cached under an older weights epoch: unpinned stale
+        trie entries are removed (their blocks freed; demotion skips
+        them) and unpinned stale host-tier payloads discarded. Entries
+        pinned by admissions in flight survive and are refused at their
+        next match; PINNED tier payloads are suspended streams' state
+        and straddle the swap by design."""
+        trie_flushed = tier_flushed = 0
+        with self._prefix_lock:
+            if self.prefix_cache is not None:
+                for entry in self.prefix_cache.entries():
+                    if entry.version != version and entry.refs == 0:
+                        self.prefix_cache.remove(entry)
+                        trie_flushed += 1
+            if self._host_tier is not None:
+                for e in self._host_tier.entries():
+                    if e.version != version and not e.pinned:
+                        self._host_tier.discard(e.key)
+                        tier_flushed += 1
+        return trie_flushed, tier_flushed
+
+    # -- QoS: ordering, deadline shedding, stream suspension -------------
+
+    def _order_pending_locked(self, now: float) -> None:
+        """Re-order the queue by the QoS policy (under the cv): weighted
+        fair share across tenants (tokens served over weight, lowest
+        first), then priority with starvation aging, then FIFO. The sort
+        is stable."""
+        qos = self.qos
+        with self._mlock:
+            served = dict(self._tenant_served)
+        self._pending = deque(sorted(
+            self._pending,
+            key=lambda r: order_key(
+                served=served.get(r.tenant, 0.0),
+                weight=qos.spec(r.tenant).weight,
+                priority=r.priority,
+                waited_seconds=now - r.submit_t,
+                aging_seconds=qos.aging_seconds,
+                submit_t=r.submit_t)))
+
+    def _shed_expired_locked(self, now: float) -> None:
+        """Shed queued requests whose deadline has passed (under the
+        cv): decode spent on an answer nobody waits for only starves the
+        requests that still have time."""
+        expired = [r for r in self._pending
+                   if r.deadline_t is not None and now > r.deadline_t]
+        if not expired:
+            return
+        dead = {id(r) for r in expired}
+        self._pending = deque(r for r in self._pending
+                              if id(r) not in dead)
+        with self._mlock:
+            self.qos_deadline_shed += len(expired)
+        for r in expired:
+            r.timeline.event("deadline_shed",
+                             waited_ms=round(1e3 * (now - r.submit_t), 3))
+            self._finish(r, error=DeadlineExceeded(
+                f"deadline passed after {now - r.submit_t:.3f}s in queue"))
+
+    def _pick_suspend_victim_locked(self, cand: _Request,
+                                    need: int) -> int:
+        """A live stream to SUSPEND so the memory-blocked ``cand`` can
+        enter: the lowest-base-priority stream STRICTLY below the
+        candidate's base priority, whose exported KV fits the host tier
+        and whose blocks clear the candidate's watermark. Base priorities
+        on both sides: aging orders the queue but never drives
+        preemption (an aged equal-priority candidate would ping-pong one
+        tenant's streams through the tier). Called with the cv and the
+        prefix lock held. -1 when nothing qualifies: the round defers as
+        without QoS."""
+        if self.qos is None or self._host_tier is None:
+            return -1
+        victim, victim_p = -1, None
+        for slot in range(self.slots):
+            r = self._slot_req[slot]
+            if r is None or r.want_left <= 0:
+                continue
+            if r.chunk_pos >= 0:
+                # Mid-chain: a partial prompt that never decoded a
+                # token; nothing to export, only work to throw away.
+                continue
+            if len(r.tokens) + len(r.out) - r.folded < 2:
+                continue  # a 1-token sequence has no exportable prefix
+            if r.priority >= cand.priority:
+                continue
+            if victim_p is None or r.priority < victim_p:
+                victim, victim_p = slot, r.priority
+        if victim < 0:
+            return -1
+        r = self._slot_req[victim]
+        plen = len(r.tokens) + len(r.out) - r.folded - 1
+        est = (self._alloc.blocks_for(plen) * self.kv_block_size
+               * self._host_bytes_per_token)
+        if not self._host_tier.can_fit(est):
+            return -1  # never strand an unresumable stream
+        freed = len(self._slot_blocks[victim])
+        if self._alloc.free_blocks + freed - need < self.kv_low_watermark:
+            return -1  # even suspending would not admit the candidate
+        return victim
+
+    def _suspend_stream(self, slot: int) -> None:
+        """Park the live stream in ``slot``: retire its device row, export
+        the KV of its sequence so far into the host tier (PINNED: the
+        resume reads exactly those bytes), free the slot and its blocks,
+        and queue the request again. The resume is an ordinary admission:
+        the parked request's tokens now include what it emitted, so it
+        prefix-hits the promoted payload and continues where it stopped.
+        Runs on the scheduler thread with no lock held."""
+        req = self._slot_req[slot]
+        if req is None:
+            return
+        seq = req.tokens + req.out[req.folded:]
+        plen = len(seq) - 1
+        ids = self._slot_blocks[slot][: self._alloc.blocks_for(plen)]
+        # Retire the row FIRST: the state is written in place, and a row
+        # still active would scatter the next step's K/V through blocks
+        # that go back to the pool below and may be handed on.
+        with self._state_lock:
+            retire_row(self._state, slot)
+        payload = self._export_ids(ids)
+        key = tuple(seq[:plen])
+        with self._prefix_lock:
+            parked = self._host_tier.put(key, payload, plen, pinned=True,
+                                         version=req.weights_version)
+        self._slot_req[slot] = None
+        self._active_count -= 1
+        self._release_pin(req)
+        self._free_slot_blocks(slot)
+        if parked:
+            req.host_key = key
+        elif len(seq) > self.prefill_len:
+            # No host copy and too long to prefill again: it cannot
+            # resume. (The victim pick checks can_fit; never park such a
+            # request.)
+            self._finish(req, error=MemoryError(
+                "suspended stream lost its KV payload"))
+            return
+        req.tokens = seq
+        req.folded = len(req.out)
+        req.admit_plan = None
+        req.submit_t = time.perf_counter()  # queue wait re-anchors here
+        req.timeline.event("suspend", emitted=len(req.out), prefix_len=plen)
+        with self._mlock:
+            self.kv_suspends += 1
+        with self._cv:
+            if self._stopped:
+                self._finish(req, error=RuntimeError("decoder stopped"))
+                return
+            self._pending.append(req)
+            self._cv.notify()
 
     def _retire(self, req: _Request, slot: int) -> None:
         """A request's row is done: publish its prefix while the row is
@@ -1026,10 +1750,21 @@ class ContinuousDecoder:
 
     def _mark_admitted(self, req: _Request, slot: int) -> None:
         """The pop→slot transition: queue-wait histograms and the
-        timeline's admitted event (memory deferrals stretch the wait)."""
+        timeline's admitted event (memory deferrals stretch the wait). A
+        resumed (suspended) request re-anchored its wait at the park, and
+        its pinned host-tier payload becomes ordinary cache again."""
         wait = time.perf_counter() - req.submit_t
         self._h_queue_wait.observe(wait)
-        self._h_tenant_wait.labels(_DEFAULT_TENANT_LABEL).observe(wait)
+        self._h_tenant_wait.labels(tenant_bucket(req.tenant)).observe(wait)
+        if req.out:
+            if req.host_key is not None and self._host_tier is not None:
+                with self._prefix_lock:
+                    self._host_tier.unpin(req.host_key)
+                req.host_key = None
+            with self._mlock:
+                self.kv_resumes += 1
+            req.timeline.event("resume", emitted=len(req.out),
+                               want_left=req.want_left)
         req.timeline.event("admitted", slot=slot,
                            wait_ms=round(1e3 * wait, 3))
 
@@ -1054,12 +1789,14 @@ class ContinuousDecoder:
         request and frees the slot."""
         now = time.perf_counter()
         emitted_n, ttft_sum, ttft_n = 0, 0.0, 0
+        tenant_tok: dict[str, int] = {}
         for slot in range(self.slots):
             req = self._slot_req[slot]
             if req is None or not emitted[slot]:
                 continue
             tok = int(toks[slot])
             req.out.append(tok)
+            tenant_tok[req.tenant] = tenant_tok.get(req.tenant, 0) + 1
             if req.ttft_s is None:
                 req.ttft_s = now - req.submit_t
                 ttft_sum += req.ttft_s
@@ -1082,9 +1819,8 @@ class ContinuousDecoder:
             self.tokens_emitted += emitted_n
             self.ttft_sum += ttft_sum
             self.ttft_count += ttft_n
-            if emitted_n:
-                self._tenant_served[DEFAULT_TENANT] = (
-                    self._tenant_served.get(DEFAULT_TENANT, 0.0) + emitted_n)
+            for t, n in tenant_tok.items():
+                self._tenant_served[t] = self._tenant_served.get(t, 0.0) + n
 
     def _loop(self) -> None:
         """Scheduler-thread entry: on ANY exit, fail every stream still
@@ -1116,7 +1852,8 @@ class ContinuousDecoder:
         for req in queued:
             self._finish(req, error=err)
 
-    def _pop_admissions(self) -> tuple[list[tuple[_Request, int]], bool]:
+    def _pop_admissions(self) -> tuple[list[tuple[_Request, int]], bool,
+                                       int]:
         """Pop this round's admissions (caller holds the cv). Paged
         admission is memory-aware: a request enters only when its
         WORST-CASE block count fits the pool, so a stream can never run
@@ -1125,10 +1862,13 @@ class ContinuousDecoder:
         evict it) and shrinks the reservation to the unshared blocks,
         whose shared part is taken by refcount. A memory-blocked head may
         be bypassed by up to ``hol_bypass_limit`` later candidates that
-        fit, until it has aged ``hol_shield_rounds`` blocked rounds.
-        Returns (admissions, deferred)."""
+        fit, until it has aged ``hol_shield_rounds`` blocked rounds; when
+        the first blocked candidate outranks a live stream, that stream
+        is chosen for SUSPENSION (with QoS and the host tier on).
+        Returns (admissions, deferred, the slot to suspend or -1)."""
         pending: list[tuple[_Request, int]] = []
         deferred = False
+        suspend_slot = -1
         free_slots = [s for s in range(self.slots)
                       if self._slot_req[s] is None]
         if self._alloc is None:
@@ -1137,7 +1877,7 @@ class ContinuousDecoder:
                 req, slot = self._pending.popleft(), free_slots.pop(0)
                 self._mark_admitted(req, slot)
                 pending.append((req, slot))
-            return pending, deferred
+            return pending, deferred, suspend_slot
         idx = 0
         bypassed = 0
         while free_slots and idx < len(self._pending):
@@ -1160,11 +1900,18 @@ class ContinuousDecoder:
             n_shared = (plan[1] // self.kv_block_size
                         if plan is not None else 0)
             need = worst - n_shared
+            # A parked stream longer than the prefill width resumes only
+            # through its exported prefix: without a plan it waits for
+            # the promotion to find memory (chunked prefill lifts that
+            # ceiling: any sequence within the row can prefill again).
+            resumable = (plan is not None or self.prefill_chunk_tokens > 0
+                         or len(req.tokens) <= self.prefill_len)
             with self._prefix_lock:
                 self._reclaim_blocks(need, req.timeline)
                 headroom = self._alloc.free_blocks - need
                 busy = self._active_count > 0 or pending
-                fits = headroom >= (self.kv_low_watermark if busy else 0)
+                fits = resumable and headroom >= (
+                    self.kv_low_watermark if busy else 0)
                 if fits:
                     own = self._alloc.alloc(need)
                     shared = (list(plan[0].blocks[:n_shared])
@@ -1173,8 +1920,12 @@ class ContinuousDecoder:
                         self._alloc.share(b)
                     self.kv_blocks_peak = max(self.kv_blocks_peak,
                                               self._alloc.blocks_in_use)
-                elif plan is not None:
-                    self.prefix_cache.release(plan[0])
+                else:
+                    if plan is not None:
+                        self.prefix_cache.release(plan[0])
+                    if not deferred:
+                        suspend_slot = self._pick_suspend_victim_locked(
+                            req, need)
             if fits:
                 req.admit_plan = plan
                 req.defer_rounds = 0
@@ -1202,7 +1953,7 @@ class ContinuousDecoder:
             if bypassed > self.hol_bypass_limit:
                 break
             idx += 1
-        return pending, deferred
+        return pending, deferred, suspend_slot
 
     def _run(self) -> None:
         while True:
@@ -1215,7 +1966,11 @@ class ContinuousDecoder:
                     self._cv.wait(timeout=0.5)
                 if self._stopped:
                     return
-                pending, deferred = self._pop_admissions()
+                now = time.perf_counter()
+                self._shed_expired_locked(now)
+                if self.qos is not None and len(self._pending) > 1:
+                    self._order_pending_locked(now)
+                pending, deferred, suspend_slot = self._pop_admissions()
                 if deferred:
                     with self._mlock:
                         self.kv_defer_admissions += 1
@@ -1224,6 +1979,12 @@ class ContinuousDecoder:
                 # it: the next admission deserves its ramp round.
                 self._ramp_streak = 0
             try:
+                if suspend_slot >= 0:
+                    # Preempt to the host: the victim was chosen under the
+                    # cv; its export, a device round trip, runs here,
+                    # outside it. The freed blocks admit the blocked
+                    # candidate next round.
+                    self._suspend_stream(suspend_slot)
                 if pending:
                     # Admission fuses prefill + insert + one decode step,
                     # so a new request's first token ships with it. An
@@ -1323,6 +2084,7 @@ class ContinuousDecoder:
         budget and cut it at EOS, so the mask is trusted as it is."""
         now = time.perf_counter()
         emitted_n, ttft_sum, ttft_n = 0, 0.0, 0
+        tenant_tok: dict[str, int] = {}
         for slot in range(self.slots):
             req = self._slot_req[slot]
             if req is None or not emitted[slot, 0]:
@@ -1344,6 +2106,8 @@ class ContinuousDecoder:
                 req.stream.put(last_tok)
                 row_emitted += 1
             emitted_n += row_emitted
+            tenant_tok[req.tenant] = (tenant_tok.get(req.tenant, 0)
+                                      + row_emitted)
             if req.last_emit_t is not None:
                 self._h_itl.observe(now - req.last_emit_t)
             req.last_emit_t = now
@@ -1358,9 +2122,8 @@ class ContinuousDecoder:
             self.tokens_emitted += emitted_n
             self.ttft_sum += ttft_sum
             self.ttft_count += ttft_n
-            if emitted_n:
-                self._tenant_served[DEFAULT_TENANT] = (
-                    self._tenant_served.get(DEFAULT_TENANT, 0.0) + emitted_n)
+            for t, n in tenant_tok.items():
+                self._tenant_served[t] = self._tenant_served.get(t, 0.0) + n
 
     def _tune_slot(self, slot: int, accepted: int, drafted: int) -> None:
         """Shrink a slot's draft length while verification throws most of
@@ -1486,7 +2249,19 @@ class ContinuousDecoder:
                 "kv_cow_copies": self.kv_cow_copies,
                 "kv_shared_blocks": self.kv_shared_blocks,
                 "kv_defer_admissions": self.kv_defer_admissions,
+                "kv_handoff_exports": self.kv_handoff_exports,
+                "kv_handoff_imports": self.kv_handoff_imports,
+                "kv_handoff_tokens": self.kv_handoff_tokens,
+                "kv_suspends": self.kv_suspends,
+                "kv_resumes": self.kv_resumes,
+                "kv_host_hits": self.kv_host_hits,
+                "qos_deadline_shed": self.qos_deadline_shed,
                 "hol_bypasses": self.hol_bypasses,
+                "qos_enabled": self.qos is not None,
+                "role": self.role,
+                "weight_pushes": self.weight_pushes,
+                "weights_stale_refused": self.weight_stale_refused,
+                "weight_swap_seconds_last": self.last_swap_seconds,
                 "tenant_served": dict(self._tenant_served),
                 "spec_drafted_tokens": self.spec_drafted_tokens,
                 "spec_accepted_tokens": self.spec_accepted_tokens,
@@ -1500,9 +2275,12 @@ class ContinuousDecoder:
                                  if self._slot_k else 0.0),
                 **_UNPORTED_METRICS,
             }
+        with self._state_lock:
+            snap["weights_version"] = self.weights_version
         # The dense layout has no block pool: its block and byte gauges
         # read 0, as in JAX.
         alloc = self._alloc
+        tier = self._host_tier
         with self._prefix_lock:
             snap["prefix_evictions"] = cache.evictions if cache else 0
             snap["prefix_entries"] = len(cache) if cache else 0
@@ -1517,6 +2295,19 @@ class ContinuousDecoder:
                 "kv_bytes_per_token": alloc.bytes_per_token if alloc else 0,
                 "kv_bytes_in_use": alloc.bytes_in_use if alloc else 0,
                 "kv_bytes_total": alloc.bytes_total if alloc else 0,
+                # The host tier: its second-chance cache plus the pinned
+                # payloads of suspended streams.
+                "kv_host_tier_bytes": tier.bytes_in_use if tier else 0,
+                "kv_host_tier_bytes_total": (tier.capacity_bytes
+                                             if tier else 0),
+                "kv_host_tier_pinned_bytes": (tier.pinned_bytes
+                                              if tier else 0),
+                "kv_host_tier_entries": len(tier) if tier else 0,
+                "kv_host_demotions": tier.demotions if tier else 0,
+                "kv_host_evictions": tier.evictions if tier else 0,
+                "kv_host_promotions": tier.promotions if tier else 0,
+                "kv_host_tier_high_water_bytes": (tier.high_water_bytes
+                                                  if tier else 0),
             })
         for key, hist in (("ttft", self._h_ttft),
                           ("inter_token", self._h_itl),

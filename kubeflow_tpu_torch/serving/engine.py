@@ -8,12 +8,17 @@ server's fixed shape and runs either the plain forward
 (``transformer.apply``, whose attention is the flash kernel on the card)
 or, for instances that ask for tokens, the lockstep ``generate``. The
 continuous decoder (``serving/continuous.py``) serves generation in the
-default decode mode. BERT and ResNet predicts, checkpoint restore and
-peer weight pulls are not yet ported.
+default decode mode. The boot weights come, in order, from the first
+donor of ``weight_peers`` that answers (the chunked ``:pull`` transport
+of ``serving/weights.py``), from the newest checkpoint under
+``checkpoint_dir`` (the files ``train/checkpoint.py`` writes, from either
+framework's trainer), or from the seeded init. BERT and ResNet predicts
+are not yet ported.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 from dataclasses import dataclass
@@ -24,7 +29,8 @@ import torch
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.decode import generate
 from kubeflow_tpu_torch.models.registry import ModelSpec, get_model
-from kubeflow_tpu_torch.weights import params_from_numpy
+from kubeflow_tpu_torch.serving import weights as weights_mod
+from kubeflow_tpu_torch.weights import _unflatten, flatten, params_from_numpy
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -44,9 +50,15 @@ def pow2_bucket(n: int, cap: int | None = None) -> int:
 @dataclass
 class EngineConfig:
     model: str = "lm-test-tiny"
-    # Not yet ported: must stay None / empty (weights come from init).
+    # The newest checkpoint of a training run under this directory gives
+    # the boot weights (the train state of the default optimizer, as the
+    # JAX engine restores it); None boots from the seeded init.
     checkpoint_dir: str | None = None
+    # Comma-separated "host:port" donors serving the same model: boot
+    # pulls their weights over :pull, tried in order, falling back to
+    # checkpoint_dir (then the init) when every donor fails.
     weight_peers: str = ""
+    weight_pull_timeout_s: float = 30.0
     batch_size: int = 8
     max_seq_len: int = 128
     max_new_tokens: int = 16
@@ -82,6 +94,17 @@ class EngineConfig:
     # prompt ceiling past max_seq_len (0 = max_seq_len).
     prefill_chunk_tokens: int = 0
     max_prompt_len: int = 0
+    # Disaggregated role (paged): "" (colocated), "prefill" or "decode";
+    # the :prefill/:import routes carry the handoff.
+    serving_role: str = ""
+    # Host-RAM KV tier budget in bytes (paged; 0 disables): evicted
+    # prefixes demote there and QoS suspensions park there.
+    host_kv_bytes: int = 0
+    # QoS tenants, "name=weight[:rate[:burst[:priority]]]"
+    # comma-separated (empty disables QoS), and the seconds of queue wait
+    # worth one priority point (<= 0 disables aging).
+    qos_tenants: str = ""
+    qos_aging_s: float = 30.0
     # Compute dtype override ("bfloat16"/"float32"); empty keeps the
     # preset's dtype.
     dtype: str = ""
@@ -114,12 +137,6 @@ class InferenceEngine:
     layout (:func:`kubeflow_tpu_torch.weights.params_from_numpy`)."""
 
     def __init__(self, cfg: EngineConfig, *, params=None):
-        if cfg.checkpoint_dir:
-            raise ValueError("checkpoint_dir is not yet ported to the "
-                             "PyTorch package")
-        if cfg.weight_peers:
-            raise ValueError("weight_peers is not yet ported to the PyTorch "
-                             "package")
         if cfg.decode_mode not in ("continuous", "lockstep"):
             raise ValueError(f"unknown decode_mode {cfg.decode_mode!r}")
         if cfg.dtype and cfg.dtype not in _DTYPES:
@@ -128,18 +145,16 @@ class InferenceEngine:
         self.device = resolve_device(cfg.device)
         overrides = {"dtype": _DTYPES[cfg.dtype]} if cfg.dtype else {}
         self.model: ModelSpec = get_model(cfg.model, **overrides)
-        # Where the boot weights came from and the birth phases' seconds,
-        # for the server's serving_weight_pulls_total and
-        # serving_cold_start_seconds. Checkpoints and peer pulls are not
-        # ported, so the source is always "init".
+        # Where the boot weights came from ("peer", "checkpoint" or
+        # "init"), the donor's weights epoch (0 = boot weights), and the
+        # birth phases' seconds, for the server's
+        # serving_weight_pulls_total and serving_cold_start_seconds.
         self.weight_pull_source = "init"
+        self.boot_weights_version = 0
         self.cold_start: dict[str, float] = {}
         t0 = time.perf_counter()
         if params is None:
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(0)
-            self.params = self.model.init(self.model.config, generator=gen,
-                                          device=self.device)
+            self.params = self._load_params()
         else:
             self.params = params_from_numpy(params, self.model.config,
                                             self.device)
@@ -148,6 +163,73 @@ class InferenceEngine:
         # Lockstep generation seeds a fresh generator per batch.
         self._seed = 0
         self._warm = False
+
+    def _load_params(self) -> dict:
+        """The boot chain: peers, then the checkpoint, then the init."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(0)
+        params = self.model.init(self.model.config, generator=gen,
+                                 device=self.device)
+        if self.cfg.weight_peers:
+            pulled = self._pull_params_from_peers(params)
+            if pulled is not None:
+                return pulled
+        if self.cfg.checkpoint_dir:
+            params = self._restore_checkpoint(params)
+            self.weight_pull_source = "checkpoint"
+        return params
+
+    @staticmethod
+    def _cast_like(leaves: dict, reference) -> dict:
+        """Host leaves onto the reference tree's device and leaf dtypes."""
+        return _unflatten({
+            p: leaves[p].to(ref.device, ref.dtype)
+            for p, ref in flatten(reference).items()})
+
+    def _pull_params_from_peers(self, reference):
+        """Each donor of ``weight_peers`` in order over the chunked
+        ``:pull`` envelope; the first whole tree wins (stamping the
+        source and the donor's epoch). None when every donor fails: the
+        caller falls back to the checkpoint, so a replica always boots."""
+        for donor in [p.strip() for p in self.cfg.weight_peers.split(",")
+                      if p.strip()]:
+            try:
+                leaves, version, _has_draft = weights_mod.pull_weights(
+                    donor, self.cfg.model,
+                    timeout=self.cfg.weight_pull_timeout_s)
+                model_leaves, _ = weights_mod.split_namespaces(leaves)
+                tree = weights_mod.unflatten_params(model_leaves, reference)
+            except (OSError, ValueError) as e:
+                # A dead, dying or misbehaving donor: nothing partial
+                # survives the assembler; try the next.
+                logging.getLogger(__name__).warning(
+                    "weight pull from donor %s failed: %s", donor, e)
+                continue
+            self.weight_pull_source = "peer"
+            self.boot_weights_version = int(version)
+            return self._cast_like(flatten(tree), reference)
+        return None
+
+    def _restore_checkpoint(self, reference) -> dict:
+        """The newest checkpoint's parameters (``train/checkpoint.py:
+        restore_latest`` of the default optimizer's train state, as the
+        JAX engine restores it), restored on the host and cast onto the
+        serving tree. Raises ``FileNotFoundError`` when there is none."""
+        from kubeflow_tpu_torch.train import checkpoint as ckpt_lib
+        from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
+        from kubeflow_tpu_torch.train.trainer import TrainState
+
+        # The template fixes the leaves' shapes and order; restoring onto
+        # the host keeps the optimizer's slots out of device memory.
+        like = TrainState(step=0, params=_unflatten({
+            p: torch.empty(ref.shape, dtype=torch.float32)
+            for p, ref in flatten(reference).items()}), opt_state={})
+        restored = ckpt_lib.restore_latest(self.cfg.checkpoint_dir, like,
+                                           OptimizerConfig())
+        if restored is None:
+            raise FileNotFoundError(
+                f"no checkpoint under {self.cfg.checkpoint_dir}")
+        return self._cast_like(flatten(restored[0].params), reference)
 
     def warmup(self) -> None:
         """One predict through the serving shape (PyTorch compiles

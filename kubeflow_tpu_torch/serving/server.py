@@ -20,13 +20,27 @@ bodies:
 - ``GET  /debug/requests`` the decoder's request timelines (``?id=<rid>``
   filters, ``?format=chrome`` exports a trace-event file)
 
-Every response carries ``X-Request-ID`` (the caller's, or a fresh one),
-and a generation's id keys its timeline. gRPC on ``grpc_port`` (:9000 by
-convention; ``serving/grpc_server.py``) shares the engine, the batcher
-and the decoder.
+- ``POST /v1/models/<name>:prefill``  ``{"instances": [one], "handoff_to":
+  "host:port"}``: the prompt's KV exported (``export_prompt``) and pushed
+  as a handoff envelope to that decode server's ``:import``, or handed
+  back as ``"envelope"`` without ``handoff_to``
+- ``POST /v1/models/<name>:import``   a handoff envelope →
+  ``{"imported": bool}``; the prompt's predict then hits the prefix
+- ``POST /v1/models/<name>:weights``  one chunk of a weight push
+  (``serving/weights.py``); the last chunk of an epoch installs the tree
+  (``update_weights``) → ``{"installed": bool, "weights_version": v}``
+- ``POST /v1/models/<name>:pull``     ``{"seq": k}`` → chunk ``k`` of this
+  server's current weights, for a replica booting from its peers
 
-The fleet endpoints (``:prefill``, ``:import``, ``:kv``, ``:weights``,
-``:pull``) and the QoS headers are not yet ported.
+Every response carries ``X-Request-ID`` (the caller's, or a fresh one),
+and a generation's id keys its timeline. A predict's ``X-Tenant``,
+``X-Priority`` and ``X-Deadline-Ms`` headers reach the decoder's QoS; a
+tenant over its rate gets 429 with ``Retry-After``, a request shed past
+its deadline 503. gRPC on ``grpc_port`` (:9000 by convention;
+``serving/grpc_server.py``) shares the engine, the batcher and the
+decoder.
+
+The fleet KV economy's ``:kv`` route is not yet ported.
 """
 
 from __future__ import annotations
@@ -34,6 +48,7 @@ from __future__ import annotations
 import json
 import threading
 import time
+from http.client import HTTPConnection
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
@@ -52,7 +67,10 @@ from kubeflow_tpu_torch.serving.continuous import (
     ContinuousDecoder,
     PromptTooLong,
 )
+from kubeflow_tpu_torch.serving import handoff as handoff_mod
+from kubeflow_tpu_torch.serving import weights as weights_mod
 from kubeflow_tpu_torch.serving.engine import EngineConfig, InferenceEngine
+from kubeflow_tpu_torch.serving.qos import QosPolicy, QosRejected
 
 
 class _Metrics:
@@ -183,12 +201,22 @@ class ModelServer:
         self.grpc_port = grpc_port
         self._httpd: ThreadingHTTPServer | None = None
         self._grpc = None
+        # Live weight pushes (:weights): chunk assembly, serialized so
+        # concurrent chunks interleave safely. The :pull export: the
+        # current epoch's flattened host tree, chunk-planned once per
+        # epoch (its leaf lock guards only the cached tuple).
+        self._weights_assembler = None
+        self._weights_lock = threading.Lock()
+        self._export_cache = None
+        self._export_lock = threading.Lock()
         # The decoder is built at once (the JAX server builds it at the
         # first request): the port serves only language models, and an
         # option that is not yet ported fails here rather than at the
         # first request. None unless generation rides it.
         cfg = engine_cfg
         continuous = cfg.max_new_tokens > 0 and cfg.decode_mode == "continuous"
+        qos = (QosPolicy(cfg.qos_tenants, aging_seconds=cfg.qos_aging_s)
+               if cfg.qos_tenants else None)
         self.decoder = None if not continuous else ContinuousDecoder(
             self.engine.params, self.engine.model.config,
             slots=cfg.batch_size,
@@ -210,6 +238,10 @@ class ModelServer:
             stream_timeout_s=cfg.stream_timeout_s,
             prefill_chunk_tokens=cfg.prefill_chunk_tokens,
             max_prompt_len=cfg.max_prompt_len,
+            role=cfg.serving_role,
+            qos=qos,
+            host_kv_bytes=cfg.host_kv_bytes,
+            boot_weights_version=self.engine.boot_weights_version,
         )
         self.batcher = DynamicBatcher(self.engine.predict_batch,
                                       cfg.batch_size, batch_timeout_ms)
@@ -217,7 +249,8 @@ class ModelServer:
     # ------------------------------------------------------------------
 
     def handle_predict(self, name: str, body: dict,
-                       request_id: str | None = None) -> dict:
+                       request_id: str | None = None,
+                       qos: dict | None = None) -> dict:
         if name != self.engine.cfg.model:
             raise KeyError(f"model {name!r} not served")
         instances = body.get("instances")
@@ -238,7 +271,8 @@ class ModelServer:
                        else f"{request_id}-{i}" if request_id else None)
                 handles.append(("gen", inst, self.decoder.submit(
                     inst["tokens"], inst["max_new_tokens"],
-                    float(inst.get("temperature", 0.0)), request_id=rid)))
+                    float(inst.get("temperature", 0.0)), request_id=rid,
+                    **(qos or {}))))
             else:
                 handles.append(("batch", inst,
                                 self.batcher.submit_async(inst)))
@@ -266,7 +300,8 @@ class ModelServer:
         return pred
 
     def handle_predict_stream(self, name: str, body: dict,
-                              request_id: str | None = None):
+                              request_id: str | None = None,
+                              qos: dict | None = None):
         """Streaming generation: yields JSON-line dicts, one per token, then
         a terminal ``{"done": true, ...}`` record. Exactly one instance."""
         if name != self.engine.cfg.model:
@@ -282,7 +317,8 @@ class ModelServer:
             raise ValueError("streaming needs decode_mode 'continuous'")
         handle = self.decoder.submit(
             inst["tokens"], inst["max_new_tokens"],
-            float(inst.get("temperature", 0.0)), request_id=request_id)
+            float(inst.get("temperature", 0.0)), request_id=request_id,
+            **(qos or {}))
 
         # Validation above runs before the HTTP 200 goes out; only the
         # token iteration is deferred.
@@ -300,6 +336,127 @@ class ModelServer:
             }
 
         return _records()
+
+    # -- the prefill/decode handoff --------------------------------------
+
+    def _check_model(self, name: str) -> None:
+        if name != self.engine.cfg.model:
+            raise KeyError(f"model {name!r} not served")
+        if self.decoder is None:
+            raise ValueError("model does not support generation")
+
+    def handle_prefill(self, name: str, body: dict,
+                       request_id: str | None = None) -> dict:
+        """``:prefill``: export the one instance's prompt KV; push the
+        packed envelope to ``handoff_to``'s ``:import`` (server to
+        server), or hand it back without a destination."""
+        self._check_model(name)
+        instances = body.get("instances")
+        if not isinstance(instances, list) or len(instances) != 1:
+            raise ValueError("prefill handoff needs exactly one instance")
+        inst = instances[0]
+        self.engine.validate_instance(inst)
+        h = self.decoder.export_prompt(inst["tokens"])
+        env = handoff_mod.pack(h)
+        target = str(body.get("handoff_to", "") or "")
+        if target:
+            pushed = self._push_handoff(name, target, env, request_id)
+            return {"handoff": pushed, "prefix_len": h["prefix_len"]}
+        return {"handoff": False, "prefix_len": h["prefix_len"],
+                "envelope": env}
+
+    def _push_handoff(self, name: str, target: str, env: dict,
+                      request_id: str | None = None) -> bool:
+        """POST the envelope at the decode server's ``:import``. Any
+        failure returns False: the decode server then prefills the
+        prompt itself (slower, never wrong)."""
+        host, _, port_s = target.partition(":")
+        data = json.dumps(env).encode()
+        headers = {"Content-Type": "application/json"}
+        if request_id:
+            headers[REQUEST_ID_HEADER] = request_id
+        try:
+            conn = HTTPConnection(host, int(port_s or 80), timeout=30.0)
+            try:
+                conn.request("POST", f"/v1/models/{name}:import",
+                             body=data, headers=headers)
+                resp = conn.getresponse()
+                out = json.loads(resp.read() or b"{}")
+                return resp.status == 200 and bool(out.get("imported"))
+            finally:
+                conn.close()
+        except (OSError, ValueError):
+            return False
+
+    def handle_import(self, name: str, body: dict) -> dict:
+        """``:import``: a handoff envelope into this decoder's trie."""
+        self._check_model(name)
+        h = handoff_mod.unpack(body)  # ValueError on garbage -> 400
+        return {"imported": bool(self.decoder.import_prompt(h))}
+
+    # -- live weight pushes -----------------------------------------------
+
+    def handle_weights(self, name: str, body: dict) -> dict:
+        """``:weights``: one chunk of a push. Chunks assemble per weights
+        epoch; the tree installs only when its last chunk lands, so a
+        torn or abandoned push never reaches the decoder."""
+        self._check_model(name)
+        decoder = self.decoder
+        chunk = weights_mod.unpack_chunk(body)  # ValueError -> 400
+        with self._weights_lock:
+            if self._weights_assembler is None:
+                self._weights_assembler = weights_mod.WeightChunkAssembler()
+            done = self._weights_assembler.add(chunk)
+            pending = self._weights_assembler.pending
+        if done is None:
+            return {"installed": False, "pending": pending,
+                    "weights_version": chunk["weights_version"]}
+        leaves, has_draft = done
+        model_leaves, draft_leaves = weights_mod.split_namespaces(leaves)
+        params = weights_mod.unflatten_params(model_leaves, decoder.params)
+        draft = None
+        if has_draft:
+            spec = decoder._spec
+            if spec is None or not hasattr(spec, "params"):
+                raise ValueError(
+                    "push carries draft weights but no draft-model "
+                    "proposer is configured")
+            draft = weights_mod.unflatten_params(draft_leaves, spec.params)
+        installed = decoder.update_weights(
+            params, version=chunk["weights_version"], draft_params=draft)
+        return {"installed": True, "weights_version": installed}
+
+    def handle_weights_pull(self, name: str, body: dict) -> dict:
+        """``:pull``: chunk ``seq`` of this server's CURRENT weights epoch
+        as a push envelope, for a replica booting from its peers. The
+        flattened host tree is chunk-planned once per epoch; a push that
+        swaps epochs mid-pull changes the version the next chunk carries,
+        and the puller restarts. A ``seq`` beyond the plan is a KeyError
+        (404)."""
+        if name != self.engine.cfg.model:
+            raise KeyError(f"model {name!r} not served")
+        seq = int(body.get("seq", 0))
+        if self.decoder is not None:
+            params, version = self.decoder.weights_snapshot()
+        else:
+            params = self.engine.params
+            version = self.engine.boot_weights_version
+        with self._export_lock:
+            cache = self._export_cache
+        if cache is None or cache[0] != version:
+            # Flattened and planned outside the lock: a racing pull just
+            # builds the same plan.
+            groups = weights_mod.plan_chunks(
+                weights_mod.flatten_namespaced(params))
+            cache = (version, groups)
+            with self._export_lock:
+                self._export_cache = cache
+        version, groups = cache
+        if not 0 <= seq < len(groups):
+            raise KeyError(f"weights chunk {seq} beyond plan "
+                           f"({len(groups)} chunks at epoch {version})")
+        return weights_mod.pack_chunk(groups[seq], version, seq,
+                                      len(groups), False)
 
     def handle_metadata(self, name: str) -> dict:
         if name != self.engine.cfg.model:
@@ -363,6 +520,42 @@ class ModelServer:
                     self.wfile.write(b"0\r\n\r\n")
                     self.wfile.flush()
 
+            def _qos_headers(self) -> dict:
+                """Tenant, priority and shed deadline from the headers; a
+                malformed number is a client error (400)."""
+                qos = {}
+                tenant = self.headers.get("X-Tenant")
+                if tenant:
+                    qos["tenant"] = tenant
+                prio = self.headers.get("X-Priority")
+                if prio:
+                    try:
+                        qos["priority"] = int(prio)
+                    except ValueError:
+                        raise ValueError(
+                            f"malformed X-Priority {prio!r}") from None
+                deadline = self.headers.get("X-Deadline-Ms")
+                if deadline:
+                    try:
+                        qos["deadline_ms"] = float(deadline)
+                    except ValueError:
+                        raise ValueError(
+                            f"malformed X-Deadline-Ms {deadline!r}"
+                        ) from None
+                return qos
+
+            def _send_429(self, e: QosRejected) -> None:
+                """Over-rate: backpressure the client can act on."""
+                payload = json.dumps({"error": str(e)}).encode()
+                self.send_response(429)
+                self.send_header(REQUEST_ID_HEADER, self._request_id)
+                self.send_header("Retry-After",
+                                 str(max(1, int(e.retry_after_s + 0.999))))
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(payload)))
+                self.end_headers()
+                self.wfile.write(payload)
+
             def _take_request_id(self) -> None:
                 # Honor the caller's id, mint one otherwise; echoed on the
                 # response and keyed into the decoder's timeline.
@@ -403,22 +596,43 @@ class ModelServer:
                 try:
                     length = int(self.headers.get("Content-Length", 0))
                     body = json.loads(self.rfile.read(length) or b"{}")
-                    if not (self.path.startswith("/v1/models/")
-                            and self.path.endswith(":predict")):
+                    model, _, verb = self.path.removeprefix(
+                        "/v1/models/").rpartition(":")
+                    routes = {
+                        "prefill": lambda: server.handle_prefill(
+                            model, body, request_id=self._request_id),
+                        "import": lambda: server.handle_import(model, body),
+                        "weights": lambda: server.handle_weights(
+                            model, body),
+                        "pull": lambda: server.handle_weights_pull(
+                            model, body),
+                    }
+                    if not self.path.startswith("/v1/models/") or not (
+                            verb == "predict" or verb in routes):
                         error = True
                         self._send(404, {"error": f"no route {self.path}"})
                         return
-                    name = self.path[len("/v1/models/"):-len(":predict")]
+                    if verb != "predict":
+                        self._send(200, routes[verb]())
+                        return
+                    qos = self._qos_headers()
                     if body.get("stream"):
                         self._send_stream(server.handle_predict_stream(
-                            name, body, request_id=self._request_id))
+                            model, body, request_id=self._request_id,
+                            qos=qos))
                     else:
                         self._send(200, server.handle_predict(
-                            name, body, request_id=self._request_id))
+                            model, body, request_id=self._request_id,
+                            qos=qos))
                 except KeyError as e:
                     error = True
                     self._send(404, {"error": str(e)})
+                except QosRejected as e:
+                    error = True
+                    self._send_429(e)
                 except TimeoutError as e:
+                    # A deadline shed (DeadlineExceeded is a TimeoutError)
+                    # lands here too: the answer's window has passed.
                     error = True
                     self._send(503, {"error": str(e)
                                      or "generation timed out"})

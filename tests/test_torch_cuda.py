@@ -639,3 +639,63 @@ def test_remat_on_equals_off_through_the_flash_kernel(cuda, overrides):
     for k, g in off.items():
         assert (on[k] - g).abs().max().item() <= \
             1e-6 * g.abs().max().item(), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "f32", "int8"])
+def test_exported_blocks_imported_read_the_same_through_the_kernel(cuda,
+                                                                   kv):
+    """The host tier's and the handoff's round trip on CUDA pools: blocks
+    exported, copied to the host, and imported into other blocks of a
+    second pool are bit for bit the originals (int8 codes and scales
+    alike, never quantized again), and the paged kernel reading them
+    through a table pointing at the new blocks returns, bit for bit, what
+    it returned over the originals (and what the plain read returns,
+    within 2e-3)."""
+    from kubeflow_tpu_torch.models.decode import export_blocks, import_blocks
+
+    b, hkv, group, hd, bs, mb = 3, 8, 2, 128, 16, 5
+    q, kp, vp, table, pos = _paged_case(cuda, kv, b, hkv, group, hd, bs,
+                                        mb, [3 * bs + 2, 2 * bs, mb * bs])
+    live = sorted({int(x) for x in table.flatten().tolist()
+                   if x < table.shape[0] * mb})
+    before = _paged_check(cuda, q, kp, vp, table, pos)
+
+    def stacked(p):  # the [L, N, ...] layout of a decode state's pool
+        if isinstance(p, dict):
+            return {k: v[None].clone() for k, v in p.items()}
+        return p[None].clone()
+
+    pool = {"k": stacked(kp), "v": stacked(vp)}
+    payload = export_blocks(pool, live)
+    host = {s: ({k: v.cpu() for k, v in p.items()} if isinstance(p, dict)
+                else p.cpu()) for s, p in payload.items()}
+    # A second pool, zeroed, whose block i takes original block live[i]
+    # at a permuted place.
+    fresh = {s: ({k: torch.zeros_like(v) for k, v in p.items()}
+                 if isinstance(p, dict) else torch.zeros_like(p))
+             for s, p in pool.items()}
+    n = table.shape[0] * mb
+    dst = torch.randperm(n, generator=torch.Generator().manual_seed(1))[
+        :len(live)].tolist()
+    import_blocks(fresh, dst, host)
+    back = export_blocks(fresh, dst)
+    for s in ("k", "v"):
+        a, c = payload[s], back[s]
+        for x, y in (zip(a.values(), c.values()) if isinstance(a, dict)
+                     else ((a, c),)):
+            assert torch.equal(x, y)
+    remap = torch.full((n + 1,), n, dtype=torch.int32, device=cuda)
+    remap[torch.tensor(live, device=cuda)] = torch.tensor(
+        dst, dtype=torch.int32, device=cuda)
+    table2 = remap[table.long()]
+
+    def layer0(p):
+        return {k: v[0] for k, v in p.items()} if isinstance(p, dict) \
+            else p[0]
+
+    after = _paged_check(cuda, q, layer0(fresh["k"]), layer0(fresh["v"]),
+                         table2, pos)
+    assert torch.equal(after, before)
+    with pytest.raises(IndexError):
+        export_blocks(fresh, [n])

@@ -17,6 +17,7 @@ import math
 import random
 import re
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -315,6 +316,13 @@ PREFIX_CFG = dict(kv_layout="paged", kv_block_size=8, prefix_cache_slots=4,
                   prefix_cache_min_len=8)
 CHUNK_CFG = dict(kv_layout="paged", kv_block_size=8, prefill_chunk_tokens=8,
                  max_prompt_len=48)
+# A pool of 6 blocks under 4 trie entries and a host tier: the third
+# request evicts (demotes) SYSTEM's entry, the fourth promotes it back
+# and demotes the others to make room; QoS is on.
+TIER_QOS_CFG = dict(kv_layout="paged", kv_block_size=8, kv_pool_blocks=6,
+                    prefix_cache_slots=4, prefix_cache_min_len=8,
+                    host_kv_bytes=1 << 20,
+                    qos_tenants="gold=8:0:0:10,free=1")
 SYSTEM = list(range(2, 22))
 TRAFFIC = {
     "dense": [{"tokens": [1, 2, 3], "max_new_tokens": 4},
@@ -325,8 +333,13 @@ TRAFFIC = {
                      {"tokens": SYSTEM[:16] + [3], "max_new_tokens": 3}],
     "chunked": [{"tokens": list(range(1, 41)), "max_new_tokens": 4},
                 {"tokens": [4, 5, 6], "max_new_tokens": 5}],
+    "host_tier_qos": [{"tokens": SYSTEM, "max_new_tokens": 4},
+                      {"tokens": list(range(30, 50)), "max_new_tokens": 4},
+                      {"tokens": list(range(60, 80)), "max_new_tokens": 4},
+                      {"tokens": SYSTEM + [50, 51], "max_new_tokens": 6}],
 }
-CASES = {"dense": {}, "paged_prefix": PREFIX_CFG, "chunked": CHUNK_CFG}
+CASES = {"dense": {}, "paged_prefix": PREFIX_CFG, "chunked": CHUNK_CFG,
+         "host_tier_qos": TIER_QOS_CFG}
 
 
 def _request(port, method, path, body=None, headers=None):
@@ -357,14 +370,30 @@ def _exposition(text):
     return types, samples
 
 
+def _settled_scrape(port, family, want, deadline_s=10.0):
+    """The exposition once ``family`` reads ``want``. Both servers count
+    a request in the handler's ``finally``, after the response is
+    written, so a scrape sent right after a response can land before
+    that count; polling (bounded) reads every server in the state the
+    comparison means."""
+    end = time.monotonic() + deadline_s
+    while True:
+        status, _, text = _request(port, "GET", METRICS)
+        assert status == 200
+        if _exposition(text)[1].get(family) == want:
+            return text
+        if time.monotonic() > end:
+            raise AssertionError(f"{family} never read {want} in "
+                                 f"{deadline_s} s")
+        time.sleep(0.02)
+
+
 def _scrape_after(server, traffic, port):
     for body in traffic:
         status, _, text = _request(port, "POST", PREDICT,
                                    {"instances": [body]})
         assert status == 200, text
-    status, headers, text = _request(port, "GET", METRICS)
-    assert status == 200
-    return text
+    return _settled_scrape(port, "serving_requests_total", len(traffic))
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -405,6 +434,10 @@ def test_exposition_matches_the_jax_server(weights, case):
         assert samples["serving_kv_cow_copies_total"] >= 1
     if case == "chunked":
         assert samples["serving_prefill_chunks_total"] >= 1
+    if case == "host_tier_qos":
+        assert samples["serving_kv_host_demotions_total"] >= 2
+        assert samples["serving_kv_host_promotions_total"] >= 1
+        assert samples["serving_qos_enabled"] == 1
 
 
 def test_request_ids_round_trip_over_http(weights):
@@ -449,7 +482,7 @@ def test_request_ids_round_trip_over_http(weights):
             {"tokens": list(range(40)), "max_new_tokens": 1}]},
             {"X-Request-ID": "rid-413"})
         assert status == 413 and headers["X-Request-ID"] == "rid-413"
-        _, _, text = _request(port, "GET", METRICS)
+        text = _settled_scrape(port, "serving_errors_total", 1)
         assert "serving_errors_total 1\n" in text
     finally:
         server.stop()

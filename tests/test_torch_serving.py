@@ -35,6 +35,7 @@ from kubeflow_tpu_torch.serving.continuous import (  # noqa: E402
     PromptTooLong,
 )
 from kubeflow_tpu_torch.serving.engine import EngineConfig  # noqa: E402
+from kubeflow_tpu_torch.serving.qos import QosPolicy  # noqa: E402
 from kubeflow_tpu_torch.serving.server import ModelServer  # noqa: E402
 from kubeflow_tpu_torch.weights import params_from_numpy  # noqa: E402
 
@@ -115,13 +116,13 @@ _OPTIONS = [
      "requires kv_layout='paged'"),
     (dict(prefix_cache_slots=2), None),
     (dict(speculative_k=2), None),
-    (dict(qos=object()), "not yet ported"),
-    (dict(host_kv_bytes=1 << 20), "not yet ported"),
+    (dict(qos=QosPolicy({})), None),
+    (dict(host_kv_bytes=1 << 20), None),
     (dict(prefill_chunk_tokens=8), None),
     (dict(tp_shards=2), "not yet ported"),
     (dict(cp_shards=2), "not yet ported"),
     (dict(pp_stages=2), "not yet ported"),
-    (dict(role="prefill"), "not yet ported"),
+    (dict(role="prefill"), None),
     (dict(kv_directory=object()), "not yet ported"),
     (dict(cold_store=object()), "not yet ported"),
 ]
@@ -131,8 +132,9 @@ _OPTIONS = [
                          ids=[next(iter(o)) for o, _ in _OPTIONS])
 def test_decoder_unported_options_raise(weights, option, match):
     """Options of features not yet ported raise; the dense layout refuses
-    chunking as JAX does. The paged prefix cache, chunked prefill and
-    speculation are ported: those options build a decoder that serves."""
+    chunking as JAX does. The paged prefix cache, chunked prefill,
+    speculation, QoS, the host KV tier and the fleet roles are ported:
+    those options build a decoder that serves."""
     _, _, tree = weights
     tcfg = ttransformer.config("lm-test-tiny", dtype=torch.float32)
     kw = {**DECODER_KW, **option}
@@ -156,22 +158,28 @@ def _engine_cfg(**kw):
 
 
 @pytest.mark.parametrize("option", [
-    dict(checkpoint_dir="/nonexistent"), dict(weight_peers="h:1"),
+    dict(checkpoint_dir="/nonexistent"), dict(weight_peers="127.0.0.1:1"),
     dict(prefix_cache_slots=2)],
     ids=lambda o: next(iter(o)))
 def test_server_unported_options_raise(option):
-    """Checkpoints and peer weights raise; the paged prefix cache is
-    ported, and a paged server with it builds its trie."""
-    if "prefix_cache_slots" in option:
-        server = ModelServer(_engine_cfg(**option), port=0)
-        try:
-            assert server.decoder.prefix_cache is not None
-            assert server.decoder.metrics()["kv_layout"] == "paged"
-        finally:
-            server.stop()
+    """The boot chain as JAX's: a checkpoint directory without a
+    checkpoint raises, a dead donor falls back to the init; the paged
+    prefix cache builds its trie."""
+    if "checkpoint_dir" in option:
+        with pytest.raises(FileNotFoundError, match="no checkpoint"):
+            ModelServer(_engine_cfg(**option), port=0)
         return
-    with pytest.raises(ValueError, match="not yet ported"):
-        ModelServer(_engine_cfg(**option), port=0)
+    server = ModelServer(_engine_cfg(weight_pull_timeout_s=5.0, **option),
+                         port=0)
+    try:
+        if "weight_peers" in option:
+            assert server.engine.weight_pull_source == "init"
+            assert server.engine.boot_weights_version == 0
+        else:
+            assert server.decoder.prefix_cache is not None
+        assert server.decoder.metrics()["kv_layout"] == "paged"
+    finally:
+        server.stop()
 
 
 @pytest.mark.parametrize("option", [
@@ -245,15 +253,26 @@ def test_http_predict_stream_and_probes_match_jax(weights, jax_streams):
         server.stop()
 
 
-@pytest.mark.parametrize("flag", ["--qos-tenants", "--tp-shards",
-                                  "--host-kv-bytes"])
-def test_cli_rejects_unported_flags(flag):
+_REFUSED_FLAGS = {
+    # Still unported: refused by name.
+    "--tp-shards": ["--kv-layout", "paged", "--tp-shards", "2"],
+    # Ported: refused, as the JAX CLI refuses them, where they cannot
+    # serve (QoS needs the continuous decoder, the host tier the paged
+    # layout).
+    "--qos-tenants": ["--qos-tenants", "gold=2", "--decode-mode",
+                      "lockstep"],
+    "--host-kv-bytes": ["--host-kv-bytes", "2"],
+}
+
+
+@pytest.mark.parametrize("flag", list(_REFUSED_FLAGS))
+def test_cli_rejects_unported_flags(flag, capsys):
     from kubeflow_tpu_torch.serving.__main__ import main
 
     with pytest.raises(SystemExit) as e:
-        main(["--model-name", "lm-test-tiny", "--kv-layout", "paged", flag,
-              "2"])
+        main(["--model-name", "lm-test-tiny", *_REFUSED_FLAGS[flag]])
     assert e.value.code == 2
+    assert flag in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("extra", [
@@ -289,8 +308,8 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n in ('jax', 'optax',\n"
-        "             'kubeflow_tpu') or n.startswith(('jax.', 'optax.',\n"
-        "             'kubeflow_tpu.')))\n"
+        "             'kubeflow_tpu', 'ml_dtypes') or n.startswith(('jax.',\n"
+        "             'optax.', 'kubeflow_tpu.', 'ml_dtypes.')))\n"
         "print(len(list(pkgutil.walk_packages(pkg.__path__))), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
