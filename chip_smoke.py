@@ -14,14 +14,17 @@ default dense server, whose plain predicts run the flash forward kernel,
 and its metrics, request ids and gRPC; the host KV tier, QoS with
 suspension, the prefill/decode handoff and live weight pushes), trains
 ``flagship-1b`` and ``flagship-deep`` at full width (and depth) through
-the port's training loop with attention in the flash kernels, and checks
-the output. Phases, each printed as one JSON line:
+the port's training loop with attention in the flash kernels, serves and
+trains the other families (``moe-1b``, ``bert-base``, ``resnet50``) at
+full size, and checks the output. Phases, each printed as one JSON line:
 
 (a) the card and the kernels' build times;
 (b) the paged decode kernel against ``_paged_decode_plain`` at the main
     path's shape (bf16, f32 and int8 pools; sentinel table entries, a
     parked row, a row with pos < 0), at the chunked path's shape (bf16,
-    8 rows of 114 columns, one parked, one with pos < 0) and at two
+    8 rows of 114 columns, one parked, one with pos < 0), at moe-1b's
+    serving shape (bf16 and int8: Hkv 4, G 4, hd 64, the main path's
+    rows and columns) and at two
     kernel-only bf16 shapes (one row of 4096 positions; 32 rows of
     2048), tolerance 2e-3: both
     compute in float32 and differ only in the order of the sums. ``ms``
@@ -55,7 +58,18 @@ the output. Phases, each printed as one JSON line:
     it. Times at the training shape beside the plain versions, the
     bound, ``F.scaled_dot_product_attention`` (forward, and backward
     alone), a yardstick the port never calls, and the f32 CUDA-core
-    route on the same values;
+    route on the same values. Then the same kernels at three models'
+    attention (``phase_model_flash``), bf16 and f32 under the same
+    limits, each through the implementation its model names:
+    flagship-deep's training shape (B 4, T=S=2048, Hq 24 over Hkv 4:
+    group 6, D 128, causal); BERT's (non-causal over a key-padding mask
+    whose row 0 masks every key, hd 64, G 1, 12 heads; B 32 x T 128 and
+    B 8 x T 512); moe-1b's (Hq 16 over Hkv 4: group 4, hd 64, causal;
+    its training shape B 4 x T 2048 and its plain predict's B 8 x T
+    256). At each model's first shape in bf16: the device time of the
+    forward and the backward, the call time, the plain versions', SDPA's
+    on the same mask (call and device) and the bound of the pairs
+    attended;
 (h) the training main path: ``train.loop.run`` at ``flagship-1b``, batch
     4 x seq 2048, adafactor with a 2-step warmup, bf16, 8 steps; losses
     and gradient norms finite, the first loss near ln(vocab), and each
@@ -177,11 +191,7 @@ the output. Phases, each printed as one JSON line:
     cold admission (fp); a suspended and resumed stream = the stream
     never suspended; decode after a handoff = colocated; admissions
     after a push = a decoder cold-started on the pushed weights;
-(r) flagship-deep: the flash kernels at its training shape (B=4, T=S=2048,
-    Hq=24 over Hkv=4: group 6, D=128, causal) against the plain versions
-    under (g)'s limits in bf16 and f32, with the bf16 device time of the
-    forward and the backward, the call time, the plain versions', SDPA's
-    (call and device) and the bound; then ``flagship-deep`` at full width
+(r) flagship-deep (its flash shape is checked in (g)) at full width
     and depth (16 layers, d 3072, 1.53B parameters) through
     ``train.loop.run``, batch 4 x seq 2048, bf16 on f32 masters,
     adafactor with ``grad_dtype="bfloat16"``, synthetic tokens, 8 steps
@@ -198,6 +208,37 @@ the output. Phases, each printed as one JSON line:
     bit for bit, every leaf of the final checkpoints), and a
     ``profile_dir`` run whose Chrome trace must name the flash kernels;
     the work files go under ``build/chip_smoke/`` and are removed;
+(t) mixture of experts, ``moe-1b`` at full width and depth (8 layers,
+    d 1024, 16/4 heads, 8 experts, top-2; 791M parameters), bf16, seed-0
+    weights: (d)'s six requests over HTTP on a paged fused server (the
+    paged kernel n_layers times a decode forward, at hd 64, Hkv 4, G 4)
+    and on the dense default server, with tokens/s and the streamed
+    TTFT; a plain predict of 8 on the dense server (n_layers flash
+    forwards); one paged fused decode step of 8 rows through
+    ``models/decode.py``: its CUDA launches, device ms and step ms; 8
+    training steps at batch 4 x 2048 through ``train.loop.run``
+    (adafactor, the preset's remat ``"dots"``: each flash forward twice a
+    step): samples/s, tokens/s, MFU by the parameters a token uses, the
+    router aux loss of each step and peak memory; the f32 gates at 2
+    layers: greedy tokens of prompts of at most 80 tokens, one at a
+    time, equal on the paged fused and gathered reads, the dense layout
+    and lockstep ``generate`` (at these shapes no expert overflows on any
+    path, so the paths compute one function), and three train steps
+    with the kernels = the plain path within 1e-5;
+(u) BERT, ``bert-base``, bf16: a plain predict of 8 instances of mixed
+    lengths up to 128 over REST and over gRPC (the bodies equal; 12
+    flash forwards for the batch; no decoder), the batch through the
+    engine alone (call and device ms); 8 MLM training steps at batch 32 x
+    128 (adafactor); the f32 gate: the card (kernels) against the CPU
+    (plain versions) on one padded batch, sequence output, ``pooled``
+    and the loss within 1e-5, gradients 1e-4 of each leaf's largest, and
+    a row alone = the same row padded in a batch, within 1e-5;
+(v) ResNet, ``resnet50``, bf16: a plain predict of 8 random 224x224
+    images over REST (probabilities and classes); 8 training steps at
+    batch 32 with tf_cnn.py's defaults: samples/s; the gate: after one f32
+    train step every batch norm's running statistics equal a plain
+    PyTorch recomputation (``plain_bn_stats``) within 1e-5. No kernel runs
+    here: the JAX package computes ResNet without a Pallas kernel;
 (f) the kernel table: each kernel's launches on the main paths, its
     error, its time, its plain version's time and its bound; the paged
     and RMSNorm rows give device time as ``ms`` and the call's as
@@ -210,7 +251,10 @@ the output. Phases, each printed as one JSON line:
     time); the flash forward row adds the predict path's
     launches and its device and call times at the predict shape; the
     paged row counts its launches on (d), (n), (o), (q)'s runs with
-    speculation on and (s) (``launches_by_path``).
+    speculation on, (s) and (t) (``launches_by_path``) and adds the times
+    at moe-1b's shape (``moe_shape``); the flash rows add (t)'s and
+    (u)'s launches and the times at BERT's and moe-1b's shapes
+    (``bert_shape``, ``moe_shape``).
 
 TF32 is off throughout, so float32 products are full float32. Any
 failure exits non-zero; the last line, printed only on success, is
@@ -252,6 +296,16 @@ DEEP_MODEL, DEEP_BATCH, DEEP_SEQ, DEEP_STEPS = "flagship-deep", 4, 2048, 8
 DEEP_POLICIES = ("llm", "llm_res", None)
 FLASH_DEEP = dict(b=4, t=2048, s=2048, hq=24, hkv=4, hd=128, causal=True)
 DEEP_GATE_LAYERS, DEEP_RESUME_LAYERS = 2, 1
+# (g) at bert-base's attention: 12 heads over 12 (G 1), hd 64, non-causal
+# over a key-padding mask; (u)'s training batch at T 128 and a batch of 8
+# at the position table's 512.
+FLASH_BERT = dict(b=32, t=128, s=128, hq=12, hkv=12, hd=64, causal=False)
+FLASH_BERT_LONG = dict(FLASH_BERT, b=8, t=512, s=512)
+# (g) at moe-1b's attention: 16 heads over 4 (G 4), hd 64, causal; (t)'s
+# training shape and its plain predict's (the server batch padded to
+# MAX_SEQ).
+FLASH_MOE = dict(b=4, t=2048, s=2048, hq=16, hkv=4, hd=64, causal=True)
+FLASH_MOE_PREDICT = dict(FLASH_MOE, b=8, t=256, s=256)
 REMAT_POLICIES = ("dots", "dots_batched", "llm", "llm_qkv", "llm_attn",
                   "llm_res", "none")
 
@@ -306,7 +360,8 @@ def profiled_launches(fn, flush: torch.Tensor, iters: int,
     twice under one profiler: a warm-up step whose records are discarded,
     then the recorded step. A record counts only when it holds every
     flush write and a whole number of launches of ``fn`` a call; up to
-    five sessions are tried, then it raises. ``trace`` names a file for
+    ten sessions are tried (on the H100 a run has lost records in five
+    in a row, two of them empty), a second apart, then it raises. ``trace`` names a file for
     the kept session's Chrome trace."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -314,7 +369,9 @@ def profiled_launches(fn, flush: torch.Tensor, iters: int,
         fn()
     torch.cuda.synchronize()
     seen = []
-    for _ in range(5):
+    for attempt in range(10):
+        if attempt:
+            time.sleep(1.0)
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
                                        repeat=1)) as prof:
@@ -376,15 +433,19 @@ PAGED_LONG = dict(b=1, mb=256, pos=[4095])
 PAGED_BUSY = dict(b=32, mb=128, pos=[2047] * 32)
 PAGED_CHUNKED = dict(b=SLOTS, mb=114,
                      pos=[1531, 1823, 1024, 700, 300, 40, 114 * BLOCK, -1])
+# moe-1b's paged serving shape: Hkv 4, G 4, hd 64, the main path's slots
+# and columns.
+PAGED_MOE = dict(hkv=4, g=4, hd=64)
 
 
 def paged_inputs(kv: str, dev, quantize, b=SLOTS,
-                 mb=(MAX_SEQ + MAX_NEW) // BLOCK, pos=None):
-    """llama-1b decode shapes: Hkv=8, G=2, hd=128, Bs=16, a pool of B*MB
-    blocks behind a permuted table. By default the main path's B=8 slots
-    and MB=(256+32)/16=18 columns, with a sentinel inside a live span, a
-    parked row and a row with pos < 0."""
-    hkv, g, hd, bs = 8, 2, 128, BLOCK
+                 mb=(MAX_SEQ + MAX_NEW) // BLOCK, pos=None, hkv=8, g=2,
+                 hd=128):
+    """Decode shapes, llama-1b's by default: Hkv=8, G=2, hd=128, Bs=16, a
+    pool of B*MB blocks behind a permuted table. By default the main
+    path's B=8 slots and MB=(256+32)/16=18 columns, with a sentinel inside
+    a live span, a parked row and a row with pos < 0."""
+    bs = BLOCK
     n = b * mb
     gen = torch.Generator(device=dev).manual_seed(1)
     dt = torch.float32 if kv == "f32" else torch.bfloat16
@@ -431,7 +492,9 @@ def phase_paged(dev, flush) -> dict:
     cases = [(kv, kv, {}) for kv in ("bf16", "f32", "int8")]
     cases += [("long_bf16", "bf16", PAGED_LONG), ("busy_bf16", "bf16",
                                                    PAGED_BUSY),
-              ("chunked_bf16", "bf16", PAGED_CHUNKED)]
+              ("chunked_bf16", "bf16", PAGED_CHUNKED),
+              ("moe_bf16", "bf16", PAGED_MOE), ("moe_int8", "int8",
+                                                PAGED_MOE)]
     for name, kv, shape in cases:
         q, kp, vp, table, pos = paged_inputs(kv, dev, _quantize_kv, **shape)
         scale = q.shape[-1] ** -0.5
@@ -462,10 +525,10 @@ def phase_paged(dev, flush) -> dict:
                                                 table.shape[1], sms),
             "shape": {"B": q.shape[0], "Hkv": q.shape[1], "G": q.shape[2],
                       "hd": q.shape[3], "Bs": BLOCK, "MB": table.shape[1],
-                      "pos": (pos.tolist() if not shape or shape["b"] < 16
+                      "pos": (pos.tolist() if shape.get("b", SLOTS) < 16
                               else shape["pos"][0])},
         }
-        if not shape:  # the plain version only at the main path's shape
+        if "b" not in shape:  # the plain version at the serving shapes
             row["plain_ms"] = time_ms(lambda: _paged_decode_plain(
                 q, kp, vp, table, pos, scale), flush, 10)
         results[name] = row
@@ -536,7 +599,8 @@ def request_bodies(vocab: int) -> list[dict]:
 
 
 def post(port: int, body: dict, stream: bool = False, rid: str = "",
-         stamps: list | None = None, headers: dict | None = None):
+         stamps: list | None = None, headers: dict | None = None,
+         model: str = MODEL):
     """One predict with ``X-Request-ID: rid`` (when given; the response
     must echo it) and ``headers``; returns (tokens, seconds to the first
     token line or to the response). ``stamps`` collects each streamed
@@ -544,7 +608,7 @@ def post(port: int, body: dict, stream: bool = False, rid: str = "",
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
     t0 = time.perf_counter()
     try:
-        conn.request("POST", f"/v1/models/{MODEL}:predict",
+        conn.request("POST", f"/v1/models/{model}:predict",
                      body=json.dumps({**({"stream": True} if stream else {}),
                                       "instances": [body]}),
                      headers={**({"X-Request-ID": rid} if rid else {}),
@@ -589,11 +653,12 @@ def get(port: int, path: str) -> str:
         conn.close()
 
 
-def predict(port: int, instances: list[dict]) -> list[dict]:
+def predict(port: int, instances: list[dict],
+            model: str = MODEL) -> list[dict]:
     """One predict of several instances; returns the predictions."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
     try:
-        conn.request("POST", f"/v1/models/{MODEL}:predict",
+        conn.request("POST", f"/v1/models/{model}:predict",
                      body=json.dumps({"instances": instances}))
         resp = conn.getresponse()
         if resp.status != 200:
@@ -622,11 +687,12 @@ def drive(server) -> dict:
     from kubeflow_tpu_torch import kernels
 
     cfg = server.engine.model.config
+    name = server.engine.cfg.model
     bodies = request_bodies(cfg.vocab_size)
     tag = f"{server.engine.cfg.kv_layout}-{server.engine.cfg.decode_mode}"
     rids = [f"{tag}-warm"] + [f"{tag}-{i}" for i in range(len(bodies))]
     warm = post(server.port, {"tokens": [1, 2, 3], "max_new_tokens": 2},
-                rid=rids[0])
+                rid=rids[0], model=name)
     dec = server.decoder
     streamed = STREAMED if dec is not None else None
     steps0 = dec.steps if dec is not None else 0
@@ -634,7 +700,7 @@ def drive(server) -> dict:
 
     def run(i):
         results[i] = post(server.port, bodies[i], stream=i == streamed,
-                          rid=rids[i + 1])
+                          rid=rids[i + 1], model=name)
 
     threads = [threading.Thread(target=run, args=(i,))
                for i in range(len(bodies))]
@@ -656,7 +722,7 @@ def drive(server) -> dict:
             raise AssertionError("token id outside the vocabulary")
     tokens = sum(len(res[0]) for res in results)
     out = {
-        "model": MODEL, "dtype": str(cfg.dtype), "slots": SLOTS,
+        "model": name, "dtype": str(cfg.dtype), "slots": SLOTS,
         "max_seq_len": MAX_SEQ, "max_new_tokens": MAX_NEW,
         "kv_layout": server.engine.cfg.kv_layout,
         "decode_mode": server.engine.cfg.decode_mode,
@@ -971,6 +1037,108 @@ def phase_flash(dev, flush) -> dict:
     return out_row
 
 
+def phase_model_flash(dev, flush, case: str, impl, shapes: tuple,
+                      masked: bool = False, iters: tuple = (10, 5)) -> dict:
+    """(g) at one model's attention: the flash kernels (through
+    ``implementation=impl``, as the model calls them) against the plain
+    versions under (g)'s limits, bf16 (the tensor cores) and f32 (the CUDA
+    cores), at each of ``shapes``; where ``masked``, over a random
+    key-padding mask whose row 0 masks every key (which must give 0). At
+    the first shape in bf16: the device time of the forward and of the
+    backward's kernels, the call time, the plain versions', SDPA's on the
+    same mask (forward, and backward alone; call and device) and the
+    bound, as (g) counts it, over the pairs attended: every query of a row
+    against the row's live keys, or the causal pairs."""
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch import kernels
+    from kubeflow_tpu_torch.ops import attention as A
+
+    cases = []
+    for shape in shapes:
+        mask = bert_mask(dev, shape["b"], shape["s"]) if masked else None
+        for dtype in (torch.bfloat16, torch.float32):
+            cases.append(flash_check(case, impl, dev, dtype, mask, **shape))
+    m = shapes[0]
+    causal, scale, hkv = m["causal"], m["hd"] ** -0.5, m["hkv"]
+    mask = bert_mask(dev, m["b"], m["s"]) if masked else None
+    maskf = None if mask is None else mask.float()
+    q, k, v, g = flash_inputs(dev, torch.bfloat16, **m)
+    out, lse = kernels.flash_fwd(q, k, v, maskf, causal, scale)
+    qf, kf, vf, gf = (A._fold_q(q, hkv), A._fold_kv(k), A._fold_kv(v),
+                      A._fold_q(g, hkv))
+    kvm = A._fold_mask(maskf, m["b"], m["s"], hkv, dev)
+    out_f, lse_f = A._flash_fwd_plain(qf, kf, vf, kvm, causal=causal,
+                                      scale=scale, block_k=PLAIN_BLOCK_K)
+    # The yardstick: one PyTorch call of the same function, [B, H, T, D].
+    qt, kt, vt, gt = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
+    sdpa_kw = ({"attn_mask": mask[:, None, None, :]} if masked
+               else {"is_causal": causal})
+    if m["hq"] != hkv:
+        sdpa_kw["enable_gqa"] = True
+    leaves = [x.clone().requires_grad_(True) for x in (qt, kt, vt)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, **sdpa_kw)
+
+    def fwd():
+        return kernels.flash_fwd(q, k, v, maskf, causal, scale)
+
+    def bwd():
+        return kernels.flash_bwd(q, k, v, maskf, out, lse, g, causal, scale)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, leaves, gt, retain_graph=True)
+
+    timing = {
+        "fwd": {"ms": device_ms(fwd, flush, iters[0], "flash_fwd_tc_kernel"),
+                "call_ms": time_ms(fwd, flush, iters[0]),
+                "plain_ms": time_ms(lambda: A._flash_fwd_plain(
+                    qf, kf, vf, kvm, causal=causal, scale=scale,
+                    block_k=PLAIN_BLOCK_K), flush, 3),
+                "library_ms": time_ms(sdpa_fwd, flush, iters[0]),
+                "library_device_ms": device_ms(sdpa_fwd, flush, iters[0])},
+        "bwd": {"ms": device_ms(bwd, flush, iters[1]),
+                "call_ms": time_ms(bwd, flush, iters[1]),
+                "plain_ms": time_ms(lambda: A._flash_bwd_plain(
+                    qf, kf, vf, kvm, out_f, lse_f, gf, causal=causal,
+                    scale=scale, block_k=PLAIN_BLOCK_K), flush, 3),
+                "library_ms": time_ms(sdpa_bwd, flush, iters[1]),
+                "library_device_ms": device_ms(sdpa_bwd, flush, iters[1])},
+    }
+    if masked:
+        pairs = m["hq"] * m["t"] * int(mask.sum())
+    else:
+        pairs = m["b"] * m["hq"] * causal_pairs(m["t"], m["s"], causal)
+    qo_bytes, kv_bytes = q.numel() * 2, k.numel() * 2
+    side_bytes = lse.numel() * 4 + (0 if maskf is None else maskf.numel() * 4)
+    for part, (bytes_moved, ops) in {
+            # q, k, v (and the mask) read; out, lse written. QK^T and PV:
+            # 4*D a pair.
+            "fwd": (2 * qo_bytes + 2 * kv_bytes + side_bytes,
+                    4 * m["hd"] * pairs),
+            # q, k, v, out, dout, lse read; dq, dk, dv written. QK^T
+            # recompute, dP, dV, dK, dQ: 10*D a pair.
+            "bwd": (4 * qo_bytes + 4 * kv_bytes + side_bytes,
+                    10 * m["hd"] * pairs)}.items():
+        bound_ms, bound_by = bound(bytes_moved, ops, "bf16")
+        timing[part].update(bound_ms=bound_ms, bound_by=bound_by)
+    max_err = {part: max(max(c["max_abs_err"][n] for n in names)
+                         for c in cases)
+               for part, names in (("fwd", ("out", "lse")),
+                                   ("bwd", ("dq", "dk", "dv")))}
+    shape = {**m, "dtype": "bf16"}
+    if masked:
+        shape["live_keys"] = int(mask.sum())
+    res = {"shape": shape, "cases": cases, "max_abs_err": max_err,
+           "timing": timing}
+    emit(f"g_flash_{case}_shape", **res)
+    del leaves, sdpa_out
+    torch.cuda.empty_cache()
+    return res
+
+
 def flash_fwd_ref(q, k, v, causal, scale):
     """The plain forward in f32 on the kernels' layout: (out, lse [B, Hq,
     T])."""
@@ -1054,12 +1222,12 @@ def phase_flash_predict(dev, flush) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def serve(cfg, fn):
-    """``fn(server)`` on a started ModelServer built from ``cfg``; the
-    server is stopped and its memory returned after."""
+def serve(cfg, fn, **server_kw):
+    """``fn(server)`` on a started ModelServer built from ``cfg`` (and
+    ``server_kw``); the server is stopped and its memory returned after."""
     from kubeflow_tpu_torch.serving.server import ModelServer
 
-    server = ModelServer(cfg, port=0)
+    server = ModelServer(cfg, port=0, **server_kw)
     server.start()
     try:
         return fn(server)
@@ -2109,23 +2277,32 @@ def phase_speculation() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def n_params(mcfg) -> int:
+def n_params(mcfg, active: bool = True) -> int:
+    """A transformer's parameters; of an MoE model, those a token uses
+    (the router and its top-k experts) unless ``active`` is False."""
     d, f, hd = mcfg.d_model, mcfg.d_ff, mcfg.head_dim
+    ffn = 3 * d * f
+    if mcfg.n_experts:
+        ffn = d * mcfg.n_experts + ffn * (
+            mcfg.expert_top_k if active else mcfg.n_experts)
     return (2 * mcfg.vocab_size * d + d + mcfg.n_layers * (
         d * (mcfg.n_heads + 2 * mcfg.n_kv_heads) * hd
-        + mcfg.n_heads * hd * d + 3 * d * f + 2 * d))
+        + mcfg.n_heads * hd * d + ffn + 2 * d))
 
 
 def drive_train(cfg) -> dict:
     """``train.loop.run(cfg)`` (``log_every`` 1) with the launch counts
     reset just before it and read just after; losses and gradient norms
-    finite, the first loss near ln(vocab). tokens/s and MFU (bench.py's
+    finite, the first loss near ln(classes: the vocabulary, or ResNet's
+    classes). Samples/s over the whole window from the end of step 1
+    (which includes warm-up) to the end of the last step, so a stall in
+    any step moves it; for a transformer also tokens/s and MFU (bench.py's
     formula, 6N + 12 * layers * avg attended length * attention width
-    FLOPs a token, against 989 TFLOP/s) over the whole window from the end
-    of step 1 (which includes warm-up) to the end of the last step, so a
-    stall in any step moves them; the median step beside them; the peak
-    of allocated memory over the run, with what was allocated before it
-    (what earlier phases still hold) and the run's own rise above that."""
+    FLOPs a token, N the parameters a token uses, against 989 TFLOP/s);
+    the median step beside them; MoE's router aux loss of each step; the
+    peak of allocated memory over the run, with what was allocated before
+    it (what earlier phases still hold) and the run's own rise above
+    that."""
     import math
 
     from kubeflow_tpu_torch import kernels
@@ -2147,10 +2324,11 @@ def drive_train(cfg) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    mcfg = get_model(cfg.model, **cfg.model_overrides).config
+    model = get_model(cfg.model, **cfg.model_overrides)
+    mcfg = model.config
     step_lines = [(line, at) for line, at in zip(lines, stamps)
                   if line.startswith("step=")]
-    steps = [dict(kv.split("=") for kv in line.split()[:3])
+    steps = [dict(kv.split("=", 1) for kv in line.split() if "=" in kv)
              for line, _ in step_lines]
     losses = [float(x["loss"]) for x in steps]
     norms = [float(x["grad_norm"]) for x in steps]
@@ -2160,32 +2338,47 @@ def drive_train(cfg) -> dict:
     if not all(math.isfinite(x) for x in losses + norms):
         raise AssertionError(f"non-finite loss or grad norm: {losses} "
                              f"{norms}")
-    if abs(losses[0] - math.log(mcfg.vocab_size)) > 1.0:
+    classes = (mcfg.num_classes if model.family == "resnet"
+               else mcfg.vocab_size)
+    if abs(losses[0] - math.log(classes)) > 1.0:
         raise AssertionError(f"first loss {losses[0]} is not near "
-                             f"ln({mcfg.vocab_size})")
+                             f"ln({classes})")
     # Each log line follows a sync (the loss read), so the stamps of the
     # step lines bound whole steps.
     step_stamps = [at for _, at in step_lines]
     timed_steps = cfg.steps - 1
     window_s = step_stamps[-1] - step_stamps[0]
     gaps = sorted(b - a for a, b in zip(step_stamps, step_stamps[1:]))
-    params = n_params(mcfg)
-    flops_per_token = (6.0 * params + 12.0 * mcfg.n_layers
-                       * (cfg.seq_len + 1) / 2 * mcfg.n_heads
-                       * mcfg.head_dim)
-    tokens_per_s = timed_steps * cfg.batch_size * cfg.seq_len / window_s
-    return {
-        "model": cfg.model, "batch": cfg.batch_size, "seq": cfg.seq_len,
-        "steps": cfg.steps, "optimizer": cfg.optimizer.name,
+    out = {
+        "model": cfg.model, "family": model.family,
+        "batch": cfg.batch_size, "steps": cfg.steps,
+        "optimizer": cfg.optimizer.name,
         "grad_dtype": cfg.optimizer.grad_dtype, "dtype": str(mcfg.dtype),
-        "remat": mcfg.remat, "remat_policy": mcfg.remat_policy,
-        "layers": mcfg.n_layers, "params": params, "losses": losses,
-        "grad_norms": norms, "launches": launches,
+        "losses": losses, "grad_norms": norms, "launches": launches,
         "timed_steps": timed_steps, "window_s": window_s,
         "step_ms_mean": 1e3 * window_s / timed_steps,
         "step_ms_p50": 1e3 * gaps[len(gaps) // 2],
-        "tokens_per_s": tokens_per_s,
-        "mfu": flops_per_token * tokens_per_s / PEAK_OPS_PER_S["bf16"],
+        "samples_per_s": timed_steps * cfg.batch_size / window_s,
+    }
+    if model.family != "resnet":
+        out.update(seq=cfg.seq_len, layers=mcfg.n_layers,
+                   remat=mcfg.remat,
+                   tokens_per_s=out["samples_per_s"] * cfg.seq_len)
+    if model.family == "transformer":
+        params = n_params(mcfg)
+        flops_per_token = (6.0 * params + 12.0 * mcfg.n_layers
+                           * (cfg.seq_len + 1) / 2 * mcfg.n_heads
+                           * mcfg.head_dim)
+        out.update(
+            remat_policy=mcfg.remat_policy, params=params,
+            mfu=flops_per_token * out["tokens_per_s"]
+            / PEAK_OPS_PER_S["bf16"])
+        if mcfg.n_experts:
+            out["params_total"] = n_params(mcfg, active=False)
+            out["router_aux_losses"] = [float(x["router_aux_loss"])
+                                        for x in steps]
+    return {
+        **out,
         "wall_s": wall,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "allocated_before_gb": before / 1e9,
@@ -2282,90 +2475,9 @@ def phase_train_f32_parity() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# (r) flagship-deep: the flash kernels at its heads, its training under
-# remat, and the f32 gates of remat, the chunked loss, resume and the
-# profiler hook
+# (r) flagship-deep: its training under remat, and the f32 gates of remat,
+# the chunked loss, resume and the profiler hook
 # ---------------------------------------------------------------------------
-
-
-def phase_deep_flash(dev, flush) -> dict:
-    """The flash kernels at flagship-deep's training shape (B 4, T = S =
-    2048, Hq 24 over Hkv 4: group 6, D 128, causal) against the plain
-    versions under (g)'s limits, bf16 (the tensor cores) and f32 (the CUDA
-    cores); in bf16 the device time of the forward and of the backward's
-    three kernels, the call time, the plain versions' and SDPA's (forward,
-    and backward alone), and the bound, as (g) counts it."""
-    import torch.nn.functional as F
-
-    from kubeflow_tpu_torch import kernels
-    from kubeflow_tpu_torch.ops import attention as A
-
-    m = FLASH_DEEP
-    cases = [flash_check("deep", "splash", dev, dtype, **m)
-             for dtype in (torch.bfloat16, torch.float32)]
-    q, k, v, g = flash_inputs(dev, torch.bfloat16, **m)
-    scale, hkv = m["hd"] ** -0.5, m["hkv"]
-    out, lse = kernels.flash_fwd(q, k, v, None, True, scale)
-    qf, kf, vf, gf = (A._fold_q(q, hkv), A._fold_kv(k), A._fold_kv(v),
-                      A._fold_q(g, hkv))
-    kvm = A._fold_mask(None, m["b"], m["s"], hkv, dev)
-    out_f, lse_f = A._flash_fwd_plain(qf, kf, vf, kvm, causal=True,
-                                      scale=scale, block_k=PLAIN_BLOCK_K)
-    qt, kt, vt, gt = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
-    leaves = [x.clone().requires_grad_(True) for x in (qt, kt, vt)]
-    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                              enable_gqa=True)
-
-    def fwd():
-        return kernels.flash_fwd(q, k, v, None, True, scale)
-
-    def bwd():
-        return kernels.flash_bwd(q, k, v, None, out, lse, g, True, scale)
-
-    def sdpa_fwd():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True)
-
-    def sdpa_bwd():
-        return torch.autograd.grad(sdpa_out, leaves, gt, retain_graph=True)
-
-    timing = {
-        "fwd": {"ms": device_ms(fwd, flush, 10, "flash_fwd_tc_kernel"),
-                "call_ms": time_ms(fwd, flush, 10),
-                "plain_ms": time_ms(lambda: A._flash_fwd_plain(
-                    qf, kf, vf, kvm, causal=True, scale=scale,
-                    block_k=PLAIN_BLOCK_K), flush, 3),
-                "library_ms": time_ms(sdpa_fwd, flush, 10),
-                "library_device_ms": device_ms(sdpa_fwd, flush, 10)},
-        "bwd": {"ms": device_ms(bwd, flush, 5),
-                "call_ms": time_ms(bwd, flush, 5),
-                "plain_ms": time_ms(lambda: A._flash_bwd_plain(
-                    qf, kf, vf, kvm, out_f, lse_f, gf, causal=True,
-                    scale=scale, block_k=PLAIN_BLOCK_K), flush, 3),
-                "library_ms": time_ms(sdpa_bwd, flush, 10),
-                "library_device_ms": device_ms(sdpa_bwd, flush, 10)},
-    }
-    pairs = m["b"] * m["hq"] * causal_pairs(m["t"], m["s"], True)
-    qo_bytes = m["b"] * m["t"] * m["hq"] * m["hd"] * 2
-    kv_bytes = m["b"] * m["s"] * hkv * m["hd"] * 2
-    lse_bytes = m["b"] * m["hq"] * m["t"] * 4
-    for part, (bytes_moved, ops) in {
-            "fwd": (2 * qo_bytes + 2 * kv_bytes + lse_bytes,
-                    4 * m["hd"] * pairs),
-            "bwd": (4 * qo_bytes + 4 * kv_bytes + lse_bytes,
-                    10 * m["hd"] * pairs)}.items():
-        bound_ms, bound_by = bound(bytes_moved, ops, "bf16")
-        timing[part].update(bound_ms=bound_ms, bound_by=bound_by)
-    max_err = {part: max(max(c["max_abs_err"][n] for n in names)
-                         for c in cases)
-               for part, names in (("fwd", ("out", "lse")),
-                                   ("bwd", ("dq", "dk", "dv")))}
-    res = {"shape": {**m, "dtype": "bf16"}, "cases": cases,
-           "max_abs_err": max_err, "timing": timing}
-    emit("r_flash_deep_shape", **res)
-    del leaves, sdpa_out
-    torch.cuda.empty_cache()
-    return res
 
 
 def phase_deep_train(smi: str) -> dict:
@@ -3135,6 +3247,530 @@ def phase_serving_features(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The other model families: (g) at BERT's attention, (t) MoE, (u) BERT,
+# (v) ResNet
+# ---------------------------------------------------------------------------
+
+# (t): moe-1b at full width and depth (8 layers, d 1024, 16/4 heads, 8
+# experts, top-2), trained at batch 4 x 2048; the f32 gates at 2 layers.
+MOE_MODEL, MOE_BATCH, MOE_SEQ, MOE_STEPS, MOE_GATE_LAYERS = (
+    "moe-1b", 4, 2048, 8, 2)
+# (prompt length, max_new_tokens) of the MoE gates, one request at a time.
+# Capacity follows the call's padded shape: a [1, 256] admission gives an
+# expert 80 slots, lockstep's [8, 256] 640, a decode step of 8 slots 2. A
+# prompt of at most 80 tokens (one choice an expert a token) and one row
+# a decode step (two choices, on two experts) overflow none of them, so
+# every path computes the same function and the tokens must agree.
+MOE_GATE_REQUESTS = [(5, 32), (40, 16), (80, 32), (17, 8), (64, 24),
+                     (33, 32)]
+# (u): bert-base; a plain predict of 8 instances of these lengths at
+# max_seq_len 128; training at batch 32 x 128; the f32 gate's batch.
+BERT_MODEL, BERT_SEQ, BERT_BATCH, BERT_STEPS = "bert-base", 128, 32, 8
+BERT_PREDICT_LENGTHS = [128, 5, 77, 128, 40, 100, 12, 64]
+BERT_GATE_BATCH, BERT_GATE_LENGTHS = 4, [128, 40, 100, 7]
+# (v): resnet50; a plain predict of 8 224x224 images; training at batch 32
+# with tf_cnn.py's defaults (its RunConfig's optimizer); the BN gate's
+# batch.
+RESNET_MODEL, RESNET_BATCH, RESNET_STEPS, RESNET_GATE_BATCH = (
+    "resnet50", 32, 8, 8)
+
+
+def bert_mask(dev, b: int, s: int, seed: int = 5) -> torch.Tensor:
+    """Key-padding masks of random lengths in 1..s; row 0 masks every key,
+    as a pad row of a server batch does."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lengths = torch.randint(1, s + 1, (b,), generator=gen, device=dev)
+    mask = torch.arange(s, device=dev)[None, :] < lengths[:, None]
+    mask[0] = False
+    return mask
+
+
+def decode_step_profile(params, cfg, dev, prompt: int = 128) -> dict:
+    """One paged fused decode step of all SLOTS rows (each admitted with a
+    ``prompt``-token prompt) through ``models/decode.py`` directly: the
+    CUDA launches a step (``profiled_launches``), their device ms, and
+    the step's time between CUDA events."""
+    from kubeflow_tpu_torch.models import decode as D
+
+    mb = (prompt + 128) // BLOCK
+    state = D.init_paged_state(cfg, SLOTS, SLOTS * mb, BLOCK, mb,
+                               device=dev)
+    state["block_table"].copy_(torch.arange(
+        SLOTS * mb, dtype=torch.int32, device=dev).reshape(SLOTS, mb))
+    gen = torch.Generator(device=dev).manual_seed(9)
+    toks = torch.randint(0, cfg.vocab_size, (SLOTS, prompt), generator=gen,
+                         device=dev, dtype=torch.int32)
+    full = torch.full((SLOTS,), prompt, dtype=torch.int32, device=dev)
+    state, *_ = D.paged_admit_rows_and_step(
+        state, params, cfg, torch.arange(SLOTS, device=dev), toks, full,
+        full * 8, torch.zeros(SLOTS, device=dev), kv_fused=True)
+
+    def step():
+        return D.decode_step(state, params, cfg, kv_fused=True)
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    events = profiled_launches(step, flush, 5)
+    out = {"prompt": prompt, "slots": SLOTS,
+           "launches_per_step": len(events) / 5,
+           "device_ms": sum(e.device_time_total for e in events) / 5 / 1e3,
+           "step_ms": time_ms(step, flush, 10)}
+    out["idle_share"] = 1.0 - out["device_ms"] / out["step_ms"]
+    del state, flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_f32_gates(dev) -> dict:
+    """(t)'s gates at f32 and MOE_GATE_LAYERS layers, seed-0 weights:
+    greedy tokens of MOE_GATE_REQUESTS one at a time through the paged
+    decoder with the fused read (the kernel) and the gathered one, the
+    dense decoder and lockstep ``generate`` over the engine's padded
+    batch (one real row) must agree; then three train steps with the
+    flash kernels and with the plain path (``attn_impl="xla"``): losses,
+    gradient norms and parameters within 1e-5."""
+    from kubeflow_tpu_torch import kernels
+    from kubeflow_tpu_torch.models.decode import generate
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.serving.continuous import ContinuousDecoder
+
+    model = get_model(MOE_MODEL, dtype=torch.float32,
+                      n_layers=MOE_GATE_LAYERS)
+    cfg = model.config
+    params = model.init(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    rng = np.random.RandomState(3)
+    bodies = [(rng.randint(0, cfg.vocab_size, size=n).tolist(), want)
+              for n, want in MOE_GATE_REQUESTS]
+    streams, launched = {}, {}
+    paged = dict(kv_layout="paged", kv_block_size=BLOCK)
+    for name, kw in (("paged_fused", dict(paged, kv_fused=True)),
+                     ("paged_gathered", paged), ("dense", {})):
+        dec = ContinuousDecoder(params, cfg, slots=SLOTS,
+                                prefill_len=MAX_SEQ, max_new_tokens=MAX_NEW,
+                                **kw)
+        kernels.reset_launches()
+        try:
+            streams[name] = [dec.generate(t, want, timeout=300)["tokens"]
+                             for t, want in bodies]
+        finally:
+            dec.stop()
+        launched[name] = kernels.LAUNCHES["paged_decode_attention"]
+    if launched["paged_fused"] <= 0 or launched["paged_gathered"] or \
+            launched["dense"]:
+        raise AssertionError(f"MoE gates: paged kernel launches {launched}")
+    lock = []
+    for t, want in bodies:
+        toks = torch.zeros((SLOTS, MAX_SEQ), dtype=torch.int32, device=dev)
+        toks[0, :len(t)] = torch.tensor(t, dtype=torch.int32, device=dev)
+        lengths = torch.ones(SLOTS, dtype=torch.int32, device=dev)
+        lengths[0] = len(t)
+        row_valid = torch.zeros(SLOTS, dtype=torch.bool, device=dev)
+        row_valid[0] = True
+        out, _ = generate(params, toks, lengths, cfg, max_new_tokens=MAX_NEW,
+                          generator=torch.Generator(device=dev),
+                          temperature=torch.zeros(SLOTS, device=dev),
+                          row_valid=row_valid)
+        lock.append(out[0, :want].tolist())
+    streams["lockstep"] = lock
+    tokens = {name: compare_streams(s, streams["paged_fused"])
+              for name, s in streams.items()}
+    del params
+    torch.cuda.empty_cache()
+    runs = {impl: _train_steps(dev, MOE_MODEL, 3, 1024, attn_impl=impl,
+                               n_layers=MOE_GATE_LAYERS)
+            for impl in ("splash", "xla")}
+    fwd = MOE_GATE_LAYERS * 3 * (2 if cfg.remat else 1)
+    launches = {impl: run[2] for impl, run in runs.items()}
+    if launches["splash"]["flash_attention_fwd"] != fwd or \
+            launches["xla"]["flash_attention_fwd"] != 0:
+        raise AssertionError(f"MoE f32 training launches {launches}, "
+                             f"expected {fwd} forwards on the kernel run")
+    errs = _compare(runs["splash"][:2], runs["xla"][:2])
+    out = {"layers": MOE_GATE_LAYERS, "requests": MOE_GATE_REQUESTS,
+           "tokens": tokens, "paged_launches": launched,
+           "train": {"kernel": runs["splash"][0], "plain": runs["xla"][0],
+                     **errs, "launches": launches}}
+    bad = [name for name, c in tokens.items() if not c["identical"]]
+    if bad:
+        raise AssertionError(f"MoE f32 greedy tokens differ from the paged "
+                             f"fused run: {bad} ({tokens})")
+    _check_close("MoE f32 training: kernel and plain runs", errs, 1e-5)
+    return out
+
+
+def phase_moe(smi: str) -> dict:
+    """(t): moe-1b at full width and depth, bf16, seed-0 weights. (d)'s six
+    requests over HTTP on the paged fused server (the paged kernel n_layers
+    times a decode forward) and on the dense default server, with decode
+    tokens/s and the streamed TTFT; a plain predict of 8 on the dense
+    server (the flash forward n_layers times); one decode step's launches,
+    device ms and step ms (``decode_step_profile``); 8 training steps at
+    batch 4 x 2048 through ``train.loop.run`` (adafactor, the preset's
+    remat "dots", so the backward runs each flash forward again); the f32
+    gates (``moe_f32_gates``)."""
+    from kubeflow_tpu_torch import kernels
+    from kubeflow_tpu_torch.train import loop
+    from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
+
+    dev = torch.device("cuda")
+
+    def paged_run(server):
+        run = drive(server)
+        cfg = server.engine.model.config
+        want = cfg.n_layers * run["decode_forwards"]
+        if run["launches"]["paged_decode_attention"] != want:
+            raise AssertionError(
+                f"moe-1b paged: {run['launches']} for "
+                f"{run['decode_forwards']} decode forwards")
+        run["decode_step"] = decode_step_profile(server.engine.params, cfg,
+                                                 dev)
+        return run
+
+    def dense_run(server):
+        run = drive(server)
+        cfg = server.engine.model.config
+        bodies = request_bodies(cfg.vocab_size)
+        plain = [{"tokens": b["tokens"]} for b in bodies] + [
+            {"tokens": bodies[4]["tokens"][:n]} for n in (64, 255)]
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        preds = predict(server.port, plain, model=MOE_MODEL)
+        run["plain_predict_ms"] = 1e3 * (time.perf_counter() - t0)
+        run["plain_launches"] = dict(kernels.LAUNCHES)
+        for pred in preds:
+            logits = np.asarray(pred["logits"], np.float32)
+            if logits.shape != (cfg.vocab_size,) or \
+                    not np.isfinite(logits).all() or \
+                    pred["next_token"] != int(np.argmax(logits)):
+                raise AssertionError("moe-1b plain predict: bad logits")
+        if run["plain_launches"]["flash_attention_fwd"] != cfg.n_layers or \
+                run["launches"]["paged_decode_attention"]:
+            raise AssertionError(f"moe-1b dense: {run['launches']}, plain "
+                                 f"{run['plain_launches']}")
+        return run
+
+    paged = serve(engine_cfg(model=MOE_MODEL, kv_fused=True), paged_run)
+    dense = serve(engine_cfg(model=MOE_MODEL, kv_layout="dense"), dense_run)
+    train = drive_train(loop.RunConfig(
+        model=MOE_MODEL, batch_size=MOE_BATCH, seq_len=MOE_SEQ,
+        steps=MOE_STEPS, log_every=1, prefetch=2, device="cuda",
+        optimizer=OptimizerConfig(name="adafactor", warmup_steps=2)))
+    fwd = train["layers"] * MOE_STEPS * (2 if train["remat"] else 1)
+    want = {"flash_attention_fwd": fwd,
+            "flash_attention_bwd": train["layers"] * MOE_STEPS}
+    for key, n in want.items():
+        if train["launches"][key] != n:
+            raise AssertionError(f"moe-1b training: {key} launched "
+                                 f"{train['launches'][key]} times, "
+                                 f"expected {n}")
+    aux = train["router_aux_losses"]
+    if len(aux) != MOE_STEPS or not all(np.isfinite(aux)) or \
+            not all(a > 0 for a in aux):
+        raise AssertionError(f"moe-1b router aux losses {aux}")
+    gates = moe_f32_gates(dev)
+    out = {"gpu": smi, "paged": paged, "dense": dense, "train": train,
+           "gates": gates}
+    emit("t_moe", **out)
+    return out
+
+
+def bert_f32_gate(dev) -> dict:
+    """(u)'s gate at f32, seed-0 weights of bert-base: the kernel path (the
+    card) and the plain path (the same entry points on the CPU, the plain
+    flash versions) on one padded batch (rows of BERT_GATE_LENGTHS real
+    tokens under a ``pad_mask``): the sequence output and ``pooled``
+    within 1e-5 of their largest magnitude, the MLM loss 1e-5 relative,
+    every gradient 1e-4 of its leaf's largest (or of 1e-3 of the largest
+    of all, where that is larger); and on the card a row
+    alone equals the same row padded to 128 in a batch."""
+    from kubeflow_tpu_torch import kernels
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.train.data import place_batch, synthetic_batch
+    from kubeflow_tpu_torch.weights import _unflatten, flatten
+
+    model = get_model(BERT_MODEL, dtype=torch.float32)
+    cfg = model.config
+    params = model.init(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    batch = synthetic_batch(model, BERT_GATE_BATCH, BERT_SEQ, seed=7)
+    lengths = np.asarray(BERT_GATE_LENGTHS)
+    batch["pad_mask"] = (np.arange(BERT_SEQ)[None, :]
+                         < lengths[:, None]).astype(np.float32)
+    batch["mlm_labels"] = np.where(batch["pad_mask"] > 0,
+                                   batch["mlm_labels"], -1).astype(np.int32)
+    runs = {}
+    for name, where in (("kernel", dev), ("plain", torch.device("cpu"))):
+        leaves = {k: p.detach().to(where).requires_grad_(True)
+                  for k, p in flatten(params).items()}
+        tree = _unflatten(leaves)
+        b = place_batch(batch, where)
+        kernels.reset_launches()
+        seq, pooled = model.apply(tree, b["tokens"], cfg,
+                                  pad_mask=b["pad_mask"])
+        loss, _ = model.loss_fn(tree, b, cfg)
+        loss.backward()
+        runs[name] = (seq.detach().cpu(), pooled.detach().cpu(),
+                      loss.item(), {k: None if p.grad is None
+                                    else p.grad.cpu()
+                                    for k, p in leaves.items()},
+                      dict(kernels.LAUNCHES))
+    (seq_k, pool_k, loss_k, grads_k, launch_k) = runs["kernel"]
+    (seq_p, pool_p, loss_p, grads_p, launch_p) = runs["plain"]
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    # bk's gradient is zero up to rounding (softmax is blind to a shift
+    # of every key by q·bk), so each leaf is held against the larger of
+    # its own largest gradient and 1e-3 of the largest of all.
+    largest = max(g.abs().max() for g in grads_p.values() if g is not None)
+    grad_errs = {k: ((g - grads_p[k]).abs().max()
+                     / torch.maximum(grads_p[k].abs().max(),
+                                     1e-3 * largest)).item()
+                 for k, g in grads_k.items() if g is not None}
+    worst = max(grad_errs, key=grad_errs.get)
+    out = {"batch": BERT_GATE_BATCH, "lengths": BERT_GATE_LENGTHS,
+           "seq_err": rel(seq_k, seq_p), "pooled_err": rel(pool_k, pool_p),
+           "loss_kernel": loss_k, "loss_plain": loss_p,
+           "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
+           "grad_err_rel_to_leaf_max": grad_errs[worst],
+           "grad_err_worst_leaf": worst,
+           "launches": {"kernel": launch_k, "plain": launch_p}}
+    # Padding isolation on the card: row 1 alone against row 1 padded.
+    n = BERT_GATE_LENGTHS[1]
+    with torch.no_grad():
+        tokens = torch.from_numpy(batch["tokens"]).to(dev)
+        alone, pa = model.apply(params, tokens[1:2, :n], cfg)
+        mask = torch.from_numpy(batch["pad_mask"][1:2]).to(dev)
+        padded, pp = model.apply(params, tokens[1:2], cfg, pad_mask=mask)
+    out["padding_seq_err"] = rel(padded[:, :n].cpu(), alone.cpu())
+    out["padding_pooled_err"] = rel(pp.cpu(), pa.cpu())
+    if launch_k["flash_attention_fwd"] != 2 * cfg.n_layers or \
+            launch_k["flash_attention_bwd"] != cfg.n_layers or \
+            launch_p["flash_attention_fwd"]:
+        raise AssertionError(f"BERT gate launches: {out['launches']}")
+    for key, tol in (("seq_err", 1e-5), ("pooled_err", 1e-5),
+                     ("loss_rel_err", 1e-5),
+                     ("grad_err_rel_to_leaf_max", 1e-4),
+                     ("padding_seq_err", 1e-5),
+                     ("padding_pooled_err", 1e-5)):
+        if not out[key] <= tol:
+            raise AssertionError(f"BERT f32 gate: {key} {out[key]} > {tol}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_bert(smi: str) -> dict:
+    """(u): bert-base at full width and depth, bf16, seed-0 weights. A plain
+    predict of 8 instances (BERT_PREDICT_LENGTHS, up to 128) over REST and
+    over gRPC: the two bodies' ``pooled`` equal, finite, 768 wide, and the
+    flash forward launched n_layers (12) times for the batch; the batch
+    through the engine alone (call and device ms). 8 MLM training steps at
+    batch 32 x 128 (adafactor): samples/s and each flash kernel n_layers
+    times a step. The f32 gate (``bert_f32_gate``)."""
+    import grpc
+
+    from kubeflow_tpu_torch import kernels
+    from kubeflow_tpu_torch.serving.engine import EngineConfig
+    from kubeflow_tpu_torch.serving.grpc_server import client_stubs
+    from kubeflow_tpu_torch.train import loop
+    from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
+
+    dev = torch.device("cuda")
+
+    def run(server):
+        cfg = server.engine.model.config
+        if server.decoder is not None:
+            raise AssertionError("a BERT server built a decoder")
+        rng = np.random.RandomState(4)
+        instances = [{"tokens": rng.randint(0, cfg.vocab_size,
+                                            size=n).tolist()}
+                     for n in BERT_PREDICT_LENGTHS]
+        predict(server.port, instances[:1], model=BERT_MODEL)  # warm-up
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        rest = predict(server.port, instances, model=BERT_MODEL)
+        out = {"rest_ms": 1e3 * (time.perf_counter() - t0),
+               "launches": dict(kernels.LAUNCHES)}
+        with grpc.insecure_channel(
+                f"127.0.0.1:{server.grpc_port}") as channel:
+            do_predict, _ = client_stubs(channel)
+            t0 = time.perf_counter()
+            body = do_predict(BERT_MODEL, instances, timeout=120)
+            out["grpc_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["grpc_equals_rest"] = body["predictions"] == rest
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+        batch = lambda: server.engine.predict_batch(instances)  # noqa: E731
+        out["predict_batch_ms"] = time_ms(batch, flush, 5)
+        out["predict_batch_device_ms"] = device_ms(batch, flush, 5)
+        pooled = np.asarray([p["pooled"] for p in rest], np.float32)
+        out["n_layers"] = cfg.n_layers
+        if pooled.shape != (SLOTS, cfg.d_model) or \
+                not np.isfinite(pooled).all():
+            raise AssertionError(f"BERT pooled {pooled.shape}")
+        return out
+
+    served = serve(EngineConfig(model=BERT_MODEL, batch_size=SLOTS,
+                                max_seq_len=BERT_SEQ, device="cuda"), run,
+                   grpc_port=0)
+    if not served["grpc_equals_rest"]:
+        raise AssertionError("BERT: the gRPC body differs from the REST one")
+    if served["launches"]["flash_attention_fwd"] != served["n_layers"]:
+        raise AssertionError(f"BERT predict of {SLOTS} launched "
+                             f"{served['launches']}, expected "
+                             f"{served['n_layers']} flash forwards")
+    train = drive_train(loop.RunConfig(
+        model=BERT_MODEL, batch_size=BERT_BATCH, seq_len=BERT_SEQ,
+        steps=BERT_STEPS, log_every=1, prefetch=2, device="cuda",
+        optimizer=OptimizerConfig(name="adafactor", warmup_steps=2)))
+    for key in ("flash_attention_fwd", "flash_attention_bwd"):
+        if train["launches"][key] != train["layers"] * BERT_STEPS:
+            raise AssertionError(f"BERT training: {key} launched "
+                                 f"{train['launches'][key]} times")
+    gate = bert_f32_gate(dev)
+    out = {"gpu": smi, "predict": served, "train": train, "gate": gate}
+    emit("u_bert", **out)
+    return out
+
+
+def plain_bn_stats(params, images) -> dict:
+    """Every batch norm's merged running statistics of a train forward of
+    ResNet-50, recomputed in plain PyTorch (NCHW, ``F.conv2d`` with XLA's
+    padding, ``F.batch_norm`` to normalise): path → (mean, var), 0.9 ·
+    old + 0.1 · the batch's, biased variance."""
+    import torch.nn.functional as F
+
+    stats = {}
+
+    def conv(x, w, stride=1):
+        k = w.shape[0]
+        out = -(-x.shape[2] // stride)
+        total = max((out - 1) * stride + k - x.shape[2], 0)
+        x = F.pad(x, (total // 2, total - total // 2) * 2)
+        return F.conv2d(x, w.permute(3, 2, 0, 1), stride=stride)
+
+    def bn(x, p, path):
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        stats[path] = (0.9 * p["mean"] + 0.1 * mean,
+                       0.9 * p["var"] + 0.1 * var)
+        return F.batch_norm(x, None, None, p["scale"], p["bias"],
+                            training=True, eps=1e-5)
+
+    with torch.no_grad():
+        x = images.permute(0, 3, 1, 2)
+        x = F.relu(bn(conv(x, params["stem"]["conv"], 2),
+                      params["stem"]["bn"], "stem/bn"))
+        x = F.max_pool2d(F.pad(x, (0, 1, 0, 1), value=float("-inf")), 3, 2)
+        for si, stage in enumerate(params["stages"]):
+            for bi, p in enumerate(stage):
+                stride = 2 if si > 0 and bi == 0 else 1
+                path = f"stages/{si}/{bi}"
+                h = F.relu(bn(conv(x, p["conv1"]), p["bn1"], f"{path}/bn1"))
+                h = F.relu(bn(conv(h, p["conv2"], stride), p["bn2"],
+                              f"{path}/bn2"))
+                h = bn(conv(h, p["conv3"]), p["bn3"], f"{path}/bn3")
+                if "proj" in p:
+                    x = bn(conv(x, p["proj"], stride), p["bn_proj"],
+                           f"{path}/bn_proj")
+                x = F.relu(x + h)
+    return stats
+
+
+def resnet_bn_gate(dev) -> dict:
+    """(v)'s gate: one train step of resnet50 in f32 (batch 8, sgd, seed-0
+    weights) through the trainer; every batch norm's running statistics
+    after it must equal ``plain_bn_stats`` of the step's own input and
+    weights within 1e-5 of their largest magnitude. No kernel runs."""
+    from kubeflow_tpu_torch import kernels
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.train.data import place_batch, synthetic_batch
+    from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
+    from kubeflow_tpu_torch.train.trainer import build_train_step, init_state
+    from kubeflow_tpu_torch.weights import _unflatten, flatten
+
+    model = get_model(RESNET_MODEL, dtype=torch.float32)
+    opt = OptimizerConfig(name="sgd", warmup_steps=1)
+    state = init_state(torch.Generator(device=dev).manual_seed(0), model,
+                       opt, device=dev)
+    before = {k: v.clone() for k, v in flatten(state.params).items()}
+    batch = place_batch(synthetic_batch(model, RESNET_GATE_BATCH, seed=11),
+                        dev)
+    want = plain_bn_stats(_unflatten(before), batch["images"])
+    kernels.reset_launches()
+    state, met = build_train_step(model, opt)(state, batch)
+    after = flatten(state.params)
+    err = 0.0
+    for path, (mean, var) in want.items():
+        for key, ref in (("mean", mean), ("var", var)):
+            got = after[f"{path}/{key}"]
+            err = max(err, ((got - ref).abs().max()
+                            / ref.abs().max()).item())
+    moved = max((after[f"{p}/var"] - before[f"{p}/var"]).abs().max().item()
+                for p in want)
+    out = {"batch": RESNET_GATE_BATCH, "batch_norms": len(want),
+           "max_err_rel_to_leaf_max": err, "largest_var_move": moved,
+           "loss": float(met["loss"]), "launches": dict(kernels.LAUNCHES)}
+    if len(want) != 53 or not err <= 1e-5 or not moved > 0 or \
+            any(out["launches"].values()):
+        raise AssertionError(f"ResNet BN gate: {out}")
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_resnet(smi: str) -> dict:
+    """(v): resnet50 at full size, bf16, seed-0 weights. A plain predict of
+    8 random 224x224 images over REST: probabilities that sum to 1 and
+    classes that are their argmax; the batch through the engine alone
+    (call and device ms). 8 training steps at batch 32 through
+    ``train.loop.run`` with tf_cnn.py's defaults (the default optimizer):
+    samples/s, the median step, peak memory. The BN gate
+    (``resnet_bn_gate``). No kernel of the port runs here: the TPU
+    package computes ResNet without a Pallas kernel."""
+    from kubeflow_tpu_torch import kernels
+    from kubeflow_tpu_torch.serving.engine import EngineConfig
+    from kubeflow_tpu_torch.train import loop
+
+    dev = torch.device("cuda")
+
+    def run(server):
+        cfg = server.engine.model.config
+        rng = np.random.RandomState(5)
+        images = [{"images": rng.standard_normal(
+            (cfg.image_size, cfg.image_size, 3)).astype(np.float32).tolist()}
+            for _ in range(SLOTS)]
+        predict(server.port, images[:1], model=RESNET_MODEL)  # warm-up
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        preds = predict(server.port, images, model=RESNET_MODEL)
+        out = {"rest_ms": 1e3 * (time.perf_counter() - t0),
+               "launches": dict(kernels.LAUNCHES)}
+        for pred in preds:
+            p = np.asarray(pred["probabilities"], np.float64)
+            if p.shape != (cfg.num_classes,) or abs(p.sum() - 1) > 1e-3 or \
+                    pred["classes"] != int(np.argmax(p)):
+                raise AssertionError("ResNet predict: bad probabilities")
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+        batch = lambda: server.engine.predict_batch(images)  # noqa: E731
+        out["predict_batch_ms"] = time_ms(batch, flush, 5)
+        out["predict_batch_device_ms"] = device_ms(batch, flush, 5)
+        return out
+
+    served = serve(EngineConfig(model=RESNET_MODEL, batch_size=SLOTS,
+                                device="cuda"), run)
+    train = drive_train(loop.RunConfig(
+        model=RESNET_MODEL, batch_size=RESNET_BATCH, steps=RESNET_STEPS,
+        log_every=1, prefetch=2, device="cuda"))
+    if any(served["launches"].values()) or any(train["launches"].values()):
+        raise AssertionError("a kernel launched on the ResNet path")
+    gate = resnet_bn_gate(dev)
+    out = {"gpu": smi, "predict": served, "train": train, "gate": gate}
+    emit("v_resnet", **out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3184,7 +3820,13 @@ def main() -> int:
     rms = phase_rms(dev, flush)
     flash = phase_flash(dev, flush)
     flash_predict = phase_flash_predict(dev, flush)
-    deep_flash = phase_deep_flash(dev, flush)
+    deep_flash = phase_model_flash(dev, flush, "deep", "splash",
+                                   (FLASH_DEEP,))
+    bert_flash = phase_model_flash(dev, flush, "bert", None,
+                                   (FLASH_BERT, FLASH_BERT_LONG),
+                                   masked=True, iters=(20, 10))
+    moe_flash = phase_model_flash(dev, flush, "moe", None,
+                                  (FLASH_MOE, FLASH_MOE_PREDICT))
     del flush
     torch.cuda.empty_cache()
     main_path = phase_main_path()
@@ -3201,13 +3843,17 @@ def main() -> int:
     phase_train_f32_parity()
     deep = phase_deep_train(smi)
     phase_deep_gates()
+    moe = phase_moe(smi)
+    bert = phase_bert(smi)
+    phase_resnet(smi)
 
     p, r = paged["bf16"], rms[f"{SLOTS}x2048"]
     paged_paths = {
         "paged_smoke": main_path["launches"]["paged_decode_attention"],
         "prefix_path": prefix["launches"], "chunked": chunked["launches"],
         "speculation": spec["paged_launches"],
-        "serving_features": features["launches"]}
+        "serving_features": features["launches"],
+        "moe_paged": moe["paged"]["launches"]["paged_decode_attention"]}
     table = [
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "kubeflow_tpu_torch/csrc/paged_decode.cu",
@@ -3219,6 +3865,9 @@ def main() -> int:
          "busy_ms": paged["busy_bf16"]["ms"],
          "chunked_ms": paged["chunked_bf16"]["ms"],
          "chunked_bound_ms": paged["chunked_bf16"]["bound_ms"],
+         "moe_shape": {kv: {k: paged[f"moe_{kv}"][k] for k in (
+             "ms", "call_ms", "bound_ms", "bound_by", "max_abs_err")}
+             for kv in ("bf16", "int8")},
          "ms": p["ms"], "call_ms": p["call_ms"], "plain_ms": p["plain_ms"],
          "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
          "library_ms": None},
@@ -3259,16 +3908,24 @@ def main() -> int:
                 by_path = {"train": row["launches"]}
                 for policy, run in deep.items():
                     by_path[f"deep_{policy}"] = run["launches"][key]
+                by_path["moe_train"] = moe["train"]["launches"][key]
+                by_path["bert_train"] = bert["train"]["launches"][key]
                 if part == "fwd":
                     by_path["predict"] = predict_launches
+                    by_path["moe_predict"] = moe["dense"][
+                        "plain_launches"][key]
+                    by_path["bert_predict"] = bert["predict"]["launches"][
+                        key]
                 row["launches_by_path"] = by_path
                 row["launches"] = sum(by_path.values())
-                dt = deep_flash["timing"][part]
-                row["deep_shape"] = {
-                    **{k: dt[k] for k in (
-                        "ms", "call_ms", "plain_ms", "library_ms",
-                        "library_device_ms", "bound_ms", "bound_by")},
-                    "max_abs_err": deep_flash["max_abs_err"][part]}
+                for name, res in (("deep", deep_flash), ("bert", bert_flash),
+                                  ("moe", moe_flash)):
+                    st = res["timing"][part]
+                    row[f"{name}_shape"] = {
+                        **{k: st[k] for k in (
+                            "ms", "call_ms", "plain_ms", "library_ms",
+                            "library_device_ms", "bound_ms", "bound_by")},
+                        "max_abs_err": res["max_abs_err"][part]}
             if impl == "splash" and part == "fwd":
                 row["predict_shape"] = {
                     kind: {k: fp[kind][k] for k in (

@@ -64,9 +64,9 @@ import torch
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.transformer import (
     TransformerConfig,
+    _ffn,
     _head_kernel,
     _layer,
-    _mlp,
 )
 from kubeflow_tpu_torch.ops.attention import _kv_payload as _kv_arr
 from kubeflow_tpu_torch.ops.attention import (
@@ -143,13 +143,26 @@ def _cached_attention(x, layer, cfg, rope_bt, k_cache, v_cache, pos, valid):
     return out @ layer["wo"]
 
 
+def _moe_valid(cfg: TransformerConfig, width: int, n, dev):
+    """[rows, width] bool: the first ``n`` columns of each row (``n`` an
+    int, or a [rows] tensor), the tokens that claim MoE expert capacity;
+    None for a dense model, whose FFN reads no mask, so its calls spend
+    no launches on one."""
+    if not cfg.n_experts:
+        return None
+    if isinstance(n, torch.Tensor):
+        n = n[:, None]
+    return torch.arange(width, device=dev)[None, :] < n
+
+
 def forward_cached(params, tokens, cfg: TransformerConfig, cache, pos,
-                   positions, valid):
+                   positions, valid, token_valid=None):
     """tokens [B, S] at cache slots pos..pos+S with true sequence positions
     ``positions`` [B, S] → logits [B, S, V] f32; ``cache`` is written in
-    place. A block that would end past the cache raises (JAX's
-    ``dynamic_update_slice`` would clamp its start and overwrite earlier
-    slots)."""
+    place. ``token_valid`` ([B, S] bool) marks the real tokens of this
+    block: MoE routing gives padding no expert capacity. A block that
+    would end past the cache raises (JAX's ``dynamic_update_slice`` would
+    clamp its start and overwrite earlier slots)."""
     total = cache["k"].shape[2]
     if not 0 <= pos <= total - tokens.shape[1]:
         raise ValueError(f"cache write {pos}..{pos + tokens.shape[1]} "
@@ -165,7 +178,7 @@ def forward_cached(params, tokens, cfg: TransformerConfig, cache, pos,
         x = x + _cached_attention(h, layer["attn"], cfg, rope_bt,
                                   cache["k"][i], cache["v"][i], pos, valid)
         h = rms_norm(x, layer["ln_mlp"], eps=cfg.norm_eps)
-        x = x + _mlp(h, layer["mlp"], cfg)
+        x = x + _ffn(h, layer["mlp"], cfg, token_valid)[0]
     x = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
     return (x @ _head_kernel(params, cfg)).float()
 
@@ -352,10 +365,11 @@ def _state_kv(state):
 
 
 def _single_token_forward(params, cfg: TransformerConfig, k_pool, v_pool,
-                          tok, pos_b, table, fused=False):
+                          tok, pos_b, table, fused=False, token_valid=None):
     """One [B, 1] forward at per-row positions ``pos_b`` against the
     stacked dense caches (``table`` None) or block pools, written in
-    place. Returns logits [B, V] f32."""
+    place. ``token_valid`` [B] marks the rows whose token claims MoE
+    capacity. Returns logits [B, V] f32."""
     dev = tok.device
     # Every layer writes the same (row, position) set: index it once.
     if table is None:
@@ -372,6 +386,7 @@ def _single_token_forward(params, cfg: TransformerConfig, k_pool, v_pool,
     rope_bt = (cos_t[rpos], sin_t[rpos])
     x = params["embed"]["kernel"][tok.long()][:, None]
     valid = torch.arange(total, device=dev)[None, :] <= pos_b[:, None]
+    tv = None if token_valid is None else token_valid[:, None]
     for i in range(cfg.n_layers):
         layer = _layer(params, i)
         h = rms_norm(x, layer["ln_attn"], eps=cfg.norm_eps)
@@ -379,7 +394,7 @@ def _single_token_forward(params, cfg: TransformerConfig, k_pool, v_pool,
             h, layer["attn"], cfg, rope_bt, _pool_layer(k_pool, i),
             _pool_layer(v_pool, i), pos_b, valid, table, fused, widx)
         h = rms_norm(x, layer["ln_mlp"], eps=cfg.norm_eps)
-        x = x + _mlp(h, layer["mlp"], cfg)
+        x = x + _ffn(h, layer["mlp"], cfg, tv)[0]
     x = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
     return (x @ _head_kernel(params, cfg)).float()[:, 0]
 
@@ -396,7 +411,7 @@ def _decode_step_body(state, params, cfg: TransformerConfig, top_k: int,
                        state["temperature"], top_k)
     p_b = state["length"]
     logits = _single_token_forward(params, cfg, k0, v0, tok, p_b, table,
-                                   fused)
+                                   fused, token_valid=emit)
     step_inc = emit.to(torch.int32)
     length = p_b + step_inc
     remaining = state["remaining"] - step_inc
@@ -479,7 +494,7 @@ def _span_attention(x, layer, cfg, rope_bt, k_pool, v_pool, cols, table,
 
 
 def _block_forward(params, cfg: TransformerConfig, k_pool, v_pool, tokens,
-                   pos_b, table, fused=False, ring=None):
+                   pos_b, table, fused=False, ring=None, token_valid=None):
     """[B, S] forward writing K/V at per-row start positions ``pos_b`` [B]
     into the stacked dense caches (``table`` None) or, through the block
     table, the pools, in place → logits [B, S, V] f32. The verify scoring
@@ -487,7 +502,8 @@ def _block_forward(params, cfg: TransformerConfig, k_pool, v_pool, tokens,
     prefill of a prefix hit and every chunk of a chunked admission ride
     this; ``fused`` walks the paged span read instead of gathering it.
     Columns past the row (``pos_b + s >= total``) are dropped and their
-    rotary lookup clamps, as JAX's scatter and gather do. ``ring``
+    rotary lookup clamps, as JAX's scatter and gather do. ``token_valid``
+    ([B, S] bool) marks the tokens that claim MoE capacity. ``ring``
     (context parallelism) is not yet ported."""
     if ring is not None:
         raise ValueError("the context-parallel span read (ring) is not yet "
@@ -515,7 +531,7 @@ def _block_forward(params, cfg: TransformerConfig, k_pool, v_pool, tokens,
             h, layer["attn"], cfg, rope_bt, _pool_layer(k_pool, i),
             _pool_layer(v_pool, i), cols, table, fused, widx)
         h = rms_norm(x, layer["ln_mlp"], eps=cfg.norm_eps)
-        x = x + _mlp(h, layer["mlp"], cfg)
+        x = x + _ffn(h, layer["mlp"], cfg, token_valid)[0]
     x = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
     return (x @ _head_kernel(params, cfg)).float()
 
@@ -562,8 +578,9 @@ def _verify_step_body(state, params, cfg: TransformerConfig, draft,
     temp = state["temperature"]
     draft = draft.long()
     in_draft = torch.arange(k_w, device=dev)[None, :] < draft_len[:, None]
-    block_logits = _block_forward(params, cfg, k0, v0, draft, p_b, table,
-                                  fused)
+    block_logits = _block_forward(
+        params, cfg, k0, v0, draft, p_b, table, fused,
+        token_valid=emit0[:, None] & in_draft if cfg.n_experts else None)
     # prev_logits[:, i] predicts draft position i.
     prev_logits = torch.cat(
         [state["last_logits"][:, None], block_logits[:, : k_w - 1]], dim=1)
@@ -610,7 +627,8 @@ def _verify_step_body(state, params, cfg: TransformerConfig, draft,
     # The commit pass. Rows parked by EOS above still run it; their write
     # lands inside the row, whose length is parked at total, unread.
     logits2 = _single_token_forward(params, cfg, k0, v0, commit,
-                                    p_b + n_eff, table, fused)
+                                    p_b + n_eff, table, fused,
+                                    token_valid=emit0)
     length = p_b + m
     remaining = state["remaining"] - m
     active = emit0 & (remaining > 0) & (length < total) & ~hit_eos
@@ -670,8 +688,10 @@ def extend_and_propose(state, params, cfg: TransformerConfig, feed,
     rejected, so no rollback is needed. Rows with ``feed_pos`` at the
     cache end are parked (their writes drop). In place; returns (state,
     proposals [slots, steps] int32)."""
-    block_logits = _block_forward(params, cfg, state["cache"]["k"],
-                                  state["cache"]["v"], feed, feed_pos, None)
+    block_logits = _block_forward(
+        params, cfg, state["cache"]["k"], state["cache"]["v"], feed,
+        feed_pos, None,
+        token_valid=_moe_valid(cfg, feed.shape[1], feed_len, feed.device))
     rows = torch.arange(feed.shape[0], device=feed.device)
     last = block_logits[rows, torch.clamp(feed_len - 1, min=0).long()]
     live = feed_len > 0
@@ -738,19 +758,24 @@ def _check_rows(idx, n: int, what: str) -> None:
 
 
 def _prefill_rows(params, cfg: TransformerConfig, cache, prompt_tokens,
-                  prompt_lengths):
+                  prompt_lengths, row_valid=None):
     """Prefill right-padded prompts ``[B, T0]`` into ``cache`` (written in
     place) from slot 0. Lengths clamp to >= 1, as in JAX, so a zero-length
-    row reads its first logits rather than wrapping to the last. Returns
-    (last-position logits [B, V] f32, clamped lengths)."""
+    row reads its first logits rather than wrapping to the last. The
+    prompt positions (of the rows ``row_valid`` marks, when given) claim
+    MoE capacity. Returns (last-position logits [B, V] f32, clamped
+    lengths)."""
     total = cache["k"].shape[2]
     b, t0 = prompt_tokens.shape
     dev = prompt_tokens.device
     lengths = torch.clamp(prompt_lengths, min=1)
     valid = torch.arange(total, device=dev)[None, :] < lengths[:, None]
     positions = torch.arange(t0, device=dev)[None].expand(b, t0)
+    token_valid = _moe_valid(cfg, t0, lengths, dev)
+    if token_valid is not None and row_valid is not None:
+        token_valid = token_valid & row_valid[:, None]
     logits = forward_cached(params, prompt_tokens.long(), cfg, cache, 0,
-                            positions, valid)
+                            positions, valid, token_valid)
     return logits[torch.arange(b, device=dev), lengths.long() - 1], lengths
 
 
@@ -766,22 +791,27 @@ def generate(params, prompt_tokens, prompt_lengths, cfg: TransformerConfig,
     one compiled call). Row ``b``'s token at step ``t`` sits at cache slot
     ``T0 + t`` with true position ``length[b] + t``. ``temperature`` [B]:
     <= 0 decodes greedily. ``generator`` takes the place of JAX's key.
-    ``row_valid`` marks real rows of a padded batch; JAX reads it only for
-    MoE routing, and MoE presets are not yet ported."""
-    del row_valid
+    ``row_valid`` [B] marks the real rows of a padded batch: pad rows
+    claim no MoE expert capacity, in the prefill or the steps."""
     b, t0 = prompt_tokens.shape
     dev = prompt_tokens.device
+    if not cfg.n_experts:
+        row_valid = None  # only MoE routing reads it
+    elif row_valid is None:
+        row_valid = torch.ones((b,), dtype=torch.bool, device=dev)
     total = t0 + max_new_tokens
     cache = init_cache(cfg, b, total, dev)
     last, lengths = _prefill_rows(params, cfg, cache, prompt_tokens,
-                                  prompt_lengths)
+                                  prompt_lengths, row_valid)
     valid = torch.arange(total, device=dev)[None, :] < lengths[:, None]
     logits, toks = last, []
     for i in range(max_new_tokens):
         tok = sample_token(logits, generator, temperature, top_k)
         valid[:, t0 + i] = True
         logits = forward_cached(params, tok[:, None].long(), cfg, cache,
-                                t0 + i, (lengths + i)[:, None], valid)[:, 0]
+                                t0 + i, (lengths + i)[:, None], valid,
+                                None if row_valid is None
+                                else row_valid[:, None])[:, 0]
         toks.append(tok)
     if not toks:
         return torch.zeros((b, 0), dtype=torch.int32, device=dev), last
@@ -946,7 +976,8 @@ def _admit_prefix_body(state, params, cfg: TransformerConfig, slot, pool,
     positions = prefix_len + torch.arange(s, device=dev)[None, :]
     valid = torch.arange(total, device=dev)[None, :] < prompt_len
     logits = forward_cached(params, suffix_tokens.long(), cfg, cache,
-                            prefix_len, positions, valid)
+                            prefix_len, positions, valid,
+                            _moe_valid(cfg, s, suffix_len, dev))
     last = logits[:, suffix_len - 1]
     for side in ("k", "v"):
         state["cache"][side][:, slot] = cache[side][:, 0]
@@ -1078,7 +1109,9 @@ def _paged_admit_prefix_body(state, params, cfg: TransformerConfig, slot,
     logits = _block_forward(
         params, cfg, state["pool"]["k"], state["pool"]["v"], suffix_tokens,
         torch.tensor([prefix_len], dtype=torch.int32, device=dev),
-        table_row, fused)
+        table_row, fused,
+        token_valid=_moe_valid(cfg, suffix_tokens.shape[1], suffix_len,
+                               dev))
     last = logits[:, suffix_len - 1]
     _set_rows(state, slot, prompt_len, remaining, temperature, last[0])
     return state, last
@@ -1122,14 +1155,15 @@ def paged_prefill_chunk(state, params, cfg: TransformerConfig, slot, pos,
     chunked sampling matches monolithic. Pad positions write junk that
     the next chunk (or decode) overwrites before any mask admits it. In
     place; returns the state."""
-    del chunk_len  # the pads' junk is masked; JAX reads it for MoE only
     slot = _row_index(slot, state["block_table"].shape[0], "slot")
     dev = chunk_tokens.device
     table_row = state["block_table"][slot][None]
     _block_forward(params, cfg, state["pool"]["k"], state["pool"]["v"],
                    chunk_tokens,
                    torch.tensor([int(pos)], dtype=torch.int32, device=dev),
-                   table_row, kv_fused)
+                   table_row, kv_fused,
+                   token_valid=_moe_valid(cfg, chunk_tokens.shape[1],
+                                          int(chunk_len), dev))
     state["length"][slot] = _state_kv(state)[3]
     state["active"][slot] = False
     return state

@@ -1,7 +1,8 @@
-"""Model registry: name → ModelSpec (transformer family only so far).
+"""Model registry: name → ModelSpec, for the three families.
 
-Counterpart of ``kubeflow_tpu/models/registry.py``. BERT and ResNet join
-the registry when their modules are ported.
+Counterpart of ``kubeflow_tpu/models/registry.py``: the transformer LM
+(dense and mixture-of-experts presets), the BERT encoder and the ResNet
+classifier, looked up in that order.
 """
 
 from __future__ import annotations
@@ -9,7 +10,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable
 
-from kubeflow_tpu_torch.models import transformer
+from kubeflow_tpu_torch.models import bert, resnet, transformer
+
+_FAMILIES = (("transformer", transformer), ("bert", bert),
+             ("resnet", resnet))
 
 
 @dataclass(frozen=True)
@@ -18,19 +22,26 @@ class ModelSpec:
     family: str
     config: Any
     init: Callable          # (cfg, *, generator, device, param_dtype) -> params
-    apply: Callable         # (params, tokens, cfg, *, mesh=None) -> logits
+    apply: Callable         # (params, inputs, cfg, *, mesh=None) -> outputs
     loss_fn: Callable       # (params, batch, cfg, *, mesh=None) -> (loss, metrics)
+    # Optional non-gradient state channel: (params,
+    # metrics["_state_updates"]) -> params, applied by the trainer after
+    # the optimizer step (ResNet's batch-norm running statistics).
+    update_state: Callable | None = None
 
 
 def get_model(name: str, **overrides) -> ModelSpec:
-    if name in transformer.PRESETS:
-        return ModelSpec(name=name, family="transformer",
-                         config=transformer.config(name, **overrides),
-                         init=transformer.init, apply=transformer.apply,
-                         loss_fn=transformer.loss_fn)
+    for family, module in _FAMILIES:
+        if name in module.PRESETS:
+            return ModelSpec(
+                name=name, family=family,
+                config=module.config(name, **overrides),
+                init=module.init, apply=module.apply,
+                loss_fn=module.loss_fn,
+                update_state=getattr(module, "update_state", None))
     raise KeyError(
         f"unknown model {name!r}; available: {sorted(list_models())}")
 
 
 def list_models() -> list[str]:
-    return list(transformer.PRESETS)
+    return [name for _, module in _FAMILIES for name in module.PRESETS]

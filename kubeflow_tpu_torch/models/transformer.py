@@ -3,8 +3,9 @@ the training forward.
 
 Counterpart of ``kubeflow_tpu/models/transformer.py``: the same
 Llama-style block (RMSNorm pre-norm, rotary positions, grouped-query
-attention, SwiGLU MLP) and the same stacked ``[L, ...]`` parameter layout,
-so a JAX parameter tree converts leaf for leaf (``weights.py``).
+attention, SwiGLU MLP or, with ``n_experts``, the top-k mixture of experts
+of :func:`moe_ffn`) and the same stacked ``[L, ...]`` parameter layout, so
+a JAX parameter tree converts leaf for leaf (``weights.py``).
 
 :func:`hidden_states`, :func:`apply` and :func:`loss_fn` are the training
 forward (serving runs ``models/decode.py``). Weights are cast to
@@ -22,7 +23,13 @@ regions wrap groups of that many layers, as JAX's grouped scan does.
 (:func:`_remat_layer`), and ``loss_chunks`` the chunked LM loss. Options
 whose port is still to come raise ``ValueError("... not yet ported")``
 where training reaches them: ``context_parallel``, ``pipeline_stages > 1``
-and a mesh; MoE presets are refused by :func:`config`.
+and a mesh (so also an ``expert`` mesh axis).
+
+The JAX package computes :func:`moe_ffn` with einsums, ``top_k`` and a
+``cumsum`` (no Pallas kernel), so it is plain PyTorch here on every
+device; it dispatches by index instead of through the one-hot einsums,
+which computes the same function without the ``[n, E, C]`` dispatch
+tensor.
 """
 
 from __future__ import annotations
@@ -63,10 +70,12 @@ class TransformerConfig:
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     tie_embeddings: bool = False
-    # Mixture-of-Experts FFN (0 = dense). Listed so the MoE presets keep
-    # their shapes; config() rejects them until moe_ffn is ported.
+    # Mixture-of-Experts FFN (0 = dense): top-k routing with a static
+    # capacity per expert; dropped tokens ride the residual (moe_ffn).
     n_experts: int = 0
     expert_top_k: int = 2
+    expert_capacity_factor: float = 1.25
+    router_aux_loss: float = 0.01
     # Training fields of the JAX config, with its defaults; see the module
     # docstring for which of them run here.
     context_parallel: bool = False
@@ -82,6 +91,15 @@ class TransformerConfig:
     @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
+
+    def leaf_dtype(self, path: str,
+                   dtype: torch.dtype | None = None) -> torch.dtype:
+        """The dtype the port stores leaf ``path`` in: the one JAX reads
+        it in. Leaves JAX casts to ``dtype`` at each use take
+        ``dtype`` (default ``self.dtype``); the norms and the MoE router
+        (:data:`FLOAT32_LEAVES`) stay float32."""
+        compute = dtype or self.dtype
+        return torch.float32 if path in FLOAT32_LEAVES else compute
 
 
 # Named presets; the shapes of kubeflow_tpu/models/transformer.py:PRESETS.
@@ -126,17 +144,14 @@ def config(name: str, **overrides) -> TransformerConfig:
     ("float32"), as a JSON run config gives it."""
     if isinstance(overrides.get("dtype"), str):
         overrides["dtype"] = getattr(torch, overrides["dtype"])
-    cfg = replace(PRESETS[name], **overrides)
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"model {name!r} is a mixture-of-experts preset; moe_ffn is "
-            "not yet ported to the PyTorch package")
-    return cfg
+    return replace(PRESETS[name], **overrides)
 
 
 # Leaves that rms_norm reads in float32; every other leaf is a matmul or
 # embedding weight, stored once in cfg.dtype (JAX casts it at each use).
 NORM_LEAVES = ("layers/ln_attn", "layers/ln_mlp", "final_norm")
+# Every leaf JAX reads in float32: the norms and the MoE router.
+FLOAT32_LEAVES = (*NORM_LEAVES, "layers/mlp/router")
 
 
 def init(cfg: TransformerConfig, *, generator: torch.Generator,
@@ -145,7 +160,8 @@ def init(cfg: TransformerConfig, *, generator: torch.Generator,
     """Parameter dict with the JAX tree's layout and distributions:
     normal × fan_in^-0.5 for every dense weight, ones for the norms.
     Dense weights are stored in ``param_dtype``: ``cfg.dtype`` by default
-    (serving), float32 for training's master weights, as JAX keeps them.
+    (serving), float32 for training's master weights, as JAX keeps them;
+    the MoE router is float32 either way, as JAX reads it.
     Values differ from JAX's for the same seed (a torch generator is not
     a threefry key); tests that need equal weights convert the JAX tree
     with :func:`kubeflow_tpu_torch.weights.params_from_numpy`."""
@@ -153,14 +169,28 @@ def init(cfg: TransformerConfig, *, generator: torch.Generator,
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
     dtype = cfg.dtype if param_dtype is None else param_dtype
 
-    def dense(shape, fan_in):
+    def dense(shape, fan_in, leaf_dtype=dtype):
         w = torch.randn(shape, generator=generator, device=dev,
                         dtype=torch.float32)
-        return (w * fan_in ** -0.5).to(dtype)
+        return (w * fan_in ** -0.5).to(leaf_dtype)
 
-    def stack(shape, fan_in):
-        return dense((cfg.n_layers, *shape), fan_in)
+    def stack(shape, fan_in, leaf_dtype=dtype):
+        return dense((cfg.n_layers, *shape), fan_in, leaf_dtype)
 
+    if cfg.n_experts:
+        e = cfg.n_experts
+        mlp = {
+            "router": stack((d, e), d, torch.float32),
+            "gate": stack((e, d, f), d),
+            "up": stack((e, d, f), d),
+            "down": stack((e, f, d), f),
+        }
+    else:
+        mlp = {
+            "gate": stack((d, f), d),
+            "up": stack((d, f), d),
+            "down": stack((f, d), f),
+        }
     params = {
         "embed": {"kernel": dense((cfg.vocab_size, d), d)},
         "layers": {
@@ -170,11 +200,7 @@ def init(cfg: TransformerConfig, *, generator: torch.Generator,
                 "wv": stack((d, cfg.n_kv_heads * hd), d),
                 "wo": stack((cfg.n_heads * hd, d), cfg.n_heads * hd),
             },
-            "mlp": {
-                "gate": stack((d, f), d),
-                "up": stack((d, f), d),
-                "down": stack((f, d), f),
-            },
+            "mlp": mlp,
             "ln_attn": torch.ones((cfg.n_layers, d), device=dev),
             "ln_mlp": torch.ones((cfg.n_layers, d), device=dev),
         },
@@ -294,11 +320,92 @@ def _mlp(h, mlp, cfg: TransformerConfig):
     return _mlp_out(cfg, *_mlp_in(cfg, h, mlp), mlp["down"])
 
 
+def moe_ffn(x, mlp, cfg: TransformerConfig, token_valid=None):
+    """JAX's GShard-style MoE FFN: top-k routing with a static capacity
+    per expert. x: [B, T, D] → (y [B, T, D] in x's dtype, aux scalar f32,
+    the load-balance loss E · Σ_e fraction_e · mean_prob_e).
+
+    The router runs in float32; the top-k gates are renormalised. Each
+    expert holds ``capacity = max(int(n·k/E·cf), k)`` slots, ``n = B·T``
+    of this call, filled priority-major (every first choice before any
+    second choice, in token order); choices past capacity are dropped
+    and ride the residual. ``token_valid`` ([B, T] bool): padding claims
+    no capacity and stays out of the aux statistics.
+
+    Dispatch is by index, not by JAX's one-hot einsums: each kept
+    (token, choice) names one slot of ``[E, C]``, the slots gather their
+    tokens into ``[E, C, D]``, the experts run as batched matmuls, and
+    each token gathers its kept slots' outputs back, weighted by its
+    gates cast to ``cfg.dtype`` (JAX's ``combine``). One token fills a
+    slot at most, so the gather equals the dispatch einsum exactly."""
+    b, t, d = x.shape
+    e = cfg.n_experts
+    k = min(cfg.expert_top_k, e)
+    n = b * t
+    capacity = max(int(n * k / e * cfg.expert_capacity_factor), k)
+    xf = x.reshape(n, d)
+    logits = xf.float() @ mlp["router"].float()
+    probs = torch.softmax(logits, dim=-1)  # [n, e]
+    gate_vals, expert_idx = torch.topk(probs, k, dim=-1, sorted=True)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    oh_e = F.one_hot(expert_idx, e).float()  # [n, k, e]
+    if token_valid is not None:
+        tv = token_valid.reshape(n).float()
+        oh_e = oh_e * tv[:, None, None]
+        n_valid = torch.clamp(tv.sum(), min=1.0)
+    else:
+        n_valid = float(n)
+    # Position of each (token, choice) in its expert, priority-major. The
+    # scan runs along the last axis of the [e, k·n] transpose: CUDA scans
+    # the outer axis of [k·n, e] one column of e at a time.
+    flat = oh_e.transpose(0, 1).reshape(k * n, e)
+    pos = (torch.cumsum(flat.t().contiguous(), dim=1).t() - flat).reshape(
+        k, n, e).transpose(0, 1)
+    slot_pos = (pos * oh_e).sum(-1).long()  # [n, k]
+    kept = (slot_pos < capacity) & (oh_e.sum(-1) > 0)
+    # Slot index of each kept choice; the rest point at a zero row.
+    dest = torch.where(kept, expert_idx * capacity + slot_pos, e * capacity)
+    token_of = torch.full((e * capacity + 1,), n, dtype=torch.long,
+                          device=x.device).scatter(
+        0, dest.reshape(-1),
+        torch.arange(n, device=x.device).repeat_interleave(k))
+    # index_select, not advanced indexing: its backward is an index_add,
+    # where advanced indexing's sorts the indices first.
+    zero = xf.new_zeros((1, d))
+    expert_in = torch.cat([xf, zero]).index_select(0, token_of[:-1]).reshape(
+        e, capacity, d)
+    g = torch.bmm(expert_in, mlp["gate"].to(cfg.dtype))
+    u = torch.bmm(expert_in, mlp["up"].to(cfg.dtype))
+    out = torch.bmm(F.silu(g) * u, mlp["down"].to(cfg.dtype))
+    out = torch.cat([out.reshape(e * capacity, d), out.new_zeros((1, d))])
+    combine = gate_vals.to(cfg.dtype).float()
+    back = out.index_select(0, dest.reshape(-1)).reshape(n, k, d)
+    y = (back.float() * combine[..., None]).sum(1).to(cfg.dtype)
+
+    top1_frac = oh_e[:, 0, :].sum(0) / n_valid
+    if token_valid is not None:
+        mean_prob = (probs * tv[:, None]).sum(0) / n_valid
+    else:
+        mean_prob = probs.mean(0)
+    aux = e * (top1_frac * mean_prob).sum()
+    return y.reshape(b, t, d).to(x.dtype), aux
+
+
+def _ffn(h, mlp, cfg: TransformerConfig, token_valid=None):
+    """The layer's FFN on the normed input: (y, MoE aux or None)."""
+    if cfg.n_experts:
+        return moe_ffn(h, mlp, cfg, token_valid)
+    return _mlp(h, mlp, cfg), None
+
+
 def _layer_fn(cfg: TransformerConfig, rope, x, layer):
+    """One layer: (x, the MoE aux or None)."""
     h = rms_norm(x, layer["ln_attn"], eps=cfg.norm_eps)
     x = x + _attention(h, layer["attn"], cfg, rope)
     h = rms_norm(x, layer["ln_mlp"], eps=cfg.norm_eps)
-    return x + _mlp(h, layer["mlp"], cfg)
+    y, aux = _ffn(h, layer["mlp"], cfg)
+    return x + y, aux
 
 
 # ---------------------------------------------------------------------------
@@ -366,6 +473,12 @@ def _wo_mlp_in_region(cfg, x, ctx, wo, ln, mlp):
     return (x, *_mlp_in_region(cfg, x, ln, mlp))
 
 
+def _wo_moe_region(cfg, x, ctx, wo, ln, mlp):
+    x = x + ctx @ wo.to(cfg.dtype)
+    y, aux = moe_ffn(rms_norm(x, ln, eps=cfg.norm_eps), mlp, cfg)
+    return x + y, aux
+
+
 def _remat_layer(cfg: TransformerConfig, rope, x, layer):
     """One layer under remat, laid out as regions by ``cfg.remat_policy``.
 
@@ -381,7 +494,10 @@ def _remat_layer(cfg: TransformerConfig, rope, x, layer):
     post-rope q, k, v (the backward keeps them and runs the projections
     again before the flash forward); "llm_res" keeps the flash forward's
     out and lse, so the backward does not run it again; "llm_attn" runs
-    attention outside any region, on the kernel's own residuals."""
+    attention outside any region, on the kernel's own residuals. An MoE
+    layer keeps the same attention regions and runs wo and the whole
+    MoE FFN as one region (JAX names nothing inside ``moe_ffn``).
+    Returns (x, the MoE aux or None)."""
     policy, attn, mlp = cfg.remat_policy, layer["attn"], layer["mlp"]
     if policy in ("none", "dots", "dots_batched"):
         return _region(functools.partial(_layer_fn, cfg, rope), x, layer,
@@ -400,15 +516,24 @@ def _remat_layer(cfg: TransformerConfig, rope, x, layer):
             ctx = _region(_ctx_region, cfg, rope, x, layer["ln_attn"], attn,
                           context_fn=(_selective({FLASH_FWD_OP})
                                       if policy == "llm_res" else None))
+        if cfg.n_experts:
+            return _region(_wo_moe_region, cfg, x, ctx, attn["wo"],
+                           layer["ln_mlp"], mlp)
         x, gate, up = _region(_wo_mlp_in_region, cfg, x, ctx, attn["wo"],
                               layer["ln_mlp"], mlp, context_fn=mlp_in)
-    return x + _region(_mlp_out, cfg, gate, up, mlp["down"])
+    return x + _region(_mlp_out, cfg, gate, up, mlp["down"]), None
+
+
+def _add_aux(total, aux):
+    return total if aux is None else total + aux
 
 
 def _group_fn(cfg: TransformerConfig, rope, x, layers: list):
+    total = None
     for layer in layers:
-        x = _layer_fn(cfg, rope, x, layer)
-    return x
+        x, aux = _layer_fn(cfg, rope, x, layer)
+        total = aux if total is None else _add_aux(total, aux)
+    return x, total
 
 
 def _embed_lookup(kernel, tokens, cfg: TransformerConfig):
@@ -418,8 +543,9 @@ def _embed_lookup(kernel, tokens, cfg: TransformerConfig):
 
 
 def hidden_states(params, tokens, cfg: TransformerConfig, *, mesh=None):
-    """tokens [B, T] → (final-norm hidden [B, T, D] in cfg.dtype, aux loss
-    0.0 — the MoE router loss of dense models). While autograd records,
+    """tokens [B, T] → (final-norm hidden [B, T, D] in cfg.dtype, the MoE
+    router aux summed over layers, f32; 0.0 for dense models). While
+    autograd records,
     ``cfg.remat`` runs each layer (or each group of ``scan_group_size``
     layers) as checkpoint regions of ``cfg.remat_policy``; an inference
     forward opens none."""
@@ -430,19 +556,24 @@ def hidden_states(params, tokens, cfg: TransformerConfig, *, mesh=None):
     x = _embed_lookup(params["embed"]["kernel"], tokens, cfg)
     layers = [_layer(params, i) for i in range(cfg.n_layers)]
     group = cfg.scan_group_size
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not (cfg.remat and torch.is_grad_enabled()):
         for layer in layers:
-            x = _layer_fn(cfg, rope, x, layer)
+            x, layer_aux = _layer_fn(cfg, rope, x, layer)
+            aux = _add_aux(aux, layer_aux)
     elif group > 1:
         fn = functools.partial(_group_fn, cfg, rope)
         for i in range(0, cfg.n_layers, group):
-            x = _region(fn, x, layers[i:i + group],
-                        context_fn=_LAYERS_CONTEXT[cfg.remat_policy])
+            x, group_aux = _region(
+                fn, x, layers[i:i + group],
+                context_fn=_LAYERS_CONTEXT[cfg.remat_policy])
+            aux = _add_aux(aux, group_aux)
     else:
         for layer in layers:
-            x = _remat_layer(cfg, rope, x, layer)
+            x, layer_aux = _remat_layer(cfg, rope, x, layer)
+            aux = _add_aux(aux, layer_aux)
     x = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def _head_kernel(params, cfg: TransformerConfig):
@@ -454,7 +585,8 @@ def _head_kernel(params, cfg: TransformerConfig):
 def apply(params, tokens, cfg: TransformerConfig, *, mesh=None,
           return_aux: bool = False):
     """tokens [B, T] int → logits [B, T, V] (cfg.dtype).
-    ``return_aux=True`` also returns the aux loss (0.0, dense models)."""
+    ``return_aux=True`` also returns the summed MoE router aux loss (0.0
+    for dense models)."""
     x, aux = hidden_states(params, tokens, cfg, mesh=mesh)
     logits = x @ _head_kernel(params, cfg).to(cfg.dtype)
     if return_aux:
@@ -466,16 +598,24 @@ def loss_fn(params, batch, cfg: TransformerConfig, *, mesh=None):
     """Next-token LM loss with z-loss 1e-4. batch: {"tokens": [B, T+1]}
     (or separate "inputs"/"targets"); negative targets are ignored.
     ``cfg.loss_chunks`` applies the head and the loss in that many row
-    chunks (``chunked_lm_head_loss``). Returns (loss, metrics)."""
+    chunks (``chunked_lm_head_loss``). An MoE model adds
+    ``router_aux_loss`` × the summed aux, reported as
+    ``metrics["router_aux_loss"]``. Returns (loss, metrics)."""
     if "inputs" in batch:
         inputs, targets = batch["inputs"], batch["targets"]
     else:
         inputs, targets = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
     if cfg.loss_chunks:
-        x, _aux = hidden_states(params, inputs, cfg, mesh=mesh)
+        x, aux = hidden_states(params, inputs, cfg, mesh=mesh)
         b, t, d = x.shape
-        return chunked_lm_head_loss(
+        loss, metrics = chunked_lm_head_loss(
             x.reshape(b * t, d), _head_kernel(params, cfg).to(cfg.dtype),
             targets.reshape(b * t), z_loss=1e-4, n_chunks=cfg.loss_chunks)
-    logits = apply(params, inputs, cfg, mesh=mesh)
-    return softmax_cross_entropy(logits, targets, z_loss=1e-4)
+    else:
+        logits, aux = apply(params, inputs, cfg, mesh=mesh, return_aux=True)
+        loss, metrics = softmax_cross_entropy(logits, targets, z_loss=1e-4)
+    if cfg.n_experts and cfg.router_aux_loss:
+        aux_loss = cfg.router_aux_loss * aux
+        metrics["router_aux_loss"] = aux_loss
+        loss = loss + aux_loss
+    return loss, metrics

@@ -1,19 +1,21 @@
 """Inference engine: registry model + weights on a device → predict.
 
-Counterpart of ``kubeflow_tpu/serving/engine.py`` for language models:
-``pow2_bucket``, the :class:`EngineConfig` fields the port honours (same
-names and defaults as the JAX config, plus ``device``) and
-:class:`InferenceEngine`. Its ``predict_batch`` pads a batch to the
-server's fixed shape and runs either the plain forward
-(``transformer.apply``, whose attention is the flash kernel on the card)
-or, for instances that ask for tokens, the lockstep ``generate``. The
+Counterpart of ``kubeflow_tpu/serving/engine.py``: ``pow2_bucket``, the
+:class:`EngineConfig` fields the port honours (same names and defaults
+as the JAX config, plus ``device``) and :class:`InferenceEngine`. Its
+``predict_batch`` pads a batch to the server's fixed shape and runs the
+family's plain predict: for the transformer LM the last real position's
+logits (``transformer.apply``, whose attention is the flash kernel on the
+card) or, for instances that ask for tokens, the lockstep ``generate``;
+for BERT the pooled output (tokens padded under a ``pad_mask``, the
+flash kernel non-causal over it); for ResNet the class probabilities and
+the argmax of ``[image_size, image_size, 3]`` images. The
 continuous decoder (``serving/continuous.py``) serves generation in the
 default decode mode. The boot weights come, in order, from the first
 donor of ``weight_peers`` that answers (the chunked ``:pull`` transport
 of ``serving/weights.py``), from the newest checkpoint under
 ``checkpoint_dir`` (the files ``train/checkpoint.py`` writes, from either
-framework's trainer), or from the seeded init. BERT and ResNet predicts
-are not yet ported.
+framework's trainer), or from the seeded init.
 """
 
 from __future__ import annotations
@@ -113,19 +115,28 @@ class EngineConfig:
 
 
 def _predict_impl(model: ModelSpec, params, inputs: dict) -> dict:
-    """The plain predict: logits at each row's last real position
-    (causality makes them exact whatever padding follows), in f32, and
-    their argmax."""
-    if model.family != "transformer":
-        raise ValueError(f"the {model.family} predict is not yet ported to "
-                         "the PyTorch package")
+    """The family's plain predict. Transformer: logits at each row's last
+    real position (causality makes them exact whatever padding follows),
+    in f32, and their argmax. BERT: the pooled output, f32. ResNet: the
+    softmax of the logits and their argmax."""
+    cfg = model.config
     # Inference mode: nothing records a backward, so the forward runs
     # whatever the preset's remat (llama-1b's is True).
     with torch.inference_mode():
-        logits = model.apply(params, inputs["tokens"], model.config)
-        rows = torch.arange(logits.shape[0], device=logits.device)
-        last = logits[rows, inputs["last_index"]].float()
-        return {"logits": last, "next_token": torch.argmax(last, dim=-1)}
+        if model.family == "transformer":
+            logits = model.apply(params, inputs["tokens"], cfg)
+            rows = torch.arange(logits.shape[0], device=logits.device)
+            last = logits[rows, inputs["last_index"]].float()
+            return {"logits": last, "next_token": torch.argmax(last, dim=-1)}
+        if model.family == "bert":
+            _seq, pooled = model.apply(params, inputs["tokens"], cfg,
+                                       pad_mask=inputs["pad_mask"])
+            return {"pooled": pooled.float()}
+        if model.family == "resnet":
+            logits = model.apply(params, inputs["images"], cfg)
+            return {"probabilities": torch.softmax(logits, dim=-1),
+                    "classes": torch.argmax(logits, dim=-1)}
+    raise ValueError(model.family)
 
 
 class InferenceEngine:
@@ -156,7 +167,7 @@ class InferenceEngine:
         if params is None:
             self.params = self._load_params()
         else:
-            self.params = params_from_numpy(params, self.model.config,
+            self.params = params_from_numpy(params, self.model,
                                             self.device)
         self.cold_start["weights"] = time.perf_counter() - t0
         self._lock = threading.Lock()
@@ -242,9 +253,24 @@ class InferenceEngine:
         return self._warm
 
     def validate_instance(self, inst: dict) -> None:
-        """Reject malformed instances before they reach the decoder."""
+        """Reject malformed instances before they reach the decoder or a
+        batch: token lists (transformer, BERT) or one image of the
+        model's shape (ResNet)."""
         if not isinstance(inst, dict):
             raise ValueError("each instance must be an object")
+        if self.model.family == "resnet":
+            if "images" not in inst:
+                raise ValueError("each instance needs 'images'")
+            cfg = self.model.config
+            try:
+                arr = np.asarray(inst["images"], np.float32)
+            except (TypeError, ValueError) as e:
+                raise ValueError(f"'images' not numeric: {e}") from None
+            want = (cfg.image_size, cfg.image_size, 3)
+            if arr.shape != want:
+                raise ValueError(
+                    f"'images' shape {arr.shape} != expected {want}")
+            return
         toks = inst.get("tokens")
         if not isinstance(toks, list) or not toks:
             raise ValueError("each instance needs a non-empty 'tokens' list")
@@ -266,6 +292,10 @@ class InferenceEngine:
             raise ValueError("'temperature' must be a non-negative number")
 
     def _example_instances(self, n: int) -> list[dict]:
+        cfg = self.model.config
+        if self.model.family == "resnet":
+            return [{"images": np.zeros(
+                (cfg.image_size, cfg.image_size, 3)).tolist()}] * n
         return [{"tokens": [0] * 8}] * n
 
     def _pad_tokens(self, instances: list[dict]):
@@ -281,6 +311,26 @@ class InferenceEngine:
             lengths[i] = len(seq)
         return (torch.from_numpy(tokens).to(self.device),
                 torch.from_numpy(lengths).to(self.device))
+
+    def _batch_inputs(self, instances: list[dict]) -> dict:
+        """The plain predict's inputs at the server's fixed batch shape.
+        Transformer: tokens and each row's last index. BERT: tokens and
+        the ``pad_mask`` of the real positions (pad rows all 0). ResNet:
+        the images, zeros past the real rows."""
+        if self.model.family == "resnet":
+            cfg = self.model.config
+            images = np.zeros((self.cfg.batch_size, cfg.image_size,
+                               cfg.image_size, 3), np.float32)
+            for i, inst in enumerate(instances):
+                images[i] = np.asarray(inst["images"], np.float32)
+            return {"images": torch.from_numpy(images).to(self.device)}
+        tokens, lengths = self._pad_tokens(instances)
+        if self.model.family == "bert":
+            pos = torch.arange(tokens.shape[1], device=self.device)
+            mask = pos[None, :] < lengths[:, None]
+            mask[len(instances):] = False
+            return {"tokens": tokens, "pad_mask": mask.float()}
+        return {"tokens": tokens, "last_index": lengths.long() - 1}
 
     def _generate_batch(self, instances: list[dict]) -> list[dict]:
         """Lockstep generation: prefill + a decode loop over the KV cache
@@ -331,10 +381,9 @@ class InferenceEngine:
                 and any(inst.get("max_new_tokens") for inst in instances)):
             return self._generate_batch(instances)
         n = len(instances)
-        tokens, lengths = self._pad_tokens(instances)
+        inputs = self._batch_inputs(instances)
         with self._lock:
-            out = _predict_impl(self.model, self.params, {
-                "tokens": tokens, "last_index": lengths.long() - 1})
+            out = _predict_impl(self.model, self.params, inputs)
             out = {k: v[:n].cpu().numpy() for k, v in out.items()}
         return [{k: v[i].tolist() for k, v in out.items()} for i in range(n)]
 

@@ -8,9 +8,10 @@ bodies:
   generates: through the continuous decoder in ``decode_mode
   "continuous"``, with ``"stream": true`` as chunked JSON lines, one per
   token, then a terminal ``{"done": true, ...}`` record. A plain instance
-  (the forward of ``transformer.apply``), and every instance in
-  ``decode_mode "lockstep"``, coalesces in the dynamic batcher into one
-  ``InferenceEngine.predict_batch`` call.
+  (the last logits of ``transformer.apply``, BERT's pooled output,
+  ResNet's class probabilities), and every instance in ``decode_mode
+  "lockstep"``, coalesces in the dynamic batcher into one
+  ``InferenceEngine.predict_batch`` call. Only language models generate.
 - ``GET  /v1/models/<name>``          model metadata + availability
 - ``GET  /healthz`` ``GET /readyz``   liveness/readiness
 - ``GET  /monitoring/prometheus/metrics`` the server's request counters
@@ -210,11 +211,14 @@ class ModelServer:
         self._export_cache = None
         self._export_lock = threading.Lock()
         # The decoder is built at once (the JAX server builds it at the
-        # first request): the port serves only language models, and an
-        # option that is not yet ported fails here rather than at the
-        # first request. None unless generation rides it.
+        # first request), so an option that is not yet ported fails here
+        # rather than at the first request. None unless generation rides
+        # it: a language model, continuous decoding (JAX's decoder
+        # property); BERT and ResNet serve plain predicts only.
         cfg = engine_cfg
-        continuous = cfg.max_new_tokens > 0 and cfg.decode_mode == "continuous"
+        continuous = (self.engine.model.family == "transformer"
+                      and cfg.max_new_tokens > 0
+                      and cfg.decode_mode == "continuous")
         qos = (QosPolicy(cfg.qos_tenants, aging_seconds=cfg.qos_aging_s)
                if cfg.qos_tenants else None)
         self.decoder = None if not continuous else ContinuousDecoder(
@@ -402,6 +406,8 @@ class ModelServer:
         torn or abandoned push never reaches the decoder."""
         self._check_model(name)
         decoder = self.decoder
+        if decoder is None:
+            raise ValueError("model does not support generation")
         chunk = weights_mod.unpack_chunk(body)  # ValueError -> 400
         with self._weights_lock:
             if self._weights_assembler is None:

@@ -31,7 +31,11 @@ import threading
 import numpy as np
 
 from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
-from kubeflow_tpu_torch.weights import state_from_numpy, state_to_numpy
+from kubeflow_tpu_torch.weights import (
+    flatten,
+    state_from_numpy,
+    state_to_numpy,
+)
 
 
 def _steps(ckpt_dir: str) -> list[int]:
@@ -204,8 +208,8 @@ def restore(ckpt_dir: str, step: int, like, opt_cfg: OptimizerConfig):
     """The state saved at ``step``, on the device of ``like`` (a port
     ``TrainState`` of the same model and optimizer, as JAX restores into
     an abstract state) and in its leaf order."""
-    return state_from_numpy(_load(ckpt_dir, step), opt_cfg,
-                            device=like.params["final_norm"].device,
+    device = next(iter(flatten(like.params).values())).device
+    return state_from_numpy(_load(ckpt_dir, step), opt_cfg, device=device,
                             like=like)
 
 

@@ -1,10 +1,12 @@
-"""Training data; counterpart of ``kubeflow_tpu/train/data.py`` for the
-transformer family.
+"""Training data; counterpart of ``kubeflow_tpu/train/data.py``.
 
-The synthetic generator draws from the same numpy generator with the same
-calls as the JAX package, so a (seed, step) gives the same tokens in both.
-Batches are host-resident numpy dicts; :func:`place_batch` copies one to
-the device as torch tensors (there is no mesh to shard it over yet).
+The synthetic generators of the three families draw from the same numpy
+generator with the same calls in the same order as the JAX package, so a
+(seed, step) gives the same batch in both, bit for bit: tokens for the
+transformer, tokens and MLM labels for BERT, NHWC images and labels for
+ResNet. Batches are host-resident numpy dicts; :func:`place_batch` copies
+one to the device as torch tensors (there is no mesh to shard it over
+yet).
 """
 
 from __future__ import annotations
@@ -18,16 +20,26 @@ import torch
 def synthetic_batch(model, batch_size: int, seq_len: int = 512,
                     seed: int = 0) -> dict:
     """One host-resident numpy batch matching the model family's loss_fn."""
-    if model.family != "transformer":
-        raise ValueError(f"synthetic data for the {model.family!r} family "
-                         "is not yet ported")
     rng = np.random.default_rng(seed)
     cfg = model.config
-    tokens = rng.integers(0, cfg.vocab_size, (batch_size, seq_len + 1),
-                          dtype=np.int32)
-    if cfg.context_parallel:
-        return {"inputs": tokens[:, :-1], "targets": tokens[:, 1:]}
-    return {"tokens": tokens}
+    if model.family == "transformer":
+        tokens = rng.integers(0, cfg.vocab_size, (batch_size, seq_len + 1),
+                              dtype=np.int32)
+        if cfg.context_parallel:
+            return {"inputs": tokens[:, :-1], "targets": tokens[:, 1:]}
+        return {"tokens": tokens}
+    if model.family == "bert":
+        tokens = rng.integers(0, cfg.vocab_size, (batch_size, seq_len),
+                              dtype=np.int32)
+        mask = rng.random((batch_size, seq_len)) < 0.15
+        labels = np.where(mask, tokens, -1).astype(np.int32)
+        return {"tokens": tokens, "mlm_labels": labels}
+    if model.family == "resnet":
+        images = rng.standard_normal(
+            (batch_size, cfg.image_size, cfg.image_size, 3), np.float32)
+        labels = rng.integers(0, cfg.num_classes, (batch_size,), np.int32)
+        return {"images": images, "labels": labels}
+    raise ValueError(f"unknown model family {model.family}")
 
 
 def synthetic_stream(model, batch_size: int, seq_len: int = 512,
@@ -53,6 +65,6 @@ def stack_microbatches(stream: Iterator[dict],
 
 
 def place_batch(batch: dict, device: torch.device) -> dict:
-    """Copy a host batch to ``device`` (int32 token arrays stay int32)."""
+    """Copy a host batch to ``device`` (int32 arrays stay int32)."""
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in batch.items()}

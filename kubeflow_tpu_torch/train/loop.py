@@ -2,8 +2,10 @@
 
     python -m kubeflow_tpu_torch.train.loop '<json run config>'
 
-trains one model on one device (``"device"``, default ``"cuda"``; pass
-``"cpu"`` to run the plain PyTorch paths on the host) with the JAX loop's
+trains one model of any family (the transformer LM, BERT, ResNet) on
+one device (``"device"``, default ``"cuda"``; pass ``"cpu"`` to run the
+plain PyTorch paths on the host) on synthetic batches of its family, with
+the JAX loop's
 step-time histogram, throughput and input-stall accounting, prints its
 ``kubeflow-tpu-metrics:`` log line and returns (and prints) the same result
 keys as the JAX loop.
@@ -13,7 +15,8 @@ As the JAX loop does, it saves checkpoints (``checkpoint_dir``, every
 once more at the end) and resumes from the latest one with the data stream
 re-anchored at that step; on SIGTERM it stops after the step in flight and
 saves that step synchronously. ``data_path`` reads a token file
-(``train/tokenstore.py``) instead of synthetic tokens; ``profile_dir``
+(``train/tokenstore.py``) instead of synthetic tokens, for the transformer
+family only, as in JAX; ``profile_dir``
 writes a ``torch.profiler`` Chrome trace of ``profile_steps`` steps from
 ``profile_start_step`` (counted from the first step this run takes).
 
@@ -107,6 +110,10 @@ def run(cfg: RunConfig, *, log=print, environ=None) -> dict:
     _refuse_unported(cfg, os.environ if environ is None else environ)
     device = resolve_device(cfg.device)
     model = get_model(cfg.model, **cfg.model_overrides)
+    if cfg.data_path and model.family != "transformer":
+        raise ValueError(f"data_path holds language-model tokens; the "
+                         f"{model.family} family trains on synthetic "
+                         "batches")
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     state = init_state(generator, model, cfg.optimizer, device=device)
     start_step = 0
@@ -240,8 +247,11 @@ def _train(cfg, model, device, state, start_step, ckpt, stop_requested,
                 depth = (f" qdepth={prefetcher.qsize()}"
                          if prefetcher is not None else "")
                 t_last, samples_since, host_wait_since = now, 0, 0.0
+                aux = (f" router_aux_loss="
+                       f"{float(metrics['router_aux_loss']):.6f}"
+                       if "router_aux_loss" in metrics else "")
                 log(f"step={step + 1} loss={loss:.4f} "
-                    f"grad_norm={float(metrics['grad_norm']):.4f} "
+                    f"grad_norm={float(metrics['grad_norm']):.4f}{aux} "
                     f"samples/sec={throughput:.1f} "
                     f"input_stall={stall_pct:.1f}%{depth}")
             if stop_requested:

@@ -4,9 +4,19 @@ One step: forward, backward (``torch.autograd.grad``), optimizer update.
 The JAX step is one jitted function with donated state; here the step
 runs eagerly and updates the parameters and the optimizer slots IN PLACE
 under ``torch.no_grad()``, which is what donation buys JAX. The step
-returns the same metrics as JAX's: ``loss``, ``z_loss``, ``tokens``,
-``grad_norm`` (of the unclipped gradients) and ``step``, as 0-d tensors
-that stay on the device until the caller reads them.
+returns the same metrics as JAX's: the loss function's (``loss``,
+``z_loss``, ``tokens``, MoE's ``router_aux_loss``), ``grad_norm`` (of the
+unclipped gradients) and ``step``, as 0-d tensors that stay on the device
+until the caller reads them.
+
+The non-gradient state channel: a loss function may return
+``metrics["_state_updates"]`` (ResNet's batch-norm running statistics);
+after the optimizer step the trainer pops it and applies
+``model.update_state``, which writes over whatever the optimizer did to
+those leaves (they keep their optimizer slots, so the state's layout is
+JAX's). Under gradient accumulation the last microbatch's updates win. A
+leaf the loss does not reach (the running statistics, BERT's NSP head)
+gets a zero gradient, as ``jax.grad`` gives it.
 
 A mesh (data, FSDP or tensor parallelism) is not yet ported and raises.
 """
@@ -79,27 +89,34 @@ def build_train_step(model, opt_cfg: OptimizerConfig, mesh=None, *,
                   .requires_grad_(True) for k, p in flat.items()}
         loss, metrics = model.loss_fn(_unflatten(leaves), batch,
                                       model.config)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(leaves.items(), grads)}
+        updates = metrics.pop("_state_updates", None)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        return metrics, dict(zip(leaves, grads))
+        return metrics, grads, updates
 
-    def apply_update(state: TrainState, metrics: dict, grads: dict):
+    def apply_update(state: TrainState, metrics: dict, grads: dict,
+                     updates=None):
         metrics["grad_norm"] = global_norm(grads.values())
         metrics["step"] = torch.tensor(state.step)
         with torch.no_grad():
             opt.update(grads, state.opt_state, flatten(state.params))
+        if updates is not None and model.update_state is not None:
+            model.update_state(state.params, updates)
         state.step += 1
         return state, metrics
 
     def step_fn(state: TrainState, batch: dict):
-        metrics, grads = grads_of(state.params, batch)
-        return apply_update(state, metrics, grads)
+        return apply_update(state, *grads_of(state.params, batch))
 
     def accum_step_fn(state: TrainState, batch: dict):
         acc, sums = None, {}
         for i in range(accum_steps):
-            metrics, grads = grads_of(state.params,
-                                      {k: v[i] for k, v in batch.items()})
+            # The last microbatch's state updates win, as in JAX.
+            metrics, grads, updates = grads_of(
+                state.params, {k: v[i] for k, v in batch.items()})
             # Divide per microbatch: the accumulator holds a running MEAN,
             # so a low-precision gradient dtype never sees a k-times sum.
             if acc is None:
@@ -109,6 +126,6 @@ def build_train_step(model, opt_cfg: OptimizerConfig, mesh=None, *,
             for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + v
         return apply_update(state, {k: v / accum_steps
-                                    for k, v in sums.items()}, acc)
+                                    for k, v in sums.items()}, acc, updates)
 
     return accum_step_fn if accum_steps > 1 else step_fn

@@ -1,10 +1,14 @@
 """Parameter trees and train states handed across as numpy arrays.
 
-The JAX package's parameter pytree (``kubeflow_tpu/models/transformer.py:
-init``), with every leaf converted to a numpy array, becomes the port's
-parameter dict with the same nesting. Leaves are named with the ``a/b/c``
-path convention of ``kubeflow_tpu/parallel/sharding.py:path_str``, copied
-here so names match without importing the JAX package.
+The JAX package's parameter pytree of any family (the ``init`` of
+``kubeflow_tpu/models/{transformer,bert,resnet}.py``), with every leaf
+converted to a numpy array, becomes the port's parameter tree with the
+same nesting: dicts, and lists where JAX has them (ResNet's ``stages``).
+Leaves are named with the ``a/b/c`` path convention of
+``kubeflow_tpu/parallel/sharding.py:path_str``, list indices included
+(``stages/0/1/conv1``), copied here so names match without importing the
+JAX package. Each leaf is stored in the dtype JAX reads it in, as the
+model's config says (its ``leaf_dtype``).
 
 A whole train state goes across as a flat ``{path: numpy array}`` dict
 keyed by the JAX ``TrainState``'s paths (``step``, ``params/...``,
@@ -18,10 +22,6 @@ import numpy as np
 import torch
 
 from kubeflow_tpu_torch.device import resolve_device
-from kubeflow_tpu_torch.models.transformer import (
-    NORM_LEAVES,
-    TransformerConfig,
-)
 from kubeflow_tpu_torch.train.optimizers import (
     OptimizerConfig,
     _factored_dims,
@@ -35,16 +35,30 @@ def path_str(key_path) -> str:
 
 
 def flatten(tree, prefix=()) -> dict[str, object]:
-    """{'a/b/c': leaf} over a nested dict."""
-    if isinstance(tree, dict):
+    """{'a/b/c': leaf} over nested dicts and lists (a list's items by
+    their index)."""
+    if isinstance(tree, (dict, list)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
         out = {}
-        for k, v in tree.items():
+        for k, v in items:
             out.update(flatten(v, (*prefix, k)))
         return out
     return {path_str(prefix): tree}
 
 
-def _unflatten(flat: dict[str, object]) -> dict:
+def _listify(node):
+    """Nodes whose keys are exactly "0".."n-1" become lists, as they were
+    before :func:`flatten`."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _listify(v) for k, v in node.items()}
+    if node and set(node) == {str(i) for i in range(len(node))}:
+        return [node[str(i)] for i in range(len(node))]
+    return node
+
+
+def _unflatten(flat: dict[str, object]):
+    """The inverse of :func:`flatten`."""
     tree: dict = {}
     for path, leaf in flat.items():
         node = tree
@@ -52,31 +66,32 @@ def _unflatten(flat: dict[str, object]) -> dict:
         for p in parents:
             node = node.setdefault(p, {})
         node[last] = leaf
-    return tree
+    return _listify(tree)
 
 
-def params_from_numpy(tree, cfg: TransformerConfig,
-                      device: str | torch.device = "cuda",
-                      dtype: torch.dtype | None = None) -> dict:
-    """Numpy parameter tree → the port's parameter dict on ``device``.
+def params_from_numpy(tree, model, device: str | torch.device = "cuda",
+                      dtype: torch.dtype | None = None):
+    """Numpy parameter tree → the port's parameter tree on ``device``.
+    ``model`` is the model's spec (``registry.get_model``) or its config,
+    of any family.
 
-    By default matmul and embedding weights land in ``cfg.dtype`` (the JAX
-    model casts them to it at every use, so storing the cast once computes
-    the same thing for serving); the norm weights stay float32, as
-    ``rms_norm`` reads them. ``dtype=torch.float32`` keeps every leaf in
+    By default the leaves JAX casts to ``cfg.dtype`` at every use land in
+    ``cfg.dtype`` (storing the cast once computes the same thing for
+    serving) and the leaves it reads in float32 stay float32 (the config's
+    ``leaf_dtype``). ``dtype=torch.float32`` keeps every leaf in
     float32: training's master weights, as the JAX trainer holds them."""
+    cfg = getattr(model, "config", model)
     dev = resolve_device(device)
     flat = {}
     for path, leaf in flatten(tree).items():
         arr = np.array(leaf, dtype=np.float32)  # a writable copy
-        leaf_dtype = (torch.float32 if path in NORM_LEAVES
-                      else dtype or cfg.dtype)
-        flat[path] = torch.from_numpy(arr).to(device=dev, dtype=leaf_dtype)
+        flat[path] = torch.from_numpy(arr).to(
+            device=dev, dtype=cfg.leaf_dtype(path, dtype))
     return _unflatten(flat)
 
 
-def params_to_numpy(params) -> dict:
-    """The port's parameter dict → a nested dict of float32 numpy arrays
+def params_to_numpy(params):
+    """The port's parameter tree → a nested tree of float32 numpy arrays
     (the inverse of :func:`params_from_numpy`), so tests compare trees."""
     # np.array copies: a float32 CPU tensor's .numpy() shares its memory,
     # and the trainer updates parameters in place.

@@ -5,11 +5,15 @@ main path.
     python3 profile_torch_train.py [--model flagship-deep]
         [--remat-policy llm|llm_res|off|...] [--steps 4] [--trace trace.json]
 
-``--model`` (``flagship-1b`` by default, or ``flagship-deep``) at full
-width and depth in bf16 (float32 master weights, adafactor with a 2-step
-warmup; flagship-deep with ``grad_dtype="bfloat16"``, bench.py's recipe)
-at batch 4 x seq 2048, random weights from a fixed seed, under the
-preset's remat or ``--remat-policy`` (``off``: no remat): two warm steps,
+``--model`` at full width and depth in bf16 (float32 master weights),
+random weights from a fixed seed, at the shape and with the optimizer
+``chip_smoke.py`` trains it with (``RECIPES``): ``flagship-1b`` (the
+default), ``flagship-deep`` (with ``grad_dtype="bfloat16"``, bench.py's
+recipe) and ``moe-1b`` at batch 4 x seq 2048 with adafactor and a 2-step
+warmup; ``bert-base`` at batch 32 x seq 128, the same optimizer;
+``resnet50`` at batch 32 with tf_cnn.py's defaults (the default
+optimizer). Under the preset's remat or ``--remat-policy`` (``off``: no
+remat; transformers only): two warm steps,
 ``--steps`` steps timed without the profiler, then
 ``--steps`` steps under ``torch.profiler``, kept only from a complete
 session (``chip_smoke.profiled_launches``: a discarded warm-up step, then
@@ -18,7 +22,8 @@ launches per step). It prints one JSON line: the step time, the peak of
 allocated memory, the device
 time the step's kernels take (their durations summed: one stream, so
 they do not overlap), the device's idle share, the device time by group
-(the flash attention kernels, matrix products, the rest), each flash
+(the flash attention kernels, matrix products, convolutions, the rest),
+each flash
 kernel's time and the kernels that take the most device time;
 ``--trace`` also writes the kept session's Chrome trace to that path.
 Needs a CUDA device.
@@ -33,18 +38,27 @@ import sys
 import time
 import torch
 
-# The training shape chip_smoke.py trains both models at, and each
-# model's optimizer recipe.
-BATCH, SEQ = 4, 2048
-RECIPES = {"flagship-1b": {}, "flagship-deep": {"grad_dtype": "bfloat16"}}
+# The training shape chip_smoke.py trains each model at (batch, seq), and
+# its optimizer.
+_ADAFACTOR = {"name": "adafactor", "warmup_steps": 2}
+RECIPES = {
+    "flagship-1b": (4, 2048, _ADAFACTOR),
+    "flagship-deep": (4, 2048, {**_ADAFACTOR, "grad_dtype": "bfloat16"}),
+    "moe-1b": (4, 2048, _ADAFACTOR),
+    "bert-base": (32, 128, _ADAFACTOR),
+    "resnet50": (32, None, {}),
+}
 
 
 def _group(name: str) -> str:
     """flash (the port's attention kernels), gemm (cuBLAS/CUTLASS matrix
-    products) or other (elementwise, reductions, copies)."""
+    products), conv (cuDNN convolutions) or other (elementwise,
+    reductions, copies)."""
     low = name.lower()
     if "flash_" in low:
         return "flash"
+    if any(k in low for k in ("conv", "cudnn", "fprop", "dgrad", "wgrad")):
+        return "conv"
     if any(k in low for k in ("gemm", "nvjet", "cutlass", "sm90_xmma")):
         return "gemm"
     return "other"
@@ -75,13 +89,13 @@ def main(argv=None) -> int:
     elif args.remat_policy:
         overrides.update(remat=True, remat_policy=args.remat_policy)
     model = get_model(args.model, **overrides)
-    opt_cfg = OptimizerConfig(name="adafactor", warmup_steps=2,
-                              **RECIPES[args.model])
+    batch, seq, opt = RECIPES[args.model]
+    opt_cfg = OptimizerConfig(**opt)
     state = init_state(torch.Generator(device=dev).manual_seed(0), model,
                        opt_cfg, device=dev)
     step_fn = build_train_step(model, opt_cfg)
     batches = [place_batch(b, dev) for b, _ in zip(
-        synthetic_stream(model, BATCH, SEQ), range(4))]
+        synthetic_stream(model, batch, seq or 0), range(4))]
 
     def run(n):
         nonlocal state
@@ -101,7 +115,7 @@ def main(argv=None) -> int:
                                 args.trace)
     device_us = sum(e.device_time_total for e in kernels)
     by_name: dict[str, list] = {}
-    by_group = {"flash": 0.0, "gemm": 0.0, "other": 0.0}
+    by_group = {"flash": 0.0, "gemm": 0.0, "conv": 0.0, "other": 0.0}
     for e in kernels:
         n_us = by_name.setdefault(e.name, [0, 0.0])
         n_us[0] += 1
@@ -114,12 +128,13 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     device_ms = device_us / 1e3 / args.steps
+    remat = getattr(model.config, "remat", False)
     print(json.dumps({
         "gpu": smi, "model": args.model, "dtype": "bf16",
-        "remat": (model.config.remat_policy if model.config.remat
+        "remat": (getattr(model.config, "remat_policy", "layer") if remat
                   else "off"),
         "grad_dtype": opt_cfg.grad_dtype,
-        "batch": BATCH, "seq": SEQ, "optimizer": "adafactor",
+        "batch": batch, "seq": seq, "optimizer": opt_cfg.name,
         "steps": args.steps, "step_ms": step_ms,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "device_ms_per_step": device_ms,

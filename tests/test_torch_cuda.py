@@ -279,6 +279,7 @@ def _errors(got, ref):
     (129, 2048, 4, 4, 128, True, False),    # S >> T, causal
     (2048, 127, 8, 2, 64, True, False),     # T >> S, causal
     (2048, 2048, 24, 4, 128, True, False),  # G=6, flagship-deep's shape
+    (2048, 2048, 16, 4, 64, True, False),   # G=4, hd 64, moe-1b's shape
 ])
 def test_flash_bf16_tensor_core_kernels_match_plain(cuda, t, s_len, hq, hkv,
                                                     hd, causal, masked):
@@ -699,3 +700,107 @@ def test_exported_blocks_imported_read_the_same_through_the_kernel(cuda,
     assert torch.equal(after, before)
     with pytest.raises(IndexError):
         export_blocks(fresh, [n])
+
+
+# ---------------------------------------------------------------------------
+# The other model families' shapes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "int8"])
+def test_paged_decode_kernel_at_moe_1b_serving_shape(cuda, kv):
+    """moe-1b's paged read: 8 slots, Hkv 4, G 4, hd 64, Bs 16, 18 columns
+    (max_seq_len 256 + 32 new), a parked row and a row with pos < 0."""
+    q, kp, vp, table, pos = _paged_case(
+        cuda, kv, 8, 4, 4, 64, 16, 18,
+        [7, 40, 100, 150, 200, 287, 18 * 16, -1])
+    out = _paged_check(cuda, q, kp, vp, table, pos)
+    assert not out[7].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,t", [(8, 128), (2, 512)], ids=["T128", "T512"])
+def test_flash_kernels_at_bert_shape(cuda, dtype, b, t):
+    """BERT's attention: non-causal over a key-padding mask, hd 64, G 1
+    (12 heads), the default implementation as models/bert.py calls it,
+    against the plain path in f32 on the same values: f32 within 1e-4 (of
+    the largest reference gradient for the gradients), bf16 under the
+    module's SDPA-relative limits. Row 0 masks every key: 0 out and 0
+    gradients."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda).to(dtype)
+
+    q, k, v, g = (rand(b, t, 12, 64) for _ in range(4))
+    lengths = torch.randint(1, t + 1, (b,), generator=gen, device=cuda)
+    mask = torch.arange(t, device=cuda)[None, :] < lengths[:, None]
+    mask[0] = False
+    ref = _flash_run(q.float(), k.float(), v.float(), g.float(), mask,
+                     "xla", False)
+    kernels.reset_launches()
+    got = _flash_run(q, k, v, g, mask, None, False)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention_fwd"] == 1
+    assert kernels.LAUNCHES["flash_attention_bwd"] == 1
+    assert all(torch.isfinite(x).all() for x in got)
+    errs = _errors(got, ref)
+    if dtype == torch.float32:
+        assert errs[0][0] <= 1e-4, errs
+        for (err, _), r in zip(errs[1:], ref[1:]):
+            assert err <= 1e-4 * r.abs().max().item(), errs
+    else:
+        sdpa = _errors(sdpa_run(q, k, v, g, mask, False), ref)
+        assert errs[0][0] <= max(1e-2, 2 * sdpa[0][0]), (errs, sdpa)
+        for (err, rel), (_, sdpa_rel), r in zip(errs[1:], sdpa[1:], ref[1:]):
+            assert err <= 2e-2 * r.float().abs().max().item(), (errs, sdpa)
+            assert rel <= max(2.0 ** -8, 2 * sdpa_rel), (errs, sdpa)
+    assert not got[0][0].any() and not got[1][0].any()
+
+
+@pytest.mark.cuda
+def test_moe_decode_steps_through_the_kernel_match_gathered(cuda):
+    """An MoE model at moe-1b's attention layout (hd 64, G 4) in f32:
+    admission of three rows and four decode steps on a paged state with
+    the fused read (the paged kernel) and with the gathered read: the
+    same tokens, logits within 2e-3. Three rows a step over 4 experts at
+    capacity 2 make the routing depend on the rows that share it."""
+    from kubeflow_tpu_torch.models import decode as tdecode
+    from kubeflow_tpu_torch.models import transformer
+
+    cfg = transformer.config("moe-test-tiny", dtype=torch.float32,
+                             d_model=256, n_heads=4, n_kv_heads=1)
+    params = transformer.init(cfg, generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda)
+    slots, nb, bs, mb = 4, 16, 16, 4
+    table = torch.arange(slots * mb, dtype=torch.int32,
+                         device=cuda).reshape(slots, mb)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(1, cfg.vocab_size, (3, 24), generator=gen,
+                         device=cuda, dtype=torch.int32)
+    runs = {}
+    for fused in (False, True):
+        state = tdecode.init_paged_state(cfg, slots, nb, bs, mb,
+                                         device=cuda)
+        state["block_table"].copy_(table)
+        kernels.reset_launches()
+        state, last, tok, _ = tdecode.paged_admit_rows_and_step(
+            state, params, cfg, torch.arange(3, device=cuda), toks,
+            torch.tensor([24, 9, 17], dtype=torch.int32, device=cuda),
+            torch.full((3,), 8, dtype=torch.int32, device=cuda),
+            torch.zeros(3, device=cuda), kv_fused=fused)
+        out = [tok]
+        for _ in range(4):
+            state, tok, _ = tdecode.decode_step(state, params, cfg,
+                                                kv_fused=fused)
+            out.append(tok)
+        torch.cuda.synchronize()
+        runs[fused] = (torch.stack(out).cpu(), state["last_logits"].cpu(),
+                       kernels.LAUNCHES["paged_decode_attention"])
+    assert runs[True][2] == 5 * cfg.n_layers and runs[False][2] == 0
+    assert torch.equal(runs[True][0], runs[False][0])
+    torch.testing.assert_close(runs[True][1], runs[False][1], rtol=0,
+                               atol=2e-3)

@@ -231,8 +231,18 @@ def test_init_matches_jax_layout_and_scale():
     wq = params["layers"]["attn"]["wq"]
     assert abs(wq.std().item() - cfg.d_model ** -0.5) < 0.01
     assert (params["final_norm"] == 1).all()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttransformer.config("moe-test-tiny")
+    # The MoE preset builds too: the router [L, D, E] (float32, as JAX
+    # reads it) and the stacked experts, in JAX's layout.
+    moe = ttransformer.config("moe-test-tiny")
+    mparams = ttransformer.init(moe, generator=g, device="cpu")
+    mspec = get_model("moe-test-tiny")
+    mtree = jax.tree.map(np.asarray,
+                         mspec.init(jax.random.PRNGKey(0), mspec.config))
+    mflat, jmflat = flatten(mparams), flatten(mtree)
+    assert {k: tuple(v.shape) for k, v in mflat.items()} == \
+        {k: v.shape for k, v in jmflat.items()}
+    assert mparams["layers"]["mlp"]["router"].dtype == torch.float32
+    assert mparams["layers"]["mlp"]["gate"].dtype == moe.dtype
 
 
 def test_default_device_entry_points_raise_without_cuda():

@@ -172,8 +172,8 @@ def test_refusals_carry_jax_messages(overrides):
     with pytest.raises(ValueError) as jerr:
         jtransformer.hidden_states(jparams, jnp.asarray(tokens), jcfg)
     dense = ttransformer.config("lm-test-tiny", dtype=torch.float32)
-    # replace() passes config()'s refusal of MoE presets (moe_ffn is not
-    # ported), so the remat refusal is the one reached.
+    # The dense init serves every case: the refusal comes before any
+    # layer runs.
     tcfg = replace(dense, **overrides)
     params = ttransformer.init(dense, generator=torch.Generator()
                                .manual_seed(0), device="cpu")
