@@ -16,7 +16,9 @@ suspension, the prefill/decode handoff and live weight pushes), trains
 ``flagship-1b`` and ``flagship-deep`` at full width (and depth) through
 the port's training loop with attention in the flash kernels, serves and
 trains the other families (``moe-1b``, ``bert-base``, ``resnet50``) at
-full size, and checks the output. Phases, each printed as one JSON line:
+full size, trains over ``torch.distributed`` (the mesh path over NCCL, a
+gang of two over gloo, the allreduce and DDP workloads), and checks the
+output. Phases, each printed as one JSON line:
 
 (a) the card and the kernels' build times;
 (b) the paged decode kernel against ``_paged_decode_plain`` at the main
@@ -239,6 +241,27 @@ full size, and checks the output. Phases, each printed as one JSON line:
     train step every batch norm's running statistics equal a plain
     PyTorch recomputation (``plain_bn_stats``) within 1e-5. No kernel runs
     here: the JAX package computes ResNet without a Pallas kernel;
+(w) training over ``torch.distributed`` (``phase_mesh``): (w1) in a
+    process group of one rank over NCCL, ``train.loop.run`` at
+    flagship-1b, 4 x 2048, bf16, adafactor, 8 steps with ``mesh={"data":
+    1, "fsdp": 1}`` (each flash kernel n_layers times a step; the bytes
+    through the collectives' all-reduce, at least the f32 gradients a
+    step, and the all-reduce ops in a profiled step show the mesh path
+    ran), its tokens/s, MFU and
+    median step beside (h)'s, the NCCL kernels' device ms a step (a
+    profiled 4-step run), psum / all_gather / reduce_scatter
+    at world size 1 on 64 MiB, and the f32 gate at 2 layers: the mesh
+    step = the no-mesh step within 1e-6; (w2) a gang of two processes on
+    the card over gloo (NCCL refuses two ranks on one GPU; which gloo
+    collectives take CUDA tensors is printed), flagship-1b at 1 layer,
+    f32, 1 x 1024 a rank, 3 steps at data=2 and lr 1e-2, equal to one
+    process on both rows within the f32 tolerances of
+    tests/test_torch_train.py (every matrix moves by more than 10x the
+    parameter tolerance), its step
+    time labelled gloo through the host; (w3) the allreduce smoke test and
+    bandwidth benchmark as a user runs them (alone: NCCL at world size 1,
+    whose bus bandwidth reads 0 by the ring formula); (w4) the DDP
+    workload on cuda:0, 10 steps;
 (f) the kernel table: each kernel's launches on the main paths, its
     error, its time, its plain version's time and its bound; the paged
     and RMSNorm rows give device time as ``ms`` and the call's as
@@ -254,7 +277,7 @@ full size, and checks the output. Phases, each printed as one JSON line:
     speculation on, (s) and (t) (``launches_by_path``) and adds the times
     at moe-1b's shape (``moe_shape``); the flash rows add (t)'s and
     (u)'s launches and the times at BERT's and moe-1b's shapes
-    (``bert_shape``, ``moe_shape``).
+    (``bert_shape``, ``moe_shape``), and (w1)'s (``mesh_train``).
 
 TF32 is off throughout, so float32 products are full float32. Any
 failure exits non-zero; the last line, printed only on success, is
@@ -266,6 +289,8 @@ from __future__ import annotations
 
 import http.client
 import json
+import os
+import re
 import subprocess
 import sys
 import threading
@@ -296,6 +321,8 @@ DEEP_MODEL, DEEP_BATCH, DEEP_SEQ, DEEP_STEPS = "flagship-deep", 4, 2048, 8
 DEEP_POLICIES = ("llm", "llm_res", None)
 FLASH_DEEP = dict(b=4, t=2048, s=2048, hq=24, hkv=4, hd=128, causal=True)
 DEEP_GATE_LAYERS, DEEP_RESUME_LAYERS = 2, 1
+# (w): the depth of the mesh path's f32 gate.
+W_GATE_LAYERS = 2
 # (g) at bert-base's attention: 12 heads over 12 (G 1), hd 64, non-causal
 # over a key-padding mask; (u)'s training batch at T 128 and a batch of 8
 # at the position table's 512.
@@ -2408,10 +2435,12 @@ def phase_train(smi: str) -> dict:
     return out
 
 
-def _train_steps(dev, model_name: str, steps: int, seq: int, **overrides):
+def _train_steps(dev, model_name: str, steps: int, seq: int, *, mesh=None,
+                 **overrides):
     """(metrics, params, launches) of ``steps`` train steps of
     ``model_name`` in f32 with ``overrides``, adafactor with a 1-step
-    warmup, from seed-0 weights on seed-5 synthetic tokens, batch 1."""
+    warmup, from seed-0 weights on seed-5 synthetic tokens, batch 1; over
+    ``mesh`` when one is given."""
     from kubeflow_tpu_torch import kernels
     from kubeflow_tpu_torch.models.registry import get_model
     from kubeflow_tpu_torch.train.data import place_batch, synthetic_stream
@@ -2422,8 +2451,8 @@ def _train_steps(dev, model_name: str, steps: int, seq: int, **overrides):
     model = get_model(model_name, dtype=torch.float32, **overrides)
     opt_cfg = OptimizerConfig(name="adafactor", warmup_steps=1)
     state = init_state(torch.Generator(device=dev).manual_seed(0), model,
-                       opt_cfg, device=dev)
-    step_fn = build_train_step(model, opt_cfg)
+                       opt_cfg, mesh, device=dev)
+    step_fn = build_train_step(model, opt_cfg, mesh)
     stream = synthetic_stream(model, 1, seq, seed=5)
     kernels.reset_launches()
     metrics = []
@@ -3771,6 +3800,269 @@ def phase_resnet(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# (w) data-parallel and FSDP training over torch.distributed
+# ---------------------------------------------------------------------------
+
+# (w2): one rank of a gang of two on the one card over gloo (NCCL refuses
+# two ranks on one GPU): which gloo collectives take CUDA tensors, three
+# f32 steps of flagship-1b cut to 1 layer at data=2 on this rank's row of
+# each global batch of two, and on rank 0 the same steps in one process
+# over both rows; rank 0 prints the comparison as one JSON line.
+W2_WORKER = """
+import json, time
+import torch
+import torch.distributed as dist
+from kubeflow_tpu_torch.models.registry import get_model
+from kubeflow_tpu_torch.parallel.distributed import (initialize_from_env,
+    shutdown)
+from kubeflow_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+from kubeflow_tpu_torch.train import data, trainer
+from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
+from kubeflow_tpu_torch.weights import flatten
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+info = initialize_from_env(device="cuda", backend="gloo", timeout_s=300)
+r, dev = info.process_id, torch.device("cuda", 0)
+probe = {}
+x = torch.ones(1024, device=dev)
+for name, fn in (
+        ("all_reduce", lambda: dist.all_reduce(x.clone())),
+        ("broadcast", lambda: dist.broadcast(x.clone(), 0)),
+        ("all_gather_into_tensor", lambda: dist.all_gather_into_tensor(
+            torch.empty(2048, device=dev), x)),
+        ("reduce_scatter_tensor", lambda: dist.reduce_scatter_tensor(
+            torch.empty(512, device=dev), x))):
+    try:
+        fn()
+        torch.cuda.synchronize()
+        probe[name] = "ok"
+    except Exception as e:
+        probe[name] = f"{type(e).__name__}: {str(e)[:120]}"
+mesh = build_mesh(MeshConfig(data=2), device_type="cuda")
+model = get_model("flagship-1b", dtype=torch.float32, n_layers=1)
+# At lr 1e-2 three steps move every matrix by far more than the
+# parameter tolerance below, so a gang that skipped or garbled an update
+# fails it.
+opt = OptimizerConfig(name="adafactor", warmup_steps=1, learning_rate=1e-2)
+batches = [data.synthetic_batch(model, 2, 1024, seed=5 + i)
+           for i in range(3)]
+
+def run(mesh, rows):
+    state = trainer.init_state(torch.Generator(device=dev).manual_seed(0),
+                               model, opt, mesh, device=dev)
+    step = trainer.build_train_step(model, opt, mesh)
+    init = {k: p.clone() for k, p in flatten(state.params).items()}
+    mets, times = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step(state, data.place_batch(rows(b), dev))
+        mets.append({k: float(met[k]) for k in ("loss", "grad_norm")})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return mets, flatten(state.params), times, init
+
+mets, params, times, _ = run(mesh, lambda b: data.local_rows(b, r, 2))
+if r == 0:
+    ref, ref_params, ref_times, init = run(None, lambda b: b)
+    rel = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(mets, ref)
+              for k in a)
+    worst = max(((p - ref_params[n]).abs()
+                 - 1e-4 * ref_params[n].abs()).max().item()
+                for n, p in params.items())
+    # The smallest matrix's largest move over the tolerance's largest.
+    moved = min(((p - init[n]).abs().max()
+                 / (1e-4 * p.abs().max() + 1e-5)).item()
+                for n, p in ref_params.items() if p.ndim >= 2)
+    print(json.dumps({"gloo_on_cuda": probe, "gang": mets, "one": ref,
+                      "max_rel_err_loss_grad_norm": rel,
+                      "max_param_excess_over_1e-4_rel": worst,
+                      "min_matrix_update_over_tolerance": moved,
+                      "gang_step_s": times, "one_step_s": ref_times}))
+shutdown()
+"""
+MESH_WORKDIR = "build/chip_smoke/mesh"
+
+
+def nccl_kernels(trace: str) -> tuple[int, float, dict]:
+    """(launches, device ms) of the kernels named for NCCL in a Chrome
+    trace ``torch.profiler`` wrote, and the count of each host-side
+    all-reduce op in it (by name; c10d's op and its NCCL record)."""
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    own = [e for e in events if e.get("cat") == "kernel"
+           and "nccl" in e.get("name", "").lower()]
+    ops: dict = {}
+    for e in events:
+        name = e.get("name", "")
+        if e.get("cat") != "kernel" and \
+                re.search(r"all_?reduce", name, re.IGNORECASE):
+            ops[name] = ops.get(name, 0) + 1
+    return len(own), sum(e["dur"] for e in own) / 1e3, ops
+
+
+def collective_checks(dev, mesh) -> dict:
+    """The collectives' values at world size 1 over NCCL, on 64 MiB of
+    f32 (each must return its input): psum, all_gather, reduce_scatter
+    over the batch axes."""
+    from kubeflow_tpu_torch.parallel import collectives as c
+    from kubeflow_tpu_torch.parallel.mesh import BATCH_AXES
+
+    x = torch.randn(1 << 24, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    out = {}
+    with torch.no_grad():
+        for name, fn in (("psum", c.psum), ("all_gather", c.all_gather),
+                         ("reduce_scatter", c.reduce_scatter)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = fn(x, mesh, BATCH_AXES)
+            torch.cuda.synchronize()
+            out[name] = {"equal": bool(torch.equal(y, x)),
+                         "call_ms": 1e3 * (time.perf_counter() - t0)}
+            if not out[name]["equal"]:
+                raise AssertionError(f"{name} at world size 1 changed its "
+                                     "input")
+    return out
+
+
+def module_json_lines(module: str, *args: str, timeout: float = 300.0
+                      ) -> list[dict]:
+    """``python -m module args`` as a user runs it: exit 0, and its
+    stdout's JSON lines."""
+    proc = subprocess.run([sys.executable, "-m", module, *args],
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode:
+        raise AssertionError(f"{module} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    return [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith("{")]
+
+
+def phase_mesh(smi: str, no_mesh: dict) -> dict:
+    """(w) training over torch.distributed. (w1) In a process group of one
+    rank over NCCL: ``train.loop.run`` at flagship-1b, 4 x 2048, bf16,
+    adafactor, 8 steps with ``mesh={"data": 1, "fsdp": 1}`` (the mesh
+    path's all-reduces of the gradients, the loss's count and the metrics
+    run at world size 1: the collectives' byte counts must hold every
+    parameter's f32 gradient a step and a profiled step's trace an
+    all-reduce op), each
+    flash kernel n_layers times a step, its tokens/s, MFU and median
+    step beside (h)'s ``no_mesh`` run; a 4-step
+    run with ``profile_dir`` gives the NCCL kernels' device ms of a step;
+    the collectives' values at world size 1; the f32 gate at 2 layers
+    (3 steps, batch 1 x 1024): the mesh step = the no-mesh step within
+    1e-6 relative. (w2) ``W2_WORKER`` in a gang of two over gloo on the
+    card: every step within tests/test_torch_train.py's f32 tolerances of
+    one process on both rows, at a learning rate whose updates are over
+    10x the parameter tolerance; its step time is gloo's, through the
+    host. (w3) the allreduce smoke test and bandwidth benchmark as a user
+    runs them (alone: NCCL at world size 1). (w4) the DDP workload on
+    cuda:0, 10 steps."""
+    import math
+    import shutil
+
+    from kubeflow_tpu_torch.parallel import collectives, distributed
+    from kubeflow_tpu_torch.parallel.launch import launch
+    from kubeflow_tpu_torch.parallel.mesh import single_device_mesh
+    from kubeflow_tpu_torch.train import loop
+    from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    common = dict(model=TRAIN_MODEL, batch_size=TRAIN_BATCH,
+                  seq_len=TRAIN_SEQ, log_every=1, prefetch=2, device="cuda",
+                  mesh={"data": 1, "fsdp": 1},
+                  optimizer=OptimizerConfig(name="adafactor",
+                                            warmup_steps=2))
+    distributed.initialize_gang({}, device="cuda")
+    try:
+        collectives.reset_counts()
+        train = drive_train(loop.RunConfig(steps=TRAIN_STEPS, **common))
+        calls, moved = dict(collectives.CALLS), dict(collectives.BYTES)
+        want = train["layers"] * TRAIN_STEPS
+        for key in ("flash_attention_fwd", "flash_attention_bwd"):
+            if train["launches"][key] != want:
+                raise AssertionError(
+                    f"mesh path: {key} launched {train['launches'][key]} "
+                    f"times, expected {want}")
+        # Only the mesh path reduces gradients: each step all-reduces at
+        # least every parameter's f32 gradient.
+        if moved["all_reduce"] < TRAIN_STEPS * 4 * train["params"]:
+            raise AssertionError(
+                f"the loop did not take the mesh path: {moved} bytes "
+                f"through the collectives in {TRAIN_STEPS} steps")
+        shutil.rmtree(MESH_WORKDIR, ignore_errors=True)
+        loop.run(loop.RunConfig(steps=4, profile_dir=MESH_WORKDIR,
+                                profile_start_step=2, profile_steps=1,
+                                **common), log=lambda *a: None)
+        (trace,) = [os.path.join(MESH_WORKDIR, n)
+                    for n in os.listdir(MESH_WORKDIR)]
+        nccl_launches, nccl_ms, allreduce_ops = nccl_kernels(trace)
+        if not allreduce_ops:
+            raise AssertionError("the mesh step's trace holds no "
+                                 "all-reduce op")
+        shutil.rmtree(MESH_WORKDIR, ignore_errors=True)
+        mesh = single_device_mesh("cuda")
+        checks = collective_checks(dev, mesh)
+        runs = [_train_steps(dev, TRAIN_MODEL, 3, 1024, mesh=m,
+                             n_layers=W_GATE_LAYERS)
+                for m in (None, mesh)]
+    finally:
+        distributed.shutdown()
+    gate = _compare(runs[1][:2], runs[0][:2])
+    w1 = {"gpu": smi, "world_size": 1, "backend": "nccl", **train,
+          "nccl_kernels_per_step": nccl_launches,
+          "nccl_device_ms_per_step": nccl_ms,
+          "allreduce_ops_per_step": allreduce_ops,
+          "collective_calls_per_step": {
+              k: v / TRAIN_STEPS for k, v in calls.items()},
+          "collective_bytes_per_step": {
+              k: v / TRAIN_STEPS for k, v in moved.items()},
+          "no_mesh_h": {k: no_mesh[k] for k in (
+              "tokens_per_s", "mfu", "step_ms_p50", "step_ms_mean")},
+          "collectives_world1": checks,
+          "f32_gate": {"layers": W_GATE_LAYERS, **gate}}
+    emit("w1_mesh_nccl", **w1)
+    _check_close("mesh step = no-mesh step", gate, 1e-6)
+
+    t0 = time.perf_counter()
+    procs = launch([sys.executable, "-c", W2_WORKER], 2, timeout=600)
+    for i, p in enumerate(procs):
+        if p.returncode:
+            raise AssertionError(f"(w2) rank {i} exited {p.returncode}:\n"
+                                 f"{p.stderr[-3000:]}")
+    w2 = json.loads(procs[0].stdout.strip().splitlines()[-1])
+    w2.update(gpu=smi, wall_s=time.perf_counter() - t0,
+              transport="gloo through the host (not NCCL)")
+    emit("w2_gloo_gang_of_two", **w2)
+    if w2["max_rel_err_loss_grad_norm"] > 1e-5 or \
+            w2["max_param_excess_over_1e-4_rel"] > 1e-5 or \
+            w2["min_matrix_update_over_tolerance"] < 10:
+        raise AssertionError(f"(w2) the gang of two differs from one "
+                             f"process: {w2}")
+
+    smoke = module_json_lines("kubeflow_tpu_torch.workloads.allreduce_smoke")
+    bench = module_json_lines("kubeflow_tpu_torch.workloads.allreduce_bench")
+    if not smoke[-1]["ok"] or smoke[-1]["psum"] != 1.0:
+        raise AssertionError(f"allreduce smoke: {smoke}")
+    if any(r.get("algo_bandwidth_gbps", 0.0) != 0.0 for r in bench):
+        raise AssertionError("bus bandwidth at n = 1 must read 0")
+    w3 = {"gpu": smi, "smoke": smoke, "bench": bench}
+    emit("w3_allreduce_workloads", **w3)
+    ddp = module_json_lines("kubeflow_tpu_torch.workloads.torch_xla_ddp",
+                            "--steps", "10")[-1]
+    if not (ddp["steps"] == 10 and math.isfinite(ddp["loss"])):
+        raise AssertionError(f"DDP workload: {ddp}")
+    emit("w4_ddp_workload", gpu=smi, **ddp)
+    out = {"w1": w1, "w2": w2, "w3": w3, "w4": ddp,
+           "phase_s": time.perf_counter() - t_phase}
+    emit("w_phase_time", phase_s=out["phase_s"])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3846,6 +4138,7 @@ def main() -> int:
     moe = phase_moe(smi)
     bert = phase_bert(smi)
     phase_resnet(smi)
+    mesh = phase_mesh(smi, train)
 
     p, r = paged["bf16"], rms[f"{SLOTS}x2048"]
     paged_paths = {
@@ -3910,6 +4203,7 @@ def main() -> int:
                     by_path[f"deep_{policy}"] = run["launches"][key]
                 by_path["moe_train"] = moe["train"]["launches"][key]
                 by_path["bert_train"] = bert["train"]["launches"][key]
+                by_path["mesh_train"] = mesh["w1"]["launches"][key]
                 if part == "fwd":
                     by_path["predict"] = predict_launches
                     by_path["moe_predict"] = moe["dense"][

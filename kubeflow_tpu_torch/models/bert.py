@@ -16,7 +16,10 @@ projections and the heads.
 Precision follows JAX's reads: the embeddings are summed and normalised
 in float32 before the cast to ``cfg.dtype``; the pooler and the MLM head
 run in float32; the layers' weights and biases are cast to ``cfg.dtype``
-at each use (:data:`COMPUTE_PREFIXES`). A mesh is not yet ported.
+at each use (:data:`COMPUTE_PREFIXES`). Over a mesh of the data and
+fsdp axes (``mesh=``) each rank runs its rows of the batch and
+:func:`loss_fn` normalises by the global count of masked positions; the
+other axes are not yet ported.
 """
 
 from __future__ import annotations
@@ -31,6 +34,14 @@ from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.ops.attention import flash_attention
 from kubeflow_tpu_torch.ops.losses import softmax_cross_entropy
 from kubeflow_tpu_torch.ops.norms import layer_norm
+from kubeflow_tpu_torch.parallel.mesh import (
+    AXIS_DATA,
+    AXIS_FSDP,
+    AXIS_TENSOR,
+    BATCH_AXES,
+    require_axes,
+)
+from kubeflow_tpu_torch.parallel.sharding import P, PartitionRule
 
 
 @dataclass(frozen=True)
@@ -148,6 +159,26 @@ def init(cfg: BertConfig, *, generator: torch.Generator,
     }
 
 
+def partition_rules(cfg: BertConfig) -> list[PartitionRule]:
+    """JAX's layout: the word embeddings over tensor x fsdp, the layers'
+    projections column- and row-parallel, the rest replicated."""
+    return [
+        PartitionRule(r"embed/word", P(AXIS_TENSOR, AXIS_FSDP)),
+        PartitionRule(r"attn/w[qkv]", P(None, AXIS_FSDP, AXIS_TENSOR)),
+        PartitionRule(r"attn/wo", P(None, AXIS_TENSOR, AXIS_FSDP)),
+        PartitionRule(r"mlp/wi", P(None, AXIS_FSDP, AXIS_TENSOR)),
+        PartitionRule(r"mlp/wo", P(None, AXIS_TENSOR, AXIS_FSDP)),
+    ]
+
+
+def batch_partition_spec(cfg: BertConfig) -> tuple:
+    return P((AXIS_DATA, AXIS_FSDP), None)
+
+
+def check_mesh(cfg: BertConfig, mesh) -> None:
+    require_axes(mesh, BATCH_AXES, "the BERT forward")
+
+
 def _gelu(x):
     """``jax.nn.gelu``'s default, the tanh approximation."""
     return F.gelu(x, approximate="tanh")
@@ -189,8 +220,7 @@ def apply(params, tokens, cfg: BertConfig, *, type_ids=None, pad_mask=None,
     checkpoint region (JAX's ``jax.checkpoint`` with no policy) while
     autograd records."""
     if mesh is not None:
-        raise ValueError("the BERT forward over a mesh is not yet ported to "
-                         "the PyTorch package")
+        check_mesh(cfg, mesh)
     b, t = tokens.shape
     if t > cfg.max_seq_len:
         raise ValueError(f"sequence length {t} exceeds the position table "
@@ -229,8 +259,10 @@ def mlm_logits(params, sequence_output, cfg: BertConfig):
 def loss_fn(params, batch, cfg: BertConfig, *, mesh=None):
     """Masked-LM pretraining loss. batch: tokens [B, T], mlm_labels [B, T]
     (negative = unmasked position), optional pad_mask. Returns (loss,
-    metrics)."""
+    metrics). Over ``mesh`` (this rank's rows) the loss is this rank's
+    term of the global loss, normalised by the masked positions of every
+    rank, and the metrics are global."""
     seq, _ = apply(params, batch["tokens"], cfg,
                    pad_mask=batch.get("pad_mask"), mesh=mesh)
     logits = mlm_logits(params, seq, cfg)
-    return softmax_cross_entropy(logits, batch["mlm_labels"])
+    return softmax_cross_entropy(logits, batch["mlm_labels"], mesh=mesh)

@@ -24,10 +24,15 @@ class ModelSpec:
     init: Callable          # (cfg, *, generator, device, param_dtype) -> params
     apply: Callable         # (params, inputs, cfg, *, mesh=None) -> outputs
     loss_fn: Callable       # (params, batch, cfg, *, mesh=None) -> (loss, metrics)
+    partition_rules: Callable       # cfg -> [PartitionRule]
+    batch_partition_spec: Callable  # cfg -> spec of a batch leaf
     # Optional non-gradient state channel: (params,
     # metrics["_state_updates"]) -> params, applied by the trainer after
     # the optimizer step (ResNet's batch-norm running statistics).
     update_state: Callable | None = None
+    # (cfg, mesh) -> None; raises for a mesh the family does not yet
+    # train over (MoE over data or fsdp).
+    check_mesh: Callable | None = None
 
 
 def get_model(name: str, **overrides) -> ModelSpec:
@@ -38,7 +43,10 @@ def get_model(name: str, **overrides) -> ModelSpec:
                 config=module.config(name, **overrides),
                 init=module.init, apply=module.apply,
                 loss_fn=module.loss_fn,
-                update_state=getattr(module, "update_state", None))
+                partition_rules=module.partition_rules,
+                batch_partition_spec=module.batch_partition_spec,
+                update_state=getattr(module, "update_state", None),
+                check_mesh=getattr(module, "check_mesh", None))
     raise KeyError(
         f"unknown model {name!r}; available: {sorted(list_models())}")
 

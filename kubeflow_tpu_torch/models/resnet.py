@@ -28,7 +28,13 @@ Where XLA differs from PyTorch's defaults the port follows XLA:
   into the parameters (:func:`update_state`); the affine runs in the
   activations' dtype: ``x·inv + (bias − mean·inv)``.
 
-A mesh is not yet ported.
+Over a mesh of the data and fsdp axes (``mesh=``; every weight is
+replicated, as JAX's empty partition rules have it) each rank runs its
+rows of the batch, and training's batch norm is synchronised: the mean
+over the global batch, then the biased variance as the global mean of
+squared deviations from it (two psums, both differentiable), which is
+what GSPMD computes for JAX's ``jnp.mean``/``jnp.var`` over a sharded
+batch. The other axes are not yet ported.
 """
 
 from __future__ import annotations
@@ -41,6 +47,15 @@ import torch.nn.functional as F
 
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.ops.losses import softmax_cross_entropy
+from kubeflow_tpu_torch.parallel.collectives import psum
+from kubeflow_tpu_torch.parallel.mesh import (
+    AXIS_DATA,
+    AXIS_FSDP,
+    BATCH_AXES,
+    axis_size,
+    require_axes,
+)
+from kubeflow_tpu_torch.parallel.sharding import P, PartitionRule
 
 
 @dataclass(frozen=True)
@@ -138,6 +153,20 @@ def init(cfg: ResNetConfig, *, generator: torch.Generator,
     return params
 
 
+def partition_rules(cfg: ResNetConfig) -> list[PartitionRule]:
+    """None: convolutions are small, so every weight is replicated and
+    only the batch is sharded (pure data parallelism), as in JAX."""
+    return []
+
+
+def batch_partition_spec(cfg: ResNetConfig) -> tuple:
+    return P((AXIS_DATA, AXIS_FSDP), None, None, None)
+
+
+def check_mesh(cfg: ResNetConfig, mesh) -> None:
+    require_axes(mesh, BATCH_AXES, "the ResNet forward")
+
+
 def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
     """XLA's "SAME" padding of one spatial axis: (before, after)."""
     out = -(-size // stride)
@@ -166,13 +195,28 @@ def _max_pool(x):
     return F.max_pool2d(x, kernel_size=3, stride=2)
 
 
-def _bn(x, p, *, stats=None, path=""):
+def _sync_var_mean(x32, mesh):
+    """(biased variance, mean) per channel over the global batch: the
+    mean first, then the mean of squared deviations from it (two passes,
+    as ``jnp.var`` computes; ``E[x²] - E[x]²`` would round differently)."""
+    n = x32.numel() // x32.shape[1] * axis_size(mesh, BATCH_AXES)
+    mean = psum(x32.sum(dim=(0, 2, 3)), mesh, BATCH_AXES) / n
+    dev = x32 - mean[None, :, None, None]
+    var = psum(torch.square(dev).sum(dim=(0, 2, 3)), mesh, BATCH_AXES) / n
+    return var, mean
+
+
+def _bn(x, p, *, stats=None, path="", mesh=None):
     """Batch norm of an NCHW tensor. Training (``stats`` a dict): the
-    batch's mean and biased variance in float32, with the merged running
-    statistics recorded under ``path`` (no gradient). Eval: the stored
-    statistics."""
+    batch's mean and biased variance in float32 (over ``mesh``, the
+    global batch's: sync-BN), with the merged running statistics recorded
+    under ``path`` (no gradient). Eval: the stored statistics."""
     if stats is not None:
-        var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), correction=0)
+        if mesh is None:
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       correction=0)
+        else:
+            var, mean = _sync_var_mean(x.float(), mesh)
         with torch.no_grad():
             stats[path] = {
                 "mean": BN_MOMENTUM * p["mean"] + (1 - BN_MOMENTUM) * mean,
@@ -186,15 +230,16 @@ def _bn(x, p, *, stats=None, path=""):
             + shift.to(x.dtype)[None, :, None, None])
 
 
-def _block(x, p, stride: int, stats, path: str):
+def _block(x, p, stride: int, stats, path: str, mesh):
     h = F.relu(_bn(_conv(x, p["conv1"]), p["bn1"], stats=stats,
-                   path=f"{path}/bn1"))
+                   path=f"{path}/bn1", mesh=mesh))
     h = F.relu(_bn(_conv(h, p["conv2"], stride), p["bn2"], stats=stats,
-                   path=f"{path}/bn2"))
-    h = _bn(_conv(h, p["conv3"]), p["bn3"], stats=stats, path=f"{path}/bn3")
+                   path=f"{path}/bn2", mesh=mesh))
+    h = _bn(_conv(h, p["conv3"]), p["bn3"], stats=stats, path=f"{path}/bn3",
+            mesh=mesh)
     if "proj" in p:
         x = _bn(_conv(x, p["proj"], stride), p["bn_proj"], stats=stats,
-                path=f"{path}/bn_proj")
+                path=f"{path}/bn_proj", mesh=mesh)
     return F.relu(x + h)
 
 
@@ -206,18 +251,17 @@ def apply(params, images, cfg: ResNetConfig, *, mesh=None, train=False):
     (``"stages/0/1/bn2"``) to its new running statistics, for
     :func:`update_state`."""
     if mesh is not None:
-        raise ValueError("the ResNet forward over a mesh is not yet ported "
-                         "to the PyTorch package")
+        check_mesh(cfg, mesh)
     stats: dict | None = {} if train else None
     x = images.to(cfg.dtype).permute(0, 3, 1, 2)  # NCHW, channels_last
     x = F.relu(_bn(_conv(x, params["stem"]["conv"], 2), params["stem"]["bn"],
-                   stats=stats, path="stem/bn"))
+                   stats=stats, path="stem/bn", mesh=mesh))
     x = _max_pool(x)
     for stage_idx, stage in enumerate(params["stages"]):
         for block_idx, block in enumerate(stage):
             stride = 2 if (stage_idx > 0 and block_idx == 0) else 1
             x = _block(x, block, stride, stats,
-                       f"stages/{stage_idx}/{block_idx}")
+                       f"stages/{stage_idx}/{block_idx}", mesh)
     # JAX's mean of a bf16 tensor accumulates in f32 and rounds to bf16.
     x = x.float().mean(dim=(2, 3)).to(cfg.dtype).float()
     logits = x @ params["head"]["kernel"] + params["head"]["bias"]
@@ -244,7 +288,8 @@ def loss_fn(params, batch, cfg: ResNetConfig, *, mesh=None):
     the new running statistics under ``"_state_updates"``."""
     logits, stats = apply(params, batch["images"], cfg, mesh=mesh,
                           train=True)
-    loss, metrics = softmax_cross_entropy(logits, batch["labels"])
+    loss, metrics = softmax_cross_entropy(logits, batch["labels"],
+                                          mesh=mesh)
     metrics = dict(metrics)
     metrics["_state_updates"] = stats
     return loss, metrics

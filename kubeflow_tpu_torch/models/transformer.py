@@ -23,7 +23,11 @@ regions wrap groups of that many layers, as JAX's grouped scan does.
 (:func:`_remat_layer`), and ``loss_chunks`` the chunked LM loss. Options
 whose port is still to come raise ``ValueError("... not yet ported")``
 where training reaches them: ``context_parallel``, ``pipeline_stages > 1``
-and a mesh (so also an ``expert`` mesh axis).
+and a mesh with an axis other than data and fsdp above 1. Over the data
+and fsdp axes (:func:`loss_fn` with ``mesh=``) each rank runs its rows of
+the batch through the whole model; a mixture of experts there is refused,
+since JAX's capacity and queue positions come from the global batch
+(expert parallelism's dispatch).
 
 The JAX package computes :func:`moe_ffn` with einsums, ``top_k`` and a
 ``cumsum`` (no Pallas kernel), so it is plain PyTorch here on every
@@ -55,6 +59,18 @@ from kubeflow_tpu_torch.ops.losses import (
 )
 from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rotary import apply_rotary, rotary_frequencies
+from kubeflow_tpu_torch.parallel.mesh import (
+    AXIS_DATA,
+    AXIS_EXPERT,
+    AXIS_FSDP,
+    AXIS_PIPELINE,
+    AXIS_SEQUENCE,
+    AXIS_TENSOR,
+    BATCH_AXES,
+    axis_size,
+    require_axes,
+)
+from kubeflow_tpu_torch.parallel.sharding import P, PartitionRule
 
 
 @dataclass(frozen=True)
@@ -211,6 +227,56 @@ def init(cfg: TransformerConfig, *, generator: torch.Generator,
     return params
 
 
+def partition_rules(cfg: TransformerConfig) -> list[PartitionRule]:
+    """JAX's DP x FSDP x TP (x EP) layout, rule for rule: stacked layer
+    weights keep a leading L dim (on ``pipeline`` with pipeline stages);
+    column-parallel wq/wk/wv/gate/up, row-parallel wo/down; MoE experts
+    [L, E, ...] over ``expert``; the norms replicated."""
+    ldim = AXIS_PIPELINE if cfg.pipeline_stages > 1 else None
+    rules = [
+        PartitionRule(r"embed/kernel", P(AXIS_TENSOR, AXIS_FSDP)),
+        PartitionRule(r"attn/w[qkv]", P(ldim, AXIS_FSDP, AXIS_TENSOR)),
+        PartitionRule(r"attn/wo", P(ldim, AXIS_TENSOR, AXIS_FSDP)),
+    ]
+    if cfg.pipeline_stages > 1:
+        rules.append(PartitionRule(r"layers/ln_", P(AXIS_PIPELINE)))
+    if cfg.n_experts:
+        rules += [
+            PartitionRule(r"mlp/router", P(ldim, AXIS_FSDP, None)),
+            PartitionRule(r"mlp/(gate|up)",
+                          P(ldim, AXIS_EXPERT, AXIS_FSDP, AXIS_TENSOR)),
+            PartitionRule(r"mlp/down",
+                          P(ldim, AXIS_EXPERT, AXIS_TENSOR, AXIS_FSDP)),
+        ]
+    else:
+        rules += [
+            PartitionRule(r"mlp/(gate|up)", P(ldim, AXIS_FSDP, AXIS_TENSOR)),
+            PartitionRule(r"mlp/down", P(ldim, AXIS_TENSOR, AXIS_FSDP)),
+        ]
+    rules.append(PartitionRule(r"lm_head/kernel", P(AXIS_FSDP, AXIS_TENSOR)))
+    return rules
+
+
+def batch_partition_spec(cfg: TransformerConfig) -> tuple:
+    if cfg.context_parallel:
+        return P((AXIS_DATA, AXIS_FSDP), AXIS_SEQUENCE)
+    return P((AXIS_DATA, AXIS_FSDP), None)
+
+
+def check_mesh(cfg: TransformerConfig, mesh) -> None:
+    """Raise ValueError("... not yet ported") for a mesh the training
+    forward does not run over: an axis other than data and fsdp above 1,
+    or a mixture of experts over a data or fsdp degree above 1 (JAX takes
+    the capacity and each token's queue position over the global batch,
+    which needs expert parallelism's cross-rank dispatch)."""
+    require_axes(mesh, BATCH_AXES, "the transformer forward")
+    if cfg.n_experts and axis_size(mesh, BATCH_AXES) > 1:
+        raise ValueError(
+            "a mixture of experts over a data or fsdp degree above 1 "
+            "(global capacity and dispatch: expert parallelism) is not yet "
+            "ported to the PyTorch package")
+
+
 # ---------------------------------------------------------------------------
 # Training forward
 # ---------------------------------------------------------------------------
@@ -225,7 +291,7 @@ def _check_trainable(cfg: TransformerConfig, mesh) -> None:
     docstring), then for the layer layouts JAX refuses, with its
     messages."""
     if mesh is not None:
-        raise _not_yet("the model forward over a mesh")
+        check_mesh(cfg, mesh)
     if cfg.context_parallel:
         raise _not_yet("context_parallel (ring attention)")
     if cfg.pipeline_stages > 1:
@@ -320,6 +386,17 @@ def _mlp(h, mlp, cfg: TransformerConfig):
     return _mlp_out(cfg, *_mlp_in(cfg, h, mlp), mlp["down"])
 
 
+def top_k_experts(probs, k: int):
+    """(values, indices) of the ``k`` largest router probabilities of each
+    row, largest first, as ``lax.top_k`` gives them: among equal
+    probabilities (a zero or upcycled router ties) the lower expert comes
+    first. ``torch.topk`` leaves the order of ties unspecified; a stable
+    descending sort keeps JAX's."""
+    idx = torch.sort(probs, dim=-1, descending=True, stable=True).indices
+    idx = idx[..., :k]
+    return torch.gather(probs, -1, idx), idx
+
+
 def moe_ffn(x, mlp, cfg: TransformerConfig, token_valid=None):
     """JAX's GShard-style MoE FFN: top-k routing with a static capacity
     per expert. x: [B, T, D] → (y [B, T, D] in x's dtype, aux scalar f32,
@@ -346,7 +423,7 @@ def moe_ffn(x, mlp, cfg: TransformerConfig, token_valid=None):
     xf = x.reshape(n, d)
     logits = xf.float() @ mlp["router"].float()
     probs = torch.softmax(logits, dim=-1)  # [n, e]
-    gate_vals, expert_idx = torch.topk(probs, k, dim=-1, sorted=True)
+    gate_vals, expert_idx = top_k_experts(probs, k)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
     oh_e = F.one_hot(expert_idx, e).float()  # [n, k, e]
@@ -600,7 +677,9 @@ def loss_fn(params, batch, cfg: TransformerConfig, *, mesh=None):
     ``cfg.loss_chunks`` applies the head and the loss in that many row
     chunks (``chunked_lm_head_loss``). An MoE model adds
     ``router_aux_loss`` × the summed aux, reported as
-    ``metrics["router_aux_loss"]``. Returns (loss, metrics)."""
+    ``metrics["router_aux_loss"]``. Returns (loss, metrics). Over ``mesh``
+    (data and fsdp; the batch is this rank's rows) the loss is this
+    rank's term of the global loss and the metrics are global."""
     if "inputs" in batch:
         inputs, targets = batch["inputs"], batch["targets"]
     else:
@@ -610,10 +689,12 @@ def loss_fn(params, batch, cfg: TransformerConfig, *, mesh=None):
         b, t, d = x.shape
         loss, metrics = chunked_lm_head_loss(
             x.reshape(b * t, d), _head_kernel(params, cfg).to(cfg.dtype),
-            targets.reshape(b * t), z_loss=1e-4, n_chunks=cfg.loss_chunks)
+            targets.reshape(b * t), z_loss=1e-4, n_chunks=cfg.loss_chunks,
+            mesh=mesh)
     else:
         logits, aux = apply(params, inputs, cfg, mesh=mesh, return_aux=True)
-        loss, metrics = softmax_cross_entropy(logits, targets, z_loss=1e-4)
+        loss, metrics = softmax_cross_entropy(logits, targets, z_loss=1e-4,
+                                              mesh=mesh)
     if cfg.n_experts and cfg.router_aux_loss:
         aux_loss = cfg.router_aux_loss * aux
         metrics["router_aux_loss"] = aux_loss

@@ -6,12 +6,40 @@ from drifting when training in low precision. Masked positions (label < 0)
 contribute zero and are excluded from the normalizer.
 ``chunked_lm_head_loss`` (the ``loss_chunks > 0`` path) applies the LM
 head and the same loss a chunk of rows at a time.
+
+Over a mesh (``mesh=``, each rank holding its rows of the batch) the
+normaliser is the GLOBAL count of valid targets, summed over the batch's
+axes without a gradient: each rank's loss is its term of the loss JAX
+computes over the whole batch, so the terms' gradients sum to JAX's
+gradient. The metrics are the global values (the terms summed).
 """
 
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from kubeflow_tpu_torch.parallel.collectives import psum_
+from kubeflow_tpu_torch.parallel.mesh import BATCH_AXES
+
+
+def batch_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed over the batch's mesh axes, without a gradient."""
+    return psum_(x.detach().clone(), mesh, BATCH_AXES)
+
+
+def _global_metrics(metrics: dict, mesh) -> dict:
+    """Each rank's loss terms summed into the global values; ``tokens``
+    is global already."""
+    keys = [k for k in metrics if k != "tokens"]
+    total = batch_sum(torch.stack([metrics[k].float() for k in keys]), mesh)
+    return {"tokens": metrics["tokens"],
+            **{k: total[i] for i, k in enumerate(keys)}}
+
+
+def _normaliser(count, mesh):
+    return torch.clamp_min(count if mesh is None else batch_sum(count, mesh),
+                           1.0)
 
 
 def _nll_and_lse(logits, labels):
@@ -27,22 +55,25 @@ def _nll_and_lse(logits, labels):
 
 
 def softmax_cross_entropy(logits, labels, *, z_loss: float = 0.0,
-                          where=None):
+                          where=None, mesh=None):
     """Mean token cross entropy. logits: [..., V]; labels: [...] int,
     negative = ignore. Returns (loss, metrics dict with "loss", "tokens"
-    and, when ``z_loss``, "z_loss")."""
+    and, when ``z_loss``, "z_loss"); over ``mesh`` the loss is this
+    rank's term (see the module docstring)."""
     nll, lse = _nll_and_lse(logits, labels)
     mask = labels >= 0
     if where is not None:
         mask = mask & where
     maskf = mask.float()
-    tokens = torch.clamp_min(maskf.sum(), 1.0)
+    tokens = _normaliser(maskf.sum(), mesh)
     loss = (nll * maskf).sum() / tokens
     metrics = {"loss": loss, "tokens": tokens}
     if z_loss:
         zl = z_loss * (torch.square(lse) * maskf).sum() / tokens
         metrics["z_loss"] = zl
         loss = loss + zl
+    if mesh is not None:
+        metrics = _global_metrics(metrics, mesh)
     return loss, metrics
 
 
@@ -55,7 +86,7 @@ def _chunk_sums(x, head, labels):
 
 
 def chunked_lm_head_loss(x, head, labels, *, z_loss: float = 0.0,
-                         n_chunks: int = 4):
+                         n_chunks: int = 4, mesh=None):
     """LM head matmul + cross entropy without ever materializing the full
     ``[N, V]`` logits. Rows go in ``n_chunks`` chunks, each under a
     checkpoint region while autograd records: the forward keeps only
@@ -65,7 +96,8 @@ def chunked_lm_head_loss(x, head, labels, *, z_loss: float = 0.0,
     scan does.
 
     x: [N, D] final hidden states; head: [D, V]; labels: [N] int
-    (negative = ignore). Returns (loss, metrics) like the unchunked path.
+    (negative = ignore). Returns (loss, metrics) like the unchunked path,
+    over ``mesh`` too.
     """
     n = x.shape[0]
     if n % n_chunks:
@@ -83,11 +115,13 @@ def chunked_lm_head_loss(x, head, labels, *, z_loss: float = 0.0,
             sums = _chunk_sums(*args)
         nll_sum, zsq_sum, tok_sum = (nll_sum + sums[0], zsq_sum + sums[1],
                                      tok_sum + sums[2])
-    tokens = torch.clamp_min(tok_sum, 1.0)
+    tokens = _normaliser(tok_sum, mesh)
     loss = nll_sum / tokens
     metrics = {"loss": loss, "tokens": tokens}
     if z_loss:
         zl = z_loss * zsq_sum / tokens
         metrics["z_loss"] = zl
         loss = loss + zl
+    if mesh is not None:
+        metrics = _global_metrics(metrics, mesh)
     return loss, metrics

@@ -1,0 +1,185 @@
+"""Collectives over named mesh axes; counterpart of
+``kubeflow_tpu/parallel/collectives.py``.
+
+JAX calls these inside ``shard_map`` regions and finds the mesh from the
+region; the port runs one process per device (SPMD by construction, so
+``shard_map`` has no counterpart) and names the mesh. ``axis`` is one axis
+name or a tuple of them, taken together (the first major).
+
+``psum``, ``all_gather`` and ``reduce_scatter`` carry gradients, as
+JAX's do under ``jax.grad``: each rank's loss is its own term of the
+global loss, so psum's backward is a psum of the cotangents, all_gather's
+is a reduce-scatter and reduce_scatter's an all-gather. ``psum_`` is the
+sum without a gradient, in place (no copy of a gradient buffer); every
+sum over the mesh in the package goes through it (the gang's host
+agreements ride their own gloo group, ``parallel.distributed``). The
+collectives run at every degree, 1 included.
+
+``reduce_scatter_tensor`` and ``all_gather_into_tensor`` are the names
+every torch release of this port's range has.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from kubeflow_tpu_torch.parallel.mesh import (  # noqa: F401 (re-exported)
+    axis_group,
+    axis_index,
+    axis_size,
+)
+
+
+# Calls of each collective and the bytes each rank put in, since the last
+# reset_counts(): a check reads them to see that a path went through the
+# collectives, as kernels.LAUNCHES shows it went through the kernels.
+CALLS = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
+BYTES = dict.fromkeys(CALLS, 0)
+
+
+def reset_counts() -> None:
+    for counts in (CALLS, BYTES):
+        for op in counts:
+            counts[op] = 0
+
+
+def _count(op: str, x) -> None:
+    CALLS[op] += 1
+    BYTES[op] += x.numel() * x.element_size()
+
+
+def _gather_dim0(x, group, n):
+    _count("all_gather", x)
+    out = x.new_empty((n * x.shape[0], *x.shape[1:]))
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    return out
+
+
+def _scatter_dim0(x, group, n):
+    _count("reduce_scatter", x)
+    out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x.contiguous(), group=group)
+    return out
+
+
+def _gather_along(x, dim: int, group, n: int):
+    """The ``n`` shards of the group concatenated along ``dim``."""
+    if dim == 0:
+        return _gather_dim0(x, group, n)
+    return _gather_dim0(x.movedim(dim, 0), group, n).movedim(
+        0, dim).contiguous()
+
+
+def _scatter_along(x, dim: int, group, n: int):
+    """The sum over the group of ``x``, this rank's ``1/n`` of it along
+    ``dim``; ``x.shape[dim]`` must divide by ``n``."""
+    if dim == 0:
+        return _scatter_dim0(x, group, n)
+    return _scatter_dim0(x.movedim(dim, 0), group, n).movedim(
+        0, dim).contiguous()
+
+
+def psum_(x, mesh, axis):
+    """Sum ``x`` over ``axis`` IN PLACE, without a gradient, and return
+    it."""
+    _count("all_reduce", x)
+    dist.all_reduce(x, group=axis_group(mesh, axis))
+    return x
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return psum_(x.clone(), mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum_(g.clone(), ctx.mesh, ctx.axis), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, n):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        return _gather_along(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_along(g, ctx.dim, ctx.group, ctx.n), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, n):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        return _scatter_along(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_along(g, ctx.dim, ctx.group, ctx.n), None, None, None
+
+
+def psum(x, mesh, axis):
+    """The sum of ``x`` over ``axis``, on every rank of it."""
+    return _PSum.apply(x, mesh, axis)
+
+
+def pmean(x, mesh, axis):
+    return psum(x, mesh, axis) / axis_size(mesh, axis)
+
+
+def all_gather(x, mesh, axis, *, dim: int = 0, tiled: bool = True):
+    """The shards of ``axis`` concatenated along ``dim`` (``tiled``) or
+    stacked on a new leading axis at ``dim``."""
+    n = axis_size(mesh, axis)
+    group = axis_group(mesh, axis)
+    if not tiled:
+        return _AllGather.apply(x.unsqueeze(dim), dim, group, n)
+    return _AllGather.apply(x, dim, group, n)
+
+
+def reduce_scatter(x, mesh, axis, *, dim: int = 0):
+    """The sum over ``axis`` of ``x``, this rank's block of it along
+    ``dim`` (JAX's ``psum_scatter`` with ``tiled=True``)."""
+    return _ReduceScatter.apply(x, dim, axis_group(mesh, axis),
+                                axis_size(mesh, axis))
+
+
+def ring_permute(x, mesh, axis: str, *, shift: int = 1):
+    """Send ``x`` to the neighbour ``shift`` steps around the ring of
+    ``axis`` and return what the opposite neighbour sent (no gradient)."""
+    group = axis_group(mesh, axis)
+    n = axis_size(mesh, axis)
+    if n == 1:
+        return x.clone()
+    i = axis_index(mesh, axis)
+    ranks = dist.get_process_group_ranks(group)
+    out = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x.contiguous(), ranks[(i + shift) % n],
+                      group),
+           dist.P2POp(dist.irecv, out, ranks[(i - shift) % n], group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return out
+
+
+def allreduce_mean(mesh, axis):
+    """A function ``x -> pmean(x)`` over ``axis`` (psum / n, the Horovod
+    convention), for measuring a collective rather than for training."""
+
+    def _allreduce(x):
+        with torch.no_grad():
+            return pmean(x, mesh, axis)
+
+    return _allreduce
+
+
+def global_norm_sq(tensors, mesh=None, axis=None):
+    """Sum of squares of every element of ``tensors`` (at least one) in
+    float32, summed over ``axis`` too when one is named."""
+    total = sum(torch.sum(torch.square(t.float())) for t in tensors)
+    if axis is not None:
+        total = psum(total, mesh, axis)
+    return total

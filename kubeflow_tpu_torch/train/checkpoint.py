@@ -18,6 +18,16 @@ the copy before ``save`` returns, so training may update the state in
 place at once); with ``async_saves`` a writer thread then writes and
 commits it, and ``wait`` blocks until every commit is on disk.
 
+Over a mesh (a state with a ``layout``) the files are the same: the WHOLE
+state, so a checkpoint written by W ranks resumes at any other W, and
+JAX reads it. ``save`` is a collective that gathers the state to rank 0
+alone, one sharded leaf at a time (``StateLayout.gather_state``: no
+device holds more than its shards and one whole leaf), rank 0 writes
+it, and ``wait`` ends at a barrier of the gang once
+rank 0's commits are on disk; every rank keeps the same record of the
+steps saved, so they all take the same decisions. ``restore`` reads the
+whole state on every rank and keeps each rank's shards.
+
 The package imports neither orbax nor safetensors.
 """
 
@@ -30,8 +40,12 @@ import threading
 
 import numpy as np
 
+import torch
+
+from kubeflow_tpu_torch.parallel.distributed import barrier, rank
 from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
 from kubeflow_tpu_torch.weights import (
+    _unflatten,
     flatten,
     state_from_numpy,
     state_to_numpy,
@@ -111,7 +125,10 @@ class Checkpointer:
         self.async_saves = async_saves
         os.makedirs(self.ckpt_dir, exist_ok=True)
         self._queue: queue.Queue = queue.Queue()
-        self._pending: set[int] = set()
+        # Steps this run saved, pending or committed: the same on every
+        # rank of a gang (rank 0's writes may not be on disk yet when
+        # another rank looks).
+        self._issued: set[int] = set()
         self._lock = threading.Lock()
         self._error: Exception | None = None
         self._writer: threading.Thread | None = None
@@ -135,19 +152,23 @@ class Checkpointer:
                 except Exception as e:  # re-raised on the caller's side
                     with self._lock:
                         self._error = e
-                with self._lock:
-                    self._pending.discard(step)
             finally:
                 self._queue.task_done()
 
     def save(self, step: int, state, *, force: bool = False) -> None:
         """Save ``state`` (a port ``TrainState``) as ``step``. A step that
-        exists already is replaced only with ``force``."""
+        exists already is replaced only with ``force``. Over a mesh every
+        rank calls it, at the same step."""
         self._raise_writer_error()
-        if not force and (step in self._pending
+        if not force and (step in self._issued
                           or step in _steps(self.ckpt_dir)):
             raise ValueError(f"checkpoint step {step} exists in "
                              f"{self.ckpt_dir}; pass force=True")
+        self._issued.add(step)
+        if getattr(state, "layout", None) is not None:
+            state = state.layout.gather_state(state)
+        if rank() != 0:
+            return
         flat = state_to_numpy(state, self.opt_cfg)  # the host snapshot
         if not self.async_saves:
             _commit(self.ckpt_dir, step, flat, self.max_to_keep)
@@ -157,18 +178,18 @@ class Checkpointer:
                 target=self._write_loop, name="checkpoint-writer",
                 daemon=True)
             self._writer.start()
-        with self._lock:
-            self._pending.add(step)
         self._queue.put((step, flat))
 
     def wait(self) -> None:
+        """Until every pending save is on disk; in a gang every rank then
+        waits at a barrier for rank 0's commits."""
         self._queue.join()
+        barrier("checkpoint-commit")
         self._raise_writer_error()
 
     def latest_step(self) -> int | None:
         """The newest step, committed or pending."""
-        with self._lock:
-            steps = set(_steps(self.ckpt_dir)) | self._pending
+        steps = set(_steps(self.ckpt_dir)) | self._issued
         return max(steps) if steps else None
 
     def restore_latest(self, like) -> tuple[object, int] | None:
@@ -207,10 +228,17 @@ def latest_step(ckpt_dir: str) -> int | None:
 def restore(ckpt_dir: str, step: int, like, opt_cfg: OptimizerConfig):
     """The state saved at ``step``, on the device of ``like`` (a port
     ``TrainState`` of the same model and optimizer, as JAX restores into
-    an abstract state) and in its leaf order."""
+    an abstract state) and in its leaf order; over a mesh (``like`` has a
+    layout) this rank's shards of it, whatever mesh wrote it."""
     device = next(iter(flatten(like.params).values())).device
-    return state_from_numpy(_load(ckpt_dir, step), opt_cfg, device=device,
-                            like=like)
+    layout = getattr(like, "layout", None)
+    if layout is not None:  # the whole shapes, for the checks and order
+        like = type(like)(like.step, _unflatten(
+            {k: torch.empty(s, device="meta")
+             for k, s in layout.shapes.items()}), {})
+    state = state_from_numpy(_load(ckpt_dir, step), opt_cfg, device=device,
+                             like=like)
+    return state if layout is None else layout.shard_state(state)
 
 
 def restore_latest(ckpt_dir: str, like, opt_cfg: OptimizerConfig

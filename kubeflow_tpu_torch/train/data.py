@@ -5,8 +5,14 @@ generator with the same calls in the same order as the JAX package, so a
 (seed, step) gives the same batch in both, bit for bit: tokens for the
 transformer, tokens and MLM labels for BERT, NHWC images and labels for
 ResNet. Batches are host-resident numpy dicts; :func:`place_batch` copies
-one to the device as torch tensors (there is no mesh to shard it over
-yet).
+one to the device as torch tensors.
+
+Over a mesh each process feeds its own rows, as JAX's
+``make_array_from_process_local_data`` takes them: the global batch is
+the processes' batches one after another along the batch dim (the batch
+axes ``("data", "fsdp")``, data major), and a process's tensor IS its
+shard, so placing it is a copy. :func:`local_rows` cuts a process's rows
+out of a global batch.
 """
 
 from __future__ import annotations
@@ -64,7 +70,25 @@ def stack_microbatches(stream: Iterator[dict],
         yield {k: np.stack([m[k] for m in micro]) for k in micro[0]}
 
 
+def local_rows(batch: dict, rank: int, n_ranks: int, *,
+               microbatched: bool = False) -> dict:
+    """Rank ``rank``'s block of a global host batch split ``n_ranks``
+    ways along the batch dim (dim 1 of ``microbatched`` leaves, whose dim
+    0 is the accumulation axis): its rows under the batch spec."""
+    def rows(x):
+        x = np.asarray(x)
+        dim = 1 if microbatched else 0
+        n = x.shape[dim] // n_ranks
+        if n * n_ranks != x.shape[dim]:
+            raise ValueError(f"batch of {x.shape[dim]} rows does not split "
+                             f"over {n_ranks} ranks")
+        return np.take(x, range(rank * n, (rank + 1) * n), axis=dim)
+
+    return {k: rows(v) for k, v in batch.items()}
+
+
 def place_batch(batch: dict, device: torch.device) -> dict:
-    """Copy a host batch to ``device`` (int32 arrays stay int32)."""
+    """Copy a host batch (over a mesh: this process's rows) to ``device``
+    (int32 arrays stay int32)."""
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
             for k, v in batch.items()}

@@ -3,27 +3,41 @@
     python -m kubeflow_tpu_torch.train.loop '<json run config>'
 
 trains one model of any family (the transformer LM, BERT, ResNet) on
-one device (``"device"``, default ``"cuda"``; pass ``"cpu"`` to run the
-plain PyTorch paths on the host) on synthetic batches of its family, with
-the JAX loop's
-step-time histogram, throughput and input-stall accounting, prints its
-``kubeflow-tpu-metrics:`` log line and returns (and prints) the same result
-keys as the JAX loop.
+synthetic batches of its family, with the JAX loop's step-time histogram,
+throughput and input-stall accounting, prints its ``kubeflow-tpu-metrics:``
+log line and returns (and prints) the same result keys as the JAX loop.
+
+It runs as one process of a gang, one process per GPU: with the JaxJob
+controller's environment (``JAX_COORDINATOR_ADDRESS``,
+``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``) each process joins the process
+group (``parallel.distributed.initialize_from_env``; NCCL on
+``cuda:{process_id % GPUs}``, gloo with ``"device": "cpu"``), builds the
+mesh of ``"mesh"`` (the data and fsdp axes; their product is the number
+of processes, -1 absorbs the rest) and trains its shard of the state on
+its own rows: ``batch_size`` rows a process, as in JAX, the synthetic
+stream the same on every process and the token store's shard
+``process_id`` of ``num_processes``. Only process 0 logs. Without that
+environment one process trains on ``"device"`` (default ``"cuda"``; pass
+``"cpu"`` to run the plain PyTorch paths on the host), over a mesh only
+if a process group is already running.
 
 As the JAX loop does, it saves checkpoints (``checkpoint_dir``, every
 ``checkpoint_every`` steps, asynchronously with ``checkpoint_async``, and
 once more at the end) and resumes from the latest one with the data stream
 re-anchored at that step; on SIGTERM it stops after the step in flight and
-saves that step synchronously. ``data_path`` reads a token file
-(``train/tokenstore.py``) instead of synthetic tokens, for the transformer
-family only, as in JAX; ``profile_dir``
-writes a ``torch.profiler`` Chrome trace of ``profile_steps`` steps from
-``profile_start_step`` (counted from the first step this run takes).
+saves that step synchronously (in a gang the stop is agreed every step,
+``global_any``, so every process saves the same step). ``data_path``
+reads a token file (``train/tokenstore.py``) instead of synthetic tokens,
+for the transformer family only, as in JAX; ``profile_dir`` writes a
+``torch.profiler`` Chrome trace of ``profile_steps`` steps from
+``profile_start_step`` (counted from the first step this run takes), on
+process 0.
 
 Not yet ported, and refused at the start of :func:`run` before any step:
-elastic resharding (``elastic_poll_steps``), a mesh of more than one
-device, and the job-status publish that the job's environment
-(``KUBEFLOW_TPU_JOB_NAME``) asks for.
+elastic resharding (``elastic_poll_steps``), a mesh axis other than data
+and fsdp above 1 (and a mixture of experts over data or fsdp), and the
+job-status publish that the job's environment (``KUBEFLOW_TPU_JOB_NAME``)
+asks for.
 """
 
 from __future__ import annotations
@@ -37,10 +51,22 @@ import time
 from dataclasses import dataclass, field
 
 import torch
+import torch.distributed as dist
 
-from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.registry import get_model
 from kubeflow_tpu_torch.observability.metrics import Histogram
+from kubeflow_tpu_torch.parallel.distributed import (
+    global_any,
+    initialize_from_env,
+    local_device,
+    shutdown,
+)
+from kubeflow_tpu_torch.parallel.mesh import (
+    BATCH_AXES,
+    MESH_AXES,
+    MeshConfig,
+    build_mesh,
+)
 from kubeflow_tpu_torch.train.checkpoint import Checkpointer
 from kubeflow_tpu_torch.train.data import (
     place_batch,
@@ -60,8 +86,8 @@ ENV_JOB_NAME = "KUBEFLOW_TPU_JOB_NAME"
 class RunConfig:
     model: str = "lm-test-tiny"
     model_overrides: dict = field(default_factory=dict)
-    # Degrees of the JAX MeshConfig axes; only one device (every degree 1,
-    # or -1 for "the rest", which is 1 here) is ported.
+    # Degrees of the JAX MeshConfig axes; the data and fsdp axes are
+    # ported (the others must stay 1).
     mesh: dict = field(default_factory=dict)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     batch_size: int = 8
@@ -97,8 +123,12 @@ def _refuse_unported(cfg: RunConfig, environ) -> None:
 
     if cfg.elastic_poll_steps:
         no("elastic resharding (elastic_poll_steps)")
-    if any(n not in (1, -1) for n in cfg.mesh.values()):
-        no(f"a multi-device mesh ({cfg.mesh})")
+    unknown = set(cfg.mesh) - set(MESH_AXES)
+    if unknown:
+        raise ValueError(f"unknown mesh axes {sorted(unknown)}")
+    for axis, degree in cfg.mesh.items():
+        if axis not in BATCH_AXES and degree != 1:
+            no(f"training over the {axis!r} mesh axis ({cfg.mesh})")
     if environ.get(ENV_JOB_NAME):
         no(f"publishing metrics into the job status ({ENV_JOB_NAME} is "
            "set)")
@@ -106,16 +136,29 @@ def _refuse_unported(cfg: RunConfig, environ) -> None:
 
 def run(cfg: RunConfig, *, log=print, environ=None) -> dict:
     """Train; returns the final metrics {step, loss, samples_per_sec, ...}
-    with the JAX loop's keys."""
-    _refuse_unported(cfg, os.environ if environ is None else environ)
-    device = resolve_device(cfg.device)
+    with the JAX loop's keys. ``environ`` (default ``os.environ``) holds
+    the gang's and the job's variables."""
+    env = os.environ if environ is None else environ
+    _refuse_unported(cfg, env)
     model = get_model(cfg.model, **cfg.model_overrides)
     if cfg.data_path and model.family != "transformer":
         raise ValueError(f"data_path holds language-model tokens; the "
                          f"{model.family} family trains on synthetic "
                          "batches")
+    info = initialize_from_env(env, device=cfg.device)
+    device = local_device(info, cfg.device)
+    mesh_cfg = MeshConfig(**cfg.mesh)
+    if dist.is_initialized():
+        mesh = build_mesh(mesh_cfg, device_type=device.type,
+                          num_slices=info.num_slices
+                          if info.is_multislice else None)
+    else:
+        mesh_cfg.resolve(1)  # one device: every degree must be 1
+        mesh = None
+    if info.process_id != 0:
+        log = _silent
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
-    state = init_state(generator, model, cfg.optimizer, device=device)
+    state = init_state(generator, model, cfg.optimizer, mesh, device=device)
     start_step = 0
     ckpt = None
     if cfg.checkpoint_dir:
@@ -139,20 +182,28 @@ def run(cfg: RunConfig, *, log=print, environ=None) -> dict:
         except ValueError:
             prev_handler = None  # not the main thread
     try:
-        return _train(cfg, model, device, state, start_step, ckpt,
-                      stop_requested, log)
+        return _train(cfg, info, model, device, mesh, state, start_step,
+                      ckpt, stop_requested, log)
     finally:
         if prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)
 
 
-def _make_batches(cfg, model, device, stream_step, store):
+def _silent(*_args) -> None:
+    pass
+
+
+def _make_batches(cfg, info, model, device, stream_step, store):
     """(batches, prefetcher) from the stream position ``stream_step``
     (microbatches): both streams are stateless in (seed, step), so a
-    resumed run sees what an uninterrupted one would have."""
+    resumed run sees what an uninterrupted one would have. Each process
+    makes its own rows: the token store's shard of the process, the
+    synthetic stream the same everywhere (as in JAX)."""
     if store is not None:
         stream = store.stream(cfg.batch_size, cfg.seq_len, seed=cfg.seed,
-                              start_step=stream_step)
+                              start_step=stream_step,
+                              shard=info.process_id,
+                              num_shards=info.num_processes)
     else:
         stream = synthetic_stream(model, cfg.batch_size, cfg.seq_len,
                                   seed=cfg.seed, start_step=stream_step)
@@ -191,15 +242,20 @@ def _stop_trace(prof, cfg, device, log) -> None:
     log(f"profiler trace written to {cfg.profile_dir}")
 
 
-def _train(cfg, model, device, state, start_step, ckpt, stop_requested,
-           log):
-    step_fn = build_train_step(model, cfg.optimizer,
+def _train(cfg, info, model, device, mesh, state, start_step, ckpt,
+           stop_requested, log):
+    step_fn = build_train_step(model, cfg.optimizer, mesh,
                                accum_steps=cfg.accum_steps)
     # The stream position counts MICROBATCHES: an accumulating run resumed
     # at optimizer step N replays from microbatch N x accum_steps.
     store = TokenStore(cfg.data_path) if cfg.data_path else None
     batches, prefetcher = _make_batches(
-        cfg, model, device, start_step * cfg.accum_steps, store)
+        cfg, info, model, device, start_step * cfg.accum_steps, store)
+    # SIGTERM reaches each pod at its own step, but the save is a
+    # collective: in a gang the flag is agreed every step, so every
+    # process stops (and saves) at the same step.
+    gang = cfg.graceful_shutdown and dist.is_initialized() \
+        and dist.get_world_size() > 1
 
     metrics = {}
     t_start = time.perf_counter()
@@ -218,7 +274,7 @@ def _train(cfg, model, device, state, start_step, ckpt, stop_requested,
     try:
         for step in range(start_step, cfg.steps):
             t_step = time.perf_counter()
-            if cfg.profile_dir:
+            if cfg.profile_dir and info.process_id == 0:
                 if step - start_step == cfg.profile_start_step:
                     prof = _start_trace(device)
                 elif (prof is not None and step - start_step
@@ -254,7 +310,10 @@ def _train(cfg, model, device, state, start_step, ckpt, stop_requested,
                     f"grad_norm={float(metrics['grad_norm']):.4f}{aux} "
                     f"samples/sec={throughput:.1f} "
                     f"input_stall={stall_pct:.1f}%{depth}")
-            if stop_requested:
+            stop_now = bool(stop_requested)
+            if gang:
+                stop_now = global_any(stop_now)
+            if stop_now:
                 # Eviction: save the step just done SYNCHRONOUSLY (the
                 # grace window is for this), so resume continues from here.
                 preempted_at = step + 1
@@ -284,7 +343,7 @@ def _train(cfg, model, device, state, start_step, ckpt, stop_requested,
         "step": preempted_at if preempted_at is not None else cfg.steps,
         "loss": float(metrics["loss"]) if metrics else None,
         "samples_per_sec": throughput,
-        "process_id": 0,
+        "process_id": info.process_id,
         "preempted": preempted_at is not None,
         "input_stall_pct": round(
             100.0 * host_wait_total / max(total_time, 1e-9), 2),
@@ -295,11 +354,11 @@ def _train(cfg, model, device, state, start_step, ckpt, stop_requested,
         "step_time_p99_ms": round(1e3 * step_hist.quantile(0.99), 3),
         "prefetch_depth": cfg.prefetch,
         "accum_steps": cfg.accum_steps,
-        "devices": 1,
+        "devices": dist.get_world_size() if mesh is not None else 1,
         "reshard_count": 0,
         "reshards": [],
     }
-    if preempted_at is None:
+    if info.process_id == 0 and preempted_at is None:
         publish_metrics(result, log=log)
     return result
 
@@ -322,7 +381,10 @@ def main(argv=None) -> int:
     for key in ("checkpoint_dir", "data_path", "profile_dir"):
         if overrides.get(key):
             overrides[key] = os.path.expandvars(overrides[key])
-    result = run(RunConfig(optimizer=opt_cfg, **overrides))
+    try:
+        result = run(RunConfig(optimizer=opt_cfg, **overrides))
+    finally:
+        shutdown()
     print(json.dumps(result))
     return 0
 

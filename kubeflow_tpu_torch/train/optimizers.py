@@ -12,6 +12,15 @@ the state IN PLACE (JAX returns new trees from donated ones) and must run
 under ``torch.no_grad()``.
 
 Parameters, gradients and state are flat ``{"a/b/c": tensor}`` dicts.
+
+Over an FSDP mesh each rank holds a shard of a leaf (``update``'s
+``layout`` says which), and every reduction over a whole leaf spans its
+shards: the global norm for clipping, adafactor's row and column means of
+``g²``, the mean of ``v_row``, the update's RMS clip and the parameter's
+RMS. adafactor's factored moments are whole on every rank, as JAX's
+partition rules leave them replicated; which leaves factor follows the
+full shapes. Padding rows of a shard (a dim the degree does not divide)
+hold zeros and stay out of every mean.
 """
 
 from __future__ import annotations
@@ -21,6 +30,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from kubeflow_tpu_torch.parallel.collectives import global_norm_sq
 
 
 @dataclass(frozen=True)
@@ -76,14 +87,13 @@ def schedule(cfg: OptimizerConfig):
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element (optax.global_norm),
     accumulated in float32."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
-                          for t in tensors))
+    return torch.sqrt(global_norm_sq(tensors))
 
 
-def _clip_by_global_norm(grads: dict, max_norm: float) -> dict:
-    """optax.clip_by_global_norm: unchanged while the norm is below
-    ``max_norm``, else ``g / norm * max_norm``. No epsilon; no host sync."""
-    g_norm = global_norm(grads.values())
+def _clip_by_global_norm(grads: dict, max_norm: float, g_norm) -> dict:
+    """optax.clip_by_global_norm: unchanged while the norm ``g_norm`` is
+    below ``max_norm``, else ``g / norm * max_norm``. No epsilon; no host
+    sync."""
     keep = g_norm < max_norm
     return {k: torch.where(keep, g, g / g_norm.to(g.dtype) * max_norm)
             for k, g in grads.items()}
@@ -137,16 +147,24 @@ class Optimizer:
                         [n for i, n in enumerate(p.shape) if i != d1])
         return state
 
-    def update(self, grads: dict, state: dict, params: dict) -> None:
+    def update(self, grads: dict, state: dict, params: dict, *,
+               layout=None, g_norm=None) -> None:
         """One optimizer step: clip, transform, ``p += update``; params and
-        state change in place."""
+        state change in place. ``layout`` (the train state's
+        ``StateLayout``, None on one device) names each leaf's shard;
+        ``g_norm`` is the gradients' global norm when the caller has it."""
         if self.cfg.grad_clip_norm:
-            grads = _clip_by_global_norm(grads, self.cfg.grad_clip_norm)
+            if g_norm is None:
+                g_norm = (global_norm(grads.values()) if layout is None
+                          else layout.global_norm(grads))
+            grads = _clip_by_global_norm(grads, self.cfg.grad_clip_norm,
+                                         g_norm)
         count = state["count"]
         lr = self.lr(count)
         step = getattr(self, f"_{self.cfg.name}")
         for k, p in params.items():
-            p.add_(step(k, grads[k], p, state, count, lr).to(p.dtype))
+            leaf = None if layout is None else layout.leaf(k)
+            p.add_(step(k, grads[k], p, state, count, lr, leaf).to(p.dtype))
         state["count"] = count + 1
 
     # Each returns the update of one leaf and advances its slots.
@@ -166,44 +184,74 @@ class Optimizer:
         state["mu"][k].copy_(mu)  # cast to mu_dtype on the store
         return mu_hat / (torch.sqrt(nu_hat) + cfg.eps)
 
-    def _adam(self, k, g, p, state, count, lr):
+    def _adam(self, k, g, p, state, count, lr, leaf):
         return -lr * self._adam_direction(k, g, state, count)
 
-    def _adamw(self, k, g, p, state, count, lr):
+    def _adamw(self, k, g, p, state, count, lr, leaf):
         u = self._adam_direction(k, g, state, count)
         return -lr * (u + self.cfg.weight_decay * p)
 
-    def _sgd(self, k, g, p, state, count, lr):
+    def _sgd(self, k, g, p, state, count, lr, leaf):
         trace = state["trace"][k]
         trace.copy_(g + self.cfg.momentum * trace)
         return -lr * trace
 
-    def _adafactor(self, k, g, p, state, count, lr):
+    def _adafactor(self, k, g, p, state, count, lr, leaf):
         """optax.adafactor(lr, min_dim_size_to_factor=128): decay_rate 0.8,
         eps 1e-30, update clipped to block RMS 1, scaled by lr and by the
-        parameter's RMS (at least 1e-3), no momentum."""
+        parameter's RMS (at least 1e-3), no momentum. ``leaf`` (a
+        ``ShardedLeaf``, or None for a whole leaf) spans each mean over the
+        leaf's shards."""
         decay = 1.0 - (count + 1.0) ** -0.8
         g_sq = g.float() * g.float() + 1e-30
-        dims = _factored_dims(p.shape)
+        dims = _factored_dims(p.shape if leaf is None else leaf.shape)
         if dims is not None:
             d1, d0 = dims
+            if leaf is not None:  # padding stays out of the means
+                g_sq = leaf.zero_pad(g_sq)
             v_row, v_col = state["v_row"][k], state["v_col"][k]
-            v_row.copy_(decay * v_row + (1 - decay) * g_sq.mean(dim=d0))
-            v_col.copy_(decay * v_col + (1 - decay) * g_sq.mean(dim=d1))
+            v_row.copy_(decay * v_row
+                        + (1 - decay) * _leaf_mean(g_sq, d0, leaf))
+            v_col.copy_(decay * v_col
+                        + (1 - decay) * _leaf_mean(g_sq, d1, leaf))
             reduced_d1 = d1 - 1 if d1 > d0 else d1
             row_col_mean = v_row.mean(dim=reduced_d1, keepdim=True)
             row_factor = (v_row / row_col_mean) ** -0.5
             col_factor = v_col ** -0.5
-            u = (g * row_factor.unsqueeze(d0)) * col_factor.unsqueeze(d1)
+            row_factor, col_factor = row_factor.unsqueeze(d0), \
+                col_factor.unsqueeze(d1)
+            if leaf is not None:  # the whole factors' rows of this shard
+                row_factor = leaf.local(row_factor)
+                col_factor = leaf.local(col_factor)
+            u = (g * row_factor) * col_factor
         else:
             v = state["v"][k]
             v.copy_(decay * v + (1 - decay) * g_sq)
             u = g * v ** -0.5
-        u = u / torch.clamp_min(torch.sqrt(torch.mean(u * u)), 1.0)
+        u = u / torch.clamp_min(torch.sqrt(_leaf_mean_all(u * u, leaf)),
+                                1.0)
         u = lr * u
-        p_rms = torch.sqrt(torch.mean(torch.square(p.float())))
+        p_rms = torch.sqrt(_leaf_mean_all(torch.square(p.float()), leaf))
         u = u * torch.where(p_rms <= 1e-3, 1e-3, p_rms)
         return -u
+
+
+def _leaf_mean(x, dim: int, leaf):
+    """The mean of leaf-shaped ``x`` over ``dim``, whole: over a sharded
+    dim the shards' sums are added up (padding must hold zeros); along
+    one, each rank's rows of the result are gathered."""
+    if leaf is None:
+        return x.mean(dim=dim)
+    if dim == leaf.dim:
+        return leaf.psum_(x.sum(dim=dim)) / leaf.size
+    return leaf.gather(x.mean(dim=dim), leaf.dim - (leaf.dim > dim))
+
+
+def _leaf_mean_all(x, leaf):
+    """The mean of every element of the leaf (padding must hold zeros)."""
+    if leaf is None:
+        return torch.mean(x)
+    return leaf.psum_(torch.sum(x)) / leaf.numel
 
 
 def build(cfg: OptimizerConfig) -> Optimizer:

@@ -1,4 +1,5 @@
-"""Single-device train step; counterpart of ``kubeflow_tpu/train/trainer.py``.
+"""The train step, on one device or over a data x FSDP mesh; counterpart of
+``kubeflow_tpu/train/trainer.py``.
 
 One step: forward, backward (``torch.autograd.grad``), optimizer update.
 The JAX step is one jitted function with donated state; here the step
@@ -18,7 +19,20 @@ JAX's). Under gradient accumulation the last microbatch's updates win. A
 leaf the loss does not reach (the running statistics, BERT's NSP head)
 gets a zero gradient, as ``jax.grad`` gives it.
 
-A mesh (data, FSDP or tensor parallelism) is not yet ported and raises.
+Over a mesh (one process per device; the data and fsdp axes) GSPMD's
+collectives are written out:
+
+- the state is born sharded: each rank keeps its shard of every leaf the
+  model's partition rules put on ``fsdp`` (its optimizer slots alike) and
+  the rest whole (:class:`StateLayout`; at fsdp=1 every leaf is whole);
+- each step gathers the sharded leaves whole before the forward (once a
+  step, not layer by layer), each rank runs its own rows of the batch,
+  and the loss it differentiates is its term of the global loss (the loss
+  functions normalise by the global count, ``mesh=``), so gradients are
+  SUMMED over ranks: reduce-scattered over ``fsdp`` for a sharded leaf
+  (then summed over ``data``), summed over ``data`` x ``fsdp`` otherwise;
+- the optimizer's reductions span each leaf's shards, and the metrics are
+  the global ones.
 """
 
 from __future__ import annotations
@@ -26,8 +40,28 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 
 from kubeflow_tpu_torch.device import resolve_device
+from kubeflow_tpu_torch.parallel.collectives import (
+    global_norm_sq,
+    psum_,
+    reduce_scatter,
+)
+from kubeflow_tpu_torch.parallel.mesh import (
+    BATCH_AXES,
+    axis_size,
+    require_axes,
+)
+from kubeflow_tpu_torch.parallel.sharding import (
+    ShardedLeaf,
+    dim_shards,
+    restrict,
+    shard,
+    tree_specs,
+    unshard,
+)
 from kubeflow_tpu_torch.train.optimizers import (
     OptimizerConfig,
     build as build_opt,
@@ -42,25 +76,163 @@ class TrainState:
     step: int
     params: dict      # the model's nested parameter dict (master weights)
     opt_state: dict
+    # Where each leaf lives over a mesh (None on one device): the state's
+    # tensors are this rank's shards.
+    layout: "StateLayout | None" = None
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise ValueError("training over a mesh is not yet ported to the "
-                         "PyTorch package; pass mesh=None")
+class StateLayout:
+    """The sharding of a train state on this rank of ``mesh``: each
+    parameter's spec from the model's partition rules, keeping only the
+    data and fsdp axes of degree above 1 (the others are 1 here, and an
+    axis of one shard holds the whole leaf: at fsdp=1 the state is whole
+    and the step is plain data parallelism), and the same spec for its
+    optimizer slots of the same rank (JAX's rank fallback replicates the
+    rest, such as adafactor's factored moments).
+
+    ``shapes``: each parameter's whole shape, in the state's leaf order."""
+
+    def __init__(self, mesh, rules, shapes: dict[str, tuple]):
+        self.mesh = mesh
+        self.shapes = {k: tuple(s) for k, s in shapes.items()}
+        axes = tuple(a for a in BATCH_AXES if axis_size(mesh, a) > 1)
+        self.specs = {k: restrict(spec, axes)
+                      for k, spec in tree_specs(self.shapes, rules).items()}
+        self._leaves: dict[str, ShardedLeaf] = {}
+        for k, spec in self.specs.items():
+            shards = dim_shards(self.shapes[k], spec, mesh)
+            if len(shards) > 1:
+                raise ValueError(f"{k}: a leaf sharded along more than one "
+                                 "dim is not yet ported")
+            if shards:
+                self._leaves[k] = ShardedLeaf(self.shapes[k], shards[0],
+                                              mesh)
+
+    def leaf(self, key: str) -> ShardedLeaf | None:
+        return self._leaves.get(key)
+
+    def _slot_spec(self, key: str, t: torch.Tensor) -> tuple:
+        spec = self.specs[key]
+        return () if len(spec) > t.ndim else spec
+
+    # The state, whole <-> this rank's shards.
+
+    def _map_opt(self, opt_state: dict, fn) -> dict:
+        return {slot: (value if slot == "count" else
+                       {k: fn(k, t) for k, t in value.items()})
+                for slot, value in opt_state.items()}
+
+    def shard_state(self, state: TrainState) -> TrainState:
+        """This rank's shard of a whole state (no collective)."""
+        params = {k: shard(p, self.specs[k], self.mesh)
+                  for k, p in flatten(state.params).items()}
+        opt = self._map_opt(state.opt_state, lambda k, t: shard(
+            t, self._slot_spec(k, t), self.mesh))
+        return TrainState(state.step, _unflatten(params), opt, self)
+
+    def gather_state(self, state: TrainState, dst: int = 0
+                     ) -> TrainState | None:
+        """The whole state on rank ``dst`` from every rank's shards, None
+        on the others (a collective: every rank calls it at the same
+        point). One sharded leaf at a time is gathered whole and moved to
+        the host, so no device holds more than its shards and one whole
+        leaf; the leaves every rank holds whole stay where they are."""
+        keep = dist.get_rank() == dst
+
+        def host(k, t, spec):
+            if k not in self._leaves or not spec:
+                return t if keep else None
+            t = unshard(t, spec, self.mesh, self.shapes[k])
+            return t.cpu() if keep else None
+
+        params = {k: host(k, p, self.specs[k])
+                  for k, p in flatten(state.params).items()}
+        opt = self._map_opt(state.opt_state,
+                            lambda k, t: host(k, t, self._slot_spec(k, t)))
+        if not keep:
+            return None
+        return TrainState(state.step, _unflatten(params), opt, None)
+
+    # The step's collectives.
+
+    def gather_params(self, flat: dict) -> dict:
+        """Every sharded leaf whole (all-gathered); the others as they
+        are."""
+        return {k: unshard(p, self.specs[k], self.mesh, self.shapes[k])
+                if k in self._leaves else p for k, p in flat.items()}
+
+    def reduce_grads(self, grads: dict) -> dict:
+        """Whole gradients of each rank's loss term -> this rank's shard of
+        their sum over the mesh: a sharded leaf's is reduce-scattered over
+        its axes, then summed over the other batch axes; the whole leaves'
+        are summed over every batch axis in one flat buffer."""
+        out, whole = {}, []
+        for k, g in grads.items():
+            leaf = self.leaf(k)
+            if leaf is None:
+                whole.append(k)
+                continue
+            s = leaf.shard
+            pad = s.n * s.chunk - s.size
+            if pad:
+                g = F.pad(g, [0, 0] * (g.ndim - 1 - s.dim) + [0, pad])
+            g = reduce_scatter(g, self.mesh, s.axes, dim=s.dim)
+            rest = tuple(a for a in BATCH_AXES if a not in s.axes)
+            if rest:
+                psum_(g, self.mesh, rest)
+            out[k] = g
+        for dtype in dict.fromkeys(grads[k].dtype for k in whole):
+            keys = [k for k in whole if grads[k].dtype == dtype]
+            flat = psum_(torch.cat([grads[k].reshape(-1) for k in keys]),
+                         self.mesh, BATCH_AXES)
+            for k, piece in zip(keys, flat.split(
+                    [grads[k].numel() for k in keys])):
+                out[k] = piece.view_as(grads[k])
+        return {k: out[k] for k in grads}
+
+    def global_norm(self, tensors: dict) -> torch.Tensor:
+        """optax.global_norm of the whole tree from this rank's shards:
+        each sharded leaf's squares summed over its shards (padding holds
+        zeros), each whole leaf's counted once."""
+        whole, sharded = [], {}
+        for k, t in tensors.items():
+            leaf = self.leaf(k)
+            if leaf is None:
+                whole.append(t)
+            else:
+                sharded.setdefault(leaf.shard.axes, []).append(t)
+        total = global_norm_sq(whole) if whole else 0.0
+        for axes, part in sharded.items():
+            total = total + global_norm_sq(part, self.mesh, axes)
+        return torch.sqrt(total)
+
+
+def check_mesh(model, mesh) -> None:
+    """Raise ValueError("... not yet ported") for a mesh this slice does
+    not train over: an axis other than data and fsdp above 1, or what the
+    model's own ``check_mesh`` refuses (MoE over data or fsdp)."""
+    require_axes(mesh, BATCH_AXES, f"training {model.name}")
+    if model.check_mesh is not None:
+        model.check_mesh(model.config, mesh)
 
 
 def init_state(generator: torch.Generator, model, opt_cfg: OptimizerConfig,
                mesh=None, *, device: str | torch.device = "cuda"
                ) -> TrainState:
     """Float32 master parameters from ``generator`` and the optimizer's
-    zero state, on ``device``."""
-    _no_mesh(mesh)
+    zero state, on ``device``. Over ``mesh`` every rank draws the same
+    whole parameters (the same generator seed) and keeps its shards."""
     params = model.init(model.config, generator=generator,
                         device=resolve_device(device),
                         param_dtype=torch.float32)
-    return TrainState(step=0, params=params,
-                      opt_state=build_opt(opt_cfg).init(flatten(params)))
+    state = TrainState(step=0, params=params,
+                       opt_state=build_opt(opt_cfg).init(flatten(params)))
+    if mesh is None:
+        return state
+    check_mesh(model, mesh)
+    layout = StateLayout(mesh, model.partition_rules(model.config),
+                         {k: p.shape for k, p in flatten(params).items()})
+    return layout.shard_state(state)
 
 
 def build_train_step(model, opt_cfg: OptimizerConfig, mesh=None, *,
@@ -72,23 +244,26 @@ def build_train_step(model, opt_cfg: OptimizerConfig, mesh=None, *,
     axis (``data.stack_microbatches``); the step runs the microbatches in
     turn, accumulating the MEAN gradient in the gradient dtype
     (``opt_cfg.grad_dtype`` or the parameter dtype) before ONE optimizer
-    update, and averages the scalar metrics over the microbatches."""
-    _no_mesh(mesh)
+    update, and averages the scalar metrics over the microbatches. Over
+    ``mesh`` (the state from :func:`init_state` with the same mesh) the
+    batch is this rank's rows, and the accumulated gradient is reduced
+    once, after the last microbatch."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if mesh is not None:
+        check_mesh(model, mesh)
     opt = build_opt(opt_cfg)
     grad_dtype = torch_dtype(opt_cfg.grad_dtype) if opt_cfg.grad_dtype \
         else None
 
-    def grads_of(params: dict, batch: dict):
-        flat = flatten(params)
+    def grads_of(flat: dict, batch: dict):
         # Leaves of the autograd graph: the master weights themselves, or
         # a view of them in grad_dtype (JAX differentiates p.astype(gdt)).
         leaves = {k: (p.detach().to(grad_dtype) if grad_dtype
                       and p.is_floating_point() else p.detach())
                   .requires_grad_(True) for k, p in flat.items()}
         loss, metrics = model.loss_fn(_unflatten(leaves), batch,
-                                      model.config)
+                                      model.config, mesh=mesh)
         grads = torch.autograd.grad(loss, list(leaves.values()),
                                     allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g
@@ -97,26 +272,41 @@ def build_train_step(model, opt_cfg: OptimizerConfig, mesh=None, *,
         metrics = {k: v.detach() for k, v in metrics.items()}
         return metrics, grads, updates
 
+    def whole_params(state: TrainState) -> dict:
+        if (state.layout is None) != (mesh is None):
+            raise ValueError("the state's mesh and the step's differ; "
+                             "build both with the same mesh")
+        flat = flatten(state.params)
+        return flat if state.layout is None else \
+            state.layout.gather_params(flat)
+
     def apply_update(state: TrainState, metrics: dict, grads: dict,
                      updates=None):
-        metrics["grad_norm"] = global_norm(grads.values())
+        layout = state.layout
+        if layout is not None:
+            grads = layout.reduce_grads(grads)
+        g_norm = (global_norm(grads.values()) if layout is None
+                  else layout.global_norm(grads))
+        metrics["grad_norm"] = g_norm
         metrics["step"] = torch.tensor(state.step)
         with torch.no_grad():
-            opt.update(grads, state.opt_state, flatten(state.params))
+            opt.update(grads, state.opt_state, flatten(state.params),
+                       layout=layout, g_norm=g_norm)
         if updates is not None and model.update_state is not None:
             model.update_state(state.params, updates)
         state.step += 1
         return state, metrics
 
     def step_fn(state: TrainState, batch: dict):
-        return apply_update(state, *grads_of(state.params, batch))
+        return apply_update(state, *grads_of(whole_params(state), batch))
 
     def accum_step_fn(state: TrainState, batch: dict):
+        flat = whole_params(state)
         acc, sums = None, {}
         for i in range(accum_steps):
             # The last microbatch's state updates win, as in JAX.
             metrics, grads, updates = grads_of(
-                state.params, {k: v[i] for k, v in batch.items()})
+                flat, {k: v[i] for k, v in batch.items()})
             # Divide per microbatch: the accumulator holds a running MEAN,
             # so a low-precision gradient dtype never sees a k-times sum.
             if acc is None:

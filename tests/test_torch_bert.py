@@ -17,6 +17,8 @@ batches are equal bit for bit.
 import http.client
 import json
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
@@ -235,9 +237,12 @@ def test_sequence_past_the_position_table_raises(models):
     with pytest.raises(ValueError, match="position table"):
         tbert.apply(params, torch.zeros(1, 129, dtype=torch.int32),
                     tm.config)
+    tensor_mesh = SimpleNamespace(  # a DeviceMesh's fields, tensor=2
+        mesh_dim_names=("data", "pipeline", "fsdp", "expert", "sequence",
+                        "tensor"), mesh=torch.zeros(1, 1, 1, 1, 1, 2))
     with pytest.raises(ValueError, match="not yet ported"):
         tbert.apply(params, torch.zeros(1, 4, dtype=torch.int32), tm.config,
-                    mesh=object())
+                    mesh=tensor_mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -804,3 +804,74 @@ def test_moe_decode_steps_through_the_kernel_match_gathered(cuda):
     assert torch.equal(runs[True][0], runs[False][0])
     torch.testing.assert_close(runs[True][1], runs[False][1], rtol=0,
                                atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["zero", "equal_columns"])
+def test_moe_routing_ties_on_the_card_break_as_jax(cuda, kind):
+    """CUDA's topk leaves the order of ties unspecified too: the port's
+    routing on the card puts the lower expert first (JAX's lax.top_k:
+    experts [0, 1] of eight equal probabilities, [1, 2] of softmax([0, 1,
+    1, 0, 1, 0, 0, 0])), and moe_ffn with a tied router (f32) equals the
+    CPU's, which tests/test_torch_moe.py holds against JAX."""
+    from kubeflow_tpu_torch.models import transformer
+
+    for logits, want in (([0.0] * 8, [0, 1]),
+                         ([0.0, 1.0, 1.0, 0.0, 1.0, 0.0, 0.0, 0.0], [1, 2])):
+        probs = torch.softmax(torch.tensor([logits], device=cuda), -1)
+        _, idx = transformer.top_k_experts(probs.repeat(4096, 1), 2)
+        assert (idx.cpu() == torch.tensor(want)).all()
+    cfg = transformer.config("moe-test-tiny", dtype=torch.float32)
+    params = transformer.init(cfg, generator=torch.Generator().manual_seed(0),
+                              device="cpu")
+    mlp = {k: w[0] for k, w in params["layers"]["mlp"].items()}
+    if kind == "zero":
+        mlp["router"] = torch.zeros_like(mlp["router"])
+    else:
+        mlp["router"][:, 1] = mlp["router"][:, 0]
+    x = torch.randn(2, 64, 64, generator=torch.Generator().manual_seed(3))
+    ref, ref_aux = transformer.moe_ffn(x, mlp, cfg)
+    out, aux = transformer.moe_ffn(
+        x.to(cuda), {k: w.to(cuda) for k, w in mlp.items()}, cfg)
+    torch.testing.assert_close(out.cpu(), ref, rtol=0,
+                               atol=1e-5 * ref.abs().max().item())
+    torch.testing.assert_close(aux.cpu(), ref_aux, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_mesh_step_at_world_one_over_nccl_equals_the_no_mesh_step(cuda):
+    """A process group of one rank over NCCL and a 1x1x1x1x1x1 mesh: three
+    f32 train steps of the mesh path (its all-reduces of the gradients,
+    the loss's count and the metrics, at world size 1) equal the no-mesh
+    path's within 1e-6 relative, losses, gradient norms and parameters."""
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.parallel import distributed, mesh as tmesh
+    from kubeflow_tpu_torch.train import data, trainer
+    from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
+    from kubeflow_tpu_torch.weights import flatten
+
+    model = get_model("lm-test-tiny", dtype=torch.float32, d_model=128,
+                      n_heads=2, n_kv_heads=1, d_ff=256)  # hd 64
+    opt_cfg = OptimizerConfig(name="adafactor", warmup_steps=1)
+    distributed.initialize_gang({}, device="cuda")
+    try:
+        runs = []
+        for mesh in (None, tmesh.single_device_mesh("cuda")):
+            state = trainer.init_state(
+                torch.Generator(device=cuda).manual_seed(0), model, opt_cfg,
+                mesh, device=cuda)
+            step = trainer.build_train_step(model, opt_cfg, mesh)
+            stream = data.synthetic_stream(model, 2, 64, seed=5)
+            mets = []
+            for _ in range(3):
+                state, met = step(state, data.place_batch(next(stream),
+                                                          cuda))
+                mets.append([float(met["loss"]), float(met["grad_norm"])])
+            runs.append((mets, flatten(state.params)))
+    finally:
+        distributed.shutdown()
+    (m0, p0), (m1, p1) = runs
+    torch.testing.assert_close(torch.tensor(m1), torch.tensor(m0),
+                               rtol=1e-6, atol=0)
+    for k, p in p0.items():
+        torch.testing.assert_close(p1[k], p, rtol=1e-6, atol=1e-7)

@@ -509,3 +509,81 @@ def test_continuous_streams_match_jax(models, path):
     want = _streams(JaxDecoder(jparams, jcfg, **kw), prompts)
     got = _streams(ContinuousDecoder(tparams, tcfg, **kw), prompts)
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# Tied router probabilities: the lower expert first, as lax.top_k has it
+# ---------------------------------------------------------------------------
+
+
+def _tied(tree, kind):
+    """``tree`` with its router zeroed (every probability ties) or with
+    expert 1's column equal to expert 0's (the two tie on every token)."""
+    tree = jax.tree.map(np.array, tree)
+    router = tree["layers"]["mlp"]["router"]
+    if kind == "zero":
+        router[...] = 0.0
+    else:
+        router[..., 1] = router[..., 0]
+    return tree
+
+
+@pytest.mark.parametrize("probs", [
+    [1 / 8] * 8,
+    list(np.exp([0, 1, 1, 0, 1, 0, 0, 0]) / np.exp([0, 1, 1, 0, 1, 0, 0,
+                                                     0]).sum()),
+], ids=["uniform", "three-way"])
+def test_top_k_experts_breaks_ties_as_lax_top_k(probs):
+    p = np.asarray([probs], np.float32)
+    jv, ji = jax.lax.top_k(jnp.asarray(p), 2)
+    tv, ti = ttransformer.top_k_experts(torch.from_numpy(p), 2)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+@pytest.mark.parametrize("kind", ["zero", "equal_columns"])
+def test_tied_router_routes_ffn_and_loss_as_jax(models, kind):
+    """Routing indices, ``moe_ffn`` (both choices' slots, so capacity
+    positions depend on the order of ties) and the loss with its router
+    aux, on a router whose probabilities tie."""
+    jcfg, _, tcfg, _, tree = models
+    tree = _tied(tree, kind)
+    mlp = jax.tree.map(lambda w: w[0], tree["layers"]["mlp"])
+    x = np.random.default_rng(3).standard_normal((2, 16, 64)).astype(
+        np.float32)
+    probs = np.asarray(jax.nn.softmax(x.reshape(32, 64) @ mlp["router"]))
+    _, jidx = jax.lax.top_k(jnp.asarray(probs), jcfg.expert_top_k)
+    _, tidx = ttransformer.top_k_experts(torch.from_numpy(probs),
+                                         tcfg.expert_top_k)
+    np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+    jy, jaux = jtransformer.moe_ffn(jnp.asarray(x), mlp, jcfg)
+    ty, taux = ttransformer.moe_ffn(torch.from_numpy(x), _torch_mlp(mlp),
+                                    tcfg)
+    jy = np.asarray(jy)
+    assert np.abs(ty.numpy() - jy).max() <= 1e-5 * np.abs(jy).max()
+    np.testing.assert_allclose(taux.item(), float(jaux), rtol=1e-6)
+    tokens = np.random.default_rng(1).integers(
+        0, jcfg.vocab_size, (2, 25)).astype(np.int32)
+    jloss, jmet = jtransformer.loss_fn(jax.tree.map(jnp.asarray, tree),
+                                       {"tokens": jnp.asarray(tokens)}, jcfg)
+    params = weights.params_from_numpy(tree, tcfg, "cpu",
+                                       dtype=torch.float32)
+    with torch.no_grad():
+        loss, met = ttransformer.loss_fn(
+            params, {"tokens": torch.from_numpy(tokens)}, tcfg)
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+    np.testing.assert_allclose(met["router_aux_loss"].item(),
+                               float(jmet["router_aux_loss"]), rtol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["zero", "equal_columns"])
+def test_tied_router_greedy_streams_match_jax(models, kind):
+    """The dense continuous decoder's greedy f32 streams, router tied."""
+    jcfg, _, tcfg, _, tree = models
+    tree = _tied(tree, kind)
+    jparams = jax.tree.map(jnp.asarray, tree)
+    want = _streams(JaxDecoder(jparams, jcfg, **BASE), PROMPTS)
+    got = _streams(ContinuousDecoder(
+        weights.params_from_numpy(tree, tcfg, "cpu"), tcfg, **BASE),
+        PROMPTS)
+    assert got == want

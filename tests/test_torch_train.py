@@ -14,6 +14,8 @@ element; optimizer trees to 1e-5; parameters after three steps to 1e-4
 relative and 1e-5 absolute.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
@@ -280,12 +282,14 @@ def test_loop_main_needs_cuda_unless_asked_for_the_cpu(capsys):
 
 @pytest.mark.parametrize("field,value", [
     ("elastic_poll_steps", 5), ("elastic_poll_steps", 1),
-    ("mesh", {"data": 2}), ("mesh", {"fsdp": 2}), ("mesh", {"tensor": 2}),
+    ("mesh", {"expert": 2}), ("mesh", {"sequence": 2}),
+    ("mesh", {"tensor": 2}),
 ])
 def test_loop_refuses_unported_options_before_any_step(field, value):
-    """Elastic resharding and a mesh of more than one device are still to
-    come (checkpoints, the token store and the profiler now run:
-    tests/test_torch_checkpoint.py)."""
+    """Elastic resharding and the mesh axes other than data and fsdp are
+    still to come (checkpoints, the token store and the profiler now run:
+    tests/test_torch_checkpoint.py; the data and fsdp axes in gangs:
+    tests/test_torch_distributed_*.py)."""
     cfg = tloop.RunConfig(device="cpu", steps=1, **{field: value})
     with pytest.raises(ValueError, match="not yet ported"):
         tloop.run(cfg, log=lambda *a: None)
@@ -297,14 +301,23 @@ def test_loop_refuses_the_job_status_environment():
                   environ={"KUBEFLOW_TPU_JOB_NAME": "job"})
 
 
+# A mesh with a tensor axis of 2 (a stand-in: what the mesh checks read
+# of a DeviceMesh), which the port does not yet train over.
+TENSOR_MESH = SimpleNamespace(
+    mesh_dim_names=("data", "pipeline", "fsdp", "expert", "sequence",
+                    "tensor"), mesh=torch.zeros(1, 1, 1, 1, 1, 2))
+
+
 @pytest.mark.parametrize("overrides,mesh", [
     ({"context_parallel": True}, None), ({"pipeline_stages": 2}, None),
-    ({"pipeline_stages": 4, "remat": True}, None), ({}, object()),
-    ({"remat": True, "loss_chunks": 4}, object()),
+    ({"pipeline_stages": 4, "remat": True}, None), ({}, TENSOR_MESH),
+    ({"remat": True, "loss_chunks": 4}, TENSOR_MESH),
 ])
 def test_model_refuses_unported_training_options(overrides, mesh):
-    """Ring attention, pipeline stages and a mesh are still to come (remat,
-    scan_group_size and loss_chunks now run: tests/test_torch_remat.py)."""
+    """Ring attention, pipeline stages and a tensor-parallel mesh are still
+    to come (remat, scan_group_size and loss_chunks now run:
+    tests/test_torch_remat.py; the data and fsdp axes:
+    tests/test_torch_distributed_*.py)."""
     tm = tregistry.get_model("lm-test-tiny", **overrides)
     params = tm.init(tm.config, generator=torch.Generator().manual_seed(0),
                      device="cpu", param_dtype=torch.float32)
@@ -316,8 +329,8 @@ def test_model_refuses_unported_training_options(overrides, mesh):
 def test_remat_only_raises_under_autograd_and_mesh_raises():
     """remat decides what the backward keeps, so it opens regions only
     while autograd records: an inference forward and a recorded one give
-    the same logits, and the recorded one differentiates. A mesh is still
-    refused."""
+    the same logits, and the recorded one differentiates. A mesh with a
+    tensor axis is still refused."""
     tm = tregistry.get_model("llama-1b", d_model=64, n_heads=4,
                              n_kv_heads=2, d_ff=64, n_layers=1,
                              vocab_size=32, dtype=torch.float32)
@@ -334,10 +347,11 @@ def test_remat_only_raises_under_autograd_and_mesh_raises():
     out.square().sum().backward()
     assert wq.grad is not None and wq.grad.abs().max() > 0
     with pytest.raises(ValueError, match="not yet ported"):
-        ttransformer.hidden_states(params, tokens, tm.config, mesh=object())
+        ttransformer.hidden_states(params, tokens, tm.config,
+                                   mesh=TENSOR_MESH)
     with pytest.raises(ValueError, match="not yet ported"):
         ttrainer.build_train_step(tm, toptim.OptimizerConfig(),
-                                  mesh=object())
+                                  mesh=TENSOR_MESH)
 
 
 def test_presets_carry_the_jax_training_fields():
