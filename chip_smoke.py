@@ -17,8 +17,9 @@ suspension, the prefill/decode handoff and live weight pushes), trains
 the port's training loop with attention in the flash kernels, serves and
 trains the other families (``moe-1b``, ``bert-base``, ``resnet50``) at
 full size, trains over ``torch.distributed`` (the mesh path over NCCL, a
-gang of two over gloo, the allreduce and DDP workloads), and checks the
-output. Phases, each printed as one JSON line:
+gang of two over gloo, the allreduce and DDP workloads), runs tensor
+parallelism (a llama-1b replica of two shards on the card, a tensor gang
+of two training flagship-1b), and checks the output. Phases, each printed as one JSON line:
 
 (a) the card and the kernels' build times;
 (b) the paged decode kernel against ``_paged_decode_plain`` at the main
@@ -123,7 +124,8 @@ output. Phases, each printed as one JSON line:
     --qos-tenants gold=8:0:0:10,free=1 --serving-role decode`` (paged,
     fused, prefix cache) answers a tenant's request and its exposition
     shows QoS, the tier's budget and the role, and ``--speculative-k 2
-    --decode-mode lockstep`` and the unported ``--tp-shards 2`` exit 2;
+    --decode-mode lockstep`` exits 2, and ``--tp-shards 2`` exits 2
+    naming the devices (one card; (x) places two shards on it);
 (n) the paged prefix path, llama-1b, bf16, ``kv_fused``, 8 slots,
     ``max_seq_len`` 256, ``max_new_tokens`` 32, Bs 16,
     ``prefix_cache_slots`` 4: a primed 160-token system prompt (10
@@ -262,6 +264,30 @@ output. Phases, each printed as one JSON line:
     bandwidth benchmark as a user runs them (alone: NCCL at world size 1,
     whose bus bandwidth reads 0 by the ring formula); (w4) the DDP
     workload on cuda:0, 10 steps;
+(x) tensor parallelism (``phase_tensor_parallel``): (x1) llama-1b at
+    full width and depth, bf16, paged fused, (d)'s requests over HTTP on
+    a server of two shards on the card (``tp_devices`` cuda:0 twice)
+    beside a server of one: tokens/s, streamed TTFT, the paged kernel's
+    launches (2 x 16 x the decode forwards), the exposition's
+    ``serving_tp_shards`` and per-shard KV bytes (half the unsharded);
+    the paged kernel at a shard's shape (B 8, Hkv 4, G 2, hd 128; bf16,
+    f32, int8) against the plain version within 2e-3; the f32 gates at 2
+    layers: tp=2 = tp=1 token for token on paged fused and gathered,
+    dense, chunked prefill and speculation (``speculative_k`` 2), each
+    request's last logits within 1e-5 relative, and a handoff exported
+    at tp=2 decodes at tp=1 as a colocated replica does; (x2) a gang of
+    two tensor ranks on the card over gloo (``X2_WORKER``): flagship-1b
+    at full width and depth, bf16, adafactor, 1 x 2048 rows on both
+    ranks, 4 steps: each step's time, the collectives' calls and bytes a
+    step, the flash kernels' launches (3 x 4 each a rank) and their names
+    in each rank's profiled step; the flash kernels at a rank's shape (B
+    1, T 2048, Hq 16 over Hkv 2, hd 128) against the plain versions under
+    (g)'s limits; the f32 gate at 2 layers, 3 steps at lr 1e-2: losses
+    and gradient norms within 1e-5 relative of one process (a gradient
+    tp x too large moves the norm), parameters within 1e-4 relative +
+    1e-5, every matrix moved over 10x that limit. The kernel checks at a
+    shard's and a rank's shapes run at the start, after (g)
+    (``tp_kernel_checks``), and are printed with (x);
 (f) the kernel table: each kernel's launches on the main paths, its
     error, its time, its plain version's time and its bound; the paged
     and RMSNorm rows give device time as ``ms`` and the call's as
@@ -277,7 +303,11 @@ output. Phases, each printed as one JSON line:
     speculation on, (s) and (t) (``launches_by_path``) and adds the times
     at moe-1b's shape (``moe_shape``); the flash rows add (t)'s and
     (u)'s launches and the times at BERT's and moe-1b's shapes
-    (``bert_shape``, ``moe_shape``), and (w1)'s (``mesh_train``).
+    (``bert_shape``, ``moe_shape``), and (w1)'s (``mesh_train``); the
+    paged row (x1)'s launches (``tp2_serving``: both shards') and its
+    times at a shard's shape (``tp_shard_shape``), the flash rows (x2)'s
+    launches on each rank and their times at a rank's shape
+    (``tp_rank_shape``).
 
 TF32 is off throughout, so float32 products are full float32. Any
 failure exits non-zero; the last line, printed only on success, is
@@ -509,19 +539,17 @@ def paged_bound(q, kp, table, pos, kv: str) -> tuple[float, str]:
     return bound(kv_bytes + other, ops, kv)
 
 
-def phase_paged(dev, flush) -> dict:
+def paged_cases(dev, flush, cases) -> dict:
+    """Each of ``cases`` ((name, kv, shape)): the paged kernel against
+    ``_paged_decode_plain`` within PAGED_TOL, its device and call times,
+    the bound and, at the main path's rows and columns, the plain
+    version's time."""
     from kubeflow_tpu_torch import kernels
     from kubeflow_tpu_torch.models.decode import _quantize_kv
     from kubeflow_tpu_torch.ops.attention import _paged_decode_plain
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     results = {}
-    cases = [(kv, kv, {}) for kv in ("bf16", "f32", "int8")]
-    cases += [("long_bf16", "bf16", PAGED_LONG), ("busy_bf16", "bf16",
-                                                   PAGED_BUSY),
-              ("chunked_bf16", "bf16", PAGED_CHUNKED),
-              ("moe_bf16", "bf16", PAGED_MOE), ("moe_int8", "int8",
-                                                PAGED_MOE)]
     for name, kv, shape in cases:
         q, kp, vp, table, pos = paged_inputs(kv, dev, _quantize_kv, **shape)
         scale = q.shape[-1] ** -0.5
@@ -560,6 +588,17 @@ def phase_paged(dev, flush) -> dict:
                 q, kp, vp, table, pos, scale), flush, 10)
         results[name] = row
         del q, kp, vp, out
+    return results
+
+
+def phase_paged(dev, flush) -> dict:
+    cases = [(kv, kv, {}) for kv in ("bf16", "f32", "int8")]
+    cases += [("long_bf16", "bf16", PAGED_LONG), ("busy_bf16", "bf16",
+                                                   PAGED_BUSY),
+              ("chunked_bf16", "bf16", PAGED_CHUNKED),
+              ("moe_bf16", "bf16", PAGED_MOE), ("moe_int8", "int8",
+                                                PAGED_MOE)]
+    results = paged_cases(dev, flush, cases)
     emit("b_paged_decode", results=results)
     return results
 
@@ -1541,8 +1580,9 @@ def phase_surfaces(default: dict) -> dict:
     answers a request, the CLI with the host KV tier, QoS and a decode
     role (``--host-kv-bytes``, ``--qos-tenants``, ``--serving-role
     decode``) answers a tenant's request, ``--speculative-k 2
-    --decode-mode lockstep`` exits 2, and a flag still unported
-    (``--tp-shards 2``) exits 2."""
+    --decode-mode lockstep`` exits 2, and ``--tp-shards 2`` exits 2
+    naming the devices (its shards take cuda:0 and cuda:1 by default; the
+    card is one)."""
     import importlib.util
 
     from kubeflow_tpu_torch.models.registry import get_model
@@ -1568,7 +1608,7 @@ def phase_surfaces(default: dict) -> dict:
             QOS_TENANTS, "--serving-role", "decode", "--kv-layout", "paged",
             "--kv-fused-attention", "--prefix-cache-slots", "4",
             "--grpc-port", "-1", "--rest-port", str(rest_qos)))
-        for flags, says in ((("--tp-shards", "2"), "not yet ported"),
+        for flags, says in ((("--tp-shards", "2"), "devices"),
                             (("--speculative-k", "2", "--decode-mode",
                               "lockstep"), "requires --decode-mode")):
             refused = subprocess.run(
@@ -4063,6 +4103,412 @@ def phase_mesh(smi: str, no_mesh: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# (x) tensor parallelism: a replica of two shards on the card, a gang of
+# two tensor ranks
+# ---------------------------------------------------------------------------
+
+TP = 2
+# Both shards of the replica on the one card: every launch and every sum
+# across the shards runs, the shards one after the other.
+TP_DEVICES = ("cuda:0",) * TP
+# The paged kernel on one of llama-1b's shards: Hkv 8 over 2, G 2.
+PAGED_TP_SHARD = dict(hkv=8 // TP, g=2, hd=128)
+# flagship-1b's attention on one of two tensor ranks, 1 x 2048 rows.
+FLASH_TP_RANK = dict(b=1, t=2048, s=2048, hq=32 // TP, hkv=4 // TP, hd=128,
+                     causal=True)
+X_GATE_LAYERS, X_TRAIN_STEPS, X_CHUNK_PROMPT = 2, 4, 300
+X_RESULT = "build/chip_smoke/x2_result.json"
+
+# (x2): one rank of a gang of two tensor ranks on the card over gloo
+# (NCCL refuses two ranks on one GPU), both on cuda:0 (arguments: steps,
+# the result file, the device, the model, its rows' length, the gate's).
+# flagship-1b at full width and depth, bf16, adafactor, the same 1 x 2048
+# rows on both ranks, X_TRAIN_STEPS steps: each step's ms, the collectives' calls and bytes,
+# the kernel launches, the flash kernels' names in a profiled step. Then
+# the f32 gate at 2 layers, 3 steps at lr 1e-2 (adafactor moves every
+# matrix far past the parameter tolerance), whose state rank 0 gathers
+# and holds against one process's steps; rank 0 writes the result.
+X2_WORKER = """
+import json, sys, time
+import torch
+from torch.profiler import ProfilerActivity, profile
+from kubeflow_tpu_torch import kernels
+from kubeflow_tpu_torch.models.registry import get_model
+from kubeflow_tpu_torch.parallel import collectives
+from kubeflow_tpu_torch.parallel.distributed import (global_any,
+    initialize_from_env, shutdown)
+from kubeflow_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+from kubeflow_tpu_torch.train import data, trainer
+from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
+from kubeflow_tpu_torch.weights import flatten
+
+steps, out_path, device, name, seq, gate_seq = sys.argv[1:7]
+steps, seq, gate_seq = int(steps), int(seq), int(gate_seq)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+info = initialize_from_env(device=device, backend="gloo", timeout_s=900)
+r = info.process_id
+dev = torch.device("cuda", 0) if device == "cuda" else torch.device(device)
+
+def sync():
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+mesh = build_mesh(MeshConfig(data=1, tensor=2), device_type=dev.type)
+model = get_model(name)
+opt = OptimizerConfig(name="adafactor", warmup_steps=2)
+state = trainer.init_state(torch.Generator(device=dev).manual_seed(0),
+                           model, opt, mesh, device=dev)
+step = trainer.build_train_step(model, opt, mesh)
+batches = [data.place_batch(data.synthetic_batch(model, 1, seq,
+                                                 seed=7 + i), dev)
+           for i in range(steps)]
+local = {k: list(p.shape) for k, p in flatten(state.params).items()}
+kernels.reset_launches()
+collectives.reset_counts()
+mets, times = [], []
+for b in batches:
+    sync()
+    t0 = time.perf_counter()
+    state, met = step(state, b)
+    mets.append({k: float(met[k]) for k in ("loss", "grad_norm")})
+    sync()
+    times.append(time.perf_counter() - t0)
+launches = dict(kernels.LAUNCHES)
+calls, moved = dict(collectives.CALLS), dict(collectives.BYTES)
+# One rank's profiler at a time (the other runs the same step
+# unprofiled), so no two sessions trace the card at once. A session that
+# misses the kernels is tried again, as the ranks agree.
+names = []
+for turn in range(2 if dev.type == "cuda" else 0):
+    for attempt in range(3):
+        if r == turn:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                state, _ = step(state, batches[0])
+                sync()
+            names = sorted({e.key for e in prof.key_averages()
+                            if "flash" in e.key})
+        else:
+            state, _ = step(state, batches[0])
+            sync()
+        if global_any(r == turn and len(names) >= 2):
+            break
+del state, step, batches
+if dev.type == "cuda":
+    torch.cuda.empty_cache()
+
+gmodel = get_model(name, dtype=torch.float32, n_layers=2)
+gopt = OptimizerConfig(name="adafactor", warmup_steps=1,
+                       learning_rate=1e-2)
+gbatches = [data.place_batch(data.synthetic_batch(gmodel, 1, gate_seq,
+                                                  seed=5 + i), dev)
+            for i in range(3)]
+
+def run(m):
+    st = trainer.init_state(torch.Generator(device=dev).manual_seed(0),
+                            gmodel, gopt, m, device=dev)
+    fn = trainer.build_train_step(gmodel, gopt, m)
+    ms = []
+    for b in gbatches:
+        st, met = fn(st, b)
+        ms.append({k: float(met[k]) for k in ("loss", "grad_norm")})
+    if m is not None:
+        st = st.layout.gather_state(st)
+    return ms, (None if st is None else flatten(st.params))
+
+# Rank 0's one process first; the gang's first collective waits for it.
+if r == 0:
+    gen = torch.Generator(device=dev).manual_seed(0)
+    init = {k: p.clone() for k, p in flatten(gmodel.init(
+        gmodel.config, generator=gen, device=dev,
+        param_dtype=torch.float32)).items()}
+    one, one_params = run(None)
+gang, gang_params = run(mesh)
+result = {"rank_launches": launches}
+if r == 0:
+    rel = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(gang, one)
+              for k in a)
+    worst = max(((p.to(dev) - one_params[n]).abs()
+                 - 1e-4 * one_params[n].abs()).max().item()
+                for n, p in gang_params.items())
+    moved_min = min(((p - init[n]).abs().max()
+                     / (1e-4 * p.abs().max() + 1e-5)).item()
+                    for n, p in one_params.items() if p.ndim >= 2)
+    result.update({
+        "step_s": times, "losses_grad_norms": mets,
+        "collective_calls_per_step": {k: v / steps
+                                      for k, v in calls.items()},
+        "collective_bytes_per_step": {k: v / steps
+                                      for k, v in moved.items()},
+        "local_shapes": {k: local[k] for k in (
+            "embed/kernel", "layers/attn/wq", "layers/attn/wk",
+            "layers/attn/wo", "layers/mlp/gate", "layers/mlp/down",
+            "lm_head/kernel")},
+        "f32_gate": {"layers": 2, "gang": gang, "one": one,
+                     "max_rel_err_loss_grad_norm": rel,
+                     "max_param_excess_over_1e-4_rel": worst,
+                     "min_matrix_update_over_tolerance": moved_min}})
+result["flash_kernels_in_trace"] = names
+with open(f"{out_path}.{r}", "w") as f:
+    json.dump(result, f)
+shutdown()
+"""
+
+
+def tp_serving_run(tp: int) -> dict:
+    """(d)'s requests over HTTP on a paged fused llama-1b server (full
+    width and depth, bf16) of ``tp`` shards on TP_DEVICES: tokens/s and
+    the streamed TTFT, the paged kernel's launches (tp x n_layers x the
+    decode forwards), and the exposition's shard count and per-shard KV
+    bytes."""
+    from kubeflow_tpu_torch.serving.server import ModelServer
+
+    kw = {} if tp == 1 else dict(tp_shards=tp, tp_devices=TP_DEVICES)
+    server = ModelServer(engine_cfg(kv_fused=True, **kw), port=0)
+    server.start()
+    try:
+        n_layers = server.engine.model.config.n_layers
+        out = drive(server)
+        samples = parse_exposition(get(server.port,
+                                       "/monitoring/prometheus/metrics"))
+    finally:
+        server.stop()
+        del server
+        torch.cuda.empty_cache()
+    launches = out["launches"]["paged_decode_attention"]
+    if out["decode_forwards"] <= 0 or \
+            launches != tp * n_layers * out["decode_forwards"]:
+        raise AssertionError(
+            f"tp={tp}: paged kernel launched {launches} times, expected "
+            f"{tp} shards x {n_layers} layers x {out['decode_forwards']} "
+            "decode forwards")
+    return {**{k: out[k] for k in ("decode_forwards", "tokens", "wall_s",
+                                   "decode_tokens_per_s",
+                                   "ttft_streamed_ms")},
+            "paged_launches": launches,
+            "serving_tp_shards": samples["serving_tp_shards"],
+            "kv_bytes_per_token": samples["serving_kv_bytes_per_token"],
+            "kv_bytes_total": samples["serving_kv_bytes_total"]}
+
+
+def tp_f32_gates(dev) -> dict:
+    """f32, greedy, llama-1b at full width and X_GATE_LAYERS layers, the
+    requests one at a time through decoders sharing one set of weights:
+    tp=2 on TP_DEVICES equals tp=1 token for token on the paged fused and
+    gathered reads, the dense layout, chunked prefill (a 300-token prompt
+    in chunks of 64 beside (d)'s) and speculation (``speculative_k`` 2 on
+    the paged fused read, (q)'s requests); each request's logits after
+    its last step agree within 1e-5 of their largest magnitude. Then a
+    handoff exported by a tp=2 prefill replica and imported by a tp=1
+    decode replica decodes as a colocated tp=1 replica does."""
+    from kubeflow_tpu_torch import kernels
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.serving import handoff
+    from kubeflow_tpu_torch.serving.continuous import ContinuousDecoder
+
+    model = get_model(MODEL, dtype=torch.float32, n_layers=X_GATE_LAYERS)
+    cfg = model.config
+    params = model.init(cfg, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    reqs = request_bodies(cfg.vocab_size)
+    rng = np.random.RandomState(17)
+    long_req = {"tokens": rng.randint(0, cfg.vocab_size,
+                                      size=X_CHUNK_PROMPT).tolist(),
+                "max_new_tokens": 16}
+    paged = dict(kv_layout="paged", kv_block_size=BLOCK)
+    paths = {
+        "paged_fused": (dict(paged, kv_fused=True), reqs),
+        "paged_gathered": (paged, reqs),
+        "dense": ({}, reqs),
+        "chunked": (dict(paged, kv_fused=True, prefill_chunk_tokens=64,
+                         max_prompt_len=512), reqs + [long_req]),
+        "speculation": (dict(paged, kv_fused=True, speculative_k=2,
+                             max_new_tokens=SPEC_NEW),
+                        spec_requests(cfg.vocab_size)),
+    }
+
+    def run(tp, kw, prompts):
+        tp_kw = {} if tp == 1 else dict(tp_shards=tp,
+                                        tp_devices=TP_DEVICES)
+        dec = ContinuousDecoder(params, cfg, **{
+            **dict(slots=SLOTS, prefill_len=MAX_SEQ,
+                   max_new_tokens=MAX_NEW), **kw, **tp_kw})
+        try:
+            kernels.reset_launches()
+            toks, logits = [], []
+            for r in prompts:
+                toks.append(dec.generate(r["tokens"], r["max_new_tokens"],
+                                         timeout=600)["tokens"])
+                with dec._state_lock:
+                    logits.append(dec._state["last_logits"].clone())
+            return (toks, torch.stack(logits), dict(kernels.LAUNCHES),
+                    dec.metrics())
+        finally:
+            dec.stop()
+            del dec
+            torch.cuda.empty_cache()
+
+    out = {}
+    for name, (kw, prompts) in paths.items():
+        one, two = run(1, kw, prompts), run(TP, kw, prompts)
+        cmp = compare_streams(two[0], one[0])
+        err = ((two[1] - one[1]).abs().max()
+               / one[1].abs().max()).item()
+        out[name] = {**cmp, "last_logits_rel_err": err,
+                     "paged_launches": [one[2]["paged_decode_attention"],
+                                        two[2]["paged_decode_attention"]]}
+        if name == "speculation":
+            out[name]["spec_verify_dispatches"] = [
+                one[3]["spec_verify_dispatches"],
+                two[3]["spec_verify_dispatches"]]
+        if name == "chunked":
+            out[name]["prefill_chunks"] = [one[3]["prefill_chunks"],
+                                           two[3]["prefill_chunks"]]
+
+    prompt = reqs[3]["tokens"]
+    roles = dict(paged, kv_fused=True, prefix_cache_slots=4,
+                 prefix_cache_min_len=8)
+
+    def decoder(tp, role):
+        tp_kw = {} if tp == 1 else dict(tp_shards=tp,
+                                        tp_devices=TP_DEVICES)
+        return ContinuousDecoder(params, cfg, slots=SLOTS,
+                                 prefill_len=MAX_SEQ,
+                                 max_new_tokens=MAX_NEW, role=role,
+                                 **roles, **tp_kw)
+
+    colo = decoder(1, "")
+    try:
+        ref = colo.generate(prompt, MAX_NEW, timeout=600)["tokens"]
+    finally:
+        colo.stop()
+    exp, imp = decoder(TP, "prefill"), decoder(1, "decode")
+    try:
+        h = exp.export_prompt(prompt)
+        env = json.dumps(handoff.pack(h))
+        if not imp.import_prompt(handoff.unpack(json.loads(env))):
+            raise AssertionError("tp=1 import refused a tp=2 export")
+        got = imp.generate(prompt, MAX_NEW, timeout=600)["tokens"]
+        hits = imp.metrics()["prefix_hits"]
+    finally:
+        exp.stop()
+        imp.stop()
+        del exp, imp, params
+        torch.cuda.empty_cache()
+    out["handoff_tp2_to_tp1"] = {
+        "identical": got == ref, "prefix_len": h["prefix_len"],
+        "tp_shards": h["tp_shards"],
+        "envelope_mesh": json.loads(env)["mesh"],
+        "envelope_bytes": len(env), "prefix_hits": hits}
+    return out
+
+
+def tp_kernel_checks(dev, flush) -> tuple[dict, dict]:
+    """(x)'s kernels at a shard's shapes, run at the start with (b) and
+    (g) while the profiler's records are whole (after the later phases,
+    sessions in this process have kept 1-3 launches of 10): the paged
+    kernel at a llama-1b shard's shape (bf16, f32, int8) and the flash
+    pair at a flagship-1b tensor rank's."""
+    shard = paged_cases(dev, flush, [
+        (f"tp{TP}_{kv}", kv, PAGED_TP_SHARD) for kv in ("bf16", "f32",
+                                                        "int8")])
+    rank_flash = phase_model_flash(dev, flush, "tp_rank", "splash",
+                                   (FLASH_TP_RANK,))
+    return shard, rank_flash
+
+
+def phase_tensor_parallel(smi: str, shard: dict, rank_flash: dict) -> dict:
+    """(x) tensor parallelism. (x1) llama-1b at full width and depth,
+    bf16, paged fused, 8 slots, over HTTP: a server of two shards on the
+    card (``tp_devices`` cuda:0 twice) beside a server of one, (d)'s
+    requests each: tokens/s, the streamed TTFT, the paged kernel's
+    launches (2 x 16 x the decode forwards), ``serving_tp_shards`` and
+    the per-shard KV bytes of the exposition (half the unsharded); the
+    paged kernel at a shard's shape (B 8, Hkv 4, G 2, hd 128; bf16, f32,
+    int8) against the plain version within PAGED_TOL; the f32 gates of
+    :func:`tp_f32_gates` (the kernel checks at a shard's and a rank's
+    shapes are :func:`tp_kernel_checks`'s). (x2) ``X2_WORKER`` in a gang
+    of two tensor ranks on the card over gloo: flagship-1b at full width and depth,
+    bf16, each step's time, the collectives' calls and bytes a step, the
+    flash kernels' launches and their names in a profiled step on each
+    rank; the flash kernels at a rank's shape (Hq 16 over Hkv 2, hd 128,
+    1 x 2048) against the plain versions under (g)'s limits; the f32
+    gate: the gang's losses and gradient norms within 1e-5 relative of
+    one process's, its parameters within 1e-4 relative + 1e-5, every
+    matrix moved over 10x that limit."""
+    import shutil
+
+    from kubeflow_tpu_torch.parallel.launch import launch
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    serving = {tp: tp_serving_run(tp) for tp in (1, TP)}
+    if serving[TP]["serving_tp_shards"] != TP or \
+            2 * serving[TP]["kv_bytes_per_token"] != \
+            serving[1]["kv_bytes_per_token"]:
+        raise AssertionError(f"exposition under tp: {serving}")
+    gates = tp_f32_gates(dev)
+    x1 = {"gpu": smi, "tp_devices": list(TP_DEVICES),
+          "serving": {f"tp{tp}": run for tp, run in serving.items()},
+          "tokens_per_s_ratio": serving[TP]["decode_tokens_per_s"]
+          / serving[1]["decode_tokens_per_s"],
+          "paged_shard_shape": shard, "f32_gates": gates}
+    emit("x1_tp_serving", **x1)
+    for name, g in gates.items():
+        if not g["identical"] or g.get("last_logits_rel_err", 0.0) > 1e-5:
+            raise AssertionError(f"(x1) f32 gate {name}: {g}")
+    if min(gates["speculation"]["spec_verify_dispatches"]) <= 0 or \
+            min(gates["chunked"]["prefill_chunks"]) <= 0 or \
+            gates["handoff_tp2_to_tp1"]["prefix_hits"] < 1:
+        raise AssertionError(f"(x1) a gate did not take its path: {gates}")
+
+    os.makedirs(os.path.dirname(X_RESULT), exist_ok=True)
+    t0 = time.perf_counter()
+    procs = launch([sys.executable, "-c", X2_WORKER, str(X_TRAIN_STEPS),
+                    X_RESULT, "cuda", TRAIN_MODEL, str(FLASH_TP_RANK["t"]),
+                    "1024"], 2, timeout=900)
+    for i, p in enumerate(procs):
+        if p.returncode:
+            raise AssertionError(f"(x2) rank {i} exited {p.returncode}:\n"
+                                 f"{p.stderr[-3000:]}")
+    ranks = []
+    for i in range(2):
+        with open(f"{X_RESULT}.{i}") as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(os.path.dirname(X_RESULT), ignore_errors=True)
+    x2 = {"gpu": smi, "model": TRAIN_MODEL, "mesh": {"tensor": TP},
+          "rows": "1 x 2048 on both ranks",
+          "transport": "gloo through the host (not NCCL)",
+          "wall_s": time.perf_counter() - t0, **ranks[0],
+          "rank1_launches": ranks[1]["rank_launches"],
+          "rank1_flash_kernels_in_trace": ranks[1]["flash_kernels_in_trace"],
+          "flash_rank_shape": {part: {k: rank_flash["timing"][part][k] for k in (
+              "ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+              "bound_by")} | {"max_abs_err": rank_flash["max_abs_err"][part]}
+              for part in ("fwd", "bwd")}}
+    emit("x2_tp_train", **x2)
+    want = 3 * X_TRAIN_STEPS  # flagship-1b's layers x the steps
+    for r in ranks:
+        if any(r["rank_launches"][k] != want for k in (
+                "flash_attention_fwd", "flash_attention_bwd")):
+            raise AssertionError(f"(x2) flash launches {r['rank_launches']},"
+                                 f" expected {want} each")
+        if not any("fwd" in n for n in r["flash_kernels_in_trace"]) or \
+                not any("bwd" in n for n in r["flash_kernels_in_trace"]):
+            raise AssertionError(f"(x2) a rank's trace does not name the "
+                                 f"flash kernels: {r}")
+    g = ranks[0]["f32_gate"]
+    if g["max_rel_err_loss_grad_norm"] > 1e-5 or \
+            g["max_param_excess_over_1e-4_rel"] > 1e-5 or \
+            g["min_matrix_update_over_tolerance"] < 10:
+        raise AssertionError(f"(x2) the tensor gang differs from one "
+                             f"process: {g}")
+    out = {"x1": x1, "x2": x2, "phase_s": time.perf_counter() - t_phase}
+    emit("x_phase_time", phase_s=out["phase_s"])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4119,6 +4565,7 @@ def main() -> int:
                                    masked=True, iters=(20, 10))
     moe_flash = phase_model_flash(dev, flush, "moe", None,
                                   (FLASH_MOE, FLASH_MOE_PREDICT))
+    tp_checks = tp_kernel_checks(dev, flush)
     del flush
     torch.cuda.empty_cache()
     main_path = phase_main_path()
@@ -4139,6 +4586,7 @@ def main() -> int:
     bert = phase_bert(smi)
     phase_resnet(smi)
     mesh = phase_mesh(smi, train)
+    tp = phase_tensor_parallel(smi, *tp_checks)
 
     p, r = paged["bf16"], rms[f"{SLOTS}x2048"]
     paged_paths = {
@@ -4146,7 +4594,8 @@ def main() -> int:
         "prefix_path": prefix["launches"], "chunked": chunked["launches"],
         "speculation": spec["paged_launches"],
         "serving_features": features["launches"],
-        "moe_paged": moe["paged"]["launches"]["paged_decode_attention"]}
+        "moe_paged": moe["paged"]["launches"]["paged_decode_attention"],
+        "tp2_serving": tp["x1"]["serving"][f"tp{TP}"]["paged_launches"]}
     table = [
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "kubeflow_tpu_torch/csrc/paged_decode.cu",
@@ -4161,6 +4610,10 @@ def main() -> int:
          "moe_shape": {kv: {k: paged[f"moe_{kv}"][k] for k in (
              "ms", "call_ms", "bound_ms", "bound_by", "max_abs_err")}
              for kv in ("bf16", "int8")},
+         "tp_shard_shape": {kv: {k: tp["x1"]["paged_shard_shape"][
+             f"tp{TP}_{kv}"][k] for k in (
+             "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+             "max_abs_err")} for kv in ("bf16", "f32", "int8")},
          "ms": p["ms"], "call_ms": p["call_ms"], "plain_ms": p["plain_ms"],
          "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
          "library_ms": None},
@@ -4204,6 +4657,8 @@ def main() -> int:
                 by_path["moe_train"] = moe["train"]["launches"][key]
                 by_path["bert_train"] = bert["train"]["launches"][key]
                 by_path["mesh_train"] = mesh["w1"]["launches"][key]
+                by_path["tp2_train_rank0"] = tp["x2"]["rank_launches"][key]
+                by_path["tp2_train_rank1"] = tp["x2"]["rank1_launches"][key]
                 if part == "fwd":
                     by_path["predict"] = predict_launches
                     by_path["moe_predict"] = moe["dense"][
@@ -4220,6 +4675,7 @@ def main() -> int:
                             "ms", "call_ms", "plain_ms", "library_ms",
                             "library_device_ms", "bound_ms", "bound_by")},
                         "max_abs_err": res["max_abs_err"][part]}
+                row["tp_rank_shape"] = tp["x2"]["flash_rank_shape"][part]
             if impl == "splash" and part == "fwd":
                 row["predict_shape"] = {
                     kind: {k: fp[kind][k] for k in (

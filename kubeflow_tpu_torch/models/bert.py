@@ -19,7 +19,7 @@ run in float32; the layers' weights and biases are cast to ``cfg.dtype``
 at each use (:data:`COMPUTE_PREFIXES`). Over a mesh of the data and
 fsdp axes (``mesh=``) each rank runs its rows of the batch and
 :func:`loss_fn` normalises by the global count of masked positions; the
-other axes are not yet ported.
+other axes (tensor among them) are not yet ported.
 """
 
 from __future__ import annotations

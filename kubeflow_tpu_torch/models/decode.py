@@ -59,6 +59,8 @@ sampled rows keep the target distribution, not JAX's numbers.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from kubeflow_tpu_torch.device import resolve_device
@@ -67,6 +69,7 @@ from kubeflow_tpu_torch.models.transformer import (
     _ffn,
     _head_kernel,
     _layer,
+    shard_config,
 )
 from kubeflow_tpu_torch.ops.attention import _kv_payload as _kv_arr
 from kubeflow_tpu_torch.ops.attention import (
@@ -75,8 +78,149 @@ from kubeflow_tpu_torch.ops.attention import (
 )
 from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rotary import rotary_frequencies
+from kubeflow_tpu_torch.parallel.collectives import reduce_shards
+from kubeflow_tpu_torch.parallel.mesh import TensorShards
+from kubeflow_tpu_torch.parallel.sharding import split_kv_heads
 
 _NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel shards (serving/continuous.py's tp_shards)
+# ---------------------------------------------------------------------------
+#
+# A tensor-parallel replica hands every function below a TensorShards of
+# per-shard parameter trees (the Megatron split of split_tensor) and a
+# state whose KV payload, dense rows or paged pool, fp or {"q", "scale"},
+# is a TensorShards of per-shard tensors over the KV-head dim
+# (shard_decode_state). Each layer runs on every shard's heads and
+# d_ff columns; the partial outputs of wo and down are summed across the
+# shards (reduce_shards) into every shard's copy of the residual. The
+# embedding is looked up per vocabulary shard and summed, and the logits
+# are the shards' vocabulary slices side by side, so sampling sees the
+# whole row. Block ids index the undivided block dim: the tables,
+# lengths, logits and the generator stay once, on shard 0's device, and
+# the allocator, trie, refcount/CoW and handoff never see the split. A
+# plain tree and plain tensors are one shard: the unsharded path, op for
+# op.
+
+
+def _shard_list(x) -> list:
+    return list(x) if isinstance(x, TensorShards) else [x]
+
+
+def _first(x):
+    """Shard 0's value (the value itself when unsharded)."""
+    return x[0] if isinstance(x, TensorShards) else x
+
+
+def _map(fn, *xs):
+    """``fn`` over the shards of ``xs`` (zipped), as a TensorShards when
+    ``xs[0]`` is one, else ``fn(*xs)``."""
+    if isinstance(xs[0], TensorShards):
+        return TensorShards(fn(*a) for a in zip(*map(_shard_list, xs)))
+    return fn(*xs)
+
+
+def _on(x, dev):
+    """``x`` (a tensor, None, or a tuple of them) on ``dev``."""
+    if isinstance(x, tuple):
+        return tuple(_on(t, dev) for t in x)
+    return x if x is None or x.device == dev else x.to(dev)
+
+
+_shard_config = functools.lru_cache(maxsize=16)(shard_config)
+
+
+def _shards(params, cfg: TransformerConfig) -> list:
+    """(parameters, config, device) of each shard: ``cfg`` itself for an
+    unsharded tree, else one shard's view of it (``shard_config``)."""
+    parts = _shard_list(params)
+    scfg = _shard_config(cfg, len(parts))
+    return [(p, scfg, p["embed"]["kernel"].device) for p in parts]
+
+
+def _embed(shards, tokens) -> list:
+    """Each shard's copy of the embeddings of ``tokens`` (long): shard
+    ``i`` holds rows ``i * V/tp ..`` of the table, looks up the tokens it
+    holds, zeros the rest, and the shards' rows are summed (one nonzero
+    term a token)."""
+    if len(shards) == 1:
+        return [shards[0][0]["embed"]["kernel"][tokens]]
+    parts = []
+    for i, (p, _cfg, dev) in enumerate(shards):
+        kernel = p["embed"]["kernel"]
+        rows = kernel.shape[0]
+        local = tokens.to(dev) - i * rows
+        held = (local >= 0) & (local < rows)
+        parts.append(torch.where(held[..., None],
+                                 kernel[local.clamp(0, rows - 1)], 0.0))
+    return reduce_shards(parts)
+
+
+def _logits(shards, xs):
+    """Final norm and head on each shard, f32, the vocabulary slices side
+    by side on shard 0's device."""
+    out = []
+    for (p, cfg, _dev), x in zip(shards, xs):
+        x = rms_norm(x, p["final_norm"], eps=cfg.norm_eps)
+        out.append((x @ _head_kernel(p, cfg)).float())
+    if len(out) == 1:
+        return out[0]
+    return torch.cat([o.to(out[0].device) for o in out], dim=-1)
+
+
+def _layers(shards, xs, attend, token_valid=None) -> list:
+    """The layer stack over a replica's shards from each shard's residual
+    ``xs``: ``attend(i, s, h, attn, cfg)`` is shard ``s``'s attention
+    output at layer ``i`` for its normed input ``h`` (its heads through
+    its rows of wo); the FFN is its d_ff columns. Each sublayer's partial
+    outputs are summed across the shards into every residual."""
+    n_layers = shards[0][1].n_layers
+    tvs = [_on(token_valid, dev) for _p, _c, dev in shards]
+    for i in range(n_layers):
+        layers = [_layer(p, i) for p, _c, _d in shards]
+        parts = [attend(i, s, rms_norm(x, layer["ln_attn"],
+                                       eps=cfg.norm_eps),
+                        layer["attn"], cfg)
+                 for s, ((_p, cfg, _d), x, layer)
+                 in enumerate(zip(shards, xs, layers))]
+        xs = [x + part for x, part in zip(xs, reduce_shards(parts))]
+        parts = [_ffn(rms_norm(x, layer["ln_mlp"], eps=cfg.norm_eps),
+                      layer["mlp"], cfg, tv)[0]
+                 for (_p, cfg, _d), x, layer, tv
+                 in zip(shards, xs, layers, tvs)]
+        xs = [x + part for x, part in zip(xs, reduce_shards(parts))]
+    return xs
+
+
+def _new_cache(params, cfg: TransformerConfig, batch: int, total_len: int,
+               device):
+    """A zeroed dense cache for ``params``: one per shard (their KV
+    heads, on their devices) for a sharded tree."""
+    if not isinstance(params, TensorShards):
+        return init_cache(cfg, batch, total_len, device)
+    caches = [init_cache(c, batch, total_len, dev)
+              for _p, c, dev in _shards(params, cfg)]
+    return {side: TensorShards(c[side] for c in caches)
+            for side in ("k", "v")}
+
+
+def shard_decode_state(state, devices):
+    """A decode state (or a dense prefix pool: any ``{"k", "v"}`` tree)
+    for a replica of ``len(devices)`` tensor shards: its KV payload, dense
+    rows or paged pool, fp or ``{"q", "scale"}``, split over the KV-head
+    dim into one contiguous tensor a shard on ``devices`` (JAX's
+    ``shard_decode_state``); the tables, lengths, logits and the
+    generator stay as they are, once."""
+    if set(state) == {"k", "v"}:
+        return {s: split_kv_heads(state[s], devices) for s in ("k", "v")}
+    out = dict(state)
+    for name in ("pool", "cache"):
+        if name in state:
+            out[name] = {s: split_kv_heads(state[name][s], devices)
+                         for s in ("k", "v")}
+    return out
 
 
 def _pool_layer(pool, i: int):
@@ -163,24 +307,25 @@ def forward_cached(params, tokens, cfg: TransformerConfig, cache, pos,
     block: MoE routing gives padding no expert capacity. A block that
     would end past the cache raises (JAX's ``dynamic_update_slice`` would
     clamp its start and overwrite earlier slots)."""
-    total = cache["k"].shape[2]
+    total = _first(cache["k"]).shape[2]
     if not 0 <= pos <= total - tokens.shape[1]:
         raise ValueError(f"cache write {pos}..{pos + tokens.shape[1]} "
                          f"outside {total} slots")
-    cos_t, sin_t = rotary_frequencies(cfg.head_dim, cache["k"].shape[2],
+    cos_t, sin_t = rotary_frequencies(cfg.head_dim, total,
                                       theta=cfg.rope_theta,
                                       device=tokens.device)
     rope_bt = (cos_t[positions], sin_t[positions])
-    x = params["embed"]["kernel"][tokens]
-    for i in range(cfg.n_layers):
-        layer = _layer(params, i)
-        h = rms_norm(x, layer["ln_attn"], eps=cfg.norm_eps)
-        x = x + _cached_attention(h, layer["attn"], cfg, rope_bt,
-                                  cache["k"][i], cache["v"][i], pos, valid)
-        h = rms_norm(x, layer["ln_mlp"], eps=cfg.norm_eps)
-        x = x + _ffn(h, layer["mlp"], cfg, token_valid)[0]
-    x = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
-    return (x @ _head_kernel(params, cfg)).float()
+    shards = _shards(params, cfg)
+    ks, vs = _shard_list(cache["k"]), _shard_list(cache["v"])
+    args = [_on((*rope_bt, valid), dev) for _p, _c, dev in shards]
+
+    def attend(i, s, h, attn, c):
+        cos, sin, valid_s = args[s]
+        return _cached_attention(h, attn, c, (cos, sin), ks[s][i], vs[s][i],
+                                 pos, valid_s)
+
+    xs = _layers(shards, _embed(shards, tokens), attend, token_valid)
+    return _logits(shards, xs)
 
 
 def _top_k_mask(logits, top_k: int):
@@ -359,9 +504,9 @@ def _state_kv(state):
         k = state["pool"]["k"]
         table = state["block_table"]
         return (k, state["pool"]["v"], table,
-                table.shape[1] * _kv_arr(k).shape[2])
+                table.shape[1] * _kv_arr(_first(k)).shape[2])
     k = state["cache"]["k"]
-    return k, state["cache"]["v"], None, k.shape[2]
+    return k, state["cache"]["v"], None, _first(k).shape[2]
 
 
 def _single_token_forward(params, cfg: TransformerConfig, k_pool, v_pool,
@@ -371,12 +516,13 @@ def _single_token_forward(params, cfg: TransformerConfig, k_pool, v_pool,
     place. ``token_valid`` [B] marks the rows whose token claims MoE
     capacity. Returns logits [B, V] f32."""
     dev = tok.device
+    k0 = _first(k_pool)
     # Every layer writes the same (row, position) set: index it once.
     if table is None:
-        total = k_pool.shape[2]
+        total = k0.shape[2]
         widx = _dense_write_index(pos_b, 1, total)
     else:
-        n, bs = _kv_arr(k_pool).shape[1], _kv_arr(k_pool).shape[2]
+        n, bs = _kv_arr(k0).shape[1], _kv_arr(k0).shape[2]
         total = table.shape[1] * bs
         widx = _write_index(table, pos_b[:, None], n, bs)
     cos_t, sin_t = rotary_frequencies(cfg.head_dim, total,
@@ -384,19 +530,22 @@ def _single_token_forward(params, cfg: TransformerConfig, k_pool, v_pool,
     # A parked row sits at pos == total; JAX clamps its table lookup.
     rpos = torch.clamp(pos_b.long(), 0, total - 1)[:, None]
     rope_bt = (cos_t[rpos], sin_t[rpos])
-    x = params["embed"]["kernel"][tok.long()][:, None]
     valid = torch.arange(total, device=dev)[None, :] <= pos_b[:, None]
     tv = None if token_valid is None else token_valid[:, None]
-    for i in range(cfg.n_layers):
-        layer = _layer(params, i)
-        h = rms_norm(x, layer["ln_attn"], eps=cfg.norm_eps)
-        x = x + _ragged_attention(
-            h, layer["attn"], cfg, rope_bt, _pool_layer(k_pool, i),
-            _pool_layer(v_pool, i), pos_b, valid, table, fused, widx)
-        h = rms_norm(x, layer["ln_mlp"], eps=cfg.norm_eps)
-        x = x + _ffn(h, layer["mlp"], cfg, tv)[0]
-    x = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
-    return (x @ _head_kernel(params, cfg)).float()[:, 0]
+    shards = _shards(params, cfg)
+    ks, vs = _shard_list(k_pool), _shard_list(v_pool)
+    args = [_on((*rope_bt, pos_b, valid, table), d) + (_on(widx, d),)
+            for _p, _c, d in shards]
+
+    def attend(i, s, h, attn, c):
+        cos, sin, pos_s, valid_s, table_s, widx_s = args[s]
+        return _ragged_attention(
+            h, attn, c, (cos, sin), _pool_layer(ks[s], i),
+            _pool_layer(vs[s], i), pos_s, valid_s, table_s, fused, widx_s)
+
+    xs = _layers(shards, [x[:, None] for x in _embed(shards, tok.long())],
+                 attend, tv)
+    return _logits(shards, xs)[:, 0]
 
 
 def _decode_step_body(state, params, cfg: TransformerConfig, top_k: int,
@@ -511,29 +660,32 @@ def _block_forward(params, cfg: TransformerConfig, k_pool, v_pool, tokens,
     dev = tokens.device
     s = tokens.shape[1]
     cols = pos_b.long()[:, None] + torch.arange(s, device=dev)[None, :]
+    k0 = _first(k_pool)
     # Every layer writes the same (row, token) set: index it once.
     if table is None:
-        total = k_pool.shape[2]
+        total = k0.shape[2]
         widx = _dense_write_index(pos_b, s, total)
     else:
-        n, bs = _kv_arr(k_pool).shape[1], _kv_arr(k_pool).shape[2]
+        n, bs = _kv_arr(k0).shape[1], _kv_arr(k0).shape[2]
         total = table.shape[1] * bs
         widx = _write_index(table, cols, n, bs)
     cos_t, sin_t = rotary_frequencies(cfg.head_dim, total,
                                       theta=cfg.rope_theta, device=dev)
     rpos = torch.clamp(cols, 0, total - 1)
     rope_bt = (cos_t[rpos], sin_t[rpos])
-    x = params["embed"]["kernel"][tokens.long()]
-    for i in range(cfg.n_layers):
-        layer = _layer(params, i)
-        h = rms_norm(x, layer["ln_attn"], eps=cfg.norm_eps)
-        x = x + _span_attention(
-            h, layer["attn"], cfg, rope_bt, _pool_layer(k_pool, i),
-            _pool_layer(v_pool, i), cols, table, fused, widx)
-        h = rms_norm(x, layer["ln_mlp"], eps=cfg.norm_eps)
-        x = x + _ffn(h, layer["mlp"], cfg, token_valid)[0]
-    x = rms_norm(x, params["final_norm"], eps=cfg.norm_eps)
-    return (x @ _head_kernel(params, cfg)).float()
+    shards = _shards(params, cfg)
+    ks, vs = _shard_list(k_pool), _shard_list(v_pool)
+    args = [_on((*rope_bt, cols, table), d) + (_on(widx, d),)
+            for _p, _c, d in shards]
+
+    def attend(i, s, h, attn, c):
+        cos, sin, cols_s, table_s, widx_s = args[s]
+        return _span_attention(
+            h, attn, c, (cos, sin), _pool_layer(ks[s], i),
+            _pool_layer(vs[s], i), cols_s, table_s, fused, widx_s)
+
+    xs = _layers(shards, _embed(shards, tokens.long()), attend, token_valid)
+    return _logits(shards, xs)
 
 
 # ---------------------------------------------------------------------------
@@ -765,7 +917,7 @@ def _prefill_rows(params, cfg: TransformerConfig, cache, prompt_tokens,
     prompt positions (of the rows ``row_valid`` marks, when given) claim
     MoE capacity. Returns (last-position logits [B, V] f32, clamped
     lengths)."""
-    total = cache["k"].shape[2]
+    total = _first(cache["k"]).shape[2]
     b, t0 = prompt_tokens.shape
     dev = prompt_tokens.device
     lengths = torch.clamp(prompt_lengths, min=1)
@@ -800,7 +952,7 @@ def generate(params, prompt_tokens, prompt_lengths, cfg: TransformerConfig,
     elif row_valid is None:
         row_valid = torch.ones((b,), dtype=torch.bool, device=dev)
     total = t0 + max_new_tokens
-    cache = init_cache(cfg, b, total, dev)
+    cache = _new_cache(params, cfg, b, total, dev)
     last, lengths = _prefill_rows(params, cfg, cache, prompt_tokens,
                                   prompt_lengths, row_valid)
     valid = torch.arange(total, device=dev)[None, :] < lengths[:, None]
@@ -830,7 +982,7 @@ def prefill(params, prompt_tokens, prompt_lengths, cfg: TransformerConfig, *,
     ``total_len`` slots, last-position logits [B, V]). Slots past the true
     length hold pad junk that decode overwrites before the mask admits
     it."""
-    cache = init_cache(cfg, prompt_tokens.shape[0], total_len,
+    cache = _new_cache(params, cfg, prompt_tokens.shape[0], total_len,
                        prompt_tokens.device)
     last, _ = _prefill_rows(params, cfg, cache, prompt_tokens,
                             prompt_lengths)
@@ -855,10 +1007,12 @@ def insert_row(state, slot, row_cache, last_logits, length, remaining,
     """Copy a prefilled request (batch-1 :func:`prefill` outputs) into row
     ``slot`` of the dense state, in place. A slot out of range raises
     (JAX's ``dynamic_update_slice`` would clamp it onto the last row)."""
-    slot = _row_index(slot, state["cache"]["k"].shape[1], "slot")
-    t = row_cache["k"].shape[2]
+    slot = _row_index(slot, _first(state["cache"]["k"]).shape[1], "slot")
+    t = _first(row_cache["k"]).shape[2]
     for side in ("k", "v"):
-        state["cache"][side][:, slot, :t] = row_cache[side][:, 0]
+        for dst, src in zip(_shard_list(state["cache"][side]),
+                            _shard_list(row_cache[side])):
+            dst[:, slot, :t] = src[:, 0]
     _set_rows(state, slot, length, remaining, temperature, last_logits[0])
     return state
 
@@ -870,15 +1024,17 @@ def _admit_rows_body(state, params, cfg: TransformerConfig, slots,
     repeat only as bucket padding that duplicates a real admission
     verbatim, so duplicate indices carry identical rows and the scatter
     is deterministic. Returns (state, last [K, V])."""
-    kc = state["cache"]["k"]
+    kc = _first(state["cache"]["k"])
     _check_rows(slots, kc.shape[1], "slots")
-    cache = init_cache(cfg, prompt_tokens.shape[0], kc.shape[2],
+    cache = _new_cache(params, cfg, prompt_tokens.shape[0], kc.shape[2],
                        prompt_tokens.device)
     last, lengths = _prefill_rows(params, cfg, cache, prompt_tokens,
                                   prompt_lengths)
     slots = slots.long()
     for side in ("k", "v"):
-        state["cache"][side][:, slots] = cache[side]
+        for dst, src in zip(_shard_list(state["cache"][side]),
+                            _shard_list(cache[side])):
+            dst[:, _on(slots, dst.device)] = src
     _set_rows(state, slots, lengths, remaining, temperature, last)
     return state, last
 
@@ -921,14 +1077,18 @@ def init_prefix_pool(cfg: TransformerConfig, pool_slots: int,
 
 
 def _store_prefix(pool, pool_slot, rows) -> None:
-    """Write ``rows[side]`` ([L, >= P, H, hd]) into pool row ``pool_slot``."""
-    pool_slot = _row_index(pool_slot, pool["k"].shape[1], "pool_slot")
-    plen = pool["k"].shape[2]
+    """Write ``rows[side]`` ([L, >= P, H, hd], a shard each) into pool
+    row ``pool_slot``."""
+    pool_slot = _row_index(pool_slot, _first(pool["k"]).shape[1],
+                           "pool_slot")
+    plen = _first(pool["k"]).shape[2]
     for side in ("k", "v"):
-        if rows[side].shape[1] < plen:
-            raise ValueError(f"rows of {rows[side].shape[1]} positions "
-                             f"cannot fill a pool row of {plen}")
-        pool[side][:, pool_slot] = rows[side][:, :plen]
+        for dst, src in zip(_shard_list(pool[side]),
+                            _shard_list(rows[side])):
+            if src.shape[1] < plen:
+                raise ValueError(f"rows of {src.shape[1]} positions "
+                                 f"cannot fill a pool row of {plen}")
+            dst[:, pool_slot] = src[:, :plen]
 
 
 @torch.inference_mode()
@@ -937,9 +1097,10 @@ def store_prefix_row(pool, pool_slot, state, row):
     cache positions into pool row ``pool_slot``, in place (the
     publish-on-finish path: a finished request's prompt region is its
     prefix)."""
-    row = _row_index(row, state["cache"]["k"].shape[1], "row")
+    row = _row_index(row, _first(state["cache"]["k"]).shape[1], "row")
     _store_prefix(pool, pool_slot,
-                  {side: state["cache"][side][:, row] for side in "kv"})
+                  {side: _map(lambda t: t[:, row], state["cache"][side])
+                   for side in "kv"})
     return pool
 
 
@@ -949,7 +1110,8 @@ def store_prefix_cache(pool, pool_slot, cache):
     ``pool_slot``, in place (the prime path: a shared system prompt
     pooled without touching the decode state or its generator)."""
     _store_prefix(pool, pool_slot,
-                  {side: cache[side][:, 0] for side in "kv"})
+                  {side: _map(lambda t: t[:, 0], cache[side])
+                   for side in "kv"})
     return pool
 
 
@@ -961,17 +1123,20 @@ def _admit_prefix_body(state, params, cfg: TransformerConfig, slot, pool,
     Positions past ``prefix_len`` hold the donor's unrelated continuation
     until the suffix overwrites them; ``valid`` masks everything past
     ``prompt_len``. A suffix that would end past the row raises."""
-    kc = state["cache"]["k"]
+    kc = _first(state["cache"]["k"])
     slot = _row_index(slot, kc.shape[1], "slot")
-    pool_slot = _row_index(pool_slot, pool["k"].shape[1], "pool_slot")
+    pool_slot = _row_index(pool_slot, _first(pool["k"]).shape[1],
+                           "pool_slot")
     prefix_len, prompt_len = int(prefix_len), int(prompt_len)
     total = kc.shape[2]
     s = suffix_tokens.shape[1]
     dev = suffix_tokens.device
-    cache = init_cache(cfg, 1, total, dev)
-    plen = pool["k"].shape[2]
+    cache = _new_cache(params, cfg, 1, total, dev)
+    plen = _first(pool["k"]).shape[2]
     for side in ("k", "v"):
-        cache[side][:, 0, :plen] = pool[side][:, pool_slot]
+        for dst, src in zip(_shard_list(cache[side]),
+                            _shard_list(pool[side])):
+            dst[:, 0, :plen] = src[:, pool_slot]
     suffix_len = max(prompt_len - prefix_len, 1)
     positions = prefix_len + torch.arange(s, device=dev)[None, :]
     valid = torch.arange(total, device=dev)[None, :] < prompt_len
@@ -980,7 +1145,9 @@ def _admit_prefix_body(state, params, cfg: TransformerConfig, slot, pool,
                             _moe_valid(cfg, s, suffix_len, dev))
     last = logits[:, suffix_len - 1]
     for side in ("k", "v"):
-        state["cache"][side][:, slot] = cache[side][:, 0]
+        for dst, src in zip(_shard_list(state["cache"][side]),
+                            _shard_list(cache[side])):
+            dst[:, slot] = src[:, 0]
     _set_rows(state, slot, prompt_len, remaining, temperature, last[0])
     return state, last
 
@@ -1049,27 +1216,28 @@ def _paged_admit_rows_body(state, params, cfg: TransformerConfig, slots,
     padding that duplicates a real admission verbatim, so duplicate
     indices carry identical payloads. In place; returns (state, last
     [K, V])."""
-    pool_k, pool_v = state["pool"]["k"], state["pool"]["v"]
-    n, bs = _kv_arr(pool_k).shape[1], _kv_arr(pool_k).shape[2]
+    n, bs = _kv_arr(_first(state["pool"]["k"])).shape[1:3]
     mb = state["block_table"].shape[1]
     total = mb * bs
     b = prompt_tokens.shape[0]
-    cache = init_cache(cfg, b, total, prompt_tokens.device)
+    cache = _new_cache(params, cfg, b, total, prompt_tokens.device)
     last, lengths = _prefill_rows(params, cfg, cache, prompt_tokens,
                                   prompt_lengths)
     slots = slots.long()
     rows_tbl = state["block_table"][slots].long()  # [b, mb]
     rows, cols = (rows_tbl < n).nonzero(as_tuple=True)
     blk = rows_tbl[rows, cols]
-    for pool, side in ((pool_k, "k"), (pool_v, "v")):
-        upd = cache[side].reshape(cfg.n_layers, b, mb, bs, cfg.n_kv_heads,
-                                  cfg.head_dim)[:, rows, cols]
-        if isinstance(pool, dict):
-            qd = _quantize_kv(upd)
-            pool["q"][:, blk] = qd["q"]
-            pool["scale"][:, blk] = qd["scale"]
-        else:
-            pool[:, blk] = upd
+    for side in ("k", "v"):
+        for pool, c in zip(_shard_list(state["pool"][side]),
+                           _shard_list(cache[side])):
+            r, col, bk = _on((rows, cols, blk), c.device)
+            upd = c.reshape(c.shape[0], b, mb, bs, *c.shape[3:])[:, r, col]
+            if isinstance(pool, dict):
+                qd = _quantize_kv(upd)
+                pool["q"][:, bk] = qd["q"]
+                pool["scale"][:, bk] = qd["scale"]
+            else:
+                pool[:, bk] = upd
     _set_rows(state, slots, lengths, remaining, temperature, last)
     return state, last
 
@@ -1176,21 +1344,22 @@ def store_blocks(pool, block_ids, cache):
     prime (a shared system prompt pooled without touching the decode
     state or its generator). Quantized pools quantize here, so primed
     blocks carry their scales. In place; returns the pool."""
-    arr = _kv_arr(pool["k"])
-    n_layers, n, bs = arr.shape[0], arr.shape[1], arr.shape[2]
-    ids = torch.as_tensor(block_ids, device=arr.device).long()
-    nblk = ids.shape[0]
-    keep = ids < n
     for side in ("k", "v"):
-        vals = cache[side][:, 0, : nblk * bs].reshape(
-            n_layers, nblk, bs, *arr.shape[3:])[:, keep]
-        dst = pool[side]
-        if isinstance(dst, dict):
-            qd = _quantize_kv(vals)
-            dst["q"][:, ids[keep]] = qd["q"]
-            dst["scale"][:, ids[keep]] = qd["scale"]
-        else:
-            dst[:, ids[keep]] = vals.to(dst.dtype)
+        for dst, src in zip(_shard_list(pool[side]),
+                            _shard_list(cache[side])):
+            arr = _kv_arr(dst)
+            n_layers, n, bs = arr.shape[0], arr.shape[1], arr.shape[2]
+            ids = torch.as_tensor(block_ids, device=arr.device).long()
+            nblk = ids.shape[0]
+            keep = ids < n
+            vals = src[:, 0, : nblk * bs].reshape(
+                n_layers, nblk, bs, *arr.shape[3:])[:, keep.to(src.device)]
+            if isinstance(dst, dict):
+                qd = _quantize_kv(vals)
+                dst["q"][:, ids[keep]] = qd["q"]
+                dst["scale"][:, ids[keep]] = qd["scale"]
+            else:
+                dst[:, ids[keep]] = vals.to(dst.dtype)
     return pool
 
 
@@ -1201,13 +1370,13 @@ def copy_block(pool, dst, src):
     copy a prefix hit pays. Quantized pools copy payload and scales
     verbatim (no second quantization). In place, so it lands before the
     suffix prefill that reads the copy. Returns the pool."""
-    n = _kv_arr(pool["k"]).shape[1]
+    n = _kv_arr(_first(pool["k"])).shape[1]
     dst = _row_index(dst, n, "dst block")
     src = _row_index(src, n, "src block")
     for side in ("k", "v"):
-        kv = pool[side]
-        for arr in (kv.values() if isinstance(kv, dict) else (kv,)):
-            arr[:, dst] = arr[:, src]
+        for kv in _shard_list(pool[side]):
+            for arr in (kv.values() if isinstance(kv, dict) else (kv,)):
+                arr[:, dst] = arr[:, src]
     return pool
 
 
@@ -1226,16 +1395,30 @@ def export_blocks(pool, block_ids):
     on the pool's device: ``{"k": [L, nblk, Bs, H, hd], "v": ...}`` for
     an fp pool, ``{"q", "scale"}`` a side for an int8 one (the codes AND
     their per-(position, head) scales), so an importer lands the pool's
-    content exactly. A pure gather: the pool is untouched."""
-    arr = _kv_arr(pool["k"])
+    content exactly. A pure gather: the pool is untouched. A sharded
+    pool's payload holds every head (the shards' heads side by side, on
+    shard 0's device), so any mesh shape imports it."""
+    arr = _kv_arr(_first(pool["k"]))
     ids = _block_ids(block_ids, arr.shape[1], arr.device)
 
     def _take(kv):
         if isinstance(kv, dict):
-            return {"q": kv["q"][:, ids], "scale": kv["scale"][:, ids]}
-        return kv[:, ids]
+            return {"q": kv["q"][:, _on(ids, kv["q"].device)],
+                    "scale": kv["scale"][:, _on(ids, kv["q"].device)]}
+        return kv[:, _on(ids, kv.device)]
 
-    return {"k": _take(pool["k"]), "v": _take(pool["v"])}
+    def _whole(side):
+        parts = [_take(kv) for kv in _shard_list(side)]
+        if len(parts) == 1:
+            return parts[0]
+        if isinstance(parts[0], dict):
+            return {"q": torch.cat([p["q"].to(arr.device) for p in parts],
+                                   dim=-2),
+                    "scale": torch.cat([p["scale"].to(arr.device)
+                                        for p in parts], dim=-1)}
+        return torch.cat([p.to(arr.device) for p in parts], dim=-2)
+
+    return {"k": _whole(pool["k"]), "v": _whole(pool["v"])}
 
 
 @torch.inference_mode()
@@ -1245,29 +1428,36 @@ def import_blocks(pool, block_ids, payload):
     copied, never quantized again. The payload must match the pool's
     layout, block shape and dtype (an fp payload into an fp pool of the
     same dtype, an int8 one into an int8 pool); ids out of range raise.
-    Returns the pool."""
-    arr = _kv_arr(pool["k"])
+    A payload holds every head, whatever mesh exported it; a sharded
+    pool takes each shard's heads of it. Returns the pool."""
+    arr = _kv_arr(_first(pool["k"]))
     ids = _block_ids(block_ids, arr.shape[1], arr.device)
 
-    def _put(dst, vals, what):
-        if tuple(vals.shape) != (dst.shape[0], ids.shape[0],
-                                 *dst.shape[2:]):
+    def _put(dsts, vals, what, head_dim):
+        heads = sum(d.shape[head_dim] for d in dsts)
+        want = (dsts[0].shape[0], ids.shape[0], *dsts[0].shape[2:])
+        want = want[:head_dim] + (heads,) + want[head_dim + 1:]
+        if tuple(vals.shape) != want:
             raise ValueError(f"payload {what} shape {tuple(vals.shape)} "
                              f"does not fit {ids.shape[0]} blocks of a "
-                             f"pool {tuple(dst.shape)}")
-        if vals.dtype != dst.dtype:
+                             f"pool {tuple(dsts[0].shape)} x {len(dsts)} "
+                             "shards")
+        if vals.dtype != dsts[0].dtype:
             raise ValueError(f"payload {what} dtype {vals.dtype} != pool "
-                             f"dtype {dst.dtype}")
-        dst[:, ids] = vals.to(dst.device)
+                             f"dtype {dsts[0].dtype}")
+        parts = vals.split([d.shape[head_dim] for d in dsts], dim=head_dim)
+        for dst, part in zip(dsts, parts):
+            dst[:, _on(ids, dst.device)] = part.to(dst.device)
 
     for side in ("k", "v"):
-        dst, vals = pool[side], payload[side]
-        if isinstance(dst, dict) != isinstance(vals, dict):
+        dsts, vals = _shard_list(pool[side]), payload[side]
+        if isinstance(dsts[0], dict) != isinstance(vals, dict):
             raise ValueError("payload and pool disagree on the KV layout "
                              "(fp against int8)")
-        if isinstance(dst, dict):
-            _put(dst["q"], vals["q"], f"{side}.q")
-            _put(dst["scale"], vals["scale"], f"{side}.scale")
+        if isinstance(vals, dict):
+            _put([d["q"] for d in dsts], vals["q"], f"{side}.q", 3)
+            _put([d["scale"] for d in dsts], vals["scale"],
+                 f"{side}.scale", 3)
         else:
-            _put(dst, vals, side)
+            _put(dsts, vals, side, 3)
     return pool

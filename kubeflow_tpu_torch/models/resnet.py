@@ -34,7 +34,7 @@ rows of the batch, and training's batch norm is synchronised: the mean
 over the global batch, then the biased variance as the global mean of
 squared deviations from it (two psums, both differentiable), which is
 what GSPMD computes for JAX's ``jnp.mean``/``jnp.var`` over a sharded
-batch. The other axes are not yet ported.
+batch. The other axes (tensor among them) are not yet ported.
 """
 
 from __future__ import annotations

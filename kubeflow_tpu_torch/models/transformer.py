@@ -23,11 +23,23 @@ regions wrap groups of that many layers, as JAX's grouped scan does.
 (:func:`_remat_layer`), and ``loss_chunks`` the chunked LM loss. Options
 whose port is still to come raise ``ValueError("... not yet ported")``
 where training reaches them: ``context_parallel``, ``pipeline_stages > 1``
-and a mesh with an axis other than data and fsdp above 1. Over the data
-and fsdp axes (:func:`loss_fn` with ``mesh=``) each rank runs its rows of
-the batch through the whole model; a mixture of experts there is refused,
-since JAX's capacity and queue positions come from the global batch
-(expert parallelism's dispatch).
+and a mesh with an axis other than data, fsdp and tensor above 1. Over the
+data and fsdp axes (:func:`loss_fn` with ``mesh=``) each rank runs its
+rows of the batch through the whole model; a mixture of experts there is
+refused, since JAX's capacity and queue positions come from the global
+batch (expert parallelism's dispatch), and over ``tensor`` too.
+
+Over the ``tensor`` axis each rank holds its block of every leaf the
+partition rules split (:func:`partition_rules`) and runs Megatron's
+layer on it (:func:`shard_config` is its view of the config): wq/wk/wv
+and gate/up column-parallel on its heads and ``d_ff`` columns behind
+``copy_to_tensor``, wo and down row-parallel followed by
+``reduce_from_tensor``, the embedding and the head split over the
+vocabulary (the logits gathered whole). A rank's contiguous query heads
+read its contiguous KV heads (``G = Hq / Hkv`` heads a group), so the
+flash kernels run on each rank's heads unchanged. Remat regions replay
+the forward's collectives when they recompute, in the same order on
+every rank.
 
 The JAX package computes :func:`moe_ffn` with einsums, ``top_k`` and a
 ``cumsum`` (no Pallas kernel), so it is plain PyTorch here on every
@@ -39,6 +51,7 @@ tensor.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import threading
 from dataclasses import dataclass, replace
@@ -59,6 +72,11 @@ from kubeflow_tpu_torch.ops.losses import (
 )
 from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rotary import apply_rotary, rotary_frequencies
+from kubeflow_tpu_torch.parallel.collectives import (
+    copy_to_tensor,
+    gather_from_tensor,
+    reduce_from_tensor,
+)
 from kubeflow_tpu_torch.parallel.mesh import (
     AXIS_DATA,
     AXIS_EXPERT,
@@ -67,6 +85,7 @@ from kubeflow_tpu_torch.parallel.mesh import (
     AXIS_SEQUENCE,
     AXIS_TENSOR,
     BATCH_AXES,
+    axis_index,
     axis_size,
     require_axes,
 )
@@ -161,6 +180,52 @@ def config(name: str, **overrides) -> TransformerConfig:
     if isinstance(overrides.get("dtype"), str):
         overrides["dtype"] = getattr(torch, overrides["dtype"])
     return replace(PRESETS[name], **overrides)
+
+
+@dataclass(frozen=True)
+class TensorShardConfig(TransformerConfig):
+    """One tensor shard's view of a config (:func:`shard_config`): its
+    query and KV heads, its ``d_ff`` columns, the whole ``head_dim``.
+    ``tp_mesh`` is the training mesh whose ``tensor`` axis the layer's
+    collectives run over; None for a serving shard, whose replica sums
+    the shards itself (``models/decode.py``)."""
+
+    shards: int = 1
+    tp_mesh: object = None
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // (self.n_heads * self.shards)
+
+
+def shard_config(cfg: TransformerConfig, tp: int, mesh=None
+                 ) -> TransformerConfig:
+    """The config one of ``tp`` tensor shards runs (``cfg`` itself at tp
+    1 without a mesh). Raises unless ``tp`` divides the heads, the KV
+    heads, ``d_ff`` and the vocabulary."""
+    if tp == 1 and mesh is None:
+        return cfg
+    for what in ("n_heads", "n_kv_heads", "d_ff", "vocab_size"):
+        if getattr(cfg, what) % tp:
+            raise ValueError(f"tensor degree {tp} must divide {what} "
+                             f"{getattr(cfg, what)}")
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+              if f.name not in ("shards", "tp_mesh")}
+    fields.update(n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
+                  d_ff=cfg.d_ff // tp)
+    return TensorShardConfig(**fields, shards=tp, tp_mesh=mesh)
+
+
+def _to_tensor(cfg: TransformerConfig, x):
+    """The input of a column-parallel product (Megatron's copy)."""
+    mesh = getattr(cfg, "tp_mesh", None)
+    return x if mesh is None else copy_to_tensor(x, mesh)
+
+
+def _from_tensor(cfg: TransformerConfig, x):
+    """The sum of a row-parallel product's partial outputs."""
+    mesh = getattr(cfg, "tp_mesh", None)
+    return x if mesh is None else reduce_from_tensor(x, mesh)
 
 
 # Leaves that rms_norm reads in float32; every other leaf is a matmul or
@@ -265,16 +330,24 @@ def batch_partition_spec(cfg: TransformerConfig) -> tuple:
 
 def check_mesh(cfg: TransformerConfig, mesh) -> None:
     """Raise ValueError("... not yet ported") for a mesh the training
-    forward does not run over: an axis other than data and fsdp above 1,
-    or a mixture of experts over a data or fsdp degree above 1 (JAX takes
-    the capacity and each token's queue position over the global batch,
-    which needs expert parallelism's cross-rank dispatch)."""
-    require_axes(mesh, BATCH_AXES, "the transformer forward")
+    forward does not run over: an axis other than data, fsdp and tensor
+    above 1, a mixture of experts over a data or fsdp degree above 1 (JAX
+    takes the capacity and each token's queue position over the global
+    batch, which needs expert parallelism's cross-rank dispatch) or over
+    a tensor degree above 1; and raise ValueError for a tensor degree
+    that does not divide the heads, ``d_ff`` or the vocabulary."""
+    require_axes(mesh, (*BATCH_AXES, AXIS_TENSOR), "the transformer forward")
+    tp = axis_size(mesh, AXIS_TENSOR)
     if cfg.n_experts and axis_size(mesh, BATCH_AXES) > 1:
         raise ValueError(
             "a mixture of experts over a data or fsdp degree above 1 "
             "(global capacity and dispatch: expert parallelism) is not yet "
             "ported to the PyTorch package")
+    if cfg.n_experts and tp > 1:
+        raise ValueError(
+            "a mixture of experts over the 'tensor' mesh axis (the expert "
+            "weights' d_ff split) is not yet ported to the PyTorch package")
+    shard_config(cfg, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -335,6 +408,7 @@ def _qkv(cfg: TransformerConfig, rope, h, attn):
     b, t, _d = h.shape
     hd = cfg.head_dim
     cos, sin = rope
+    h = _to_tensor(cfg, h)
     q = (h @ attn["wq"].to(cfg.dtype)).reshape(b, t, cfg.n_heads, hd)
     k = (h @ attn["wk"].to(cfg.dtype)).reshape(b, t, cfg.n_kv_heads, hd)
     v = (h @ attn["wv"].to(cfg.dtype)).reshape(b, t, cfg.n_kv_heads, hd)
@@ -353,7 +427,7 @@ def _attn_ctx(cfg: TransformerConfig, q, k, v):
 
 def _attention(h, attn, cfg: TransformerConfig, rope):
     ctx = _attn_ctx(cfg, *_qkv(cfg, rope, h, attn))
-    return ctx @ attn["wo"].to(cfg.dtype)
+    return _from_tensor(cfg, ctx @ attn["wo"].to(cfg.dtype))
 
 
 # Set while the ops of a value a region's selective checkpoint may keep
@@ -374,12 +448,13 @@ def _keep():
 def _mlp_in(cfg: TransformerConfig, h, mlp):
     """The gate and up products (JAX's "mlp_gate", "mlp_up")."""
     wg, wu = mlp["gate"].to(cfg.dtype), mlp["up"].to(cfg.dtype)
+    h = _to_tensor(cfg, h)
     with _keep():
         return h @ wg, h @ wu
 
 
 def _mlp_out(cfg: TransformerConfig, gate, up, down):
-    return (F.silu(gate) * up) @ down.to(cfg.dtype)
+    return _from_tensor(cfg, (F.silu(gate) * up) @ down.to(cfg.dtype))
 
 
 def _mlp(h, mlp, cfg: TransformerConfig):
@@ -546,7 +621,7 @@ def _mlp_in_region(cfg, x, ln, mlp):
 
 
 def _wo_mlp_in_region(cfg, x, ctx, wo, ln, mlp):
-    x = x + ctx @ wo.to(cfg.dtype)
+    x = x + _from_tensor(cfg, ctx @ wo.to(cfg.dtype))
     return (x, *_mlp_in_region(cfg, x, ln, mlp))
 
 
@@ -614,9 +689,19 @@ def _group_fn(cfg: TransformerConfig, rope, x, layers: list):
 
 
 def _embed_lookup(kernel, tokens, cfg: TransformerConfig):
-    """Token embedding by gather (JAX's path without a tensor-parallel
-    mesh). Gathering rows then casting equals casting then gathering."""
-    return kernel[tokens.long()].to(cfg.dtype)
+    """Token embedding by gather. Gathering rows then casting equals
+    casting then gathering. Over a tensor mesh ``kernel`` is this rank's
+    block of the vocabulary: each rank gathers the tokens it holds, zeros
+    the rest, and the ranks' rows are summed (one nonzero term a token:
+    the sum JAX's one-hot matmul computes there)."""
+    mesh = getattr(cfg, "tp_mesh", None)
+    if mesh is None:
+        return kernel[tokens.long()].to(cfg.dtype)
+    rows = kernel.shape[0]
+    local = tokens.long() - axis_index(mesh, AXIS_TENSOR) * rows
+    held = (local >= 0) & (local < rows)
+    x = torch.where(held[..., None], kernel[local.clamp(0, rows - 1)], 0.0)
+    return reduce_from_tensor(x.to(cfg.dtype), mesh)
 
 
 def hidden_states(params, tokens, cfg: TransformerConfig, *, mesh=None):
@@ -627,6 +712,8 @@ def hidden_states(params, tokens, cfg: TransformerConfig, *, mesh=None):
     layers) as checkpoint regions of ``cfg.remat_policy``; an inference
     forward opens none."""
     _check_trainable(cfg, mesh)
+    if mesh is not None and axis_size(mesh, AXIS_TENSOR) > 1:
+        cfg = shard_config(cfg, axis_size(mesh, AXIS_TENSOR), mesh)
     t = tokens.shape[1]
     rope = rotary_frequencies(cfg.head_dim, t, theta=cfg.rope_theta,
                               device=tokens.device)
@@ -659,13 +746,27 @@ def _head_kernel(params, cfg: TransformerConfig):
     return params["lm_head"]["kernel"]
 
 
+def _tensor_mesh(mesh):
+    """``mesh`` when its tensor axis is above 1, else None."""
+    if mesh is not None and axis_size(mesh, AXIS_TENSOR) > 1:
+        return mesh
+    return None
+
+
 def apply(params, tokens, cfg: TransformerConfig, *, mesh=None,
           return_aux: bool = False):
     """tokens [B, T] int → logits [B, T, V] (cfg.dtype).
     ``return_aux=True`` also returns the summed MoE router aux loss (0.0
-    for dense models)."""
+    for dense models). Over a tensor mesh the head is this rank's block
+    of the vocabulary and the logits are gathered whole."""
     x, aux = hidden_states(params, tokens, cfg, mesh=mesh)
-    logits = x @ _head_kernel(params, cfg).to(cfg.dtype)
+    tmesh = _tensor_mesh(mesh)
+    if tmesh is None:
+        logits = x @ _head_kernel(params, cfg).to(cfg.dtype)
+    else:
+        logits = gather_from_tensor(
+            copy_to_tensor(x, tmesh) @ _head_kernel(params, cfg).to(
+                cfg.dtype), tmesh)
     if return_aux:
         return logits, aux
     return logits
@@ -678,14 +779,17 @@ def loss_fn(params, batch, cfg: TransformerConfig, *, mesh=None):
     chunks (``chunked_lm_head_loss``). An MoE model adds
     ``router_aux_loss`` × the summed aux, reported as
     ``metrics["router_aux_loss"]``. Returns (loss, metrics). Over ``mesh``
-    (data and fsdp; the batch is this rank's rows) the loss is this
-    rank's term of the global loss and the metrics are global."""
+    (the batch is this rank's rows, the same on every rank of a tensor
+    group) the loss is this rank's term of the global loss and the
+    metrics are global."""
     if "inputs" in batch:
         inputs, targets = batch["inputs"], batch["targets"]
     else:
         inputs, targets = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
     if cfg.loss_chunks:
         x, aux = hidden_states(params, inputs, cfg, mesh=mesh)
+        if _tensor_mesh(mesh) is not None:
+            x = copy_to_tensor(x, mesh)
         b, t, d = x.shape
         loss, metrics = chunked_lm_head_loss(
             x.reshape(b * t, d), _head_kernel(params, cfg).to(cfg.dtype),

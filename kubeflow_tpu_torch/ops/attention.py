@@ -36,6 +36,8 @@ from __future__ import annotations
 import torch
 
 from kubeflow_tpu_torch import kernels
+from kubeflow_tpu_torch.parallel.mesh import TensorShards
+from kubeflow_tpu_torch.parallel.sharding import split_kv_heads
 
 _NEG_INF = -1e30
 # Default block widths, as in the JAX package: the plain blockwise path
@@ -393,11 +395,14 @@ def paged_decode_attention(q, k_pool, v_pool, table, pos, *,
     ``b`` attends virtual positions ``<= pos[b]``. Returns [B, Hq, hd] f32.
 
     CUDA tensors go through the hand-written kernel (or raise); CPU
-    tensors through the plain version. ``mesh`` (tensor parallelism) is
-    not yet ported."""
+    tensors through the plain version. ``mesh`` (a serving mesh:
+    ``parallel.mesh.serving_mesh``'s devices) runs the mesh twin
+    (:func:`_mesh_twin`): each shard walks the same table over its own
+    heads."""
     if mesh is not None:
-        raise ValueError("paged_decode_attention over a mesh (tensor "
-                         "parallelism) is not yet ported")
+        return _mesh_twin(paged_decode_attention, q, k_pool, v_pool, table,
+                          pos, n_kv_heads=n_kv_heads, scale=scale,
+                          mesh=mesh, axis=axis)
     b, hq, hd = q.shape
     if hq % n_kv_heads:
         raise ValueError(
@@ -411,6 +416,48 @@ def paged_decode_attention(q, k_pool, v_pool, table, pos, *,
         out = kernels.paged_decode(qg.contiguous(), k_pool, v_pool, table,
                                    pos, sm_scale)
     return out.reshape(b, hq, hd)
+
+
+def _shard_heads(n_heads: int, n_kv_heads: int, tp: int, axis: str) -> None:
+    """Raise unless ``tp`` shards divide the query and KV heads (JAX's
+    ``_shard_heads``)."""
+    if n_kv_heads % tp or n_heads % tp:
+        raise ValueError(
+            f"heads (q {n_heads}, kv {n_kv_heads}) not divisible by the "
+            f"{axis!r} axis size {tp}")
+
+
+def _pool_shards(pool, devices):
+    """A pool as one contiguous ``[N, Bs, Hkv / tp, hd]`` pool a shard:
+    a TensorShards as it is (each shard's own pool), a whole pool cut
+    over its heads (a strided head slice would not reach the kernel)."""
+    if isinstance(pool, TensorShards):
+        return pool
+    return split_kv_heads(pool, devices)
+
+
+def _mesh_twin(op, q, k_pool, v_pool, table, pos, *, n_kv_heads, scale,
+               mesh, axis):
+    """``op`` (the paged decode or span read) over a serving mesh, the
+    counterpart of JAX's shard_map twins: shard ``s`` reads its own pool
+    (its ``Hkv / tp`` heads) through the same table with its query heads,
+    on its device, the shards one after another on each device's current
+    stream (the kernel's split-KV counters are a device's own); the
+    outputs join over the heads on ``q``'s device. Per-head math is
+    shard-local, so the result equals the unsharded call's."""
+    devices = list(mesh)
+    tp = len(devices)
+    hq = q.shape[-2]
+    _shard_heads(hq, n_kv_heads, tp, axis)
+    kps, vps = _pool_shards(k_pool, devices), _pool_shards(v_pool, devices)
+    step = hq // tp
+    outs = []
+    for s, dev in enumerate(devices):
+        q_s = q[..., s * step:(s + 1) * step, :].to(dev)
+        outs.append(op(q_s, kps[s], vps[s], table.to(dev), pos.to(dev),
+                       n_kv_heads=n_kv_heads // tp, scale=scale).to(
+                           q.device))
+    return torch.cat(outs, dim=-2)
 
 
 def _read_blocks(pool, blk):
@@ -495,11 +542,12 @@ def paged_span_attention(q, k_pool, v_pool, table, pos, *,
     Plain PyTorch on every device, as JAX's XLA walk is on every backend:
     it walks :data:`SPAN_GROUP_POSITIONS` positions of the table a step
     (one gather of those blocks per side), so a layer costs
-    ``ceil(MB * Bs / SPAN_GROUP_POSITIONS)`` steps. ``mesh`` (tensor
-    parallelism) is not yet ported."""
+    ``ceil(MB * Bs / SPAN_GROUP_POSITIONS)`` steps. ``mesh`` runs the
+    mesh twin, as :func:`paged_decode_attention` does."""
     if mesh is not None:
-        raise ValueError("paged_span_attention over a mesh (tensor "
-                         "parallelism) is not yet ported")
+        return _mesh_twin(paged_span_attention, q, k_pool, v_pool, table,
+                          pos, n_kv_heads=n_kv_heads, scale=scale,
+                          mesh=mesh, axis=axis)
     b, s_w, hq, hd = q.shape
     if hq % n_kv_heads:
         raise ValueError(

@@ -11,7 +11,11 @@ Over a mesh (``mesh=``, each rank holding its rows of the batch) the
 normaliser is the GLOBAL count of valid targets, summed over the batch's
 axes without a gradient: each rank's loss is its term of the loss JAX
 computes over the whole batch, so the terms' gradients sum to JAX's
-gradient. The metrics are the global values (the terms summed).
+gradient. The metrics are the global values (the terms summed). Ranks of
+the ``tensor`` axis hold the same rows and compute the same loss, so the
+count and the metrics sum over the batch axes alone; the chunked loss
+gathers a tensor rank's vocabulary block of each chunk's logits whole
+(``gather_from_tensor``, whose gradient is the rank's slice).
 """
 
 from __future__ import annotations
@@ -19,8 +23,8 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from kubeflow_tpu_torch.parallel.collectives import psum_
-from kubeflow_tpu_torch.parallel.mesh import BATCH_AXES
+from kubeflow_tpu_torch.parallel.collectives import gather_from_tensor, psum_
+from kubeflow_tpu_torch.parallel.mesh import AXIS_TENSOR, BATCH_AXES, axis_size
 
 
 def batch_sum(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -77,9 +81,14 @@ def softmax_cross_entropy(logits, labels, *, z_loss: float = 0.0,
     return loss, metrics
 
 
-def _chunk_sums(x, head, labels):
-    """(sum of nll, sum of lse^2, tokens) over one chunk's unmasked rows."""
-    nll, lse = _nll_and_lse(x @ head, labels)
+def _chunk_sums(x, head, labels, tmesh=None):
+    """(sum of nll, sum of lse^2, tokens) over one chunk's unmasked rows;
+    over ``tmesh`` (a tensor mesh) ``head`` is this rank's vocabulary
+    block and the chunk's logits are gathered whole."""
+    logits = x @ head
+    if tmesh is not None:
+        logits = gather_from_tensor(logits, tmesh)
+    nll, lse = _nll_and_lse(logits, labels)
     maskf = (labels >= 0).float()
     return ((nll * maskf).sum(), (torch.square(lse) * maskf).sum(),
             maskf.sum())
@@ -95,19 +104,22 @@ def chunked_lm_head_loss(x, head, labels, *, z_loss: float = 0.0,
     logsumexp in f32, z-loss and masking), summed chunk by chunk as JAX's
     scan does.
 
-    x: [N, D] final hidden states; head: [D, V]; labels: [N] int
-    (negative = ignore). Returns (loss, metrics) like the unchunked path,
-    over ``mesh`` too.
+    x: [N, D] final hidden states; head: [D, V] (over a mesh with a
+    tensor axis, this rank's [D, V / tp] block, ``x`` already behind
+    ``copy_to_tensor``); labels: [N] int (negative = ignore). Returns
+    (loss, metrics) like the unchunked path, over ``mesh`` too.
     """
     n = x.shape[0]
     if n % n_chunks:
         raise ValueError(f"rows {n} not divisible by n_chunks {n_chunks}")
     rows = n // n_chunks
+    tmesh = mesh if mesh is not None and axis_size(mesh, AXIS_TENSOR) > 1 \
+        else None
     nll_sum = zsq_sum = tok_sum = torch.zeros((), dtype=torch.float32,
                                               device=x.device)
     for i in range(n_chunks):
         args = (x[i * rows:(i + 1) * rows], head,
-                labels[i * rows:(i + 1) * rows])
+                labels[i * rows:(i + 1) * rows], tmesh)
         if torch.is_grad_enabled():
             sums = checkpoint(_chunk_sums, *args, use_reentrant=False,
                               preserve_rng_state=False)

@@ -1,16 +1,22 @@
-"""Data-parallel and FSDP training over ``torch.distributed``; counterpart of
-``kubeflow_tpu/parallel/``.
+"""Data-parallel, FSDP and tensor-parallel training over
+``torch.distributed``, and the layout of a tensor-parallel serving
+replica; counterpart of ``kubeflow_tpu/parallel/``.
 
 - :mod:`~kubeflow_tpu_torch.parallel.distributed`: the gang's rendezvous
   from the JaxJob controller's environment (one process per GPU) and the
   host-side agreements (``global_any``, ``global_min_int``, ``barrier``).
 - :mod:`~kubeflow_tpu_torch.parallel.mesh`: ``MeshConfig`` and its six
-  named axes as a ``DeviceMesh``.
-- :mod:`~kubeflow_tpu_torch.parallel.sharding`: the partition rules and
-  the shard / unshard of a leaf under a spec.
+  named axes as a ``DeviceMesh``; ``serving_mesh``, the devices of a
+  tensor-parallel serving replica, and ``TensorShards``, its per-shard
+  values.
+- :mod:`~kubeflow_tpu_torch.parallel.sharding`: the partition rules, the
+  shard / unshard of a leaf under a spec, and ``split_tensor`` /
+  ``merge_tensor`` of a whole tree into its tensor shards.
 - :mod:`~kubeflow_tpu_torch.parallel.collectives`: psum, all_gather,
   reduce_scatter and the rest over named mesh axes, differentiable where a
-  forward uses them.
+  forward uses them; Megatron's ``copy_to_tensor`` /
+  ``reduce_from_tensor`` / ``gather_from_tensor``; ``reduce_shards``, the
+  sum of a serving replica's shards in one process.
 - :mod:`~kubeflow_tpu_torch.parallel.launch`: a gang of N processes on one
   host with the JaxJob environment.
 

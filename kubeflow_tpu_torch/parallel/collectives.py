@@ -15,6 +15,16 @@ sum over the mesh in the package goes through it (the gang's host
 agreements ride their own gloo group, ``parallel.distributed``). The
 collectives run at every degree, 1 included.
 
+Tensor parallelism needs other gradients (Megatron's pair): every
+tensor rank holds the same rows and computes the same loss, so a sum over
+``tensor`` with psum's backward would hand each rank ``tp`` times its
+gradient. :func:`copy_to_tensor` (identity forward, psum backward) goes
+before a column-parallel product, :func:`reduce_from_tensor` (psum
+forward, identity backward) after a row-parallel one, and
+:func:`gather_from_tensor` joins vocab-sharded logits, its backward
+taking this rank's slice. :func:`reduce_shards` is the single-process
+sum of a serving replica's shards (no process group).
+
 ``reduce_scatter_tensor`` and ``all_gather_into_tensor`` are the names
 every torch release of this port's range has.
 """
@@ -121,9 +131,80 @@ class _ReduceScatter(torch.autograd.Function):
         return _gather_along(g, ctx.dim, ctx.group, ctx.n), None, None, None
 
 
+class _CopyToTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum_(g.clone(), ctx.mesh, ctx.axis), None, None
+
+
+class _ReduceFromTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return psum_(x.clone(), mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFromTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, n, index):
+        ctx.dim, ctx.index, ctx.width = dim, index, x.shape[dim]
+        return _gather_along(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.index * ctx.width, ctx.width)
+                .contiguous(), None, None, None, None)
+
+
 def psum(x, mesh, axis):
     """The sum of ``x`` over ``axis``, on every rank of it."""
     return _PSum.apply(x, mesh, axis)
+
+
+def copy_to_tensor(x, mesh, axis="tensor"):
+    """``x`` as it is, whose gradient is summed over ``axis``: the input
+    of a column-parallel product, whose ranks each see a part of the
+    gradient of a replicated ``x``."""
+    return _CopyToTensor.apply(x, mesh, axis)
+
+
+def reduce_from_tensor(x, mesh, axis="tensor"):
+    """The sum over ``axis`` of a row-parallel product's partial outputs;
+    its gradient passes through as it is (every rank holds the whole
+    gradient of the replicated sum)."""
+    return _ReduceFromTensor.apply(x, mesh, axis)
+
+
+def gather_from_tensor(x, mesh, axis="tensor", *, dim: int = -1):
+    """The shards of ``axis`` concatenated along ``dim`` (vocab-sharded
+    logits made whole); the gradient is this rank's slice of the whole
+    one, which every rank computes alike."""
+    dim = dim % x.ndim
+    return _GatherFromTensor.apply(x, dim, axis_group(mesh, axis),
+                                   axis_size(mesh, axis),
+                                   axis_index(mesh, axis))
+
+
+def reduce_shards(parts: list) -> list:
+    """The sum of a serving replica's per-shard partial outputs (one
+    process, one tensor a shard), added in shard order on shard 0's
+    device, so the result does not depend on the placement; returned on
+    each shard's device. One shard's part comes back as it is."""
+    if len(parts) == 1:
+        return list(parts)
+    dev = parts[0].device
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p.to(dev)
+    return [total.to(p.device) for p in parts]
 
 
 def pmean(x, mesh, axis):

@@ -9,8 +9,10 @@ placement of ``arrange_devices`` has no counterpart on GPUs). Collectives
 over a single axis use the mesh's own groups; a group over several axes
 (the batch's ``("data", "fsdp")``) is created by :func:`axis_group`.
 
-Only the data and fsdp axes train here; :func:`require_axes` refuses a
-mesh whose other axes are larger than 1.
+The data, fsdp and tensor axes train here; :func:`require_axes` refuses a
+mesh whose other axes are larger than 1. :func:`serving_mesh` is the
+single-process layout of a tensor-parallel serving replica: a list of the
+devices its shards live on.
 """
 
 from __future__ import annotations
@@ -196,9 +198,49 @@ def axis_group(mesh, axes):
 def require_axes(mesh, allowed: tuple[str, ...], what: str) -> None:
     """Raise ValueError("... not yet ported") naming the first axis
     outside ``allowed`` whose degree is above 1."""
+    ported = " and ".join([", ".join(allowed[:-1]), allowed[-1]]
+                          if len(allowed) > 1 else allowed)
     for name, degree in mesh_degrees(mesh).items():
         if degree > 1 and name not in allowed:
             raise ValueError(
                 f"{what} over the {name!r} mesh axis (degree {degree}) is "
-                "not yet ported to the PyTorch package; the data and fsdp "
-                "axes are")
+                f"not yet ported to the PyTorch package; the {ported} axes "
+                "are")
+
+
+class TensorShards(list):
+    """The per-shard values of a tensor-parallel serving replica, in shard
+    order: its parameter trees (``parallel.sharding.split_tensor``), or
+    one side of its KV store split over the KV heads (``models/decode.py:
+    shard_decode_state``), one contiguous tensor a shard on that shard's
+    device. A plain value stands for one shard."""
+
+
+def serving_mesh(tp: int, *, devices=None) -> list[torch.device]:
+    """The devices of a tensor-parallel serving replica, shard order: one
+    process drives ``tp`` shards (JAX's ``serving_mesh`` with only the
+    tensor axis). ``devices`` names them, repeats allowed (two shards of
+    one card: ``["cuda:0", "cuda:0"]``; on the host ``["cpu"] * tp``);
+    None takes ``cuda:0`` .. ``cuda:tp-1`` and raises when fewer GPUs are
+    visible. A shard is never placed anywhere the caller did not name."""
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
+    if devices is None:
+        visible = torch.cuda.device_count() if torch.cuda.is_available() \
+            else 0
+        if visible < tp:
+            raise ValueError(
+                f"tp={tp} needs {tp} devices but only {visible} CUDA "
+                "devices are visible")
+        return [torch.device("cuda", i) for i in range(tp)]
+    devices = [torch.device(d) for d in devices]
+    if len(devices) != tp:
+        raise ValueError(f"tp={tp} needs {tp} devices, {len(devices)} "
+                         "devices given")
+    for d in devices:
+        if d.type == "cuda" and (not torch.cuda.is_available() or (
+                d.index or 0) >= torch.cuda.device_count()):
+            raise ValueError(f"device {d} is not visible (devices: "
+                             f"{torch.cuda.device_count()} CUDA)")
+    return [torch.device("cuda", d.index or 0) if d.type == "cuda" else d
+            for d in devices]

@@ -11,7 +11,13 @@ their parameter's path).
 
 Where GSPMD shards a dim the degree does not divide, each shard holds
 ``ceil(size / degree)`` rows and the last ones are padding; :func:`shard`
-pads with zeros and :func:`unshard` drops the padding.
+pads with zeros and :func:`unshard` drops the padding. A leaf may be
+sharded along two dims at once (``attn/wq``'s ``P(None, fsdp, tensor)``
+under fsdp x tensor).
+
+:func:`split_tensor` and :func:`merge_tensor` cut a whole tree into its
+tensor shards in one process and join them back: the layout of a
+tensor-parallel serving replica, whose shards one process drives.
 """
 
 from __future__ import annotations
@@ -28,9 +34,12 @@ from kubeflow_tpu_torch.parallel.mesh import (
     AXIS_DATA,
     AXIS_FSDP,
     AXIS_SEQUENCE,
+    AXIS_TENSOR,
+    TensorShards,
     axis_index,
     axis_size,
 )
+from kubeflow_tpu_torch.weights import _unflatten, flatten
 
 
 def P(*entries) -> tuple:
@@ -177,49 +186,130 @@ def numel(shape) -> int:
 
 @dataclass(frozen=True)
 class ShardedLeaf:
-    """A leaf sharded along one dim, as an optimizer sees it on this rank:
-    the whole leaf's ``shape``, the dim's :class:`DimShard` and the mesh,
-    with the reductions that span the shards."""
+    """A leaf sharded along one dim or more (fsdp on one, tensor on
+    another), as an optimizer sees it on this rank: the whole leaf's
+    ``shape``, each sharded dim's :class:`DimShard` and the mesh, with the
+    reductions that span the shards."""
 
     shape: tuple[int, ...]
-    shard: DimShard
+    shards: tuple[DimShard, ...]
     mesh: object
-
-    @property
-    def dim(self) -> int:
-        return self.shard.dim
-
-    @property
-    def size(self) -> int:
-        return self.shard.size
 
     @property
     def numel(self) -> int:
         return numel(self.shape)
 
+    @property
+    def axes(self) -> tuple[str, ...]:
+        """Every axis the leaf is sharded over, in dim order."""
+        return tuple(a for s in self.shards for a in s.axes)
+
+    def shard_of(self, dim: int) -> DimShard | None:
+        return next((s for s in self.shards if s.dim == dim), None)
+
     def zero_pad(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` (this rank's shard) with its padding rows zeroed."""
-        s = self.shard
-        if s.valid == s.chunk:
-            return x
-        rows = torch.arange(s.chunk, device=x.device) < s.valid
-        return x * rows.reshape([-1] + [1] * (x.ndim - 1 - s.dim)).to(
-            x.dtype)
+        for s in self.shards:
+            if s.valid != s.chunk:
+                rows = torch.arange(s.chunk, device=x.device) < s.valid
+                x = x * rows.reshape([-1] + [1] * (x.ndim - 1 - s.dim)).to(
+                    x.dtype)
+        return x
 
-    def psum_(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` summed over the shards' ranks in place (no gradient)."""
-        return psum_(x, self.mesh, self.shard.axes)
+    def mean(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole leaf's mean over ``dim`` from this rank's ``x``: over
+        a sharded dim the shards' sums are added up (padding must hold
+        zeros), and along every other sharded dim each rank's rows of the
+        result are gathered, padding dropped."""
+        s = self.shard_of(dim)
+        out = x.mean(dim=dim) if s is None else \
+            psum_(x.sum(dim=dim), self.mesh, s.axes) / s.size
+        for t in self.shards:
+            if t.dim != dim:
+                d = t.dim - (t.dim > dim)
+                out = all_gather(out, self.mesh, t.axes, dim=d).narrow(
+                    d, 0, t.size)
+        return out
 
-    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """Every shard's ``x`` concatenated along ``dim`` (the leaf's
-        sharded dim in ``x``'s coordinates), padding dropped."""
-        return all_gather(x, self.mesh, self.shard.axes, dim=dim).narrow(
-            dim, 0, self.size)
+    def mean_all(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of every element of the leaf (padding must hold
+        zeros)."""
+        total = torch.sum(x)
+        for s in self.shards:
+            total = psum_(total, self.mesh, s.axes)
+        return total / self.numel
 
     def local(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a whole tensor broadcast against the leaf
-        (size 1 along the sharded dim broadcasts as it is); padding rows
+        (size 1 along a sharded dim broadcasts as it is); padding rows
         hold 1."""
-        if x.shape[self.dim] == 1:
-            return x
-        return shard_dim(x, self.shard, fill=1.0)
+        for s in self.shards:
+            if x.shape[s.dim] != 1:
+                x = shard_dim(x, s, fill=1.0)
+        return x
+
+
+def tensor_dim(spec: tuple) -> int | None:
+    """The dim a spec puts on the ``tensor`` axis, or None."""
+    return next((d for d, e in enumerate(spec)
+                 if AXIS_TENSOR in _entry_axes(e)), None)
+
+
+def split_kv_heads(side, devices) -> TensorShards:
+    """One side of a KV store (a pool, dense rows or a scratch cache; an
+    fp tensor ``[..., H, hd]`` or ``{"q": int8 [..., H, hd], "scale":
+    [..., H]}``) cut over its KV heads into one contiguous tensor a shard,
+    shard ``i`` on ``devices[i]``: each shard's own store, as the paged
+    kernel takes it."""
+    tp = len(devices)
+
+    def cut(arr, dim):
+        if arr.shape[dim] % tp:
+            raise ValueError(f"{arr.shape[dim]} kv heads not divisible by "
+                             f"{tp} tensor shards")
+        return [part.contiguous().to(dev) for part, dev in
+                zip(torch.chunk(arr, tp, dim=dim), devices)]
+
+    if isinstance(side, dict):
+        return TensorShards(
+            {"q": q, "scale": s} for q, s in
+            zip(cut(side["q"], side["q"].ndim - 2),
+                cut(side["scale"], side["scale"].ndim - 1)))
+    return TensorShards(cut(side, side.ndim - 2))
+
+
+def split_tensor(tree, rules: list[PartitionRule], tp: int) -> list:
+    """A nested parameter tree cut into its ``tp`` tensor shards by the
+    rules' ``tensor`` entries (Megatron's column and row split, the vocab
+    split of the embedding and the head): shard ``i`` holds the ``i``-th
+    contiguous block of every such dim, as its own contiguous tensor on
+    the leaf's device, and every other leaf as it is. Each split dim must
+    divide by ``tp``."""
+    flat = flatten(tree)
+    specs = tree_specs(flat, rules)
+    shards: list[dict] = [{} for _ in range(tp)]
+    for path, leaf in flat.items():
+        dim = tensor_dim(specs[path]) if tp > 1 else None
+        if dim is None:
+            for shard_tree in shards:
+                shard_tree[path] = leaf
+            continue
+        if leaf.shape[dim] % tp:
+            raise ValueError(f"{path}: dim {dim} of {tuple(leaf.shape)} is "
+                             f"not divisible by {tp} tensor shards")
+        for i, part in enumerate(torch.chunk(leaf, tp, dim=dim)):
+            shards[i][path] = part.contiguous()
+    return [_unflatten(t) for t in shards]
+
+
+def merge_tensor(shards: list, rules: list[PartitionRule]):
+    """The inverse of :func:`split_tensor`: the whole tree on shard 0's
+    devices."""
+    flats = [flatten(t) for t in shards]
+    specs = tree_specs(flats[0], rules)
+    out = {}
+    for path, leaf in flats[0].items():
+        dim = tensor_dim(specs[path]) if len(flats) > 1 else None
+        out[path] = leaf if dim is None else torch.cat(
+            [f[path].to(leaf.device) for f in flats], dim=dim)
+    return _unflatten(out)

@@ -12,12 +12,15 @@ layout, plain predicts through the dynamic batcher.
 ``--prefill-chunk-tokens N --max-prompt-len M`` (paged),
 ``--speculative-k K [--draft-mode ngram|model:<name>]``, the host KV tier
 (``--host-kv-bytes``, paged), QoS (``--qos-tenants``, ``--qos-aging-s``),
-a disaggregated role (``--serving-role prefill|decode``, paged) and the
-boot weights' source (``--model-path`` for a checkpoint directory,
-``--weight-peers`` with ``--weight-pull-timeout-s``) choose the other
-ported paths. Every other flag of the JAX CLI (parallelism, the fleet KV
-directory and cold store, the import crossover, the compile cache) is
-rejected by name, never ignored. Without grpcio the default
+a disaggregated role (``--serving-role prefill|decode``, paged), tensor
+parallelism (``--tp-shards N``: with ``--device cuda`` the shards take
+``cuda:0`` .. ``cuda:N-1`` and the CLI exits 2 naming the devices when
+fewer GPUs are visible; with ``--device cpu`` every shard runs on the
+host) and the boot weights' source (``--model-path`` for a checkpoint
+directory, ``--weight-peers`` with ``--weight-pull-timeout-s``) choose
+the other ported paths. Every other flag of the JAX CLI (context and
+pipeline parallelism, the fleet KV directory and cold store, the import
+crossover, the compile cache) is rejected by name, never ignored. Without grpcio the default
 ``--grpc-port`` exits 2: the server never starts without :9000 unasked.
 """
 
@@ -26,13 +29,14 @@ from __future__ import annotations
 import argparse
 import sys
 
+from kubeflow_tpu_torch.parallel.mesh import serving_mesh
 from kubeflow_tpu_torch.serving.engine import EngineConfig
 from kubeflow_tpu_torch.serving.qos import parse_tenants
 from kubeflow_tpu_torch.serving.server import ModelServer
 
 # Flags of the JAX CLI whose features are not yet ported.
 UNPORTED_FLAGS = (
-    "--tp-shards", "--cp-shards", "--pp-stages",
+    "--cp-shards", "--pp-stages",
     "--kv-directory-size", "--cold-store-ref",
     "--kv-import-crossover-tokens", "--compile-cache-dir",
 )
@@ -121,6 +125,13 @@ def main(argv=None) -> int:
                    help="disaggregated role: 'prefill' exports prompt KV "
                         "over :prefill, 'decode' takes it over :import; "
                         "empty = colocated. Requires --kv-layout=paged")
+    p.add_argument("--tp-shards", type=int, default=1,
+                   help="tensor-parallel shards per replica (continuous "
+                        "mode): >1 runs the decoder over a tp-wide "
+                        "tensor mesh — weights Megatron-split, the KV "
+                        "pool sharded over the KV-head axis; must "
+                        "divide the model's kv heads / heads / d_ff "
+                        "and the pod needs that many chips")
     p.add_argument("--host-kv-bytes", type=int, default=0,
                    help="host-RAM KV tier budget in bytes (paged layout; "
                         "0 disables): prefix evictions demote blocks "
@@ -174,6 +185,8 @@ def main(argv=None) -> int:
     if args.serving_role and args.kv_layout != "paged":
         # The handoff rides the block pool; dense rows have no blocks.
         p.error("--serving-role requires --kv-layout=paged")
+    if args.tp_shards < 1:
+        p.error("--tp-shards must be >= 1")
     if args.prefill_chunk_tokens < 0:
         p.error("--prefill-chunk-tokens must be >= 0")
     if args.max_prompt_len < 0:
@@ -198,6 +211,15 @@ def main(argv=None) -> int:
             parse_tenants(args.qos_tenants)
         except ValueError as e:
             p.error(f"--qos-tenants: {e}")
+    if args.tp_shards > 1 and not continuous:
+        # Only the continuous decoder shards; ignoring the flag would
+        # report one shard's numbers as model-parallel ones.
+        p.error("--tp-shards requires --decode-mode=continuous")
+    if args.tp_shards > 1 and args.device != "cpu":
+        try:
+            serving_mesh(args.tp_shards)
+        except ValueError as e:
+            p.error(f"--tp-shards: {e}")
     if args.kv_layout == "paged":
         if not continuous:
             p.error("--kv-layout=paged requires --decode-mode=continuous")
@@ -238,6 +260,7 @@ def main(argv=None) -> int:
             prefill_chunk_tokens=args.prefill_chunk_tokens,
             max_prompt_len=args.max_prompt_len,
             serving_role=args.serving_role,
+            tp_shards=args.tp_shards,
             host_kv_bytes=args.host_kv_bytes,
             qos_tenants=args.qos_tenants,
             qos_aging_s=args.qos_aging_s,

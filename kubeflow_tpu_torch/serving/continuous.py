@@ -66,11 +66,22 @@ and pushes) and a ``trace`` store of per-request timelines, served by
 the model server's ``/monitoring/prometheus/metrics`` and
 ``/debug/requests``.
 
-Options of features not yet ported (tensor/context/pipeline
-parallelism, the KV directory and cold store) raise ``ValueError`` at
-construction; none falls through to another behaviour. Their counters
-in :meth:`ContinuousDecoder.metrics` read what JAX's read with the
-feature off.
+Tensor parallelism (``tp_shards`` > 1): one replica spreads the model
+over ``tp_shards`` shards driven by this process, on the devices
+``tp_devices`` names (default ``cuda:0`` .. ``cuda:tp-1``; repeats
+allowed, so two shards may share one card). The parameters are cut by
+the model's partition rules (``parallel/sharding.py:split_tensor``), the
+KV store over its KV heads (``models/decode.py:shard_decode_state``);
+block ids, tables, the allocator, the trie, refcount/CoW, the handoff
+and the host tier never see the split, the byte gauges price the pool
+per shard, and a handoff or a host-tier payload holds every head, so it
+crosses mesh shapes. Every option composes with it, as in JAX.
+
+Options of features not yet ported (context/pipeline parallelism, the KV
+directory and cold store, a mixture of experts over tensor shards) raise
+``ValueError`` at construction; none falls through to another
+behaviour. Their counters in :meth:`ContinuousDecoder.metrics` read what
+JAX's read with the feature off.
 """
 
 from __future__ import annotations
@@ -100,13 +111,17 @@ from kubeflow_tpu_torch.models.decode import (
     paged_prefill_chunk,
     prefill,
     retire_row,
+    shard_decode_state,
     store_blocks,
     store_prefix_cache,
     store_prefix_row,
     verify_chunk,
 )
+from kubeflow_tpu_torch.models.transformer import partition_rules
 from kubeflow_tpu_torch.observability.metrics import MetricRegistry
 from kubeflow_tpu_torch.observability.tracing import TraceStore
+from kubeflow_tpu_torch.parallel.mesh import TensorShards, serving_mesh
+from kubeflow_tpu_torch.parallel.sharding import merge_tensor
 from kubeflow_tpu_torch.serving.engine import pow2_bucket
 from kubeflow_tpu_torch.serving.handoff import tree_to_torch
 from kubeflow_tpu_torch.serving.kv_allocator import (
@@ -123,19 +138,19 @@ from kubeflow_tpu_torch.serving.qos import (
     tenant_bucket,
 )
 from kubeflow_tpu_torch.serving.speculative import make_proposer
-from kubeflow_tpu_torch.weights import _unflatten, flatten
+from kubeflow_tpu_torch.weights import _unflatten, flatten, tensor_shards
 
 _DONE = object()
 
 # Counters and gauges of features not yet ported (the fleet KV economy,
-# model parallelism, the compile cache), as JAX's metrics() reports them
-# with the feature off.
+# context and pipeline parallelism, the compile cache), as JAX's metrics()
+# reports them with the feature off.
 _UNPORTED_METRICS = {
     "kv_peer_hits": 0, "kv_peer_misses": 0,
     "kv_peer_import_bytes": 0, "kv_peer_fetch_failures": 0,
     "kv_cold_hits": 0, "kv_cold_demotions": 0, "kv_cold_import_bytes": 0,
     "kv_import_stale_refused": 0, "kv_import_skipped_crossover": 0,
-    "kv_directory_publishes": 0, "tp_shards": 1, "cp_shards": 1,
+    "kv_directory_publishes": 0, "cp_shards": 1,
     "pp_stages": 1, "compile_cache_hits": 0,
     "compile_cache_misses": 0, "warm_seconds": 0.0, "warming": False,
 }
@@ -277,7 +292,9 @@ class ContinuousDecoder:
     it); ``slots`` is the decode concurrency; a row is ``max_prompt_len +
     max_new_tokens`` positions (``max_prompt_len`` defaults to
     ``prefill_len`` and exceeds it only with chunked prefill). The device
-    is the parameters' device."""
+    is the parameters' device; with ``tp_shards`` > 1 the shards take
+    ``tp_devices`` (see the module docstring) and the tables, lengths and
+    logits shard 0's."""
 
     def __init__(self, params, cfg, *, slots: int, prefill_len: int,
                  max_new_tokens: int, top_k: int = 0,
@@ -290,7 +307,8 @@ class ContinuousDecoder:
                  kv_pool_blocks: int = 0, kv_low_watermark: int = 0,
                  kv_dtype: str = "fp", kv_fused: bool = False,
                  stream_timeout_s: float = 60.0, role: str = "",
-                 tp_shards: int = 1, qos: QosPolicy | None = None,
+                 tp_shards: int = 1, tp_devices=None,
+                 qos: QosPolicy | None = None,
                  host_kv_bytes: int = 0,
                  hol_bypass_limit: int = 4, hol_shield_rounds: int = 8,
                  prefill_chunk_tokens: int = 0, max_prompt_len: int = 0,
@@ -300,7 +318,6 @@ class ContinuousDecoder:
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         _reject_unported(
-            tp_shards=tp_shards > 1,
             cp_shards=cp_shards > 1,
             pp_stages=pp_stages > 1,
             kv_directory=kv_directory is not None,
@@ -348,11 +365,47 @@ class ContinuousDecoder:
                 f"max_prompt_len {self.max_prompt_len} > prefill_len "
                 f"{prefill_len} requires prefill_chunk_tokens > 0 "
                 "(a monolithic prefill is bounded by the prefill width)")
+        self.tp_shards = max(1, int(tp_shards))
+        if self.tp_shards > 1:
+            if cfg.n_kv_heads % self.tp_shards:
+                raise ValueError(
+                    f"tp_shards {self.tp_shards} must divide n_kv_heads "
+                    f"{cfg.n_kv_heads} (the KV pool shards by head)")
+            if cfg.n_heads % self.tp_shards:
+                raise ValueError(
+                    f"tp_shards {self.tp_shards} must divide n_heads "
+                    f"{cfg.n_heads}")
+            if cfg.d_ff % self.tp_shards:
+                raise ValueError(
+                    f"tp_shards {self.tp_shards} must divide d_ff "
+                    f"{cfg.d_ff}")
+            if cfg.n_experts:
+                raise ValueError(
+                    "tp_shards > 1 for a mixture of experts (the expert "
+                    "weights' d_ff split) is not yet ported to the "
+                    "PyTorch package")
+            self.tp_devices = serving_mesh(self.tp_shards,
+                                           devices=tp_devices)
+            self._rules = partition_rules(cfg)
+            # The whole tree's paths, shapes and dtypes: what a push is
+            # checked against before it is cut into shards.
+            self._template = _unflatten({
+                p: torch.empty(t.shape, dtype=t.dtype, device="meta")
+                for p, t in flatten(params).items()})
+            params = TensorShards(
+                _unflatten({p: t.to(dev) for p, t in flatten(part).items()})
+                for part, dev in zip(
+                    tensor_shards(params, cfg, self.tp_shards),
+                    self.tp_devices))
+        else:
+            self.tp_devices = [params["embed"]["kernel"].device]
+            self._template = None
         self.params = params
         self.cfg = cfg
-        # The one value the decoder derives from the parameters; a weight
-        # push keeps it (update_weights places the new tree here too).
-        self.device = params["embed"]["kernel"].device
+        # Shard 0's device: the tables, lengths, logits and the generator
+        # live there. A weight push keeps it (update_weights places the
+        # new tree on the same devices).
+        self.device = self.tp_devices[0]
         self.slots = slots
         self.prefill_len = prefill_len
         self.max_new_tokens = max_new_tokens
@@ -401,7 +454,7 @@ class ContinuousDecoder:
                 bytes_per_token=kv_bytes_per_token(
                     cfg.n_layers, cfg.n_kv_heads, cfg.head_dim,
                     torch.empty((), dtype=cfg.dtype).element_size(),
-                    kv_dtype))
+                    kv_dtype, tp_shards=self.tp_shards))
             # Host mirror of the device block table; sentinel
             # ``num_blocks`` marks unallocated entries (writes through
             # them are dropped).
@@ -424,6 +477,12 @@ class ContinuousDecoder:
                              device=self.device)
             if self.prefix_cache is not None and self._alloc is None
             else None)
+        if self.tp_shards > 1:
+            # The KV payload over the shards, by KV head.
+            self._state = shard_decode_state(self._state, self.tp_devices)
+            if self._prefix_pool is not None:
+                self._prefix_pool = shard_decode_state(self._prefix_pool,
+                                                       self.tp_devices)
         if self.prefix_cache is not None and self._alloc is not None:
             # Trie evictions return the entry's refcounted blocks; remove()
             # fires this under the prefix lock.
@@ -443,8 +502,13 @@ class ContinuousDecoder:
         # streams pin their KV here until resume. 0 disables.
         self._host_tier = (HostKvTier(int(host_kv_bytes))
                            if host_kv_bytes else None)
-        self._host_bytes_per_token = (self._alloc.bytes_per_token
-                                      if self._alloc is not None else 0)
+        # Host-global bytes one tiered token costs (the tier holds the
+        # payload of every head, whatever the shards).
+        self._host_bytes_per_token = (
+            kv_bytes_per_token(cfg.n_layers, cfg.n_kv_heads, cfg.head_dim,
+                               torch.empty((), dtype=cfg.dtype)
+                               .element_size(), kv_dtype)
+            if self._alloc is not None else 0)
         # Head-of-line bypass: how many memory-blocked candidates a round
         # may skip looking for a smaller request that fits, and how many
         # blocked rounds shield a head from further bypass.
@@ -530,7 +594,7 @@ class ContinuousDecoder:
         self.registry.gauge(
             "serving_tp_shards",
             "Tensor-parallel mesh width of this replica (1 = "
-            "single-chip)").set(1)
+            "single-chip)").set(self.tp_shards)
         self.registry.gauge(
             "serving_cp_shards",
             "Context-parallel (sequence-axis) width of this replica's "
@@ -590,9 +654,19 @@ class ContinuousDecoder:
     def weights_snapshot(self):
         """A consistent (params, weights_version) pair for a peer's pull:
         reference reads under the state lock, the lock the swap takes, so
-        a puller never pairs one epoch's version with another's tree."""
+        a puller never pairs one epoch's version with another's tree. A
+        sharded replica's shards are joined whole (on shard 0's
+        device)."""
         with self._state_lock:
-            return self.params, self.weights_version
+            params, version = self.params, self.weights_version
+        if isinstance(params, TensorShards):
+            params = merge_tensor(params, self._rules)
+        return params, version
+
+    def weights_template(self):
+        """A tree with the serving tree's paths, shapes and dtypes, whole
+        (a sharded replica's as meta tensors): what a push must cover."""
+        return self.params if self._template is None else self._template
 
     def submit(self, tokens: list[int], max_new_tokens: int,
                temperature: float = 0.0, *,
@@ -1040,8 +1114,9 @@ class ContinuousDecoder:
                 self._state = paged_prefill_chunk(
                     self._state, self.params, self.cfg, slot, pos, toks_t,
                     take, self.kv_fused)
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
+                for dev in dict.fromkeys(self.tp_devices):
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
         if restart:
             self._restart_chunked(req, slot)
             return
@@ -1348,7 +1423,7 @@ class ContinuousDecoder:
             self.kv_handoff_tokens += plen
         return {"tokens": toks, "prefix_len": plen,
                 "block_size": self.kv_block_size,
-                "kv_dtype": self.kv_dtype, "tp_shards": 1,
+                "kv_dtype": self.kv_dtype, "tp_shards": self.tp_shards,
                 "cp_shards": 1, "pp_stages": 1, "payload": payload}
 
     def import_prompt(self, handoff: dict) -> bool:
@@ -1513,7 +1588,7 @@ class ContinuousDecoder:
             raise ValueError(
                 "draft_params given but no draft-model proposer is "
                 "configured (draft_mode='model:<name>')")
-        new_params = self._place(params, cur_params)
+        new_params = self._place_params(params, cur_params)
         draft_new = (self._place(draft_params, spec.params)
                      if draft_params is not None else None)
         t_swap = time.perf_counter()
@@ -1550,14 +1625,23 @@ class ContinuousDecoder:
         tl.close()
         return new_version
 
+    def _place_params(self, tree, reference):
+        """:meth:`_place` of a pushed tree; a sharded replica checks it
+        whole against the serving tree's template, cuts it by the
+        partition rules (``split_tensor``) and places each shard on its
+        device."""
+        if not isinstance(reference, TensorShards):
+            return self._place(tree, reference)
+        new = self._check_tree(tree, self._template)
+        whole = _unflatten({p: tree_to_torch(t) for p, t in new.items()})
+        return TensorShards(
+            self._place(part, ref) for part, ref in zip(
+                tensor_shards(whole, self.cfg, self.tp_shards), reference))
+
     @staticmethod
-    def _place(tree, reference) -> dict:
-        """``tree`` rebuilt on ``reference``'s structure, device and leaf
-        dtypes, always as new tensors (never aliasing the caller's):
-        shapes and paths must match exactly (``ValueError`` otherwise).
-        On a CUDA device the copies run on a side stream; the current
-        stream is made to wait for it, and each new tensor is recorded as
-        used there, before the tree is handed back."""
+    def _check_tree(tree, reference) -> dict:
+        """``tree`` flattened, once its paths and shapes are exactly
+        ``reference``'s (``ValueError`` otherwise)."""
         ref = flatten(reference)
         new = flatten(tree) if isinstance(tree, dict) else None
         if new is None or set(new) != set(ref):
@@ -1571,6 +1655,18 @@ class ContinuousDecoder:
                 raise ValueError(
                     f"pushed leaf {path} shape {tuple(np.shape(new[path]))}"
                     f" != serving shape {tuple(o.shape)}")
+        return new
+
+    @staticmethod
+    def _place(tree, reference) -> dict:
+        """``tree`` rebuilt on ``reference``'s structure, device and leaf
+        dtypes, always as new tensors (never aliasing the caller's):
+        shapes and paths must match exactly (``ValueError`` otherwise).
+        On a CUDA device the copies run on a side stream; the current
+        stream is made to wait for it, and each new tensor is recorded as
+        used there, before the tree is handed back."""
+        new = ContinuousDecoder._check_tree(tree, reference)
+        ref = flatten(reference)
         dev = next(iter(ref.values())).device
         src = {p: tree_to_torch(new[p]) for p in ref}
         if dev.type != "cuda":
@@ -2273,6 +2369,7 @@ class ContinuousDecoder:
                     if self.spec_drafted_tokens else 0.0),
                 "spec_draft_k": (sum(self._slot_k) / len(self._slot_k)
                                  if self._slot_k else 0.0),
+                "tp_shards": self.tp_shards,
                 **_UNPORTED_METRICS,
             }
         with self._state_lock:

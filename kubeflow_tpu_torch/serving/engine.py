@@ -107,6 +107,19 @@ class EngineConfig:
     # worth one priority point (<= 0 disables aging).
     qos_tenants: str = ""
     qos_aging_s: float = 30.0
+    # Tensor-parallel shards per replica (continuous mode): >1 runs the
+    # decoder over tp shards, the weights Megatron-split by the model's
+    # partition rules and the KV pool over its KV heads (block ids stay
+    # host-global, so the prefix trie, the allocator's refcount/CoW and
+    # the prefill->decode handoff are unchanged). Must divide the model's
+    # n_kv_heads / n_heads / d_ff. The serving_kv_bytes_* gauges then
+    # price the pool PER SHARD.
+    tp_shards: int = 1
+    # The shards' devices, shard order (repeats allowed: ("cuda:0",
+    # "cuda:0") holds two shards on one card). Empty: cuda:0..tp-1 on
+    # "cuda" (fewer visible GPUs raise), every shard on the host on
+    # "cpu".
+    tp_devices: tuple = ()
     # Compute dtype override ("bfloat16"/"float32"); empty keeps the
     # preset's dtype.
     dtype: str = ""
@@ -152,6 +165,11 @@ class InferenceEngine:
             raise ValueError(f"unknown decode_mode {cfg.decode_mode!r}")
         if cfg.dtype and cfg.dtype not in _DTYPES:
             raise ValueError(f"unknown dtype {cfg.dtype!r}")
+        if cfg.tp_shards < 1:
+            raise ValueError(f"tp_shards must be >= 1, got {cfg.tp_shards}")
+        if cfg.tp_shards > 1 and cfg.decode_mode != "continuous":
+            raise ValueError("tp_shards > 1 requires decode_mode="
+                             "'continuous'")
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         overrides = {"dtype": _DTYPES[cfg.dtype]} if cfg.dtype else {}
@@ -241,6 +259,16 @@ class InferenceEngine:
             raise FileNotFoundError(
                 f"no checkpoint under {self.cfg.checkpoint_dir}")
         return self._cast_like(flatten(restored[0].params), reference)
+
+    def tp_devices(self) -> list[torch.device] | None:
+        """The decoder's shard devices: ``tp_devices`` as named, every
+        shard on the host for a CPU engine, else None (``serving_mesh``'s
+        default, ``cuda:0`` .. ``cuda:tp-1``)."""
+        if self.cfg.tp_devices:
+            return list(self.cfg.tp_devices)
+        if self.device.type == "cpu":
+            return [self.device] * self.cfg.tp_shards
+        return None
 
     def warmup(self) -> None:
         """One predict through the serving shape (PyTorch compiles

@@ -14,7 +14,10 @@ this module is the host-side envelope around that transfer:
 
 The payload layout mirrors the block pool: fp pools ship ``{"k", "v"}``
 arrays ``[L, nblk, Bs, H, hd]``; int8 pools ship ``{"q", "scale"}`` per
-side, codes and scales together, so a quantized handoff is exact.
+side, codes and scales together, so a quantized handoff is exact. The
+payload holds every KV head whatever the exporter's mesh (a
+tensor-parallel exporter joins its shards' heads), so a replica of any
+shard count imports it; ``mesh.tpShards`` records the exporter's.
 
 The envelopes are byte for byte the JAX package's, so each side unpacks
 the other's. numpy has no bfloat16 (JAX takes it from ``ml_dtypes``,

@@ -243,6 +243,8 @@ class ModelServer:
             prefill_chunk_tokens=cfg.prefill_chunk_tokens,
             max_prompt_len=cfg.max_prompt_len,
             role=cfg.serving_role,
+            tp_shards=cfg.tp_shards,
+            tp_devices=self.engine.tp_devices(),
             qos=qos,
             host_kv_bytes=cfg.host_kv_bytes,
             boot_weights_version=self.engine.boot_weights_version,
@@ -419,7 +421,8 @@ class ModelServer:
                     "weights_version": chunk["weights_version"]}
         leaves, has_draft = done
         model_leaves, draft_leaves = weights_mod.split_namespaces(leaves)
-        params = weights_mod.unflatten_params(model_leaves, decoder.params)
+        params = weights_mod.unflatten_params(model_leaves,
+                                              decoder.weights_template())
         draft = None
         if has_draft:
             spec = decoder._spec

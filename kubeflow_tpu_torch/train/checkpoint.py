@@ -21,9 +21,9 @@ commits it, and ``wait`` blocks until every commit is on disk.
 Over a mesh (a state with a ``layout``) the files are the same: the WHOLE
 state, so a checkpoint written by W ranks resumes at any other W, and
 JAX reads it. ``save`` is a collective that gathers the state to rank 0
-alone, one sharded leaf at a time (``StateLayout.gather_state``: no
-device holds more than its shards and one whole leaf), rank 0 writes
-it, and ``wait`` ends at a barrier of the gang once
+alone, one sharded leaf at a time, along every dim fsdp or tensor shards
+(``StateLayout.gather_state``: no device holds more than its shards and
+one whole leaf), rank 0 writes it, and ``wait`` ends at a barrier of the gang once
 rank 0's commits are on disk; every rank keeps the same record of the
 steps saved, so they all take the same decisions. ``restore`` reads the
 whole state on every rank and keeps each rank's shards.

@@ -12,11 +12,12 @@ controller's environment (``JAX_COORDINATOR_ADDRESS``,
 ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``) each process joins the process
 group (``parallel.distributed.initialize_from_env``; NCCL on
 ``cuda:{process_id % GPUs}``, gloo with ``"device": "cpu"``), builds the
-mesh of ``"mesh"`` (the data and fsdp axes; their product is the number
-of processes, -1 absorbs the rest) and trains its shard of the state on
-its own rows: ``batch_size`` rows a process, as in JAX, the synthetic
-stream the same on every process and the token store's shard
-``process_id`` of ``num_processes``. Only process 0 logs. Without that
+mesh of ``"mesh"`` (the data, fsdp and tensor axes; their product is
+the number of processes, -1 absorbs the rest) and trains its shard of the
+state on its own rows: ``batch_size`` rows a process, as in JAX, the
+synthetic stream the same on every process and the token store's shard
+of the process's place on the batch axes (the ranks of a tensor group
+read the same rows). Only process 0 logs. Without that
 environment one process trains on ``"device"`` (default ``"cuda"``; pass
 ``"cpu"`` to run the plain PyTorch paths on the host), over a mesh only
 if a process group is already running.
@@ -34,8 +35,9 @@ for the transformer family only, as in JAX; ``profile_dir`` writes a
 process 0.
 
 Not yet ported, and refused at the start of :func:`run` before any step:
-elastic resharding (``elastic_poll_steps``), a mesh axis other than data
-and fsdp above 1 (and a mixture of experts over data or fsdp), and the
+elastic resharding (``elastic_poll_steps``), a mesh axis other than data,
+fsdp and tensor above 1 (and a mixture of experts over any of them, BERT
+and ResNet over tensor), and the
 job-status publish that the job's environment (``KUBEFLOW_TPU_JOB_NAME``)
 asks for.
 """
@@ -65,6 +67,8 @@ from kubeflow_tpu_torch.parallel.mesh import (
     BATCH_AXES,
     MESH_AXES,
     MeshConfig,
+    axis_index,
+    axis_size,
     build_mesh,
 )
 from kubeflow_tpu_torch.train.checkpoint import Checkpointer
@@ -76,7 +80,11 @@ from kubeflow_tpu_torch.train.data import (
 from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
 from kubeflow_tpu_torch.train.prefetch import Prefetcher
 from kubeflow_tpu_torch.train.tokenstore import TokenStore
-from kubeflow_tpu_torch.train.trainer import build_train_step, init_state
+from kubeflow_tpu_torch.train.trainer import (
+    TRAIN_AXES,
+    build_train_step,
+    init_state,
+)
 
 # The job-status environment of kubeflow_tpu/apis/jobs.py (copied name).
 ENV_JOB_NAME = "KUBEFLOW_TPU_JOB_NAME"
@@ -86,8 +94,8 @@ ENV_JOB_NAME = "KUBEFLOW_TPU_JOB_NAME"
 class RunConfig:
     model: str = "lm-test-tiny"
     model_overrides: dict = field(default_factory=dict)
-    # Degrees of the JAX MeshConfig axes; the data and fsdp axes are
-    # ported (the others must stay 1).
+    # Degrees of the JAX MeshConfig axes; the data, fsdp and tensor axes
+    # are ported (the others must stay 1).
     mesh: dict = field(default_factory=dict)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     batch_size: int = 8
@@ -127,7 +135,7 @@ def _refuse_unported(cfg: RunConfig, environ) -> None:
     if unknown:
         raise ValueError(f"unknown mesh axes {sorted(unknown)}")
     for axis, degree in cfg.mesh.items():
-        if axis not in BATCH_AXES and degree != 1:
+        if axis not in TRAIN_AXES and degree != 1:
             no(f"training over the {axis!r} mesh axis ({cfg.mesh})")
     if environ.get(ENV_JOB_NAME):
         no(f"publishing metrics into the job status ({ENV_JOB_NAME} is "
@@ -193,17 +201,20 @@ def _silent(*_args) -> None:
     pass
 
 
-def _make_batches(cfg, info, model, device, stream_step, store):
+def _make_batches(cfg, info, model, device, mesh, stream_step, store):
     """(batches, prefetcher) from the stream position ``stream_step``
     (microbatches): both streams are stateless in (seed, step), so a
     resumed run sees what an uninterrupted one would have. Each process
     makes its own rows: the token store's shard of the process, the
     synthetic stream the same everywhere (as in JAX)."""
     if store is not None:
+        shard, shards = ((info.process_id, info.num_processes)
+                         if mesh is None else
+                         (axis_index(mesh, BATCH_AXES),
+                          axis_size(mesh, BATCH_AXES)))
         stream = store.stream(cfg.batch_size, cfg.seq_len, seed=cfg.seed,
-                              start_step=stream_step,
-                              shard=info.process_id,
-                              num_shards=info.num_processes)
+                              start_step=stream_step, shard=shard,
+                              num_shards=shards)
     else:
         stream = synthetic_stream(model, cfg.batch_size, cfg.seq_len,
                                   seed=cfg.seed, start_step=stream_step)
@@ -250,7 +261,7 @@ def _train(cfg, info, model, device, mesh, state, start_step, ckpt,
     # at optimizer step N replays from microbatch N x accum_steps.
     store = TokenStore(cfg.data_path) if cfg.data_path else None
     batches, prefetcher = _make_batches(
-        cfg, info, model, device, start_step * cfg.accum_steps, store)
+        cfg, info, model, device, mesh, start_step * cfg.accum_steps, store)
     # SIGTERM reaches each pod at its own step, but the save is a
     # collective: in a gang the flag is agreed every step, so every
     # process stops (and saves) at the same step.

@@ -13,8 +13,9 @@ under ``torch.no_grad()``.
 
 Parameters, gradients and state are flat ``{"a/b/c": tensor}`` dicts.
 
-Over an FSDP mesh each rank holds a shard of a leaf (``update``'s
-``layout`` says which), and every reduction over a whole leaf spans its
+Over an FSDP or tensor mesh each rank holds a shard of a leaf
+(``update``'s ``layout`` says which; fsdp on one dim and tensor on
+another at once), and every reduction over a whole leaf spans its
 shards: the global norm for clipping, adafactor's row and column means of
 ``g²``, the mean of ``v_row``, the update's RMS clip and the parameter's
 RMS. adafactor's factored moments are whole on every rank, as JAX's
@@ -237,21 +238,14 @@ class Optimizer:
 
 
 def _leaf_mean(x, dim: int, leaf):
-    """The mean of leaf-shaped ``x`` over ``dim``, whole: over a sharded
-    dim the shards' sums are added up (padding must hold zeros); along
-    one, each rank's rows of the result are gathered."""
-    if leaf is None:
-        return x.mean(dim=dim)
-    if dim == leaf.dim:
-        return leaf.psum_(x.sum(dim=dim)) / leaf.size
-    return leaf.gather(x.mean(dim=dim), leaf.dim - (leaf.dim > dim))
+    """The mean of leaf-shaped ``x`` over ``dim``, whole
+    (``ShardedLeaf.mean`` over a leaf's shards)."""
+    return x.mean(dim=dim) if leaf is None else leaf.mean(x, dim)
 
 
 def _leaf_mean_all(x, leaf):
     """The mean of every element of the leaf (padding must hold zeros)."""
-    if leaf is None:
-        return torch.mean(x)
-    return leaf.psum_(torch.sum(x)) / leaf.numel
+    return torch.mean(x) if leaf is None else leaf.mean_all(x)
 
 
 def build(cfg: OptimizerConfig) -> Optimizer:

@@ -19,18 +19,23 @@ JAX's). Under gradient accumulation the last microbatch's updates win. A
 leaf the loss does not reach (the running statistics, BERT's NSP head)
 gets a zero gradient, as ``jax.grad`` gives it.
 
-Over a mesh (one process per device; the data and fsdp axes) GSPMD's
-collectives are written out:
+Over a mesh (one process per device; the data, fsdp and tensor axes)
+GSPMD's collectives are written out:
 
 - the state is born sharded: each rank keeps its shard of every leaf the
-  model's partition rules put on ``fsdp`` (its optimizer slots alike) and
-  the rest whole (:class:`StateLayout`; at fsdp=1 every leaf is whole);
-- each step gathers the sharded leaves whole before the forward (once a
-  step, not layer by layer), each rank runs its own rows of the batch,
-  and the loss it differentiates is its term of the global loss (the loss
-  functions normalise by the global count, ``mesh=``), so gradients are
-  SUMMED over ranks: reduce-scattered over ``fsdp`` for a sharded leaf
-  (then summed over ``data``), summed over ``data`` x ``fsdp`` otherwise;
+  model's partition rules put on ``fsdp`` or ``tensor`` (its optimizer
+  slots alike) and the rest whole (:class:`StateLayout`; at fsdp=1 and
+  tensor=1 every leaf is whole);
+- each step gathers what ``fsdp`` shards before the forward (once a
+  step, not layer by layer) and keeps each leaf's ``tensor`` block: the
+  forward is Megatron's (``models/transformer.py``), whose collectives
+  over ``tensor`` carry their own gradients. Each rank runs its rows of
+  the batch (tensor ranks the same rows), and the loss it differentiates
+  is its term of the global loss (the loss functions normalise by the
+  global count, ``mesh=``), so gradients are SUMMED over the batch axes:
+  reduce-scattered over ``fsdp`` for a leaf fsdp shards (then summed over
+  ``data``), summed over ``data`` x ``fsdp`` otherwise, never over
+  ``tensor``;
 - the optimizer's reductions span each leaf's shards, and the metrics are
   the global ones.
 """
@@ -50,6 +55,7 @@ from kubeflow_tpu_torch.parallel.collectives import (
     reduce_scatter,
 )
 from kubeflow_tpu_torch.parallel.mesh import (
+    AXIS_TENSOR,
     BATCH_AXES,
     axis_size,
     require_axes,
@@ -70,6 +76,9 @@ from kubeflow_tpu_torch.train.optimizers import (
 )
 from kubeflow_tpu_torch.weights import _unflatten, flatten
 
+# The mesh axes the port trains over.
+TRAIN_AXES = (*BATCH_AXES, AXIS_TENSOR)
+
 
 @dataclass
 class TrainState:
@@ -84,28 +93,40 @@ class TrainState:
 class StateLayout:
     """The sharding of a train state on this rank of ``mesh``: each
     parameter's spec from the model's partition rules, keeping only the
-    data and fsdp axes of degree above 1 (the others are 1 here, and an
-    axis of one shard holds the whole leaf: at fsdp=1 the state is whole
-    and the step is plain data parallelism), and the same spec for its
-    optimizer slots of the same rank (JAX's rank fallback replicates the
-    rest, such as adafactor's factored moments).
+    data, fsdp and tensor axes of degree above 1 (the others are 1 here,
+    and an axis of one shard holds the whole leaf: at fsdp=1 and tensor=1
+    the state is whole and the step is plain data parallelism), and the
+    same spec for its optimizer slots of the same rank (JAX's rank
+    fallback replicates the rest, such as adafactor's factored moments).
+
+    A step gathers what ``fsdp`` shards and leaves the ``tensor`` dim
+    local: the forward runs Megatron's column and row split on this
+    rank's block (``models/transformer.py``).
 
     ``shapes``: each parameter's whole shape, in the state's leaf order."""
 
     def __init__(self, mesh, rules, shapes: dict[str, tuple]):
         self.mesh = mesh
         self.shapes = {k: tuple(s) for k, s in shapes.items()}
-        axes = tuple(a for a in BATCH_AXES if axis_size(mesh, a) > 1)
+        axes = tuple(a for a in TRAIN_AXES if axis_size(mesh, a) > 1)
         self.specs = {k: restrict(spec, axes)
                       for k, spec in tree_specs(self.shapes, rules).items()}
+        # What the step gathers: the batch axes' part of each spec.
+        self._gathered = {k: restrict(spec, BATCH_AXES)
+                          for k, spec in self.specs.items()}
         self._leaves: dict[str, ShardedLeaf] = {}
         for k, spec in self.specs.items():
             shards = dim_shards(self.shapes[k], spec, mesh)
-            if len(shards) > 1:
+            if sum(1 for s in shards if AXIS_TENSOR not in s.axes) > 1:
                 raise ValueError(f"{k}: a leaf sharded along more than one "
-                                 "dim is not yet ported")
+                                 "dim by the batch axes is not yet ported")
+            for s in shards:
+                if AXIS_TENSOR in s.axes and s.size % s.n:
+                    raise ValueError(
+                        f"{k}: dim {s.dim} of {self.shapes[k]} is not "
+                        f"divisible by the tensor degree {s.n}")
             if shards:
-                self._leaves[k] = ShardedLeaf(self.shapes[k], shards[0],
+                self._leaves[k] = ShardedLeaf(self.shapes[k], tuple(shards),
                                               mesh)
 
     def leaf(self, key: str) -> ShardedLeaf | None:
@@ -155,24 +176,31 @@ class StateLayout:
 
     # The step's collectives.
 
+    def _batch_shard(self, key: str):
+        """The DimShard of the dim the batch axes shard, or None."""
+        leaf = self._leaves.get(key)
+        return None if leaf is None else next(
+            (s for s in leaf.shards if AXIS_TENSOR not in s.axes), None)
+
     def gather_params(self, flat: dict) -> dict:
-        """Every sharded leaf whole (all-gathered); the others as they
-        are."""
-        return {k: unshard(p, self.specs[k], self.mesh, self.shapes[k])
-                if k in self._leaves else p for k, p in flat.items()}
+        """Every leaf whole along what fsdp shards (all-gathered), its
+        tensor block as it is; the others as they are."""
+        return {k: unshard(p, self._gathered[k], self.mesh, self.shapes[k])
+                if self._batch_shard(k) else p for k, p in flat.items()}
 
     def reduce_grads(self, grads: dict) -> dict:
-        """Whole gradients of each rank's loss term -> this rank's shard of
-        their sum over the mesh: a sharded leaf's is reduce-scattered over
-        its axes, then summed over the other batch axes; the whole leaves'
-        are summed over every batch axis in one flat buffer."""
+        """Gradients of each rank's loss term (whole along fsdp, its tensor
+        block) -> this rank's shard of their sum over the batch axes: a
+        leaf fsdp shards is reduce-scattered over its axes, then summed
+        over the other batch axes; the other leaves' are summed over every
+        batch axis in one flat buffer. Tensor ranks hold the same rows, so
+        nothing is summed over ``tensor``."""
         out, whole = {}, []
         for k, g in grads.items():
-            leaf = self.leaf(k)
-            if leaf is None:
+            s = self._batch_shard(k)
+            if s is None:
                 whole.append(k)
                 continue
-            s = leaf.shard
             pad = s.n * s.chunk - s.size
             if pad:
                 g = F.pad(g, [0, 0] * (g.ndim - 1 - s.dim) + [0, pad])
@@ -193,14 +221,15 @@ class StateLayout:
     def global_norm(self, tensors: dict) -> torch.Tensor:
         """optax.global_norm of the whole tree from this rank's shards:
         each sharded leaf's squares summed over its shards (padding holds
-        zeros), each whole leaf's counted once."""
+        zeros; fsdp and tensor shards each once), each whole leaf's
+        counted once."""
         whole, sharded = [], {}
         for k, t in tensors.items():
             leaf = self.leaf(k)
             if leaf is None:
                 whole.append(t)
             else:
-                sharded.setdefault(leaf.shard.axes, []).append(t)
+                sharded.setdefault(leaf.axes, []).append(t)
         total = global_norm_sq(whole) if whole else 0.0
         for axes, part in sharded.items():
             total = total + global_norm_sq(part, self.mesh, axes)
@@ -208,10 +237,11 @@ class StateLayout:
 
 
 def check_mesh(model, mesh) -> None:
-    """Raise ValueError("... not yet ported") for a mesh this slice does
-    not train over: an axis other than data and fsdp above 1, or what the
-    model's own ``check_mesh`` refuses (MoE over data or fsdp)."""
-    require_axes(mesh, BATCH_AXES, f"training {model.name}")
+    """Raise ValueError("... not yet ported") for a mesh the port does
+    not train over: an axis other than data, fsdp and tensor above 1, or
+    what the model's own ``check_mesh`` refuses (MoE over any of them but
+    none, BERT and ResNet over tensor)."""
+    require_axes(mesh, TRAIN_AXES, f"training {model.name}")
     if model.check_mesh is not None:
         model.check_mesh(model.config, mesh)
 

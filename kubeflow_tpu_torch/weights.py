@@ -90,6 +90,33 @@ def params_from_numpy(tree, model, device: str | torch.device = "cuda",
     return _unflatten(flat)
 
 
+def tensor_shards(tree, model, tp: int):
+    """A parameter tree (the port's tensors, or numpy arrays in JAX's
+    layout) as the ``tp`` shards of a tensor-parallel serving replica
+    (a ``TensorShards`` of trees): cut by the transformer's partition
+    rules (``parallel.sharding.split_tensor``: Megatron's column and row
+    split, the vocabulary split of the embedding and the head). Tensor
+    leaves keep their device and dtype; numpy leaves become host tensors
+    in the dtype JAX reads them in, as :func:`params_from_numpy` stores
+    them. The serving replica, its live weight pushes and the tests all
+    cut a tree through here."""
+    from kubeflow_tpu_torch.models.transformer import partition_rules
+    from kubeflow_tpu_torch.parallel.mesh import TensorShards
+    from kubeflow_tpu_torch.parallel.sharding import split_tensor
+
+    cfg = getattr(model, "config", model)
+
+    def tensor(path, leaf):
+        if isinstance(leaf, torch.Tensor):
+            return leaf
+        arr = np.array(leaf, dtype=np.float32)  # a writable copy
+        return torch.from_numpy(arr).to(cfg.leaf_dtype(path))
+
+    whole = _unflatten({p: tensor(p, leaf)
+                        for p, leaf in flatten(tree).items()})
+    return TensorShards(split_tensor(whole, partition_rules(cfg), tp))
+
+
 def params_to_numpy(params):
     """The port's parameter tree → a nested tree of float32 numpy arrays
     (the inverse of :func:`params_from_numpy`), so tests compare trees."""

@@ -2,7 +2,7 @@
 """Where a decode step's time goes on the GPU, for the port's main path.
 
     python3 profile_torch_decode.py [--steps 16] [--kv-dtype fp|int8]
-                                    [--speculative-k K]
+                                    [--speculative-k K] [--tp-shards N]
 
 ``llama-1b`` at full width in bf16 with random weights from a fixed seed:
 eight slots admitted with 128-token prompts through
@@ -10,7 +10,10 @@ eight slots admitted with 128-token prompts through
 read (the paged decode kernel). With ``--speculative-k K`` the same state
 then takes ``verify_step`` calls of K drafts a row (random tokens, so
 each verify emits its commit token: a verify's shapes and launches do not
-depend on what it accepts). For each kind of step it prints, in one JSON
+depend on what it accepts). With ``--tp-shards N`` the weights and the
+pool are cut into N tensor shards (``weights.tensor_shards``,
+``decode.shard_decode_state``), all on ``cuda:0``: each layer runs once a
+shard and sums the shards' outputs. For each kind of step it prints, in one JSON
 line: the host time of a step (``--steps`` steps timed without the
 profiler), the device time its kernels take (their durations summed: one
 stream, so they do not overlap), the device's idle share, launches per
@@ -78,11 +81,14 @@ def main(argv=None) -> int:
     p.add_argument("--kv-dtype", default="fp", choices=["fp", "int8"])
     p.add_argument("--speculative-k", type=int, default=0,
                    help="also profile verify steps of K drafts a row")
+    p.add_argument("--tp-shards", type=int, default=1,
+                   help="tensor shards of the replica, all on cuda:0")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_decode: no CUDA device", file=sys.stderr)
         return 2
     from kubeflow_tpu_torch.models import decode, transformer
+    from kubeflow_tpu_torch.weights import tensor_shards
 
     dev = torch.device("cuda")
     cfg = transformer.config("llama-1b")
@@ -104,6 +110,9 @@ def main(argv=None) -> int:
         state, params, cfg, torch.arange(slots, device=dev), toks,
         full * prompt, full * (mb * bs - prompt - 1),
         torch.zeros(slots, device=dev), kv_fused=True)
+    if args.tp_shards > 1:
+        params = tensor_shards(params, cfg, args.tp_shards)
+        state = decode.shard_decode_state(state, [dev] * args.tp_shards)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     result = {"decode": profile_steps(
@@ -129,6 +138,7 @@ def main(argv=None) -> int:
         "gpu": smi, "model": "llama-1b", "dtype": "bf16",
         "kv_dtype": args.kv_dtype, "slots": slots, "prompt": prompt,
         "steps": args.steps, "speculative_k": args.speculative_k,
+        "tp_shards": args.tp_shards,
         **result}))
     return 0
 

@@ -875,3 +875,89 @@ def test_mesh_step_at_world_one_over_nccl_equals_the_no_mesh_step(cuda):
                                rtol=1e-6, atol=0)
     for k, p in p0.items():
         torch.testing.assert_close(p1[k], p, rtol=1e-6, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the kernels at a shard's shapes, two shards on a card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "f32", "int8"])
+def test_paged_decode_kernel_at_the_tp2_shard_shape(cuda, kv):
+    """llama-1b's paged read on one of two tensor shards: 8 slots, Hkv 4
+    (8 over 2), G 2, hd 128, Bs 16, 18 columns, a parked row and a row
+    with pos < 0; the shard's pool is its own contiguous tensor."""
+    q, kp, vp, table, pos = _paged_case(
+        cuda, kv, 8, 4, 2, 128, 16, 18,
+        [7, 40, 100, 150, 200, 287, 18 * 16, -1])
+    out = _paged_check(cuda, q, kp, vp, table, pos)
+    assert not out[7].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernels_at_the_tensor_rank_shape(cuda, dtype):
+    """flagship-1b's attention on one of two tensor ranks: Hq 16 over Hkv
+    2 (G 8), hd 128, causal, 1 x 2048 rows, through "splash" as the model
+    calls it, under the module's limits against the plain path."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda).to(dtype)
+
+    q, g = rand(1, 2048, 16, 128), rand(1, 2048, 16, 128)
+    k, v = rand(1, 2048, 2, 128), rand(1, 2048, 2, 128)
+    ref = _flash_run(q.float(), k.float(), v.float(), g.float(), None,
+                     "xla", True)
+    kernels.reset_launches()
+    got = _flash_run(q, k, v, g, None, "splash", True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention_fwd"] == 1
+    assert kernels.LAUNCHES["flash_attention_bwd"] == 1
+    errs = _errors(got, ref)
+    if dtype == torch.float32:
+        assert errs[0][0] <= 1e-4, errs
+        for (err, _), r in zip(errs[1:], ref[1:]):
+            assert err <= 1e-4 * r.abs().max().item(), errs
+    else:
+        sdpa = _errors(sdpa_run(q, k, v, g, None, True), ref)
+        assert errs[0][0] <= max(1e-2, 2 * sdpa[0][0]), (errs, sdpa)
+        for (err, rel), (_, sdpa_rel), r in zip(errs[1:], sdpa[1:], ref[1:]):
+            assert err <= 2e-2 * r.float().abs().max().item(), (errs, sdpa)
+            assert rel <= max(2.0 ** -8, 2 * sdpa_rel), (errs, sdpa)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
+def test_tp2_decoder_on_one_card_matches_tp1(cuda, kv_dtype):
+    """Two tensor shards on ``["cuda:0", "cuda:0"]`` (the kernel once a
+    shard a layer, on each shard's contiguous pool, one after the other
+    on the card's stream), float32, greedy: the stream equals the tp=1
+    decoder's and the paged kernel launches twice as often."""
+    from kubeflow_tpu_torch.models import registry
+    from kubeflow_tpu_torch.serving.continuous import ContinuousDecoder
+
+    tm = registry.get_model("llama-1b", d_model=512, n_heads=4,
+                            n_kv_heads=4, d_ff=256, n_layers=2,
+                            vocab_size=512, dtype=torch.float32)
+    params = tm.init(tm.config, generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda)
+    prompts = [[5, 9, 2, 7, 1] * 4, list(range(3, 40)), [11, 12]]
+    streams, launched = {}, {}
+    for tp in (1, 2):
+        d = ContinuousDecoder(params, tm.config, slots=4, prefill_len=64,
+                              max_new_tokens=16, kv_layout="paged",
+                              kv_block_size=16, kv_fused=True,
+                              kv_dtype=kv_dtype, tp_shards=tp,
+                              tp_devices=["cuda:0"] * tp)
+        try:
+            kernels.reset_launches()
+            streams[tp] = [d.generate(p, 12, timeout=120)["tokens"]
+                           for p in prompts]
+            launched[tp] = kernels.LAUNCHES["paged_decode_attention"]
+        finally:
+            d.stop()
+    assert streams[2] == streams[1]
+    assert launched[2] == 2 * launched[1] > 0

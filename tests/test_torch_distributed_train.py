@@ -25,7 +25,13 @@ too. The cases:
   key bias's gradient is zero up to rounding, which an update that
   normalises turns into a step whose sign is the rounding's);
 - ``resnet-test-tiny`` at data=2: sync batch norm, whose running
-  statistics land in the checkpoint's parameters.
+  statistics land in the checkpoint's parameters;
+- the transformer over the tensor axis (Megatron's split): tensor=2,
+  data=2 x tensor=2, fsdp=2 x tensor=2 (adafactor factors ``attn/wq``,
+  sharded on both its dims), tensor=2 with ``loss_chunks`` 2 (the
+  chunked loss over vocabulary-sharded logits) and tensor=2 under remat
+  ``"dots"`` (the regions replay the forward's collectives). A tensor
+  group holds the same rows, so only the batch axes count targets.
 
 Tolerances are ``tests/test_torch_train.py``'s: float32 on both sides with
 sums in another order. Metrics (loss, z_loss, tokens, grad_norm, step) to
@@ -82,6 +88,7 @@ from kubeflow_tpu_torch.parallel.mesh import (BATCH_AXES, MeshConfig,
     axis_index, axis_size, build_mesh)
 from kubeflow_tpu_torch.train import checkpoint, data, trainer
 from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
+from kubeflow_tpu_torch.weights import flatten
 a = json.loads(sys.argv[1])
 info = initialize_from_env(device="cpu", timeout_s=120)
 mesh = build_mesh(MeshConfig(**a["mesh"]), device_type="cpu")
@@ -107,8 +114,8 @@ ckpt.save(a["steps"], state)
 ckpt.close()
 with open(a["out"] + f".{info.process_id}", "w") as f:
     json.dump({"metrics": metrics, "counts": counts,
-               "local_shapes": {k: list(v.shape) for k, v in
-                                state.opt_state.get("v", {}).items()}}, f)
+               "param_shapes": {k: list(v.shape) for k, v in
+                                flatten(state.params).items()}}, f)
 shutdown()
 """
 
@@ -131,6 +138,21 @@ CASES = {
                                      accum=2),
     "transformer-fsdp2-sgd": dict(model="lm-test-tiny", overrides=WIDE,
                                   mesh={"fsdp": 2}, opt="sgd"),
+    "transformer-tensor2": dict(model="lm-test-tiny", overrides=WIDE,
+                                mesh={"tensor": 2}, opt="adafactor"),
+    "transformer-data2xtensor2": dict(model="lm-test-tiny", overrides=WIDE,
+                                      mesh={"data": 2, "tensor": 2},
+                                      opt="adafactor"),
+    "transformer-fsdp2xtensor2": dict(model="lm-test-tiny", overrides=WIDE,
+                                      mesh={"fsdp": 2, "tensor": 2},
+                                      opt="adafactor"),
+    "transformer-tensor2-chunked": dict(
+        model="lm-test-tiny", overrides=dict(WIDE, loss_chunks=2),
+        mesh={"tensor": 2}, opt="adafactor"),
+    "transformer-tensor2-remat-dots": dict(
+        model="lm-test-tiny",
+        overrides=dict(WIDE, remat=True, remat_policy="dots"),
+        mesh={"tensor": 2}, opt="adafactor"),
     "bert-data2": dict(model="bert-test-tiny", overrides={},
                        mesh={"data": 2}, opt="sgd"),
     "resnet-data2": dict(model="resnet-test-tiny", overrides={},
@@ -242,8 +264,17 @@ def test_mesh_train_steps_match_jax(case, tmp_path):
     _assert_metrics_close(ranks[0]["metrics"], tmets)
     _assert_states_close(got, weights.state_to_numpy(tstate, tcfg))
 
-    if tm.family != "resnet":  # ranks count different valid targets
+    batch_ranks = w // spec["mesh"].get("tensor", 1)
+    if tm.family != "resnet" and batch_ranks > 1:
+        # ranks count different valid targets
         assert len({tuple(r["counts"]) for r in ranks}) > 1
+    if "tensor" in spec["mesh"]:
+        # a tensor group holds the same rows, and each rank a block of
+        # the split leaves: half the query columns of wq
+        assert len({tuple(r["counts"]) for r in ranks[:2]}) == 1
+        hq = tm.config.n_heads * tm.config.head_dim
+        wq_cols = [r["param_shapes"]["layers/attn/wq"][-1] for r in ranks]
+        assert wq_cols == [hq // 2] * w
     if tm.family == "resnet":  # sync-BN moved the running statistics
         mean = "params/stem/bn/mean"
         assert np.abs(got[mean] - start[mean]).max() > 0

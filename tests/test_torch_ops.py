@@ -180,8 +180,11 @@ def test_paged_decode_rejects_mesh_and_bad_group():
     q, kp, vp, table, pos, hkv = _pools(False)
     args = (torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
             torch.from_numpy(table), torch.from_numpy(pos))
-    with pytest.raises(ValueError, match="not yet ported"):
-        tattn.paged_decode_attention(*args, n_kv_heads=hkv, mesh=object())
+    # A mesh runs the twin (tests/test_torch_tp_serving.py), whose shards
+    # must divide the heads.
+    with pytest.raises(ValueError, match="not divisible"):
+        tattn.paged_decode_attention(*args, n_kv_heads=hkv,
+                                     mesh=["cpu"] * (hkv + 1))
     with pytest.raises(ValueError, match="not a multiple"):
         tattn.paged_decode_attention(*args, n_kv_heads=3)
 

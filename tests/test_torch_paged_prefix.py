@@ -137,12 +137,14 @@ def test_paged_span_attention_matches_jax(kv, group, monkeypatch):
 
 
 def test_paged_span_attention_rejects_a_mesh():
+    """A mesh runs the twin (tests/test_torch_tp_serving.py); one whose
+    shards do not divide the heads is rejected."""
     q, kp, vp, table, pos = _span_case("fp")
-    with pytest.raises(ValueError, match="not yet ported"):
+    with pytest.raises(ValueError, match="not divisible"):
         tattn.paged_span_attention(
             torch.from_numpy(q), _to_torch(kp), _to_torch(vp),
             torch.from_numpy(table), torch.from_numpy(pos), n_kv_heads=HKV,
-            mesh=object())
+            mesh=["cpu"] * 3)
 
 
 # ---------------------------------------------------------------------------

@@ -298,3 +298,136 @@ def test_gang_agreements_collectives_and_shards(data, fsdp):
     for i, p in enumerate(procs):
         assert p.returncode == 0 and p.stdout.strip() == "ok", \
             f"rank {i}:\n{p.stderr[-3000:]}"
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: Megatron's pair, the tensor split, the head mapping
+# ---------------------------------------------------------------------------
+
+MEGATRON_WORKER = """
+import torch
+torch.set_num_threads(1)
+from kubeflow_tpu_torch.parallel import collectives as c
+from kubeflow_tpu_torch.parallel import distributed as d
+from kubeflow_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+
+info = d.initialize_from_env(device="cpu", timeout_s=120)
+mesh = build_mesh(MeshConfig(data=1, tensor=2), device_type="cpu")
+r, tp = info.process_id, 2
+g = torch.Generator().manual_seed(0)
+x = torch.randn(3, 4, generator=g, dtype=torch.float64)
+w1 = torch.randn(4, 6, generator=g, dtype=torch.float64)
+w2 = torch.randn(6, 4, generator=g, dtype=torch.float64)
+head = torch.randn(4, 8, generator=g, dtype=torch.float64)
+labels = torch.tensor([1, 7, 4])
+
+
+def loss_of(h, logits):
+    return (h ** 2).sum() + torch.nn.functional.cross_entropy(
+        logits, labels, reduction="sum")
+
+
+def grads(x, w1, w2, head, reduce, gather):
+    leaves = [t.clone().requires_grad_(True) for t in (x, w1, w2, head)]
+    x, w1, w2, head = leaves
+    h = reduce(torch.tanh(c.copy_to_tensor(x, mesh) @ w1) @ w2)
+    logits = gather(c.copy_to_tensor(h, mesh) @ head)
+    loss_of(h, logits).backward()
+    return [t.grad for t in leaves]
+
+
+# The unsharded reference, in this process.
+leaves = [t.clone().requires_grad_(True) for t in (x, w1, w2, head)]
+h = torch.tanh(leaves[0] @ leaves[1]) @ leaves[2]
+loss_of(h, h @ leaves[3]).backward()
+ref = [t.grad for t in leaves]
+cols, rows = slice(3 * r, 3 * r + 3), slice(4 * r, 4 * r + 4)
+local = (x, w1[:, cols], w2[cols], head[:, rows])
+want = (ref[0], ref[1][:, cols], ref[2][cols], ref[3][:, rows])
+
+c.reset_counts()
+got = grads(*local, lambda t: c.reduce_from_tensor(t, mesh),
+            lambda t: c.gather_from_tensor(t, mesh))
+for a, b in zip(got, want):
+    torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+# Forward: one reduce and one gather; backward: two copies' psums.
+assert c.CALLS == {"all_reduce": 3, "all_gather": 1, "reduce_scatter": 0}, \\
+    c.CALLS
+
+# psum's backward (each rank's loss its own term) hands every tensor rank
+# tp x its gradient: the check above fails on it.
+bad = grads(*local, lambda t: c.psum(t, mesh, "tensor"),
+            lambda t: c.gather_from_tensor(t, mesh))
+torch.testing.assert_close(bad[1], tp * want[1], rtol=1e-12, atol=1e-12)
+assert not torch.allclose(bad[1], want[1])
+d.shutdown()
+print("ok")
+"""
+
+
+def test_megatron_pair_gives_the_unsharded_gradients():
+    """copy_to_tensor / reduce_from_tensor / gather_from_tensor in a gang
+    of two: a toy column-then-row-parallel block and a vocabulary-split
+    head give each rank its slice of the unsharded gradients (float64,
+    to 1e-12); psum in reduce_from_tensor's place gives tp x."""
+    procs = launch([sys.executable, "-c", MEGATRON_WORKER], 2,
+                   env=dict(os.environ, OMP_NUM_THREADS="1"), cwd=ROOT,
+                   timeout=120)
+    for i, p in enumerate(procs):
+        assert p.returncode == 0 and p.stdout.strip() == "ok", \
+            f"rank {i}:\n{p.stderr[-3000:]}"
+
+
+@pytest.mark.parametrize("tp", [1, 2, 4])
+def test_split_and_merge_tensor_round_trip(tp):
+    """split_tensor cuts each leaf the rules put on ``tensor`` into tp
+    contiguous blocks (JAX's shard of that dim) and leaves the rest
+    whole; merge_tensor joins them back bit for bit."""
+    tm = tregistry.get_model("lm-test-tiny", n_kv_heads=4)
+    params = tm.init(tm.config, generator=torch.Generator().manual_seed(0),
+                     device="cpu", param_dtype=torch.float32)
+    rules = tm.partition_rules(tm.config)
+    shards = tsharding.split_tensor(params, rules, tp)
+    assert len(shards) == tp
+    flat = weights.flatten(params)
+    specs = tsharding.tree_specs(flat, rules)
+    for i, shard in enumerate(shards):
+        for path, leaf in weights.flatten(shard).items():
+            dim = tsharding.tensor_dim(specs[path])
+            if dim is None:
+                assert leaf is flat[path]
+                continue
+            n = flat[path].shape[dim] // tp
+            assert leaf.is_contiguous()
+            assert torch.equal(leaf, flat[path].narrow(dim, i * n, n))
+    merged = weights.flatten(tsharding.merge_tensor(shards, rules))
+    assert all(torch.equal(merged[k], v) for k, v in flat.items())
+    assert tsharding.tensor_dim(specs["layers/attn/wo"]) == 1
+    assert tsharding.tensor_dim(specs["embed/kernel"]) == 0
+    with pytest.raises(ValueError, match="not divisible"):
+        tsharding.split_tensor(params, rules, 3)
+
+
+def test_gqa_heads_of_a_tensor_rank_read_its_kv_heads():
+    """Hq 4 over Hkv 2 at tp 2: rank r's contiguous query heads (2r,
+    2r+1) belong to its contiguous KV head r (G = 2), so attention over a
+    rank's heads equals those heads of the whole attention."""
+    from kubeflow_tpu_torch.models.transformer import shard_config
+    from kubeflow_tpu_torch.ops.attention import flash_attention
+
+    cfg = tregistry.get_model("lm-test-tiny", n_heads=4, n_kv_heads=2,
+                              dtype=torch.float32).config
+    local = shard_config(cfg, 2)
+    assert (local.n_heads, local.n_kv_heads, local.head_dim) == (
+        2, 1, cfg.head_dim)
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 6, 4, 8, generator=g)
+    k, v = (torch.randn(2, 6, 2, 8, generator=g) for _ in range(2))
+    whole = flash_attention(q, k, v, causal=True)
+    for r in range(2):
+        part = flash_attention(q[:, :, 2 * r:2 * r + 2], k[:, :, r:r + 1],
+                               v[:, :, r:r + 1], causal=True)
+        torch.testing.assert_close(part, whole[:, :, 2 * r:2 * r + 2],
+                                   rtol=0, atol=0)
+    with pytest.raises(ValueError, match="must divide n_kv_heads"):
+        shard_config(cfg, 4)

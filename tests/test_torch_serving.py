@@ -119,7 +119,7 @@ _OPTIONS = [
     (dict(qos=QosPolicy({})), None),
     (dict(host_kv_bytes=1 << 20), None),
     (dict(prefill_chunk_tokens=8), None),
-    (dict(tp_shards=2), "not yet ported"),
+    (dict(tp_shards=2, tp_devices=["cpu", "cpu"]), None),
     (dict(cp_shards=2), "not yet ported"),
     (dict(pp_stages=2), "not yet ported"),
     (dict(role="prefill"), None),
@@ -133,8 +133,8 @@ _OPTIONS = [
 def test_decoder_unported_options_raise(weights, option, match):
     """Options of features not yet ported raise; the dense layout refuses
     chunking as JAX does. The paged prefix cache, chunked prefill,
-    speculation, QoS, the host KV tier and the fleet roles are ported:
-    those options build a decoder that serves."""
+    speculation, QoS, the host KV tier, the fleet roles and tensor shards
+    are ported: those options build a decoder that serves."""
     _, _, tree = weights
     tcfg = ttransformer.config("lm-test-tiny", dtype=torch.float32)
     kw = {**DECODER_KW, **option}
@@ -254,11 +254,11 @@ def test_http_predict_stream_and_probes_match_jax(weights, jax_streams):
 
 
 _REFUSED_FLAGS = {
-    # Still unported: refused by name.
-    "--tp-shards": ["--kv-layout", "paged", "--tp-shards", "2"],
     # Ported: refused, as the JAX CLI refuses them, where they cannot
-    # serve (QoS needs the continuous decoder, the host tier the paged
-    # layout).
+    # serve (tensor shards and QoS need the continuous decoder, the host
+    # tier the paged layout).
+    "--tp-shards": ["--kv-layout", "paged", "--tp-shards", "2",
+                    "--decode-mode", "lockstep"],
     "--qos-tenants": ["--qos-tenants", "gold=2", "--decode-mode",
                       "lockstep"],
     "--host-kv-bytes": ["--host-kv-bytes", "2"],

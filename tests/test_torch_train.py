@@ -283,13 +283,13 @@ def test_loop_main_needs_cuda_unless_asked_for_the_cpu(capsys):
 @pytest.mark.parametrize("field,value", [
     ("elastic_poll_steps", 5), ("elastic_poll_steps", 1),
     ("mesh", {"expert": 2}), ("mesh", {"sequence": 2}),
-    ("mesh", {"tensor": 2}),
+    ("mesh", {"pipeline": 2}),
 ])
 def test_loop_refuses_unported_options_before_any_step(field, value):
-    """Elastic resharding and the mesh axes other than data and fsdp are
-    still to come (checkpoints, the token store and the profiler now run:
-    tests/test_torch_checkpoint.py; the data and fsdp axes in gangs:
-    tests/test_torch_distributed_*.py)."""
+    """Elastic resharding and the mesh axes other than data, fsdp and
+    tensor are still to come (checkpoints, the token store and the
+    profiler now run: tests/test_torch_checkpoint.py; the data, fsdp and
+    tensor axes in gangs: tests/test_torch_distributed_*.py)."""
     cfg = tloop.RunConfig(device="cpu", steps=1, **{field: value})
     with pytest.raises(ValueError, match="not yet ported"):
         tloop.run(cfg, log=lambda *a: None)
@@ -301,23 +301,29 @@ def test_loop_refuses_the_job_status_environment():
                   environ={"KUBEFLOW_TPU_JOB_NAME": "job"})
 
 
-# A mesh with a tensor axis of 2 (a stand-in: what the mesh checks read
-# of a DeviceMesh), which the port does not yet train over.
+# Meshes with a tensor or a sequence axis of 2 (stand-ins: what the mesh
+# checks read of a DeviceMesh). The port trains a dense transformer over
+# the tensor axis (tests/test_torch_distributed_train.py), not a mixture
+# of experts, and nothing over the sequence axis.
 TENSOR_MESH = SimpleNamespace(
     mesh_dim_names=("data", "pipeline", "fsdp", "expert", "sequence",
                     "tensor"), mesh=torch.zeros(1, 1, 1, 1, 1, 2))
+SEQUENCE_MESH = SimpleNamespace(
+    mesh_dim_names=("data", "pipeline", "fsdp", "expert", "sequence",
+                    "tensor"), mesh=torch.zeros(1, 1, 1, 1, 2, 1))
 
 
 @pytest.mark.parametrize("overrides,mesh", [
     ({"context_parallel": True}, None), ({"pipeline_stages": 2}, None),
-    ({"pipeline_stages": 4, "remat": True}, None), ({}, TENSOR_MESH),
-    ({"remat": True, "loss_chunks": 4}, TENSOR_MESH),
+    ({"pipeline_stages": 4, "remat": True}, None),
+    ({"n_experts": 4}, TENSOR_MESH),
+    ({"remat": True, "loss_chunks": 4}, SEQUENCE_MESH),
 ])
 def test_model_refuses_unported_training_options(overrides, mesh):
-    """Ring attention, pipeline stages and a tensor-parallel mesh are still
-    to come (remat, scan_group_size and loss_chunks now run:
-    tests/test_torch_remat.py; the data and fsdp axes:
-    tests/test_torch_distributed_*.py)."""
+    """Ring attention, pipeline stages, a mixture of experts over the
+    tensor axis and a sequence axis are still to come (remat,
+    scan_group_size and loss_chunks now run: tests/test_torch_remat.py;
+    the data, fsdp and tensor axes: tests/test_torch_distributed_*.py)."""
     tm = tregistry.get_model("lm-test-tiny", **overrides)
     params = tm.init(tm.config, generator=torch.Generator().manual_seed(0),
                      device="cpu", param_dtype=torch.float32)
@@ -330,7 +336,7 @@ def test_remat_only_raises_under_autograd_and_mesh_raises():
     """remat decides what the backward keeps, so it opens regions only
     while autograd records: an inference forward and a recorded one give
     the same logits, and the recorded one differentiates. A mesh with a
-    tensor axis is still refused."""
+    sequence axis is still refused."""
     tm = tregistry.get_model("llama-1b", d_model=64, n_heads=4,
                              n_kv_heads=2, d_ff=64, n_layers=1,
                              vocab_size=32, dtype=torch.float32)
@@ -348,10 +354,10 @@ def test_remat_only_raises_under_autograd_and_mesh_raises():
     assert wq.grad is not None and wq.grad.abs().max() > 0
     with pytest.raises(ValueError, match="not yet ported"):
         ttransformer.hidden_states(params, tokens, tm.config,
-                                   mesh=TENSOR_MESH)
+                                   mesh=SEQUENCE_MESH)
     with pytest.raises(ValueError, match="not yet ported"):
         ttrainer.build_train_step(tm, toptim.OptimizerConfig(),
-                                  mesh=TENSOR_MESH)
+                                  mesh=SEQUENCE_MESH)
 
 
 def test_presets_carry_the_jax_training_fields():
