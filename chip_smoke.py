@@ -233,10 +233,12 @@ of two training flagship-1b), and checks the output. Phases, each printed as one
     lengths up to 128 over REST and over gRPC (the bodies equal; 12
     flash forwards for the batch; no decoder), the batch through the
     engine alone (call and device ms); 8 MLM training steps at batch 32 x
-    128 (adafactor); the f32 gate: the card (kernels) against the CPU
-    (plain versions) on one padded batch, sequence output, ``pooled``
-    and the loss within 1e-5, gradients 1e-4 of each leaf's largest, and
-    a row alone = the same row padded in a batch, within 1e-5;
+    128 (adafactor); the f32 gate on one padded batch: the card's
+    sequence output and ``pooled`` within 1e-5 of a float64 forward on
+    the host (``bert_forward_f64``; the host's f32 plain path's error
+    against it printed beside), the loss within 1e-5 and gradients 1e-4
+    of each leaf's largest of the CPU's plain versions, and a row alone =
+    the same row padded in a batch, within 1e-5;
 (v) ResNet, ``resnet50``, bf16: a plain predict of 8 random 224x224
     images over REST (probabilities and classes); 8 training steps at
     batch 32 with tf_cnn.py's defaults: samples/s; the gate: after one f32
@@ -276,7 +278,7 @@ of two training flagship-1b), and checks the output. Phases, each printed as one
     dense, chunked prefill and speculation (``speculative_k`` 2), each
     request's last logits within 1e-5 relative, and a handoff exported
     at tp=2 decodes at tp=1 as a colocated replica does; (x2) a gang of
-    two tensor ranks on the card over gloo (``X2_WORKER``): flagship-1b
+    two tensor ranks on the card over gloo (``GANG_WORKER``): flagship-1b
     at full width and depth, bf16, adafactor, 1 x 2048 rows on both
     ranks, 4 steps: each step's time, the collectives' calls and bytes a
     step, the flash kernels' launches (3 x 4 each a rank) and their names
@@ -288,6 +290,32 @@ of two training flagship-1b), and checks the output. Phases, each printed as one
     1e-5, every matrix moved over 10x that limit. The kernel checks at a
     shard's and a rank's shapes run at the start, after (g)
     (``tp_kernel_checks``), and are printed with (x);
+(y) the mixture of experts over the mesh axes (``phase_moe_mesh``): (y1)
+    moe-1b at full width and depth, bf16, paged fused, (d)'s requests
+    over HTTP on a server of two shards on the card beside one (every
+    expert on each shard, its d_ff columns): tokens/s, streamed TTFT,
+    paged launches (2 x 8 x the decode forwards), ``serving_tp_shards``
+    and per-shard KV bytes; the paged kernel at a shard's shape (B 8, Hkv
+    2, G 4, hd 64; bf16, f32, int8) within 2e-3; (x1)'s f32 gates on
+    moe-1b at 2 layers; (y2) moe-1b at full width and depth in gloo gangs
+    of two on the card (``GANG_WORKER``) over ``{"tensor": 2}`` and
+    ``{"expert": 2}``, 1 x 2048 rows a rank, 4 steps: each step's time,
+    the collectives' calls and bytes a step, the flash kernels' launches
+    and their names in each rank's profiled step; the flash pair at a
+    tensor rank's shape (B 1, T 2048, Hq 8 over Hkv 2, hd 64) and at an
+    expert rank's (B 1, T 2048, Hq 16 over Hkv 4, hd 64) against the
+    plain versions under (g)'s limits; (y3) the f32 gates at 2 layers and
+    capacity factor 0.5 (experts overflow), those two gangs and a
+    ``{"data": 2}`` gang (a row a rank) against one process on the global
+    batch: losses, ``router_aux_loss`` and gradient norms within 1e-6
+    relative, parameters within 1e-4 relative + 1e-5, every matrix moved
+    over 10x that limit, the choices dropped past capacity above 0 (data)
+    and equal to one process's (global capacity, not a rank's); (y4)
+    bert-base over ``{"tensor": 2}``, 4 MLM steps at 32 x 128 bf16 and the
+    f32 gate at 2 layers (sgd at lr 1, 1e-5); the flash pair at its
+    tensor rank's shape (B 32, T 128, 6 heads, hd 64, masked) under (g)'s
+    limits. The kernel checks run at the start with (x)'s. One card cannot show NCCL
+    across cards: the gangs' collectives go through the host;
 (f) the kernel table: each kernel's launches on the main paths, its
     error, its time, its plain version's time and its bound; the paged
     and RMSNorm rows give device time as ``ms`` and the call's as
@@ -307,7 +335,12 @@ of two training flagship-1b), and checks the output. Phases, each printed as one
     paged row (x1)'s launches (``tp2_serving``: both shards') and its
     times at a shard's shape (``tp_shard_shape``), the flash rows (x2)'s
     launches on each rank and their times at a rank's shape
-    (``tp_rank_shape``).
+    (``tp_rank_shape``); the paged row (y1)'s launches
+    (``moe_tp2_serving``) and its times at moe-1b's shard shape
+    (``moe_tp_shard_shape``), the flash rows (y2)'s and (y4)'s launches on
+    each rank and their times at moe-1b's tensor- and expert-rank shapes
+    and bert-base's tensor-rank shape (``moe_tp_rank_shape``,
+    ``moe_ep_rank_shape``, ``bert_tp_rank_shape``).
 
 TF32 is off throughout, so float32 products are full float32. Any
 failure exits non-zero; the last line, printed only on success, is
@@ -3544,15 +3577,61 @@ def phase_moe(smi: str) -> dict:
     return out
 
 
+def bert_forward_f64(flat: dict, tokens, pad_mask, cfg):
+    """BERT's forward in float64 on the host, written out from the model's
+    definition (word + position + type embeddings and a layer norm;
+    post-norm layers of masked softmax attention and a tanh-GELU MLP; the
+    tanh pooler on the first token), independent of the port's code:
+    (sequence output [B, T, D], pooled [B, D])."""
+    import torch.nn.functional as F
+
+    p = {k: v.detach().cpu().double() for k, v in flat.items()}
+    tokens, mask = tokens.long().cpu(), pad_mask.cpu().bool()
+    b, t = tokens.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+
+    def norm(x, scale, bias):
+        mean = x.mean(-1, keepdim=True)
+        var = ((x - mean) ** 2).mean(-1, keepdim=True)
+        return (x - mean) / torch.sqrt(var + cfg.norm_eps) * scale + bias
+
+    x = norm(p["embed/word"][tokens] + p["embed/position"][:t][None]
+             + p["embed/type"][torch.zeros_like(tokens)],
+             p["embed/ln/scale"], p["embed/ln/bias"])
+    for i in range(cfg.n_layers):
+        w = {k[len("layers/"):]: v[i] for k, v in p.items()
+             if k.startswith("layers/")}
+
+        def heads(name):
+            y = x @ w[f"attn/w{name}"] + w[f"attn/b{name}"]
+            return y.reshape(b, t, h, hd).transpose(1, 2)
+
+        scores = heads("q") @ heads("k").transpose(-1, -2) * hd ** -0.5
+        scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
+        ctx = (torch.softmax(scores, -1) @ heads("v")).transpose(
+            1, 2).reshape(b, t, h * hd)
+        x = norm(x + ctx @ w["attn/wo"] + w["attn/bo"],
+                 w["ln_attn/scale"], w["ln_attn/bias"])
+        y = F.gelu(x @ w["mlp/wi"] + w["mlp/bi"], approximate="tanh")
+        x = norm(x + y @ w["mlp/wo"] + w["mlp/bo2"], w["ln_mlp/scale"],
+                 w["ln_mlp/bias"])
+    pooled = torch.tanh(x[:, 0] @ p["pooler/kernel"] + p["pooler/bias"])
+    return x, pooled
+
+
 def bert_f32_gate(dev) -> dict:
     """(u)'s gate at f32, seed-0 weights of bert-base: the kernel path (the
     card) and the plain path (the same entry points on the CPU, the plain
     flash versions) on one padded batch (rows of BERT_GATE_LENGTHS real
-    tokens under a ``pad_mask``): the sequence output and ``pooled``
-    within 1e-5 of their largest magnitude, the MLM loss 1e-5 relative,
-    every gradient 1e-4 of its leaf's largest (or of 1e-3 of the largest
-    of all, where that is larger); and on the card a row
-    alone equals the same row padded to 128 in a batch."""
+    tokens under a ``pad_mask``). The sequence output and ``pooled`` of
+    the card are held within 1e-5 of their largest magnitude against
+    :func:`bert_forward_f64` (the host's f32 plain path read 3.3e-6 and
+    1.44e-5 from the card on two machines; both paths' errors against the
+    float64 forward are printed, and the two f32 paths' against each
+    other); the MLM loss within 1e-5 relative and every gradient within
+    1e-4 of its leaf's largest (or of 1e-3 of the largest of all, where
+    that is larger) of the plain path's; and on the card a row alone
+    equals the same row padded to 128 in a batch."""
     from kubeflow_tpu_torch import kernels
     from kubeflow_tpu_torch.models.registry import get_model
     from kubeflow_tpu_torch.train.data import place_batch, synthetic_batch
@@ -3586,9 +3665,12 @@ def bert_f32_gate(dev) -> dict:
                       dict(kernels.LAUNCHES))
     (seq_k, pool_k, loss_k, grads_k, launch_k) = runs["kernel"]
     (seq_p, pool_p, loss_p, grads_p, launch_p) = runs["plain"]
+    seq_64, pool_64 = bert_forward_f64(
+        flatten(params), torch.from_numpy(batch["tokens"]),
+        torch.from_numpy(batch["pad_mask"]), cfg)
 
     def rel(a, b):
-        return ((a - b).abs().max() / b.abs().max()).item()
+        return ((a.double() - b).abs().max() / b.abs().max()).item()
 
     # bk's gradient is zero up to rounding (softmax is blind to a shift
     # of every key by q·bk), so each leaf is held against the larger of
@@ -3600,7 +3682,11 @@ def bert_f32_gate(dev) -> dict:
                  for k, g in grads_k.items() if g is not None}
     worst = max(grad_errs, key=grad_errs.get)
     out = {"batch": BERT_GATE_BATCH, "lengths": BERT_GATE_LENGTHS,
-           "seq_err": rel(seq_k, seq_p), "pooled_err": rel(pool_k, pool_p),
+           "seq_err": rel(seq_k, seq_64), "pooled_err": rel(pool_k, pool_64),
+           "plain_seq_err_vs_f64": rel(seq_p, seq_64),
+           "plain_pooled_err_vs_f64": rel(pool_p, pool_64),
+           "seq_err_vs_plain": rel(seq_k, seq_p.double()),
+           "pooled_err_vs_plain": rel(pool_k, pool_p.double()),
            "loss_kernel": loss_k, "loss_plain": loss_p,
            "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
            "grad_err_rel_to_leaf_max": grad_errs[worst],
@@ -4118,154 +4204,196 @@ PAGED_TP_SHARD = dict(hkv=8 // TP, g=2, hd=128)
 FLASH_TP_RANK = dict(b=1, t=2048, s=2048, hq=32 // TP, hkv=4 // TP, hd=128,
                      causal=True)
 X_GATE_LAYERS, X_TRAIN_STEPS, X_CHUNK_PROMPT = 2, 4, 300
-X_RESULT = "build/chip_smoke/x2_result.json"
+GANG_RESULT = "build/chip_smoke/gang_result.json"
 
-# (x2): one rank of a gang of two tensor ranks on the card over gloo
-# (NCCL refuses two ranks on one GPU), both on cuda:0 (arguments: steps,
-# the result file, the device, the model, its rows' length, the gate's).
-# flagship-1b at full width and depth, bf16, adafactor, the same 1 x 2048
-# rows on both ranks, X_TRAIN_STEPS steps: each step's ms, the collectives' calls and bytes,
-# the kernel launches, the flash kernels' names in a profiled step. Then
-# the f32 gate at 2 layers, 3 steps at lr 1e-2 (adafactor moves every
-# matrix far past the parameter tolerance), whose state rank 0 gathers
-# and holds against one process's steps; rank 0 writes the result.
-X2_WORKER = """
-import json, sys, time
+# One rank of a gang of two on the card over gloo, both on cuda:0 (NCCL
+# refuses two ranks on one GPU); its argument is a JSON object: the
+# device ("cuda", or "cpu" to try it on the host), the model, the mesh,
+# the full-size steps (0: none), the rows a batch rank takes and
+# their length, and the f32 gate's depth, rows a batch rank, length and
+# overrides. The full-size run: bf16, adafactor, each step's ms and
+# metrics, the collectives' calls and bytes a step, the kernel launches,
+# the flash kernels' names in a profiled step (one rank's profiler at a
+# time; a session that misses them is tried again, as the ranks agree).
+# The f32 gate: 3 steps of the gate's optimizer and learning rate (which
+# move every matrix the loss reaches far past the parameter tolerance)
+# over global batches of which each rank takes
+# its batch rows, counting the MoE choices dropped past capacity; rank 0
+# first runs one process over the whole batches, then gathers the gang's
+# state and holds it against them. Every rank writes its result.
+GANG_WORKER = """
+import json, math, sys, time
 import torch
 from torch.profiler import ProfilerActivity, profile
 from kubeflow_tpu_torch import kernels
 from kubeflow_tpu_torch.models.registry import get_model
+from kubeflow_tpu_torch.models.transformer import count_dropped
 from kubeflow_tpu_torch.parallel import collectives
 from kubeflow_tpu_torch.parallel.distributed import (global_any,
     initialize_from_env, shutdown)
-from kubeflow_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+from kubeflow_tpu_torch.parallel.mesh import (BATCH_AXES, MeshConfig,
+    axis_index, axis_size, build_mesh)
 from kubeflow_tpu_torch.train import data, trainer
 from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
 from kubeflow_tpu_torch.weights import flatten
 
-steps, out_path, device, name, seq, gate_seq = sys.argv[1:7]
-steps, seq, gate_seq = int(steps), int(seq), int(gate_seq)
+a = json.loads(sys.argv[1])
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-info = initialize_from_env(device=device, backend="gloo", timeout_s=900)
+info = initialize_from_env(device=a["device"], backend="gloo",
+                           timeout_s=900)
 r = info.process_id
-dev = torch.device("cuda", 0) if device == "cuda" else torch.device(device)
+dev = torch.device("cuda", 0) if a["device"] == "cuda" else \
+    torch.device(a["device"])
+mesh = build_mesh(MeshConfig(**a["mesh"]), device_type=dev.type)
+bi, bn = axis_index(mesh, BATCH_AXES), axis_size(mesh, BATCH_AXES)
+result = {"batch_index": bi}
 
 def sync():
     if dev.type == "cuda":
         torch.cuda.synchronize()
 
-mesh = build_mesh(MeshConfig(data=1, tensor=2), device_type=dev.type)
-model = get_model(name)
-opt = OptimizerConfig(name="adafactor", warmup_steps=2)
-state = trainer.init_state(torch.Generator(device=dev).manual_seed(0),
-                           model, opt, mesh, device=dev)
-step = trainer.build_train_step(model, opt, mesh)
-batches = [data.place_batch(data.synthetic_batch(model, 1, seq,
-                                                 seed=7 + i), dev)
-           for i in range(steps)]
-local = {k: list(p.shape) for k, p in flatten(state.params).items()}
-kernels.reset_launches()
-collectives.reset_counts()
-mets, times = [], []
-for b in batches:
-    sync()
-    t0 = time.perf_counter()
-    state, met = step(state, b)
-    mets.append({k: float(met[k]) for k in ("loss", "grad_norm")})
-    sync()
-    times.append(time.perf_counter() - t0)
-launches = dict(kernels.LAUNCHES)
-calls, moved = dict(collectives.CALLS), dict(collectives.BYTES)
-# One rank's profiler at a time (the other runs the same step
-# unprofiled), so no two sessions trace the card at once. A session that
-# misses the kernels is tried again, as the ranks agree.
-names = []
-for turn in range(2 if dev.type == "cuda" else 0):
-    for attempt in range(3):
-        if r == turn:
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                state, _ = step(state, batches[0])
+def batches(model, rows, seq, seed, n):
+    return [data.synthetic_batch(model, rows * bn, seq, seed=seed + i)
+            for i in range(n)]
+
+if a["steps"]:
+    model = get_model(a["model"])
+    opt = OptimizerConfig(name="adafactor", warmup_steps=2)
+    state = trainer.init_state(torch.Generator(device=dev).manual_seed(0),
+                               model, opt, mesh, device=dev)
+    step = trainer.build_train_step(model, opt, mesh)
+    local = [data.place_batch(data.local_rows(b, bi, bn), dev) for b in
+             batches(model, a["rows"], a["seq"], 7, a["steps"])]
+    kernels.reset_launches()
+    collectives.reset_counts()
+    mets, times = [], []
+    for b in local:
+        sync()
+        t0 = time.perf_counter()
+        state, met = step(state, b)
+        mets.append({k: float(v) for k, v in met.items()})
+        sync()
+        times.append(time.perf_counter() - t0)
+    launches = dict(kernels.LAUNCHES)
+    calls, moved = dict(collectives.CALLS), dict(collectives.BYTES)
+    names = []
+    for turn in range(2 if dev.type == "cuda" else 0):
+        for attempt in range(3):
+            if r == turn:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    state, _ = step(state, local[0])
+                    sync()
+                names = sorted({e.key for e in prof.key_averages()
+                                if "flash" in e.key})
+            else:
+                state, _ = step(state, local[0])
                 sync()
-            names = sorted({e.key for e in prof.key_averages()
-                            if "flash" in e.key})
-        else:
-            state, _ = step(state, batches[0])
-            sync()
-        if global_any(r == turn and len(names) >= 2):
-            break
-del state, step, batches
-if dev.type == "cuda":
-    torch.cuda.empty_cache()
+            if global_any(r == turn and len(names) >= 2):
+                break
+    result.update({
+        "rank_launches": launches, "flash_kernels_in_trace": names,
+        "step_s": times, "metrics": mets,
+        "collective_calls_per_step": {k: v / a["steps"]
+                                      for k, v in calls.items()},
+        "collective_bytes_per_step": {k: v / a["steps"]
+                                      for k, v in moved.items()},
+        "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30
+        if dev.type == "cuda" else None})
+    del state, step, local
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
 
-gmodel = get_model(name, dtype=torch.float32, n_layers=2)
-gopt = OptimizerConfig(name="adafactor", warmup_steps=1,
-                       learning_rate=1e-2)
-gbatches = [data.place_batch(data.synthetic_batch(gmodel, 1, gate_seq,
-                                                  seed=5 + i), dev)
-            for i in range(3)]
+gmodel = get_model(a["model"], dtype=torch.float32,
+                   n_layers=a["gate_layers"], **a["gate_overrides"])
+gopt = OptimizerConfig(name=a["gate_opt"], warmup_steps=1,
+                       learning_rate=a["gate_lr"])
+gbatches = batches(gmodel, a["gate_rows"], a["gate_seq"], 5, 3)
 
-def run(m):
+def run(m, rows):
     st = trainer.init_state(torch.Generator(device=dev).manual_seed(0),
                             gmodel, gopt, m, device=dev)
     fn = trainer.build_train_step(gmodel, gopt, m)
-    ms = []
+    ms, dropped = [], 0
     for b in gbatches:
-        st, met = fn(st, b)
-        ms.append({k: float(met[k]) for k in ("loss", "grad_norm")})
+        with count_dropped() as drops:
+            st, met = fn(st, data.place_batch(rows(b), dev))
+        dropped += int(sum(drops))
+        ms.append({k: float(met[k]) for k in ("loss", "grad_norm",
+                                              "router_aux_loss")
+                   if k in met})
     if m is not None:
         st = st.layout.gather_state(st)
-    return ms, (None if st is None else flatten(st.params))
+    return ms, (None if st is None else flatten(st.params)), dropped
 
 # Rank 0's one process first; the gang's first collective waits for it.
 if r == 0:
-    gen = torch.Generator(device=dev).manual_seed(0)
-    init = {k: p.clone() for k, p in flatten(gmodel.init(
-        gmodel.config, generator=gen, device=dev,
-        param_dtype=torch.float32)).items()}
-    one, one_params = run(None)
-gang, gang_params = run(mesh)
-result = {"rank_launches": launches}
+    tree = gmodel.init(gmodel.config,
+                       generator=torch.Generator(device=dev).manual_seed(0),
+                       device=dev, param_dtype=torch.float32)
+    init = {k: p.detach().clone() for k, p in flatten(tree).items()}
+    # One process's gradient at the initial weights on the first batch. A
+    # leaf whose gradient norm is at most ZERO_GRAD of the whole one's is
+    # zero up to rounding (BERT's bk: softmax is blind to a shift of every
+    # key by q.bk; the pooler and NSP head, which the MLM loss does not
+    # reach): no update need move it.
+    ZERO_GRAD = 1e-6
+    leaves = flatten(tree)
+    for p in leaves.values():
+        p.requires_grad_(True)
+    loss, _ = gmodel.loss_fn(tree, data.place_batch(gbatches[0], dev),
+                             gmodel.config)
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True)
+    gnorm = {k: 0.0 if g is None else g.norm().item()
+             for k, g in zip(leaves, grads)}
+    total = math.sqrt(sum(v * v for v in gnorm.values()))
+    still = {k: v for k, v in gnorm.items() if v <= ZERO_GRAD * total}
+    del tree, leaves, loss, grads
+    one, one_params, one_dropped = run(None, lambda b: b)
+gang, gang_params, dropped = run(mesh,
+                                 lambda b: data.local_rows(b, bi, bn))
+result["gate_dropped"] = dropped
 if r == 0:
-    rel = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(gang, one)
-              for k in a)
+    rel = max(abs(g[k] - o[k]) / abs(o[k]) for g, o in zip(gang, one)
+              for k in o)
     worst = max(((p.to(dev) - one_params[n]).abs()
                  - 1e-4 * one_params[n].abs()).max().item()
                 for n, p in gang_params.items())
+    # The smallest matrix's largest move over the tolerance's largest,
+    # over every leaf of two dims or more whose gradient is not zero up
+    # to rounding.
     moved_min = min(((p - init[n]).abs().max()
                      / (1e-4 * p.abs().max() + 1e-5)).item()
-                    for n, p in one_params.items() if p.ndim >= 2)
-    result.update({
-        "step_s": times, "losses_grad_norms": mets,
-        "collective_calls_per_step": {k: v / steps
-                                      for k, v in calls.items()},
-        "collective_bytes_per_step": {k: v / steps
-                                      for k, v in moved.items()},
-        "local_shapes": {k: local[k] for k in (
-            "embed/kernel", "layers/attn/wq", "layers/attn/wk",
-            "layers/attn/wo", "layers/mlp/gate", "layers/mlp/down",
-            "lm_head/kernel")},
-        "f32_gate": {"layers": 2, "gang": gang, "one": one,
-                     "max_rel_err_loss_grad_norm": rel,
-                     "max_param_excess_over_1e-4_rel": worst,
-                     "min_matrix_update_over_tolerance": moved_min}})
-result["flash_kernels_in_trace"] = names
-with open(f"{out_path}.{r}", "w") as f:
+                    for n, p in one_params.items()
+                    if p.ndim >= 2 and n not in still)
+    result["f32_gate"] = {
+        "layers": a["gate_layers"], "rows": a["gate_rows"] * bn,
+        "seq": a["gate_seq"], "overrides": a["gate_overrides"],
+        "gang": gang, "one": one, "max_rel_err_metrics": rel,
+        "max_param_excess_over_1e-4_rel": worst,
+        "min_matrix_update_over_tolerance": moved_min,
+        "gradient_norm": total,
+        "leaves_zero_gradient_up_to_rounding": still,
+        "optimizer": a["gate_opt"], "learning_rate": a["gate_lr"],
+        "one_process_dropped": one_dropped}
+with open(a["out"] + f".{r}", "w") as f:
     json.dump(result, f)
 shutdown()
 """
 
 
-def tp_serving_run(tp: int) -> dict:
-    """(d)'s requests over HTTP on a paged fused llama-1b server (full
-    width and depth, bf16) of ``tp`` shards on TP_DEVICES: tokens/s and
-    the streamed TTFT, the paged kernel's launches (tp x n_layers x the
-    decode forwards), and the exposition's shard count and per-shard KV
-    bytes."""
+def tp_serving_run(tp: int, model: str = MODEL) -> dict:
+    """(d)'s requests over HTTP on a paged fused server of ``model``
+    (llama-1b by default; full width and depth, bf16) of ``tp`` shards on
+    TP_DEVICES: tokens/s and the streamed TTFT, the paged kernel's
+    launches (tp x n_layers x the decode forwards), and the exposition's
+    shard count and per-shard KV bytes."""
     from kubeflow_tpu_torch.serving.server import ModelServer
 
     kw = {} if tp == 1 else dict(tp_shards=tp, tp_devices=TP_DEVICES)
-    server = ModelServer(engine_cfg(kv_fused=True, **kw), port=0)
+    server = ModelServer(engine_cfg(kv_fused=True, model=model, **kw),
+                         port=0)
     server.start()
     try:
         n_layers = server.engine.model.config.n_layers
@@ -4292,22 +4420,28 @@ def tp_serving_run(tp: int) -> dict:
             "kv_bytes_total": samples["serving_kv_bytes_total"]}
 
 
-def tp_f32_gates(dev) -> dict:
-    """f32, greedy, llama-1b at full width and X_GATE_LAYERS layers, the
+def tp_f32_gates(dev, model_name: str = MODEL) -> dict:
+    """f32, greedy, ``model_name`` (llama-1b by default) at full width
+    and X_GATE_LAYERS layers, the
     requests one at a time through decoders sharing one set of weights:
     tp=2 on TP_DEVICES equals tp=1 token for token on the paged fused and
     gathered reads, the dense layout, chunked prefill (a 300-token prompt
     in chunks of 64 beside (d)'s) and speculation (``speculative_k`` 2 on
     the paged fused read, (q)'s requests); each request's logits after
     its last step agree within 1e-5 of their largest magnitude. Then a
-    handoff exported by a tp=2 prefill replica and imported by a tp=1
-    decode replica decodes as a colocated tp=1 replica does."""
+    handoff of a 200-token prompt exported by a tp=2 prefill replica and
+    imported by a tp=1 decode replica decodes as one exported at tp=1
+    does, on the same calls; for a dense model both decode as a
+    colocated tp=1 replica does (an MoE's capacity follows the call's
+    shape, so a cold admission of the whole prompt may drop other
+    choices than the handoff's calls, in JAX too)."""
     from kubeflow_tpu_torch import kernels
     from kubeflow_tpu_torch.models.registry import get_model
     from kubeflow_tpu_torch.serving import handoff
     from kubeflow_tpu_torch.serving.continuous import ContinuousDecoder
 
-    model = get_model(MODEL, dtype=torch.float32, n_layers=X_GATE_LAYERS)
+    model = get_model(model_name, dtype=torch.float32,
+                      n_layers=X_GATE_LAYERS)
     cfg = model.config
     params = model.init(cfg, generator=torch.Generator(
         device=dev).manual_seed(0), device=dev)
@@ -4378,134 +4512,273 @@ def tp_f32_gates(dev) -> dict:
                                  max_new_tokens=MAX_NEW, role=role,
                                  **roles, **tp_kw)
 
-    colo = decoder(1, "")
-    try:
-        ref = colo.generate(prompt, MAX_NEW, timeout=600)["tokens"]
-    finally:
-        colo.stop()
-    exp, imp = decoder(TP, "prefill"), decoder(1, "decode")
-    try:
-        h = exp.export_prompt(prompt)
-        env = json.dumps(handoff.pack(h))
-        if not imp.import_prompt(handoff.unpack(json.loads(env))):
-            raise AssertionError("tp=1 import refused a tp=2 export")
-        got = imp.generate(prompt, MAX_NEW, timeout=600)["tokens"]
-        hits = imp.metrics()["prefix_hits"]
-    finally:
-        exp.stop()
-        imp.stop()
-        del exp, imp, params
-        torch.cuda.empty_cache()
+    def handed_off(tp):
+        exp, imp = decoder(tp, "prefill"), decoder(1, "decode")
+        try:
+            h = exp.export_prompt(prompt)
+            env = json.dumps(handoff.pack(h))
+            if not imp.import_prompt(handoff.unpack(json.loads(env))):
+                raise AssertionError(f"tp=1 import refused a tp={tp} "
+                                     "export")
+            got = imp.generate(prompt, MAX_NEW, timeout=600)["tokens"]
+            return got, h, env, imp.metrics()["prefix_hits"]
+        finally:
+            exp.stop()
+            imp.stop()
+            del exp, imp
+
+    ref, _, _, ref_hits = handed_off(1)
+    got, h, env, hits = handed_off(TP)
+    identical = got == ref and ref_hits >= 1
+    if not cfg.n_experts:
+        colo = decoder(1, "")
+        try:
+            identical &= colo.generate(prompt, MAX_NEW,
+                                       timeout=600)["tokens"] == ref
+        finally:
+            colo.stop()
+    del params
+    torch.cuda.empty_cache()
     out["handoff_tp2_to_tp1"] = {
-        "identical": got == ref, "prefix_len": h["prefix_len"],
+        "identical": identical, "prefix_len": h["prefix_len"],
         "tp_shards": h["tp_shards"],
         "envelope_mesh": json.loads(env)["mesh"],
         "envelope_bytes": len(env), "prefix_hits": hits}
     return out
 
 
-def tp_kernel_checks(dev, flush) -> tuple[dict, dict]:
-    """(x)'s kernels at a shard's shapes, run at the start with (b) and
-    (g) while the profiler's records are whole (after the later phases,
-    sessions in this process have kept 1-3 launches of 10): the paged
-    kernel at a llama-1b shard's shape (bf16, f32, int8) and the flash
-    pair at a flagship-1b tensor rank's."""
+def tp_kernel_checks(dev, flush, tag: str, paged_shape: dict, impl,
+                     flash_shape: dict) -> tuple[dict, dict]:
+    """The kernels at a model's tensor-shard shapes, run at the start with
+    (b) and (g) while the profiler's records are whole (after the later
+    phases, sessions in this process have kept 1-3 launches of 10): the
+    paged kernel at a serving shard's ``paged_shape`` (bf16, f32, int8;
+    cases ``{tag}_{kv}``) and the flash pair at a tensor rank's
+    ``flash_shape`` through ``impl``, as the model calls it."""
     shard = paged_cases(dev, flush, [
-        (f"tp{TP}_{kv}", kv, PAGED_TP_SHARD) for kv in ("bf16", "f32",
-                                                        "int8")])
-    rank_flash = phase_model_flash(dev, flush, "tp_rank", "splash",
-                                   (FLASH_TP_RANK,))
+        (f"{tag}_{kv}", kv, paged_shape) for kv in ("bf16", "f32", "int8")])
+    rank_flash = phase_model_flash(dev, flush, f"{tag}_rank", impl,
+                                   (flash_shape,))
     return shard, rank_flash
 
 
-def phase_tensor_parallel(smi: str, shard: dict, rank_flash: dict) -> dict:
-    """(x) tensor parallelism. (x1) llama-1b at full width and depth,
-    bf16, paged fused, 8 slots, over HTTP: a server of two shards on the
-    card (``tp_devices`` cuda:0 twice) beside a server of one, (d)'s
-    requests each: tokens/s, the streamed TTFT, the paged kernel's
-    launches (2 x 16 x the decode forwards), ``serving_tp_shards`` and
-    the per-shard KV bytes of the exposition (half the unsharded); the
-    paged kernel at a shard's shape (B 8, Hkv 4, G 2, hd 128; bf16, f32,
-    int8) against the plain version within PAGED_TOL; the f32 gates of
-    :func:`tp_f32_gates` (the kernel checks at a shard's and a rank's
-    shapes are :func:`tp_kernel_checks`'s). (x2) ``X2_WORKER`` in a gang
-    of two tensor ranks on the card over gloo: flagship-1b at full width and depth,
-    bf16, each step's time, the collectives' calls and bytes a step, the
-    flash kernels' launches and their names in a profiled step on each
-    rank; the flash kernels at a rank's shape (Hq 16 over Hkv 2, hd 128,
-    1 x 2048) against the plain versions under (g)'s limits; the f32
-    gate: the gang's losses and gradient norms within 1e-5 relative of
-    one process's, its parameters within 1e-4 relative + 1e-5, every
-    matrix moved over 10x that limit."""
-    import shutil
+def rank_flash_timing(rank_flash: dict) -> dict:
+    """The flash pair's times and errors at a tensor rank's shape, forward
+    and backward, from :func:`tp_kernel_checks`."""
+    return {part: {k: rank_flash["timing"][part][k] for k in (
+        "ms", "call_ms", "plain_ms", "library_ms", "library_device_ms",
+        "bound_ms", "bound_by")} | {"max_abs_err": rank_flash[
+            "max_abs_err"][part]} for part in ("fwd", "bwd")}
 
-    from kubeflow_tpu_torch.parallel.launch import launch
 
-    dev = torch.device("cuda")
-    t_phase = time.perf_counter()
-    serving = {tp: tp_serving_run(tp) for tp in (1, TP)}
+def tp_serving_checks(smi: str, phase: str, model: str,
+                      shard: dict) -> dict:
+    """``model`` at full width and depth, bf16, paged fused, over HTTP: a
+    server of two shards on the card beside a server of one
+    (:func:`tp_serving_run`), the exposition's shard count and per-shard
+    bytes (half the unsharded), the paged kernel's shard-shape checks
+    (``shard``), and the f32 gates of :func:`tp_f32_gates`, each of which
+    must hold and take its path."""
+    serving = {tp: tp_serving_run(tp, model) for tp in (1, TP)}
     if serving[TP]["serving_tp_shards"] != TP or \
             2 * serving[TP]["kv_bytes_per_token"] != \
             serving[1]["kv_bytes_per_token"]:
-        raise AssertionError(f"exposition under tp: {serving}")
-    gates = tp_f32_gates(dev)
-    x1 = {"gpu": smi, "tp_devices": list(TP_DEVICES),
-          "serving": {f"tp{tp}": run for tp, run in serving.items()},
-          "tokens_per_s_ratio": serving[TP]["decode_tokens_per_s"]
-          / serving[1]["decode_tokens_per_s"],
-          "paged_shard_shape": shard, "f32_gates": gates}
-    emit("x1_tp_serving", **x1)
+        raise AssertionError(f"({phase}) exposition under tp: {serving}")
+    gates = tp_f32_gates(torch.device("cuda"), model)
+    out = {"gpu": smi, "model": model, "tp_devices": list(TP_DEVICES),
+           "serving": {f"tp{tp}": run for tp, run in serving.items()},
+           "tokens_per_s_ratio": serving[TP]["decode_tokens_per_s"]
+           / serving[1]["decode_tokens_per_s"],
+           "paged_shard_shape": shard, "f32_gates": gates}
+    emit(phase, **out)
     for name, g in gates.items():
         if not g["identical"] or g.get("last_logits_rel_err", 0.0) > 1e-5:
-            raise AssertionError(f"(x1) f32 gate {name}: {g}")
+            raise AssertionError(f"({phase}) f32 gate {name}: {g}")
     if min(gates["speculation"]["spec_verify_dispatches"]) <= 0 or \
             min(gates["chunked"]["prefill_chunks"]) <= 0 or \
             gates["handoff_tp2_to_tp1"]["prefix_hits"] < 1:
-        raise AssertionError(f"(x1) a gate did not take its path: {gates}")
+        raise AssertionError(f"({phase}) a gate did not take its path: "
+                             f"{gates}")
+    return out
 
-    os.makedirs(os.path.dirname(X_RESULT), exist_ok=True)
+
+def gang_run(smi: str, name: str, model: str, mesh: dict, steps: int,
+             rows: int, seq: int, gate_rows: int, gate_seq: int,
+             gate_overrides: dict, tol: float, gate_opt: str = "adafactor",
+             gate_lr: float = 1e-2) -> dict:
+    """One GANG_WORKER gang of two on the card (a run named ``name``);
+    checks its f32 gate (metrics
+    within ``tol`` relative of one process's, parameters within 1e-4
+    relative + 1e-5, every matrix moved over 10x that limit) and, with
+    full-size steps, each rank's flash launches (n_layers x steps each)
+    and the flash kernels named in each rank's trace."""
+    import shutil
+
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.parallel.launch import launch
+
+    os.makedirs(os.path.dirname(GANG_RESULT), exist_ok=True)
+    args = dict(device="cuda", model=model, mesh=mesh, steps=steps,
+                rows=rows, seq=seq,
+                gate_layers=X_GATE_LAYERS, gate_rows=gate_rows,
+                gate_seq=gate_seq,
+                gate_overrides=gate_overrides, gate_opt=gate_opt,
+                gate_lr=gate_lr, out=GANG_RESULT)
     t0 = time.perf_counter()
-    procs = launch([sys.executable, "-c", X2_WORKER, str(X_TRAIN_STEPS),
-                    X_RESULT, "cuda", TRAIN_MODEL, str(FLASH_TP_RANK["t"]),
-                    "1024"], 2, timeout=900)
+    procs = launch([sys.executable, "-c", GANG_WORKER, json.dumps(args)], 2,
+                   timeout=900)
     for i, p in enumerate(procs):
         if p.returncode:
-            raise AssertionError(f"(x2) rank {i} exited {p.returncode}:\n"
-                                 f"{p.stderr[-3000:]}")
+            raise AssertionError(f"({name}) rank {i} exited {p.returncode}:"
+                                 f"\n{p.stderr[-3000:]}")
     ranks = []
     for i in range(2):
-        with open(f"{X_RESULT}.{i}") as f:
+        with open(f"{GANG_RESULT}.{i}") as f:
             ranks.append(json.load(f))
-    shutil.rmtree(os.path.dirname(X_RESULT), ignore_errors=True)
-    x2 = {"gpu": smi, "model": TRAIN_MODEL, "mesh": {"tensor": TP},
-          "rows": "1 x 2048 on both ranks",
-          "transport": "gloo through the host (not NCCL)",
-          "wall_s": time.perf_counter() - t0, **ranks[0],
-          "rank1_launches": ranks[1]["rank_launches"],
-          "rank1_flash_kernels_in_trace": ranks[1]["flash_kernels_in_trace"],
-          "flash_rank_shape": {part: {k: rank_flash["timing"][part][k] for k in (
-              "ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
-              "bound_by")} | {"max_abs_err": rank_flash["max_abs_err"][part]}
-              for part in ("fwd", "bwd")}}
-    emit("x2_tp_train", **x2)
-    want = 3 * X_TRAIN_STEPS  # flagship-1b's layers x the steps
-    for r in ranks:
-        if any(r["rank_launches"][k] != want for k in (
-                "flash_attention_fwd", "flash_attention_bwd")):
-            raise AssertionError(f"(x2) flash launches {r['rank_launches']},"
-                                 f" expected {want} each")
-        if not any("fwd" in n for n in r["flash_kernels_in_trace"]) or \
-                not any("bwd" in n for n in r["flash_kernels_in_trace"]):
-            raise AssertionError(f"(x2) a rank's trace does not name the "
-                                 f"flash kernels: {r}")
+    shutil.rmtree(os.path.dirname(GANG_RESULT), ignore_errors=True)
+    # Each batch rank's own choices, once (a model-axis group counts the
+    # same rows on every rank).
+    dropped = sum({r["batch_index"]: r["gate_dropped"]
+                   for r in ranks}.values())
+    out = {"gpu": smi, "model": model, "mesh": mesh,
+           "transport": "gloo through the host (not NCCL)",
+           "wall_s": time.perf_counter() - t0, **ranks[0],
+           "gang_dropped": dropped}
+    if steps:
+        out["rank1_launches"] = ranks[1]["rank_launches"]
+        out["rank1_flash_kernels_in_trace"] = ranks[1][
+            "flash_kernels_in_trace"]
+    emit(name, **out)
+    if steps:
+        # A remat region runs its forward again in the backward.
+        cfg = get_model(model).config
+        want = {"flash_attention_fwd": cfg.n_layers * steps * (
+                    2 if getattr(cfg, "remat", False) else 1),
+                "flash_attention_bwd": cfg.n_layers * steps}
+        for r in ranks:
+            if any(r["rank_launches"][k] != n for k, n in want.items()):
+                raise AssertionError(f"({name}) flash launches "
+                                     f"{r['rank_launches']}, expected "
+                                     f"{want}")
+            if not any("fwd" in n for n in r["flash_kernels_in_trace"]) or \
+                    not any("bwd" in n for n in r["flash_kernels_in_trace"]):
+                raise AssertionError(f"({name}) a rank's trace does not "
+                                     f"name the flash kernels: {r}")
     g = ranks[0]["f32_gate"]
-    if g["max_rel_err_loss_grad_norm"] > 1e-5 or \
+    if g["max_rel_err_metrics"] > tol or \
             g["max_param_excess_over_1e-4_rel"] > 1e-5 or \
             g["min_matrix_update_over_tolerance"] < 10:
-        raise AssertionError(f"(x2) the tensor gang differs from one "
+        raise AssertionError(f"({name}) the gang differs from one "
                              f"process: {g}")
+    if dropped != g["one_process_dropped"]:
+        raise AssertionError(f"({name}) the gang dropped {dropped} choices, "
+                             f"one process {g['one_process_dropped']}")
+    return out
+
+
+def phase_tensor_parallel(smi: str, shard: dict, rank_flash: dict) -> dict:
+    """(x) tensor parallelism. (x1) :func:`tp_serving_checks` on llama-1b:
+    tokens/s and the streamed TTFT of two shards beside one, the paged
+    kernel's launches (2 x 16 x the decode forwards), the exposition, the
+    paged kernel at a shard's shape (B 8, Hkv 4, G 2, hd 128; bf16, f32,
+    int8) within PAGED_TOL, the f32 gates (the kernel checks at a shard's
+    and a rank's shapes are :func:`tp_kernel_checks`'s). (x2)
+    :func:`gang_run`, a gang of two tensor ranks on the card over gloo:
+    flagship-1b at full width and depth, bf16, 1 x 2048 rows on both
+    ranks, each step's time, the collectives' calls and bytes a step, the
+    flash kernels' launches and their names in a profiled step on each
+    rank; the flash kernels at a rank's shape (Hq 16 over Hkv 2, hd 128,
+    1 x 2048) against the plain versions under (g)'s limits; the f32
+    gate at 2 layers (1 x 1024 rows, adafactor at lr 1e-2): the gang's
+    losses and gradient norms within 1e-5 relative of one process's, its
+    parameters within 1e-4 relative + 1e-5, every matrix moved over 10x
+    that limit."""
+    t_phase = time.perf_counter()
+    x1 = tp_serving_checks(smi, "x1_tp_serving", MODEL, shard)
+    x2 = gang_run(smi, "x2_tp_train", TRAIN_MODEL, {"tensor": TP},
+                  X_TRAIN_STEPS, 1, FLASH_TP_RANK["t"], 1, 1024, {}, 1e-5)
+    x2["flash_rank_shape"] = rank_flash_timing(rank_flash)
+    emit("x2_flash_tp_rank", **x2["flash_rank_shape"])
     out = {"x1": x1, "x2": x2, "phase_s": time.perf_counter() - t_phase}
     emit("x_phase_time", phase_s=out["phase_s"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# (y) the mixture of experts over the mesh axes: moe-1b served by tensor
+# shards and trained over tensor, expert and data; BERT over tensor
+# ---------------------------------------------------------------------------
+
+# The paged kernel on one of moe-1b's two shards: Hkv 4 over 2, G 4, hd 64.
+PAGED_MOE_TP_SHARD = dict(hkv=4 // TP, g=4, hd=64)
+# moe-1b's attention on one of two tensor ranks, 1 x 2048 rows: Hq 8 over
+# Hkv 2 (G 4), hd 64, causal.
+FLASH_MOE_TP_RANK = dict(FLASH_MOE, b=1, hq=16 // TP, hkv=4 // TP)
+# moe-1b's attention on an expert or data rank (y2, y3): its whole heads,
+# 1 x 2048 rows.
+FLASH_MOE_EP_RANK = dict(FLASH_MOE, b=1)
+# bert-base's attention on one of two tensor ranks (y4): 6 heads of 12,
+# masked, 32 x 128 rows.
+FLASH_BERT_TP_RANK = dict(FLASH_BERT, hq=12 // TP, hkv=12 // TP)
+# (y2)-(y4): the steps at full size, the MoE gates' rows' length and
+# capacity factor (experts overflow at 0.5).
+Y_TRAIN_STEPS, Y_GATE_SEQ, Y_GATE_CF = 4, 512, 0.5
+
+
+def phase_moe_mesh(smi: str, shard: dict, rank_flash: dict,
+                   ep_rank_flash: dict, bert_rank_flash: dict) -> dict:
+    """(y) the mixture of experts over the mesh axes, and BERT over tensor.
+    (y1) moe-1b at full width and depth, bf16, paged fused, (d)'s six
+    requests over HTTP: a server of two shards on the card beside one
+    (tokens/s, streamed TTFT, paged launches 2 x 8 x the decode forwards,
+    ``serving_tp_shards`` and the per-shard KV bytes); the paged kernel at
+    a shard's shape (Hkv 2, G 4, hd 64; :func:`tp_kernel_checks`); the f32
+    gates of :func:`tp_f32_gates` on moe-1b at 2 layers. (y2) moe-1b at
+    full width and depth, 1 x 2048 rows a rank, Y_TRAIN_STEPS steps, in
+    gloo gangs of two on the card over ``{"tensor": 2}`` and ``{"expert":
+    2}``: each step's time, the collectives' calls and bytes a step, the
+    flash kernels named in each rank's trace; the flash pair at a tensor
+    rank's shape and at an expert rank's (B 1, moe-1b's whole heads;
+    ``ep_rank_flash``) against the plain versions. (y3) the f32 gates at 2
+    layers, capacity factor Y_GATE_CF: those two gangs and a
+    ``{"data": 2}`` gang against one process on the global batch
+    (losses, ``router_aux_loss`` and gradient norms within 1e-6
+    relative), the data gang's dropped choices above 0 and equal to one
+    process's. (y4) bert-base over ``{"tensor": 2}``: 4 MLM steps at 32 x
+    128 and its f32 gate at 2 layers against one process (sgd at lr 1,
+    1e-5); the flash pair at a tensor rank's shape (6 heads, masked;
+    ``bert_rank_flash``) against the plain versions. The kernel checks
+    run at the start (``main``), as (x)'s do."""
+    t_phase = time.perf_counter()
+    y1 = tp_serving_checks(smi, "y1_moe_tp_serving", MOE_MODEL, shard)
+    cf = {"expert_capacity_factor": Y_GATE_CF}
+    y2 = {}
+    for axis in ("tensor", "expert"):
+        y2[axis] = gang_run(smi, f"y2_moe_{axis}{TP}", MOE_MODEL,
+                            {axis: TP}, Y_TRAIN_STEPS, 1, FLASH_MOE["t"], 1,
+                            Y_GATE_SEQ, cf, 1e-6)
+    y2["flash_rank_shape"] = rank_flash_timing(rank_flash)
+    emit("y2_flash_moe_tp_rank", **y2["flash_rank_shape"])
+    y2["flash_ep_rank_shape"] = rank_flash_timing(ep_rank_flash)
+    emit("y2_flash_moe_ep_rank", **y2["flash_ep_rank_shape"])
+    y3 = gang_run(smi, f"y3_moe_data{TP}", MOE_MODEL, {"data": TP}, 0, 1,
+                  FLASH_MOE["t"], 1, Y_GATE_SEQ, cf, 1e-6)
+    if y3["gang_dropped"] <= 0:
+        raise AssertionError(f"(y3) no expert overflowed: {y3}")
+    # sgd, as the CPU tests train BERT: bk's gradient is zero up to
+    # rounding (softmax is blind to a shift of every key by q.bk), which a
+    # normalising update turns into a step whose sign is the rounding's.
+    # At lr 1 (an update of norm at most 1: the gradients are clipped to
+    # 1) every matrix moves past 10x the parameter limit; at lr 0.1 the
+    # least moved read 2.9x on an H100.
+    y4 = gang_run(smi, f"y4_bert_tensor{TP}", BERT_MODEL, {"tensor": TP},
+                  Y_TRAIN_STEPS, BERT_BATCH, BERT_SEQ, 8, BERT_SEQ, {}, 1e-5,
+                  "sgd", 1.0)
+    y4["flash_rank_shape"] = rank_flash_timing(bert_rank_flash)
+    emit("y4_flash_bert_tp_rank", **y4["flash_rank_shape"])
+    out = {"y1": y1, "y2": y2, "y3": y3, "y4": y4,
+           "phase_s": time.perf_counter() - t_phase}
+    emit("y_phase_time", phase_s=out["phase_s"])
     return out
 
 
@@ -4513,8 +4786,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from kubeflow_tpu_torch import kernels  # fails without the checkout
-    from kubeflow_tpu_torch.ops.rms_norm_triton import rms_norm_triton
+    try:
+        from kubeflow_tpu_torch import kernels
+        from kubeflow_tpu_torch.ops.rms_norm_triton import rms_norm_triton
+    except ImportError as e:
+        print("chip_smoke: the kubeflow_tpu_torch package is not beside "
+              f"this script; run it from the root of a checkout ({e})",
+              file=sys.stderr)
+        return 2
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4565,7 +4844,16 @@ def main() -> int:
                                    masked=True, iters=(20, 10))
     moe_flash = phase_model_flash(dev, flush, "moe", None,
                                   (FLASH_MOE, FLASH_MOE_PREDICT))
-    tp_checks = tp_kernel_checks(dev, flush)
+    tp_checks = tp_kernel_checks(dev, flush, f"tp{TP}", PAGED_TP_SHARD,
+                                 "splash", FLASH_TP_RANK)
+    y_checks = tp_kernel_checks(dev, flush, f"moe_tp{TP}",
+                                PAGED_MOE_TP_SHARD, None, FLASH_MOE_TP_RANK)
+    y_checks += (
+        phase_model_flash(dev, flush, f"moe_ep{TP}_rank", None,
+                          (FLASH_MOE_EP_RANK,)),
+        phase_model_flash(dev, flush, f"bert_tp{TP}_rank", None,
+                          (FLASH_BERT_TP_RANK,), masked=True,
+                          iters=(20, 10)))
     del flush
     torch.cuda.empty_cache()
     main_path = phase_main_path()
@@ -4587,6 +4875,7 @@ def main() -> int:
     phase_resnet(smi)
     mesh = phase_mesh(smi, train)
     tp = phase_tensor_parallel(smi, *tp_checks)
+    moe_mesh = phase_moe_mesh(smi, *y_checks)
 
     p, r = paged["bf16"], rms[f"{SLOTS}x2048"]
     paged_paths = {
@@ -4595,7 +4884,9 @@ def main() -> int:
         "speculation": spec["paged_launches"],
         "serving_features": features["launches"],
         "moe_paged": moe["paged"]["launches"]["paged_decode_attention"],
-        "tp2_serving": tp["x1"]["serving"][f"tp{TP}"]["paged_launches"]}
+        "tp2_serving": tp["x1"]["serving"][f"tp{TP}"]["paged_launches"],
+        "moe_tp2_serving": moe_mesh["y1"]["serving"][f"tp{TP}"][
+            "paged_launches"]}
     table = [
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "kubeflow_tpu_torch/csrc/paged_decode.cu",
@@ -4614,6 +4905,10 @@ def main() -> int:
              f"tp{TP}_{kv}"][k] for k in (
              "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
              "max_abs_err")} for kv in ("bf16", "f32", "int8")},
+         "moe_tp_shard_shape": {kv: {k: moe_mesh["y1"]["paged_shard_shape"][
+             f"moe_tp{TP}_{kv}"][k] for k in (
+             "ms", "call_ms", "bound_ms", "bound_by", "max_abs_err")}
+             for kv in ("bf16", "f32", "int8")},
          "ms": p["ms"], "call_ms": p["call_ms"], "plain_ms": p["plain_ms"],
          "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
          "library_ms": None},
@@ -4659,6 +4954,12 @@ def main() -> int:
                 by_path["mesh_train"] = mesh["w1"]["launches"][key]
                 by_path["tp2_train_rank0"] = tp["x2"]["rank_launches"][key]
                 by_path["tp2_train_rank1"] = tp["x2"]["rank1_launches"][key]
+                for run, res in (("moe_tp2", moe_mesh["y2"]["tensor"]),
+                                 ("moe_ep2", moe_mesh["y2"]["expert"]),
+                                 ("bert_tp2", moe_mesh["y4"])):
+                    by_path[f"{run}_train_rank0"] = res["rank_launches"][key]
+                    by_path[f"{run}_train_rank1"] = res["rank1_launches"][
+                        key]
                 if part == "fwd":
                     by_path["predict"] = predict_launches
                     by_path["moe_predict"] = moe["dense"][
@@ -4676,6 +4977,12 @@ def main() -> int:
                             "library_device_ms", "bound_ms", "bound_by")},
                         "max_abs_err": res["max_abs_err"][part]}
                 row["tp_rank_shape"] = tp["x2"]["flash_rank_shape"][part]
+                row["moe_tp_rank_shape"] = moe_mesh["y2"][
+                    "flash_rank_shape"][part]
+                row["moe_ep_rank_shape"] = moe_mesh["y2"][
+                    "flash_ep_rank_shape"][part]
+                row["bert_tp_rank_shape"] = moe_mesh["y4"][
+                    "flash_rank_shape"][part]
             if impl == "splash" and part == "fwd":
                 row["predict_shape"] = {
                     kind: {k: fp[kind][k] for k in (

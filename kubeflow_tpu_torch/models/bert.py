@@ -18,8 +18,22 @@ in float32 before the cast to ``cfg.dtype``; the pooler and the MLM head
 run in float32; the layers' weights and biases are cast to ``cfg.dtype``
 at each use (:data:`COMPUTE_PREFIXES`). Over a mesh of the data and
 fsdp axes (``mesh=``) each rank runs its rows of the batch and
-:func:`loss_fn` normalises by the global count of masked positions; the
-other axes (tensor among them) are not yet ported.
+:func:`loss_fn` normalises by the global count of masked positions.
+
+Over the ``tensor`` axis each rank holds its block of the leaves JAX's
+rules split (:func:`partition_rules`, Megatron's) and runs Megatron's
+layer, as ``models/transformer.py`` does: wq/wk/wv and ``mlp/wi``
+column-parallel on its heads and ``d_ff`` columns behind
+``copy_to_tensor``, each adding its slice of the replicated bias; both
+``wo`` row-parallel, summed by ``reduce_from_tensor`` before their
+replicated bias is added once. The word embedding is split over the
+vocabulary (a masked gather and a sum; the position and type tables stay
+whole), and the tied MLM head computes the rank's vocabulary slice of the
+logits in float32 with its slice of ``output_bias``, gathered whole by
+``gather_from_tensor``. A replicated leaf that a rank reads only a slice
+of (a column bias, ``output_bias``) goes behind ``copy_to_tensor``, so
+every rank holds its whole gradient. Every leaf is replicated over
+``expert``.
 """
 
 from __future__ import annotations
@@ -34,14 +48,24 @@ from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.ops.attention import flash_attention
 from kubeflow_tpu_torch.ops.losses import softmax_cross_entropy
 from kubeflow_tpu_torch.ops.norms import layer_norm
+from kubeflow_tpu_torch.parallel.collectives import (
+    copy_to_tensor,
+    gather_from_tensor,
+    tensor_copy,
+    tensor_sum,
+)
 from kubeflow_tpu_torch.parallel.mesh import (
     AXIS_DATA,
     AXIS_FSDP,
     AXIS_TENSOR,
     BATCH_AXES,
+    MODEL_AXES,
+    axis_index,
+    axis_size,
     require_axes,
+    tensor_mesh,
 )
-from kubeflow_tpu_torch.parallel.sharding import P, PartitionRule
+from kubeflow_tpu_torch.parallel.sharding import P, PartitionRule, vocab_lookup
 
 
 @dataclass(frozen=True)
@@ -176,7 +200,27 @@ def batch_partition_spec(cfg: BertConfig) -> tuple:
 
 
 def check_mesh(cfg: BertConfig, mesh) -> None:
-    require_axes(mesh, BATCH_AXES, "the BERT forward")
+    """Raise ValueError("... not yet ported") for an axis other than data,
+    fsdp, expert and tensor above 1, and ValueError for a tensor degree
+    that does not divide the heads, ``d_ff`` or the vocabulary."""
+    require_axes(mesh, (*BATCH_AXES, *MODEL_AXES), "the BERT forward")
+    tp = axis_size(mesh, AXIS_TENSOR)
+    for what in ("n_heads", "d_ff", "vocab_size"):
+        if getattr(cfg, what) % tp:
+            raise ValueError(f"tensor degree {tp} must divide {what} "
+                             f"{getattr(cfg, what)}")
+
+
+def _slice(bias, tmesh):
+    """This rank's block of a replicated column bias (last dim) over
+    ``tmesh``'s tensor axis, behind ``copy_to_tensor`` (each rank's
+    gradient covers only its block; the sum gives every rank the whole);
+    the bias as it is without one."""
+    if tmesh is None:
+        return bias
+    cols = bias.shape[-1] // axis_size(tmesh, AXIS_TENSOR)
+    return copy_to_tensor(bias, tmesh).narrow(
+        -1, axis_index(tmesh, AXIS_TENSOR) * cols, cols)
 
 
 def _gelu(x):
@@ -191,23 +235,28 @@ def _layer(params, i: int) -> dict:
             for part in ("attn", "mlp", "ln_attn", "ln_mlp")}
 
 
-def _layer_fn(cfg: BertConfig, x, pad_mask, layer):
+def _layer_fn(cfg: BertConfig, x, pad_mask, layer, tmesh=None):
+    """One post-norm layer; over ``tmesh`` Megatron's (module
+    docstring)."""
     b, t, d = x.shape
     a, dt = layer["attn"], cfg.dtype
+    tp = 1 if tmesh is None else axis_size(tmesh, AXIS_TENSOR)
+    xin = tensor_copy(x, tmesh)
 
     def heads(w, bias):
-        return (x @ w.to(dt) + bias.to(dt)).reshape(
-            b, t, cfg.n_heads, cfg.head_dim)
+        return (xin @ w.to(dt) + _slice(bias, tmesh).to(dt)).reshape(
+            b, t, cfg.n_heads // tp, cfg.head_dim)
 
     attn = flash_attention(heads(a["wq"], a["bq"]), heads(a["wk"], a["bk"]),
                            heads(a["wv"], a["bv"]), causal=False,
-                           kv_mask=pad_mask).reshape(b, t, d)
-    attn = attn @ a["wo"].to(dt) + a["bo"].to(dt)
+                           kv_mask=pad_mask).reshape(b, t, d // tp)
+    attn = tensor_sum(attn @ a["wo"].to(dt), tmesh) + a["bo"].to(dt)
     x = layer_norm(x + attn, layer["ln_attn"]["scale"],
                    layer["ln_attn"]["bias"], eps=cfg.norm_eps)
     m = layer["mlp"]
-    h = _gelu(x @ m["wi"].to(dt) + m["bi"].to(dt))
-    h = h @ m["wo"].to(dt) + m["bo2"].to(dt)
+    xin = tensor_copy(x, tmesh)
+    h = _gelu(xin @ m["wi"].to(dt) + _slice(m["bi"], tmesh).to(dt))
+    h = tensor_sum(h @ m["wo"].to(dt), tmesh) + m["bo2"].to(dt)
     return layer_norm(x + h, layer["ln_mlp"]["scale"],
                       layer["ln_mlp"]["bias"], eps=cfg.norm_eps)
 
@@ -230,8 +279,9 @@ def apply(params, tokens, cfg: BertConfig, *, type_ids=None, pad_mask=None,
         pad_mask = torch.ones((b, t), dtype=torch.float32, device=dev)
     if type_ids is None:
         type_ids = torch.zeros((b, t), dtype=torch.long, device=dev)
+    tmesh = tensor_mesh(mesh)
     e = params["embed"]
-    x = (e["word"][tokens.long()] + e["position"][:t][None]
+    x = (vocab_lookup(e["word"], tokens, tmesh) + e["position"][:t][None]
          + e["type"][type_ids.long()])
     x = layer_norm(x, e["ln"]["scale"], e["ln"]["bias"],
                    eps=cfg.norm_eps).to(cfg.dtype)
@@ -239,21 +289,29 @@ def apply(params, tokens, cfg: BertConfig, *, type_ids=None, pad_mask=None,
     for i in range(cfg.n_layers):
         layer = _layer(params, i)
         if remat:
-            x = checkpoint(_layer_fn, cfg, x, pad_mask, layer,
+            x = checkpoint(_layer_fn, cfg, x, pad_mask, layer, tmesh,
                            use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _layer_fn(cfg, x, pad_mask, layer)
+            x = _layer_fn(cfg, x, pad_mask, layer, tmesh)
     pooled = torch.tanh(x[:, 0].float() @ params["pooler"]["kernel"]
                         + params["pooler"]["bias"])
     return x, pooled
 
 
-def mlm_logits(params, sequence_output, cfg: BertConfig):
-    """The MLM head in float32, tied to the word embeddings: [B, T, V]."""
+def mlm_logits(params, sequence_output, cfg: BertConfig, *, mesh=None):
+    """The MLM head in float32, tied to the word embeddings: [B, T, V].
+    Over a tensor ``mesh`` each rank computes its vocabulary slice with
+    its block of the embeddings and its slice of ``output_bias``, and the
+    slices are gathered whole."""
     m = params["mlm"]
     h = _gelu(sequence_output.float() @ m["transform"] + m["transform_bias"])
     h = layer_norm(h, m["ln"]["scale"], m["ln"]["bias"], eps=cfg.norm_eps)
-    return h @ params["embed"]["word"].T + m["output_bias"]
+    tmesh = tensor_mesh(mesh)
+    if tmesh is None:
+        return h @ params["embed"]["word"].T + m["output_bias"]
+    local = copy_to_tensor(h, tmesh) @ params["embed"]["word"].T \
+        + _slice(m["output_bias"], tmesh)
+    return gather_from_tensor(local, tmesh)
 
 
 def loss_fn(params, batch, cfg: BertConfig, *, mesh=None):
@@ -264,5 +322,5 @@ def loss_fn(params, batch, cfg: BertConfig, *, mesh=None):
     rank, and the metrics are global."""
     seq, _ = apply(params, batch["tokens"], cfg,
                    pad_mask=batch.get("pad_mask"), mesh=mesh)
-    logits = mlm_logits(params, seq, cfg)
+    logits = mlm_logits(params, seq, cfg, mesh=mesh)
     return softmax_cross_entropy(logits, batch["mlm_labels"], mesh=mesh)

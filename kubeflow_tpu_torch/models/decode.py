@@ -80,7 +80,7 @@ from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rotary import rotary_frequencies
 from kubeflow_tpu_torch.parallel.collectives import reduce_shards
 from kubeflow_tpu_torch.parallel.mesh import TensorShards
-from kubeflow_tpu_torch.parallel.sharding import split_kv_heads
+from kubeflow_tpu_torch.parallel.sharding import split_kv_heads, vocab_rows
 
 _NEG_INF = -1e30
 
@@ -147,15 +147,8 @@ def _embed(shards, tokens) -> list:
     term a token)."""
     if len(shards) == 1:
         return [shards[0][0]["embed"]["kernel"][tokens]]
-    parts = []
-    for i, (p, _cfg, dev) in enumerate(shards):
-        kernel = p["embed"]["kernel"]
-        rows = kernel.shape[0]
-        local = tokens.to(dev) - i * rows
-        held = (local >= 0) & (local < rows)
-        parts.append(torch.where(held[..., None],
-                                 kernel[local.clamp(0, rows - 1)], 0.0))
-    return reduce_shards(parts)
+    return reduce_shards([vocab_rows(p["embed"]["kernel"], tokens, i)
+                          for i, (p, _cfg, _dev) in enumerate(shards)])
 
 
 def _logits(shards, xs):

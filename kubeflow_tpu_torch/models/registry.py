@@ -31,7 +31,8 @@ class ModelSpec:
     # the optimizer step (ResNet's batch-norm running statistics).
     update_state: Callable | None = None
     # (cfg, mesh) -> None; raises for a mesh the family does not yet
-    # train over (MoE over data or fsdp).
+    # train over (an axis other than data, fsdp, expert and tensor) or
+    # whose degrees do not divide its shapes.
     check_mesh: Callable | None = None
 
 

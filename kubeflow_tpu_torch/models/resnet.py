@@ -34,7 +34,9 @@ rows of the batch, and training's batch norm is synchronised: the mean
 over the global batch, then the biased variance as the global mean of
 squared deviations from it (two psums, both differentiable), which is
 what GSPMD computes for JAX's ``jnp.mean``/``jnp.var`` over a sharded
-batch. The other axes (tensor among them) are not yet ported.
+batch. JAX's rules give the model axes (expert and tensor) nothing to
+split: their ranks hold the same rows and every weight whole, and batch
+norm syncs over the batch axes only.
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from kubeflow_tpu_torch.parallel.mesh import (
     AXIS_DATA,
     AXIS_FSDP,
     BATCH_AXES,
+    MODEL_AXES,
     axis_size,
     require_axes,
 )
@@ -164,7 +167,7 @@ def batch_partition_spec(cfg: ResNetConfig) -> tuple:
 
 
 def check_mesh(cfg: ResNetConfig, mesh) -> None:
-    require_axes(mesh, BATCH_AXES, "the ResNet forward")
+    require_axes(mesh, (*BATCH_AXES, *MODEL_AXES), "the ResNet forward")
 
 
 def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:

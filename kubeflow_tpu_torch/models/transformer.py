@@ -23,11 +23,10 @@ regions wrap groups of that many layers, as JAX's grouped scan does.
 (:func:`_remat_layer`), and ``loss_chunks`` the chunked LM loss. Options
 whose port is still to come raise ``ValueError("... not yet ported")``
 where training reaches them: ``context_parallel``, ``pipeline_stages > 1``
-and a mesh with an axis other than data, fsdp and tensor above 1. Over the
-data and fsdp axes (:func:`loss_fn` with ``mesh=``) each rank runs its
-rows of the batch through the whole model; a mixture of experts there is
-refused, since JAX's capacity and queue positions come from the global
-batch (expert parallelism's dispatch), and over ``tensor`` too.
+and a mesh with an axis other than data, fsdp, expert and tensor above 1.
+Over the data and fsdp axes (:func:`loss_fn` with ``mesh=``) each rank
+runs its rows of the batch through the whole model; the ranks of the
+model axes (expert and tensor) hold the same rows.
 
 Over the ``tensor`` axis each rank holds its block of every leaf the
 partition rules split (:func:`partition_rules`) and runs Megatron's
@@ -39,13 +38,21 @@ vocabulary (the logits gathered whole). A rank's contiguous query heads
 read its contiguous KV heads (``G = Hq / Hkv`` heads a group), so the
 flash kernels run on each rank's heads unchanged. Remat regions replay
 the forward's collectives when they recompute, in the same order on
-every rank.
+every rank. A dense model replicates every leaf over ``expert``.
 
 The JAX package computes :func:`moe_ffn` with einsums, ``top_k`` and a
 ``cumsum`` (no Pallas kernel), so it is plain PyTorch here on every
 device; it dispatches by index instead of through the one-hot einsums,
 which computes the same function without the ``[n, E, C]`` dispatch
-tensor.
+tensor. Under GSPMD JAX's ``moe_ffn`` stays the function of the GLOBAL
+batch; over a mesh the port computes that function from each rank's
+rows: the capacity from the global token count, each choice's queue
+position from every rank's counts (one all-gather of ``[k, E]`` integers
+over the batch axes a layer), the rank's experts ``[e0, e0 + E/ep)`` on
+its ``d_ff/tp`` columns, and the partial outputs summed over
+``("expert", "tensor")``. JAX's batch spec replicates the rows over
+``expert``, so that sum is the exact counterpart of GSPMD's dispatch,
+with no all-to-all.
 """
 
 from __future__ import annotations
@@ -67,6 +74,7 @@ from torch.utils.checkpoint import (
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.ops.attention import FLASH_FWD_OP, flash_attention
 from kubeflow_tpu_torch.ops.losses import (
+    batch_sum,
     chunked_lm_head_loss,
     softmax_cross_entropy,
 )
@@ -74,8 +82,11 @@ from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rotary import apply_rotary, rotary_frequencies
 from kubeflow_tpu_torch.parallel.collectives import (
     copy_to_tensor,
+    gather_counts,
     gather_from_tensor,
     reduce_from_tensor,
+    tensor_copy,
+    tensor_sum,
 )
 from kubeflow_tpu_torch.parallel.mesh import (
     AXIS_DATA,
@@ -85,11 +96,13 @@ from kubeflow_tpu_torch.parallel.mesh import (
     AXIS_SEQUENCE,
     AXIS_TENSOR,
     BATCH_AXES,
+    MODEL_AXES,
     axis_index,
     axis_size,
     require_axes,
+    tensor_mesh,
 )
-from kubeflow_tpu_torch.parallel.sharding import P, PartitionRule
+from kubeflow_tpu_torch.parallel.sharding import P, PartitionRule, vocab_lookup
 
 
 @dataclass(frozen=True)
@@ -184,48 +197,73 @@ def config(name: str, **overrides) -> TransformerConfig:
 
 @dataclass(frozen=True)
 class TensorShardConfig(TransformerConfig):
-    """One tensor shard's view of a config (:func:`shard_config`): its
-    query and KV heads, its ``d_ff`` columns, the whole ``head_dim``.
-    ``tp_mesh`` is the training mesh whose ``tensor`` axis the layer's
-    collectives run over; None for a serving shard, whose replica sums
-    the shards itself (``models/decode.py``)."""
+    """One model-parallel rank's view of a config (:func:`shard_config`):
+    its query and KV heads and its ``d_ff`` columns (``shards`` tensor
+    shards), the whole ``head_dim``, and its experts
+    ``[first_expert, first_expert + local_experts)`` of ``expert_shards``
+    ranges; ``n_experts`` stays whole, as every rank routes over all of
+    them. ``mesh`` is the training mesh the layer's collectives run over;
+    None for a serving shard, whose replica sums the shards itself
+    (``models/decode.py``)."""
 
     shards: int = 1
-    tp_mesh: object = None
+    expert_shards: int = 1
+    expert_index: int = 0
+    mesh: object = None
 
     @property
     def head_dim(self) -> int:
         return self.d_model // (self.n_heads * self.shards)
 
+    @property
+    def local_experts(self) -> int:
+        return self.n_experts // self.expert_shards
 
-def shard_config(cfg: TransformerConfig, tp: int, mesh=None
-                 ) -> TransformerConfig:
-    """The config one of ``tp`` tensor shards runs (``cfg`` itself at tp
-    1 without a mesh). Raises unless ``tp`` divides the heads, the KV
-    heads, ``d_ff`` and the vocabulary."""
-    if tp == 1 and mesh is None:
-        return cfg
+    @property
+    def first_expert(self) -> int:
+        return self.expert_index * self.local_experts
+
+
+def check_degrees(cfg: TransformerConfig, tp: int, ep: int = 1) -> None:
+    """Raise unless the tensor degree ``tp`` divides the heads, the KV
+    heads, ``d_ff`` and the vocabulary, and the expert degree ``ep``
+    divides ``n_experts`` (a mixture of experts)."""
     for what in ("n_heads", "n_kv_heads", "d_ff", "vocab_size"):
         if getattr(cfg, what) % tp:
             raise ValueError(f"tensor degree {tp} must divide {what} "
                              f"{getattr(cfg, what)}")
+    if cfg.n_experts and cfg.n_experts % ep:
+        raise ValueError(f"expert degree {ep} must divide n_experts "
+                         f"{cfg.n_experts}")
+
+
+def shard_config(cfg: TransformerConfig, tp: int, mesh=None
+                 ) -> TransformerConfig:
+    """The config one of ``tp`` tensor shards runs (``cfg`` itself at tp
+    1 without a mesh); over a training ``mesh`` a mixture of experts also
+    keeps this rank's range of experts on ``expert``. Raises as
+    :func:`check_degrees` does."""
+    if tp == 1 and mesh is None:
+        return cfg
+    ep = axis_size(mesh, AXIS_EXPERT) if mesh is not None and \
+        cfg.n_experts else 1
+    check_degrees(cfg, tp, ep)
     fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
-              if f.name not in ("shards", "tp_mesh")}
+              if f.name not in ("shards", "expert_shards", "expert_index",
+                                "mesh")}
     fields.update(n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
                   d_ff=cfg.d_ff // tp)
-    return TensorShardConfig(**fields, shards=tp, tp_mesh=mesh)
+    return TensorShardConfig(
+        **fields, shards=tp, expert_shards=ep,
+        expert_index=axis_index(mesh, AXIS_EXPERT) if ep > 1 else 0,
+        mesh=mesh)
 
 
-def _to_tensor(cfg: TransformerConfig, x):
-    """The input of a column-parallel product (Megatron's copy)."""
-    mesh = getattr(cfg, "tp_mesh", None)
-    return x if mesh is None else copy_to_tensor(x, mesh)
-
-
-def _from_tensor(cfg: TransformerConfig, x):
-    """The sum of a row-parallel product's partial outputs."""
-    mesh = getattr(cfg, "tp_mesh", None)
-    return x if mesh is None else reduce_from_tensor(x, mesh)
+def _mesh(cfg: TransformerConfig):
+    """The training mesh of a rank's view (:func:`shard_config`), else
+    None: the mesh Megatron's collectives (``tensor_copy``,
+    ``tensor_sum``) run over where its tensor degree is above 1."""
+    return getattr(cfg, "mesh", None)
 
 
 # Leaves that rms_norm reads in float32; every other leaf is a matmul or
@@ -330,24 +368,12 @@ def batch_partition_spec(cfg: TransformerConfig) -> tuple:
 
 def check_mesh(cfg: TransformerConfig, mesh) -> None:
     """Raise ValueError("... not yet ported") for a mesh the training
-    forward does not run over: an axis other than data, fsdp and tensor
-    above 1, a mixture of experts over a data or fsdp degree above 1 (JAX
-    takes the capacity and each token's queue position over the global
-    batch, which needs expert parallelism's cross-rank dispatch) or over
-    a tensor degree above 1; and raise ValueError for a tensor degree
-    that does not divide the heads, ``d_ff`` or the vocabulary."""
-    require_axes(mesh, (*BATCH_AXES, AXIS_TENSOR), "the transformer forward")
-    tp = axis_size(mesh, AXIS_TENSOR)
-    if cfg.n_experts and axis_size(mesh, BATCH_AXES) > 1:
-        raise ValueError(
-            "a mixture of experts over a data or fsdp degree above 1 "
-            "(global capacity and dispatch: expert parallelism) is not yet "
-            "ported to the PyTorch package")
-    if cfg.n_experts and tp > 1:
-        raise ValueError(
-            "a mixture of experts over the 'tensor' mesh axis (the expert "
-            "weights' d_ff split) is not yet ported to the PyTorch package")
-    shard_config(cfg, tp)
+    forward does not run over (an axis other than data, fsdp, expert and
+    tensor above 1), and ValueError for degrees :func:`check_degrees`
+    refuses."""
+    require_axes(mesh, (*BATCH_AXES, *MODEL_AXES), "the transformer forward")
+    check_degrees(cfg, axis_size(mesh, AXIS_TENSOR),
+                  axis_size(mesh, AXIS_EXPERT))
 
 
 # ---------------------------------------------------------------------------
@@ -408,7 +434,7 @@ def _qkv(cfg: TransformerConfig, rope, h, attn):
     b, t, _d = h.shape
     hd = cfg.head_dim
     cos, sin = rope
-    h = _to_tensor(cfg, h)
+    h = tensor_copy(h, _mesh(cfg))
     q = (h @ attn["wq"].to(cfg.dtype)).reshape(b, t, cfg.n_heads, hd)
     k = (h @ attn["wk"].to(cfg.dtype)).reshape(b, t, cfg.n_kv_heads, hd)
     v = (h @ attn["wv"].to(cfg.dtype)).reshape(b, t, cfg.n_kv_heads, hd)
@@ -427,7 +453,7 @@ def _attn_ctx(cfg: TransformerConfig, q, k, v):
 
 def _attention(h, attn, cfg: TransformerConfig, rope):
     ctx = _attn_ctx(cfg, *_qkv(cfg, rope, h, attn))
-    return _from_tensor(cfg, ctx @ attn["wo"].to(cfg.dtype))
+    return tensor_sum(ctx @ attn["wo"].to(cfg.dtype), _mesh(cfg))
 
 
 # Set while the ops of a value a region's selective checkpoint may keep
@@ -448,13 +474,13 @@ def _keep():
 def _mlp_in(cfg: TransformerConfig, h, mlp):
     """The gate and up products (JAX's "mlp_gate", "mlp_up")."""
     wg, wu = mlp["gate"].to(cfg.dtype), mlp["up"].to(cfg.dtype)
-    h = _to_tensor(cfg, h)
+    h = tensor_copy(h, _mesh(cfg))
     with _keep():
         return h @ wg, h @ wu
 
 
 def _mlp_out(cfg: TransformerConfig, gate, up, down):
-    return _from_tensor(cfg, (F.silu(gate) * up) @ down.to(cfg.dtype))
+    return tensor_sum((F.silu(gate) * up) @ down.to(cfg.dtype), _mesh(cfg))
 
 
 def _mlp(h, mlp, cfg: TransformerConfig):
@@ -470,6 +496,40 @@ def top_k_experts(probs, k: int):
     idx = torch.sort(probs, dim=-1, descending=True, stable=True).indices
     idx = idx[..., :k]
     return torch.gather(probs, -1, idx), idx
+
+
+# The choices moe_ffn drops past capacity, added up while a count_dropped()
+# block is open on this thread.
+_DROPPED = threading.local()
+
+
+@contextlib.contextmanager
+def count_dropped():
+    """Count the valid (token, choice) pairs that every :func:`moe_ffn`
+    call of the block drops past an expert's capacity (over a mesh, this
+    rank's rows; a remat region's recompute counts again). Yields a list
+    of 0-d tensors, one a call: their sum is the count."""
+    counts: list = []
+    _DROPPED.counts = counts
+    try:
+        yield counts
+    finally:
+        _DROPPED.counts = None
+
+
+def _queue_offsets(counts, mesh):
+    """Over ``mesh``, what the global queue position of each of this
+    rank's choices adds to its position among the rank's own choices:
+    ``counts`` [k, E] are the rank's kept choices per (slot, expert); the
+    global order is priority-major (every rank's slot-j choices before
+    any slot j+1 choice) and, within a slot, the batch axes' row order.
+    Returns (offsets [k, E], every rank's slot-0 choices per expert)."""
+    every = gather_counts(counts.long(), mesh, BATCH_AXES)  # [W, k, E]
+    total = every.sum(0)
+    before = every[:axis_index(mesh, BATCH_AXES)].sum(0)
+    offsets = (torch.cumsum(total, 0) - total) + before \
+        - (torch.cumsum(counts.long(), 0) - counts.long())
+    return offsets.float(), total[0].float()
 
 
 def moe_ffn(x, mlp, cfg: TransformerConfig, token_valid=None):
@@ -489,12 +549,28 @@ def moe_ffn(x, mlp, cfg: TransformerConfig, token_valid=None):
     tokens into ``[E, C, D]``, the experts run as batched matmuls, and
     each token gathers its kept slots' outputs back, weighted by its
     gates cast to ``cfg.dtype`` (JAX's ``combine``). One token fills a
-    slot at most, so the gather equals the dispatch einsum exactly."""
+    slot at most, so the gather equals the dispatch einsum exactly.
+
+    Over a training mesh (``cfg`` a rank's view with its ``mesh``; no
+    ``token_valid``) ``x`` is this rank's rows and the function is JAX's
+    over the global batch (module docstring): ``n`` and the capacity are
+    global, a choice's slot is its global queue position, and the rank
+    fills only its own experts' slots of an ``[E/ep, C, D]`` buffer. The
+    input and the gates go behind ``copy_to_tensor`` over the model axes
+    (each rank's use of them is a part of their gradient) and the partial
+    outputs are summed by ``reduce_from_tensor``. The aux returned is this
+    rank's term of the global loss, ``E · Σ_e top1_frac[e] ·
+    Σ_local probs[:, e] / n``, whose sum over the batch axes is JAX's aux,
+    value and gradient."""
     b, t, d = x.shape
     e = cfg.n_experts
     k = min(cfg.expert_top_k, e)
+    mesh = getattr(cfg, "mesh", None)
+    if mesh is not None and token_valid is not None:
+        raise ValueError("moe_ffn over a mesh takes no token_valid")
     n = b * t
-    capacity = max(int(n * k / e * cfg.expert_capacity_factor), k)
+    n_all = n if mesh is None else n * axis_size(mesh, BATCH_AXES)
+    capacity = max(int(n_all * k / e * cfg.expert_capacity_factor), k)
     xf = x.reshape(n, d)
     logits = xf.float() @ mlp["router"].float()
     probs = torch.softmax(logits, dim=-1)  # [n, e]
@@ -507,34 +583,55 @@ def moe_ffn(x, mlp, cfg: TransformerConfig, token_valid=None):
         oh_e = oh_e * tv[:, None, None]
         n_valid = torch.clamp(tv.sum(), min=1.0)
     else:
-        n_valid = float(n)
+        n_valid = float(n_all)
     # Position of each (token, choice) in its expert, priority-major. The
     # scan runs along the last axis of the [e, k·n] transpose: CUDA scans
     # the outer axis of [k·n, e] one column of e at a time.
     flat = oh_e.transpose(0, 1).reshape(k * n, e)
     pos = (torch.cumsum(flat.t().contiguous(), dim=1).t() - flat).reshape(
         k, n, e).transpose(0, 1)
+    split = mesh is not None and axis_size(mesh, MODEL_AXES) > 1
+    if mesh is not None:
+        offsets, top1_all = _queue_offsets(oh_e.sum(0), mesh)
+        pos = pos + offsets
     slot_pos = (pos * oh_e).sum(-1).long()  # [n, k]
-    kept = (slot_pos < capacity) & (oh_e.sum(-1) > 0)
+    chosen = oh_e.sum(-1) > 0
+    kept = (slot_pos < capacity) & chosen
+    if getattr(_DROPPED, "counts", None) is not None:
+        _DROPPED.counts.append((chosen & ~kept).sum().detach())
+    # This rank's experts (all of them off a mesh).
+    e0, e_local = getattr(cfg, "first_expert", 0), getattr(
+        cfg, "local_experts", e)
+    if e_local != e:
+        kept = kept & (expert_idx >= e0) & (expert_idx < e0 + e_local)
     # Slot index of each kept choice; the rest point at a zero row.
-    dest = torch.where(kept, expert_idx * capacity + slot_pos, e * capacity)
-    token_of = torch.full((e * capacity + 1,), n, dtype=torch.long,
+    sink = e_local * capacity
+    dest = torch.where(kept, (expert_idx - e0) * capacity + slot_pos, sink)
+    token_of = torch.full((sink + 1,), n, dtype=torch.long,
                           device=x.device).scatter(
         0, dest.reshape(-1),
         torch.arange(n, device=x.device).repeat_interleave(k))
+    if split:
+        xf = copy_to_tensor(xf, mesh, MODEL_AXES)
+        gate_vals = copy_to_tensor(gate_vals, mesh, MODEL_AXES)
     # index_select, not advanced indexing: its backward is an index_add,
     # where advanced indexing's sorts the indices first.
     zero = xf.new_zeros((1, d))
     expert_in = torch.cat([xf, zero]).index_select(0, token_of[:-1]).reshape(
-        e, capacity, d)
+        e_local, capacity, d)
     g = torch.bmm(expert_in, mlp["gate"].to(cfg.dtype))
     u = torch.bmm(expert_in, mlp["up"].to(cfg.dtype))
     out = torch.bmm(F.silu(g) * u, mlp["down"].to(cfg.dtype))
-    out = torch.cat([out.reshape(e * capacity, d), out.new_zeros((1, d))])
+    out = torch.cat([out.reshape(sink, d), out.new_zeros((1, d))])
     combine = gate_vals.to(cfg.dtype).float()
     back = out.index_select(0, dest.reshape(-1)).reshape(n, k, d)
     y = (back.float() * combine[..., None]).sum(1).to(cfg.dtype)
+    if split:
+        y = reduce_from_tensor(y, mesh, MODEL_AXES)
 
+    if mesh is not None:
+        aux = e * (top1_all / n_valid * probs.sum(0) / n_valid).sum()
+        return y.reshape(b, t, d).to(x.dtype), aux
     top1_frac = oh_e[:, 0, :].sum(0) / n_valid
     if token_valid is not None:
         mean_prob = (probs * tv[:, None]).sum(0) / n_valid
@@ -621,12 +718,12 @@ def _mlp_in_region(cfg, x, ln, mlp):
 
 
 def _wo_mlp_in_region(cfg, x, ctx, wo, ln, mlp):
-    x = x + _from_tensor(cfg, ctx @ wo.to(cfg.dtype))
+    x = x + tensor_sum(ctx @ wo.to(cfg.dtype), _mesh(cfg))
     return (x, *_mlp_in_region(cfg, x, ln, mlp))
 
 
 def _wo_moe_region(cfg, x, ctx, wo, ln, mlp):
-    x = x + ctx @ wo.to(cfg.dtype)
+    x = x + tensor_sum(ctx @ wo.to(cfg.dtype), _mesh(cfg))
     y, aux = moe_ffn(rms_norm(x, ln, eps=cfg.norm_eps), mlp, cfg)
     return x + y, aux
 
@@ -694,14 +791,7 @@ def _embed_lookup(kernel, tokens, cfg: TransformerConfig):
     block of the vocabulary: each rank gathers the tokens it holds, zeros
     the rest, and the ranks' rows are summed (one nonzero term a token:
     the sum JAX's one-hot matmul computes there)."""
-    mesh = getattr(cfg, "tp_mesh", None)
-    if mesh is None:
-        return kernel[tokens.long()].to(cfg.dtype)
-    rows = kernel.shape[0]
-    local = tokens.long() - axis_index(mesh, AXIS_TENSOR) * rows
-    held = (local >= 0) & (local < rows)
-    x = torch.where(held[..., None], kernel[local.clamp(0, rows - 1)], 0.0)
-    return reduce_from_tensor(x.to(cfg.dtype), mesh)
+    return vocab_lookup(kernel, tokens, _mesh(cfg)).to(cfg.dtype)
 
 
 def hidden_states(params, tokens, cfg: TransformerConfig, *, mesh=None):
@@ -712,7 +802,8 @@ def hidden_states(params, tokens, cfg: TransformerConfig, *, mesh=None):
     layers) as checkpoint regions of ``cfg.remat_policy``; an inference
     forward opens none."""
     _check_trainable(cfg, mesh)
-    if mesh is not None and axis_size(mesh, AXIS_TENSOR) > 1:
+    if mesh is not None and (cfg.n_experts
+                             or axis_size(mesh, AXIS_TENSOR) > 1):
         cfg = shard_config(cfg, axis_size(mesh, AXIS_TENSOR), mesh)
     t = tokens.shape[1]
     rope = rotary_frequencies(cfg.head_dim, t, theta=cfg.rope_theta,
@@ -746,13 +837,6 @@ def _head_kernel(params, cfg: TransformerConfig):
     return params["lm_head"]["kernel"]
 
 
-def _tensor_mesh(mesh):
-    """``mesh`` when its tensor axis is above 1, else None."""
-    if mesh is not None and axis_size(mesh, AXIS_TENSOR) > 1:
-        return mesh
-    return None
-
-
 def apply(params, tokens, cfg: TransformerConfig, *, mesh=None,
           return_aux: bool = False):
     """tokens [B, T] int → logits [B, T, V] (cfg.dtype).
@@ -760,7 +844,7 @@ def apply(params, tokens, cfg: TransformerConfig, *, mesh=None,
     for dense models). Over a tensor mesh the head is this rank's block
     of the vocabulary and the logits are gathered whole."""
     x, aux = hidden_states(params, tokens, cfg, mesh=mesh)
-    tmesh = _tensor_mesh(mesh)
+    tmesh = tensor_mesh(mesh)
     if tmesh is None:
         logits = x @ _head_kernel(params, cfg).to(cfg.dtype)
     else:
@@ -779,17 +863,16 @@ def loss_fn(params, batch, cfg: TransformerConfig, *, mesh=None):
     chunks (``chunked_lm_head_loss``). An MoE model adds
     ``router_aux_loss`` × the summed aux, reported as
     ``metrics["router_aux_loss"]``. Returns (loss, metrics). Over ``mesh``
-    (the batch is this rank's rows, the same on every rank of a tensor
-    group) the loss is this rank's term of the global loss and the
-    metrics are global."""
+    (the batch is this rank's rows, the same on every rank of an expert
+    or tensor group) the loss is this rank's term of the global loss,
+    the aux's too (:func:`moe_ffn`), and the metrics are global."""
     if "inputs" in batch:
         inputs, targets = batch["inputs"], batch["targets"]
     else:
         inputs, targets = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
     if cfg.loss_chunks:
         x, aux = hidden_states(params, inputs, cfg, mesh=mesh)
-        if _tensor_mesh(mesh) is not None:
-            x = copy_to_tensor(x, mesh)
+        x = tensor_copy(x, mesh)
         b, t, d = x.shape
         loss, metrics = chunked_lm_head_loss(
             x.reshape(b * t, d), _head_kernel(params, cfg).to(cfg.dtype),
@@ -801,6 +884,7 @@ def loss_fn(params, batch, cfg: TransformerConfig, *, mesh=None):
                                               mesh=mesh)
     if cfg.n_experts and cfg.router_aux_loss:
         aux_loss = cfg.router_aux_loss * aux
-        metrics["router_aux_loss"] = aux_loss
+        metrics["router_aux_loss"] = aux_loss if mesh is None else \
+            cfg.router_aux_loss * batch_sum(aux, mesh)
         loss = loss + aux_loss
     return loss, metrics

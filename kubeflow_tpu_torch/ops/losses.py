@@ -24,7 +24,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.parallel.collectives import gather_from_tensor, psum_
-from kubeflow_tpu_torch.parallel.mesh import AXIS_TENSOR, BATCH_AXES, axis_size
+from kubeflow_tpu_torch.parallel.mesh import BATCH_AXES, tensor_mesh
 
 
 def batch_sum(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -113,8 +113,7 @@ def chunked_lm_head_loss(x, head, labels, *, z_loss: float = 0.0,
     if n % n_chunks:
         raise ValueError(f"rows {n} not divisible by n_chunks {n_chunks}")
     rows = n // n_chunks
-    tmesh = mesh if mesh is not None and axis_size(mesh, AXIS_TENSOR) > 1 \
-        else None
+    tmesh = tensor_mesh(mesh)
     nll_sum = zsq_sum = tok_sum = torch.zeros((), dtype=torch.float32,
                                               device=x.device)
     for i in range(n_chunks):

@@ -15,15 +15,18 @@ sum over the mesh in the package goes through it (the gang's host
 agreements ride their own gloo group, ``parallel.distributed``). The
 collectives run at every degree, 1 included.
 
-Tensor parallelism needs other gradients (Megatron's pair): every
-tensor rank holds the same rows and computes the same loss, so a sum over
-``tensor`` with psum's backward would hand each rank ``tp`` times its
-gradient. :func:`copy_to_tensor` (identity forward, psum backward) goes
-before a column-parallel product, :func:`reduce_from_tensor` (psum
-forward, identity backward) after a row-parallel one, and
-:func:`gather_from_tensor` joins vocab-sharded logits, its backward
-taking this rank's slice. :func:`reduce_shards` is the single-process
-sum of a serving replica's shards (no process group).
+The model axes need other gradients (Megatron's pair): every rank of a
+``tensor`` or ``expert`` group holds the same rows and computes the same
+loss, so a sum over them with psum's backward would hand each rank ``tp``
+times its gradient. :func:`copy_to_tensor` (identity forward, psum
+backward) goes before a column-parallel product, :func:`reduce_from_tensor`
+(psum forward, identity backward) after a row-parallel one; both take an
+axis or a tuple of axes (the mixture of experts sums its partial outputs
+over ``("expert", "tensor")`` at once). :func:`gather_from_tensor` joins
+vocab-sharded logits, its backward taking this rank's slice.
+:func:`gather_counts` all-gathers small integer counts without a
+gradient. :func:`reduce_shards` is the single-process sum of a serving
+replica's shards (no process group).
 
 ``reduce_scatter_tensor`` and ``all_gather_into_tensor`` are the names
 every torch release of this port's range has.
@@ -38,6 +41,7 @@ from kubeflow_tpu_torch.parallel.mesh import (  # noqa: F401 (re-exported)
     axis_group,
     axis_index,
     axis_size,
+    tensor_mesh,
 )
 
 
@@ -170,17 +174,39 @@ def psum(x, mesh, axis):
 
 
 def copy_to_tensor(x, mesh, axis="tensor"):
-    """``x`` as it is, whose gradient is summed over ``axis``: the input
-    of a column-parallel product, whose ranks each see a part of the
-    gradient of a replicated ``x``."""
+    """``x`` as it is, whose gradient is summed over ``axis`` (a name or
+    a tuple): the input of a column-parallel product, whose ranks each
+    see a part of the gradient of a replicated ``x``."""
     return _CopyToTensor.apply(x, mesh, axis)
 
 
 def reduce_from_tensor(x, mesh, axis="tensor"):
-    """The sum over ``axis`` of a row-parallel product's partial outputs;
-    its gradient passes through as it is (every rank holds the whole
-    gradient of the replicated sum)."""
+    """The sum over ``axis`` (a name or a tuple) of a row-parallel
+    product's partial outputs; its gradient passes through as it is
+    (every rank holds the whole gradient of the replicated sum)."""
     return _ReduceFromTensor.apply(x, mesh, axis)
+
+
+def tensor_copy(x, mesh):
+    """:func:`copy_to_tensor` over ``mesh``'s tensor axis, or ``x`` as it
+    is where Megatron's collectives do not run (:func:`tensor_mesh` is
+    None: no mesh, or a tensor degree of 1)."""
+    return x if tensor_mesh(mesh) is None else copy_to_tensor(x, mesh)
+
+
+def tensor_sum(x, mesh):
+    """:func:`reduce_from_tensor` over ``mesh``'s tensor axis, or ``x`` as
+    it is where Megatron's collectives do not run."""
+    return x if tensor_mesh(mesh) is None else reduce_from_tensor(x, mesh)
+
+
+def gather_counts(x, mesh, axis):
+    """Every rank's ``x`` (small integer counts) stacked along a new
+    leading dim in the order of ``axis`` (a name or a tuple), without a
+    gradient."""
+    n = axis_size(mesh, axis)
+    return _gather_dim0(x.detach().reshape(1, *x.shape),
+                        axis_group(mesh, axis), n)
 
 
 def gather_from_tensor(x, mesh, axis="tensor", *, dim: int = -1):

@@ -9,8 +9,10 @@ placement of ``arrange_devices`` has no counterpart on GPUs). Collectives
 over a single axis use the mesh's own groups; a group over several axes
 (the batch's ``("data", "fsdp")``) is created by :func:`axis_group`.
 
-The data, fsdp and tensor axes train here; :func:`require_axes` refuses a
-mesh whose other axes are larger than 1. :func:`serving_mesh` is the
+The data, fsdp, expert and tensor axes train here; :func:`require_axes`
+refuses a mesh whose other axes are larger than 1. The batch is sharded
+over :data:`BATCH_AXES`; the ranks of a :data:`MODEL_AXES` group hold the
+same rows and differ only in which slice of a leaf they keep. :func:`serving_mesh` is the
 single-process layout of a tensor-parallel serving replica: a list of the
 devices its shards live on.
 """
@@ -41,6 +43,9 @@ MESH_AXES: tuple[str, ...] = (
 )
 # The axes a batch is sharded over (JAX's batch_spec), major first.
 BATCH_AXES: tuple[str, ...] = (AXIS_DATA, AXIS_FSDP)
+# The model axes: their ranks hold the same batch rows and differ only in
+# which slice of a leaf they keep (an expert range, a tensor block).
+MODEL_AXES: tuple[str, ...] = (AXIS_EXPERT, AXIS_TENSOR)
 
 
 @dataclass(frozen=True)
@@ -134,7 +139,9 @@ def build_mesh(config: MeshConfig | None = None, *,
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     mesh = DeviceMesh(device_type, torch.from_numpy(ranks),
                       mesh_dim_names=MESH_AXES)
-    axis_group(mesh, BATCH_AXES)  # every rank creates it here, together
+    # Every rank creates the multi-axis groups here, together.
+    axis_group(mesh, BATCH_AXES)
+    axis_group(mesh, MODEL_AXES)
     return mesh
 
 
@@ -156,6 +163,14 @@ def axis_size(mesh, axes) -> int:
     """The product of the degrees of ``axes`` (a name or a tuple)."""
     degrees = mesh_degrees(mesh)
     return math.prod(degrees[a] for a in _names(axes))
+
+
+def tensor_mesh(mesh):
+    """``mesh`` when its tensor axis is above 1, else None: where
+    Megatron's collectives run."""
+    if mesh is not None and axis_size(mesh, AXIS_TENSOR) > 1:
+        return mesh
+    return None
 
 
 def axis_index(mesh, axes) -> int:

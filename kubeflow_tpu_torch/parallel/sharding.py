@@ -12,12 +12,15 @@ their parameter's path).
 Where GSPMD shards a dim the degree does not divide, each shard holds
 ``ceil(size / degree)`` rows and the last ones are padding; :func:`shard`
 pads with zeros and :func:`unshard` drops the padding. A leaf may be
-sharded along two dims at once (``attn/wq``'s ``P(None, fsdp, tensor)``
-under fsdp x tensor).
+sharded along several dims at once (``attn/wq``'s ``P(None, fsdp,
+tensor)`` under fsdp x tensor; an expert leaf's ``P(None, expert, fsdp,
+tensor)``: ``[L, E/ep, D/fsdp, F/tp]``).
 
 :func:`split_tensor` and :func:`merge_tensor` cut a whole tree into its
 tensor shards in one process and join them back: the layout of a
-tensor-parallel serving replica, whose shards one process drives.
+tensor-parallel serving replica, whose shards one process drives (its
+mesh has no ``expert`` axis, so an expert leaf keeps every expert and is
+cut on its ``d_ff`` dim).
 """
 
 from __future__ import annotations
@@ -29,7 +32,11 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from kubeflow_tpu_torch.parallel.collectives import all_gather, psum_
+from kubeflow_tpu_torch.parallel.collectives import (
+    all_gather,
+    psum_,
+    reduce_from_tensor,
+)
 from kubeflow_tpu_torch.parallel.mesh import (
     AXIS_DATA,
     AXIS_FSDP,
@@ -38,6 +45,7 @@ from kubeflow_tpu_torch.parallel.mesh import (
     TensorShards,
     axis_index,
     axis_size,
+    tensor_mesh,
 )
 from kubeflow_tpu_torch.weights import _unflatten, flatten
 
@@ -253,6 +261,28 @@ def tensor_dim(spec: tuple) -> int | None:
     """The dim a spec puts on the ``tensor`` axis, or None."""
     return next((d for d, e in enumerate(spec)
                  if AXIS_TENSOR in _entry_axes(e)), None)
+
+
+def vocab_rows(table: torch.Tensor, tokens: torch.Tensor, index: int):
+    """The rows of ``tokens`` in block ``index`` of a table split over the
+    vocabulary (``table`` is that block, on its device): a token the block
+    does not hold gets a zero row, so the blocks' rows summed are the
+    whole table's lookup (one nonzero term a token)."""
+    rows = table.shape[0]
+    local = tokens.to(table.device).long() - index * rows
+    held = (local >= 0) & (local < rows)
+    return torch.where(held[..., None], table[local.clamp(0, rows - 1)],
+                       0.0)
+
+
+def vocab_lookup(table: torch.Tensor, tokens: torch.Tensor, mesh):
+    """The rows of ``tokens``: over ``mesh``'s tensor axis ``table`` is
+    this rank's block of the vocabulary (:func:`vocab_rows`), and the
+    ranks' rows are summed; without a tensor split, the plain gather."""
+    if tensor_mesh(mesh) is None:
+        return table[tokens.long()]
+    return reduce_from_tensor(
+        vocab_rows(table, tokens, axis_index(mesh, AXIS_TENSOR)), mesh)
 
 
 def split_kv_heads(side, devices) -> TensorShards:

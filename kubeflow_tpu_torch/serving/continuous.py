@@ -75,10 +75,13 @@ KV store over its KV heads (``models/decode.py:shard_decode_state``);
 block ids, tables, the allocator, the trie, refcount/CoW, the handoff
 and the host tier never see the split, the byte gauges price the pool
 per shard, and a handoff or a host-tier payload holds every head, so it
-crosses mesh shapes. Every option composes with it, as in JAX.
+crosses mesh shapes. Every option composes with it, as in JAX. A mixture
+of experts keeps every expert on each shard and its ``d_ff`` columns
+(JAX's ``serving_mesh`` has no ``expert`` axis); every shard routes the
+same tokens to the same slots, from the same ``token_valid``.
 
 Options of features not yet ported (context/pipeline parallelism, the KV
-directory and cold store, a mixture of experts over tensor shards) raise
+directory and cold store) raise
 ``ValueError`` at construction; none falls through to another
 behaviour. Their counters in :meth:`ContinuousDecoder.metrics` read what
 JAX's read with the feature off.
@@ -379,11 +382,6 @@ class ContinuousDecoder:
                 raise ValueError(
                     f"tp_shards {self.tp_shards} must divide d_ff "
                     f"{cfg.d_ff}")
-            if cfg.n_experts:
-                raise ValueError(
-                    "tp_shards > 1 for a mixture of experts (the expert "
-                    "weights' d_ff split) is not yet ported to the "
-                    "PyTorch package")
             self.tp_devices = serving_mesh(self.tp_shards,
                                            devices=tp_devices)
             self._rules = partition_rules(cfg)

@@ -42,7 +42,7 @@ import numpy as np
 
 import torch
 
-from kubeflow_tpu_torch.parallel.distributed import barrier, rank
+from kubeflow_tpu_torch.parallel.distributed import barrier, global_any, rank
 from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
 from kubeflow_tpu_torch.weights import (
     _unflatten,
@@ -158,10 +158,12 @@ class Checkpointer:
     def save(self, step: int, state, *, force: bool = False) -> None:
         """Save ``state`` (a port ``TrainState``) as ``step``. A step that
         exists already is replaced only with ``force``. Over a mesh every
-        rank calls it, at the same step."""
+        rank calls it, at the same step; the ranks agree on whether the
+        step exists before any of them goes on, so rank 0's commit never
+        races another rank's look at the directory."""
         self._raise_writer_error()
-        if not force and (step in self._issued
-                          or step in _steps(self.ckpt_dir)):
+        if not force and global_any(step in self._issued
+                                    or step in _steps(self.ckpt_dir)):
             raise ValueError(f"checkpoint step {step} exists in "
                              f"{self.ckpt_dir}; pass force=True")
         self._issued.add(step)

@@ -12,12 +12,12 @@ controller's environment (``JAX_COORDINATOR_ADDRESS``,
 ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``) each process joins the process
 group (``parallel.distributed.initialize_from_env``; NCCL on
 ``cuda:{process_id % GPUs}``, gloo with ``"device": "cpu"``), builds the
-mesh of ``"mesh"`` (the data, fsdp and tensor axes; their product is
-the number of processes, -1 absorbs the rest) and trains its shard of the
-state on its own rows: ``batch_size`` rows a process, as in JAX, the
-synthetic stream the same on every process and the token store's shard
-of the process's place on the batch axes (the ranks of a tensor group
-read the same rows). Only process 0 logs. Without that
+mesh of ``"mesh"`` (the data, fsdp, expert and tensor axes; their
+product is the number of processes, -1 absorbs the rest) and trains its
+shard of the state on its own rows: ``batch_size`` rows a process, as in
+JAX, the synthetic stream the same on every process and the token
+store's shard of the process's place on the batch axes (the ranks of an
+expert or tensor group read the same rows). Only process 0 logs. Without that
 environment one process trains on ``"device"`` (default ``"cuda"``; pass
 ``"cpu"`` to run the plain PyTorch paths on the host), over a mesh only
 if a process group is already running.
@@ -36,8 +36,7 @@ process 0.
 
 Not yet ported, and refused at the start of :func:`run` before any step:
 elastic resharding (``elastic_poll_steps``), a mesh axis other than data,
-fsdp and tensor above 1 (and a mixture of experts over any of them, BERT
-and ResNet over tensor), and the
+fsdp, expert and tensor above 1 (sequence and pipeline), and the
 job-status publish that the job's environment (``KUBEFLOW_TPU_JOB_NAME``)
 asks for.
 """

@@ -13,12 +13,14 @@ under ``torch.no_grad()``.
 
 Parameters, gradients and state are flat ``{"a/b/c": tensor}`` dicts.
 
-Over an FSDP or tensor mesh each rank holds a shard of a leaf
-(``update``'s ``layout`` says which; fsdp on one dim and tensor on
-another at once), and every reduction over a whole leaf spans its
-shards: the global norm for clipping, adafactor's row and column means of
-``g²``, the mean of ``v_row``, the update's RMS clip and the parameter's
-RMS. adafactor's factored moments are whole on every rank, as JAX's
+Over an FSDP, expert or tensor mesh each rank holds a shard of a leaf
+(``update``'s ``layout`` says which; fsdp, expert and tensor each on a
+dim of their own at once), and every reduction over a whole leaf spans
+its shards: the global norm for clipping, adafactor's row and column
+means of ``g²`` (over the fsdp and tensor shards of D and F; an expert
+leaf's E dim is gathered, never averaged), the mean of ``v_row``, the
+update's RMS clip and the parameter's RMS (over every shard, the expert
+shards included). adafactor's factored moments are whole on every rank, as JAX's
 partition rules leave them replicated; which leaves factor follows the
 full shapes. Padding rows of a shard (a dim the degree does not divide)
 hold zeros and stay out of every mean.

@@ -19,23 +19,24 @@ JAX's). Under gradient accumulation the last microbatch's updates win. A
 leaf the loss does not reach (the running statistics, BERT's NSP head)
 gets a zero gradient, as ``jax.grad`` gives it.
 
-Over a mesh (one process per device; the data, fsdp and tensor axes)
-GSPMD's collectives are written out:
+Over a mesh (one process per device; the data, fsdp, expert and tensor
+axes) GSPMD's collectives are written out:
 
 - the state is born sharded: each rank keeps its shard of every leaf the
-  model's partition rules put on ``fsdp`` or ``tensor`` (its optimizer
-  slots alike) and the rest whole (:class:`StateLayout`; at fsdp=1 and
-  tensor=1 every leaf is whole);
+  model's partition rules put on ``fsdp``, ``expert`` or ``tensor`` (its
+  optimizer slots alike) and the rest whole (:class:`StateLayout`; at
+  degree 1 everywhere every leaf is whole);
 - each step gathers what ``fsdp`` shards before the forward (once a
-  step, not layer by layer) and keeps each leaf's ``tensor`` block: the
-  forward is Megatron's (``models/transformer.py``), whose collectives
-  over ``tensor`` carry their own gradients. Each rank runs its rows of
-  the batch (tensor ranks the same rows), and the loss it differentiates
-  is its term of the global loss (the loss functions normalise by the
-  global count, ``mesh=``), so gradients are SUMMED over the batch axes:
-  reduce-scattered over ``fsdp`` for a leaf fsdp shards (then summed over
-  ``data``), summed over ``data`` x ``fsdp`` otherwise, never over
-  ``tensor``;
+  step, not layer by layer) and keeps each leaf's block on the model
+  axes (``MODEL_AXES``: an expert range, a tensor block): the forward is
+  Megatron's (``models/transformer.py``), whose collectives over the
+  model axes carry their own gradients. Each rank runs its rows of the
+  batch (the ranks of a model-axis group the same rows), and the loss it
+  differentiates is its term of the global loss (the loss functions
+  normalise by the global count, ``mesh=``), so gradients are SUMMED
+  over the batch axes: reduce-scattered over ``fsdp`` for a leaf fsdp
+  shards (then summed over ``data``), summed over ``data`` x ``fsdp``
+  otherwise, never over ``expert`` or ``tensor``;
 - the optimizer's reductions span each leaf's shards, and the metrics are
   the global ones.
 """
@@ -55,8 +56,8 @@ from kubeflow_tpu_torch.parallel.collectives import (
     reduce_scatter,
 )
 from kubeflow_tpu_torch.parallel.mesh import (
-    AXIS_TENSOR,
     BATCH_AXES,
+    MODEL_AXES,
     axis_size,
     require_axes,
 )
@@ -77,7 +78,13 @@ from kubeflow_tpu_torch.train.optimizers import (
 from kubeflow_tpu_torch.weights import _unflatten, flatten
 
 # The mesh axes the port trains over.
-TRAIN_AXES = (*BATCH_AXES, AXIS_TENSOR)
+TRAIN_AXES = (*BATCH_AXES, *MODEL_AXES)
+
+
+def _on_model_axes(s) -> bool:
+    """Whether a DimShard splits its dim over a model axis (the step
+    keeps it local) rather than a batch axis (the step gathers it)."""
+    return any(a in MODEL_AXES for a in s.axes)
 
 
 @dataclass
@@ -93,15 +100,17 @@ class TrainState:
 class StateLayout:
     """The sharding of a train state on this rank of ``mesh``: each
     parameter's spec from the model's partition rules, keeping only the
-    data, fsdp and tensor axes of degree above 1 (the others are 1 here,
-    and an axis of one shard holds the whole leaf: at fsdp=1 and tensor=1
-    the state is whole and the step is plain data parallelism), and the
-    same spec for its optimizer slots of the same rank (JAX's rank
-    fallback replicates the rest, such as adafactor's factored moments).
+    training axes of degree above 1 (the others are 1 here, and an axis
+    of one shard holds the whole leaf: at fsdp, expert and tensor 1 the
+    state is whole and the step is plain data parallelism), and the same
+    spec for its optimizer slots of the same rank (JAX's rank fallback
+    replicates the rest, such as adafactor's factored moments).
 
-    A step gathers what ``fsdp`` shards and leaves the ``tensor`` dim
-    local: the forward runs Megatron's column and row split on this
-    rank's block (``models/transformer.py``).
+    A step gathers what ``fsdp`` shards and leaves the dims of the model
+    axes local: the forward runs Megatron's column and row split and the
+    rank's experts on this rank's block (``models/transformer.py``). An
+    expert leaf may be sharded on three dims at once, ``[L, E/ep,
+    D/fsdp, F/tp]``.
 
     ``shapes``: each parameter's whole shape, in the state's leaf order."""
 
@@ -117,14 +126,14 @@ class StateLayout:
         self._leaves: dict[str, ShardedLeaf] = {}
         for k, spec in self.specs.items():
             shards = dim_shards(self.shapes[k], spec, mesh)
-            if sum(1 for s in shards if AXIS_TENSOR not in s.axes) > 1:
+            if sum(1 for s in shards if not _on_model_axes(s)) > 1:
                 raise ValueError(f"{k}: a leaf sharded along more than one "
                                  "dim by the batch axes is not yet ported")
             for s in shards:
-                if AXIS_TENSOR in s.axes and s.size % s.n:
+                if _on_model_axes(s) and s.size % s.n:
                     raise ValueError(
                         f"{k}: dim {s.dim} of {self.shapes[k]} is not "
-                        f"divisible by the tensor degree {s.n}")
+                        f"divisible by the {'/'.join(s.axes)} degree {s.n}")
             if shards:
                 self._leaves[k] = ShardedLeaf(self.shapes[k], tuple(shards),
                                               mesh)
@@ -180,21 +189,23 @@ class StateLayout:
         """The DimShard of the dim the batch axes shard, or None."""
         leaf = self._leaves.get(key)
         return None if leaf is None else next(
-            (s for s in leaf.shards if AXIS_TENSOR not in s.axes), None)
+            (s for s in leaf.shards if not _on_model_axes(s)), None)
 
     def gather_params(self, flat: dict) -> dict:
         """Every leaf whole along what fsdp shards (all-gathered), its
-        tensor block as it is; the others as they are."""
+        block on the model axes as it is; the others as they are."""
         return {k: unshard(p, self._gathered[k], self.mesh, self.shapes[k])
                 if self._batch_shard(k) else p for k, p in flat.items()}
 
     def reduce_grads(self, grads: dict) -> dict:
-        """Gradients of each rank's loss term (whole along fsdp, its tensor
-        block) -> this rank's shard of their sum over the batch axes: a
-        leaf fsdp shards is reduce-scattered over its axes, then summed
-        over the other batch axes; the other leaves' are summed over every
-        batch axis in one flat buffer. Tensor ranks hold the same rows, so
-        nothing is summed over ``tensor``."""
+        """Gradients of each rank's loss term (whole along fsdp, its block
+        on the model axes) -> this rank's shard of their sum over the
+        batch axes: a leaf fsdp shards is reduce-scattered over its axes,
+        then summed over the other batch axes; the other leaves' are
+        summed over every batch axis in one flat buffer. The ranks of the
+        model axes hold the same rows, and each holds the whole gradient
+        of a leaf it replicates, so nothing is summed over ``expert`` or
+        ``tensor``."""
         out, whole = {}, []
         for k, g in grads.items():
             s = self._batch_shard(k)
@@ -221,8 +232,8 @@ class StateLayout:
     def global_norm(self, tensors: dict) -> torch.Tensor:
         """optax.global_norm of the whole tree from this rank's shards:
         each sharded leaf's squares summed over its shards (padding holds
-        zeros; fsdp and tensor shards each once), each whole leaf's
-        counted once."""
+        zeros; fsdp, expert and tensor shards each once), each whole
+        leaf's counted once."""
         whole, sharded = [], {}
         for k, t in tensors.items():
             leaf = self.leaf(k)
@@ -238,9 +249,9 @@ class StateLayout:
 
 def check_mesh(model, mesh) -> None:
     """Raise ValueError("... not yet ported") for a mesh the port does
-    not train over: an axis other than data, fsdp and tensor above 1, or
-    what the model's own ``check_mesh`` refuses (MoE over any of them but
-    none, BERT and ResNet over tensor)."""
+    not train over: an axis other than data, fsdp, expert and tensor above
+    1; and raise what the model's own ``check_mesh`` raises (degrees that
+    do not divide its shapes)."""
     require_axes(mesh, TRAIN_AXES, f"training {model.name}")
     if model.check_mesh is not None:
         model.check_mesh(model.config, mesh)

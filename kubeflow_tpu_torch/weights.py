@@ -95,7 +95,9 @@ def tensor_shards(tree, model, tp: int):
     layout) as the ``tp`` shards of a tensor-parallel serving replica
     (a ``TensorShards`` of trees): cut by the transformer's partition
     rules (``parallel.sharding.split_tensor``: Megatron's column and row
-    split, the vocabulary split of the embedding and the head). Tensor
+    split, the vocabulary split of the embedding and the head, a mixture
+    of experts' gate/up/down on their ``d_ff`` dim with every expert on
+    each shard). Tensor
     leaves keep their device and dtype; numpy leaves become host tensors
     in the dtype JAX reads them in, as :func:`params_from_numpy` stores
     them. The serving replica, its live weight pushes and the tests all

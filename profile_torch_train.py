@@ -4,6 +4,7 @@ main path.
 
     python3 profile_torch_train.py [--model flagship-deep]
         [--remat-policy llm|llm_res|off|...] [--steps 4] [--trace trace.json]
+        [--mesh '{"expert": 2}']
 
 ``--model`` at full width and depth in bf16 (float32 master weights),
 random weights from a fixed seed, at the shape and with the optimizer
@@ -26,6 +27,13 @@ they do not overlap), the device's idle share, the device time by group
 each flash
 kernel's time and the kernels that take the most device time;
 ``--trace`` also writes the kept session's Chrome trace to that path.
+With ``--mesh`` (a JSON object of mesh degrees, e.g. ``{"expert": 2}``
+for moe-1b) the script starts itself as a gang of as many processes as
+the degrees' product (``parallel.launch``), all on ``cuda:0`` over gloo
+(NCCL refuses two ranks on one GPU), each rank taking its batch rows of
+a global batch of that many rows a batch rank; rank 0 profiles its own
+mesh step (the other ranks run the same steps beside it, on the same
+card) and prints the line, with the collectives' calls and bytes a step.
 Needs a CUDA device.
 """
 
@@ -33,6 +41,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
+import os
 import subprocess
 import sys
 import time
@@ -72,15 +82,43 @@ def main(argv=None) -> int:
                    help="a remat policy of the model config, or 'off'")
     p.add_argument("--steps", type=int, default=4)
     p.add_argument("--trace", help="write the Chrome trace to this path")
+    p.add_argument("--mesh", type=json.loads,
+                   help="mesh degrees as JSON; profiles rank 0 of a gang")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_torch_train: no CUDA device", file=sys.stderr)
         return 2
     from chip_smoke import profiled_launches
     from kubeflow_tpu_torch.models.registry import get_model
-    from kubeflow_tpu_torch.train.data import place_batch, synthetic_stream
+    from kubeflow_tpu_torch.parallel import collectives
+    from kubeflow_tpu_torch.parallel.distributed import ENV_PROCESS_ID
+    from kubeflow_tpu_torch.train.data import (local_rows, place_batch,
+                                               synthetic_stream)
     from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
     from kubeflow_tpu_torch.train.trainer import build_train_step, init_state
+
+    if args.mesh and ENV_PROCESS_ID not in os.environ:
+        from kubeflow_tpu_torch.parallel.launch import launch
+
+        procs = launch([sys.executable, *sys.argv], math.prod(
+            args.mesh.values()), timeout=1800)
+        for i, proc in enumerate(procs):
+            if proc.returncode:
+                print(f"rank {i}:\n{proc.stderr[-3000:]}", file=sys.stderr)
+        print(procs[0].stdout, end="")
+        return max(proc.returncode for proc in procs)
+    mesh, rank, batch_rank, batch_ranks = None, 0, 0, 1
+    if args.mesh:
+        from kubeflow_tpu_torch.parallel.distributed import (
+            global_any, initialize_from_env)
+        from kubeflow_tpu_torch.parallel.mesh import (
+            BATCH_AXES, MeshConfig, axis_index, axis_size, build_mesh)
+
+        rank = initialize_from_env(device="cuda", backend="gloo",
+                                   timeout_s=1800).process_id
+        mesh = build_mesh(MeshConfig(**args.mesh), device_type="cuda")
+        batch_rank = axis_index(mesh, BATCH_AXES)
+        batch_ranks = axis_size(mesh, BATCH_AXES)
 
     dev = torch.device("cuda")
     overrides = {}
@@ -92,10 +130,11 @@ def main(argv=None) -> int:
     batch, seq, opt = RECIPES[args.model]
     opt_cfg = OptimizerConfig(**opt)
     state = init_state(torch.Generator(device=dev).manual_seed(0), model,
-                       opt_cfg, device=dev)
-    step_fn = build_train_step(model, opt_cfg)
-    batches = [place_batch(b, dev) for b, _ in zip(
-        synthetic_stream(model, batch, seq or 0), range(4))]
+                       opt_cfg, mesh, device=dev)
+    step_fn = build_train_step(model, opt_cfg, mesh)
+    batches = [place_batch(local_rows(b, batch_rank, batch_ranks), dev)
+               for b, _ in zip(synthetic_stream(
+                   model, batch * batch_ranks, seq or 0), range(4))]
 
     def run(n):
         nonlocal state
@@ -105,14 +144,29 @@ def main(argv=None) -> int:
 
     torch.cuda.reset_peak_memory_stats()
     run(2)  # warm
+    collectives.reset_counts()
     t0 = time.perf_counter()
     run(args.steps)
     step_ms = 1e3 * (time.perf_counter() - t0) / args.steps
+    calls = {k: v / args.steps for k, v in collectives.CALLS.items()}
+    moved = {k: v / args.steps for k, v in collectives.BYTES.items()}
+    if rank:
+        # Step beside rank 0 until it has profiled: one agreement a step.
+        while True:
+            run(1)
+            if global_any(False):
+                return 0
 
     # A 16-byte write marks each step in the profiler's record.
     marker = torch.empty(16, dtype=torch.uint8, device=dev)
-    kernels = profiled_launches(lambda: run(1), marker, args.steps,
-                                args.trace)
+    if mesh is None:
+        kernels = profiled_launches(lambda: run(1), marker, args.steps,
+                                    args.trace)
+    else:
+        kernels = profiled_launches(lambda: (run(1), global_any(False)),
+                                    marker, args.steps, args.trace)
+        run(1)
+        global_any(True)
     device_us = sum(e.device_time_total for e in kernels)
     by_name: dict[str, list] = {}
     by_group = {"flash": 0.0, "gemm": 0.0, "conv": 0.0, "other": 0.0}
@@ -135,6 +189,9 @@ def main(argv=None) -> int:
                   else "off"),
         "grad_dtype": opt_cfg.grad_dtype,
         "batch": batch, "seq": seq, "optimizer": opt_cfg.name,
+        "mesh": args.mesh, "profiled_rank": rank,
+        "collective_calls_per_step": calls if mesh else None,
+        "collective_bytes_per_step": moved if mesh else None,
         "steps": args.steps, "step_ms": step_ms,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "device_ms_per_step": device_ms,

@@ -237,12 +237,18 @@ def test_sequence_past_the_position_table_raises(models):
     with pytest.raises(ValueError, match="position table"):
         tbert.apply(params, torch.zeros(1, 129, dtype=torch.int32),
                     tm.config)
-    tensor_mesh = SimpleNamespace(  # a DeviceMesh's fields, tensor=2
+    sequence_mesh = SimpleNamespace(  # a DeviceMesh's fields, sequence=2
         mesh_dim_names=("data", "pipeline", "fsdp", "expert", "sequence",
-                        "tensor"), mesh=torch.zeros(1, 1, 1, 1, 1, 2))
+                        "tensor"), mesh=torch.zeros(1, 1, 1, 1, 2, 1))
     with pytest.raises(ValueError, match="not yet ported"):
         tbert.apply(params, torch.zeros(1, 4, dtype=torch.int32), tm.config,
-                    mesh=tensor_mesh)
+                    mesh=sequence_mesh)
+    tensor3 = SimpleNamespace(  # tensor=3 does not divide 4 heads
+        mesh_dim_names=sequence_mesh.mesh_dim_names,
+        mesh=torch.zeros(1, 1, 1, 1, 1, 3))
+    with pytest.raises(ValueError, match="must divide n_heads"):
+        tbert.apply(params, torch.zeros(1, 4, dtype=torch.int32), tm.config,
+                    mesh=tensor3)
 
 
 # ---------------------------------------------------------------------------

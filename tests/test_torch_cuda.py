@@ -722,10 +722,12 @@ def test_paged_decode_kernel_at_moe_1b_serving_shape(cuda, kv):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("b,t", [(8, 128), (2, 512)], ids=["T128", "T512"])
-def test_flash_kernels_at_bert_shape(cuda, dtype, b, t):
+@pytest.mark.parametrize("b,t,h", [(8, 128, 12), (2, 512, 12), (32, 128, 6)],
+                         ids=["T128", "T512", "T128-tensor-rank"])
+def test_flash_kernels_at_bert_shape(cuda, dtype, b, t, h):
     """BERT's attention: non-causal over a key-padding mask, hd 64, G 1
-    (12 heads), the default implementation as models/bert.py calls it,
+    (bert-base's 12 heads, or the 6 of one of two tensor ranks at its
+    training batch), the default implementation as models/bert.py calls it,
     against the plain path in f32 on the same values: f32 within 1e-4 (of
     the largest reference gradient for the gradients), bf16 under the
     module's SDPA-relative limits. Row 0 masks every key: 0 out and 0
@@ -735,7 +737,7 @@ def test_flash_kernels_at_bert_shape(cuda, dtype, b, t):
     def rand(*shape):
         return torch.randn(*shape, generator=gen, device=cuda).to(dtype)
 
-    q, k, v, g = (rand(b, t, 12, 64) for _ in range(4))
+    q, k, v, g = (rand(b, t, h, 64) for _ in range(4))
     lengths = torch.randint(1, t + 1, (b,), generator=gen, device=cuda)
     mask = torch.arange(t, device=cuda)[None, :] < lengths[:, None]
     mask[0] = False
@@ -961,3 +963,57 @@ def test_tp2_decoder_on_one_card_matches_tp1(cuda, kv_dtype):
             d.stop()
     assert streams[2] == streams[1]
     assert launched[2] == 2 * launched[1] > 0
+
+
+# ---------------------------------------------------------------------------
+# The mixture of experts over tensor shards: the kernels at moe-1b's shard
+# and tensor-rank shapes
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["bf16", "f32", "int8"])
+def test_paged_decode_kernel_at_the_moe_tp2_shard_shape(cuda, kv):
+    """moe-1b's paged read on one of two tensor shards: 8 slots, Hkv 2 (4
+    over 2), G 4, hd 64, Bs 16, 18 columns, a parked row and a row with
+    pos < 0."""
+    q, kp, vp, table, pos = _paged_case(
+        cuda, kv, 8, 2, 4, 64, 16, 18,
+        [7, 40, 100, 150, 200, 287, 18 * 16, -1])
+    out = _paged_check(cuda, q, kp, vp, table, pos)
+    assert not out[7].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernels_at_the_moe_tensor_rank_shape(cuda, dtype):
+    """moe-1b's attention on one of two tensor ranks: Hq 8 over Hkv 2 (G
+    4), hd 64, causal, 1 x 2048 rows, through the model's implementation
+    (None: the kernels), under the module's limits against the plain
+    path."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda).to(dtype)
+
+    q, g = rand(1, 2048, 8, 64), rand(1, 2048, 8, 64)
+    k, v = rand(1, 2048, 2, 64), rand(1, 2048, 2, 64)
+    ref = _flash_run(q.float(), k.float(), v.float(), g.float(), None,
+                     "xla", True)
+    kernels.reset_launches()
+    got = _flash_run(q, k, v, g, None, None, True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention_fwd"] == 1
+    assert kernels.LAUNCHES["flash_attention_bwd"] == 1
+    errs = _errors(got, ref)
+    if dtype == torch.float32:
+        assert errs[0][0] <= 1e-4, errs
+        for (err, _), r in zip(errs[1:], ref[1:]):
+            assert err <= 1e-4 * r.abs().max().item(), errs
+    else:
+        sdpa = _errors(sdpa_run(q, k, v, g, None, True), ref)
+        assert errs[0][0] <= max(1e-2, 2 * sdpa[0][0]), (errs, sdpa)
+        for (err, rel), (_, sdpa_rel), r in zip(errs[1:], sdpa[1:], ref[1:]):
+            assert err <= 2e-2 * r.float().abs().max().item(), (errs, sdpa)
+            assert rel <= max(2.0 ** -8, 2 * sdpa_rel), (errs, sdpa)

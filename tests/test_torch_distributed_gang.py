@@ -14,8 +14,9 @@ workloads.
   every process, so the global batch is one process's batch twice, whose
   mean loss and gradient one process computes alone).
 - A SIGTERM to one rank: every rank stops and saves at the same step.
-- MoE over data=2 or over a tensor axis of 2 and elastic resharding raise "not
-  yet ported" on every rank before any step.
+- A sequence axis of 2 and elastic resharding raise "not yet ported" on
+  every rank before any step (the MoE gangs over every axis the port
+  trains: tests/test_torch_moe_parallel.py).
 - The allreduce smoke test, the bandwidth benchmark and the DDP workload
   print the JAX workloads' JSON at 2 ranks.
 
@@ -197,10 +198,9 @@ def test_sigterm_to_one_rank_stops_every_rank_at_one_step(tmp_path):
 
 
 @pytest.mark.parametrize("model,extra", [
-    ("moe-test-tiny", {"mesh": {"data": 2}}),
-    ("moe-test-tiny", {"mesh": {"data": 1, "tensor": 2}}),
+    ("lm-test-tiny", {"mesh": {"data": 1, "sequence": 2}}),
     ("lm-test-tiny", {"mesh": {"data": 2}, "elastic_poll_steps": 5}),
-], ids=["moe-data2", "tensor2", "elastic"])
+], ids=["sequence2", "elastic"])
 def test_unported_gangs_refuse_before_any_step(model, extra):
     cfg = dict(model=model, batch_size=2, seq_len=8, steps=2, log_every=1,
                device="cpu", **extra)

@@ -188,11 +188,15 @@ def test_mesh_checks_name_the_unported_axis():
                            mesh=torch.zeros(2, 1, 1, 1, 2, 1))
     with pytest.raises(ValueError, match="'sequence'.*not yet ported"):
         tmesh.require_axes(stub, tmesh.BATCH_AXES, "training")
-    moe = tregistry.get_model("moe-test-tiny")
-    data2 = SimpleNamespace(mesh_dim_names=tmesh.MESH_AXES,
-                            mesh=torch.zeros(2, 1, 1, 1, 1, 1))
-    with pytest.raises(ValueError, match="expert parallelism.*not yet"):
-        moe.check_mesh(moe.config, data2)
+    moe = tregistry.get_model("moe-test-tiny")  # 4 experts
+    data2xexpert2 = SimpleNamespace(mesh_dim_names=tmesh.MESH_AXES,
+                                    mesh=torch.zeros(2, 1, 1, 2, 1, 1))
+    moe.check_mesh(moe.config, data2xexpert2)
+    expert3 = SimpleNamespace(mesh_dim_names=tmesh.MESH_AXES,
+                              mesh=torch.zeros(1, 1, 1, 3, 1, 1))
+    with pytest.raises(ValueError, match="expert degree 3 must divide "
+                       "n_experts 4"):
+        moe.check_mesh(moe.config, expert3)
 
 
 # ---------------------------------------------------------------------------

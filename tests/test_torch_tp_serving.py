@@ -425,11 +425,14 @@ def test_tp_validation_errors(tiny_tp):
         ContinuousDecoder(params, bad, slots=2, prefill_len=16,
                           max_new_tokens=8, tp_shards=4,
                           tp_devices=["cpu"] * 4)
-    moe = ttransformer.config("moe-test-tiny", dtype=torch.float32)
-    with pytest.raises(ValueError, match="not yet ported"):
+    # A mixture of experts shards its d_ff too (tp=2 serves it:
+    # tests/test_torch_moe_parallel.py).
+    moe = ttransformer.config("moe-test-tiny", n_kv_heads=4, d_ff=126,
+                              dtype=torch.float32)
+    with pytest.raises(ValueError, match="d_ff"):
         ContinuousDecoder(params, moe, slots=2, prefill_len=16,
-                          max_new_tokens=8, tp_shards=2,
-                          tp_devices=["cpu"] * 2)
+                          max_new_tokens=8, tp_shards=4,
+                          tp_devices=["cpu"] * 4)
 
 
 # ---------------------------------------------------------------------------

@@ -282,14 +282,14 @@ def test_loop_main_needs_cuda_unless_asked_for_the_cpu(capsys):
 
 @pytest.mark.parametrize("field,value", [
     ("elastic_poll_steps", 5), ("elastic_poll_steps", 1),
-    ("mesh", {"expert": 2}), ("mesh", {"sequence": 2}),
-    ("mesh", {"pipeline": 2}),
+    ("mesh", {"sequence": 2}), ("mesh", {"pipeline": 2}),
 ])
 def test_loop_refuses_unported_options_before_any_step(field, value):
-    """Elastic resharding and the mesh axes other than data, fsdp and
-    tensor are still to come (checkpoints, the token store and the
-    profiler now run: tests/test_torch_checkpoint.py; the data, fsdp and
-    tensor axes in gangs: tests/test_torch_distributed_*.py)."""
+    """Elastic resharding and the sequence and pipeline axes are still to
+    come (checkpoints, the token store and the profiler now run:
+    tests/test_torch_checkpoint.py; the data, fsdp, expert and tensor axes
+    in gangs: tests/test_torch_distributed_*.py and
+    tests/test_torch_moe_parallel.py)."""
     cfg = tloop.RunConfig(device="cpu", steps=1, **{field: value})
     with pytest.raises(ValueError, match="not yet ported"):
         tloop.run(cfg, log=lambda *a: None)
@@ -301,13 +301,8 @@ def test_loop_refuses_the_job_status_environment():
                   environ={"KUBEFLOW_TPU_JOB_NAME": "job"})
 
 
-# Meshes with a tensor or a sequence axis of 2 (stand-ins: what the mesh
-# checks read of a DeviceMesh). The port trains a dense transformer over
-# the tensor axis (tests/test_torch_distributed_train.py), not a mixture
-# of experts, and nothing over the sequence axis.
-TENSOR_MESH = SimpleNamespace(
-    mesh_dim_names=("data", "pipeline", "fsdp", "expert", "sequence",
-                    "tensor"), mesh=torch.zeros(1, 1, 1, 1, 1, 2))
+# A mesh with a sequence axis of 2 (a stand-in: what the mesh checks
+# read of a DeviceMesh). The port trains nothing over the sequence axis.
 SEQUENCE_MESH = SimpleNamespace(
     mesh_dim_names=("data", "pipeline", "fsdp", "expert", "sequence",
                     "tensor"), mesh=torch.zeros(1, 1, 1, 1, 2, 1))
@@ -316,14 +311,13 @@ SEQUENCE_MESH = SimpleNamespace(
 @pytest.mark.parametrize("overrides,mesh", [
     ({"context_parallel": True}, None), ({"pipeline_stages": 2}, None),
     ({"pipeline_stages": 4, "remat": True}, None),
-    ({"n_experts": 4}, TENSOR_MESH),
     ({"remat": True, "loss_chunks": 4}, SEQUENCE_MESH),
 ])
 def test_model_refuses_unported_training_options(overrides, mesh):
-    """Ring attention, pipeline stages, a mixture of experts over the
-    tensor axis and a sequence axis are still to come (remat,
-    scan_group_size and loss_chunks now run: tests/test_torch_remat.py;
-    the data, fsdp and tensor axes: tests/test_torch_distributed_*.py)."""
+    """Ring attention, pipeline stages and a sequence axis are still to
+    come (remat, scan_group_size and loss_chunks now run:
+    tests/test_torch_remat.py; the data, fsdp, expert and tensor axes:
+    tests/test_torch_distributed_*.py, tests/test_torch_moe_parallel.py)."""
     tm = tregistry.get_model("lm-test-tiny", **overrides)
     params = tm.init(tm.config, generator=torch.Generator().manual_seed(0),
                      device="cpu", param_dtype=torch.float32)
