@@ -19,7 +19,10 @@ trains the other families (``moe-1b``, ``bert-base``, ``resnet50``) at
 full size, trains over ``torch.distributed`` (the mesh path over NCCL, a
 gang of two over gloo, the allreduce and DDP workloads), runs tensor
 parallelism (a llama-1b replica of two shards on the card, a tensor gang
-of two training flagship-1b), and checks the output. Phases, each printed as one JSON line:
+of two training flagship-1b), the sequence and pipeline axes (a cp=2
+ring and two pipeline stages serving llama-1b, gangs of two training
+flagship-1b over sequence and flagship-deep over pipeline), and checks
+the output. Phases, each printed as one JSON line:
 
 (a) the card and the kernels' build times;
 (b) the paged decode kernel against ``_paged_decode_plain`` at the main
@@ -316,6 +319,27 @@ of two training flagship-1b), and checks the output. Phases, each printed as one
     tensor rank's shape (B 32, T 128, 6 heads, hd 64, masked) under (g)'s
     limits. The kernel checks run at the start with (x)'s. One card cannot show NCCL
     across cards: the gangs' collectives go through the host;
+(z) the sequence and pipeline axes (``phase_long_axes``): (z1) llama-1b,
+    bf16, paged, gathered, chunks of 128: (o)'s 1500-token prompt while
+    two streams decode on a server whose chunk dispatches fold their span
+    read through a ring of two shards on the card, beside one (one
+    chunk's ms, the long TTFT, ``serving_cp_shards``); the ring's span
+    read at the chunk's shape against the gathered read, f32 within 1e-5
+    and bf16 within 3e-2; f32 gates at 2 layers: cp 2 and cp 2 x tp 2 =
+    cp 1 on a 300-token chain and a 40-token prompt; (z2) llama-1b, bf16,
+    (d)'s requests on servers of two pipeline stages (8 + 8 layers) on
+    the card beside one, dense and paged gathered: tokens/s, TTFT,
+    ``serving_pp_stages``, the KV bytes a token a stage (half); f32 gates:
+    pp 2 = pp 1 dense, paged, chunked and at pp 2 x tp 2; (z3) a gloo gang
+    of two over ``{"sequence": 2}`` training flagship-1b with
+    ``context_parallel``, 1 x 2048 rows, 3 steps: step time, the ring's
+    permutes and bytes a step; f32 gate at 2 layers within 1e-6; (z4) a
+    gang of two over ``{"pipeline": 2}`` training flagship-deep (8 + 8
+    layers), 4 x 2048 rows, 4 microbatches, remat ``"llm"``, 3 steps:
+    step time, each rank's peak memory, flash launches a rank (8 x 4 x 3,
+    the forward twice) named in its trace; the flash pair at a stage's
+    microbatch shape (B 1, T 2048, Hq 24 over Hkv 4, hd 128; run at the
+    start) under (g)'s limits; f32 gate at 2 layers within 1e-6;
 (f) the kernel table: each kernel's launches on the main paths, its
     error, its time, its plain version's time and its bound; the paged
     and RMSNorm rows give device time as ``ms`` and the call's as
@@ -340,7 +364,9 @@ of two training flagship-1b), and checks the output. Phases, each printed as one
     (``moe_tp_shard_shape``), the flash rows (y2)'s and (y4)'s launches on
     each rank and their times at moe-1b's tensor- and expert-rank shapes
     and bert-base's tensor-rank shape (``moe_tp_rank_shape``,
-    ``moe_ep_rank_shape``, ``bert_tp_rank_shape``).
+    ``moe_ep_rank_shape``, ``bert_tp_rank_shape``); the flash rows (z4)'s
+    launches on each stage and their times at a stage's microbatch shape
+    (``pp_stage_shape``).
 
 TF32 is off throughout, so float32 products are full float32. Any
 failure exits non-zero; the last line, printed only on success, is
@@ -1912,82 +1938,89 @@ def span_timing(dev) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def chunk_chain(server) -> dict:
+    """(o)'s drive on a started chunked server: a 300-token warm-up, then
+    the LONG_PROMPT-token prompt admitted as a chain while the CHUNK_SHORT
+    requests stream; the chain's interior chunks, the decode forwards and
+    paged launches in it, the short streams' inter-token gaps during it,
+    one chunk's mean ms (``serving_prefill_chunk_seconds``) and the
+    status a (MAX_PROMPT + 1)-token prompt answers."""
+    from kubeflow_tpu_torch import kernels
+
+    cfg = server.engine.model.config
+    dec = server.decoder
+    rng = np.random.RandomState(5)
+    shorts = [{"tokens": rng.randint(0, cfg.vocab_size, size=n).tolist(),
+               "max_new_tokens": w} for n, w in CHUNK_SHORT]
+    long = {"tokens": rng.randint(0, cfg.vocab_size,
+                                  size=LONG_PROMPT).tolist(),
+            "max_new_tokens": MAX_NEW}
+    # Warm-up: a 300-token prompt takes the chunk path's shapes once,
+    # so no measured chunk pays a first use in this process.
+    post(server.port, {"tokens": rng.randint(
+        0, cfg.vocab_size, size=300).tolist(), "max_new_tokens": 2})
+    hist = dec._h_prefill_chunk.labels()
+    steps0, chunks0 = dec.steps, dec.prefill_chunks
+    hist0 = (hist.count, hist.sum)
+    kernels.reset_launches()
+    stamps = [[] for _ in shorts]
+    results: list = [None] * (len(shorts) + 1)
+
+    def go(i):
+        if i < len(shorts):
+            results[i] = post(server.port, shorts[i], stream=True,
+                              stamps=stamps[i], rid=f"chunk-short-{i}")
+        else:
+            results[i] = post(server.port, long, stream=True,
+                              rid="chunk-long")
+
+    threads = [threading.Thread(target=go, args=(i,))
+               for i in range(len(shorts))]
+    for t in threads:
+        t.start()
+    deadline = time.perf_counter() + 300
+    while not all(len(st) >= 2 for st in stamps):
+        if time.perf_counter() > deadline:
+            raise AssertionError("the short streams did not start")
+        time.sleep(0.001)
+    t_long = time.perf_counter()
+    go(len(shorts))
+    t_first = t_long + results[-1][1]
+    for t in threads:
+        t.join(timeout=600)
+    launches = kernels.LAUNCHES["paged_decode_attention"]
+    forwards = dec.steps - steps0
+    chunks = dec.prefill_chunks - chunks0
+    gaps = [b - a for st in stamps for a, b in zip(st, st[1:])
+            if a >= t_long and b <= t_first]
+    status = None
+    conn = http.client.HTTPConnection("127.0.0.1", server.port,
+                                      timeout=60)
+    try:
+        conn.request("POST", f"/v1/models/{MODEL}:predict",
+                     body=json.dumps({"instances": [{
+                         "tokens": [1] * (MAX_PROMPT + 1),
+                         "max_new_tokens": 1}]}))
+        resp = conn.getresponse()
+        resp.read()
+        status = resp.status
+    finally:
+        conn.close()
+    return {"results": results, "launches": launches,
+            "forwards": forwards, "chunks": chunks, "gaps": gaps,
+            "chunk_ms_mean": 1e3 * (hist.sum - hist0[1])
+            / max(hist.count - hist0[0], 1),
+            "n_layers": cfg.n_layers, "status_1793": status,
+            "metrics": dec.metrics()}
+
+
 def phase_chunked() -> dict:
     """(o): llama-1b, bf16, paged, kv_fused, prefill_chunk_tokens 128,
     max_prompt_len 1792: a 1500-token prompt admitted as a chain of 12
     chunks while two short requests stream; a 1793-token prompt answers
     413."""
-    from kubeflow_tpu_torch import kernels
-
-    def run(server):
-        cfg = server.engine.model.config
-        dec = server.decoder
-        rng = np.random.RandomState(5)
-        shorts = [{"tokens": rng.randint(0, cfg.vocab_size, size=n).tolist(),
-                   "max_new_tokens": w} for n, w in CHUNK_SHORT]
-        long = {"tokens": rng.randint(0, cfg.vocab_size,
-                                      size=LONG_PROMPT).tolist(),
-                "max_new_tokens": MAX_NEW}
-        # Warm-up: a 300-token prompt takes the chunk path's shapes once,
-        # so no measured chunk pays a first use in this process.
-        post(server.port, {"tokens": rng.randint(
-            0, cfg.vocab_size, size=300).tolist(), "max_new_tokens": 2})
-        hist = dec._h_prefill_chunk.labels()
-        steps0, chunks0 = dec.steps, dec.prefill_chunks
-        hist0 = (hist.count, hist.sum)
-        kernels.reset_launches()
-        stamps = [[] for _ in shorts]
-        results: list = [None] * (len(shorts) + 1)
-
-        def go(i):
-            if i < len(shorts):
-                results[i] = post(server.port, shorts[i], stream=True,
-                                  stamps=stamps[i], rid=f"chunk-short-{i}")
-            else:
-                results[i] = post(server.port, long, stream=True,
-                                  rid="chunk-long")
-
-        threads = [threading.Thread(target=go, args=(i,))
-                   for i in range(len(shorts))]
-        for t in threads:
-            t.start()
-        deadline = time.perf_counter() + 300
-        while not all(len(st) >= 2 for st in stamps):
-            if time.perf_counter() > deadline:
-                raise AssertionError("the short streams did not start")
-            time.sleep(0.001)
-        t_long = time.perf_counter()
-        go(len(shorts))
-        t_first = t_long + results[-1][1]
-        for t in threads:
-            t.join(timeout=600)
-        launches = kernels.LAUNCHES["paged_decode_attention"]
-        forwards = dec.steps - steps0
-        chunks = dec.prefill_chunks - chunks0
-        gaps = [b - a for st in stamps for a, b in zip(st, st[1:])
-                if a >= t_long and b <= t_first]
-        status = None
-        conn = http.client.HTTPConnection("127.0.0.1", server.port,
-                                          timeout=60)
-        try:
-            conn.request("POST", f"/v1/models/{MODEL}:predict",
-                         body=json.dumps({"instances": [{
-                             "tokens": [1] * (MAX_PROMPT + 1),
-                             "max_new_tokens": 1}]}))
-            resp = conn.getresponse()
-            resp.read()
-            status = resp.status
-        finally:
-            conn.close()
-        return {"results": results, "launches": launches,
-                "forwards": forwards, "chunks": chunks, "gaps": gaps,
-                "chunk_ms_mean": 1e3 * (hist.sum - hist0[1])
-                / max(hist.count - hist0[0], 1),
-                "n_layers": cfg.n_layers, "status_1793": status,
-                "metrics": dec.metrics()}
-
     r = serve(engine_cfg(kv_fused=True, prefill_chunk_tokens=CHUNK_TOKENS,
-                         max_prompt_len=MAX_PROMPT), run)
+                         max_prompt_len=MAX_PROMPT), chunk_chain)
     want_chunks = -(-LONG_PROMPT // CHUNK_TOKENS) - 1
     if r["forwards"] <= 0 or r["launches"] != r["n_layers"] * r["forwards"]:
         raise AssertionError(f"paged decode kernel launched {r['launches']} "
@@ -4208,10 +4241,12 @@ GANG_RESULT = "build/chip_smoke/gang_result.json"
 
 # One rank of a gang of two on the card over gloo, both on cuda:0 (NCCL
 # refuses two ranks on one GPU); its argument is a JSON object: the
-# device ("cuda", or "cpu" to try it on the host), the model, the mesh,
-# the full-size steps (0: none), the rows a batch rank takes and
-# their length, and the f32 gate's depth, rows a batch rank, length and
-# overrides. The full-size run: bf16, adafactor, each step's ms and
+# device ("cuda", or "cpu" to try it on the host), the model and its
+# overrides, the mesh, the full-size steps (0: none), the rows a batch
+# rank takes and their length, whether a profiled step must name the
+# flash kernels, and the f32 gate's depth, rows a batch rank, length and
+# overrides. Under context parallelism a sequence rank takes its chunk of
+# its rows' tokens. The full-size run: bf16, adafactor, each step's ms and
 # metrics, the collectives' calls and bytes a step, the kernel launches,
 # the flash kernels' names in a profiled step (one rank's profiler at a
 # time; a session that misses them is tried again, as the ranks agree).
@@ -4247,7 +4282,14 @@ dev = torch.device("cuda", 0) if a["device"] == "cuda" else \
     torch.device(a["device"])
 mesh = build_mesh(MeshConfig(**a["mesh"]), device_type=dev.type)
 bi, bn = axis_index(mesh, BATCH_AXES), axis_size(mesh, BATCH_AXES)
+si, sn = axis_index(mesh, "sequence"), axis_size(mesh, "sequence")
 result = {"batch_index": bi}
+
+def mine(model, b):
+    b = data.local_rows(b, bi, bn)
+    if getattr(model.config, "context_parallel", False):
+        b = data.local_tokens(b, si, sn)
+    return b
 
 def sync():
     if dev.type == "cuda":
@@ -4258,12 +4300,12 @@ def batches(model, rows, seq, seed, n):
             for i in range(n)]
 
 if a["steps"]:
-    model = get_model(a["model"])
+    model = get_model(a["model"], **a["overrides"])
     opt = OptimizerConfig(name="adafactor", warmup_steps=2)
     state = trainer.init_state(torch.Generator(device=dev).manual_seed(0),
                                model, opt, mesh, device=dev)
     step = trainer.build_train_step(model, opt, mesh)
-    local = [data.place_batch(data.local_rows(b, bi, bn), dev) for b in
+    local = [data.place_batch(mine(model, b), dev) for b in
              batches(model, a["rows"], a["seq"], 7, a["steps"])]
     kernels.reset_launches()
     collectives.reset_counts()
@@ -4278,7 +4320,7 @@ if a["steps"]:
     launches = dict(kernels.LAUNCHES)
     calls, moved = dict(collectives.CALLS), dict(collectives.BYTES)
     names = []
-    for turn in range(2 if dev.type == "cuda" else 0):
+    for turn in range(2 if dev.type == "cuda" and a["trace"] else 0):
         for attempt in range(3):
             if r == turn:
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -4351,8 +4393,7 @@ if r == 0:
     still = {k: v for k, v in gnorm.items() if v <= ZERO_GRAD * total}
     del tree, leaves, loss, grads
     one, one_params, one_dropped = run(None, lambda b: b)
-gang, gang_params, dropped = run(mesh,
-                                 lambda b: data.local_rows(b, bi, bn))
+gang, gang_params, dropped = run(mesh, lambda b: mine(gmodel, b))
 result["gate_dropped"] = dropped
 if r == 0:
     rel = max(abs(g[k] - o[k]) / abs(o[k]) for g, o in zip(gang, one)
@@ -4605,21 +4646,32 @@ def tp_serving_checks(smi: str, phase: str, model: str,
 def gang_run(smi: str, name: str, model: str, mesh: dict, steps: int,
              rows: int, seq: int, gate_rows: int, gate_seq: int,
              gate_overrides: dict, tol: float, gate_opt: str = "adafactor",
-             gate_lr: float = 1e-2) -> dict:
+             gate_lr: float = 1e-2, overrides: dict | None = None,
+             want: dict | None = None) -> dict:
     """One GANG_WORKER gang of two on the card (a run named ``name``);
     checks its f32 gate (metrics
     within ``tol`` relative of one process's, parameters within 1e-4
     relative + 1e-5, every matrix moved over 10x that limit) and, with
-    full-size steps, each rank's flash launches (n_layers x steps each)
-    and the flash kernels named in each rank's trace."""
+    full-size steps of ``model`` with ``overrides``, each rank's flash
+    launches (``want``; by default n_layers x steps each, twice the
+    forwards under remat) and, where it launches them, the flash kernels
+    named in each rank's trace."""
     import shutil
 
     from kubeflow_tpu_torch.models.registry import get_model
     from kubeflow_tpu_torch.parallel.launch import launch
 
     os.makedirs(os.path.dirname(GANG_RESULT), exist_ok=True)
-    args = dict(device="cuda", model=model, mesh=mesh, steps=steps,
-                rows=rows, seq=seq,
+    overrides = overrides or {}
+    if want is None:
+        # A remat region runs its forward again in the backward.
+        cfg = get_model(model, **overrides).config
+        want = {"flash_attention_fwd": cfg.n_layers * steps * (
+                    2 if getattr(cfg, "remat", False) else 1),
+                "flash_attention_bwd": cfg.n_layers * steps}
+    trace = any(want.values())
+    args = dict(device="cuda", model=model, overrides=overrides, mesh=mesh,
+                steps=steps, rows=rows, seq=seq, trace=trace,
                 gate_layers=X_GATE_LAYERS, gate_rows=gate_rows,
                 gate_seq=gate_seq,
                 gate_overrides=gate_overrides, gate_opt=gate_opt,
@@ -4648,20 +4700,19 @@ def gang_run(smi: str, name: str, model: str, mesh: dict, steps: int,
         out["rank1_launches"] = ranks[1]["rank_launches"]
         out["rank1_flash_kernels_in_trace"] = ranks[1][
             "flash_kernels_in_trace"]
+    if steps:
+        out["expected_flash_launches_per_rank"] = want
     emit(name, **out)
     if steps:
-        # A remat region runs its forward again in the backward.
-        cfg = get_model(model).config
-        want = {"flash_attention_fwd": cfg.n_layers * steps * (
-                    2 if getattr(cfg, "remat", False) else 1),
-                "flash_attention_bwd": cfg.n_layers * steps}
         for r in ranks:
             if any(r["rank_launches"][k] != n for k, n in want.items()):
                 raise AssertionError(f"({name}) flash launches "
                                      f"{r['rank_launches']}, expected "
                                      f"{want}")
-            if not any("fwd" in n for n in r["flash_kernels_in_trace"]) or \
-                    not any("bwd" in n for n in r["flash_kernels_in_trace"]):
+            if trace and (
+                    not any("fwd" in n for n in r["flash_kernels_in_trace"])
+                    or not any("bwd" in n
+                               for n in r["flash_kernels_in_trace"])):
                 raise AssertionError(f"({name}) a rank's trace does not "
                                      f"name the flash kernels: {r}")
     g = ranks[0]["f32_gate"]
@@ -4782,6 +4833,318 @@ def phase_moe_mesh(smi: str, shard: dict, rank_flash: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# (z) the sequence and pipeline axes: llama-1b served by a cp=2 ring and by
+# two pipeline stages; flagship-1b trained over sequence, flagship-deep
+# over pipeline
+# ---------------------------------------------------------------------------
+
+CP = PP = 2
+# Both ring shards, and both stages, on the one card.
+CP_DEVICES = ("cuda:0",) * CP
+PP_DEVICES = ("cuda:0",) * PP
+DEEP_MODEL = "flagship-deep"
+Z_TRAIN_STEPS, Z_MICRO = 3, 4
+PP_OVERRIDES = {"pipeline_stages": PP, "pipeline_microbatches": Z_MICRO}
+# flagship-deep's attention on one stage's microbatch: 1 x 2048 rows, Hq
+# 24 over Hkv 4, hd 128.
+FLASH_PP_STAGE = dict(FLASH_DEEP, b=1)
+RING_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+
+
+def ring_span_check(dev) -> dict:
+    """The ring's span read at llama-1b's chunk shape (q [1, 128, 16,
+    128] at positions 1280-1407 of the gathered 1824-position row, Hkv 8)
+    over CP shards on the card, against the gathered read the decoder
+    takes without a ring, f32 and bf16: max abs error, and each one's
+    CUDA-event time with L2 flushed (plain PyTorch both: JAX's ring is
+    XLA einsums, no kernel)."""
+    from kubeflow_tpu_torch.models.decode import _gqa_attention
+    from kubeflow_tpu_torch.models.transformer import config
+    from kubeflow_tpu_torch.ops.attention import ring_span_attention
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    total = MAX_PROMPT + MAX_NEW
+    out = {"shape": {"q": [1, CHUNK_TOKENS, 16, 128], "positions": total,
+                     "pos": 1280, "cp": CP}}
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = config(MODEL, dtype=dtype)
+        hkv, hq, hd = cfg.n_kv_heads, cfg.n_heads, cfg.head_dim
+        gen = torch.Generator(device=dev).manual_seed(11)
+        q = torch.randn(1, CHUNK_TOKENS, hq, hd, generator=gen,
+                        device=dev).to(dtype)
+        k, v = (torch.randn(1, total, hkv, hd, generator=gen,
+                            device=dev).to(dtype) for _ in range(2))
+        pos = torch.tensor([1280], dtype=torch.int32, device=dev)
+        cols = pos.long()[:, None] + torch.arange(CHUNK_TOKENS,
+                                                  device=dev)[None]
+        mask = (torch.arange(total, device=dev)[None, None, :]
+                <= cols[:, :, None])[:, None, None]
+
+        def ring():
+            return ring_span_attention(q, k, v, pos, n_kv_heads=hkv,
+                                       devices=CP_DEVICES)
+
+        def gathered():
+            return _gqa_attention(q, k, v, mask, cfg)
+
+        err = (ring().reshape(1, CHUNK_TOKENS, -1)
+               - gathered().float()).abs().max().item()
+        name = "f32" if dtype == torch.float32 else "bf16"
+        out[name] = {"max_abs_err": err, "tolerance": RING_TOL[dtype],
+                     "ring_ms": time_ms(ring, flush, 10),
+                     "gathered_ms": time_ms(gathered, flush, 10)}
+        if err > RING_TOL[dtype]:
+            raise AssertionError(f"(z1) the ring's span read differs from "
+                                 f"the gathered read by {err} ({name})")
+    return out
+
+
+def cp_serving_run(cp: int) -> dict:
+    """(o)'s chain (:func:`chunk_chain`) on a paged, gathered server of
+    llama-1b (full size, bf16) whose chunk dispatches read through a
+    ``cp``-shard ring on CP_DEVICES (none at cp 1): one chunk's ms, the
+    long prompt's TTFT, the exposition's ``serving_cp_shards``."""
+    kw = dict(prefill_chunk_tokens=CHUNK_TOKENS, max_prompt_len=MAX_PROMPT)
+    if cp > 1:
+        kw.update(cp_shards=cp, tp_devices=CP_DEVICES)
+
+    def run(server):
+        r = chunk_chain(server)
+        r["exposition"] = parse_exposition(
+            get(server.port, "/monitoring/prometheus/metrics"))
+        return r
+
+    r = serve(engine_cfg(**kw), run)
+    want_chunks = -(-LONG_PROMPT // CHUNK_TOKENS) - 1
+    lens = [len(x[0]) for x in r["results"]]
+    if r["chunks"] != want_chunks or r["launches"] or \
+            lens != [w for _, w in CHUNK_SHORT] + [MAX_NEW] or \
+            r["status_1793"] != 413:
+        raise AssertionError(f"(z1) cp={cp} chain: {r['chunks']} interior "
+                             f"chunks, {r['launches']} paged launches (the "
+                             f"gathered read takes none), tokens {lens}, "
+                             f"status {r['status_1793']}")
+    return {"cp_shards": cp, "interior_chunks": r["chunks"],
+            "chunk_ms_mean": r["chunk_ms_mean"],
+            "long_ttft_ms": 1e3 * r["results"][-1][1],
+            "max_inter_token_gap_during_chain_ms": 1e3 * max(r["gaps"]),
+            "decode_forwards": r["forwards"],
+            "serving_cp_shards": r["exposition"]["serving_cp_shards"]}
+
+
+def decoder_gate(dev, make, settings: dict, prompts: list) -> dict:
+    """f32 greedy tokens of llama-1b at X_GATE_LAYERS layers, the prompts
+    one at a time, through a decoder of each of ``settings`` (name ->
+    decoder options) from ``make(options)``; each must equal the first
+    setting's."""
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.serving.continuous import ContinuousDecoder
+
+    model = get_model(MODEL, dtype=torch.float32, n_layers=X_GATE_LAYERS)
+    params = model.init(model.config, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    toks = {}
+    for name, kw in settings.items():
+        dec = ContinuousDecoder(params, model.config, **make(kw))
+        try:
+            toks[name] = [dec.generate(r["tokens"], r["max_new_tokens"],
+                                       timeout=600)["tokens"]
+                          for r in prompts]
+        finally:
+            dec.stop()
+            del dec
+            torch.cuda.empty_cache()
+    ref = next(iter(toks.values()))
+    out = {name: compare_streams(t, ref) for name, t in toks.items()}
+    for name, cmp in out.items():
+        if not cmp["identical"]:
+            raise AssertionError(f"(z) f32 gate {name}: {cmp}")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def gate_prompts(long_len: int) -> list:
+    """A ``long_len``-token prompt and a 40-token one, 16 new tokens
+    each."""
+    from kubeflow_tpu_torch.models.transformer import config
+
+    vocab = config(MODEL).vocab_size
+    rng = np.random.RandomState(23)
+    return [{"tokens": rng.randint(0, vocab, size=long_len).tolist(),
+             "max_new_tokens": 16},
+            {"tokens": rng.randint(0, vocab, size=40).tolist(),
+             "max_new_tokens": 16}]
+
+
+def phase_cp_serving(smi: str) -> dict:
+    """(z1) llama-1b, bf16, paged, gathered read, prefill_chunk_tokens
+    128, max_prompt_len 1792: (o)'s 1500-token prompt while two streams
+    decode, through a cp=2 ring on the card beside cp=1 (one chunk's ms,
+    the long TTFT, ``serving_cp_shards``); the ring's span read at the
+    chunk's shape against the gathered read (:func:`ring_span_check`);
+    the f32 gate at 2 layers: cp=2 and cp=2 x tp=2 equal cp=1 on a
+    300-token chain (chunks of 64) and a 40-token prompt."""
+    dev = torch.device("cuda")
+    runs = {f"cp{cp}": cp_serving_run(cp) for cp in (1, CP)}
+    if runs[f"cp{CP}"]["serving_cp_shards"] != CP or \
+            runs["cp1"]["serving_cp_shards"] != 1:
+        raise AssertionError(f"(z1) serving_cp_shards: {runs}")
+    ring = ring_span_check(dev)
+    paged = dict(slots=SLOTS, prefill_len=MAX_SEQ, max_new_tokens=MAX_NEW,
+                 kv_layout="paged", kv_block_size=BLOCK,
+                 prefill_chunk_tokens=64, max_prompt_len=512)
+    gates = decoder_gate(
+        dev, lambda kw: {**paged, **kw},
+        {"cp1": {}, f"cp{CP}": dict(cp_shards=CP, tp_devices=CP_DEVICES),
+         f"cp{CP}xtp{TP}": dict(cp_shards=CP, tp_shards=TP,
+                                tp_devices=("cuda:0",) * (CP * TP))},
+        gate_prompts(300))
+    out = {"gpu": smi, "model": MODEL, "cp_devices": list(CP_DEVICES),
+           "serving": runs,
+           "chunk_ms_ratio": runs[f"cp{CP}"]["chunk_ms_mean"]
+           / runs["cp1"]["chunk_ms_mean"],
+           "ring_span_read": ring, "f32_gates": gates}
+    emit("z1_cp_serving", **out)
+    return out
+
+
+def stage_kv_bytes(dec) -> float:
+    """KV bytes a token that stage 0 of ``dec`` holds: its part of the
+    pool (or the dense rows), k and v, over the positions it backs."""
+    from kubeflow_tpu_torch.models.decode import (
+        _first,
+        _kv_arr,
+        _parts,
+        _stage_list,
+    )
+
+    state = dec._state
+    name = "pool" if "pool" in state else "cache"
+    total = 0
+    for side in ("k", "v"):
+        for part in _parts(_stage_list(state[name][side])[0]):
+            for t in (part.values() if isinstance(part, dict) else (part,)):
+                total += t.numel() * t.element_size()
+    arr = _kv_arr(_first(state[name]["k"]))
+    return total / (arr.shape[1] * arr.shape[2])
+
+
+def pp_serving_run(pp: int, layout: str) -> dict:
+    """(d)'s requests over HTTP on a ``layout`` server of llama-1b (full
+    size, bf16; the paged read gathered) of ``pp`` stages on PP_DEVICES:
+    tokens/s, the streamed TTFT, ``serving_pp_stages``, the KV bytes a
+    token a stage holds."""
+    from kubeflow_tpu_torch.serving.server import ModelServer
+
+    kw = {} if pp == 1 else dict(pp_stages=pp, tp_devices=PP_DEVICES)
+    server = ModelServer(engine_cfg(kv_layout=layout, **kw), port=0)
+    server.start()
+    try:
+        out = drive(server)
+        samples = parse_exposition(get(server.port,
+                                       "/monitoring/prometheus/metrics"))
+        stage_bytes = stage_kv_bytes(server.decoder)
+    finally:
+        server.stop()
+        del server
+        torch.cuda.empty_cache()
+    if out["decode_forwards"] <= 0 or out["launches"][
+            "paged_decode_attention"]:
+        raise AssertionError(f"(z2) pp={pp} {layout}: {out['launches']}, "
+                             f"{out['decode_forwards']} decode forwards")
+    return {**{k: out[k] for k in ("decode_forwards", "tokens", "wall_s",
+                                   "decode_tokens_per_s",
+                                   "ttft_streamed_ms")},
+            "serving_pp_stages": samples["serving_pp_stages"],
+            "kv_bytes_per_token_a_stage": stage_bytes}
+
+
+def phase_pp_serving(smi: str) -> dict:
+    """(z2) llama-1b, bf16, (d)'s six requests on servers of two pipeline
+    stages (8 + 8 layers) on the card beside one, on the dense default
+    layout and the paged gathered one: tokens/s, TTFT, the KV bytes a
+    token a stage (half of one stage's); the f32 gate at 2 layers: pp=2
+    equals pp=1 on the dense layout, paged, a 300-token chain (chunks of
+    64) and at pp=2 x tp=2."""
+    from kubeflow_tpu_torch.models.transformer import config
+
+    dev = torch.device("cuda")
+    runs = {f"{layout}_pp{pp}": pp_serving_run(pp, layout)
+            for layout in ("dense", "paged") for pp in (1, PP)}
+    for layout in ("dense", "paged"):
+        one, two = runs[f"{layout}_pp1"], runs[f"{layout}_pp{PP}"]
+        if two["serving_pp_stages"] != PP or \
+                2 * two["kv_bytes_per_token_a_stage"] != \
+                one["kv_bytes_per_token_a_stage"]:
+            raise AssertionError(f"(z2) {layout}: {one} beside {two}")
+    base = dict(slots=SLOTS, prefill_len=MAX_SEQ, max_new_tokens=MAX_NEW)
+    paged = dict(kv_layout="paged", kv_block_size=BLOCK)
+    pp_kw = dict(pp_stages=PP, tp_devices=PP_DEVICES)
+    prompts = request_bodies(config(MODEL).vocab_size)
+    gates = {
+        "dense": decoder_gate(dev, lambda kw: {**base, **kw},
+                              {"pp1": {}, f"pp{PP}": pp_kw}, prompts),
+        "paged": decoder_gate(
+            dev, lambda kw: {**base, **paged, **kw},
+            {"pp1": {}, f"pp{PP}": pp_kw,
+             f"pp{PP}xtp{TP}": dict(pp_stages=PP, tp_shards=TP,
+                                    tp_devices=("cuda:0",) * (PP * TP))},
+            prompts),
+        "chunked": decoder_gate(
+            dev, lambda kw: {**base, **paged, "prefill_chunk_tokens": 64,
+                             "max_prompt_len": 512, **kw},
+            {"pp1": {}, f"pp{PP}": pp_kw}, gate_prompts(300))}
+    out = {"gpu": smi, "model": MODEL, "pp_devices": list(PP_DEVICES),
+           "serving": runs,
+           "tokens_per_s_ratio": {
+               layout: runs[f"{layout}_pp{PP}"]["decode_tokens_per_s"]
+               / runs[f"{layout}_pp1"]["decode_tokens_per_s"]
+               for layout in ("dense", "paged")},
+           "f32_gates": gates}
+    emit("z2_pp_serving", **out)
+    return out
+
+
+def phase_long_axes(smi: str, stage_flash: dict) -> dict:
+    """(z) the sequence and pipeline axes. (z1) :func:`phase_cp_serving`.
+    (z2) :func:`phase_pp_serving`. (z3) :func:`gang_run`, a gloo gang of
+    two over ``{"sequence": 2}`` on the card training flagship-1b with
+    ``context_parallel`` at full width and depth, bf16, 1 x 2048 rows
+    (1024 positions a rank), 3 steps: each step's time, the ring's
+    permutes and their bytes a step (no flash launch: the ring replaces
+    it); the f32 gate at 2 layers (1 x 1024 rows) within 1e-6 of one
+    process. (z4) a gang of two over ``{"pipeline": 2}`` training
+    flagship-deep (16 layers, 8 a stage) at 4 x 2048 rows, 4
+    microbatches, remat ``"llm"``, 3 steps: each step's time, each rank's
+    peak of allocated memory, the flash launches a rank against the
+    schedule's count (8 layers x 4 microbatches x 3 steps, the forward
+    twice under remat), named in each rank's trace; the flash pair at a
+    stage's microbatch shape (``stage_flash``, run at the start); the f32
+    gate at 2 layers (4 x 512 rows) within 1e-6."""
+    t_phase = time.perf_counter()
+    z1 = phase_cp_serving(smi)
+    z2 = phase_pp_serving(smi)
+    cp_kw = {"context_parallel": True}
+    z3 = gang_run(smi, f"z3_sequence{CP}", TRAIN_MODEL, {"sequence": CP},
+                  Z_TRAIN_STEPS, 1, FLASH_TP_RANK["t"], 1, 1024, cp_kw,
+                  1e-6, overrides=cp_kw,
+                  want={"flash_attention_fwd": 0, "flash_attention_bwd": 0})
+    per_stage = 16 // PP * Z_MICRO * Z_TRAIN_STEPS
+    z4 = gang_run(smi, f"z4_pipeline{PP}", DEEP_MODEL, {"pipeline": PP},
+                  Z_TRAIN_STEPS, 4, FLASH_DEEP["t"], 4, 512, PP_OVERRIDES,
+                  1e-6, overrides=PP_OVERRIDES,
+                  want={"flash_attention_fwd": 2 * per_stage,
+                        "flash_attention_bwd": per_stage})
+    z4["flash_stage_shape"] = rank_flash_timing(stage_flash)
+    emit("z4_flash_pp_stage", **z4["flash_stage_shape"])
+    out = {"z1": z1, "z2": z2, "z3": z3, "z4": z4,
+           "phase_s": time.perf_counter() - t_phase}
+    emit("z_phase_time", phase_s=out["phase_s"])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4854,6 +5217,8 @@ def main() -> int:
         phase_model_flash(dev, flush, f"bert_tp{TP}_rank", None,
                           (FLASH_BERT_TP_RANK,), masked=True,
                           iters=(20, 10)))
+    stage_flash = phase_model_flash(dev, flush, f"pp{PP}_stage", "splash",
+                                    (FLASH_PP_STAGE,))
     del flush
     torch.cuda.empty_cache()
     main_path = phase_main_path()
@@ -4876,6 +5241,7 @@ def main() -> int:
     mesh = phase_mesh(smi, train)
     tp = phase_tensor_parallel(smi, *tp_checks)
     moe_mesh = phase_moe_mesh(smi, *y_checks)
+    long_axes = phase_long_axes(smi, stage_flash)
 
     p, r = paged["bf16"], rms[f"{SLOTS}x2048"]
     paged_paths = {
@@ -4960,6 +5326,9 @@ def main() -> int:
                     by_path[f"{run}_train_rank0"] = res["rank_launches"][key]
                     by_path[f"{run}_train_rank1"] = res["rank1_launches"][
                         key]
+                z4 = long_axes["z4"]
+                by_path[f"pp{PP}_train_rank0"] = z4["rank_launches"][key]
+                by_path[f"pp{PP}_train_rank1"] = z4["rank1_launches"][key]
                 if part == "fwd":
                     by_path["predict"] = predict_launches
                     by_path["moe_predict"] = moe["dense"][
@@ -4983,6 +5352,8 @@ def main() -> int:
                     "flash_ep_rank_shape"][part]
                 row["bert_tp_rank_shape"] = moe_mesh["y4"][
                     "flash_rank_shape"][part]
+                row["pp_stage_shape"] = long_axes["z4"][
+                    "flash_stage_shape"][part]
             if impl == "splash" and part == "fwd":
                 row["predict_shape"] = {
                     kind: {k: fp[kind][k] for k in (

@@ -24,6 +24,9 @@ Counterpart of ``kubeflow_tpu/models/decode.py``:
   chunk of a long admission), :func:`store_blocks` (the paged prime)
   and :func:`copy_block` (the copy-on-write of a partly shared tail
   block);
+- the context-parallel span read (``ring`` of :func:`_block_forward`,
+  :func:`paged_prefill_chunk` and :func:`paged_admit_prefix_and_step`)
+  and a replica of pipeline stages (see the comment on the shards below);
 - the KV handoff: :func:`export_blocks` gathers pool blocks into a
   standalone payload (fp arrays, or int8 codes with their scales) and
   :func:`import_blocks` scatters one into other blocks as it came, with
@@ -60,6 +63,7 @@ sampled rows keep the target distribution, not JAX's numbers.
 from __future__ import annotations
 
 import functools
+from dataclasses import replace
 
 import torch
 
@@ -75,18 +79,20 @@ from kubeflow_tpu_torch.ops.attention import _kv_payload as _kv_arr
 from kubeflow_tpu_torch.ops.attention import (
     paged_decode_attention,
     paged_span_attention,
+    ring_span_attention,
 )
 from kubeflow_tpu_torch.ops.norms import rms_norm
 from kubeflow_tpu_torch.ops.rotary import rotary_frequencies
 from kubeflow_tpu_torch.parallel.collectives import reduce_shards
-from kubeflow_tpu_torch.parallel.mesh import TensorShards
+from kubeflow_tpu_torch.parallel.mesh import PipelineStages, TensorShards
 from kubeflow_tpu_torch.parallel.sharding import split_kv_heads, vocab_rows
 
 _NEG_INF = -1e30
 
 
 # ---------------------------------------------------------------------------
-# Tensor-parallel shards (serving/continuous.py's tp_shards)
+# Tensor-parallel shards and pipeline stages (serving/continuous.py's
+# tp_shards, pp_stages)
 # ---------------------------------------------------------------------------
 #
 # A tensor-parallel replica hands every function below a TensorShards of
@@ -103,22 +109,51 @@ _NEG_INF = -1e30
 # the allocator, trie, refcount/CoW and handoff never see the split. A
 # plain tree and plain tensors are one shard: the unsharded path, op for
 # op.
+#
+# A pipeline-parallel replica (serving/continuous.py's pp_stages) hands
+# them a PipelineStages of per-stage values instead, each a plain value or
+# the stage's TensorShards: stage s holds its range of the stacked layer
+# leaves and of the KV store's layer dim (and every other leaf whole, as
+# JAX replicates them over pipeline). The layers run stage by stage, the
+# residual moved to the next stage's devices; the embedding is stage 0's,
+# the head the last stage's, and the logits come back to stage 0's
+# shard 0's device with the tables and the generator. The chunk
+# dispatches' ``ring`` (context parallelism) holds each stage's shards'
+# ring devices.
 
 
-def _shard_list(x) -> list:
+def _stage_list(x) -> list:
+    """The per-stage values of a pipeline-staged value (a one-stage list
+    otherwise)."""
+    return list(x) if isinstance(x, PipelineStages) else [x]
+
+
+def _shard_values(x) -> list:
     return list(x) if isinstance(x, TensorShards) else [x]
 
 
+def _parts(x) -> list:
+    """Every (stage, shard) part of ``x`` in stage-major order: the
+    tensors a whole-store operation touches one by one (a pool and a
+    cache of one replica have the same parts)."""
+    return [p for st in _stage_list(x) for p in _shard_values(st)]
+
+
 def _first(x):
-    """Shard 0's value (the value itself when unsharded)."""
-    return x[0] if isinstance(x, TensorShards) else x
+    """Stage 0's shard 0's value (the value itself when unsharded)."""
+    while isinstance(x, (PipelineStages, TensorShards)):
+        x = x[0]
+    return x
 
 
 def _map(fn, *xs):
-    """``fn`` over the shards of ``xs`` (zipped), as a TensorShards when
-    ``xs[0]`` is one, else ``fn(*xs)``."""
+    """``fn`` over the parts of ``xs`` (zipped), keeping ``xs[0]``'s
+    stages and shards."""
+    if isinstance(xs[0], PipelineStages):
+        return PipelineStages(_map(fn, *a) for a in zip(*map(_stage_list,
+                                                             xs)))
     if isinstance(xs[0], TensorShards):
-        return TensorShards(fn(*a) for a in zip(*map(_shard_list, xs)))
+        return TensorShards(fn(*a) for a in zip(*map(_shard_values, xs)))
     return fn(*xs)
 
 
@@ -132,12 +167,28 @@ def _on(x, dev):
 _shard_config = functools.lru_cache(maxsize=16)(shard_config)
 
 
+@functools.lru_cache(maxsize=16)
+def _stage_config(cfg: TransformerConfig, pp: int) -> TransformerConfig:
+    """The config of one of ``pp`` pipeline stages: its share of the
+    layers."""
+    return cfg if pp == 1 else replace(cfg, n_layers=cfg.n_layers // pp)
+
+
 def _shards(params, cfg: TransformerConfig) -> list:
-    """(parameters, config, device) of each shard: ``cfg`` itself for an
-    unsharded tree, else one shard's view of it (``shard_config``)."""
-    parts = _shard_list(params)
+    """(parameters, config, device) of each shard of one stage: ``cfg``
+    itself for an unsharded tree, else one shard's view of it
+    (``shard_config``)."""
+    parts = _shard_values(params)
     scfg = _shard_config(cfg, len(parts))
     return [(p, scfg, p["embed"]["kernel"].device) for p in parts]
+
+
+def _stages(params, cfg: TransformerConfig) -> list:
+    """:func:`_shards` of each pipeline stage, stage order (one stage for
+    an unstaged tree)."""
+    stages = _stage_list(params)
+    scfg = _stage_config(cfg, len(stages))
+    return [_shards(p, scfg) for p in stages]
 
 
 def _embed(shards, tokens) -> list:
@@ -151,67 +202,123 @@ def _embed(shards, tokens) -> list:
                           for i, (p, _cfg, _dev) in enumerate(shards)])
 
 
-def _logits(shards, xs):
-    """Final norm and head on each shard, f32, the vocabulary slices side
-    by side on shard 0's device."""
+def _logits(stages, xs):
+    """Final norm and head on each shard of the last stage, f32, the
+    vocabulary slices side by side on stage 0's shard 0's device (where
+    the tables, lengths and logits live)."""
     out = []
-    for (p, cfg, _dev), x in zip(shards, xs):
+    for (p, cfg, _dev), x in zip(stages[-1], xs):
         x = rms_norm(x, p["final_norm"], eps=cfg.norm_eps)
         out.append((x @ _head_kernel(p, cfg)).float())
+    home = stages[0][0][2]
     if len(out) == 1:
-        return out[0]
-    return torch.cat([o.to(out[0].device) for o in out], dim=-1)
+        return _on(out[0], home)
+    return torch.cat([o.to(home) for o in out], dim=-1)
 
 
-def _layers(shards, xs, attend, token_valid=None) -> list:
-    """The layer stack over a replica's shards from each shard's residual
-    ``xs``: ``attend(i, s, h, attn, cfg)`` is shard ``s``'s attention
-    output at layer ``i`` for its normed input ``h`` (its heads through
-    its rows of wo); the FFN is its d_ff columns. Each sublayer's partial
-    outputs are summed across the shards into every residual."""
-    n_layers = shards[0][1].n_layers
-    tvs = [_on(token_valid, dev) for _p, _c, dev in shards]
-    for i in range(n_layers):
-        layers = [_layer(p, i) for p, _c, _d in shards]
-        parts = [attend(i, s, rms_norm(x, layer["ln_attn"],
-                                       eps=cfg.norm_eps),
-                        layer["attn"], cfg)
-                 for s, ((_p, cfg, _d), x, layer)
-                 in enumerate(zip(shards, xs, layers))]
-        xs = [x + part for x, part in zip(xs, reduce_shards(parts))]
-        parts = [_ffn(rms_norm(x, layer["ln_mlp"], eps=cfg.norm_eps),
-                      layer["mlp"], cfg, tv)[0]
-                 for (_p, cfg, _d), x, layer, tv
-                 in zip(shards, xs, layers, tvs)]
-        xs = [x + part for x, part in zip(xs, reduce_shards(parts))]
+def _layers(stages, xs, attend, token_valid=None) -> list:
+    """The layer stack over a replica's stages and shards from stage 0's
+    shards' residuals ``xs``: ``attend(st, i, s, h, attn, cfg)`` is stage
+    ``st``'s shard ``s``'s attention output at its layer ``i`` for its
+    normed input ``h`` (its heads through its rows of wo); the FFN is its
+    d_ff columns. Each sublayer's partial outputs are summed across the
+    stage's shards into every residual; the residual moves to the next
+    stage's shards (their devices) between stages. Returns the last
+    stage's shards' residuals."""
+    for st, shards in enumerate(stages):
+        if st:
+            xs = [_on(xs[0], dev) for _p, _c, dev in shards]
+        tvs = [_on(token_valid, dev) for _p, _c, dev in shards]
+        for i in range(shards[0][1].n_layers):
+            layers = [_layer(p, i) for p, _c, _d in shards]
+            parts = [attend(st, i, s, rms_norm(x, layer["ln_attn"],
+                                               eps=cfg.norm_eps),
+                            layer["attn"], cfg)
+                     for s, ((_p, cfg, _d), x, layer)
+                     in enumerate(zip(shards, xs, layers))]
+            xs = [x + part for x, part in zip(xs, reduce_shards(parts))]
+            parts = [_ffn(rms_norm(x, layer["ln_mlp"], eps=cfg.norm_eps),
+                          layer["mlp"], cfg, tv)[0]
+                     for (_p, cfg, _d), x, layer, tv
+                     in zip(shards, xs, layers, tvs)]
+            xs = [x + part for x, part in zip(xs, reduce_shards(parts))]
     return xs
+
+
+def _stage_args(stages, *values) -> list:
+    """``values`` (tensors, None or tuples of them) on each shard's
+    device, indexed [stage][shard]."""
+    return [[_on(values, dev) for _p, _c, dev in shards] for shards in stages]
+
+
+def _kv_stages(side) -> list:
+    """One side of a KV store as [stage][shard] parts."""
+    return [_shard_values(st) for st in _stage_list(side)]
 
 
 def _new_cache(params, cfg: TransformerConfig, batch: int, total_len: int,
                device):
-    """A zeroed dense cache for ``params``: one per shard (their KV
-    heads, on their devices) for a sharded tree."""
-    if not isinstance(params, TensorShards):
+    """A zeroed dense cache for ``params``: one per stage and shard
+    (their layers and KV heads, on their devices) for a staged or
+    sharded tree."""
+    if not isinstance(params, (TensorShards, PipelineStages)):
         return init_cache(cfg, batch, total_len, device)
-    caches = [init_cache(c, batch, total_len, dev)
-              for _p, c, dev in _shards(params, cfg)]
-    return {side: TensorShards(c[side] for c in caches)
-            for side in ("k", "v")}
+    out = {"k": [], "v": []}
+    for p, shards in zip(_stage_list(params), _stages(params, cfg)):
+        caches = [init_cache(c, batch, total_len, dev)
+                  for _p, c, dev in shards]
+        for side, parts in out.items():
+            parts.append(TensorShards(c[side] for c in caches)
+                         if isinstance(p, TensorShards) else caches[0][side])
+    if isinstance(params, PipelineStages):
+        return {side: PipelineStages(v) for side, v in out.items()}
+    return {side: v[0] for side, v in out.items()}
 
 
-def shard_decode_state(state, devices):
+def _layer_slice(side, start: int, stop: int):
+    """Layers ``[start, stop)`` of one side of a stacked KV store (fp or
+    ``{"q", "scale"}``), as contiguous tensors of their own."""
+    if isinstance(side, dict):
+        return {k: v[start:stop].clone() for k, v in side.items()}
+    return side[start:stop].clone()
+
+
+def _split_side(side, stages: list):
+    """One side of a KV store cut for a replica whose stage ``st`` runs
+    on the tensor shards of ``stages[st]`` (their devices)."""
+    n = _kv_arr(side).shape[0] // len(stages)
+    out = []
+    for st, devices in enumerate(stages):
+        part = side if len(stages) == 1 else \
+            _layer_slice(side, st * n, (st + 1) * n)
+        if len(devices) > 1:
+            out.append(split_kv_heads(part, devices))
+        elif isinstance(part, dict):
+            out.append({k: v.to(devices[0]) for k, v in part.items()})
+        else:
+            out.append(part.to(devices[0]))
+    return PipelineStages(out) if len(stages) > 1 else out[0]
+
+
+def shard_decode_state(state, devices, stages: int = 1):
     """A decode state (or a dense prefix pool: any ``{"k", "v"}`` tree)
-    for a replica of ``len(devices)`` tensor shards: its KV payload, dense
-    rows or paged pool, fp or ``{"q", "scale"}``, split over the KV-head
-    dim into one contiguous tensor a shard on ``devices`` (JAX's
-    ``shard_decode_state``); the tables, lengths, logits and the
-    generator stay as they are, once."""
+    for a replica of ``stages`` pipeline stages of ``len(devices) /
+    stages`` tensor shards each (``devices`` stage-major): its KV payload,
+    dense rows or paged pool, fp or ``{"q", "scale"}``, cut on its
+    leading layer dim into the stages' layer ranges
+    (``parallel.pipeline.stage_layer_ranges``) and each range over the
+    KV-head dim into one contiguous tensor a shard on its device (JAX's
+    ``shard_decode_state`` with ``pp_axis``); the tables, lengths, logits
+    and the generator stay as they are, once."""
+    tp = len(devices) // stages
+    per_stage = [list(devices[st * tp:(st + 1) * tp])
+                 for st in range(stages)]
     if set(state) == {"k", "v"}:
-        return {s: split_kv_heads(state[s], devices) for s in ("k", "v")}
+        return {s: _split_side(state[s], per_stage) for s in ("k", "v")}
     out = dict(state)
     for name in ("pool", "cache"):
         if name in state:
-            out[name] = {s: split_kv_heads(state[name][s], devices)
+            out[name] = {s: _split_side(state[name][s], per_stage)
                          for s in ("k", "v")}
     return out
 
@@ -308,17 +415,17 @@ def forward_cached(params, tokens, cfg: TransformerConfig, cache, pos,
                                       theta=cfg.rope_theta,
                                       device=tokens.device)
     rope_bt = (cos_t[positions], sin_t[positions])
-    shards = _shards(params, cfg)
-    ks, vs = _shard_list(cache["k"]), _shard_list(cache["v"])
-    args = [_on((*rope_bt, valid), dev) for _p, _c, dev in shards]
+    stages = _stages(params, cfg)
+    ks, vs = _kv_stages(cache["k"]), _kv_stages(cache["v"])
+    args = _stage_args(stages, *rope_bt, valid)
 
-    def attend(i, s, h, attn, c):
-        cos, sin, valid_s = args[s]
-        return _cached_attention(h, attn, c, (cos, sin), ks[s][i], vs[s][i],
-                                 pos, valid_s)
+    def attend(st, i, s, h, attn, c):
+        cos, sin, valid_s = args[st][s]
+        return _cached_attention(h, attn, c, (cos, sin), ks[st][s][i],
+                                 vs[st][s][i], pos, valid_s)
 
-    xs = _layers(shards, _embed(shards, tokens), attend, token_valid)
-    return _logits(shards, xs)
+    xs = _layers(stages, _embed(stages[0], tokens), attend, token_valid)
+    return _logits(stages, xs)
 
 
 def _top_k_mask(logits, top_k: int):
@@ -525,20 +632,21 @@ def _single_token_forward(params, cfg: TransformerConfig, k_pool, v_pool,
     rope_bt = (cos_t[rpos], sin_t[rpos])
     valid = torch.arange(total, device=dev)[None, :] <= pos_b[:, None]
     tv = None if token_valid is None else token_valid[:, None]
-    shards = _shards(params, cfg)
-    ks, vs = _shard_list(k_pool), _shard_list(v_pool)
-    args = [_on((*rope_bt, pos_b, valid, table), d) + (_on(widx, d),)
-            for _p, _c, d in shards]
+    stages = _stages(params, cfg)
+    ks, vs = _kv_stages(k_pool), _kv_stages(v_pool)
+    args = _stage_args(stages, *rope_bt, pos_b, valid, table, widx)
 
-    def attend(i, s, h, attn, c):
-        cos, sin, pos_s, valid_s, table_s, widx_s = args[s]
+    def attend(st, i, s, h, attn, c):
+        cos, sin, pos_s, valid_s, table_s, widx_s = args[st][s]
         return _ragged_attention(
-            h, attn, c, (cos, sin), _pool_layer(ks[s], i),
-            _pool_layer(vs[s], i), pos_s, valid_s, table_s, fused, widx_s)
+            h, attn, c, (cos, sin), _pool_layer(ks[st][s], i),
+            _pool_layer(vs[st][s], i), pos_s, valid_s, table_s, fused,
+            widx_s)
 
-    xs = _layers(shards, [x[:, None] for x in _embed(shards, tok.long())],
+    xs = _layers(stages, [x[:, None] for x in _embed(stages[0],
+                                                      tok.long())],
                  attend, tv)
-    return _logits(shards, xs)[:, 0]
+    return _logits(stages, xs)[:, 0]
 
 
 def _decode_step_body(state, params, cfg: TransformerConfig, top_k: int,
@@ -596,7 +704,7 @@ def decode_chunk(state, params, cfg: TransformerConfig, steps: int,
 
 
 def _span_attention(x, layer, cfg, rope_bt, k_pool, v_pool, cols, table,
-                    fused, write_index):
+                    fused, write_index, ring=None):
     """Block attention where row ``b``'s ``S`` tokens occupy positions
     ``cols[b]`` = ``pos_b[b] + 0..S-1`` of its dense row (``table`` None)
     or of the paged pool — the S-wide sibling of
@@ -606,7 +714,9 @@ def _span_attention(x, layer, cfg, rope_bt, k_pool, v_pool, cols, table,
     of ``cols``), which drops parked rows, sentinel entries and the
     cache-tail spill past the row. ``fused`` reads the paged pool
     through :func:`paged_span_attention` instead of gathering the dense
-    view. Caches written in place."""
+    view; ``ring`` (the devices of the shard's context-parallel ring)
+    folds the gathered paged read through :func:`ring_span_attention`.
+    Caches written in place."""
     b, s, _d = x.shape
     hd = cfg.head_dim
     q, k, v = _qkv(x, layer, cfg, rope_bt)
@@ -628,6 +738,11 @@ def _span_attention(x, layer, cfg, rope_bt, k_pool, v_pool, cols, table,
         return out @ layer["wo"]
     k_read = _pool_gather(k_pool, table)
     v_read = _pool_gather(v_pool, table)
+    if ring is not None:
+        out = ring_span_attention(q, k_read, v_read, cols[:, 0],
+                                  n_kv_heads=cfg.n_kv_heads, devices=ring)
+        return (out.to(cfg.dtype).reshape(b, s, cfg.n_heads * hd)
+                @ layer["wo"])
     total = k_read.shape[1]
     mask = (torch.arange(total, device=x.device)[None, None, :]
             <= cols[:, :, None])
@@ -646,10 +761,9 @@ def _block_forward(params, cfg: TransformerConfig, k_pool, v_pool, tokens,
     Columns past the row (``pos_b + s >= total``) are dropped and their
     rotary lookup clamps, as JAX's scatter and gather do. ``token_valid``
     ([B, S] bool) marks the tokens that claim MoE capacity. ``ring``
-    (context parallelism) is not yet ported."""
-    if ring is not None:
-        raise ValueError("the context-parallel span read (ring) is not yet "
-                         "ported")
+    (context parallelism; paged, gathered) holds each stage's shards'
+    ring devices, ``ring[stage][shard]``: the span read of every layer
+    folds through :func:`ring_span_attention` over them."""
     dev = tokens.device
     s = tokens.shape[1]
     cols = pos_b.long()[:, None] + torch.arange(s, device=dev)[None, :]
@@ -666,19 +780,20 @@ def _block_forward(params, cfg: TransformerConfig, k_pool, v_pool, tokens,
                                       theta=cfg.rope_theta, device=dev)
     rpos = torch.clamp(cols, 0, total - 1)
     rope_bt = (cos_t[rpos], sin_t[rpos])
-    shards = _shards(params, cfg)
-    ks, vs = _shard_list(k_pool), _shard_list(v_pool)
-    args = [_on((*rope_bt, cols, table), d) + (_on(widx, d),)
-            for _p, _c, d in shards]
+    stages = _stages(params, cfg)
+    ks, vs = _kv_stages(k_pool), _kv_stages(v_pool)
+    args = _stage_args(stages, *rope_bt, cols, table, widx)
 
-    def attend(i, s, h, attn, c):
-        cos, sin, cols_s, table_s, widx_s = args[s]
+    def attend(st, i, s, h, attn, c):
+        cos, sin, cols_s, table_s, widx_s = args[st][s]
         return _span_attention(
-            h, attn, c, (cos, sin), _pool_layer(ks[s], i),
-            _pool_layer(vs[s], i), cols_s, table_s, fused, widx_s)
+            h, attn, c, (cos, sin), _pool_layer(ks[st][s], i),
+            _pool_layer(vs[st][s], i), cols_s, table_s, fused, widx_s,
+            None if ring is None else ring[st][s])
 
-    xs = _layers(shards, _embed(shards, tokens.long()), attend, token_valid)
-    return _logits(shards, xs)
+    xs = _layers(stages, _embed(stages[0], tokens.long()), attend,
+                 token_valid)
+    return _logits(stages, xs)
 
 
 # ---------------------------------------------------------------------------
@@ -1003,8 +1118,8 @@ def insert_row(state, slot, row_cache, last_logits, length, remaining,
     slot = _row_index(slot, _first(state["cache"]["k"]).shape[1], "slot")
     t = _first(row_cache["k"]).shape[2]
     for side in ("k", "v"):
-        for dst, src in zip(_shard_list(state["cache"][side]),
-                            _shard_list(row_cache[side])):
+        for dst, src in zip(_parts(state["cache"][side]),
+                            _parts(row_cache[side])):
             dst[:, slot, :t] = src[:, 0]
     _set_rows(state, slot, length, remaining, temperature, last_logits[0])
     return state
@@ -1025,8 +1140,8 @@ def _admit_rows_body(state, params, cfg: TransformerConfig, slots,
                                   prompt_lengths)
     slots = slots.long()
     for side in ("k", "v"):
-        for dst, src in zip(_shard_list(state["cache"][side]),
-                            _shard_list(cache[side])):
+        for dst, src in zip(_parts(state["cache"][side]),
+                            _parts(cache[side])):
             dst[:, _on(slots, dst.device)] = src
     _set_rows(state, slots, lengths, remaining, temperature, last)
     return state, last
@@ -1076,8 +1191,8 @@ def _store_prefix(pool, pool_slot, rows) -> None:
                            "pool_slot")
     plen = _first(pool["k"]).shape[2]
     for side in ("k", "v"):
-        for dst, src in zip(_shard_list(pool[side]),
-                            _shard_list(rows[side])):
+        for dst, src in zip(_parts(pool[side]),
+                            _parts(rows[side])):
             if src.shape[1] < plen:
                 raise ValueError(f"rows of {src.shape[1]} positions "
                                  f"cannot fill a pool row of {plen}")
@@ -1127,8 +1242,8 @@ def _admit_prefix_body(state, params, cfg: TransformerConfig, slot, pool,
     cache = _new_cache(params, cfg, 1, total, dev)
     plen = _first(pool["k"]).shape[2]
     for side in ("k", "v"):
-        for dst, src in zip(_shard_list(cache[side]),
-                            _shard_list(pool[side])):
+        for dst, src in zip(_parts(cache[side]),
+                            _parts(pool[side])):
             dst[:, 0, :plen] = src[:, pool_slot]
     suffix_len = max(prompt_len - prefix_len, 1)
     positions = prefix_len + torch.arange(s, device=dev)[None, :]
@@ -1138,8 +1253,8 @@ def _admit_prefix_body(state, params, cfg: TransformerConfig, slot, pool,
                             _moe_valid(cfg, s, suffix_len, dev))
     last = logits[:, suffix_len - 1]
     for side in ("k", "v"):
-        for dst, src in zip(_shard_list(state["cache"][side]),
-                            _shard_list(cache[side])):
+        for dst, src in zip(_parts(state["cache"][side]),
+                            _parts(cache[side])):
             dst[:, slot] = src[:, 0]
     _set_rows(state, slot, prompt_len, remaining, temperature, last[0])
     return state, last
@@ -1221,8 +1336,8 @@ def _paged_admit_rows_body(state, params, cfg: TransformerConfig, slots,
     rows, cols = (rows_tbl < n).nonzero(as_tuple=True)
     blk = rows_tbl[rows, cols]
     for side in ("k", "v"):
-        for pool, c in zip(_shard_list(state["pool"][side]),
-                           _shard_list(cache[side])):
+        for pool, c in zip(_parts(state["pool"][side]),
+                           _parts(cache[side])):
             r, col, bk = _on((rows, cols, blk), c.device)
             upd = c.reshape(c.shape[0], b, mb, bs, *c.shape[3:])[:, r, col]
             if isinstance(pool, dict):
@@ -1256,7 +1371,8 @@ def paged_admit_rows_and_step(state, params, cfg: TransformerConfig, slots,
 
 def _paged_admit_prefix_body(state, params, cfg: TransformerConfig, slot,
                              prefix_len, suffix_tokens, prompt_len,
-                             remaining, temperature, fused=False):
+                             remaining, temperature, fused=False,
+                             ring=None):
     """Suffix-only prefill through the slot's block table: the leading
     ``prefix_len`` positions are already backed by shared (and possibly
     one copied) blocks, which the forward reads in place, and only the
@@ -1270,7 +1386,7 @@ def _paged_admit_prefix_body(state, params, cfg: TransformerConfig, slot,
     logits = _block_forward(
         params, cfg, state["pool"]["k"], state["pool"]["v"], suffix_tokens,
         torch.tensor([prefix_len], dtype=torch.int32, device=dev),
-        table_row, fused,
+        table_row, fused, ring,
         token_valid=_moe_valid(cfg, suffix_tokens.shape[1], suffix_len,
                                dev))
     last = logits[:, suffix_len - 1]
@@ -1283,19 +1399,21 @@ def paged_admit_prefix_and_step(state, params, cfg: TransformerConfig, slot,
                                 prefix_len, suffix_tokens, prompt_len,
                                 remaining, temperature, top_k: int = 0,
                                 eos_id: int | None = None,
-                                kv_fused: bool = False):
+                                kv_fused: bool = False, ring=None):
     """Paged twin of :func:`admit_prefix_and_step`: the host mapped the
     donor's full blocks into ``slot``'s table (refcount-shared) and
     copied at most the one partly filled tail block (:func:`copy_block`),
     so this call prefills only the suffix ``[1, S]`` at ``prefix_len``
     and takes one decode step for every active row. The final chunk of
     a chunked admission rides it with ``prefix_len`` = the tokens already
-    chunked in. Returns (state, prefill last-logits [1, V], sampled token
+    chunked in; ``ring`` (context parallelism, :func:`_block_forward`)
+    reaches its span read only, the decode step reads as it does
+    without. Returns (state, prefill last-logits [1, V], sampled token
     [slots], emitted mask [slots])."""
     state, last = _paged_admit_prefix_body(state, params, cfg, slot,
                                            prefix_len, suffix_tokens,
                                            prompt_len, remaining,
-                                           temperature, kv_fused)
+                                           temperature, kv_fused, ring)
     state, tok, emit = _decode_step_body(state, params, cfg, top_k, eos_id,
                                          kv_fused)
     return state, last, tok, emit
@@ -1303,7 +1421,8 @@ def paged_admit_prefix_and_step(state, params, cfg: TransformerConfig, slot,
 
 @torch.inference_mode()
 def paged_prefill_chunk(state, params, cfg: TransformerConfig, slot, pos,
-                        chunk_tokens, chunk_len, kv_fused: bool = False):
+                        chunk_tokens, chunk_len, kv_fused: bool = False,
+                        ring=None):
     """One bounded chunk of a long admission: forward ``chunk_tokens``
     ([1, S], right-padded past ``chunk_len`` real tokens) at virtual
     positions ``pos..pos+S-1`` of ``slot``'s row, writing K/V through its
@@ -1314,7 +1433,8 @@ def paged_prefill_chunk(state, params, cfg: TransformerConfig, slot, pos,
     never read the half-built row. The final chunk goes through
     :func:`paged_admit_prefix_and_step`. Consumes no randomness, so
     chunked sampling matches monolithic. Pad positions write junk that
-    the next chunk (or decode) overwrites before any mask admits it. In
+    the next chunk (or decode) overwrites before any mask admits it.
+    ``ring``: the context-parallel span read (:func:`_block_forward`). In
     place; returns the state."""
     slot = _row_index(slot, state["block_table"].shape[0], "slot")
     dev = chunk_tokens.device
@@ -1322,7 +1442,7 @@ def paged_prefill_chunk(state, params, cfg: TransformerConfig, slot, pos,
     _block_forward(params, cfg, state["pool"]["k"], state["pool"]["v"],
                    chunk_tokens,
                    torch.tensor([int(pos)], dtype=torch.int32, device=dev),
-                   table_row, kv_fused,
+                   table_row, kv_fused, ring,
                    token_valid=_moe_valid(cfg, chunk_tokens.shape[1],
                                           int(chunk_len), dev))
     state["length"][slot] = _state_kv(state)[3]
@@ -1338,8 +1458,8 @@ def store_blocks(pool, block_ids, cache):
     state or its generator). Quantized pools quantize here, so primed
     blocks carry their scales. In place; returns the pool."""
     for side in ("k", "v"):
-        for dst, src in zip(_shard_list(pool[side]),
-                            _shard_list(cache[side])):
+        for dst, src in zip(_parts(pool[side]),
+                            _parts(cache[side])):
             arr = _kv_arr(dst)
             n_layers, n, bs = arr.shape[0], arr.shape[1], arr.shape[2]
             ids = torch.as_tensor(block_ids, device=arr.device).long()
@@ -1367,7 +1487,7 @@ def copy_block(pool, dst, src):
     dst = _row_index(dst, n, "dst block")
     src = _row_index(src, n, "src block")
     for side in ("k", "v"):
-        for kv in _shard_list(pool[side]):
+        for kv in _parts(pool[side]):
             for arr in (kv.values() if isinstance(kv, dict) else (kv,)):
                 arr[:, dst] = arr[:, src]
     return pool
@@ -1390,7 +1510,8 @@ def export_blocks(pool, block_ids):
     their per-(position, head) scales), so an importer lands the pool's
     content exactly. A pure gather: the pool is untouched. A sharded
     pool's payload holds every head (the shards' heads side by side, on
-    shard 0's device), so any mesh shape imports it."""
+    shard 0's device) of every layer (a staged pool's stages one after
+    another), so any mesh shape imports it."""
     arr = _kv_arr(_first(pool["k"]))
     ids = _block_ids(block_ids, arr.shape[1], arr.device)
 
@@ -1400,16 +1521,21 @@ def export_blocks(pool, block_ids):
                     "scale": kv["scale"][:, _on(ids, kv["q"].device)]}
         return kv[:, _on(ids, kv.device)]
 
-    def _whole(side):
-        parts = [_take(kv) for kv in _shard_list(side)]
+    def _cat(parts, dims):
         if len(parts) == 1:
             return parts[0]
         if isinstance(parts[0], dict):
             return {"q": torch.cat([p["q"].to(arr.device) for p in parts],
-                                   dim=-2),
+                                   dim=dims[0]),
                     "scale": torch.cat([p["scale"].to(arr.device)
-                                        for p in parts], dim=-1)}
-        return torch.cat([p.to(arr.device) for p in parts], dim=-2)
+                                        for p in parts], dim=dims[1])}
+        return torch.cat([p.to(arr.device) for p in parts], dim=dims[0])
+
+    def _whole(side):
+        # Each stage's heads side by side, the stages' layers one after
+        # another.
+        return _cat([_cat([_take(kv) for kv in _shard_values(st)], (-2, -1))
+                     for st in _stage_list(side)], (0, 0))
 
     return {"k": _whole(pool["k"]), "v": _whole(pool["v"])}
 
@@ -1421,36 +1547,43 @@ def import_blocks(pool, block_ids, payload):
     copied, never quantized again. The payload must match the pool's
     layout, block shape and dtype (an fp payload into an fp pool of the
     same dtype, an int8 one into an int8 pool); ids out of range raise.
-    A payload holds every head, whatever mesh exported it; a sharded
-    pool takes each shard's heads of it. Returns the pool."""
+    A payload holds every head and layer, whatever mesh exported it; a
+    staged pool takes each stage's layers of it and a sharded pool each
+    shard's heads. Returns the pool."""
     arr = _kv_arr(_first(pool["k"]))
     ids = _block_ids(block_ids, arr.shape[1], arr.device)
 
-    def _put(dsts, vals, what, head_dim):
-        heads = sum(d.shape[head_dim] for d in dsts)
-        want = (dsts[0].shape[0], ids.shape[0], *dsts[0].shape[2:])
+    def _put(stages, vals, what, head_dim):
+        heads = sum(d.shape[head_dim] for d in stages[0])
+        layers = sum(st[0].shape[0] for st in stages)
+        want = (layers, ids.shape[0], *stages[0][0].shape[2:])
         want = want[:head_dim] + (heads,) + want[head_dim + 1:]
         if tuple(vals.shape) != want:
             raise ValueError(f"payload {what} shape {tuple(vals.shape)} "
                              f"does not fit {ids.shape[0]} blocks of a "
-                             f"pool {tuple(dsts[0].shape)} x {len(dsts)} "
-                             "shards")
-        if vals.dtype != dsts[0].dtype:
+                             f"pool {tuple(stages[0][0].shape)} x "
+                             f"{len(stages[0])} shards x {len(stages)} "
+                             "stages")
+        if vals.dtype != stages[0][0].dtype:
             raise ValueError(f"payload {what} dtype {vals.dtype} != pool "
-                             f"dtype {dsts[0].dtype}")
-        parts = vals.split([d.shape[head_dim] for d in dsts], dim=head_dim)
-        for dst, part in zip(dsts, parts):
-            dst[:, _on(ids, dst.device)] = part.to(dst.device)
+                             f"dtype {stages[0][0].dtype}")
+        for dsts, layer_part in zip(stages, vals.split(
+                [st[0].shape[0] for st in stages], dim=0)):
+            parts = layer_part.split([d.shape[head_dim] for d in dsts],
+                                     dim=head_dim)
+            for dst, part in zip(dsts, parts):
+                dst[:, _on(ids, dst.device)] = part.to(dst.device)
 
     for side in ("k", "v"):
-        dsts, vals = _shard_list(pool[side]), payload[side]
-        if isinstance(dsts[0], dict) != isinstance(vals, dict):
+        stages, vals = _kv_stages(pool[side]), payload[side]
+        if isinstance(stages[0][0], dict) != isinstance(vals, dict):
             raise ValueError("payload and pool disagree on the KV layout "
                              "(fp against int8)")
         if isinstance(vals, dict):
-            _put([d["q"] for d in dsts], vals["q"], f"{side}.q", 3)
-            _put([d["scale"] for d in dsts], vals["scale"],
-                 f"{side}.scale", 3)
+            _put([[d["q"] for d in st] for st in stages], vals["q"],
+                 f"{side}.q", 3)
+            _put([[d["scale"] for d in st] for st in stages],
+                 vals["scale"], f"{side}.scale", 3)
         else:
-            _put(dsts, vals, side, 3)
+            _put(stages, vals, side, 3)
     return pool

@@ -20,13 +20,22 @@ so either value runs the loop here; with ``scan_group_size > 1`` the remat
 regions wrap groups of that many layers, as JAX's grouped scan does.
 ``remat`` runs JAX's ``jax.checkpoint`` policies as
 ``torch.utils.checkpoint`` regions while autograd records
-(:func:`_remat_layer`), and ``loss_chunks`` the chunked LM loss. Options
-whose port is still to come raise ``ValueError("... not yet ported")``
-where training reaches them: ``context_parallel``, ``pipeline_stages > 1``
-and a mesh with an axis other than data, fsdp, expert and tensor above 1.
-Over the data and fsdp axes (:func:`loss_fn` with ``mesh=``) each rank
-runs its rows of the batch through the whole model; the ranks of the
-model axes (expert and tensor) hold the same rows.
+(:func:`_remat_layer`), and ``loss_chunks`` the chunked LM loss. The
+forward runs over every mesh axis (:func:`loss_fn` with ``mesh=``): over
+data and fsdp each rank runs its rows of the batch through the whole
+model; the ranks of the model axes (expert and tensor) and of
+``pipeline`` hold the same rows. Layouts JAX refuses raise its messages.
+
+Over ``sequence`` with ``context_parallel`` each rank holds a chunk of its
+rows' tokens: attention is the ring (``parallel/ring_attention.py``),
+its K/V heads repeated to the query heads, the rotary positions those of
+the rank's chunk (:func:`_rope_table`), and the loss a term over data x
+fsdp x sequence (:func:`token_axes`). With ``pipeline_stages`` over a
+mesh the layers run the GPipe schedule (``parallel/pipeline.py``) on the
+stage's slice of the stacked leaves, each layer a remat region of
+``cfg.remat_policy``; the embedding, final norm and head are replicated
+over ``pipeline``, and every stage computes the head on the outputs the
+schedule shares.
 
 Over the ``tensor`` axis each rank holds its block of every leaf the
 partition rules split (:func:`partition_rules`) and runs Megatron's
@@ -95,14 +104,19 @@ from kubeflow_tpu_torch.parallel.mesh import (
     AXIS_PIPELINE,
     AXIS_SEQUENCE,
     AXIS_TENSOR,
-    BATCH_AXES,
     MODEL_AXES,
     axis_index,
     axis_size,
-    require_axes,
     tensor_mesh,
 )
-from kubeflow_tpu_torch.parallel.sharding import P, PartitionRule, vocab_lookup
+from kubeflow_tpu_torch.parallel.pipeline import pipeline_apply
+from kubeflow_tpu_torch.parallel.ring_attention import ring_attention
+from kubeflow_tpu_torch.parallel.sharding import (
+    P,
+    PartitionRule,
+    spec_axes,
+    vocab_lookup,
+)
 
 
 @dataclass(frozen=True)
@@ -129,6 +143,7 @@ class TransformerConfig:
     context_parallel: bool = False
     remat: bool = True
     pipeline_stages: int = 0
+    pipeline_microbatches: int = 4
     attn_impl: str | None = None
     attn_block_k: int | None = None
     remat_policy: str = "dots"
@@ -366,12 +381,19 @@ def batch_partition_spec(cfg: TransformerConfig) -> tuple:
     return P((AXIS_DATA, AXIS_FSDP), None)
 
 
+def token_axes(cfg: TransformerConfig) -> tuple[str, ...]:
+    """The mesh axes the batch's tokens are split over, the axes each
+    rank's loss is a term over: those of :func:`batch_partition_spec`
+    (data x fsdp, and ``sequence`` under context parallelism)."""
+    return spec_axes(batch_partition_spec(cfg))
+
+
 def check_mesh(cfg: TransformerConfig, mesh) -> None:
-    """Raise ValueError("... not yet ported") for a mesh the training
-    forward does not run over (an axis other than data, fsdp, expert and
-    tensor above 1), and ValueError for degrees :func:`check_degrees`
-    refuses."""
-    require_axes(mesh, (*BATCH_AXES, *MODEL_AXES), "the transformer forward")
+    """Raise ValueError for degrees :func:`check_degrees` refuses. The
+    forward runs over every axis: the batch axes and ``sequence`` (with
+    ``context_parallel``) split the tokens, the model axes and
+    ``pipeline`` (with ``pipeline_stages``) the leaves, and an axis that
+    does neither holds the same rows and leaves on each of its ranks."""
     check_degrees(cfg, axis_size(mesh, AXIS_TENSOR),
                   axis_size(mesh, AXIS_EXPERT))
 
@@ -381,24 +403,37 @@ def check_mesh(cfg: TransformerConfig, mesh) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _not_yet(what: str):
-    return ValueError(f"{what} is not yet ported to the PyTorch package")
+def _pipelined(cfg: TransformerConfig, mesh) -> bool:
+    """Whether the forward runs the GPipe schedule (JAX: pipeline stages
+    over a mesh; without a mesh the layers run in one loop)."""
+    return cfg.pipeline_stages > 1 and mesh is not None
 
 
 def _check_trainable(cfg: TransformerConfig, mesh) -> None:
-    """Raise for options whose port is still to come (see the module
-    docstring), then for the layer layouts JAX refuses, with its
-    messages."""
+    """Raise for the layouts JAX refuses, with its messages, in its
+    order."""
     if mesh is not None:
         check_mesh(cfg, mesh)
-    if cfg.context_parallel:
-        raise _not_yet("context_parallel (ring attention)")
-    if cfg.pipeline_stages > 1:
-        raise _not_yet("pipeline_stages > 1")
     if cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; one "
                          f"of {REMAT_POLICIES}")
-    if cfg.remat and cfg.remat_policy == "llm_attn":
+    attn_saved = cfg.remat and cfg.remat_policy == "llm_attn"
+    if _pipelined(cfg, mesh):
+        if cfg.n_experts or cfg.context_parallel:
+            raise ValueError(
+                "pipeline_stages composes with dp/fsdp/tp, not (yet) with "
+                "MoE or context parallelism")
+        if cfg.n_layers % cfg.pipeline_stages:
+            raise ValueError(
+                f"n_layers {cfg.n_layers} not divisible by "
+                f"pipeline_stages {cfg.pipeline_stages}")
+        if attn_saved:
+            raise ValueError(
+                "remat_policy='llm_attn' is incompatible with "
+                "pipeline_stages>1 (stages checkpoint whole layers); "
+                "use 'llm'")
+        return
+    if attn_saved:
         if cfg.n_experts:
             raise ValueError(
                 "remat_policy='llm_attn' applies to dense FFN layers; "
@@ -443,11 +478,21 @@ def _qkv(cfg: TransformerConfig, rope, h, attn):
 
 def _attn_ctx(cfg: TransformerConfig, q, k, v):
     """The attention context [B, T, Hq*hd], the input of wo (JAX names it
-    "attn_ctx")."""
+    "attn_ctx"): the flash kernels, or with ``context_parallel`` the ring
+    over ``sequence`` with the KV heads repeated to the query heads (the
+    ring is MHA), [B, T, H, D] laid out [B, H, T, D] for it."""
     b, t = q.shape[:2]
-    out = flash_attention(q, k, v, causal=True,
-                          implementation=cfg.attn_impl,
-                          block_k=cfg.attn_block_k)
+    if cfg.context_parallel:
+        reps = cfg.n_heads // cfg.n_kv_heads
+        k = k.repeat_interleave(reps, dim=2)
+        v = v.repeat_interleave(reps, dim=2)
+        out = ring_attention(q.transpose(1, 2), k.transpose(1, 2),
+                             v.transpose(1, 2), _mesh(cfg),
+                             causal=True).transpose(1, 2)
+    else:
+        out = flash_attention(q, k, v, causal=True,
+                              implementation=cfg.attn_impl,
+                              block_k=cfg.attn_block_k)
     return out.reshape(b, t, cfg.n_heads * cfg.head_dim)
 
 
@@ -517,18 +562,31 @@ def count_dropped():
         _DROPPED.counts = None
 
 
-def _queue_offsets(counts, mesh):
+def _exclusive(x, dim: int = 0):
+    return torch.cumsum(x, dim) - x
+
+
+def _queue_offsets(counts, mesh, axes):
     """Over ``mesh``, what the global queue position of each of this
     rank's choices adds to its position among the rank's own choices:
-    ``counts`` [k, E] are the rank's kept choices per (slot, expert); the
-    global order is priority-major (every rank's slot-j choices before
-    any slot j+1 choice) and, within a slot, the batch axes' row order.
-    Returns (offsets [k, E], every rank's slot-0 choices per expert)."""
-    every = gather_counts(counts.long(), mesh, BATCH_AXES)  # [W, k, E]
-    total = every.sum(0)
-    before = every[:axis_index(mesh, BATCH_AXES)].sum(0)
-    offsets = (torch.cumsum(total, 0) - total) + before \
-        - (torch.cumsum(counts.long(), 0) - counts.long())
+    ``counts`` [B, k, E] are the rank's choices per (row, slot, expert).
+    The global order is priority-major (every slot-j choice before any
+    slot j+1 choice) and, within a slot, the global token order: rows in
+    the batch axes' order, and within a row its ``sequence`` chunks in
+    ring order when ``axes`` (the token axes, :func:`token_axes`) include
+    ``sequence``. Returns (offsets [B, k, E], every rank's slot-0
+    choices per expert)."""
+    local = counts.long()
+    every = gather_counts(local, mesh, axes)  # [W, B, k, E]
+    ns = axis_size(mesh, AXIS_SEQUENCE) if AXIS_SEQUENCE in axes else 1
+    every = every.reshape(-1, ns, *local.shape)  # [row groups, ns, B, k, E]
+    group, chunk = divmod(axis_index(mesh, axes), ns)
+    total = every.sum((0, 1, 2))
+    mine = every[group]  # this rank's rows, every chunk of them
+    rows = mine.sum(0)
+    offsets = (_exclusive(total) - _exclusive(local.sum(0))
+               + every[:group].sum((0, 1, 2))
+               + _exclusive(rows) - _exclusive(local) + mine[:chunk].sum(0))
     return offsets.float(), total[0].float()
 
 
@@ -569,7 +627,8 @@ def moe_ffn(x, mlp, cfg: TransformerConfig, token_valid=None):
     if mesh is not None and token_valid is not None:
         raise ValueError("moe_ffn over a mesh takes no token_valid")
     n = b * t
-    n_all = n if mesh is None else n * axis_size(mesh, BATCH_AXES)
+    axes = token_axes(cfg)
+    n_all = n if mesh is None else n * axis_size(mesh, axes)
     capacity = max(int(n_all * k / e * cfg.expert_capacity_factor), k)
     xf = x.reshape(n, d)
     logits = xf.float() @ mlp["router"].float()
@@ -592,8 +651,9 @@ def moe_ffn(x, mlp, cfg: TransformerConfig, token_valid=None):
         k, n, e).transpose(0, 1)
     split = mesh is not None and axis_size(mesh, MODEL_AXES) > 1
     if mesh is not None:
-        offsets, top1_all = _queue_offsets(oh_e.sum(0), mesh)
-        pos = pos + offsets
+        offsets, top1_all = _queue_offsets(
+            oh_e.reshape(b, t, k, e).sum(1), mesh, axes)
+        pos = (pos.reshape(b, t, k, e) + offsets[:, None]).reshape(n, k, e)
     slot_pos = (pos * oh_e).sum(-1).long()  # [n, k]
     chosen = oh_e.sum(-1) > 0
     kept = (slot_pos < capacity) & chosen
@@ -794,24 +854,51 @@ def _embed_lookup(kernel, tokens, cfg: TransformerConfig):
     return vocab_lookup(kernel, tokens, _mesh(cfg)).to(cfg.dtype)
 
 
+def _rope_table(cfg: TransformerConfig, tokens, mesh):
+    """The rotary tables of this rank's positions: ``0..T-1``, or under
+    context parallelism over a mesh those of its chunk of the global
+    sequence, from ``rank_in_sequence * T`` (JAX computes the table of
+    the global length and GSPMD hands each rank its rows)."""
+    t = tokens.shape[1]
+    if not (cfg.context_parallel and mesh is not None):
+        return rotary_frequencies(cfg.head_dim, t, theta=cfg.rope_theta,
+                                  device=tokens.device)
+    n, i = axis_size(mesh, AXIS_SEQUENCE), axis_index(mesh, AXIS_SEQUENCE)
+    cos, sin = rotary_frequencies(cfg.head_dim, n * t, theta=cfg.rope_theta,
+                                  device=tokens.device)
+    return cos[i * t:(i + 1) * t], sin[i * t:(i + 1) * t]
+
+
 def hidden_states(params, tokens, cfg: TransformerConfig, *, mesh=None):
     """tokens [B, T] → (final-norm hidden [B, T, D] in cfg.dtype, the MoE
     router aux summed over layers, f32; 0.0 for dense models). While
     autograd records,
     ``cfg.remat`` runs each layer (or each group of ``scan_group_size``
     layers) as checkpoint regions of ``cfg.remat_policy``; an inference
-    forward opens none."""
+    forward opens none. With ``pipeline_stages`` over a mesh,
+    ``params["layers"]`` is this stage's slice of the stacked leaves and
+    the layers run the GPipe schedule (``parallel/pipeline.py``), each
+    layer its own remat region under ``cfg.remat``, as JAX checkpoints
+    each layer of a stage. Under ``context_parallel`` ``tokens`` is this
+    rank's chunk of the sequence."""
     _check_trainable(cfg, mesh)
-    if mesh is not None and (cfg.n_experts
+    if mesh is not None and (cfg.n_experts or cfg.context_parallel
                              or axis_size(mesh, AXIS_TENSOR) > 1):
         cfg = shard_config(cfg, axis_size(mesh, AXIS_TENSOR), mesh)
-    t = tokens.shape[1]
-    rope = rotary_frequencies(cfg.head_dim, t, theta=cfg.rope_theta,
-                              device=tokens.device)
+    rope = _rope_table(cfg, tokens, mesh)
     x = _embed_lookup(params["embed"]["kernel"], tokens, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if _pipelined(cfg, mesh):
+        def one_layer(layer, h):
+            if cfg.remat and torch.is_grad_enabled():
+                return _remat_layer(cfg, rope, h, layer)[0]
+            return _layer_fn(cfg, rope, h, layer)[0]
+
+        x = pipeline_apply(one_layer, params["layers"], x, mesh,
+                           n_micro=cfg.pipeline_microbatches)
+        return rms_norm(x, params["final_norm"], eps=cfg.norm_eps), aux
     layers = [_layer(params, i) for i in range(cfg.n_layers)]
     group = cfg.scan_group_size
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not (cfg.remat and torch.is_grad_enabled()):
         for layer in layers:
             x, layer_aux = _layer_fn(cfg, rope, x, layer)
@@ -863,9 +950,11 @@ def loss_fn(params, batch, cfg: TransformerConfig, *, mesh=None):
     chunks (``chunked_lm_head_loss``). An MoE model adds
     ``router_aux_loss`` × the summed aux, reported as
     ``metrics["router_aux_loss"]``. Returns (loss, metrics). Over ``mesh``
-    (the batch is this rank's rows, the same on every rank of an expert
-    or tensor group) the loss is this rank's term of the global loss,
-    the aux's too (:func:`moe_ffn`), and the metrics are global."""
+    (the batch is this rank's rows, and under ``context_parallel`` its
+    chunk of the sequence; the same on every rank of an expert, tensor or
+    pipeline group) the loss is this rank's term of the global loss over
+    :func:`token_axes`, the aux's too (:func:`moe_ffn`), and the metrics
+    are global."""
     if "inputs" in batch:
         inputs, targets = batch["inputs"], batch["targets"]
     else:
@@ -877,14 +966,15 @@ def loss_fn(params, batch, cfg: TransformerConfig, *, mesh=None):
         loss, metrics = chunked_lm_head_loss(
             x.reshape(b * t, d), _head_kernel(params, cfg).to(cfg.dtype),
             targets.reshape(b * t), z_loss=1e-4, n_chunks=cfg.loss_chunks,
-            mesh=mesh)
+            mesh=mesh, axes=token_axes(cfg))
     else:
         logits, aux = apply(params, inputs, cfg, mesh=mesh, return_aux=True)
         loss, metrics = softmax_cross_entropy(logits, targets, z_loss=1e-4,
-                                              mesh=mesh)
+                                              mesh=mesh,
+                                              axes=token_axes(cfg))
     if cfg.n_experts and cfg.router_aux_loss:
         aux_loss = cfg.router_aux_loss * aux
         metrics["router_aux_loss"] = aux_loss if mesh is None else \
-            cfg.router_aux_loss * batch_sum(aux, mesh)
+            cfg.router_aux_loss * batch_sum(aux, mesh, token_axes(cfg))
         loss = loss + aux_loss
     return loss, metrics

@@ -37,6 +37,11 @@ import torch
 
 from kubeflow_tpu_torch import kernels
 from kubeflow_tpu_torch.parallel.mesh import TensorShards
+from kubeflow_tpu_torch.parallel.ring_attention import (
+    _block_attn,
+    _init_state,
+    span_bias,
+)
 from kubeflow_tpu_torch.parallel.sharding import split_kv_heads
 
 _NEG_INF = -1e30
@@ -558,3 +563,60 @@ def paged_span_attention(q, k_pool, v_pool, table, pos, *,
     cols = max(1, SPAN_GROUP_POSITIONS // bs)
     out = _span_walk(qg, k_pool, v_pool, table, pos, sm_scale, cols)
     return out.reshape(b, s_w, hq, hd)
+
+
+def ring_span_attention(q, k, v, pos, *, n_kv_heads: int,
+                        scale: float | None = None, devices=None):
+    """Context-parallel exact span attention, the chunked-prefill ring
+    (JAX's ``ring_span_attention``).
+
+    q: [B, S, Hq, hd] (one prefill chunk, already rotary-embedded, its
+    K/V already written); k, v: [B, T, Hkv, hd], the gathered virtual
+    rows (junk past the written span is masked); pos: [B], span token
+    ``s`` of row ``b`` attends virtual positions ``<= pos[b] + s``.
+    Returns [B, S, Hq, hd] f32 on q's device.
+
+    ``devices`` names the replica's ``cp`` ring shards, which this process
+    drives (repeats allowed; None or one device: the whole fold). Shard
+    ``idx`` takes its ``S / cp`` query tokens and ``T / cp`` positions on
+    its device, folds the K/V chunks in JAX's ring order (block ``i``
+    from shard ``(idx + i) % cp``) with ``parallel/ring_attention.py``'s
+    ``_block_attn`` under :func:`span_bias` in global positions, and the
+    shards' outputs are joined along S. GQA broadcasts K/V to query-head
+    width before the ring, as JAX does. JAX's fold is XLA einsums, so
+    this is plain PyTorch on every device."""
+    b, s_w, hq, hd = q.shape
+    t_w = k.shape[1]
+    if hq % n_kv_heads:
+        raise ValueError(
+            f"query heads {hq} not a multiple of kv heads {n_kv_heads}")
+    group = hq // n_kv_heads
+    sm_scale = (hd ** -0.5) if scale is None else scale
+    devices = [torch.device(d) for d in devices or [q.device]]
+    shards = len(devices)
+    if s_w % shards or t_w % shards:
+        raise ValueError(
+            f"chunk width {s_w} and virtual width {t_w} must divide the "
+            f"{shards}-way 'sequence' axis")
+    # [B, T, H, hd] -> f32 [B, Hq, T, hd] with K/V at query-head width.
+    qh = q.float().transpose(1, 2)
+    kh = k.float().repeat_interleave(group, dim=2).transpose(1, 2)
+    vh = v.float().repeat_interleave(group, dim=2).transpose(1, 2)
+    s_loc, t_loc = s_w // shards, t_w // shards
+    ks = [kh[:, :, i * t_loc:(i + 1) * t_loc].to(d)
+          for i, d in enumerate(devices)]
+    vs = [vh[:, :, i * t_loc:(i + 1) * t_loc].to(d)
+          for i, d in enumerate(devices)]
+    outs = []
+    for idx, dev in enumerate(devices):
+        q_l = qh[:, :, idx * s_loc:(idx + 1) * s_loc].to(dev)
+        pos_l = pos.to(dev)
+        m, num, den = _init_state(q_l)
+        for i in range(shards):
+            src = (idx + i) % shards
+            bias = span_bias(pos_l, idx * s_loc, src * t_loc, s_loc,
+                             t_loc)[:, None]
+            m, num, den = _block_attn(q_l, ks[src].to(dev), vs[src].to(dev),
+                                      bias, m, num, den, sm_scale)
+        outs.append((num / den).to(q.device))
+    return torch.cat(outs, dim=2).transpose(1, 2)

@@ -15,7 +15,10 @@ gradient. The metrics are the global values (the terms summed). Ranks of
 the ``tensor`` axis hold the same rows and compute the same loss, so the
 count and the metrics sum over the batch axes alone; the chunked loss
 gathers a tensor rank's vocabulary block of each chunk's logits whole
-(``gather_from_tensor``, whose gradient is the rank's slice).
+(``gather_from_tensor``, whose gradient is the rank's slice). Under
+context parallelism a rank holds a chunk of each row's tokens, and
+``axes`` adds ``sequence`` to the axes the count and the metrics sum
+over.
 """
 
 from __future__ import annotations
@@ -27,23 +30,25 @@ from kubeflow_tpu_torch.parallel.collectives import gather_from_tensor, psum_
 from kubeflow_tpu_torch.parallel.mesh import BATCH_AXES, tensor_mesh
 
 
-def batch_sum(x: torch.Tensor, mesh) -> torch.Tensor:
-    """``x`` summed over the batch's mesh axes, without a gradient."""
-    return psum_(x.detach().clone(), mesh, BATCH_AXES)
+def batch_sum(x: torch.Tensor, mesh, axes=BATCH_AXES) -> torch.Tensor:
+    """``x`` summed over the batch's mesh axes (``axes``: those the
+    tokens are split over), without a gradient."""
+    return psum_(x.detach().clone(), mesh, axes)
 
 
-def _global_metrics(metrics: dict, mesh) -> dict:
+def _global_metrics(metrics: dict, mesh, axes) -> dict:
     """Each rank's loss terms summed into the global values; ``tokens``
     is global already."""
     keys = [k for k in metrics if k != "tokens"]
-    total = batch_sum(torch.stack([metrics[k].float() for k in keys]), mesh)
+    total = batch_sum(torch.stack([metrics[k].float() for k in keys]), mesh,
+                      axes)
     return {"tokens": metrics["tokens"],
             **{k: total[i] for i, k in enumerate(keys)}}
 
 
-def _normaliser(count, mesh):
-    return torch.clamp_min(count if mesh is None else batch_sum(count, mesh),
-                           1.0)
+def _normaliser(count, mesh, axes):
+    return torch.clamp_min(
+        count if mesh is None else batch_sum(count, mesh, axes), 1.0)
 
 
 def _nll_and_lse(logits, labels):
@@ -59,17 +64,18 @@ def _nll_and_lse(logits, labels):
 
 
 def softmax_cross_entropy(logits, labels, *, z_loss: float = 0.0,
-                          where=None, mesh=None):
+                          where=None, mesh=None, axes=BATCH_AXES):
     """Mean token cross entropy. logits: [..., V]; labels: [...] int,
     negative = ignore. Returns (loss, metrics dict with "loss", "tokens"
     and, when ``z_loss``, "z_loss"); over ``mesh`` the loss is this
-    rank's term (see the module docstring)."""
+    rank's term (see the module docstring) of the loss over the tokens
+    of ``axes``."""
     nll, lse = _nll_and_lse(logits, labels)
     mask = labels >= 0
     if where is not None:
         mask = mask & where
     maskf = mask.float()
-    tokens = _normaliser(maskf.sum(), mesh)
+    tokens = _normaliser(maskf.sum(), mesh, axes)
     loss = (nll * maskf).sum() / tokens
     metrics = {"loss": loss, "tokens": tokens}
     if z_loss:
@@ -77,7 +83,7 @@ def softmax_cross_entropy(logits, labels, *, z_loss: float = 0.0,
         metrics["z_loss"] = zl
         loss = loss + zl
     if mesh is not None:
-        metrics = _global_metrics(metrics, mesh)
+        metrics = _global_metrics(metrics, mesh, axes)
     return loss, metrics
 
 
@@ -95,7 +101,7 @@ def _chunk_sums(x, head, labels, tmesh=None):
 
 
 def chunked_lm_head_loss(x, head, labels, *, z_loss: float = 0.0,
-                         n_chunks: int = 4, mesh=None):
+                         n_chunks: int = 4, mesh=None, axes=BATCH_AXES):
     """LM head matmul + cross entropy without ever materializing the full
     ``[N, V]`` logits. Rows go in ``n_chunks`` chunks, each under a
     checkpoint region while autograd records: the forward keeps only
@@ -126,7 +132,7 @@ def chunked_lm_head_loss(x, head, labels, *, z_loss: float = 0.0,
             sums = _chunk_sums(*args)
         nll_sum, zsq_sum, tok_sum = (nll_sum + sums[0], zsq_sum + sums[1],
                                      tok_sum + sums[2])
-    tokens = _normaliser(tok_sum, mesh)
+    tokens = _normaliser(tok_sum, mesh, axes)
     loss = nll_sum / tokens
     metrics = {"loss": loss, "tokens": tokens}
     if z_loss:
@@ -134,5 +140,5 @@ def chunked_lm_head_loss(x, head, labels, *, z_loss: float = 0.0,
         metrics["z_loss"] = zl
         loss = loss + zl
     if mesh is not None:
-        metrics = _global_metrics(metrics, mesh)
+        metrics = _global_metrics(metrics, mesh, axes)
     return loss, metrics

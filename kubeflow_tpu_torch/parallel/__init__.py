@@ -1,6 +1,6 @@
-"""Data-parallel, FSDP, expert- and tensor-parallel training over
-``torch.distributed``, and the layout of a tensor-parallel serving
-replica; counterpart of ``kubeflow_tpu/parallel/``.
+"""Training over every mesh axis (data, fsdp, expert, tensor, sequence,
+pipeline) over ``torch.distributed``, and the layout of a model-parallel
+serving replica; counterpart of ``kubeflow_tpu/parallel/``.
 
 - :mod:`~kubeflow_tpu_torch.parallel.distributed`: the gang's rendezvous
   from the JaxJob controller's environment (one process per GPU) and the
@@ -8,8 +8,8 @@ replica; counterpart of ``kubeflow_tpu/parallel/``.
 - :mod:`~kubeflow_tpu_torch.parallel.mesh`: ``MeshConfig`` and its six
   named axes as a ``DeviceMesh`` (``BATCH_AXES`` split the rows,
   ``MODEL_AXES`` the leaves); ``serving_mesh``, the devices of a
-  tensor-parallel serving replica, and ``TensorShards``, its per-shard
-  values.
+  model-parallel serving replica, and ``TensorShards`` and
+  ``PipelineStages``, its per-shard and per-stage values.
 - :mod:`~kubeflow_tpu_torch.parallel.sharding`: the partition rules, the
   shard / unshard of a leaf under a spec, ``split_tensor`` /
   ``merge_tensor`` of a whole tree into its tensor shards, and
@@ -23,7 +23,11 @@ replica; counterpart of ``kubeflow_tpu/parallel/``.
   that runs only over a tensor degree above 1; ``gather_counts``
   (integers, no gradient);
   ``reduce_shards``, the sum of a serving replica's shards in one
-  process.
+  process; ``ring_permute``, JAX's ``ppermute`` with its gradient.
+- :mod:`~kubeflow_tpu_torch.parallel.ring_attention`: exact attention
+  over the ``sequence`` ring.
+- :mod:`~kubeflow_tpu_torch.parallel.pipeline`: ``stage_layer_ranges``
+  and ``pipeline_apply``, the GPipe schedule over ``pipeline``.
 - :mod:`~kubeflow_tpu_torch.parallel.launch`: a gang of N processes on one
   host with the JaxJob environment.
 

@@ -26,7 +26,10 @@ over ``("expert", "tensor")`` at once). :func:`gather_from_tensor` joins
 vocab-sharded logits, its backward taking this rank's slice.
 :func:`gather_counts` all-gathers small integer counts without a
 gradient. :func:`reduce_shards` is the single-process sum of a serving
-replica's shards (no process group).
+replica's shards (no process group). :func:`ring_permute` is JAX's
+``ppermute`` by a shift, whose gradient is the permute back: the ring of
+``parallel/ring_attention.py`` and the stage-to-stage send of
+``parallel/pipeline.py``.
 
 ``reduce_scatter_tensor`` and ``all_gather_into_tensor`` are the names
 every torch release of this port's range has.
@@ -48,7 +51,8 @@ from kubeflow_tpu_torch.parallel.mesh import (  # noqa: F401 (re-exported)
 # Calls of each collective and the bytes each rank put in, since the last
 # reset_counts(): a check reads them to see that a path went through the
 # collectives, as kernels.LAUNCHES shows it went through the kernels.
-CALLS = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
+CALLS = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
+         "ppermute": 0}
 BYTES = dict.fromkeys(CALLS, 0)
 
 
@@ -254,22 +258,48 @@ def reduce_scatter(x, mesh, axis, *, dim: int = 0):
                                 axis_size(mesh, axis))
 
 
-def ring_permute(x, mesh, axis: str, *, shift: int = 1):
-    """Send ``x`` to the neighbour ``shift`` steps around the ring of
-    ``axis`` and return what the opposite neighbour sent (no gradient)."""
-    group = axis_group(mesh, axis)
+def _permute(x, mesh, axis: str, shift: int):
+    """``x`` sent ``shift`` steps round the ring of ``axis``, what the
+    opposite neighbour sent received (no gradient). gloo takes a CUDA
+    tensor's bytes through host memory."""
+    _count("ppermute", x)
     n = axis_size(mesh, axis)
-    if n == 1:
-        return x.clone()
+    if shift % n == 0:
+        return x.detach().clone()
+    group = axis_group(mesh, axis)
     i = axis_index(mesh, axis)
     ranks = dist.get_process_group_ranks(group)
-    out = torch.empty_like(x)
-    ops = [dist.P2POp(dist.isend, x.contiguous(), ranks[(i + shift) % n],
-                      group),
+    staged = x.device.type != "cpu" and dist.get_backend(group) == "gloo"
+    send = x.detach().contiguous()
+    if staged:
+        send = send.cpu()
+    out = torch.empty_like(send)
+    ops = [dist.P2POp(dist.isend, send, ranks[(i + shift) % n], group),
            dist.P2POp(dist.irecv, out, ranks[(i - shift) % n], group)]
     for work in dist.batch_isend_irecv(ops):
         work.wait()
-    return out
+    return out.to(x.device) if staged else out
+
+
+class _RingPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, shift):
+        ctx.mesh, ctx.axis, ctx.shift = mesh, axis, shift
+        return _permute(x, mesh, axis, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _permute(g, ctx.mesh, ctx.axis, -ctx.shift), None, None, None
+
+
+def ring_permute(x, mesh, axis: str, *, shift: int = 1):
+    """Send ``x`` to the neighbour ``shift`` steps around the ring of
+    ``axis`` and return what the opposite neighbour sent (JAX's
+    ``ppermute`` with the pairs ``(i, i + shift)``). Its gradient is the
+    permute by ``-shift``, JAX's transpose of ``ppermute``. Every rank of
+    the ring must call it at the same point, in the forward and, where a
+    gradient flows, in the backward."""
+    return _RingPermute.apply(x, mesh, axis, shift)
 
 
 def allreduce_mean(mesh, axis):

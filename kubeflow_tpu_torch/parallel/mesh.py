@@ -9,12 +9,14 @@ placement of ``arrange_devices`` has no counterpart on GPUs). Collectives
 over a single axis use the mesh's own groups; a group over several axes
 (the batch's ``("data", "fsdp")``) is created by :func:`axis_group`.
 
-The data, fsdp, expert and tensor axes train here; :func:`require_axes`
-refuses a mesh whose other axes are larger than 1. The batch is sharded
-over :data:`BATCH_AXES`; the ranks of a :data:`MODEL_AXES` group hold the
-same rows and differ only in which slice of a leaf they keep. :func:`serving_mesh` is the
-single-process layout of a tensor-parallel serving replica: a list of the
-devices its shards live on.
+Every axis trains; a family refuses the axes it does not run over with
+:func:`require_axes`. The batch is sharded over :data:`BATCH_AXES` (and
+its tokens over ``sequence`` under context parallelism); the ranks of a
+:data:`MODEL_AXES` group, and of a ``pipeline`` group, hold the same rows
+and differ only in which slice of a leaf they keep. :func:`serving_mesh`
+is the single-process layout of a model-parallel serving replica: the
+list of its devices; :class:`TensorShards` and :class:`PipelineStages`
+hold its per-shard and per-stage values.
 """
 
 from __future__ import annotations
@@ -231,27 +233,42 @@ class TensorShards(list):
     device. A plain value stands for one shard."""
 
 
-def serving_mesh(tp: int, *, devices=None) -> list[torch.device]:
-    """The devices of a tensor-parallel serving replica, shard order: one
-    process drives ``tp`` shards (JAX's ``serving_mesh`` with only the
-    tensor axis). ``devices`` names them, repeats allowed (two shards of
-    one card: ``["cuda:0", "cuda:0"]``; on the host ``["cpu"] * tp``);
-    None takes ``cuda:0`` .. ``cuda:tp-1`` and raises when fewer GPUs are
-    visible. A shard is never placed anywhere the caller did not name."""
+class PipelineStages(list):
+    """The per-stage values of a pipeline-parallel serving replica, in
+    stage order: each stage's parameter tree (its layers' slice of the
+    stacked leaves, the rest whole) or its slice of the KV store's layer
+    dim, each a plain value or the stage's :class:`TensorShards`."""
+
+
+def serving_mesh(tp: int, *, cp: int = 1, pp: int = 1,
+                 devices=None) -> list[torch.device]:
+    """The devices of a model-parallel serving replica, one process
+    driving all of them: ``pp * cp * tp`` devices in JAX's ``serving_mesh``
+    order, the pipeline outermost, then the sequence ring, the tensor
+    shards innermost (replica device ``(p * cp + c) * tp + t`` runs stage
+    ``p``'s ring shard ``c`` of tensor shard ``t``). ``devices`` names
+    them, repeats allowed (two shards of one card: ``["cuda:0",
+    "cuda:0"]``; on the host ``["cpu"] * n``), the first ``n`` taken as
+    JAX takes them; None takes ``cuda:0`` .. ``cuda:n-1``. Fewer devices
+    than ``n`` raise JAX's message. A shard is never placed anywhere the
+    caller did not name."""
     if tp < 1:
         raise ValueError(f"tp must be >= 1, got {tp}")
+    if cp < 1:
+        raise ValueError(f"cp must be >= 1, got {cp}")
+    if pp < 1:
+        raise ValueError(f"pp must be >= 1, got {pp}")
+    need = tp * cp * pp
     if devices is None:
         visible = torch.cuda.device_count() if torch.cuda.is_available() \
             else 0
-        if visible < tp:
-            raise ValueError(
-                f"tp={tp} needs {tp} devices but only {visible} CUDA "
-                "devices are visible")
-        return [torch.device("cuda", i) for i in range(tp)]
+        devices = [torch.device("cuda", i) for i in range(visible)]
     devices = [torch.device(d) for d in devices]
-    if len(devices) != tp:
-        raise ValueError(f"tp={tp} needs {tp} devices, {len(devices)} "
-                         "devices given")
+    if len(devices) < need:
+        raise ValueError(
+            f"tp={tp} cp={cp} pp={pp} needs {need} devices but only "
+            f"{len(devices)} are visible")
+    devices = devices[:need]
     for d in devices:
         if d.type == "cuda" and (not torch.cuda.is_available() or (
                 d.index or 0) >= torch.cuda.device_count()):

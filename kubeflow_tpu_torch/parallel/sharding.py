@@ -42,6 +42,7 @@ from kubeflow_tpu_torch.parallel.mesh import (
     AXIS_FSDP,
     AXIS_SEQUENCE,
     AXIS_TENSOR,
+    PipelineStages,
     TensorShards,
     axis_index,
     axis_size,
@@ -107,6 +108,11 @@ def _entry_axes(entry) -> tuple[str, ...]:
     if entry is None:
         return ()
     return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def spec_axes(spec: tuple) -> tuple[str, ...]:
+    """Every axis ``spec`` names, in dim order."""
+    return tuple(a for entry in spec for a in _entry_axes(entry))
 
 
 def restrict(spec: tuple, axes: tuple[str, ...]) -> tuple:
@@ -343,3 +349,18 @@ def merge_tensor(shards: list, rules: list[PartitionRule]):
         out[path] = leaf if dim is None else torch.cat(
             [f[path].to(leaf.device) for f in flats], dim=dim)
     return _unflatten(out)
+
+
+def merge_replica(params, rules: list[PartitionRule]):
+    """The whole tree of a serving replica's parameters (a tree, its
+    ``TensorShards`` or its ``PipelineStages``; ``weights.replica_shards``)
+    on stage 0's shard 0's devices: each stage's shards joined
+    (:func:`merge_tensor`), the stages' ``layers/`` leaves one after
+    another."""
+    stages = list(params) if isinstance(params, PipelineStages) else [params]
+    wholes = [flatten(merge_tensor(st, rules) if isinstance(st, TensorShards)
+                      else st) for st in stages]
+    return _unflatten({
+        path: torch.cat([w[path].to(leaf.device) for w in wholes])
+        if len(wholes) > 1 and path.startswith("layers/") else leaf
+        for path, leaf in wholes[0].items()})

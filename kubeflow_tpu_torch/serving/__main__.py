@@ -16,10 +16,13 @@ a disaggregated role (``--serving-role prefill|decode``, paged), tensor
 parallelism (``--tp-shards N``: with ``--device cuda`` the shards take
 ``cuda:0`` .. ``cuda:N-1`` and the CLI exits 2 naming the devices when
 fewer GPUs are visible; with ``--device cpu`` every shard runs on the
-host) and the boot weights' source (``--model-path`` for a checkpoint
-directory, ``--weight-peers`` with ``--weight-pull-timeout-s``) choose
-the other ported paths. Every other flag of the JAX CLI (context and
-pipeline parallelism, the fleet KV directory and cold store, the import
+host), context parallelism (``--cp-shards N``, with
+``--prefill-chunk-tokens`` on the paged gathered path), pipeline stages
+(``--pp-stages N``; the replica takes tp x cp x pp devices, as tensor
+shards do) and the boot weights' source (``--model-path`` for a
+checkpoint directory, ``--weight-peers`` with
+``--weight-pull-timeout-s``) choose the other ported paths. Every other
+flag of the JAX CLI (the fleet KV directory and cold store, the import
 crossover, the compile cache) is rejected by name, never ignored. Without grpcio the default
 ``--grpc-port`` exits 2: the server never starts without :9000 unasked.
 """
@@ -36,7 +39,6 @@ from kubeflow_tpu_torch.serving.server import ModelServer
 
 # Flags of the JAX CLI whose features are not yet ported.
 UNPORTED_FLAGS = (
-    "--cp-shards", "--pp-stages",
     "--kv-directory-size", "--cold-store-ref",
     "--kv-import-crossover-tokens", "--compile-cache-dir",
 )
@@ -132,6 +134,17 @@ def main(argv=None) -> int:
                         "pool sharded over the KV-head axis; must "
                         "divide the model's kv heads / heads / d_ff "
                         "and the pod needs that many chips")
+    p.add_argument("--cp-shards", type=int, default=1,
+                   help="context-parallel shards: >1 runs each prefill "
+                        "chunk's attention ring-style over a sequence "
+                        "mesh axis; requires --prefill-chunk-tokens and "
+                        "the paged gather path; the replica needs "
+                        "tp*cp*pp devices")
+    p.add_argument("--pp-stages", type=int, default=1,
+                   help="pipeline-parallel decoder stages: >1 splits "
+                        "the layer stack AND the KV pool's layer dim "
+                        "over stages; must divide the model's n_layers; "
+                        "the replica needs tp*cp*pp devices")
     p.add_argument("--host-kv-bytes", type=int, default=0,
                    help="host-RAM KV tier budget in bytes (paged layout; "
                         "0 disables): prefix evictions demote blocks "
@@ -187,6 +200,10 @@ def main(argv=None) -> int:
         p.error("--serving-role requires --kv-layout=paged")
     if args.tp_shards < 1:
         p.error("--tp-shards must be >= 1")
+    if args.cp_shards < 1:
+        p.error("--cp-shards must be >= 1")
+    if args.pp_stages < 1:
+        p.error("--pp-stages must be >= 1")
     if args.prefill_chunk_tokens < 0:
         p.error("--prefill-chunk-tokens must be >= 0")
     if args.max_prompt_len < 0:
@@ -198,6 +215,14 @@ def main(argv=None) -> int:
             and not args.prefill_chunk_tokens):
         p.error("--max-prompt-len beyond max-seq-len requires "
                 "--prefill-chunk-tokens")
+    if args.cp_shards > 1 and not args.prefill_chunk_tokens:
+        # The sequence axis only carries chunked-prefill attention.
+        p.error("--cp-shards requires --prefill-chunk-tokens")
+    if args.cp_shards > 1 and args.kv_fused_attention:
+        p.error("--cp-shards uses the gathered ring read; drop "
+                "--kv-fused-attention")
+    if args.pp_stages > 1 and args.decode_mode != "continuous":
+        p.error("--pp-stages requires --decode-mode=continuous")
     if args.host_kv_bytes < 0:
         p.error("--host-kv-bytes must be >= 0")
     if args.host_kv_bytes and args.kv_layout != "paged":
@@ -215,11 +240,13 @@ def main(argv=None) -> int:
         # Only the continuous decoder shards; ignoring the flag would
         # report one shard's numbers as model-parallel ones.
         p.error("--tp-shards requires --decode-mode=continuous")
-    if args.tp_shards > 1 and args.device != "cpu":
+    replica = args.tp_shards * args.cp_shards * args.pp_stages
+    if replica > 1 and args.device != "cpu":
         try:
-            serving_mesh(args.tp_shards)
+            serving_mesh(args.tp_shards, cp=args.cp_shards,
+                         pp=args.pp_stages)
         except ValueError as e:
-            p.error(f"--tp-shards: {e}")
+            p.error(f"--tp-shards: {e}" if args.tp_shards > 1 else str(e))
     if args.kv_layout == "paged":
         if not continuous:
             p.error("--kv-layout=paged requires --decode-mode=continuous")
@@ -261,6 +288,8 @@ def main(argv=None) -> int:
             max_prompt_len=args.max_prompt_len,
             serving_role=args.serving_role,
             tp_shards=args.tp_shards,
+            cp_shards=args.cp_shards,
+            pp_stages=args.pp_stages,
             host_kv_bytes=args.host_kv_bytes,
             qos_tenants=args.qos_tenants,
             qos_aging_s=args.qos_aging_s,

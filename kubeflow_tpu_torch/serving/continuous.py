@@ -80,8 +80,23 @@ of experts keeps every expert on each shard and its ``d_ff`` columns
 (JAX's ``serving_mesh`` has no ``expert`` axis); every shard routes the
 same tokens to the same slots, from the same ``token_valid``.
 
-Options of features not yet ported (context/pipeline parallelism, the KV
-directory and cold store) raise
+Context parallelism (``cp_shards`` > 1, paged, gathered, chunked
+prefill): every chunk dispatch and the final admission of a chain fold
+their span read through the ring over the replica's ``cp`` sequence
+shards (``ops/attention.py:ring_span_attention``); decode steps read as
+they do without. Pipeline stages (``pp_stages`` > 1, not fused): stage
+``s`` holds its layer range (``parallel/pipeline.py:stage_layer_ranges``)
+of the weights and of the KV store on its devices, each stage a tensor
+group of ``tp_shards``; the residual moves from stage to stage, and
+tables, lengths, logits and the generator stay once. The replica's
+``tp * cp * pp`` devices come in JAX's ``serving_mesh`` order
+(``tp_devices``; the pipeline outermost, the tensor shards innermost): a
+stage's shards hold their weights and KV on the devices of its ring
+shard 0, and ring shard ``c`` of each computes on its own. The byte
+gauges price the pool per tensor shard, as JAX's do.
+
+Options of features not yet ported (the KV directory and cold store)
+raise
 ``ValueError`` at construction; none falls through to another
 behaviour. Their counters in :meth:`ContinuousDecoder.metrics` read what
 JAX's read with the feature off.
@@ -89,6 +104,7 @@ JAX's read with the feature off.
 
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 import time
@@ -123,8 +139,13 @@ from kubeflow_tpu_torch.models.decode import (
 from kubeflow_tpu_torch.models.transformer import partition_rules
 from kubeflow_tpu_torch.observability.metrics import MetricRegistry
 from kubeflow_tpu_torch.observability.tracing import TraceStore
-from kubeflow_tpu_torch.parallel.mesh import TensorShards, serving_mesh
-from kubeflow_tpu_torch.parallel.sharding import merge_tensor
+from kubeflow_tpu_torch.parallel.mesh import (
+    PipelineStages,
+    TensorShards,
+    serving_mesh,
+)
+from kubeflow_tpu_torch.parallel.pipeline import stage_layer_ranges
+from kubeflow_tpu_torch.parallel.sharding import merge_replica
 from kubeflow_tpu_torch.serving.engine import pow2_bucket
 from kubeflow_tpu_torch.serving.handoff import tree_to_torch
 from kubeflow_tpu_torch.serving.kv_allocator import (
@@ -141,20 +162,19 @@ from kubeflow_tpu_torch.serving.qos import (
     tenant_bucket,
 )
 from kubeflow_tpu_torch.serving.speculative import make_proposer
-from kubeflow_tpu_torch.weights import _unflatten, flatten, tensor_shards
+from kubeflow_tpu_torch.weights import _unflatten, flatten, replica_shards
 
 _DONE = object()
 
 # Counters and gauges of features not yet ported (the fleet KV economy,
-# context and pipeline parallelism, the compile cache), as JAX's metrics()
-# reports them with the feature off.
+# the compile cache), as JAX's metrics() reports them with the feature
+# off.
 _UNPORTED_METRICS = {
     "kv_peer_hits": 0, "kv_peer_misses": 0,
     "kv_peer_import_bytes": 0, "kv_peer_fetch_failures": 0,
     "kv_cold_hits": 0, "kv_cold_demotions": 0, "kv_cold_import_bytes": 0,
     "kv_import_stale_refused": 0, "kv_import_skipped_crossover": 0,
-    "kv_directory_publishes": 0, "cp_shards": 1,
-    "pp_stages": 1, "compile_cache_hits": 0,
+    "kv_directory_publishes": 0, "compile_cache_hits": 0,
     "compile_cache_misses": 0, "warm_seconds": 0.0, "warming": False,
 }
 
@@ -295,9 +315,9 @@ class ContinuousDecoder:
     it); ``slots`` is the decode concurrency; a row is ``max_prompt_len +
     max_new_tokens`` positions (``max_prompt_len`` defaults to
     ``prefill_len`` and exceeds it only with chunked prefill). The device
-    is the parameters' device; with ``tp_shards`` > 1 the shards take
-    ``tp_devices`` (see the module docstring) and the tables, lengths and
-    logits shard 0's."""
+    is the parameters' device; with ``tp_shards``, ``cp_shards`` or
+    ``pp_stages`` above 1 the replica takes ``tp_devices`` (see the
+    module docstring) and the tables, lengths and logits its first."""
 
     def __init__(self, params, cfg, *, slots: int, prefill_len: int,
                  max_new_tokens: int, top_k: int = 0,
@@ -321,8 +341,6 @@ class ContinuousDecoder:
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         _reject_unported(
-            cp_shards=cp_shards > 1,
-            pp_stages=pp_stages > 1,
             kv_directory=kv_directory is not None,
             cold_store=cold_store is not None,
         )
@@ -369,6 +387,8 @@ class ContinuousDecoder:
                 f"{prefill_len} requires prefill_chunk_tokens > 0 "
                 "(a monolithic prefill is bounded by the prefill width)")
         self.tp_shards = max(1, int(tp_shards))
+        self.cp_shards = max(1, int(cp_shards))
+        self.pp_stages = max(1, int(pp_stages))
         if self.tp_shards > 1:
             if cfg.n_kv_heads % self.tp_shards:
                 raise ValueError(
@@ -382,22 +402,58 @@ class ContinuousDecoder:
                 raise ValueError(
                     f"tp_shards {self.tp_shards} must divide d_ff "
                     f"{cfg.d_ff}")
-            self.tp_devices = serving_mesh(self.tp_shards,
+        if self.cp_shards > 1:
+            if self.cp_shards & (self.cp_shards - 1):
+                raise ValueError(
+                    f"cp_shards {self.cp_shards} must be a power of two "
+                    "(ring shards ride the pow2 chunk buckets)")
+            if kv_layout != "paged":
+                raise ValueError("cp_shards > 1 requires kv_layout="
+                                 "'paged' (the ring reads the gathered "
+                                 "paged span)")
+            if kv_fused:
+                raise ValueError(
+                    "cp_shards > 1 uses the gathered ring read; it does "
+                    "not compose with kv_fused")
+            if not prefill_chunk_tokens:
+                raise ValueError(
+                    "cp_shards > 1 shards chunked-prefill attention; "
+                    "set prefill_chunk_tokens > 0")
+        if self.pp_stages > 1:
+            if kv_fused:
+                raise ValueError(
+                    "pp_stages > 1 does not compose with kv_fused (the "
+                    "fused kernel assumes an unsharded layer dim)")
+            # Raises unless n_layers divides evenly.
+            stage_layer_ranges(cfg.n_layers, self.pp_stages)
+            cfg = dataclasses.replace(cfg, pipeline_stages=self.pp_stages)
+        self._template = None
+        self._ring = None
+        if self.tp_shards * self.cp_shards * self.pp_stages > 1:
+            tp, cp, pp = self.tp_shards, self.cp_shards, self.pp_stages
+            self.tp_devices = serving_mesh(tp, cp=cp, pp=pp,
                                            devices=tp_devices)
+            # Stage p's tensor shard t lives on ring shard 0's device,
+            # ring shard c of it computes on device (p * cp + c) * tp + t.
+            self._stage_devices = [
+                self.tp_devices[p * cp * tp:p * cp * tp + tp]
+                for p in range(pp)]
+            if cp > 1:
+                self._ring = [[[self.tp_devices[(p * cp + c) * tp + t]
+                                for c in range(cp)] for t in range(tp)]
+                              for p in range(pp)]
             self._rules = partition_rules(cfg)
-            # The whole tree's paths, shapes and dtypes: what a push is
-            # checked against before it is cut into shards.
-            self._template = _unflatten({
-                p: torch.empty(t.shape, dtype=t.dtype, device="meta")
-                for p, t in flatten(params).items()})
-            params = TensorShards(
-                _unflatten({p: t.to(dev) for p, t in flatten(part).items()})
-                for part, dev in zip(
-                    tensor_shards(params, cfg, self.tp_shards),
-                    self.tp_devices))
+            if tp * pp > 1:
+                # The whole tree's paths, shapes and dtypes: what a push
+                # is checked against before it is cut into parts.
+                self._template = _unflatten({
+                    p: torch.empty(t.shape, dtype=t.dtype, device="meta")
+                    for p, t in flatten(params).items()})
+            params = self._place_parts(
+                replica_shards(params, cfg, tp, pp), None)
         else:
             self.tp_devices = [params["embed"]["kernel"].device]
-            self._template = None
+            self._stage_devices = [self.tp_devices]
         self.params = params
         self.cfg = cfg
         # Shard 0's device: the tables, lengths, logits and the generator
@@ -418,6 +474,20 @@ class ContinuousDecoder:
         # round, the finest admission/streaming granularity.
         self.chunk_size = max(1, int(chunk_size))
         self.total_len = self.max_prompt_len + max_new_tokens
+        if self.cp_shards > 1:
+            floor = (prefill_len >> self.prefill_len_buckets
+                     if self.prefill_len_buckets
+                     else min(8, prefill_len))
+            if floor % self.cp_shards:
+                raise ValueError(
+                    f"cp_shards {self.cp_shards} must divide the suffix "
+                    f"bucket floor {floor} (every chunk dispatch shards "
+                    "its query tokens over the sequence axis)")
+            if self.total_len % self.cp_shards:
+                raise ValueError(
+                    f"cp_shards {self.cp_shards} must divide "
+                    f"max_prompt_len + max_new_tokens = {self.total_len} "
+                    "(the ring streams the gathered virtual row)")
         # Speculative decoding: K > 0 turns decode rounds into verify
         # rounds whenever the proposer has drafts; chunk_size > 1 runs
         # that many verify steps a round (verify_chunk).
@@ -475,12 +545,15 @@ class ContinuousDecoder:
                              device=self.device)
             if self.prefix_cache is not None and self._alloc is None
             else None)
-        if self.tp_shards > 1:
-            # The KV payload over the shards, by KV head.
-            self._state = shard_decode_state(self._state, self.tp_devices)
+        if self.tp_shards * self.pp_stages > 1:
+            # The KV payload over the stages, by layer, and each stage's
+            # over its shards, by KV head.
+            devices = [d for stage in self._stage_devices for d in stage]
+            self._state = shard_decode_state(self._state, devices,
+                                             self.pp_stages)
             if self._prefix_pool is not None:
-                self._prefix_pool = shard_decode_state(self._prefix_pool,
-                                                       self.tp_devices)
+                self._prefix_pool = shard_decode_state(
+                    self._prefix_pool, devices, self.pp_stages)
         if self.prefix_cache is not None and self._alloc is not None:
             # Trie evictions return the entry's refcounted blocks; remove()
             # fires this under the prefix lock.
@@ -596,11 +669,11 @@ class ContinuousDecoder:
         self.registry.gauge(
             "serving_cp_shards",
             "Context-parallel (sequence-axis) width of this replica's "
-            "chunked-prefill ring (1 = no ring)").set(1)
+            "chunked-prefill ring (1 = no ring)").set(self.cp_shards)
         self.registry.gauge(
             "serving_pp_stages",
             "Pipeline-parallel stages sharding this replica's layer "
-            "stack and KV pool (1 = unsplit)").set(1)
+            "stack and KV pool (1 = unsplit)").set(self.pp_stages)
         self._c_prefill_chunks = self.registry.counter(
             "serving_prefill_chunks_total",
             "Chunked-prefill dispatches (interior chunks of long "
@@ -653,12 +726,12 @@ class ContinuousDecoder:
         """A consistent (params, weights_version) pair for a peer's pull:
         reference reads under the state lock, the lock the swap takes, so
         a puller never pairs one epoch's version with another's tree. A
-        sharded replica's shards are joined whole (on shard 0's
+        sharded or staged replica's parts are joined whole (on its first
         device)."""
         with self._state_lock:
             params, version = self.params, self.weights_version
-        if isinstance(params, TensorShards):
-            params = merge_tensor(params, self._rules)
+        if isinstance(params, (TensorShards, PipelineStages)):
+            params = merge_replica(params, self._rules)
         return params, version
 
     def weights_template(self):
@@ -1106,12 +1179,12 @@ class ContinuousDecoder:
                 self._state, last, tok, emit = paged_admit_prefix_and_step(
                     self._state, self.params, self.cfg, slot, pos, toks_t,
                     n, req.want_left, req.temperature, self.top_k,
-                    self.eos_id, self.kv_fused)
+                    self.eos_id, self.kv_fused, ring=self._ring)
                 tok_np, emit_np = tok.cpu().numpy(), emit.cpu().numpy()
             else:
                 self._state = paged_prefill_chunk(
                     self._state, self.params, self.cfg, slot, pos, toks_t,
-                    take, self.kv_fused)
+                    take, self.kv_fused, ring=self._ring)
                 for dev in dict.fromkeys(self.tp_devices):
                     if dev.type == "cuda":
                         torch.cuda.synchronize(dev)
@@ -1422,7 +1495,8 @@ class ContinuousDecoder:
         return {"tokens": toks, "prefix_len": plen,
                 "block_size": self.kv_block_size,
                 "kv_dtype": self.kv_dtype, "tp_shards": self.tp_shards,
-                "cp_shards": 1, "pp_stages": 1, "payload": payload}
+                "cp_shards": self.cp_shards, "pp_stages": self.pp_stages,
+                "payload": payload}
 
     def import_prompt(self, handoff: dict) -> bool:
         """Decode-role handoff receive: allocate local blocks, scatter the
@@ -1624,17 +1698,44 @@ class ContinuousDecoder:
         return new_version
 
     def _place_params(self, tree, reference):
-        """:meth:`_place` of a pushed tree; a sharded replica checks it
-        whole against the serving tree's template, cuts it by the
-        partition rules (``split_tensor``) and places each shard on its
-        device."""
-        if not isinstance(reference, TensorShards):
+        """:meth:`_place` of a pushed tree; a sharded or staged replica
+        checks it whole against the serving tree's template, cuts it into
+        its parts (``weights.replica_shards``: the stages' layers, the
+        partition rules' shards) and places each like the part it
+        replaces."""
+        if not isinstance(reference, (TensorShards, PipelineStages)):
             return self._place(tree, reference)
         new = self._check_tree(tree, self._template)
         whole = _unflatten({p: tree_to_torch(t) for p, t in new.items()})
-        return TensorShards(
-            self._place(part, ref) for part, ref in zip(
-                tensor_shards(whole, self.cfg, self.tp_shards), reference))
+        return self._place_parts(
+            replica_shards(whole, self.cfg, self.tp_shards, self.pp_stages),
+            reference)
+
+    def _place_parts(self, parts, reference):
+        """The (stage, shard) trees of ``parts`` placed each like its
+        part of ``reference``, or, with no reference, moved to its shard's
+        device; the structure kept."""
+        stages = parts if isinstance(parts, PipelineStages) else [parts]
+        refs = (reference if isinstance(reference, PipelineStages)
+                else [reference]) if reference is not None else None
+        out = []
+        for st, stage in enumerate(stages):
+            shards = stage if isinstance(stage, TensorShards) else [stage]
+            placed = []
+            for t, part in enumerate(shards):
+                if refs is None:
+                    dev = self._stage_devices[st][t]
+                    placed.append(_unflatten({p: v.to(dev) for p, v in
+                                              flatten(part).items()}))
+                else:
+                    ref = refs[st]
+                    placed.append(self._place(
+                        part, ref[t] if isinstance(ref, TensorShards)
+                        else ref))
+            out.append(TensorShards(placed)
+                       if isinstance(stage, TensorShards) else placed[0])
+        return PipelineStages(out) if isinstance(parts, PipelineStages) \
+            else out[0]
 
     @staticmethod
     def _check_tree(tree, reference) -> dict:
@@ -2368,6 +2469,8 @@ class ContinuousDecoder:
                 "spec_draft_k": (sum(self._slot_k) / len(self._slot_k)
                                  if self._slot_k else 0.0),
                 "tp_shards": self.tp_shards,
+                "cp_shards": self.cp_shards,
+                "pp_stages": self.pp_stages,
                 **_UNPORTED_METRICS,
             }
         with self._state_lock:

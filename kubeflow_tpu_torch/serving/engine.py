@@ -115,10 +115,22 @@ class EngineConfig:
     # n_kv_heads / n_heads / d_ff. The serving_kv_bytes_* gauges then
     # price the pool PER SHARD.
     tp_shards: int = 1
-    # The shards' devices, shard order (repeats allowed: ("cuda:0",
-    # "cuda:0") holds two shards on one card). Empty: cuda:0..tp-1 on
-    # "cuda" (fewer visible GPUs raise), every shard on the host on
-    # "cpu".
+    # Context-parallel shards (continuous mode): >1 runs each prefill
+    # chunk's attention ring-style over cp sequence shards (the gathered
+    # paged span; decode steps stay as they are). Requires
+    # prefill_chunk_tokens > 0 and the paged gather path (not kv_fused);
+    # a power of two.
+    cp_shards: int = 1
+    # Pipeline-parallel decoder stages (continuous mode): >1 splits the
+    # stacked layer weights AND the KV pool's layer dim into pp stages,
+    # each a tensor group of tp shards (block ids stay host-global).
+    # Must divide the model's n_layers; not with kv_fused.
+    pp_stages: int = 1
+    # The replica's tp * cp * pp devices in serving_mesh order (the
+    # pipeline outermost, the tensor shards innermost; repeats allowed:
+    # ("cuda:0", "cuda:0") holds two shards on one card). Empty:
+    # cuda:0..n-1 on "cuda" (fewer visible GPUs raise), every shard on
+    # the host on "cpu".
     tp_devices: tuple = ()
     # Compute dtype override ("bfloat16"/"float32"); empty keeps the
     # preset's dtype.
@@ -170,6 +182,13 @@ class InferenceEngine:
         if cfg.tp_shards > 1 and cfg.decode_mode != "continuous":
             raise ValueError("tp_shards > 1 requires decode_mode="
                              "'continuous'")
+        for name in ("cp_shards", "pp_stages"):
+            if getattr(cfg, name) < 1:
+                raise ValueError(f"{name} must be >= 1, got "
+                                 f"{getattr(cfg, name)}")
+            if getattr(cfg, name) > 1 and cfg.decode_mode != "continuous":
+                raise ValueError(f"{name} > 1 requires decode_mode="
+                                 "'continuous'")
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         overrides = {"dtype": _DTYPES[cfg.dtype]} if cfg.dtype else {}
@@ -261,13 +280,14 @@ class InferenceEngine:
         return self._cast_like(flatten(restored[0].params), reference)
 
     def tp_devices(self) -> list[torch.device] | None:
-        """The decoder's shard devices: ``tp_devices`` as named, every
+        """The decoder's replica devices: ``tp_devices`` as named, every
         shard on the host for a CPU engine, else None (``serving_mesh``'s
-        default, ``cuda:0`` .. ``cuda:tp-1``)."""
+        default, ``cuda:0`` .. ``cuda:n-1``)."""
         if self.cfg.tp_devices:
             return list(self.cfg.tp_devices)
         if self.device.type == "cpu":
-            return [self.device] * self.cfg.tp_shards
+            return [self.device] * (self.cfg.tp_shards * self.cfg.cp_shards
+                                    * self.cfg.pp_stages)
         return None
 
     def warmup(self) -> None:

@@ -244,6 +244,8 @@ class ModelServer:
             max_prompt_len=cfg.max_prompt_len,
             role=cfg.serving_role,
             tp_shards=cfg.tp_shards,
+            cp_shards=cfg.cp_shards,
+            pp_stages=cfg.pp_stages,
             tp_devices=self.engine.tp_devices(),
             qos=qos,
             host_kv_bytes=cfg.host_kv_bytes,

@@ -12,7 +12,9 @@ Over a mesh each process feeds its own rows, as JAX's
 the processes' batches one after another along the batch dim (the batch
 axes ``("data", "fsdp")``, data major), and a process's tensor IS its
 shard, so placing it is a copy. :func:`local_rows` cuts a process's rows
-out of a global batch.
+out of a global batch; under context parallelism :func:`local_tokens`
+cuts a ``sequence`` rank's chunk of their tokens (the inputs/targets
+pair, whose length the sequence degree divides).
 """
 
 from __future__ import annotations
@@ -85,6 +87,23 @@ def local_rows(batch: dict, rank: int, n_ranks: int, *,
         return np.take(x, range(rank * n, (rank + 1) * n), axis=dim)
 
     return {k: rows(v) for k, v in batch.items()}
+
+
+def local_tokens(batch: dict, rank: int, n_ranks: int, *,
+                 microbatched: bool = False) -> dict:
+    """Rank ``rank``'s chunk of the token dim (dim 1, dim 2 of
+    ``microbatched`` leaves) split ``n_ranks`` ways: its tokens under the
+    batch spec of context parallelism (``("data", "fsdp"), "sequence"``)."""
+    def chunk(x):
+        x = np.asarray(x)
+        dim = 2 if microbatched else 1
+        n = x.shape[dim] // n_ranks
+        if n * n_ranks != x.shape[dim]:
+            raise ValueError(f"{x.shape[dim]} tokens a row do not split "
+                             f"over {n_ranks} sequence ranks")
+        return np.take(x, range(rank * n, (rank + 1) * n), axis=dim)
+
+    return {k: chunk(v) for k, v in batch.items()}
 
 
 def place_batch(batch: dict, device: torch.device) -> dict:

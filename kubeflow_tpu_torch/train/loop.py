@@ -12,12 +12,13 @@ controller's environment (``JAX_COORDINATOR_ADDRESS``,
 ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``) each process joins the process
 group (``parallel.distributed.initialize_from_env``; NCCL on
 ``cuda:{process_id % GPUs}``, gloo with ``"device": "cpu"``), builds the
-mesh of ``"mesh"`` (the data, fsdp, expert and tensor axes; their
-product is the number of processes, -1 absorbs the rest) and trains its
-shard of the state on its own rows: ``batch_size`` rows a process, as in
-JAX, the synthetic stream the same on every process and the token
-store's shard of the process's place on the batch axes (the ranks of an
-expert or tensor group read the same rows). Only process 0 logs. Without that
+mesh of ``"mesh"`` (any of the six axes; their product is the number of
+processes, -1 absorbs the rest) and trains its shard of the state on its
+own rows: ``batch_size`` rows a process, as in JAX, the synthetic stream
+the same on every process and the token store's shard of the process's
+place on the batch axes (the ranks of an expert, tensor, pipeline or
+sequence group read the same rows; under ``context_parallel`` a sequence
+rank keeps its chunk of their tokens). Only process 0 logs. Without that
 environment one process trains on ``"device"`` (default ``"cuda"``; pass
 ``"cpu"`` to run the plain PyTorch paths on the host), over a mesh only
 if a process group is already running.
@@ -35,10 +36,10 @@ for the transformer family only, as in JAX; ``profile_dir`` writes a
 process 0.
 
 Not yet ported, and refused at the start of :func:`run` before any step:
-elastic resharding (``elastic_poll_steps``), a mesh axis other than data,
-fsdp, expert and tensor above 1 (sequence and pipeline), and the
-job-status publish that the job's environment (``KUBEFLOW_TPU_JOB_NAME``)
-asks for.
+elastic resharding (``elastic_poll_steps``) and the job-status publish
+that the job's environment (``KUBEFLOW_TPU_JOB_NAME``) asks for. A family
+refuses the axes it does not train over before any step (BERT and ResNet:
+sequence and pipeline).
 """
 
 from __future__ import annotations
@@ -63,6 +64,7 @@ from kubeflow_tpu_torch.parallel.distributed import (
     shutdown,
 )
 from kubeflow_tpu_torch.parallel.mesh import (
+    AXIS_SEQUENCE,
     BATCH_AXES,
     MESH_AXES,
     MeshConfig,
@@ -72,6 +74,7 @@ from kubeflow_tpu_torch.parallel.mesh import (
 )
 from kubeflow_tpu_torch.train.checkpoint import Checkpointer
 from kubeflow_tpu_torch.train.data import (
+    local_tokens,
     place_batch,
     stack_microbatches,
     synthetic_stream,
@@ -80,7 +83,6 @@ from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
 from kubeflow_tpu_torch.train.prefetch import Prefetcher
 from kubeflow_tpu_torch.train.tokenstore import TokenStore
 from kubeflow_tpu_torch.train.trainer import (
-    TRAIN_AXES,
     build_train_step,
     init_state,
 )
@@ -93,8 +95,7 @@ ENV_JOB_NAME = "KUBEFLOW_TPU_JOB_NAME"
 class RunConfig:
     model: str = "lm-test-tiny"
     model_overrides: dict = field(default_factory=dict)
-    # Degrees of the JAX MeshConfig axes; the data, fsdp and tensor axes
-    # are ported (the others must stay 1).
+    # Degrees of the JAX MeshConfig axes.
     mesh: dict = field(default_factory=dict)
     optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
     batch_size: int = 8
@@ -133,9 +134,6 @@ def _refuse_unported(cfg: RunConfig, environ) -> None:
     unknown = set(cfg.mesh) - set(MESH_AXES)
     if unknown:
         raise ValueError(f"unknown mesh axes {sorted(unknown)}")
-    for axis, degree in cfg.mesh.items():
-        if axis not in TRAIN_AXES and degree != 1:
-            no(f"training over the {axis!r} mesh axis ({cfg.mesh})")
     if environ.get(ENV_JOB_NAME):
         no(f"publishing metrics into the job status ({ENV_JOB_NAME} is "
            "set)")
@@ -214,13 +212,25 @@ def _make_batches(cfg, info, model, device, mesh, stream_step, store):
         stream = store.stream(cfg.batch_size, cfg.seq_len, seed=cfg.seed,
                               start_step=stream_step, shard=shard,
                               num_shards=shards)
+        if getattr(model.config, "context_parallel", False):
+            # The shifted pair, whose length the sequence degree divides
+            # (as the synthetic batches and the JAX loop ship it).
+            stream = ({"inputs": b["tokens"][:, :-1],
+                       "targets": b["tokens"][:, 1:]} for b in stream)
     else:
         stream = synthetic_stream(model, cfg.batch_size, cfg.seq_len,
                                   seed=cfg.seed, start_step=stream_step)
     if cfg.accum_steps > 1:
         stream = stack_microbatches(stream, cfg.accum_steps)
 
+    chunks = (mesh is not None
+              and getattr(model.config, "context_parallel", False))
+
     def place(b):
+        if chunks:
+            b = local_tokens(b, axis_index(mesh, AXIS_SEQUENCE),
+                             axis_size(mesh, AXIS_SEQUENCE),
+                             microbatched=cfg.accum_steps > 1)
         return place_batch(b, device)
 
     if cfg.prefetch > 0:

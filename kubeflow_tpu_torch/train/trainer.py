@@ -19,24 +19,27 @@ JAX's). Under gradient accumulation the last microbatch's updates win. A
 leaf the loss does not reach (the running statistics, BERT's NSP head)
 gets a zero gradient, as ``jax.grad`` gives it.
 
-Over a mesh (one process per device; the data, fsdp, expert and tensor
-axes) GSPMD's collectives are written out:
+Over a mesh (one process per device; every axis) GSPMD's collectives are
+written out:
 
 - the state is born sharded: each rank keeps its shard of every leaf the
-  model's partition rules put on ``fsdp``, ``expert`` or ``tensor`` (its
-  optimizer slots alike) and the rest whole (:class:`StateLayout`; at
-  degree 1 everywhere every leaf is whole);
+  model's partition rules put on ``fsdp``, ``expert``, ``tensor`` or
+  ``pipeline`` (its optimizer slots alike) and the rest whole
+  (:class:`StateLayout`; at degree 1 everywhere every leaf is whole);
 - each step gathers what ``fsdp`` shards before the forward (once a
   step, not layer by layer) and keeps each leaf's block on the model
-  axes (``MODEL_AXES``: an expert range, a tensor block): the forward is
-  Megatron's (``models/transformer.py``), whose collectives over the
-  model axes carry their own gradients. Each rank runs its rows of the
-  batch (the ranks of a model-axis group the same rows), and the loss it
-  differentiates is its term of the global loss (the loss functions
-  normalise by the global count, ``mesh=``), so gradients are SUMMED
-  over the batch axes: reduce-scattered over ``fsdp`` for a leaf fsdp
-  shards (then summed over ``data``), summed over ``data`` x ``fsdp``
-  otherwise, never over ``expert`` or ``tensor``;
+  axes (``MODEL_AXES``: an expert range, a tensor block) and its stage's
+  layers on ``pipeline``: the forward is Megatron's and GPipe's
+  (``models/transformer.py``, ``parallel/pipeline.py``), whose
+  collectives carry their own gradients. Each rank runs its rows of the
+  batch (the ranks of a model-axis or pipeline group the same rows; the
+  ranks of a ``sequence`` group, under context parallelism, each its
+  chunk of the rows' tokens), and the loss it differentiates is its term
+  of the global loss (the loss functions normalise by the global count,
+  ``mesh=``), so gradients are SUMMED over the token axes
+  (:func:`token_axes`): reduce-scattered over ``fsdp`` for a leaf fsdp
+  shards (then summed over the others), summed over them all otherwise,
+  never over ``expert``, ``tensor`` or ``pipeline``;
 - the optimizer's reductions span each leaf's shards, and the metrics are
   the global ones.
 """
@@ -56,16 +59,18 @@ from kubeflow_tpu_torch.parallel.collectives import (
     reduce_scatter,
 )
 from kubeflow_tpu_torch.parallel.mesh import (
+    AXIS_PIPELINE,
     BATCH_AXES,
+    MESH_AXES,
     MODEL_AXES,
     axis_size,
-    require_axes,
 )
 from kubeflow_tpu_torch.parallel.sharding import (
     ShardedLeaf,
     dim_shards,
     restrict,
     shard,
+    spec_axes,
     tree_specs,
     unshard,
 )
@@ -77,14 +82,26 @@ from kubeflow_tpu_torch.train.optimizers import (
 )
 from kubeflow_tpu_torch.weights import _unflatten, flatten
 
-# The mesh axes the port trains over.
-TRAIN_AXES = (*BATCH_AXES, *MODEL_AXES)
+# The mesh axes the port trains over: every one (a family refuses what
+# it does not run over in its own check_mesh).
+TRAIN_AXES = MESH_AXES
+# The axes whose shards of a leaf the step keeps: a model axis's block, a
+# pipeline stage's layers.
+LOCAL_AXES = (*MODEL_AXES, AXIS_PIPELINE)
 
 
 def _on_model_axes(s) -> bool:
-    """Whether a DimShard splits its dim over a model axis (the step
-    keeps it local) rather than a batch axis (the step gathers it)."""
-    return any(a in MODEL_AXES for a in s.axes)
+    """Whether a DimShard splits its dim over a model or the pipeline
+    axis (the step keeps it local) rather than a batch axis (the step
+    gathers it)."""
+    return any(a in LOCAL_AXES for a in s.axes)
+
+
+def token_axes(model) -> tuple[str, ...]:
+    """The axes the model's batch spec splits the tokens over (data x
+    fsdp, and ``sequence`` under context parallelism): each rank's loss
+    is a term over them, so gradients are summed over them."""
+    return spec_axes(model.batch_partition_spec(model.config))
 
 
 @dataclass
@@ -112,10 +129,14 @@ class StateLayout:
     expert leaf may be sharded on three dims at once, ``[L, E/ep,
     D/fsdp, F/tp]``.
 
-    ``shapes``: each parameter's whole shape, in the state's leaf order."""
+    ``shapes``: each parameter's whole shape, in the state's leaf order;
+    ``tokens``: the axes the batch's tokens are split over
+    (:func:`token_axes`)."""
 
-    def __init__(self, mesh, rules, shapes: dict[str, tuple]):
+    def __init__(self, mesh, rules, shapes: dict[str, tuple],
+                 tokens: tuple[str, ...] = BATCH_AXES):
         self.mesh = mesh
+        self.tokens = tokens
         self.shapes = {k: tuple(s) for k, s in shapes.items()}
         axes = tuple(a for a in TRAIN_AXES if axis_size(mesh, a) > 1)
         self.specs = {k: restrict(spec, axes)
@@ -199,13 +220,14 @@ class StateLayout:
 
     def reduce_grads(self, grads: dict) -> dict:
         """Gradients of each rank's loss term (whole along fsdp, its block
-        on the model axes) -> this rank's shard of their sum over the
-        batch axes: a leaf fsdp shards is reduce-scattered over its axes,
-        then summed over the other batch axes; the other leaves' are
-        summed over every batch axis in one flat buffer. The ranks of the
-        model axes hold the same rows, and each holds the whole gradient
-        of a leaf it replicates, so nothing is summed over ``expert`` or
-        ``tensor``."""
+        on the model axes, its layers on ``pipeline``) -> this rank's
+        shard of their sum over the token axes: a leaf fsdp shards is
+        reduce-scattered over its axes, then summed over the other token
+        axes; the other leaves' are summed over every token axis in one
+        flat buffer. The ranks of the model axes and of ``pipeline`` hold
+        the same rows, and each holds the whole gradient of a leaf it
+        replicates, so nothing is summed over ``expert``, ``tensor`` or
+        ``pipeline``."""
         out, whole = {}, []
         for k, g in grads.items():
             s = self._batch_shard(k)
@@ -216,14 +238,14 @@ class StateLayout:
             if pad:
                 g = F.pad(g, [0, 0] * (g.ndim - 1 - s.dim) + [0, pad])
             g = reduce_scatter(g, self.mesh, s.axes, dim=s.dim)
-            rest = tuple(a for a in BATCH_AXES if a not in s.axes)
+            rest = tuple(a for a in self.tokens if a not in s.axes)
             if rest:
                 psum_(g, self.mesh, rest)
             out[k] = g
         for dtype in dict.fromkeys(grads[k].dtype for k in whole):
             keys = [k for k in whole if grads[k].dtype == dtype]
             flat = psum_(torch.cat([grads[k].reshape(-1) for k in keys]),
-                         self.mesh, BATCH_AXES)
+                         self.mesh, self.tokens)
             for k, piece in zip(keys, flat.split(
                     [grads[k].numel() for k in keys])):
                 out[k] = piece.view_as(grads[k])
@@ -248,11 +270,9 @@ class StateLayout:
 
 
 def check_mesh(model, mesh) -> None:
-    """Raise ValueError("... not yet ported") for a mesh the port does
-    not train over: an axis other than data, fsdp, expert and tensor above
-    1; and raise what the model's own ``check_mesh`` raises (degrees that
-    do not divide its shapes)."""
-    require_axes(mesh, TRAIN_AXES, f"training {model.name}")
+    """Raise what the model's own ``check_mesh`` raises: an axis its
+    family does not yet train over, degrees that do not divide its
+    shapes."""
     if model.check_mesh is not None:
         model.check_mesh(model.config, mesh)
 
@@ -272,7 +292,8 @@ def init_state(generator: torch.Generator, model, opt_cfg: OptimizerConfig,
         return state
     check_mesh(model, mesh)
     layout = StateLayout(mesh, model.partition_rules(model.config),
-                         {k: p.shape for k, p in flatten(params).items()})
+                         {k: p.shape for k, p in flatten(params).items()},
+                         token_axes(model))
     return layout.shard_state(state)
 
 

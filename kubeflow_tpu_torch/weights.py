@@ -119,6 +119,31 @@ def tensor_shards(tree, model, tp: int):
     return TensorShards(split_tensor(whole, partition_rules(cfg), tp))
 
 
+def replica_shards(tree, model, tp: int, pp: int = 1):
+    """A parameter tree as a serving replica of ``pp`` pipeline stages of
+    ``tp`` tensor shards holds it: stage ``st`` keeps its range
+    (``parallel.pipeline.stage_layer_ranges``) of every stacked
+    ``layers/`` leaf, as tensors of their own, and every other leaf whole
+    (JAX replicates them over ``pipeline``), cut into its
+    :func:`tensor_shards` when ``tp > 1``. A ``PipelineStages`` of the
+    stages when ``pp > 1``; the tree or its ``TensorShards`` otherwise.
+    Leaves keep their device."""
+    from kubeflow_tpu_torch.parallel.mesh import PipelineStages
+    from kubeflow_tpu_torch.parallel.pipeline import stage_layer_ranges
+
+    cfg = getattr(model, "config", model)
+    if pp == 1:
+        return tensor_shards(tree, model, tp) if tp > 1 else tree
+    flat = flatten(tree)
+    stages = []
+    for start, stop in stage_layer_ranges(cfg.n_layers, pp):
+        part = _unflatten({p: leaf[start:stop].clone()
+                           if p.startswith("layers/") else leaf
+                           for p, leaf in flat.items()})
+        stages.append(tensor_shards(part, model, tp) if tp > 1 else part)
+    return PipelineStages(stages)
+
+
 def params_to_numpy(params):
     """The port's parameter tree → a nested tree of float32 numpy arrays
     (the inverse of :func:`params_from_numpy`), so tests compare trees."""

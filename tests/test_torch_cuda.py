@@ -1017,3 +1017,108 @@ def test_flash_kernels_at_the_moe_tensor_rank_shape(cuda, dtype):
         for (err, rel), (_, sdpa_rel), r in zip(errs[1:], sdpa[1:], ref[1:]):
             assert err <= 2e-2 * r.float().abs().max().item(), (errs, sdpa)
             assert rel <= max(2.0 ** -8, 2 * sdpa_rel), (errs, sdpa)
+
+
+# ---------------------------------------------------------------------------
+# The sequence and pipeline axes: the ring's span read on the card, the
+# flash kernels inside the pipeline's stages
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_ring_span_read_on_the_card_matches_the_gathered_read(cuda):
+    """The chunked-prefill ring over two shards of the card (a 32-token
+    chunk at positions 64-95 of a 128-position row, Hq 8 over Hkv 4, hd
+    64), float32: within 1e-5 of the one-shard fold and of the gathered
+    read the decoder takes without a ring."""
+    from kubeflow_tpu_torch.models.decode import _gqa_attention
+    from kubeflow_tpu_torch.models.transformer import config
+
+    cfg = config("lm-test-tiny", n_heads=8, n_kv_heads=4, d_model=512,
+                 dtype=torch.float32)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn(1, 32, 8, 64, generator=gen, device=cuda)
+    k, v = (torch.randn(1, 128, 4, 64, generator=gen, device=cuda)
+            for _ in range(2))
+    pos = torch.tensor([64], dtype=torch.int32, device=cuda)
+    ring = tattn.ring_span_attention(q, k, v, pos, n_kv_heads=4,
+                                     devices=["cuda:0", "cuda:0"])
+    whole = tattn.ring_span_attention(q, k, v, pos, n_kv_heads=4)
+    cols = 64 + torch.arange(32, device=cuda)[None]
+    mask = (torch.arange(128, device=cuda)[None, None, :]
+            <= cols[:, :, None])[:, None, None]
+    gathered = _gqa_attention(q, k, v, mask, cfg).reshape(1, 32, 8, 64)
+    assert torch.isfinite(ring).all()
+    torch.testing.assert_close(ring, whole, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ring, gathered, rtol=1e-5, atol=1e-5)
+
+
+# One rank of a gloo gang of two on cuda:0 over {"pipeline": 2}: f32
+# steps of a 2-layer model (one layer a stage), the flash kernels in each
+# stage, and the same steps in one process through the plain attention.
+PIPELINE_WORKER = """
+import json, sys
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+from kubeflow_tpu_torch import kernels
+from kubeflow_tpu_torch.models.registry import get_model
+from kubeflow_tpu_torch.parallel.distributed import initialize_from_env, shutdown
+from kubeflow_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+from kubeflow_tpu_torch.train import data, trainer
+from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
+out = sys.argv[1]
+info = initialize_from_env(device="cuda", backend="gloo", timeout_s=300)
+dev = torch.device("cuda", 0)
+mesh = build_mesh(MeshConfig(data=1, pipeline=2), device_type="cuda")
+kw = dict(dtype=torch.float32, d_model=256, n_heads=4, n_kv_heads=2,
+          d_ff=256, pipeline_stages=2, pipeline_microbatches=2)
+opt = OptimizerConfig(name="sgd", warmup_steps=1)
+batches = [data.place_batch(data.synthetic_batch(
+    get_model("lm-test-tiny", **kw), 4, 64, seed=i), dev) for i in range(2)]
+
+def run(m, impl):
+    model = get_model("lm-test-tiny", attn_impl=impl, **kw)
+    st = trainer.init_state(torch.Generator(device=dev).manual_seed(0),
+                            model, opt, m, device=dev)
+    fn = trainer.build_train_step(model, opt, m)
+    mets = []
+    for b in batches:
+        st, met = fn(st, b)
+        mets.append([float(met["loss"]), float(met["grad_norm"])])
+    return mets
+
+kernels.reset_launches()
+gang = run(mesh, None)
+launches = dict(kernels.LAUNCHES)
+one = run(None, "xla") if info.process_id == 0 else None
+json.dump({"gang": gang, "one": one, "launches": launches},
+          open(out + f".{info.process_id}", "w"))
+shutdown()
+"""
+
+
+@pytest.mark.cuda
+def test_pipeline_stages_run_the_flash_kernels_on_the_card(cuda, tmp_path):
+    """A gloo gang of two pipeline stages on the card, float32, 2 steps
+    at 4 x 64 rows in 2 microbatches: each stage launches the flash
+    forward and backward once a microbatch a step (its one layer, no
+    remat), and the gang's losses and gradient norms equal one process's
+    through the plain attention within 1e-5 relative."""
+    import json
+    import os
+    import sys
+
+    from kubeflow_tpu_torch.parallel.launch import launch
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = launch([sys.executable, "-c", PIPELINE_WORKER,
+                    str(tmp_path / "out")], 2, cwd=root, timeout=300)
+    for i, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {i}:\n{p.stderr[-3000:]}"
+    ranks = [json.load(open(f"{tmp_path / 'out'}.{i}")) for i in range(2)]
+    for r in ranks:
+        assert r["launches"]["flash_attention_fwd"] == 2 * 2
+        assert r["launches"]["flash_attention_bwd"] == 2 * 2
+        torch.testing.assert_close(torch.tensor(r["gang"]),
+                                   torch.tensor(ranks[0]["one"]),
+                                   rtol=1e-5, atol=0)

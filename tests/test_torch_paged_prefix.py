@@ -200,13 +200,21 @@ def test_block_forward_matches_jax_including_a_spill(models, fused, kv):
 
 
 def test_block_forward_rejects_unported_reads(models):
+    """The context-parallel span read is ported: ``ring`` (each stage's
+    shards' ring devices) folds every layer's gathered read over two
+    shards, and the logits equal the gathered read's."""
     _, _, tcfg, tparams = models
-    ts = tdecode.init_paged_state(tcfg, SLOTS, NB, BSZ, MB, device="cpu")
-    toks, pos = torch.zeros((1, 2), dtype=torch.int32), torch.zeros(1)
-    with pytest.raises(ValueError, match="not yet ported"):
-        tdecode._block_forward(tparams, tcfg, ts["pool"]["k"],
-                               ts["pool"]["v"], toks, pos,
-                               ts["block_table"][:1], ring=object())
+    out = []
+    for ring in (None, [[["cpu", "cpu"]]]):
+        ts = tdecode.init_paged_state(tcfg, SLOTS, NB, BSZ, MB,
+                                      device="cpu")
+        ts["block_table"][0] = torch.from_numpy(TABLE[0].copy())
+        toks = torch.tensor([[3, 1, 4, 1, 5, 9, 2, 6]], dtype=torch.int32)
+        pos = torch.zeros(1, dtype=torch.int32)
+        out.append(tdecode._block_forward(
+            tparams, tcfg, ts["pool"]["k"], ts["pool"]["v"], toks, pos,
+            ts["block_table"][:1], ring=ring))
+    torch.testing.assert_close(out[1], out[0], rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["gathered", "fused"])

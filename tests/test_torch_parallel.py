@@ -253,7 +253,8 @@ with torch.no_grad():
     assert c.psum_(y, mesh, both) is y  # in place
     eq(y, [w * (w + 1) / 2, 0.0])
     assert c.CALLS == {"all_reduce": 1, "all_gather": 0,
-                       "reduce_scatter": 0} and c.BYTES["all_reduce"] == 8
+                       "reduce_scatter": 0, "ppermute": 0} \
+        and c.BYTES["all_reduce"] == 8
 
 # Gradients: each rank's loss is its term of one global loss.
 x = torch.full((3,), float(r + 1), requires_grad=True)
@@ -355,7 +356,8 @@ got = grads(*local, lambda t: c.reduce_from_tensor(t, mesh),
 for a, b in zip(got, want):
     torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
 # Forward: one reduce and one gather; backward: two copies' psums.
-assert c.CALLS == {"all_reduce": 3, "all_gather": 1, "reduce_scatter": 0}, \\
+assert c.CALLS == {"all_reduce": 3, "all_gather": 1, "reduce_scatter": 0,
+                   "ppermute": 0}, \\
     c.CALLS
 
 # psum's backward (each rank's loss its own term) hands every tensor rank

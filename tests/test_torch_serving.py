@@ -120,8 +120,8 @@ _OPTIONS = [
     (dict(host_kv_bytes=1 << 20), None),
     (dict(prefill_chunk_tokens=8), None),
     (dict(tp_shards=2, tp_devices=["cpu", "cpu"]), None),
-    (dict(cp_shards=2), "not yet ported"),
-    (dict(pp_stages=2), "not yet ported"),
+    (dict(cp_shards=2), "set prefill_chunk_tokens > 0"),
+    (dict(pp_stages=2, kv_fused=True), "does not compose with kv_fused"),
     (dict(role="prefill"), None),
     (dict(kv_directory=object()), "not yet ported"),
     (dict(cold_store=object()), "not yet ported"),
@@ -132,9 +132,11 @@ _OPTIONS = [
                          ids=[next(iter(o)) for o, _ in _OPTIONS])
 def test_decoder_unported_options_raise(weights, option, match):
     """Options of features not yet ported raise; the dense layout refuses
-    chunking as JAX does. The paged prefix cache, chunked prefill,
-    speculation, QoS, the host KV tier, the fleet roles and tensor shards
-    are ported: those options build a decoder that serves."""
+    chunking, the ring wants chunked prefill and pipeline stages refuse
+    the fused kernel, as JAX does. The paged prefix cache, chunked
+    prefill, speculation, QoS, the host KV tier, the fleet roles and
+    tensor shards are ported: those options build a decoder that serves
+    (the ring and the stages: tests/test_torch_long_context_parallel.py)."""
     _, _, tree = weights
     tcfg = ttransformer.config("lm-test-tiny", dtype=torch.float32)
     kw = {**DECODER_KW, **option}

@@ -14,6 +14,7 @@ element; optimizer trees to 1e-5; parameters after three steps to 1e-4
 relative and 1e-5 absolute.
 """
 
+import dataclasses
 from types import SimpleNamespace
 
 import numpy as np
@@ -285,13 +286,16 @@ def test_loop_main_needs_cuda_unless_asked_for_the_cpu(capsys):
     ("mesh", {"sequence": 2}), ("mesh", {"pipeline": 2}),
 ])
 def test_loop_refuses_unported_options_before_any_step(field, value):
-    """Elastic resharding and the sequence and pipeline axes are still to
-    come (checkpoints, the token store and the profiler now run:
-    tests/test_torch_checkpoint.py; the data, fsdp, expert and tensor axes
-    in gangs: tests/test_torch_distributed_*.py and
-    tests/test_torch_moe_parallel.py)."""
+    """Elastic resharding is still to come (checkpoints, the token store
+    and the profiler now run: tests/test_torch_checkpoint.py; every mesh
+    axis in gangs: tests/test_torch_distributed_*.py,
+    tests/test_torch_moe_parallel.py and tests/test_torch_pipeline.py). A
+    sequence or pipeline mesh of two needs a gang of two: one process
+    refuses it, as JAX's MeshConfig does, before any step."""
     cfg = tloop.RunConfig(device="cpu", steps=1, **{field: value})
-    with pytest.raises(ValueError, match="not yet ported"):
+    match = "not yet ported" if field != "mesh" else \
+        "1 devices not divisible by fixed axes product 2"
+    with pytest.raises(ValueError, match=match):
         tloop.run(cfg, log=lambda *a: None)
 
 
@@ -301,36 +305,49 @@ def test_loop_refuses_the_job_status_environment():
                   environ={"KUBEFLOW_TPU_JOB_NAME": "job"})
 
 
-# A mesh with a sequence axis of 2 (a stand-in: what the mesh checks
-# read of a DeviceMesh). The port trains nothing over the sequence axis.
+# Meshes with a sequence or a pipeline axis of 2 (stand-ins: what the
+# mesh checks read of a DeviceMesh; the checks refuse before any
+# collective).
 SEQUENCE_MESH = SimpleNamespace(
     mesh_dim_names=("data", "pipeline", "fsdp", "expert", "sequence",
                     "tensor"), mesh=torch.zeros(1, 1, 1, 1, 2, 1))
+PIPELINE_MESH = SimpleNamespace(
+    mesh_dim_names=SEQUENCE_MESH.mesh_dim_names,
+    mesh=torch.zeros(1, 2, 1, 1, 1, 1))
+COMPOSES = "composes with dp/fsdp/tp, not \\(yet\\) with MoE or context"
 
 
-@pytest.mark.parametrize("overrides,mesh", [
-    ({"context_parallel": True}, None), ({"pipeline_stages": 2}, None),
-    ({"pipeline_stages": 4, "remat": True}, None),
-    ({"remat": True, "loss_chunks": 4}, SEQUENCE_MESH),
+@pytest.mark.parametrize("overrides,mesh,match", [
+    ({"pipeline_stages": 2, "context_parallel": True}, PIPELINE_MESH,
+     COMPOSES),
+    ({"pipeline_stages": 2, "n_experts": 4}, PIPELINE_MESH, COMPOSES),
+    ({"pipeline_stages": 3}, PIPELINE_MESH,
+     "n_layers 2 not divisible by pipeline_stages 3"),
+    ({"pipeline_stages": 2, "remat": True, "remat_policy": "llm_attn"},
+     PIPELINE_MESH, "'llm_attn' is incompatible with pipeline_stages>1"),
 ])
-def test_model_refuses_unported_training_options(overrides, mesh):
-    """Ring attention, pipeline stages and a sequence axis are still to
-    come (remat, scan_group_size and loss_chunks now run:
-    tests/test_torch_remat.py; the data, fsdp, expert and tensor axes:
-    tests/test_torch_distributed_*.py, tests/test_torch_moe_parallel.py)."""
+def test_model_refuses_unported_training_options(overrides, mesh, match):
+    """The layouts JAX refuses, with its messages: pipeline stages with a
+    mixture of experts or with ring attention, stages that do not divide
+    the layers, and "llm_attn" under stages (ring attention, pipeline
+    stages and every mesh axis train: tests/test_torch_pipeline.py,
+    tests/test_torch_ring_attention.py; remat, scan_group_size and
+    loss_chunks: tests/test_torch_remat.py)."""
     tm = tregistry.get_model("lm-test-tiny", **overrides)
     params = tm.init(tm.config, generator=torch.Generator().manual_seed(0),
                      device="cpu", param_dtype=torch.float32)
     batch = {"tokens": torch.zeros(1, 5, dtype=torch.int32)}
-    with pytest.raises(ValueError, match="not yet ported"):
+    with pytest.raises(ValueError, match=match):
         tm.loss_fn(params, batch, tm.config, mesh=mesh)
 
 
 def test_remat_only_raises_under_autograd_and_mesh_raises():
     """remat decides what the backward keeps, so it opens regions only
     while autograd records: an inference forward and a recorded one give
-    the same logits, and the recorded one differentiates. A mesh with a
-    sequence axis is still refused."""
+    the same logits, and the recorded one differentiates. Without
+    context parallelism a sequence axis holds the same rows on each of
+    its ranks: the forward over it is the plain one, and the step builds;
+    pipeline stages that do not divide the layers raise JAX's message."""
     tm = tregistry.get_model("llama-1b", d_model=64, n_heads=4,
                              n_kv_heads=2, d_ff=64, n_layers=1,
                              vocab_size=32, dtype=torch.float32)
@@ -346,12 +363,17 @@ def test_remat_only_raises_under_autograd_and_mesh_raises():
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
     out.square().sum().backward()
     assert wq.grad is not None and wq.grad.abs().max() > 0
-    with pytest.raises(ValueError, match="not yet ported"):
-        ttransformer.hidden_states(params, tokens, tm.config,
-                                   mesh=SEQUENCE_MESH)
-    with pytest.raises(ValueError, match="not yet ported"):
-        ttrainer.build_train_step(tm, toptim.OptimizerConfig(),
-                                  mesh=SEQUENCE_MESH)
+    with torch.no_grad():
+        over = ttransformer.hidden_states(params, tokens, tm.config,
+                                          mesh=SEQUENCE_MESH)[0]
+        plain = ttransformer.hidden_states(params, tokens, tm.config)[0]
+    torch.testing.assert_close(over, plain, rtol=0, atol=0)
+    ttrainer.build_train_step(tm, toptim.OptimizerConfig(),
+                              mesh=SEQUENCE_MESH)
+    staged = dataclasses.replace(tm.config, pipeline_stages=3)
+    with pytest.raises(ValueError, match="not divisible by pipeline_stages"):
+        ttransformer.hidden_states(params, tokens, staged,
+                                   mesh=PIPELINE_MESH)
 
 
 def test_presets_carry_the_jax_training_fields():
@@ -359,7 +381,8 @@ def test_presets_carry_the_jax_training_fields():
 
     fields = ("remat", "remat_policy", "scan_layers", "attn_impl",
               "attn_block_k", "loss_chunks", "scan_group_size",
-              "context_parallel", "pipeline_stages")
+              "context_parallel", "pipeline_stages",
+              "pipeline_microbatches")
     for name, jcfg in jtransformer.PRESETS.items():
         tcfg = ttransformer.PRESETS[name]
         for f in fields:
