@@ -4,10 +4,12 @@ serving replica; counterpart of ``kubeflow_tpu/parallel/``.
 
 - :mod:`~kubeflow_tpu_torch.parallel.distributed`: the gang's rendezvous
   from the JaxJob controller's environment (one process per GPU) and the
-  host-side agreements (``global_any``, ``global_min_int``, ``barrier``).
+  host-side agreements (``global_any``, ``global_min_int``,
+  ``broadcast_object``, ``barrier``).
 - :mod:`~kubeflow_tpu_torch.parallel.mesh`: ``MeshConfig`` and its six
-  named axes as a ``DeviceMesh`` (``BATCH_AXES`` split the rows,
-  ``MODEL_AXES`` the leaves); ``serving_mesh``, the devices of a
+  named axes as a ``DeviceMesh`` over all the gang's ranks or its first
+  ones (``BATCH_AXES`` split the rows, ``MODEL_AXES`` the leaves);
+  ``serving_mesh``, the devices of a
   model-parallel serving replica, and ``TensorShards`` and
   ``PipelineStages``, its per-shard and per-stage values.
 - :mod:`~kubeflow_tpu_torch.parallel.sharding`: the partition rules, the
@@ -28,6 +30,9 @@ serving replica; counterpart of ``kubeflow_tpu/parallel/``.
   over the ``sequence`` ring.
 - :mod:`~kubeflow_tpu_torch.parallel.pipeline`: ``stage_layer_ranges``
   and ``pipeline_apply``, the GPipe schedule over ``pipeline``.
+- :mod:`~kubeflow_tpu_torch.parallel.reshard`: ``reshard_state``, a live
+  train state moved between two meshes bit for bit, and
+  ``scaled_mesh_config``, an elastic resize's mesh.
 - :mod:`~kubeflow_tpu_torch.parallel.launch`: a gang of N processes on one
   host with the JaxJob environment.
 

@@ -10,10 +10,11 @@ of ``JAX_NUM_PROCESSES`` processes holds that many devices. Each joins
 CPU. A single process joins nothing, as JAX's no-op rendezvous does.
 
 The agreements (:func:`global_any`, :func:`global_min_int`,
-:func:`barrier`) exchange host integers over a gloo group beside the main
-one, as JAX's ride the coordination service's key-value store: no device
-work and no CUDA sync enters the step. Every process must call each at the
-same point of its loop and the same number of times.
+:func:`broadcast_object`, :func:`barrier`) exchange host values over a
+gloo group beside the main one, as JAX's ride the coordination
+service's key-value store: no device work and no CUDA sync enters the
+step. Every process must call each at the same point of its loop and the
+same number of times.
 """
 
 from __future__ import annotations
@@ -94,14 +95,15 @@ def initialize_from_env(environ=None, *,
     The group is NCCL when this process's device (:func:`local_device`)
     is CUDA and gloo when it is the CPU, unless ``backend`` names one (two
     ranks on one GPU must take gloo: NCCL refuses them). Rank 0 listens at
-    the coordinator's address."""
+    the coordinator's address. A process that has joined already stays
+    in its group (two runs of the loop in one worker)."""
     info = process_info_from_env(environ)
     if info.is_multislice and not info.megascale_coordinator:
         raise RuntimeError(
             f"{ENV_NUM_SLICES}>1 but {ENV_MEGASCALE_COORDINATOR} is "
             "unset; the JaxJob controller must inject the DCN "
             "coordinator address")
-    if info.is_distributed:
+    if info.is_distributed and not dist.is_initialized():
         if not info.coordinator_address:
             raise RuntimeError(
                 f"{ENV_NUM_PROCESSES}>1 but {ENV_COORDINATOR_ADDRESS} is "
@@ -120,12 +122,14 @@ def initialize_from_env(environ=None, *,
 
 
 def initialize_gang(environ=None, *, device: str | torch.device = "cuda",
+                    backend: str | None = None,
                     timeout_s: float = DEFAULT_TIMEOUT_S) -> ProcessInfo:
     """:func:`initialize_from_env`, and a process group of this one rank
     when the environment names no gang (on a free local port), so a
     collective runs through NCCL or gloo at world size 1 too, as a psum
     over one device does in JAX."""
-    info = initialize_from_env(environ, device=device, timeout_s=timeout_s)
+    info = initialize_from_env(environ, device=device, backend=backend,
+                               timeout_s=timeout_s)
     if not dist.is_initialized():
         from kubeflow_tpu_torch.parallel.launch import free_port
 
@@ -133,7 +137,7 @@ def initialize_gang(environ=None, *, device: str | torch.device = "cuda",
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         dist.init_process_group(
-            "nccl" if dev.type == "cuda" else "gloo",
+            backend or ("nccl" if dev.type == "cuda" else "gloo"),
             init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
             rank=0, timeout=datetime.timedelta(seconds=timeout_s))
     return info
@@ -188,6 +192,16 @@ def global_min_int(value: int, *, timeout_ms: int = 60_000) -> int:
     if world_size() <= 1:
         return int(value)
     return _all_reduce_int(value, dist.ReduceOp.MIN, timeout_ms)
+
+
+def broadcast_object(value, src: int = 0):
+    """Rank ``src``'s ``value`` (any picklable object) on every process,
+    over the host group; a single process returns its own."""
+    if world_size() <= 1:
+        return value
+    box = [value]
+    dist.broadcast_object_list(box, src=src, group=_side_group())
+    return box[0]
 
 
 def barrier(name: str = "barrier") -> None:

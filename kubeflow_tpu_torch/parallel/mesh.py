@@ -6,8 +6,15 @@ the same ``MeshConfig``, built as a ``torch.distributed.device_mesh.
 DeviceMesh`` over the running process group: rank ``r`` sits where JAX's
 CPU branch puts device ``r``, the plain row-major reshape (the TPU torus
 placement of ``arrange_devices`` has no counterpart on GPUs). Collectives
-over a single axis use the mesh's own groups; a group over several axes
-(the batch's ``("data", "fsdp")``) is created by :func:`axis_group`.
+over a single axis use the mesh's own groups; the groups over several
+axes (the batch's ``("data", "fsdp")``) are created with the mesh and
+found by :func:`axis_group`.
+
+A mesh may hold only some ranks of the process group (``ranks=``; an
+elastic run's mesh after it shrinks, JAX's ``devices=jax.devices()[:n]``):
+every rank builds it all the same, and a rank outside it
+(:func:`is_member` False) holds no group of it and runs none of its
+collectives. :func:`destroy_mesh` frees a replaced mesh's groups.
 
 Every axis trains; a family refuses the axes it does not run over with
 :func:`require_axes`. The batch is sharded over :data:`BATCH_AXES` (and
@@ -21,8 +28,9 @@ hold its per-shard and per-stage values.
 
 from __future__ import annotations
 
+import itertools
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -61,6 +69,11 @@ class MeshConfig:
     expert: int = 1
     sequence: int = 1
     tensor: int = 1
+    # Axes that must map onto one slice's interconnect (the operator's
+    # topology allocator reads them); only an elastic resize carries them
+    # over (parallel/reshard.py:scaled_mesh_config).
+    ici_axes: tuple[str, ...] = field(
+        default=(AXIS_EXPERT, AXIS_SEQUENCE, AXIS_TENSOR), repr=False)
 
     def degrees(self) -> dict[str, int]:
         return {
@@ -125,26 +138,67 @@ def arrange_ranks(config: MeshConfig | None, n: int, *,
 
 def build_mesh(config: MeshConfig | None = None, *,
                device_type: str | None = None,
-               num_slices: int | None = None):
-    """A ``DeviceMesh`` over every rank of the running process group, with
-    the six axis names. ``device_type`` defaults to ``"cuda"`` under NCCL
-    and ``"cpu"`` otherwise; each process must have set its device first.
-    Every rank must call this at the same point."""
+               num_slices: int | None = None, ranks=None):
+    """A ``DeviceMesh`` with the six axis names over the ranks ``ranks``
+    of the running process group (default: every rank), placed as
+    :func:`arrange_ranks` places ``0..n-1`` (``ranks=range(n)``: the first
+    ``n``, as JAX's ``build_mesh(..., devices=jax.devices()[:n])`` takes
+    them). ``device_type`` defaults to ``"cuda"`` under NCCL and ``"cpu"``
+    otherwise; each process must have set its device first.
+
+    Every rank of the process group must call this at the same point,
+    members of the mesh or not: its groups are created by all of them
+    together. A rank outside the mesh holds none of them
+    (:func:`is_member` is False there); :func:`destroy_mesh` frees a mesh
+    that is replaced."""
     from torch.distributed.device_mesh import DeviceMesh
 
     if not dist.is_initialized():
         raise RuntimeError("build_mesh needs a running process group "
                            "(parallel.distributed.initialize_from_env)")
-    ranks = arrange_ranks(config, dist.get_world_size(),
-                          num_slices=num_slices)
+    world = dist.get_world_size()
+    ranks = list(range(world)) if ranks is None else [int(r) for r in ranks]
+    if not ranks or len(set(ranks)) != len(ranks) or \
+            not all(0 <= r < world for r in ranks):
+        raise ValueError(f"mesh ranks {ranks} are not distinct ranks of "
+                         f"the process group of {world}")
+    placed = np.asarray(ranks)[arrange_ranks(config, len(ranks),
+                                             num_slices=num_slices)]
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    mesh = DeviceMesh(device_type, torch.from_numpy(ranks),
+    mesh = DeviceMesh(device_type, torch.from_numpy(placed),
                       mesh_dim_names=MESH_AXES)
-    # Every rank creates the multi-axis groups here, together.
-    axis_group(mesh, BATCH_AXES)
-    axis_group(mesh, MODEL_AXES)
+    _create_groups(mesh)
     return mesh
+
+
+def is_member(mesh) -> bool:
+    """Whether this rank holds a place in ``mesh`` (no mesh: one process,
+    always)."""
+    return mesh is None or mesh.get_coordinate() is not None
+
+
+def mesh_ranks(mesh) -> list[int]:
+    """The mesh's ranks, in row-major order of its array."""
+    return mesh.mesh.reshape(-1).tolist()
+
+
+def destroy_mesh(mesh) -> None:
+    """Free the process groups this rank holds of ``mesh`` (its axes' and
+    the multi-axis ones), never the default group. Every rank calls it
+    when a mesh is replaced (an elastic resize), so a gang that resizes
+    many times does not pile groups up; the mesh must not be used after."""
+    groups = [g for key, g in list(_GROUPS.items()) if key[0] is mesh]
+    for key in [key for key in _GROUPS if key[0] is mesh]:
+        del _GROUPS[key]
+    if is_member(mesh):
+        groups += [mesh.get_group(a) for a in MESH_AXES]
+    seen = set()
+    for group in groups:
+        if group is None or group is dist.group.WORLD or id(group) in seen:
+            continue
+        seen.add(id(group))
+        dist.destroy_process_group(group)
 
 
 def single_device_mesh(device_type: str | None = None):
@@ -175,10 +229,20 @@ def tensor_mesh(mesh):
     return None
 
 
-def axis_index(mesh, axes) -> int:
-    """This rank's index along ``axes`` taken together, the first axis
-    major (the order a spec entry ``("data", "fsdp")`` shards in)."""
-    coords = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+def rank_coordinate(mesh, rank: int | None = None) -> tuple[int, ...] | None:
+    """The coordinates of ``rank`` (default: this rank) in the mesh's
+    array, or None when it holds no place there."""
+    if rank is None:
+        return mesh.get_coordinate()
+    hit = (mesh.mesh == rank).nonzero()
+    return tuple(hit[0].tolist()) if len(hit) else None
+
+
+def axis_index(mesh, axes, rank: int | None = None) -> int:
+    """The index of ``rank`` (default: this rank) along ``axes`` taken
+    together, the first axis major (the order a spec entry ``("data",
+    "fsdp")`` shards in)."""
+    coords = dict(zip(mesh.mesh_dim_names, rank_coordinate(mesh, rank)))
     index = 0
     for a in _names(axes):
         index = index * mesh_degrees(mesh)[a] + coords[a]
@@ -188,28 +252,46 @@ def axis_index(mesh, axes) -> int:
 _GROUPS: dict = {}
 
 
+def _live_axes(mesh, names) -> tuple[str, ...]:
+    """``names`` without the axes of degree 1, which group nothing."""
+    degrees = mesh_degrees(mesh)
+    return tuple(a for a in names if degrees[a] > 1)
+
+
+def _create_groups(mesh) -> None:
+    """The groups of peers along every combination of two or more of the
+    mesh's axes of degree above 1 (an axis of degree 1 changes no group,
+    so these are all the groups :func:`axis_group` can be asked for). All
+    ranks of the process group create them together, members of the mesh
+    or not (collective creation), each keeping the ones it belongs to."""
+    live = _live_axes(mesh, MESH_AXES)
+    me = dist.get_rank()
+    for k in range(2, len(live) + 1):
+        for names in itertools.combinations(live, k):
+            dims = [mesh.mesh_dim_names.index(a) for a in names]
+            rest = [d for d in range(mesh.mesh.ndim) if d not in dims]
+            # Peers share every coordinate but those of `names`; their
+            # ranks in the order of `names`, the first major.
+            grid = mesh.mesh.permute(*rest, *dims).reshape(-1, math.prod(
+                mesh.mesh.shape[d] for d in dims))
+            _GROUPS[(mesh, names)] = None
+            for ranks in grid.tolist():
+                group = dist.new_group(ranks)
+                if me in ranks:
+                    _GROUPS[(mesh, names)] = group
+
+
 def axis_group(mesh, axes):
     """The process group of this rank's peers along ``axes`` (a name or a
-    tuple): the mesh's own group for one axis; for several, a group made
-    the first time they are asked for, by every rank at once (collective
-    creation), each keeping the one it belongs to."""
+    tuple), the axes of degree 1 left out: the mesh's own group for one
+    axis, for several the group :func:`build_mesh` made."""
     names = _names(axes)
-    if len(names) == 1:
-        return mesh.get_group(names[0])
-    key = (mesh, names)
-    if key not in _GROUPS:
-        dims = [mesh.mesh_dim_names.index(a) for a in names]
-        rest = [d for d in range(mesh.mesh.ndim) if d not in dims]
-        # Peers share every coordinate but those of `names`; their ranks
-        # in the order of `names`, the first major.
-        grid = mesh.mesh.permute(*rest, *dims).reshape(-1, math.prod(
-            mesh.mesh.shape[d] for d in dims))
-        me = dist.get_rank()
-        for ranks in grid.tolist():
-            group = dist.new_group(ranks)
-            if me in ranks:
-                _GROUPS[key] = group
-    return _GROUPS[key]
+    live = _live_axes(mesh, names)
+    if len(live) <= 1:
+        return mesh.get_group(live[0] if live else names[0])
+    # A group's members are the same whatever the order of its axes (its
+    # ranks are ordered by rank).
+    return _GROUPS[(mesh, tuple(sorted(live, key=MESH_AXES.index)))]
 
 
 def require_axes(mesh, allowed: tuple[str, ...], what: str) -> None:

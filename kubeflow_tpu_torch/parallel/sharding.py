@@ -148,16 +148,18 @@ class DimShard:
         return max(0, min(self.chunk, self.size - self.index * self.chunk))
 
 
-def dim_shards(shape, spec: tuple, mesh) -> list[DimShard]:
+def dim_shards(shape, spec: tuple, mesh, rank: int | None = None
+               ) -> list[DimShard]:
     """The sharded dims of a leaf of ``shape`` under ``spec`` (every dim
-    whose entry names an axis, at any degree)."""
+    whose entry names an axis, at any degree), on ``rank`` (default: this
+    rank)."""
     out = []
     for dim, entry in enumerate(spec):
         axes = _entry_axes(entry)
         if axes:
             out.append(DimShard(dim, axes, int(shape[dim]),
                                 axis_size(mesh, axes),
-                                axis_index(mesh, axes)))
+                                axis_index(mesh, axes, rank)))
     return out
 
 

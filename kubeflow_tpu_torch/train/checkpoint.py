@@ -160,7 +160,9 @@ class Checkpointer:
         exists already is replaced only with ``force``. Over a mesh every
         rank calls it, at the same step; the ranks agree on whether the
         step exists before any of them goes on, so rank 0's commit never
-        races another rank's look at the directory."""
+        races another rank's look at the directory. A rank outside a mesh
+        that holds only some ranks of the gang passes ``state`` None: it
+        takes part in the agreement and the commit's barrier only."""
         self._raise_writer_error()
         if not force and global_any(step in self._issued
                                     or step in _steps(self.ckpt_dir)):
@@ -171,6 +173,8 @@ class Checkpointer:
             state = state.layout.gather_state(state)
         if rank() != 0:
             return
+        if state is None:
+            raise ValueError("rank 0 holds no state to save")
         flat = state_to_numpy(state, self.opt_cfg)  # the host snapshot
         if not self.async_saves:
             _commit(self.ckpt_dir, step, flat, self.max_to_keep)
@@ -196,11 +200,14 @@ class Checkpointer:
 
     def restore_latest(self, like) -> tuple[object, int] | None:
         """(state, step) of the newest committed step, on ``like``'s device
-        and in its leaf order, or None when there is none."""
+        and in its leaf order, or None when there is none. ``like`` None
+        (a rank outside the mesh) reads only the step: (None, step)."""
         self.wait()
         steps = _steps(self.ckpt_dir)
         if not steps:
             return None
+        if like is None:
+            return None, steps[-1]
         return restore(self.ckpt_dir, steps[-1], like, self.opt_cfg), \
             steps[-1]
 

@@ -35,11 +35,20 @@ for the transformer family only, as in JAX; ``profile_dir`` writes a
 ``profile_start_step`` (counted from the first step this run takes), on
 process 0.
 
-Not yet ported, and refused at the start of :func:`run` before any step:
-elastic resharding (``elastic_poll_steps``) and the job-status publish
-that the job's environment (``KUBEFLOW_TPU_JOB_NAME``) asks for. A family
-refuses the axes it does not train over before any step (BERT and ResNet:
-sequence and pipeline).
+Elastic resharding (``elastic_poll_steps``, or a ``mesh_source`` a caller
+injects): the loop polls the scheduler's grant (``train/elastic.py``),
+agrees on it over the gang and, on a new feasible target, drains the
+prefetcher, saves the reshard step (with ``checkpoint_dir``), moves the
+live state onto a mesh of the gang's first ``target`` ranks bit for bit
+(``parallel/reshard.py``; the data axis absorbs the resize), rebuilds the
+step and re-anchors the stream at that step. The ranks outside the mesh
+stay in the loop: they join every agreement (the SIGTERM stop each step,
+the target each poll) and every save's barrier, hold no shard, launch
+nothing, and return the same result. With the job's environment
+(``KUBEFLOW_TPU_JOB_NAME``) process 0 publishes the final metrics into
+the job's ``status.metrics`` (``k8s_client.py``). A family refuses the
+axes it does not train over before any step (BERT and ResNet: sequence
+and pipeline).
 """
 
 from __future__ import annotations
@@ -55,13 +64,16 @@ from dataclasses import dataclass, field
 import torch
 import torch.distributed as dist
 
+from kubeflow_tpu_torch import apis
 from kubeflow_tpu_torch.models.registry import get_model
 from kubeflow_tpu_torch.observability.metrics import Histogram
 from kubeflow_tpu_torch.parallel.distributed import (
+    broadcast_object,
     global_any,
     initialize_from_env,
     local_device,
     shutdown,
+    world_size,
 )
 from kubeflow_tpu_torch.parallel.mesh import (
     AXIS_SEQUENCE,
@@ -71,7 +83,9 @@ from kubeflow_tpu_torch.parallel.mesh import (
     axis_index,
     axis_size,
     build_mesh,
+    is_member,
 )
+from kubeflow_tpu_torch.train import elastic as elastic_lib
 from kubeflow_tpu_torch.train.checkpoint import Checkpointer
 from kubeflow_tpu_torch.train.data import (
     local_tokens,
@@ -86,9 +100,6 @@ from kubeflow_tpu_torch.train.trainer import (
     build_train_step,
     init_state,
 )
-
-# The job-status environment of kubeflow_tpu/apis/jobs.py (copied name).
-ENV_JOB_NAME = "KUBEFLOW_TPU_JOB_NAME"
 
 
 @dataclass
@@ -107,6 +118,8 @@ class RunConfig:
     prefetch: int = 2
     # Gradient accumulation over this many microbatches of batch_size.
     accum_steps: int = 1
+    # Poll the scheduler's placement grant every this many steps and
+    # reshard onto a changed one (train/elastic.py); 0 = a fixed mesh.
     elastic_poll_steps: int = 0
     # KTPU token-corpus file (train.tokenstore); empty = synthetic data.
     data_path: str | None = None
@@ -125,26 +138,47 @@ class RunConfig:
     device: str = "cuda"
 
 
-def _refuse_unported(cfg: RunConfig, environ) -> None:
-    def no(what):
-        raise ValueError(f"{what} is not yet ported to the PyTorch package")
+def _first_mesh(info, device, mesh_cfg, mesh_source, log):
+    """The run's first mesh: over every rank of the gang (None for one
+    process), or with an elastic source over the first ranks its agreed
+    grant names (a grant that cannot map is logged and ignored)."""
+    world = world_size()
+    num_slices = info.num_slices if info.is_multislice else None
+    if mesh_source is not None:
+        target = elastic_lib.agreed_target(mesh_source(), world)
+        n = min(target or world, world)
+        try:
+            first = elastic_lib.scaled_mesh_config(mesh_cfg, n)
+            if not dist.is_initialized():
+                first.resolve(1)
+                return None
+            return build_mesh(first, device_type=device.type,
+                              ranks=range(n))
+        except ValueError as e:
+            log(f"ignoring initial elastic grant of {n} device(s): {e}")
+    if not dist.is_initialized():
+        mesh_cfg.resolve(1)  # one device: every degree must be 1
+        return None
+    return build_mesh(mesh_cfg, device_type=device.type,
+                      num_slices=num_slices)
 
-    if cfg.elastic_poll_steps:
-        no("elastic resharding (elastic_poll_steps)")
-    unknown = set(cfg.mesh) - set(MESH_AXES)
-    if unknown:
-        raise ValueError(f"unknown mesh axes {sorted(unknown)}")
-    if environ.get(ENV_JOB_NAME):
-        no(f"publishing metrics into the job status ({ENV_JOB_NAME} is "
-           "set)")
 
-
-def run(cfg: RunConfig, *, log=print, environ=None) -> dict:
+def run(cfg: RunConfig, *, log=print, environ=None,
+        mesh_source=None) -> dict:
     """Train; returns the final metrics {step, loss, samples_per_sec, ...}
     with the JAX loop's keys. ``environ`` (default ``os.environ``) holds
-    the gang's and the job's variables."""
+    the gang's and the job's variables.
+
+    ``mesh_source`` (tests and the card's check inject it;
+    ``elastic_poll_steps`` builds the placement poller for
+    operator-launched pods) is a zero-argument callable returning the
+    current target device count, or None for "no signal": the loop
+    reshards at the next poll when the gang-agreed target differs from
+    the running mesh."""
     env = os.environ if environ is None else environ
-    _refuse_unported(cfg, env)
+    unknown = set(cfg.mesh) - set(MESH_AXES) - {"ici_axes"}
+    if unknown:
+        raise ValueError(f"unknown mesh axes {sorted(unknown)}")
     model = get_model(cfg.model, **cfg.model_overrides)
     if cfg.data_path and model.family != "transformer":
         raise ValueError(f"data_path holds language-model tokens; the "
@@ -152,27 +186,20 @@ def run(cfg: RunConfig, *, log=print, environ=None) -> dict:
                          "batches")
     info = initialize_from_env(env, device=cfg.device)
     device = local_device(info, cfg.device)
-    mesh_cfg = MeshConfig(**cfg.mesh)
-    if dist.is_initialized():
-        mesh = build_mesh(mesh_cfg, device_type=device.type,
-                          num_slices=info.num_slices
-                          if info.is_multislice else None)
-    else:
-        mesh_cfg.resolve(1)  # one device: every degree must be 1
-        mesh = None
     if info.process_id != 0:
         log = _silent
-    generator = torch.Generator(device=device).manual_seed(cfg.seed)
-    state = init_state(generator, model, cfg.optimizer, mesh, device=device)
-    start_step = 0
+    if mesh_source is None and cfg.elastic_poll_steps > 0:
+        mesh_source = elastic_lib.placement_device_source(environ=env)
+    if mesh_source is not None and info.is_multislice:
+        log("elastic resharding is single-slice only; ignoring the "
+            "placement poller on this multislice gang")
+        mesh_source = None
+    mesh_cfg = MeshConfig(**cfg.mesh)
+    mesh = _first_mesh(info, device, mesh_cfg, mesh_source, log)
     ckpt = None
     if cfg.checkpoint_dir:
         ckpt = Checkpointer(cfg.checkpoint_dir, cfg.optimizer,
                             async_saves=cfg.checkpoint_async)
-        restored = ckpt.restore_latest(state)
-        if restored is not None:
-            state, start_step = restored
-            log(f"resumed from checkpoint step {start_step}")
 
     # Kubernetes evictions deliver SIGTERM with a grace period: finish the
     # step in flight and save it. (Only the main thread may register; the
@@ -187,8 +214,8 @@ def run(cfg: RunConfig, *, log=print, environ=None) -> dict:
         except ValueError:
             prev_handler = None  # not the main thread
     try:
-        return _train(cfg, info, model, device, mesh, state, start_step,
-                      ckpt, stop_requested, log)
+        return _train(cfg, info, model, device, mesh, mesh_cfg, ckpt,
+                      stop_requested, log, env, mesh_source)
     finally:
         if prev_handler is not None:
             signal.signal(signal.SIGTERM, prev_handler)
@@ -196,6 +223,23 @@ def run(cfg: RunConfig, *, log=print, environ=None) -> dict:
 
 def _silent(*_args) -> None:
     pass
+
+
+def _initial_state(cfg, model, device, mesh, ckpt, log):
+    """(state, start step): this rank's shards of the seeded init, or of
+    the newest checkpoint; a rank outside the mesh holds none (None) and
+    reads only the step."""
+    state = None
+    if is_member(mesh):
+        generator = torch.Generator(device=device).manual_seed(cfg.seed)
+        state = init_state(generator, model, cfg.optimizer, mesh,
+                           device=device)
+    if ckpt is not None:
+        restored = ckpt.restore_latest(state)
+        if restored is not None:
+            log(f"resumed from checkpoint step {restored[1]}")
+            return restored
+    return state, 0
 
 
 def _make_batches(cfg, info, model, device, mesh, stream_step, store):
@@ -262,20 +306,63 @@ def _stop_trace(prof, cfg, device, log) -> None:
     log(f"profiler trace written to {cfg.profile_dir}")
 
 
-def _train(cfg, info, model, device, mesh, state, start_step, ckpt,
-           stop_requested, log):
-    step_fn = build_train_step(model, cfg.optimizer, mesh,
-                               accum_steps=cfg.accum_steps)
+def _devices(mesh) -> int:
+    return 1 if mesh is None else mesh.mesh.numel()
+
+
+def _reshard_point(cfg, info, model, device, mesh, mesh_cfg, state, step,
+                   target, ckpt, prefetcher, store, log):
+    """Move the run onto ``target`` ranks at ``step`` (every rank of the
+    gang calls it): drain the prefetcher (its lookahead was placed for the
+    old mesh), save the reshard step with a checkpointer (the old mesh's
+    members gather it), move the state, rebuild the step and re-anchor the
+    stream. Returns the new (mesh, state, step_fn, batches, prefetcher)
+    and the event."""
+    t_rs = time.perf_counter()
+    if prefetcher is not None:
+        prefetcher.close()
+    if ckpt is not None:
+        # Crash safety across the move, and the restore-into-target run
+        # the bit-for-bit contract compares with.
+        ckpt.save(step, state, force=True)
+        ckpt.wait()
+    mesh, state, step_fn, stats = elastic_lib.reshard_train_state(
+        state, model, cfg.optimizer, mesh_cfg, target,
+        accum_steps=cfg.accum_steps, mesh=mesh)
+    batches, prefetcher = (_make_batches(
+        cfg, info, model, device, mesh, step * cfg.accum_steps, store)
+        if is_member(mesh) else (None, None))
+    event = stats.to_dict()
+    event["step"] = step
+    event["downtime_seconds"] = round(time.perf_counter() - t_rs, 6)
+    log(f"resharded {stats.direction} {stats.from_devices}->"
+        f"{stats.to_devices} devices at step {step} in "
+        f"{stats.seconds * 1e3:.0f}ms ({stats.method})")
+    return (mesh, state, step_fn, batches, prefetcher), event
+
+
+def _train(cfg, info, model, device, mesh, mesh_cfg, ckpt, stop_requested,
+           log, env, mesh_source=None):
+    # The state lives in this frame alone, so a rank that leaves the mesh
+    # frees it when the reshard hands it None.
+    state, start_step = _initial_state(cfg, model, device, mesh, ckpt, log)
+    member = is_member(mesh)
+    step_fn = (build_train_step(model, cfg.optimizer, mesh,
+                                accum_steps=cfg.accum_steps)
+               if member else None)
     # The stream position counts MICROBATCHES: an accumulating run resumed
     # at optimizer step N replays from microbatch N x accum_steps.
     store = TokenStore(cfg.data_path) if cfg.data_path else None
-    batches, prefetcher = _make_batches(
+    batches, prefetcher = (_make_batches(
         cfg, info, model, device, mesh, start_step * cfg.accum_steps, store)
+        if member else (None, None))
+    poll_steps = (cfg.elastic_poll_steps
+                  or (1 if mesh_source is not None else 0))
+    world = world_size()
     # SIGTERM reaches each pod at its own step, but the save is a
     # collective: in a gang the flag is agreed every step, so every
     # process stops (and saves) at the same step.
-    gang = cfg.graceful_shutdown and dist.is_initialized() \
-        and dist.get_world_size() > 1
+    gang = cfg.graceful_shutdown and world > 1
 
     metrics = {}
     t_start = time.perf_counter()
@@ -291,8 +378,33 @@ def _train(cfg, info, model, device, mesh, state, start_step, ckpt,
     steps_done = 0
     prof = None
     preempted_at = None
+    reshards = []
+    rejected_target = None
     try:
         for step in range(start_step, cfg.steps):
+            if (mesh_source is not None and poll_steps
+                    and (step - start_step) % poll_steps == 0):
+                # The poll cadence is deterministic in step, so every
+                # process enters the agreement the same number of times.
+                target = elastic_lib.agreed_target(mesh_source(), world)
+                if (target and target != _devices(mesh)
+                        and target != rejected_target):
+                    try:
+                        elastic_lib.scaled_mesh_config(mesh_cfg, target)
+                        if target > world:
+                            raise ValueError(
+                                f"only {world} device(s) in this gang")
+                    except ValueError as e:
+                        rejected_target = target
+                        log(f"ignoring reshard target {target}: {e}")
+                    else:
+                        rejected_target = None
+                        (mesh, state, step_fn, batches, prefetcher), event = \
+                            _reshard_point(cfg, info, model, device, mesh,
+                                           mesh_cfg, state, step, target,
+                                           ckpt, prefetcher, store, log)
+                        member = is_member(mesh)
+                        reshards.append(event)
             t_step = time.perf_counter()
             if cfg.profile_dir and info.process_id == 0:
                 if step - start_step == cfg.profile_start_step:
@@ -301,35 +413,36 @@ def _train(cfg, info, model, device, mesh, state, start_step, ckpt,
                       == cfg.profile_start_step + cfg.profile_steps):
                     _stop_trace(prof, cfg, device, log)
                     prof = None
-            # Host wait: time this step spent blocked on input.
-            t_fetch = time.perf_counter()
-            batch = next(batches)
-            host_wait = time.perf_counter() - t_fetch
-            host_wait_total += host_wait
-            host_wait_since += host_wait
-            state, metrics = step_fn(state, batch)
-            steps_done += 1
-            samples_since += samples_per_step
-            step_time = time.perf_counter() - t_step
-            step_hist.observe(step_time)
-            step_time_ema = (step_time if step_time_ema is None
-                             else 0.9 * step_time_ema + 0.1 * step_time)
-            if (step + 1) % cfg.log_every == 0 or step + 1 == cfg.steps:
-                loss = float(metrics["loss"])  # sync point
-                now = time.perf_counter()
-                window = now - t_last
-                throughput = samples_since / window
-                stall_pct = 100.0 * host_wait_since / max(window, 1e-9)
-                depth = (f" qdepth={prefetcher.qsize()}"
-                         if prefetcher is not None else "")
-                t_last, samples_since, host_wait_since = now, 0, 0.0
-                aux = (f" router_aux_loss="
-                       f"{float(metrics['router_aux_loss']):.6f}"
-                       if "router_aux_loss" in metrics else "")
-                log(f"step={step + 1} loss={loss:.4f} "
-                    f"grad_norm={float(metrics['grad_norm']):.4f}{aux} "
-                    f"samples/sec={throughput:.1f} "
-                    f"input_stall={stall_pct:.1f}%{depth}")
+            if member:
+                # Host wait: time this step spent blocked on input.
+                t_fetch = time.perf_counter()
+                batch = next(batches)
+                host_wait = time.perf_counter() - t_fetch
+                host_wait_total += host_wait
+                host_wait_since += host_wait
+                state, metrics = step_fn(state, batch)
+                steps_done += 1
+                samples_since += samples_per_step
+                step_time = time.perf_counter() - t_step
+                step_hist.observe(step_time)
+                step_time_ema = (step_time if step_time_ema is None
+                                 else 0.9 * step_time_ema + 0.1 * step_time)
+                if (step + 1) % cfg.log_every == 0 or step + 1 == cfg.steps:
+                    loss = float(metrics["loss"])  # sync point
+                    now = time.perf_counter()
+                    window = now - t_last
+                    throughput = samples_since / window
+                    stall_pct = 100.0 * host_wait_since / max(window, 1e-9)
+                    depth = (f" qdepth={prefetcher.qsize()}"
+                             if prefetcher is not None else "")
+                    t_last, samples_since, host_wait_since = now, 0, 0.0
+                    aux = (f" router_aux_loss="
+                           f"{float(metrics['router_aux_loss']):.6f}"
+                           if "router_aux_loss" in metrics else "")
+                    log(f"step={step + 1} loss={loss:.4f} "
+                        f"grad_norm={float(metrics['grad_norm']):.4f}{aux} "
+                        f"samples/sec={throughput:.1f} "
+                        f"input_stall={stall_pct:.1f}%{depth}")
             stop_now = bool(stop_requested)
             if gang:
                 stop_now = global_any(stop_now)
@@ -359,9 +472,14 @@ def _train(cfg, info, model, device, mesh, state, start_step, ckpt,
             ckpt.save(cfg.steps, state, force=True)
         ckpt.close()  # waits for pending commits
 
+    loss = float(metrics["loss"]) if metrics else None
+    if mesh_source is not None and world > 1:
+        # A rank outside the mesh, or one that left it, reports the loss
+        # of the mesh's last step, as every member does.
+        loss = broadcast_object(loss)
     result = {
         "step": preempted_at if preempted_at is not None else cfg.steps,
-        "loss": float(metrics["loss"]) if metrics else None,
+        "loss": loss,
         "samples_per_sec": throughput,
         "process_id": info.process_id,
         "preempted": preempted_at is not None,
@@ -374,21 +492,43 @@ def _train(cfg, info, model, device, mesh, state, start_step, ckpt,
         "step_time_p99_ms": round(1e3 * step_hist.quantile(0.99), 3),
         "prefetch_depth": cfg.prefetch,
         "accum_steps": cfg.accum_steps,
-        "devices": dist.get_world_size() if mesh is not None else 1,
-        "reshard_count": 0,
-        "reshards": [],
+        # One event a live move: direction, devices, the move's seconds
+        # and the whole downtime (drain, save, move, stream re-anchor).
+        "devices": _devices(mesh),
+        "reshard_count": len(reshards),
+        "reshards": reshards,
     }
     if info.process_id == 0 and preempted_at is None:
-        publish_metrics(result, log=log)
+        publish_metrics(result, environ=env, log=log)
     return result
 
 
-def publish_metrics(result: dict, *, log=print) -> None:
-    """The log-line form of the final metrics, for log-scraping
-    collectors (the job-status publish is not yet ported)."""
+def publish_metrics(result: dict, *, client=None, environ=None,
+                    log=print) -> None:
+    """Publish the final metrics into the owning job's ``status.metrics``
+    (the path the study and benchmark controllers read), after their log
+    line for log-scraping collectors. Without the job's environment
+    (``KUBEFLOW_TPU_JOB_NAME``) only the line; a failed publish is
+    logged, never raised (it must not stop a job that trained)."""
+    env = os.environ if environ is None else environ
     metrics = {k: v for k, v in result.items()
                if isinstance(v, (int, float)) and v is not None}
     log(f"kubeflow-tpu-metrics: {json.dumps(metrics)}")
+    name = env.get(apis.ENV_JOB_NAME)
+    if not name:
+        return
+    ns = env.get(apis.ENV_JOB_NAMESPACE, "default")
+    kind = env.get(apis.ENV_JOB_KIND, "JaxJob")
+    try:
+        if client is None:
+            from kubeflow_tpu_torch.k8s_client import HttpK8sClient
+
+            client = HttpK8sClient()
+        job = client.get(apis.JOBS_API_VERSION, kind, name, ns)
+        job.setdefault("status", {})["metrics"] = metrics
+        client.update_status(job)
+    except Exception as e:  # publishing must never stop training
+        log(f"metrics publish failed: {e}")
 
 
 def main(argv=None) -> int:

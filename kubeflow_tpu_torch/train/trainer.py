@@ -64,6 +64,8 @@ from kubeflow_tpu_torch.parallel.mesh import (
     MESH_AXES,
     MODEL_AXES,
     axis_size,
+    is_member,
+    mesh_ranks,
 )
 from kubeflow_tpu_torch.parallel.sharding import (
     ShardedLeaf,
@@ -131,12 +133,18 @@ class StateLayout:
 
     ``shapes``: each parameter's whole shape, in the state's leaf order;
     ``tokens``: the axes the batch's tokens are split over
-    (:func:`token_axes`)."""
+    (:func:`token_axes`).
+
+    A rank outside a mesh that holds only some ranks (an elastic run's
+    mesh after a shrink) may build its layout too: the specs and the
+    checks are the same, it holds no shard (``member`` False) and only
+    :mod:`kubeflow_tpu_torch.parallel.reshard` reads it."""
 
     def __init__(self, mesh, rules, shapes: dict[str, tuple],
                  tokens: tuple[str, ...] = BATCH_AXES):
         self.mesh = mesh
         self.tokens = tokens
+        self.member = is_member(mesh)
         self.shapes = {k: tuple(s) for k, s in shapes.items()}
         axes = tuple(a for a in TRAIN_AXES if axis_size(mesh, a) > 1)
         self.specs = {k: restrict(spec, axes)
@@ -145,8 +153,10 @@ class StateLayout:
         self._gathered = {k: restrict(spec, BATCH_AXES)
                           for k, spec in self.specs.items()}
         self._leaves: dict[str, ShardedLeaf] = {}
+        # Outside the mesh the checks run on the mesh's first rank.
+        at = None if self.member else mesh_ranks(mesh)[0]
         for k, spec in self.specs.items():
-            shards = dim_shards(self.shapes[k], spec, mesh)
+            shards = dim_shards(self.shapes[k], spec, mesh, at)
             if sum(1 for s in shards if not _on_model_axes(s)) > 1:
                 raise ValueError(f"{k}: a leaf sharded along more than one "
                                  "dim by the batch axes is not yet ported")
@@ -155,7 +165,7 @@ class StateLayout:
                     raise ValueError(
                         f"{k}: dim {s.dim} of {self.shapes[k]} is not "
                         f"divisible by the {'/'.join(s.axes)} degree {s.n}")
-            if shards:
+            if shards and self.member:
                 self._leaves[k] = ShardedLeaf(self.shapes[k], tuple(shards),
                                               mesh)
 
@@ -163,8 +173,14 @@ class StateLayout:
         return self._leaves.get(key)
 
     def _slot_spec(self, key: str, t: torch.Tensor) -> tuple:
+        return self.spec_of(key, t.ndim)
+
+    def spec_of(self, key: str, ndim: int) -> tuple:
+        """The spec of a leaf of ``ndim`` dims under parameter ``key``: the
+        parameter's, or replicated where it names more dims (JAX's rank
+        fallback, adafactor's factored moments)."""
         spec = self.specs[key]
-        return () if len(spec) > t.ndim else spec
+        return () if len(spec) > ndim else spec
 
     # The state, whole <-> this rank's shards.
 

@@ -10,23 +10,20 @@ size), sums each in place over every device of the gang (NCCL on the
 GPUs, gloo with ``--device cpu``; alone, a process group of one) and
 prints, on process 0, one JSON line a size with its time and the ring
 algorithm's bus bandwidth, ``2(n-1)/n x bytes / s`` (0 at n = 1), then
-the summary line and the ``kubeflow-tpu-metrics:`` log line. Publishing
-into the job's status (``KUBEFLOW_TPU_JOB_NAME`` set) is not yet ported
-and raises after the summary.
+the summary line and the ``kubeflow-tpu-metrics:`` log line; with the
+job's environment (``KUBEFLOW_TPU_JOB_NAME``) it publishes
+``{"allreduce_peak_gbps": best}`` into the job's ``status.metrics``
+(``train.loop.publish_metrics``: a failure is logged, never raised).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import os
 import sys
 import time
 
 from kubeflow_tpu_torch.workloads import strip_glog_args
-
-ENV_JOB_NAME = "KUBEFLOW_TPU_JOB_NAME"
-
 
 def _bench_one(n_elems: int, iters: int, mesh, device) -> dict:
     import torch
@@ -100,10 +97,6 @@ def main(argv=None) -> int:
         from kubeflow_tpu_torch.train.loop import publish_metrics
 
         publish_metrics({"allreduce_peak_gbps": best})
-        if os.environ.get(ENV_JOB_NAME):
-            raise ValueError(f"publishing metrics into the job status "
-                             f"({ENV_JOB_NAME} is set) is not yet ported "
-                             "to the PyTorch package")
     return 0
 
 

@@ -1122,3 +1122,126 @@ def test_pipeline_stages_run_the_flash_kernels_on_the_card(cuda, tmp_path):
         torch.testing.assert_close(torch.tensor(r["gang"]),
                                    torch.tensor(ranks[0]["one"]),
                                    rtol=1e-5, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# Elastic resharding on the card
+# ---------------------------------------------------------------------------
+
+
+def _trained_state(model, opt_cfg, mesh, dev, steps=2):
+    from kubeflow_tpu_torch.train import data, trainer
+
+    state = trainer.init_state(torch.Generator(device=dev).manual_seed(0),
+                               model, opt_cfg, mesh, device=dev)
+    step = trainer.build_train_step(model, opt_cfg, mesh)
+    for i in range(steps):
+        state, _ = step(state, data.place_batch(
+            data.synthetic_batch(model, 2, 64, seed=i), dev))
+    return state
+
+
+@pytest.mark.cuda
+def test_reshard_state_over_nccl_is_bit_for_bit(cuda):
+    """A one-rank NCCL group on cuda:0: a trained state moved from one mesh
+    of the rank to a new one is every leaf the same tensor, bit for bit,
+    and trains on."""
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.parallel import distributed, reshard
+    from kubeflow_tpu_torch.parallel import mesh as tmesh
+    from kubeflow_tpu_torch.train import trainer
+    from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
+    from kubeflow_tpu_torch.weights import flatten
+
+    model = get_model("lm-test-tiny", dtype=torch.float32, d_model=128,
+                      n_heads=2, n_kv_heads=1, d_ff=256)  # hd 64
+    opt_cfg = OptimizerConfig(name="adafactor", warmup_steps=1)
+    distributed.initialize_gang({}, device="cuda")
+    try:
+        old = tmesh.build_mesh(tmesh.MeshConfig(data=1), device_type="cuda")
+        state = _trained_state(model, opt_cfg, old, cuda)
+        before = {k: p.clone() for k, p in flatten(state.params).items()}
+        new = tmesh.build_mesh(tmesh.MeshConfig(data=1), device_type="cuda",
+                               ranks=[0])
+        rules = model.partition_rules(model.config)
+        res = reshard.reshard_state(state, state.layout, trainer.StateLayout(
+            new, rules, state.layout.shapes, trainer.token_axes(model)))
+        tmesh.destroy_mesh(old)
+        assert res.stats.method == "device" and res.tree.step == 2
+        for k, p in flatten(res.tree.params).items():
+            assert p.is_cuda and torch.equal(p, before[k]), k
+        step = trainer.build_train_step(model, opt_cfg, new)
+        from kubeflow_tpu_torch.train import data
+
+        _, met = step(res.tree, data.place_batch(
+            data.synthetic_batch(model, 2, 64, seed=9), cuda))
+        assert torch.isfinite(met["loss"])
+    finally:
+        distributed.shutdown()
+
+
+# One rank of a gloo gang of two on cuda:0: the loop's shrink 2 -> 1 at
+# step 2 of 4, each rank's allocated memory at the polls before steps 2
+# and 3, and the flash launches each rank made.
+SHRINK_WORKER = """
+import json, sys
+import torch
+from kubeflow_tpu_torch import kernels
+from kubeflow_tpu_torch.parallel.distributed import (initialize_from_env,
+    shutdown)
+from kubeflow_tpu_torch.train import loop
+out = sys.argv[1]
+info = initialize_from_env(device="cuda", backend="gloo", timeout_s=300)
+torch.cuda.set_device(0)
+calls, seen = [], {}
+
+def source():
+    calls.append(1)  # the first mesh's poll, then one a step
+    if len(calls) in (4, 5):  # the polls before steps 2 and 3
+        seen["before" if len(calls) == 4 else "after"] = \
+            torch.cuda.memory_allocated()
+    return 1 if len(calls) >= 4 else 2
+
+kernels.reset_launches()
+result = loop.run(loop.RunConfig(
+    model="lm-test-tiny", model_overrides={"dtype": "float32",
+    "d_model": 512, "d_ff": 1024, "n_heads": 4, "n_kv_heads": 2},
+    batch_size=2, seq_len=64, steps=4, log_every=1, device="cuda",
+    graceful_shutdown=False), log=lambda *a: None, mesh_source=source)
+json.dump({"result": result, "before": seen["before"],
+           "after": seen["after"], "launches": dict(kernels.LAUNCHES)},
+          open(out + f".{info.process_id}", "w"))
+shutdown()
+"""
+
+
+@pytest.mark.cuda
+def test_a_shrink_frees_the_leaving_rank_s_memory(cuda, tmp_path):
+    """A gloo gang of two on cuda:0 shrinks 2 -> 1 at step 2 of 4: rank 1
+    leaves the mesh and frees its shards (its allocated memory falls by
+    the whole state it held; what stays is the libraries' workspace),
+    launches nothing more (the flash forward a layer a step it trained),
+    and both ranks return the same loss."""
+    import json
+    import os
+    import sys
+
+    from kubeflow_tpu_torch.parallel.launch import launch
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = launch([sys.executable, "-c", SHRINK_WORKER,
+                    str(tmp_path / "out")], 2, cwd=root, timeout=300)
+    for i, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {i}:\n{p.stderr[-3000:]}"
+    ranks = [json.load(open(f"{tmp_path / 'out'}.{i}")) for i in range(2)]
+    for r in ranks:
+        assert r["result"]["reshard_count"] == 1
+        assert r["result"]["devices"] == 1
+        assert r["result"]["loss"] == ranks[0]["result"]["loss"]
+    layers = 2  # lm-test-tiny
+    assert ranks[0]["launches"]["flash_attention_fwd"] == layers * 4
+    assert ranks[1]["launches"]["flash_attention_fwd"] == layers * 2
+    # Rank 1 held the whole state (data 2) and frees all of it.
+    state_bytes = ranks[1]["result"]["reshards"][0]["bytes"]
+    assert ranks[1]["before"] - ranks[1]["after"] >= 0.9 * state_bytes
+    assert ranks[0]["after"] - ranks[1]["after"] >= 0.9 * state_bytes

@@ -14,11 +14,14 @@ workloads.
   every process, so the global batch is one process's batch twice, whose
   mean loss and gradient one process computes alone).
 - A SIGTERM to one rank: every rank stops and saves at the same step.
-- A sequence axis of 2 and elastic resharding raise "not yet ported" on
-  every rank before any step (the MoE gangs over every axis the port
-  trains: tests/test_torch_moe_parallel.py).
+- BERT over a sequence axis of 2 raises "not yet ported" on every rank
+  before any step (the MoE gangs over every axis the port trains:
+  tests/test_torch_moe_parallel.py).
+- An elastic gang (``elastic_poll_steps``) starts on the job's grant read
+  from JAX's fake apiserver over HTTP: one rank of two.
 - The allreduce smoke test, the bandwidth benchmark and the DDP workload
-  print the JAX workloads' JSON at 2 ranks.
+  print the JAX workloads' JSON at 2 ranks; the benchmark publishes its
+  peak into the job's status.
 
 Tolerances are ``tests/test_torch_train.py``'s (float32 with sums in
 another order): losses 1e-5 relative, states 1e-4 relative and 1e-5
@@ -201,8 +204,7 @@ def test_sigterm_to_one_rank_stops_every_rank_at_one_step(tmp_path):
     # The transformer trains over sequence (tests/test_torch_pipeline.py);
     # BERT does not yet.
     ("bert-test-tiny", {"mesh": {"data": 1, "sequence": 2}}),
-    ("lm-test-tiny", {"mesh": {"data": 2}, "elastic_poll_steps": 5}),
-], ids=["sequence2", "elastic"])
+], ids=["sequence2"])
 def test_unported_gangs_refuse_before_any_step(model, extra):
     cfg = dict(model=model, batch_size=2, seq_len=8, steps=2, log_every=1,
                device="cpu", **extra)
@@ -211,6 +213,56 @@ def test_unported_gangs_refuse_before_any_step(model, extra):
         assert p.returncode != 0
         assert "not yet ported" in p.stderr
         assert "step=" not in p.stdout
+
+
+def _served_job(annotations=None):
+    """JAX's fake apiserver over HTTP holding the JaxJob ``ej`` in
+    ``default``; the caller shuts it down."""
+    from kubeflow_tpu.apis import jobs as jobs_api
+    from kubeflow_tpu.k8s.fake import FakeApiServer
+    from kubeflow_tpu.k8s.httpfake import serve
+
+    fake = FakeApiServer()
+    fake.ensure_namespace("default")
+    for crd in jobs_api.all_job_crds():
+        fake.create(crd)
+    fake.create({
+        "apiVersion": jobs_api.JOBS_API_VERSION, "kind": "JaxJob",
+        "metadata": {"name": "ej", "namespace": "default",
+                     "annotations": annotations or {}},
+        "spec": {"replicaSpecs": {"Worker": {
+            "replicas": 1, "template": {"spec": {"containers": [
+                {"name": "main", "image": "i"}]}}}}}})
+    httpd, port = serve(fake)
+    return fake, httpd, f"http://127.0.0.1:{port}"
+
+
+def test_elastic_gang_starts_on_its_grant():
+    """``elastic_poll_steps`` in a gang of two started as a user starts it:
+    the job's grant (1 of 2 hosts, read over HTTP from the apiserver the
+    environment names) makes the first mesh one rank; rank 1 stays in the
+    loop outside it and both return the same result."""
+    from kubeflow_tpu.apis import scheduling as sched_api
+
+    fake, httpd, host = _served_job({
+        sched_api.ANN_PLACEMENT: sched_api.encode_placement(
+            "gpu", "1x2", "s0", ["h0"], "t0",
+            elastic={"granted": 1, "min": 1, "max": 2})})
+    cfg = dict(model="lm-test-tiny", batch_size=2, seq_len=8, steps=2,
+               log_every=1, device="cpu", mesh={"data": 2},
+               elastic_poll_steps=5)
+    try:
+        procs = _ok(_gang(LOOP + [json.dumps(cfg)], 2,
+                          KUBEFLOW_TPU_JOB_NAME="ej",
+                          KUBEFLOW_TPU_APISERVER=host))
+    finally:
+        httpd.shutdown()
+    results = [_result(p) for p in procs]
+    for r in results:
+        assert r["devices"] == 1 and r["reshard_count"] == 0
+        assert r["step"] == 2 and r["loss"] == results[0]["loss"]
+    assert sum(line.startswith("step=")
+               for line in procs[0].stdout.splitlines()) == 2
 
 
 def test_allreduce_workloads_at_two_ranks():
@@ -244,14 +296,31 @@ def test_allreduce_workloads_at_two_ranks():
     assert bench[1].stdout.strip() == ""  # only process 0 prints
 
 
-def test_allreduce_bench_refuses_the_job_status_publish():
-    proc = subprocess.run(
-        [sys.executable, "-m", "kubeflow_tpu_torch.workloads.allreduce_bench",
-         "--device", "cpu", "--max-elems", "1024", "--iters", "1"],
-        cwd=ROOT, env=_env(KUBEFLOW_TPU_JOB_NAME="job"), capture_output=True,
-        text=True, timeout=GANG_TIMEOUT_S)
-    assert proc.returncode != 0 and "not yet ported" in proc.stderr
-    assert '"metric": "allreduce_peak_bandwidth"' in proc.stdout
+def test_allreduce_bench_publishes_the_job_status():
+    """With the job's environment the benchmark writes its peak into the
+    job's status.metrics (its apiserver client pointed at JAX's fake
+    apiserver over HTTP)."""
+    fake, httpd, host = _served_job()
+    code = ("import sys; from kubeflow_tpu_torch import k8s_client; "
+            f"k8s_client.ClusterConfig.__init__.__defaults__ = ({host!r}, "
+            "None, True); from kubeflow_tpu_torch.workloads import "
+            "allreduce_bench; sys.exit(allreduce_bench.main(sys.argv[1:]))")
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", code, "--device", "cpu", "--max-elems",
+             "1024", "--iters", "1"],
+            cwd=ROOT, env=_env(KUBEFLOW_TPU_JOB_NAME="ej"),
+            capture_output=True, text=True, timeout=GANG_TIMEOUT_S)
+    finally:
+        httpd.shutdown()
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    summary = json.loads([line for line in proc.stdout.splitlines()
+                          if line.startswith("{")][-1])
+    assert summary["metric"] == "allreduce_peak_bandwidth"
+    job = fake.get("kubeflow-tpu.org/v1", "JaxJob", "ej", "default")
+    assert job["status"]["metrics"] == {
+        "allreduce_peak_gbps": summary["value"]}
+    assert "publish failed" not in proc.stdout
 
 
 def test_ddp_workload_at_two_ranks():
@@ -276,7 +345,7 @@ def test_ddp_workload_at_two_ranks():
 
 
 @pytest.mark.parametrize("module", ["allreduce_smoke", "allreduce_bench",
-                                    "torch_xla_ddp"])
+                                    "torch_xla_ddp", "tf_cnn"])
 def test_workloads_raise_without_cuda_unless_asked_for_the_cpu(module):
     """The workloads run on CUDA by default; on a host without it they
     raise (no silent move to the CPU) unless ``--device cpu`` is given."""

@@ -282,27 +282,97 @@ def test_loop_main_needs_cuda_unless_asked_for_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("elastic_poll_steps", 5), ("elastic_poll_steps", 1),
     ("mesh", {"sequence": 2}), ("mesh", {"pipeline": 2}),
 ])
 def test_loop_refuses_unported_options_before_any_step(field, value):
-    """Elastic resharding is still to come (checkpoints, the token store
-    and the profiler now run: tests/test_torch_checkpoint.py; every mesh
-    axis in gangs: tests/test_torch_distributed_*.py,
-    tests/test_torch_moe_parallel.py and tests/test_torch_pipeline.py). A
-    sequence or pipeline mesh of two needs a gang of two: one process
-    refuses it, as JAX's MeshConfig does, before any step."""
+    """A sequence or pipeline mesh of two needs a gang of two: one process
+    refuses it, as JAX's MeshConfig does, before any step (every option
+    of the loop now runs: checkpoints, the token store and the profiler,
+    tests/test_torch_checkpoint.py; every mesh axis in gangs,
+    tests/test_torch_distributed_*.py, tests/test_torch_moe_parallel.py
+    and tests/test_torch_pipeline.py; elastic resharding and the
+    job-status publish below and in tests/test_torch_elastic*.py)."""
     cfg = tloop.RunConfig(device="cpu", steps=1, **{field: value})
-    match = "not yet ported" if field != "mesh" else \
-        "1 devices not divisible by fixed axes product 2"
+    match = "1 devices not divisible by fixed axes product 2"
     with pytest.raises(ValueError, match=match):
         tloop.run(cfg, log=lambda *a: None)
 
 
-def test_loop_refuses_the_job_status_environment():
-    with pytest.raises(ValueError, match="not yet ported"):
-        tloop.run(tloop.RunConfig(device="cpu", steps=1),
-                  environ={"KUBEFLOW_TPU_JOB_NAME": "job"})
+def _served_job(annotations=None):
+    """JAX's fake apiserver over HTTP holding the JaxJob ``ej`` in
+    ``default`` (with ``annotations``), and the job's environment for the
+    loop; the caller shuts the server down."""
+    from kubeflow_tpu.apis import jobs as jobs_api
+    from kubeflow_tpu.k8s.fake import FakeApiServer
+    from kubeflow_tpu.k8s.httpfake import serve
+
+    fake = FakeApiServer()
+    fake.ensure_namespace("default")
+    for crd in jobs_api.all_job_crds():
+        fake.create(crd)
+    fake.create({
+        "apiVersion": jobs_api.JOBS_API_VERSION, "kind": "JaxJob",
+        "metadata": {"name": "ej", "namespace": "default",
+                     "annotations": annotations or {}},
+        "spec": {"replicaSpecs": {"Worker": {
+            "replicas": 1, "template": {"spec": {"containers": [
+                {"name": "main", "image": "i"}]}}}}}})
+    httpd, port = serve(fake)
+    host = f"http://127.0.0.1:{port}"
+    return fake, httpd, host, {"KUBEFLOW_TPU_JOB_NAME": "ej",
+                               "KUBEFLOW_TPU_APISERVER": host}
+
+
+def _publish_to(monkeypatch, host):
+    """Point the default apiserver client (the publish's) at ``host``."""
+    from kubeflow_tpu_torch import k8s_client
+
+    monkeypatch.setattr(k8s_client.ClusterConfig.__init__, "__defaults__",
+                        (host, None, True))
+
+
+@pytest.mark.parametrize("poll", [5, 1])
+def test_loop_polls_the_placement_grant(poll, monkeypatch):
+    """``elastic_poll_steps`` builds the placement poller: the first mesh
+    and every ``poll`` steps read the job's grant (1 of 1: the one device
+    this process is), so nothing reshards."""
+    from kubeflow_tpu.apis import scheduling as sched_api
+
+    fake, httpd, host, env = _served_job({
+        sched_api.ANN_PLACEMENT: sched_api.encode_placement(
+            "gpu", "1", "s0", ["h0"], "t0",
+            elastic={"granted": 1, "min": 1, "max": 1})})
+    _publish_to(monkeypatch, host)
+    gets = []
+    real_get = fake.get
+    monkeypatch.setattr(fake, "get", lambda *a, **k: (
+        gets.append(a[1]), real_get(*a, **k))[1])
+    try:
+        result = tloop.run(tloop.RunConfig(
+            device="cpu", steps=6, seq_len=8, batch_size=2,
+            elastic_poll_steps=poll), log=lambda *a: None, environ=env)
+    finally:
+        httpd.shutdown()
+    assert result["step"] == 6 and result["devices"] == 1
+    assert result["reshard_count"] == 0
+    # The first mesh's poll, one every `poll` steps, and the publish's.
+    assert gets.count("JaxJob") == 1 + len(range(0, 6, poll)) + 1
+
+
+def test_loop_publishes_into_the_job_status(monkeypatch):
+    fake, httpd, host, env = _served_job()
+    _publish_to(monkeypatch, host)
+    lines = []
+    try:
+        result = tloop.run(tloop.RunConfig(device="cpu", steps=2, seq_len=8,
+                                           batch_size=2),
+                           log=lines.append, environ=env)
+    finally:
+        httpd.shutdown()
+    job = fake.get("kubeflow-tpu.org/v1", "JaxJob", "ej", "default")
+    assert job["status"]["metrics"] == {
+        k: v for k, v in result.items() if isinstance(v, (int, float))}
+    assert not any("publish failed" in line for line in lines)
 
 
 # Meshes with a sequence or a pipeline axis of 2 (stand-ins: what the
