@@ -24,7 +24,8 @@ ring and two pipeline stages serving llama-1b, gangs of two training
 flagship-1b over sequence and flagship-deep over pipeline), elastic
 training (a gang that shrinks and grows while flagship-1b trains) and the
 job entry points (the health probe, the ResNet workload, batch predict),
-and checks the output. Phases, each printed as one JSON line:
+the decoder fleet with its KV economy, the remote actor fleet and the RL
+learner on the fleet, and checks the output. Phases, each printed as one JSON line:
 
 (a) the card and the kernels' build times;
 (b) the paged decode kernel against ``_paged_decode_plain`` at the main
@@ -169,7 +170,8 @@ and checks the output. Phases, each printed as one JSON line:
     Then one run on the dense default server with the draft model
     ``model:llama-1b`` (acceptance, draft dispatches), beside one without
     speculation, each after a warm-up. Then the gates,
-    float32, greedy, the ten requests one at a time: speculation on
+    float32, greedy, the ten requests one at a time (at most 32 new
+    tokens each, ``SPEC_GATE_NEW``): speculation on
     equals off token for token on paged fused, paged gathered, dense,
     dense with ``model:llama-1b`` and paged fused with ``chunk_size`` 2
     (``verify_chunk``);
@@ -188,11 +190,8 @@ and checks the output. Phases, each printed as one JSON line:
     from its timeline). The handoff: a ``role="prefill"`` server pushes a
     200-token prompt's KV to a ``role="decode"`` one over ``:prefill``
     with ``handoff_to``, whose predict hits it; the envelope's bytes and
-    the export, pack, unpack and import ms. A live push: a full
-    llama-1b tree (bf16, seed 1) POSTed at ``:weights`` in 8 MiB chunks
-    while four streams keep decoding; the push's ms, the swap's stall
-    beside a decode dispatch's mean, the flushed entries. Then the
-    port's trainer writes a llama-1b checkpoint (one step, default
+    the export, pack, unpack and import ms (a live push over HTTP runs
+    in (bb4)). Then the port's trainer writes a llama-1b checkpoint (one step, default
     optimizer) and the CLI boots from it with ``--model-path``. The
     paged kernel launches n_layers times per decode forward in every
     run. The f32 gates (greedy, fused and gathered read each): a
@@ -366,6 +365,39 @@ and checks the output. Phases, each printed as one JSON line:
     their line numbers and errors, the flash forward's launches, the ms
     an instance). Checkpoints live under ``build/chip_smoke/elastic``,
     removed after;
+(bb) the decoder fleet and its KV economy, the remote actor fleet and
+    the RL learner (``phase_fleet``): (bb1) three llama-1b replicas, bf16,
+    paged, fused, sharing a ``KvDirectory`` and a ``mem://`` cold store
+    behind a ``DecoderFleet``: (n)'s 160-token system prompt primed and
+    served on one, served on a second (a peer hit: the holder's
+    ``export_prefix`` through the envelope codec), then pushed out of the
+    first through its host tier into cold and served on the third (a
+    cold hit after two stale hints): each hit's TTFT beside a cold
+    prefill of the same prompt, its import's ms and bytes, its prefill
+    tokens (the 16-token tail), the paged kernel n_layers times per
+    decode forward, every block back after a drain; (bb2) one prefill and
+    two decode replicas: three relayed prompts (``handoffs``), a
+    ``broadcast_weights`` of a new tree to all three under live streams
+    (each replica's place and swap ms, the peak of allocated memory, the
+    largest inter-token gap during the push beside the median), a decode
+    replica stopped under a stream (the 502-coded error) and the next
+    submit on a survivor; (bb3) ``train.rl.run_rl`` at llama-1b: the
+    learner (float32 masters, adafactor) and two actors on the card,
+    batch 4, 64-token prompts, 32 new tokens, 4 steps, a push every 2:
+    the result dict, the learner's flash launches (16 x 4 x 2 forward, x
+    1 backward), the actors' paged launches (16 x their decode
+    forwards), then the restart-per-update baseline at 2 steps of
+    batch 1; (bb4) a
+    ``ModelServer`` at llama-1b's width and ``F32_GATE_LAYERS`` depth
+    and a dead target behind a ``RemoteActorFleet``: rollouts over
+    ``:predict``, a broadcast over ``:weights`` while four streams decode
+    (bytes, ms, MB/s, the swap's stall beside a decode dispatch, the
+    flushed entries), a ``fetch_kv`` over ``:kv`` (envelope bytes, ms)
+    and a miss (404);
+    (bb5) f32 gates at 2 layers, every replica fused: streams through a
+    fleet (affine, spilled, after a peer hit, after a cold hit, after a
+    relay) = a plain decoder's; three replicas decoding at once = each
+    alone; an envelope made stale by a push mid-pull refused and counted;
 (f) the kernel table: each kernel's launches on the main paths, its
     error, its time, its plain version's time and its bound; the paged
     and RMSNorm rows give device time as ``ms`` and the call's as
@@ -394,7 +426,10 @@ and checks the output. Phases, each printed as one JSON line:
     launches on each stage and their times at a stage's microbatch shape
     (``pp_stage_shape``); the flash rows (aa1)'s launches on each rank of
     each run (``elastic_shrink_rank0`` ...) and the forward row (aa3)'s
-    batch predict's (``batch_predict``).
+    batch predict's (``batch_predict``); the paged row (bb)'s launches
+    (``fleet_economy``, ``fleet_churn``, ``fleet_rl_actors``,
+    ``fleet_remote``) and the flash rows the RL learner's
+    (``rl_learner``).
 
 TF32 is off throughout, so float32 products are full float32. Any
 failure exits non-zero; the last line, printed only on success, is
@@ -2176,6 +2211,8 @@ def phase_f32_prefix_chunk_parity(dev=torch.device("cuda")) -> dict:
 # pattern repeated to 64-128 tokens (the n-gram proposer drafts from the
 # first round); max_new_tokens 64, two runs a side, alternating.
 SPEC_K, SPEC_NEW, SPEC_RUNS = 4, 64, 2
+# The f32 gates' tokens a request (at most; the patterns ask for 64).
+SPEC_GATE_NEW = 32
 SPEC_PATTERNS = [(3, 64), (5, 96), (7, 112), (4, 128)]
 
 
@@ -2281,7 +2318,8 @@ def spec_f32_gates(dev=torch.device("cuda")) -> dict:
     def streams(**kw):
         dec = ContinuousDecoder(params, cfg, **{**base, **kw})
         try:
-            toks = [dec.generate(r["tokens"], r["max_new_tokens"],
+            toks = [dec.generate(r["tokens"],
+                                 min(r["max_new_tokens"], SPEC_GATE_NEW),
                                  timeout=600)["tokens"] for r in reqs]
             return toks, dec.metrics()
         finally:
@@ -3130,100 +3168,6 @@ def handoff_run() -> dict:
             "launches": launches, "decode_forwards": forwards}
 
 
-def push_run() -> dict:
-    """(s4): a full llama-1b tree (bf16, seed 1) pushed over HTTP at
-    :weights in 8 MiB chunks while streams decode (a loader keeps four
-    requests in flight until the push returns); the push's ms, the swap's
-    stall beside one decode dispatch's mean, the K/V entries flushed."""
-    from kubeflow_tpu_torch import kernels
-    from kubeflow_tpu_torch.serving import weights
-    from kubeflow_tpu_torch.weights import flatten
-
-    def fn(server):
-        dec, port = server.decoder, server.port
-        model = server.engine.model
-        cfg = model.config
-        rng = np.random.RandomState(14)
-        # One published prefix, for the flush to find.
-        post(port, {"tokens": rng.randint(0, cfg.vocab_size,
-                                          size=TIER_SYSTEM).tolist(),
-                    "max_new_tokens": 8})
-        steps0 = dec.steps
-        kernels.reset_launches()
-        done = threading.Event()
-        served, errors = [], []
-
-        def loader(seed):
-            r = np.random.RandomState(seed)
-            try:
-                while not done.is_set():
-                    toks, _ = post(port, {"tokens": r.randint(
-                        0, cfg.vocab_size, size=40).tolist(),
-                        "max_new_tokens": MAX_NEW})
-                    served.append(len(toks))
-            except Exception as e:  # checked below
-                errors.append(repr(e))
-
-        threads = [threading.Thread(target=loader, args=(100 + i,))
-                   for i in range(4)]
-        for t in threads:
-            t.start()
-        dev = server.engine.device
-        new = model.init(cfg, generator=torch.Generator(
-            device=dev).manual_seed(1), device=dev)
-        deadline = time.perf_counter() + 120
-        while (dec.metrics()["in_flight"] < 1
-               and time.perf_counter() < deadline):
-            time.sleep(0.002)
-        in_flight = dec.metrics()["in_flight"]
-        t0 = time.perf_counter()
-        out = weights.push_weights(f"127.0.0.1:{port}", MODEL, new, 1)
-        push_ms = 1e3 * (time.perf_counter() - t0)
-        done.set()
-        for t in threads:
-            t.join(timeout=600)
-        launches = kernels.LAUNCHES["paged_decode_attention"]
-        forwards = dec.steps - steps0
-        after = post(port, {"tokens": [1, 2, 3], "max_new_tokens": 8})
-        samples = parse_exposition(get(port,
-                                       "/monitoring/prometheus/metrics"))
-        flush = [e for e in timeline(port, "weights-v1")["events"]
-                 if e["name"] in ("push", "swap", "flush")]
-        nbytes = sum(t.numel() * t.element_size()
-                     for t in flatten(new).values())
-        del new
-        return {"out": out, "push_ms": push_ms, "launches": launches,
-                "decode_forwards": forwards, "n_layers": cfg.n_layers,
-                "m": dec.metrics(), "served": served, "after": after,
-                "samples": samples, "events": flush, "bytes": nbytes,
-                "in_flight_at_push": in_flight, "errors": errors}
-
-    r = serve(engine_cfg(kv_fused=True, prefix_cache_slots=4), fn)
-    require_launches(r["launches"], r["decode_forwards"], r["n_layers"],
-                     "weight push")
-    m, smp = r["m"], r["samples"]
-    if (r["out"] != {"installed": True, "weights_version": 1}
-            or m["weights_version"] != 1 or m["weight_pushes"] != 1
-            or r["errors"] or r["in_flight_at_push"] < 1
-            or any(n != MAX_NEW for n in r["served"])
-            or len(r["after"][0]) != 8):
-        raise AssertionError(f"weight push: {r}")
-    dec_sum = smp['serving_dispatch_seconds_sum{kind="decode"}']
-    dec_n = smp['serving_dispatch_seconds_count{kind="decode"}']
-    ev = {e["name"]: e for e in r["events"]}
-    return {"bytes": r["bytes"], "push_ms": r["push_ms"],
-            "place_ms": ev["push"]["place_ms"],
-            "swap_ms": 1e3 * m["weight_swap_seconds_last"],
-            "decode_dispatch_mean_ms": 1e3 * dec_sum / dec_n,
-            "push_seconds_histogram_sum": smp[
-                "serving_weight_push_seconds_sum"],
-            "flushed": {k: ev.get("flush", {}).get(k, 0)
-                        for k in ("trie_entries", "tier_entries")},
-            "streams_during_push": len(r["served"]),
-            "in_flight_at_push": r["in_flight_at_push"],
-            "launches": r["launches"], "decode_forwards": r["decode_forwards"]}
-
-
 def checkpoint_boot(workdir: str) -> dict:
     """(s4, the boot): the port's trainer writes a llama-1b checkpoint (one
     step of ``train.loop.run``, batch 1 x seq 256, the default optimizer,
@@ -3382,8 +3326,9 @@ def f32_gates(dev=torch.device("cuda")) -> dict:
 def phase_serving_features(smi: str) -> dict:
     """(s): llama-1b at full width and depth, bf16, 8 slots, paged,
     ``kv_fused``, through ``ModelServer`` over HTTP: the host tier on fp
-    and int8 pools, suspension and resume, the prefill/decode handoff, a
-    live weight push and a boot from a checkpoint; then the f32 gates.
+    and int8 pools, suspension and resume, the prefill/decode handoff and
+    a boot from a checkpoint; then the f32 gates (the live push over HTTP
+    is (bb4)'s).
     The paged kernel launches n_layers times per decode forward in every
     bf16 run."""
     import os
@@ -3395,7 +3340,6 @@ def phase_serving_features(smi: str) -> dict:
     runs = (("host_tier", lambda: {kv: tier_run(kv)
                                    for kv in ("fp", "int8")}),
             ("suspension", suspend_run), ("handoff", handoff_run),
-            ("weight_push", push_run),
             ("checkpoint_boot", lambda: checkpoint_boot(workdir)),
             ("f32_gates", f32_gates))
     try:
@@ -3406,11 +3350,11 @@ def phase_serving_features(smi: str) -> dict:
         shutil.rmtree(workdir, ignore_errors=True)
     out["launches"] = (sum(r["launches"] for r in out["host_tier"].values())
                        + sum(out[k]["launches"] for k in (
-                           "suspension", "handoff", "weight_push")))
+                           "suspension", "handoff")))
     out["decode_forwards"] = (
         sum(r["decode_forwards"] for r in out["host_tier"].values())
         + sum(out[k]["decode_forwards"] for k in (
-            "suspension", "handoff", "weight_push")))
+            "suspension", "handoff")))
     emit("s_serving_features", gpu=smi, launches=out["launches"],
          decode_forwards=out["decode_forwards"])
     return out
@@ -5653,6 +5597,715 @@ def phase_elastic(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# (bb) The decoder fleet and its KV economy, the remote actor fleet, RL
+# ---------------------------------------------------------------------------
+
+# (bb1): (n)'s 160-token system prompt plus tails of BB_TAIL tokens (176 =
+# 11 whole blocks). Replica a keeps two trie entries and a host tier that
+# holds one such payload (11.5 MB at llama-1b's 64 KiB a token), so its
+# evictions demote through the tier into the shared cold store; replica b
+# keeps one entry, so the prefix it imports leaves it at its next publish.
+BB_TAIL = 16
+BB_HOST_BYTES = 16 << 20
+BB_COLD_REF = "mem://chip-smoke-fleet?bytes=268435456"
+BB_DIRECTORY = 256
+# (bb3): the learner and its actors.
+BB_RL = dict(model=MODEL, actors=2, batch_size=4, prompt_len=64,
+             max_new_tokens=32, steps=4, push_every_steps=2,
+             kv_block_size=BLOCK, kv_fused=True)
+BB_RL_OPT = dict(name="adafactor", warmup_steps=2)
+# (bb4): a target nothing listens on.
+BB_DEAD = "127.0.0.1:1"
+
+
+def short_preset(n_layers: int) -> str:
+    """The name of llama-1b cut to ``n_layers`` layers (its width kept),
+    registered as a preset of this process, so an in-process
+    ``ModelServer`` serves it by name."""
+    import dataclasses
+
+    from kubeflow_tpu_torch.models import transformer
+
+    name = f"{MODEL}-{n_layers}-layers"
+    transformer.PRESETS.setdefault(name, dataclasses.replace(
+        transformer.PRESETS[MODEL], n_layers=n_layers))
+    return name
+
+
+def fleet_replica(params, cfg, **kw):
+    """A fleet replica as the smoke's servers run one: SLOTS slots, paged,
+    the fused read (the paged kernel)."""
+    from kubeflow_tpu_torch.serving.continuous import ContinuousDecoder
+
+    return ContinuousDecoder(params, cfg, **{**dict(
+        slots=SLOTS, prefill_len=MAX_SEQ, max_new_tokens=MAX_NEW,
+        kv_layout="paged", kv_block_size=BLOCK, kv_fused=True,
+        stream_timeout_s=600.0), **kw})
+
+
+def _event_ms(dec, rid: str, name: str) -> float:
+    events = {e["name"]: e["t_ms"] for e in dec.trace.find(rid)[0]["events"]}
+    if name not in events:
+        raise AssertionError(f"{rid}: no {name!r} event: {events}")
+    return events[name] - events["submit"]
+
+
+def _hit(dec, prompt: list, rid: str, tier: str) -> dict:
+    """One request on ``dec`` that should import its prefix from ``tier``:
+    its TTFT, the import's ms (submit to the ``kv_import`` event: probe,
+    fetch, envelope codec, scatter), the bytes and the prefill tokens."""
+    key = "peer" if tier == "peer" else "cold"
+    m0 = dec.metrics()
+    res = dec.submit(prompt, MAX_NEW, request_id=rid).result(600)
+    m = dec.metrics()
+    out = {"ttft_ms": 1e3 * res["ttft_s"], "tokens": res["tokens"],
+           "import_ms": _event_ms(dec, rid, "kv_import"),
+           "import_bytes": (m[f"kv_{key}_import_bytes"]
+                            - m0[f"kv_{key}_import_bytes"]),
+           "prefill_tokens": m["prefill_tokens"] - m0["prefill_tokens"],
+           "hits": m[f"kv_{key}_hits"] - m0[f"kv_{key}_hits"],
+           "fetch_failures": (m["kv_peer_fetch_failures"]
+                              - m0["kv_peer_fetch_failures"])}
+    if out["hits"] != 1 or out["prefill_tokens"] != BB_TAIL:
+        raise AssertionError(f"{rid}: a {tier} hit that prefilled "
+                             f"{out['prefill_tokens']} tokens: {out}")
+    return out
+
+
+def _drained(decoders: dict) -> dict:
+    """Every trie emptied (a host tier keeps what it demotes); each
+    decoder's blocks in use after, which must be 0, as at its start."""
+    out = {}
+    for name, d in decoders.items():
+        with d._prefix_lock:
+            while d.prefix_cache is not None and \
+                    d.prefix_cache.evict_lru():
+                pass
+        out[name] = d.metrics()["kv_blocks_in_use"]
+    if any(out.values()):
+        raise AssertionError(f"blocks left in use after the drain: {out}")
+    return out
+
+
+def fleet_economy(model, params) -> dict:
+    """(bb1): three llama-1b replicas, bf16, paged, fused, sharing one
+    ``KvDirectory`` and a ``mem://`` cold store behind a ``DecoderFleet``
+    (whose in-process transport pulls a holder's ``export_prefix``). The
+    system prompt is primed on a and served there; served on b, it is a
+    peer hit; a serves three other prompts, which push both of its
+    entries through the host tier into cold, and b one, which drops the
+    imported entry; served on c, it probes both stale hints and is a
+    cold hit. TTFT of each hit beside a cold prefill of the same prompt
+    on a plain decoder; the paged kernel launches n_layers times per
+    decode forward of every decoder; every block comes back."""
+    from kubeflow_tpu_torch import kernels
+    from kubeflow_tpu_torch.serving.affinity import prefix_affinity_key
+    from kubeflow_tpu_torch.serving.cold_store import cold_store_from_ref
+    from kubeflow_tpu_torch.serving.fleet import DecoderFleet
+    from kubeflow_tpu_torch.serving.kv_directory import KvDirectory
+
+    cfg = model.config
+    system, _ = prefix_requests(cfg.vocab_size)
+    rng = np.random.RandomState(21)
+
+    def prompt(head=None):
+        head = system if head is None else head
+        return head + rng.randint(0, cfg.vocab_size, size=BB_TAIL).tolist()
+
+    def other():
+        return rng.randint(0, cfg.vocab_size,
+                           size=SYSTEM_LEN + BB_TAIL).tolist()
+
+    directory = KvDirectory(BB_DIRECTORY)
+    cold = cold_store_from_ref(BB_COLD_REF)
+    econ = dict(kv_directory=directory, cold_store=cold)
+    reps = {"a": fleet_replica(params, cfg, prefix_cache_slots=2,
+                               host_kv_bytes=BB_HOST_BYTES,
+                               replica_name="a", **econ),
+            "b": fleet_replica(params, cfg, prefix_cache_slots=1,
+                               replica_name="b", **econ),
+            "c": fleet_replica(params, cfg, prefix_cache_slots=2,
+                               replica_name="c", **econ)}
+    plain = fleet_replica(params, cfg)
+    fleet = DecoderFleet(reps)
+    a, b, c = reps["a"], reps["b"], reps["c"]
+    every = {**reps, "plain": plain}
+    try:
+        pa, pb, pc = prompt(), prompt(), prompt()
+        steps0 = {n: d.steps for n, d in every.items()}
+        kernels.reset_launches()
+        plain.generate(other(), MAX_NEW, timeout=600)  # unmeasured
+        cold_res = {k: plain.generate(p, MAX_NEW, timeout=600)
+                    for k, p in (("peer", pb), ("cold", pc))}
+        if not a.prime_prefix(system):
+            raise AssertionError("(bb1) prime_prefix refused the prompt")
+        a.generate(pa, MAX_NEW, timeout=600)
+        hints = directory.lookup(prefix_affinity_key(pa))
+        peer = _hit(b, pb, "bb-peer", "peer")
+        for _ in range(3):
+            a.generate(other(), 8, timeout=600)
+        b.generate(other(), 8, timeout=600)
+        cold_hit = _hit(c, pc, "bb-cold", "cold")
+        launches = kernels.LAUNCHES["paged_decode_attention"]
+        forwards = {n: d.steps - steps0[n] for n, d in every.items()}
+        require_launches(launches, sum(forwards.values()), cfg.n_layers,
+                         "(bb1) the economy")
+        ma = a.metrics()
+        if (ma["kv_cold_demotions"] < 1 or cold_hit["fetch_failures"] != 2
+                or ma["kv_host_demotions"] < 2):
+            raise AssertionError(f"(bb1) demotions {ma} / {cold_hit}")
+        for k, hit in (("peer", peer), ("cold", cold_hit)):
+            hit["cold_prefill_ttft_ms"] = 1e3 * cold_res[k]["ttft_s"]
+            hit["tokens_equal_cold_prefill"] = sum(
+                x == y for x, y in zip(hit.pop("tokens"),
+                                       cold_res[k]["tokens"]))
+        fm = fleet.metrics()
+        out = {"model": MODEL, "dtype": "bfloat16", "replicas": 3,
+               "prompt": len(pb), "shared_prefix": SYSTEM_LEN,
+               "hints_after_publish": [(h.holder, h.prefix_len, h.tier)
+                                       for h in hints],
+               "peer": peer, "cold": cold_hit,
+               "a_host_demotions": ma["kv_host_demotions"],
+               "a_cold_demotions": ma["kv_cold_demotions"],
+               "cold_store": fm["kv_cold_store"],
+               "directory": fm["kv_directory"],
+               "fleet_kv_peer_hits": fm["kv_peer_hits"],
+               "fleet_kv_cold_hits": fm["kv_cold_hits"],
+               "launches": launches, "decode_forwards": forwards,
+               "n_layers": cfg.n_layers}
+        out["blocks_in_use_after_drain"] = _drained(every)
+    finally:
+        fleet.stop()
+        plain.stop()
+        torch.cuda.empty_cache()
+    emit("bb1_kv_economy", **out)
+    return out
+
+
+def fleet_churn(model, params) -> dict:
+    """(bb2): one prefill replica and two decode replicas behind a
+    ``DecoderFleet``: three prompts relayed (export on the prefill
+    replica, import on the least-loaded decode replica, the decode
+    submit's prefix hit); a ``broadcast_weights`` of a new bf16 tree to
+    all three while a loader keeps streams live (each replica's place and
+    swap ms, the peak of allocated memory, the largest inter-token gap of
+    the streams during the push beside their median gap); a decode
+    replica stopped under a live stream (the 502-coded error, its
+    seconds) and the next submit on a survivor."""
+    from kubeflow_tpu_torch import kernels
+    from kubeflow_tpu_torch.serving.fleet import (
+        DecoderFleet,
+        ReplicaUnavailableError,
+    )
+    from kubeflow_tpu_torch.weights import flatten
+
+    cfg = model.config
+    rng = np.random.RandomState(22)
+    reps = {"p0": fleet_replica(params, cfg, role="prefill",
+                                prefix_cache_slots=4),
+            "d0": fleet_replica(params, cfg, role="decode",
+                                prefix_cache_slots=4),
+            "d1": fleet_replica(params, cfg, role="decode",
+                                prefix_cache_slots=4)}
+    fleet = DecoderFleet(reps)
+    dev = torch.device("cuda")
+    out = {"model": MODEL, "roles": {n: d.role for n, d in reps.items()}}
+    try:
+        steps0 = {n: d.steps for n, d in reps.items()}
+        kernels.reset_launches()
+        relayed = []
+        for n in (176, 120, 200):
+            t0 = time.perf_counter()
+            h = fleet.submit(rng.randint(0, cfg.vocab_size, size=n)
+                             .tolist(), MAX_NEW)
+            res = h.result(600)
+            relayed.append({"prompt": n, "replica": h.replica,
+                            "ttft_ms": 1e3 * res["ttft_s"],
+                            "wall_ms": 1e3 * (time.perf_counter() - t0),
+                            "tokens": len(res["tokens"])})
+        m = fleet.metrics()
+        if m["handoffs"] != 3 or any(r["tokens"] != MAX_NEW
+                                     for r in relayed):
+            raise AssertionError(f"(bb2) relay: {m['handoffs']} {relayed}")
+        out["relay"] = {"requests": relayed, "handoffs": m["handoffs"],
+                        "handoff_fallbacks": m["handoff_fallbacks"]}
+        # The push, under live streams.
+        new = model.init(cfg, generator=torch.Generator(
+            device=dev).manual_seed(1), device=dev)
+        done, stamps, errors = threading.Event(), [], []
+
+        def loader(seed):
+            r = np.random.RandomState(seed)
+            try:
+                while not done.is_set():
+                    h = fleet.submit(r.randint(0, cfg.vocab_size, size=40)
+                                     .tolist(), MAX_NEW)
+                    for _ in h.tokens(timeout=600):
+                        stamps.append((seed, time.perf_counter()))
+            except Exception as e:  # checked below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=loader, args=(200 + i,))
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        deadline = time.perf_counter() + 120
+        while len(stamps) < 8 and time.perf_counter() < deadline:
+            time.sleep(0.002)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res = fleet.broadcast_weights(new)
+        t1 = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated()
+        time.sleep(0.5)  # streams decode on the new weights for a while
+        done.set()
+        for t in threads:
+            t.join(timeout=600)
+        if errors or res["installed"] != {n: 1 for n in reps} \
+                or res["failed"]:
+            raise AssertionError(f"(bb2) push: {res} {errors}")
+        gaps, in_push = [], []
+        for seed in (200, 201):
+            ts = [t for s, t in stamps if s == seed]
+            for x, y in zip(ts, ts[1:]):
+                gaps.append(y - x)
+                if y > t0 and x < t1:
+                    in_push.append(y - x)
+        per = {}
+        for n, d in reps.items():
+            ev = {e["name"]: e for e in
+                  d.trace.find("weights-v1")[0]["events"]}
+            per[n] = {"place_ms": ev["push"]["place_ms"],
+                      "swap_ms": ev["swap"]["swap_ms"]}
+        out["push"] = {
+            "bytes": sum(t.numel() * t.element_size()
+                         for t in flatten(new).values()),
+            "push_ms": 1e3 * (t1 - t0), "replicas": per,
+            "allocated_gb_before": mem0 / 1e9,
+            "peak_allocated_gb": peak / 1e9,
+            "stream_gap_median_ms": 1e3 * float(np.median(gaps)),
+            "stream_gap_max_during_push_ms": (1e3 * max(in_push)
+                                              if in_push else None),
+            "stream_tokens": len(stamps)}
+        del new
+        # A decode replica stopped under a live stream.
+        h = fleet.submit(rng.randint(0, cfg.vocab_size, size=40).tolist(),
+                         MAX_NEW)
+        it = h.tokens(timeout=600)
+        next(it)
+        victim = h.replica
+        t0 = time.perf_counter()
+        reps[victim].stop()
+        try:
+            for _ in it:
+                pass
+            raise AssertionError("(bb2) the stream outlived its replica")
+        except ReplicaUnavailableError as e:
+            code, fail_s = e.code, time.perf_counter() - t0
+        nxt = fleet.submit(rng.randint(0, cfg.vocab_size, size=40)
+                           .tolist(), 8)
+        got = nxt.result(600)["tokens"]
+        m = fleet.metrics()
+        if code != 502 or nxt.replica == victim or len(got) != 8 \
+                or m["dead"] != [victim]:
+            raise AssertionError(f"(bb2) stop: {code} {nxt.replica} {m}")
+        out["stop"] = {"victim": victim, "code": code,
+                       "stream_failed_after_ms": 1e3 * fail_s,
+                       "next_submit_on": nxt.replica, "dead": m["dead"]}
+        launches = kernels.LAUNCHES["paged_decode_attention"]
+        forwards = {n: d.steps - steps0[n] for n, d in reps.items()}
+        require_launches(launches, sum(forwards.values()), cfg.n_layers,
+                         "(bb2) the relay and the push")
+        out.update(launches=launches, decode_forwards=forwards)
+    finally:
+        fleet.stop()
+        torch.cuda.empty_cache()
+    emit("bb2_fleet_churn", **out)
+    return out
+
+
+def fleet_rl(model) -> dict:
+    """(bb3): ``run_rl`` at llama-1b, the learner's float32 masters and
+    adafactor state beside two in-process actors (bf16, paged, fused) on
+    the card, batch 4 of 64-token prompts and 32 new tokens, 4 steps, a
+    push every 2; the learner's steps run the flash kernels (forward
+    twice under llama-1b's remat), the actors' decode the paged kernel.
+    Then the restart-per-update baseline at 2 steps of batch 1 (the
+    restart's ms does not depend on the batch), for its
+    ``restart_ms_avg``."""
+    from kubeflow_tpu_torch import kernels
+    from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
+    from kubeflow_tpu_torch.train.rl import RLConfig, build_actor_fleet, run_rl
+
+    cfg = RLConfig(optimizer=OptimizerConfig(**BB_RL_OPT), **BB_RL)
+    mc = model.config
+    dev = torch.device("cuda")
+    # The learner's seed-0 init (run_rl draws the same), cast to the
+    # actors' serving tree.
+    masters = model.init(mc, generator=torch.Generator(device=dev)
+                         .manual_seed(cfg.seed), device=dev,
+                         param_dtype=torch.float32)
+    fleet = build_actor_fleet(masters, cfg, model)
+    del masters
+    torch.cuda.empty_cache()
+    try:
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        res = run_rl(cfg, fleet=fleet, log=lambda *a: None)
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        fm = fleet.metrics()
+    finally:
+        fleet.stop()
+        torch.cuda.empty_cache()
+    forwards = sum(r["decode_steps"] for r in fm["replicas"].values())
+    require_launches(launches["paged_decode_attention"], forwards,
+                     mc.n_layers, "(bb3) the actors")
+    per_step = mc.n_layers * (2 if mc.remat else 1)
+    if (launches["flash_attention_fwd"] != per_step * cfg.steps
+            or launches["flash_attention_bwd"] != mc.n_layers * cfg.steps
+            or res["pushes"] != 1 or set(
+                res["weights_installed"].values()) != {1}
+            or not np.isfinite(res["loss"])):
+        raise AssertionError(f"(bb3) {launches} {res}")
+    restart_cfg = RLConfig(optimizer=OptimizerConfig(**BB_RL_OPT), **{
+        **BB_RL, "steps": 2, "push_every_steps": 1, "batch_size": 1,
+        "restart_per_update": True})
+    restart = run_rl(restart_cfg, log=lambda *a: None)
+    torch.cuda.empty_cache()
+    if restart["pushes"] != 1 or restart["restart_ms_avg"] <= 0:
+        raise AssertionError(f"(bb3) restart: {restart}")
+    out = {"model": MODEL, **{k: v for k, v in BB_RL.items()
+                              if k != "model"},
+           "optimizer": BB_RL_OPT, "result": res,
+           "learner_flash_launches": {
+               k: launches[k] for k in ("flash_attention_fwd",
+                                        "flash_attention_bwd")},
+           "actor_paged_launches": launches["paged_decode_attention"],
+           "actor_decode_forwards": forwards,
+           "peak_allocated_gb": peak / 1e9,
+           "restart_per_update": {k: restart[k] for k in (
+               "restart_ms_avg", "rollout_tokens_per_sec", "elapsed_s",
+               "loss")}}
+    emit("bb3_rl", **out)
+    return out
+
+
+def fleet_remote() -> dict:
+    """(bb4): a ``ModelServer`` at llama-1b's width and F32_GATE_LAYERS
+    depth (bf16, paged, fused, the prefix cache, a directory) and a dead
+    target behind a ``RemoteActorFleet``: rollouts over ``:predict`` (the
+    dead target fails over and leaves the rotation); a broadcast of a new
+    tree (seed 1) over ``:weights`` in 8 MiB chunks while a loader keeps
+    four streams decoding on the server (the push's bytes, ms and MB/s,
+    the swap's stall beside a decode dispatch's mean, the K/V entries
+    flushed; the dead target fails); a ``fetch_kv`` over ``:kv``
+    (envelope bytes and ms) and one for a prompt the server does not
+    hold (None: a 404). The depth keeps the push inside the script's
+    limit: the codec's rate, not the tree's size, is what it measures."""
+    from kubeflow_tpu_torch import kernels
+    from kubeflow_tpu_torch.serving.remote_fleet import RemoteActorFleet
+    from kubeflow_tpu_torch.serving.server import ModelServer
+    from kubeflow_tpu_torch.weights import flatten
+
+    name = short_preset(F32_GATE_LAYERS)
+    server = ModelServer(engine_cfg(model=name, kv_fused=True,
+                                    prefix_cache_slots=4,
+                                    kv_directory_size=BB_DIRECTORY), port=0)
+    server.start()
+    dev = torch.device("cuda")
+    try:
+        model = server.engine.model
+        cfg = model.config
+        port, dec = server.port, server.decoder
+        live = f"127.0.0.1:{port}"
+        fleet = RemoteActorFleet([BB_DEAD, live], name, timeout=600.0)
+        rng = np.random.RandomState(23)
+        prompts = [rng.randint(0, cfg.vocab_size, size=64).tolist()
+                   for _ in range(4)]
+        steps0 = dec.steps
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        outs = [fleet.generate(p, MAX_NEW) for p in prompts]
+        roll_s = time.perf_counter() - t0
+        n_tok = sum(len(o["tokens"]) for o in outs)
+        if n_tok != 4 * MAX_NEW or fleet.metrics()["dead"] != [BB_DEAD]:
+            raise AssertionError(f"(bb4) rollouts {outs} {fleet.metrics()}")
+        # The push, under live streams; one published prefix for the
+        # flush to find.
+        post(port, {"tokens": rng.randint(0, cfg.vocab_size,
+                                          size=TIER_SYSTEM).tolist(),
+                    "max_new_tokens": 8}, model=name)
+        done = threading.Event()
+        served, errors = [], []
+
+        def loader(seed):
+            r = np.random.RandomState(seed)
+            try:
+                while not done.is_set():
+                    toks, _ = post(port, {"tokens": r.randint(
+                        0, cfg.vocab_size, size=40).tolist(),
+                        "max_new_tokens": MAX_NEW}, model=name)
+                    served.append(len(toks))
+            except Exception as e:  # checked below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=loader, args=(100 + i,))
+                   for i in range(4)]
+        for t in threads:
+            t.start()
+        new = model.init(cfg, generator=torch.Generator(
+            device=dev).manual_seed(1), device=dev)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in flatten(new).values())
+        deadline = time.perf_counter() + 120
+        while (dec.metrics()["in_flight"] < 1
+               and time.perf_counter() < deadline):
+            time.sleep(0.002)
+        in_flight = dec.metrics()["in_flight"]
+        t0 = time.perf_counter()
+        res = fleet.broadcast_weights(new)
+        push_ms = 1e3 * (time.perf_counter() - t0)
+        done.set()
+        for t in threads:
+            t.join(timeout=600)
+        del new
+        launches = kernels.LAUNCHES["paged_decode_attention"]
+        forwards = dec.steps - steps0
+        require_launches(launches, forwards, cfg.n_layers,
+                         "(bb4) the rollouts and the push")
+        m = dec.metrics()
+        if (res["installed"] != {live: 1} or BB_DEAD not in res["failed"]
+                or m["weights_version"] != 1 or m["weight_pushes"] != 1
+                or errors or in_flight < 1
+                or any(n != MAX_NEW for n in served)):
+            raise AssertionError(f"(bb4) push {res} {errors} {served}")
+        smp = parse_exposition(get(port, "/monitoring/prometheus/metrics"))
+        ev = {e["name"]: e for e in timeline(port, "weights-v1")["events"]
+              if e["name"] in ("push", "swap", "flush")}
+        dec_sum = smp['serving_dispatch_seconds_sum{kind="decode"}']
+        dec_n = smp['serving_dispatch_seconds_count{kind="decode"}']
+        held = prompts[0][:48] + rng.randint(0, cfg.vocab_size,
+                                             size=8).tolist()
+        fleet.generate(held, 8)  # on the new weights: published
+        t0 = time.perf_counter()
+        got = fleet.fetch_kv(live, held + [7, 7], version=1)
+        fetch_ms = 1e3 * (time.perf_counter() - t0)
+        miss = fleet.fetch_kv(live, rng.randint(0, cfg.vocab_size,
+                                                size=40).tolist())
+        if got is None or got["weights_version"] != 1 or miss is not None \
+                or got["envelope"]["prefix_len"] != len(held):
+            raise AssertionError(f"(bb4) fetch_kv {got and got.keys()}")
+        out = {"model": name, "n_layers": cfg.n_layers,
+               "rollouts": len(outs), "rollout_tokens": n_tok,
+               "rollout_tokens_per_s": n_tok / roll_s,
+               "dead_target": BB_DEAD,
+               "push": {"bytes": nbytes, "push_ms": push_ms,
+                        "push_mb_per_s": nbytes / 1e6 / (push_ms / 1e3),
+                        "failed": sorted(res["failed"]),
+                        "place_ms": ev["push"]["place_ms"],
+                        "swap_ms": 1e3 * m["weight_swap_seconds_last"],
+                        "decode_dispatch_mean_ms": 1e3 * dec_sum / dec_n,
+                        "push_seconds_histogram_sum": smp[
+                            "serving_weight_push_seconds_sum"],
+                        "flushed": {k: ev.get("flush", {}).get(k, 0)
+                                    for k in ("trie_entries",
+                                              "tier_entries")},
+                        "streams_during_push": len(served),
+                        "in_flight_at_push": in_flight},
+               "fetch_kv_ms": fetch_ms,
+               "fetch_kv_envelope_bytes": len(json.dumps(got["envelope"])),
+               "fetch_kv_prefix_len": got["envelope"]["prefix_len"],
+               "fetch_kv_miss_is_none": miss is None,
+               "launches": launches, "decode_forwards": forwards,
+               "metrics": fleet.metrics()}
+    finally:
+        server.stop()
+        torch.cuda.empty_cache()
+    emit("bb4_remote_fleet", **out)
+    return out
+
+
+def fleet_f32_gates(dev=torch.device("cuda")) -> dict:
+    """(bb5): float32, greedy, llama-1b's width at F32_GATE_LAYERS
+    layers, every replica reading through the paged kernel: streams
+    served through a fleet equal one plain decoder's when routed affine,
+    when spilled under pressure, after a peer hit, after a cold hit and
+    after a relay; three replicas decoding at once each equal themselves
+    alone (the kernel's split-KV arrival counters are one buffer a
+    device); an envelope made stale by a push between its fetch and its
+    install is refused and counted (once for each holder probed), and the
+    stream still equals the plain decoder's."""
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.serving.cold_store import ColdKvStore
+    from kubeflow_tpu_torch.serving.fleet import DecoderFleet
+    from kubeflow_tpu_torch.serving.kv_directory import KvDirectory
+
+    model = get_model(MODEL, dtype=torch.float32, n_layers=F32_GATE_LAYERS)
+    cfg = model.config
+    w0 = model.init(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                    device=dev)
+    rng = np.random.RandomState(24)
+    system = rng.randint(0, cfg.vocab_size, size=SYSTEM_LEN).tolist()
+    shared = [system + rng.randint(0, cfg.vocab_size, size=BB_TAIL).tolist()
+              for _ in range(4)]
+    singles = [rng.randint(0, cfg.vocab_size, size=n).tolist()
+               for n in (5, 40, 128, 200)]
+    n_new = 16
+
+    def rep(**kw):
+        return fleet_replica(w0, cfg, prefix_cache_slots=4, **kw)
+
+    plain = fleet_replica(w0, cfg)
+    try:
+        ref = {tuple(p): plain.generate(p, n_new, timeout=600)["tokens"]
+               for p in shared + singles}
+    finally:
+        plain.stop()
+
+    def gen(d, p):
+        return d.generate(p, n_new, timeout=600)["tokens"]
+
+    out, stopped = {}, []
+    try:
+        directory, cold = KvDirectory(64), ColdKvStore(256 << 20)
+        econ = dict(kv_directory=directory, cold_store=cold)
+        reps = {n: rep(replica_name=n, **econ) for n in ("a", "b", "c")}
+        fleet = DecoderFleet(reps, pressure=1)
+        stopped.append(fleet)
+        got = [fleet.submit(p, n_new).result(600)["tokens"] for p in singles]
+        out["affine"] = compare_streams(got, [ref[tuple(p)]
+                                              for p in singles])
+        # Spilled: the affine replica holds a live stream (depth 1 =
+        # the pressure bound), so the next prompt of its key spills.
+        home = fleet.route(singles[3])
+        busy = reps[home].submit(singles[2], MAX_NEW)
+        spilled0 = fleet.spilled
+        h = fleet.submit(singles[3], n_new)
+        got = h.result(600)["tokens"]
+        busy.result(600)
+        if fleet.spilled <= spilled0 or h.replica == home:
+            raise AssertionError("(bb5) the pressure did not spill")
+        out["spilled"] = compare_streams([got], [ref[tuple(singles[3])]])
+        # A peer hit, then a cold hit whose only holder is gone.
+        def count(name, key):
+            return reps[name].metrics()[key]
+
+        gen(reps["a"], shared[0])
+        hits0 = count("b", "kv_peer_hits")
+        got = gen(reps["b"], shared[1])
+        if count("b", "kv_peer_hits") != hits0 + 1:
+            raise AssertionError("(bb5) no peer hit")
+        out["peer_hit"] = compare_streams([got], [ref[tuple(shared[1])]])
+        h = reps["a"].export_prefix(shared[2])
+        cold.put(h, version=h.pop("weights_version"))
+        reps["c"]._peer_fetch = lambda *_a: None
+        got = gen(reps["c"], shared[2])
+        if count("c", "kv_cold_hits") != 1:
+            raise AssertionError("(bb5) no cold hit")
+        out["cold_hit"] = compare_streams([got], [ref[tuple(shared[2])]])
+        # A push lands between a fetch and its install: refused, counted.
+        inner = fleet._peer_fetch
+
+        def racing(holder, tokens, version):
+            got = inner(holder, tokens, version)
+            reps["b"].update_weights(w0)
+            return got
+
+        reps["b"]._peer_fetch = racing
+        hits0 = count("b", "kv_peer_hits")
+        got = gen(reps["b"], shared[3])
+        mb = reps["b"].metrics()
+        if mb["kv_import_stale_refused"] < 1 or \
+                mb["kv_peer_hits"] != hits0:
+            raise AssertionError(f"(bb5) stale envelope: {mb}")
+        out["stale_refused"] = {
+            **compare_streams([got], [ref[tuple(shared[3])]]),
+            "kv_import_stale_refused": mb["kv_import_stale_refused"]}
+        # The relay.
+        relay = {"p0": rep(role="prefill"), "d0": rep(role="decode"),
+                 "d1": rep(role="decode")}
+        rfleet = DecoderFleet(relay)
+        stopped.append(rfleet)
+        got = [rfleet.submit(p, n_new).result(600)["tokens"]
+               for p in shared + singles[2:]]
+        if rfleet.metrics()["handoffs"] < len(shared):
+            raise AssertionError("(bb5) the relay handed nothing off")
+        out["relay"] = compare_streams(
+            got, [ref[tuple(p)] for p in shared + singles[2:]])
+        # Three replicas at once, each against itself alone.
+        trio = [rep() for _ in range(3)]
+        stopped += trio
+        prompts = shared[:2] + singles
+        alone = [[gen(d, p) for p in prompts] for d in trio]
+        for d in trio:
+            with d._prefix_lock:
+                while d.prefix_cache.evict_lru():
+                    pass
+        together: list = [None] * 3
+
+        def run(i):
+            hs = [trio[i].submit(p, n_new) for p in prompts]
+            together[i] = [h.result(600)["tokens"] for h in hs]
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        out["three_at_once"] = compare_streams(
+            [s for r in together for s in r], [s for r in alone for s in r])
+        out["alone_equal_plain"] = compare_streams(
+            alone[0], [ref[tuple(p)] for p in prompts])
+    finally:
+        for f in stopped:
+            f.stop()
+        del w0
+        torch.cuda.empty_cache()
+    bad = [k for k, v in out.items() if not v["identical"]]
+    emit("bb5_fleet_f32_gates", layers=F32_GATE_LAYERS, **out)
+    if bad:
+        raise AssertionError(f"(bb5) f32 greedy tokens differ: {bad}")
+    return out
+
+
+def phase_fleet(smi: str) -> dict:
+    """(bb) the decoder fleet and its KV economy, the remote actor fleet
+    and the RL learner: (bb1) :func:`fleet_economy`, (bb2)
+    :func:`fleet_churn`, (bb3) :func:`fleet_rl`, (bb4)
+    :func:`fleet_remote`, (bb5) :func:`fleet_f32_gates`. The paged
+    kernel's launches of (bb1)-(bb4) and the learner's flash launches
+    feed the kernel table."""
+    from kubeflow_tpu_torch.models.registry import get_model
+
+    t_phase = time.perf_counter()
+    model = get_model(MODEL)
+    dev = torch.device("cuda")
+    params = model.init(model.config, generator=torch.Generator(
+        device=dev).manual_seed(0), device=dev)
+    try:
+        bb1 = fleet_economy(model, params)
+        bb2 = fleet_churn(model, params)
+    finally:
+        del params
+        torch.cuda.empty_cache()
+    bb3 = fleet_rl(model)
+    bb4 = fleet_remote()
+    bb5 = fleet_f32_gates()
+    out = {"gpu": smi, "bb1": bb1, "bb2": bb2, "bb3": bb3, "bb4": bb4,
+           "bb5": bb5, "paged_launches": {
+               "economy": bb1["launches"], "churn": bb2["launches"],
+               "rl_actors": bb3["actor_paged_launches"],
+               "remote": bb4["launches"]},
+           "phase_s": time.perf_counter() - t_phase}
+    emit("bb_phase_time", gpu=smi, phase_s=out["phase_s"],
+         paged_launches=out["paged_launches"])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5778,6 +6431,8 @@ def main() -> int:
     mark("z_long_axes")
     elastic = phase_elastic(smi)
     mark("aa_elastic")
+    fleet = phase_fleet(smi)
+    mark("bb_fleet")
     emit("phase_seconds", **seconds, total_s=time.perf_counter() - t0)
 
     p, r = paged["bf16"], rms[f"{SLOTS}x2048"]
@@ -5789,7 +6444,8 @@ def main() -> int:
         "moe_paged": moe["paged"]["launches"]["paged_decode_attention"],
         "tp2_serving": tp["x1"]["serving"][f"tp{TP}"]["paged_launches"],
         "moe_tp2_serving": moe_mesh["y1"]["serving"][f"tp{TP}"][
-            "paged_launches"]}
+            "paged_launches"],
+        **{f"fleet_{k}": v for k, v in fleet["paged_launches"].items()}}
     table = [
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "kubeflow_tpu_torch/csrc/paged_decode.cu",
@@ -5869,6 +6525,8 @@ def main() -> int:
                 for i, got in enumerate(
                         elastic["aa1"]["flash_launches_by_rank"]):
                     by_path[f"elastic_train_rank{i}"] = got[key]
+                by_path["rl_learner"] = fleet["bb3"][
+                    "learner_flash_launches"][key]
                 if part == "fwd":
                     by_path["predict"] = predict_launches
                     by_path["moe_predict"] = moe["dense"][

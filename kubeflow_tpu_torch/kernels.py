@@ -9,7 +9,9 @@ all started together. Nothing is compiled when the module is imported.
 
 ``LAUNCHES`` counts each wrapper's kernel launches (one per call that
 launches its kernel or kernels, and nowhere else), so a run can show that
-its main path went through the kernels.
+its main path went through the kernels. Replicas of a fleet launch from
+several scheduler threads at once: ``count_launch`` adds under a lock, so
+counts read after the threads join are exact.
 """
 
 from __future__ import annotations
@@ -56,9 +58,20 @@ _libs: dict[str, ctypes.CDLL] = {}
 build_log = ""
 
 
+_count_lock = threading.Lock()
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """One launch of ``name``'s kernel (a ``+=`` on the dict from two
+    threads could lose one)."""
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -140,8 +153,14 @@ def _check(t: torch.Tensor, name: str, device, dtypes, ndim: int) -> None:
 # split may cover, and splits of one (row, kv head).
 PAGED_MAX_COLS, PAGED_MAX_SPLITS = 512, 256
 # Per device: the int32 arrival counters of the split-KV combine, one per
-# (row, kv head), zeroed once; every launch leaves them 0.
+# (row, kv head), zeroed once; every launch leaves them 0. Launches that
+# share a buffer must run one after another: every caller launches on the
+# device's default stream (the replicas of a fleet included), so they do.
+# The lock makes a buffer's growth atomic when several scheduler threads
+# launch at once; a replaced buffer stays alive until the launches queued
+# on it have run (the caching allocator reuses it only in stream order).
 _counters: dict[int, torch.Tensor] = {}
+_counters_lock = threading.Lock()
 _sm_count: dict[int, int] = {}
 
 
@@ -159,11 +178,13 @@ def paged_splits(batch: int, hkv: int, mb: int, sms: int) -> tuple[int, int]:
 
 def _paged_counters(dev: torch.device, pairs: int) -> torch.Tensor:
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    buf = _counters.get(idx)
-    if buf is None or buf.numel() < pairs:
-        buf = torch.zeros(max(pairs, 1024), dtype=torch.int32, device=dev)
-        _counters[idx] = buf
-    return buf
+    with _counters_lock:
+        buf = _counters.get(idx)
+        if buf is None or buf.numel() < pairs:
+            buf = torch.zeros(max(pairs, 1024), dtype=torch.int32,
+                              device=dev)
+            _counters[idx] = buf
+        return buf
 
 
 def paged_decode(qg, k_pool, v_pool, table, pos, sm_scale: float):
@@ -247,7 +268,7 @@ def paged_decode(qg, k_pool, v_pool, table, pos, sm_scale: float):
     if err != 0:
         raise RuntimeError(f"paged decode kernel launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES["paged_decode_attention"] += 1
+    count_launch("paged_decode_attention")
     return out
 
 
@@ -309,7 +330,7 @@ def flash_fwd(q, k, v, kv_mask, causal: bool, scale: float):
     if err != 0:
         raise RuntimeError(f"flash forward kernel launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES["flash_attention_fwd"] += 1
+    count_launch("flash_attention_fwd")
     return out, lse
 
 
@@ -342,5 +363,5 @@ def flash_bwd(q, k, v, kv_mask, out, lse, dout, causal: bool, scale: float):
     if err != 0:
         raise RuntimeError(f"flash backward kernel launch failed: CUDA "
                            f"error {err}")
-    LAUNCHES["flash_attention_bwd"] += 1
+    count_launch("flash_attention_bwd")
     return dq, dk, dv

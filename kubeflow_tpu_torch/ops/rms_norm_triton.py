@@ -69,5 +69,5 @@ def rms_norm_triton(x: torch.Tensor, weight: torch.Tensor,
     with torch.cuda.device(x.device):
         rms_kernel[(rows,)](x, weight, y, d, float(eps), BLOCK_D=block_d,
                             num_warps=8 if block_d >= 2048 else 4)
-    kernels.LAUNCHES["rms_norm"] += 1
+    kernels.count_launch("rms_norm")
     return y

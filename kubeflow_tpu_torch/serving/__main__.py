@@ -11,7 +11,10 @@ layout, plain predicts through the dynamic batcher.
 ``--kv-layout paged [--kv-fused-attention] [--kv-dtype int8]`` and
 ``--prefill-chunk-tokens N --max-prompt-len M`` (paged),
 ``--speculative-k K [--draft-mode ngram|model:<name>]``, the host KV tier
-(``--host-kv-bytes``, paged), QoS (``--qos-tenants``, ``--qos-aging-s``),
+(``--host-kv-bytes``, paged), the fleet KV economy
+(``--kv-directory-size``, ``--cold-store-ref``,
+``--kv-import-crossover-tokens``, paged), QoS (``--qos-tenants``,
+``--qos-aging-s``),
 a disaggregated role (``--serving-role prefill|decode``, paged), tensor
 parallelism (``--tp-shards N``: with ``--device cuda`` the shards take
 ``cuda:0`` .. ``cuda:N-1`` and the CLI exits 2 naming the devices when
@@ -21,10 +24,10 @@ host), context parallelism (``--cp-shards N``, with
 (``--pp-stages N``; the replica takes tp x cp x pp devices, as tensor
 shards do) and the boot weights' source (``--model-path`` for a
 checkpoint directory, ``--weight-peers`` with
-``--weight-pull-timeout-s``) choose the other ported paths. Every other
-flag of the JAX CLI (the fleet KV directory and cold store, the import
-crossover, the compile cache) is rejected by name, never ignored. Without grpcio the default
-``--grpc-port`` exits 2: the server never starts without :9000 unasked.
+``--weight-pull-timeout-s``) choose the other ported paths. The JAX CLI's
+``--compile-cache-dir`` is rejected by name, never ignored: eager PyTorch
+compiles nothing to cache. Without grpcio the default ``--grpc-port``
+exits 2: the server never starts without :9000 unasked.
 """
 
 from __future__ import annotations
@@ -33,15 +36,13 @@ import argparse
 import sys
 
 from kubeflow_tpu_torch.parallel.mesh import serving_mesh
+from kubeflow_tpu_torch.serving.cold_store import cold_store_from_ref
 from kubeflow_tpu_torch.serving.engine import EngineConfig
 from kubeflow_tpu_torch.serving.qos import parse_tenants
 from kubeflow_tpu_torch.serving.server import ModelServer
 
 # Flags of the JAX CLI whose features are not yet ported.
-UNPORTED_FLAGS = (
-    "--kv-directory-size", "--cold-store-ref",
-    "--kv-import-crossover-tokens", "--compile-cache-dir",
-)
+UNPORTED_FLAGS = ("--compile-cache-dir",)
 
 
 def _grpc_importable() -> bool:
@@ -150,6 +151,23 @@ def main(argv=None) -> int:
                         "0 disables): prefix evictions demote blocks "
                         "there, misses promote them back, and QoS "
                         "suspensions park live streams' KV there")
+    p.add_argument("--kv-directory-size", type=int, default=0,
+                   help="fleet KV economy: distinct prefix affinity keys "
+                        "the prefix->holder directory tracks (paged "
+                        "layout; 0 disables). Local misses probe its "
+                        "hints and pull the deepest advertised prefix "
+                        "from the holding peer over :kv, prefilling only "
+                        "the tail")
+    p.add_argument("--cold-store-ref", default="",
+                   help="shared cold content-addressed KV store "
+                        "('mem://<name>[?bytes=<n>]'; empty disables): "
+                        "host-tier evictions demote payloads there; the "
+                        "weights epoch rides the content key, so a live "
+                        "push invalidates pre-swap blobs")
+    p.add_argument("--kv-import-crossover-tokens", type=int, default=0,
+                   help="minimum prefill tokens a peer or cold import "
+                        "must save over the best local tier; 0 imports "
+                        "any strictly deeper match")
     p.add_argument("--qos-tenants", default="",
                    help="QoS tenants: 'name=weight[:rate[:burst"
                         "[:priority]]]' comma-separated (empty disables); "
@@ -228,6 +246,23 @@ def main(argv=None) -> int:
     if args.host_kv_bytes and args.kv_layout != "paged":
         # The tier stores exported block payloads.
         p.error("--host-kv-bytes requires --kv-layout=paged")
+    if args.kv_directory_size < 0:
+        p.error("--kv-directory-size must be >= 0")
+    if args.kv_import_crossover_tokens < 0:
+        p.error("--kv-import-crossover-tokens must be >= 0")
+    if ((args.kv_directory_size or args.cold_store_ref)
+            and args.kv_layout != "paged"):
+        # Imports land through the paged scatter; dense rows have no
+        # block pool to install a pulled prefix into.
+        p.error("--kv-directory-size/--cold-store-ref require "
+                "--kv-layout=paged")
+    if args.cold_store_ref:
+        try:
+            cold_store_from_ref(args.cold_store_ref)
+        except ValueError as e:
+            # A mistyped store URL fails at flag parsing, not by serving
+            # without its cold tier.
+            p.error(f"--cold-store-ref: {e}")
     if args.qos_tenants:
         if not continuous:
             # QoS ordering lives in the continuous decoder's queue.
@@ -291,6 +326,9 @@ def main(argv=None) -> int:
             cp_shards=args.cp_shards,
             pp_stages=args.pp_stages,
             host_kv_bytes=args.host_kv_bytes,
+            kv_directory_size=args.kv_directory_size,
+            cold_store_ref=args.cold_store_ref,
+            kv_import_crossover_tokens=args.kv_import_crossover_tokens,
             qos_tenants=args.qos_tenants,
             qos_aging_s=args.qos_aging_s,
             weight_peers=args.weight_peers,

@@ -95,11 +95,19 @@ stage's shards hold their weights and KV on the devices of its ring
 shard 0, and ring shard ``c`` of each computes on its own. The byte
 gauges price the pool per tensor shard, as JAX's do.
 
-Options of features not yet ported (the KV directory and cold store)
-raise
-``ValueError`` at construction; none falls through to another
-behaviour. Their counters in :meth:`ContinuousDecoder.metrics` read what
-JAX's read with the feature off.
+The fleet KV economy (paged): a prefix->holder directory shared by a
+fleet's replicas (``kv_directory``, ``serving/kv_directory.py``), a
+content-addressed cold store (``cold_store``, ``serving/cold_store.py``)
+and a transport to pull a peer's prefix (``peer_fetch``; the fleet or the
+server installs one). A publish or a demotion advertises the prefix; a
+host-tier eviction packs its payload into the cold store. A submit whose
+prompt misses the trie and the host tier probes the directory ON THE
+CALLER'S THREAD, pulls the holder's :meth:`ContinuousDecoder.
+export_prefix` as a handoff envelope (or matches the cold store) and
+installs it, so the admission prefills only the tail. An envelope of a
+weights epoch the decoder no longer serves is refused. The compile
+cache's counters read what JAX's read with the cache off: eager PyTorch
+compiles nothing to cache.
 """
 
 from __future__ import annotations
@@ -146,13 +154,18 @@ from kubeflow_tpu_torch.parallel.mesh import (
 )
 from kubeflow_tpu_torch.parallel.pipeline import stage_layer_ranges
 from kubeflow_tpu_torch.parallel.sharding import merge_replica
+from kubeflow_tpu_torch.serving.affinity import (
+    DEFAULT_AFFINITY_TOKENS,
+    prefix_affinity_key,
+)
 from kubeflow_tpu_torch.serving.engine import pow2_bucket
-from kubeflow_tpu_torch.serving.handoff import tree_to_torch
+from kubeflow_tpu_torch.serving.handoff import tree_to_torch, unpack
 from kubeflow_tpu_torch.serving.kv_allocator import (
     BlockAllocator,
     kv_bytes_per_token,
 )
-from kubeflow_tpu_torch.serving.kv_tier import HostKvTier
+from kubeflow_tpu_torch.serving.kv_directory import COLD_HOLDER
+from kubeflow_tpu_torch.serving.kv_tier import HostKvTier, payload_nbytes
 from kubeflow_tpu_torch.serving.prefix_cache import PrefixCache
 from kubeflow_tpu_torch.serving.qos import (
     DEFAULT_TENANT,
@@ -166,16 +179,11 @@ from kubeflow_tpu_torch.weights import _unflatten, flatten, replica_shards
 
 _DONE = object()
 
-# Counters and gauges of features not yet ported (the fleet KV economy,
-# the compile cache), as JAX's metrics() reports them with the feature
-# off.
+# The compile cache's counters, as JAX's metrics() reports them with the
+# cache off (eager PyTorch compiles no executable to cache).
 _UNPORTED_METRICS = {
-    "kv_peer_hits": 0, "kv_peer_misses": 0,
-    "kv_peer_import_bytes": 0, "kv_peer_fetch_failures": 0,
-    "kv_cold_hits": 0, "kv_cold_demotions": 0, "kv_cold_import_bytes": 0,
-    "kv_import_stale_refused": 0, "kv_import_skipped_crossover": 0,
-    "kv_directory_publishes": 0, "compile_cache_hits": 0,
-    "compile_cache_misses": 0, "warm_seconds": 0.0, "warming": False,
+    "compile_cache_hits": 0, "compile_cache_misses": 0,
+    "warm_seconds": 0.0,
 }
 
 
@@ -301,13 +309,6 @@ class StreamHandle:
         return self._req.ttft_s
 
 
-def _reject_unported(**options) -> None:
-    for name, on in options.items():
-        if on:
-            raise ValueError(f"{name} is not yet ported to the PyTorch "
-                             "package")
-
-
 class ContinuousDecoder:
     """Owns the device decode state and the scheduler thread.
 
@@ -336,14 +337,12 @@ class ContinuousDecoder:
                  hol_bypass_limit: int = 4, hol_shield_rounds: int = 8,
                  prefill_chunk_tokens: int = 0, max_prompt_len: int = 0,
                  cp_shards: int = 1, pp_stages: int = 1,
-                 kv_directory=None, cold_store=None,
+                 kv_directory=None, cold_store=None, peer_fetch=None,
+                 kv_import_crossover_tokens: int = 0,
+                 kv_affinity_tokens: int = 0, replica_name: str = "",
                  boot_weights_version: int = 0):
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
-        _reject_unported(
-            kv_directory=kv_directory is not None,
-            cold_store=cold_store is not None,
-        )
         # Disaggregated role: "" (colocated), "prefill" (peers take its
         # finished prompt KV through export_prompt) or "decode" (resumes
         # imported prompts). The handoff rides the block pool.
@@ -580,6 +579,29 @@ class ContinuousDecoder:
                                torch.empty((), dtype=cfg.dtype)
                                .element_size(), kv_dtype)
             if self._alloc is not None else 0)
+        # The fleet KV economy (HBM -> host -> PEER -> COLD): the shared
+        # prefix->holder directory, the content-addressed cold store and
+        # the peer pull the fleet or the server wires in
+        # (``peer_fetch(holder, tokens, version) -> {"envelope": packed,
+        # "weights_version": v} | None``). A local trie and host miss
+        # probes the directory on the caller's thread in submit(), never
+        # under a decoder lock, and installs the imported prefix so the
+        # pop-time plan sees an ordinary trie hit. An import pays only
+        # when it beats the best local tier by at least
+        # ``kv_import_crossover_tokens`` (0 = any deeper match).
+        if (kv_directory is not None or cold_store is not None) \
+                and kv_layout != "paged":
+            raise ValueError(
+                "the fleet KV economy (kv_directory/cold_store) "
+                "requires kv_layout='paged'")
+        self.kv_directory = kv_directory
+        self.cold_store = cold_store
+        self._peer_fetch = peer_fetch
+        self.replica_name = str(replica_name or "")
+        self.kv_import_crossover_tokens = max(
+            0, int(kv_import_crossover_tokens))
+        self.kv_affinity_tokens = (int(kv_affinity_tokens)
+                                   or DEFAULT_AFFINITY_TOKENS)
         # Head-of-line bypass: how many memory-blocked candidates a round
         # may skip looking for a smaller request that fits, and how many
         # blocked rounds shield a head from further bypass.
@@ -626,6 +648,18 @@ class ContinuousDecoder:
         self.kv_suspends = 0          # live streams parked to the host tier
         self.kv_resumes = 0           # parked streams re-admitted
         self.kv_host_hits = 0         # trie misses served by the host tier
+        # The fleet KV economy's counters (0 without a directory or a
+        # cold store).
+        self.kv_peer_hits = 0         # prefixes imported from a peer replica
+        self.kv_peer_misses = 0       # probes that found nothing importable
+        self.kv_peer_import_bytes = 0  # payload bytes pulled from peers
+        self.kv_peer_fetch_failures = 0  # dead holder / refused pull
+        self.kv_cold_hits = 0         # prefixes imported from the cold store
+        self.kv_cold_demotions = 0    # host evictions packed into cold
+        self.kv_cold_import_bytes = 0  # payload bytes promoted from cold
+        self.kv_import_stale_refused = 0  # envelopes refused: stale epoch
+        self.kv_import_skipped_crossover = 0  # gains under the threshold
+        self.kv_directory_publishes = 0  # holder hints this replica wrote
         self.qos_deadline_shed = 0    # requests shed past their deadline
         # Decode service per tenant (tokens emitted): the fair-share
         # ordering's input.
@@ -710,6 +744,15 @@ class ContinuousDecoder:
                 "before LRU pressure evicted it")
             self._host_tier.eviction_age_observe = \
                 self._h_host_evict_age.observe
+            if self.cold_store is not None:
+                # The economy's demotion chain: a host-tier eviction packs
+                # its payload into the cold store (and publishes the hint)
+                # before the bytes drop.
+                self._host_tier.on_evict = self._demote_to_cold
+        # A birth path (a fleet's add_replica) sets this while a newborn
+        # warms: the fleet then admits it by least-loaded spill only, with
+        # no affine share of the keys.
+        self.warming = False
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -780,6 +823,17 @@ class ContinuousDecoder:
         req.timeline.event("submit", prompt_tokens=len(req.tokens),
                            want=req.want, tenant=req.tenant,
                            priority=req.priority)
+        if self.kv_directory is not None or self.cold_store is not None:
+            # The fleet miss path (trie -> host -> peer -> cold) on the
+            # CALLER's thread, before the request enters the queue: the
+            # pop loop plans prefixes under the scheduler condition, where
+            # a blocking peer fetch would stall every submit. An import
+            # lands in the trie, so the pop-time plan sees a local hit. A
+            # failed probe never fails the submit it meant to speed up.
+            try:
+                self._maybe_import_remote(req.tokens, req.timeline)
+            except Exception:
+                pass
         with self._cv:
             if self._stopped:
                 req.timeline.close(error=RuntimeError("decoder is stopped"))
@@ -866,7 +920,8 @@ class ContinuousDecoder:
             # crash drain evicts the whole trie): losing the second
             # chance is fine, losing the free() below is a leak.
             return
-        self._host_tier.put(key, payload, plen, version=entry.version)
+        if self._host_tier.put(key, payload, plen, version=entry.version):
+            self._publish_directory(key, plen, entry.version, tier="host")
 
     def _set_table_row(self, slot: int, blocks: list[int]) -> None:
         """Point ``slot``'s host block-table row at ``blocks`` (sentinel
@@ -1284,6 +1339,11 @@ class ContinuousDecoder:
             else:
                 store_prefix_row(self._prefix_pool, entry.slot, self._state,
                                  slot)
+            plen = len(key)
+            if entry.blocks:
+                plen = min(plen, len(entry.blocks) * self.kv_block_size)
+            self._publish_directory(key, plen, req.weights_version,
+                                    tier="hbm")
         with self._mlock:
             self.prefix_inserts += 1
 
@@ -1580,6 +1640,7 @@ class ContinuousDecoder:
                 for b in blocks:
                     self._alloc.free(b)
             raise
+        ver = self.weights_version if version is None else int(version)
         with self._prefix_lock:
             entry = cache.reserve(key)
             if entry is None:
@@ -1588,13 +1649,16 @@ class ContinuousDecoder:
                 # pinned. Either way these blocks are surplus.
                 for b in blocks:
                     self._alloc.free(b)
-                return cache.has(key)
-            entry.blocks = tuple(blocks)
-            entry.version = (self.weights_version if version is None
-                             else int(version))
-            with self._mlock:
-                self.prefix_inserts += 1
-            return True
+                imported = cache.has(key)
+            else:
+                entry.blocks = tuple(blocks)
+                entry.version = ver
+                with self._mlock:
+                    self.prefix_inserts += 1
+                imported = True
+        if imported:
+            self._publish_directory(key, len(key), ver, tier="hbm")
+        return imported
 
     def _promote_host_prefix(self, tokens: list[int], timeline=None, *,
                              allow_stale: bool = False) -> bool:
@@ -1625,6 +1689,270 @@ class ContinuousDecoder:
             self.kv_host_hits += 1
         if timeline is not None:
             timeline.event("promote", prefix_len=depth)
+        return True
+
+    # -- the fleet KV economy --------------------------------------------
+
+    def _publish_directory(self, key_tokens, prefix_len: int,
+                           version: int, *, tier: str) -> None:
+        """Advertise a held prefix to the fleet directory, keyed by the
+        affinity hash the gateway routes on. One leaf-locked dict write:
+        the directory holds hints, and the pull validates them."""
+        if self.kv_directory is None:
+            return
+        holder = COLD_HOLDER if tier == "cold" else self.replica_name
+        if not holder:
+            return  # an anonymous replica: nothing a peer could pull
+        key = prefix_affinity_key(key_tokens, self.kv_affinity_tokens)
+        self.kv_directory.publish(key, holder, prefix_len=int(prefix_len),
+                                  version=int(version), tier=tier)
+        with self._mlock:
+            self.kv_directory_publishes += 1
+
+    def _demote_to_cold(self, entry) -> None:
+        """Host-tier eviction hook (``HostKvTier.on_evict``, fired under
+        the prefix lock): pack the dying payload into the shared cold
+        store and publish the hint before the bytes drop. The epoch rides
+        the content key, so a pre-swap payload parked there is unreachable
+        to post-swap lookups."""
+        if entry.version != self.weights_version:
+            return  # stale epoch: parking it would waste cold bytes
+        if self.cold_store is None or entry.prefix_len < 1:
+            return
+        handoff = {"tokens": list(entry.key[: entry.prefix_len]),
+                   "prefix_len": int(entry.prefix_len),
+                   "block_size": self.kv_block_size,
+                   "kv_dtype": self.kv_dtype,
+                   "tp_shards": self.tp_shards,
+                   "cp_shards": self.cp_shards,
+                   "pp_stages": self.pp_stages,
+                   "payload": entry.payload}
+        if self.cold_store.put(handoff, version=entry.version) is None:
+            return
+        with self._mlock:
+            self.kv_cold_demotions += 1
+        self._publish_directory(entry.key, entry.prefix_len,
+                                entry.version, tier="cold")
+
+    def export_prefix(self, tokens: list[int]) -> dict:
+        """Serve a peer's KV pull: the deepest cached prefix of ``tokens``
+        this replica holds, from the trie (device blocks, one export) or
+        the host tier (already on the host), as a handoff dict stamped
+        with the live weights epoch (``weights_version``; the requester
+        refuses it if its own epoch has moved on).
+
+        Runs on the requester's thread while this replica's scheduler
+        dispatches into the same pool. The trie entry is pinned
+        (``cache.match``) across the export, so its blocks are not freed
+        or reused under it; the gather and its device-to-host copy
+        (:meth:`_export_ids`) are queued on the device's current stream
+        after every write the scheduler queued there before, so on the one
+        default stream the replicas of a card share the copy sees the
+        holder's finished writes.
+
+        Raises ``KeyError`` when nothing matches: the hint that sent the
+        requester here was stale; it withdraws the hint and falls through
+        to the cold store or a plain prefill."""
+        if self._alloc is None:
+            raise ValueError("prefix export requires kv_layout='paged'")
+        toks = [int(t) for t in tokens]
+        cache = self.prefix_cache
+        entry, depth, host = None, 0, None
+        with self._prefix_lock:
+            live = self.weights_version
+            if cache is not None:
+                m = cache.match(toks)  # pins against eviction
+                if m is not None:
+                    entry, depth = m
+                    depth = min(depth, len(entry.blocks or ())
+                                * self.kv_block_size)
+                    if depth < cache.min_len or entry.version != live:
+                        cache.release(entry)
+                        entry, depth = None, 0
+            if self._host_tier is not None:
+                hm = self._host_tier.match(toks, live)
+                if hm is not None and hm[1] > depth:
+                    host = hm
+        try:
+            if host is not None:
+                hentry, plen = host
+                payload = self._slice_payload(
+                    hentry.payload, self._alloc.blocks_for(plen))
+            elif entry is not None:
+                plen = depth
+                ids = list(entry.blocks[: self._alloc.blocks_for(plen)])
+                payload = self._export_ids(ids)
+            else:
+                raise KeyError("no cached prefix to export")
+        finally:
+            if entry is not None:
+                with self._prefix_lock:
+                    cache.release(entry)
+        with self._mlock:
+            self.kv_handoff_exports += 1
+            self.kv_handoff_tokens += plen
+        return {"tokens": toks[:plen], "prefix_len": plen,
+                "block_size": self.kv_block_size,
+                "kv_dtype": self.kv_dtype, "tp_shards": self.tp_shards,
+                "cp_shards": self.cp_shards, "pp_stages": self.pp_stages,
+                "weights_version": live, "payload": payload}
+
+    def _local_prefix_depth(self, toks: list[int]) -> tuple[int, int]:
+        """(best local depth, live epoch): the deeper of the trie's and
+        the host tier's match at the live weights epoch, what a remote
+        import must beat to be worth its pull."""
+        cache = self.prefix_cache
+        with self._prefix_lock:
+            live = self.weights_version
+            local = 0
+            m = cache.match(toks)
+            if m is not None:
+                ent, d = m
+                cache.release(ent)
+                if ent.version == live:
+                    local = min(d, len(ent.blocks or ())
+                                * self.kv_block_size)
+            if self._host_tier is not None:
+                hm = self._host_tier.match(toks, live)
+                if hm is not None:
+                    local = max(local, hm[1])
+        return local, live
+
+    def _maybe_import_remote(self, tokens: list[int],
+                             timeline=None) -> bool:
+        """The fleet miss path: trie -> host -> PEER -> COLD -> prefill,
+        on the caller's thread in :meth:`submit` with no decoder lock held
+        across a fetch. An import installs through
+        :meth:`_install_prefix_payload`, so the pop-time plan sees an
+        ordinary trie hit and prefills only the tail."""
+        cache = self.prefix_cache
+        if cache is None or self._alloc is None:
+            return False
+        if self.kv_directory is None and self.cold_store is None:
+            return False
+        toks = [int(t) for t in tokens]
+        cap = min(len(toks) - 1, self.prefill_len)
+        if cap < cache.min_len:
+            return False
+        local, live = self._local_prefix_depth(toks)
+        # The pull's fixed cost (the fetch, the envelope codec, the
+        # scatter) pays only when the import saves at least this many
+        # prefill tokens over the best local tier.
+        want = max(cache.min_len,
+                   local + max(1, self.kv_import_crossover_tokens))
+        if want > cap:
+            return False
+        key = prefix_affinity_key(toks, self.kv_affinity_tokens)
+        best_remote = 0
+        if self._import_from_peers(key, toks, cap, want, live, timeline):
+            return True
+        if self.kv_directory is not None:
+            for hint in self.kv_directory.lookup(key, version=live):
+                best_remote = max(best_remote, hint.prefix_len)
+        if self._import_from_cold(toks, cap, want, live, timeline):
+            return True
+        if self.cold_store is not None:
+            best_remote = max(best_remote,
+                              self.cold_store.peek_depth(toks, live))
+        with self._mlock:
+            if local < best_remote < want:
+                self.kv_import_skipped_crossover += 1
+            else:
+                self.kv_peer_misses += 1
+        return False
+
+    def _import_from_peers(self, key: str, toks: list[int], cap: int,
+                           want: int, live: int, timeline) -> bool:
+        """Probe the directory's holders deepest first; the fetch
+        validates what the hint only promised. A dead or evicted holder
+        costs one withdrawn hint, never a hang."""
+        if self.kv_directory is None or self._peer_fetch is None:
+            return False
+        hints = [h for h in self.kv_directory.lookup(
+                     key, exclude=(self.replica_name, COLD_HOLDER),
+                     version=live)
+                 if h.prefix_len >= want]
+        for hint in hints:
+            try:
+                got = self._peer_fetch(hint.holder, toks, live)
+            except Exception:
+                got = None
+            if got is None:
+                with self._mlock:
+                    self.kv_peer_fetch_failures += 1
+                self.kv_directory.withdraw(key, hint.holder)
+                continue
+            try:
+                h = unpack(got["envelope"])
+                ver = int(got.get("weights_version", live))
+            except (ValueError, KeyError, TypeError):
+                with self._mlock:
+                    self.kv_peer_fetch_failures += 1
+                self.kv_directory.withdraw(key, hint.holder)
+                continue
+            if self._install_remote(h, ver, toks, cap, want, timeline,
+                                    tier="peer"):
+                return True
+        return False
+
+    def _import_from_cold(self, toks: list[int], cap: int, want: int,
+                          live: int, timeline) -> bool:
+        if self.cold_store is None:
+            return False
+        got = self.cold_store.match(toks, live)
+        if got is None:
+            return False
+        h, depth = got
+        return self._install_remote(h, live, toks, min(cap, depth), want,
+                                    timeline, tier="cold")
+
+    def _install_remote(self, h: dict, ver: int, toks: list[int],
+                        cap: int, want: int, timeline, tier: str) -> bool:
+        """Check a fetched envelope against this pool and the LIVE
+        weights epoch, then install its covering slice. The epoch is read
+        again here: a push that landed while the envelope was in flight
+        makes ``ver`` stale, and the envelope is refused and counted,
+        never installed."""
+        if int(h["block_size"]) != self.kv_block_size or \
+                str(h.get("kv_dtype", "fp")) != self.kv_dtype:
+            with self._mlock:
+                self.kv_peer_fetch_failures += 1
+            return False
+        with self._state_lock:
+            now_live = self.weights_version
+        if int(ver) != now_live:
+            with self._mlock:
+                self.kv_import_stale_refused += 1
+            if timeline is not None:
+                timeline.event("kv_import_refused", tier=tier,
+                               stale_version=int(ver))
+            return False
+        # The depth that really matches (a hint, and even the envelope's
+        # prefix_len, may promise more: another prompt family can share
+        # an affinity key).
+        ht = h["tokens"]
+        lim = min(int(h["prefix_len"]), cap, len(ht))
+        d = 0
+        while d < lim and int(ht[d]) == toks[d]:
+            d += 1
+        if d < want:
+            return False
+        payload = self._slice_payload(
+            {side: tree_to_torch(h["payload"][side]) for side in ("k", "v")},
+            self._alloc.blocks_for(d))
+        if not self._install_prefix_payload(tuple(toks[:d]), payload,
+                                            version=now_live):
+            return False
+        nbytes = payload_nbytes(payload)
+        with self._mlock:
+            if tier == "cold":
+                self.kv_cold_hits += 1
+                self.kv_cold_import_bytes += nbytes
+            else:
+                self.kv_peer_hits += 1
+                self.kv_peer_import_bytes += nbytes
+        if timeline is not None:
+            timeline.event("kv_import", tier=tier, prefix_len=d)
         return True
 
     # -- live weight pushes ----------------------------------------------
@@ -2411,9 +2739,8 @@ class ContinuousDecoder:
     # ------------------------------------------------------------------
 
     def metrics(self) -> dict:
-        """Every key of the JAX decoder's metrics() (those of features not
-        yet ported read as JAX's do with the feature off), plus
-        ``kv_layout``."""
+        """Every key of the JAX decoder's metrics() (the compile cache's
+        read as JAX's do with the cache off), plus ``kv_layout``."""
         cache = self.prefix_cache
         with self._cv:
             queued = len(self._pending)
@@ -2471,6 +2798,18 @@ class ContinuousDecoder:
                 "tp_shards": self.tp_shards,
                 "cp_shards": self.cp_shards,
                 "pp_stages": self.pp_stages,
+                "kv_peer_hits": self.kv_peer_hits,
+                "kv_peer_misses": self.kv_peer_misses,
+                "kv_peer_import_bytes": self.kv_peer_import_bytes,
+                "kv_peer_fetch_failures": self.kv_peer_fetch_failures,
+                "kv_cold_hits": self.kv_cold_hits,
+                "kv_cold_demotions": self.kv_cold_demotions,
+                "kv_cold_import_bytes": self.kv_cold_import_bytes,
+                "kv_import_stale_refused": self.kv_import_stale_refused,
+                "kv_import_skipped_crossover":
+                    self.kv_import_skipped_crossover,
+                "kv_directory_publishes": self.kv_directory_publishes,
+                "warming": self.warming,
                 **_UNPORTED_METRICS,
             }
         with self._state_lock:
@@ -2507,6 +2846,16 @@ class ContinuousDecoder:
                 "kv_host_tier_high_water_bytes": (tier.high_water_bytes
                                                   if tier else 0),
             })
+        # The shared tiers carry their own leaf locks (other replicas'
+        # probes touch them while this snapshot runs).
+        if self.cold_store is not None:
+            cold = self.cold_store.stats()
+            snap["kv_cold_store_bytes"] = cold["bytes_in_use"]
+            snap["kv_cold_store_bytes_total"] = cold["capacity_bytes"]
+            snap["kv_cold_store_entries"] = cold["entries"]
+            snap["kv_cold_store_evictions"] = cold["evictions"]
+        if self.kv_directory is not None:
+            snap["kv_directory_keys"] = self.kv_directory.stats()["keys"]
         for key, hist in (("ttft", self._h_ttft),
                           ("inter_token", self._h_itl),
                           ("queue_wait", self._h_queue_wait)):

@@ -102,6 +102,15 @@ class EngineConfig:
     # Host-RAM KV tier budget in bytes (paged; 0 disables): evicted
     # prefixes demote there and QoS suspensions park there.
     host_kv_bytes: int = 0
+    # The fleet KV economy (paged): distinct affinity keys the
+    # prefix->holder directory tracks (0 disables it); the shared cold
+    # content-addressed store ("mem://<name>[?bytes=n]"; empty disables),
+    # where host-tier evictions demote; and the prefill tokens a peer or
+    # cold import must save over the best local tier (0 = any deeper
+    # match imports).
+    kv_directory_size: int = 0
+    cold_store_ref: str = ""
+    kv_import_crossover_tokens: int = 0
     # QoS tenants, "name=weight[:rate[:burst[:priority]]]"
     # comma-separated (empty disables QoS), and the seconds of queue wait
     # worth one priority point (<= 0 disables aging).

@@ -27,6 +27,9 @@ bodies:
   back as ``"envelope"`` without ``handoff_to``
 - ``POST /v1/models/<name>:import``   a handoff envelope →
   ``{"imported": bool}``; the prompt's predict then hits the prefix
+- ``POST /v1/models/<name>:kv``       ``{"tokens": [...]}`` → the deepest
+  cached prefix as ``{"envelope", "weights_version", "prefix_len"}`` (the
+  fleet KV economy's peer pull; 404 when nothing is cached)
 - ``POST /v1/models/<name>:weights``  one chunk of a weight push
   (``serving/weights.py``); the last chunk of an epoch installs the tree
   (``update_weights``) → ``{"installed": bool, "weights_version": v}``
@@ -41,7 +44,11 @@ its deadline 503. gRPC on ``grpc_port`` (:9000 by convention;
 ``serving/grpc_server.py``) shares the engine, the batcher and the
 decoder.
 
-The fleet KV economy's ``:kv`` route is not yet ported.
+With ``kv_directory_size`` the decoder keeps a prefix->holder directory
+and advertises itself as ``<model>:<port>``; ``cold_store_ref`` names a
+shared cold store (``serving/cold_store.py``). The transport to pull a
+peer's prefix is the wrapping fleet's (``DecoderFleet`` in process,
+``RemoteActorFleet.fetch_kv`` over ``:kv``).
 """
 
 from __future__ import annotations
@@ -70,7 +77,9 @@ from kubeflow_tpu_torch.serving.continuous import (
 )
 from kubeflow_tpu_torch.serving import handoff as handoff_mod
 from kubeflow_tpu_torch.serving import weights as weights_mod
+from kubeflow_tpu_torch.serving.cold_store import cold_store_from_ref
 from kubeflow_tpu_torch.serving.engine import EngineConfig, InferenceEngine
+from kubeflow_tpu_torch.serving.kv_directory import KvDirectory
 from kubeflow_tpu_torch.serving.qos import QosPolicy, QosRejected
 
 
@@ -211,10 +220,10 @@ class ModelServer:
         self._export_cache = None
         self._export_lock = threading.Lock()
         # The decoder is built at once (the JAX server builds it at the
-        # first request), so an option that is not yet ported fails here
-        # rather than at the first request. None unless generation rides
-        # it: a language model, continuous decoding (JAX's decoder
-        # property); BERT and ResNet serve plain predicts only.
+        # first request), so a bad option fails here rather than at the
+        # first request. None unless generation rides it: a language
+        # model, continuous decoding (JAX's decoder property); BERT and
+        # ResNet serve plain predicts only.
         cfg = engine_cfg
         continuous = (self.engine.model.family == "transformer"
                       and cfg.max_new_tokens > 0
@@ -249,6 +258,14 @@ class ModelServer:
             tp_devices=self.engine.tp_devices(),
             qos=qos,
             host_kv_bytes=cfg.host_kv_bytes,
+            # The fleet KV economy: a sized directory makes the local
+            # tiers fleet-visible; replicas resolving the same mem:// ref
+            # in one process share one cold store.
+            kv_directory=(KvDirectory(cfg.kv_directory_size)
+                          if cfg.kv_directory_size > 0 else None),
+            cold_store=cold_store_from_ref(cfg.cold_store_ref),
+            kv_import_crossover_tokens=cfg.kv_import_crossover_tokens,
+            replica_name=f"{cfg.model}:{port}",
             boot_weights_version=self.engine.boot_weights_version,
         )
         self.batcher = DynamicBatcher(self.engine.predict_batch,
@@ -401,6 +418,22 @@ class ModelServer:
         self._check_model(name)
         h = handoff_mod.unpack(body)  # ValueError on garbage -> 400
         return {"imported": bool(self.decoder.import_prompt(h))}
+
+    def handle_kv(self, name: str, body: dict) -> dict:
+        """``:kv``, the fleet KV economy's pull: the deepest cached prefix
+        of the posted prompt as a packed handoff envelope, with the
+        weights epoch that computed it (the requester refuses a stale or
+        mismatched one). A prefix this server no longer caches is a
+        ``KeyError`` (404): the requester withdraws its hint and falls
+        through to the cold tier or a plain prefill."""
+        self._check_model(name)
+        toks = body.get("tokens")
+        if not isinstance(toks, list) or not toks:
+            raise ValueError("kv pull needs non-empty 'tokens'")
+        h = self.decoder.export_prefix(toks)  # KeyError -> 404 on a miss
+        ver = h.pop("weights_version", 0)
+        return {"envelope": handoff_mod.pack(h), "weights_version": ver,
+                "prefix_len": h["prefix_len"]}
 
     # -- live weight pushes -----------------------------------------------
 
@@ -613,6 +646,7 @@ class ModelServer:
                         "prefill": lambda: server.handle_prefill(
                             model, body, request_id=self._request_id),
                         "import": lambda: server.handle_import(model, body),
+                        "kv": lambda: server.handle_kv(model, body),
                         "weights": lambda: server.handle_weights(
                             model, body),
                         "pull": lambda: server.handle_weights_pull(
@@ -692,6 +726,9 @@ class ModelServer:
         self._httpd = ThreadingHTTPServer(("0.0.0.0", self.port),
                                           self._make_handler())
         self.port = self._httpd.server_address[1]
+        if self.decoder is not None:
+            # The directory names this replica by its bound port.
+            self.decoder.replica_name = f"{self.engine.cfg.model}:{self.port}"
         threading.Thread(target=self._httpd.serve_forever,
                          daemon=True).start()
         self.warm()

@@ -1245,3 +1245,109 @@ def test_a_shrink_frees_the_leaving_rank_s_memory(cuda, tmp_path):
     state_bytes = ranks[1]["result"]["reshards"][0]["bytes"]
     assert ranks[1]["before"] - ranks[1]["after"] >= 0.9 * state_bytes
     assert ranks[0]["after"] - ranks[1]["after"] >= 0.9 * state_bytes
+
+
+# ---------------------------------------------------------------------------
+# The decoder fleet: replicas sharing cuda:0
+# ---------------------------------------------------------------------------
+
+
+def _fleet_model(cuda):
+    from kubeflow_tpu_torch.models import registry
+
+    tm = registry.get_model("llama-1b", d_model=512, n_heads=4,
+                            n_kv_heads=4, d_ff=256, n_layers=2,
+                            vocab_size=512, dtype=torch.float32)
+    params = tm.init(tm.config, generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda)
+    return tm, params
+
+
+def _fleet_replica(tm, params):
+    from kubeflow_tpu_torch.serving.continuous import ContinuousDecoder
+
+    return ContinuousDecoder(params, tm.config, slots=4, prefill_len=64,
+                             max_new_tokens=48, kv_layout="paged",
+                             kv_block_size=16, kv_fused=True)
+
+
+FLEET_PROMPTS = [[5, 9, 2, 7, 1] * 4, list(range(3, 40)), [11, 12],
+                 [4, 4, 8] * 9]
+
+
+@pytest.mark.cuda
+def test_three_replicas_decoding_at_once_each_equal_alone(cuda):
+    """Three replicas on ``cuda:0``, each its own scheduler thread, all
+    launching the paged kernel at once on the card's default stream (the
+    split-KV arrival counters are one buffer a device): every replica's
+    float32 greedy streams equal the same replica decoding alone, and the
+    kernel's launches, counted from three threads, equal the sum of the
+    runs alone."""
+    import threading
+
+    tm, params = _fleet_model(cuda)
+    reps = [_fleet_replica(tm, params) for _ in range(3)]
+    try:
+        alone, launched = [], 0
+        for d in reps:
+            kernels.reset_launches()
+            alone.append([d.generate(p, 40, timeout=120)["tokens"]
+                          for p in FLEET_PROMPTS])
+            launched += kernels.LAUNCHES["paged_decode_attention"]
+        kernels.reset_launches()
+        together: list = [None] * 3
+
+        def run(i):
+            hs = [reps[i].submit(p, 40) for p in FLEET_PROMPTS]
+            together[i] = [h.result(timeout=120)["tokens"] for h in hs]
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        torch.cuda.synchronize()
+        assert together == alone
+        n_layers = tm.config.n_layers
+        concurrent = kernels.LAUNCHES["paged_decode_attention"]
+        # Each launch is one (layer, decode forward) of one replica.
+        forwards = sum(d.metrics()["decode_steps"] for d in reps)
+        assert concurrent == n_layers * forwards - launched > 0
+    finally:
+        for d in reps:
+            d.stop()
+
+
+@pytest.mark.cuda
+def test_fleet_push_to_members_leaves_the_others_unchanged(cuda):
+    """Replicas built from one parameter tree share its tensors; a push
+    under ``members=[...]`` swaps only the targets' references (a copy
+    placed on a side stream), so the others stream as before, and the
+    pushed replica streams as a decoder built on the new weights."""
+    from kubeflow_tpu_torch.serving.fleet import DecoderFleet
+
+    tm, params = _fleet_model(cuda)
+    new = tm.init(tm.config, generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda)
+    reps = {f"r{i}": _fleet_replica(tm, params) for i in range(3)}
+    fleet = DecoderFleet(reps)
+    fresh = _fleet_replica(tm, new)
+    try:
+        before = {n: d.generate(FLEET_PROMPTS[0], 24, timeout=120)["tokens"]
+                  for n, d in reps.items()}
+        res = fleet.broadcast_weights(new, members=["r1"])
+        assert res["installed"] == {"r1": 1}
+        assert res["lagging"] == ["r0", "r2"]
+        after = {n: d.generate(FLEET_PROMPTS[0], 24, timeout=120)["tokens"]
+                 for n, d in reps.items()}
+        assert after["r0"] == after["r2"] == before["r0"] == before["r2"]
+        assert after["r1"] == fresh.generate(FLEET_PROMPTS[0], 24,
+                                             timeout=120)["tokens"]
+        assert after["r1"] != before["r1"]
+        # The pushed tree is the replica's own copy, not the caller's.
+        assert reps["r1"].params["embed"]["kernel"].data_ptr() != \
+            new["embed"]["kernel"].data_ptr()
+        assert reps["r0"].params is params
+    finally:
+        fleet.stop()
+        fresh.stop()

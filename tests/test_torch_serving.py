@@ -30,11 +30,13 @@ from kubeflow_tpu.serving.continuous import (  # noqa: E402
     ContinuousDecoder as JaxDecoder,
 )
 from kubeflow_tpu_torch.models import transformer as ttransformer  # noqa: E402,E501
+from kubeflow_tpu_torch.serving.cold_store import ColdKvStore  # noqa: E402,E501
 from kubeflow_tpu_torch.serving.continuous import (  # noqa: E402
     ContinuousDecoder,
     PromptTooLong,
 )
 from kubeflow_tpu_torch.serving.engine import EngineConfig  # noqa: E402
+from kubeflow_tpu_torch.serving.kv_directory import KvDirectory  # noqa: E402,E501
 from kubeflow_tpu_torch.serving.qos import QosPolicy  # noqa: E402
 from kubeflow_tpu_torch.serving.server import ModelServer  # noqa: E402
 from kubeflow_tpu_torch.weights import params_from_numpy  # noqa: E402
@@ -123,8 +125,8 @@ _OPTIONS = [
     (dict(cp_shards=2), "set prefill_chunk_tokens > 0"),
     (dict(pp_stages=2, kv_fused=True), "does not compose with kv_fused"),
     (dict(role="prefill"), None),
-    (dict(kv_directory=object()), "not yet ported"),
-    (dict(cold_store=object()), "not yet ported"),
+    (dict(kv_directory=KvDirectory(8), replica_name="a"), None),
+    (dict(cold_store=ColdKvStore(1 << 20), host_kv_bytes=1 << 20), None),
 ]
 
 
@@ -134,9 +136,11 @@ def test_decoder_unported_options_raise(weights, option, match):
     """Options of features not yet ported raise; the dense layout refuses
     chunking, the ring wants chunked prefill and pipeline stages refuse
     the fused kernel, as JAX does. The paged prefix cache, chunked
-    prefill, speculation, QoS, the host KV tier, the fleet roles and
-    tensor shards are ported: those options build a decoder that serves
-    (the ring and the stages: tests/test_torch_long_context_parallel.py)."""
+    prefill, speculation, QoS, the host KV tier, the fleet roles, tensor
+    shards and the fleet KV economy's directory and cold store are
+    ported: those options build a decoder that serves (the ring and the
+    stages: tests/test_torch_long_context_parallel.py; the economy:
+    tests/test_torch_kv_economy.py)."""
     _, _, tree = weights
     tcfg = ttransformer.config("lm-test-tiny", dtype=torch.float32)
     kw = {**DECODER_KW, **option}
