@@ -332,8 +332,8 @@ learner on the fleet, and checks the output. Phases, each printed as one JSON li
     the card beside one, dense and paged gathered: tokens/s, TTFT,
     ``serving_pp_stages``, the KV bytes a token a stage (half); f32 gates:
     pp 2 = pp 1 dense, paged, chunked and at pp 2 x tp 2; (z3) a gloo gang
-    of two over ``{"sequence": 2}`` training flagship-1b with
-    ``context_parallel``, 1 x 2048 rows, 2 steps: step time, the ring's
+    of two over ``{"sequence": 2}`` training flagship-1b (full width, 1
+    layer) with ``context_parallel``, 1 x 2048 rows, 2 steps: step time, the ring's
     permutes and bytes a step; f32 gate at 2 layers within 1e-6; (z4) a
     gang of two over ``{"pipeline": 2}`` training flagship-deep (8 + 8
     layers), 4 x 2048 rows, 4 microbatches, remat ``"llm"``, 2 steps:
@@ -342,8 +342,8 @@ learner on the fleet, and checks the output. Phases, each printed as one JSON li
     microbatch shape (B 1, T 2048, Hq 24 over Hkv 4, hd 128; run at the
     start) under (g)'s limits; f32 gate at 2 layers within 1e-6;
 (aa) elastic training and the job entry points (``phase_elastic``):
-    (aa1) a gloo gang of two on cuda:0 trains flagship-1b at full width
-    and depth through the loop, bf16, adafactor, 1 x 2048 rows a rank,
+    (aa1) a gloo gang of two on cuda:0 trains flagship-1b at full width,
+    1 layer, through the loop, bf16, adafactor, 1 x 2048 rows a rank,
     ``{"data": -1}``, one run of 4 steps whose injected source shrinks
     the mesh 2 -> 1 at step 1 and grows it back at step 2; each move bit
     for bit its restore reference (the move's checkpoint restored into
@@ -351,7 +351,7 @@ learner on the fleet, and checks the output. Phases, each printed as one JSON li
     loss and every file of the checkpoint there); the reshard's and the
     downtime's ms, the events' method, leaves and bytes, the bytes each
     rank sent and received, each rank's allocated memory before and
-    after each move, its flash launches (3 layers x the steps it trained
+    after each move, its flash launches (1 layer x the steps it trained
     as a member), and the kill path's floor (the shrink's synchronous
     save, then its reference run's init, restore into the target mesh
     and first step); (aa2) f32 gates at 2 layers (flagship-1b's
@@ -398,6 +398,25 @@ learner on the fleet, and checks the output. Phases, each printed as one JSON li
     fleet (affine, spilled, after a peer hit, after a cold hit, after a
     relay) = a plain decoder's; three replicas decoding at once = each
     alone; an envelope made stale by a push mid-pull refused and counted;
+(cc) the serving scenario registry and BERT and ResNet over the sequence
+    and pipeline axes (``phase_scenarios_axes``): (cc1) the port's
+    ``scenarios.run_trial("decode-tps")`` at llama-1b, bf16, quick, at
+    its defaults and at ``{"slots": 8, "kv_block_size": 8,
+    "prefill_len_buckets": 2}``: each objective vector and ``config``,
+    both drains at 0 blocks; ``synthetic-knobs`` once; (cc2) the
+    ``prefix-reuse``, ``speculative`` and ``concurrency-sweep`` bench
+    entries at llama-1b in f32 (full width and depth), quick: each dict,
+    no ``regression`` marker, ``tokens_identical`` true; no kernel
+    launches in (cc1) or (cc2) (no scenario sets ``kv_fused``, as in
+    JAX); (cc3) gloo gangs of two on the card whose ranks are replicas:
+    bert-base over ``{"sequence": 2}`` (32 x 128 rows on both, 2 steps,
+    flash launches 12 x 2 a rank each way, named in each rank's trace)
+    and resnet50 over ``{"pipeline": 2}`` (batch 32, 2 steps, no
+    launch): each rank's step ms and the collectives' calls and bytes a
+    step; f32 gates (BERT at 2 layers, sgd at lr 1; ResNet at two
+    bottleneck blocks, sgd at lr 3, its one process over a mesh of
+    itself): each rank's losses and final state equal one process on the
+    same batches within 1e-5 and 1e-4 + 1e-5;
 (f) the kernel table: each kernel's launches on the main paths, its
     error, its time, its plain version's time and its bound; the paged
     and RMSNorm rows give device time as ``ms`` and the call's as
@@ -429,7 +448,8 @@ learner on the fleet, and checks the output. Phases, each printed as one JSON li
     batch predict's (``batch_predict``); the paged row (bb)'s launches
     (``fleet_economy``, ``fleet_churn``, ``fleet_rl_actors``,
     ``fleet_remote``) and the flash rows the RL learner's
-    (``rl_learner``).
+    (``rl_learner``) and (cc3)'s BERT ranks'
+    (``bert_sequence2_train_rank0``, ``_rank1``).
 
 TF32 is off throughout, so float32 products are full float32. Any
 failure exits non-zero; the last line, printed only on success, is
@@ -4233,7 +4253,14 @@ GANG_RESULT = "build/chip_smoke/gang_result.json"
 # over global batches of which each rank takes
 # its batch rows, counting the MoE choices dropped past capacity; rank 0
 # first runs one process over the whole batches, then gathers the gang's
-# state and holds it against them. Every rank writes its result.
+# state and holds it against them. The gate's depth is ``gate_layers``
+# layers (None: the depth ``gate_overrides`` sets, ResNet's stages). With
+# ``replicas`` (a mesh whose ranks all hold the whole state) every rank
+# also holds its own final state against rank 0's one process, broadcast
+# to it, and reports its metrics; with ``one_mesh`` that one process runs
+# over a mesh of rank 0 alone (the mesh path's sums). The gate's
+# convolutions take cuDNN's deterministic algorithms. Every rank writes
+# its result.
 GANG_WORKER = """
 import json, math, sys, time
 import torch
@@ -4324,8 +4351,12 @@ if a["steps"]:
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-gmodel = get_model(a["model"], dtype=torch.float32,
-                   n_layers=a["gate_layers"], **a["gate_overrides"])
+torch.backends.cudnn.deterministic = True
+one_mesh = build_mesh(MeshConfig(data=1), device_type=dev.type,
+                      ranks=[0]) if a["one_mesh"] else None
+depth = {} if a["gate_layers"] is None else {"n_layers": a["gate_layers"]}
+gmodel = get_model(a["model"], dtype=torch.float32, **depth,
+                   **a["gate_overrides"])
 gopt = OptimizerConfig(name=a["gate_opt"], warmup_steps=1,
                        learning_rate=a["gate_lr"])
 gbatches = batches(gmodel, a["gate_rows"], a["gate_seq"], 5, 3)
@@ -4342,9 +4373,10 @@ def run(m, rows):
         ms.append({k: float(met[k]) for k in ("loss", "grad_norm",
                                               "router_aux_loss")
                    if k in met})
+    local = flatten(st.params)
     if m is not None:
         st = st.layout.gather_state(st)
-    return ms, (None if st is None else flatten(st.params)), dropped
+    return ms, (None if st is None else flatten(st.params)), dropped, local
 
 # Rank 0's one process first; the gang's first collective waits for it.
 if r == 0:
@@ -4370,9 +4402,21 @@ if r == 0:
     total = math.sqrt(sum(v * v for v in gnorm.values()))
     still = {k: v for k, v in gnorm.items() if v <= ZERO_GRAD * total}
     del tree, leaves, loss, grads
-    one, one_params, one_dropped = run(None, lambda b: b)
-gang, gang_params, dropped = run(mesh, lambda b: mine(gmodel, b))
+    one, one_params, one_dropped, _ = run(one_mesh, lambda b: b)
+gang, gang_params, dropped, gang_local = run(mesh, lambda b: mine(gmodel, b))
 result["gate_dropped"] = dropped
+if a["replicas"]:
+    import torch.distributed as dist
+    keys = sorted(gang_local)
+    own = torch.cat([gang_local[k].detach().float().reshape(-1).cpu()
+                     for k in keys])
+    ref = torch.cat([one_params[k].float().reshape(-1).cpu()
+                     for k in keys]) if r == 0 else torch.empty_like(own)
+    dist.broadcast(ref, 0)
+    result["replica_gate"] = {
+        "metrics": gang,
+        "param_excess_over_1e-4_rel": ((own - ref).abs()
+                                       - 1e-4 * ref.abs()).max().item()}
 if r == 0:
     rel = max(abs(g[k] - o[k]) / abs(o[k]) for g, o in zip(gang, one)
               for k in o)
@@ -4387,7 +4431,8 @@ if r == 0:
                     for n, p in one_params.items()
                     if p.ndim >= 2 and n not in still)
     result["f32_gate"] = {
-        "layers": a["gate_layers"], "rows": a["gate_rows"] * bn,
+        "layers": a["gate_layers"] or a["gate_overrides"],
+        "rows": a["gate_rows"] * bn,
         "seq": a["gate_seq"], "overrides": a["gate_overrides"],
         "gang": gang, "one": one, "max_rel_err_metrics": rel,
         "max_param_excess_over_1e-4_rel": worst,
@@ -4625,11 +4670,14 @@ def gang_run(smi: str, name: str, model: str, mesh: dict, steps: int,
              rows: int, seq: int, gate_rows: int, gate_seq: int,
              gate_overrides: dict, tol: float, gate_opt: str = "adafactor",
              gate_lr: float = 1e-2, overrides: dict | None = None,
-             want: dict | None = None) -> dict:
+             want: dict | None = None,
+             gate_layers: int | None = X_GATE_LAYERS,
+             replicas: bool = False, one_mesh: bool = False) -> dict:
     """One GANG_WORKER gang of two on the card (a run named ``name``);
     checks its f32 gate (metrics
     within ``tol`` relative of one process's, parameters within 1e-4
-    relative + 1e-5, every matrix moved over 10x that limit) and, with
+    relative + 1e-5, every matrix moved over 10x that limit; with
+    ``replicas``, each rank's metrics and state so) and, with
     full-size steps of ``model`` with ``overrides``, each rank's flash
     launches (``want``; by default n_layers x steps each, twice the
     forwards under remat) and, where it launches them, the flash kernels
@@ -4650,8 +4698,8 @@ def gang_run(smi: str, name: str, model: str, mesh: dict, steps: int,
     trace = any(want.values())
     args = dict(device="cuda", model=model, overrides=overrides, mesh=mesh,
                 steps=steps, rows=rows, seq=seq, trace=trace,
-                gate_layers=X_GATE_LAYERS, gate_rows=gate_rows,
-                gate_seq=gate_seq,
+                gate_layers=gate_layers, gate_rows=gate_rows,
+                gate_seq=gate_seq, replicas=replicas, one_mesh=one_mesh,
                 gate_overrides=gate_overrides, gate_opt=gate_opt,
                 gate_lr=gate_lr, out=GANG_RESULT)
     t0 = time.perf_counter()
@@ -4676,8 +4724,9 @@ def gang_run(smi: str, name: str, model: str, mesh: dict, steps: int,
            "gang_dropped": dropped}
     if steps:
         out["rank1_launches"] = ranks[1]["rank_launches"]
-        out["rank1_flash_kernels_in_trace"] = ranks[1][
-            "flash_kernels_in_trace"]
+        out.update({f"rank1_{k}": ranks[1][k] for k in (
+            "flash_kernels_in_trace", "step_s", "collective_calls_per_step",
+            "collective_bytes_per_step")})
     if steps:
         out["expected_flash_launches_per_rank"] = want
     emit(name, **out)
@@ -4702,6 +4751,13 @@ def gang_run(smi: str, name: str, model: str, mesh: dict, steps: int,
     if dropped != g["one_process_dropped"]:
         raise AssertionError(f"({name}) the gang dropped {dropped} choices, "
                              f"one process {g['one_process_dropped']}")
+    for i, r in enumerate(ranks if replicas else ()):
+        rg = r["replica_gate"]
+        rel = max(abs(x[k] - o[k]) / abs(o[k])
+                  for x, o in zip(rg["metrics"], g["one"]) for k in o)
+        if rel > tol or rg["param_excess_over_1e-4_rel"] > 1e-5:
+            raise AssertionError(f"({name}) rank {i} differs from one "
+                                 f"process: {rel}, {rg}")
     return out
 
 
@@ -4823,6 +4879,10 @@ CP_DEVICES = ("cuda:0",) * CP
 PP_DEVICES = ("cuda:0",) * PP
 DEEP_MODEL = "flagship-deep"
 Z_TRAIN_STEPS, Z_MICRO = 2, 4
+# (z3)'s flagship-1b at full width, 1 of its 3 layers: its step is the
+# all-reduce of the whole f32 gradient through gloo (4.52 GB at 3
+# layers); the cut pays for (cc).
+Z3_LAYERS = 1
 PP_OVERRIDES = {"pipeline_stages": PP, "pipeline_microbatches": Z_MICRO}
 # flagship-deep's attention on one stage's microbatch: 1 x 2048 rows, Hq
 # 24 over Hkv 4, hd 128.
@@ -5089,7 +5149,7 @@ def phase_long_axes(smi: str, stage_flash: dict) -> dict:
     """(z) the sequence and pipeline axes. (z1) :func:`phase_cp_serving`.
     (z2) :func:`phase_pp_serving`. (z3) :func:`gang_run`, a gloo gang of
     two over ``{"sequence": 2}`` on the card training flagship-1b with
-    ``context_parallel`` at full width and depth, bf16, 1 x 2048 rows
+    ``context_parallel`` at full width, Z3_LAYERS layers, bf16, 1 x 2048 rows
     (1024 positions a rank), 2 steps: each step's time, the ring's
     permutes and their bytes a step (no flash launch: the ring replaces
     it); the f32 gate at 2 layers (1 x 1024 rows) within 1e-6 of one
@@ -5107,7 +5167,7 @@ def phase_long_axes(smi: str, stage_flash: dict) -> dict:
     cp_kw = {"context_parallel": True}
     z3 = gang_run(smi, f"z3_sequence{CP}", TRAIN_MODEL, {"sequence": CP},
                   Z_TRAIN_STEPS, 1, FLASH_TP_RANK["t"], 1, 1024, cp_kw,
-                  1e-6, overrides=cp_kw,
+                  1e-6, overrides=dict(cp_kw, n_layers=Z3_LAYERS),
                   want={"flash_attention_fwd": 0, "flash_attention_bwd": 0})
     per_stage = 16 // PP * Z_MICRO * Z_TRAIN_STEPS
     z4 = gang_run(smi, f"z4_pipeline{PP}", DEEP_MODEL, {"pipeline": PP},
@@ -5131,6 +5191,10 @@ ELASTIC_DIR = "build/chip_smoke/elastic"
 # One live run a gang: its mesh shrinks at step AA_FLIP and grows back at
 # 2 x AA_FLIP, of AA_STEPS.
 AA_STEPS, AA_FLIP = 4, 1
+# Its model: flagship-1b at full width, 1 of its 3 layers (about 2.2 GB
+# of f32 masters to save and move against 4.52 GB at 3 layers; the cut
+# pays for (cc)).
+AA_OVERRIDES = {"n_layers": 1}
 # The f32 gates' model: flagship-1b's architecture at 2 layers and a
 # width a gang of four on one card moves in seconds through gloo (hd 128,
 # the kv heads split over tensor 2).
@@ -5306,7 +5370,8 @@ def _moved(polls: list, step: int) -> dict:
 
 
 def elastic_full_width(smi: str) -> dict:
-    """(aa1) flagship-1b at full width and depth, bf16, adafactor, 1 x 2048
+    """(aa1) flagship-1b at full width and AA_OVERRIDES' depth, bf16,
+    adafactor, 1 x 2048
     rows a rank, ``{"data": -1}``, in a gloo gang of two on cuda:0: one
     live run of AA_STEPS steps that shrinks 2 -> 1 at step AA_FLIP and
     grows 1 -> 2 at 2 x AA_FLIP, each move held bit for bit against its
@@ -5318,17 +5383,18 @@ def elastic_full_width(smi: str) -> dict:
     its first step)."""
     from kubeflow_tpu_torch.models.registry import get_model
 
-    layers = get_model(TRAIN_MODEL).config.n_layers
+    layers = get_model(TRAIN_MODEL, **AA_OVERRIDES).config.n_layers
     sizes = [2, 1, 2]
     t0 = time.perf_counter()
     ranks = elastic_gang("aa1", 2, dict(
-        model=TRAIN_MODEL, overrides={}, rows=1, seq=TRAIN_SEQ,
+        model=TRAIN_MODEL, overrides=AA_OVERRIDES, rows=1, seq=TRAIN_SEQ,
         opt=dict(name="adafactor", warmup_steps=2), keep=False,
         cases=[["flagship", {"data": -1}, sizes]]))
     runs = [r["flagship"] for r in ranks]
     live = runs[0]["live"]
-    out = {"gpu": smi, "model": TRAIN_MODEL, "rows_per_rank": 1,
-           "seq": TRAIN_SEQ, "steps": AA_STEPS, "mesh_sizes": sizes,
+    out = {"gpu": smi, "model": TRAIN_MODEL, "overrides": AA_OVERRIDES,
+           "rows_per_rank": 1, "seq": TRAIN_SEQ, "steps": AA_STEPS,
+           "mesh_sizes": sizes,
            "transport": "gloo through the host (not NCCL)",
            "wall_s": time.perf_counter() - t0,
            "live_wall_s": live["wall_s"],
@@ -6306,6 +6372,126 @@ def phase_fleet(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# (cc) the serving scenario registry and its tuning trial; BERT and ResNet
+# over the sequence and pipeline axes
+# ---------------------------------------------------------------------------
+
+# (cc1): decode-tps at its checked-in defaults and at one tuned setting.
+CC_TUNED = {"slots": 8, "kv_block_size": 8, "prefill_len_buckets": 2}
+# (cc2): the bench entries' arguments: quick, the bench's defaults for the
+# rest (bench_serving.py's flags). They run llama-1b in f32 (its full
+# width and depth, registered in this process by :func:`f32_preset`): at
+# bf16 two paths that reduce in another order flip greedy tokens (the
+# suffix-only prefill of a prefix hit diverged in 6 of 16 requests, the
+# draft model's verify in 1 of 8, on an H100), so the benches' identity
+# checks hold only in f32, as the script's other token gates do.
+CC_ARGS = dict(quick=True, requests=200, seq_len=128, concurrency=16,
+               max_new_tokens=64, prefix_len=96, speculative_k=4, seed=0,
+               device="cuda")
+SCENARIO_BENCHES = ("prefix-reuse", "speculative", "concurrency-sweep")
+# ResNet has no kernel of the port: each of these launches 0 times.
+CC_KERNELS = ("paged_decode_attention", "rms_norm", "flash_attention_fwd",
+              "flash_attention_bwd")
+
+
+def f32_preset() -> str:
+    """The name of llama-1b in float32 (its shape kept), registered as a
+    preset of this process, so the scenarios build it by name."""
+    import dataclasses
+
+    from kubeflow_tpu_torch.models import transformer
+
+    name = f"{MODEL}-f32"
+    transformer.PRESETS.setdefault(name, dataclasses.replace(
+        transformer.PRESETS[MODEL], dtype=torch.float32))
+    return name
+
+
+def scenario_runs(smi: str) -> dict:
+    """(cc1) the port's ``run_trial("decode-tps")`` at llama-1b, quick,
+    bf16, at the defaults and at CC_TUNED: the objective vector and
+    ``config`` of each, both drains at 0 blocks; ``synthetic-knobs``
+    once. (cc2) the three bench entries at llama-1b in f32 with CC_ARGS:
+    each dict, no ``regression`` marker, ``tokens_identical`` true. As
+    JAX's scenarios, none sets ``kv_fused``: the launch counts must not
+    move."""
+    import types
+
+    from kubeflow_tpu_torch import kernels
+    from kubeflow_tpu_torch.serving import scenarios
+
+    before = dict(kernels.LAUNCHES)
+    cc1 = {}
+    for tag, knobs in (("defaults", {}), ("tuned", CC_TUNED)):
+        t0 = time.perf_counter()
+        res = scenarios.run_trial("decode-tps", knobs, seed=0, model=MODEL,
+                                  quick=True)
+        res["wall_s"] = time.perf_counter() - t0
+        emit(f"cc1_decode_tps_{tag}", gpu=smi, **res)
+        if res["objectives"]["kv_blocks_in_use_after_drain"] != 0:
+            raise AssertionError(f"(cc1) decode-tps {tag} leaked blocks: "
+                                 f"{res}")
+        cc1[tag] = res
+    cc1["synthetic"] = scenarios.run_trial("synthetic-knobs", seed=0)
+    emit("cc1_synthetic_knobs", **cc1["synthetic"])
+    cc2 = {}
+    for name in SCENARIO_BENCHES:
+        t0 = time.perf_counter()
+        res = scenarios.get_scenario(name).bench(
+            types.SimpleNamespace(**CC_ARGS), f32_preset())
+        res["wall_s"] = time.perf_counter() - t0
+        emit(f"cc2_{name.replace('-', '_')}", gpu=smi, **res)
+        if res["regression"] or not res["tokens_identical"]:
+            raise AssertionError(f"(cc2) {name}: {res}")
+        cc2[name] = res
+    moved = {k: v - before.get(k, 0) for k, v in kernels.LAUNCHES.items()
+             if v != before.get(k, 0)}
+    if moved:
+        raise AssertionError(f"(cc1, cc2) the scenarios launched {moved}")
+    return {"cc1": cc1, "cc2": cc2}
+
+
+def phase_scenarios_axes(smi: str) -> dict:
+    """(cc) :func:`scenario_runs` (cc1, cc2); (cc3) :func:`gang_run`
+    gangs of two on the card over gloo, whose ranks are replicas: bert-base
+    over ``{"sequence": 2}`` (32 x 128 rows on both ranks, 2 steps, flash
+    launches 12 layers x 2 steps a rank each way; its f32 gate at 2
+    layers, 8 rows, sgd at lr 1, as (y4)) and resnet50 over ``{"pipeline":
+    2}`` (batch 32 on both ranks, 2 steps, no kernel; its f32 gate at two
+    bottleneck blocks, ``stage_sizes`` (1, 1), 8 images, sgd at lr 3,
+    against one process over a mesh of itself, ``one_mesh``): each rank's
+    step ms, the collectives' calls and bytes a step, and each rank's
+    losses and final state against one process on the same batches.
+
+    ResNet's gate reads its one process through the mesh path because at
+    resnet50's width the gradient at initialisation is ill-conditioned:
+    one process's ``torch.var_mean`` against the mesh path's two-pass
+    sums moves some conv gradients by 6.7e-4 relative (stage (1, 1), 224
+    px, on the CPU; reordering the batch alone moves them 1.9e-5), which
+    an update that moves every matrix 10x the parameter limit carries
+    past it (on an H100: 5.7e-6 over the limit at sgd lr 1 with the least
+    matrix moved 3.05x; 2.4e-5 over at lr 3). Through one code path the
+    ranks and the one process differ only by cuDNN's nondeterministic
+    algorithms, which the gate turns off (6.1e-6 under the limit at lr
+    3, the least matrix moved 12.7x, with them on)."""
+    t_phase = time.perf_counter()
+    out = scenario_runs(smi)
+    out["cc3"] = {
+        "bert": gang_run(smi, "cc3_bert_sequence2", BERT_MODEL,
+                         {"sequence": 2}, Y_TRAIN_STEPS, BERT_BATCH,
+                         BERT_SEQ, 8, BERT_SEQ, {}, 1e-5, "sgd", 1.0,
+                         replicas=True),
+        "resnet": gang_run(smi, "cc3_resnet_pipeline2", RESNET_MODEL,
+                           {"pipeline": 2}, Y_TRAIN_STEPS, RESNET_BATCH, 0,
+                           8, 0, {"stage_sizes": [1, 1]}, 1e-5, "sgd",
+                           3.0, want=dict.fromkeys(CC_KERNELS, 0),
+                           gate_layers=None, replicas=True, one_mesh=True)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit("cc_phase_time", phase_s=out["phase_s"])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6433,6 +6619,8 @@ def main() -> int:
     mark("aa_elastic")
     fleet = phase_fleet(smi)
     mark("bb_fleet")
+    axes = phase_scenarios_axes(smi)
+    mark("cc_scenarios_axes")
     emit("phase_seconds", **seconds, total_s=time.perf_counter() - t0)
 
     p, r = paged["bf16"], rms[f"{SLOTS}x2048"]
@@ -6527,6 +6715,11 @@ def main() -> int:
                     by_path[f"elastic_train_rank{i}"] = got[key]
                 by_path["rl_learner"] = fleet["bb3"][
                     "learner_flash_launches"][key]
+                bert_cc3 = axes["cc3"]["bert"]
+                by_path["bert_sequence2_train_rank0"] = bert_cc3[
+                    "rank_launches"][key]
+                by_path["bert_sequence2_train_rank1"] = bert_cc3[
+                    "rank1_launches"][key]
                 if part == "fwd":
                     by_path["predict"] = predict_launches
                     by_path["moe_predict"] = moe["dense"][

@@ -33,7 +33,8 @@ logits in float32 with its slice of ``output_bias``, gathered whole by
 ``gather_from_tensor``. A replicated leaf that a rank reads only a slice
 of (a column bias, ``output_bias``) goes behind ``copy_to_tensor``, so
 every rank holds its whole gradient. Every leaf is replicated over
-``expert``.
+``expert``, ``sequence`` and ``pipeline``, whose ranks hold the same rows
+(JAX's rules and batch spec name none of them).
 """
 
 from __future__ import annotations
@@ -59,10 +60,8 @@ from kubeflow_tpu_torch.parallel.mesh import (
     AXIS_FSDP,
     AXIS_TENSOR,
     BATCH_AXES,
-    MODEL_AXES,
     axis_index,
     axis_size,
-    require_axes,
     tensor_mesh,
 )
 from kubeflow_tpu_torch.parallel.sharding import P, PartitionRule, vocab_lookup
@@ -200,10 +199,11 @@ def batch_partition_spec(cfg: BertConfig) -> tuple:
 
 
 def check_mesh(cfg: BertConfig, mesh) -> None:
-    """Raise ValueError("... not yet ported") for an axis other than data,
-    fsdp, expert and tensor above 1, and ValueError for a tensor degree
-    that does not divide the heads, ``d_ff`` or the vocabulary."""
-    require_axes(mesh, (*BATCH_AXES, *MODEL_AXES), "the BERT forward")
+    """Raise ValueError for a tensor degree that does not divide the
+    heads, ``d_ff`` or the vocabulary. Every other axis trains: the
+    ranks of ``sequence`` and ``pipeline`` are replicas, as in JAX (no
+    rule or batch spec names them), holding the whole rows and every
+    layer."""
     tp = axis_size(mesh, AXIS_TENSOR)
     for what in ("n_heads", "d_ff", "vocab_size"):
         if getattr(cfg, what) % tp:

@@ -30,9 +30,8 @@ class ModelSpec:
     # metrics["_state_updates"]) -> params, applied by the trainer after
     # the optimizer step (ResNet's batch-norm running statistics).
     update_state: Callable | None = None
-    # (cfg, mesh) -> None; raises for a mesh the family does not yet
-    # train over (an axis other than data, fsdp, expert and tensor) or
-    # whose degrees do not divide its shapes.
+    # (cfg, mesh) -> None; raises for a mesh whose degrees do not divide
+    # the family's shapes.
     check_mesh: Callable | None = None
 
 

@@ -34,9 +34,9 @@ rows of the batch, and training's batch norm is synchronised: the mean
 over the global batch, then the biased variance as the global mean of
 squared deviations from it (two psums, both differentiable), which is
 what GSPMD computes for JAX's ``jnp.mean``/``jnp.var`` over a sharded
-batch. JAX's rules give the model axes (expert and tensor) nothing to
-split: their ranks hold the same rows and every weight whole, and batch
-norm syncs over the batch axes only.
+batch. JAX's rules and batch spec name no other axis: the ranks of expert,
+tensor, sequence and pipeline hold the same rows and every weight whole
+(replicas), and batch norm syncs over the batch axes only.
 """
 
 from __future__ import annotations
@@ -54,9 +54,7 @@ from kubeflow_tpu_torch.parallel.mesh import (
     AXIS_DATA,
     AXIS_FSDP,
     BATCH_AXES,
-    MODEL_AXES,
     axis_size,
-    require_axes,
 )
 from kubeflow_tpu_torch.parallel.sharding import P, PartitionRule
 
@@ -166,10 +164,6 @@ def batch_partition_spec(cfg: ResNetConfig) -> tuple:
     return P((AXIS_DATA, AXIS_FSDP), None, None, None)
 
 
-def check_mesh(cfg: ResNetConfig, mesh) -> None:
-    require_axes(mesh, (*BATCH_AXES, *MODEL_AXES), "the ResNet forward")
-
-
 def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
     """XLA's "SAME" padding of one spatial axis: (before, after)."""
     out = -(-size // stride)
@@ -253,8 +247,6 @@ def apply(params, images, cfg: ResNetConfig, *, mesh=None, train=False):
     ``(logits, stats)``, stats mapping each batch norm's path
     (``"stages/0/1/bn2"``) to its new running statistics, for
     :func:`update_state`."""
-    if mesh is not None:
-        check_mesh(cfg, mesh)
     stats: dict | None = {} if train else None
     x = images.to(cfg.dtype).permute(0, 3, 1, 2)  # NCHW, channels_last
     x = F.relu(_bn(_conv(x, params["stem"]["conv"], 2), params["stem"]["bn"],

@@ -16,14 +16,14 @@ every rank builds it all the same, and a rank outside it
 (:func:`is_member` False) holds no group of it and runs none of its
 collectives. :func:`destroy_mesh` frees a replaced mesh's groups.
 
-Every axis trains; a family refuses the axes it does not run over with
-:func:`require_axes`. The batch is sharded over :data:`BATCH_AXES` (and
+Every axis trains. The batch is sharded over :data:`BATCH_AXES` (and
 its tokens over ``sequence`` under context parallelism); the ranks of a
 :data:`MODEL_AXES` group, and of a ``pipeline`` group, hold the same rows
-and differ only in which slice of a leaf they keep. :func:`serving_mesh`
-is the single-process layout of a model-parallel serving replica: the
-list of its devices; :class:`TensorShards` and :class:`PipelineStages`
-hold its per-shard and per-stage values.
+and differ only in which slice of a leaf they keep (none, for a family
+whose rules do not name the axis: its ranks are replicas).
+:func:`serving_mesh` is the single-process layout of a model-parallel
+serving replica: the list of its devices; :class:`TensorShards` and
+:class:`PipelineStages` hold its per-shard and per-stage values.
 """
 
 from __future__ import annotations
@@ -292,19 +292,6 @@ def axis_group(mesh, axes):
     # A group's members are the same whatever the order of its axes (its
     # ranks are ordered by rank).
     return _GROUPS[(mesh, tuple(sorted(live, key=MESH_AXES.index)))]
-
-
-def require_axes(mesh, allowed: tuple[str, ...], what: str) -> None:
-    """Raise ValueError("... not yet ported") naming the first axis
-    outside ``allowed`` whose degree is above 1."""
-    ported = " and ".join([", ".join(allowed[:-1]), allowed[-1]]
-                          if len(allowed) > 1 else allowed)
-    for name, degree in mesh_degrees(mesh).items():
-        if degree > 1 and name not in allowed:
-            raise ValueError(
-                f"{what} over the {name!r} mesh axis (degree {degree}) is "
-                f"not yet ported to the PyTorch package; the {ported} axes "
-                "are")
 
 
 class TensorShards(list):

@@ -46,9 +46,9 @@ stay in the loop: they join every agreement (the SIGTERM stop each step,
 the target each poll) and every save's barrier, hold no shard, launch
 nothing, and return the same result. With the job's environment
 (``KUBEFLOW_TPU_JOB_NAME``) process 0 publishes the final metrics into
-the job's ``status.metrics`` (``k8s_client.py``). A family refuses the
-axes it does not train over before any step (BERT and ResNet: sequence
-and pipeline).
+the job's ``status.metrics`` (``k8s_client.py``). Every family trains
+over every axis; a mesh whose degrees do not divide the model's shapes
+is refused before any step.
 """
 
 from __future__ import annotations

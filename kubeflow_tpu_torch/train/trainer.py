@@ -33,13 +33,15 @@ written out:
   (``models/transformer.py``, ``parallel/pipeline.py``), whose
   collectives carry their own gradients. Each rank runs its rows of the
   batch (the ranks of a model-axis or pipeline group the same rows; the
-  ranks of a ``sequence`` group, under context parallelism, each its
-  chunk of the rows' tokens), and the loss it differentiates is its term
-  of the global loss (the loss functions normalise by the global count,
-  ``mesh=``), so gradients are SUMMED over the token axes
+  ranks of a ``sequence`` group each its chunk of the rows' tokens under
+  context parallelism, the same rows where the model's batch spec does
+  not name ``sequence``: BERT, ResNet), and the loss it differentiates
+  is its term of the global loss (the loss functions normalise by the
+  global count, ``mesh=``), so gradients are SUMMED over the token axes
   (:func:`token_axes`): reduce-scattered over ``fsdp`` for a leaf fsdp
   shards (then summed over the others), summed over them all otherwise,
-  never over ``expert``, ``tensor`` or ``pipeline``;
+  never over ``expert``, ``tensor`` or ``pipeline`` (nor over
+  ``sequence`` outside context parallelism);
 - the optimizer's reductions span each leaf's shards, and the metrics are
   the global ones.
 """
@@ -84,8 +86,8 @@ from kubeflow_tpu_torch.train.optimizers import (
 )
 from kubeflow_tpu_torch.weights import _unflatten, flatten
 
-# The mesh axes the port trains over: every one (a family refuses what
-# it does not run over in its own check_mesh).
+# The mesh axes the port trains over: every one (an axis neither a
+# family's rules nor its batch spec name holds replicas).
 TRAIN_AXES = MESH_AXES
 # The axes whose shards of a leaf the step keeps: a model axis's block, a
 # pipeline stage's layers.
@@ -240,10 +242,11 @@ class StateLayout:
         shard of their sum over the token axes: a leaf fsdp shards is
         reduce-scattered over its axes, then summed over the other token
         axes; the other leaves' are summed over every token axis in one
-        flat buffer. The ranks of the model axes and of ``pipeline`` hold
-        the same rows, and each holds the whole gradient of a leaf it
-        replicates, so nothing is summed over ``expert``, ``tensor`` or
-        ``pipeline``."""
+        flat buffer. The ranks of the model axes and of ``pipeline`` (and
+        of ``sequence`` where the batch spec does not split the tokens
+        over it) hold the same rows, and each holds the whole gradient of
+        a leaf it replicates, so nothing is summed over an axis outside
+        ``self.tokens``: a sum there would count each term twice."""
         out, whole = {}, []
         for k, g in grads.items():
             s = self._batch_shard(k)
@@ -286,9 +289,8 @@ class StateLayout:
 
 
 def check_mesh(model, mesh) -> None:
-    """Raise what the model's own ``check_mesh`` raises: an axis its
-    family does not yet train over, degrees that do not divide its
-    shapes."""
+    """Raise what the model's own ``check_mesh`` raises: degrees that do
+    not divide its shapes."""
     if model.check_mesh is not None:
         model.check_mesh(model.config, mesh)
 

@@ -240,9 +240,14 @@ def test_sequence_past_the_position_table_raises(models):
     sequence_mesh = SimpleNamespace(  # a DeviceMesh's fields, sequence=2
         mesh_dim_names=("data", "pipeline", "fsdp", "expert", "sequence",
                         "tensor"), mesh=torch.zeros(1, 1, 1, 1, 2, 1))
-    with pytest.raises(ValueError, match="not yet ported"):
-        tbert.apply(params, torch.zeros(1, 4, dtype=torch.int32), tm.config,
-                    mesh=sequence_mesh)
+    # sequence=2 is a replica axis for BERT (JAX's rules and batch spec
+    # name no other than data, fsdp and tensor): the same forward.
+    tokens = torch.from_numpy(_inputs()[0])
+    with torch.no_grad():
+        plain = tbert.apply(params, tokens, tm.config)
+        over = tbert.apply(params, tokens, tm.config, mesh=sequence_mesh)
+    for a, b in zip(plain, over):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
     tensor3 = SimpleNamespace(  # tensor=3 does not divide 4 heads
         mesh_dim_names=sequence_mesh.mesh_dim_names,
         mesh=torch.zeros(1, 1, 1, 1, 1, 3))

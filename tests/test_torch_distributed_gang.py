@@ -14,9 +14,8 @@ workloads.
   every process, so the global batch is one process's batch twice, whose
   mean loss and gradient one process computes alone).
 - A SIGTERM to one rank: every rank stops and saves at the same step.
-- BERT over a sequence axis of 2 raises "not yet ported" on every rank
-  before any step (the MoE gangs over every axis the port trains:
-  tests/test_torch_moe_parallel.py).
+- BERT over a sequence axis of 2 trains as one process does: its two
+  ranks are replicas of the same rows, as in JAX.
 - An elastic gang (``elastic_poll_steps``) starts on the job's grant read
   from JAX's fake apiserver over HTTP: one rank of two.
 - The allreduce smoke test, the bandwidth benchmark and the DDP workload
@@ -200,19 +199,24 @@ def test_sigterm_to_one_rank_stops_every_rank_at_one_step(tmp_path):
     assert 3 <= steps.pop() == tcheckpoint.latest_step(ckpt_dir) < 400
 
 
-@pytest.mark.parametrize("model,extra", [
-    # The transformer trains over sequence (tests/test_torch_pipeline.py);
-    # BERT does not yet.
-    ("bert-test-tiny", {"mesh": {"data": 1, "sequence": 2}}),
-], ids=["sequence2"])
-def test_unported_gangs_refuse_before_any_step(model, extra):
-    cfg = dict(model=model, batch_size=2, seq_len=8, steps=2, log_every=1,
-               device="cpu", **extra)
-    procs = _gang(LOOP + [json.dumps(cfg)], 2)
-    for p in procs:
-        assert p.returncode != 0
-        assert "not yet ported" in p.stderr
-        assert "step=" not in p.stdout
+def test_bert_loop_gang_over_sequence_trains_as_one_process():
+    cfg = dict(model="bert-test-tiny", model_overrides={"dtype": "float32"},
+               batch_size=2, seq_len=8, steps=2, log_every=1, device="cpu",
+               optimizer=dict(OPT, name="sgd"))
+    procs = _ok(_gang(LOOP + [json.dumps(dict(cfg, mesh={"sequence": 2}))],
+                      2))
+    results = [_result(p) for p in procs]
+    assert [r["process_id"] for r in results] == [0, 1]
+    assert sum(line.startswith("step=")
+               for line in procs[0].stdout.splitlines()) == 2
+    # The two ranks are replicas on the same rows (the synthetic stream is
+    # the same on every process), so the gang's loss is one process's.
+    one = tloop.run(tloop.RunConfig(**dict(
+        cfg, optimizer=toptim.OptimizerConfig(**cfg["optimizer"]))),
+        log=lambda line: None)
+    for r in results:
+        assert r["step"] == 2 and r["devices"] == 2
+        np.testing.assert_allclose(r["loss"], one["loss"], rtol=1e-5)
 
 
 def _served_job(annotations=None):

@@ -26,6 +26,10 @@ too. The cases:
   normalises turns into a step whose sign is the rounding's);
 - ``resnet-test-tiny`` at data=2: sync batch norm, whose running
   statistics land in the checkpoint's parameters;
+- BERT over sequence=2, pipeline=2 and data=2 x sequence=2, ResNet over
+  sequence=2 and pipeline=2: no rule or batch spec of theirs names those
+  axes, so their ranks are replicas of the same rows, and the targets
+  (JAX's ``tokens``) count once;
 - the transformer over the tensor axis (Megatron's split): tensor=2,
   data=2 x tensor=2, fsdp=2 x tensor=2 (adafactor factors ``attn/wq``,
   sharded on both its dims), tensor=2 with ``loss_chunks`` 2 (the
@@ -157,6 +161,19 @@ CASES = {
                        mesh={"data": 2}, opt="sgd"),
     "resnet-data2": dict(model="resnet-test-tiny", overrides={},
                          mesh={"data": 2}, opt="adafactor"),
+    # No rule or batch spec of BERT or ResNet names sequence or pipeline:
+    # their ranks are replicas, on the same rows, counting each target
+    # once.
+    "bert-sequence2": dict(model="bert-test-tiny", overrides={},
+                           mesh={"sequence": 2}, opt="sgd"),
+    "bert-pipeline2": dict(model="bert-test-tiny", overrides={},
+                           mesh={"pipeline": 2}, opt="sgd"),
+    "bert-data2xsequence2": dict(model="bert-test-tiny", overrides={},
+                                 mesh={"data": 2, "sequence": 2}, opt="sgd"),
+    "resnet-sequence2": dict(model="resnet-test-tiny", overrides={},
+                             mesh={"sequence": 2}, opt="adafactor"),
+    "resnet-pipeline2": dict(model="resnet-test-tiny", overrides={},
+                             mesh={"pipeline": 2}, opt="adafactor"),
 }
 
 
@@ -264,10 +281,15 @@ def test_mesh_train_steps_match_jax(case, tmp_path):
     _assert_metrics_close(ranks[0]["metrics"], tmets)
     _assert_states_close(got, weights.state_to_numpy(tstate, tcfg))
 
-    batch_ranks = w // spec["mesh"].get("tensor", 1)
+    batch_ranks = spec["mesh"].get("data", 1) * spec["mesh"].get("fsdp", 1)
     if tm.family != "resnet" and batch_ranks > 1:
         # ranks count different valid targets
         assert len({tuple(r["counts"]) for r in ranks}) > 1
+    if {"sequence", "pipeline"} & set(spec["mesh"]):
+        # ranks 2i and 2i + 1 (the replica axis is the inner one) hold
+        # the same rows
+        assert all(ranks[i]["counts"] == ranks[i + 1]["counts"]
+                   for i in range(0, w, 2))
     if "tensor" in spec["mesh"]:
         # a tensor group holds the same rows, and each rank a block of
         # the split leaves: half the query columns of wq

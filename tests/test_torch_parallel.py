@@ -184,10 +184,6 @@ def test_one_process_agrees_with_itself():
 
 
 def test_mesh_checks_name_the_unported_axis():
-    stub = SimpleNamespace(mesh_dim_names=tmesh.MESH_AXES,
-                           mesh=torch.zeros(2, 1, 1, 1, 2, 1))
-    with pytest.raises(ValueError, match="'sequence'.*not yet ported"):
-        tmesh.require_axes(stub, tmesh.BATCH_AXES, "training")
     moe = tregistry.get_model("moe-test-tiny")  # 4 experts
     data2xexpert2 = SimpleNamespace(mesh_dim_names=tmesh.MESH_AXES,
                                     mesh=torch.zeros(2, 1, 1, 2, 1, 1))

@@ -313,6 +313,7 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         "import kubeflow_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "assert 'kubeflow_tpu_torch.serving.scenarios' in sys.modules\n"
         "bad = sorted(n for n in sys.modules if n in ('jax', 'optax',\n"
         "             'kubeflow_tpu', 'ml_dtypes') or n.startswith(('jax.',\n"
         "             'optax.', 'kubeflow_tpu.', 'ml_dtypes.')))\n"
