@@ -417,6 +417,21 @@ learner on the fleet, and checks the output. Phases, each printed as one JSON li
     bottleneck blocks, sgd at lr 3, its one process over a mesh of
     itself): each rank's losses and final state equal one process on the
     same batches within 1e-5 and 1e-4 + 1e-5;
+(dd) the port deployed and tuned as the platform does it
+    (``phase_manifests``): (dd1) ``gpu-serving`` rendered for llama-1b
+    (paged, the paged kernel, one GPU) in bf16 and in f32, each started
+    as its container's own command (this interpreter for ``python``, free
+    ports for the pod's 8500 and 9000): boot to ready, TTFT, tokens/s of
+    six requests at once, a gRPC Predict equal to the REST body, the
+    port's lint over the exposition (no violation), the paged kernel's
+    launches from the exposition (``serving_kernel_launches_total``) equal
+    to 16 x the decode forwards over the window, and the f32 server's
+    greedy tokens equal to the same rendering's engine in this process
+    with the gathered plain read; (dd2) a ``decode-tps`` Experiment
+    (tpe, seed 7, 3 trials) at llama-1b through the port's
+    ``ExperimentController`` on its fake apiserver: Succeeded, trial 0
+    the defaults, JAX's trial seeds, drains at 0, each trial's tokens/s,
+    the best and the improvement;
 (f) the kernel table: each kernel's launches on the main paths, its
     error, its time, its plain version's time and its bound; the paged
     and RMSNorm rows give device time as ``ms`` and the call's as
@@ -449,7 +464,11 @@ learner on the fleet, and checks the output. Phases, each printed as one JSON li
     (``fleet_economy``, ``fleet_churn``, ``fleet_rl_actors``,
     ``fleet_remote``) and the flash rows the RL learner's
     (``rl_learner``) and (cc3)'s BERT ranks'
-    (``bert_sequence2_train_rank0``, ``_rank1``).
+    (``bert_sequence2_train_rank0``, ``_rank1``); the paged row (dd1)'s
+    rendered servers' (``rendered_server_bf16``, ``_f32``).
+
+Every ``gang_run`` is a job of one gang of two (``GANG``) kept across
+them, so each of its ranks starts once.
 
 TF32 is off throughout, so float32 products are full float32. Any
 failure exits non-zero; the last line, printed only on success, is
@@ -1700,7 +1719,7 @@ def wait_ready(proc, port: int, timeout: float = 300.0) -> float:
                 return time.perf_counter() - proc.started
         except (OSError, AssertionError, ValueError):
             pass
-        time.sleep(0.5)
+        time.sleep(0.1)
     raise AssertionError(f"the CLI was not ready in {timeout} s")
 
 
@@ -4262,7 +4281,7 @@ GANG_RESULT = "build/chip_smoke/gang_result.json"
 # convolutions take cuDNN's deterministic algorithms. Every rank writes
 # its result.
 GANG_WORKER = """
-import json, math, sys, time
+import json, math, os, sys, time
 import torch
 from torch.profiler import ProfilerActivity, profile
 from kubeflow_tpu_torch import kernels
@@ -4270,180 +4289,192 @@ from kubeflow_tpu_torch.models.registry import get_model
 from kubeflow_tpu_torch.models.transformer import count_dropped
 from kubeflow_tpu_torch.parallel import collectives
 from kubeflow_tpu_torch.parallel.distributed import (global_any,
-    initialize_from_env, shutdown)
+    initialize_from_env)
+from kubeflow_tpu_torch.parallel.launch import serve_jobs
 from kubeflow_tpu_torch.parallel.mesh import (BATCH_AXES, MeshConfig,
-    axis_index, axis_size, build_mesh)
+    axis_index, axis_size, build_mesh, destroy_mesh)
 from kubeflow_tpu_torch.train import data, trainer
 from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
 from kubeflow_tpu_torch.weights import flatten
 
-a = json.loads(sys.argv[1])
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-info = initialize_from_env(device=a["device"], backend="gloo",
-                           timeout_s=900)
-r = info.process_id
-dev = torch.device("cuda", 0) if a["device"] == "cuda" else \
-    torch.device(a["device"])
-mesh = build_mesh(MeshConfig(**a["mesh"]), device_type=dev.type)
-bi, bn = axis_index(mesh, BATCH_AXES), axis_size(mesh, BATCH_AXES)
-si, sn = axis_index(mesh, "sequence"), axis_size(mesh, "sequence")
-result = {"batch_index": bi}
 
-def mine(model, b):
-    b = data.local_rows(b, bi, bn)
-    if getattr(model.config, "context_parallel", False):
-        b = data.local_tokens(b, si, sn)
-    return b
+def job(a):
+    torch.backends.cudnn.deterministic = False
+    if a["device"] == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = initialize_from_env(device=a["device"], backend="gloo",
+                               timeout_s=900)
+    r = info.process_id
+    dev = torch.device("cuda", 0) if a["device"] == "cuda" else \
+        torch.device(a["device"])
+    mesh = build_mesh(MeshConfig(**a["mesh"]), device_type=dev.type)
+    bi, bn = axis_index(mesh, BATCH_AXES), axis_size(mesh, BATCH_AXES)
+    si, sn = axis_index(mesh, "sequence"), axis_size(mesh, "sequence")
+    result = {"batch_index": bi}
 
-def sync():
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
+    def mine(model, b):
+        b = data.local_rows(b, bi, bn)
+        if getattr(model.config, "context_parallel", False):
+            b = data.local_tokens(b, si, sn)
+        return b
 
-def batches(model, rows, seq, seed, n):
-    return [data.synthetic_batch(model, rows * bn, seq, seed=seed + i)
-            for i in range(n)]
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
 
-if a["steps"]:
-    model = get_model(a["model"], **a["overrides"])
-    opt = OptimizerConfig(name="adafactor", warmup_steps=2)
-    state = trainer.init_state(torch.Generator(device=dev).manual_seed(0),
-                               model, opt, mesh, device=dev)
-    step = trainer.build_train_step(model, opt, mesh)
-    local = [data.place_batch(mine(model, b), dev) for b in
-             batches(model, a["rows"], a["seq"], 7, a["steps"])]
-    kernels.reset_launches()
-    collectives.reset_counts()
-    mets, times = [], []
-    for b in local:
-        sync()
-        t0 = time.perf_counter()
-        state, met = step(state, b)
-        mets.append({k: float(v) for k, v in met.items()})
-        sync()
-        times.append(time.perf_counter() - t0)
-    launches = dict(kernels.LAUNCHES)
-    calls, moved = dict(collectives.CALLS), dict(collectives.BYTES)
-    names = []
-    for turn in range(2 if dev.type == "cuda" and a["trace"] else 0):
-        for attempt in range(3):
-            if r == turn:
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    def batches(model, rows, seq, seed, n):
+        return [data.synthetic_batch(model, rows * bn, seq, seed=seed + i)
+                for i in range(n)]
+
+    if a["steps"]:
+        model = get_model(a["model"], **a["overrides"])
+        opt = OptimizerConfig(name="adafactor", warmup_steps=2)
+        state = trainer.init_state(torch.Generator(device=dev).manual_seed(0),
+                                   model, opt, mesh, device=dev)
+        step = trainer.build_train_step(model, opt, mesh)
+        local = [data.place_batch(mine(model, b), dev) for b in
+                 batches(model, a["rows"], a["seq"], 7, a["steps"])]
+        kernels.reset_launches()
+        collectives.reset_counts()
+        mets, times = [], []
+        for b in local:
+            sync()
+            t0 = time.perf_counter()
+            state, met = step(state, b)
+            mets.append({k: float(v) for k, v in met.items()})
+            sync()
+            times.append(time.perf_counter() - t0)
+        launches = dict(kernels.LAUNCHES)
+        calls, moved = dict(collectives.CALLS), dict(collectives.BYTES)
+        names = []
+        for turn in range(2 if dev.type == "cuda" and a["trace"] else 0):
+            for attempt in range(3):
+                if r == turn:
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        state, _ = step(state, local[0])
+                        sync()
+                    names = sorted({e.key for e in prof.key_averages()
+                                    if "flash" in e.key})
+                else:
                     state, _ = step(state, local[0])
                     sync()
-                names = sorted({e.key for e in prof.key_averages()
-                                if "flash" in e.key})
-            else:
-                state, _ = step(state, local[0])
-                sync()
-            if global_any(r == turn and len(names) >= 2):
-                break
-    result.update({
-        "rank_launches": launches, "flash_kernels_in_trace": names,
-        "step_s": times, "metrics": mets,
-        "collective_calls_per_step": {k: v / a["steps"]
-                                      for k, v in calls.items()},
-        "collective_bytes_per_step": {k: v / a["steps"]
-                                      for k, v in moved.items()},
-        "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30
-        if dev.type == "cuda" else None})
-    del state, step, local
+                if global_any(r == turn and len(names) >= 2):
+                    break
+        result.update({
+            "rank_launches": launches, "flash_kernels_in_trace": names,
+            "step_s": times, "metrics": mets,
+            "collective_calls_per_step": {k: v / a["steps"]
+                                          for k, v in calls.items()},
+            "collective_bytes_per_step": {k: v / a["steps"]
+                                          for k, v in moved.items()},
+            "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30
+            if dev.type == "cuda" else None})
+        del state, step, local
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    torch.backends.cudnn.deterministic = True
+    one_mesh = build_mesh(MeshConfig(data=1), device_type=dev.type,
+                          ranks=[0]) if a["one_mesh"] else None
+    depth = {} if a["gate_layers"] is None else {"n_layers": a["gate_layers"]}
+    gmodel = get_model(a["model"], dtype=torch.float32, **depth,
+                       **a["gate_overrides"])
+    gopt = OptimizerConfig(name=a["gate_opt"], warmup_steps=1,
+                           learning_rate=a["gate_lr"])
+    gbatches = batches(gmodel, a["gate_rows"], a["gate_seq"], 5, 3)
+
+    def run(m, rows):
+        st = trainer.init_state(torch.Generator(device=dev).manual_seed(0),
+                                gmodel, gopt, m, device=dev)
+        fn = trainer.build_train_step(gmodel, gopt, m)
+        ms, dropped = [], 0
+        for b in gbatches:
+            with count_dropped() as drops:
+                st, met = fn(st, data.place_batch(rows(b), dev))
+            dropped += int(sum(drops))
+            ms.append({k: float(met[k]) for k in ("loss", "grad_norm",
+                                                  "router_aux_loss")
+                       if k in met})
+        local = flatten(st.params)
+        if m is not None:
+            st = st.layout.gather_state(st)
+        return ms, (None if st is None else flatten(st.params)), dropped, local
+
+    # Rank 0's one process first; the gang's first collective waits for it.
+    if r == 0:
+        tree = gmodel.init(gmodel.config,
+                           generator=torch.Generator(device=dev).manual_seed(0),
+                           device=dev, param_dtype=torch.float32)
+        init = {k: p.detach().clone() for k, p in flatten(tree).items()}
+        # One process's gradient at the initial weights on the first batch. A
+        # leaf whose gradient norm is at most ZERO_GRAD of the whole one's is
+        # zero up to rounding (BERT's bk: softmax is blind to a shift of every
+        # key by q.bk; the pooler and NSP head, which the MLM loss does not
+        # reach): no update need move it.
+        ZERO_GRAD = 1e-6
+        leaves = flatten(tree)
+        for p in leaves.values():
+            p.requires_grad_(True)
+        loss, _ = gmodel.loss_fn(tree, data.place_batch(gbatches[0], dev),
+                                 gmodel.config)
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+        gnorm = {k: 0.0 if g is None else g.norm().item()
+                 for k, g in zip(leaves, grads)}
+        total = math.sqrt(sum(v * v for v in gnorm.values()))
+        still = {k: v for k, v in gnorm.items() if v <= ZERO_GRAD * total}
+        del tree, leaves, loss, grads
+        one, one_params, one_dropped, _ = run(one_mesh, lambda b: b)
+    gang, gang_params, dropped, gang_local = run(mesh, lambda b: mine(gmodel, b))
+    result["gate_dropped"] = dropped
+    if a["replicas"]:
+        import torch.distributed as dist
+        keys = sorted(gang_local)
+        own = torch.cat([gang_local[k].detach().float().reshape(-1).cpu()
+                         for k in keys])
+        ref = torch.cat([one_params[k].float().reshape(-1).cpu()
+                         for k in keys]) if r == 0 else torch.empty_like(own)
+        dist.broadcast(ref, 0)
+        result["replica_gate"] = {
+            "metrics": gang,
+            "param_excess_over_1e-4_rel": ((own - ref).abs()
+                                           - 1e-4 * ref.abs()).max().item()}
+    if r == 0:
+        rel = max(abs(g[k] - o[k]) / abs(o[k]) for g, o in zip(gang, one)
+                  for k in o)
+        worst = max(((p.to(dev) - one_params[n]).abs()
+                     - 1e-4 * one_params[n].abs()).max().item()
+                    for n, p in gang_params.items())
+        # The smallest matrix's largest move over the tolerance's largest,
+        # over every leaf of two dims or more whose gradient is not zero up
+        # to rounding.
+        moved_min = min(((p - init[n]).abs().max()
+                         / (1e-4 * p.abs().max() + 1e-5)).item()
+                        for n, p in one_params.items()
+                        if p.ndim >= 2 and n not in still)
+        result["f32_gate"] = {
+            "layers": a["gate_layers"] or a["gate_overrides"],
+            "rows": a["gate_rows"] * bn,
+            "seq": a["gate_seq"], "overrides": a["gate_overrides"],
+            "gang": gang, "one": one, "max_rel_err_metrics": rel,
+            "max_param_excess_over_1e-4_rel": worst,
+            "min_matrix_update_over_tolerance": moved_min,
+            "gradient_norm": total,
+            "leaves_zero_gradient_up_to_rounding": still,
+            "optimizer": a["gate_opt"], "learning_rate": a["gate_lr"],
+            "one_process_dropped": one_dropped}
+    with open(a["out"] + f".{r}", "w") as f:
+        json.dump(result, f)
+    destroy_mesh(mesh)
+    if one_mesh is not None:
+        destroy_mesh(one_mesh)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-torch.backends.cudnn.deterministic = True
-one_mesh = build_mesh(MeshConfig(data=1), device_type=dev.type,
-                      ranks=[0]) if a["one_mesh"] else None
-depth = {} if a["gate_layers"] is None else {"n_layers": a["gate_layers"]}
-gmodel = get_model(a["model"], dtype=torch.float32, **depth,
-                   **a["gate_overrides"])
-gopt = OptimizerConfig(name=a["gate_opt"], warmup_steps=1,
-                       learning_rate=a["gate_lr"])
-gbatches = batches(gmodel, a["gate_rows"], a["gate_seq"], 5, 3)
-
-def run(m, rows):
-    st = trainer.init_state(torch.Generator(device=dev).manual_seed(0),
-                            gmodel, gopt, m, device=dev)
-    fn = trainer.build_train_step(gmodel, gopt, m)
-    ms, dropped = [], 0
-    for b in gbatches:
-        with count_dropped() as drops:
-            st, met = fn(st, data.place_batch(rows(b), dev))
-        dropped += int(sum(drops))
-        ms.append({k: float(met[k]) for k in ("loss", "grad_norm",
-                                              "router_aux_loss")
-                   if k in met})
-    local = flatten(st.params)
-    if m is not None:
-        st = st.layout.gather_state(st)
-    return ms, (None if st is None else flatten(st.params)), dropped, local
-
-# Rank 0's one process first; the gang's first collective waits for it.
-if r == 0:
-    tree = gmodel.init(gmodel.config,
-                       generator=torch.Generator(device=dev).manual_seed(0),
-                       device=dev, param_dtype=torch.float32)
-    init = {k: p.detach().clone() for k, p in flatten(tree).items()}
-    # One process's gradient at the initial weights on the first batch. A
-    # leaf whose gradient norm is at most ZERO_GRAD of the whole one's is
-    # zero up to rounding (BERT's bk: softmax is blind to a shift of every
-    # key by q.bk; the pooler and NSP head, which the MLM loss does not
-    # reach): no update need move it.
-    ZERO_GRAD = 1e-6
-    leaves = flatten(tree)
-    for p in leaves.values():
-        p.requires_grad_(True)
-    loss, _ = gmodel.loss_fn(tree, data.place_batch(gbatches[0], dev),
-                             gmodel.config)
-    grads = torch.autograd.grad(loss, list(leaves.values()),
-                                allow_unused=True)
-    gnorm = {k: 0.0 if g is None else g.norm().item()
-             for k, g in zip(leaves, grads)}
-    total = math.sqrt(sum(v * v for v in gnorm.values()))
-    still = {k: v for k, v in gnorm.items() if v <= ZERO_GRAD * total}
-    del tree, leaves, loss, grads
-    one, one_params, one_dropped, _ = run(one_mesh, lambda b: b)
-gang, gang_params, dropped, gang_local = run(mesh, lambda b: mine(gmodel, b))
-result["gate_dropped"] = dropped
-if a["replicas"]:
-    import torch.distributed as dist
-    keys = sorted(gang_local)
-    own = torch.cat([gang_local[k].detach().float().reshape(-1).cpu()
-                     for k in keys])
-    ref = torch.cat([one_params[k].float().reshape(-1).cpu()
-                     for k in keys]) if r == 0 else torch.empty_like(own)
-    dist.broadcast(ref, 0)
-    result["replica_gate"] = {
-        "metrics": gang,
-        "param_excess_over_1e-4_rel": ((own - ref).abs()
-                                       - 1e-4 * ref.abs()).max().item()}
-if r == 0:
-    rel = max(abs(g[k] - o[k]) / abs(o[k]) for g, o in zip(gang, one)
-              for k in o)
-    worst = max(((p.to(dev) - one_params[n]).abs()
-                 - 1e-4 * one_params[n].abs()).max().item()
-                for n, p in gang_params.items())
-    # The smallest matrix's largest move over the tolerance's largest,
-    # over every leaf of two dims or more whose gradient is not zero up
-    # to rounding.
-    moved_min = min(((p - init[n]).abs().max()
-                     / (1e-4 * p.abs().max() + 1e-5)).item()
-                    for n, p in one_params.items()
-                    if p.ndim >= 2 and n not in still)
-    result["f32_gate"] = {
-        "layers": a["gate_layers"] or a["gate_overrides"],
-        "rows": a["gate_rows"] * bn,
-        "seq": a["gate_seq"], "overrides": a["gate_overrides"],
-        "gang": gang, "one": one, "max_rel_err_metrics": rel,
-        "max_param_excess_over_1e-4_rel": worst,
-        "min_matrix_update_over_tolerance": moved_min,
-        "gradient_norm": total,
-        "leaves_zero_gradient_up_to_rounding": still,
-        "optimizer": a["gate_opt"], "learning_rate": a["gate_lr"],
-        "one_process_dropped": one_dropped}
-with open(a["out"] + f".{r}", "w") as f:
-    json.dump(result, f)
-shutdown()
+# One job a line of stdin (the port's gang protocol).
+serve_jobs(job)
 """
 
 
@@ -4666,6 +4697,37 @@ def tp_serving_checks(smi: str, phase: str, model: str,
     return out
 
 
+class CardGang:
+    """The GANG_WORKER gang of two on the card (the port's
+    :class:`~kubeflow_tpu_torch.parallel.launch.Gang`), started at its
+    first job and kept for the next ones, so each rank pays its start (the
+    interpreter, torch, the CUDA context, the process group) once for
+    every run of :func:`gang_run`. A job that fails or overruns closes the
+    gang and the next job starts another; ``main`` stops it at the end."""
+
+    def __init__(self) -> None:
+        self.gang = None
+
+    def run(self, name: str, args: dict, timeout: float) -> None:
+        from kubeflow_tpu_torch.parallel.launch import Gang
+
+        if self.gang is None or not self.gang.alive():
+            self.stop()
+            self.gang = Gang(2, GANG_WORKER, grace=60.0)
+        try:
+            self.gang.run(args, timeout)
+        except RuntimeError as e:
+            raise AssertionError(f"({name}) {e}") from None
+
+    def stop(self) -> None:
+        if self.gang is not None:
+            self.gang.close()
+            self.gang = None
+
+
+GANG = CardGang()
+
+
 def gang_run(smi: str, name: str, model: str, mesh: dict, steps: int,
              rows: int, seq: int, gate_rows: int, gate_seq: int,
              gate_overrides: dict, tol: float, gate_opt: str = "adafactor",
@@ -4673,8 +4735,8 @@ def gang_run(smi: str, name: str, model: str, mesh: dict, steps: int,
              want: dict | None = None,
              gate_layers: int | None = X_GATE_LAYERS,
              replicas: bool = False, one_mesh: bool = False) -> dict:
-    """One GANG_WORKER gang of two on the card (a run named ``name``);
-    checks its f32 gate (metrics
+    """One job (a run named ``name``) of the card's GANG_WORKER gang of
+    two, ``GANG``; checks its f32 gate (metrics
     within ``tol`` relative of one process's, parameters within 1e-4
     relative + 1e-5, every matrix moved over 10x that limit; with
     ``replicas``, each rank's metrics and state so) and, with
@@ -4685,7 +4747,6 @@ def gang_run(smi: str, name: str, model: str, mesh: dict, steps: int,
     import shutil
 
     from kubeflow_tpu_torch.models.registry import get_model
-    from kubeflow_tpu_torch.parallel.launch import launch
 
     os.makedirs(os.path.dirname(GANG_RESULT), exist_ok=True)
     overrides = overrides or {}
@@ -4703,12 +4764,7 @@ def gang_run(smi: str, name: str, model: str, mesh: dict, steps: int,
                 gate_overrides=gate_overrides, gate_opt=gate_opt,
                 gate_lr=gate_lr, out=GANG_RESULT)
     t0 = time.perf_counter()
-    procs = launch([sys.executable, "-c", GANG_WORKER, json.dumps(args)], 2,
-                   timeout=900)
-    for i, p in enumerate(procs):
-        if p.returncode:
-            raise AssertionError(f"({name}) rank {i} exited {p.returncode}:"
-                                 f"\n{p.stderr[-3000:]}")
+    GANG.run(name, args, timeout=900)
     ranks = []
     for i in range(2):
         with open(f"{GANG_RESULT}.{i}") as f:
@@ -6492,6 +6548,238 @@ def phase_scenarios_axes(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# (dd) the port deployed and tuned as the platform does it: a server
+# started from the rendered gpu-serving manifest, and a decode-tps
+# Experiment through the port's controller
+# ---------------------------------------------------------------------------
+
+# The gpu-serving parameters of (dd1): llama-1b on the paged layout read
+# by the paged decode kernel, one GPU. The server's other settings are its
+# CLI's defaults (max_seq_len 128, 16 new tokens, 8 slots, block 16).
+DD_PARAMS = {"name": "llama", "model_name": MODEL, "kv_layout": "paged",
+             "kv_fused_attention": True, "num_gpus": 1}
+# (prompt tokens, new tokens) of (dd1)'s requests.
+DD_REQUESTS = [(5, 16), (40, 16), (128, 16), (17, 8), (96, 16), (64, 12)]
+# (dd2): a decode-tps Experiment, tpe, at llama-1b.
+DD_TRIALS, DD_SEED = 3, 7
+KERNEL_FAMILY = 'serving_kernel_launches_total{kernel="paged_decode_attention"}'
+
+
+def rendered_server(params: dict, rest: int, grpc_port: int):
+    """The container of ``gpu-serving`` rendered on ``params``: its
+    command and args, with ``python`` as this interpreter and the two
+    ports (fixed in the pod, which has a network of its own) replaced by
+    free ones on this host."""
+    from kubeflow_tpu_torch.manifests import generate, images
+
+    dep, _service = generate("gpu-serving", params)
+    (c,) = dep["spec"]["template"]["spec"]["containers"]
+    if c["resources"]["limits"] != {images.GPU_RESOURCE: 1}:
+        raise AssertionError(f"(dd1) rendered resources {c['resources']}")
+    ports = {"--rest-port": rest, "--grpc-port": grpc_port}
+    args = [f"{a.split('=')[0]}={ports[a.split('=')[0]]}"
+            if a.split("=")[0] in ports else a for a in c["args"]]
+    cmd = [sys.executable if x == "python" else x for x in c["command"]]
+    return cmd + args, c["args"]
+
+
+def manifest_server(smi: str) -> dict:
+    """(dd1): the bf16 and the f32 renderings of DD_PARAMS started as their
+    containers' commands, side by side, each timed from its start to
+    /readyz; once both are ready this process serves the f32 rendering's
+    own engine with the gathered plain read (``kv_fused`` off) on the same
+    prompts one at a time. The bf16 server: a warm request, TTFT of three
+    streamed requests, tokens/s of all six at once (a smoke reading: one
+    window of 84 tokens, not a throughput measurement), a gRPC Predict
+    equal to the REST body; its exposition
+    lints clean (the port's lint) and its paged kernel launches over the
+    window equal 16 x its decode forwards (its exposition's
+    ``serving_kernel_launches_total`` and ``serving_decode_steps_total``).
+    The f32 server: the six prompts one at a time, greedy tokens equal to
+    the in-process reference's, its kernel launches likewise counted."""
+    import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
+
+    import grpc
+
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.observability.lint import lint
+    from kubeflow_tpu_torch.serving.__main__ import build_parser, engine_config
+    from kubeflow_tpu_torch.serving.grpc_server import client_stubs
+    from kubeflow_tpu_torch.serving.server import ModelServer
+
+    layers = get_model(MODEL).config.n_layers
+    rng = np.random.RandomState(11)
+    vocab = get_model(MODEL).config.vocab_size
+    bodies = [{"tokens": rng.randint(0, vocab, size=n).tolist(),
+               "max_new_tokens": m} for n, m in DD_REQUESTS]
+    ports = {tag: (free_port(), free_port()) for tag in ("bf16", "f32")}
+    os.makedirs("chiprun_out", exist_ok=True)
+    procs, argv, boot = [], {}, {}
+    out = {"gpu": smi, "model": MODEL, "params": DD_PARAMS}
+    # /readyz is polled from each server's start on, in a thread each; the
+    # in-process reference builds only once both are ready, so the boot
+    # clock sees the two servers and nothing else on the card.
+    booting = ThreadPoolExecutor(2)
+    try:
+        for tag, extra in (("bf16", {}), ("f32", {"dtype": "float32"})):
+            cmd, argv[tag] = rendered_server({**DD_PARAMS, **extra},
+                                             *ports[tag])
+            log = open(f"chiprun_out/dd_{tag}_server.log", "w")
+            proc = subprocess.Popen(cmd, stdout=log,
+                                    stderr=subprocess.STDOUT, text=True)
+            proc.started = time.perf_counter()
+            procs.append((proc, log))
+            boot[tag] = booting.submit(wait_ready, proc, ports[tag][0])
+        out["command"] = cmd[:3]
+        out["boot_to_ready_s"] = {tag: f.result() for tag, f in boot.items()}
+        ref_cfg = dataclasses.replace(
+            engine_config(build_parser().parse_args(argv["f32"])),
+            kv_fused=False)
+        ref = ModelServer(ref_cfg, port=0)
+        try:
+            want = [ref.handle_predict(MODEL, {"instances": [b]})[
+                "predictions"][0]["tokens"] for b in bodies]
+        finally:
+            ref.stop()
+            del ref
+            torch.cuda.empty_cache()
+
+        rest, grpc_port = ports["bf16"]
+        metrics_path = "/monitoring/prometheus/metrics"
+        post(rest, bodies[0], rid="dd-warm")
+        before = parse_exposition(get(rest, metrics_path))
+        ttft = [post(rest, b, stream=True)[1] for b in bodies[:3]]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(bodies)) as pool:
+            got = list(pool.map(lambda b: post(rest, b)[0], bodies))
+        wall = time.perf_counter() - t0
+        if [len(t) for t in got] != [m for _, m in DD_REQUESTS]:
+            raise AssertionError(f"(dd1) token counts {got}")
+        rest_body = predict(rest, [bodies[1]])
+        with grpc.insecure_channel(f"127.0.0.1:{grpc_port}") as channel:
+            grpc_body = client_stubs(channel)[0](MODEL, [bodies[1]],
+                                                 timeout=120)
+        if grpc_body["predictions"] != rest_body:
+            raise AssertionError(f"(dd1) gRPC {grpc_body} != REST "
+                                 f"{rest_body}")
+        text = get(rest, metrics_path)
+        violations = lint(text)
+        after = parse_exposition(text)
+        launches = int(after[KERNEL_FAMILY] - before[KERNEL_FAMILY])
+        forwards = int(after["serving_decode_steps_total"]
+                       - before["serving_decode_steps_total"])
+        out["bf16"] = {
+            "ttft_ms": [x * 1e3 for x in ttft],
+            "ttft_ms_median": float(np.median(ttft)) * 1e3,
+            "tokens": sum(len(t) for t in got), "wall_s": wall,
+            "tokens_per_s": sum(len(t) for t in got) / wall,
+            "reading": "smoke: six requests in one window",
+            "grpc_predict_equals_rest": True,
+            "lint_violations": violations,
+            "families": text.count("# TYPE "),
+            "paged_launches": launches, "decode_forwards": forwards}
+        if violations:
+            raise AssertionError(f"(dd1) exposition lint: {violations}")
+        if forwards <= 0 or launches != layers * forwards:
+            raise AssertionError(f"(dd1) bf16 server: {launches} paged "
+                                 f"launches for {forwards} decode forwards")
+
+        rest32 = ports["f32"][0]
+        before = parse_exposition(get(rest32, metrics_path))
+        got32 = [post(rest32, b)[0] for b in bodies]
+        after = parse_exposition(get(rest32, metrics_path))
+        launches = int(after[KERNEL_FAMILY] - before[KERNEL_FAMILY])
+        forwards = int(after["serving_decode_steps_total"]
+                       - before["serving_decode_steps_total"])
+        out["f32"] = {**compare_streams(got32, want),
+                      "paged_launches": launches,
+                      "decode_forwards": forwards}
+        if forwards <= 0 or launches != layers * forwards:
+            raise AssertionError(f"(dd1) f32 server: {launches} paged "
+                                 f"launches for {forwards} decode forwards")
+        if not out["f32"]["identical"]:
+            raise AssertionError(f"(dd1) the rendered f32 server's tokens "
+                                 f"differ from the in-process plain read: "
+                                 f"{out['f32']}")
+    finally:
+        stop_procs(procs)
+        booting.shutdown()
+    emit("dd1_manifest_server", **out)
+    return out
+
+
+def manifest_experiment(smi: str) -> dict:
+    """(dd2): a ``decode-tps`` Experiment (tpe, seed DD_SEED, DD_TRIALS
+    trials) through the port's ``ExperimentController`` on the port's
+    fake apiserver, each trial the port's ``run_trial`` at llama-1b on
+    the card. It must end Succeeded, trial 0 the scenario's defaults,
+    every trial's seed ``seed * 100003 + index`` and its drain at 0
+    blocks; no kernel launches (decode-tps sets no ``kv_fused``). The
+    controller runs each trial on the scenario's quick trace (24 requests,
+    prompts of 4-11 tokens), so its tokens/s and improvement are smoke
+    readings of the path, not a tuning result."""
+    import functools
+
+    from kubeflow_tpu_torch import kernels
+    from kubeflow_tpu_torch.apis.experiment import experiment, experiment_crd
+    from kubeflow_tpu_torch.k8s_fake import FakeApiServer
+    from kubeflow_tpu_torch.operators.experiment import ExperimentController
+    from kubeflow_tpu_torch.serving import scenarios
+
+    api = FakeApiServer()
+    api.ensure_namespace("kubeflow")
+    api.apply(experiment_crd())
+    api.create(experiment("dd2", "kubeflow", "decode-tps", algorithm="tpe",
+                          max_trials=DD_TRIALS, seed=DD_SEED))
+    ctrl = ExperimentController(api, run_trial=functools.partial(
+        scenarios.run_trial, model=MODEL))
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    for _ in range(DD_TRIALS + 2):
+        ctrl.reconcile_all()
+        status = api.get("kubeflow-tpu.org/v1", "Experiment", "dd2",
+                         "kubeflow")["status"]
+        if status.get("state") in ("Succeeded", "Failed"):
+            break
+    trials = status.get("trials", [])
+    out = {"gpu": smi, "model": MODEL, "state": status.get("state"),
+           "wall_s": time.perf_counter() - t0,
+           "trials": [{k: t.get(k) for k in (
+               "index", "seed", "assignments", "state", "config")}
+               | {"tokens_per_s": (t.get("objectives") or {}).get(
+                   "tokens_per_sec"),
+                  "drain": (t.get("objectives") or {}).get(
+                      "kv_blocks_in_use_after_drain")} for t in trials],
+           "best_tokens_per_s": status.get("bestObjectiveValue"),
+           "best_assignments": status.get("bestAssignments"),
+           "baseline_tokens_per_s": status.get("baselineObjectiveValue"),
+           "improvement_percent": status.get("improvementPercent"),
+           "reading": "smoke: each trial on the quick trace"}
+    emit("dd2_experiment", **out)
+    defaults = scenarios.get_scenario("decode-tps").defaults
+    if (out["state"] != "Succeeded" or len(trials) != DD_TRIALS
+            or trials[0]["assignments"] != defaults
+            or [t["seed"] for t in trials]
+            != [DD_SEED * 100_003 + i for i in range(DD_TRIALS)]
+            or any(t["drain"] != 0 for t in out["trials"])):
+        raise AssertionError(f"(dd2) the Experiment: {status}")
+    if dict(kernels.LAUNCHES) != before:
+        raise AssertionError("(dd2) decode-tps launched a kernel")
+    return out
+
+
+def phase_manifests(smi: str) -> dict:
+    """(dd) :func:`manifest_server` (dd1) and :func:`manifest_experiment`
+    (dd2)."""
+    t_phase = time.perf_counter()
+    out = {"dd1": manifest_server(smi), "dd2": manifest_experiment(smi)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit("dd_phase_time", phase_s=out["phase_s"])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6621,6 +6909,8 @@ def main() -> int:
     mark("bb_fleet")
     axes = phase_scenarios_axes(smi)
     mark("cc_scenarios_axes")
+    manifests = phase_manifests(smi)
+    mark("dd_manifests")
     emit("phase_seconds", **seconds, total_s=time.perf_counter() - t0)
 
     p, r = paged["bf16"], rms[f"{SLOTS}x2048"]
@@ -6633,7 +6923,9 @@ def main() -> int:
         "tp2_serving": tp["x1"]["serving"][f"tp{TP}"]["paged_launches"],
         "moe_tp2_serving": moe_mesh["y1"]["serving"][f"tp{TP}"][
             "paged_launches"],
-        **{f"fleet_{k}": v for k, v in fleet["paged_launches"].items()}}
+        **{f"fleet_{k}": v for k, v in fleet["paged_launches"].items()},
+        **{f"rendered_server_{tag}": manifests["dd1"][tag]["paged_launches"]
+           for tag in ("bf16", "f32")}}
     table = [
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "kubeflow_tpu_torch/csrc/paged_decode.cu",
@@ -6763,4 +7055,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        GANG.stop()
+    sys.exit(rc)

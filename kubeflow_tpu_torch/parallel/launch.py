@@ -8,12 +8,13 @@ pods, on one machine: one process per GPU, or per CPU process group).
 Process ``i`` gets ``JAX_COORDINATOR_ADDRESS=127.0.0.1:<a free port>``,
 ``JAX_NUM_PROCESSES=N`` and ``JAX_PROCESS_ID=i``; rank 0 listens there.
 Every process is stopped before :func:`launch` returns, a timeout
-included.
+included. A :class:`Gang` keeps its processes up across many jobs.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import socket
 import subprocess
@@ -56,6 +57,115 @@ def stop(procs: list[subprocess.Popen]) -> None:
             p.kill()
     for p in procs:
         p.wait()
+
+
+def serve_jobs(run) -> None:
+    """A :class:`Gang` rank's loop: ``run(job)`` for each JSON line on
+    stdin, then ``<job["out"]>.<rank>.done`` holding ``ok`` or the
+    traceback. The first failure ends the loop; the process group, where
+    ``run`` joined one, is left at the end."""
+    import traceback
+
+    from kubeflow_tpu_torch.parallel.distributed import shutdown
+
+    rank = os.environ[ENV_PROCESS_ID]
+    for line in sys.stdin:
+        job = json.loads(line)
+        try:
+            run(job)
+            status = "ok"
+        except Exception:
+            status = traceback.format_exc()
+        with open(f"{job['out']}.{rank}.done", "w") as f:
+            f.write(status)
+        if status != "ok":
+            break
+    shutdown()
+
+
+class Gang:
+    """``n`` processes of ``python -c code`` kept up across jobs, so each
+    pays its start (the interpreter, torch, a CUDA context, the process
+    group) once. ``code`` ends in :func:`serve_jobs`. A job is a dict with
+    an ``out`` path, written as one JSON line to every rank's stdin. A job
+    that fails on any rank, a rank that exits and a wait that overruns
+    each close the gang (:meth:`alive` is then false) and raise
+    ``RuntimeError`` with every rank's log tail. :meth:`close` gives the
+    ranks ``grace`` seconds to leave the process group, then kills them."""
+
+    def __init__(self, n: int, code: str, *, env=None, cwd=None,
+                 grace: float = 10.0):
+        self.n, self.grace = n, grace
+        self._logs = [tempfile.TemporaryFile("w+") for _ in range(n)]
+        port = free_port()
+        self.procs = [subprocess.Popen(
+            [sys.executable, "-c", code], env=gang_env(n, i, port, env),
+            cwd=cwd, stdin=subprocess.PIPE, stdout=log, stderr=log,
+            text=True) for i, log in enumerate(self._logs)]
+
+    def alive(self) -> bool:
+        return bool(self.procs) and all(p.poll() is None for p in self.procs)
+
+    def submit(self, job: dict) -> None:
+        for i in range(self.n):
+            done = f"{job['out']}.{i}.done"
+            if os.path.exists(done):
+                os.remove(done)
+        line = json.dumps(job) + "\n"
+        for p in self.procs:
+            p.stdin.write(line)
+            p.stdin.flush()
+
+    def wait(self, job: dict, timeout: float) -> None:
+        deadline = time.monotonic() + timeout
+        done = [f"{job['out']}.{i}.done" for i in range(self.n)]
+        while not all(os.path.exists(d) for d in done):
+            dead = [i for i, p in enumerate(self.procs)
+                    if p.poll() is not None]
+            failed = {i: open(d).read() for i, d in enumerate(done)
+                      if os.path.exists(d) and open(d).read() != "ok"}
+            if dead or failed or time.monotonic() > deadline:
+                self._fail(f"ranks {dead} exited, {sorted(failed)} failed, "
+                           f"timeout {timeout} s\n"
+                           + "\n".join(failed.values()))
+            time.sleep(0.02)
+        status = [open(d).read() for d in done]
+        if any(s != "ok" for s in status):
+            self._fail("\n".join(status))
+
+    def run(self, job: dict, timeout: float) -> None:
+        self.submit(job)
+        self.wait(job, timeout)
+
+    def logs(self) -> str:
+        out = []
+        for i, log in enumerate(self._logs):
+            log.seek(0)
+            out.append(f"--- rank {i}\n{log.read()[-3000:]}")
+        return "\n".join(out)
+
+    def _fail(self, why: str) -> None:
+        logs = self.logs()
+        self.close()
+        raise RuntimeError(f"gang of {self.n}: {why}\n{logs}")
+
+    def close(self) -> None:
+        for p in self.procs:
+            if p.stdin and not p.stdin.closed:
+                try:
+                    p.stdin.close()
+                except OSError:
+                    pass
+        deadline = time.monotonic() + self.grace
+        for p in self.procs:
+            try:
+                p.wait(max(deadline - time.monotonic(), 0.0))
+            except subprocess.TimeoutExpired:
+                pass
+        stop(self.procs)
+        for log in self._logs:
+            log.close()
+        self.procs, self._logs = [], []
 
 
 def launch(cmd: list[str], n: int, *, env=None, cwd=None,

@@ -53,7 +53,9 @@ def _grpc_importable() -> bool:
     return True
 
 
-def main(argv=None) -> int:
+def build_parser() -> argparse.ArgumentParser:
+    """The CLI's flags (no server is built): the GPU manifests' args are
+    held against it (``kubeflow_tpu_torch/manifests/serving.py``)."""
     p = argparse.ArgumentParser(prog="python -m kubeflow_tpu_torch.serving")
     p.add_argument("--model-name", required=True,
                    help="registry model name (kubeflow_tpu_torch.models)")
@@ -191,6 +193,53 @@ def main(argv=None) -> int:
     # Metrics are always served at /monitoring/prometheus/metrics; the
     # flag keeps the serving manifest's args valid, as in JAX.
     p.add_argument("--enable-prometheus", action="store_true")
+    return p
+
+
+def engine_config(args: argparse.Namespace) -> EngineConfig:
+    """The engine the parsed flags describe (what ``main`` serves)."""
+    return EngineConfig(
+        model=args.model_name,
+        checkpoint_dir=args.model_path or None,
+        batch_size=args.batch_size,
+        max_seq_len=args.max_seq_len,
+        max_new_tokens=args.max_new_tokens,
+        top_k=args.top_k,
+        eos_id=None if args.eos_id < 0 else args.eos_id,
+        decode_mode=args.decode_mode,
+        decode_chunk=args.decode_chunk,
+        prefix_cache_slots=args.prefix_cache_slots,
+        prefix_cache_min_len=args.prefix_cache_min_len,
+        prefill_len_buckets=args.prefill_len_buckets,
+        speculative_k=args.speculative_k,
+        draft_mode=args.draft_mode,
+        kv_layout=args.kv_layout,
+        kv_block_size=args.kv_block_size,
+        kv_pool_blocks=args.kv_pool_blocks,
+        kv_dtype=args.kv_dtype,
+        kv_fused=args.kv_fused_attention,
+        stream_timeout_s=args.stream_timeout_s,
+        prefill_chunk_tokens=args.prefill_chunk_tokens,
+        max_prompt_len=args.max_prompt_len,
+        serving_role=args.serving_role,
+        tp_shards=args.tp_shards,
+        cp_shards=args.cp_shards,
+        pp_stages=args.pp_stages,
+        host_kv_bytes=args.host_kv_bytes,
+        kv_directory_size=args.kv_directory_size,
+        cold_store_ref=args.cold_store_ref,
+        kv_import_crossover_tokens=args.kv_import_crossover_tokens,
+        qos_tenants=args.qos_tenants,
+        qos_aging_s=args.qos_aging_s,
+        weight_peers=args.weight_peers,
+        weight_pull_timeout_s=args.weight_pull_timeout_s,
+        dtype=args.dtype,
+        device=args.device,
+    )
+
+
+def main(argv=None) -> int:
+    p = build_parser()
     for arg in sys.argv[1:] if argv is None else argv:
         flag = arg.split("=", 1)[0]
         if flag in UNPORTED_FLAGS:
@@ -298,44 +347,7 @@ def main(argv=None) -> int:
                 "REST only")
 
     server = ModelServer(
-        EngineConfig(
-            model=args.model_name,
-            checkpoint_dir=args.model_path or None,
-            batch_size=args.batch_size,
-            max_seq_len=args.max_seq_len,
-            max_new_tokens=args.max_new_tokens,
-            top_k=args.top_k,
-            eos_id=None if args.eos_id < 0 else args.eos_id,
-            decode_mode=args.decode_mode,
-            decode_chunk=args.decode_chunk,
-            prefix_cache_slots=args.prefix_cache_slots,
-            prefix_cache_min_len=args.prefix_cache_min_len,
-            prefill_len_buckets=args.prefill_len_buckets,
-            speculative_k=args.speculative_k,
-            draft_mode=args.draft_mode,
-            kv_layout=args.kv_layout,
-            kv_block_size=args.kv_block_size,
-            kv_pool_blocks=args.kv_pool_blocks,
-            kv_dtype=args.kv_dtype,
-            kv_fused=args.kv_fused_attention,
-            stream_timeout_s=args.stream_timeout_s,
-            prefill_chunk_tokens=args.prefill_chunk_tokens,
-            max_prompt_len=args.max_prompt_len,
-            serving_role=args.serving_role,
-            tp_shards=args.tp_shards,
-            cp_shards=args.cp_shards,
-            pp_stages=args.pp_stages,
-            host_kv_bytes=args.host_kv_bytes,
-            kv_directory_size=args.kv_directory_size,
-            cold_store_ref=args.cold_store_ref,
-            kv_import_crossover_tokens=args.kv_import_crossover_tokens,
-            qos_tenants=args.qos_tenants,
-            qos_aging_s=args.qos_aging_s,
-            weight_peers=args.weight_peers,
-            weight_pull_timeout_s=args.weight_pull_timeout_s,
-            dtype=args.dtype,
-            device=args.device,
-        ),
+        engine_config(args),
         port=args.rest_port,
         grpc_port=None if args.grpc_port < 0 else args.grpc_port,
         batch_timeout_ms=args.batch_timeout_ms,

@@ -27,10 +27,20 @@ seeded 0 (JAX's ``PRNGKey(0)`` draws other values). Trials and
 CUDA; ``"cpu"`` runs the plain PyTorch paths); the bench entries read
 ``args.device``. The decoders run with JAX's settings: no scenario sets
 ``kv_fused``, so the paged runs read the cache through the gathered path.
+
+``python -m kubeflow_tpu_torch.serving.scenarios --scenario S --seed N
+[--quick] --assignments JSON [--device cuda|cpu]`` is the trial CLI a
+job-mode Experiment trial runs (``operators/experiment.py``), the
+counterpart of ``bench_serving.py --scenario``: ``llama-1b`` on the card
+unless ``--quick``, else ``lm-test-tiny``; empty assignments run the
+scenario's bench entry where it has one. It prints the result as one
+JSON line.
 """
 
 from __future__ import annotations
 
+import argparse
+import json
 import math
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -727,3 +737,45 @@ register(Scenario(
                 "offered-concurrency ladder.",
     bench=bench_concurrency_sweep,
 ))
+
+
+_BENCH_DEFAULTS = dict(requests=200, seq_len=128, concurrency=16,
+                       max_new_tokens=64, prefix_len=96, speculative_k=4)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(
+        prog="python -m kubeflow_tpu_torch.serving.scenarios",
+        description="Run one scenario trial (or its bench entry) and print "
+                    "the result as JSON.")
+    p.add_argument("--scenario", required=True,
+                   help=f"one of {sorted(_REGISTRY)}")
+    p.add_argument("--seed", type=int, default=0,
+                   help="trial seed (the scenario's traffic draws from it)")
+    p.add_argument("--assignments", default="",
+                   help="JSON knob assignments; empty = the checked-in "
+                        "defaults (the bench entry, where there is one)")
+    p.add_argument("--quick", action="store_true",
+                   help="lm-test-tiny and the quick traffic")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = p.parse_args(argv)
+    # The bench entries read bench_serving.py's traffic flags at its defaults.
+    args = argparse.Namespace(**vars(args), **_BENCH_DEFAULTS)
+    model = ("llama-1b" if args.device == "cuda" and not args.quick
+             else "lm-test-tiny")
+    try:
+        sc = get_scenario(args.scenario)
+        assignments = json.loads(args.assignments) if args.assignments else {}
+    except ValueError as e:
+        p.error(str(e))
+    if sc.bench is not None and not assignments:
+        result = sc.bench(args, model)
+    else:
+        result = run_trial(args.scenario, assignments, seed=args.seed,
+                           model=model, quick=args.quick, device=args.device)
+    print(json.dumps(result, default=str))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

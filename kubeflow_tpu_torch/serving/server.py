@@ -64,6 +64,7 @@ import numpy as np
 from kubeflow_tpu_torch.observability.metrics import (
     MetricRegistry,
     render_prometheus,
+    type_line,
 )
 from kubeflow_tpu_torch.observability.tracing import (
     REQUEST_ID_HEADER,
@@ -122,6 +123,15 @@ class _Metrics:
 
     def render(self) -> str:
         return self.registry.render()
+
+
+def _kernel_exposition(launches: dict) -> str:
+    """Each kernel's launches in this process, one labeled counter."""
+    name = "serving_kernel_launches_total"
+    return (f"# HELP {name} Hand-written kernel launches in this process\n"
+            + type_line(name, "counter")
+            + "".join(f'{name}{{kernel="{k}"}} {v}\n'
+                      for k, v in sorted(launches.items())))
 
 
 def _decoder_exposition(d: dict) -> str:
@@ -511,12 +521,19 @@ class ModelServer:
 
     def render_metrics(self) -> str:
         """The ``/monitoring/prometheus/metrics`` exposition: the server's
-        families, then the decoder's registry and counter snapshot."""
+        families, then the decoder's registry and counter snapshot, and,
+        on a CUDA device, the process's hand-written kernel launches
+        (``serving_kernel_launches_total{kernel=...}``, which JAX's
+        exposition has no counterpart of)."""
         text = self.metrics.render()
         if self.decoder is not None:
             d = self.decoder.metrics()
             text += self.decoder.registry.render()
             text += _decoder_exposition(d)
+        if self.engine.device.type == "cuda":
+            from kubeflow_tpu_torch import kernels
+
+            text += _kernel_exposition(kernels.LAUNCHES)
         return text
 
     # ------------------------------------------------------------------

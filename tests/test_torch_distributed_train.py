@@ -42,8 +42,13 @@ sums in another order. Metrics (loss, z_loss, tokens, grad_norm, step) to
 1e-5 relative each step; parameters and optimizer slots after three
 steps to 1e-4 relative and 1e-5 absolute.
 
-Each gang runs under a 120 s limit (and a 120 s process-group timeout), so
-none can hang the suite.
+Each case runs under a 120 s limit (and a 120 s process-group timeout), so
+none can hang the suite. The gangs stay up across cases, one per size
+(``tests/_torch_gang.py``): each case is a job its ranks run on a mesh
+they build and free. A case hands its job to the gang, then runs JAX's
+steps and the port's single process while the gang trains; the single
+process's run is kept for the next case with the same inputs (model,
+optimizer, initial state and batches), whose result it is.
 """
 
 import json
@@ -69,58 +74,62 @@ from kubeflow_tpu.train import optimizers as joptim  # noqa: E402
 from kubeflow_tpu.train import trainer as jtrainer  # noqa: E402
 from kubeflow_tpu_torch import weights  # noqa: E402
 from kubeflow_tpu_torch.models import registry as tregistry  # noqa: E402
-from kubeflow_tpu_torch.parallel.launch import launch  # noqa: E402
 from kubeflow_tpu_torch.train import checkpoint as tcheckpoint  # noqa: E402
 from kubeflow_tpu_torch.train import data as tdata  # noqa: E402
 from kubeflow_tpu_torch.train import optimizers as toptim  # noqa: E402
-from kubeflow_tpu_torch.train import trainer as ttrainer  # noqa: E402
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _torch_gang import (  # noqa: E402
+    GangPool,
+    in_background,
+    jax_initial_state,
+    single_process,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS = 3
 GANG_TIMEOUT_S = 120
 
-# One rank of the gang: restore the step-0 state the test wrote, train
-# STEPS steps on this rank's rows, save the whole state; rank 0 writes
-# the metrics.
-WORKER = """
+# One job of a gang's rank: restore the step-0 state the test wrote,
+# train STEPS steps on this rank's rows, save the whole state; every rank
+# writes its metrics.
+JOB = """
 import json, sys
 import numpy as np, torch
 torch.set_num_threads(1)
 from kubeflow_tpu_torch.models.registry import get_model
-from kubeflow_tpu_torch.parallel.distributed import initialize_from_env, shutdown
 from kubeflow_tpu_torch.parallel.mesh import (BATCH_AXES, MeshConfig,
-    axis_index, axis_size, build_mesh)
+    axis_index, axis_size, build_mesh, destroy_mesh)
 from kubeflow_tpu_torch.train import checkpoint, data, trainer
 from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
 from kubeflow_tpu_torch.weights import flatten
-a = json.loads(sys.argv[1])
-info = initialize_from_env(device="cpu", timeout_s=120)
-mesh = build_mesh(MeshConfig(**a["mesh"]), device_type="cpu")
-model = get_model(a["model"], dtype=torch.float32, **a["overrides"])
-opt_cfg = OptimizerConfig(**a["optimizer"])
-ckpt = checkpoint.Checkpointer(a["dir"], opt_cfg, async_saves=False)
-state = trainer.init_state(torch.Generator().manual_seed(1), model,
-                           opt_cfg, mesh, device="cpu")
-state, _ = ckpt.restore_latest(state)
-step_fn = trainer.build_train_step(model, opt_cfg, mesh,
-                                   accum_steps=a["accum"])
-r, n = axis_index(mesh, BATCH_AXES), axis_size(mesh, BATCH_AXES)
-batches = np.load(a["batches"])
-metrics, counts = [], []
-for i in range(a["steps"]):
-    b = data.local_rows({k: batches[f"{k}/{i}"] for k in a["keys"]}, r, n,
-                        microbatched=a["accum"] > 1)
-    counts.append(int(sum((v >= 0).sum() for k, v in b.items()
-                          if k in ("targets", "mlm_labels"))))
-    state, met = step_fn(state, data.place_batch(b, torch.device("cpu")))
-    metrics.append({k: float(v) for k, v in met.items()})
-ckpt.save(a["steps"], state)
-ckpt.close()
-with open(a["out"] + f".{info.process_id}", "w") as f:
-    json.dump({"metrics": metrics, "counts": counts,
-               "param_shapes": {k: list(v.shape) for k, v in
-                                flatten(state.params).items()}}, f)
-shutdown()
+def run(a, info):
+    mesh = build_mesh(MeshConfig(**a["mesh"]), device_type="cpu")
+    model = get_model(a["model"], dtype=torch.float32, **a["overrides"])
+    opt_cfg = OptimizerConfig(**a["optimizer"])
+    ckpt = checkpoint.Checkpointer(a["dir"], opt_cfg, async_saves=False)
+    state = trainer.init_state(torch.Generator().manual_seed(1), model,
+                               opt_cfg, mesh, device="cpu")
+    state, _ = ckpt.restore_latest(state)
+    step_fn = trainer.build_train_step(model, opt_cfg, mesh,
+                                       accum_steps=a["accum"])
+    r, n = axis_index(mesh, BATCH_AXES), axis_size(mesh, BATCH_AXES)
+    batches = np.load(a["batches"])
+    metrics, counts = [], []
+    for i in range(a["steps"]):
+        b = data.local_rows({k: batches[f"{k}/{i}"] for k in a["keys"]},
+                            r, n, microbatched=a["accum"] > 1)
+        counts.append(int(sum((v >= 0).sum() for k, v in b.items()
+                              if k in ("targets", "mlm_labels"))))
+        state, met = step_fn(state, data.place_batch(b, torch.device("cpu")))
+        metrics.append({k: float(v) for k, v in met.items()})
+    ckpt.save(a["steps"], state)
+    ckpt.close()
+    with open(a["out"] + f".{info.process_id}", "w") as f:
+        json.dump({"metrics": metrics, "counts": counts,
+                   "param_shapes": {k: list(v.shape) for k, v in
+                                    flatten(state.params).items()}}, f)
+    destroy_mesh(mesh)
 """
 
 # adafactor factors a leaf whose two largest axes are both >= 128.
@@ -177,6 +186,13 @@ CASES = {
 }
 
 
+@pytest.fixture(scope="module")
+def gangs():
+    pool = GangPool(JOB, ROOT)
+    yield pool
+    pool.close()
+
+
 def _ranks(mesh):
     return int(np.prod(list(mesh.values())))
 
@@ -224,7 +240,7 @@ def _assert_metrics_close(got: list, want: list):
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_mesh_train_steps_match_jax(case, tmp_path):
+def test_mesh_train_steps_match_jax(case, tmp_path, gangs):
     spec = CASES[case]
     accum = spec.get("accum", 1)
     w = _ranks(spec["mesh"])
@@ -237,19 +253,18 @@ def test_mesh_train_steps_match_jax(case, tmp_path):
     jcfg, tcfg = joptim.OptimizerConfig(**opt), toptim.OptimizerConfig(**opt)
     batches = _batches(tm, 2 * w, accum)
 
-    # JAX: the mesh step over the global batches.
+    # JAX's initial state, which the port's gang starts from.
     jmesh = jbuild_mesh(JMeshConfig(**spec["mesh"]),
                         devices=jax.devices()[:w]) \
         if spec.get("jax_mesh", True) else None
-    jstate = jtrainer.init_state(jax.random.PRNGKey(0), jm, jcfg, jmesh)
+    jstate = jax_initial_state(
+        jax, jtrainer, jm, jcfg, jmesh,
+        (spec["model"], json.dumps(spec["overrides"], sort_keys=True),
+         json.dumps(opt, sort_keys=True)))
     start = _jax_flat(jstate)
-    jstep = jtrainer.build_train_step(jm, jcfg, jmesh, accum_steps=accum)
-    jmets = []
-    for b in batches:
-        jstate, jmet = jstep(jstate, jax.tree.map(jnp.asarray, b))
-        jmets.append({k: float(v) for k, v in jmet.items()})
 
-    # The port's gang, from the same state.
+    # The port's gang, from the same state, trains while JAX and the
+    # single process run here.
     ckpt_dir = str(tmp_path / "ckpt")
     tcheckpoint.save(ckpt_dir, 0, weights.state_from_numpy(
         start, tcfg, device="cpu"), tcfg)
@@ -259,27 +274,32 @@ def test_mesh_train_steps_match_jax(case, tmp_path):
                 mesh=spec["mesh"], optimizer=opt, dir=ckpt_dir,
                 batches=str(tmp_path / "batches.npz"), keys=list(batches[0]),
                 steps=STEPS, accum=accum, out=str(tmp_path / "out"))
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    procs = launch([sys.executable, "-c", WORKER, json.dumps(args)], w,
-                   env=env, cwd=ROOT, timeout=GANG_TIMEOUT_S)
-    for i, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {i}:\n{p.stderr[-3000:]}"
+    gang = gangs.get(w)
+    gang.submit(args)
+
+    # The port's single process over the same global batches, beside
+    # JAX's steps.
+    single = in_background(
+        single_process, tm, tcfg, start, batches, accum,
+        (spec["model"], json.dumps(spec["overrides"], sort_keys=True),
+         json.dumps(opt, sort_keys=True), accum))
+
+    # JAX: the mesh step over the global batches.
+    jstep = jtrainer.build_train_step(jm, jcfg, jmesh, accum_steps=accum)
+    jmets = []
+    for b in batches:
+        jstate, jmet = jstep(jstate, jax.tree.map(jnp.asarray, b))
+        jmets.append({k: float(v) for k, v in jmet.items()})
+
+    tmets, tstate_np = single.result()
+    gang.wait(args, GANG_TIMEOUT_S)
     ranks = [json.load(open(f"{tmp_path / 'out'}.{i}")) for i in range(w)]
     for r in ranks:  # every rank reports the same global metrics
         _assert_metrics_close(r["metrics"], jmets)
     got = tcheckpoint._load(ckpt_dir, STEPS)
     _assert_states_close(got, _jax_flat(jstate))
-
-    # The port's single process over the same global batches.
-    tstate = weights.state_from_numpy(start, tcfg, device="cpu")
-    tstep = ttrainer.build_train_step(tm, tcfg, accum_steps=accum)
-    tmets = []
-    for b in batches:
-        tstate, tmet = tstep(tstate, tdata.place_batch(
-            b, torch.device("cpu")))
-        tmets.append({k: float(v) for k, v in tmet.items()})
     _assert_metrics_close(ranks[0]["metrics"], tmets)
-    _assert_states_close(got, weights.state_to_numpy(tstate, tcfg))
+    _assert_states_close(got, tstate_np)
 
     batch_ranks = spec["mesh"].get("data", 1) * spec["mesh"].get("fsdp", 1)
     if tm.family != "resnet" and batch_ranks > 1:

@@ -33,7 +33,10 @@ handoff and a live push.
 Tolerances are ``tests/test_torch_distributed_train.py``'s: metrics to
 1e-5 relative each step; parameters and optimizer slots to 1e-4 relative
 and 1e-5 absolute. Greedy tokens must be identical. Each gang runs under a
-120 s limit (and a 120 s process-group timeout).
+120 s limit (and a 120 s process-group timeout). The training cases run
+as jobs of gangs that stay up across cases, one per size, while JAX's
+steps and the port's single process run in the test's process
+(``tests/_torch_gang.py``).
 """
 
 import json
@@ -69,55 +72,62 @@ from kubeflow_tpu_torch.serving.continuous import ContinuousDecoder  # noqa: E40
 from kubeflow_tpu_torch.train import checkpoint as tcheckpoint  # noqa: E402
 from kubeflow_tpu_torch.train import data as tdata  # noqa: E402
 from kubeflow_tpu_torch.train import optimizers as toptim  # noqa: E402
-from kubeflow_tpu_torch.train import trainer as ttrainer  # noqa: E402
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from _torch_gang import (  # noqa: E402
+    GangPool,
+    in_background,
+    jax_initial_state,
+    single_process,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STEPS = 2
 GANG_TIMEOUT_S = 120
 
-# One rank of the gang: restore the step-0 state the test wrote, train
-# STEPS steps on this rank's rows counting the MoE choices dropped past
-# capacity, save the whole state; every rank writes its metrics.
-WORKER = """
+# One job of a gang's rank: restore the step-0 state the test wrote,
+# train STEPS steps on this rank's rows counting the MoE choices dropped
+# past capacity, save the whole state; every rank writes its metrics.
+JOB = """
 import json, sys
 import numpy as np, torch
 torch.set_num_threads(1)
 from kubeflow_tpu_torch.models.registry import get_model
 from kubeflow_tpu_torch.models.transformer import count_dropped
-from kubeflow_tpu_torch.parallel.distributed import initialize_from_env, shutdown
 from kubeflow_tpu_torch.parallel.mesh import (BATCH_AXES, MeshConfig,
-    axis_index, axis_size, build_mesh)
+    axis_index, axis_size, build_mesh, destroy_mesh)
 from kubeflow_tpu_torch.train import checkpoint, data, trainer
 from kubeflow_tpu_torch.train.optimizers import OptimizerConfig
 from kubeflow_tpu_torch.weights import flatten
-a = json.loads(sys.argv[1])
-info = initialize_from_env(device="cpu", timeout_s=120)
-mesh = build_mesh(MeshConfig(**a["mesh"]), device_type="cpu")
-model = get_model(a["model"], dtype=torch.float32, **a["overrides"])
-opt_cfg = OptimizerConfig(**a["optimizer"])
-ckpt = checkpoint.Checkpointer(a["dir"], opt_cfg, async_saves=False)
-state = trainer.init_state(torch.Generator().manual_seed(1), model,
-                           opt_cfg, mesh, device="cpu")
-state, _ = ckpt.restore_latest(state)
-step_fn = trainer.build_train_step(model, opt_cfg, mesh)
-r, n = axis_index(mesh, BATCH_AXES), axis_size(mesh, BATCH_AXES)
-batches = np.load(a["batches"])
-metrics, counts, dropped = [], [], 0
-for i in range(a["steps"]):
-    b = data.local_rows({k: batches[f"{k}/{i}"] for k in a["keys"]}, r, n)
-    counts.append(int(sum((v >= 0).sum() for k, v in b.items()
-                          if k in ("targets", "mlm_labels"))))
-    with count_dropped() as drops:
-        state, met = step_fn(state, data.place_batch(b, torch.device("cpu")))
-    dropped += int(sum(drops))
-    metrics.append({k: float(v) for k, v in met.items()})
-ckpt.save(a["steps"], state)
-ckpt.close()
-with open(a["out"] + f".{info.process_id}", "w") as f:
-    json.dump({"metrics": metrics, "counts": counts, "dropped": dropped,
-               "param_shapes": {k: list(v.shape) for k, v in
-                                flatten(state.params).items()}}, f)
-shutdown()
+def run(a, info):
+    mesh = build_mesh(MeshConfig(**a["mesh"]), device_type="cpu")
+    model = get_model(a["model"], dtype=torch.float32, **a["overrides"])
+    opt_cfg = OptimizerConfig(**a["optimizer"])
+    ckpt = checkpoint.Checkpointer(a["dir"], opt_cfg, async_saves=False)
+    state = trainer.init_state(torch.Generator().manual_seed(1), model,
+                               opt_cfg, mesh, device="cpu")
+    state, _ = ckpt.restore_latest(state)
+    step_fn = trainer.build_train_step(model, opt_cfg, mesh)
+    r, n = axis_index(mesh, BATCH_AXES), axis_size(mesh, BATCH_AXES)
+    batches = np.load(a["batches"])
+    metrics, counts, dropped = [], [], 0
+    for i in range(a["steps"]):
+        b = data.local_rows({k: batches[f"{k}/{i}"] for k in a["keys"]},
+                            r, n)
+        counts.append(int(sum((v >= 0).sum() for k, v in b.items()
+                              if k in ("targets", "mlm_labels"))))
+        with count_dropped() as drops:
+            state, met = step_fn(state,
+                                 data.place_batch(b, torch.device("cpu")))
+        dropped += int(sum(drops))
+        metrics.append({k: float(v) for k, v in met.items()})
+    ckpt.save(a["steps"], state)
+    ckpt.close()
+    with open(a["out"] + f".{info.process_id}", "w") as f:
+        json.dump({"metrics": metrics, "counts": counts, "dropped": dropped,
+                   "param_shapes": {k: list(v.shape) for k, v in
+                                    flatten(state.params).items()}}, f)
+    destroy_mesh(mesh)
 """
 
 # adafactor factors a leaf whose two largest axes are both >= 128; a
@@ -201,8 +211,15 @@ def _assert_metrics_close(got: list, want: list):
                                        err_msg=f"{key} step {i}")
 
 
+@pytest.fixture(scope="module")
+def gangs():
+    pool = GangPool(JOB, ROOT)
+    yield pool
+    pool.close()
+
+
 @pytest.mark.parametrize("case", list(CASES))
-def test_model_axes_train_steps_match_jax(case, tmp_path):
+def test_model_axes_train_steps_match_jax(case, tmp_path, gangs):
     spec = CASES[case]
     w = _ranks(spec["mesh"])
     jm = jregistry.get_model(spec["model"], dtype=jnp.float32,
@@ -216,18 +233,17 @@ def test_model_axes_train_steps_match_jax(case, tmp_path):
     jcfg, tcfg = joptim.OptimizerConfig(**opt), toptim.OptimizerConfig(**opt)
     batches = [_global_batch(tm, 2 * w, 100 + i) for i in range(STEPS)]
 
-    # JAX: the mesh step over the global batches.
+    # JAX's initial state, which the port's gang starts from.
     jmesh = jbuild_mesh(JMeshConfig(**spec["mesh"]),
                         devices=jax.devices()[:w])
-    jstate = jtrainer.init_state(jax.random.PRNGKey(0), jm, jcfg, jmesh)
+    jstate = jax_initial_state(
+        jax, jtrainer, jm, jcfg, jmesh,
+        (spec["model"], json.dumps(spec["overrides"], sort_keys=True),
+         json.dumps(opt, sort_keys=True)))
     start = _jax_flat(jstate)
-    jstep = jtrainer.build_train_step(jm, jcfg, jmesh)
-    jmets = []
-    for b in batches:
-        jstate, jmet = jstep(jstate, jax.tree.map(jnp.asarray, b))
-        jmets.append({k: float(v) for k, v in jmet.items()})
 
-    # The port's gang, from the same state.
+    # The port's gang, from the same state, trains while JAX and the
+    # single process run here.
     ckpt_dir = str(tmp_path / "ckpt")
     tcheckpoint.save(ckpt_dir, 0, weights.state_from_numpy(
         start, tcfg, device="cpu"), tcfg)
@@ -237,27 +253,32 @@ def test_model_axes_train_steps_match_jax(case, tmp_path):
                 mesh=spec["mesh"], optimizer=opt, dir=ckpt_dir,
                 batches=str(tmp_path / "batches.npz"), keys=list(batches[0]),
                 steps=STEPS, out=str(tmp_path / "out"))
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    procs = launch([sys.executable, "-c", WORKER, json.dumps(args)], w,
-                   env=env, cwd=ROOT, timeout=GANG_TIMEOUT_S)
-    assert all(p.returncode == 0 for p in procs), "\n".join(
-        f"rank {i}:\n{p.stderr[-3000:]}" for i, p in enumerate(procs))
+    gang = gangs.get(w)
+    gang.submit(args)
+
+    # The port's single process over the same global batches, beside
+    # JAX's steps.
+    single = in_background(
+        single_process, tm, tcfg, start, batches, 1,
+        (spec["model"], json.dumps(spec["overrides"], sort_keys=True),
+         json.dumps(opt, sort_keys=True), 1))
+
+    # JAX: the mesh step over the global batches.
+    jstep = jtrainer.build_train_step(jm, jcfg, jmesh)
+    jmets = []
+    for b in batches:
+        jstate, jmet = jstep(jstate, jax.tree.map(jnp.asarray, b))
+        jmets.append({k: float(v) for k, v in jmet.items()})
+
+    tmets, tstate_np = single.result()
+    gang.wait(args, GANG_TIMEOUT_S)
     ranks = [json.load(open(f"{tmp_path / 'out'}.{i}")) for i in range(w)]
     for r in ranks:  # every rank reports the same global metrics
         _assert_metrics_close(r["metrics"], jmets)
     got = tcheckpoint._load(ckpt_dir, STEPS)
     _assert_states_close(got, _jax_flat(jstate))
-
-    # The port's single process over the same global batches.
-    tstate = weights.state_from_numpy(start, tcfg, device="cpu")
-    tstep = ttrainer.build_train_step(tm, tcfg)
-    tmets = []
-    for b in batches:
-        tstate, tmet = tstep(tstate, tdata.place_batch(
-            b, torch.device("cpu")))
-        tmets.append({k: float(v) for k, v in tmet.items()})
     _assert_metrics_close(ranks[0]["metrics"], tmets)
-    _assert_states_close(got, weights.state_to_numpy(tstate, tcfg))
+    _assert_states_close(got, tstate_np)
 
     # The steps moved a matrix past the state tolerance, so a gang that
     # skipped or garbled an update fails the comparisons above.

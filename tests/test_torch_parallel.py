@@ -34,7 +34,7 @@ from kubeflow_tpu_torch.models import registry as tregistry  # noqa: E402
 from kubeflow_tpu_torch.parallel import distributed as tdistributed  # noqa: E402,E501
 from kubeflow_tpu_torch.parallel import mesh as tmesh  # noqa: E402
 from kubeflow_tpu_torch.parallel import sharding as tsharding  # noqa: E402
-from kubeflow_tpu_torch.parallel.launch import launch  # noqa: E402
+from kubeflow_tpu_torch.parallel.launch import Gang, launch  # noqa: E402
 from kubeflow_tpu_torch.train import data as tdata  # noqa: E402
 from kubeflow_tpu_torch.train import optimizers as toptim  # noqa: E402
 from kubeflow_tpu_torch.train import trainer as ttrainer  # noqa: E402
@@ -299,6 +299,35 @@ def test_gang_agreements_collectives_and_shards(data, fsdp):
     for i, p in enumerate(procs):
         assert p.returncode == 0 and p.stdout.strip() == "ok", \
             f"rank {i}:\n{p.stderr[-3000:]}"
+
+
+JOB_WORKER = """
+import os
+from kubeflow_tpu_torch.parallel.launch import serve_jobs
+rank = os.environ["JAX_PROCESS_ID"]
+def run(a):
+    if a.get("fail") == rank:
+        raise ValueError("rank " + rank + " refuses")
+    with open(a["out"] + "." + rank, "a") as f:
+        f.write(str(os.getpid()) + "\\n")
+serve_jobs(run)
+"""
+
+
+def test_gang_keeps_its_ranks_across_jobs_and_closes_on_a_failure(
+        tmp_path):
+    gang = Gang(2, JOB_WORKER, cwd=ROOT, grace=2.0)
+    try:
+        for _ in range(2):
+            gang.run({"out": str(tmp_path / "a")}, timeout=60)
+        pids = [(tmp_path / f"a.{i}").read_text().split() for i in range(2)]
+        assert [p.pid for p in gang.procs] == [int(p[0]) for p in pids]
+        assert all(len(set(p)) == 1 and len(p) == 2 for p in pids)
+        with pytest.raises(RuntimeError, match="rank 1 refuses"):
+            gang.run({"out": str(tmp_path / "b"), "fail": "1"}, timeout=60)
+        assert not gang.alive()
+    finally:
+        gang.close()
 
 
 # ---------------------------------------------------------------------------

@@ -306,6 +306,28 @@ def test_cli_rejects_dense_layout_and_bad_block_size():
         assert e.value.code == 2
 
 
+# The port's platform surface (manifests, the Experiment controller, the
+# sweep, the lint, the apiserver client and fake), held to the same rule.
+PLATFORM_MODULES = [
+    "kubeflow_tpu_torch.apis.experiment",
+    "kubeflow_tpu_torch.apis.inference",
+    "kubeflow_tpu_torch.k8s_client",
+    "kubeflow_tpu_torch.k8s_fake",
+    "kubeflow_tpu_torch.manifests.__main__",
+    "kubeflow_tpu_torch.manifests.core",
+    "kubeflow_tpu_torch.manifests.images",
+    "kubeflow_tpu_torch.manifests.objects",
+    "kubeflow_tpu_torch.manifests.serving",
+    "kubeflow_tpu_torch.manifests.training",
+    "kubeflow_tpu_torch.observability.lint",
+    "kubeflow_tpu_torch.operators.__main__",
+    "kubeflow_tpu_torch.operators.base",
+    "kubeflow_tpu_torch.operators.experiment",
+    "kubeflow_tpu_torch.tuning.suggestions",
+    "kubeflow_tpu_torch.tuning.sweep",
+]
+
+
 def test_package_imports_neither_jax_nor_the_jax_package():
     root = Path(__file__).resolve().parent.parent
     code = (
@@ -314,6 +336,10 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "assert 'kubeflow_tpu_torch.serving.scenarios' in sys.modules\n"
+        # The platform surface: every module walked and imported.
+        f"missing = [m for m in {PLATFORM_MODULES!r}\n"
+        "           if m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "bad = sorted(n for n in sys.modules if n in ('jax', 'optax',\n"
         "             'kubeflow_tpu', 'ml_dtypes') or n.startswith(('jax.',\n"
         "             'optax.', 'kubeflow_tpu.', 'ml_dtypes.')))\n"
