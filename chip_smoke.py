@@ -356,7 +356,7 @@ learner on the fleet, and checks the output. Phases, each printed as one JSON li
     save, then its reference run's init, restore into the target mesh
     and first step); (aa2) f32 gates at 2 layers (flagship-1b's
     architecture, 512 wide) in a gloo gang of four on the card: shrink
-    4 -> 2 and grow 2 -> 4 over dp, dp x fsdp 2 and dp x tp 2, each bit
+    4 -> 2 and grow 2 -> 4 over dp x fsdp 2 and dp x tp 2, each bit
     for bit its restore reference and within gang_run's limits of one
     process on the same rows; (aa3) ``workloads.slice_health --backend
     gloo`` in a gang of two (healthy, its all-reduce ms), ``tf_cnn
@@ -418,20 +418,61 @@ learner on the fleet, and checks the output. Phases, each printed as one JSON li
     itself): each rank's losses and final state equal one process on the
     same batches within 1e-5 and 1e-4 + 1e-5;
 (dd) the port deployed and tuned as the platform does it
-    (``phase_manifests``): (dd1) ``gpu-serving`` rendered for llama-1b
-    (paged, the paged kernel, one GPU) in bf16 and in f32, each started
-    as its container's own command (this interpreter for ``python``, free
-    ports for the pod's 8500 and 9000): boot to ready, TTFT, tokens/s of
-    six requests at once, a gRPC Predict equal to the REST body, the
-    port's lint over the exposition (no violation), the paged kernel's
-    launches from the exposition (``serving_kernel_launches_total``) equal
-    to 16 x the decode forwards over the window, and the f32 server's
-    greedy tokens equal to the same rendering's engine in this process
-    with the gathered plain read; (dd2) a ``decode-tps`` Experiment
-    (tpe, seed 7, 3 trials) at llama-1b through the port's
-    ``ExperimentController`` on its fake apiserver: Succeeded, trial 0
-    the defaults, JAX's trial seeds, drains at 0, each trial's tokens/s,
-    the best and the improvement;
+    (``start_manifest_servers``, ``manifest_load``,
+    ``check_manifest_servers``, ``manifest_experiment``): (dd1) llama-1b
+    served
+    from ``gpu-serving`` renderings (paged, the paged kernel, one GPU):
+    in bf16 the InferenceService controller's replica r0 (ee1), in f32
+    the prototype rendered directly, each started as its container's own
+    command (this interpreter for ``python``, free ports for the pod's
+    8500 and 9000): boot to ready, TTFT, tokens/s of six requests at
+    once, a gRPC Predict equal to the REST body, the port's lint over the
+    exposition (no violation), the paged kernel's launches from the
+    exposition (``serving_kernel_launches_total``) equal to 16 x the
+    decode forwards over the window, and the f32 server's greedy tokens
+    equal to the same rendering's engine in this process with the
+    gathered plain read; (dd2) a ``decode-tps`` Experiment (tpe, seed 7,
+    3 trials) at llama-1b through the port's ``ExperimentController`` on
+    its fake apiserver: Succeeded, trial 0 the defaults, JAX's trial
+    seeds, drains at 0, each trial's tokens/s, the best and the
+    improvement;
+(ee) the InferenceService controller and the rollout controller
+    (``scale_up``, ``check_inference_service``, ``rollout_fleet``,
+    ``check_peer_pair``, ``phase_rollout``): (ee1) an InferenceService of
+    llama-1b (paged, the paged kernel, 1 to 2 replicas, peer weights, a
+    TTFT p99 target of 20 ms) reconciled by the port's controller on its
+    fake apiserver, each replica started from its rendered container,
+    the autoscaler scraping each replica's real exposition (a pod
+    address maps to its process's local port): the first scrape after
+    (dd1)'s requests reads a breach (a p99 over r0's whole life, its cold
+    first request's; the target is under any request's TTFT) and that
+    reconcile, within one scrape period of the six requests' end, scales
+    to two; r1, rendered with ``--weight-peers`` naming
+    r0, boots over ``:pull`` (its exposition counts the peer install);
+    requests placed by ``rendezvous_pick`` over the router annotation's
+    backends reach both, one prompt gives both the same tokens, each
+    replica's paged launches are 16 x its decode forwards; the pool
+    holds while its p99 (the histograms count a server's whole life)
+    stays over the low-water mark, and with the targets relaxed and the
+    cooldown over it scales back to one (r1's Deployment and Service
+    gone, then r1 stopped; the hysteresis band is held on the CPU against
+    JAX, not on these signals). Boot to ready of r0 (seeded init) and r1
+    (peer pull), each polled from its start, the breaching p99. (ee2) a
+    ``DecoderFleet`` of two
+    llama-1b replicas (bf16, paged, the paged kernel) registered under
+    an InferenceService whose ``spec.versions`` holds an incumbent (seed
+    0) and a candidate (seed 1): the port's ``RolloutController`` walks
+    1, 10, 50, 100% and promotes (one epoch fleet-wide; the router
+    annotation a hash-split while a cohort stays on the incumbent,
+    prefix-affine after), then a second candidate at gate ratio 0.5,
+    which no cohort of equal replicas meets, rolls back at a fresh epoch
+    with its evidence: each push's ms, each walk's seconds, launches =
+    16 x decode forwards. (ee3) f32 gates at F32_GATE_LAYERS: (ee2)'s
+    two walks, each member's greedy tokens after the promotion equal to a
+    decoder on the candidate's weights and after the rollback on the
+    incumbent's (fused and gathered); a newborn ModelServer booted over
+    ``:pull`` from a donor holding pushed seed-5 weights gives the
+    donor's tokens;
 (f) the kernel table: each kernel's launches on the main paths, its
     error, its time, its plain version's time and its bound; the paged
     and RMSNorm rows give device time as ``ms`` and the call's as
@@ -465,10 +506,23 @@ learner on the fleet, and checks the output. Phases, each printed as one JSON li
     ``fleet_remote``) and the flash rows the RL learner's
     (``rl_learner``) and (cc3)'s BERT ranks'
     (``bert_sequence2_train_rank0``, ``_rank1``); the paged row (dd1)'s
-    rendered servers' (``rendered_server_bf16``, ``_f32``).
+    rendered servers' (``rendered_server_bf16``, ``_f32``), (ee1)'s
+    replicas' (``inference_service_r0``, ``_r1``) and (ee2)'s fleet's
+    (``rollout_fleet``).
 
 Every ``gang_run`` is a job of one gang of two (``GANG``) kept across
-them, so each of its ranks starts once.
+them, so each of its ranks starts once; it starts beside (w2). Some
+processes boot or run beside other work, and every time read there
+says so in its line's ``reading`` (or ``boot_reading``): (m)'s CLIs boot
+during (e), (l) and (p), which time nothing, each polled from its start
+(their boot times overlap each other); (s)'s checkpoint CLI boots during
+(s5)'s f32 gates; (dd1)'s two servers boot side by side; (w2), (w3) and
+(w4) run side by side with the gang's start, so (w2)'s step times and
+(w4)'s are read beside the others; (aa3)'s probe runs beside tf_cnn
+(its samples/s); (ee1)'s r1 and (ee3)'s peer pair boot during (dd1)'s
+checks, (dd2), (ee3)'s walks, (cc) and (r)'s f32 gates, so (dd2)'s and
+(cc)'s times and those boots are read so; (q)'s f32 gates run while
+(dd1)'s servers boot. (ee2)'s timed walks run alone.
 
 TF32 is off throughout, so float32 products are full float32. Any
 failure exits non-zero; the last line, printed only on success, is
@@ -1723,6 +1777,19 @@ def wait_ready(proc, port: int, timeout: float = 300.0) -> float:
     raise AssertionError(f"the CLI was not ready in {timeout} s")
 
 
+def poll_ready(proc, port: int, timeout: float = 300.0):
+    """``wait_ready`` in a thread from now, for a server that boots while
+    this process works on: the future's result is its boot to ready
+    however late it is asked for (read beside whatever ran meanwhile)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    pool = ThreadPoolExecutor(1)
+    try:
+        return pool.submit(wait_ready, proc, port, timeout)
+    finally:
+        pool.shutdown(wait=False)
+
+
 def stop_procs(procs) -> None:
     for proc, log in procs:
         if proc.poll() is None:
@@ -1735,64 +1802,94 @@ def stop_procs(procs) -> None:
         log.close()
 
 
-def phase_surfaces(default: dict) -> dict:
-    """(m): (k)'s scrape, then the CLI on the card. With grpcio, the CLI
-    with default flags serves gRPC :9000 and a Predict body equals the
-    REST body; without it, the CLI with default flags exits 2 naming
-    ``--grpc-port -1``. Beside it, the CLI with the paged prefix path and
-    chunked prefill (``--grpc-port -1``) answers a long prompt and a
-    prefix hit, the CLI with ``--speculative-k 4`` on the paged layout
-    answers a request, the CLI with the host KV tier, QoS and a decode
-    role (``--host-kv-bytes``, ``--qos-tenants``, ``--serving-role
-    decode``) answers a tenant's request, ``--speculative-k 2
-    --decode-mode lockstep`` exits 2, and ``--tp-shards 2`` exits 2
-    naming the devices (its shards take cuda:0 and cuda:1 by default; the
-    card is one)."""
+def start_surfaces() -> dict:
+    """(m)'s CLIs, started as a user starts them, to boot while the f32
+    parity phases run: the default flags, the paged prefix path and
+    chunked prefill, speculation on the paged layout, the host tier with
+    QoS and a decode role, and the two refused flag sets."""
+    rest = {k: free_port() for k in ("default", "paged", "spec", "qos")}
+    paged_flags = ("--kv-layout", "paged", "--kv-fused-attention",
+                   "--prefix-cache-slots", "4", "--prefill-chunk-tokens",
+                   str(CHUNK_TOKENS), "--max-prompt-len", str(MAX_PROMPT),
+                   "--grpc-port", "-1", "--rest-port", str(rest["paged"]))
+    started = {"rest": rest, "procs": [], "refused": []}
+    try:
+        started["procs"].append(start_cli("--rest-port",
+                                          str(rest["default"])))
+        started["procs"].append(start_cli(*paged_flags))
+        started["procs"].append(start_cli(
+            "--speculative-k", "4", "--kv-layout", "paged", "--grpc-port",
+            "-1", "--rest-port", str(rest["spec"])))
+        started["procs"].append(start_cli(
+            "--host-kv-bytes", str(TIER_BYTES), "--qos-tenants",
+            QOS_TENANTS, "--serving-role", "decode", "--kv-layout", "paged",
+            "--kv-fused-attention", "--prefix-cache-slots", "4",
+            "--grpc-port", "-1", "--rest-port", str(rest["qos"])))
+        for flags, says in ((("--tp-shards", "2"), "devices"),
+                            (("--speculative-k", "2", "--decode-mode",
+                              "lockstep"), "requires --decode-mode")):
+            started["refused"].append((flags, says, subprocess.Popen(
+                [sys.executable, "-m", "kubeflow_tpu_torch.serving",
+                 "--model-name", MODEL, *flags], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)))
+    except BaseException:
+        stop_surfaces(started)
+        raise
+    started["ready"] = {tag: poll_ready(proc, rest[tag]) for tag, (proc, _)
+                        in zip(("default", "paged", "spec", "qos"),
+                               started["procs"])}
+    return started
+
+
+def stop_surfaces(started: dict) -> None:
+    stop_procs(started["procs"])
+    for _, _, proc in started["refused"]:
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
+
+
+def phase_surfaces(default: dict, started: dict) -> dict:
+    """(m): (k)'s scrape, then the CLIs ``start_surfaces`` started. With
+    grpcio, the CLI with default flags serves gRPC :9000 and a Predict
+    body equals the REST body; without it, the CLI with default flags
+    exits 2 naming ``--grpc-port -1``. Beside it, the CLI with the paged
+    prefix path and chunked prefill (``--grpc-port -1``) answers a long
+    prompt and a prefix hit, the CLI with ``--speculative-k 4`` on the
+    paged layout answers a request, the CLI with the host KV tier, QoS
+    and a decode role (``--host-kv-bytes``, ``--qos-tenants``,
+    ``--serving-role decode``) answers a tenant's request,
+    ``--speculative-k 2 --decode-mode lockstep`` exits 2, and
+    ``--tp-shards 2`` exits 2 naming the devices (its shards take cuda:0
+    and cuda:1 by default; the card is one)."""
     import importlib.util
 
     from kubeflow_tpu_torch.models.registry import get_model
 
     vocab = get_model(MODEL).config.vocab_size
     grpc_available = importlib.util.find_spec("grpc") is not None
-    out = {"metrics": default["surfaces"], "grpc_available": grpc_available}
+    out = {"metrics": default["surfaces"], "grpc_available": grpc_available,
+           "reading": "each CLI's boot to ready, polled from its start, "
+                      "beside the other CLIs and (e), (l) and (p)"}
+    ready = started["ready"]
+    rest = started["rest"]
     rest_default, rest_paged, rest_spec, rest_qos = (
-        free_port(), free_port(), free_port(), free_port())
-    paged_flags = ("--kv-layout", "paged", "--kv-fused-attention",
-                   "--prefix-cache-slots", "4", "--prefill-chunk-tokens",
-                   str(CHUNK_TOKENS), "--max-prompt-len", str(MAX_PROMPT),
-                   "--grpc-port", "-1", "--rest-port", str(rest_paged))
-    procs = []
+        rest["default"], rest["paged"], rest["spec"], rest["qos"])
+    procs = started["procs"]
     try:
-        procs.append(start_cli("--rest-port", str(rest_default)))
-        procs.append(start_cli(*paged_flags))
-        procs.append(start_cli("--speculative-k", "4", "--kv-layout",
-                               "paged", "--grpc-port", "-1", "--rest-port",
-                               str(rest_spec)))
-        procs.append(start_cli(
-            "--host-kv-bytes", str(TIER_BYTES), "--qos-tenants",
-            QOS_TENANTS, "--serving-role", "decode", "--kv-layout", "paged",
-            "--kv-fused-attention", "--prefix-cache-slots", "4",
-            "--grpc-port", "-1", "--rest-port", str(rest_qos)))
-        for flags, says in ((("--tp-shards", "2"), "devices"),
-                            (("--speculative-k", "2", "--decode-mode",
-                              "lockstep"), "requires --decode-mode")):
-            refused = subprocess.run(
-                [sys.executable, "-m", "kubeflow_tpu_torch.serving",
-                 "--model-name", MODEL, *flags],
-                capture_output=True, text=True, timeout=120)
-            if refused.returncode != 2 or says not in refused.stderr:
+        for flags, says, proc in started["refused"]:
+            _, err = proc.communicate(timeout=120)
+            if proc.returncode != 2 or says not in err:
                 raise AssertionError(f"{' '.join(flags)}: exit "
-                                     f"{refused.returncode}: "
-                                     f"{refused.stderr}")
-            out[f"exit_{flags[0].strip('-')}"] = refused.returncode
+                                     f"{proc.returncode}: {err}")
+            out[f"exit_{flags[0].strip('-')}"] = proc.returncode
         default_proc = procs[0][0]
         if grpc_available:
             import grpc
 
             from kubeflow_tpu_torch.serving.grpc_server import client_stubs
 
-            out["default_cli_ready_s"] = wait_ready(default_proc,
-                                                    rest_default)
+            out["default_cli_ready_s"] = ready["default"].result()
             inst = {"tokens": request_bodies(vocab)[1]["tokens"],
                     "max_new_tokens": 8}
             conn = http.client.HTTPConnection("127.0.0.1", rest_default,
@@ -1829,7 +1926,7 @@ def phase_surfaces(default: dict) -> dict:
                 raise AssertionError(f"the default CLI without grpcio exited "
                                      f"{code}: {text[-2000:]}")
             out["default_cli_exit"] = code
-        out["paged_cli_ready_s"] = wait_ready(procs[1][0], rest_paged)
+        out["paged_cli_ready_s"] = ready["paged"].result()
         rng = np.random.RandomState(7)
         system = rng.randint(0, vocab, size=SYSTEM_LEN).tolist()
         asks = [rng.randint(0, vocab, size=LONG_PROMPT).tolist(),
@@ -1847,7 +1944,7 @@ def phase_surfaces(default: dict) -> dict:
         if (got != [16, 16, 16] or samples["serving_prefix_hits_total"] < 1
                 or samples["serving_prefill_chunks_total"] < 1):
             raise AssertionError(f"the paged CLI: {out['paged_cli']}")
-        out["spec_cli_ready_s"] = wait_ready(procs[2][0], rest_spec)
+        out["spec_cli_ready_s"] = ready["spec"].result()
         pat = rng.randint(0, vocab, size=5).tolist()
         got = len(post(rest_spec, {"tokens": pat * 12,
                                    "max_new_tokens": 16})[0])
@@ -1858,7 +1955,7 @@ def phase_surfaces(default: dict) -> dict:
                 samples["serving_spec_verify_dispatches_total"]}
         if got != 16:
             raise AssertionError(f"the speculative CLI: {out['spec_cli']}")
-        out["features_cli_ready_s"] = wait_ready(procs[3][0], rest_qos)
+        out["features_cli_ready_s"] = ready["qos"].result()
         got = len(post(rest_qos, {"tokens": pat * 12, "max_new_tokens": 16},
                        headers={"X-Tenant": "gold", "X-Priority": "5"})[0])
         text = get(rest_qos, "/monitoring/prometheus/metrics")
@@ -1877,7 +1974,7 @@ def phase_surfaces(default: dict) -> dict:
                 or samples['serving_role{role="decode"}'] != 1):
             raise AssertionError(f"the features CLI: {out['features_cli']}")
     finally:
-        stop_procs(procs)
+        stop_surfaces(started)
     emit("m_default_server_surfaces", **out)
     return out
 
@@ -2403,7 +2500,7 @@ def phase_speculation() -> dict:
     speculative_k 0 and one with 4 (n-gram drafts), alternating, two
     measured runs each after a warm-up; then one run on the dense default
     server with the draft model ``model:llama-1b`` and one without
-    speculation; then the f32 gates."""
+    speculation. Its f32 gates are :func:`phase_speculation_gates`."""
     from kubeflow_tpu_torch.serving.server import ModelServer
 
     cfgs = {k: engine_cfg(kv_fused=True, max_new_tokens=SPEC_NEW,
@@ -2479,7 +2576,6 @@ def phase_speculation() -> dict:
         "decode_tokens_per_s"]
     if md["spec_draft_dispatches"] <= 0:
         raise AssertionError(f"the draft model proposed nothing: {md}")
-    gates = spec_f32_gates()
     out = {
         "model": MODEL, "dtype": "bfloat16", "slots": SLOTS,
         "max_seq_len": MAX_SEQ, "max_new_tokens": SPEC_NEW,
@@ -2502,9 +2598,16 @@ def phase_speculation() -> dict:
                             for k, rs in (("off", runs[0]), ("on", on))},
         "runs": {"off": runs[0], "on": on},
         "model_draft_dense": md,
-        "f32_gates": gates,
     }
     emit("q_speculation", **out)
+    out["paged_launches"] = sum(r["launches"] for r in on)
+    return out
+
+
+def phase_speculation_gates() -> dict:
+    """(q)'s f32 gates (:func:`spec_f32_gates`), which time nothing."""
+    gates = spec_f32_gates()
+    emit("q_f32_gates", **gates)
     bad = [k for k, v in gates.items()
            if isinstance(v, dict) and not v["identical"]]
     if bad:
@@ -2512,8 +2615,7 @@ def phase_speculation() -> dict:
                              f"{bad}")
     if not gates["paged_fused"]["spec_verify_dispatches"]:
         raise AssertionError("the f32 gate ran no verify round")
-    out["paged_launches"] = sum(r["launches"] for r in on)
-    return out
+    return gates
 
 
 # ---------------------------------------------------------------------------
@@ -3207,14 +3309,13 @@ def handoff_run() -> dict:
             "launches": launches, "decode_forwards": forwards}
 
 
-def checkpoint_boot(workdir: str) -> dict:
-    """(s4, the boot): the port's trainer writes a llama-1b checkpoint (one
-    step of ``train.loop.run``, batch 1 x seq 256, the default optimizer,
-    whose state the engine restores, as JAX's does), then the CLI boots
-    from it with ``--model-path`` and answers a request; its exposition
-    counts a weight install from the checkpoint."""
+def checkpoint_boot_start(workdir: str) -> dict:
+    """(s4, the boot, started): the port's trainer writes a llama-1b
+    checkpoint (one step of ``train.loop.run``, batch 1 x seq 256, the
+    default optimizer, whose state the engine restores, as JAX's does),
+    then the CLI starts from it with ``--model-path``, to boot while the
+    f32 gates run."""
     import os
-    import shutil
 
     from kubeflow_tpu_torch.train.loop import RunConfig, run
 
@@ -3230,8 +3331,20 @@ def checkpoint_boot(workdir: str) -> dict:
     procs = [start_cli("--model-path", ckpt, "--kv-layout", "paged",
                        "--kv-fused-attention", "--grpc-port", "-1",
                        "--rest-port", str(port))]
+    return {"ckpt": ckpt, "port": port, "size": size, "train_s": train_s,
+            "procs": procs, "ready": poll_ready(procs[0][0], port, 600)}
+
+
+def checkpoint_boot(started: dict) -> dict:
+    """(s4, the boot): the CLI started from the checkpoint answers a
+    request; its exposition counts a weight install from the
+    checkpoint."""
+    import shutil
+
+    ckpt, port, procs = started["ckpt"], started["port"], started["procs"]
+    size, train_s = started["size"], started["train_s"]
     try:
-        ready_s = wait_ready(procs[0][0], port, timeout=600)
+        ready_s = started["ready"].result()
         toks, _ = post(port, {"tokens": [1, 2, 3], "max_new_tokens": 8})
         samples = parse_exposition(get(port,
                                        "/monitoring/prometheus/metrics"))
@@ -3244,6 +3357,8 @@ def checkpoint_boot(workdir: str) -> dict:
     return {"checkpoint_bytes": size, "train_and_save_s": train_s,
             "cli_ready_s": ready_s, "weights_s": samples.get(
                 'serving_cold_start_seconds{phase="weights"}'),
+            "reading": "the CLI's boot, polled from its start, beside "
+                       "(s5)'s f32 gates",
             "tokens": len(toks)}
 
 
@@ -3366,8 +3481,8 @@ def phase_serving_features(smi: str) -> dict:
     """(s): llama-1b at full width and depth, bf16, 8 slots, paged,
     ``kv_fused``, through ``ModelServer`` over HTTP: the host tier on fp
     and int8 pools, suspension and resume, the prefill/decode handoff and
-    a boot from a checkpoint; then the f32 gates (the live push over HTTP
-    is (bb4)'s).
+    a boot from a checkpoint, whose CLI boots while the f32 gates run (the
+    live push over HTTP is (bb4)'s).
     The paged kernel launches n_layers times per decode forward in every
     bf16 run."""
     import os
@@ -3378,13 +3493,21 @@ def phase_serving_features(smi: str) -> dict:
     out = {"gpu": smi}
     runs = (("host_tier", lambda: {kv: tier_run(kv)
                                    for kv in ("fp", "int8")}),
-            ("suspension", suspend_run), ("handoff", handoff_run),
-            ("checkpoint_boot", lambda: checkpoint_boot(workdir)),
-            ("f32_gates", f32_gates))
+            ("suspension", suspend_run), ("handoff", handoff_run))
     try:
         for name, fn in runs:
             out[name] = fn()
             emit(f"s_{name}", **out[name])  # each as it lands
+        # The CLI boots from the checkpoint while the f32 gates run.
+        started = checkpoint_boot_start(workdir)
+        try:
+            out["f32_gates"] = f32_gates()
+        except BaseException:
+            stop_procs(started["procs"])
+            raise
+        emit("s_f32_gates", **out["f32_gates"])
+        out["checkpoint_boot"] = checkpoint_boot(started)
+        emit("s_checkpoint_boot", **out["checkpoint_boot"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     out["launches"] = (sum(r["launches"] for r in out["host_tier"].values())
@@ -4136,7 +4259,9 @@ def phase_mesh(smi: str, no_mesh: dict) -> dict:
     10x the parameter tolerance; its step time is gloo's, through the
     host. (w3) the allreduce smoke test and bandwidth benchmark as a user
     runs them (alone: NCCL at world size 1). (w4) the DDP workload on
-    cuda:0, 10 steps."""
+    cuda:0, 10 steps. (w2), (w3) and (w4) run side by side, so (w2)'s
+    step time and (w3)'s bandwidth are read with the others on the
+    card."""
     import math
     import shutil
 
@@ -4204,15 +4329,34 @@ def phase_mesh(smi: str, no_mesh: dict) -> dict:
     emit("w1_mesh_nccl", **w1)
     _check_close("mesh step = no-mesh step", gate, 1e-6)
 
+    # (w2), (w3) and (w4) run side by side, and the card's gang (GANG,
+    # first used by (x2)) boots beside them: each process pays its start
+    # (the interpreter, torch, the CUDA context) while the others do.
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    procs = launch([sys.executable, "-c", W2_WORKER], 2, timeout=600)
+    GANG.start()
+    with ThreadPoolExecutor(4) as side:
+        w2_run = side.submit(launch, [sys.executable, "-c", W2_WORKER], 2,
+                             timeout=600)
+        smoke_run = side.submit(
+            module_json_lines, "kubeflow_tpu_torch.workloads.allreduce_smoke")
+        bench_run = side.submit(
+            module_json_lines, "kubeflow_tpu_torch.workloads.allreduce_bench")
+        ddp_run = side.submit(
+            module_json_lines, "kubeflow_tpu_torch.workloads.torch_xla_ddp",
+            "--steps", "10")
+        procs = w2_run.result()
+        smoke, bench = smoke_run.result(), bench_run.result()
+        ddp = ddp_run.result()[-1]
     for i, p in enumerate(procs):
         if p.returncode:
             raise AssertionError(f"(w2) rank {i} exited {p.returncode}:\n"
                                  f"{p.stderr[-3000:]}")
     w2 = json.loads(procs[0].stdout.strip().splitlines()[-1])
     w2.update(gpu=smi, wall_s=time.perf_counter() - t0,
-              transport="gloo through the host (not NCCL)")
+              transport="gloo through the host (not NCCL)",
+              reading="beside (w3), (w4) and the card gang's start")
     emit("w2_gloo_gang_of_two", **w2)
     if w2["max_rel_err_loss_grad_norm"] > 1e-5 or \
             w2["max_param_excess_over_1e-4_rel"] > 1e-5 or \
@@ -4220,19 +4364,16 @@ def phase_mesh(smi: str, no_mesh: dict) -> dict:
         raise AssertionError(f"(w2) the gang of two differs from one "
                              f"process: {w2}")
 
-    smoke = module_json_lines("kubeflow_tpu_torch.workloads.allreduce_smoke")
-    bench = module_json_lines("kubeflow_tpu_torch.workloads.allreduce_bench")
     if not smoke[-1]["ok"] or smoke[-1]["psum"] != 1.0:
         raise AssertionError(f"allreduce smoke: {smoke}")
     if any(r.get("algo_bandwidth_gbps", 0.0) != 0.0 for r in bench):
         raise AssertionError("bus bandwidth at n = 1 must read 0")
     w3 = {"gpu": smi, "smoke": smoke, "bench": bench}
     emit("w3_allreduce_workloads", **w3)
-    ddp = module_json_lines("kubeflow_tpu_torch.workloads.torch_xla_ddp",
-                            "--steps", "10")[-1]
     if not (ddp["steps"] == 10 and math.isfinite(ddp["loss"])):
         raise AssertionError(f"DDP workload: {ddp}")
-    emit("w4_ddp_workload", gpu=smi, **ddp)
+    emit("w4_ddp_workload", gpu=smi, **ddp,
+         reading="beside (w2), (w3) and the card gang's start")
     out = {"w1": w1, "w2": w2, "w3": w3, "w4": ddp,
            "phase_s": time.perf_counter() - t_phase}
     emit("w_phase_time", phase_s=out["phase_s"])
@@ -4708,12 +4849,17 @@ class CardGang:
     def __init__(self) -> None:
         self.gang = None
 
-    def run(self, name: str, args: dict, timeout: float) -> None:
+    def start(self) -> None:
+        """Start the gang unless it is up: its ranks boot while the
+        caller goes on."""
         from kubeflow_tpu_torch.parallel.launch import Gang
 
         if self.gang is None or not self.gang.alive():
             self.stop()
             self.gang = Gang(2, GANG_WORKER, grace=60.0)
+
+    def run(self, name: str, args: dict, timeout: float) -> None:
+        self.start()
         try:
             self.gang.run(args, timeout)
         except RuntimeError as e:
@@ -4734,9 +4880,11 @@ def gang_run(smi: str, name: str, model: str, mesh: dict, steps: int,
              gate_lr: float = 1e-2, overrides: dict | None = None,
              want: dict | None = None,
              gate_layers: int | None = X_GATE_LAYERS,
-             replicas: bool = False, one_mesh: bool = False) -> dict:
+             replicas: bool = False, one_mesh: bool = False,
+             reading: str = "") -> dict:
     """One job (a run named ``name``) of the card's GANG_WORKER gang of
-    two, ``GANG``; checks its f32 gate (metrics
+    two, ``GANG`` (``reading``, where set, says what ran beside it);
+    checks its f32 gate (metrics
     within ``tol`` relative of one process's, parameters within 1e-4
     relative + 1e-5, every matrix moved over 10x that limit; with
     ``replicas``, each rank's metrics and state so) and, with
@@ -4777,7 +4925,8 @@ def gang_run(smi: str, name: str, model: str, mesh: dict, steps: int,
     out = {"gpu": smi, "model": model, "mesh": mesh,
            "transport": "gloo through the host (not NCCL)",
            "wall_s": time.perf_counter() - t0, **ranks[0],
-           "gang_dropped": dropped}
+           "gang_dropped": dropped, **({"reading": reading} if reading
+                                       else {})}
     if steps:
         out["rank1_launches"] = ranks[1]["rank_launches"]
         out.update({f"rank1_{k}": ranks[1][k] for k in (
@@ -5257,7 +5406,11 @@ AA_OVERRIDES = {"n_layers": 1}
 AA_GATE_OVERRIDES = dict(dtype="float32", n_layers=2, d_model=512,
                          n_heads=4, n_kv_heads=2, d_ff=1024)
 AA_GATE_OPT = dict(name="adafactor", warmup_steps=1, learning_rate=1e-2)
-AA_GATE_MESHES = {"dp": {"data": -1}, "dp_fsdp2": {"data": -1, "fsdp": 2},
+# The f32 gates' meshes: dp x fsdp 2 and dp x tp 2, whose moves reshard
+# fsdp- and tensor-split leaves. JAX's third elastic mesh, dp, is (aa1)'s,
+# held bit for bit there at full width (and against JAX on the CPU in
+# tests/test_torch_elastic_loop.py).
+AA_GATE_MESHES = {"dp_fsdp2": {"data": -1, "fsdp": 2},
                   "dp_tp2": {"data": -1, "tensor": 2}}
 # llama-1b's batch predict: 16 lines, one not JSON (5) and one instance
 # the engine refuses (11: a token past the vocabulary).
@@ -5535,7 +5688,7 @@ def _one_process_gate(dev) -> tuple[list, dict, dict]:
 
 def elastic_gates(smi: str) -> dict:
     """(aa2) the f32 gates at 2 layers in a gloo gang of four on the card:
-    over dp, dp x fsdp 2 and dp x tp 2 (JAX's three meshes) a live run
+    over dp x fsdp 2 and dp x tp 2 (AA_GATE_MESHES) a live run
     that shrinks 4 -> 2 at step AA_FLIP and grows 2 -> 4 at 2 x AA_FLIP,
     each move bit for bit its restore reference, and the run within
     gang_run's limits of one process on the same rows (the final loss
@@ -5601,8 +5754,8 @@ def elastic_gates(smi: str) -> dict:
 
 def job_entry_points(smi: str) -> dict:
     """(aa3) the job entry points as a user runs them: the health probe
-    in a gloo gang of two on cuda:0 (healthy, its all-reduce ms);
-    ``tf_cnn --model resnet50 --steps 4`` alone (samples/s); and the
+    in a gloo gang of two on cuda:0 (healthy, its all-reduce ms) beside
+    ``tf_cnn --model resnet50 --steps 4`` (samples/s); then the
     batch predict of llama-1b over a JSONL of BP_LINES lines, one not
     JSON and one instance the engine refuses: the output's line numbers
     and errors, the flash forward's launches (n_layers x each predict
@@ -5616,11 +5769,20 @@ def job_entry_points(smi: str) -> dict:
     from kubeflow_tpu_torch.serving.batch_predict import run_batch_predict
     from kubeflow_tpu_torch.serving.engine import InferenceEngine
 
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    procs = launch([sys.executable, "-m",
-                    "kubeflow_tpu_torch.workloads.slice_health",
-                    "--backend", "gloo", "--expect-devices", "2",
-                    "--expect-local-devices", "1"], 2, timeout=300)
+    # The probe's gang and tf_cnn start side by side.
+    with ThreadPoolExecutor(2) as side:
+        health_run = side.submit(
+            launch, [sys.executable, "-m",
+                     "kubeflow_tpu_torch.workloads.slice_health",
+                     "--backend", "gloo", "--expect-devices", "2",
+                     "--expect-local-devices", "1"], 2, timeout=300)
+        cnn_run = side.submit(
+            module_json_lines, "kubeflow_tpu_torch.workloads.tf_cnn",
+            "--model", "resnet50", "--steps", "4", "--log-every", "1")
+        procs, cnn = health_run.result(), cnn_run.result()[-1]
     health = []
     for i, p in enumerate(procs):
         report = json.loads(p.stdout.strip().splitlines()[-1])
@@ -5630,9 +5792,6 @@ def job_entry_points(smi: str) -> dict:
                                  f"{p.returncode}: {report}\n"
                                  f"{p.stderr[-2000:]}")
         health.append(report)
-    cnn = module_json_lines("kubeflow_tpu_torch.workloads.tf_cnn",
-                            "--model", "resnet50", "--steps", "4",
-                            "--log-every", "1")[-1]
     if cnn["step"] != 4 or not np.isfinite(cnn["loss"]):
         raise AssertionError(f"(aa3) tf_cnn: {cnn}")
 
@@ -5682,9 +5841,10 @@ def job_entry_points(smi: str) -> dict:
     out = {"gpu": smi,
            "slice_health": {"reports": health, "collective_ms": [
                r["collective_ms"] for r in health]},
-           "tf_cnn": {k: cnn[k] for k in (
+           "tf_cnn": {**{k: cnn[k] for k in (
                "step", "loss", "samples_per_sec", "step_time_p50_ms",
-               "devices")},
+               "devices")}, "reading": "beside the health probe's gang"},
+           "slice_health_reading": "beside tf_cnn",
            "batch_predict": {
                "model": MODEL, "lines": BP_LINES, "summary": {
                    k: summary[k] for k in ("instances", "errors")},
@@ -6464,7 +6624,7 @@ def f32_preset() -> str:
     return name
 
 
-def scenario_runs(smi: str) -> dict:
+def scenario_runs(smi: str, beside: str = "") -> dict:
     """(cc1) the port's ``run_trial("decode-tps")`` at llama-1b, quick,
     bf16, at the defaults and at CC_TUNED: the objective vector and
     ``config`` of each, both drains at 0 blocks; ``synthetic-knobs``
@@ -6484,12 +6644,16 @@ def scenario_runs(smi: str) -> dict:
         res = scenarios.run_trial("decode-tps", knobs, seed=0, model=MODEL,
                                   quick=True)
         res["wall_s"] = time.perf_counter() - t0
+        if beside:
+            res["reading"] = f"beside {beside}"
         emit(f"cc1_decode_tps_{tag}", gpu=smi, **res)
         if res["objectives"]["kv_blocks_in_use_after_drain"] != 0:
             raise AssertionError(f"(cc1) decode-tps {tag} leaked blocks: "
                                  f"{res}")
         cc1[tag] = res
     cc1["synthetic"] = scenarios.run_trial("synthetic-knobs", seed=0)
+    if beside:
+        cc1["synthetic"]["reading"] = f"beside {beside}"
     emit("cc1_synthetic_knobs", **cc1["synthetic"])
     cc2 = {}
     for name in SCENARIO_BENCHES:
@@ -6497,6 +6661,8 @@ def scenario_runs(smi: str) -> dict:
         res = scenarios.get_scenario(name).bench(
             types.SimpleNamespace(**CC_ARGS), f32_preset())
         res["wall_s"] = time.perf_counter() - t0
+        if beside:
+            res["reading"] = f"beside {beside}"
         emit(f"cc2_{name.replace('-', '_')}", gpu=smi, **res)
         if res["regression"] or not res["tokens_identical"]:
             raise AssertionError(f"(cc2) {name}: {res}")
@@ -6508,7 +6674,7 @@ def scenario_runs(smi: str) -> dict:
     return {"cc1": cc1, "cc2": cc2}
 
 
-def phase_scenarios_axes(smi: str) -> dict:
+def phase_scenarios_axes(smi: str, beside: str = "") -> dict:
     """(cc) :func:`scenario_runs` (cc1, cc2); (cc3) :func:`gang_run`
     gangs of two on the card over gloo, whose ranks are replicas: bert-base
     over ``{"sequence": 2}`` (32 x 128 rows on both ranks, 2 steps, flash
@@ -6530,187 +6696,530 @@ def phase_scenarios_axes(smi: str) -> dict:
     matrix moved 3.05x; 2.4e-5 over at lr 3). Through one code path the
     ranks and the one process differ only by cuDNN's nondeterministic
     algorithms, which the gate turns off (6.1e-6 under the limit at lr
-    3, the least matrix moved 12.7x, with them on)."""
+    3, the least matrix moved 12.7x, with them on). ``beside`` names
+    the work that runs meanwhile; each timed line carries it as its
+    ``reading``."""
     t_phase = time.perf_counter()
-    out = scenario_runs(smi)
+    reading = {"reading": f"beside {beside}"} if beside else {}
+    out = scenario_runs(smi, beside)
     out["cc3"] = {
         "bert": gang_run(smi, "cc3_bert_sequence2", BERT_MODEL,
                          {"sequence": 2}, Y_TRAIN_STEPS, BERT_BATCH,
                          BERT_SEQ, 8, BERT_SEQ, {}, 1e-5, "sgd", 1.0,
-                         replicas=True),
+                         replicas=True, **reading),
         "resnet": gang_run(smi, "cc3_resnet_pipeline2", RESNET_MODEL,
                            {"pipeline": 2}, Y_TRAIN_STEPS, RESNET_BATCH, 0,
                            8, 0, {"stage_sizes": [1, 1]}, 1e-5, "sgd",
                            3.0, want=dict.fromkeys(CC_KERNELS, 0),
-                           gate_layers=None, replicas=True, one_mesh=True)}
+                           gate_layers=None, replicas=True, one_mesh=True,
+                           **reading)}
     out["phase_s"] = time.perf_counter() - t_phase
-    emit("cc_phase_time", phase_s=out["phase_s"])
+    emit("cc_phase_time", phase_s=out["phase_s"], **reading)
     return out
 
 
 # ---------------------------------------------------------------------------
-# (dd) the port deployed and tuned as the platform does it: a server
-# started from the rendered gpu-serving manifest, and a decode-tps
-# Experiment through the port's controller
+# (dd) the port deployed and tuned as the platform does it: servers
+# started from rendered gpu-serving manifests, and a decode-tps Experiment
+# through the port's controller; (ee) the InferenceService controller that
+# renders them, its autoscaler, and the rollout controller over the port's
+# fleet
 # ---------------------------------------------------------------------------
 
 # The gpu-serving parameters of (dd1): llama-1b on the paged layout read
 # by the paged decode kernel, one GPU. The server's other settings are its
-# CLI's defaults (max_seq_len 128, 16 new tokens, 8 slots, block 16).
+# CLI's defaults (max_seq_len 128, 16 new tokens, 8 slots, block 16). The
+# bf16 server is (ee1)'s replica r0, rendered by the InferenceService
+# controller with this engine; the f32 one is rendered directly.
 DD_PARAMS = {"name": "llama", "model_name": MODEL, "kv_layout": "paged",
              "kv_fused_attention": True, "num_gpus": 1}
+DD_ENGINE = {"kv_layout": "paged", "kv_fused_attention": True}
 # (prompt tokens, new tokens) of (dd1)'s requests.
 DD_REQUESTS = [(5, 16), (40, 16), (128, 16), (17, 8), (96, 16), (64, 12)]
 # (dd2): a decode-tps Experiment, tpe, at llama-1b.
 DD_TRIALS, DD_SEED = 3, 7
 KERNEL_FAMILY = 'serving_kernel_launches_total{kernel="paged_decode_attention"}'
+METRICS_PATH = "/monitoring/prometheus/metrics"
+EE_NS = "kubeflow"
+# (ee1): the InferenceService of llama-1b, one replica to two. Its TTFT
+# p99 target is under any request's TTFT (alone, 36-55 ms on an NVIDIA
+# H100 80GB HBM3 at 700.00 W), so the first scrape after r0 has served
+# breaches it: a server's histograms count its whole life, and the p99
+# that breaches is r0's cold first request's. The scale-up shows the
+# controller acting on a scraped breach, not that (dd1)'s six requests
+# caused it. The scrape period and the cooldown are short enough for one
+# run to see both directions.
+EE_SERVICE = "llm"
+EE_AUTOSCALE = {"ttftP99Ms": 20.0, "scrapePeriodSeconds": 2.0,
+                "cooldownSeconds": 3.0}
+# A server's latency histograms count its whole life, so a p99 that
+# breached never falls back under the low-water mark (target x
+# scaleDownRatio) by waiting: before the scale-down the targets are
+# relaxed, as an operator does who raises the SLO; the cooldown then
+# decides.
+EE_RELAXED = {"ttftP99Ms": 1e6, "queueWaitP99Ms": 1e6,
+              "interTokenP99Ms": 1e6}
+# (ee1) routing: prompts drawn until the rendezvous hash has placed at
+# least one on each replica.
+EE_ROUTE_TRIES = 32
+# (ee2), (ee3): a fleet of two replicas walked through these traffic
+# steps, each step and the shadow dwelling this long (seconds). The good
+# candidate's gate takes the canary's p99s up to 3x the incumbent's: two
+# equal replicas on one card serving the same requests in turn read
+# within that of each other, so the walk promotes; the second rollout's
+# gate of 0.5x no cohort of equal replicas meets, so it rolls back (a
+# configuration that forces the rollback path, not a regression).
+EE_STEPS, EE_DWELL = [1, 10, 50, 100], 0.25
+EE_GOOD_RATIO, EE_BAD_RATIO = 3.0, 0.5
+EE_NEW = 8
+# (ee3) the peer boot at F32_GATE_LAYERS: a donor and a newborn, each a
+# ModelServer in a process of its own (the engine's --weight-peers path;
+# the CLI knows no cut preset), float32, the paged kernel. The donor
+# serves weights of seed EE_DONOR_SEED installed as epoch 1 (a push), so
+# the newborn's own seed-0 init cannot pass for them.
+EE_DONOR_SEED = 5
+EE_PEER_SERVER = """
+import dataclasses, json, sys, threading
+import torch
+from kubeflow_tpu_torch.models import transformer
+from kubeflow_tpu_torch.models.registry import get_model
+from kubeflow_tpu_torch.serving.engine import EngineConfig
+from kubeflow_tpu_torch.serving.server import ModelServer
+torch.backends.cuda.matmul.allow_tf32 = False
+a = json.loads(sys.argv[1])
+transformer.PRESETS[a["model"]] = dataclasses.replace(
+    transformer.PRESETS[a["base"]], n_layers=a["layers"])
+srv = ModelServer(EngineConfig(**a["engine"]), port=a["port"])
+if a["seed"] is not None:
+    m = get_model(a["model"], dtype=torch.float32)
+    srv.decoder.update_weights(m.init(m.config, generator=torch.Generator(
+        device="cuda").manual_seed(a["seed"]), device="cuda"), version=1)
+srv.start()
+threading.Event().wait()
+"""
 
 
-def rendered_server(params: dict, rest: int, grpc_port: int):
-    """The container of ``gpu-serving`` rendered on ``params``: its
-    command and args, with ``python`` as this interpreter and the two
-    ports (fixed in the pod, which has a network of its own) replaced by
-    free ones on this host."""
-    from kubeflow_tpu_torch.manifests import generate, images
+def container_command(c: dict, ports: dict, peers: dict | None = None
+                      ) -> list[str]:
+    """A rendered container's command and args, ``python`` as this
+    interpreter, with the pod's ports (``ports``: flag -> a port on this
+    host, since the pod has a network of its own) and the peers it names
+    (``peers``: pod address -> address on this host) mapped onto this
+    host."""
+    args = []
+    for a in c["args"]:
+        flag, _, value = a.partition("=")
+        if flag in ports:
+            a = f"{flag}={ports[flag]}"
+        elif flag == "--weight-peers" and peers is not None:
+            a = f"{flag}={','.join(peers[p] for p in value.split(','))}"
+        args.append(a)
+    return [sys.executable if x == "python" else x
+            for x in c["command"]] + args
 
-    dep, _service = generate("gpu-serving", params)
-    (c,) = dep["spec"]["template"]["spec"]["containers"]
+
+def check_gpu(c: dict, what: str) -> None:
+    from kubeflow_tpu_torch.manifests import images
+
     if c["resources"]["limits"] != {images.GPU_RESOURCE: 1}:
-        raise AssertionError(f"(dd1) rendered resources {c['resources']}")
-    ports = {"--rest-port": rest, "--grpc-port": grpc_port}
-    args = [f"{a.split('=')[0]}={ports[a.split('=')[0]]}"
-            if a.split("=")[0] in ports else a for a in c["args"]]
-    cmd = [sys.executable if x == "python" else x for x in c["command"]]
-    return cmd + args, c["args"]
+        raise AssertionError(f"({what}) rendered resources "
+                             f"{c['resources']}")
 
 
-def manifest_server(smi: str) -> dict:
-    """(dd1): the bf16 and the f32 renderings of DD_PARAMS started as their
-    containers' commands, side by side, each timed from its start to
-    /readyz; once both are ready this process serves the f32 rendering's
-    own engine with the gathered plain read (``kv_fused`` off) on the same
-    prompts one at a time. The bf16 server: a warm request, TTFT of three
-    streamed requests, tokens/s of all six at once (a smoke reading: one
-    window of 84 tokens, not a throughput measurement), a gRPC Predict
-    equal to the REST body; its exposition
-    lints clean (the port's lint) and its paged kernel launches over the
-    window equal 16 x its decode forwards (its exposition's
-    ``serving_kernel_launches_total`` and ``serving_decode_steps_total``).
-    The f32 server: the six prompts one at a time, greedy tokens equal to
-    the in-process reference's, its kernel launches likewise counted."""
-    import dataclasses
-    from concurrent.futures import ThreadPoolExecutor
+def route_of(svc: dict) -> dict:
+    """The gateway route annotation of a Service (YAML, or JSON where the
+    renderer had no PyYAML; JSON is YAML too)."""
+    from kubeflow_tpu_torch.manifests.core import GATEWAY_ROUTE_ANNOTATION
 
-    import grpc
-
-    from kubeflow_tpu_torch.models.registry import get_model
-    from kubeflow_tpu_torch.observability.lint import lint
-    from kubeflow_tpu_torch.serving.__main__ import build_parser, engine_config
-    from kubeflow_tpu_torch.serving.grpc_server import client_stubs
-    from kubeflow_tpu_torch.serving.server import ModelServer
-
-    layers = get_model(MODEL).config.n_layers
-    rng = np.random.RandomState(11)
-    vocab = get_model(MODEL).config.vocab_size
-    bodies = [{"tokens": rng.randint(0, vocab, size=n).tolist(),
-               "max_new_tokens": m} for n, m in DD_REQUESTS]
-    ports = {tag: (free_port(), free_port()) for tag in ("bf16", "f32")}
-    os.makedirs("chiprun_out", exist_ok=True)
-    procs, argv, boot = [], {}, {}
-    out = {"gpu": smi, "model": MODEL, "params": DD_PARAMS}
-    # /readyz is polled from each server's start on, in a thread each; the
-    # in-process reference builds only once both are ready, so the boot
-    # clock sees the two servers and nothing else on the card.
-    booting = ThreadPoolExecutor(2)
+    text = svc["metadata"]["annotations"][GATEWAY_ROUTE_ANNOTATION]
     try:
-        for tag, extra in (("bf16", {}), ("f32", {"dtype": "float32"})):
-            cmd, argv[tag] = rendered_server({**DD_PARAMS, **extra},
-                                             *ports[tag])
-            log = open(f"chiprun_out/dd_{tag}_server.log", "w")
-            proc = subprocess.Popen(cmd, stdout=log,
-                                    stderr=subprocess.STDOUT, text=True)
-            proc.started = time.perf_counter()
-            procs.append((proc, log))
-            boot[tag] = booting.submit(wait_ready, proc, ports[tag][0])
-        out["command"] = cmd[:3]
-        out["boot_to_ready_s"] = {tag: f.result() for tag, f in boot.items()}
-        ref_cfg = dataclasses.replace(
-            engine_config(build_parser().parse_args(argv["f32"])),
-            kv_fused=False)
-        ref = ModelServer(ref_cfg, port=0)
+        import yaml
+    except ImportError:
+        return json.loads(text)
+    return yaml.safe_load(text)
+
+
+def launches_of(port: int) -> tuple[int, int]:
+    """(paged kernel launches, decode forwards) of a server's life, from
+    its exposition."""
+    s = parse_exposition(get(port, METRICS_PATH))
+    return int(s[KERNEL_FAMILY]), int(s["serving_decode_steps_total"])
+
+
+class RenderedPool:
+    """(ee1): the port's InferenceService controller on the port's fake
+    apiserver, its replicas started as processes on this host from their
+    rendered containers, its autoscaler scraping each replica's
+    exposition over HTTP. A replica's pod address maps to the local port
+    its process serves on once it is ready; before that the address reads
+    as unscrapeable (no name is looked up). ``side`` holds other servers
+    whose life ends with the pool's."""
+
+    def __init__(self):
+        from kubeflow_tpu_torch.apis.inference import (
+            inference_service,
+            inference_service_crd,
+        )
+        from kubeflow_tpu_torch.k8s_fake import FakeApiServer
+        from kubeflow_tpu_torch.operators.inference import (
+            InferenceServiceController,
+            _http_fetch_signals,
+        )
+
+        self.api = FakeApiServer()
+        self.api.ensure_namespace(EE_NS)
+        self.api.apply(inference_service_crd())
+        self.api.create(inference_service(
+            EE_SERVICE, EE_NS, MODEL, replicas=1, min_replicas=1,
+            max_replicas=2, engine=dict(DD_ENGINE),
+            warmup={"peerWeights": True}, autoscale=EE_AUTOSCALE))
+        self.local: dict[str, str] = {}
+        self.procs: dict[int, dict] = {}
+        self.side: list = []
+        self.ctrl = InferenceServiceController(
+            self.api, fetch_metrics=lambda a: _http_fetch_signals(
+                self.local[a]) if a in self.local else None)
+
+    def addr(self, i: int) -> str:
+        return f"{EE_SERVICE}-r{i}.{EE_NS}:8500"
+
+    def cr(self) -> dict:
+        return self.api.get("kubeflow-tpu.org/v1", "InferenceService",
+                            EE_SERVICE, EE_NS)
+
+    def route(self) -> dict:
+        return route_of(self.api.get("v1", "Service", EE_SERVICE, EE_NS))
+
+    def children(self) -> list[str]:
+        return sorted(f"{o['kind']}/{o['metadata']['name']}"
+                      for av, kind in (("apps/v1", "Deployment"),
+                                       ("v1", "Service"))
+                      for o in self.api.list(av, kind, EE_NS))
+
+    def start(self, i: int):
+        (c,) = self.api.get("apps/v1", "Deployment", f"{EE_SERVICE}-r{i}",
+                            EE_NS)["spec"]["template"]["spec"]["containers"]
+        check_gpu(c, f"ee1 r{i}")
+        rest, grpc_port = free_port(), free_port()
+        cmd = container_command(c, {"--rest-port": rest,
+                                    "--grpc-port": grpc_port}, self.local)
+        os.makedirs("chiprun_out", exist_ok=True)
+        log = open(f"chiprun_out/ee_r{i}_server.log", "w")
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                text=True)
+        proc.started = time.perf_counter()
+        self.procs[i] = {"proc": proc, "log": log, "rest": rest,
+                         "grpc": grpc_port, "args": c["args"],
+                         "ready": poll_ready(proc, rest)}
+
+    def ready(self, i: int) -> float:
+        """Replica i's boot to ready, polled from its start; from now
+        its pod address maps to its local port."""
+        seconds = self.procs[i]["ready"].result()
+        self.local[self.addr(i)] = f"127.0.0.1:{self.port(i)}"
+        return seconds
+
+    def port(self, i: int) -> int:
+        return self.procs[i]["rest"]
+
+    def stop(self, i: int) -> None:
+        p = self.procs.pop(i)
+        self.local.pop(self.addr(i), None)
+        stop_procs([(p["proc"], p["log"])])
+
+    def close(self) -> None:
+        for i in list(self.procs):
+            self.stop(i)
+        stop_procs(self.side)
+        self.side = []
+
+
+def start_peer_pair() -> dict:
+    """(ee3)'s peer boot, started: the donor at once, the newborn (whose
+    engine pulls the donor's weights over ``:pull``) once the donor is
+    ready, in a thread, so both boot while this process works on."""
+    name = f"{MODEL}-{F32_GATE_LAYERS}-layers"
+    ports = {"donor": free_port(), "newborn": free_port()}
+    pair = {"model": name, "ports": ports, "procs": [], "boot_s": {}}
+
+    def spawn(tag: str, peers: str, seed: int | None):
+        engine = dict(model=name, dtype="float32", batch_size=SLOTS,
+                      max_seq_len=MAX_SEQ, max_new_tokens=MAX_NEW,
+                      kv_layout="paged", kv_block_size=BLOCK,
+                      kv_fused=True, device="cuda", weight_peers=peers)
+        log = open(f"chiprun_out/ee_peer_{tag}.log", "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-c", EE_PEER_SERVER, json.dumps(dict(
+                model=name, base=MODEL, layers=F32_GATE_LAYERS,
+                port=ports[tag], engine=engine, seed=seed))],
+            stdout=log, stderr=subprocess.STDOUT, text=True)
+        proc.started = time.perf_counter()
+        pair["procs"].append((proc, log))
+        pair["boot_s"][tag] = wait_ready(proc, ports[tag])
+
+    def boot():
         try:
-            want = [ref.handle_predict(MODEL, {"instances": [b]})[
-                "predictions"][0]["tokens"] for b in bodies]
-        finally:
-            ref.stop()
-            del ref
-            torch.cuda.empty_cache()
+            spawn("donor", "", EE_DONOR_SEED)
+            spawn("newborn", f"127.0.0.1:{ports['donor']}", None)
+        except Exception as e:  # re-raised by check_peer_pair
+            pair["error"] = e
 
-        rest, grpc_port = ports["bf16"]
-        metrics_path = "/monitoring/prometheus/metrics"
-        post(rest, bodies[0], rid="dd-warm")
-        before = parse_exposition(get(rest, metrics_path))
-        ttft = [post(rest, b, stream=True)[1] for b in bodies[:3]]
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(len(bodies)) as pool:
-            got = list(pool.map(lambda b: post(rest, b)[0], bodies))
-        wall = time.perf_counter() - t0
-        if [len(t) for t in got] != [m for _, m in DD_REQUESTS]:
-            raise AssertionError(f"(dd1) token counts {got}")
-        rest_body = predict(rest, [bodies[1]])
-        with grpc.insecure_channel(f"127.0.0.1:{grpc_port}") as channel:
-            grpc_body = client_stubs(channel)[0](MODEL, [bodies[1]],
-                                                 timeout=120)
-        if grpc_body["predictions"] != rest_body:
-            raise AssertionError(f"(dd1) gRPC {grpc_body} != REST "
-                                 f"{rest_body}")
-        text = get(rest, metrics_path)
-        violations = lint(text)
-        after = parse_exposition(text)
-        launches = int(after[KERNEL_FAMILY] - before[KERNEL_FAMILY])
-        forwards = int(after["serving_decode_steps_total"]
-                       - before["serving_decode_steps_total"])
-        out["bf16"] = {
-            "ttft_ms": [x * 1e3 for x in ttft],
-            "ttft_ms_median": float(np.median(ttft)) * 1e3,
-            "tokens": sum(len(t) for t in got), "wall_s": wall,
-            "tokens_per_s": sum(len(t) for t in got) / wall,
-            "reading": "smoke: six requests in one window",
-            "grpc_predict_equals_rest": True,
-            "lint_violations": violations,
-            "families": text.count("# TYPE "),
-            "paged_launches": launches, "decode_forwards": forwards}
-        if violations:
-            raise AssertionError(f"(dd1) exposition lint: {violations}")
-        if forwards <= 0 or launches != layers * forwards:
-            raise AssertionError(f"(dd1) bf16 server: {launches} paged "
-                                 f"launches for {forwards} decode forwards")
+    os.makedirs("chiprun_out", exist_ok=True)
+    pair["thread"] = threading.Thread(target=boot)
+    pair["thread"].start()
+    return pair
 
-        rest32 = ports["f32"][0]
-        before = parse_exposition(get(rest32, metrics_path))
-        got32 = [post(rest32, b)[0] for b in bodies]
-        after = parse_exposition(get(rest32, metrics_path))
-        launches = int(after[KERNEL_FAMILY] - before[KERNEL_FAMILY])
-        forwards = int(after["serving_decode_steps_total"]
-                       - before["serving_decode_steps_total"])
-        out["f32"] = {**compare_streams(got32, want),
-                      "paged_launches": launches,
-                      "decode_forwards": forwards}
-        if forwards <= 0 or launches != layers * forwards:
-            raise AssertionError(f"(dd1) f32 server: {launches} paged "
-                                 f"launches for {forwards} decode forwards")
-        if not out["f32"]["identical"]:
-            raise AssertionError(f"(dd1) the rendered f32 server's tokens "
-                                 f"differ from the in-process plain read: "
-                                 f"{out['f32']}")
+
+def stop_peer_pair(pair: dict) -> None:
+    pair["thread"].join()
+    stop_procs(pair["procs"])
+
+
+def check_peer_pair(pair: dict) -> dict:
+    """(ee3): the newborn booted from the donor (its exposition counts one
+    peer install, the donor's one from its init) and, greedy, float32,
+    gives the donor's tokens (of its pushed seed-EE_DONOR_SEED weights) on
+    (dd1)'s prompts. The pair stops."""
+    from kubeflow_tpu_torch.models.registry import get_model
+
+    pair["thread"].join()
+    try:
+        if "error" in pair:
+            raise pair["error"]
+        ports, name = pair["ports"], pair["model"]
+        rng = np.random.RandomState(12)
+        vocab = get_model(MODEL).config.vocab_size
+        bodies = [{"tokens": rng.randint(0, vocab, size=n).tolist(),
+                   "max_new_tokens": m} for n, m in DD_REQUESTS]
+        toks = {tag: [post(port, b, model=name)[0] for b in bodies]
+                for tag, port in ports.items()}
+        pulls = {tag: parse_exposition(get(port, METRICS_PATH))
+                 for tag, port in ports.items()}
     finally:
-        stop_procs(procs)
-        booting.shutdown()
-    emit("dd1_manifest_server", **out)
+        stop_peer_pair(pair)
+    sources = {tag: {k.split('"')[1]: v for k, v in s.items()
+                     if k.startswith("serving_weight_pulls_total{")}
+               for tag, s in pulls.items()}
+    out = {"layers": F32_GATE_LAYERS, "boot_to_ready_s": pair["boot_s"],
+           "boot_reading": "each polled from its start, beside r1's "
+                           "boot, (dd1)'s checks, (dd2), (ee3)'s walks, "
+                           "(cc) and (r)'s f32 gates",
+           "weight_installs": sources,
+           **compare_streams(toks["newborn"], toks["donor"])}
+    if sources["newborn"].get("peer") != 1 or \
+            sources["donor"].get("init") != 1 or not out["identical"]:
+        raise AssertionError(f"(ee3) the peer boot: {out}")
     return out
 
 
-def manifest_experiment(smi: str) -> dict:
+def rollout_fleet(tag: str, dtype, layers: int | None) -> dict:
+    """(ee2) at llama-1b (``layers`` None), (ee3) at ``layers``: a port
+    ``DecoderFleet`` of two replicas on the card (paged, the paged kernel,
+    seed-0 weights), registered under the service ``tag``
+    (``register_fleet``); an InferenceService ``tag`` of two replicas
+    whose ``spec.versions`` names the incumbent (seed 0) and a candidate
+    (seed 1), walked by the port's ``RolloutController`` at gate ratio
+    EE_GOOD_RATIO; then a second candidate (seed 0 again, as v3) at
+    EE_BAD_RATIO. Each round sends one request to each member in turn
+    (traffic for the judge, which reads each member's own exposition),
+    reconciles the rollout controller, then the InferenceService
+    controller (the router annotation). Each push's ms, each walk's
+    status.rollout sequence, route strategies and wall time; at f32, each
+    member's greedy tokens after each walk beside a decoder on the
+    weights it must hold, fused and gathered."""
+    from kubeflow_tpu_torch import kernels
+    from kubeflow_tpu_torch.apis.inference import (
+        inference_service,
+        inference_service_crd,
+    )
+    from kubeflow_tpu_torch.k8s_fake import FakeApiServer
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.operators.inference import (
+        InferenceServiceController,
+        scrape_signals,
+    )
+    from kubeflow_tpu_torch.operators.rollout import (
+        RolloutController,
+        register_fleet,
+        unregister_fleet,
+    )
+    from kubeflow_tpu_torch.serving.fleet import DecoderFleet
+    from kubeflow_tpu_torch.serving.scenarios import decoder_exposition
+
+    dev = torch.device("cuda")
+    overrides = {"dtype": dtype} | ({"n_layers": layers} if layers else {})
+    model = get_model(MODEL, **overrides)
+    cfg = model.config
+    weights = {f"seed-{s}": model.init(
+        cfg, generator=torch.Generator(device=dev).manual_seed(s),
+        device=dev) for s in (0, 1)}
+    rng = np.random.RandomState(13)
+    prompt = rng.randint(0, cfg.vocab_size, size=40).tolist()
+    gate_prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
+                    for n in (5, 40, 128)]
+    # This model's first forwards in the process (allocator growth) go to
+    # a throwaway decoder, whose memory the members then reuse, not into
+    # one member's latency histograms.
+    warm = fleet_replica(weights["seed-0"], cfg)
+    try:
+        for _ in range(2):
+            warm.generate(prompt, EE_NEW, timeout=600)
+    finally:
+        warm.stop()
+        del warm
+    names = [f"{tag}-r{i}" for i in range(2)]
+    decoders = {n: fleet_replica(weights["seed-0"], cfg) for n in names}
+    fleet = DecoderFleet(decoders)
+    pushes: list = []
+    broadcast = fleet.broadcast_weights
+
+    def timed(params, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = broadcast(params, **kw)
+        torch.cuda.synchronize()
+        pushes.append({"ms": 1e3 * (time.perf_counter() - t0),
+                       "version": res["version"],
+                       "members": kw.get("members") or "all",
+                       "installed": res["installed"]})
+        return res
+
+    fleet.broadcast_weights = timed
+    api = FakeApiServer()
+    api.ensure_namespace(EE_NS)
+    api.apply(inference_service_crd())
+
+    def fetch(addr):
+        dec = decoders.get(addr.split(".")[0])
+        return scrape_signals(decoder_exposition(dec)) if dec else None
+
+    # The autoscaler holds the two replicas the fleet stands for.
+    api.create(inference_service(
+        tag, EE_NS, MODEL, replicas=2, min_replicas=2, max_replicas=2,
+        versions=[{"name": "v1", "weightsRef": "seed-0", "traffic": 0},
+                  {"name": "v2", "weightsRef": "seed-1", "traffic": 100}],
+        rollout={"steps": EE_STEPS, "stepSeconds": EE_DWELL,
+                 "shadowSeconds": EE_DWELL, "gateRatio": EE_GOOD_RATIO},
+        autoscale={"scrapePeriodSeconds": 1.0}))
+    ic = InferenceServiceController(api, fetch_metrics=fetch)
+    rc = RolloutController(api, weights_for=weights.get,
+                           fetch_metrics=fetch)
+    register_fleet(EE_NS, tag, fleet)
+    steps0 = {n: d.steps for n, d in decoders.items()}
+    launches0 = kernels.LAUNCHES["paged_decode_attention"]
+    # Each member's first request (its own allocations) lands in its
+    # histograms before the walk.
+    for d in decoders.values():
+        d.generate(prompt, EE_NEW, timeout=600)
+
+    def walk(label: str) -> dict:
+        seq, t0 = [], time.perf_counter()
+        for i in range(4 * len(EE_STEPS) + 8):
+            # The members take turns going first.
+            for n in (names if i % 2 else names[::-1]):
+                decoders[n].generate(prompt, EE_NEW, timeout=600)
+            rc.reconcile_all()
+            ic.reconcile_all()
+            ro = api.get("kubeflow-tpu.org/v1", "InferenceService", tag,
+                         EE_NS)["status"]["rollout"]
+            seq.append({"phase": ro["phase"],
+                        "traffic": ro.get("trafficPercent"),
+                        "canary": ro.get("canaryMembers"),
+                        "route": route_of(api.get(
+                            "v1", "Service", tag, EE_NS))["strategy"]})
+            if ro["phase"] in ("Promoted", "RolledBack", "Invalid",
+                               "Pending"):
+                break
+            time.sleep(EE_DWELL)
+        out = {"walk_s": time.perf_counter() - t0, "rounds": seq,
+               "status": ro,
+               "weights_versions": fleet.weights_versions()}
+        emit(f"ee_{label}_walk", **{k: out[k] for k in (
+            "walk_s", "rounds", "weights_versions")}, status=ro)
+        return out
+
+    def tokens_equal(ref_key: str) -> dict:
+        got = {n: [d.generate(p, 16, timeout=600)["tokens"]
+                   for p in gate_prompts] for n, d in decoders.items()}
+        out = {}
+        for fused in (True, False):
+            ref = fleet_replica(weights[ref_key], cfg, kv_fused=fused)
+            try:
+                want = [ref.generate(p, 16, timeout=600)["tokens"]
+                        for p in gate_prompts]
+            finally:
+                ref.stop()
+            for n in names:
+                out[f"{n}_{'fused' if fused else 'gathered'}"] = \
+                    compare_streams(got[n], want)
+        return out
+
+    out = {"dtype": str(dtype).split(".")[-1], "layers": cfg.n_layers,
+           "members": names}
+    try:
+        good = walk(f"{tag}_good")
+        out["good"] = good
+        if dtype == torch.float32:
+            out["good"]["gates"] = tokens_equal("seed-1")
+        cr = api.get("kubeflow-tpu.org/v1", "InferenceService", tag, EE_NS)
+        cr["spec"]["versions"] = [
+            {"name": "v2", "weightsRef": "seed-1", "traffic": 0},
+            {"name": "v3", "weightsRef": "seed-0", "traffic": 100}]
+        cr["spec"]["rollout"]["gateRatio"] = EE_BAD_RATIO
+        api.update(cr)
+        bad = walk(f"{tag}_bad")
+        out["bad"] = bad
+        if dtype == torch.float32:
+            out["bad"]["gates"] = tokens_equal("seed-1")
+    finally:
+        unregister_fleet(EE_NS, tag)
+        fleet.stop()
+    out["pushes"] = pushes
+    out["launches"] = kernels.LAUNCHES["paged_decode_attention"] - launches0
+    out["decode_forwards"] = sum(d.steps - steps0[n]
+                                 for n, d in decoders.items())
+    del fleet, decoders, weights
+    torch.cuda.empty_cache()
+    problems = []
+    g, b = out["good"], out["bad"]
+    walked = [r for r in g["rounds"] if r["phase"] == "Walking"]
+    if g["status"]["phase"] != "Promoted" or \
+            sorted({r["traffic"] for r in walked}) != [float(s)
+                                                      for s in EE_STEPS]:
+        problems.append(f"the good walk: {g['rounds']}")
+    if any(r["route"] != ("hash-split" if r["traffic"] < 100
+                          else "prefix-affine") for r in walked) or \
+            g["rounds"][-1]["route"] != "prefix-affine":
+        problems.append(f"the router during the walk: {g['rounds']}")
+    epochs = set(g["weights_versions"]["installed"].values())
+    if epochs != {g["status"]["promotedEpoch"]}:
+        problems.append(f"promoted on mixed epochs: {g['weights_versions']}")
+    ev = b["status"].get("evidence", {})
+    if b["status"]["phase"] != "RolledBack" or \
+            ev.get("reason") != "gate-breach" or \
+            set(b["weights_versions"]["installed"].values()) != {
+                b["status"].get("rolledBackEpoch")} or \
+            b["status"]["rolledBackEpoch"] <= b["status"]["candidate"][
+                "epoch"] or b["rounds"][-1]["route"] != "prefix-affine":
+        problems.append(f"the rollback: {b['status']}, "
+                        f"{b['weights_versions']}")
+    for w in (g, b):
+        bad_gates = [k for k, v in w.get("gates", {}).items()
+                     if not v["identical"]]
+        if bad_gates:
+            problems.append(f"f32 tokens differ: {bad_gates}")
+    if dtype != torch.float32:
+        try:
+            require_launches(out["launches"], out["decode_forwards"],
+                             cfg.n_layers, f"(ee2) {tag}")
+        except AssertionError as e:
+            problems.append(str(e))
+    if problems:
+        raise AssertionError(f"({tag}) " + "; ".join(problems))
+    return out
+
+
+def manifest_experiment(smi: str, beside: str = "") -> dict:
     """(dd2): a ``decode-tps`` Experiment (tpe, seed DD_SEED, DD_TRIALS
     trials) through the port's ``ExperimentController`` on the port's
     fake apiserver, each trial the port's ``run_trial`` at llama-1b on
@@ -6756,7 +7265,8 @@ def manifest_experiment(smi: str) -> dict:
            "best_assignments": status.get("bestAssignments"),
            "baseline_tokens_per_s": status.get("baselineObjectiveValue"),
            "improvement_percent": status.get("improvementPercent"),
-           "reading": "smoke: each trial on the quick trace"}
+           "reading": "smoke: each trial on the quick trace"
+                      + (f", beside {beside}" if beside else "")}
     emit("dd2_experiment", **out)
     defaults = scenarios.get_scenario("decode-tps").defaults
     if (out["state"] != "Succeeded" or len(trials) != DD_TRIALS
@@ -6770,14 +7280,277 @@ def manifest_experiment(smi: str) -> dict:
     return out
 
 
-def phase_manifests(smi: str) -> dict:
-    """(dd) :func:`manifest_server` (dd1) and :func:`manifest_experiment`
-    (dd2)."""
-    t_phase = time.perf_counter()
-    out = {"dd1": manifest_server(smi), "dd2": manifest_experiment(smi)}
-    out["phase_s"] = time.perf_counter() - t_phase
-    emit("dd_phase_time", phase_s=out["phase_s"])
-    return out
+def start_manifest_servers(pool: RenderedPool) -> dict:
+    """(dd1) boot: the InferenceService controller's first reconcile
+    renders r0 (bf16, (ee1)'s first replica) and the ``gpu-serving``
+    prototype is rendered in float32; both start side by side from their
+    rendered containers, each polled from its start. The handle carries
+    (dd1)'s and (ee1)'s state between their steps."""
+    from kubeflow_tpu_torch.manifests import generate
+    from kubeflow_tpu_torch.models.registry import get_model
+
+    pool.ctrl.reconcile_all()
+    if pool.cr()["status"]["replicas"] != 1:
+        raise AssertionError(f"(ee1) first reconcile: {pool.cr()}")
+    pool.start(0)
+    (dep32, _svc) = generate("gpu-serving", {**DD_PARAMS,
+                                             "dtype": "float32"})
+    (c32,) = dep32["spec"]["template"]["spec"]["containers"]
+    check_gpu(c32, "dd1 f32")
+    ports = {"--rest-port": free_port(), "--grpc-port": free_port()}
+    cmd = container_command(c32, ports)
+    log = open("chiprun_out/dd_f32_server.log", "w")
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                            text=True)
+    proc.started = time.perf_counter()
+    pool.side.append((proc, log))
+    rng = np.random.RandomState(11)
+    vocab = get_model(MODEL).config.vocab_size
+    return {"c32": c32, "command": cmd[:3], "rest32": ports["--rest-port"],
+            "ready32": poll_ready(proc, ports["--rest-port"]), "rng": rng,
+            "bodies": [{"tokens": rng.randint(0, vocab, size=n).tolist(),
+                        "max_new_tokens": m} for n, m in DD_REQUESTS]}
+
+
+def manifest_load(smi: str, pool: RenderedPool, served: dict) -> dict:
+    """(dd1) on r0, bf16: both boots to ready, a warm request, three
+    streamed (TTFT) and six at once (tokens/s). The six end at
+    ``served["breach_at"]``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    bodies, rest = served["bodies"], pool.port(0)
+    dd1 = {"gpu": smi, "model": MODEL, "params": DD_PARAMS,
+           "r0_engine": DD_ENGINE, "command": served["command"],
+           "boot_to_ready_s": {"bf16": pool.ready(0),
+                               "f32": served["ready32"].result()},
+           "boot_reading": "r0 and the f32 server boot side by side, "
+                           "beside (q)'s f32 gates"}
+    post(rest, bodies[0], rid="dd-warm")
+    served["before"] = parse_exposition(get(rest, METRICS_PATH))
+    ttft = [post(rest, b, stream=True)[1] for b in bodies[:3]]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(bodies)) as threads:
+        got = list(threads.map(lambda b: post(rest, b)[0], bodies))
+    wall = time.perf_counter() - t0
+    served["breach_at"] = time.perf_counter()
+    if [len(t) for t in got] != [m for _, m in DD_REQUESTS]:
+        raise AssertionError(f"(dd1) token counts {got}")
+    dd1["bf16"] = {
+        "ttft_ms": [x * 1e3 for x in ttft],
+        "ttft_ms_median": float(np.median(ttft)) * 1e3,
+        "tokens": sum(len(t) for t in got), "wall_s": wall,
+        "tokens_per_s": sum(len(t) for t in got) / wall,
+        "reading": "smoke: six requests in one window"}
+    return dd1
+
+
+def scale_up(smi: str, pool: RenderedPool, served: dict,
+             dd1: dict) -> dict:
+    """(ee1) the scale-up: the next reconcile after (dd1)'s six requests,
+    within one scrape period, scales to two on the scraped TTFT p99 (over
+    r0's whole life: its cold first request's breaches); r1 is rendered
+    with ``--weight-peers`` naming r0 and started, to boot over
+    ``:pull``."""
+    pool.ctrl.reconcile_all()
+    st = pool.cr()["status"]
+    ee1 = {"gpu": smi, "model": MODEL, "autoscale": EE_AUTOSCALE,
+           "r0_boot_to_ready_s": dd1["boot_to_ready_s"]["bf16"],
+           "scale_up": {
+               "decided_after_breach_s":
+                   time.perf_counter() - served["breach_at"],
+               "replicas": st["replicas"],
+               "reason": st["lastScaleReason"],
+               "ttft_p99_ms": st["signals"]["ttftP99Ms"],
+               "route_backends": [b["service"]
+                                  for b in pool.route()["backends"]]}}
+    if st["replicas"] != 2 or "ttft_p99" not in st["lastScaleReason"] \
+            or ee1["scale_up"]["decided_after_breach_s"] > \
+            EE_AUTOSCALE["scrapePeriodSeconds"] or \
+            ee1["scale_up"]["route_backends"] != [pool.addr(0),
+                                                  pool.addr(1)]:
+        raise AssertionError(f"(ee1) the scale-up: {ee1['scale_up']}")
+    pool.start(1)
+    ee1["r1_weight_peers"] = [a for a in pool.procs[1]["args"]
+                              if a.startswith("--weight-peers")]
+    if ee1["r1_weight_peers"] != [f"--weight-peers={pool.addr(0)}"]:
+        raise AssertionError(f"(ee1) r1 rendered {pool.procs[1]['args']}")
+    return ee1
+
+
+def check_manifest_servers(pool: RenderedPool, served: dict,
+                           dd1: dict) -> None:
+    """(dd1)'s checks, which time nothing: on r0 a gRPC Predict equal to
+    the REST body, the port's lint over the exposition, the paged
+    launches = 16 x the decode forwards since the warm request; the f32
+    rendering's greedy tokens equal to the same rendering's engine in
+    this process with the gathered plain read (then the f32 server
+    stops)."""
+    import dataclasses
+
+    import grpc
+
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.observability.lint import lint
+    from kubeflow_tpu_torch.serving.__main__ import build_parser, engine_config
+    from kubeflow_tpu_torch.serving.grpc_server import client_stubs
+    from kubeflow_tpu_torch.serving.server import ModelServer
+
+    layers = get_model(MODEL).config.n_layers
+    bodies, rest = served["bodies"], pool.port(0)
+    rest_body = predict(rest, [bodies[1]])
+    with grpc.insecure_channel(
+            f"127.0.0.1:{pool.procs[0]['grpc']}") as channel:
+        grpc_body = client_stubs(channel)[0](MODEL, [bodies[1]],
+                                             timeout=120)
+    if grpc_body["predictions"] != rest_body:
+        raise AssertionError(f"(dd1) gRPC {grpc_body} != REST {rest_body}")
+    text = get(rest, METRICS_PATH)
+    violations = lint(text)
+    after, before = parse_exposition(text), served["before"]
+    launches = int(after[KERNEL_FAMILY] - before[KERNEL_FAMILY])
+    forwards = int(after["serving_decode_steps_total"]
+                   - before["serving_decode_steps_total"])
+    served["r0_at"] = launches_of(rest)
+    dd1["bf16"].update(grpc_predict_equals_rest=True,
+                       lint_violations=violations,
+                       families=text.count("# TYPE "),
+                       paged_launches=launches, decode_forwards=forwards)
+    if violations:
+        raise AssertionError(f"(dd1) exposition lint: {violations}")
+    if forwards <= 0 or launches != layers * forwards:
+        raise AssertionError(f"(dd1) bf16 server: {launches} paged "
+                             f"launches for {forwards} decode forwards")
+    ref_cfg = dataclasses.replace(
+        engine_config(build_parser().parse_args(served["c32"]["args"])),
+        kv_fused=False)
+    ref = ModelServer(ref_cfg, port=0)
+    try:
+        want = [ref.handle_predict(MODEL, {"instances": [b]})[
+            "predictions"][0]["tokens"] for b in bodies]
+    finally:
+        ref.stop()
+        del ref
+        torch.cuda.empty_cache()
+    rest32 = served["rest32"]
+    before = parse_exposition(get(rest32, METRICS_PATH))
+    got32 = [post(rest32, b)[0] for b in bodies]
+    after = parse_exposition(get(rest32, METRICS_PATH))
+    stop_procs(pool.side)
+    pool.side = []
+    launches = int(after[KERNEL_FAMILY] - before[KERNEL_FAMILY])
+    forwards = int(after["serving_decode_steps_total"]
+                   - before["serving_decode_steps_total"])
+    dd1["f32"] = {**compare_streams(got32, want),
+                  "paged_launches": launches, "decode_forwards": forwards}
+    emit("dd1_manifest_server", **dd1)
+    if forwards <= 0 or launches != layers * forwards:
+        raise AssertionError(f"(dd1) f32 server: {launches} paged "
+                             f"launches for {forwards} decode forwards")
+    if not dd1["f32"]["identical"]:
+        raise AssertionError(f"(dd1) the rendered f32 server's tokens "
+                             f"differ from the in-process plain read: "
+                             f"{dd1['f32']}")
+
+
+def check_inference_service(pool: RenderedPool, served: dict,
+                            ee1: dict) -> dict:
+    """(ee1) after the scale-up: r1's boot to ready (polled from its
+    start) and its peer install; requests placed by ``rendezvous_pick``
+    over the router annotation's backends reach both replicas, one
+    prompt gives both the same tokens, each replica's paged launches are
+    16 x its decode forwards; the pool holds while its p99 stays over the
+    low-water mark; with the targets relaxed and the cooldown over it
+    scales back to one, r1's Deployment and Service go, and r1 stops."""
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.serving.affinity import (
+        prefix_affinity_key,
+        rendezvous_pick,
+    )
+
+    cfg = get_model(MODEL).config
+    rng, bodies = served["rng"], served["bodies"]
+    ee1["r1_boot_to_ready_s"] = pool.ready(1)
+    ee1["r1_reading"] = ("r1's boot, polled from its start, beside (dd1)'s "
+                         "checks, (dd2), (ee3)'s walks and peer pair, "
+                         "(cc) and (r)'s f32 gates")
+    r1 = pool.port(1)
+    pulls = parse_exposition(get(r1, METRICS_PATH))
+    if pulls.get('serving_weight_pulls_total{source="peer"}') != 1:
+        raise AssertionError(f"(ee1) r1 did not boot from r0: "
+                             f"{[k for k in pulls if 'pulls' in k]}")
+    route = pool.route()
+    members = [b["service"] for b in route["backends"]]
+    local = {a: int(pool.local[a].rsplit(":", 1)[1]) for a in members}
+    placed: dict[str, list] = {a: [] for a in members}
+    for _ in range(EE_ROUTE_TRIES):
+        toks = rng.randint(0, cfg.vocab_size,
+                           size=int(rng.randint(5, 120))).tolist()
+        key = prefix_affinity_key(toks, route["affinity_tokens"])
+        a = rendezvous_pick(key, members)
+        placed[a].append(len(post(local[a], {
+            "tokens": toks, "max_new_tokens": 8})[0]))
+        if all(placed.values()):
+            break
+    same = [post(local[a], bodies[2])[0] for a in members]
+    ee1["routing"] = {
+        "strategy": route["strategy"], "members": members,
+        "answered": {a: len(v) for a, v in placed.items()},
+        "same_prompt_same_tokens": same[0] == same[1]}
+    if route["strategy"] != "prefix-affine" or \
+            not all(placed.values()) or \
+            any(n != 8 for v in placed.values() for n in v) or \
+            same[0] != same[1]:
+        raise AssertionError(f"(ee1) routing: {ee1['routing']}")
+    r0_at = served["r0_at"]
+    r0_now, r1_now = launches_of(pool.port(0)), launches_of(r1)
+    ee1["launches"] = {
+        "r0": {"paged_launches": r0_now[0] - r0_at[0],
+               "decode_forwards": r0_now[1] - r0_at[1]},
+        "r1": {"paged_launches": r1_now[0], "decode_forwards": r1_now[1]}}
+    for name, run in ee1["launches"].items():
+        require_launches(run["paged_launches"], run["decode_forwards"],
+                         cfg.n_layers, f"(ee1) {name}")
+
+    # Quiet: the cumulative p99 holds the pool; relaxed, the cooled pool
+    # scales back to one and r1's children go.
+    pool.ctrl.reconcile_all()
+    held = pool.cr()["status"]
+    cr = pool.cr()
+    cr["spec"]["autoscale"].update(EE_RELAXED)
+    pool.api.update(cr)
+    time.sleep(max(0.0, EE_AUTOSCALE["cooldownSeconds"]
+                   - (time.perf_counter() - served["breach_at"])))
+    pool.ctrl.reconcile_all()
+    st = pool.cr()["status"]
+    ee1["scale_down"] = {
+        "held_before_relaxing": held["replicas"],
+        "replicas": st["replicas"], "reason": st.get("lastScaleReason"),
+        "children": pool.children(),
+        "route_backends": [b["service"] for b in pool.route()["backends"]]}
+    pool.stop(1)
+    emit("ee1_inference_service", **ee1)
+    if held["replicas"] != 2 or st["replicas"] != 1 or \
+            "scale-down" not in st.get("lastScaleReason", "") or \
+            ee1["scale_down"]["children"] != [
+                f"Deployment/{EE_SERVICE}-r0", f"Service/{EE_SERVICE}",
+                f"Service/{EE_SERVICE}-r0"] or \
+            ee1["scale_down"]["route_backends"] != [pool.addr(0)]:
+        raise AssertionError(f"(ee1) the scale-down: {ee1['scale_down']}")
+    return ee1
+
+
+def phase_rollout(smi: str) -> dict:
+    """(ee2) the walks at llama-1b, bf16, run alone: each push's ms and
+    each walk's seconds."""
+    ee2 = rollout_fleet("walk", torch.bfloat16, None)
+    emit("ee2_rollout", gpu=smi, **{k: ee2[k] for k in (
+        "dtype", "layers", "members", "pushes", "launches",
+        "decode_forwards")}, good_walk_s=ee2["good"]["walk_s"],
+        bad_walk_s=ee2["bad"]["walk_s"],
+        evidence=ee2["bad"]["status"]["evidence"],
+        reading="the rollback is forced by a gate ratio of 0.5, "
+                "not a measured regression")
+    return ee2
 
 
 def main() -> int:
@@ -6830,14 +7603,15 @@ def main() -> int:
          cuda_build_s=built["cuda_s"], triton_build_s=triton_s,
          build_wall_s=time.perf_counter() - t0)
 
-    # Each phase's seconds, printed before the kernel table: the script
-    # must end within its 1200 s limit as it grows.
+    # Each phase's seconds (the sum of its segments where it runs in
+    # more than one), printed before the kernel table: the script must
+    # end within its 1200 s limit as it grows.
     seconds, last = {"a_build": time.perf_counter() - t0}, [
         time.perf_counter()]
 
     def mark(name: str) -> None:
         now = time.perf_counter()
-        seconds[name] = now - last[0]
+        seconds[name] = seconds.get(name, 0.0) + now - last[0]
         last[0] = now
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -6870,15 +7644,22 @@ def main() -> int:
     main_path = phase_main_path()
     default = phase_default_server(main_path)
     mark("d_k_servers")
-    phase_surfaces(default)
+    # (m)'s CLIs boot while the f32 parity phases, which time nothing,
+    # run; their checks follow.
+    started = start_surfaces()
+    try:
+        paged_f32 = phase_f32_parity()
+        phase_f32_layouts(paged_f32["streams"])
+        phase_f32_prefix_chunk_parity()
+    except BaseException:
+        stop_surfaces(started)
+        raise
+    mark("e_l_p_f32")
+    phase_surfaces(default, started)
     mark("m_surfaces")
     prefix = phase_prefix_path()
     chunked = phase_chunked()
     mark("n_o_prefix_chunked")
-    paged_f32 = phase_f32_parity()
-    phase_f32_layouts(paged_f32["streams"])
-    phase_f32_prefix_chunk_parity()
-    mark("e_l_p_f32")
     spec = phase_speculation()
     mark("q_speculation")
     features = phase_serving_features(smi)
@@ -6887,7 +7668,6 @@ def main() -> int:
     phase_train_f32_parity()
     mark("h_i_train")
     deep = phase_deep_train(smi)
-    phase_deep_gates()
     mark("r_deep")
     moe = phase_moe(smi)
     mark("t_moe")
@@ -6907,10 +7687,42 @@ def main() -> int:
     mark("aa_elastic")
     fleet = phase_fleet(smi)
     mark("bb_fleet")
-    axes = phase_scenarios_axes(smi)
-    mark("cc_scenarios_axes")
-    manifests = phase_manifests(smi)
-    mark("dd_manifests")
+    # (dd), (ee) and (cc): (ee1)'s r1 and (ee3)'s peer pair boot while
+    # (dd1)'s checks, (dd2), (ee3)'s walks, (cc) and (r)'s f32 gates run,
+    # (cc)'s and (dd2)'s timed lines saying so in their ``reading``;
+    # (q)'s f32 gates run while (dd1)'s two servers boot; (ee2)'s timed
+    # walks run after, alone. (q)'s and (r)'s gates time nothing.
+    booting = "(ee1)'s r1 and (ee3)'s peer pair booting over :pull"
+    pool, pair = RenderedPool(), None
+    try:
+        served = start_manifest_servers(pool)
+        mark("dd_manifests")
+        phase_speculation_gates()
+        mark("q_speculation")
+        dd1 = manifest_load(smi, pool, served)
+        mark("dd_manifests")
+        ee1 = scale_up(smi, pool, served, dd1)
+        pair = start_peer_pair()
+        mark("ee_inference_rollout")
+        check_manifest_servers(pool, served, dd1)
+        manifest_experiment(smi, beside=booting)
+        mark("dd_manifests")
+        walks32 = rollout_fleet("walk32", torch.float32, F32_GATE_LAYERS)
+        mark("ee_inference_rollout")
+        axes = phase_scenarios_axes(smi, beside=booting)
+        mark("cc_scenarios_axes")
+        phase_deep_gates()
+        mark("r_deep")
+        peer, pair = check_peer_pair(pair), None
+        emit("ee3_f32_gates", gpu=smi, peer_boot=peer, walks={
+            k: walks32[k]["gates"] for k in ("good", "bad")})
+        check_inference_service(pool, served, ee1)
+    finally:
+        pool.close()
+        if pair is not None:
+            stop_peer_pair(pair)
+    ee2 = phase_rollout(smi)
+    mark("ee_inference_rollout")
     emit("phase_seconds", **seconds, total_s=time.perf_counter() - t0)
 
     p, r = paged["bf16"], rms[f"{SLOTS}x2048"]
@@ -6924,8 +7736,11 @@ def main() -> int:
         "moe_tp2_serving": moe_mesh["y1"]["serving"][f"tp{TP}"][
             "paged_launches"],
         **{f"fleet_{k}": v for k, v in fleet["paged_launches"].items()},
-        **{f"rendered_server_{tag}": manifests["dd1"][tag]["paged_launches"]
-           for tag in ("bf16", "f32")}}
+        **{f"rendered_server_{tag}": dd1[tag]["paged_launches"]
+           for tag in ("bf16", "f32")},
+        **{f"inference_service_{r}": run["paged_launches"]
+           for r, run in ee1["launches"].items()},
+        "rollout_fleet": ee2["launches"]}
     table = [
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "kubeflow_tpu_torch/csrc/paged_decode.cu",

@@ -76,8 +76,12 @@ def serve_jobs(run) -> None:
             status = "ok"
         except Exception:
             status = traceback.format_exc()
-        with open(f"{job['out']}.{rank}.done", "w") as f:
+        # Written whole under another name, then renamed: the waiter
+        # polls for the file and must never read it half written.
+        done = f"{job['out']}.{rank}.done"
+        with open(f"{done}.tmp", "w") as f:
             f.write(status)
+        os.replace(f"{done}.tmp", done)
         if status != "ok":
             break
     shutdown()

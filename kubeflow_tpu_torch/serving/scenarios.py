@@ -10,8 +10,8 @@ One registry for the bench, the CI scripts and the tuning trials. A
 - a **trial** entry (``fn(assignments, *, seed, model, quick, device) ->
   dict``) for the tuning loop: knob overrides in, objectives out. A trial
   drives the port's continuous decoder and reads its objectives from the
-  decoder's histogram exposition through a copy of the autoscaler's
-  ``scrape_signals`` reduction (``kubeflow_tpu/operators/inference.py``).
+  decoder's histogram exposition through the autoscaler's
+  ``scrape_signals`` reduction (``operators/inference.py``).
 
 Every stochastic choice a trial makes (traffic mix, prompt lengths,
 decode lengths) is drawn from one ``np.random.default_rng(seed)``, so a
@@ -53,6 +53,10 @@ import torch
 from kubeflow_tpu_torch.device import resolve_device
 from kubeflow_tpu_torch.models.registry import get_model
 from kubeflow_tpu_torch.observability.metrics import render_prometheus
+from kubeflow_tpu_torch.operators.inference import (  # noqa: F401
+    _parse_exposition,
+    scrape_signals,
+)
 from kubeflow_tpu_torch.serving.continuous import ContinuousDecoder
 
 
@@ -153,88 +157,6 @@ def _init_params(spec, device: str):
 # ---------------------------------------------------------------------------
 # Objective plumbing: exposition text -> signal vector
 # ---------------------------------------------------------------------------
-
-
-def _parse_exposition(text: str) -> dict:
-    """Minimal Prometheus text parse: ``samples[name] -> value`` for
-    plain series and ``buckets[name] -> [(le, cum_count), ...]`` for
-    ``_bucket`` series. Labels other than ``le`` are ignored."""
-    samples: dict[str, float] = {}
-    buckets: dict[str, list[tuple[float, float]]] = {}
-    for line in text.splitlines():
-        line = line.strip()
-        if not line or line.startswith("#"):
-            continue
-        try:
-            series, value_s = line.rsplit(None, 1)
-            value = float(value_s)
-        except ValueError:
-            continue
-        name, _, labels = series.partition("{")
-        if name.endswith("_bucket"):
-            le = ""
-            for part in labels.rstrip("}").split(","):
-                k, _, v = part.partition("=")
-                if k.strip() == "le":
-                    le = v.strip().strip('"')
-            try:
-                bound = float("inf") if le == "+Inf" else float(le)
-            except ValueError:
-                continue
-            buckets.setdefault(name[: -len("_bucket")], []).append(
-                (bound, value))
-        else:
-            samples[name] = value
-    for blist in buckets.values():
-        blist.sort(key=lambda b: b[0])
-    return {"samples": samples, "buckets": buckets}
-
-
-def _bucket_quantile(blist: list[tuple[float, float]], q: float) -> float:
-    """promql histogram_quantile over cumulative buckets: linear within
-    the bucket, the top finite bound for the +Inf bucket."""
-    if not blist:
-        return 0.0
-    total = blist[-1][1]
-    if total <= 0:
-        return 0.0
-    target = q * total
-    lower = 0.0
-    prev_cum = 0.0
-    for bound, cum in blist:
-        in_bucket = cum - prev_cum
-        if cum >= target and in_bucket > 0:
-            if bound == float("inf"):
-                return lower
-            frac = (target - prev_cum) / in_bucket
-            return lower + (bound - lower) * frac
-        prev_cum = cum
-        if bound != float("inf"):
-            lower = bound
-    return lower
-
-
-def scrape_signals(text: str) -> dict:
-    """The autoscaler's signal vector out of one exposition page:
-    latency p99s from the histograms, KV fill from the byte gauges, the
-    queue depth and the lifetime error fraction."""
-    parsed = _parse_exposition(text)
-    samples, buckets = parsed["samples"], parsed["buckets"]
-    kv_total = samples.get("serving_kv_bytes_total", 0.0)
-    requests = samples.get("serving_requests_total", 0.0)
-    return {
-        "queue_wait_p99_s": _bucket_quantile(
-            buckets.get("serving_queue_wait_seconds", []), 0.99),
-        "ttft_p99_s": _bucket_quantile(
-            buckets.get("serving_ttft_seconds", []), 0.99),
-        "inter_token_p99_s": _bucket_quantile(
-            buckets.get("serving_inter_token_seconds", []), 0.99),
-        "kv_utilization": (samples.get("serving_kv_bytes_in_use", 0.0)
-                           / kv_total if kv_total else 0.0),
-        "queued": samples.get("serving_queued", 0.0),
-        "error_rate": (samples.get("serving_errors_total", 0.0)
-                       / requests if requests else 0.0),
-    }
 
 
 def decoder_exposition(decoder) -> str:

@@ -330,6 +330,40 @@ def test_gang_keeps_its_ranks_across_jobs_and_closes_on_a_failure(
         gang.close()
 
 
+@pytest.mark.parametrize("fail", [False, True])
+def test_serve_jobs_publishes_each_status_whole(tmp_path, monkeypatch, fail):
+    """A rank's status file appears only whole: the waiter polls for it
+    and reads it at once, so an empty or partial file would read as a
+    failure. Every status is written under another name and renamed."""
+    import io
+
+    from kubeflow_tpu_torch.parallel import launch as tlaunch
+
+    real_replace, seen = os.replace, []
+
+    def replace(src, dst):
+        seen.append((os.path.exists(dst), open(src).read()))
+        real_replace(src, dst)
+
+    def run(job):
+        if fail:
+            raise ValueError("refused")
+
+    monkeypatch.setattr(tlaunch.os, "replace", replace)
+    monkeypatch.setenv(tlaunch.ENV_PROCESS_ID, "0")
+    outs = [str(tmp_path / j) for j in "ab"]
+    monkeypatch.setattr(sys, "stdin", io.StringIO(
+        "".join(f'{{"out": "{out}"}}\n' for out in outs)))
+    tlaunch.serve_jobs(run)
+    # The first failure ends the loop.
+    ran = outs[:1] if fail else outs
+    status = [open(f"{out}.0.done").read() for out in ran]
+    assert seen == [(False, s) for s in status]
+    assert all(("refused" in s) if fail else s == "ok" for s in status)
+    assert sorted(os.listdir(tmp_path)) == [f"{j}.0.done" for j in "ab"[
+        :len(ran)]]
+
+
 # ---------------------------------------------------------------------------
 # Tensor parallelism: Megatron's pair, the tensor split, the head mapping
 # ---------------------------------------------------------------------------

@@ -306,8 +306,9 @@ def test_cli_rejects_dense_layout_and_bad_block_size():
         assert e.value.code == 2
 
 
-# The port's platform surface (manifests, the Experiment controller, the
-# sweep, the lint, the apiserver client and fake), held to the same rule.
+# The port's platform surface (manifests, the Experiment, InferenceService
+# and rollout controllers, the sweep, the lint, the apiserver client and
+# fake), held to the same rule.
 PLATFORM_MODULES = [
     "kubeflow_tpu_torch.apis.experiment",
     "kubeflow_tpu_torch.apis.inference",
@@ -323,6 +324,8 @@ PLATFORM_MODULES = [
     "kubeflow_tpu_torch.operators.__main__",
     "kubeflow_tpu_torch.operators.base",
     "kubeflow_tpu_torch.operators.experiment",
+    "kubeflow_tpu_torch.operators.inference",
+    "kubeflow_tpu_torch.operators.rollout",
     "kubeflow_tpu_torch.tuning.suggestions",
     "kubeflow_tpu_torch.tuning.sweep",
 ]
