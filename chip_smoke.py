@@ -449,8 +449,7 @@ learner on the fleet, and checks the output. Phases, each printed as one JSON li
     reconcile, within one scrape period of the six requests' end, scales
     to two; r1, rendered with ``--weight-peers`` naming
     r0, boots over ``:pull`` (its exposition counts the peer install);
-    requests placed by ``rendezvous_pick`` over the router annotation's
-    backends reach both, one prompt gives both the same tokens, each
+    requests go through the port's gateway (ff1) and reach both, each
     replica's paged launches are 16 x its decode forwards; the pool
     holds while its p99 (the histograms count a server's whole life)
     stays over the low-water mark, and with the targets relaxed and the
@@ -473,6 +472,32 @@ learner on the fleet, and checks the output. Phases, each printed as one JSON li
     incumbent's (fused and gathered); a newborn ModelServer booted over
     ``:pull`` from a donor holding pushed seed-5 weights gives the
     donor's tokens;
+(ff) the port's API gateway (``kubeflow_tpu_torch.gateway``, host code,
+    in this process, ``probe_interval`` 0: passive health only) in front
+    of (ee)'s servers; it boots no server of its own (``gateway_route``,
+    ``gateway_relay``): (ff1) in (ee1)'s window, a ``Gateway`` whose
+    ``resolve`` maps ``llm-r<i>.kubeflow:8500`` to the replicas' local
+    ports and whose ``RouteTable`` is ``refresh``-ed from the fake
+    apiserver, where the router Service the port's controller wrote
+    carries the annotation (JSON where PyYAML is absent): the table's
+    backends are r0 and r1; (ee1)'s prompts go to the gateway's
+    ``:predict``, each answered with 8 tokens by the replica
+    ``rendezvous_pick(prefix_affinity_key(...))`` names (read from that
+    replica's ``/debug/requests`` by the gateway's ``X-Request-ID``),
+    both replicas answer, one prompt gives the same tokens through the
+    gateway as directly; the gateway's added latency (p50 of a predict
+    and of a metadata GET through it against direct, over the same
+    requests, alternating); after the cooled scale-down a ``refresh``
+    drops r1 and the next requests all land on r0; the admin
+    ``/metrics`` lints clean and its ``gateway_upstream_latency_seconds``
+    count equals the requests sent. (ff2) (ee3)'s donor and newborn (2
+    layers, float32, the paged kernel, one set of weights since the
+    pull) behind a route whose ``prefill_backends`` is the donor and
+    whose ``backends`` is the newborn: a prompt through the gateway rides
+    ``:prefill`` with ``handoff_to``, the push and the relayed
+    ``:predict``; ``gateway_handoffs_total`` rises by 1, no failure, the
+    newborn's exposition counts the handed-off prompt tokens and the
+    greedy tokens equal the donor's own;
 (f) the kernel table: each kernel's launches on the main paths, its
     error, its time, its plain version's time and its bound; the paged
     and RMSNorm rows give device time as ``ms`` and the call's as
@@ -885,15 +910,16 @@ def request_bodies(vocab: int) -> list[dict]:
 
 def post(port: int, body: dict, stream: bool = False, rid: str = "",
          stamps: list | None = None, headers: dict | None = None,
-         model: str = MODEL):
+         model: str = MODEL, prefix: str = ""):
     """One predict with ``X-Request-ID: rid`` (when given; the response
     must echo it) and ``headers``; returns (tokens, seconds to the first
     token line or to the response). ``stamps`` collects each streamed
-    token line's arrival time."""
+    token line's arrival time. ``prefix`` is a gateway route's path
+    prefix (the predict then goes through the gateway on ``port``)."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
     t0 = time.perf_counter()
     try:
-        conn.request("POST", f"/v1/models/{model}:predict",
+        conn.request("POST", f"{prefix}/v1/models/{model}:predict",
                      body=json.dumps({**({"stream": True} if stream else {}),
                                       "instances": [body]}),
                      headers={**({"X-Request-ID": rid} if rid else {}),
@@ -6762,6 +6788,15 @@ EE_RELAXED = {"ttftP99Ms": 1e6, "queueWaitP99Ms": 1e6,
 # (ee1) routing: prompts drawn until the rendezvous hash has placed at
 # least one on each replica.
 EE_ROUTE_TRIES = 32
+# (ff1): the router's route, reached through the gateway under this
+# prefix; each placed prompt (and a metadata GET) sent direct and through
+# the gateway FF_LATENCY_ROUNDS times, alternating which goes first, for
+# the gateway's added latency; FF_AFTER requests after the scale-down.
+FF_PREFIX = f"/models/{EE_SERVICE}"
+FF_LATENCY_ROUNDS, FF_METADATA_ROUNDS, FF_AFTER = 3, 20, 4
+# (ff2): the relayed prompt (longer than the prefix cache's minimum, so
+# the newborn's trie takes the import) and its new tokens.
+FF_RELAY_LEN, FF_RELAY_NEW = 64, 16
 # (ee2), (ee3): a fleet of two replicas walked through these traffic
 # steps, each step and the shadow dwelling this long (seconds). The good
 # candidate's gate takes the canary's p99s up to 3x the incumbent's: two
@@ -6943,10 +6978,12 @@ def start_peer_pair() -> dict:
     pair = {"model": name, "ports": ports, "procs": [], "boot_s": {}}
 
     def spawn(tag: str, peers: str, seed: int | None):
+        # The prefix cache holds (ff2)'s handed-off prompt.
         engine = dict(model=name, dtype="float32", batch_size=SLOTS,
                       max_seq_len=MAX_SEQ, max_new_tokens=MAX_NEW,
                       kv_layout="paged", kv_block_size=BLOCK,
-                      kv_fused=True, device="cuda", weight_peers=peers)
+                      kv_fused=True, device="cuda", weight_peers=peers,
+                      prefix_cache_slots=4)
         log = open(f"chiprun_out/ee_peer_{tag}.log", "w")
         proc = subprocess.Popen(
             [sys.executable, "-c", EE_PEER_SERVER, json.dumps(dict(
@@ -6975,11 +7012,12 @@ def stop_peer_pair(pair: dict) -> None:
     stop_procs(pair["procs"])
 
 
-def check_peer_pair(pair: dict) -> dict:
+def check_peer_pair(pair: dict, mark=lambda phase: None) -> dict:
     """(ee3): the newborn booted from the donor (its exposition counts one
     peer install, the donor's one from its init) and, greedy, float32,
     gives the donor's tokens (of its pushed seed-EE_DONOR_SEED weights) on
-    (dd1)'s prompts. The pair stops."""
+    (dd1)'s prompts; then (ff2) over the pair (``gateway_relay``, its
+    seconds marked ``ff_gateway``). The pair stops."""
     from kubeflow_tpu_torch.models.registry import get_model
 
     pair["thread"].join()
@@ -6995,6 +7033,9 @@ def check_peer_pair(pair: dict) -> dict:
                 for tag, port in ports.items()}
         pulls = {tag: parse_exposition(get(port, METRICS_PATH))
                  for tag, port in ports.items()}
+        mark("ee_inference_rollout")
+        pair["ff2"] = gateway_relay(ports, name, vocab)
+        mark("ff_gateway")
     finally:
         stop_peer_pair(pair)
     sources = {tag: {k.split('"')[1]: v for k, v in s.items()
@@ -7009,6 +7050,65 @@ def check_peer_pair(pair: dict) -> dict:
     if sources["newborn"].get("peer") != 1 or \
             sources["donor"].get("init") != 1 or not out["identical"]:
         raise AssertionError(f"(ee3) the peer boot: {out}")
+    emit("ff2_gateway_relay", **pair["ff2"])
+    return out
+
+
+def gateway_relay(ports: dict, name: str, vocab: int) -> dict:
+    """(ff2): the disaggregated two-hop relay through the port's gateway
+    over (ee3)'s pair: a prefix-affine route (rendered by the port's
+    ``gateway_route``, read back by its ``routes_from_service``) whose
+    ``prefill_backends`` is the donor and whose ``backends`` is the
+    newborn. One prompt, greedy, float32: the donor's own tokens first
+    (direct), then through the gateway, which POSTs the donor's
+    ``:prefill`` with ``handoff_to`` naming the newborn (server to
+    server) and relays the ``:predict`` to the newborn. Gates: one
+    handoff and no failure counted, the newborn's exposition counts one
+    import of the prompt's tokens less the last, the tokens equal."""
+    from kubeflow_tpu_torch.gateway import (
+        Gateway,
+        RouteTable,
+        routes_from_service,
+    )
+    from kubeflow_tpu_torch.manifests.core import gateway_route
+
+    donor, newborn = (f"127.0.0.1:{ports[t]}" for t in ("donor",
+                                                       "newborn"))
+    route = gateway_route(
+        "peer-pool", "/models/peer/", newborn,
+        backends=[{"service": newborn, "weight": 1}],
+        strategy="prefix-affine", pressure=0,
+        prefill_backends=[{"service": donor, "weight": 1}])
+    table = RouteTable()
+    table.set_routes(routes_from_service(
+        {"metadata": {"name": "peer-pool", "annotations": route}}))
+    gw = Gateway(table, port=0, admin_port=0, probe_interval=0)
+    gw.start()
+    try:
+        rng = np.random.RandomState(13)
+        body = {"tokens": rng.randint(0, vocab, size=FF_RELAY_LEN).tolist(),
+                "max_new_tokens": FF_RELAY_NEW}
+        want = post(ports["donor"], body, model=name)[0]
+        before = parse_exposition(get(ports["newborn"], METRICS_PATH))
+        got = post(gw.port, body, model=name, prefix="/models/peer",
+                   rid="ff2-relay")[0]
+        after = parse_exposition(get(ports["newborn"], METRICS_PATH))
+        out = {"layers": F32_GATE_LAYERS, "dtype": "float32",
+               "prompt_tokens": FF_RELAY_LEN,
+               "handoffs": gw.handoffs_total,
+               "handoff_failures": gw.handoff_failures,
+               **{f"newborn_handoff_{k}": after[
+                   f"serving_kv_handoff_{k}_total"]
+                  - before[f"serving_kv_handoff_{k}_total"]
+                  for k in ("imports", "tokens")},
+               **compare_streams([got], [want])}
+    finally:
+        gw.stop()
+    if out["handoffs"] != 1 or out["handoff_failures"] != 0 or \
+            out["newborn_handoff_imports"] != 1 or \
+            out["newborn_handoff_tokens"] != FF_RELAY_LEN - 1 or \
+            not out["identical"]:
+        raise AssertionError(f"(ff2) the relay: {out}")
     return out
 
 
@@ -7453,22 +7553,19 @@ def check_manifest_servers(pool: RenderedPool, served: dict,
 
 
 def check_inference_service(pool: RenderedPool, served: dict,
-                            ee1: dict) -> dict:
+                            ee1: dict, smi: str = "",
+                            mark=lambda phase: None) -> dict:
     """(ee1) after the scale-up: r1's boot to ready (polled from its
-    start) and its peer install; requests placed by ``rendezvous_pick``
-    over the router annotation's backends reach both replicas, one
-    prompt gives both the same tokens, each replica's paged launches are
-    16 x its decode forwards; the pool holds while its p99 stays over the
+    start) and its peer install; then the requests go through the port's
+    gateway (``gateway_route``, (ff1), its seconds marked
+    ``ff_gateway``); the pool holds while its p99 stays over the
     low-water mark; with the targets relaxed and the cooldown over it
-    scales back to one, r1's Deployment and Service go, and r1 stops."""
+    scales back to one, r1's Deployment and Service go, the gateway's
+    next requests land on r0, each replica's paged launches are 16 x its
+    decode forwards, and r1 stops."""
     from kubeflow_tpu_torch.models.registry import get_model
-    from kubeflow_tpu_torch.serving.affinity import (
-        prefix_affinity_key,
-        rendezvous_pick,
-    )
 
     cfg = get_model(MODEL).config
-    rng, bodies = served["rng"], served["bodies"]
     ee1["r1_boot_to_ready_s"] = pool.ready(1)
     ee1["r1_reading"] = ("r1's boot, polled from its start, beside (dd1)'s "
                          "checks, (dd2), (ee3)'s walks and peer pair, "
@@ -7478,57 +7575,49 @@ def check_inference_service(pool: RenderedPool, served: dict,
     if pulls.get('serving_weight_pulls_total{source="peer"}') != 1:
         raise AssertionError(f"(ee1) r1 did not boot from r0: "
                              f"{[k for k in pulls if 'pulls' in k]}")
-    route = pool.route()
-    members = [b["service"] for b in route["backends"]]
-    local = {a: int(pool.local[a].rsplit(":", 1)[1]) for a in members}
-    placed: dict[str, list] = {a: [] for a in members}
-    for _ in range(EE_ROUTE_TRIES):
-        toks = rng.randint(0, cfg.vocab_size,
-                           size=int(rng.randint(5, 120))).tolist()
-        key = prefix_affinity_key(toks, route["affinity_tokens"])
-        a = rendezvous_pick(key, members)
-        placed[a].append(len(post(local[a], {
-            "tokens": toks, "max_new_tokens": 8})[0]))
-        if all(placed.values()):
-            break
-    same = [post(local[a], bodies[2])[0] for a in members]
-    ee1["routing"] = {
-        "strategy": route["strategy"], "members": members,
-        "answered": {a: len(v) for a, v in placed.items()},
-        "same_prompt_same_tokens": same[0] == same[1]}
-    if route["strategy"] != "prefix-affine" or \
-            not all(placed.values()) or \
-            any(n != 8 for v in placed.values() for n in v) or \
-            same[0] != same[1]:
-        raise AssertionError(f"(ee1) routing: {ee1['routing']}")
+    mark("ee_inference_rollout")
+    ff = GatewayRoute(pool)
+    try:
+        ff1 = ff.route_pool(served)
+        ee1["routing"] = {k: ff1[k] for k in (
+            "strategy", "members", "answered", "same_prompt_same_tokens")}
+        mark("ff_gateway")
+
+        # Quiet: the cumulative p99 holds the pool; relaxed, the cooled
+        # pool scales back to one and r1's children go.
+        pool.ctrl.reconcile_all()
+        held = pool.cr()["status"]
+        cr = pool.cr()
+        cr["spec"]["autoscale"].update(EE_RELAXED)
+        pool.api.update(cr)
+        time.sleep(max(0.0, EE_AUTOSCALE["cooldownSeconds"]
+                       - (time.perf_counter() - served["breach_at"])))
+        pool.ctrl.reconcile_all()
+        st = pool.cr()["status"]
+        ee1["scale_down"] = {
+            "held_before_relaxing": held["replicas"],
+            "replicas": st["replicas"],
+            "reason": st.get("lastScaleReason"),
+            "children": pool.children(),
+            "route_backends": [b["service"]
+                               for b in pool.route()["backends"]]}
+        mark("ee_inference_rollout")
+        ff1.update(ff.after_scale_down())
+        mark("ff_gateway")
+    finally:
+        ff.gw.stop()
     r0_at = served["r0_at"]
     r0_now, r1_now = launches_of(pool.port(0)), launches_of(r1)
     ee1["launches"] = {
         "r0": {"paged_launches": r0_now[0] - r0_at[0],
                "decode_forwards": r0_now[1] - r0_at[1]},
         "r1": {"paged_launches": r1_now[0], "decode_forwards": r1_now[1]}}
+    pool.stop(1)
+    emit("ee1_inference_service", **ee1)
+    emit("ff1_gateway", gpu=smi, **ff1)
     for name, run in ee1["launches"].items():
         require_launches(run["paged_launches"], run["decode_forwards"],
                          cfg.n_layers, f"(ee1) {name}")
-
-    # Quiet: the cumulative p99 holds the pool; relaxed, the cooled pool
-    # scales back to one and r1's children go.
-    pool.ctrl.reconcile_all()
-    held = pool.cr()["status"]
-    cr = pool.cr()
-    cr["spec"]["autoscale"].update(EE_RELAXED)
-    pool.api.update(cr)
-    time.sleep(max(0.0, EE_AUTOSCALE["cooldownSeconds"]
-                   - (time.perf_counter() - served["breach_at"])))
-    pool.ctrl.reconcile_all()
-    st = pool.cr()["status"]
-    ee1["scale_down"] = {
-        "held_before_relaxing": held["replicas"],
-        "replicas": st["replicas"], "reason": st.get("lastScaleReason"),
-        "children": pool.children(),
-        "route_backends": [b["service"] for b in pool.route()["backends"]]}
-    pool.stop(1)
-    emit("ee1_inference_service", **ee1)
     if held["replicas"] != 2 or st["replicas"] != 1 or \
             "scale-down" not in st.get("lastScaleReason", "") or \
             ee1["scale_down"]["children"] != [
@@ -7537,6 +7626,170 @@ def check_inference_service(pool: RenderedPool, served: dict,
             ee1["scale_down"]["route_backends"] != [pool.addr(0)]:
         raise AssertionError(f"(ee1) the scale-down: {ee1['scale_down']}")
     return ee1
+
+
+class GatewayRoute:
+    """(ff1): the port's API gateway in this process in front of (ee1)'s
+    replicas. ``resolve`` maps a replica's pod address to the local port
+    its process serves on; the route table is ``refresh``-ed from the
+    fake apiserver, where the port's InferenceService controller wrote
+    the router Service. ``probe_interval`` 0: no active prober, the
+    passive health observations only."""
+
+    def __init__(self, pool: RenderedPool):
+        from kubeflow_tpu_torch.gateway import Gateway, RouteTable
+        from kubeflow_tpu_torch.models.registry import get_model
+
+        self.vocab = get_model(MODEL).config.vocab_size
+        self.pool = pool
+        self.table = RouteTable()
+        self.admin_port = free_port()
+        self.gw = Gateway(self.table, port=0, admin_port=self.admin_port,
+                          probe_interval=0,
+                          resolve=lambda a: pool.local.get(a, a))
+        self.gw.start()
+        self.sent = 0   # requests relayed by the router's route
+        self.n = 0
+
+    def refresh(self) -> list[str]:
+        """The router route's backends after a fresh ``refresh``."""
+        self.table.refresh(self.pool.api, EE_NS)
+        route = self.table.match(f"{FF_PREFIX}/")
+        if route is None:
+            raise AssertionError(f"(ff1) no route for {FF_PREFIX}/ in "
+                                 f"{self.table.snapshot()}")
+        self.route = route
+        return [b[0] for b in route.backends]
+
+    def predict(self, body: dict) -> tuple[str, list, float]:
+        """One predict through the gateway: (the replica that served it,
+        read from each replica's /debug/requests by the request id; its
+        tokens; its seconds)."""
+        self.n += 1
+        rid = f"ff1-{self.n}"
+        toks, sec = post(self.gw.port, body, rid=rid, prefix=FF_PREFIX)
+        self.sent += 1
+        where = [a for a, local in self.pool.local.items()
+                 if json.loads(get(int(local.rsplit(":", 1)[1]),
+                                   f"/debug/requests?id={rid}"))[
+                                       "requests"]]
+        if len(where) != 1:
+            raise AssertionError(f"(ff1) {rid} served by {where}")
+        return where[0], toks, sec
+
+    def route_pool(self, served: dict) -> dict:
+        """The router's table, (ee1)'s prompts through the gateway until
+        both replicas have answered (each placement the rendezvous pick),
+        one prompt through it and direct to each replica, and the added
+        latency."""
+        from kubeflow_tpu_torch.serving.affinity import (
+            prefix_affinity_key,
+            rendezvous_pick,
+        )
+
+        members = self.refresh()
+        want = [self.pool.addr(0), self.pool.addr(1)]
+        if members != want or self.route.strategy != "prefix-affine":
+            raise AssertionError(f"(ff1) the table: {self.route}")
+        rng, bodies = served["rng"], served["bodies"]
+        local = {a: int(self.pool.local[a].rsplit(":", 1)[1])
+                 for a in members}
+        placed: dict[str, list] = {a: [] for a in members}
+        prompts, misplaced = [], []
+        for _ in range(EE_ROUTE_TRIES):
+            toks = rng.randint(0, self.vocab,
+                               size=int(rng.randint(5, 120))).tolist()
+            body = {"tokens": toks, "max_new_tokens": 8}
+            pick = rendezvous_pick(prefix_affinity_key(
+                toks, self.route.affinity_tokens), members)
+            where, got, _ = self.predict(body)
+            placed[where].append(len(got))
+            prompts.append((where, body))
+            if where != pick:
+                misplaced.append({"picked": pick, "served": where})
+            if all(placed.values()):
+                break
+        direct = [post(local[a], bodies[2])[0] for a in members]
+        through = self.predict(bodies[2])[1]
+        # The added latency: each placed prompt direct to its replica and
+        # through the gateway, alternating which goes first; a metadata
+        # GET (no forward) the same way.
+        lat = {"predict": {"direct": [], "gateway": []},
+               "metadata": {"direct": [], "gateway": []}}
+        for r in range(FF_LATENCY_ROUNDS):
+            for i, (a, body) in enumerate(prompts):
+                for side in (("direct", "gateway") if (r + i) % 2 == 0
+                             else ("gateway", "direct")):
+                    if side == "direct":
+                        sec = post(local[a], body)[1]
+                    else:
+                        sec = self.predict(body)[2]
+                    lat["predict"][side].append(sec)
+        meta = f"/v1/models/{MODEL}"
+        for r in range(FF_METADATA_ROUNDS):
+            for side in (("direct", "gateway") if r % 2 == 0
+                         else ("gateway", "direct")):
+                t0 = time.perf_counter()
+                if side == "direct":
+                    get(local[members[0]], meta)
+                else:
+                    get(self.gw.port, FF_PREFIX + meta)
+                    self.sent += 1
+                lat["metadata"][side].append(time.perf_counter() - t0)
+        added = {kind: {
+            "p50_direct_ms": float(np.median(v["direct"])) * 1e3,
+            "p50_gateway_ms": float(np.median(v["gateway"])) * 1e3,
+            "p50_added_ms": (float(np.median(v["gateway"]))
+                             - float(np.median(v["direct"]))) * 1e3,
+            "range_direct_ms": [min(v["direct"]) * 1e3,
+                                max(v["direct"]) * 1e3],
+            "range_gateway_ms": [min(v["gateway"]) * 1e3,
+                                 max(v["gateway"]) * 1e3],
+            "requests_a_side": len(v["direct"])} for kind, v in lat.items()}
+        out = {"probe_interval": 0, "members": members,
+               "strategy": self.route.strategy,
+               "affinity_tokens": self.route.affinity_tokens,
+               "answered": {a: len(v) for a, v in placed.items()},
+               "tokens_per_answer": sorted({n for v in placed.values()
+                                            for n in v}),
+               "misplaced": misplaced,
+               "same_prompt_same_tokens": direct[0] == direct[1] == through,
+               "added_latency": added,
+               "latency_reading": "r0 and r1 serve only these requests; "
+                                  "no other work runs beside them"}
+        if misplaced or not all(placed.values()) or \
+                out["tokens_per_answer"] != [8] or \
+                not out["same_prompt_same_tokens"]:
+            raise AssertionError(f"(ff1) routing: {out}")
+        return out
+
+    def after_scale_down(self) -> dict:
+        """A ``refresh`` drops r1; the next requests all land on r0. The
+        admin exposition lints clean and counts every request sent."""
+        from kubeflow_tpu_torch.observability.lint import lint
+
+        members = self.refresh()
+        rng = np.random.RandomState(14)
+        landed = [self.predict({"tokens": rng.randint(
+            0, self.vocab, size=16 + 8 * i).tolist(), "max_new_tokens": 8})[0]
+            for i in range(FF_AFTER)]
+        text = get(self.admin_port, "/metrics")
+        samples = parse_exposition(text)
+        counted = samples.get(
+            f'gateway_upstream_latency_seconds_count{{route="'
+            f'{self.route.name}"}}')
+        out = {"after_scale_down": {"members": members, "landed": landed},
+               "admin_lint_violations": lint(text),
+               "admin_families": text.count("# TYPE "),
+               "upstream_latency_count": counted, "requests_sent": self.sent,
+               "gateway_requests_total": samples["gateway_requests_total"],
+               "gateway_errors_total": samples["gateway_errors_total"]}
+        if members != [self.pool.addr(0)] or \
+                landed != [self.pool.addr(0)] * FF_AFTER or \
+                out["admin_lint_violations"] or counted != self.sent or \
+                out["gateway_errors_total"] != 0:
+            raise AssertionError(f"(ff1) after the scale-down: {out}")
+        return out
 
 
 def phase_rollout(smi: str) -> dict:
@@ -7713,10 +7966,10 @@ def main() -> int:
         mark("cc_scenarios_axes")
         phase_deep_gates()
         mark("r_deep")
-        peer, pair = check_peer_pair(pair), None
+        peer, pair = check_peer_pair(pair, mark), None
         emit("ee3_f32_gates", gpu=smi, peer_boot=peer, walks={
             k: walks32[k]["gates"] for k in ("good", "bad")})
-        check_inference_service(pool, served, ee1)
+        check_inference_service(pool, served, ee1, smi, mark)
     finally:
         pool.close()
         if pair is not None:

@@ -31,6 +31,9 @@ JOB_PLURALS: dict[str, str] = {
     "ChainerJob": "chainerjobs",
     "MPIJob": "mpijobs",
 }
+# Every job kind, in JAX's order (``kubeflow_tpu/apis/jobs.py``'s
+# ``ALL_JOB_KINDS``): the dashboards list each.
+ALL_JOB_KINDS = tuple(JOB_PLURALS)
 
 # The scheduler's decision for a gang, one JSON annotation on the job:
 # {"pool", "topology", "slice", "nodes", "decidedAt"} and, for an elastic

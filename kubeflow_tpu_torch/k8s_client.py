@@ -84,6 +84,9 @@ _KNOWN_KINDS: dict[str, tuple[str, bool]] = {
     **{k: (p, True) for k, p in JOB_PLURALS.items()},
     "Experiment": ("experiments", True),
     "InferenceService": ("inferenceservices", True),
+    # The CRs the dashboards list, as JAX's platform registry holds them.
+    "Notebook": ("notebooks", True),
+    "StudyJob": ("studyjobs", True),
 }
 
 

@@ -18,7 +18,7 @@ from typing import Any, Callable, Mapping, Sequence
 DEFAULT_NAMESPACE = "kubeflow"
 
 # The modules whose prototypes :func:`load_all_packages` registers.
-PACKAGES = ("serving", "training")
+PACKAGES = ("common", "serving", "training")
 
 
 class PrototypeError(Exception):

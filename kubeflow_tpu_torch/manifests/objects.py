@@ -254,3 +254,62 @@ def crd_version(
 
 def printer_column(name: str, json_path: str, col_type: str = "string") -> dict:
     return {"name": name, "type": col_type, "jsonPath": json_path}
+
+
+# The gateway's and the central dashboard's service accounts and roles.
+
+
+def service_account(name: str, namespace: str,
+                    labels: Mapping[str, str] | None = None) -> dict:
+    return {
+        "apiVersion": "v1",
+        "kind": "ServiceAccount",
+        "metadata": metadata(name, namespace, labels),
+    }
+
+
+def policy_rule(api_groups: Sequence[str], resources: Sequence[str],
+                verbs: Sequence[str]) -> dict:
+    return {
+        "apiGroups": list(api_groups),
+        "resources": list(resources),
+        "verbs": list(verbs),
+    }
+
+
+def cluster_role(name: str, rules: Sequence[dict],
+                 labels: Mapping[str, str] | None = None) -> dict:
+    return {
+        "apiVersion": "rbac.authorization.k8s.io/v1",
+        "kind": "ClusterRole",
+        "metadata": metadata(name, labels=labels),
+        "rules": list(rules),
+    }
+
+
+def cluster_role_binding(name: str, role_name: str, sa_name: str,
+                         sa_namespace: str) -> dict:
+    return {
+        "apiVersion": "rbac.authorization.k8s.io/v1",
+        "kind": "ClusterRoleBinding",
+        "metadata": metadata(name),
+        "roleRef": {
+            "apiGroup": "rbac.authorization.k8s.io",
+            "kind": "ClusterRole",
+            "name": role_name,
+        },
+        "subjects": [
+            {"kind": "ServiceAccount", "name": sa_name,
+             "namespace": sa_namespace}
+        ],
+    }
+
+
+def secret_volume(name: str, secret_name: str) -> dict:
+    return {"name": name, "secret": {"secretName": secret_name}}
+
+
+def volume_mount(name: str, mount_path: str,
+                 read_only: bool | None = None) -> dict:
+    return _clean({"name": name, "mountPath": mount_path,
+                   "readOnly": read_only})

@@ -14,6 +14,10 @@ a pod, so the default is one GPU), the TPU slice parameters
 block go (so the operator sets no TPU nodeSelector), the image is the
 port's and the module ``kubeflow_tpu_torch.workloads.*``. A default
 command of a worker without a GPU adds ``--device=cpu``.
+
+``training-dashboard`` renders JAX's dashboard Service and Deployment on
+the port's image, running ``python -m
+kubeflow_tpu_torch.dashboard.training`` (no GPU).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from kubeflow_tpu_torch.manifests import objects as k8s
 from kubeflow_tpu_torch.manifests.core import (
     DEFAULT_NAMESPACE,
     ParamSpec,
+    gateway_route,
     prototype,
 )
 
@@ -182,4 +187,38 @@ def gpu_healthcheck(name: str, namespace: str, image: str, num_workers: int,
                 },
             },
         )
+    ]
+
+
+@prototype(
+    "training-dashboard",
+    "Training-job dashboard Service + Deployment with gateway route",
+    params=[
+        ParamSpec("namespace", DEFAULT_NAMESPACE),
+        ParamSpec("image", images.TORCH_CUDA),
+    ],
+)
+def training_dashboard(namespace: str, image: str) -> list[dict]:
+    name = "training-dashboard"
+    labels = {"app": name}
+    return [
+        k8s.service(
+            name, namespace, selector=labels,
+            ports=[{"name": "http", "port": 80, "targetPort": 8085}],
+            labels=labels,
+            annotations=gateway_route(name, f"/{name}/",
+                                      f"{name}.{namespace}:80"),
+        ),
+        k8s.deployment(
+            name, namespace,
+            containers=[
+                k8s.container(
+                    name, image,
+                    command=["python", "-m",
+                             "kubeflow_tpu_torch.dashboard.training"],
+                    ports={"http": 8085},
+                )
+            ],
+            labels=labels, service_account="training-operator",
+        ),
     ]

@@ -17,8 +17,9 @@ metrics`) is supposed to emit:
 ``python -m kubeflow_tpu_torch.observability.lint --self-check [--device
 cpu]`` boots what the port exposes, in process: the model server (REST,
 with one request over gRPC :9000 when grpcio is importable, whose
-counters land in the same exposition), and a HealthServer over the
-operator families (after a real Experiment round) and the elastic
+counters land in the same exposition), the gateway's admin port (after
+a predict relayed through it), and a HealthServer over the operator
+families (after a real Experiment round) and the elastic
 training families (``train/elastic.py``); it scrapes each over real HTTP
 and exits 1 on any violation. The model server runs on the card unless
 ``--device cpu``.
@@ -214,11 +215,14 @@ def lint_url(url: str, timeout: float = 10.0) -> list[str]:
 def _self_check(device: str = "cuda") -> int:
     """Boot each /metrics surface of the port in process and lint a real
     scrape of it: the model server (a decoder driven once, over REST and
-    over gRPC when grpcio is importable), and a HealthServer over the
-    operator families (one real Experiment round) and the elastic
-    training families."""
+    over gRPC when grpcio is importable), the gateway's admin port (after
+    one predict relayed through it to that server), and a HealthServer
+    over the operator families (one real Experiment round) and the
+    elastic training families."""
     import json
+    import socket
 
+    from kubeflow_tpu_torch.gateway import Gateway, Route, RouteTable
     from kubeflow_tpu_torch.apis.experiment import (
         experiment as experiment_cr,
         experiment_crd,
@@ -269,7 +273,37 @@ def _self_check(device: str = "cuda") -> int:
             surfaces[0] = "model-server (REST + gRPC)"
         failures += lint_url(f"{base}/monitoring/prometheus/metrics")
 
-        # 2. The operator families after one real Experiment round (the
+        # 2. The gateway's admin port, after one predict relayed through
+        # it to the model server, so its latency histogram has a sample.
+        table = RouteTable()
+        table.set_routes([Route(name="lint", prefix="/v1/",
+                                service=f"127.0.0.1:{server.port}",
+                                rewrite="/v1/")])
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            admin_port = sock.getsockname()[1]
+        gw = Gateway(table, port=0, admin_port=admin_port,
+                     probe_interval=0)
+        gw.start()
+        stops.append(gw.stop)
+        surfaces.append("gateway")
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{gw.port}/v1/models/{model}:predict",
+            method="POST", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            resp.read()
+        gateway_url = f"http://127.0.0.1:{admin_port}/metrics"
+        failures += lint_url(gateway_url)
+        with urllib.request.urlopen(gateway_url, timeout=10) as resp:
+            gateway_body = resp.read().decode()
+        for family, kind in (
+                ("gateway_requests_total", "counter"),
+                ("gateway_upstream_latency_seconds", "histogram")):
+            if type_line(family, kind) not in gateway_body:
+                failures.append(f"{gateway_url}: family {family} missing")
+
+        # 3. The operator families after one real Experiment round (the
         # closed-form scenario, two trials) and the elastic families.
         fake = FakeApiServer()
         fake.ensure_namespace("kubeflow")

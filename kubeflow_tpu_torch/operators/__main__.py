@@ -25,48 +25,23 @@ import argparse
 import functools
 import json
 import logging
-import os
 import signal
 import sys
 import threading
 
-from kubeflow_tpu_torch.k8s_client import (
-    ApiError,
-    ClusterConfig,
-    HttpK8sClient,
-)
+from kubeflow_tpu_torch.k8s_client import ApiError
 from kubeflow_tpu_torch.operators.base import (
     OPERATOR_METRICS,
     HealthServer,
     run_polling,
 )
+from kubeflow_tpu_torch.runtime import (
+    add_client_args,
+    client_from_args,
+    strip_glog_args,
+)
 
 log = logging.getLogger(__name__)
-
-IN_CLUSTER_TOKEN = "/var/run/secrets/kubernetes.io/serviceaccount/token"
-IN_CLUSTER_CA = "/var/run/secrets/kubernetes.io/serviceaccount/ca.crt"
-
-
-def cluster_config(apiserver: str, token_path: str) -> ClusterConfig:
-    """JAX's ``cluster_config_from_args``: an explicit URL, else the
-    in-cluster service, else the kubectl-proxy default."""
-    host, token, verify = apiserver, None, True
-    token_path = token_path or (
-        IN_CLUSTER_TOKEN if os.path.exists(IN_CLUSTER_TOKEN) else "")
-    if token_path and os.path.exists(token_path):
-        with open(token_path) as f:
-            token = f.read().strip()
-    if not host:
-        k8s_host = os.environ.get("KUBERNETES_SERVICE_HOST")
-        if k8s_host:
-            port = os.environ.get("KUBERNETES_SERVICE_PORT", "443")
-            host = f"https://{k8s_host}:{port}"
-            if os.path.exists(IN_CLUSTER_CA):
-                verify = IN_CLUSTER_CA
-        else:
-            host = "http://127.0.0.1:8001"
-    return ClusterConfig(host=host, token=token, verify=verify)
-
 
 def make_controllers(client, device: str = "cuda") -> list:
     """The manager's controllers, in JAX's manager's order."""
@@ -97,14 +72,10 @@ def reconcile_once(controller) -> int:
 
 
 def main(argv=None) -> int:
-    argv = [a for a in (sys.argv[1:] if argv is None else argv)
-            if a != "--alsologtostderr" and not a.startswith(("-v=", "--v="))]
+    argv = strip_glog_args(list(sys.argv[1:] if argv is None else argv))
     p = argparse.ArgumentParser(prog="python -m kubeflow_tpu_torch.operators",
                                 description=__doc__)
-    p.add_argument("--apiserver",
-                   default=os.environ.get("KUBEFLOW_TPU_APISERVER", ""))
-    p.add_argument("--token-path", default="",
-                   help="bearer token file (default: in-cluster SA token)")
+    add_client_args(p)
     p.add_argument("--once", action="store_true",
                    help="one reconcile pass over every object, then exit")
     p.add_argument("--metrics-port", type=int, default=8443,
@@ -116,7 +87,7 @@ def main(argv=None) -> int:
         level=logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
 
-    client = HttpK8sClient(cluster_config(args.apiserver, args.token_path))
+    client = client_from_args(args)
     controllers = make_controllers(client, args.device)
     if args.once:
         print(json.dumps({

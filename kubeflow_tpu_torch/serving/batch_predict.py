@@ -21,7 +21,7 @@ import argparse
 import json
 import sys
 
-from kubeflow_tpu_torch.workloads import strip_glog_args
+from kubeflow_tpu_torch.runtime import strip_glog_args
 
 
 def run_batch_predict(engine, input_path: str, output_path: str,

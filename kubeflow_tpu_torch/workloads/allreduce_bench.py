@@ -23,7 +23,7 @@ import json
 import sys
 import time
 
-from kubeflow_tpu_torch.workloads import strip_glog_args
+from kubeflow_tpu_torch.runtime import strip_glog_args
 
 def _bench_one(n_elems: int, iters: int, mesh, device) -> dict:
     import torch

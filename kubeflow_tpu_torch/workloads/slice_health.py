@@ -25,7 +25,7 @@ import json
 import sys
 import time
 
-from kubeflow_tpu_torch.workloads import strip_glog_args
+from kubeflow_tpu_torch.runtime import strip_glog_args
 
 
 def main(argv=None) -> int:

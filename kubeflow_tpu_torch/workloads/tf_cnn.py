@@ -19,7 +19,7 @@ import argparse
 import json
 import sys
 
-from kubeflow_tpu_torch.workloads import strip_glog_args
+from kubeflow_tpu_torch.runtime import strip_glog_args
 
 
 def main(argv=None) -> int:

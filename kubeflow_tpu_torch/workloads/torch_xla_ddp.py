@@ -21,7 +21,7 @@ import json
 import os
 import sys
 
-from kubeflow_tpu_torch.workloads import strip_glog_args
+from kubeflow_tpu_torch.runtime import strip_glog_args
 
 
 def _train_torch(args) -> dict:

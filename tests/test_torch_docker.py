@@ -110,6 +110,9 @@ def test_entry_points_import_without_jax():
                "kubeflow_tpu_torch.observability.lint",
                "kubeflow_tpu_torch.serving.scenarios",
                "kubeflow_tpu_torch.serving.batch_predict",
+               "kubeflow_tpu_torch.gateway.__main__",
+               "kubeflow_tpu_torch.dashboard.__main__",
+               "kubeflow_tpu_torch.dashboard.training",
                "kubeflow_tpu_torch.train.loop",
                *(f"kubeflow_tpu_torch.workloads.{m}" for m in (
                    "allreduce_smoke", "tf_cnn", "torch_xla_ddp",

@@ -108,3 +108,4 @@ def test_self_check_passes_on_cpu(capsys):
     assert tlint.main(["--self-check", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "metrics lint ok (model-server (REST + gRPC)" in out
+    assert ", gateway, " in out

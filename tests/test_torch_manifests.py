@@ -14,7 +14,8 @@ counterpart, and the two are equal after this mapping and nothing else:
 - the serving Deployment's ``service`` label names its prototype
   (``gpu-serving``);
 - a container without a GPU adds ``--device=cpu`` (the port runs on CUDA
-  unless asked).
+  unless asked), except the gateway's and the dashboards', which take no
+  device.
 
 Every rendered ``gpu-serving`` arg list parses with the port's serving
 CLI parser; ``compile_cache_dir`` is refused by name; the job CRs pass
@@ -59,7 +60,14 @@ PAIRS = {
                     "chips_per_worker", "gpus_per_worker"),
     "healthcheck": ("slice-healthcheck", "gpu-healthcheck", jimages.JAX_TPU,
                     "chips_per_worker", "gpus_per_worker"),
+    # The front door: host code on the port's image, no accelerator.
+    "gateway": ("gateway", "gateway", jimages.PLATFORM, None, None),
+    "centraldashboard": ("centraldashboard", "centraldashboard",
+                         jimages.PLATFORM, None, None),
+    "training-dashboard": ("training-dashboard", "training-dashboard",
+                           jimages.PLATFORM, None, None),
 }
+HOST_PAIRS = ("gateway", "centraldashboard", "training-dashboard")
 
 SERVING_PARAMS = [
     {"name": "llama", "model_name": "llama-1b"},
@@ -97,6 +105,10 @@ PARAMS = {
        for pair in ("job-simple", "pytorch-job", "healthcheck")},
     "tf-job": [{"name": "j"}, {"name": "j", "num_ps": 2},
                {"name": "j", "chips_per_worker": 2, "num_ps": 1}],
+    "gateway": [{}, {"namespace": "team", "replicas": 1,
+                     "service_type": "LoadBalancer", "tls_secret": "tls"}],
+    "centraldashboard": [{}, {"namespace": "team"}],
+    "training-dashboard": [{}, {"namespace": "team"}],
 }
 CASES = [(pair, i) for pair in PAIRS for i in range(len(PARAMS[pair]))]
 
@@ -104,7 +116,7 @@ CASES = [(pair, i) for pair in PAIRS for i in range(len(PARAMS[pair]))]
 def _port_params(pair: str, params: dict) -> dict:
     _, _, _, jkey, tkey = PAIRS[pair]
     out = dict(params)
-    if jkey in out:
+    if jkey is not None and jkey in out:
         out[tkey] = out.pop(jkey)
     return out
 
@@ -116,7 +128,7 @@ def _jax_params(pair: str, params: dict) -> dict:
     from kubeflow_tpu_torch.manifests.core import get_prototype
 
     out = dict(params)
-    if jkey not in out:
+    if jkey is not None and jkey not in out:
         default = {p.name: p.default
                    for p in get_prototype(tproto).params}[tkey]
         out[jkey] = default
@@ -170,7 +182,9 @@ def to_gpu(pair: str, objs: list[dict]) -> list[dict]:
                 lab["service"] = tproto
         # The port's own entry points take --device; a third-party
         # image's command is its own.
-        cpu_flag = ("" if pair == "inference-server" else
+        # The gateway and the dashboards take no --device.
+        cpu_flag = ("" if pair == "inference-server" or pair in HOST_PAIRS
+                    else
                     "args" if obj["kind"] in ("Deployment", "Job")
                     else "command")
         for c in _containers(obj):

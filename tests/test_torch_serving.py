@@ -308,10 +308,24 @@ def test_cli_rejects_dense_layout_and_bad_block_size():
 
 # The port's platform surface (manifests, the Experiment, InferenceService
 # and rollout controllers, the sweep, the lint, the apiserver client and
-# fake), held to the same rule.
+# fake, the gateway and the dashboards), held to the same rule.
 PLATFORM_MODULES = [
     "kubeflow_tpu_torch.apis.experiment",
     "kubeflow_tpu_torch.apis.inference",
+    "kubeflow_tpu_torch.apis.notebooks",
+    "kubeflow_tpu_torch.apis.pipelines",
+    "kubeflow_tpu_torch.apis.tuning",
+    "kubeflow_tpu_torch.auth.tokens",
+    "kubeflow_tpu_torch.dashboard",
+    "kubeflow_tpu_torch.dashboard.__main__",
+    "kubeflow_tpu_torch.dashboard.training",
+    "kubeflow_tpu_torch.gateway",
+    "kubeflow_tpu_torch.gateway.__main__",
+    "kubeflow_tpu_torch.gateway.admin",
+    "kubeflow_tpu_torch.gateway.jwt_auth",
+    "kubeflow_tpu_torch.gateway.proxy",
+    "kubeflow_tpu_torch.gateway.resilience",
+    "kubeflow_tpu_torch.gateway.routing",
     "kubeflow_tpu_torch.k8s_client",
     "kubeflow_tpu_torch.k8s_fake",
     "kubeflow_tpu_torch.manifests.__main__",
@@ -326,6 +340,8 @@ PLATFORM_MODULES = [
     "kubeflow_tpu_torch.operators.experiment",
     "kubeflow_tpu_torch.operators.inference",
     "kubeflow_tpu_torch.operators.rollout",
+    "kubeflow_tpu_torch.operators.runstore",
+    "kubeflow_tpu_torch.runtime",
     "kubeflow_tpu_torch.tuning.suggestions",
     "kubeflow_tpu_torch.tuning.sweep",
 ]
@@ -350,6 +366,28 @@ def test_package_imports_neither_jax_nor_the_jax_package():
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                           capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "kubeflow_tpu_torch.gateway", "kubeflow_tpu_torch.gateway.__main__",
+    "kubeflow_tpu_torch.dashboard", "kubeflow_tpu_torch.dashboard.training"])
+def test_front_door_imports_neither_torch_nor_jax(module):
+    """The gateway and the dashboards are host code: a fresh interpreter
+    that imports one of them (and the JWT path the gateway's flags
+    reach) loads no module of ``kubeflow_tpu``, no ``jax`` and no
+    ``torch``."""
+    root = Path(__file__).resolve().parent.parent
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "importlib.import_module('kubeflow_tpu_torch.gateway.jwt_auth')\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'torch', 'kubeflow_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          capture_output=True, text=True, timeout=60)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
