@@ -173,8 +173,9 @@ learner on the fleet, and checks the output. Phases, each printed as one JSON li
     float32, greedy, the ten requests one at a time (at most 32 new
     tokens each, ``SPEC_GATE_NEW``): speculation on
     equals off token for token on paged fused, paged gathered, dense,
-    dense with ``model:llama-1b`` and paged fused with ``chunk_size`` 2
-    (``verify_chunk``);
+    dense with a model draft (llama-1b at one layer, bf16, so the
+    target's 2-layer weights are not its own: its proposals must meet a
+    rejection) and paged fused with ``chunk_size`` 2 (``verify_chunk``);
 (s) the single-replica serving features, llama-1b at full width and
     depth, bf16, 8 slots, paged, ``kv_fused``, through ``ModelServer``
     over HTTP. The host tier on an fp pool and an int8 one (24 blocks, a
@@ -191,8 +192,9 @@ learner on the fleet, and checks the output. Phases, each printed as one JSON li
     200-token prompt's KV to a ``role="decode"`` one over ``:prefill``
     with ``handoff_to``, whose predict hits it; the envelope's bytes and
     the export, pack, unpack and import ms (a live push over HTTP runs
-    in (bb4)). Then the port's trainer writes a llama-1b checkpoint (one step, default
-    optimizer) and the CLI boots from it with ``--model-path``. The
+    in (bb4)). Then the port's trainer writes a checkpoint of llama-1b
+    at full width, F32_GATE_LAYERS deep (one step, default optimizer),
+    and the CLI boots from it with ``--model-path``. The
     paged kernel launches n_layers times per decode forward in every
     run. The f32 gates (greedy, fused and gathered read each): a
     host-tier hit = an HBM hit of the primed prefix (fp, int8) and = a
@@ -498,6 +500,36 @@ learner on the fleet, and checks the output. Phases, each printed as one JSON li
     ``:predict``; ``gateway_handoffs_total`` rises by 1, no failure, the
     newborn's exposition counts the handed-off prompt tokens and the
     greedy tokens equal the donor's own;
+(gg) the RLJob through the port's training control plane: on the port's
+    fake apiserver, three Node objects labelled as GKE's H100 nodes
+    (``cloud.google.com/gke-accelerator: nvidia-h100-80gb``, one
+    ``nvidia.com/gpu`` each, one slice; bookkeeping for this one card,
+    as (aa)'s gangs share ``cuda:0``); ``gpu-rl`` rendered at one GPU a
+    pod, two actors (min 1, max 2), the actors' engine set to the fused
+    read; the port's RLJob controller, scheduler and JaxJob controller
+    reconciled in rounds until both gangs have pods (rounds and seconds
+    from the CR to both placements); the learner placed HIGH and not
+    preemptible, the actors LOW, preemptible and elastic, every pod on
+    its placement's node with the GPU selector, ``nvidia.com/gpu`` 1 and
+    the rendezvous env (no ``TPU_*`` key); then each pod's own command
+    runs here (its REST port and the learner's actor addresses mapped to
+    local ports; ``PRESET_MAIN`` registers llama-1b at full width, 2
+    layers, float32 in each process, as no command line can name it):
+    two actor servers boot, the learner takes GG_STEPS steps and pushes
+    over ``:weights``; its ``publish_metrics`` writes its metrics into
+    its JaxJob's status through the fake apiserver served over HTTP
+    (``serve_api``, named by ``KUBEFLOW_TPU_APISERVER``), and after one
+    more reconcile the RLJob's ``weightsVersion`` must equal its last
+    push. Gates: each actor's greedy tokens for four prompts equal an
+    in-process decoder's on the gathered (plain) read built from the
+    weights the actors' ``:pull`` serves (``pull_split``: its chunks
+    fetched from both actors at once, from the moment both show the push,
+    beside the learner's last step); each actor's paged launches = 2
+    layers x its decode forwards (its exposition); the learner's flash
+    forward and backward launches (its process's count) are not zero.
+    Lines: rounds and seconds to both placements, the actors' boots,
+    the push's ms, rollout tokens/s and learner steps/s. It runs alone,
+    last;
 (f) the kernel table: each kernel's launches on the main paths, its
     error, its time, its plain version's time and its bound; the paged
     and RMSNorm rows give device time as ``ms`` and the call's as
@@ -532,8 +564,9 @@ learner on the fleet, and checks the output. Phases, each printed as one JSON li
     (``rl_learner``) and (cc3)'s BERT ranks'
     (``bert_sequence2_train_rank0``, ``_rank1``); the paged row (dd1)'s
     rendered servers' (``rendered_server_bf16``, ``_f32``), (ee1)'s
-    replicas' (``inference_service_r0``, ``_r1``) and (ee2)'s fleet's
-    (``rollout_fleet``).
+    replicas' (``inference_service_r0``, ``_r1``), (ee2)'s fleet's
+    (``rollout_fleet``) and (gg)'s actors' (``rl_job_actors``), the flash
+    rows (gg)'s learner's (``rl_job_learner``).
 
 Every ``gang_run`` is a job of one gang of two (``GANG``) kept across
 them, so each of its ranks starts once; it starts beside (w2). Some
@@ -547,7 +580,7 @@ during (e), (l) and (p), which time nothing, each polled from its start
 (its samples/s); (ee1)'s r1 and (ee3)'s peer pair boot during (dd1)'s
 checks, (dd2), (ee3)'s walks, (cc) and (r)'s f32 gates, so (dd2)'s and
 (cc)'s times and those boots are read so; (q)'s f32 gates run while
-(dd1)'s servers boot. (ee2)'s timed walks run alone.
+(dd1)'s servers boot. (ee2)'s timed walks and (gg) run alone.
 
 TF32 is off throughout, so float32 products are full float32. Any
 failure exits non-zero; the last line, printed only on success, is
@@ -597,6 +630,45 @@ W_GATE_LAYERS = 2
 # over a key-padding mask; (u)'s training batch at T 128 and a batch of 8
 # at the position table's 512.
 FLASH_BERT = dict(b=32, t=128, s=128, hq=12, hkv=12, hd=64, causal=False)
+# A process that registers llama-1b at a cut depth (and a dtype) as a
+# preset, then runs a module as ``python -m`` does: how a CLI or a pod's
+# own command runs here at a depth no command line can name. Its last
+# line counts the kernel launches of its life.
+PRESET_MAIN = """
+import dataclasses, json, runpy, sys
+import torch
+from kubeflow_tpu_torch import kernels
+from kubeflow_tpu_torch.models import transformer
+p = json.loads(sys.argv[1])
+transformer.PRESETS[p["name"]] = dataclasses.replace(
+    transformer.PRESETS[p["base"]], n_layers=p["n_layers"],
+    dtype=getattr(torch, p["dtype"]))
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+sys.argv = [p["module"], *sys.argv[2:]]
+try:
+    runpy.run_module(p["module"], run_name="__main__", alter_sys=True)
+finally:
+    print("kernel-launches:", json.dumps(dict(kernels.LAUNCHES)), flush=True)
+"""
+
+
+def preset_name(n_layers: int, dtype: str = "bfloat16") -> str:
+    """llama-1b's name at ``n_layers`` (``short_preset``'s) and, other than
+    its own bf16, a dtype."""
+    return f"{MODEL}-{n_layers}-layers" + (
+        "" if dtype == "bfloat16" else f"-{dtype}")
+
+
+def preset_command(module: str, args: list, n_layers: int,
+                   dtype: str = "bfloat16") -> list[str]:
+    """``python -m module args`` with llama-1b at ``n_layers`` and
+    ``dtype`` registered in the process as :func:`preset_name`."""
+    return [sys.executable, "-c", PRESET_MAIN, json.dumps(dict(
+        name=preset_name(n_layers, dtype), base=MODEL, n_layers=n_layers,
+        dtype=dtype, module=module)), *args]
+
+
 FLASH_BERT_LONG = dict(FLASH_BERT, b=8, t=512, s=512)
 # (g) at moe-1b's attention: 16 heads over 4 (G 4), hd 64, causal; (t)'s
 # training shape and its plain predict's (the server batch padded to
@@ -612,6 +684,10 @@ SLOTS, MAX_SEQ, MAX_NEW, BLOCK = 8, 256, 32, 16
 # depth (its 16 layers cut to keep the script inside its 1200 s limit;
 # every path the gates compare runs at any depth).
 F32_GATE_LAYERS = 2
+# (q)'s f32 gate's draft model: llama-1b at one layer, so its weights are
+# not the target's (F32_GATE_LAYERS deep, the same seed) and its
+# proposals are rejected, which is the rollback the gate holds equal.
+SPEC_DRAFT_LAYERS = 1
 # The plain predict's attention: llama-1b's heads over the server batch,
 # padded to MAX_SEQ.
 FLASH_PREDICT = dict(b=SLOTS, t=MAX_SEQ, s=MAX_SEQ, hq=16, hkv=8, hd=128,
@@ -2462,9 +2538,9 @@ def dispatch_means(port: int) -> dict:
 def spec_f32_gates(dev=torch.device("cuda")) -> dict:
     """f32, greedy, (q)'s requests one at a time through decoders sharing
     one set of weights: speculation on (K 4) equals off, token for token,
-    on paged fused, paged gathered, dense, dense with model:llama-1b and
-    paged fused with chunk_size 2 (verify_chunk); llama-1b's width at
-    F32_GATE_LAYERS layers."""
+    on paged fused, paged gathered, dense, dense with a model draft
+    (llama-1b at SPEC_DRAFT_LAYERS, bf16) and paged fused with chunk_size 2
+    (verify_chunk); llama-1b's width at F32_GATE_LAYERS layers."""
     from kubeflow_tpu_torch.models.registry import get_model
     from kubeflow_tpu_torch.serving.continuous import ContinuousDecoder
 
@@ -2497,7 +2573,10 @@ def spec_f32_gates(dev=torch.device("cuda")) -> dict:
         "paged_fused": ("paged_fused", dict(**paged, kv_fused=True)),
         "paged_gathered": ("paged_gathered", dict(**paged)),
         "dense": ("dense", {}),
-        "dense_model_draft": ("dense", dict(draft_mode=f"model:{MODEL}")),
+        # A draft whose weights are not the target's, so proposals are
+        # rejected and rolled back.
+        "dense_model_draft": ("dense", dict(
+            draft_mode=f"model:{short_preset(SPEC_DRAFT_LAYERS)}")),
         "paged_fused_chunk2": ("paged_fused", dict(**paged, kv_fused=True,
                                                    chunk_size=2)),
     }
@@ -2641,6 +2720,10 @@ def phase_speculation_gates() -> dict:
                              f"{bad}")
     if not gates["paged_fused"]["spec_verify_dispatches"]:
         raise AssertionError("the f32 gate ran no verify round")
+    draft = gates["dense_model_draft"]
+    if not draft["spec_accepted_tokens"] < draft["spec_drafted_tokens"]:
+        raise AssertionError(f"the model draft's proposals were never "
+                             f"rejected: {draft}")
     return gates
 
 
@@ -3336,27 +3419,35 @@ def handoff_run() -> dict:
 
 
 def checkpoint_boot_start(workdir: str) -> dict:
-    """(s4, the boot, started): the port's trainer writes a llama-1b
-    checkpoint (one step of ``train.loop.run``, batch 1 x seq 256, the
-    default optimizer, whose state the engine restores, as JAX's does),
-    then the CLI starts from it with ``--model-path``, to boot while the
-    f32 gates run."""
-    import os
-
+    """(s4, the boot, started): the port's trainer writes a checkpoint of
+    llama-1b at full width, F32_GATE_LAYERS deep (one step of
+    ``train.loop.run``, batch 1 x seq 256, the default optimizer, whose
+    state the engine restores, as JAX's does; the depth cuts the bytes
+    written and read), then the CLI starts from it with
+    ``--model-path``, the preset registered in its process
+    (``preset_command``), to boot while the f32 gates run."""
     from kubeflow_tpu_torch.train.loop import RunConfig, run
 
     ckpt = os.path.join(workdir, "llama_ckpt")
+    name = short_preset(F32_GATE_LAYERS)
     t0 = time.perf_counter()
-    run(RunConfig(model=MODEL, batch_size=1, seq_len=MAX_SEQ, steps=1,
+    run(RunConfig(model=name, batch_size=1, seq_len=MAX_SEQ, steps=1,
                   checkpoint_dir=ckpt), log=lambda *a, **k: None)
     torch.cuda.empty_cache()
     train_s = time.perf_counter() - t0
     size = sum(os.path.getsize(os.path.join(d, f))
                for d, _, fs in os.walk(ckpt) for f in fs)
     port = free_port()
-    procs = [start_cli("--model-path", ckpt, "--kv-layout", "paged",
-                       "--kv-fused-attention", "--grpc-port", "-1",
-                       "--rest-port", str(port))]
+    os.makedirs("chiprun_out", exist_ok=True)
+    log = open("chiprun_out/cli_model-path.log", "w")
+    proc = subprocess.Popen(preset_command(
+        "kubeflow_tpu_torch.serving", [
+            "--model-name", name, "--model-path", ckpt, "--kv-layout",
+            "paged", "--kv-fused-attention", "--grpc-port", "-1",
+            "--rest-port", str(port)], F32_GATE_LAYERS),
+        stdout=log, stderr=subprocess.STDOUT, text=True)
+    proc.started = time.perf_counter()
+    procs = [(proc, log)]
     return {"ckpt": ckpt, "port": port, "size": size, "train_s": train_s,
             "procs": procs, "ready": poll_ready(procs[0][0], port, 600)}
 
@@ -3371,7 +3462,8 @@ def checkpoint_boot(started: dict) -> dict:
     size, train_s = started["size"], started["train_s"]
     try:
         ready_s = started["ready"].result()
-        toks, _ = post(port, {"tokens": [1, 2, 3], "max_new_tokens": 8})
+        toks, _ = post(port, {"tokens": [1, 2, 3], "max_new_tokens": 8},
+                       model=short_preset(F32_GATE_LAYERS))
         samples = parse_exposition(get(port,
                                        "/monitoring/prometheus/metrics"))
     finally:
@@ -5935,7 +6027,7 @@ def short_preset(n_layers: int) -> str:
 
     from kubeflow_tpu_torch.models import transformer
 
-    name = f"{MODEL}-{n_layers}-layers"
+    name = preset_name(n_layers)
     transformer.PRESETS.setdefault(name, dataclasses.replace(
         transformer.PRESETS[MODEL], n_layers=n_layers))
     return name
@@ -7806,6 +7898,413 @@ def phase_rollout(smi: str) -> dict:
     return ee2
 
 
+# (gg): the RLJob on three H100-labelled nodes, llama-1b at full width,
+# F32_GATE_LAYERS deep, float32 (the identity gate's dtype; a push over
+# HTTP runs at tens of MB/s, so the depth keeps it short).
+GG_NS = "kubeflow"
+GG_POOL = "nvidia-h100-80gb"
+GG_NODES = 3
+GG_STEPS, GG_PUSH_EVERY = 2, 1  # one push, after step 1
+GG_PUSHES = (GG_STEPS - 1) // GG_PUSH_EVERY
+GG_PROMPTS = [(8, 16), (24, 16), (40, 16), (64, 16)]
+GG_DTYPE = "float32"
+
+
+def gg_pod_command(c: dict, rest_port: int | None = None) -> list[str]:
+    """A rendered pod's container command and args run on this host:
+    ``python -m <module>`` through :func:`preset_command`, its REST port
+    (the pod's own network's) on ``rest_port`` and no gRPC port (two
+    actors share this host)."""
+    if c["command"][:2] != ["python", "-m"]:
+        raise AssertionError(f"(gg) pod command {c['command']}")
+    args = list(c["command"][3:]) + list(c.get("args", []))
+    if rest_port is not None:
+        args = [f"--rest-port={rest_port}" if a.startswith("--rest-port=")
+                else a for a in args] + ["--grpc-port=-1"]
+    return preset_command(c["command"][2], args, F32_GATE_LAYERS, GG_DTYPE)
+
+
+def gg_pod_env(c: dict, local: dict, apiserver: str) -> dict:
+    """The pod's env on this host, its actor addresses (pod DNS) mapped to
+    the local ports the actors serve on, and ``KUBEFLOW_TPU_APISERVER``
+    naming the fake apiserver served here (a pod's client would find its
+    cluster's own)."""
+    from kubeflow_tpu_torch.operators.rl import ENV_RL_ACTORS
+
+    env = {**os.environ, "KUBEFLOW_TPU_APISERVER": apiserver}
+    for e in c.get("env", []):
+        value = e["value"]
+        if e["name"] == ENV_RL_ACTORS:
+            value = ",".join(local[a] for a in value.split(","))
+        env[e["name"]] = value
+    return env
+
+
+def serve_api(api, kinds: dict):
+    """The port's fake apiserver over HTTP on 127.0.0.1, as far as a pod's
+    client uses it here: GET a namespaced object and PUT its status
+    (``kinds``: plural -> kind). Returns the server; its URL is
+    ``http://127.0.0.1:<server_port>``."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from kubeflow_tpu_torch.k8s_client import ApiError
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+        def route(self):
+            # /apis/<group>/<version>/namespaces/<ns>/<plural>/<name>[/status]
+            parts = self.path.split("?")[0].strip("/").split("/")
+            if (len(parts) < 7 or parts[0] != "apis"
+                    or parts[3] != "namespaces" or parts[5] not in kinds):
+                raise ApiError(404, "NotFound", self.path)
+            return (f"{parts[1]}/{parts[2]}", kinds[parts[5]], parts[6],
+                    parts[4], parts[7:] == ["status"])
+
+        def answer(self, act):
+            try:
+                code, out = 200, act()
+            except ApiError as e:
+                code, out = e.code, {"kind": "Status", "code": e.code,
+                                     "reason": e.reason}
+            body = json.dumps(out).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            self.answer(lambda: api.get(*self.route()[:4]))
+
+        def do_PUT(self):
+            body = json.loads(self.rfile.read(
+                int(self.headers.get("Content-Length", 0))))
+
+            def put():
+                if not self.route()[4]:
+                    raise ApiError(405, "MethodNotAllowed", self.path)
+                return api.update_status(body)
+            self.answer(put)
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    httpd.daemon_threads = True
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd
+
+
+def pull_split(ports: list, model: str, timeout: float = 600.0):
+    """The weights the servers on ``ports`` serve over ``:pull``, chunk 0
+    from the first and the rest fetched from all of them at once (two
+    requests a server), assembled as ``pull_weights`` assembles them: one
+    epoch, every chunk. Returns ``(leaves, weights_version)``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kubeflow_tpu_torch.serving.weights import (
+        WeightChunkAssembler,
+        unpack_chunk,
+    )
+
+    def fetch(seq: int) -> dict:
+        conn = http.client.HTTPConnection(
+            "127.0.0.1", ports[seq % len(ports)], timeout=timeout)
+        try:
+            conn.request("POST", f"/v1/models/{model}:pull",
+                         body=json.dumps({"seq": seq}).encode(),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            body = resp.read()
+            if resp.status != 200:
+                raise AssertionError(f":pull chunk {seq}: HTTP "
+                                     f"{resp.status} {body[:200]!r}")
+            return unpack_chunk(json.loads(body))
+        finally:
+            conn.close()
+
+    first = fetch(0)
+    with ThreadPoolExecutor(max_workers=2 * len(ports)) as pool:
+        chunks = [first, *pool.map(fetch, range(1, first["chunks"]))]
+    versions = {c["weights_version"] for c in chunks}
+    if len(versions) != 1:
+        raise AssertionError(f":pull served weights of epochs {versions}")
+    asm = WeightChunkAssembler()
+    done = [asm.add(c) for c in chunks][-1]
+    if done is None:
+        raise AssertionError(":pull's chunks did not assemble")
+    return done[0], versions.pop()
+
+
+def pull_after_push(learner, ports: list, model: str, out: dict) -> None:
+    """(gg)'s gate pull (:func:`pull_split`), started once every actor's
+    exposition shows the learner's last push, so it runs beside the
+    learner's steps after it; ``out`` gets the leaves, their version and
+    the pull's seconds, or the error."""
+    try:
+        while min(parse_exposition(get(p, METRICS_PATH)).get(
+                "serving_weights_version", 0) for p in ports) < GG_PUSHES:
+            if learner.poll() is not None:
+                return
+            time.sleep(0.2)
+        t = time.perf_counter()
+        out["leaves"], out["version"] = pull_split(ports, model)
+        out["s"] = time.perf_counter() - t
+    except Exception as e:  # re-raised by the phase
+        out["error"] = e
+
+
+def gg_place(api) -> dict:
+    """(gg1): the RLJob controller, the scheduler and the JaxJob
+    controller in rounds from the CR's creation until both gangs have
+    their pods; the placements and pods checked."""
+    from kubeflow_tpu_torch.apis import scheduling as sched_api
+    from kubeflow_tpu_torch.manifests import generate, images
+    from kubeflow_tpu_torch.operators.jobs import JobController
+    from kubeflow_tpu_torch.operators.rl import RLJobController
+    from kubeflow_tpu_torch.scheduler.controller import SchedulerController
+
+    _crd, cr = generate("gpu-rl", {
+        "name": "rl", "namespace": GG_NS,
+        "model": preset_name(F32_GATE_LAYERS, GG_DTYPE),
+        "learner_steps": GG_STEPS, "push_every_steps": GG_PUSH_EVERY,
+        "actor_replicas": 2, "actor_min_replicas": 1,
+        "actor_max_replicas": 2, "gpus_per_replica": 1})
+    # The actors read their pool through the paged kernel.
+    cr["spec"]["actors"]["engine"]["kv_fused_attention"] = True
+    ctrls = [RLJobController(api), SchedulerController(api),
+             JobController(api, "JaxJob")]
+    t0 = time.perf_counter()
+    api.create(cr)
+    rounds = 0
+    while len(api.list("v1", "Pod", GG_NS)) < 3:
+        if rounds == 5:
+            raise AssertionError("(gg1) the gangs got no pods in 5 rounds: "
+                                 f"{api.list('v1', 'Pod', GG_NS)}")
+        rounds += 1
+        for ctrl in ctrls:
+            ctrl.reconcile_all()
+    placed_s = time.perf_counter() - t0
+    jobs = {j["metadata"]["name"]: j for j in api.list(
+        "kubeflow-tpu.org/v1", "JaxJob", GG_NS)}
+    learner, actors = jobs["rl-learner"], jobs["rl-actors"]
+    lp, ap = sched_api.placement(learner), sched_api.placement(actors)
+    want = ((learner["spec"]["priority"], learner["spec"]["preemptible"],
+             actors["spec"]["priority"], actors["spec"]["preemptible"]),
+            (lp["pool"], lp["nodes"], lp.get("elastic")),
+            (ap["pool"], ap["nodes"], ap["elastic"]))
+    if want != ((100, False, 0, True),
+                (GG_POOL, ["h100-0"], None),
+                (GG_POOL, ["h100-1", "h100-2"],
+                 {"granted": 2, "min": 2, "max": 2})):
+        raise AssertionError(f"(gg1) placements {want}")
+    pods = {p["metadata"]["name"]: p for p in api.list("v1", "Pod", GG_NS)}
+    nodes = {"rl-learner-worker-0": "h100-0", "rl-actors-worker-0":
+             "h100-1", "rl-actors-worker-1": "h100-2"}
+    for name, pod in pods.items():
+        (c,) = pod["spec"]["containers"]
+        env = {e["name"]: e["value"] for e in c["env"]}
+        job = name.rsplit("-worker-", 1)[0]
+        if (pod["spec"].get("nodeName") != nodes.get(name)
+                or pod["spec"]["nodeSelector"] != {
+                    sched_api.NODE_ACCEL_LABEL: GG_POOL}
+                or c["resources"]["limits"] != {images.GPU_RESOURCE: 1}
+                or env.get("KUBEFLOW_TPU_JOB_NAME") != job
+                or env.get("JAX_COORDINATOR_ADDRESS")
+                != f"{job}-worker-0.{job}.{GG_NS}:8476"
+                or env.get("JAX_NUM_PROCESSES") != str(
+                    len([n for n in pods if n.startswith(job)]))
+                or [k for k in env if k.startswith("TPU_")]):
+            raise AssertionError(f"(gg1) pod {name}: {pod['spec']}")
+    return {"rounds": rounds, "placed_s": placed_s, "pods": pods,
+            "placements": {"learner": lp, "actors": ap}}
+
+
+def phase_rl_job(smi: str) -> dict:
+    """(gg): see the docstring; its line's fields. The actors' boots run
+    side by side."""
+    from kubeflow_tpu_torch.apis import jobs as jobs_api
+    from kubeflow_tpu_torch.apis import rl as rl_api
+    from kubeflow_tpu_torch.apis import scheduling as sched_api
+    from kubeflow_tpu_torch.k8s_fake import FakeApiServer
+    from kubeflow_tpu_torch.manifests import objects as k8s
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.operators.jobs import JobController
+    from kubeflow_tpu_torch.operators.rl import RLJobController
+    from kubeflow_tpu_torch.serving.continuous import ContinuousDecoder
+    from kubeflow_tpu_torch.serving.weights import (
+        split_namespaces,
+        unflatten_params,
+    )
+    from kubeflow_tpu_torch.weights import _unflatten, flatten
+
+    load = os.getloadavg()[0]
+    api = FakeApiServer()
+    api.ensure_namespace(GG_NS)
+    for crd in (rl_api.rl_job_crd(), *jobs_api.all_job_crds(),
+                sched_api.scheduling_policy_crd()):
+        api.apply(crd)
+    api.create(sched_api.scheduling_policy(namespace=GG_NS))
+    for i in range(GG_NODES):
+        api.create(k8s.node(f"h100-{i}", {
+            sched_api.NODE_ACCEL_LABEL: GG_POOL,
+            sched_api.NODE_SLICE_LABEL: "h100"}, gpus=1))
+    gg1 = gg_place(api)
+    pods = gg1["pods"]
+    name = preset_name(F32_GATE_LAYERS, GG_DTYPE)
+    os.makedirs("chiprun_out", exist_ok=True)
+    httpd = serve_api(api, {"jaxjobs": "JaxJob"})
+    apiserver = f"http://127.0.0.1:{httpd.server_port}"
+    procs, local, ports, boots = [], {}, [], []
+    try:
+        for i in range(2):
+            pod = pods[f"rl-actors-worker-{i}"]
+            (c,) = pod["spec"]["containers"]
+            port = free_port()
+            log = open(f"chiprun_out/gg_actor{i}.log", "w")
+            proc = subprocess.Popen(gg_pod_command(c, port), stdout=log,
+                                    stderr=subprocess.STDOUT, text=True,
+                                    env=gg_pod_env(c, local, apiserver))
+            proc.started = time.perf_counter()
+            procs.append((proc, log))
+            ports.append(port)
+            boots.append(poll_ready(proc, port))
+            local[f"rl-actors-worker-{i}.rl-actors.{GG_NS}:8500"] = \
+                f"127.0.0.1:{port}"
+        boot_s = [b.result() for b in boots]
+        (c,) = pods["rl-learner-worker-0"]["spec"]["containers"]
+        t0 = time.perf_counter()
+        learner = subprocess.Popen(
+            gg_pod_command(c), env=gg_pod_env(c, local, apiserver),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        pulled: dict = {}
+        puller = threading.Thread(target=pull_after_push,
+                                  args=(learner, ports, name, pulled))
+        puller.start()
+        try:
+            stdout, stderr = learner.communicate(timeout=600)
+        finally:
+            if learner.poll() is None:
+                learner.kill()
+                learner.communicate()
+            puller.join(timeout=600)
+        learner_s = time.perf_counter() - t0
+        with open("chiprun_out/gg_learner.log", "w") as f:
+            f.write(stdout + stderr)
+        if learner.returncode != 0:
+            raise AssertionError(f"(gg) the learner exited "
+                                 f"{learner.returncode}: {stderr[-2000:]}")
+        if "error" in pulled:
+            raise pulled["error"]
+        if "leaves" not in pulled:
+            raise AssertionError("(gg) the actors never showed the push")
+        lines = stdout.splitlines()
+        metrics = json.loads(next(
+            ln for ln in lines if ln.startswith("kubeflow-tpu-metrics: ")
+        ).split(": ", 1)[1])
+        result = json.loads(next(ln for ln in reversed(lines)
+                                 if ln.startswith("{")))
+        flash = json.loads(next(
+            ln for ln in lines if ln.startswith("kernel-launches: ")
+        ).split(": ", 1)[1])
+
+        # The gate: each actor against a decoder on the gathered read
+        # built from the weights the actors' :pull serves.
+        dev = torch.device("cuda")
+        model = get_model(MODEL, dtype=torch.float32,
+                          n_layers=F32_GATE_LAYERS)
+        cfg = model.config
+        leaves, pulled_version = pulled.pop("leaves"), pulled["version"]
+        reference = model.init(cfg, generator=torch.Generator(
+            device=dev).manual_seed(0), device=dev)
+        host = unflatten_params(split_namespaces(leaves)[0], reference)
+        params = _unflatten({p: t.to(dev, torch.float32)
+                             for p, t in flatten(host).items()})
+        del leaves, reference, host
+        rng = np.random.RandomState(21)
+        bodies = [{"tokens": rng.randint(0, cfg.vocab_size, size=n).tolist(),
+                   "max_new_tokens": m} for n, m in GG_PROMPTS]
+        dec = ContinuousDecoder(params, cfg, slots=8, prefill_len=128,
+                                max_new_tokens=16, kv_layout="paged",
+                                kv_block_size=16, kv_fused=False)
+        try:
+            want = [dec.generate(b["tokens"], b["max_new_tokens"],
+                                 timeout=600)["tokens"] for b in bodies]
+        finally:
+            dec.stop()
+            del dec, params
+            torch.cuda.empty_cache()
+        gates, launches = {}, {}
+        for i, port in enumerate(ports):
+            got = [post(port, b, model=name)[0] for b in bodies]
+            gates[f"actor{i}"] = compare_streams(got, want)
+            launches[f"actor{i}"] = launches_of(port)
+            version = parse_exposition(get(port, METRICS_PATH))[
+                "serving_weights_version"]
+            if version != metrics["weights_version"]:
+                raise AssertionError(f"(gg) actor{i} holds weights "
+                                     f"v{version}")
+    finally:
+        stop_procs(procs)
+        httpd.shutdown()
+    for i, (n, fwd) in launches.items():
+        require_launches(n, fwd, F32_GATE_LAYERS, f"(gg) {i}")
+    bad = [k for k, v in gates.items() if not v["identical"]]
+    if bad or pulled_version != metrics["weights_version"]:
+        raise AssertionError(f"(gg) f32 greedy tokens of {bad} differ from "
+                             f"the pulled weights' (v{pulled_version}): "
+                             f"{gates}")
+    if not (flash.get("flash_attention_fwd") and
+            flash.get("flash_attention_bwd")):
+        raise AssertionError(f"(gg) the learner's flash launches {flash}")
+
+    # The learner's publish reached its JaxJob's status; the pods' ends in
+    # the fake, then one more reconcile.
+    job = api.get("kubeflow-tpu.org/v1", "JaxJob", "rl-learner", GG_NS)
+    published = job.get("status", {}).get("metrics")
+    if published != metrics:
+        raise AssertionError(f"(gg) the learner's publish: status.metrics "
+                             f"{published}, its line {metrics}")
+    for pod, phase in (("rl-learner-worker-0", "Succeeded"),
+                       ("rl-actors-worker-0", "Running"),
+                       ("rl-actors-worker-1", "Running")):
+        obj = api.get("v1", "Pod", pod, GG_NS)
+        obj["status"] = {"phase": phase}
+        api.update_status(obj)
+    JobController(api, "JaxJob").reconcile_all()
+    RLJobController(api).reconcile_all()
+    status = api.get(rl_api.RL_API_VERSION, rl_api.RL_KIND, "rl",
+                     GG_NS)["status"]
+    if (status.get("weightsVersion") != metrics["weights_version"]
+            or metrics["weights_version"] != metrics["pushes"]
+            or metrics["pushes"] < 1 or status["phase"] != "Succeeded"):
+        raise AssertionError(f"(gg) RLJob status {status}, learner "
+                             f"{metrics}")
+    out = {"gpu": smi, "model": name, "rounds_to_placed": gg1["rounds"],
+           "seconds_to_placed": gg1["placed_s"],
+           "placements": gg1["placements"],
+           "actor_boot_s": boot_s,
+           "boot_reading": "the two actors boot side by side",
+           "learner_process_s": learner_s,
+           "steps": result["step"], "pushes": result["pushes"],
+           "push_ms": result["push_ms_avg"],
+           "rollout_tokens": result["rollout_tokens"],
+           "rollout_tokens_per_s": result["rollout_tokens_per_sec"],
+           "learner_steps_per_s": result["step"] / result["elapsed_s"],
+           "learner_elapsed_s": result["elapsed_s"],
+           "gate_pull_s": pulled["s"],
+           "learner_reading": "the gate's pull runs beside the learner's "
+                              "steps after its push",
+           "load_1m_at_start": load,
+           "learner_flash_launches": {k: flash.get(k, 0) for k in (
+               "flash_attention_fwd", "flash_attention_bwd")},
+           "actor_paged_launches": {k: v[0] for k, v in launches.items()},
+           "actor_decode_forwards": {k: v[1] for k, v in launches.items()},
+           "published_metrics": published,
+           "rljob_status": status, "f32_gates": gates}
+    emit("gg_rl_job", **out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7944,7 +8443,7 @@ def main() -> int:
     # (dd1)'s checks, (dd2), (ee3)'s walks, (cc) and (r)'s f32 gates run,
     # (cc)'s and (dd2)'s timed lines saying so in their ``reading``;
     # (q)'s f32 gates run while (dd1)'s two servers boot; (ee2)'s timed
-    # walks run after, alone. (q)'s and (r)'s gates time nothing.
+    # walks and (gg) run after, alone. (q)'s and (r)'s gates time nothing.
     booting = "(ee1)'s r1 and (ee3)'s peer pair booting over :pull"
     pool, pair = RenderedPool(), None
     try:
@@ -7976,6 +8475,8 @@ def main() -> int:
             stop_peer_pair(pair)
     ee2 = phase_rollout(smi)
     mark("ee_inference_rollout")
+    gg = phase_rl_job(smi)
+    mark("gg_rl_job")
     emit("phase_seconds", **seconds, total_s=time.perf_counter() - t0)
 
     p, r = paged["bf16"], rms[f"{SLOTS}x2048"]
@@ -7993,7 +8494,8 @@ def main() -> int:
            for tag in ("bf16", "f32")},
         **{f"inference_service_{r}": run["paged_launches"]
            for r, run in ee1["launches"].items()},
-        "rollout_fleet": ee2["launches"]}
+        "rollout_fleet": ee2["launches"],
+        "rl_job_actors": sum(gg["actor_paged_launches"].values())}
     table = [
         {"name": "paged_decode_attention", "route": "cuda",
          "source": "kubeflow_tpu_torch/csrc/paged_decode.cu",
@@ -8075,6 +8577,8 @@ def main() -> int:
                     by_path[f"elastic_train_rank{i}"] = got[key]
                 by_path["rl_learner"] = fleet["bb3"][
                     "learner_flash_launches"][key]
+                by_path["rl_job_learner"] = gg["learner_flash_launches"][
+                    key]
                 bert_cc3 = axes["cc3"]["bert"]
                 by_path["bert_sequence2_train_rank0"] = bert_cc3[
                     "rank_launches"][key]

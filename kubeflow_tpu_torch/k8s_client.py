@@ -1,6 +1,7 @@
 """The part of the apiserver client the port uses; a standard library copy
 of ``kubeflow_tpu/k8s/client.py`` (``ApiError``, ``KindRegistry``, the
-``K8sClient`` surface, ``retry_on_conflict``) with its
+``K8sClient`` surface with ``patch`` and ``delete_if_exists``,
+``merge_patch``, ``retry_on_conflict``) with its
 ``HttpK8sClient`` over ``urllib.request`` (the GPU image has no
 ``requests``) and no watch: the training loop GETs its job and writes its
 status, the Experiment controller lists, gets, creates, replaces and
@@ -84,6 +85,8 @@ _KNOWN_KINDS: dict[str, tuple[str, bool]] = {
     **{k: (p, True) for k, p in JOB_PLURALS.items()},
     "Experiment": ("experiments", True),
     "InferenceService": ("inferenceservices", True),
+    "RLJob": ("rljobs", True),
+    "SchedulingPolicy": ("schedulingpolicies", True),
     # The CRs the dashboards list, as JAX's platform registry holds them.
     "Notebook": ("notebooks", True),
     "StudyJob": ("studyjobs", True),
@@ -179,9 +182,25 @@ class K8sClient:
     def update_status(self, obj: dict) -> dict:
         raise NotImplementedError
 
+    def patch(self, api_version: str, kind: str, name: str, patch: dict,
+              namespace: str | None = None) -> dict:
+        """An RFC 7386 JSON merge patch (``kubectl --type=merge``): nulls
+        delete keys; it always applies to the latest object."""
+        raise NotImplementedError
+
     def delete(self, api_version: str, kind: str, name: str,
                namespace: str | None = None) -> None:
         raise NotImplementedError
+
+    def delete_if_exists(self, api_version: str, kind: str, name: str,
+                         namespace: str | None = None) -> bool:
+        try:
+            self.delete(api_version, kind, name, namespace)
+            return True
+        except ApiError as e:
+            if e.code == 404:
+                return False
+            raise
 
     def apply(self, obj: dict) -> dict:
         """Create-or-update."""
@@ -214,6 +233,23 @@ def match_labels(obj: Mapping[str, Any],
         return True
     labels = obj.get("metadata", {}).get("labels", {}) or {}
     return all(labels.get(k) == v for k, v in selector.items())
+
+
+def merge_patch(base: dict, patch: Mapping[str, Any]) -> dict:
+    """RFC 7386 JSON merge patch (nulls delete keys)."""
+    out = copy.deepcopy(base)
+
+    def _merge(dst: dict, src: Mapping[str, Any]) -> None:
+        for k, v in src.items():
+            if v is None:
+                dst.pop(k, None)
+            elif isinstance(v, Mapping) and isinstance(dst.get(k), dict):
+                _merge(dst[k], v)
+            else:
+                dst[k] = copy.deepcopy(v)
+
+    _merge(out, patch)
+    return out
 
 
 def retry_on_conflict(client: K8sClient, fn: Callable[[K8sClient], Any],
@@ -276,8 +312,9 @@ class HttpK8sClient(K8sClient):
         return "".join(parts)
 
     def _request(self, method: str, path: str, body: dict | None = None,
-                 params: Mapping[str, str] | None = None) -> dict:
-        headers = {"Content-Type": "application/json"}
+                 params: Mapping[str, str] | None = None,
+                 content_type: str = "application/json") -> dict:
+        headers = {"Content-Type": content_type}
         if self._cfg.token:
             headers["Authorization"] = f"Bearer {self._cfg.token}"
         data = None if body is None else json.dumps(body).encode()
@@ -342,6 +379,12 @@ class HttpK8sClient(K8sClient):
         path = self._path(obj["apiVersion"], obj["kind"], m.get("namespace"),
                           m["name"]) + "/status"
         return self._request("PUT", path, body=obj)
+
+    def patch(self, api_version: str, kind: str, name: str, patch: dict,
+              namespace: str | None = None) -> dict:
+        return self._request(
+            "PATCH", self._path(api_version, kind, namespace, name),
+            body=patch, content_type="application/merge-patch+json")
 
     def delete(self, api_version: str, kind: str, name: str,
                namespace: str | None = None) -> None:

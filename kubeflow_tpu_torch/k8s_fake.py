@@ -4,12 +4,13 @@
 Experiment controller's in-process runs and the tests.
 
 Kept from JAX's: uid / resourceVersion / creationTimestamp assignment,
-optimistic-concurrency conflicts on a stale resourceVersion, status as a
+optimistic-concurrency conflicts on a stale resourceVersion, merge
+patches (the scheduler's placement writes), status as a
 subresource (a spec update keeps the status and a status update keeps the
 spec), namespace existence, label-selector lists, ownerReference cascade
 deletion, and CRD registration (applying a CRD makes its kind servable at
 its storage version). Left out, as nothing of the port uses them: watch
-streams, merge patches and the migration of stored objects when a CRD's
+streams and the migration of stored objects when a CRD's
 storage version moves.
 """
 
@@ -26,6 +27,7 @@ from kubeflow_tpu_torch.k8s_client import (
     K8sClient,
     KindRegistry,
     match_labels,
+    merge_patch,
 )
 
 
@@ -171,6 +173,25 @@ class FakeApiServer(K8sClient):
 
     def update_status(self, obj: dict) -> dict:
         return self._update(obj, subresource="status")
+
+    def patch(self, api_version: str, kind: str, name: str, patch: dict,
+              namespace: str | None = None) -> dict:
+        """JAX's fake's merge patch: applied to the latest object (any
+        resourceVersion in the patch is dropped); a patch naming
+        ``status`` writes it through the status subresource."""
+        with self._lock:
+            current = self.get(api_version, kind, name, namespace)
+            patched = merge_patch(current, patch)
+            patched["metadata"]["resourceVersion"] = (
+                current["metadata"]["resourceVersion"])
+            if "status" in patch:
+                with_status = self._update(patched, subresource="status")
+                if set(patch.keys()) - {"status"}:
+                    patched["metadata"]["resourceVersion"] = (
+                        with_status["metadata"]["resourceVersion"])
+                    return self._update(patched, subresource=None)
+                return with_status
+            return self._update(patched, subresource=None)
 
     def delete(self, api_version: str, kind: str, name: str,
                namespace: str | None = None) -> None:

@@ -4,7 +4,8 @@
 
 A *prototype* is a registered function taking validated params and
 returning a list of Kubernetes objects (plain dicts). The port's
-prototypes live in this package (``serving.py``, ``training.py``) and
+prototypes live in this package (``common.py``, ``rl.py``,
+``scheduling.py``, ``serving.py``, ``training.py``) and
 register on import; JAX's prototypes never load into this registry.
 """
 
@@ -18,7 +19,7 @@ from typing import Any, Callable, Mapping, Sequence
 DEFAULT_NAMESPACE = "kubeflow"
 
 # The modules whose prototypes :func:`load_all_packages` registers.
-PACKAGES = ("common", "serving", "training")
+PACKAGES = ("common", "rl", "scheduling", "serving", "training")
 
 
 class PrototypeError(Exception):

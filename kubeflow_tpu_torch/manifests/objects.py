@@ -199,6 +199,42 @@ def service(
     }
 
 
+def headless_service(
+    name: str,
+    namespace: str,
+    selector: Mapping[str, str],
+    ports: Sequence[Mapping[str, Any]],
+    labels: Mapping[str, str] | None = None,
+) -> dict:
+    """A headless Service for stable per-pod DNS: the rendezvous address
+    fabric of a job's gang."""
+    return service(
+        name, namespace, selector, ports, labels=labels, cluster_ip="None"
+    )
+
+
+def node(name: str, labels: Mapping[str, str] | None = None, *,
+         gpus: int = 0, unschedulable: bool = False,
+         ready: bool = True) -> dict:
+    """A Node object the scheduler's capacity model reads: GPU hosts carry
+    GKE's accelerator label (and a slice label grouping hosts) and
+    advertise their GPUs in ``status.capacity``; the counterpart of JAX's
+    ``node`` with ``nvidia.com/gpu`` for ``google.com/tpu``."""
+    obj: dict = {
+        "apiVersion": "v1", "kind": "Node",
+        "metadata": metadata(name, labels=labels),
+        "status": {
+            "conditions": [{"type": "Ready",
+                            "status": "True" if ready else "False"}],
+        },
+    }
+    if gpus:
+        obj["status"]["capacity"] = {"nvidia.com/gpu": gpus}
+    if unschedulable:
+        obj["spec"] = {"unschedulable": True}
+    return obj
+
+
 def crd(
     group: str,
     kind: str,
@@ -231,6 +267,26 @@ def crd(
                 "conversion": conversion,
             }
         ),
+    }
+
+
+def crd_conversion_webhook(service_name: str, namespace: str,
+                           path: str = "/convert",
+                           ca_bundle: str = "") -> dict:
+    """spec.conversion stanza calling a conversion webhook (what an
+    apiserver needs to convert between served versions whose schemas
+    differ)."""
+    client_config: dict = {"service": {"name": service_name,
+                                       "namespace": namespace,
+                                       "path": path}}
+    if ca_bundle:
+        client_config["caBundle"] = ca_bundle
+    return {
+        "strategy": "Webhook",
+        "webhook": {
+            "clientConfig": client_config,
+            "conversionReviewVersions": ["v1"],
+        },
     }
 
 

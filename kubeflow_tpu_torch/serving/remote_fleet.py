@@ -12,10 +12,10 @@ learner loop (:mod:`kubeflow_tpu_torch.train.rl`) needs from a fleet:
 - ``generate`` — one rollout over ``:predict`` (round-robin with dead-
   target exclusion; a dead actor costs throughput, never the run);
 - ``broadcast_weights`` — the chunked weight push
-  (:func:`kubeflow_tpu_torch.serving.weights.push_weights`) fanned out
-  CONCURRENTLY at each actor's ``:weights`` endpoint, straggler-
-  tolerant with the same ``max_lag`` routing exclusion as the
-  in-process fleet;
+  (:func:`kubeflow_tpu_torch.serving.weights.push_weights`'s chunks,
+  encoded once) fanned out CONCURRENTLY at each actor's ``:weights``
+  endpoint, straggler-tolerant with the same ``max_lag`` routing
+  exclusion as the in-process fleet;
 - ``metrics``/``stop`` — enough bookkeeping for the result dict.
 
 Weight bytes travel learner→actor directly, never through the gateway.
@@ -31,7 +31,11 @@ from kubeflow_tpu_torch.serving.affinity import (
     DEFAULT_AFFINITY_TOKENS,
     prefix_affinity_key,
 )
-from kubeflow_tpu_torch.serving.weights import DEFAULT_CHUNK_BYTES, push_weights
+from kubeflow_tpu_torch.serving.weights import (
+    DEFAULT_CHUNK_BYTES,
+    chunk_bodies,
+    post_chunks,
+)
 
 
 class RemoteActorFleet:
@@ -243,12 +247,15 @@ class RemoteActorFleet:
                        if m not in known}
             live = [t for t in live if t in set(members)]
 
+        # Encoded once, not once a target: the encoding holds the GIL,
+        # so the targets' threads would take turns at it.
+        bodies = chunk_bodies(params, target_v, draft_params=draft_params,
+                              chunk_bytes=self.chunk_bytes) if live else []
+
         def push(addr):
             try:
-                out = push_weights(addr, self.model, params, target_v,
-                                   draft_params=draft_params,
-                                   chunk_bytes=self.chunk_bytes,
-                                   timeout=self.timeout)
+                out = post_chunks(addr, self.model, bodies,
+                                  timeout=self.timeout)
                 return addr, int(out.get("weights_version", target_v)), \
                     None
             except Exception as e:  # noqa: BLE001 — recorded per target

@@ -228,6 +228,40 @@ def split_namespaces(leaves: dict) -> tuple[dict, dict]:
     return model, draft
 
 
+def chunk_bodies(params, weights_version: int, *, draft_params=None,
+                 chunk_bytes: int = DEFAULT_CHUNK_BYTES) -> list[bytes]:
+    """The push's request bodies: each envelope of :func:`pack_weights`
+    as JSON bytes, encoded once however many servers receive them."""
+    return [json.dumps(env).encode()
+            for env in pack_weights(params, weights_version,
+                                    chunk_bytes=chunk_bytes,
+                                    draft_params=draft_params)]
+
+
+def post_chunks(target: str, model: str, bodies: list[bytes], *,
+                timeout: float = 60.0) -> dict:
+    """POST :func:`chunk_bodies`' bodies at ``target``'s ``:weights``
+    endpoint in order; returns the final chunk's response dict."""
+    host, _, port_s = target.partition(":")
+    out: dict = {}
+    for seq, data in enumerate(bodies):
+        conn = HTTPConnection(host, int(port_s or 80), timeout=timeout)
+        try:
+            conn.request("POST", f"/v1/models/{model}:weights",
+                         body=data,
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            body = resp.read()
+            if resp.status != 200:
+                raise ValueError(
+                    f"weights push chunk {seq} refused: "
+                    f"HTTP {resp.status} {body[:200]!r}")
+            out = json.loads(body or b"{}")
+        finally:
+            conn.close()
+    return out
+
+
 def push_weights(target: str, model: str, params, weights_version: int,
                  *, draft_params=None,
                  chunk_bytes: int = DEFAULT_CHUNK_BYTES,
@@ -238,27 +272,9 @@ def push_weights(target: str, model: str, params, weights_version: int,
     final chunk's response dict ({"installed": bool, "weights_version":
     int}). Raises ``OSError``/``ValueError`` on transport or protocol
     failure — the caller (broadcast, operator) owns retry policy."""
-    host, _, port_s = target.partition(":")
-    out: dict = {}
-    for env in pack_weights(params, weights_version,
-                            chunk_bytes=chunk_bytes,
-                            draft_params=draft_params):
-        data = json.dumps(env).encode()
-        conn = HTTPConnection(host, int(port_s or 80), timeout=timeout)
-        try:
-            conn.request("POST", f"/v1/models/{model}:weights",
-                         body=data,
-                         headers={"Content-Type": "application/json"})
-            resp = conn.getresponse()
-            body = resp.read()
-            if resp.status != 200:
-                raise ValueError(
-                    f"weights push chunk {env['seq']} refused: "
-                    f"HTTP {resp.status} {body[:200]!r}")
-            out = json.loads(body or b"{}")
-        finally:
-            conn.close()
-    return out
+    return post_chunks(target, model, chunk_bodies(
+        params, weights_version, draft_params=draft_params,
+        chunk_bytes=chunk_bytes), timeout=timeout)
 
 
 def pull_weights(source: str, model: str, *,

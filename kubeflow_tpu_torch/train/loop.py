@@ -509,7 +509,9 @@ def publish_metrics(result: dict, *, client=None, environ=None,
     (the path the study and benchmark controllers read), after their log
     line for log-scraping collectors. Without the job's environment
     (``KUBEFLOW_TPU_JOB_NAME``) only the line; a failed publish is
-    logged, never raised (it must not stop a job that trained)."""
+    logged, never raised (it must not stop a job that trained). The
+    apiserver is ``KUBEFLOW_TPU_APISERVER``'s where it is set, as for
+    the placement poller, else the client's default."""
     env = os.environ if environ is None else environ
     metrics = {k: v for k, v in result.items()
                if isinstance(v, (int, float)) and v is not None}
@@ -521,9 +523,14 @@ def publish_metrics(result: dict, *, client=None, environ=None,
     kind = env.get(apis.ENV_JOB_KIND, "JaxJob")
     try:
         if client is None:
-            from kubeflow_tpu_torch.k8s_client import HttpK8sClient
+            from kubeflow_tpu_torch.k8s_client import (
+                ClusterConfig,
+                HttpK8sClient,
+            )
 
-            client = HttpK8sClient()
+            host = env.get(elastic_lib.ENV_APISERVER)
+            client = HttpK8sClient(ClusterConfig(host=host) if host
+                                   else None)
         job = client.get(apis.JOBS_API_VERSION, kind, name, ns)
         job.setdefault("status", {})["metrics"] = metrics
         client.update_status(job)

@@ -106,6 +106,8 @@ def test_entry_points_import_without_jax():
     module = re.search(r'"-m",\s*"([\w.]+)"', entry).group(1)
     modules = [module, "kubeflow_tpu_torch.manifests.__main__",
                "kubeflow_tpu_torch.operators.__main__",
+               "kubeflow_tpu_torch.scheduler.__main__",
+               "kubeflow_tpu_torch.train.rl",
                "kubeflow_tpu_torch.tuning.sweep",
                "kubeflow_tpu_torch.observability.lint",
                "kubeflow_tpu_torch.serving.scenarios",

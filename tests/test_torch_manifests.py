@@ -66,8 +66,17 @@ PAIRS = {
                          jimages.PLATFORM, None, None),
     "training-dashboard": ("training-dashboard", "training-dashboard",
                            jimages.PLATFORM, None, None),
+    # The RLJob CR (its pods are rendered by the RLJob controller) and
+    # the cluster scheduler, a host process.
+    "rl": ("rl-job", "gpu-rl", jimages.PLATFORM, "chips_per_replica",
+           "gpus_per_replica"),
+    "scheduler": ("scheduler", "gpu-scheduler", jimages.PLATFORM, None,
+                  None),
 }
-HOST_PAIRS = ("gateway", "centraldashboard", "training-dashboard")
+HOST_PAIRS = ("gateway", "centraldashboard", "training-dashboard",
+              "scheduler")
+# Pairs that ship a CRD whose schema stays JAX's (``spec.tpu`` kept).
+JAX_SCHEMA_PAIRS = ("rl",)
 
 SERVING_PARAMS = [
     {"name": "llama", "model_name": "llama-1b"},
@@ -109,6 +118,11 @@ PARAMS = {
                      "service_type": "LoadBalancer", "tls_secret": "tls"}],
     "centraldashboard": [{}, {"namespace": "team"}],
     "training-dashboard": [{}, {"namespace": "team"}],
+    "rl": [{}, {"name": "podracer", "model": "llama-1b",
+                "chips_per_replica": 0, "actor_replicas": 3,
+                "actor_max_replicas": 6, "namespace": "team"}],
+    "scheduler": [{}, {"namespace": "team", "aging_seconds": 60,
+                       "preemption_enabled": False}],
 }
 CASES = [(pair, i) for pair in PAIRS for i in range(len(PARAMS[pair]))]
 
@@ -180,6 +194,8 @@ def to_gpu(pair: str, objs: list[dict]) -> list[dict]:
         for lab in labels:
             if lab.get("service") == jproto:
                 lab["service"] = tproto
+        if obj["kind"] == "RLJob" and spec.get("image") == default_image:
+            spec["image"] = images.TORCH_CUDA
         # The port's own entry points take --device; a third-party
         # image's command is its own.
         # The gateway and the dashboards take no --device.
@@ -202,7 +218,8 @@ def test_gpu_prototype_equals_jax_under_the_mapping(pair, i):
     assert got == want
     text = json.dumps(got)
     assert TPU not in text and "kubeflow_tpu." not in text
-    assert '"tpu"' not in text
+    if pair not in JAX_SCHEMA_PAIRS:
+        assert '"tpu"' not in text
 
 
 def test_the_port_registry_holds_only_its_own_prototypes():

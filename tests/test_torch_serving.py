@@ -326,12 +326,17 @@ PLATFORM_MODULES = [
     "kubeflow_tpu_torch.gateway.proxy",
     "kubeflow_tpu_torch.gateway.resilience",
     "kubeflow_tpu_torch.gateway.routing",
+    "kubeflow_tpu_torch.apis.jobs",
+    "kubeflow_tpu_torch.apis.rl",
+    "kubeflow_tpu_torch.apis.scheduling",
     "kubeflow_tpu_torch.k8s_client",
     "kubeflow_tpu_torch.k8s_fake",
     "kubeflow_tpu_torch.manifests.__main__",
     "kubeflow_tpu_torch.manifests.core",
     "kubeflow_tpu_torch.manifests.images",
     "kubeflow_tpu_torch.manifests.objects",
+    "kubeflow_tpu_torch.manifests.rl",
+    "kubeflow_tpu_torch.manifests.scheduling",
     "kubeflow_tpu_torch.manifests.serving",
     "kubeflow_tpu_torch.manifests.training",
     "kubeflow_tpu_torch.observability.lint",
@@ -339,9 +344,15 @@ PLATFORM_MODULES = [
     "kubeflow_tpu_torch.operators.base",
     "kubeflow_tpu_torch.operators.experiment",
     "kubeflow_tpu_torch.operators.inference",
+    "kubeflow_tpu_torch.operators.jobs",
+    "kubeflow_tpu_torch.operators.rl",
     "kubeflow_tpu_torch.operators.rollout",
     "kubeflow_tpu_torch.operators.runstore",
     "kubeflow_tpu_torch.runtime",
+    "kubeflow_tpu_torch.scheduler.__main__",
+    "kubeflow_tpu_torch.scheduler.capacity",
+    "kubeflow_tpu_torch.scheduler.controller",
+    "kubeflow_tpu_torch.scheduler.queue",
     "kubeflow_tpu_torch.tuning.suggestions",
     "kubeflow_tpu_torch.tuning.sweep",
 ]
