@@ -25,7 +25,8 @@ flagship-1b over sequence and flagship-deep over pipeline), elastic
 training (a gang that shrinks and grows while flagship-1b trains) and the
 job entry points (the health probe, the ResNet workload, batch predict),
 the decoder fleet with its KV economy, the remote actor fleet and the RL
-learner on the fleet, and checks the output. Phases, each printed as one JSON line:
+learner on the fleet, the platform's controllers (placement, leader
+election, the compat jobs, notebooks), and checks the output. Phases, each printed as one JSON line:
 
 (a) the card and the kernels' build times;
 (b) the paged decode kernel against ``_paged_decode_plain`` at the main
@@ -385,7 +386,8 @@ learner on the fleet, and checks the output. Phases, each printed as one JSON li
     replica stopped under a stream (the 502-coded error) and the next
     submit on a survivor; (bb3) ``train.rl.run_rl`` at llama-1b: the
     learner (float32 masters, adafactor) and two actors on the card,
-    batch 4, 64-token prompts, 32 new tokens, 4 steps, a push every 2:
+    batch 4, 64-token prompts, 16 new tokens, 4 steps,
+    a push every 2:
     the result dict, the learner's flash launches (16 x 4 x 2 forward, x
     1 backward), the actors' paged launches (16 x their decode
     forwards), then the restart-per-update baseline at 2 steps of
@@ -513,23 +515,67 @@ learner on the fleet, and checks the output. Phases, each printed as one JSON li
     its placement's node with the GPU selector, ``nvidia.com/gpu`` 1 and
     the rendezvous env (no ``TPU_*`` key); then each pod's own command
     runs here (its REST port and the learner's actor addresses mapped to
-    local ports; ``PRESET_MAIN`` registers llama-1b at full width, 2
-    layers, float32 in each process, as no command line can name it):
-    two actor servers boot, the learner takes GG_STEPS steps and pushes
+    local ports; ``PRESET_MAIN`` registers llama-1b at full width,
+    GG_LAYERS (1) layer, float32 in each process, as no command line can
+    name it):
+    two actor servers boot, the learner takes GG_STEPS steps (rollouts of
+    GG_NEW tokens a prompt) and pushes
     over ``:weights``; its ``publish_metrics`` writes its metrics into
     its JaxJob's status through the fake apiserver served over HTTP
-    (``serve_api``, named by ``KUBEFLOW_TPU_APISERVER``), and after one
+    (``k8s_fake.serve``, named by ``KUBEFLOW_TPU_APISERVER``), and after one
     more reconcile the RLJob's ``weightsVersion`` must equal its last
     push. Gates: each actor's greedy tokens for four prompts equal an
     in-process decoder's on the gathered (plain) read built from the
     weights the actors' ``:pull`` serves (``pull_split``: its chunks
     fetched from both actors at once, from the moment both show the push,
-    beside the learner's last step); each actor's paged launches = 2
-    layers x its decode forwards (its exposition); the learner's flash
+    beside the learner's last step); each actor's paged launches =
+    GG_LAYERS x its decode forwards (its exposition); the learner's flash
     forward and backward launches (its process's count) are not zero.
     Lines: rounds and seconds to both placements, the actors' boots,
     the push's ms, rollout tokens/s and learner steps/s. It runs alone,
     last;
+(hh) leader election, the compat jobs and a GPU notebook through the
+    port's training control plane (``phase_leader_compat_notebooks``),
+    in a thread beside (r)'s training, (t) and (u) (the cluster is
+    ``fake_gpu_cluster``'s, as (gg)'s): the port's fake apiserver served
+    over HTTP
+    (``k8s_fake.serve``) to every process, HH_NODES Node objects labelled
+    as (gg)'s, a SchedulingPolicy of a round a second. (hh1) two
+    ``python -m kubeflow_tpu_torch.scheduler --leader-elect`` processes:
+    exactly one holds the Lease ``scheduler`` (its log says it acquired,
+    the other's only that it waits) and places a managed JaxJob; SIGTERM
+    makes it release the Lease and exit 0, the standby takes the Lease
+    (the seconds from the SIGTERM, up to one 5 s renew period) and
+    places the next JaxJob, while (hh2)-(hh4) run. (hh2) ``gpu-mpi-job`` (one worker, one GPU,
+    made scheduler-managed by a priority) placed by the leading
+    scheduler before the SIGTERM, its pods written by the port's job
+    controller; the
+    Launcher (no GPU, as JAX's asks for no chip) runs ``mpi_launcher
+    --single-process-arg=--device=cpu -- allreduce_bench`` (the
+    hostfile's workers mapped to this host; ``mpirun`` where the card
+    has it, else the command here on the CPU, gloo at world size 1), the
+    Worker's on ``cuda:0``, NCCL at world size 1; both exit 0, each
+    prints its
+    summary over one device, ``status.metrics.allreduce_peak_gbps``
+    arrives through ``publish_metrics`` over HTTP, the job ends
+    Succeeded; the line says whether ``mpirun`` was found and claims no
+    bandwidth. (hh3) ``gpu-mxnet-job`` (a scheduler, two servers, two
+    workers: ``mxnet_ps --steps HH_STEPS``) and ``gpu-chainer-job`` (a
+    master, two workers: ``chainermn_train``), placed and written the
+    same way, each pod's command run here from the env the port's
+    controller wrote (the job's addresses 127.0.0.1, its rendezvous port
+    a free one): every worker converges, each server takes 2 x
+    HH_STEPS pushes, the scheduler sees both workers finalize, the three
+    Chainer ranks end on one model (one ``model_digest``), both jobs end
+    Succeeded. (hh4) a Notebook POSTed to the port's jupyter web app
+    (``tpuChips`` 1), its CR given the pool ``nvidia-h100-80gb``; ``python
+    -m kubeflow_tpu_torch.operators.notebook --once`` writes a StatefulSet
+    asking ``nvidia.com/gpu: 1`` under the GPU selector on the port's
+    notebook image, and after a Running pod the next pass mirrors
+    ``readyReplicas`` 1; the card has no Jupyter, so the notebook's own
+    process is not run. (hh2)-(hh4) run side by side; a process that
+    exits non-zero, a placement that never comes or a Lease held by the
+    wrong process fails the script;
 (f) the kernel table: each kernel's launches on the main paths, its
     error, its time, its plain version's time and its bound; the paged
     and RMSNorm rows give device time as ``ms`` and the call's as
@@ -576,11 +622,16 @@ during (e), (l) and (p), which time nothing, each polled from its start
 (their boot times overlap each other); (s)'s checkpoint CLI boots during
 (s5)'s f32 gates; (dd1)'s two servers boot side by side; (w2), (w3) and
 (w4) run side by side with the gang's start, so (w2)'s step times and
-(w4)'s are read beside the others; (aa3)'s probe runs beside tf_cnn
-(its samples/s); (ee1)'s r1 and (ee3)'s peer pair boot during (dd1)'s
-checks, (dd2), (ee3)'s walks, (cc) and (r)'s f32 gates, so (dd2)'s and
+(w4)'s are read beside the others; (hh) runs in a thread beside (r)'s
+training, (t) and (u) (its seconds its own, outside total_s's
+segments); (aa2) and then (aa3) run in a thread beside (aa1), so
+(aa1)'s reshard and downtime ms, (aa2)'s wall time and (aa3)'s
+samples/s and ms an instance are read so, and (aa3)'s probe runs
+beside tf_cnn (its samples/s); (ee1)'s r1 and (ee3)'s peer pair boot
+during (dd1)'s checks, (dd2), (cc) and (r)'s f32 gates, so (dd2)'s and
 (cc)'s times and those boots are read so; (q)'s f32 gates run while
-(dd1)'s servers boot. (ee2)'s timed walks and (gg) run alone.
+(dd1)'s servers boot. (ee3)'s walks (gates on latency), (ee2)'s timed
+walks and (gg) run alone.
 
 TF32 is off throughout, so float32 products are full float32. Any
 failure exits non-zero; the last line, printed only on success, is
@@ -699,8 +750,16 @@ REQUESTS = [(5, 32), (40, 16), (128, 32), (200, 24), (256, 32), (17, 8)]
 STREAMED = 2
 
 
+_EMIT_LOCK = threading.Lock()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line, written whole: phases that run side by side in
+    threads print their lines without interleaving."""
+    line = json.dumps({"phase": phase, **fields}) + "\n"
+    with _EMIT_LOCK:
+        sys.stdout.write(line)
+        sys.stdout.flush()
 
 
 def time_ms(fn, flush: torch.Tensor, iters: int) -> float:
@@ -2969,7 +3028,8 @@ def phase_deep_train(smi: str) -> dict:
                                      f"times, expected {n}")
         out["expected_launches"] = want
         runs[policy or "off"] = out
-        emit("r_deep_train", gpu=smi, policy=policy or "off", **out)
+        emit("r_deep_train", gpu=smi, policy=policy or "off", **out,
+             reading=HH_BESIDE)
     return runs
 
 
@@ -3864,7 +3924,7 @@ def phase_moe(smi: str) -> dict:
     gates = moe_f32_gates(dev)
     out = {"gpu": smi, "paged": paged, "dense": dense, "train": train,
            "gates": gates}
-    emit("t_moe", **out)
+    emit("t_moe", **out, reading=HH_BESIDE)
     return out
 
 
@@ -4077,7 +4137,7 @@ def phase_bert(smi: str) -> dict:
                                  f"{train['launches'][key]} times")
     gate = bert_f32_gate(dev)
     out = {"gpu": smi, "predict": served, "train": train, "gate": gate}
-    emit("u_bert", **out)
+    emit("u_bert", **out, reading=HH_BESIDE)
     return out
 
 
@@ -5511,6 +5571,10 @@ def phase_long_axes(smi: str, stage_flash: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 ELASTIC_DIR = "build/chip_smoke/elastic"
+# (aa1), (aa2) and (aa3) each keep their files in a folder of their own
+# under it, as (aa2) and (aa3) run beside (aa1).
+AA_DIRS = {part: os.path.join(ELASTIC_DIR, part)
+           for part in ("aa1", "aa2", "aa3")}
 # One live run a gang: its mesh shrinks at step AA_FLIP and grows back at
 # 2 x AA_FLIP, of AA_STEPS.
 AA_STEPS, AA_FLIP = 4, 1
@@ -5647,14 +5711,15 @@ shutdown()
 
 
 def elastic_gang(name: str, n: int, args: dict) -> list[dict]:
-    """ELASTIC_WORKER in a gloo gang of ``n`` on the card; each rank's
-    results."""
+    """ELASTIC_WORKER in a gloo gang of ``n`` on the card, its files in
+    ``AA_DIRS[name]``; each rank's results."""
     from kubeflow_tpu_torch.parallel.launch import launch
 
-    os.makedirs(ELASTIC_DIR, exist_ok=True)
-    outp = os.path.join(ELASTIC_DIR, f"{name}.json")
+    root = AA_DIRS[name]
+    os.makedirs(root, exist_ok=True)
+    outp = os.path.join(root, f"{name}.json")
     procs = launch([sys.executable, "-c", ELASTIC_WORKER, json.dumps(
-        dict(args, dir=ELASTIC_DIR, out=outp, flip=AA_FLIP,
+        dict(args, dir=root, out=outp, flip=AA_FLIP,
              steps=AA_STEPS))], n, timeout=900)
     for i, p in enumerate(procs):
         if p.returncode:
@@ -5723,6 +5788,7 @@ def elastic_full_width(smi: str) -> dict:
            "rows_per_rank": 1, "seq": TRAIN_SEQ, "steps": AA_STEPS,
            "mesh_sizes": sizes,
            "transport": "gloo through the host (not NCCL)",
+           "reading": "beside (aa2)'s gang of four, then (aa3)",
            "wall_s": time.perf_counter() - t0,
            "live_wall_s": live["wall_s"],
            "step_ms_p50": live["result"]["step_time_p50_ms"]}
@@ -5853,10 +5919,11 @@ def elastic_gates(smi: str) -> dict:
                 "min_matrix_update_over_tolerance": moved,
                 "bit_equal_to_restore_references": not moves}
     finally:
-        shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+        shutil.rmtree(AA_DIRS["aa2"], ignore_errors=True)
     out = {"gpu": smi, "layers": AA_GATE_OVERRIDES["n_layers"],
            "overrides": AA_GATE_OVERRIDES, "gang": 4,
-           "wall_s": time.perf_counter() - t0, "gates": gates}
+           "wall_s": time.perf_counter() - t0, "gates": gates,
+           "reading": "beside (aa1)'s gang"}
     emit("aa2_elastic_f32_gates", **out)
     for name, g in gates.items():
         if g["rel_err_final_loss"] > 1e-5 or \
@@ -5916,9 +5983,9 @@ def job_entry_points(smi: str) -> dict:
     engine = InferenceEngine(engine_cfg(kv_layout="dense"))
     vocab = engine.model.config.vocab_size
     rng = np.random.default_rng(11)
-    os.makedirs(ELASTIC_DIR, exist_ok=True)
-    src = os.path.join(ELASTIC_DIR, "instances.jsonl")
-    dst = os.path.join(ELASTIC_DIR, "predictions.jsonl")
+    os.makedirs(AA_DIRS["aa3"], exist_ok=True)
+    src = os.path.join(AA_DIRS["aa3"], "instances.jsonl")
+    dst = os.path.join(AA_DIRS["aa3"], "predictions.jsonl")
     with open(src, "w") as f:
         for i in range(BP_LINES):
             if i == BP_BAD_JSON:
@@ -5939,7 +6006,7 @@ def job_entry_points(smi: str) -> dict:
     launches = dict(kernels.LAUNCHES)
     with open(dst) as f:
         rows = {json.loads(line)["line"]: json.loads(line) for line in f}
-    shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
+    shutil.rmtree(AA_DIRS["aa3"], ignore_errors=True)
     layers = engine.model.config.n_layers
     del engine
     torch.cuda.empty_cache()
@@ -5961,8 +6028,11 @@ def job_entry_points(smi: str) -> dict:
                r["collective_ms"] for r in health]},
            "tf_cnn": {**{k: cnn[k] for k in (
                "step", "loss", "samples_per_sec", "step_time_p50_ms",
-               "devices")}, "reading": "beside the health probe's gang"},
-           "slice_health_reading": "beside tf_cnn",
+               "devices")},
+               "reading": "beside the health probe's gang and (aa1)'s "
+                          "while it runs"},
+           "slice_health_reading": "beside tf_cnn and (aa1)'s gang while "
+                                   "it runs",
            "batch_predict": {
                "model": MODEL, "lines": BP_LINES, "summary": {
                    k: summary[k] for k in ("instances", "errors")},
@@ -5971,7 +6041,8 @@ def job_entry_points(smi: str) -> dict:
                "flash_fwd_launches": launches["flash_attention_fwd"],
                "predict_batches": calls,
                "ms_per_instance": 1e3 * bp_s / summary["instances"],
-               "wall_s": bp_s},
+               "wall_s": bp_s,
+               "reading": "beside (aa1)'s gang while it runs"},
            "wall_s": time.perf_counter() - t0}
     emit("aa3_job_entry_points", **out)
     return out
@@ -5979,18 +6050,25 @@ def job_entry_points(smi: str) -> dict:
 
 def phase_elastic(smi: str) -> dict:
     """(aa) elastic training and the job entry points: (aa1)
-    :func:`elastic_full_width`, (aa2) :func:`elastic_gates`, (aa3)
-    :func:`job_entry_points`."""
+    :func:`elastic_full_width` in this thread and, beside it in another,
+    (aa2) :func:`elastic_gates` then (aa3) :func:`job_entry_points`
+    (each part's files in a folder of its own, its launch counts in its
+    own processes or, for (aa2)'s one process and (aa3)'s batch predict,
+    one after the other in the side thread), so each reads its times
+    with the other's processes on the card and the host."""
     import shutil
+    from concurrent.futures import ThreadPoolExecutor
 
     t_phase = time.perf_counter()
     shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
     try:
-        aa1 = elastic_full_width(smi)
-        aa2 = elastic_gates(smi)
+        with ThreadPoolExecutor(1) as side:
+            beside = side.submit(
+                lambda: (elastic_gates(smi), job_entry_points(smi)))
+            aa1 = elastic_full_width(smi)
+            aa2, aa3 = beside.result()
     finally:
         shutil.rmtree(ELASTIC_DIR, ignore_errors=True)
-    aa3 = job_entry_points(smi)
     out = {"aa1": aa1, "aa2": aa2, "aa3": aa3,
            "phase_s": time.perf_counter() - t_phase}
     emit("aa_phase_time", phase_s=out["phase_s"])
@@ -6012,7 +6090,7 @@ BB_COLD_REF = "mem://chip-smoke-fleet?bytes=268435456"
 BB_DIRECTORY = 256
 # (bb3): the learner and its actors.
 BB_RL = dict(model=MODEL, actors=2, batch_size=4, prompt_len=64,
-             max_new_tokens=32, steps=4, push_every_steps=2,
+             max_new_tokens=16, steps=4, push_every_steps=2,
              kv_block_size=BLOCK, kv_fused=True)
 BB_RL_OPT = dict(name="adafactor", warmup_steps=2)
 # (bb4): a target nothing listens on.
@@ -6330,7 +6408,7 @@ def fleet_churn(model, params) -> dict:
 def fleet_rl(model) -> dict:
     """(bb3): ``run_rl`` at llama-1b, the learner's float32 masters and
     adafactor state beside two in-process actors (bf16, paged, fused) on
-    the card, batch 4 of 64-token prompts and 32 new tokens, 4 steps, a
+    the card, batch 4 of 64-token prompts and 16 new tokens, 4 steps, a
     push every 2; the learner's steps run the flash kernels (forward
     twice under llama-1b's remat), the actors' decode the paged kernel.
     Then the restart-per-update baseline at 2 steps of batch 1 (the
@@ -7135,8 +7213,8 @@ def check_peer_pair(pair: dict, mark=lambda phase: None) -> dict:
                for tag, s in pulls.items()}
     out = {"layers": F32_GATE_LAYERS, "boot_to_ready_s": pair["boot_s"],
            "boot_reading": "each polled from its start, beside r1's "
-                           "boot, (dd1)'s checks, (dd2), (ee3)'s walks, "
-                           "(cc) and (r)'s f32 gates",
+                           "boot, (dd1)'s checks, (dd2), (cc) and (r)'s "
+                           "f32 gates",
            "weight_installs": sources,
            **compare_streams(toks["newborn"], toks["donor"])}
     if sources["newborn"].get("peer") != 1 or \
@@ -7250,14 +7328,17 @@ def rollout_fleet(tag: str, dtype, layers: int | None) -> dict:
     gate_prompts = [rng.randint(0, cfg.vocab_size, size=n).tolist()
                     for n in (5, 40, 128)]
     # This model's first forwards in the process (allocator growth) go to
-    # a throwaway decoder, whose memory the members then reuse, not into
-    # one member's latency histograms.
-    warm = fleet_replica(weights["seed-0"], cfg)
+    # two throwaway decoders, one a member, whose memory the members then
+    # reuse, not into either member's latency histograms (a member's
+    # first request counts in its p99 for its whole life).
+    warm = [fleet_replica(weights["seed-0"], cfg) for _ in range(2)]
     try:
         for _ in range(2):
-            warm.generate(prompt, EE_NEW, timeout=600)
+            for w in warm:
+                w.generate(prompt, EE_NEW, timeout=600)
     finally:
-        warm.stop()
+        for w in warm:
+            w.stop()
         del warm
     names = [f"{tag}-r{i}" for i in range(2)]
     decoders = {n: fleet_replica(weights["seed-0"], cfg) for n in names}
@@ -7660,8 +7741,8 @@ def check_inference_service(pool: RenderedPool, served: dict,
     cfg = get_model(MODEL).config
     ee1["r1_boot_to_ready_s"] = pool.ready(1)
     ee1["r1_reading"] = ("r1's boot, polled from its start, beside (dd1)'s "
-                         "checks, (dd2), (ee3)'s walks and peer pair, "
-                         "(cc) and (r)'s f32 gates")
+                         "checks, (dd2), (ee3)'s peer pair, (cc) and "
+                         "(r)'s f32 gates")
     r1 = pool.port(1)
     pulls = parse_exposition(get(r1, METRICS_PATH))
     if pulls.get('serving_weight_pulls_total{source="peer"}') != 1:
@@ -7899,15 +7980,41 @@ def phase_rollout(smi: str) -> dict:
 
 
 # (gg): the RLJob on three H100-labelled nodes, llama-1b at full width,
-# F32_GATE_LAYERS deep, float32 (the identity gate's dtype; a push over
-# HTTP runs at tens of MB/s, so the depth keeps it short).
+# GG_LAYERS deep, float32 (the identity gate's dtype; a push over HTTP
+# runs at tens of MB/s, so the depth keeps it short: at 1 layer the push
+# and the gate's pull carry 0.77 GB where 2 layers carried 1.01 GB).
+GG_LAYERS = 1
 GG_NS = "kubeflow"
 GG_POOL = "nvidia-h100-80gb"
 GG_NODES = 3
 GG_STEPS, GG_PUSH_EVERY = 2, 1  # one push, after step 1
+GG_NEW = 8  # rollout tokens a prompt
 GG_PUSHES = (GG_STEPS - 1) // GG_PUSH_EVERY
 GG_PROMPTS = [(8, 16), (24, 16), (40, 16), (64, 16)]
 GG_DTYPE = "float32"
+
+
+def fake_gpu_cluster(n_nodes: int, crds: tuple = (), **policy):
+    """(gg)'s and (hh)'s cluster: a fake apiserver holding the namespace
+    GG_NS, the job CRDs, the SchedulingPolicy CRD and ``crds``, one
+    SchedulingPolicy (``policy``: its fields) and ``n_nodes`` Node
+    objects labelled as H100 nodes of the pool GG_POOL, one GPU each."""
+    from kubeflow_tpu_torch.apis import jobs as jobs_api
+    from kubeflow_tpu_torch.apis import scheduling as sched_api
+    from kubeflow_tpu_torch.k8s_fake import FakeApiServer
+    from kubeflow_tpu_torch.manifests import objects as k8s
+
+    api = FakeApiServer()
+    api.ensure_namespace(GG_NS)
+    for crd in (*jobs_api.all_job_crds(), sched_api.scheduling_policy_crd(),
+                *crds):
+        api.apply(crd)
+    api.create(sched_api.scheduling_policy(namespace=GG_NS, **policy))
+    for i in range(n_nodes):
+        api.create(k8s.node(f"h100-{i}", {
+            sched_api.NODE_ACCEL_LABEL: GG_POOL,
+            sched_api.NODE_SLICE_LABEL: "h100"}, gpus=1))
+    return api
 
 
 def gg_pod_command(c: dict, rest_port: int | None = None) -> list[str]:
@@ -7921,7 +8028,7 @@ def gg_pod_command(c: dict, rest_port: int | None = None) -> list[str]:
     if rest_port is not None:
         args = [f"--rest-port={rest_port}" if a.startswith("--rest-port=")
                 else a for a in args] + ["--grpc-port=-1"]
-    return preset_command(c["command"][2], args, F32_GATE_LAYERS, GG_DTYPE)
+    return preset_command(c["command"][2], args, GG_LAYERS, GG_DTYPE)
 
 
 def gg_pod_env(c: dict, local: dict, apiserver: str) -> dict:
@@ -7938,60 +8045,6 @@ def gg_pod_env(c: dict, local: dict, apiserver: str) -> dict:
             value = ",".join(local[a] for a in value.split(","))
         env[e["name"]] = value
     return env
-
-
-def serve_api(api, kinds: dict):
-    """The port's fake apiserver over HTTP on 127.0.0.1, as far as a pod's
-    client uses it here: GET a namespaced object and PUT its status
-    (``kinds``: plural -> kind). Returns the server; its URL is
-    ``http://127.0.0.1:<server_port>``."""
-    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-
-    from kubeflow_tpu_torch.k8s_client import ApiError
-
-    class Handler(BaseHTTPRequestHandler):
-        def log_message(self, *args):
-            pass
-
-        def route(self):
-            # /apis/<group>/<version>/namespaces/<ns>/<plural>/<name>[/status]
-            parts = self.path.split("?")[0].strip("/").split("/")
-            if (len(parts) < 7 or parts[0] != "apis"
-                    or parts[3] != "namespaces" or parts[5] not in kinds):
-                raise ApiError(404, "NotFound", self.path)
-            return (f"{parts[1]}/{parts[2]}", kinds[parts[5]], parts[6],
-                    parts[4], parts[7:] == ["status"])
-
-        def answer(self, act):
-            try:
-                code, out = 200, act()
-            except ApiError as e:
-                code, out = e.code, {"kind": "Status", "code": e.code,
-                                     "reason": e.reason}
-            body = json.dumps(out).encode()
-            self.send_response(code)
-            self.send_header("Content-Type", "application/json")
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
-
-        def do_GET(self):
-            self.answer(lambda: api.get(*self.route()[:4]))
-
-        def do_PUT(self):
-            body = json.loads(self.rfile.read(
-                int(self.headers.get("Content-Length", 0))))
-
-            def put():
-                if not self.route()[4]:
-                    raise ApiError(405, "MethodNotAllowed", self.path)
-                return api.update_status(body)
-            self.answer(put)
-
-    httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
-    httpd.daemon_threads = True
-    threading.Thread(target=httpd.serve_forever, daemon=True).start()
-    return httpd
 
 
 def pull_split(ports: list, model: str, timeout: float = 600.0):
@@ -8065,8 +8118,9 @@ def gg_place(api) -> dict:
 
     _crd, cr = generate("gpu-rl", {
         "name": "rl", "namespace": GG_NS,
-        "model": preset_name(F32_GATE_LAYERS, GG_DTYPE),
+        "model": preset_name(GG_LAYERS, GG_DTYPE),
         "learner_steps": GG_STEPS, "push_every_steps": GG_PUSH_EVERY,
+        "max_new_tokens": GG_NEW,
         "actor_replicas": 2, "actor_min_replicas": 1,
         "actor_max_replicas": 2, "gpus_per_replica": 1})
     # The actors read their pool through the paged kernel.
@@ -8122,11 +8176,8 @@ def gg_place(api) -> dict:
 def phase_rl_job(smi: str) -> dict:
     """(gg): see the docstring; its line's fields. The actors' boots run
     side by side."""
-    from kubeflow_tpu_torch.apis import jobs as jobs_api
     from kubeflow_tpu_torch.apis import rl as rl_api
-    from kubeflow_tpu_torch.apis import scheduling as sched_api
-    from kubeflow_tpu_torch.k8s_fake import FakeApiServer
-    from kubeflow_tpu_torch.manifests import objects as k8s
+    from kubeflow_tpu_torch.k8s_fake import serve
     from kubeflow_tpu_torch.models.registry import get_model
     from kubeflow_tpu_torch.operators.jobs import JobController
     from kubeflow_tpu_torch.operators.rl import RLJobController
@@ -8138,22 +8189,13 @@ def phase_rl_job(smi: str) -> dict:
     from kubeflow_tpu_torch.weights import _unflatten, flatten
 
     load = os.getloadavg()[0]
-    api = FakeApiServer()
-    api.ensure_namespace(GG_NS)
-    for crd in (rl_api.rl_job_crd(), *jobs_api.all_job_crds(),
-                sched_api.scheduling_policy_crd()):
-        api.apply(crd)
-    api.create(sched_api.scheduling_policy(namespace=GG_NS))
-    for i in range(GG_NODES):
-        api.create(k8s.node(f"h100-{i}", {
-            sched_api.NODE_ACCEL_LABEL: GG_POOL,
-            sched_api.NODE_SLICE_LABEL: "h100"}, gpus=1))
+    api = fake_gpu_cluster(GG_NODES, (rl_api.rl_job_crd(),))
     gg1 = gg_place(api)
     pods = gg1["pods"]
-    name = preset_name(F32_GATE_LAYERS, GG_DTYPE)
+    name = preset_name(GG_LAYERS, GG_DTYPE)
     os.makedirs("chiprun_out", exist_ok=True)
-    httpd = serve_api(api, {"jaxjobs": "JaxJob"})
-    apiserver = f"http://127.0.0.1:{httpd.server_port}"
+    httpd, api_port = serve(api)
+    apiserver = f"http://127.0.0.1:{api_port}"
     procs, local, ports, boots = [], {}, [], []
     try:
         for i in range(2):
@@ -8211,7 +8253,7 @@ def phase_rl_job(smi: str) -> dict:
         # built from the weights the actors' :pull serves.
         dev = torch.device("cuda")
         model = get_model(MODEL, dtype=torch.float32,
-                          n_layers=F32_GATE_LAYERS)
+                          n_layers=GG_LAYERS)
         cfg = model.config
         leaves, pulled_version = pulled.pop("leaves"), pulled["version"]
         reference = model.init(cfg, generator=torch.Generator(
@@ -8247,7 +8289,7 @@ def phase_rl_job(smi: str) -> dict:
         stop_procs(procs)
         httpd.shutdown()
     for i, (n, fwd) in launches.items():
-        require_launches(n, fwd, F32_GATE_LAYERS, f"(gg) {i}")
+        require_launches(n, fwd, GG_LAYERS, f"(gg) {i}")
     bad = [k for k, v in gates.items() if not v["identical"]]
     if bad or pulled_version != metrics["weights_version"]:
         raise AssertionError(f"(gg) f32 greedy tokens of {bad} differ from "
@@ -8303,6 +8345,463 @@ def phase_rl_job(smi: str) -> dict:
            "rljob_status": status, "f32_gates": gates}
     emit("gg_rl_job", **out)
     return out
+
+
+# (hh): leader election, the MPI, MXNet and Chainer jobs and a GPU
+# notebook through the port's training control plane, on (gg)'s kind of
+# H100-labelled Node objects (one GPU each, one slice; all stand for this
+# card), the port's fake apiserver served over HTTP to every process.
+# What (r)'s training, (t) and (u) read their times beside.
+HH_BESIDE = "beside (hh)'s processes and its thread"
+HH_NODES = 12  # hh1's two one-pod jobs + 2 MPI + 5 MXNet + 3 Chainer pods
+HH_LEASE = "scheduler"  # the lease gpu-scheduler's replicas elect on
+HH_PERIOD_S = 1  # the policy's scheduling period: a round a second
+HH_STEPS = 25
+HH_PRIORITY = 50  # a priority makes a job scheduler-managed
+HH_TIMEOUT_S = 120
+HH_DIR = "build/chip_smoke/hh"  # the processes' logs, the MPI hostfile
+
+
+def hh_placed(api, kind: str, name: str, since: float,
+              timeout: float = 30.0) -> float:
+    """Seconds from ``since`` until the scheduler has written ``name``'s
+    placement."""
+    from kubeflow_tpu_torch.apis import JOBS_API_VERSION
+    from kubeflow_tpu_torch.apis import scheduling as sched_api
+
+    while time.perf_counter() - since < timeout:
+        job = api.get(JOBS_API_VERSION, kind, name, GG_NS)
+        if sched_api.placement(job) is not None:
+            return time.perf_counter() - since
+        time.sleep(0.02)
+    raise AssertionError(f"(hh) {kind} {name} was never placed: "
+                         f"{job.get('status')}")
+
+
+def hh_holder(api) -> str:
+    lease = api.get_or_none("coordination.k8s.io/v1", "Lease", HH_LEASE,
+                            GG_NS)
+    return ((lease or {}).get("spec") or {}).get("holderIdentity") or ""
+
+
+def hh_log(path: str) -> str:
+    with open(path) as f:
+        return f.read()
+
+
+def hh_identity(path: str) -> str:
+    """A scheduler process's lease identity, from its first log line."""
+    for _ in range(200):
+        m = re.search(r"waiting for leadership on lease \S+ as (\S+)",
+                      hh_log(path))
+        if m:
+            return m.group(1)
+        time.sleep(0.05)
+    raise AssertionError(f"(hh1) no identity in {path}: {hh_log(path)}")
+
+
+def hh_led(path: str, identity: str) -> bool:
+    return re.search(rf"(acquired new|took over expired|renewed) lease as "
+                     rf"{re.escape(identity)}", hh_log(path)) is not None
+
+
+def hh_job(proto: str, params: dict) -> dict:
+    from kubeflow_tpu_torch.apis import jobs as jobs_api
+    from kubeflow_tpu_torch.manifests import generate
+
+    (job,) = generate(proto, {"namespace": GG_NS, **params})
+    job["spec"]["priority"] = HH_PRIORITY
+    jobs_api.validate_job(job)
+    return job
+
+
+def hh_pod_run(pod: dict, apiserver: str, ports: dict) -> tuple:
+    """A pod's command and env on this host: ``python`` as this
+    interpreter, the job's addresses 127.0.0.1 and its rendezvous port
+    a free one (``ports``: job -> port), the MPI hostfile's workers this
+    host and its path under HH_DIR, ``KUBEFLOW_TPU_APISERVER`` the fake
+    apiserver served here."""
+    (c,) = pod["spec"]["containers"]
+    job = pod["metadata"]["labels"]["kubeflow-tpu.org/job-name"]
+    env = {**os.environ, "KUBEFLOW_TPU_APISERVER": apiserver}
+    for e in c["env"]:
+        name, value = e["name"], e["value"]
+        if name in ("DMLC_PS_ROOT_URI", "CHAINERMN_MASTER_ADDR"):
+            value = "127.0.0.1"
+        elif name in ("DMLC_PS_ROOT_PORT", "CHAINERMN_MASTER_PORT"):
+            value = str(ports.setdefault(job, free_port()))
+        elif name == "MPI_HOSTFILE_CONTENT":
+            value = "\n".join(f"localhost {line.split(' ', 1)[1]}"
+                              for line in value.splitlines())
+        elif name == "OMPI_MCA_orte_default_hostfile":
+            value = os.path.abspath(f"{HH_DIR}/{job}.hostfile")
+        env[name] = value
+    cmd = [sys.executable if a == "python" else a for a in c["command"]]
+    return cmd, env
+
+
+def hh_leaders(api, apiserver: str) -> dict:
+    """(hh1), first half: two ``python -m kubeflow_tpu_torch.scheduler
+    --leader-elect`` processes; exactly one holds the Lease (its log says
+    it acquired, the other's only that it waits) and places a JaxJob.
+    Returns the processes, the leader first."""
+    t0 = time.perf_counter()
+    api.create(hh_job("gpu-job-simple", {"name": "hh-a", "num_workers": 1}))
+    procs = []
+    for i in range(2):
+        path = f"{HH_DIR}/scheduler{i}.log"
+        log = open(path, "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "kubeflow_tpu_torch.scheduler",
+             "--leader-elect", "--leader-elect-name", HH_LEASE,
+             "--metrics-port", "0", "--apiserver", apiserver],
+            stdout=log, stderr=subprocess.STDOUT, text=True)
+        procs.append({"proc": proc, "log": log, "path": path})
+    try:
+        for p in procs:
+            p["id"] = hh_identity(p["path"])
+        placed = hh_placed(api, "JaxJob", "hh-a", t0)
+        holder = hh_holder(api)
+        led = [hh_led(p["path"], p["id"]) for p in procs]
+        if sorted(led) != [False, True] or holder not in {
+                p["id"] for p in procs}:
+            raise AssertionError(f"(hh1) lease {holder!r}, leading {led}")
+        leader, standby = (procs if led[0] else procs[::-1])
+        if holder != leader["id"]:
+            raise AssertionError(f"(hh1) the lease names {holder}, the "
+                                 f"leading process is {leader['id']}")
+    except BaseException:
+        stop_procs([(p["proc"], p["log"]) for p in procs])
+        raise
+    return {"leader": leader, "standby": standby, "t0": t0,
+            "placed_first_s": placed}
+
+
+def hh_failover(api, leaders: dict) -> dict:
+    """(hh1), second half, while (hh2)-(hh4) run: a JaxJob created, the
+    leader SIGTERMed (it releases the Lease and exits 0), the standby
+    takes the Lease and places the job. Returns the line's fields."""
+    import signal
+
+    leader, standby = leaders["leader"], leaders["standby"]
+    api.create(hh_job("gpu-job-simple", {"name": "hh-b", "num_workers": 1}))
+    t_term = time.perf_counter()
+    leader["proc"].send_signal(signal.SIGTERM)
+    rc = leader["proc"].wait(timeout=30)
+    leader["log"].close()
+    exit_s = time.perf_counter() - t_term
+    while hh_holder(api) != standby["id"]:
+        if hh_holder(api) not in ("", leader["id"]):
+            raise AssertionError(f"(hh1) lease {hh_holder(api)}")
+        if time.perf_counter() - t_term > 30:
+            raise AssertionError("(hh1) the standby never took the lease: "
+                                 f"{hh_log(standby['path'])}")
+        time.sleep(0.02)
+    takeover_s = time.perf_counter() - t_term
+    placed = hh_placed(api, "JaxJob", "hh-b", t_term)
+    if rc != 0 or not hh_led(standby["path"], standby["id"]):
+        raise AssertionError(f"(hh1) the leader exited {rc}; the standby's "
+                             f"log {hh_log(standby['path'])}")
+    return {"placed_first_s": leaders["placed_first_s"],
+            "placed_first_reading": "from the job's creation, before the "
+                                    "two processes started",
+            "leader_exit_rc": rc, "leader_exit_s": exit_s,
+            "takeover_s": takeover_s, "placed_next_s": placed,
+            "placed_next_reading": "from the SIGTERM, the job created just "
+                                   "before it",
+            "takeover_reading": "the standby polls the lease every 5 s "
+                                "(renew_seconds): a takeover after a clean "
+                                "release takes up to one period; beside "
+                                "(hh2)-(hh4)'s processes and (r)'s "
+                                "training, (t) and (u)",
+            "s": time.perf_counter() - leaders["t0"]}
+
+
+def hh_compat_jobs(api, apiserver: str) -> dict:
+    """(hh2), (hh3): gpu-mpi-job, gpu-mxnet-job and gpu-chainer-job placed
+    by the leading scheduler, their pods written by the port's job
+    controllers and every pod's command started here at once. Returns
+    the processes to wait for and what the checks need."""
+    from kubeflow_tpu_torch.operators.jobs import JobController
+
+    t0 = time.perf_counter()
+    jobs = {
+        "MPIJob": hh_job("gpu-mpi-job", {"name": "hh-mpi",
+                                         "num_workers": 1}),
+        "MXNetJob": hh_job("gpu-mxnet-job", {
+            "name": "hh-mx", "num_servers": 2, "num_workers": 2,
+            "command": ["python", "-m",
+                        "kubeflow_tpu_torch.workloads.mxnet_ps",
+                        "--steps", str(HH_STEPS)]}),
+        "ChainerJob": hh_job("gpu-chainer-job", {
+            "name": "hh-ch", "num_workers": 2,
+            "command": ["python", "-m",
+                        "kubeflow_tpu_torch.workloads.chainermn_train",
+                        "--steps", str(HH_STEPS)]}),
+    }
+    for job in jobs.values():
+        api.create(job)
+    placed = {kind: hh_placed(api, kind, job["metadata"]["name"], t0)
+              for kind, job in jobs.items()}
+    ctrls = {kind: JobController(api, kind) for kind in jobs}
+    for ctrl in ctrls.values():
+        ctrl.reconcile_all()
+    ports, procs = {}, []
+    for pod in api.list("v1", "Pod", GG_NS):
+        labels = pod["metadata"]["labels"]
+        if labels.get("kubeflow-tpu.org/job-kind") not in jobs:
+            continue
+        (c,) = pod["spec"]["containers"]
+        gpus = (c.get("resources") or {}).get("limits", {})
+        if not pod["spec"].get("nodeName") or pod["spec"].get(
+                "nodeSelector") != {"cloud.google.com/gke-accelerator":
+                                    GG_POOL}:
+            raise AssertionError(f"(hh) pod {pod['metadata']['name']} "
+                                 f"not pinned: {pod['spec']}")
+        name = pod["metadata"]["name"]
+        cmd, env = hh_pod_run(pod, apiserver, ports)
+        log = open(f"{HH_DIR}/{name}.log", "w")
+        proc = subprocess.Popen(cmd, env=env, stdout=log,
+                                stderr=subprocess.STDOUT, text=True)
+        procs.append({"proc": proc, "log": log, "pod": name,
+                      "kind": labels["kubeflow-tpu.org/job-kind"],
+                      "gpus": gpus, "t0": time.perf_counter()})
+    want = {"MPIJob": 2, "MXNetJob": 5, "ChainerJob": 3}
+    got = {k: sum(p["kind"] == k for p in procs) for k in want}
+    if got != want:
+        raise AssertionError(f"(hh) pods {got}, want {want}")
+    return {"t0": t0, "placed_s": placed, "ctrls": ctrls, "procs": procs,
+            "jobs": jobs}
+
+
+def hh_notebook(api, apiserver: str) -> dict:
+    """(hh4): a Notebook POSTed to the port's jupyter web app (its client
+    over HTTP) with tpuChips 1, its CR given the pool
+    ``nvidia-h100-80gb`` (``spec.tpu.accelerator``, which the web app's
+    form does not carry); ``python -m kubeflow_tpu_torch.operators.notebook
+    --once`` writes its StatefulSet; a Running pod (the kubelet's part)
+    mirrors into ``readyReplicas`` 1 at the next pass."""
+    from kubeflow_tpu_torch.apis.notebooks import NOTEBOOKS_API_VERSION
+    from kubeflow_tpu_torch.k8s_client import ClusterConfig, HttpK8sClient
+    from kubeflow_tpu_torch.manifests import images
+    from kubeflow_tpu_torch.operators.notebooks import LABEL_NOTEBOOK
+    from kubeflow_tpu_torch.webapps.jupyter import JupyterApp, make_server
+
+    t0 = time.perf_counter()
+    web = make_server(JupyterApp(HttpK8sClient(ClusterConfig(
+        host=apiserver)), images.NOTEBOOK), 0)
+    threading.Thread(target=web.serve_forever, daemon=True).start()
+    port = web.server_address[1]
+
+    def once() -> dict:
+        out = subprocess.run(
+            [sys.executable, "-m", "kubeflow_tpu_torch.operators.notebook",
+             "--once", "--apiserver", apiserver], capture_output=True,
+            text=True, timeout=60)
+        if out.returncode != 0:
+            raise AssertionError(f"(hh4) notebook controller: {out.stderr}")
+        return json.loads(out.stdout.strip().splitlines()[-1])
+
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("POST", f"/api/namespaces/{GG_NS}/notebooks",
+                     body=json.dumps({"name": "hh-nb", "tpuChips": 1}))
+        resp = conn.getresponse()
+        created = json.loads(resp.read())
+        conn.close()
+        if resp.status != 201:
+            raise AssertionError(f"(hh4) POST: {resp.status} {created}")
+        api.patch(NOTEBOOKS_API_VERSION, "Notebook", "hh-nb",
+                  {"spec": {"tpu": {"accelerator": GG_POOL}}}, GG_NS)
+        first = once()
+        sts = api.get("apps/v1", "StatefulSet", "hh-nb", GG_NS)
+        spec = sts["spec"]["template"]["spec"]
+        (c,) = spec["containers"]
+        if (c["resources"]["limits"] != {images.GPU_RESOURCE: 1}
+                or spec.get("nodeSelector") != {
+                    "cloud.google.com/gke-accelerator": GG_POOL}
+                or c["image"] != images.NOTEBOOK
+                or sts["spec"]["replicas"] != 1):
+            raise AssertionError(f"(hh4) StatefulSet {sts['spec']}")
+        api.create({"apiVersion": "v1", "kind": "Pod", "metadata": {
+            "name": "hh-nb-0", "namespace": GG_NS,
+            "labels": {LABEL_NOTEBOOK: "hh-nb"}}, "spec": spec})
+        pod = api.get("v1", "Pod", "hh-nb-0", GG_NS)
+        pod["status"] = {"phase": "Running", "containerStatuses": [
+            {"state": {"running": {"startedAt": "now"}}}]}
+        api.update_status(pod)
+        second = once()
+        status = api.get(NOTEBOOKS_API_VERSION, "Notebook", "hh-nb",
+                         GG_NS).get("status", {})
+        (listed,) = json.loads(get(port, f"/api/namespaces/{GG_NS}/"
+                                         "notebooks"))["notebooks"]
+    finally:
+        web.shutdown()
+    if (status.get("readyReplicas") != 1 or listed["tpuChips"] != 1
+            or created != {"name": "hh-nb"}
+            or first != {"reconciled": 1, "controllers": 1}
+            or second != first):
+        raise AssertionError(f"(hh4) status {status}, listed {listed}, "
+                             f"passes {first} {second}")
+    return {"created": created, "limits": c["resources"]["limits"],
+            "node_selector": spec["nodeSelector"], "image": c["image"],
+            "status": status, "listed": listed,
+            "jupyter": "not run: the card has no Jupyter, so the "
+                       "notebook's own process is not started",
+            "s": time.perf_counter() - t0}
+
+
+def hh_finish(api, started: dict) -> dict:
+    """(hh2), (hh3): every pod process exits 0; the reports and the jobs'
+    ends checked."""
+    from kubeflow_tpu_torch.apis import JOBS_API_VERSION
+
+    lines, failed = {}, []
+    procs = started["procs"]
+    while any("s" not in p for p in procs):
+        for p in procs:
+            if "s" in p:
+                continue
+            if p["proc"].poll() is not None:
+                p["s"] = time.perf_counter() - p["t0"]
+            elif time.perf_counter() - p["t0"] > HH_TIMEOUT_S:
+                p["proc"].kill()
+                p["proc"].wait()
+                p["s"] = time.perf_counter() - p["t0"]
+        time.sleep(0.02)
+    for p in procs:
+        p["log"].close()
+        text = hh_log(f"{HH_DIR}/{p['pod']}.log")
+        if p["proc"].returncode != 0:
+            failed.append(f"{p['pod']} exited {p['proc'].returncode}: "
+                          f"{text[-1500:]}")
+        lines[p["pod"]] = [json.loads(ln) for ln in text.splitlines()
+                           if ln.startswith("{")]
+        pod = api.get("v1", "Pod", p["pod"], GG_NS)
+        pod["status"] = {"phase": "Succeeded" if p["proc"].returncode == 0
+                         else "Failed"}
+        api.update_status(pod)
+    if failed:
+        raise AssertionError("(hh) pod processes failed: "
+                             + "; ".join(failed))
+    for ctrl in started["ctrls"].values():
+        ctrl.reconcile_all()
+    states = {k: api.get(JOBS_API_VERSION, k, j["metadata"]["name"],
+                         GG_NS)["status"]
+              for k, j in started["jobs"].items()}
+    bad = {k: st.get("state") for k, st in states.items()
+           if st.get("state") != "Succeeded"}
+    if bad:
+        raise AssertionError(f"(hh) job states {bad}")
+    seconds = {p["pod"]: p["s"] for p in started["procs"]}
+
+    # (hh2): the Launcher's allreduce_bench (no GPU, as JAX's Launcher
+    # asks for no chip: without mpirun, the command on the CPU) and the
+    # Worker's (one GPU, cuda:0).
+    from kubeflow_tpu_torch.manifests.images import GPU_RESOURCE
+
+    limits = {p["pod"]: p["gpus"] for p in procs}
+    mpi = {}
+    for pod, want in (("hh-mpi-launcher-0", {}),
+                      ("hh-mpi-worker-0", {GPU_RESOURCE: 1})):
+        (summary,) = [ln for ln in lines[pod]
+                      if ln.get("metric") == "allreduce_peak_bandwidth"]
+        if summary["devices"] != 1 or limits[pod] != want:
+            raise AssertionError(f"(hh2) {pod} {summary}, limits "
+                                 f"{limits[pod]}")
+        mpi[pod] = {"summary": summary, "s": seconds[pod],
+                    "limits": limits[pod],
+                    "device": "cuda:0" if want else "cpu"}
+    published = states["MPIJob"].get("metrics", {})
+    if "allreduce_peak_gbps" not in published:
+        raise AssertionError(f"(hh2) status.metrics {published}")
+    # (hh3): every MXNet worker converges through the servers; the
+    # Chainer ranks converge and end on one model.
+    mx = {pod: ln[-1] for pod, ln in lines.items()
+          if pod.startswith("hh-mx-")}
+    roles = sorted(r["role"] for r in mx.values())
+    if (roles != ["scheduler", "server", "server", "worker", "worker"]
+            or not all(r["converged"] for r in mx.values()
+                       if r["role"] == "worker")
+            or sorted(r["pushes"] for r in mx.values()
+                      if r["role"] == "server") != [2 * HH_STEPS] * 2
+            or [r["workers_finalized"] for r in mx.values()
+                if r["role"] == "scheduler"] != [2]):
+        raise AssertionError(f"(hh3) MXNet reports {mx}")
+    ch = {pod: ln[-1] for pod, ln in lines.items()
+          if pod.startswith("hh-ch-")}
+    if (sorted(r["rank"] for r in ch.values()) != [0, 1, 2]
+            or not all(r["converged"] and r["num_processes"] == 3
+                       for r in ch.values())
+            or len({r["model_digest"] for r in ch.values()}) != 1):
+        raise AssertionError(f"(hh3) Chainer reports {ch}")
+    return {"mpi": mpi, "published": published, "mxnet": mx,
+            "chainer": ch, "seconds": seconds, "states": {
+                k: st.get("state") for k, st in states.items()},
+            "placed_s": started["placed_s"],
+            "s": time.perf_counter() - started["t0"]}
+
+
+def phase_leader_compat_notebooks(smi: str) -> dict:
+    """(hh): see the docstring; one line a part. (hh2)-(hh4) run side by
+    side, and beside (hh1)'s failover: the compat jobs, placed by the
+    first leader, run while the notebook is reconciled and the standby
+    takes the Lease."""
+    import shutil
+    import signal
+
+    from kubeflow_tpu_torch.apis.notebooks import notebook_crd
+    from kubeflow_tpu_torch.k8s_fake import serve
+
+    t0 = time.perf_counter()
+    api = fake_gpu_cluster(HH_NODES, (notebook_crd(),),
+                           schedulingPeriodSeconds=HH_PERIOD_S)
+    os.makedirs(HH_DIR, exist_ok=True)
+    httpd, api_port = serve(api)
+    apiserver = f"http://127.0.0.1:{api_port}"
+    leaders, started = None, None
+    try:
+        leaders = hh_leaders(api, apiserver)
+        started = hh_compat_jobs(api, apiserver)
+        hh4 = hh_notebook(api, apiserver)
+        hh1 = hh_failover(api, leaders)
+        emit("hh1_leader_election", gpu=smi, **hh1)
+        done = hh_finish(api, started)
+        started = None
+        survivor = leaders["standby"]
+        survivor["proc"].send_signal(signal.SIGTERM)
+        survivor_rc = survivor["proc"].wait(timeout=30)
+        if survivor_rc != 0 or hh_holder(api) != "":
+            raise AssertionError(f"(hh1) the survivor exited {survivor_rc}"
+                                 f", lease {hh_holder(api)!r}")
+    finally:
+        if started is not None:
+            stop_procs([(p["proc"], p["log"]) for p in started["procs"]])
+        if leaders is not None:
+            stop_procs([(p["proc"], p["log"]) for p in (
+                leaders["leader"], leaders["standby"])])
+        httpd.shutdown()
+    mpirun = shutil.which("mpirun")
+    beside = ("(hh2)'s, (hh3)'s and (hh4)'s processes run side by side "
+              "and beside (hh1)'s failover, (r)'s training, (t) and (u); "
+              "each part's seconds are its own wall time")
+    emit("hh2_mpi_job", gpu=smi, mpirun=mpirun,
+         mode="mpirun" if mpirun else "single-process (no mpirun)",
+         placed_s=done["placed_s"]["MPIJob"], runs=done["mpi"],
+         published=done["published"], state=done["states"]["MPIJob"],
+         s=max(r["s"] for r in done["mpi"].values()), reading=beside,
+         bandwidth="none claimed: world size 1 on one card, 0 by the "
+                   "ring formula, nothing across GPUs measured")
+    emit("hh3_mxnet_chainer_jobs", gpu=smi, steps=HH_STEPS,
+         placed_s={k: done["placed_s"][k] for k in ("MXNetJob",
+                                                    "ChainerJob")},
+         mxnet=done["mxnet"], chainer=done["chainer"],
+         states={k: done["states"][k] for k in ("MXNetJob", "ChainerJob")},
+         pod_s={k: v for k, v in done["seconds"].items()
+                if not k.startswith("hh-mpi")}, reading=beside)
+    emit("hh4_notebook", gpu=smi, reading=beside, **hh4)
+    return {"hh1": hh1, "compat": done, "hh4": hh4,
+            "s": time.perf_counter() - t0}
 
 
 def main() -> int:
@@ -8419,12 +8918,25 @@ def main() -> int:
     train = phase_train(smi)
     phase_train_f32_parity()
     mark("h_i_train")
-    deep = phase_deep_train(smi)
-    mark("r_deep")
-    moe = phase_moe(smi)
-    mark("t_moe")
-    bert = phase_bert(smi)
-    mark("u_bert")
+    # (hh), host work and two small processes on the card, runs in a
+    # thread beside (r)'s training, (t) and (u), whose launches come from
+    # this thread: its seconds in phase_seconds are its own wall time,
+    # not a segment of total_s ("hh_wait" is the wait for it after (u)).
+    from concurrent.futures import ThreadPoolExecutor
+
+    side = ThreadPoolExecutor(1)
+    hh_run = side.submit(phase_leader_compat_notebooks, smi)
+    try:
+        deep = phase_deep_train(smi)
+        mark("r_deep")
+        moe = phase_moe(smi)
+        mark("t_moe")
+        bert = phase_bert(smi)
+        mark("u_bert")
+    finally:
+        side.shutdown(wait=True)
+    hh = hh_run.result()
+    mark("hh_wait")
     phase_resnet(smi)
     mark("v_resnet")
     mesh = phase_mesh(smi, train)
@@ -8440,10 +8952,11 @@ def main() -> int:
     fleet = phase_fleet(smi)
     mark("bb_fleet")
     # (dd), (ee) and (cc): (ee1)'s r1 and (ee3)'s peer pair boot while
-    # (dd1)'s checks, (dd2), (ee3)'s walks, (cc) and (r)'s f32 gates run,
-    # (cc)'s and (dd2)'s timed lines saying so in their ``reading``;
-    # (q)'s f32 gates run while (dd1)'s two servers boot; (ee2)'s timed
-    # walks and (gg) run after, alone. (q)'s and (r)'s gates time nothing.
+    # (dd1)'s checks, (dd2), (cc) and (r)'s f32 gates run, (cc)'s and
+    # (dd2)'s timed lines saying so in their ``reading``; (q)'s f32 gates
+    # run while (dd1)'s two servers boot; (ee3)'s walks (whose gates
+    # judge latency: no process boots beside them), (ee2)'s timed walks
+    # and (gg) run after, alone. (q)'s and (r)'s gates time nothing.
     booting = "(ee1)'s r1 and (ee3)'s peer pair booting over :pull"
     pool, pair = RenderedPool(), None
     try:
@@ -8459,25 +8972,27 @@ def main() -> int:
         check_manifest_servers(pool, served, dd1)
         manifest_experiment(smi, beside=booting)
         mark("dd_manifests")
-        walks32 = rollout_fleet("walk32", torch.float32, F32_GATE_LAYERS)
-        mark("ee_inference_rollout")
         axes = phase_scenarios_axes(smi, beside=booting)
         mark("cc_scenarios_axes")
         phase_deep_gates()
         mark("r_deep")
         peer, pair = check_peer_pair(pair, mark), None
-        emit("ee3_f32_gates", gpu=smi, peer_boot=peer, walks={
-            k: walks32[k]["gates"] for k in ("good", "bad")})
         check_inference_service(pool, served, ee1, smi, mark)
     finally:
         pool.close()
         if pair is not None:
             stop_peer_pair(pair)
+    walks32 = rollout_fleet("walk32", torch.float32, F32_GATE_LAYERS)
+    emit("ee3_f32_gates", gpu=smi, peer_boot=peer, walks={
+        k: walks32[k]["gates"] for k in ("good", "bad")})
     ee2 = phase_rollout(smi)
     mark("ee_inference_rollout")
     gg = phase_rl_job(smi)
     mark("gg_rl_job")
-    emit("phase_seconds", **seconds, total_s=time.perf_counter() - t0)
+    emit("phase_seconds", **seconds, hh_leader_compat_notebooks=hh["s"],
+         hh_reading="(hh) ran beside (r)'s training, (t) and (u): its "
+                    "seconds are its own, not a segment of total_s",
+         total_s=time.perf_counter() - t0)
 
     p, r = paged["bf16"], rms[f"{SLOTS}x2048"]
     paged_paths = {

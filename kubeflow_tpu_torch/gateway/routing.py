@@ -7,7 +7,7 @@ lists Services and keeps a longest-prefix route table.
 
 The annotation is YAML as JAX's renderer writes it, or JSON as the port's
 renderer writes it where PyYAML is absent (``manifests/core.py``'s
-``_dump_route``). With PyYAML every annotation is read as JAX reads it;
+``dump_yaml``). With PyYAML every annotation is read as JAX reads it;
 without it a JSON annotation is read by ``json`` and any other raises
 :class:`ImportError` naming PyYAML, never "no routes".
 """

@@ -156,6 +156,14 @@ class KindRegistry:
     def plural(self, kind: str) -> str:
         return self._lookup(kind)[0]
 
+    def kind_for_plural(self, plural: str) -> str:
+        """The kind a REST path's plural names (for the HTTP frontend)."""
+        with self._lock:
+            for kind, (p, _namespaced) in self._kinds.items():
+                if p == plural:
+                    return kind
+        raise ApiError.not_found(f"unknown resource {plural!r}")
+
     def namespaced(self, kind: str) -> bool:
         return self._lookup(kind)[1]
 

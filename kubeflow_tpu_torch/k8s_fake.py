@@ -12,15 +12,24 @@ deletion, and CRD registration (applying a CRD makes its kind servable at
 its storage version). Left out, as nothing of the port uses them: watch
 streams and the migration of stored objects when a CRD's
 storage version moves.
+
+:func:`serve` puts a fake behind the apiserver's REST paths on
+127.0.0.1 (a copy of ``kubeflow_tpu/k8s/httpfake.py`` without watch), so
+a process started with ``--apiserver http://127.0.0.1:<port>`` (a
+manager, a pod's workload publishing its metrics) reaches it over HTTP.
 """
 
 from __future__ import annotations
 
 import copy
 import datetime
+import json
+import re
 import threading
 import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Mapping
+from urllib.parse import parse_qs, urlparse
 
 from kubeflow_tpu_torch.k8s_client import (
     ApiError,
@@ -233,3 +242,111 @@ class FakeApiServer(K8sClient):
         if self.get_or_none("v1", "Namespace", name) is None:
             self.create({"apiVersion": "v1", "kind": "Namespace",
                          "metadata": {"name": name}})
+
+
+_PATH_RE = re.compile(
+    r"^(?:/api/(?P<core_version>[^/]+)|/apis/(?P<group>[^/]+)/(?P<version>[^/]+))"
+    r"(?:/namespaces/(?P<namespace>[^/]+))?"
+    r"/(?P<plural>[^/]+)"
+    r"(?:/(?P<name>[^/]+))?"
+    r"(?:/(?P<subresource>status))?$"
+)
+
+
+def _status_body(code: int, reason: str, message: str) -> dict:
+    return {"kind": "Status", "apiVersion": "v1", "code": code,
+            "reason": reason, "message": message}
+
+
+class _Handler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+    fake: FakeApiServer  # bound by serve()
+
+    def log_message(self, *args):
+        pass
+
+    def _send_json(self, code: int, payload: dict) -> None:
+        body = json.dumps(payload).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _read_body(self) -> dict:
+        length = int(self.headers.get("Content-Length", 0))
+        return json.loads(self.rfile.read(length) or b"{}")
+
+    def _route(self):
+        """(api_version, kind, namespace, name, subresource, query)."""
+        url = urlparse(self.path)
+        m = _PATH_RE.match(url.path)
+        if not m:
+            raise ApiError(404, "NotFound", f"no route {url.path}")
+        g = m.groupdict()
+        api_version = (g["core_version"] if g["core_version"]
+                       else f"{g['group']}/{g['version']}")
+        kind = self.fake._registry.kind_for_plural(g["plural"])
+        return (api_version, kind, g["namespace"], g["name"],
+                g["subresource"], parse_qs(url.query))
+
+    def _answer(self, act, code: int = 200) -> None:
+        try:
+            self._send_json(code, act())
+        except ApiError as e:
+            self._send_json(e.code, _status_body(e.code, e.reason,
+                                                 e.message))
+
+    def do_GET(self):
+        def act():
+            api_version, kind, ns, name, _sub, query = self._route()
+            if name:
+                return self.fake.get(api_version, kind, name, ns)
+            selector = None
+            if "labelSelector" in query:
+                selector = dict(part.split("=", 1) for part in
+                                query["labelSelector"][0].split(","))
+            return {"apiVersion": api_version, "kind": f"{kind}List",
+                    "items": self.fake.list(api_version, kind, ns,
+                                            label_selector=selector)}
+        self._answer(act)
+
+    def do_POST(self):
+        self._answer(lambda: self.fake.create(self._read_body()), 201)
+
+    def do_PUT(self):
+        def act():
+            sub = self._route()[4]
+            obj = self._read_body()
+            return (self.fake.update_status(obj) if sub == "status"
+                    else self.fake.update(obj))
+        self._answer(act)
+
+    def do_PATCH(self):
+        def act():
+            api_version, kind, ns, name, _sub, _q = self._route()
+            if self.headers.get("Content-Type") not in (
+                    "application/merge-patch+json", "application/json"):
+                raise ApiError(415, "UnsupportedMediaType",
+                               "only merge-patch is supported")
+            return self.fake.patch(api_version, kind, name,
+                                   self._read_body(), ns)
+        self._answer(act)
+
+    def do_DELETE(self):
+        def act():
+            api_version, kind, ns, name, _sub, _q = self._route()
+            self.fake.delete(api_version, kind, name, ns)
+            return _status_body(200, "Success", "deleted")
+        self._answer(act)
+
+
+def serve(fake: FakeApiServer, port: int = 0
+          ) -> tuple[ThreadingHTTPServer, int]:
+    """Serve ``fake`` on 127.0.0.1:<port> in a daemon thread; returns
+    (httpd, bound_port). Stop it with ``httpd.shutdown()``."""
+    handler = type("BoundHandler", (_Handler,), {"fake": fake})
+    httpd = ThreadingHTTPServer(("127.0.0.1", port), handler)
+    httpd.daemon_threads = True
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, httpd.server_address[1]

@@ -19,7 +19,8 @@ from typing import Any, Callable, Mapping, Sequence
 DEFAULT_NAMESPACE = "kubeflow"
 
 # The modules whose prototypes :func:`load_all_packages` registers.
-PACKAGES = ("common", "rl", "scheduling", "serving", "training")
+PACKAGES = ("common", "notebooks", "rl", "scheduling", "serving",
+            "training")
 
 
 class PrototypeError(Exception):
@@ -149,11 +150,11 @@ def generate(name: str, params: Mapping[str, Any] | None = None) -> list[dict]:
 GATEWAY_ROUTE_ANNOTATION = "kubeflow-tpu.org/gateway-route"
 
 
-def _dump_route(spec: dict) -> str:
-    """The route spec as the gateway reads it: YAML as JAX's renderer
-    writes it when PyYAML is importable, else JSON, which is YAML in flow
-    style and parses to the same mapping (the GPU image need not carry
-    PyYAML)."""
+def dump_yaml(spec: dict) -> str:
+    """``spec`` as YAML, as JAX's renderer writes it (a route annotation,
+    the training operator's config), when PyYAML is importable, else as
+    JSON, which is YAML in flow style and parses to the same mapping (the
+    GPU image need not carry PyYAML)."""
     try:
         import yaml
     except ImportError:
@@ -203,4 +204,4 @@ def gateway_route(name: str, prefix: str, service: str, rewrite: str = "/",
         spec["splits"] = splits
     if shadow_fraction is not None:
         spec["shadow_fraction"] = float(shadow_fraction)
-    return {GATEWAY_ROUTE_ANNOTATION: _dump_route(spec)}
+    return {GATEWAY_ROUTE_ANNOTATION: dump_yaml(spec)}

@@ -1,5 +1,6 @@
 """Container images of the port's workloads; counterpart of
-``kubeflow_tpu/manifests/images.py``'s ``JAX_TPU`` and ``SERVING``.
+``kubeflow_tpu/manifests/images.py``'s ``JAX_TPU``, ``SERVING`` and
+``NOTEBOOK``.
 
 One image serves and trains: PyTorch built for CUDA 12.8, the CUDA
 toolkit (``nvcc`` for the hand-written kernels), CUTLASS's headers,
@@ -10,6 +11,11 @@ recipe is ``docker_torch/Dockerfile``.
 __version__ = "0.1.0"  # kubeflow_tpu/version.py's, which the image tag follows
 
 TORCH_CUDA = f"ghcr.io/kubeflow-tpu/torch-cuda:{__version__}"
+
+# The notebook image: the port's image plus JupyterLab (the
+# ``notebook`` stage of the same recipe); JAX's ``NOTEBOOK`` ships JAX
+# and libtpu.
+NOTEBOOK = f"ghcr.io/kubeflow-tpu/torch-notebook:{__version__}"
 
 # The GPU resource a pod requests (the device plugin's name).
 GPU_RESOURCE = "nvidia.com/gpu"

@@ -213,6 +213,33 @@ def headless_service(
     )
 
 
+def config_map(name: str, namespace: str, data: Mapping[str, str],
+               labels: Mapping[str, str] | None = None) -> dict:
+    return {
+        "apiVersion": "v1",
+        "kind": "ConfigMap",
+        "metadata": metadata(name, namespace, labels),
+        "data": {k: str(v) for k, v in data.items()},
+    }
+
+
+def pvc(name: str, namespace: str, storage: str,
+        access_modes: Sequence[str] = ("ReadWriteOnce",),
+        storage_class: str | None = None) -> dict:
+    return {
+        "apiVersion": "v1",
+        "kind": "PersistentVolumeClaim",
+        "metadata": metadata(name, namespace),
+        "spec": _clean(
+            {
+                "accessModes": list(access_modes),
+                "resources": {"requests": {"storage": storage}},
+                "storageClassName": storage_class,
+            }
+        ),
+    }
+
+
 def node(name: str, labels: Mapping[str, str] | None = None, *,
          gpus: int = 0, unschedulable: bool = False,
          ready: bool = True) -> dict:
@@ -343,6 +370,30 @@ def cluster_role(name: str, rules: Sequence[dict],
     }
 
 
+def role(name: str, namespace: str, rules: Sequence[dict]) -> dict:
+    return {
+        "apiVersion": "rbac.authorization.k8s.io/v1",
+        "kind": "Role",
+        "metadata": metadata(name, namespace),
+        "rules": list(rules),
+    }
+
+
+def role_binding(name: str, namespace: str, role_name: str,
+                 subjects: Sequence[dict]) -> dict:
+    return {
+        "apiVersion": "rbac.authorization.k8s.io/v1",
+        "kind": "RoleBinding",
+        "metadata": metadata(name, namespace),
+        "roleRef": {
+            "apiGroup": "rbac.authorization.k8s.io",
+            "kind": "Role",
+            "name": role_name,
+        },
+        "subjects": list(subjects),
+    }
+
+
 def cluster_role_binding(name: str, role_name: str, sa_name: str,
                          sa_namespace: str) -> dict:
     return {
@@ -359,6 +410,14 @@ def cluster_role_binding(name: str, role_name: str, sa_name: str,
              "namespace": sa_namespace}
         ],
     }
+
+
+def config_map_volume(name: str, config_map_name: str) -> dict:
+    return {"name": name, "configMap": {"name": config_map_name}}
+
+
+def pvc_volume(name: str, claim: str) -> dict:
+    return {"name": name, "persistentVolumeClaim": {"claimName": claim}}
 
 
 def secret_volume(name: str, secret_name: str) -> dict:

@@ -5,8 +5,9 @@ Deployment on the port; counterpart of
 The Deployment runs ``python -m kubeflow_tpu_torch.scheduler`` on the
 port's image with no GPU: the placement authority for every training-job
 kind over the cluster's GPU pools. It replaces JAX's scheduler on a GPU
-cluster (two schedulers must not place the same jobs). JAX's leader
-election is not ported, so ``replicas`` above 1 is refused.
+cluster (two schedulers must not place the same jobs). With ``replicas``
+above 1 the replicas elect a leader on the Lease ``scheduler``
+(``--leader-elect --leader-elect-name scheduler``, as JAX renders).
 """
 
 from __future__ import annotations
@@ -31,8 +32,7 @@ from kubeflow_tpu_torch.manifests.core import (
     params=[
         ParamSpec("namespace", DEFAULT_NAMESPACE),
         ParamSpec("image", images.TORCH_CUDA),
-        ParamSpec("replicas", 1, "scheduler replicas (1: leader election "
-                  "is not yet ported)"),
+        ParamSpec("replicas", 1, "scheduler replicas (leader-elected)"),
         ParamSpec("scheduling_period_seconds", 5,
                   "queue scan cadence (a round a period)"),
         ParamSpec("aging_seconds", 300,
@@ -57,10 +57,6 @@ def gpu_scheduler(
     requeue_backoff_seconds: int,
     grace_period_seconds: int,
 ) -> list[dict]:
-    if replicas != 1:
-        raise ValueError(
-            f"gpu-scheduler: replicas={replicas} needs leader election, "
-            "not yet ported")
     name = "scheduler"
     labels = {"app": name, "app.kubernetes.io/part-of": "kubeflow-tpu"}
     objs: list[dict] = [sched_api.scheduling_policy_crd()]
@@ -104,7 +100,9 @@ def gpu_scheduler(
                     name,
                     image,
                     command=["python", "-m", "kubeflow_tpu_torch.scheduler"],
-                    args=["--alsologtostderr", "-v=1"],
+                    args=["--alsologtostderr", "-v=1"]
+                    + (["--leader-elect", "--leader-elect-name", name]
+                       if replicas > 1 else []),
                     ports={"metrics": 8444},
                 )
             ],

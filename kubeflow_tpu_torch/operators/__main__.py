@@ -6,9 +6,12 @@ gangs, placed pods on GPU nodes), the cluster scheduler, the
 InferenceService controller (replicas rendered from ``gpu-serving``, the
 router annotation, the autoscaler scraping each replica's exposition over
 HTTP), the RolloutController (over the fleets registered in this
-process, as JAX's manager runs it), the RLJob controller and the
-Experiment controller. On a GPU cluster this manager replaces JAX's: two
-managers must not reconcile the same kinds.
+process, as JAX's manager runs it), the RLJob controller, the Notebook
+controller (GPU notebooks) and the Experiment controller. On a GPU
+cluster this manager replaces JAX's: two managers must not reconcile the
+same kinds. ``gpu-training-operator`` deploys it; with ``replicas``
+above 1 it renders ``--leader-elect``, and the replicas elect on one
+Lease (default JAX's manager's ``kubeflow-tpu-training-operator``).
 
 It polls each controller's ``reconcile_all`` (the port's client has no
 watch) at the soonest of its ``resync_seconds`` and the requeue its last
@@ -19,29 +22,22 @@ else the in-cluster service account, else ``kubectl proxy``'s
 ``http://127.0.0.1:8001``, as in JAX. In-process trials run on the card
 unless ``--device cpu``; job-mode trials render JaxJobs on the port's
 image. ``--once`` makes one pass of every controller and prints
-``{"reconciled": n, "controllers": 11}``, ``n`` the objects of all
-eleven;
+``{"reconciled": n, "controllers": 12}``, ``n`` the objects of all
+twelve;
 a kind the apiserver does not serve (its CRD not installed) counts 0.
 """
 
 from __future__ import annotations
 
 import functools
-import logging
-import sys
 
-from kubeflow_tpu_torch.runtime import (
-    client_from_args,
-    manager_args,
-    run_manager,
-    strip_glog_args,
-)
+from kubeflow_tpu_torch.runtime import manager_main
 
 
 def make_controllers(client, device: str = "cuda") -> list:
     """The manager's controllers, in JAX's manager's order: the job
     controllers (one a kind), the scheduler, the InferenceService, the
-    Rollout, the RLJob and the Experiment controller."""
+    Rollout, the RLJob, the Notebook and the Experiment controller."""
     from kubeflow_tpu_torch.operators.experiment import (
         ExperimentController,
         _default_run_trial,
@@ -50,29 +46,27 @@ def make_controllers(client, device: str = "cuda") -> list:
         InferenceServiceController,
     )
     from kubeflow_tpu_torch.operators.jobs import make_job_controllers
+    from kubeflow_tpu_torch.operators.notebooks import NotebookController
     from kubeflow_tpu_torch.operators.rl import RLJobController
     from kubeflow_tpu_torch.operators.rollout import RolloutController
     from kubeflow_tpu_torch.scheduler.controller import SchedulerController
 
     return [*make_job_controllers(client), SchedulerController(client),
             InferenceServiceController(client), RolloutController(client),
-            RLJobController(client),
+            RLJobController(client), NotebookController(client),
             ExperimentController(client, run_trial=functools.partial(
                 _default_run_trial, device=device))]
 
 
 def main(argv=None) -> int:
-    argv = strip_glog_args(list(sys.argv[1:] if argv is None else argv))
-    p = manager_args("python -m kubeflow_tpu_torch.operators", __doc__)
-    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                   help="where in-process trials run")
-    args = p.parse_args(argv)
-    logging.basicConfig(
-        level=logging.INFO,
-        format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    client = client_from_args(args)
-    return run_manager(make_controllers(client, args.device),
-                       once=args.once, metrics_port=args.metrics_port)
+    def device_arg(p) -> None:
+        p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                       help="where in-process trials run")
+
+    return manager_main(
+        argv, "python -m kubeflow_tpu_torch.operators", __doc__,
+        lambda client, args: make_controllers(client, args.device),
+        lease_name="kubeflow-tpu-training-operator", add_args=device_arg)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """What the port's entry points share: the glog flags they drop, the
 apiserver client they build from their flags, and the managers' parser
-and run loop (the operators' and the scheduler's); the part of
+and run loop with its leader election (the operators', the scheduler's
+and the notebook controller's); the part of
 ``kubeflow_tpu/runtime.py`` the port's binaries use (the operators, the
 gateway, the dashboards and the job workloads).
 
@@ -17,6 +18,7 @@ import json
 import logging
 import os
 import signal
+import sys
 import threading
 
 from kubeflow_tpu_torch.k8s_client import (
@@ -92,47 +94,107 @@ def reconcile_once(controller) -> int:
         return 0
 
 
-def run_manager(controllers: list, *, once: bool, metrics_port: int) -> int:
-    """One pass of every controller (``once``: print the count line), or
-    poll them until SIGTERM/SIGINT with ``/healthz`` and ``/metrics`` on
-    ``metrics_port`` (0: none)."""
+def run_manager(controllers: list, args, client) -> int:
+    """The manager's run, from :func:`manager_args`' flags: one pass of
+    every controller (``--once``: print the count line), or poll them
+    until SIGTERM/SIGINT with ``/healthz`` and ``/metrics`` on
+    ``--metrics-port`` (0: none). With ``--leader-elect`` it first waits
+    for the Lease ``--leader-elect-name`` in ``--namespace`` (JAX's
+    ``controller_main``), renews it in the background, releases it on
+    exit and returns 1 once leadership is lost: a deposed leader must
+    not reconcile beside the new one."""
     from kubeflow_tpu_torch.operators.base import (
         OPERATOR_METRICS,
         HealthServer,
         run_polling,
     )
 
-    if once:
+    if args.once:
         print(json.dumps({
             "reconciled": sum(reconcile_once(c) for c in controllers),
             "controllers": len(controllers)}))
         return 0
+    stop, lost = threading.Event(), threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: stop.set())
+    elector = None
+    if args.leader_elect:
+        from kubeflow_tpu_torch.operators.leader import LeaderElector
+
+        elector = LeaderElector(client, name=args.leader_elect_name,
+                                namespace=args.namespace)
+        log.info("waiting for leadership on lease %s as %s",
+                 args.leader_elect_name, elector.identity)
+        while not elector.try_acquire():
+            if stop.wait(elector.renew_seconds):
+                return 0
+        elector.start()  # keep renewing in the background
+
+        def watch() -> None:
+            while not stop.wait(1.0):
+                if not elector.is_leader:
+                    log.error("lost leadership on lease %s; shutting down",
+                              args.leader_elect_name)
+                    lost.set()
+                    stop.set()
+
+        threading.Thread(target=watch, name="lease-watch",
+                         daemon=True).start()
     health = None
-    if metrics_port:
+    if args.metrics_port:
         health = HealthServer(
-            metrics_port,
+            args.metrics_port,
             lambda: {"kubeflow_tpu_controllers_running": len(controllers)},
             registries=(OPERATOR_METRICS,))
         health.start()
-    stop = threading.Event()
-    for sig in (signal.SIGTERM, signal.SIGINT):
-        signal.signal(sig, lambda *_: stop.set())
     try:
+        log.info("running %d controllers: %s", len(controllers),
+                 ", ".join(c.kind for c in controllers))
         run_polling(controllers, stop)
     finally:
+        if elector is not None:
+            elector.release()
         if health is not None:
             health.stop()
-    return 0
+    return 1 if lost.is_set() else 0
 
 
 def manager_args(prog: str, description: str,
-                 default_metrics_port: int = 8443) -> argparse.ArgumentParser:
+                 default_metrics_port: int = 8443,
+                 lease_name: str = "") -> argparse.ArgumentParser:
     """The parser every manager of the port shares: the client flags,
-    ``--once`` and ``--metrics-port``."""
+    ``--once``, ``--metrics-port``, ``--leader-elect`` and
+    ``--leader-elect-name`` (default ``lease_name``, the lease JAX's
+    counterpart elects on, so the two managers, which must never both
+    run, also exclude each other)."""
     p = argparse.ArgumentParser(prog=prog, description=description)
     add_client_args(p)
     p.add_argument("--once", action="store_true",
                    help="one reconcile pass over every object, then exit")
     p.add_argument("--metrics-port", type=int, default=default_metrics_port,
                    help="health/metrics port (0 = disabled)")
+    p.add_argument("--leader-elect", action="store_true",
+                   help="hold a coordination.k8s.io Lease before "
+                        "reconciling (replicated manager Deployments)")
+    p.add_argument("--leader-elect-name", default=lease_name,
+                   help=f"lease name (default {lease_name})")
     return p
+
+
+def manager_main(argv, prog: str, description: str, make_controllers, *,
+                 default_metrics_port: int = 8443, lease_name: str = "",
+                 add_args=None) -> int:
+    """A manager's ``main``: :func:`manager_args` (plus ``add_args(p)``'s
+    flags), the client, ``make_controllers(client, args)`` and
+    :func:`run_manager`, as JAX's ``controller_main`` does for its
+    managers."""
+    argv = strip_glog_args(list(sys.argv[1:] if argv is None else argv))
+    p = manager_args(prog, description, default_metrics_port, lease_name)
+    if add_args is not None:
+        add_args(p)
+    args = p.parse_args(argv)
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    client = client_from_args(args)
+    return run_manager(make_controllers(client, args), args, client)

@@ -7,24 +7,17 @@ single-manager deployments; deploy one or the other).
 
 Flags are the manager's: ``--apiserver`` (else the in-cluster service
 account, else ``kubectl proxy``'s address), ``--once`` (one round,
-printing ``{"reconciled": n, "controllers": 1}``) and ``--metrics-port``
-(default 8444, the ``gpu-scheduler`` Deployment's metrics port). It runs
-on the port's polling runtime: a round at the policy's period. JAX's
-``--leader-elect`` is not ported, so ``gpu-scheduler`` renders one
-replica.
+printing ``{"reconciled": n, "controllers": 1}``), ``--metrics-port``
+(default 8444, the ``gpu-scheduler`` Deployment's metrics port) and
+``--leader-elect [--leader-elect-name NAME]`` (hold the Lease NAME,
+default JAX's scheduler's ``kubeflow-tpu-cluster``, before placing
+anything; ``gpu-scheduler`` renders it for ``replicas`` above 1). It
+runs on the port's polling runtime: a round at the policy's period.
 """
 
 from __future__ import annotations
 
-import logging
-import sys
-
-from kubeflow_tpu_torch.runtime import (
-    client_from_args,
-    manager_args,
-    run_manager,
-    strip_glog_args,
-)
+from kubeflow_tpu_torch.runtime import manager_main
 
 
 def make_controllers(client) -> list:
@@ -34,14 +27,10 @@ def make_controllers(client) -> list:
 
 
 def main(argv=None) -> int:
-    argv = strip_glog_args(list(sys.argv[1:] if argv is None else argv))
-    args = manager_args("python -m kubeflow_tpu_torch.scheduler", __doc__,
-                        default_metrics_port=8444).parse_args(argv)
-    logging.basicConfig(
-        level=logging.INFO,
-        format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    return run_manager(make_controllers(client_from_args(args)),
-                       once=args.once, metrics_port=args.metrics_port)
+    return manager_main(argv, "python -m kubeflow_tpu_torch.scheduler",
+                        __doc__, lambda client, args: make_controllers(client),
+                        default_metrics_port=8444,
+                        lease_name="kubeflow-tpu-cluster")
 
 
 if __name__ == "__main__":

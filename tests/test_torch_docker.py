@@ -116,9 +116,12 @@ def test_entry_points_import_without_jax():
                "kubeflow_tpu_torch.dashboard.__main__",
                "kubeflow_tpu_torch.dashboard.training",
                "kubeflow_tpu_torch.train.loop",
+               "kubeflow_tpu_torch.operators.notebook",
+               "kubeflow_tpu_torch.webapps.jupyter",
                *(f"kubeflow_tpu_torch.workloads.{m}" for m in (
                    "allreduce_smoke", "tf_cnn", "torch_xla_ddp",
-                   "slice_health"))]
+                   "slice_health", "mpi_launcher", "mxnet_ps",
+                   "chainermn_train"))]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}:\n"
             "    importlib.import_module(m)\n"
@@ -128,3 +131,24 @@ def test_entry_points_import_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_notebook_stage_adds_jupyterlab_and_is_tagged():
+    """The notebook controller's default image: a ``notebook`` stage
+    that installs JupyterLab over the port (no JAX), runs as the
+    unprivileged user, and is tagged as ``images.NOTEBOOK``."""
+    instrs = _instructions(RECIPE)
+    starts = [i for i, (k, _) in enumerate(instrs) if k == "FROM"]
+    (first,) = [i for i in starts
+                if instrs[i][1].split()[-1] == "notebook"]
+    end = min([i for i in starts if i > first] + [len(instrs)])
+    stage = instrs[first:end]
+    runs = " ".join(rest for kind, rest in stage if kind == "RUN")
+    assert "jupyterlab" in runs
+    copied = " ".join(rest for kind, rest in stage if kind == "COPY")
+    assert "kubeflow_tpu_torch" in copied and "--chown=kubeflow" in copied
+    users = [rest.strip() for kind, rest in stage if kind == "USER"]
+    assert users and users[-1] not in ("root", "0")
+    script = SCRIPT.read_text()
+    assert "--target notebook" in script and "print(NOTEBOOK)" in script
+    assert images.NOTEBOOK.startswith("ghcr.io/kubeflow-tpu/")

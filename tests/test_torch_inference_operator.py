@@ -548,9 +548,9 @@ def test_manager_once_runs_the_three_controllers_over_http():
     """``python -m kubeflow_tpu_torch.operators --once`` against JAX's
     fake apiserver over HTTP: the InferenceService renders its replica
     from ``gpu-serving`` and the pass counts it among the manager's
-    eleven controllers (the three of the serving and tuning planes, the
-    six job controllers, the scheduler and the RLJob controller; the
-    kinds whose CRDs this fake lacks count 0).
+    twelve controllers (the three of the serving and tuning planes, the
+    six job controllers, the scheduler, the RLJob and the Notebook
+    controller; the kinds whose CRDs this fake lacks count 0).
     The replica's scrape goes to a proxy that refuses it (no name is
     looked up), so the pool holds."""
     fake = JFakeApiServer()
@@ -569,7 +569,7 @@ def test_manager_once_runs_the_three_controllers_over_http():
         httpd.shutdown()
     assert proc.returncode == 0, proc.stderr
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == \
-        {"reconciled": 2, "controllers": 11}
+        {"reconciled": 2, "controllers": 12}
     st = fake.get(API, "InferenceService", "llm", NS)["status"]
     assert (st["replicas"], st["scrapedReplicas"]) == (1, 0)
     (c,) = fake.get("apps/v1", "Deployment", "llm-r0", NS)["spec"][

@@ -14,8 +14,16 @@ counterpart, and the two are equal after this mapping and nothing else:
 - the serving Deployment's ``service`` label names its prototype
   (``gpu-serving``);
 - a container without a GPU adds ``--device=cpu`` (the port runs on CUDA
-  unless asked), except the gateway's and the dashboards', which take no
-  device.
+  unless asked), except the host processes' (the gateway, the
+  dashboards, the scheduler, the notebook controller and web app), which
+  take no device;
+- the MPI Launcher asks for no GPU, as JAX's asks for no chip; where the
+  workers have GPUs it passes ``--single-process-arg=--device=cpu`` to
+  ``mpi_launcher`` in place of the flag, so without ``mpirun`` (as in
+  the port's image) it runs the workers' command on the CPU;
+- JAX's workload and notebook images named in a config (the training
+  operator's ``defaultWorkloadImage``, the web app's default notebook
+  image) become the port's.
 
 Every rendered ``gpu-serving`` arg list parses with the port's serving
 CLI parser; ``compile_cache_dir`` is refused by name; the job CRs pass
@@ -72,11 +80,28 @@ PAIRS = {
            "gpus_per_replica"),
     "scheduler": ("scheduler", "gpu-scheduler", jimages.PLATFORM, None,
                   None),
+    # The manager that runs the port's controllers, the compat jobs and
+    # GPU notebooks.
+    "training-operator": ("training-operator", "gpu-training-operator",
+                          jimages.PLATFORM, None, None),
+    "mpi-job": ("mpi-job", "gpu-mpi-job", jimages.JAX_TPU,
+                "chips_per_worker", "gpus_per_worker"),
+    "mxnet-job": ("mxnet-job", "gpu-mxnet-job", jimages.JAX_TPU,
+                  "chips_per_worker", "gpus_per_worker"),
+    "chainer-job": ("chainer-job", "gpu-chainer-job", jimages.JAX_TPU,
+                    "chips_per_worker", "gpus_per_worker"),
+    "notebook-controller": ("notebook-controller", "gpu-notebook-controller",
+                            jimages.PLATFORM, None, None),
+    "jupyter-web-app": ("jupyter-web-app", "gpu-jupyter-web-app",
+                        jimages.PLATFORM, None, None),
 }
 HOST_PAIRS = ("gateway", "centraldashboard", "training-dashboard",
-              "scheduler")
+              "scheduler", "notebook-controller", "jupyter-web-app")
 # Pairs that ship a CRD whose schema stays JAX's (``spec.tpu`` kept).
-JAX_SCHEMA_PAIRS = ("rl",)
+JAX_SCHEMA_PAIRS = ("rl", "training-operator", "notebook-controller")
+# JAX's images a config names, and the port's in their place.
+CONFIG_IMAGES = {jimages.JAX_TPU: images.TORCH_CUDA,
+                 jimages.NOTEBOOK: images.NOTEBOOK}
 
 SERVING_PARAMS = [
     {"name": "llama", "model_name": "llama-1b"},
@@ -122,7 +147,22 @@ PARAMS = {
                 "chips_per_replica": 0, "actor_replicas": 3,
                 "actor_max_replicas": 6, "namespace": "team"}],
     "scheduler": [{}, {"namespace": "team", "aging_seconds": 60,
-                       "preemption_enabled": False}],
+                       "preemption_enabled": False}, {"replicas": 2}],
+    "training-operator": [{}, {"replicas": 2}, {
+        "namespace": "team", "replicas": 3, "cluster_scoped": False,
+        "conversion_ca_bundle": "Q0E=", "default_workload_image": "w:1"}],
+    "mpi-job": [{"name": "j"}, {"name": "j", "num_workers": 1},
+                {"name": "j", "num_workers": 4, "chips_per_worker": 2,
+                 "namespace": "team"},
+                {"name": "j", "chips_per_worker": 0}],
+    "mxnet-job": [{"name": "j"},
+                  {"name": "j", "num_servers": 2, "num_workers": 2},
+                  {"name": "j", "chips_per_worker": 0}],
+    "chainer-job": [{"name": "j"}, {"name": "j", "num_workers": 3},
+                    {"name": "j", "chips_per_worker": 0}],
+    "notebook-controller": [{}, {"namespace": "team"}],
+    "jupyter-web-app": [{}, {"namespace": "team"},
+                        {"default_notebook_image": "my/nb:1"}],
 }
 CASES = [(pair, i) for pair in PAIRS for i in range(len(PARAMS[pair]))]
 
@@ -203,9 +243,32 @@ def to_gpu(pair: str, objs: list[dict]) -> list[dict]:
                     else
                     "args" if obj["kind"] in ("Deployment", "Job")
                     else "command")
+        flagged = []
+        if obj["kind"] == "MPIJob":
+            specs = spec["replicaSpecs"]
+            (worker,) = specs["Worker"]["template"]["spec"]["containers"]
+            (launcher,) = specs["Launcher"]["template"]["spec"]["containers"]
+            if _gpus(worker.get("resources")):
+                at = launcher["command"].index("--")
+                launcher["command"].insert(
+                    at, "--single-process-arg=--device=cpu")
+                flagged.append(launcher)
         for c in _containers(obj):
-            _map_container(c, default_image, cpu_flag)
+            _map_container(c, default_image,
+                           "" if any(c is f for f in flagged) else cpu_flag)
+            if "args" in c:
+                c["args"] = [_config_images(a) for a in c["args"]]
+        if obj["kind"] == "ConfigMap":
+            obj["data"] = {k: _config_images(v)
+                           for k, v in obj["data"].items()}
     return out
+
+
+def _config_images(value):
+    if isinstance(value, str):
+        for jimage, image in CONFIG_IMAGES.items():
+            value = value.replace(jimage, image)
+    return value
 
 
 @pytest.mark.parametrize("pair,i", CASES,

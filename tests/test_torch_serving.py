@@ -334,6 +334,7 @@ PLATFORM_MODULES = [
     "kubeflow_tpu_torch.manifests.__main__",
     "kubeflow_tpu_torch.manifests.core",
     "kubeflow_tpu_torch.manifests.images",
+    "kubeflow_tpu_torch.manifests.notebooks",
     "kubeflow_tpu_torch.manifests.objects",
     "kubeflow_tpu_torch.manifests.rl",
     "kubeflow_tpu_torch.manifests.scheduling",
@@ -345,6 +346,9 @@ PLATFORM_MODULES = [
     "kubeflow_tpu_torch.operators.experiment",
     "kubeflow_tpu_torch.operators.inference",
     "kubeflow_tpu_torch.operators.jobs",
+    "kubeflow_tpu_torch.operators.leader",
+    "kubeflow_tpu_torch.operators.notebook",
+    "kubeflow_tpu_torch.operators.notebooks",
     "kubeflow_tpu_torch.operators.rl",
     "kubeflow_tpu_torch.operators.rollout",
     "kubeflow_tpu_torch.operators.runstore",
@@ -355,6 +359,10 @@ PLATFORM_MODULES = [
     "kubeflow_tpu_torch.scheduler.queue",
     "kubeflow_tpu_torch.tuning.suggestions",
     "kubeflow_tpu_torch.tuning.sweep",
+    "kubeflow_tpu_torch.webapps.jupyter",
+    "kubeflow_tpu_torch.workloads.chainermn_train",
+    "kubeflow_tpu_torch.workloads.mpi_launcher",
+    "kubeflow_tpu_torch.workloads.mxnet_ps",
 ]
 
 
@@ -382,12 +390,20 @@ def test_package_imports_neither_jax_nor_the_jax_package():
 
 @pytest.mark.parametrize("module", [
     "kubeflow_tpu_torch.gateway", "kubeflow_tpu_torch.gateway.__main__",
-    "kubeflow_tpu_torch.dashboard", "kubeflow_tpu_torch.dashboard.training"])
+    "kubeflow_tpu_torch.dashboard", "kubeflow_tpu_torch.dashboard.training",
+    "kubeflow_tpu_torch.operators.leader",
+    "kubeflow_tpu_torch.operators.notebook",
+    "kubeflow_tpu_torch.operators.notebooks",
+    "kubeflow_tpu_torch.webapps.jupyter",
+    "kubeflow_tpu_torch.workloads.mpi_launcher",
+    "kubeflow_tpu_torch.workloads.mxnet_ps",
+    "kubeflow_tpu_torch.workloads.chainermn_train"])
 def test_front_door_imports_neither_torch_nor_jax(module):
-    """The gateway and the dashboards are host code: a fresh interpreter
-    that imports one of them (and the JWT path the gateway's flags
-    reach) loads no module of ``kubeflow_tpu``, no ``jax`` and no
-    ``torch``."""
+    """The gateway, the dashboards and the other host-only modules (leader
+    election, the notebook controller and web app, the MPI launcher and
+    the two numpy workloads) are host code: a fresh interpreter that
+    imports one of them (and the JWT path the gateway's flags reach)
+    loads no module of ``kubeflow_tpu``, no ``jax`` and no ``torch``."""
     root = Path(__file__).resolve().parent.parent
     code = (
         "import importlib, sys\n"
