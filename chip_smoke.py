@@ -26,7 +26,9 @@ training (a gang that shrinks and grows while flagship-1b trains) and the
 job entry points (the health probe, the ResNet workload, batch predict),
 the decoder fleet with its KV economy, the remote actor fleet and the RL
 learner on the fleet, the platform's controllers (placement, leader
-election, the compat jobs, notebooks), and checks the output. Phases, each printed as one JSON line:
+election, the compat jobs, notebooks), the secure entrypoint (certificate
+issuance and rotation, TLS, JWTs) in front of a rendered replica, and
+checks the output. Phases, each printed as one JSON line:
 
 (a) the card and the kernels' build times;
 (b) the paged decode kernel against ``_paged_decode_plain`` at the main
@@ -576,6 +578,33 @@ election, the compat jobs, notebooks), and checks the output. Phases, each print
     process is not run. (hh2)-(hh4) run side by side; a process that
     exits non-zero, a placement that never comes or a Lease held by the
     wrong process fails the script;
+(ii) the secure entrypoint in front of (ee1)'s r0, in a thread from
+    the end of (dd1)'s checks to the start of (ee1)'s gateway: the port's
+    ``cert-manager``, ``secure-ingress`` (hostname ``localhost``) and
+    ``cloud-endpoints`` rendered into (ee)'s fake apiserver (namespace
+    ``II_NS``), served over HTTP by ``k8s_fake.serve``; the rendered
+    cert-manager command once with ``--once`` (the first issuance), then
+    the controllers in this process under a shifted clock (the
+    rotation); the rendered gateway command with only its ports and
+    file paths mapped (``--watch-certs`` cut to II_WATCH_CERTS) and a
+    route Service naming r0; JWTs from the port's ``SigningKeyRing``
+    behind a JWKS served here. Gates: (a) a predict over HTTPS with a
+    valid token reaches r0 (its request id read back) and its tokens
+    equal the same request direct; (b) no token and a wrong audience get
+    401, ``GET /healthz`` passes; (c) the redirect port answers 301 to
+    ``https://localhost/<path>``; (d) the handshake's serial is the
+    Certificate's, and after the rotation revision 2, a reload in the
+    gateway's log, the new serial on new handshakes and a keep-alive
+    connection opened before it still answering; (e) an ``acme``
+    Issuer's Certificate walks Pending -> Validated -> Issued, its token
+    served by the gateway over TLS before Validated (another gets 404);
+    (f) the zone ConfigMap holds both records; (g) r0's paged launches
+    are 16 x its decode forwards over (ii)'s requests. It prints CA and
+    leaf issuance ms, the CLI pass's and the gateway's boot seconds,
+    the TLS + JWT hop's added p50 on a metadata GET and a predict
+    against direct (alternating, a new connection each), the seconds
+    from the Secret's rewrite to the first new handshake, its own
+    seconds and ``ii_wait``, the seconds the script waited for it;
 (f) the kernel table: each kernel's launches on the main paths, its
     error, its time, its plain version's time and its bound; the paged
     and RMSNorm rows give device time as ``ms`` and the call's as
@@ -628,10 +657,14 @@ segments); (aa2) and then (aa3) run in a thread beside (aa1), so
 (aa1)'s reshard and downtime ms, (aa2)'s wall time and (aa3)'s
 samples/s and ms an instance are read so, and (aa3)'s probe runs
 beside tf_cnn (its samples/s); (ee1)'s r1 and (ee3)'s peer pair boot
-during (dd1)'s checks, (dd2), (cc) and (r)'s f32 gates, so (dd2)'s and
-(cc)'s times and those boots are read so; (q)'s f32 gates run while
+during (dd1)'s checks, (dd2), (cc) and (r)'s f32 gates, and (ii) runs
+in a thread during (dd2), (cc), (r)'s f32 gates and (ee3), so (dd2)'s
+and (cc)'s times, those boots and (ii)'s latencies are read so; (q)'s
+f32 gates run while
 (dd1)'s servers boot. (ee3)'s walks (gates on latency), (ee2)'s timed
-walks and (gg) run alone.
+walks and (gg) run alone, after one full collection of this process's
+heap whose survivors are frozen (``ee_gc``: a collection inside a walk
+read as a canary's slow token).
 
 TF32 is off throughout, so float32 products are full float32. Any
 failure exits non-zero; the last line, printed only on success, is
@@ -641,6 +674,7 @@ rest of the checkout beside it, it fails before printing any result.
 
 from __future__ import annotations
 
+import gc
 import http.client
 import json
 import os
@@ -8804,6 +8838,450 @@ def phase_leader_compat_notebooks(smi: str) -> dict:
             "s": time.perf_counter() - t0}
 
 
+# (ii) the secure entrypoint in front of (ee1)'s r0. Its objects live in
+# a namespace of their own in (ee)'s fake apiserver: (ee1) counts the
+# children of its own namespace. The renew shift puts the injected clock
+# inside the rendered Certificate's renew window (90 days, renewed with
+# 30 left).
+II_NS = "secure"
+II_DIR = "build/chip_smoke/ii"  # the Secret's files, as a kubelet writes them
+II_HOST = "localhost"
+II_WATCH_CERTS = 0.5  # the gateway's cert poll (rendered: 5 s)
+II_ROUTE = "/models/r0"
+II_PROMPTS = [(12, 8), (40, 8), (96, 8), (7, 8)]
+II_LATENCY_ROUNDS, II_METADATA_ROUNDS = 3, 20
+II_ISSUE_REPS = 5
+II_RENEW_SHIFT_S = 61 * 24 * 3600
+II_ACME = "acme-le"
+II_BESIDE = ("(dd2), (cc), (r)'s f32 gates and (ee3), with (ee1)'s r1 "
+             "booting over :pull from r0")
+
+
+class TlsConn(http.client.HTTPSConnection):
+    """HTTPS to 127.0.0.1, verified as II_HOST (no name is looked up)."""
+
+    def connect(self):
+        import socket
+
+        sock = socket.create_connection(("127.0.0.1", self.port),
+                                        self.timeout)
+        self.sock = self._context.wrap_socket(sock, server_hostname=II_HOST)
+
+
+def ii_call(port: int, ctx, method: str, path: str, body=None,
+            headers: dict | None = None, conn=None):
+    """One request over TLS (a new connection unless ``conn``): (status,
+    headers, body bytes, seconds)."""
+    own = conn is None
+    conn = conn or TlsConn(II_HOST, port, context=ctx, timeout=300)
+    t0 = time.perf_counter()
+    try:
+        conn.request(method, path, headers=headers or {},
+                     body=None if body is None else json.dumps(body))
+        resp = conn.getresponse()
+        data = resp.read()
+        return resp.status, dict(resp.getheaders()), data, \
+            time.perf_counter() - t0
+    finally:
+        if own:
+            conn.close()
+
+
+def ii_serial(port: int, ctx) -> tuple[str, float]:
+    """The serial a new TLS handshake presents (hex, as the Certificate's
+    status writes it) and the handshake's seconds."""
+    import socket
+
+    t0 = time.perf_counter()
+    with socket.create_connection(("127.0.0.1", port), timeout=30) as raw:
+        with ctx.wrap_socket(raw, server_hostname=II_HOST) as tls:
+            sec = time.perf_counter() - t0
+            return format(int(tls.getpeercert()["serialNumber"], 16),
+                          "x"), sec
+
+
+def ii_jwks(ring):
+    """The signing ring's JWKS over plain HTTP on a free local port."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Jwks(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_GET(self):
+            body = json.dumps(ring.jwks()).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), Jwks)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, httpd.server_address[1]
+
+
+def ii_files(api, name: str) -> None:
+    """The TLS Secret ``name`` as its volume's files, written as a
+    kubelet's atomic writer does: each file a link through ``..data`` to
+    a new directory, the link swapped in one rename, so a reader never
+    sees a new certificate beside an old key."""
+    from kubeflow_tpu_torch.manifests.objects import secret_data
+
+    data = secret_data(api.get("v1", "Secret", name, II_NS))
+    base, stamp = f"{II_DIR}/tls", f"..{time.time_ns()}"
+    os.makedirs(f"{base}/{stamp}")
+    for key in ("tls.crt", "tls.key"):
+        with open(f"{base}/{stamp}/{key}", "w") as f:
+            f.write(data[key])
+        if not os.path.islink(f"{base}/{key}"):
+            os.symlink(f"..data/{key}", f"{base}/{key}")
+    os.symlink(stamp, f"{base}/..data_tmp")
+    os.replace(f"{base}/..data_tmp", f"{base}/..data")
+
+
+def ii_container(objs: list[dict], name: str) -> dict:
+    """The one container of the rendered Deployment ``name``; none of the
+    secure entrypoint's pods asks for a GPU."""
+    from kubeflow_tpu_torch.manifests import images
+
+    (dep,) = [o for o in objs if o["kind"] == "Deployment"
+              and o["metadata"]["name"] == name]
+    (c,) = dep["spec"]["template"]["spec"]["containers"]
+    if images.GPU_RESOURCE in json.dumps(dep):
+        raise AssertionError(f"(ii) {name} asks for a GPU: {c}")
+    return c
+
+
+def ii_latency(gw_port: int, r0: int, ctx, auth: dict, bodies: list,
+               model: str) -> dict:
+    """The TLS + JWT hop's added latency: each prompt direct to r0 and
+    through the gateway II_LATENCY_ROUNDS times, and a metadata GET
+    II_METADATA_ROUNDS times, alternating which side goes first; each
+    request on a new connection (so a gateway request pays a handshake)."""
+    lat = {"predict": {"direct": [], "gateway": []},
+           "metadata": {"direct": [], "gateway": []}}
+    path = f"/v1/models/{model}"
+    for r in range(II_LATENCY_ROUNDS):
+        for i, body in enumerate(bodies):
+            for side in (("direct", "gateway") if (r + i) % 2 == 0
+                         else ("gateway", "direct")):
+                if side == "direct":
+                    sec = post(r0, body, model=model)[1]
+                else:
+                    st, _, data, sec = ii_call(
+                        gw_port, ctx, "POST", f"{II_ROUTE}{path}:predict",
+                        {"instances": [body]}, auth)
+                    if st != 200:
+                        raise AssertionError(f"(ii) predict: {st} {data}")
+                lat["predict"][side].append(sec)
+    for r in range(II_METADATA_ROUNDS):
+        for side in (("direct", "gateway") if r % 2 == 0
+                     else ("gateway", "direct")):
+            t0 = time.perf_counter()
+            if side == "direct":
+                get(r0, path)
+            else:
+                st, _, data, _ = ii_call(gw_port, ctx, "GET",
+                                         II_ROUTE + path, headers=auth)
+                if st != 200:
+                    raise AssertionError(f"(ii) metadata: {st} {data}")
+            lat["metadata"][side].append(time.perf_counter() - t0)
+    return {kind: {
+        "p50_direct_ms": float(np.median(v["direct"])) * 1e3,
+        "p50_gateway_ms": float(np.median(v["gateway"])) * 1e3,
+        "p50_added_ms": (float(np.median(v["gateway"]))
+                         - float(np.median(v["direct"]))) * 1e3,
+        "range_direct_ms": [min(v["direct"]) * 1e3, max(v["direct"]) * 1e3],
+        "range_gateway_ms": [min(v["gateway"]) * 1e3,
+                             max(v["gateway"]) * 1e3],
+        "requests_a_side": len(v["direct"])} for kind, v in lat.items()}
+
+
+def phase_secure_entrypoint(smi: str, pool: RenderedPool) -> dict:
+    """(ii): see the module docstring. Runs in a thread while r0 serves
+    nothing else; raises on any gate."""
+    import shutil
+    import ssl
+    from urllib.parse import urlparse
+
+    import cryptography  # its absence fails (ii): the image installs it
+
+    from kubeflow_tpu_torch import k8s_fake
+    from kubeflow_tpu_torch.apis.certificates import (
+        CERTS_API_VERSION,
+        DNS_ZONE_CONFIGMAP,
+        ORDER_ISSUED,
+        ORDER_PENDING,
+        ORDER_VALIDATED,
+    )
+    from kubeflow_tpu_torch.auth import pki
+    from kubeflow_tpu_torch.auth.tokens import SigningKeyRing
+    from kubeflow_tpu_torch.manifests import generate
+    from kubeflow_tpu_torch.manifests import objects as k8s
+    from kubeflow_tpu_torch.manifests.core import gateway_route
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.operators.certificates import (
+        CertificateController,
+        IssuerController,
+    )
+
+    t0 = time.perf_counter()
+    model, api, r0 = MODEL, pool.api, pool.port(0)
+    cfg = get_model(model).config
+    out = {"gpu": smi, "cryptography": cryptography.__version__,
+           "namespace": II_NS, "hostname": II_HOST,
+           "watch_certs_s": II_WATCH_CERTS}
+    ca_ms, leaf_ms = [], []
+    for _ in range(II_ISSUE_REPS):
+        t = time.perf_counter()
+        ca = pki.make_ca("ii root")
+        ca_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        pki.issue(ca, [II_HOST], duration_seconds=3600)
+        leaf_ms.append((time.perf_counter() - t) * 1e3)
+    out["issuance_ms"] = {"ca_p50": float(np.median(ca_ms)),
+                          "leaf_p50": float(np.median(leaf_ms)),
+                          "ca": ca_ms, "leaf": leaf_ms}
+
+    api.ensure_namespace(II_NS)
+    rendered = {name: generate(name, {"namespace": II_NS, **params})
+                for name, params in (("cert-manager", {}),
+                                     ("secure-ingress",
+                                      {"hostname": II_HOST}),
+                                     ("cloud-endpoints", {}))}
+    for objs in rendered.values():
+        for obj in objs:
+            api.apply(obj)
+    api.apply(k8s.service(
+        "r0", II_NS, {"app": "r0"}, [{"name": "http", "port": 8500}],
+        annotations=gateway_route("r0", f"{II_ROUTE}/",
+                                  f"127.0.0.1:{r0}")))
+    cm = ii_container(rendered["cert-manager"], "cert-manager")
+    gc = ii_container(rendered["secure-ingress"], "secure-gateway")
+    flags = dict(a.split("=", 1) for a in gc["args"] if "=" in a)
+    ring = SigningKeyRing(flags["--jwt-issuer"])
+    procs, servers = [], []
+    os.makedirs(f"{II_DIR}/tls", exist_ok=True)
+    os.makedirs("chiprun_out", exist_ok=True)
+    try:
+        httpd, api_port = k8s_fake.serve(api)
+        servers.append(httpd)
+        jwks, jwks_port = ii_jwks(ring)
+        servers.append(jwks)
+        env = {**os.environ,
+               "KUBEFLOW_TPU_APISERVER": f"http://127.0.0.1:{api_port}"}
+
+        # The first issuance: the rendered cert-manager, one pass.
+        cm_env = {e["name"]: e["value"] for e in cm["env"]}
+        t = time.perf_counter()
+        once = subprocess.run(container_command(cm, {}) + ["--once"],
+                              env={**env, **cm_env}, capture_output=True,
+                              text=True, timeout=120)
+        out["cli_once_s"] = time.perf_counter() - t
+        with open("chiprun_out/ii_cert_manager.log", "w") as f:
+            f.write(once.stdout + once.stderr)
+        if once.returncode != 0 or json.loads(
+                once.stdout.strip().splitlines()[-1]) != {
+                    "reconciled": 4, "controllers": 3}:
+            raise AssertionError(f"(ii) cert-manager --once: "
+                                 f"{once.returncode} {once.stdout[-500:]} "
+                                 f"{once.stderr[-2000:]}")
+        cert = api.get(CERTS_API_VERSION, "Certificate", "secure-gateway",
+                       II_NS)["status"]
+        issuer = api.get(CERTS_API_VERSION, "Issuer", "platform-ca",
+                         II_NS)["status"]
+        zone = api.get("v1", "ConfigMap", DNS_ZONE_CONFIGMAP,
+                       II_NS)["data"]
+        out["zone"] = zone  # (f)
+        if not cert.get("ready") or cert["revision"] != 1 or zone != {
+                II_HOST: f"secure-gateway.{II_NS}",
+                "kubeflow.example.com": "gateway.kubeflow"}:
+            raise AssertionError(f"(ii) first issuance: {cert} {zone}")
+        ii_files(api, "secure-gateway-tls")
+        with open(f"{II_DIR}/ca.pem", "w") as f:
+            f.write(issuer["caCertificate"])
+        ctx = ssl.create_default_context(cafile=f"{II_DIR}/ca.pem")
+
+        # The gateway from its rendered command: ports and paths mapped.
+        ports = {"--port": free_port(), "--redirect-port": free_port(),
+                 "--admin-port": free_port(),
+                 "--tls-cert": f"{II_DIR}/tls/tls.crt",
+                 "--tls-key": f"{II_DIR}/tls/tls.key",
+                 "--watch-certs": II_WATCH_CERTS,
+                 "--jwks-uri": f"http://127.0.0.1:{jwks_port}"
+                               f"{urlparse(flags['--jwks-uri']).path}"}
+        log_path = "chiprun_out/ii_gateway.log"
+        log = open(log_path, "w")
+        proc = subprocess.Popen(container_command(gc, ports), env=env,
+                                stdout=log, stderr=subprocess.STDOUT,
+                                text=True)
+        procs.append((proc, log))
+        started, gw_port = time.perf_counter(), ports["--port"]
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"(ii) the gateway exited "
+                                     f"{proc.returncode}")
+            try:
+                if any(r["name"] == "r0" for r in json.loads(
+                        get(ports["--admin-port"], "/routes"))):
+                    break
+            except (OSError, AssertionError, ValueError):
+                pass
+            if time.perf_counter() - started > 60:
+                raise AssertionError("(ii) the gateway was not ready")
+            time.sleep(0.05)
+        out["gateway_boot_to_ready_s"] = time.perf_counter() - started
+        out["gateway_args"] = gc["args"]
+
+        # (a), (b): the predict through the gateway, with and without a
+        # valid token; (g) counts r0's launches from here.
+        before = launches_of(r0)
+        rng = np.random.RandomState(15)
+        bodies = [{"tokens": rng.randint(0, cfg.vocab_size,
+                                         size=n).tolist(),
+                   "max_new_tokens": m} for n, m in II_PROMPTS]
+        audience = flags["--jwt-audience"]
+        auth = {"Authorization": f"Bearer {ring.issue('ii', audience)}"}
+        wrong = {"Authorization":
+                 f"Bearer {ring.issue('ii', audience + '-other')}"}
+        predict_path = f"{II_ROUTE}/v1/models/{model}:predict"
+        st, hdrs, data, _ = ii_call(gw_port, ctx, "POST", predict_path,
+                                    {"instances": [bodies[0]]},
+                                    {**auth, "X-Request-ID": "ii-a"})
+        if st != 200 or hdrs.get("X-Request-ID") != "ii-a":
+            raise AssertionError(f"(ii) (a) {st} {hdrs} {data[:500]!r}")
+        through = json.loads(data)["predictions"][0]["tokens"]
+        timeline(r0, "ii-a")  # it reached r0
+        direct = post(r0, bodies[0], model=model)[0]
+        statuses = {
+            "no_token": ii_call(gw_port, ctx, "POST", predict_path,
+                                {"instances": [bodies[0]]})[0],
+            "wrong_audience": ii_call(gw_port, ctx, "POST", predict_path,
+                                      {"instances": [bodies[0]]},
+                                      wrong)[0],
+            "healthz_no_token": ii_call(gw_port, ctx, "GET", "/healthz")[0]}
+        out["a_through_equals_direct"] = through == direct
+        out["b_statuses"] = statuses
+        if through != direct or len(through) != bodies[0]["max_new_tokens"] \
+                or statuses != {"no_token": 401, "wrong_audience": 401,
+                                "healthz_no_token": 200}:
+            raise AssertionError(f"(ii) (a)/(b): {through} {direct} "
+                                 f"{statuses}")
+
+        # (c) the redirect listener.
+        plain = http.client.HTTPConnection(
+            "127.0.0.1", ports["--redirect-port"], timeout=30)
+        try:
+            plain.request("GET", "/some/path", headers={"Host": II_HOST})
+            resp = plain.getresponse()
+            resp.read()
+            out["c_redirect"] = [resp.status, resp.getheader("Location")]
+        finally:
+            plain.close()
+        if out["c_redirect"] != [301, f"https://{II_HOST}/some/path"]:
+            raise AssertionError(f"(ii) (c) {out['c_redirect']}")
+
+        # (d) the handshake presents the issued certificate.
+        handshakes = [ii_serial(gw_port, ctx) for _ in range(10)]
+        if {s for s, _ in handshakes} != {cert["serial"]}:
+            raise AssertionError(f"(ii) (d) served {handshakes}, issued "
+                                 f"{cert['serial']}")
+        out["tls_handshake_ms_p50"] = float(np.median(
+            [sec for _, sec in handshakes])) * 1e3
+        out["added_latency"] = ii_latency(gw_port, r0, ctx, auth,
+                                          bodies, model)
+        out["latency_reading"] = f"beside {II_BESIDE}"
+
+        # (e) an acme Issuer's order walk, its token served over TLS.
+        shift = [0.0]
+        issuers = IssuerController(api)
+        certs = CertificateController(api,
+                                      clock=lambda: time.time() + shift[0])
+        api.create({"apiVersion": CERTS_API_VERSION, "kind": "Issuer",
+                    "metadata": {"name": II_ACME, "namespace": II_NS},
+                    "spec": {"acme": {"url": cm_env["ACME_DIRECTORY_URL"]}}})
+        api.create({"apiVersion": CERTS_API_VERSION, "kind": "Certificate",
+                    "metadata": {"name": "acme-web", "namespace": II_NS},
+                    "spec": {"secretName": "acme-web-tls",
+                             "dnsNames": [II_HOST],
+                             "issuerRef": {"name": II_ACME}}})
+        issuers.reconcile_all()
+        walk, served_token = [], {}
+        for _ in range(3):
+            certs.reconcile_all()
+            order = api.get(CERTS_API_VERSION, "Certificate", "acme-web",
+                            II_NS)["status"].get("order", {})
+            walk.append(order.get("state"))
+            if order.get("state") == ORDER_PENDING:
+                chal = "/.well-known/acme-challenge/"
+                st, _, data, _ = ii_call(gw_port, ctx, "GET",
+                                         chal + order["token"])
+                served_token = {"status": st,
+                                "equal": data.decode() == order["token"],
+                                "other": ii_call(gw_port, ctx, "GET",
+                                                 chal + "other")[0]}
+        out["e_acme"] = {"walk": walk, "challenge": served_token}
+        if walk != [ORDER_PENDING, ORDER_VALIDATED, ORDER_ISSUED] or \
+                served_token != {"status": 200, "equal": True,
+                                 "other": 404}:
+            raise AssertionError(f"(ii) (e) {out['e_acme']}")
+
+        # (d) the rotation: the clock moved into the renew window, the
+        # Secret's files rewritten, new handshakes polled for the new
+        # serial; a keep-alive connection opened before still answers.
+        keep = TlsConn(II_HOST, gw_port, context=ctx, timeout=300)
+        first = ii_call(gw_port, ctx, "GET", "/healthz", conn=keep)[0]
+        shift[0] = II_RENEW_SHIFT_S
+        certs.reconcile_all()
+        rotated = api.get(CERTS_API_VERSION, "Certificate",
+                          "secure-gateway", II_NS)["status"]
+        ii_files(api, "secure-gateway-tls")
+        rewritten = time.perf_counter()
+        while ii_serial(gw_port, ctx)[0] != rotated["serial"]:
+            if time.perf_counter() - rewritten > 30:
+                raise AssertionError("(ii) (d) the gateway kept the old "
+                                     "certificate")
+            time.sleep(0.01)
+        out["reload_s"] = time.perf_counter() - rewritten
+        st, _, data, _ = ii_call(gw_port, ctx, "POST", predict_path,
+                                 {"instances": [bodies[1]]},
+                                 {**auth, "X-Request-ID": "ii-keep"},
+                                 conn=keep)
+        kept = [first, ii_call(gw_port, ctx, "GET", "/healthz",
+                               conn=keep)[0], st]
+        keep.close()
+        with open(log_path) as f:
+            reloads = f.read().count("TLS certificate reloaded")
+        out["d_rotation"] = {"revision": rotated["revision"],
+                             "serial_changed": rotated["serial"]
+                             != cert["serial"],
+                             "cert_reloads": reloads,
+                             "keep_alive_statuses": kept}
+        keep_tokens = json.loads(data)["predictions"][0]["tokens"] \
+            if st == 200 else None
+        if rotated["revision"] != 2 or rotated["serial"] == cert["serial"] \
+                or reloads < 1 or kept != [200, 200, 200] or \
+                keep_tokens != post(r0, bodies[1], model=model)[0]:
+            raise AssertionError(f"(ii) (d) {out['d_rotation']}")
+
+        # (g) r0's launches over (ii)'s requests.
+        after = launches_of(r0)
+        out["paged_launches"] = after[0] - before[0]
+        out["decode_forwards"] = after[1] - before[1]
+        require_launches(out["paged_launches"], out["decode_forwards"],
+                         cfg.n_layers, "(ii) r0")
+    finally:
+        stop_procs(procs)
+        for httpd in servers:
+            httpd.shutdown()
+            httpd.server_close()
+        shutil.rmtree(II_DIR, ignore_errors=True)
+    out["s"] = time.perf_counter() - t0
+    emit("ii_secure_entrypoint", **out)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8957,8 +9435,10 @@ def main() -> int:
     # run while (dd1)'s two servers boot; (ee3)'s walks (whose gates
     # judge latency: no process boots beside them), (ee2)'s timed walks
     # and (gg) run after, alone. (q)'s and (r)'s gates time nothing.
-    booting = "(ee1)'s r1 and (ee3)'s peer pair booting over :pull"
+    booting = ("(ee1)'s r1 and (ee3)'s peer pair booting over :pull, "
+               "(ii) in a thread")
     pool, pair = RenderedPool(), None
+    ii_side = ThreadPoolExecutor(1)
     try:
         served = start_manifest_servers(pool)
         mark("dd_manifests")
@@ -8970,6 +9450,10 @@ def main() -> int:
         pair = start_peer_pair()
         mark("ee_inference_rollout")
         check_manifest_servers(pool, served, dd1)
+        # (ii), host work in front of r0, runs in a thread from here to
+        # (ee1)'s gateway, whose latencies are read alone: its seconds are
+        # its own ("ii_wait" is the wait for it after (ee3)).
+        ii_run = ii_side.submit(phase_secure_entrypoint, smi, pool)
         manifest_experiment(smi, beside=booting)
         mark("dd_manifests")
         axes = phase_scenarios_axes(smi, beside=booting)
@@ -8977,11 +9461,26 @@ def main() -> int:
         phase_deep_gates()
         mark("r_deep")
         peer, pair = check_peer_pair(pair, mark), None
+        ii = ii_run.result()
+        mark("ii_wait")
+        emit("ii_wait", gpu=smi, ii_s=ii["s"], ii_wait_s=seconds["ii_wait"])
         check_inference_service(pool, served, ee1, smi, mark)
     finally:
+        ii_side.shutdown(wait=True)
         pool.close()
         if pair is not None:
             stop_peer_pair(pair)
+    # The walks judge p99s over about a second of traffic from decoders
+    # that run in this process: a full collection of the script's heap
+    # landing in that window reads as one slow token of a replica. One
+    # collection here (its ms printed), and what survives is frozen, so
+    # later collections walk only new objects.
+    t_gc, tracked = time.perf_counter(), len(gc.get_objects())
+    gc.collect()
+    gc.freeze()
+    emit("ee_gc", gpu=smi, tracked_objects=tracked,
+         collect_ms=(time.perf_counter() - t_gc) * 1e3,
+         frozen=gc.get_freeze_count())
     walks32 = rollout_fleet("walk32", torch.float32, F32_GATE_LAYERS)
     emit("ee3_f32_gates", gpu=smi, peer_boot=peer, walks={
         k: walks32[k]["gates"] for k in ("good", "bad")})
@@ -8992,6 +9491,9 @@ def main() -> int:
     emit("phase_seconds", **seconds, hh_leader_compat_notebooks=hh["s"],
          hh_reading="(hh) ran beside (r)'s training, (t) and (u): its "
                     "seconds are its own, not a segment of total_s",
+         ii_secure_entrypoint=ii["s"],
+         ii_reading=f"(ii) ran beside {II_BESIDE}: its seconds are its "
+                    "own, not a segment of total_s",
          total_s=time.perf_counter() - t0)
 
     p, r = paged["bf16"], rms[f"{SLOTS}x2048"]

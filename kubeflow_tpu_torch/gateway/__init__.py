@@ -214,7 +214,8 @@ class Gateway:
         self._proxy: ThreadingHTTPServer | None = None
         self._admin: ThreadingHTTPServer | None = None
         self._redirect: ThreadingHTTPServer | None = None
-        self._ssl_ctx = None
+        self._ssl_ctx = None      # the listener's context
+        self._tls_current = None  # the newest loaded; handshakes move to it
         self._cert_watch_stop = threading.Event()
 
     def note_affinity(self, route_name: str, kind: str) -> None:
@@ -292,11 +293,31 @@ class Gateway:
             except Exception:  # pragma: no cover — probe must never die
                 log.exception("upstream probe pass failed")
 
+    def _load_tls(self):
+        """A server context holding the cert/key files as they are now."""
+        import ssl
+
+        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        ctx.load_cert_chain(self.certfile, self.keyfile or None)
+        return ctx
+
+    def _pick_tls(self, sslobj, server_name, ctx) -> None:
+        """The listener's SNI callback, which OpenSSL calls on every
+        handshake (``server_name`` None without SNI): move the handshake
+        onto the newest loaded context."""
+        current = self._tls_current
+        if current is not ctx:
+            sslobj.context = current
+
     def _watch_certs(self) -> None:
-        """Poll the cert/key files; on change, reload them into the SAME
-        SSLContext — new handshakes present the rotated certificate while
-        the listener and every established connection stay up (the
-        rotation contract the certificate controller relies on)."""
+        """Poll the cert/key files; on change, load them into a NEW
+        SSLContext and make it the one new handshakes take (``_pick_tls``)
+        — they present the rotated certificate while the listener and
+        every established connection stay up (the rotation contract the
+        certificate controller relies on). Reloading into the live
+        context instead fails the handshakes that land mid-load: OpenSSL
+        drops the context's key while a new certificate does not match
+        it."""
         import os
 
         def stamp():
@@ -313,10 +334,11 @@ class Gateway:
             if now is None or now == last:
                 continue
             try:
-                self._ssl_ctx.load_cert_chain(self.certfile,
-                                              self.keyfile or None)
+                self._tls_current = self._load_tls()
                 self.cert_reloads += 1
                 last = now
+                log.info("TLS certificate reloaded from %s (reload %d)",
+                         self.certfile, self.cert_reloads)
             except (OSError, ValueError):
                 # Mid-rotation read (cert/key momentarily mismatched):
                 # keep serving the previous pair; next poll retries.
@@ -355,11 +377,8 @@ class Gateway:
         )
         self.port = self._proxy.server_address[1]  # resolve port 0
         if self.certfile:
-            import ssl
-
-            self._ssl_ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
-            self._ssl_ctx.load_cert_chain(self.certfile,
-                                          self.keyfile or None)
+            self._ssl_ctx = self._tls_current = self._load_tls()
+            self._ssl_ctx.sni_callback = self._pick_tls
             self._proxy.socket = self._ssl_ctx.wrap_socket(
                 self._proxy.socket, server_side=True
             )

@@ -12,6 +12,7 @@ import time
 
 from kubeflow_tpu_torch.gateway import Gateway, RouteTable
 from kubeflow_tpu_torch.k8s_client import ApiError
+from kubeflow_tpu_torch.operators.certificates import ACME_CHALLENGE_CONFIGMAP
 from kubeflow_tpu_torch.runtime import (
     add_client_args,
     client_from_args,
@@ -19,11 +20,6 @@ from kubeflow_tpu_torch.runtime import (
 )
 
 log = logging.getLogger(__name__)
-
-# The ConfigMap the certificate controller publishes HTTP-01 tokens in
-# (``kubeflow_tpu/operators/certificates.py``'s
-# ``ACME_CHALLENGE_CONFIGMAP``).
-ACME_CHALLENGE_CONFIGMAP = "acme-challenges"
 
 
 def main(argv=None) -> int:

@@ -152,6 +152,12 @@ def affinity_key_for(body: bytes | None, path: str, width: int) -> str:
 def make_proxy_handler(gw):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
+        # TCP_NODELAY on each client connection. Over TLS 1.3 the server
+        # sends its session tickets after the handshake; with Nagle on,
+        # the response's first segment then waits for the client's
+        # delayed ACK of them (about 40 ms on Linux) on every new
+        # connection.
+        disable_nagle_algorithm = True
 
         def log_message(self, *a):
             pass

@@ -87,6 +87,10 @@ _KNOWN_KINDS: dict[str, tuple[str, bool]] = {
     "InferenceService": ("inferenceservices", True),
     "RLJob": ("rljobs", True),
     "SchedulingPolicy": ("schedulingpolicies", True),
+    # The secure entrypoint's CRs (apis/certificates.py).
+    "Issuer": ("issuers", True),
+    "Certificate": ("certificates", True),
+    "Endpoint": ("endpoints", True),
     # The CRs the dashboards list, as JAX's platform registry holds them.
     "Notebook": ("notebooks", True),
     "StudyJob": ("studyjobs", True),

@@ -4,8 +4,9 @@
 
 A *prototype* is a registered function taking validated params and
 returning a list of Kubernetes objects (plain dicts). The port's
-prototypes live in this package (``common.py``, ``rl.py``,
-``scheduling.py``, ``serving.py``, ``training.py``) and
+prototypes live in this package (``common.py``, ``notebooks.py``,
+``rl.py``, ``scheduling.py``, ``secure_entrypoint.py``, ``serving.py``,
+``training.py``) and
 register on import; JAX's prototypes never load into this registry.
 """
 
@@ -19,8 +20,8 @@ from typing import Any, Callable, Mapping, Sequence
 DEFAULT_NAMESPACE = "kubeflow"
 
 # The modules whose prototypes :func:`load_all_packages` registers.
-PACKAGES = ("common", "notebooks", "rl", "scheduling", "serving",
-            "training")
+PACKAGES = ("common", "notebooks", "rl", "scheduling", "secure_entrypoint",
+            "serving", "training")
 
 
 class PrototypeError(Exception):

@@ -9,6 +9,7 @@ output.
 
 from __future__ import annotations
 
+import base64
 from typing import Any, Mapping, Sequence
 
 def _clean(d: dict) -> dict:
@@ -221,6 +222,38 @@ def config_map(name: str, namespace: str, data: Mapping[str, str],
         "metadata": metadata(name, namespace, labels),
         "data": {k: str(v) for k, v in data.items()},
     }
+
+
+def secret(name: str, namespace: str, string_data: Mapping[str, str],
+           secret_type: str = "Opaque") -> dict:
+    return {
+        "apiVersion": "v1",
+        "kind": "Secret",
+        "metadata": metadata(name, namespace),
+        "type": secret_type,
+        "stringData": {k: str(v) for k, v in string_data.items()},
+    }
+
+
+def secret_data(sec: Mapping) -> dict[str, str]:
+    """A Secret's payload as plain strings.
+
+    A real apiserver never returns ``stringData`` (it is write-only) and
+    base64-encodes ``data``; a fake apiserver stores ``stringData`` as it
+    was written. Controllers read through this helper so they behave the
+    same against both. A ``data`` value that is not base64 of UTF-8 text
+    (a binary keystore, a corrupt value) is left out, so a caller that
+    needs it gets a KeyError rather than garbage text.
+    """
+    out: dict[str, str] = dict(sec.get("stringData") or {})
+    for k, v in (sec.get("data") or {}).items():
+        if k in out:
+            continue
+        try:
+            out[k] = base64.b64decode(v, validate=True).decode("utf-8")
+        except (ValueError, TypeError, UnicodeDecodeError):
+            continue
+    return out
 
 
 def pvc(name: str, namespace: str, storage: str,

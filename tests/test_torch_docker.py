@@ -117,6 +117,7 @@ def test_entry_points_import_without_jax():
                "kubeflow_tpu_torch.dashboard.training",
                "kubeflow_tpu_torch.train.loop",
                "kubeflow_tpu_torch.operators.notebook",
+               "kubeflow_tpu_torch.operators.certificate",
                "kubeflow_tpu_torch.webapps.jupyter",
                *(f"kubeflow_tpu_torch.workloads.{m}" for m in (
                    "allreduce_smoke", "tf_cnn", "torch_xla_ddp",
@@ -131,6 +132,31 @@ def test_entry_points_import_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _stage_and_parents(name: str) -> list[tuple[str, str]]:
+    """The instructions of stage ``name`` and of the stages it is built
+    ``FROM``, parents first."""
+    instrs = _instructions(RECIPE)
+    starts = [i for i, (k, _) in enumerate(instrs) if k == "FROM"]
+    stages = {}
+    for at, i in enumerate(starts):
+        words = instrs[i][1].split()
+        end = starts[at + 1] if at + 1 < len(starts) else len(instrs)
+        stages[words[-1]] = (words[0], instrs[i:end])
+    parent, own = stages[name]
+    return (_stage_and_parents(parent) if parent in stages else []) + own
+
+
+def test_runtime_stage_installs_cryptography():
+    """The certificate controllers (``auth/pki.py``) and the gateway's
+    JWT checks (``auth/tokens.py``) import ``cryptography`` where they
+    sign or verify: the image the ``cert-manager`` and ``secure-ingress``
+    pods run installs it."""
+    words = [w for kind, rest in _stage_and_parents("runtime")
+             if kind == "RUN" and "pip install" in rest
+             for w in rest.split()]
+    assert "cryptography" in words
 
 
 def test_notebook_stage_adds_jupyterlab_and_is_tagged():

@@ -94,9 +94,17 @@ PAIRS = {
                             jimages.PLATFORM, None, None),
     "jupyter-web-app": ("jupyter-web-app", "gpu-jupyter-web-app",
                         jimages.PLATFORM, None, None),
+    # The secure entrypoint: JAX's names, host code on the port's image.
+    "cert-manager": ("cert-manager", "cert-manager", jimages.PLATFORM, None,
+                     None),
+    "secure-ingress": ("secure-ingress", "secure-ingress", jimages.PLATFORM,
+                       None, None),
+    "cloud-endpoints": ("cloud-endpoints", "cloud-endpoints", None, None,
+                        None),
 }
 HOST_PAIRS = ("gateway", "centraldashboard", "training-dashboard",
-              "scheduler", "notebook-controller", "jupyter-web-app")
+              "scheduler", "notebook-controller", "jupyter-web-app",
+              "cert-manager", "secure-ingress", "cloud-endpoints")
 # Pairs that ship a CRD whose schema stays JAX's (``spec.tpu`` kept).
 JAX_SCHEMA_PAIRS = ("rl", "training-operator", "notebook-controller")
 # JAX's images a config names, and the port's in their place.
@@ -163,6 +171,16 @@ PARAMS = {
     "notebook-controller": [{}, {"namespace": "team"}],
     "jupyter-web-app": [{}, {"namespace": "team"},
                         {"default_notebook_image": "my/nb:1"}],
+    "cert-manager": [{}, {"namespace": "team",
+                          "acme_url": "https://acme.example/dir",
+                          "acme_email": "ops@example.com"}],
+    "secure-ingress": [
+        {}, {"hostname": "kf.example.com", "issuer": "letsencrypt",
+             "issuer_type": "acme"},
+        {"namespace": "team", "replicas": 1, "disable_jwt_checking": True,
+         "duration_seconds": 3600, "renew_before_seconds": 600}],
+    "cloud-endpoints": [{}, {"hostname": "kf.example.com",
+                             "target": "secure-gateway.kubeflow"}],
 }
 CASES = [(pair, i) for pair in PAIRS for i in range(len(PARAMS[pair]))]
 

@@ -310,11 +310,13 @@ def test_cli_rejects_dense_layout_and_bad_block_size():
 # and rollout controllers, the sweep, the lint, the apiserver client and
 # fake, the gateway and the dashboards), held to the same rule.
 PLATFORM_MODULES = [
+    "kubeflow_tpu_torch.apis.certificates",
     "kubeflow_tpu_torch.apis.experiment",
     "kubeflow_tpu_torch.apis.inference",
     "kubeflow_tpu_torch.apis.notebooks",
     "kubeflow_tpu_torch.apis.pipelines",
     "kubeflow_tpu_torch.apis.tuning",
+    "kubeflow_tpu_torch.auth.pki",
     "kubeflow_tpu_torch.auth.tokens",
     "kubeflow_tpu_torch.dashboard",
     "kubeflow_tpu_torch.dashboard.__main__",
@@ -338,6 +340,7 @@ PLATFORM_MODULES = [
     "kubeflow_tpu_torch.manifests.objects",
     "kubeflow_tpu_torch.manifests.rl",
     "kubeflow_tpu_torch.manifests.scheduling",
+    "kubeflow_tpu_torch.manifests.secure_entrypoint",
     "kubeflow_tpu_torch.manifests.serving",
     "kubeflow_tpu_torch.manifests.training",
     "kubeflow_tpu_torch.observability.lint",
@@ -347,6 +350,8 @@ PLATFORM_MODULES = [
     "kubeflow_tpu_torch.operators.inference",
     "kubeflow_tpu_torch.operators.jobs",
     "kubeflow_tpu_torch.operators.leader",
+    "kubeflow_tpu_torch.operators.certificate",
+    "kubeflow_tpu_torch.operators.certificates",
     "kubeflow_tpu_torch.operators.notebook",
     "kubeflow_tpu_torch.operators.notebooks",
     "kubeflow_tpu_torch.operators.rl",
@@ -394,14 +399,20 @@ def test_package_imports_neither_jax_nor_the_jax_package():
     "kubeflow_tpu_torch.operators.leader",
     "kubeflow_tpu_torch.operators.notebook",
     "kubeflow_tpu_torch.operators.notebooks",
+    "kubeflow_tpu_torch.auth.pki",
+    "kubeflow_tpu_torch.apis.certificates",
+    "kubeflow_tpu_torch.operators.certificate",
+    "kubeflow_tpu_torch.operators.certificates",
+    "kubeflow_tpu_torch.manifests.secure_entrypoint",
     "kubeflow_tpu_torch.webapps.jupyter",
     "kubeflow_tpu_torch.workloads.mpi_launcher",
     "kubeflow_tpu_torch.workloads.mxnet_ps",
     "kubeflow_tpu_torch.workloads.chainermn_train"])
 def test_front_door_imports_neither_torch_nor_jax(module):
     """The gateway, the dashboards and the other host-only modules (leader
-    election, the notebook controller and web app, the MPI launcher and
-    the two numpy workloads) are host code: a fresh interpreter that
+    election, the notebook controller and web app, the certificate
+    controllers with their entry point, PKI, CRDs and prototypes, the MPI
+    launcher and the two numpy workloads) are host code: a fresh interpreter that
     imports one of them (and the JWT path the gateway's flags reach)
     loads no module of ``kubeflow_tpu``, no ``jax`` and no ``torch``."""
     root = Path(__file__).resolve().parent.parent
